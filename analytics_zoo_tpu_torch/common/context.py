@@ -26,6 +26,8 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.pallas.attention": "auto",  # auto (CUDA, T >= 2048) | true | false
     "zoo.compute.dtype": "float32",  # float32 | bfloat16
     "zoo.log.level": "INFO",
+    "zoo.train.scan_steps": 1,       # only 1: fused multi-step dispatch
+    "zoo.train.device_cache": False,  # only false: device-resident data
 }
 
 _ENV_PREFIX = "ZOO_TPU_"
@@ -162,6 +164,7 @@ def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
     # validate before any global side effect
     merged["zoo.compute.dtype"] = dtype_name(
         merged.get("zoo.compute.dtype", "float32"))
+    _check_ported_train_conf(merged)
     logging.basicConfig(level=merged.get("zoo.log.level", "INFO"))
     # ownership: an explicit zoo.compute.dtype makes the CONTEXT own the
     # policy; a re-init without one resets a context-owned policy; a
@@ -171,6 +174,24 @@ def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
         _engine._set_policy_from_context(merged["zoo.compute.dtype"])
     _context = ZooContext(conf=merged)
     return _context
+
+
+def _check_ported_train_conf(conf: Mapping[str, Any]) -> None:
+    """The training loop runs one optimizer step per dispatch from host
+    batches; the JAX package's fused and device-cached paths are not
+    ported, so their keys are accepted only at those values."""
+    steps = conf.get("zoo.train.scan_steps", 1)
+    if int(steps) != 1:
+        raise NotImplementedError(
+            f"zoo.train.scan_steps={steps!r}: fused multi-step dispatch is "
+            f"not ported yet; set 1")
+    cache = conf.get("zoo.train.device_cache", False)
+    if isinstance(cache, str):
+        cache = cache.strip().lower() not in FALSE_FLAG_SPELLINGS
+    if cache:
+        raise NotImplementedError(
+            f"zoo.train.device_cache={conf['zoo.train.device_cache']!r}: "
+            f"the device-resident dataset is not ported yet; set false")
 
 
 def get_zoo_context() -> ZooContext:

@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from ..common.noise import noise_generator
+
 NEG_INF = -1e9
 
 
@@ -35,9 +37,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits + (1.0 - mask.float()) * NEG_INF
     weights = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and generator is not None:
-        keep = torch.rand(weights.shape, generator=generator,
-                          device=generator.device).to(q.device) \
-            < 1.0 - dropout_rate
+        keep = torch.rand(weights.shape,
+                          generator=noise_generator(generator, q.device),
+                          device=q.device) < 1.0 - dropout_rate
         weights = torch.where(keep, weights / (1.0 - dropout_rate),
                               torch.zeros((), device=q.device))
     out = torch.matmul(weights.to(v.dtype).float(), v.float())

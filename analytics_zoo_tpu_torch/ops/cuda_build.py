@@ -10,6 +10,7 @@ so the CPU tests (which have no ``nvcc``) import every module freely.
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import hashlib
 import os
 import shutil
@@ -86,3 +87,11 @@ class CudaLibrary:
                 self._bind(lib)
                 self._lib = lib
             return self._lib
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> None:
+    """Build and load ``libraries`` with one ``nvcc`` each, all started
+    together (each build is its own process, so threads overlap them)."""
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.get) for lib in libraries]:
+            fut.result()

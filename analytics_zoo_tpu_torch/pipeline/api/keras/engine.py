@@ -277,13 +277,93 @@ class Layer(nn.Module):
 
 class KerasNet(Layer):
     """Base of the model containers — ``KerasNet.apply`` runs the forward
-    pass. The port's layers are stateless, so ``apply`` returns the
-    output alone (the JAX package threads a ``state`` tree beside it for
-    BatchNorm, which is not ported yet)."""
+    pass, and ``compile``/``fit``/``evaluate``/``predict``/
+    ``predict_classes`` are the Keras facade over ``training.
+    TrainingLoop`` with the JAX package's argument conventions
+    (``training.py:2197-2330``). The port's layers are stateless, so
+    ``apply`` returns the output alone (the JAX package threads a ``state``
+    tree beside it for BatchNorm, which is not ported yet)."""
+
+    #: training progress and optimizer state, kept across fit calls
+    opt_state = None
+    finished_epochs = 0
+    finished_iterations = 0
+    _loop = None
 
     def apply(self, x, *, training: bool = False,
               generator: Optional[torch.Generator] = None):
         return self(x, training=training, generator=generator)
+
+    def __getstate__(self):
+        """Copies (``copy.deepcopy``, pickling) carry the network and its
+        weights; the training loop and the optimizer state stay with the
+        original, as a served copy needs neither."""
+        state = dict(self.__dict__)
+        for key in ("_loop", "opt_state", "_opt_state_owner"):
+            state.pop(key, None)
+        return state
+
+    def compile(self, optimizer="adam", loss="mse", metrics=None,
+                clip_norm: Optional[float] = None,
+                clip_value: Optional[float] = None, **opt_kwargs):
+        """``KerasNet.compile`` (``Topology.scala:135``): ``optimizer`` is
+        a name (``opt_kwargs`` such as ``lr`` go to its constructor) or a
+        ``GradientTransformation``; ``loss`` a name or callable;
+        ``metrics`` names."""
+        from . import metrics as metrics_lib
+        from . import objectives, optimizers
+        from .training import TrainingLoop
+        opt = optimizers.with_clipping(
+            optimizers.get_optimizer(optimizer, **opt_kwargs),
+            clip_norm=clip_norm, clip_value=clip_value)
+        self._loop = TrainingLoop(
+            self, opt, objectives.get_loss(loss),
+            [metrics_lib.get_metric(m) for m in (metrics or [])])
+        return self
+
+    def _compiled_loop(self, what: str):
+        if self._loop is None:
+            raise RuntimeError(f"call compile() before {what}()")
+        return self._loop
+
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
+            validation_data=None, shuffle: bool = True, callbacks=()):
+        """``KerasNet.fit`` (``Topology.scala:418``): ``x`` an array, a
+        list of arrays or a ``FeatureSet`` (then ``y=None``). ``nb_epoch``
+        more epochs; returns ``{"loss": [...], "val_*": [...]}``."""
+        from ....feature.feature_set import FeatureSet
+        loop = self._compiled_loop("fit")
+        if isinstance(x, FeatureSet):
+            return loop.fit_feature_set(x, batch_size=batch_size,
+                                        nb_epoch=nb_epoch,
+                                        validation_data=validation_data,
+                                        callbacks=callbacks)
+        return loop.fit(x, y, batch_size=batch_size, nb_epoch=nb_epoch,
+                        validation_data=validation_data, shuffle=shuffle,
+                        callbacks=callbacks)
+
+    def evaluate(self, x, y=None, batch_size: int = 32):
+        """``KerasNet.evaluate`` (``Topology.scala:496``): the loss and
+        every compiled metric over ``x``, padded tail rows masked out."""
+        return self._compiled_loop("evaluate").evaluate(
+            x, y, batch_size=batch_size)
+
+    def predict(self, x, batch_size: int = 32):
+        """``KerasNet.predict``: outputs as a float32 numpy array."""
+        loop = self._loop
+        if loop is None:
+            from . import objectives, optimizers
+            from .training import TrainingLoop
+            loop = TrainingLoop(self, optimizers.identity(),
+                                objectives.get_loss("mse"))
+        return loop.predict(x, batch_size=batch_size)
+
+    def predict_classes(self, x, batch_size: int = 32,
+                        zero_based: bool = True):
+        """``predictClass`` (``Predictor.scala:210``)."""
+        from .training import probs_to_classes
+        return probs_to_classes(self.predict(x, batch_size=batch_size),
+                                zero_based=zero_based)
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:

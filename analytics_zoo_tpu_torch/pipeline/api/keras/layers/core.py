@@ -8,6 +8,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from .....common.noise import noise_generator
 from ..engine import Layer, compute_dtype, get_initializer, param_dtype
 
 ACTIVATIONS: Dict[str, Callable] = {
@@ -70,11 +71,13 @@ class Dense(Layer):
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator], training: bool):
-    """Inverted dropout drawn from ``generator``; identity at inference."""
+    """Inverted dropout drawn from ``generator`` (a CPU generator; the mask
+    is drawn on ``x``'s device); identity at inference."""
     if not training or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=generator.device).to(x.device) < 1.0 - rate
+    keep = torch.rand(x.shape, generator=noise_generator(generator,
+                                                         x.device),
+                      device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device)
                        ).to(x.dtype)

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .....common.noise import split_seeds
 from .....ops.attention import dot_product_attention, merge_heads, split_heads
 from ..engine import Layer, compute_dtype, get_initializer, param_dtype
 from .core import dense, dropout
@@ -38,13 +39,13 @@ class DenseParams(Layer):
 
 
 def _split_generator(generator: Optional[torch.Generator], n: int):
-    """``n`` independent generators drawn from ``generator`` (or Nones)."""
+    """``n`` independent CPU generators drawn from the CPU ``generator``
+    (or Nones). Only seeds are split here; each noise draw makes its own
+    generator on the device it draws for (``noise_generator``)."""
     if generator is None:
         return [None] * n
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
-                          device=generator.device).tolist()
-    return [torch.Generator(device=generator.device).manual_seed(s)
-            for s in seeds]
+    return [torch.Generator().manual_seed(s)
+            for s in split_seeds(generator, n)]
 
 
 class MultiHeadSelfAttention(Layer):
@@ -113,6 +114,8 @@ class MultiHeadSelfAttention(Layer):
         qh, kh, vh = (split_heads(a, self.n_head) for a in (q, k, v))
         drop = self.attn_drop if training else 0.0
         if self._use_flash(mask, drop, qh.shape[2], qh.device):
+            # under autograd this is the kernels' autograd Function: K2
+            # with the lse forward, K3a + K3b backward
             from .....ops.pallas import flash_attention
             out = flash_attention(qh.contiguous(), kh.contiguous(),
                                   vh.contiguous(), mask=self._kv_mask(mask),

@@ -1,0 +1,303 @@
+"""TrainingLoop — port of ``analytics_zoo_tpu/pipeline/api/keras/
+training.py`` on its plain path: ``fit`` → ``fit_feature_set`` → the
+per-step loop (``scan_steps=1``, no device cache), the plain step of
+``_make_step_core`` (forward, loss, backward, optimizer update),
+``evaluate`` with masked padded tails, and ``predict``.
+
+What the JAX loop does and this one keeps:
+
+* batch order: ``FeatureSet(seed=zoo.seed)`` walked with ``epoch =
+  zoo.seed + epoch`` (epochs count from ``finished_epochs + 1``), drop-last;
+* ``nb_epoch`` is additive over fit calls; the epoch loss is the mean of
+  the step losses; ``history["loss"]`` holds one value per epoch and
+  every callback gets ``{"epoch", "loss", "iteration", "throughput"}``;
+* no host sync inside an epoch: batches go to the device through pinned
+  memory without blocking, step losses stay on the device and are read
+  once at the epoch's end;
+* the ``zoo_train_*`` step-time, throughput, step and example metrics in
+  the process registry.
+
+Training noise: each step draws from a CPU generator seeded from
+``(zoo.seed, iteration)``, the counterpart of ``fold_in(base_rng,
+iteration)``; dropout masks are drawn on the device (``common/noise.py``).
+
+Not ported yet, with their seams left where the JAX loop has them:
+anomaly sentinels and gradient clipping in the step, checkpoints and
+resume, retry on failure, SIGTERM snapshots, goodput accounting, scan and
+epoch fusion, the device-resident dataset, remat, the sequence/pipeline
+scopes and the fused LM-head cross-entropy resolution.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ....common.context import get_zoo_context
+from ....feature.feature_set import FeatureSet
+from ....observability import default_registry
+from . import objectives
+from .metrics import Metric
+from .optimizers import GradientTransformation, apply_updates
+
+log = logging.getLogger("analytics_zoo_tpu_torch")
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _num_examples(x) -> int:
+    return _as_list(x)[0].shape[0]
+
+
+def _to_device(x, device: torch.device):
+    """numpy batch (array or list) → tensors on ``device``. CUDA copies go
+    through pinned memory and do not block the host; the caching host
+    allocator keeps each pinned buffer until its copy has run."""
+    def one(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    xs = [one(a) for a in _as_list(x)]
+    return xs if isinstance(x, (list, tuple)) else xs[0]
+
+
+def _pad_to(x, size: int):
+    """Pad the batch dim to ``size`` by repeating the last row."""
+    out = []
+    for a in _as_list(x):
+        pad = size - a.shape[0]
+        if pad > 0:
+            a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+        out.append(a)
+    return out if isinstance(x, (list, tuple)) else out[0]
+
+
+def _padded_batches(x, y, batch_size: int):
+    """Fixed-size batches in order, the tail padded by repeating its last
+    row, each with a ``(batch_size,)`` validity mask — so the device sees
+    one batch shape and padded rows never enter a statistic."""
+    n = _num_examples(x)
+    for i in range(0, n, batch_size):
+        idx = np.arange(i, min(i + batch_size, n))
+        bx = [np.asarray(a)[idx] for a in _as_list(x)]
+        bx = bx if isinstance(x, (list, tuple)) else bx[0]
+        by = None if y is None else np.asarray(y)[idx]
+        real = len(idx)
+        if real < batch_size:
+            bx = _pad_to(bx, batch_size)
+            by = None if by is None else _pad_to(by, batch_size)
+        mask = np.zeros(batch_size, np.float32)
+        mask[:real] = 1.0
+        yield bx, by, mask, real
+
+
+def step_generator(seed: int, iteration: int) -> torch.Generator:
+    """The CPU generator of one training step's noise."""
+    state = np.random.SeedSequence([seed, iteration]).generate_state(2)
+    return torch.Generator().manual_seed(
+        (int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1))
+
+
+class TrainingLoop:
+    """Owns the step of one (model, optimizer, loss, metrics) triple."""
+
+    def __init__(self, model, optimizer: GradientTransformation,
+                 loss: Callable, metrics: Sequence[Metric] = ()):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss = loss
+        self.metrics = list(metrics)
+        self._registry = default_registry()
+        self._m_step_time = self._registry.histogram(
+            "zoo_train_step_seconds",
+            "optimizer-step wall time (amortized over the epoch)")
+        self._m_throughput = self._registry.gauge(
+            "zoo_train_records_per_sec", "training examples/sec, last epoch")
+        self._m_steps = self._registry.counter(
+            "zoo_train_steps_total", "optimizer steps run")
+        self._m_examples = self._registry.counter(
+            "zoo_train_examples_total", "training examples consumed")
+
+    # -- model plumbing -----------------------------------------------------
+    def _ensure_weights(self) -> None:
+        if not getattr(self.model, "built", True):
+            self.model.init_weights()
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _params(self) -> Dict[str, torch.Tensor]:
+        return {n: p for n, p in self.model.named_parameters()
+                if p.requires_grad}
+
+    def _opt_state(self, params):
+        """The model's optimizer state when this loop's optimizer made it
+        (a later fit continues it), else a fresh one."""
+        model = self.model
+        if (model.opt_state is None
+                or getattr(model, "_opt_state_owner", None)
+                is not self.optimizer):
+            model.opt_state = self.optimizer.init(params)
+            model._opt_state_owner = self.optimizer
+        return model.opt_state
+
+    # -- the step -------------------------------------------------------------
+    def train_step(self, x, y, generator: Optional[torch.Generator],
+                   params: Dict[str, torch.Tensor], opt_state) -> torch.Tensor:
+        """Forward, loss, backward, optimizer update (the JAX plain step).
+        Returns the step's loss as a device scalar; nothing syncs."""
+        for p in params.values():
+            p.grad = None
+        y_pred = self.model(x, training=True, generator=generator)
+        loss = self.loss(y, y_pred)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        updates, _ = self.optimizer.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return loss.detach()
+
+    # -- fit ------------------------------------------------------------------
+    def fit(self, x, y, *, batch_size: int, nb_epoch: int,
+            validation_data=None, shuffle: bool = True,
+            callbacks: Sequence[Callable[[Dict[str, Any]], None]] = (),
+            ) -> Dict[str, List[float]]:
+        fs = FeatureSet.array(x, y, shuffle=shuffle,
+                              seed=get_zoo_context().seed)
+        return self.fit_feature_set(fs, batch_size=batch_size,
+                                    nb_epoch=nb_epoch,
+                                    validation_data=validation_data,
+                                    callbacks=callbacks)
+
+    def fit_feature_set(self, fs: FeatureSet, *, batch_size: int,
+                        nb_epoch: int, validation_data=None,
+                        callbacks: Sequence[Callable] = (),
+                        ) -> Dict[str, List[float]]:
+        if fs.y is None:
+            raise ValueError("fit needs labels")
+        ctx = get_zoo_context()
+        model = self.model
+        self._ensure_weights()
+        device = self._device()
+        params = self._params()
+        opt_state = self._opt_state(params)
+        history: Dict[str, List[float]] = {"loss": []}
+        iteration = model.finished_iterations
+        target = model.finished_epochs + nb_epoch
+        for epoch in range(model.finished_epochs + 1, target + 1):
+            t0 = time.time()
+            losses = []
+            for bx, by in fs.iter_batches(batch_size,
+                                          epoch=ctx.seed + epoch,
+                                          drop_last=True):
+                losses.append(self.train_step(
+                    _to_device(bx, device), _to_device(by, device),
+                    step_generator(ctx.seed, iteration), params,
+                    opt_state))
+                iteration += 1
+            # the epoch's one read of the device
+            epoch_loss = (float(torch.stack(losses).float().mean())
+                          if losses else float("nan"))
+            dt = time.time() - t0
+            n_seen = len(losses) * batch_size
+            self._observe_fit_metrics(len(losses), dt, n_seen)
+            history["loss"].append(epoch_loss)
+            model.finished_epochs = epoch
+            model.finished_iterations = iteration
+            record = {"epoch": epoch, "loss": epoch_loss,
+                      "iteration": iteration,
+                      "throughput": n_seen / dt if dt > 0 else 0.0}
+            if validation_data is not None:
+                vx, vy = ((validation_data.x, validation_data.y)
+                          if isinstance(validation_data, FeatureSet)
+                          else validation_data)
+                val = self.evaluate(vx, vy, batch_size=batch_size)
+                for k, v in val.items():
+                    history.setdefault("val_" + k, []).append(v)
+                record.update({"val_" + k: v for k, v in val.items()})
+            log.info("Epoch %d: loss=%.6f (%.1f ex/s)", epoch,
+                     epoch_loss, record["throughput"])
+            for cb in callbacks:
+                cb(record)
+        return history
+
+    def _observe_fit_metrics(self, steps: int, dt: float,
+                             n_examples: int) -> None:
+        if steps <= 0 or dt <= 0:
+            return
+        self._m_step_time.observe(dt / steps, n=steps)
+        self._m_throughput.set(n_examples / dt)
+        self._m_steps.inc(steps)
+        self._m_examples.inc(n_examples)
+
+    # -- evaluate / predict -------------------------------------------------
+    def evaluate(self, x, y=None, *, batch_size: int = 32
+                 ) -> Dict[str, float]:
+        if isinstance(x, FeatureSet):
+            x, y = x.x, x.y
+        self._ensure_weights()
+        device = self._device()
+        pe_loss = objectives.per_example_loss(self.loss)
+        totals: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        with torch.no_grad():
+            for bx, by, mask, _ in _padded_batches(x, y, batch_size):
+                by_d = _to_device(by, device)
+                mask_d = _to_device(mask, device)
+                y_pred = self.model(_to_device(bx, device), training=False)
+                stats = {m.name: m.update(by_d, y_pred, mask_d)
+                         for m in self.metrics}
+                if pe_loss is not None:
+                    stats["loss"] = {
+                        "sum": torch.sum(pe_loss(by_d, y_pred) * mask_d),
+                        "count": torch.sum(mask_d)}
+                else:
+                    # a cross-batch loss has no per-example form: the
+                    # whole-batch value, weighted by the real rows
+                    stats["loss"] = {
+                        "sum": self.loss(by_d, y_pred) * torch.sum(mask_d),
+                        "count": torch.sum(mask_d)}
+                totals = stats if totals is None else {
+                    k: {s: totals[k][s] + v for s, v in d.items()}
+                    for k, d in stats.items()}
+        if totals is None:
+            return {}
+        host = {k: {s: v.item() for s, v in d.items()}
+                for k, d in totals.items()}
+        out = {m.name: float(m.finalize(host[m.name])) for m in self.metrics}
+        out["loss"] = host["loss"]["sum"] / max(host["loss"]["count"], 1.0)
+        return out
+
+    def predict(self, x, *, batch_size: int = 32):
+        if isinstance(x, FeatureSet):
+            x = x.x
+        self._ensure_weights()
+        device = self._device()
+        outs = []
+        with torch.no_grad():
+            for bx, _, _, real in _padded_batches(x, None, batch_size):
+                y_pred = self.model(_to_device(bx, device), training=False)
+                outs.append(y_pred[:real])
+        if not outs:
+            return None
+        return torch.cat(outs).float().cpu().numpy()
+
+
+def probs_to_classes(probs: np.ndarray, zero_based: bool = True,
+                     threshold: float = 0.5) -> np.ndarray:
+    """Multi-class: argmax over the last axis. Binary (one column or 1-D):
+    threshold at ``threshold`` (the ``predictClass`` rule)."""
+    probs = np.asarray(probs)
+    if probs.ndim > 1 and probs.shape[-1] > 1:
+        cls = np.argmax(probs, axis=-1).astype(np.int32)
+    else:
+        cls = (probs.reshape(-1) > threshold).astype(np.int32)
+    return cls if zero_based else cls + 1

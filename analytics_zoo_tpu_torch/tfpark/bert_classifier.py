@@ -1,7 +1,9 @@
 """BERTClassifier — port of ``analytics_zoo_tpu/tfpark/bert_classifier.py``
-(``_BertClassifierNet``, ``BERTClassifier``, ``make_bert_inputs``) plus
-:func:`load_jax_params`, which moves a JAX param tree across name for
-name. The HuggingFace importer is not ported yet."""
+(``_BertClassifierNet``, ``BERTClassifier``, ``make_bert_inputs``, the
+torch/HuggingFace encoder import ``bert_params_from_torch`` and
+``install_pretrained_bert``) plus :func:`load_jax_params`, which moves a
+JAX param tree across name for name. ``BERTClassifier`` trains through
+the ``KerasNet`` facade: ``compile``/``fit``/``evaluate``/``predict``."""
 
 from __future__ import annotations
 
@@ -88,6 +90,13 @@ class BERTClassifier(ZooModel):
         """[ids, token_type, position, mask] from just token ids."""
         return make_bert_inputs(token_ids, token_type_ids, attention_mask)
 
+    def load_pretrained(self, state_dict: Mapping[str, Any]
+                        ) -> "BERTClassifier":
+        """Install encoder weights from a HuggingFace/torch BERT
+        ``state_dict``; the classifier head keeps its fresh init (the
+        fine-tuning setup)."""
+        return install_pretrained_bert(self, state_dict)
+
 
 def make_bert_inputs(token_ids: np.ndarray,
                      token_type_ids: Optional[np.ndarray] = None,
@@ -102,6 +111,59 @@ def make_bert_inputs(token_ids: np.ndarray,
     mask = (np.asarray(attention_mask, np.float32)
             if attention_mask is not None else np.ones((b, t), np.float32))
     return [ids, tt, pos, mask]
+
+
+def install_pretrained_bert(model: ZooModel, state_dict: Mapping[str, Any]):
+    """Install torch BERT encoder weights into a ZooModel whose network
+    has a ``bert`` encoder; the task head keeps its fresh init. Every
+    encoder key and shape must match."""
+    if not model.built:
+        model.init_weights()
+    load_param_tree(model.model.bert,
+                    bert_params_from_torch(state_dict, model.n_block))
+    return model
+
+
+def bert_params_from_torch(state_dict: Mapping[str, Any],
+                           n_block: int) -> Dict[str, Any]:
+    """Map a transformers ``BertModel.state_dict()`` onto the ``BERT``
+    encoder's param tree (the JAX package's keys). torch ``Linear.weight``
+    is (out, in) — transposed into the (in, out) ``W`` layout; the q/k/v
+    projections concatenate into the fused ``qkv`` kernel."""
+
+    def t(key):
+        v = state_dict[key]
+        return np.asarray(v.detach().cpu().numpy()
+                          if hasattr(v, "detach") else v)
+
+    def dense(prefix):
+        return {"W": t(f"{prefix}.weight").T, "b": t(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"gamma": t(f"{prefix}.weight"), "beta": t(f"{prefix}.bias")}
+
+    p: Dict[str, Any] = {
+        "word": t("embeddings.word_embeddings.weight"),
+        "position": t("embeddings.position_embeddings.weight"),
+        "token_type": t("embeddings.token_type_embeddings.weight"),
+        "emb_ln": ln("embeddings.LayerNorm"),
+        "pooler": dense("pooler.dense"),
+    }
+    for i in range(n_block):
+        b = f"encoder.layer.{i}"
+        qkv_w = np.concatenate([t(f"{b}.attention.self.{m}.weight").T
+                                for m in ("query", "key", "value")], axis=1)
+        qkv_b = np.concatenate([t(f"{b}.attention.self.{m}.bias")
+                                for m in ("query", "key", "value")])
+        p[f"block{i}"] = {
+            "attn": {"qkv": {"W": qkv_w, "b": qkv_b},
+                     "proj": dense(f"{b}.attention.output.dense")},
+            "ln1": ln(f"{b}.attention.output.LayerNorm"),
+            "fc": dense(f"{b}.intermediate.dense"),
+            "out": dense(f"{b}.output.dense"),
+            "ln2": ln(f"{b}.output.LayerNorm"),
+        }
+    return p
 
 
 def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:

@@ -3,28 +3,40 @@
 
     python3 chip_smoke.py
 
-1. Builds every CUDA kernel of the serving path from ``analytics_zoo_tpu_
-   torch/csrc`` with ``nvcc`` (into ``build/``) and prints the build time.
-2. Kernel phase: holds each kernel against its plain PyTorch version at
+1. Builds every CUDA kernel of the port from ``analytics_zoo_tpu_torch/
+   csrc`` with ``nvcc`` (into ``build/``; one ``nvcc`` per source, all
+   started together) and prints the build time.
+2. Forward kernel phase: holds K2 against its plain PyTorch version at
    BERT-base attention shapes (B=8, H=12, T=512, D=64; f32 and bf16, key
    padding, a causal case, a t_q != t_kv case, a fully masked row) and
    times it beside the plain version, ``scaled_dot_product_attention``
    (timed here only, as a yardstick) and its roofline bound.
-3. Serving phase: a full-width BERT-base ``BERTClassifier`` (random
+3. Backward kernel phase: holds K3a (dq) and K3b (dk/dv) against their
+   plain versions at the same shapes (key padding, causal, t_q != t_kv
+   both ways, a fully masked batch row whose gradients must be exactly 0).
+4. Serving phase: a full-width BERT-base ``BERTClassifier`` (random
    weights from a seed, bf16 policy, ``zoo.pallas.attention=true``) behind
    ``InferenceModel`` and ``ClusterServing(batch_size=32)`` on a
    ``LocalBackend`` answers 256 records of 512 tokens. Every answer is
    checked (finite, sums to 1, agrees with the port's oracle attention
    route), and the kernel launch counts prove the path went through the
    kernels.
+5. Training phase: the JAX package's seq-512 fine-tune configuration
+   (BERT-base, vocab 30522, bf16 compute with f32 params, AdamW lr 2e-5,
+   batch 32) through ``compile``/``fit`` on 256 seeded records: one
+   warm-up epoch, then one timed epoch of 8 steps. Checks a finite loss,
+   moved parameters, 12 launches per step of each of K2, K3a and K3b,
+   and one step's gradients against the oracle attention route.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-line, and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing
-no result, without a CUDA device, outside the repository, or when any
-check fails.
+line (each kernel at the training path's shape, with its launches on
+that path), and last ``{"ok": true, "device": {...}}``. Exits non-zero,
+printing no result, without a CUDA device, outside the repository, or
+when any check fails.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,9 +48,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-T_BATCH = 32          # ClusterServing batch_size: the kernel's main-path B
+T_BATCH = 32          # ClusterServing and fit batch size: the kernels' B
 N_RECORDS = 256
 SEQ = 512
+#: the JAX package's seq-512 fine-tune configuration (bench.py:193-236)
+TRAIN_CFG = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
+                 n_head=12, seq_len=SEQ, intermediate_size=3072,
+                 attn_drop=0.0)
+#: per-leaf bound on |g_flash - g_oracle| / |g_oracle| for one bf16 step:
+#: the two attention routes round the probabilities at different points
+#: (the oracle rounds normalized f32 weights to bf16; K2 rounds
+#: exponentials relative to a running max and normalizes after the
+#: product, K3a/K3b round P and dS), so each attention output differs by
+#: up to a bf16 step (2^-8) and the differences compound through 12
+#: blocks forward and back. A missing attention gradient would put the
+#: qkv leaves near 100%.
+GRAD_REL_TOL = 0.1
 
 
 def check(cond, msg):
@@ -62,11 +87,16 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(q, k, mask, causal):
+def attention_bound(q, k, mask, causal, flops_per_pair_per_d=4,
+                    n_q_sized=2, n_kv_sized=2, n_row_f32=0):
     """Least time for the function on these inputs: the larger of the
-    operations it needs (2 x 2 x D flops per visible (query, key) pair,
-    counted from this mask) over the dtype's peak, and the bytes it must
-    move (q, k, v, mask read once; out written once) over HBM bandwidth."""
+    operations it needs (``flops_per_pair_per_d`` x D flops per visible
+    (query, key) pair, counted from this mask) over the dtype's peak, and
+    the bytes it must move over HBM bandwidth: ``n_q_sized`` tensors the
+    size of q and ``n_kv_sized`` the size of k read or written once, the
+    mask read once and ``n_row_f32`` f32 (B, H, Tq) rows (lse, delta).
+    The forward (K2) is 4 flops per pair per D and reads q and writes out,
+    reads k and v."""
     import torch
     b, h, t_q, d = q.shape
     t_kv = k.shape[2]
@@ -76,14 +106,32 @@ def attention_bound(q, k, mask, causal):
                          device=q.device).tril(t_kv - t_q)
         vis = vis & tri
     pairs = int(vis.sum().item()) * h
-    flops = 4.0 * d * pairs
-    nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size() \
-        + mask.numel() * 4
+    flops = float(flops_per_pair_per_d) * d * pairs
+    nbytes = ((q.numel() * n_q_sized + k.numel() * n_kv_sized)
+              * q.element_size() + mask.numel() * 4
+              + n_row_f32 * b * h * t_q * 4)
     dtype = str(q.dtype).replace("torch.", "")
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def attention_inputs(b, h, tq, tk, d, dtype, g, empty_row=False,
+                     lens_from=None):
+    """Seeded q, k, v, dO on the card and a key-padding mask: valid
+    lengths uniform in 64..tk, or the padding of ``lens_from`` ids."""
+    import torch
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g).to("cuda", dtype)
+                   for t in (tq, tk, tk, tq))
+    if lens_from is not None:
+        mask = torch.from_numpy((lens_from != 0).astype("float32")).cuda()
+    else:
+        lens = torch.randint(64, tk + 1, (b,), generator=g)
+        mask = (torch.arange(tk)[None, :] < lens[:, None]).float().cuda()
+    if empty_row:
+        mask[0] = 0.0
+    return q, k, v, do, mask
 
 
 def kernel_phase():
@@ -94,16 +142,6 @@ def kernel_phase():
         flash_attention, flash_attention_reference)
 
     g = torch.Generator().manual_seed(0)
-
-    def inputs(b, h, tq, tk, d, dtype, empty_row=False):
-        q, k, v = (torch.randn(b, h, t, d, generator=g).to("cuda", dtype)
-                   for t in (tq, tk, tk))
-        lens = torch.randint(64, tk + 1, (b,), generator=g)
-        mask = (torch.arange(tk)[None, :] < lens[:, None]).float().cuda()
-        if empty_row:
-            mask[0] = 0.0
-        return q, k, v, mask
-
     cases = [  # name, dtype, tol, tq, tk, causal, empty_row
         ("bert_f32_padded", torch.float32, 1e-4, 512, 512, False, False),
         ("bert_bf16_padded", torch.bfloat16, 2e-2, 512, 512, False, False),
@@ -115,7 +153,8 @@ def kernel_phase():
     ]
     rows = []
     for name, dtype, tol, tq, tk, causal, empty in cases:
-        q, k, v, mask = inputs(8, 12, tq, tk, 64, dtype, empty)
+        q, k, v, _, mask = attention_inputs(8, 12, tq, tk, 64, dtype, g,
+                                            empty)
         out, lse = flash_attention(q, k, v, mask=mask, causal=causal,
                                    want_lse=True)
         torch.cuda.synchronize()
@@ -242,40 +281,302 @@ def serving_phase():
     check(diff <= 2e-2, f"flash vs oracle route {diff}")
     return {"records_per_s": N_RECORDS / wall, "wall_s": wall,
             "dispatches": chunks, "launches": launches,
-            "flash_vs_oracle": diff}, ids[:T_BATCH]
+            "flash_vs_oracle": diff}
 
 
-def main_path_kernel_row(ids, launches):
-    """The kernel at the shape the serving path gave it: one batch of 32
-    BERT-base records in bf16 with this run's key padding."""
+def bwd_kernel_phase():
+    """K3a and K3b against their plain versions on one forward's output and
+    lse. Tolerances relative to the case's largest gradient: f32 1e-4
+    (summation order), bf16 2e-2 (one bf16 step where the two f32 sums
+    fall on either side of a rounding boundary)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dkv_reference, bwd_dq, bwd_dq_reference,
+        flash_attention)
+
+    g = torch.Generator().manual_seed(2)
+    cases = [  # name, dtype, tol, tq, tk, causal, empty_row
+        ("f32_padded", torch.float32, 1e-4, 512, 512, False, False),
+        ("bf16_padded", torch.bfloat16, 2e-2, 512, 512, False, False),
+        ("f32_causal", torch.float32, 1e-4, 512, 512, True, False),
+        ("bf16_causal", torch.bfloat16, 2e-2, 512, 512, True, False),
+        ("f32_tq384_tk512", torch.float32, 1e-4, 384, 512, False, False),
+        ("bf16_causal_tq512_tk384", torch.bfloat16, 2e-2, 512, 384, True,
+         False),
+        ("f32_fully_masked_row", torch.float32, 1e-4, 512, 512, False, True),
+        ("bf16_fully_masked_row", torch.bfloat16, 2e-2, 512, 512, True,
+         True),
+    ]
+    rows = []
+    for name, dtype, tol, tq, tk, causal, empty in cases:
+        q, k, v, do, mask = attention_inputs(8, 12, tq, tk, 64, dtype, g,
+                                             empty)
+        out, lse = flash_attention(q, k, v, mask=mask, causal=causal,
+                                   want_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = bwd_dq(q, k, v, mask, lse, delta, do, causal)
+        dk, dv = bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        want = (bwd_dq_reference(q, k, v, mask, lse, delta, do, causal),
+                *bwd_dkv_reference(q, k, v, mask, lse, delta, do, causal))
+        row = {"case": name, "shape": [8, 12, tq, tk, 64],
+               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "tol_rel": tol}
+        for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            check(bool(torch.isfinite(got).all()), f"{name}: {key} not "
+                  f"finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            row[f"{key}_max_abs_err"] = err
+            row[f"{key}_max_abs"] = top
+            check(err <= tol * top, f"{name}: {key} max |kernel - plain| "
+                  f"{err} > {tol} x {top}")
+            if empty:
+                check(bool(torch.all(got[0] == 0)),
+                      f"{name}: {key} of the empty batch row not 0")
+        rows.append(row)
+        print(f"bwd kernel case {json.dumps(row)}")
+    return rows
+
+
+def training_data(n: int):
+    """``n`` seeded BERT input rows (valid lengths uniform in 64..512,
+    pad id 0) and binary labels: ``(x, y, ids)``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        make_bert_inputs
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, TRAIN_CFG["vocab"], (n, SEQ)).astype(np.int32)
+    lens = rng.integers(64, SEQ + 1, n)
+    ids[np.arange(SEQ)[None, :] >= lens[:, None]] = 0
+    y = rng.integers(0, 2, n).astype(np.int32)
+    return make_bert_inputs(ids, attention_mask=(ids != 0)), y, ids
+
+
+def step_breakdown(model, xb, yb):
+    """Separate device timings of one training step's parts on one batch:
+    the forward with autograd recording, forward + backward, and the
+    AdamW update with its parameter add."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        apply_updates
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+        step_generator
+    loop = model._loop
+    params = loop._params()
+
+    def forward():
+        return loop.loss(yb, model(xb, training=True,
+                                   generator=step_generator(0, 0)))
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        forward().backward()
+
+    grads = {n: torch.full_like(p, 1e-3) for n, p in params.items()}
+
+    def update():
+        upd, _ = loop.optimizer.update(dict(grads), model.opt_state, params)
+        apply_updates(params, upd)
+
+    out = {"forward": time_ms(forward, iters=5, warmup=1),
+           "forward_backward": time_ms(forward_backward, iters=5, warmup=1),
+           "optimizer": time_ms(update, iters=5, warmup=1)}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def training_phase():
+    """compile/fit of the seq-512 fine-tune configuration; returns the
+    summary and the token ids of one batch (its padding is the kernels'
+    main-path padding)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import (
+        _to_device, step_generator)
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+
+    conf = {"zoo.pallas.attention": True, "zoo.compute.dtype": "bfloat16",
+            "zoo.seed": 0}
+    init_zoo_context(conf=conf)
+    t0 = time.perf_counter()
+    model = BERTClassifier(**TRAIN_CFG, device="cuda").init_weights()
+    model.compile(optimizer="adamw", loss="scce", metrics=["accuracy"],
+                  lr=2e-5)
+    print(f"training: BERT-base built in {time.perf_counter() - t0:.1f}s "
+          f"({json.dumps(model.get_config())}), bf16 compute, f32 params, "
+          f"AdamW lr 2e-5")
+    x, y, ids = training_data(N_RECORDS)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=T_BATCH, nb_epoch=1)     # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+
+    kernels = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)
+    for c in kernels:
+        c.reset()
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, batch_size=T_BATCH, nb_epoch=1,
+                     callbacks=[records.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in kernels]
+    steps = N_RECORDS // T_BATCH
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = hist["loss"][0]
+    summary = {"steps": steps, "batch": T_BATCH, "epoch_loss": loss,
+               "samples_per_s": records[0]["throughput"],
+               "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
+               "warmup_epoch_s": warm, "peak_memory_gb": peak_gb,
+               "launches": dict(zip(("flash_attention_fwd",
+                                     "flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"), launches))}
+    print(f"training: {steps} steps of {T_BATCH} in {wall:.3f}s = "
+          f"{summary['samples_per_s']:.2f} samples/s, "
+          f"{summary['ms_per_step']:.1f} ms/step (warm-up epoch "
+          f"{warm:.1f}s, peak {peak_gb:.1f} GB); epoch loss {loss:.4f}; "
+          f"launches K2/K3a/K3b {launches}")
+    check(math.isfinite(loss), f"epoch loss {loss}")
+    want = TRAIN_CFG["n_block"] * steps
+    check(launches == [want] * 3, f"launches {launches}, want {want} each "
+          f"(n_block x steps)")
+    unmoved = [n for n, p in model.named_parameters()
+               if not bool(torch.isfinite(p).all())
+               or torch.equal(p.detach(), start[n])]
+    check(not unmoved, f"parameters not moved or not finite: {unmoved}")
+    del start
+
+    xb = _to_device([a[:T_BATCH] for a in x], torch.device("cuda"))
+    yb = _to_device(y[:T_BATCH], torch.device("cuda"))
+    summary["step_breakdown_ms"] = step_breakdown(model, xb, yb)
+    print(f"training: step parts (separate timings) "
+          f"{json.dumps(summary['step_breakdown_ms'])}")
+
+    # one step's gradients, flash route against the oracle route
+    grads = {}
+    for route in (True, False):
+        init_zoo_context(conf={**conf, "zoo.pallas.attention": route})
+        model.zero_grad(set_to_none=True)
+        out = model(xb, training=True, generator=step_generator(0, 0))
+        model._loop.loss(yb, out).backward()
+        grads[route] = {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    rel = {n: ((grads[True][n] - grads[False][n]).norm()
+               / grads[False][n].norm().clamp_min(1e-30)).item()
+           for n in grads[True]}
+    worst = max(rel, key=rel.get)
+    summary["grad_rel_err_max"] = rel[worst]
+    summary["grad_rel_err_leaf"] = worst
+    print(f"training: flash vs oracle route, one step's gradients: largest "
+          f"per-leaf relative error {rel[worst]:.3e} ({worst}; bf16 "
+          f"tolerance {GRAD_REL_TOL})")
+    check(rel[worst] <= GRAD_REL_TOL, f"flash vs oracle gradients: {worst} "
+          f"{rel[worst]}")
+    init_zoo_context(conf=conf)
+    return summary, ids[:T_BATCH]
+
+
+def main_path_kernel_rows(ids, launches):
+    """Every kernel at the shape the training path gave it: one batch of
+    32 BERT-base records in bf16 with this run's key padding (B=32, H=12,
+    T=512, D=64)."""
     import torch
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
-        KERNEL, flash_attention, flash_attention_reference)
+        bwd_dkv, bwd_dkv_reference, bwd_dq, bwd_dq_reference,
+        flash_attention, flash_attention_reference)
     g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(T_BATCH, 12, SEQ, 64, generator=g)
-               .to("cuda", torch.bfloat16) for _ in range(3))
-    mask = torch.from_numpy((ids != 0).astype("float32")).cuda()
-    before = KERNEL.launches
-    out = flash_attention(q, k, v, mask=mask)
+    q, k, v, do, mask = attention_inputs(T_BATCH, 12, SEQ, SEQ, 64,
+                                         torch.bfloat16, g, lens_from=ids)
+    out, lse = flash_attention(q, k, v, mask=mask, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bwd_dq(q, k, v, mask, lse, delta, do)
+    dk, dv = bwd_dkv(q, k, v, mask, lse, delta, do)
     torch.cuda.synchronize()
-    err = (out.float() - flash_attention_reference(q, k, v, mask).float()
-           ).abs().max().item()
-    check(err <= 2e-2, f"main-path shape: kernel vs plain {err}")
+    ref_out, _ = flash_attention_reference(q, k, v, mask, want_lse=True)
+    ref_dq = bwd_dq_reference(q, k, v, mask, lse, delta, do)
+    ref_dk, ref_dv = bwd_dkv_reference(q, k, v, mask, lse, delta, do)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    fwd_err = err(out, ref_out)
+    dq_err = err(dq, ref_dq)
+    dkv_err = max(err(dk, ref_dk), err(dv, ref_dv))
+    check(fwd_err <= 2e-2, f"main-path shape: K2 vs plain {fwd_err}")
+    for name, e, ref in (("K3a", dq_err, ref_dq),
+                         ("K3b", dkv_err, torch.stack([ref_dk, ref_dv]))):
+        top = ref.float().abs().max().item()
+        check(e <= 2e-2 * top, f"main-path shape: {name} vs plain {e} > "
+              f"2e-2 x {top}")
+
     attn = (mask >= 1.0)[:, None, None, :]
-    ms = time_ms(lambda: flash_attention(q, k, v, mask=mask))
-    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=attn))
-    KERNEL.launches = before    # comparison launches are not path launches
-    bound_ms, bound_by = attention_bound(q, k, mask, False)
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "analytics_zoo_tpu/ops/pallas/flash_attention.py:385",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=attn)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qs, ks, vs), do, retain_graph=True))
+    timings = {
+        "flash_attention_fwd": (
+            time_ms(lambda: flash_attention(q, k, v, mask=mask,
+                                            want_lse=True)),
+            time_ms(lambda: flash_attention_reference(q, k, v, mask,
+                                                      want_lse=True)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn)),
+            attention_bound(q, k, mask, False, n_row_f32=1)),
+        "flash_attention_bwd_dq": (
+            time_ms(lambda: bwd_dq(q, k, v, mask, lse, delta, do)),
+            time_ms(lambda: bwd_dq_reference(q, k, v, mask, lse, delta, do)),
+            sdpa_bwd_ms,
+            # reads q, dO, k, v; writes dq; reads lse and delta
+            attention_bound(q, k, mask, False, 6, n_q_sized=3,
+                            n_kv_sized=2, n_row_f32=2)),
+        "flash_attention_bwd_dkv": (
+            time_ms(lambda: bwd_dkv(q, k, v, mask, lse, delta, do)),
+            time_ms(lambda: bwd_dkv_reference(q, k, v, mask, lse, delta,
+                                              do)),
+            sdpa_bwd_ms,
+            # reads q, dO, k, v; writes dk, dv; reads lse and delta
+            attention_bound(q, k, mask, False, 8, n_q_sized=2,
+                            n_kv_sized=4, n_row_f32=2)),
+    }
+    errors = {"flash_attention_fwd": fwd_err, "flash_attention_bwd_dq": dq_err,
+              "flash_attention_bwd_dkv": dkv_err}
+    src = "analytics_zoo_tpu_torch/csrc/"
+    meta = {
+        "flash_attention_fwd": (src + "flash_attention_fwd.cu",
+                                "analytics_zoo_tpu/ops/pallas/"
+                                "flash_attention.py:385"),
+        "flash_attention_bwd_dq": (src + "flash_attention_bwd.cu",
+                                   "analytics_zoo_tpu/ops/pallas/"
+                                   "flash_attention.py:524"),
+        "flash_attention_bwd_dkv": (src + "flash_attention_bwd.cu",
+                                    "analytics_zoo_tpu/ops/pallas/"
+                                    "flash_attention.py:544"),
+    }
+    rows = []
+    for name, (ms, plain_ms, library_ms, (bound_ms, bound_by)) \
+            in timings.items():
+        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1],
+                     "launches": launches[name],
+                     "max_abs_err": errors[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    return rows
 
 
 def main() -> int:
@@ -284,7 +585,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import LIBRARY
+    from analytics_zoo_tpu_torch.ops.cuda_build import build_all
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        LIBRARY, LIBRARY_BWD)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -295,16 +598,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    LIBRARY.get()
-    print(f"build: flash_attention_fwd in {time.perf_counter() - t0:.1f}s "
-          f"(nvcc sm_90a)")
+    build_all([LIBRARY, LIBRARY_BWD])
+    print(f"build: flash_attention_fwd, flash_attention_bwd in "
+          f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
 
     kernel_rows = kernel_phase()
-    serving, main_ids = serving_phase()
-    row = main_path_kernel_row(main_ids, serving["launches"])
-    print(json.dumps({"kernel_cases": kernel_rows, "serving": serving,
+    bwd_rows = bwd_kernel_phase()
+    serving = serving_phase()
+    training, main_ids = training_phase()
+    rows = main_path_kernel_rows(main_ids, training["launches"])
+    print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
+                      "serving": serving, "training": training,
                       "card": card}))
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

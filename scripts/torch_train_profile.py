@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Trace full-width BERT-base training steps of the PyTorch port on one GPU.
+
+    python3 scripts/torch_train_profile.py [--steps 3] [--trace PATH]
+
+Builds the JAX package's seq-512 fine-tune configuration as
+``chip_smoke.py``'s training phase does (BERT-base, vocab 30522, bf16
+compute with f32 params, AdamW lr 2e-5, batch 32,
+``zoo.pallas.attention=true``), fits one warm-up epoch of two steps, then
+records ``--steps`` steps of ``fit`` under ``torch.profiler``. Prints the
+card's name and power limit, the device time per step by kernel family
+and for the top kernels, the share of the traced window in which any
+kernel ran (the device busy share), and one JSON summary as the last
+line. ``--trace`` also writes the Chrome trace. Exits non-zero without a
+CUDA device or when the profiler records no device time.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: kernel families by name fragment, first match wins
+FAMILIES = (
+    ("flash_attention_fwd (K2)", ("flash_fwd_mma", "flash_fwd_fma")),
+    ("flash_attention_bwd_dq (K3a)", ("bwd_dq_mma", "bwd_dq_fma")),
+    ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_mma", "bwd_dkv_fma")),
+    ("gemm (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "gemv")),
+    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+    ("memcpy/memset", ("memcpy", "memset", "Memcpy", "Memset")),
+    ("reduction", ("reduce_kernel", "Reduce", "reduce")),
+    ("embedding gather/scatter", ("index", "Index", "scatter", "gather")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "elementwise/other"
+
+
+def busy_share(intervals, t0, t1):
+    """Fraction of [t0, t1] covered by the union of ``intervals``."""
+    covered, end = 0.0, t0
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, t1)
+        if e > s:
+            covered += e - s
+            end = e
+    return covered / (t1 - t0) if t1 > t0 else 0.0
+
+
+def main() -> int:
+    import torch
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--trace", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    from chip_smoke import T_BATCH, TRAIN_CFG, training_data
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    model = BERTClassifier(**TRAIN_CFG, device="cuda").init_weights()
+    model.compile(optimizer="adamw", loss="scce", lr=2e-5)
+    x, y, _ = training_data(T_BATCH * args.steps)
+    model.fit([a[:2 * T_BATCH] for a in x], y[:2 * T_BATCH],
+              batch_size=T_BATCH, nb_epoch=1)           # warm-up
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.fit(x, y, batch_size=T_BATCH, nb_epoch=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+    kernels, window = [], [float("inf"), float("-inf")]
+    for evt in prof.events():
+        tr = evt.time_range
+        window[0] = min(window[0], tr.start)
+        window[1] = max(window[1], tr.end)
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((evt.name, tr.start, tr.end))
+    if not kernels:
+        print("torch_train_profile: the profiler recorded no device time "
+              "(not measured)", file=sys.stderr)
+        return 1
+    by_name, by_family = {}, {}
+    for name, s, e in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+        by_family[family(name)] = by_family.get(family(name), 0.0) + (e - s)
+    steps = args.steps
+    device_ms = sum(by_name.values()) / 1e3 / steps
+    share = busy_share([(s, e) for _, s, e in kernels], *window)
+    print(f"{steps} steps of {T_BATCH} in {wall:.3f}s "
+          f"({1e3 * wall / steps:.1f} ms/step under the profiler); kernel "
+          f"time {device_ms:.1f} ms/step; device busy {100 * share:.1f}% "
+          f"of the traced window")
+    print("device ms per step by family:")
+    for fam, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / steps
+        print(f"  {ms:9.3f}  {100 * ms / device_ms:5.1f}%  {fam}")
+    print("top kernels, device ms per step:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"  {us / 1e3 / steps:9.3f}  {name[:110]}")
+    print(json.dumps({
+        "card": card, "steps": steps, "batch": T_BATCH,
+        "ms_per_step_profiled": 1e3 * wall / steps,
+        "kernel_ms_per_step": device_ms, "device_busy_share": share,
+        "family_ms_per_step": {f: us / 1e3 / steps
+                               for f, us in by_family.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
