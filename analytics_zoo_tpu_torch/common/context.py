@@ -24,10 +24,13 @@ log = logging.getLogger("analytics_zoo_tpu_torch")
 DEFAULT_CONF: Dict[str, Any] = {
     "zoo.seed": 0,
     "zoo.pallas.attention": "auto",  # auto (CUDA, T >= 2048) | true | false
+    "zoo.pallas.cross_entropy": "auto",  # fused-CE kernels: auto (CUDA) | true | false
     "zoo.compute.dtype": "float32",  # float32 | bfloat16
     "zoo.log.level": "INFO",
     "zoo.train.scan_steps": 1,       # only 1: fused multi-step dispatch
     "zoo.train.device_cache": False,  # only false: device-resident data
+    "zoo.train.fused_ce": "auto",    # fused LM-head CE: auto (V >= 1024) | true | false
+    "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
 }
 
 _ENV_PREFIX = "ZOO_TPU_"

@@ -1,0 +1,932 @@
+// Fused LM-head cross-entropy for Hopper (sm_90a): three kernels, bound
+// through plain C entry points and loaded with ctypes.
+//
+// Replaces: analytics_zoo_tpu/ops/pallas/cross_entropy.py, the Pallas
+// kernels _ce_fwd_kernel (K4, pl.pallas_call in fused_ce_forward at :325),
+// _ce_bwd_dh_kernel (K5a, fused_ce_backward at :496) and _ce_bwd_dw_kernel
+// (K5b, fused_ce_backward at :525). Same contract: h (N,H) and w (H,V) in
+// the compute dtype (f32 or bf16), an optional f32 bias (V,), int32 labels
+// (N,). Each kernel forms its logits tile with Dense's rounding: the f32
+// product rounded to the compute dtype, the bias (rounded to the compute
+// dtype) added in the compute dtype, the sum upcast to f32. Vocab columns
+// past V are masked; rows past N are read as zeros and never written.
+//  * K4 writes per row lse = m + log(l == 0 ? 1 : l) of the online max m
+//    and denominator l, and the label's logit (0 when the label is not in
+//    [0, V)). No logits tile reaches device memory.
+//  * K5a re-forms p = exp(logit - lse) (0 on masked columns) and
+//    dl = (p - onehot) * scale, rounds dl to the compute dtype and
+//    accumulates dh = dl W^T in f32, written once in dh's dtype.
+//  * K5b accumulates dW = h^T dl (dl rounded as in K5a) in f32 and
+//    db = the column sum of the f32 dl, taken before the rounding.
+// All three form the logits with the same device function and the same
+// k order, so the backward re-forms the forward's p bit for bit. Scale is
+// 0 on masked rows and NaN on rows with an over-range label; nothing skips
+// a row, so a NaN row spreads into dh's row and every column of dW, as in
+// the XLA form.
+//
+// What bounds them on this card: at the LM path's shape (N=65,536, H=512,
+// V=8192, bf16) K4 does 2NHV and K5a/K5b 4NHV operations each against
+// O(NH + HV) bytes, thousands of operations per byte: the products bound
+// all three. Hence:
+//  * bf16 (the training path): every product runs on the tensor cores with
+//    mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands that the
+//    fragment wants in the other orientation (W for the logits, h^T and
+//    dl for dW) are read from row-major shared-memory tiles with
+//    ldmatrix.trans, so no tile is stored transposed. wgmma and TMA staging
+//    are later work.
+//  * f32: plain FMAs on the CUDA cores (TF32 would round the operands to
+//    10 mantissa bits, outside the f32 contract).
+//
+// Design: on the TPU each kernel walks a sequential grid and carries its
+// accumulator in VMEM scratch. Here blocks run in no order, so each output
+// is owned by one block that loops itself:
+//  * K4: a block owns 64 rows and loops over 32-column vocab tiles; each
+//    warp holds 16 rows' running max, denominator and label logit in
+//    registers (the flash-forward scheme).
+//  * K5a: a block owns 32 rows and loops over 64-column vocab tiles. The
+//    logits tile becomes a bf16 dl tile in shared memory; then each of 8
+//    warps accumulates a 16-row by H/4 slice of dh in registers (at most
+//    128 f32 per thread at H=1024).
+//  * K5b: a block owns 32 vocab columns of dW/db and loops over all rows in
+//    64-row tiles; each of 8 warps carries an H/4 by 16 slice of dW in
+//    registers (64 f32 per thread at H=512, 128 at H=1024). At V=8192 that
+//    is 256 blocks for 132 SMs. The other choice, a split of the row loop
+//    into groups whose partial dW a second kernel sums, buys parallelism
+//    only for small V and costs an extra (H,V) f32 pass; it is not needed
+//    on the main path.
+// No float atomics anywhere: every output element is written by exactly
+// one thread, summed in a fixed order (db over the four row warps in a
+// fixed order too), so dh, dW and db are the same bits from run to run.
+// H must be a multiple of 64 in [64, 1024]; any N and V.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// bf16 helpers: mma.sync m16n8k16 fragments (PTX ISA). With g = lane / 4 and
+// t = lane % 4 a thread holds A rows g and g+8 at columns 2t, 2t+1 (and +8);
+// B columns g at rows 2t, 2t+1 (and +8); C rows g and g+8 at columns 2t,
+// 2t+1.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// four 8x8 b16 matrices, transposed on the way: lanes 8j..8j+7 give the
+// row addresses of matrix j, and register j receives that matrix's
+// fragment with rows and columns swapped
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// A fragment of rows r, r+8, columns c..c+15 from a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base,
+                                       int ld, int r, int c, int t) {
+  const bf16* p = base + r * ld + c + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// The one logits routine of all three bf16 kernels: a 16 x (16 NP) f32 tile
+// h[rows] @ W[:, c0 : c0 + 16 NP] over k = 0..H-1 in steps of 16, from a
+// row-major h tile (rows x ldh) and a row-major W tile (H x ldw). `row` is
+// this thread's first row (slab start + g). acc[j] holds columns
+// c0 + 8j + 2t (+1) in the C layout.
+template <int NP>
+__device__ __forceinline__ void logits_tile(float (&acc)[2 * NP][4],
+                                            const bf16* sH, int ldh, int row,
+                                            const bf16* sW, int ldw, int c0,
+                                            int H, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // matrix j = lane / 8 of each ldmatrix: k rows +8 for odd j, columns +8
+  // for j >= 2 -> B fragments (b0, b1) of two adjacent 8-column tiles
+  const bf16* wl = sW + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldw + c0 +
+                   8 * (lane >> 4);
+  for (int k0 = 0; k0 < H; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, sH, ldh, row, k0, t);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, wl + k0 * ldw + 16 * p);
+      mma_bf16(acc[2 * p], a, b[0], b[1]);
+      mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows [n0, n0 + rows) of h (N x H, bf16, 16-byte aligned rows) into a
+// row-major tile; rows past N are zero
+__device__ __forceinline__ void load_rows_bf16(const bf16* __restrict__ h,
+                                               int n0, int rows, int N, int H,
+                                               bf16* sH, int ldh, int tid,
+                                               int nthreads) {
+  const int per_row = H / 8;
+  for (int i = tid; i < rows * per_row; i += nthreads) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (n0 + r < N)
+      val = *reinterpret_cast<const uint4*>(h + (size_t)(n0 + r) * H + c);
+    *reinterpret_cast<uint4*>(sH + r * ldh + c) = val;
+  }
+}
+
+// columns [v0, v0 + cols) of w (H x V, bf16) into a row-major H x cols tile;
+// columns past V are zero. 16-byte loads where the row allows (vec: V is a
+// multiple of 8 and w is 16-byte aligned), element loads elsewhere.
+__device__ __forceinline__ void load_cols_bf16(const bf16* __restrict__ w,
+                                               int v0, int cols, int V, int H,
+                                               bf16* sW, int ldw, int vec,
+                                               int tid, int nthreads) {
+  const int per_row = cols / 8;
+  for (int i = tid; i < H * per_row; i += nthreads) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    const int col = v0 + c;
+    const bf16* src = w + (size_t)r * V + col;
+    bf16* dst = sW + r * ldw + c;
+    if (vec && col + 8 <= V) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        dst[x] = col + x < V ? src[x] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, bf16: 64 rows per block, 4 warps of 16 rows, 32-column vocab tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int F_BN = 64;
+constexpr int F_BV = 32;
+constexpr int F_THREADS = 128;
+
+size_t fwd_mma_smem_bytes(int H) {
+  return sizeof(bf16) * ((size_t)F_BN * (H + 8) + (size_t)H * (F_BV + 8));
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+    ce_fwd_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
+               const float* __restrict__ b, const int* __restrict__ labels,
+               float* __restrict__ lse, float* __restrict__ ll, int N, int H,
+               int V, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldh = H + 8, ldw = F_BV + 8;
+  bf16* sH = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sW = sH + F_BN * ldh;
+  __shared__ float sB[F_BV];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * F_BN;
+  const int row = warp * 16 + g;  // this thread's rows: row and row + 8
+
+  load_rows_bf16(h, n0, F_BN, N, H, sH, ldh, tid, F_THREADS);
+  int lab[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + row + 8 * hh;
+    lab[hh] = r < N ? labels[r] : -1;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+
+  for (int v0 = 0; v0 < V; v0 += F_BV) {
+    __syncthreads();  // the previous W tile is consumed; sH is written
+    load_cols_bf16(w, v0, F_BV, V, H, sW, ldw, vec, tid, F_THREADS);
+    if (tid < F_BV)
+      sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
+    __syncthreads();
+
+    float acc[4][4];
+    logits_tile<2>(acc, sH, ldh, row, sW, ldw, 0, H, lane);
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * j + 2 * t + (e & 1);
+        const int col = v0 + cl;
+        const int hh = e >> 1;
+        float x = -INFINITY;
+        if (col < V) {
+          x = round_bf16(round_bf16(acc[j][e]) + sB[cl]);
+          if (col == lab[hh]) a[hh] += x;
+        }
+        acc[j][e] = x;
+        tmax[hh] = fmaxf(tmax[hh], x);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = tmax[hh];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = m[hh] == -INFINITY ? 0.f : expf(m[hh] - m_safe);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ps += expf(acc[j][2 * hh] - m_safe);  // masked columns: exp(-inf)
+        ps += expf(acc[j][2 * hh + 1] - m_safe);
+      }
+      l[hh] = l[hh] * corr + ps;
+      m[hh] = m_new;
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float ls = l[hh], as = a[hh];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    as += __shfl_xor_sync(0xffffffffu, as, 1);
+    as += __shfl_xor_sync(0xffffffffu, as, 2);
+    const int r = n0 + row + 8 * hh;
+    if (t == 0 && r < N) {
+      lse[r] = m[hh] + logf(ls == 0.f ? 1.f : ls);
+      ll[r] = as;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5a, bf16: 32 rows per block, 8 warps, 64-column vocab tiles. Logits:
+// warp (w & 1) takes rows 16 (w & 1), columns 16 (w >> 1). dh: warp takes
+// rows 16 (w & 1) and hidden columns [(w >> 1) H/4, (w >> 1 + 1) H/4).
+// ---------------------------------------------------------------------------
+
+constexpr int A_BN = 32;
+constexpr int A_BV = 64;
+constexpr int A_THREADS = 256;
+
+size_t dh_mma_smem_bytes(int H) {
+  return sizeof(bf16) * ((size_t)A_BN * (H + 8) + (size_t)H * (A_BV + 8) +
+                         (size_t)A_BN * (A_BV + 8));
+}
+
+template <int MAXNT>
+__global__ void __launch_bounds__(A_THREADS)
+    ce_bwd_dh_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                  const float* __restrict__ b, const int* __restrict__ labels,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ scale, void* __restrict__ dh,
+                  int dh_bf16, int N, int H, int V, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldh = H + 8, ldw = A_BV + 8, ldd = A_BV + 8;
+  bf16* sH = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sW = sH + A_BN * ldh;
+  bf16* sDL = sW + H * ldw;
+  __shared__ float sB[A_BV];
+  __shared__ float sLse[A_BN], sScale[A_BN];
+  __shared__ int sLab[A_BN];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * A_BN;
+  const int wr = warp & 1, wc = warp >> 1;
+  const int row = 16 * wr + g;
+  const int nt = H / 32;          // 8-column tiles of this warp's dh slice
+  const int hq0 = wc * (H / 4);
+
+  load_rows_bf16(h, n0, A_BN, N, H, sH, ldh, tid, A_THREADS);
+  if (tid < A_BN) {
+    const int r = n0 + tid;
+    const bool in = r < N;
+    sLab[tid] = in ? labels[r] : -1;
+    // pad rows: lse = +inf (every p is exactly 0) and scale 0
+    sLse[tid] = in ? lse[r] : INFINITY;
+    sScale[tid] = in ? scale[r] : 0.f;
+  }
+
+  float acc[MAXNT][4];
+#pragma unroll
+  for (int i = 0; i < MAXNT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int v0 = 0; v0 < V; v0 += A_BV) {
+    __syncthreads();  // the previous W and dl tiles are consumed
+    load_cols_bf16(w, v0, A_BV, V, H, sW, ldw, vec, tid, A_THREADS);
+    if (tid < A_BV)
+      sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
+    __syncthreads();
+
+    float lg[2][4];
+    logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, H, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = row + 8 * (e >> 1);
+        const int cl = 16 * wc + 8 * j + 2 * t + (e & 1);
+        const int col = v0 + cl;
+        float p = 0.f, oh = 0.f;
+        if (col < V) {
+          const float x = round_bf16(round_bf16(lg[j][e]) + sB[cl]);
+          p = expf(x - sLse[rl]);
+          oh = col == sLab[rl] ? 1.f : 0.f;
+        }
+        sDL[rl * ldd + cl] = __float2bfloat16((p - oh) * sScale[rl]);
+      }
+    }
+    __syncthreads();  // the dl tile is complete
+
+#pragma unroll
+    for (int kk = 0; kk < A_BV / 16; ++kk) {
+      uint32_t a[4];
+      load_a(a, sDL, ldd, row, 16 * kk, t);
+#pragma unroll
+      for (int i = 0; i < MAXNT; ++i) {
+        if (i < nt) {
+          const bf16* bp = sW + (hq0 + 8 * i + g) * ldw + 16 * kk + 2 * t;
+          mma_bf16(acc[i], a, ld32(bp), ld32(bp + 8));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + row + 8 * hh;
+    if (r >= N) continue;
+#pragma unroll
+    for (int i = 0; i < MAXNT; ++i) {
+      if (i >= nt) break;
+      const size_t o = (size_t)r * H + hq0 + 8 * i + 2 * t;
+      if (dh_bf16) {
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dh) + o) =
+            pack_bf16(acc[i][2 * hh], acc[i][2 * hh + 1]);
+      } else {
+        *reinterpret_cast<float2*>(static_cast<float*>(dh) + o) =
+            make_float2(acc[i][2 * hh], acc[i][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5b, bf16: 32 vocab columns per block, all rows in 64-row tiles, 8 warps.
+// Logits: warp takes rows 16 (w & 3), columns 16 (w >> 2). dW: warp takes
+// hidden rows [(w & 3) H/4, ...) and the same 16 columns.
+// ---------------------------------------------------------------------------
+
+constexpr int B_BN = 64;
+constexpr int B_BV = 32;
+constexpr int B_THREADS = 256;
+
+size_t dw_mma_smem_bytes(int H) {
+  return sizeof(bf16) * ((size_t)B_BN * (H + 8) + (size_t)H * (B_BV + 8) +
+                         (size_t)B_BN * (B_BV + 8));
+}
+
+template <int MAXMT>
+__global__ void __launch_bounds__(B_THREADS)
+    ce_bwd_dw_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                  const float* __restrict__ b, const int* __restrict__ labels,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ scale, float* __restrict__ dw,
+                  float* __restrict__ db, int N, int H, int V, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldh = H + 8, ldw = B_BV + 8, ldd = B_BV + 8;
+  bf16* sH = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sW = sH + B_BN * ldh;
+  bf16* sDL = sW + H * ldw;
+  __shared__ float sB[B_BV];
+  __shared__ float sLse[B_BN], sScale[B_BN];
+  __shared__ int sLab[B_BN];
+  __shared__ float sDB[4][B_BV];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int v0 = blockIdx.x * B_BV;
+  const int wr = warp & 3, wc = warp >> 2;
+  const int row = 16 * wr + g;
+  const int mt = H / 64;          // 16-row tiles of this warp's dW slice
+  const int hr0 = wr * (H / 4);
+
+  load_cols_bf16(w, v0, B_BV, V, H, sW, ldw, vec, tid, B_THREADS);
+  if (tid < B_BV)
+    sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
+
+  float acc[MAXMT][2][4];
+#pragma unroll
+  for (int i = 0; i < MAXMT; ++i)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][s][e] = 0.f;
+  float dbp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  // ldmatrix lane offsets (matrix j = lane / 8): dl as B needs rows +8 for
+  // odd j and columns +8 for j >= 2; h^T as A needs rows +8 for j >= 2 and
+  // columns +8 for odd j
+  const int lr = lane & 7, odd = (lane >> 3) & 1, hi = lane >> 4;
+
+  for (int n0 = 0; n0 < N; n0 += B_BN) {
+    __syncthreads();  // the previous h and dl tiles are consumed
+    load_rows_bf16(h, n0, B_BN, N, H, sH, ldh, tid, B_THREADS);
+    if (tid < B_BN) {
+      const int r = n0 + tid;
+      const bool in = r < N;
+      sLab[tid] = in ? labels[r] : -1;
+      sLse[tid] = in ? lse[r] : INFINITY;
+      sScale[tid] = in ? scale[r] : 0.f;
+    }
+    __syncthreads();
+
+    float lg[2][4];
+    logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, H, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = row + 8 * (e >> 1);
+        const int cl = 16 * wc + 8 * j + 2 * t + (e & 1);
+        const int col = v0 + cl;
+        float p = 0.f, oh = 0.f;
+        if (col < V) {
+          const float x = round_bf16(round_bf16(lg[j][e]) + sB[cl]);
+          p = expf(x - sLse[rl]);
+          oh = col == sLab[rl] ? 1.f : 0.f;
+        }
+        const float d = (p - oh) * sScale[rl];
+        dbp[j][e & 1] += d;
+        sDL[rl * ldd + cl] = __float2bfloat16(d);
+      }
+    }
+    __syncthreads();  // the dl tile is complete
+
+#pragma unroll
+    for (int ks = 0; ks < B_BN / 16; ++ks) {
+      uint32_t bb[4];
+      ldsm_x4_trans(bb, sDL + (16 * ks + lr + 8 * odd) * ldd + 16 * wc +
+                            8 * hi);
+#pragma unroll
+      for (int i = 0; i < MAXMT; ++i) {
+        if (i < mt) {
+          uint32_t a[4];
+          ldsm_x4_trans(a, sH + (16 * ks + lr + 8 * hi) * ldh + hr0 +
+                               16 * i + 8 * odd);
+          mma_bf16(acc[i][0], a, bb[0], bb[1]);
+          mma_bf16(acc[i][1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  // db: the 8 row groups of a warp by a fixed butterfly, then the 4 row
+  // warps in a fixed order
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = dbp[j][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) sDB[wr][16 * wc + 8 * j + 2 * t + c] = v;
+    }
+  }
+  __syncthreads();
+  if (db != nullptr && tid < B_BV && v0 + tid < V)
+    db[v0 + tid] =
+        ((sDB[0][tid] + sDB[1][tid]) + sDB[2][tid]) + sDB[3][tid];
+
+#pragma unroll
+  for (int i = 0; i < MAXMT; ++i) {
+    if (i >= mt) break;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int col = v0 + 16 * wc + 8 * s + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float* o = dw + (size_t)(hr0 + 16 * i + g + 8 * hh) * V + col;
+        if (col < V) o[0] = acc[i][s][2 * hh];
+        if (col + 1 < V) o[1] = acc[i][s][2 * hh + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMAs. Every logit is one fmaf chain over k = 0..H-1 from
+// 0, the same in all three kernels, so p is re-formed bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int FF_BN = 64, FF_BV = 64, FF_KC = 32, FF_THREADS = 256;
+
+__global__ void __launch_bounds__(FF_THREADS)
+    ce_fwd_fma(const float* __restrict__ h, const float* __restrict__ w,
+               const float* __restrict__ b, const int* __restrict__ labels,
+               float* __restrict__ lse, float* __restrict__ ll, int N, int H,
+               int V) {
+  __shared__ float sH[FF_BN][FF_KC + 1];
+  __shared__ float sW[FF_KC][FF_BV + 1];
+  __shared__ float sB[FF_BV];
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, q = tid & 3;  // row, and columns q + 4j
+  const int n0 = blockIdx.x * FF_BN;
+  const int grow = n0 + r;
+  const int lab = grow < N ? labels[grow] : -1;
+  float m = -INFINITY, l = 0.f, a = 0.f;
+
+  for (int v0 = 0; v0 < V; v0 += FF_BV) {
+    float acc[FF_BV / 4];
+#pragma unroll
+    for (int j = 0; j < FF_BV / 4; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < H; k0 += FF_KC) {
+      __syncthreads();
+      for (int i = tid; i < FF_BN * FF_KC; i += FF_THREADS) {
+        const int rr = i / FF_KC, c = i % FF_KC;
+        sH[rr][c] = n0 + rr < N ? h[(size_t)(n0 + rr) * H + k0 + c] : 0.f;
+      }
+      for (int i = tid; i < FF_KC * FF_BV; i += FF_THREADS) {
+        const int kk = i / FF_BV, c = i % FF_BV;
+        sW[kk][c] = v0 + c < V ? w[(size_t)(k0 + kk) * V + v0 + c] : 0.f;
+      }
+      if (k0 == 0 && tid < FF_BV)
+        sB[tid] = (b != nullptr && v0 + tid < V) ? b[v0 + tid] : 0.f;
+      __syncthreads();
+      for (int kk = 0; kk < FF_KC; ++kk) {
+        const float hv = sH[r][kk];
+#pragma unroll
+        for (int j = 0; j < FF_BV / 4; ++j)
+          acc[j] = fmaf(hv, sW[kk][q + 4 * j], acc[j]);
+      }
+    }
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < FF_BV / 4; ++j) {
+      const int col = v0 + q + 4 * j;
+      float x = -INFINITY;
+      if (col < V) {
+        x = acc[j] + sB[q + 4 * j];
+        if (col == lab) a += x;
+      }
+      acc[j] = x;
+      tmax = fmaxf(tmax, x);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    const float corr = m == -INFINITY ? 0.f : expf(m - m_safe);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < FF_BV / 4; ++j) ps += expf(acc[j] - m_safe);
+    l = l * corr + ps;
+    m = m_new;
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  a += __shfl_xor_sync(0xffffffffu, a, 1);
+  a += __shfl_xor_sync(0xffffffffu, a, 2);
+  if (q == 0 && grow < N) {
+    lse[grow] = m + logf(l == 0.f ? 1.f : l);
+    ll[grow] = a;
+  }
+}
+
+// K5a, f32: 16 rows per block; the dh carry (16 x H f32) lives in dynamic
+// shared memory, each element owned by one thread.
+constexpr int FA_BN = 16, FA_BV = 64, FA_KC = 64, FA_THREADS = 256;
+
+__global__ void __launch_bounds__(FA_THREADS)
+    ce_bwd_dh_fma(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ b, const int* __restrict__ labels,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ scale, void* __restrict__ dh,
+                  int dh_bf16, int N, int H, int V) {
+  extern __shared__ float sDH[];  // FA_BN x H
+  __shared__ float sH[FA_BN][FA_KC + 1];
+  __shared__ float sW[FA_KC][FA_BV + 1];
+  __shared__ float sDL[FA_BN][FA_BV + 1];
+  __shared__ float sB[FA_BV];
+  const int tid = threadIdx.x;
+  const int r = tid >> 4, q = tid & 15;  // row, and columns q + 16j
+  const int n0 = blockIdx.x * FA_BN;
+  const int grow = n0 + r;
+  const bool in = grow < N;
+  const int lab = in ? labels[grow] : -1;
+  const float row_lse = in ? lse[grow] : INFINITY;
+  const float row_scale = in ? scale[grow] : 0.f;
+  for (int c = q; c < H; c += 16) sDH[r * H + c] = 0.f;
+
+  for (int v0 = 0; v0 < V; v0 += FA_BV) {
+    float acc[FA_BV / 16];
+#pragma unroll
+    for (int j = 0; j < FA_BV / 16; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < H; k0 += FA_KC) {
+      __syncthreads();
+      for (int i = tid; i < FA_BN * FA_KC; i += FA_THREADS) {
+        const int rr = i / FA_KC, c = i % FA_KC;
+        sH[rr][c] = n0 + rr < N ? h[(size_t)(n0 + rr) * H + k0 + c] : 0.f;
+      }
+      for (int i = tid; i < FA_KC * FA_BV; i += FA_THREADS) {
+        const int kk = i / FA_BV, c = i % FA_BV;
+        sW[kk][c] = v0 + c < V ? w[(size_t)(k0 + kk) * V + v0 + c] : 0.f;
+      }
+      if (k0 == 0 && tid < FA_BV)
+        sB[tid] = (b != nullptr && v0 + tid < V) ? b[v0 + tid] : 0.f;
+      __syncthreads();
+      for (int kk = 0; kk < FA_KC; ++kk) {
+        const float hv = sH[r][kk];
+#pragma unroll
+        for (int j = 0; j < FA_BV / 16; ++j)
+          acc[j] = fmaf(hv, sW[kk][q + 16 * j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < FA_BV / 16; ++j) {
+      const int cl = q + 16 * j;
+      const int col = v0 + cl;
+      float p = 0.f, oh = 0.f;
+      if (col < V) {
+        p = expf(acc[j] + sB[cl] - row_lse);
+        oh = col == lab ? 1.f : 0.f;
+      }
+      sDL[r][cl] = (p - oh) * row_scale;
+    }
+    for (int k0 = 0; k0 < H; k0 += FA_KC) {
+      __syncthreads();  // dl complete; the W chunk is free
+      for (int i = tid; i < FA_KC * FA_BV; i += FA_THREADS) {
+        const int kk = i / FA_BV, c = i % FA_BV;
+        sW[kk][c] = v0 + c < V ? w[(size_t)(k0 + kk) * V + v0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < FA_KC / 16; ++j) {
+        const int kh = q + 16 * j;
+        float s = sDH[r * H + k0 + kh];
+        for (int v = 0; v < FA_BV; ++v) s = fmaf(sDL[r][v], sW[kh][v], s);
+        sDH[r * H + k0 + kh] = s;
+      }
+    }
+  }
+  if (in) {
+    for (int c = q; c < H; c += 16) {
+      const size_t o = (size_t)grow * H + c;
+      if (dh_bf16)
+        static_cast<bf16*>(dh)[o] = __float2bfloat16(sDH[r * H + c]);
+      else
+        static_cast<float*>(dh)[o] = sDH[r * H + c];
+    }
+  }
+}
+
+// K5b, f32: 16 vocab columns per block, all rows in 64-row tiles; the dW
+// carry (H x 16 f32) lives in dynamic shared memory, each element owned by
+// one thread; db is one thread's running sum per column.
+constexpr int FB_BN = 64, FB_BV = 16, FB_KC = 64, FB_THREADS = 256;
+
+__global__ void __launch_bounds__(FB_THREADS)
+    ce_bwd_dw_fma(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ b, const int* __restrict__ labels,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ scale, float* __restrict__ dw,
+                  float* __restrict__ db, int N, int H, int V) {
+  extern __shared__ float sDW[];  // H x FB_BV
+  __shared__ float sH[FB_BN][FB_KC + 1];
+  __shared__ float sW[FB_KC][FB_BV + 1];
+  __shared__ float sDL[FB_BN][FB_BV + 1];
+  __shared__ float sB[FB_BV];
+  __shared__ float sLse[FB_BN], sScale[FB_BN];
+  __shared__ int sLab[FB_BN];
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, q = tid & 3;       // logits: row, columns q + 4j
+  const int c = tid & 15, kr = tid >> 4;     // dW: column, rows kr + 16i
+  const int v0 = blockIdx.x * FB_BV;
+  for (int k = kr; k < H; k += 16) sDW[k * FB_BV + c] = 0.f;
+  if (tid < FB_BV)
+    sB[tid] = (b != nullptr && v0 + tid < V) ? b[v0 + tid] : 0.f;
+  float db_acc = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += FB_BN) {
+    __syncthreads();
+    if (tid < FB_BN) {
+      const int gr = n0 + tid;
+      const bool in = gr < N;
+      sLab[tid] = in ? labels[gr] : -1;
+      sLse[tid] = in ? lse[gr] : INFINITY;
+      sScale[tid] = in ? scale[gr] : 0.f;
+    }
+    float acc[FB_BV / 4];
+#pragma unroll
+    for (int j = 0; j < FB_BV / 4; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 < H; k0 += FB_KC) {
+      __syncthreads();
+      for (int i = tid; i < FB_BN * FB_KC; i += FB_THREADS) {
+        const int rr = i / FB_KC, cc = i % FB_KC;
+        sH[rr][cc] = n0 + rr < N ? h[(size_t)(n0 + rr) * H + k0 + cc] : 0.f;
+      }
+      for (int i = tid; i < FB_KC * FB_BV; i += FB_THREADS) {
+        const int kk = i / FB_BV, cc = i % FB_BV;
+        sW[kk][cc] = v0 + cc < V ? w[(size_t)(k0 + kk) * V + v0 + cc] : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < FB_KC; ++kk) {
+        const float hv = sH[r][kk];
+#pragma unroll
+        for (int j = 0; j < FB_BV / 4; ++j)
+          acc[j] = fmaf(hv, sW[kk][q + 4 * j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < FB_BV / 4; ++j) {
+      const int cl = q + 4 * j;
+      const int col = v0 + cl;
+      float p = 0.f, oh = 0.f;
+      if (col < V) {
+        p = expf(acc[j] + sB[cl] - sLse[r]);
+        oh = col == sLab[r] ? 1.f : 0.f;
+      }
+      sDL[r][cl] = (p - oh) * sScale[r];
+    }
+    __syncthreads();  // dl complete
+    if (tid < FB_BV)
+      for (int n = 0; n < FB_BN; ++n) db_acc += sDL[n][tid];
+    for (int k0 = 0; k0 < H; k0 += FB_KC) {
+      __syncthreads();  // the previous h chunk is consumed
+      for (int i = tid; i < FB_BN * FB_KC; i += FB_THREADS) {
+        const int rr = i / FB_KC, cc = i % FB_KC;
+        sH[rr][cc] = n0 + rr < N ? h[(size_t)(n0 + rr) * H + k0 + cc] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < FB_KC / 16; ++i) {
+        const int kh = kr + 16 * i;
+        float s = sDW[(k0 + kh) * FB_BV + c];
+        for (int n = 0; n < FB_BN; ++n) s = fmaf(sH[n][kh], sDL[n][c], s);
+        sDW[(k0 + kh) * FB_BV + c] = s;
+      }
+    }
+  }
+  if (v0 + c < V)
+    for (int k = kr; k < H; k += 16)
+      dw[(size_t)k * V + v0 + c] = sDW[k * FB_BV + c];
+  if (db != nullptr && tid < FB_BV && v0 + tid < V) db[v0 + tid] = db_acc;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+bool bad_dims(int N, int H, int V, int dtype) {
+  return N <= 0 || V <= 0 || H < 64 || H > 1024 || H % 64 != 0 ||
+         (dtype != 0 && dtype != 1);
+}
+
+int blocks(int n, int per) { return (n + per - 1) / per; }
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (h and w). b may be null; labels int32;
+// lse/ll/scale f32 (N,). Each returns the launch's cudaError_t (0 on
+// success); the kernel runs on `stream` and the call does not synchronise.
+// h and w must be contiguous; in bf16 h's rows are read as 16-byte vectors,
+// so h must be 16-byte aligned (w may be unaligned: `vec` is derived here).
+extern "C" int fused_ce_fwd(const void* h, const void* w, const void* b,
+                            const void* labels, void* lse, void* ll, int N,
+                            int H, int V, int dtype, void* stream) {
+  if (bad_dims(N, H, V, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bias = static_cast<const float*>(b);
+  const int* lab = static_cast<const int*>(labels);
+  if (dtype == 0) {
+    ce_fwd_fma<<<blocks(N, FF_BN), FF_THREADS, 0, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
+        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V);
+  } else {
+    const size_t smem = fwd_mma_smem_bytes(H);
+    cudaError_t err = set_smem(ce_fwd_mma, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    ce_fwd_mma<<<blocks(N, F_BN), F_THREADS, smem, s>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(w), bias, lab,
+        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dh_dtype: 0 = float32, 1 = bfloat16.
+extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
+                               const void* labels, const void* lse,
+                               const void* scale, void* dh, int N, int H,
+                               int V, int dtype, int dh_dtype, void* stream) {
+  if (bad_dims(N, H, V, dtype) || (dh_dtype != 0 && dh_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bias = static_cast<const float*>(b);
+  const int* lab = static_cast<const int*>(labels);
+  const float* l = static_cast<const float*>(lse);
+  const float* sc = static_cast<const float*>(scale);
+  cudaError_t err;
+  if (dtype == 0) {
+    const size_t smem = sizeof(float) * (size_t)FA_BN * H;
+    if ((err = set_smem(ce_bwd_dh_fma, smem)) != cudaSuccess) return (int)err;
+    ce_bwd_dh_fma<<<blocks(N, FA_BN), FA_THREADS, smem, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
+        l, sc, dh, dh_dtype, N, H, V);
+  } else {
+    const size_t smem = dh_mma_smem_bytes(H);
+    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const bf16* hb = static_cast<const bf16*>(h);
+    const bf16* wb = static_cast<const bf16*>(w);
+    if (H <= 512) {
+      if ((err = set_smem(ce_bwd_dh_mma<16>, smem)) != cudaSuccess)
+        return (int)err;
+      ce_bwd_dh_mma<16><<<blocks(N, A_BN), A_THREADS, smem, s>>>(
+          hb, wb, bias, lab, l, sc, dh, dh_dtype, N, H, V, vec);
+    } else {
+      if ((err = set_smem(ce_bwd_dh_mma<32>, smem)) != cudaSuccess)
+        return (int)err;
+      ce_bwd_dh_mma<32><<<blocks(N, A_BN), A_THREADS, smem, s>>>(
+          hb, wb, bias, lab, l, sc, dh, dh_dtype, N, H, V, vec);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// dw f32 (H,V); db f32 (V,) or null (not written).
+extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* b,
+                               const void* labels, const void* lse,
+                               const void* scale, void* dw, void* db, int N,
+                               int H, int V, int dtype, void* stream) {
+  if (bad_dims(N, H, V, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bias = static_cast<const float*>(b);
+  const int* lab = static_cast<const int*>(labels);
+  const float* l = static_cast<const float*>(lse);
+  const float* sc = static_cast<const float*>(scale);
+  float* dwf = static_cast<float*>(dw);
+  float* dbf = static_cast<float*>(db);
+  cudaError_t err;
+  if (dtype == 0) {
+    const size_t smem = sizeof(float) * (size_t)H * FB_BV;
+    if ((err = set_smem(ce_bwd_dw_fma, smem)) != cudaSuccess) return (int)err;
+    ce_bwd_dw_fma<<<blocks(V, FB_BV), FB_THREADS, smem, s>>>(
+        static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
+        l, sc, dwf, dbf, N, H, V);
+  } else {
+    const size_t smem = dw_mma_smem_bytes(H);
+    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const bf16* hb = static_cast<const bf16*>(h);
+    const bf16* wb = static_cast<const bf16*>(w);
+    if (H <= 512) {
+      if ((err = set_smem(ce_bwd_dw_mma<8>, smem)) != cudaSuccess)
+        return (int)err;
+      ce_bwd_dw_mma<8><<<blocks(V, B_BV), B_THREADS, smem, s>>>(
+          hb, wb, bias, lab, l, sc, dwf, dbf, N, H, V, vec);
+    } else {
+      if ((err = set_smem(ce_bwd_dw_mma<16>, smem)) != cudaSuccess)
+        return (int)err;
+      ce_bwd_dw_mma<16><<<blocks(V, B_BV), B_THREADS, smem, s>>>(
+          hb, wb, bias, lab, l, sc, dwf, dbf, N, H, V, vec);
+    }
+  }
+  return (int)cudaGetLastError();
+}

@@ -51,6 +51,12 @@ class ZooModel(KerasNet):
             raise RuntimeError("no weights; call init_weights() first")
         return self.model(x, training=training, generator=generator)
 
+    def fused_head(self):
+        """Fused LM-head loss resolution (``keras/fused_loss.py``) sees
+        through the facade to the inner network's logits head."""
+        from ...pipeline.api.keras.fused_loss import find_head
+        return find_head(self.model)
+
     def summary(self) -> str:
         n = sum(p.numel() for p in self.parameters())
         return (f"Model: {type(self).__name__} ({self.name})\n"

@@ -10,7 +10,8 @@ keys (``W``, ``b``, ``gamma``, ``block0`` ...), so ``named_parameters``
 spells the same paths as the JAX tree and weights move across name for
 name. A Dense ``W`` stays ``(d_in, d_out)``.
 
-``Model``/``Sequential`` (the graph toposort) are not ported yet.
+``Sequential`` stacks layers in order; ``Model``/``Input``/``Lambda`` (the
+graph toposort) are not ported yet.
 """
 
 from __future__ import annotations
@@ -252,12 +253,28 @@ class Layer(nn.Module):
     and ``call(x, training=False, generator=None)``. ``generator`` is the
     explicit random state of training-time noise (dropout)."""
 
-    def __init__(self, name: Optional[str] = None):
+    def __init__(self, name: Optional[str] = None,
+                 input_shape: Optional[Sequence[int]] = None):
         super().__init__()
+        # an auto name is renamed by position when the layer joins a
+        # Sequential, so param keys never depend on process-global counters
+        self._auto_name = name is None
         self.name = name or unique_name(type(self).__name__.lower() + "_")
+        # Keras-1 convention: input_shape excludes the batch dim
+        self._declared_input_shape = (
+            (None,) + tuple(input_shape) if input_shape is not None else None)
 
     def build(self, input_shape, *, generator: torch.Generator) -> None:
         """Create this layer's parameters (none by default)."""
+
+    def compute_output_shape(self, input_shape):
+        """The output shape for ``input_shape`` (leading ``None`` batch
+        dim). The JAX package infers it with ``jax.eval_shape``; a real
+        forward at full width is too dear here, so each layer a
+        ``Sequential`` stacks states its rule."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no output-shape rule, so it cannot "
+            f"be stacked in a Sequential yet")
 
     def add_weight(self, key: str, value: torch.Tensor) -> None:
         """Register ``value`` as parameter ``key`` (the JAX tree key)."""
@@ -364,6 +381,100 @@ class KerasNet(Layer):
         from .training import probs_to_classes
         return probs_to_classes(self.predict(x, batch_size=batch_size),
                                 zero_based=zero_based)
+
+
+class Sequential(KerasNet):
+    """Linear stack — ``Sequential`` (``Topology.scala:825-959``). Layers
+    that join with an automatic name are renamed ``f"{type}_{position}"``
+    and registered under that name, so the parameter paths are the JAX
+    param tree's (``transformerlayer_0/wte``, ``dense_1/W``) and weights
+    move across with :meth:`load_jax_params`. ``device`` is where the
+    weights live: ``cuda`` unless given (raises without a GPU). Each layer
+    is called through :func:`dispatch_layer`, so the fused loss can
+    intercept the head."""
+
+    def __init__(self, layers: Optional[Sequence[Layer]] = None,
+                 name: Optional[str] = None, device=None):
+        from ....common.context import resolve_device
+        super().__init__(name=name or unique_name("sequential_"))
+        self.device = resolve_device(device)
+        self.layers = []
+        self.built = False
+        for layer in layers or []:
+            self.add(layer)
+
+    def add(self, layer: Layer) -> "Sequential":
+        if self.built:
+            raise RuntimeError(f"{self.name}: add layers before the weights "
+                               f"are built")
+        taken = {l.name for l in self.layers}
+        if layer._auto_name:
+            cand = f"{type(layer).__name__.lower()}_{len(self.layers)}"
+            while cand in taken:        # dodge user-chosen names
+                cand += "_"
+            layer.name = cand
+            layer._auto_name = False     # one name if the layer is reused
+        if layer.name in taken:
+            raise ValueError(f"{self.name}: duplicate layer name "
+                             f"{layer.name!r}; give the layers distinct "
+                             f"name=...")
+        self.add_module(layer.name, layer)
+        self.layers.append(layer)
+        return self
+
+    @property
+    def input_shape(self):
+        for layer in self.layers:
+            if layer._declared_input_shape is not None:
+                return layer._declared_input_shape
+        return None
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape
+        for layer in self.layers:
+            shape = layer.compute_output_shape(shape)
+        return shape
+
+    def build(self, input_shape=None, *, generator: torch.Generator):
+        shape = input_shape or self.input_shape
+        if shape is None:
+            raise ValueError(f"{self.name}: the first layer needs "
+                             f"input_shape=...")
+        for layer in self.layers:
+            layer.build(shape, generator=generator)
+            shape = layer.compute_output_shape(shape)
+
+    def init_weights(self, generator: Optional[torch.Generator] = None
+                     ) -> "Sequential":
+        """Create every parameter from ``generator`` (default: seeded from
+        ``zoo.seed``) on the CPU, then move it to ``self.device``."""
+        from ....common.context import get_zoo_context
+        if generator is None:
+            generator = get_zoo_context().generator()
+        self.build(generator=generator)
+        self.to(self.device)
+        self.built = True
+        return self
+
+    def load_jax_params(self, tree: Dict[str, Any]) -> "Sequential":
+        """Fill the weights from a JAX ``Sequential`` param tree (nested
+        dicts of arrays) name for name; builds first if needed."""
+        if not self.built:
+            self.init_weights()
+        load_param_tree(self, tree)
+        return self
+
+    def call(self, x, *, training=False, generator=None):
+        if not self.built:
+            raise RuntimeError("no weights; call init_weights() first")
+        from ....common.noise import split_seeds
+        gens = ([torch.Generator().manual_seed(s)
+                 for s in split_seeds(generator, len(self.layers))]
+                if generator is not None else [None] * len(self.layers))
+        h = x
+        for layer, g in zip(self.layers, gens):
+            h = dispatch_layer(layer, h, training=training, generator=g)
+        return h
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:

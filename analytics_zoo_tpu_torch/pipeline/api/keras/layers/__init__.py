@@ -1,10 +1,11 @@
 """Port of ``analytics_zoo_tpu/pipeline/api/keras/layers`` (the layers
-BERT serving needs)."""
+the ported paths need)."""
 
 from .core import Dense, Dropout
 from .embeddings import take_rows
 from .normalization import LayerNorm
-from .self_attention import BERT, MultiHeadSelfAttention, TransformerBlock
+from .self_attention import (BERT, MultiHeadSelfAttention, TransformerBlock,
+                             TransformerLayer)
 
 __all__ = ["Dense", "Dropout", "LayerNorm", "take_rows", "BERT",
-           "MultiHeadSelfAttention", "TransformerBlock"]
+           "MultiHeadSelfAttention", "TransformerBlock", "TransformerLayer"]

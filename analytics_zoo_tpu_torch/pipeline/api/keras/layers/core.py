@@ -62,6 +62,9 @@ class Dense(Layer):
             self.add_weight("b", torch.zeros(self.output_dim,
                                              dtype=param_dtype()))
 
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
     def call(self, x, *, training=False, generator=None):
         y = dense(x, self.W, self.b if self.bias else None, compute_dtype())
         if self.activation is not None:
@@ -89,6 +92,9 @@ class Dropout(Layer):
     def __init__(self, p: float, **kwargs):
         super().__init__(**kwargs)
         self.p = p
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
 
     def call(self, x, *, training=False, generator=None):
         if training and self.p > 0.0 and generator is None:

@@ -21,6 +21,9 @@ class LayerNorm(Layer):
         self.add_weight("gamma", torch.ones(d, dtype=param_dtype()))
         self.add_weight("beta", torch.zeros(d, dtype=param_dtype()))
 
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
     def call(self, x, *, training=False, generator=None):
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)

@@ -1,7 +1,7 @@
 """Transformer layers — port of ``analytics_zoo_tpu/pipeline/api/keras/
 layers/self_attention.py``: ``MultiHeadSelfAttention`` (fused QKV, routed
-to the flash kernel or the oracle), the post-LN ``TransformerBlock`` and
-the ``BERT`` encoder. Sequence-parallel (ring/ulysses) routing is not
+to the flash kernel or the oracle), the post-LN ``TransformerBlock``, the
+GPT-style ``TransformerLayer`` and the ``BERT`` encoder. Sequence-parallel (ring/ulysses) routing is not
 ported; the port drives one device.
 """
 
@@ -159,6 +159,9 @@ class TransformerBlock(Layer):
         self.out.build(generator=generator)
         self.ln2.build(shape, generator=generator)
 
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
     def call(self, x, *, training=False, generator=None):
         mask = None
         if isinstance(x, (list, tuple)):
@@ -171,6 +174,62 @@ class TransformerBlock(Layer):
                    approximate="tanh" if self.gelu_approximate else "none")
         h = dropout(self.out(h), self.hidden_drop, g2, training)
         return self.ln2(x + h)
+
+
+class TransformerLayer(Layer):
+    """GPT-style decoder stack — ``TransformerLayer.scala:56``. Input int
+    ids ``(B, T)`` → hidden states ``(B, T, H)``; ``bidirectional=False``
+    makes every block causal. Blocks keep the JAX defaults: intermediate
+    ``4 H``, LayerNorm epsilon 1e-5, tanh gelu."""
+
+    def __init__(self, vocab: int, seq_len: int, n_block: int = 12,
+                 hidden_size: int = 768, n_head: int = 12,
+                 hidden_drop: float = 0.1, attn_drop: float = 0.1,
+                 embedding_drop: float = 0.1, bidirectional: bool = False,
+                 initializer_range: float = 0.02, **kwargs):
+        super().__init__(**kwargs)
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.n_block = n_block
+        self.hidden_size = hidden_size
+        self.embedding_drop = embedding_drop
+        self.initializer_range = initializer_range
+        for i in range(n_block):
+            # attribute names are the JAX tree's keys: block0, block1, ...
+            self.add_module(f"block{i}", TransformerBlock(
+                hidden_size, n_head, causal=not bidirectional,
+                hidden_drop=hidden_drop, attn_drop=attn_drop,
+                name=f"{self.name}_block{i}"))
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.n_block)]
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], input_shape[1], self.hidden_size)
+
+    def build(self, input_shape=None, *, generator):
+        std = self.initializer_range
+
+        def table(rows):
+            return torch.empty(rows, self.hidden_size).normal_(
+                generator=generator).mul_(std).to(param_dtype())
+
+        self.add_weight("wte", table(self.vocab))
+        self.add_weight("wpe", table(self.seq_len))
+        for blk in self.blocks():
+            blk.build(generator=generator)
+
+    def call(self, x, *, training=False, generator=None):
+        t = x.shape[1]
+        # unlike BERT, the JAX layer gathers and adds in the param dtype and
+        # casts the sum to the compute dtype afterwards
+        h = (take_rows(self.wte, x) + self.wpe[None, :t, :]).to(
+            compute_dtype())
+        gens = _split_generator(generator, self.n_block + 1)
+        h = dropout(h, self.embedding_drop, gens[0], training)
+        for blk, g in zip(self.blocks(), gens[1:]):
+            h = blk(h, training=training, generator=g)
+        return h
 
 
 class BERT(Layer):

@@ -21,11 +21,19 @@ Training noise: each step draws from a CPU generator seeded from
 ``(zoo.seed, iteration)``, the counterpart of ``fold_in(base_rng,
 iteration)``; dropout masks are drawn on the device (``common/noise.py``).
 
+The step's forward and loss come from :meth:`TrainingLoop.
+_loss_application`, resolved once per loop as in the JAX package: a
+big-vocab Dense head with a sparse-CE loss streams through the fused
+LM-head cross-entropy (``keras/fused_loss.py``, ``zoo.train.fused_ce``)
+and the ``zoo_train_fused_ce`` gauge says so; everything else runs the
+plain forward and objective, which ``evaluate`` and ``predict`` always
+use (the full-logits oracle).
+
 Not ported yet, with their seams left where the JAX loop has them:
 anomaly sentinels and gradient clipping in the step, checkpoints and
 resume, retry on failure, SIGTERM snapshots, goodput accounting, scan and
-epoch fusion, the device-resident dataset, remat, the sequence/pipeline
-scopes and the fused LM-head cross-entropy resolution.
+epoch fusion, the device-resident dataset, remat and the
+sequence/pipeline scopes.
 """
 
 from __future__ import annotations
@@ -108,12 +116,20 @@ def step_generator(seed: int, iteration: int) -> torch.Generator:
 class TrainingLoop:
     """Owns the step of one (model, optimizer, loss, metrics) triple."""
 
+    #: the labels of the most recent fused-CE gauge write in this process —
+    #: a later non-fused (or differently-headed) loop zeroes the stale
+    #: series so the scrape never claims fusion is active when it is not
+    _last_fused_labels = None
+    _FUSED_GAUGE_HELP = ("1 while the fused blockwise LM-head cross-entropy "
+                         "is active for the current training loop")
+
     def __init__(self, model, optimizer: GradientTransformation,
                  loss: Callable, metrics: Sequence[Metric] = ()):
         self.model = model
         self.optimizer = optimizer
         self.loss = loss
         self.metrics = list(metrics)
+        self._apply_loss = None
         self._registry = default_registry()
         self._m_step_time = self._registry.histogram(
             "zoo_train_step_seconds",
@@ -149,14 +165,58 @@ class TrainingLoop:
         return model.opt_state
 
     # -- the step -------------------------------------------------------------
+    def _fused_gauge(self, labels: Dict[str, str]):
+        # head/vocab identify the fused head; bounded by the model
+        # architectures built in-process
+        return self._registry.gauge(  # zoolint: disable=ZL015 bounded label set
+            "zoo_train_fused_ce", self._FUSED_GAUGE_HELP, labels=labels)
+
+    def _loss_application(self):
+        """``fn(x, y, generator) -> loss`` — the forward and loss of every
+        step. Resolves the fused LM-head cross-entropy
+        (``fused_loss.resolve_fused_loss``, ``zoo.train.fused_ce``) ONCE per
+        loop: a big-vocab Dense head with a sparse-CE loss streams through
+        ``ops/fused_cross_entropy`` so the ``(B·T, V)`` logits tensor is
+        never formed; everything else runs the plain forward and
+        objective."""
+        if self._apply_loss is not None:
+            return self._apply_loss
+        from .fused_loss import resolve_fused_loss
+        model, loss_fn = self.model, self.loss
+        spec = resolve_fused_loss(model, loss_fn)
+        prev = TrainingLoop._last_fused_labels
+        if spec is None:
+            if prev is not None:
+                self._fused_gauge(prev).set(0)
+                TrainingLoop._last_fused_labels = None
+
+            def apply_loss(x, y, generator):
+                return loss_fn(y, model(x, training=True,
+                                        generator=generator))
+        else:
+            log.info("fused LM-head cross-entropy engaged: head=%s vocab=%d "
+                     "(zoo.train.fused_ce; the (N, V) logits tensor is never "
+                     "formed)", spec.head.name, spec.head.output_dim)
+            labels = {"head": spec.head.name,
+                      "vocab": str(spec.head.output_dim),
+                      "sharded": "1" if spec.sharded else "0"}
+            if prev is not None and prev != labels:
+                self._fused_gauge(prev).set(0)
+            self._fused_gauge(labels).set(1)
+            TrainingLoop._last_fused_labels = labels
+
+            def apply_loss(x, y, generator):
+                return spec.apply_and_loss(model, x, y, generator=generator)
+        self._apply_loss = apply_loss
+        return apply_loss
+
     def train_step(self, x, y, generator: Optional[torch.Generator],
                    params: Dict[str, torch.Tensor], opt_state) -> torch.Tensor:
         """Forward, loss, backward, optimizer update (the JAX plain step).
         Returns the step's loss as a device scalar; nothing syncs."""
         for p in params.values():
             p.grad = None
-        y_pred = self.model(x, training=True, generator=generator)
-        loss = self.loss(y, y_pred)
+        loss = self._loss_application()(x, y, generator)
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}

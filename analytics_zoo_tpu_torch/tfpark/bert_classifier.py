@@ -48,9 +48,14 @@ class _BertClassifierNet(Layer):
         g1, g2 = _split_generator(generator, 2)
         _, pooled = self.bert(x, training=training, generator=g1)
         pooled = self.drop(pooled, training=training, generator=g2)
-        # the head goes through dispatch_layer so the inference runtime
-        # can intercept it like any container-dispatched Dense
+        # the head goes through dispatch_layer so loss resolution can fuse
+        # it and the inference runtime can intercept it like any
+        # container-dispatched Dense
         return dispatch_layer(self.cls, pooled, training=training)
+
+    def fused_head(self):
+        """Fused LM-head loss resolution (``keras/fused_loss.py``)."""
+        return self.cls, ("cls",)
 
 
 class BERTClassifier(ZooModel):

@@ -28,11 +28,29 @@
    moved parameters, 12 launches per step of each of K2, K3a and K3b,
    and one step's gradients against the oracle attention route.
 
+6. CE kernel phase: holds K4, K5a and K5b (the fused LM-head
+   cross-entropy) against their plain versions at N=4100, H=512, in f32
+   and bf16: V=8192 and a ragged V=8000, no bias, labels of -1 on every
+   third row (loss 0, dh rows exactly 0), three over-range labels (NaN in
+   those rows and in dW) and one bias entry of 100 over a ragged row tile.
+   Each case runs twice and K5b's dW/db must be the same bits.
+7. LM training phase: the JAX package's 4k long-context configuration
+   (``bench.py:415-438``: ``Sequential([TransformerLayer(vocab=8192,
+   seq_len=4096, n_block=4, hidden_size=512, n_head=8, causal),
+   Dense(8192)])``, Adam lr 3e-4, ``scce_with_logits``, bf16 compute with
+   f32 params, batch 16) through ``compile``/``fit`` on 32 sequences of
+   ``y = (7x + 13) mod 8192`` with every flag at ``auto``: a warm-up of
+   two epochs, then two timed epochs of two steps. Checks the loss gate,
+   1 launch per step of K4/K5a/K5b and 4 of K2/K3a/K3b, one step's
+   gradients against the full-logits oracle, and that the fused route's
+   peak memory over that step is at least one bf16 logits tensor lower.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-line (each kernel at the training path's shape, with its launches on
-that path), and last ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, without a CUDA device, outside the repository, or
-when any check fails.
+line (each kernel at its main path's shape, with its launches on that
+path; the attention kernels also checked against their plain versions
+and timed at the LM shape), and last ``{"ok":
+true, "device": {...}}``. Exits non-zero, printing no result, without a
+CUDA device, outside the repository, or when any check fails.
 """
 
 import json
@@ -66,6 +84,23 @@ TRAIN_CFG = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
 GRAD_REL_TOL = 0.1
 
 
+#: the JAX package's 4k long-context configuration (bench.py:415-438)
+LM_VOCAB, LM_SEQ, LM_BATCH, LM_SEQS = 8192, 4096, 16, 32
+LM_CFG = dict(vocab=LM_VOCAB, seq_len=LM_SEQ, n_block=4, hidden_size=512,
+              n_head=8, hidden_drop=0.0, attn_drop=0.0, embedding_drop=0.0,
+              bidirectional=False)
+#: per-leaf bound on |g_fused - g_oracle| / |g_oracle| for one bf16 LM
+#: step. Both routes round the logits to bf16 at the same points (Dense's
+#: rounding) and run the same attention kernels; they differ in the
+#: softmax gradient: the oracle takes it from an f32 log-softmax of the
+#: upcast logits and rounds it to bf16 in autograd's cast, the fused route
+#: re-forms p from its own f32 lse and rounds dl to bf16. Entries near a
+#: rounding boundary move by one bf16 step (2^-8), so each leaf differs by
+#: well under 1%; 2% leaves room for the four blocks the difference
+#: crosses on its way back. A missing head gradient would read 100%.
+LM_GRAD_REL_TOL = 0.02
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -94,13 +129,16 @@ def attention_bound(q, k, mask, causal, flops_per_pair_per_d=4,
     (query, key) pair, counted from this mask) over the dtype's peak, and
     the bytes it must move over HBM bandwidth: ``n_q_sized`` tensors the
     size of q and ``n_kv_sized`` the size of k read or written once, the
-    mask read once and ``n_row_f32`` f32 (B, H, Tq) rows (lse, delta).
+    mask (if any) read once and ``n_row_f32`` f32 (B, H, Tq) rows (lse,
+    delta).
     The forward (K2) is 4 flops per pair per D and reads q and writes out,
     reads k and v."""
     import torch
     b, h, t_q, d = q.shape
     t_kv = k.shape[2]
-    vis = (mask >= 1.0)[:, None, :].expand(b, t_q, t_kv)
+    keep = (torch.ones(b, t_kv, dtype=torch.bool, device=q.device)
+            if mask is None else mask >= 1.0)
+    vis = keep[:, None, :].expand(b, t_q, t_kv)
     if causal:
         tri = torch.ones(t_q, t_kv, dtype=torch.bool,
                          device=q.device).tril(t_kv - t_q)
@@ -108,7 +146,7 @@ def attention_bound(q, k, mask, causal, flops_per_pair_per_d=4,
     pairs = int(vis.sum().item()) * h
     flops = float(flops_per_pair_per_d) * d * pairs
     nbytes = ((q.numel() * n_q_sized + k.numel() * n_kv_sized)
-              * q.element_size() + mask.numel() * 4
+              * q.element_size() + (0 if mask is None else mask.numel() * 4)
               + n_row_f32 * b * h * t_q * 4)
     dtype = str(q.dtype).replace("torch.", "")
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -579,6 +617,420 @@ def main_path_kernel_rows(ids, launches):
     return rows
 
 
+#: CE kernels against their plain versions (tests/test_torch_port_cuda.py):
+#: f32 only summation order differs; in bf16 a logit that the two f32
+#: sums leave on either side of a rounding boundary moves by one bf16 step
+#: (2^-8 relative), so lse 2e-2, the label logit one step of its size and
+#: the gradients 2e-2 of the case's largest
+CE_TOL = {"float32": dict(lse=1e-4, ll_rel=1e-5, grad=1e-4),
+          "bfloat16": dict(lse=2e-2, ll_rel=2.0 ** -7, grad=2e-2)}
+
+
+def bit_equal(a, b):
+    """Same bits, NaN payloads included."""
+    import torch
+    return (a is None and b is None) or torch.equal(a.view(torch.int32),
+                                                    b.view(torch.int32))
+
+
+def ce_kernel_phase():
+    """K4, K5a and K5b against their plain versions at N=4100, H=512."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_backward, fused_ce_backward_reference, fused_ce_forward,
+        fused_ce_forward_reference)
+    n, hidden = 4100, 512
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, dtype, V, bias, over-range labels, one bias of 100
+        ("f32_v8192", f32, 8192, True, False, False),
+        ("bf16_v8192", bf16, 8192, True, False, False),
+        ("bf16_v8000_ragged_vocab", bf16, 8000, True, False, False),
+        ("bf16_no_bias", bf16, 8192, False, False, False),
+        ("f32_over_range", f32, 8000, True, True, False),
+        ("bf16_over_range", bf16, 8192, True, True, False),
+        ("bf16_bias100_ragged_rows", bf16, 8000, True, False, True),
+    ]
+    g = torch.Generator().manual_seed(4)
+    rows = []
+    for name, dtype, v, bias, over, big in cases:
+        tol = CE_TOL[str(dtype).replace("torch.", "")]
+        h = torch.randn(n, hidden, generator=g).to("cuda", dtype)
+        w = (torch.randn(hidden, v, generator=g) * hidden ** -0.5).to(
+            "cuda", dtype)
+        b = (torch.randn(v, generator=g) * 0.5).cuda() if bias else None
+        labels = torch.randint(0, v, (n,), generator=g,
+                               dtype=torch.int32).cuda()
+        labels[::3] = -1                                # masked rows
+        bad = torch.zeros(n, dtype=torch.bool, device="cuda")
+        if over:
+            bad[[7, 2000, 4099]] = True
+            labels[bad] = torch.tensor([v, v + 1, 10 ** 6],
+                                       dtype=torch.int32, device="cuda")
+        if big:
+            b[3] = 100.0
+        lse, ll = fused_ce_forward(h, w, b, labels)
+        torch.cuda.synchronize()
+        ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
+        lse_err = (lse - ref_lse).abs().max().item()
+        ll_err = ((ll - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)
+                  ).max().item()
+        check(lse_err <= tol["lse"], f"{name}: K4 lse {lse_err}")
+        check(ll_err <= tol["ll_rel"], f"{name}: K4 label logit {ll_err}")
+        valid = labels >= 0
+        scale = torch.where(valid, 1.0 / valid.sum().float(),
+                            torch.zeros((), device="cuda"))
+        scale = torch.where(labels >= v, torch.full((), float("nan"),
+                                                    device="cuda"), scale)
+        runs = []
+        for _ in range(2):
+            runs.append(fused_ce_backward(h, w, b, labels, lse, scale))
+            torch.cuda.synchronize()
+        dh, dw, db = runs[0]
+        same = bit_equal(runs[0][1], runs[1][1]) and bit_equal(runs[0][2],
+                                                               runs[1][2])
+        check(same, f"{name}: K5b dW/db differ between two runs")
+        ref = fused_ce_backward_reference(h, w, b, labels, lse, scale)
+        check(bool(torch.all(dh[labels < 0] == 0)),
+              f"{name}: masked rows' dh not exactly 0")
+        row = {"case": name, "n": n, "hidden": hidden, "vocab": v,
+               "dtype": str(dtype).replace("torch.", ""), "bias": bias,
+               "lse_err": lse_err, "ll_rel_err": ll_err,
+               "tol": tol, "dw_db_bit_identical": same}
+        if over:
+            check(bool(torch.isnan(dh[bad]).all()
+                       and torch.isfinite(dh[~bad]).all()),
+                  f"{name}: NaN rows of dh")
+            check(bool(torch.isnan(dw).all()), f"{name}: dW not all NaN")
+            row["nan_rows"] = int(torch.isnan(dh).any(dim=1).sum())
+            pairs = (("dh", dh[~bad], ref[0][~bad]),)
+        else:
+            pairs = (("dh", dh, ref[0]), ("dw", dw, ref[1]),
+                     ("db", db, ref[2]))
+        for key, got, want in pairs:
+            if want is None:
+                check(got is None, f"{name}: {key} without a bias")
+                continue
+            check(bool(torch.isfinite(got).all()), f"{name}: {key} not "
+                  f"finite")
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            row[f"{key}_max_abs_err"] = err
+            row[f"{key}_max_abs"] = top
+            check(err <= tol["grad"] * top, f"{name}: {key} {err} > "
+                  f"{tol['grad']} x {top}")
+        rows.append(row)
+        print(f"ce kernel case {json.dumps(row)}")
+    return rows
+
+
+def lm_data(n: int = LM_SEQS):
+    """The bench's data: ``n`` sequences of 4096 ids from numpy seed 7 and
+    the learnable map y = (7x + 13) mod V."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, LM_VOCAB, (n, LM_SEQ)).astype(np.int32)
+    return x, ((7 * x + 13) % LM_VOCAB).astype(np.int32)
+
+
+def lm_phase():
+    """compile/fit of the 4k causal LM with every flag at auto; returns
+    the summary and the labels of one batch."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL_CE_FWD)
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.fused_loss import \
+        resolve_fused_loss
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import (
+        _to_device, step_generator)
+
+    init_zoo_context(conf={"zoo.compute.dtype": "bfloat16", "zoo.seed": 0,
+                           "zoo.pallas.attention": "auto",
+                           "zoo.pallas.cross_entropy": "auto",
+                           "zoo.train.fused_ce": "auto"})
+    t0 = time.perf_counter()
+    model = Sequential([TransformerLayer(**LM_CFG, input_shape=(LM_SEQ,)),
+                        Dense(LM_VOCAB)]).init_weights()
+    model.compile(optimizer="adam", loss="scce_with_logits", lr=3e-4)
+    print(f"lm: built in {time.perf_counter() - t0:.1f}s "
+          f"({json.dumps(LM_CFG)}, head Dense({LM_VOCAB})), bf16 compute, "
+          f"f32 params, Adam lr 3e-4, batch {LM_BATCH}")
+    x, y = lm_data()
+    records = []
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=LM_BATCH, nb_epoch=2,
+              callbacks=[records.append])                 # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+
+    kernels = (KERNEL_CE_FWD, KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL,
+               KERNEL_BWD_DQ, KERNEL_BWD_DKV)
+    for c in kernels:
+        c.reset()
+    timed = []
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=LM_BATCH, nb_epoch=2,
+              callbacks=[timed.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fused_ce_fwd", "fused_ce_bwd_dh",
+                         "fused_ce_bwd_dw", "flash_attention_fwd",
+                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                        (c.launches for c in kernels)))
+    records += timed
+    steps = 2 * (LM_SEQS // LM_BATCH)
+    loss_first, loss_last = records[0]["loss"], records[-1]["loss"]
+    summary = {"steps": steps, "batch": LM_BATCH, "seq_len": LM_SEQ,
+               "tokens_per_s": max(r["throughput"] for r in timed) * LM_SEQ,
+               "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
+               "warmup_s": warm,
+               "losses": [r["loss"] for r in records],
+               "launches": launches}
+    print(f"lm: {steps} steps of {LM_BATCH}x{LM_SEQ} tokens in {wall:.3f}s "
+          f"= {summary['tokens_per_s']:.1f} tokens/s (best epoch), "
+          f"{summary['ms_per_step']:.1f} ms/step (warm-up {warm:.1f}s); "
+          f"loss {loss_first:.4f} -> {loss_last:.4f}; launches "
+          f"{json.dumps(launches)}")
+    check(math.isfinite(loss_last) and loss_last < 0.98 * loss_first,
+          f"loss gate: {loss_first} -> {loss_last}")
+    n_block = LM_CFG["n_block"]
+    for name, count in launches.items():
+        want = steps * (n_block if name.startswith("flash") else 1)
+        check(count == want, f"{name}: {count} launches, want {want}")
+
+    # one step's gradients and peak memory: the fused route against the
+    # full-logits oracle on the same batch and weights
+    loss_fn = model._loop.loss
+    spec = resolve_fused_loss(model, loss_fn)
+    check(spec is not None, "the fused loss did not resolve")
+    xb = _to_device(x[:LM_BATCH], torch.device("cuda"))
+    yb = _to_device(y[:LM_BATCH], torch.device("cuda"))
+    grads, peaks, losses = {}, {}, {}
+    for route in ("fused", "oracle"):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen = step_generator(0, 0)
+        if route == "fused":
+            loss = spec.apply_and_loss(model, xb, yb, generator=gen)
+        else:
+            loss = loss_fn(yb, model(xb, training=True, generator=gen))
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[route] = torch.cuda.max_memory_allocated() - base
+        losses[route] = loss.item()
+        del loss
+        grads[route] = {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    rel = {n: ((grads["fused"][n] - grads["oracle"][n]).norm()
+               / grads["oracle"][n].norm().clamp_min(1e-30)).item()
+           for n in grads["fused"]}
+    worst = max(rel, key=rel.get)
+    saved = peaks["oracle"] - peaks["fused"]
+    logits_bytes = LM_BATCH * LM_SEQ * LM_VOCAB * 2
+    summary.update(grad_rel_err_max=rel[worst], grad_rel_err_leaf=worst,
+                   step_losses=losses, peak_step_bytes=peaks,
+                   peak_saved_bytes=saved)
+    print(f"lm: fused vs oracle, one step: losses {losses['fused']:.6f} / "
+          f"{losses['oracle']:.6f}; largest per-leaf gradient relative "
+          f"error {rel[worst]:.3e} ({worst}; tolerance {LM_GRAD_REL_TOL}); "
+          f"peak memory over the step {peaks['fused'] / 1e9:.3f} GB fused, "
+          f"{peaks['oracle'] / 1e9:.3f} GB oracle ({saved / 1e9:.3f} GB "
+          f"saved, at least {logits_bytes / 1e9:.3f} GB required)")
+    check(rel[worst] <= LM_GRAD_REL_TOL, f"fused vs oracle gradients: "
+          f"{worst} {rel[worst]}")
+    check(saved >= logits_bytes, f"fused peak only {saved} bytes under the "
+          f"oracle's")
+    del grads
+    return summary, y[:LM_BATCH]
+
+
+def lm_kernel_rows(labels_np, launches):
+    """K4, K5a and K5b at the LM path's shape (N=65,536, H=512, V=8192,
+    bf16, a bias, the run's labels), and the attention kernels at the LM's
+    causal B=16, H=8, T=4096, D=64 (time, launches on the LM path and
+    bound): ``(ce_rows, flash_lm)``."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_backward_dh, fused_ce_backward_dw,
+        fused_ce_backward_reference, fused_ce_forward,
+        fused_ce_forward_reference)
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dq, flash_attention)
+    n, hidden, v = LM_BATCH * LM_SEQ, LM_CFG["hidden_size"], LM_VOCAB
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn(n, hidden, generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn(hidden, v, generator=g) * hidden ** -0.5).to(
+        "cuda", torch.bfloat16)
+    b = (torch.randn(v, generator=g) * 0.1).cuda()
+    labels = torch.from_numpy(labels_np.reshape(-1)).cuda()
+    scale = torch.full((n,), 1.0 / n, device="cuda")
+    lse, ll = fused_ce_forward(h, w, b, labels)
+    dh = fused_ce_backward_dh(h, w, b, labels, lse, scale)
+    dw, db = fused_ce_backward_dw(h, w, b, labels, lse, scale)
+    torch.cuda.synchronize()
+    ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
+    ref_dh, ref_dw, ref_db = fused_ce_backward_reference(h, w, b, labels,
+                                                         lse, scale)
+
+    def err(a, c):
+        return (a.float() - c.float()).abs().max().item()
+
+    tol = CE_TOL["bfloat16"]
+    lse_err = err(lse, ref_lse)
+    ll_rel = ((ll - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)).max().item()
+    errors = {"fused_ce_fwd": max(lse_err, err(ll, ref_ll)),
+              "fused_ce_bwd_dh": err(dh, ref_dh),
+              "fused_ce_bwd_dw": max(err(dw, ref_dw), err(db, ref_db))}
+    check(lse_err <= tol["lse"], f"LM shape: K4 lse {lse_err}")
+    check(ll_rel <= tol["ll_rel"], f"LM shape: K4 label logit {ll_rel}")
+    del ref_lse, ref_ll
+    for name, ref in (("fused_ce_bwd_dh", ref_dh), ("fused_ce_bwd_dw",
+                                                    ref_dw)):
+        top = ref.float().abs().max().item()
+        check(errors[name] <= tol["grad"] * top, f"LM shape: {name} "
+              f"{errors[name]} > {tol['grad']} x {top}")
+    del ref_dh, ref_dw, ref_db
+
+    dl = torch.randn(n, v, device="cuda", dtype=torch.bfloat16)
+    plain_bwd_ms = time_ms(lambda: fused_ce_backward_reference(
+        h, w, b, labels, lse, scale), iters=5, warmup=1)
+    flops_fwd = 2.0 * n * hidden * v
+    bytes_in = n * hidden * 2 + hidden * v * 2 + v * 4 + n * 4
+    timings = {
+        "fused_ce_fwd": (
+            time_ms(lambda: fused_ce_forward(h, w, b, labels)),
+            time_ms(lambda: fused_ce_forward_reference(h, w, b, labels),
+                    iters=5, warmup=1),
+            time_ms(lambda: torch.matmul(h, w)),
+            flops_fwd, bytes_in + 2 * n * 4),
+        "fused_ce_bwd_dh": (
+            time_ms(lambda: fused_ce_backward_dh(h, w, b, labels, lse,
+                                                 scale)),
+            plain_bwd_ms,
+            time_ms(lambda: (torch.matmul(h, w), torch.matmul(dl, w.T))),
+            2 * flops_fwd, bytes_in + 2 * n * 4 + n * hidden * 2),
+        "fused_ce_bwd_dw": (
+            time_ms(lambda: fused_ce_backward_dw(h, w, b, labels, lse,
+                                                 scale)),
+            plain_bwd_ms,
+            time_ms(lambda: (torch.matmul(h, w), torch.matmul(h.T, dl))),
+            2 * flops_fwd, bytes_in + 2 * n * 4 + hidden * v * 4 + v * 4),
+    }
+    del dl
+    src = "analytics_zoo_tpu_torch/csrc/fused_cross_entropy.cu"
+    replaces = {"fused_ce_fwd": "analytics_zoo_tpu/ops/pallas/"
+                                "cross_entropy.py:325",
+                "fused_ce_bwd_dh": "analytics_zoo_tpu/ops/pallas/"
+                                   "cross_entropy.py:496",
+                "fused_ce_bwd_dw": "analytics_zoo_tpu/ops/pallas/"
+                                   "cross_entropy.py:525"}
+    rows = []
+    for name, (ms, plain_ms, lib_ms, flops, nbytes) in timings.items():
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces[name],
+                     "launches": launches[name],
+                     "max_abs_err": errors[name], "ms": ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": ("operations" if t_ops >= t_bytes
+                                  else "bytes"),
+                     "library_ms": lib_ms,
+                     "library_by": "cuBLAS products, no softmax"})
+        if name != "fused_ce_fwd":
+            rows[-1]["plain_by"] = ("the plain backward computes dh, dW "
+                                    "and db together: the pair's time")
+    del h, w, dh, dw
+
+    q, k, vv, do = (torch.randn(LM_BATCH, LM_CFG["n_head"], LM_SEQ, 64,
+                                generator=g).to("cuda", torch.bfloat16)
+                    for _ in range(4))
+    out, lse = flash_attention(q, k, vv, causal=True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    errors_lm = lm_attention_errors(q, k, vv, do, out, lse, delta)
+    bounds_lm = {   # operation and byte counts as main_path_kernel_rows'
+        "flash_attention_fwd": attention_bound(q, k, None, True,
+                                               n_row_f32=1),
+        "flash_attention_bwd_dq": attention_bound(q, k, None, True, 6,
+                                                  n_q_sized=3, n_kv_sized=2,
+                                                  n_row_f32=2),
+        "flash_attention_bwd_dkv": attention_bound(q, k, None, True, 8,
+                                                   n_q_sized=2,
+                                                   n_kv_sized=4,
+                                                   n_row_f32=2),
+    }
+    flash_lm = {
+        "flash_attention_fwd": time_ms(lambda: flash_attention(
+            q, k, vv, causal=True, want_lse=True), iters=5, warmup=1),
+        "flash_attention_bwd_dq": time_ms(lambda: bwd_dq(
+            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
+        "flash_attention_bwd_dkv": time_ms(lambda: bwd_dkv(
+            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
+    }
+    return rows, {name: {"launches_lm": launches[name], "ms_lm": ms,
+                         "max_abs_err_lm": errors_lm[name],
+                         "bound_ms_lm": bounds_lm[name][0],
+                         "bound_by_lm": bounds_lm[name][1]}
+                  for name, ms in flash_lm.items()}
+
+
+def lm_attention_errors(q, k, v, do, out, lse, delta):
+    """K2, K3a and K3b against their plain versions at the LM shape
+    (causal, no mask, bf16), with the tolerances of the BERT-shape phases:
+    K2's output 2e-2 absolute and its lse 1e-3, the gradients 2e-2 of the
+    largest. The plain versions form the f32 score matrix, 8.6 GB at this
+    shape, so they run one batch row at a time. Returns each kernel's
+    largest absolute error."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dkv_reference, bwd_dq, bwd_dq_reference,
+        flash_attention_reference)
+    dq = bwd_dq(q, k, v, None, lse, delta, do, True)
+    dk, dv = bwd_dkv(q, k, v, None, lse, delta, do, True)
+    torch.cuda.synchronize()
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    err = dict.fromkeys(got, 0.0)
+    top = dict.fromkeys(got, 0.0)
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        args = (q[sl], k[sl], v[sl], None, lse[sl], delta[sl], do[sl], True)
+        ref = dict(zip(("out", "lse"), flash_attention_reference(
+            q[sl], k[sl], v[sl], None, True, want_lse=True)))
+        ref["dq"] = bwd_dq_reference(*args)
+        ref["dk"], ref["dv"] = bwd_dkv_reference(*args)
+        for key, want in ref.items():
+            err[key] = max(err[key], (got[key][sl].float() - want.float()
+                                      ).abs().max().item())
+            top[key] = max(top[key], want.float().abs().max().item())
+        del ref
+    print(f"lm attention kernels vs plain, B={q.shape[0]} H={q.shape[1]} "
+          f"T={q.shape[2]} D={q.shape[3]} causal bf16: "
+          f"{json.dumps({'max_abs_err': err, 'max_abs': top})}")
+    check(err["out"] <= 2e-2, f"LM shape: K2 vs plain {err['out']}")
+    check(err["lse"] <= 1e-3, f"LM shape: K2 lse {err['lse']}")
+    for key in ("dq", "dk", "dv"):
+        check(bool(torch.isfinite(got[key]).all()), f"LM shape: {key} not "
+              f"finite")
+        check(err[key] <= 2e-2 * top[key], f"LM shape: {key} vs plain "
+              f"{err[key]} > 2e-2 x {top[key]}")
+    return {"flash_attention_fwd": max(err["out"], err["lse"]),
+            "flash_attention_bwd_dq": err["dq"],
+            "flash_attention_bwd_dkv": max(err["dk"], err["dv"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -586,6 +1038,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from analytics_zoo_tpu_torch.ops.cuda_build import build_all
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
+        LIBRARY as LIBRARY_CE
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         LIBRARY, LIBRARY_BWD)
 
@@ -598,18 +1052,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build_all([LIBRARY, LIBRARY_BWD])
-    print(f"build: flash_attention_fwd, flash_attention_bwd in "
-          f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
+    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE])
+    print(f"build: flash_attention_fwd, flash_attention_bwd, "
+          f"fused_cross_entropy in {time.perf_counter() - t0:.1f}s (nvcc "
+          f"sm_90a, in parallel)")
 
     kernel_rows = kernel_phase()
     bwd_rows = bwd_kernel_phase()
+    ce_rows = ce_kernel_phase()
     serving = serving_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
+    lm, lm_labels = lm_phase()
+    ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"])
+    for row in rows:
+        row.update(flash_lm[row["name"]])
+    rows += ce_kernel_rows
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
-                      "serving": serving, "training": training,
-                      "card": card}))
+                      "ce_cases": ce_rows, "serving": serving,
+                      "training": training, "lm": lm, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

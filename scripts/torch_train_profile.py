@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Trace full-width BERT-base training steps of the PyTorch port on one GPU.
+"""Trace full-width training steps of the PyTorch port on one GPU.
 
-    python3 scripts/torch_train_profile.py [--steps 3] [--trace PATH]
+    python3 scripts/torch_train_profile.py [--model bert|lm] [--steps 3]
+                                           [--trace PATH]
 
-Builds the JAX package's seq-512 fine-tune configuration as
-``chip_smoke.py``'s training phase does (BERT-base, vocab 30522, bf16
-compute with f32 params, AdamW lr 2e-5, batch 32,
-``zoo.pallas.attention=true``), fits one warm-up epoch of two steps, then
-records ``--steps`` steps of ``fit`` under ``torch.profiler``. Prints the
-card's name and power limit, the device time per step by kernel family
-and for the top kernels, the share of the traced window in which any
-kernel ran (the device busy share), and one JSON summary as the last
-line. ``--trace`` also writes the Chrome trace. Exits non-zero without a
-CUDA device or when the profiler records no device time.
+``--model bert`` (the default) builds the JAX package's seq-512 fine-tune
+configuration as ``chip_smoke.py``'s training phase does (BERT-base,
+vocab 30522, bf16 compute with f32 params, AdamW lr 2e-5, batch 32,
+``zoo.pallas.attention=true``). ``--model lm`` builds its 4k causal
+language model as ``chip_smoke.py``'s LM phase does (``TransformerLayer``
++ ``Dense(8192)``, seq 4096, batch 16, Adam lr 3e-4, bf16 compute, every
+flag at auto, so the fused LM-head cross-entropy and the attention run
+through their kernels). Fits a warm-up epoch of two steps, then records
+``--steps`` steps of ``fit`` under ``torch.profiler``. Prints the card's
+name and power limit, the device time per step by kernel family and for
+the top kernels, the share of the traced window in which any kernel ran
+(the device busy share), and one JSON summary as the last line.
+``--trace`` also writes the Chrome trace. Exits non-zero without a CUDA
+device or when the profiler records no device time.
 """
 
 import argparse
@@ -26,6 +31,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: kernel families by name fragment, first match wins
 FAMILIES = (
+    ("fused_ce_fwd (K4)", ("ce_fwd_mma", "ce_fwd_fma")),
+    ("fused_ce_bwd_dh (K5a)", ("ce_bwd_dh_mma", "ce_bwd_dh_fma")),
+    ("fused_ce_bwd_dw (K5b)", ("ce_bwd_dw_mma", "ce_bwd_dw_fma")),
     ("flash_attention_fwd (K2)", ("flash_fwd_mma", "flash_fwd_fma")),
     ("flash_attention_bwd_dq (K3a)", ("bwd_dq_mma", "bwd_dq_fma")),
     ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_mma", "bwd_dkv_fma")),
@@ -55,9 +63,39 @@ def busy_share(intervals, t0, t1):
     return covered / (t1 - t0) if t1 > t0 else 0.0
 
 
+def build_bert(steps: int):
+    """The seq-512 BERT-base fine-tune: ``(model, x, y, batch)``."""
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    from chip_smoke import T_BATCH, TRAIN_CFG, training_data
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    model = BERTClassifier(**TRAIN_CFG, device="cuda").init_weights()
+    model.compile(optimizer="adamw", loss="scce", lr=2e-5)
+    x, y, _ = training_data(T_BATCH * steps)
+    return model, x, y, T_BATCH
+
+
+def build_lm(steps: int):
+    """The 4k causal LM: ``(model, x, y, batch)``."""
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    from chip_smoke import LM_BATCH, LM_CFG, LM_SEQ, LM_VOCAB, lm_data
+    init_zoo_context(conf={"zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    model = Sequential([TransformerLayer(**LM_CFG, input_shape=(LM_SEQ,)),
+                        Dense(LM_VOCAB)]).init_weights()
+    model.compile(optimizer="adam", loss="scce_with_logits", lr=3e-4)
+    x, y = lm_data(max(LM_BATCH * steps, 2 * LM_BATCH))
+    return model, x, y, LM_BATCH
+
+
 def main() -> int:
     import torch
     parser = argparse.ArgumentParser()
+    parser.add_argument("--model", choices=("bert", "lm"), default="bert")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--trace", default=None)
     args = parser.parse_args()
@@ -68,29 +106,22 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from torch.profiler import ProfilerActivity, profile
 
-    from analytics_zoo_tpu_torch.common.context import init_zoo_context
-    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
-        BERTClassifier
-    from chip_smoke import T_BATCH, TRAIN_CFG, training_data
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    init_zoo_context(conf={"zoo.pallas.attention": True,
-                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
-    model = BERTClassifier(**TRAIN_CFG, device="cuda").init_weights()
-    model.compile(optimizer="adamw", loss="scce", lr=2e-5)
-    x, y, _ = training_data(T_BATCH * args.steps)
-    model.fit([a[:2 * T_BATCH] for a in x], y[:2 * T_BATCH],
-              batch_size=T_BATCH, nb_epoch=1)           # warm-up
+    model, x, y, batch = (build_lm if args.model == "lm"
+                          else build_bert)(args.steps)
+    model.fit([a[:2 * batch] for a in x] if isinstance(x, list)
+              else x[:2 * batch], y[:2 * batch], batch_size=batch,
+              nb_epoch=1)                                # warm-up
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.fit(x, y, batch_size=T_BATCH, nb_epoch=1)
+        model.fit(x, y, batch_size=batch, nb_epoch=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.trace:
@@ -116,7 +147,7 @@ def main() -> int:
     steps = args.steps
     device_ms = sum(by_name.values()) / 1e3 / steps
     share = busy_share([(s, e) for _, s, e in kernels], *window)
-    print(f"{steps} steps of {T_BATCH} in {wall:.3f}s "
+    print(f"{args.model}: {steps} steps of {batch} in {wall:.3f}s "
           f"({1e3 * wall / steps:.1f} ms/step under the profiler); kernel "
           f"time {device_ms:.1f} ms/step; device busy {100 * share:.1f}% "
           f"of the traced window")
@@ -128,7 +159,7 @@ def main() -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / steps:9.3f}  {name[:110]}")
     print(json.dumps({
-        "card": card, "steps": steps, "batch": T_BATCH,
+        "card": card, "model": args.model, "steps": steps, "batch": batch,
         "ms_per_step_profiled": 1e3 * wall / steps,
         "kernel_ms_per_step": device_ms, "device_busy_share": share,
         "family_ms_per_step": {f: us / 1e3 / steps

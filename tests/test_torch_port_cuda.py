@@ -182,3 +182,158 @@ def test_bert_training_step_on_cuda_matches_cpu(cuda):
     for name, want in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][name], want, atol=1e-5,
                                    rtol=0, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# fused LM-head cross-entropy: K4, K5a, K5b
+# ---------------------------------------------------------------------------
+#
+# Against the plain versions on the same inputs. f32: lse and the label
+# logit 1e-4, gradients 1e-4 of the case's largest (summation order only).
+# bf16: the logits round to bf16 at the same points in both, but an f32
+# product that the two summation orders leave on either side of a rounding
+# boundary moves that logit by one bf16 step (2^-8 relative), so lse 2e-2,
+# the label logit one step of its magnitude, gradients 2e-2 of the largest.
+
+CE_TOL = {torch.float32: dict(lse=1e-4, ll_rel=1e-5, grad=1e-4),
+          torch.bfloat16: dict(lse=2e-2, ll_rel=2.0 ** -7, grad=2e-2)}
+
+
+def _ce_inputs(n, hidden, v, dtype, seed, bias=True):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(n, hidden, generator=g).to("cuda", dtype)
+    w = (torch.randn(hidden, v, generator=g) * hidden ** -0.5).to("cuda",
+                                                                  dtype)
+    b = (torch.randn(v, generator=g) * 0.5).cuda() if bias else None
+    labels = torch.randint(0, v, (n,), generator=g, dtype=torch.int32)
+    labels[::3] = -1                                   # masked rows
+    return h, w, b, labels.cuda()
+
+
+def _ce_counts():
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL_CE_FWD)
+    return (KERNEL_CE_FWD.launches, KERNEL_CE_BWD_DH.launches,
+            KERNEL_CE_BWD_DW.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden", [64, 512, 768])
+@pytest.mark.parametrize("n,v,bias", [(70, 130, True), (200, 1000, False),
+                                      (33, 8, True)])
+def test_ce_kernels_match_plain_versions(cuda, dtype, hidden, n, v, bias):
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_backward, fused_ce_backward_reference, fused_ce_forward,
+        fused_ce_forward_reference)
+    tol = CE_TOL[dtype]
+    h, w, b, labels = _ce_inputs(n, hidden, v, dtype, seed=n + hidden,
+                                 bias=bias)
+    labels[1] = v + 3                                  # over-range: no hit
+    before = _ce_counts()
+    lse, ll = fused_ce_forward(h, w, b, labels)
+    torch.cuda.synchronize()
+    ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
+    assert (lse - ref_lse).abs().max().item() <= tol["lse"]
+    assert ll[1].item() == 0.0 and torch.all(ll[::3] == 0)
+    ll_err = (ll - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)
+    assert ll_err.max().item() <= tol["ll_rel"]
+
+    labels[1] = 0
+    scale = torch.where(labels >= 0, 1.0 / n, 0.0).float()
+    dh, dw, db = fused_ce_backward(h, w, b, labels, ref_lse, scale)
+    torch.cuda.synchronize()
+    assert _ce_counts() == tuple(c + 1 for c in before)
+    want = fused_ce_backward_reference(h, w, b, labels, ref_lse, scale)
+    assert dh.dtype == dtype and dw.dtype == torch.float32
+    assert torch.all(dh[::3] == 0), "masked rows' dh not exactly 0"
+    for name, got, ref in (("dh", dh, want[0]), ("dw", dw, want[1]),
+                           ("db", db, want[2])):
+        if ref is None:
+            assert got is None
+            continue
+        assert torch.isfinite(got).all(), name
+        top = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol["grad"] * top, f"{name}: {err} > {tol} x {top}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_over_range_rows_poison_dh_rows_and_all_of_dw(cuda, dtype):
+    from analytics_zoo_tpu_torch.ops.fused_cross_entropy import \
+        fused_sparse_cross_entropy
+    h, w, b, labels = _ce_inputs(100, 128, 300, dtype, seed=4)
+    labels[[5, 50, 99]] = torch.tensor([300, 301, 10 ** 6],
+                                       dtype=torch.int32, device=cuda)
+    h.requires_grad_()
+    w32 = w.float().requires_grad_()
+    loss = fused_sparse_cross_entropy(labels, h, w32, b)
+    loss.backward()
+    assert torch.isnan(loss)
+    bad = torch.zeros(100, dtype=torch.bool, device=cuda)
+    bad[[5, 50, 99]] = True
+    assert torch.isnan(h.grad[bad]).all()
+    assert torch.isfinite(h.grad[~bad]).all()
+    assert torch.isnan(w32.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ce_backward_is_bit_identical_over_runs(cuda, dtype):
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_backward, fused_ce_forward)
+    h, w, b, labels = _ce_inputs(1000, 256, 777, dtype, seed=9)
+    lse, _ = fused_ce_forward(h, w, b, labels)
+    scale = torch.full((1000,), 1e-3, device=cuda)
+    first = fused_ce_backward(h, w, b, labels, lse, scale)
+    second = fused_ce_backward(h, w, b, labels, lse, scale)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
+        fused_ce_forward
+    labels = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for hidden in (96, 1088):
+        h = torch.zeros(4, hidden, device=cuda)
+        w = torch.zeros(hidden, 10, device=cuda)
+        with pytest.raises(ValueError, match="hidden size"):
+            fused_ce_forward(h, w, None, labels)
+    w = torch.zeros(10, 64, device=cuda).T
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce_forward(torch.zeros(4, 64, device=cuda), w, None, labels)
+
+
+@pytest.mark.cuda
+def test_lm_training_step_on_cuda_matches_cpu(cuda):
+    """One SGD step of a small causal LM (fused CE through K4/K5a/K5b,
+    attention through K2/K3a/K3b) on the card against the same step on the
+    CPU (plain versions), in f32."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.train.fused_ce": True})
+    cfg = dict(vocab=130, seq_len=64, n_block=2, hidden_size=64, n_head=2,
+               hidden_drop=0.0, attn_drop=0.0, embedding_drop=0.0)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 130, (8, 64)).astype(np.int32)
+    y = ((7 * x + 13) % 130).astype(np.int32)
+    params = {}
+    for dev in ("cpu", "cuda"):
+        model = Sequential([TransformerLayer(**cfg, input_shape=(64,)),
+                            Dense(130)], device=dev)
+        model.init_weights(torch.Generator().manual_seed(2))
+        model.compile(optimizer="sgd", loss="scce_with_logits", lr=0.1)
+        before = _ce_counts()
+        model.fit(x, y, batch_size=8, nb_epoch=1, shuffle=False)
+        if dev == "cuda":
+            assert _ce_counts() == tuple(c + 1 for c in before)
+        params[dev] = {n: p.detach().cpu().numpy()
+                       for n, p in model.named_parameters()}
+    for name, want in params["cpu"].items():
+        np.testing.assert_allclose(params["cuda"][name], want, atol=1e-5,
+                                   rtol=0, err_msg=name)
