@@ -25,12 +25,15 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.seed": 0,
     "zoo.pallas.attention": "auto",  # auto (CUDA, T >= 2048) | true | false
     "zoo.pallas.cross_entropy": "auto",  # fused-CE kernels: auto (CUDA) | true | false
+    "zoo.pallas.embed_gather": "auto",   # dedup'd-embedding expand kernel: auto (CUDA) | true | false
     "zoo.compute.dtype": "float32",  # float32 | bfloat16
     "zoo.log.level": "INFO",
     "zoo.train.scan_steps": 1,       # only 1: fused multi-step dispatch
     "zoo.train.device_cache": False,  # only false: device-resident data
     "zoo.train.fused_ce": "auto",    # fused LM-head CE: auto (V >= 1024) | true | false
     "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
+    "zoo.embed.sharded": "auto",     # row-partitioned lookup for plain Embedding: auto | true | false
+    "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
 }
 
 _ENV_PREFIX = "ZOO_TPU_"

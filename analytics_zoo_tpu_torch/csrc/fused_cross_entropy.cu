@@ -54,10 +54,21 @@
 //    into groups whose partial dW a second kernel sums, buys parallelism
 //    only for small V and costs an extra (H,V) f32 pass; it is not needed
 //    on the main path.
+// Any hidden width: H must be a multiple of 64 (the wrapper pads h's
+// columns and w's rows with zeros, which add exact zeros to every logit).
+// H is cut into S = ceil(H / 1024) slices of KS <= 1024 columns
+// (slice_width). K4 stages h and W one slice at a time through shared
+// memory and carries each logits tile across the slices. K5a and K5b gain
+// a grid dimension over the slices of dh or dW: each block re-forms its p
+// tile over the full H, slice by slice, and carries only its own slice of
+// dh or dW, so the shared memory and the register carry stay those of
+// H = KS. With S = 1 (H <= 1024) the SLICED template flag is false and
+// each kernel compiles to a single pass that stages h (K4, K5a) or W (K5b)
+// once (a slice loop there cost K5b 16% at the LM shape on an H100).
+// The k order of every logit is 0..H-1 in all three kernels whatever S is.
 // No float atomics anywhere: every output element is written by exactly
 // one thread, summed in a fixed order (db over the four row warps in a
 // fixed order too), so dh, dW and db are the same bits from run to run.
-// H must be a multiple of 64 in [64, 1024]; any N and V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,26 +131,33 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base,
   a[3] = ld32(p + 8 * ld + 8);
 }
 
-// The one logits routine of all three bf16 kernels: a 16 x (16 NP) f32 tile
-// h[rows] @ W[:, c0 : c0 + 16 NP] over k = 0..H-1 in steps of 16, from a
-// row-major h tile (rows x ldh) and a row-major W tile (H x ldw). `row` is
-// this thread's first row (slab start + g). acc[j] holds columns
-// c0 + 8j + 2t (+1) in the C layout.
+template <int M>
+__device__ __forceinline__ void zero_acc(float (&acc)[M][4]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// The one logits routine of all three bf16 kernels: adds to a 16 x (16 NP)
+// f32 tile h[rows, slice] @ W[slice, c0 : c0 + 16 NP] over the slice's
+// k = 0..K-1 in steps of 16, from a row-major h tile (rows x ldh) and a
+// row-major W tile (K x ldw) of one H slice. The caller zeroes acc and
+// calls it once per slice in ascending order, so every logit sums
+// k = 0..H-1 in one order in all three kernels. `row` is this thread's
+// first row (slab start + g). acc[j] holds columns c0 + 8j + 2t (+1) in
+// the C layout.
 template <int NP>
 __device__ __forceinline__ void logits_tile(float (&acc)[2 * NP][4],
                                             const bf16* sH, int ldh, int row,
                                             const bf16* sW, int ldw, int c0,
-                                            int H, int lane) {
+                                            int K, int lane) {
   const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 2 * NP; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   // matrix j = lane / 8 of each ldmatrix: k rows +8 for odd j, columns +8
   // for j >= 2 -> B fragments (b0, b1) of two adjacent 8-column tiles
   const bf16* wl = sW + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ldw + c0 +
                    8 * (lane >> 4);
-  for (int k0 = 0; k0 < H; k0 += 16) {
+  for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t a[4];
     load_a(a, sH, ldh, row, k0, t);
 #pragma unroll
@@ -152,34 +170,38 @@ __device__ __forceinline__ void logits_tile(float (&acc)[2 * NP][4],
   }
 }
 
-// rows [n0, n0 + rows) of h (N x H, bf16, 16-byte aligned rows) into a
-// row-major tile; rows past N are zero
+// rows [n0, n0 + rows), columns [k0, k0 + kw) of h (N x H, bf16, 16-byte
+// aligned rows) into a row-major tile; rows past N are zero
 __device__ __forceinline__ void load_rows_bf16(const bf16* __restrict__ h,
                                                int n0, int rows, int N, int H,
-                                               bf16* sH, int ldh, int tid,
+                                               int k0, int kw, bf16* sH,
+                                               int ldh, int tid,
                                                int nthreads) {
-  const int per_row = H / 8;
+  const int per_row = kw / 8;
   for (int i = tid; i < rows * per_row; i += nthreads) {
     const int r = i / per_row, c = (i % per_row) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (n0 + r < N)
-      val = *reinterpret_cast<const uint4*>(h + (size_t)(n0 + r) * H + c);
+      val = *reinterpret_cast<const uint4*>(h + (size_t)(n0 + r) * H + k0 +
+                                            c);
     *reinterpret_cast<uint4*>(sH + r * ldh + c) = val;
   }
 }
 
-// columns [v0, v0 + cols) of w (H x V, bf16) into a row-major H x cols tile;
-// columns past V are zero. 16-byte loads where the row allows (vec: V is a
-// multiple of 8 and w is 16-byte aligned), element loads elsewhere.
+// rows [k0, k0 + kw), columns [v0, v0 + cols) of w (H x V, bf16) into a
+// row-major kw x cols tile; columns past V are zero. 16-byte loads where
+// the row allows (vec: V is a multiple of 8 and w is 16-byte aligned),
+// element loads elsewhere.
 __device__ __forceinline__ void load_cols_bf16(const bf16* __restrict__ w,
-                                               int v0, int cols, int V, int H,
-                                               bf16* sW, int ldw, int vec,
-                                               int tid, int nthreads) {
+                                               int v0, int cols, int V,
+                                               int k0, int kw, bf16* sW,
+                                               int ldw, int vec, int tid,
+                                               int nthreads) {
   const int per_row = cols / 8;
-  for (int i = tid; i < H * per_row; i += nthreads) {
+  for (int i = tid; i < kw * per_row; i += nthreads) {
     const int r = i / per_row, c = (i % per_row) * 8;
     const int col = v0 + c;
-    const bf16* src = w + (size_t)r * V + col;
+    const bf16* src = w + (size_t)(k0 + r) * V + col;
     bf16* dst = sW + r * ldw + c;
     if (vec && col + 8 <= V) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -192,24 +214,26 @@ __device__ __forceinline__ void load_cols_bf16(const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// K4, bf16: 64 rows per block, 4 warps of 16 rows, 32-column vocab tiles.
+// K4, bf16: 64 rows per block, 4 warps of 16 rows, 32-column vocab tiles,
+// H staged in slices of KS columns.
 // ---------------------------------------------------------------------------
 
 constexpr int F_BN = 64;
 constexpr int F_BV = 32;
 constexpr int F_THREADS = 128;
 
-size_t fwd_mma_smem_bytes(int H) {
-  return sizeof(bf16) * ((size_t)F_BN * (H + 8) + (size_t)H * (F_BV + 8));
+size_t fwd_mma_smem_bytes(int KS) {
+  return sizeof(bf16) * ((size_t)F_BN * (KS + 8) + (size_t)KS * (F_BV + 8));
 }
 
+template <bool SLICED>
 __global__ void __launch_bounds__(F_THREADS)
     ce_fwd_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
                const float* __restrict__ b, const int* __restrict__ labels,
                float* __restrict__ lse, float* __restrict__ ll, int N, int H,
-               int V, int vec) {
+               int V, int KS, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = H + 8, ldw = F_BV + 8;
+  const int ldh = KS + 8, ldw = F_BV + 8;
   bf16* sH = reinterpret_cast<bf16*>(smem_raw);
   bf16* sW = sH + F_BN * ldh;
   __shared__ float sB[F_BV];
@@ -220,7 +244,9 @@ __global__ void __launch_bounds__(F_THREADS)
   const int n0 = blockIdx.x * F_BN;
   const int row = warp * 16 + g;  // this thread's rows: row and row + 8
 
-  load_rows_bf16(h, n0, F_BN, N, H, sH, ldh, tid, F_THREADS);
+  // one slice: the h tile stays for the whole vocab loop
+  if (!SLICED) load_rows_bf16(h, n0, F_BN, N, H, 0, H, sH, ldh, tid,
+                              F_THREADS);
   int lab[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -230,14 +256,22 @@ __global__ void __launch_bounds__(F_THREADS)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
 
   for (int v0 = 0; v0 < V; v0 += F_BV) {
-    __syncthreads();  // the previous W tile is consumed; sH is written
-    load_cols_bf16(w, v0, F_BV, V, H, sW, ldw, vec, tid, F_THREADS);
-    if (tid < F_BV)
-      sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
-    __syncthreads();
-
     float acc[4][4];
-    logits_tile<2>(acc, sH, ldh, row, sW, ldw, 0, H, lane);
+    zero_acc(acc);
+    int k0 = 0;
+    do {  // the H slices in order; one pass unless SLICED
+      const int kw = SLICED ? min(KS, H - k0) : H;
+      __syncthreads();  // the previous W (and h) tiles are consumed
+      if (SLICED)
+        load_rows_bf16(h, n0, F_BN, N, H, k0, kw, sH, ldh, tid, F_THREADS);
+      load_cols_bf16(w, v0, F_BV, V, k0, kw, sW, ldw, vec, tid, F_THREADS);
+      if (k0 == 0 && tid < F_BV)
+        sB[tid] =
+            (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
+      __syncthreads();
+      logits_tile<2>(acc, sH, ldh, row, sW, ldw, 0, kw, lane);
+      k0 += KS;
+    } while (SLICED && k0 < H);
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -289,32 +323,33 @@ __global__ void __launch_bounds__(F_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K5a, bf16: 32 rows per block, 8 warps, 64-column vocab tiles. Logits:
-// warp (w & 1) takes rows 16 (w & 1), columns 16 (w >> 1). dh: warp takes
-// rows 16 (w & 1) and hidden columns [(w >> 1) H/4, (w >> 1 + 1) H/4).
+// K5a, bf16: 32 rows per block, 8 warps, 64-column vocab tiles; grid y is
+// the H slice of dh the block writes. Logits: warp (w & 1) takes rows
+// 16 (w & 1), columns 16 (w >> 1). dh: warp takes rows 16 (w & 1) and
+// columns [(w >> 1) D/4, (w >> 1 + 1) D/4) of the block's slice of width D.
 // ---------------------------------------------------------------------------
 
 constexpr int A_BN = 32;
 constexpr int A_BV = 64;
 constexpr int A_THREADS = 256;
 
-size_t dh_mma_smem_bytes(int H) {
-  return sizeof(bf16) * ((size_t)A_BN * (H + 8) + (size_t)H * (A_BV + 8) +
+size_t dh_mma_smem_bytes(int KS) {
+  return sizeof(bf16) * ((size_t)A_BN * (KS + 8) + (size_t)KS * (A_BV + 8) +
                          (size_t)A_BN * (A_BV + 8));
 }
 
-template <int MAXNT>
+template <int MAXNT, bool SLICED>
 __global__ void __launch_bounds__(A_THREADS)
     ce_bwd_dh_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
                   const float* __restrict__ b, const int* __restrict__ labels,
                   const float* __restrict__ lse,
                   const float* __restrict__ scale, void* __restrict__ dh,
-                  int dh_bf16, int N, int H, int V, int vec) {
+                  int dh_bf16, int N, int H, int V, int KS, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = H + 8, ldw = A_BV + 8, ldd = A_BV + 8;
+  const int ldh = KS + 8, ldw = A_BV + 8, ldd = A_BV + 8;
   bf16* sH = reinterpret_cast<bf16*>(smem_raw);
   bf16* sW = sH + A_BN * ldh;
-  bf16* sDL = sW + H * ldw;
+  bf16* sDL = sW + KS * ldw;
   __shared__ float sB[A_BV];
   __shared__ float sLse[A_BN], sScale[A_BN];
   __shared__ int sLab[A_BN];
@@ -325,10 +360,14 @@ __global__ void __launch_bounds__(A_THREADS)
   const int n0 = blockIdx.x * A_BN;
   const int wr = warp & 1, wc = warp >> 1;
   const int row = 16 * wr + g;
-  const int nt = H / 32;          // 8-column tiles of this warp's dh slice
-  const int hq0 = wc * (H / 4);
+  const int y0 = SLICED ? blockIdx.y * KS : 0;  // this block's dh columns
+  const int dwid = SLICED ? min(KS, H - y0) : H;
+  const bool last_slice = !SLICED || y0 + KS >= H;
+  const int nt = dwid / 32;       // 8-column tiles of this warp's dh slice
+  const int hq0 = wc * (dwid / 4);
 
-  load_rows_bf16(h, n0, A_BN, N, H, sH, ldh, tid, A_THREADS);
+  if (!SLICED) load_rows_bf16(h, n0, A_BN, N, H, 0, H, sH, ldh, tid,
+                              A_THREADS);
   if (tid < A_BN) {
     const int r = n0 + tid;
     const bool in = r < N;
@@ -339,20 +378,25 @@ __global__ void __launch_bounds__(A_THREADS)
   }
 
   float acc[MAXNT][4];
-#pragma unroll
-  for (int i = 0; i < MAXNT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  zero_acc(acc);
 
   for (int v0 = 0; v0 < V; v0 += A_BV) {
-    __syncthreads();  // the previous W and dl tiles are consumed
-    load_cols_bf16(w, v0, A_BV, V, H, sW, ldw, vec, tid, A_THREADS);
-    if (tid < A_BV)
-      sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
-    __syncthreads();
-
     float lg[2][4];
-    logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, H, lane);
+    zero_acc(lg);
+    int k0 = 0;
+    do {  // the H slices in order; one pass unless SLICED
+      const int kw = SLICED ? min(KS, H - k0) : H;
+      __syncthreads();  // the previous W, h and dl tiles are consumed
+      if (SLICED)
+        load_rows_bf16(h, n0, A_BN, N, H, k0, kw, sH, ldh, tid, A_THREADS);
+      load_cols_bf16(w, v0, A_BV, V, k0, kw, sW, ldw, vec, tid, A_THREADS);
+      if (k0 == 0 && tid < A_BV)
+        sB[tid] =
+            (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
+      __syncthreads();
+      logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, kw, lane);
+      k0 += KS;
+    } while (SLICED && k0 < H);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -369,7 +413,12 @@ __global__ void __launch_bounds__(A_THREADS)
         sDL[rl * ldd + cl] = __float2bfloat16((p - oh) * sScale[rl]);
       }
     }
-    __syncthreads();  // the dl tile is complete
+    __syncthreads();  // the dl tile is complete; sW is free
+    if (!last_slice) {
+      // sW holds the last slice's W rows; the product needs this block's
+      load_cols_bf16(w, v0, A_BV, V, y0, dwid, sW, ldw, vec, tid, A_THREADS);
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int kk = 0; kk < A_BV / 16; ++kk) {
@@ -392,7 +441,7 @@ __global__ void __launch_bounds__(A_THREADS)
 #pragma unroll
     for (int i = 0; i < MAXNT; ++i) {
       if (i >= nt) break;
-      const size_t o = (size_t)r * H + hq0 + 8 * i + 2 * t;
+      const size_t o = (size_t)r * H + y0 + hq0 + 8 * i + 2 * t;
       if (dh_bf16) {
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dh) + o) =
             pack_bf16(acc[i][2 * hh], acc[i][2 * hh + 1]);
@@ -405,32 +454,34 @@ __global__ void __launch_bounds__(A_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K5b, bf16: 32 vocab columns per block, all rows in 64-row tiles, 8 warps.
-// Logits: warp takes rows 16 (w & 3), columns 16 (w >> 2). dW: warp takes
-// hidden rows [(w & 3) H/4, ...) and the same 16 columns.
+// K5b, bf16: 32 vocab columns per block, all rows in 64-row tiles, 8 warps;
+// grid y is the H slice of dW the block writes. Logits: warp takes rows
+// 16 (w & 3), columns 16 (w >> 2). dW: warp takes rows [(w & 3) D/4, ...)
+// of the block's slice of width D and the same 16 columns.
 // ---------------------------------------------------------------------------
 
 constexpr int B_BN = 64;
 constexpr int B_BV = 32;
 constexpr int B_THREADS = 256;
 
-size_t dw_mma_smem_bytes(int H) {
-  return sizeof(bf16) * ((size_t)B_BN * (H + 8) + (size_t)H * (B_BV + 8) +
+size_t dw_mma_smem_bytes(int KS) {
+  return sizeof(bf16) * ((size_t)B_BN * (KS + 8) + (size_t)KS * (B_BV + 8) +
                          (size_t)B_BN * (B_BV + 8));
 }
 
-template <int MAXMT>
+template <int MAXMT, bool SLICED>
 __global__ void __launch_bounds__(B_THREADS)
     ce_bwd_dw_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
                   const float* __restrict__ b, const int* __restrict__ labels,
                   const float* __restrict__ lse,
                   const float* __restrict__ scale, float* __restrict__ dw,
-                  float* __restrict__ db, int N, int H, int V, int vec) {
+                  float* __restrict__ db, int N, int H, int V, int KS,
+                  int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = H + 8, ldw = B_BV + 8, ldd = B_BV + 8;
+  const int ldh = KS + 8, ldw = B_BV + 8, ldd = B_BV + 8;
   bf16* sH = reinterpret_cast<bf16*>(smem_raw);
   bf16* sW = sH + B_BN * ldh;
-  bf16* sDL = sW + H * ldw;
+  bf16* sDL = sW + KS * ldw;
   __shared__ float sB[B_BV];
   __shared__ float sLse[B_BN], sScale[B_BN];
   __shared__ int sLab[B_BN];
@@ -442,20 +493,21 @@ __global__ void __launch_bounds__(B_THREADS)
   const int v0 = blockIdx.x * B_BV;
   const int wr = warp & 3, wc = warp >> 2;
   const int row = 16 * wr + g;
-  const int mt = H / 64;          // 16-row tiles of this warp's dW slice
-  const int hr0 = wr * (H / 4);
+  const int y0 = SLICED ? blockIdx.y * KS : 0;  // this block's dW rows
+  const int dwid = SLICED ? min(KS, H - y0) : H;
+  const bool last_slice = !SLICED || y0 + KS >= H;
+  const int mt = dwid / 64;       // 16-row tiles of this warp's dW slice
+  const int hr0 = wr * (dwid / 4);
 
-  load_cols_bf16(w, v0, B_BV, V, H, sW, ldw, vec, tid, B_THREADS);
+  // one slice: the W tile stays for the whole row loop
+  if (!SLICED) load_cols_bf16(w, v0, B_BV, V, 0, H, sW, ldw, vec, tid,
+                              B_THREADS);
   if (tid < B_BV)
     sB[tid] = (b != nullptr && v0 + tid < V) ? round_bf16(b[v0 + tid]) : 0.f;
 
   float acc[MAXMT][2][4];
 #pragma unroll
-  for (int i = 0; i < MAXMT; ++i)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][s][e] = 0.f;
+  for (int i = 0; i < MAXMT; ++i) zero_acc(acc[i]);
   float dbp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 
   // ldmatrix lane offsets (matrix j = lane / 8): dl as B needs rows +8 for
@@ -464,19 +516,26 @@ __global__ void __launch_bounds__(B_THREADS)
   const int lr = lane & 7, odd = (lane >> 3) & 1, hi = lane >> 4;
 
   for (int n0 = 0; n0 < N; n0 += B_BN) {
-    __syncthreads();  // the previous h and dl tiles are consumed
-    load_rows_bf16(h, n0, B_BN, N, H, sH, ldh, tid, B_THREADS);
-    if (tid < B_BN) {
-      const int r = n0 + tid;
-      const bool in = r < N;
-      sLab[tid] = in ? labels[r] : -1;
-      sLse[tid] = in ? lse[r] : INFINITY;
-      sScale[tid] = in ? scale[r] : 0.f;
-    }
-    __syncthreads();
-
     float lg[2][4];
-    logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, H, lane);
+    zero_acc(lg);
+    int k0 = 0;
+    do {  // the H slices in order; one pass unless SLICED
+      const int kw = SLICED ? min(KS, H - k0) : H;
+      __syncthreads();  // the previous h, W and dl tiles are consumed
+      load_rows_bf16(h, n0, B_BN, N, H, k0, kw, sH, ldh, tid, B_THREADS);
+      if (SLICED)
+        load_cols_bf16(w, v0, B_BV, V, k0, kw, sW, ldw, vec, tid, B_THREADS);
+      if (k0 == 0 && tid < B_BN) {
+        const int r = n0 + tid;
+        const bool in = r < N;
+        sLab[tid] = in ? labels[r] : -1;
+        sLse[tid] = in ? lse[r] : INFINITY;
+        sScale[tid] = in ? scale[r] : 0.f;
+      }
+      __syncthreads();
+      logits_tile<1>(lg, sH, ldh, row, sW, ldw, 16 * wc, kw, lane);
+      k0 += KS;
+    } while (SLICED && k0 < H);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -495,7 +554,12 @@ __global__ void __launch_bounds__(B_THREADS)
         sDL[rl * ldd + cl] = __float2bfloat16(d);
       }
     }
-    __syncthreads();  // the dl tile is complete
+    __syncthreads();  // the dl tile is complete; sH is free
+    if (!last_slice) {
+      // sH holds the last slice's h columns; the product needs this block's
+      load_rows_bf16(h, n0, B_BN, N, H, y0, dwid, sH, ldh, tid, B_THREADS);
+      __syncthreads();
+    }
 
 #pragma unroll
     for (int ks = 0; ks < B_BN / 16; ++ks) {
@@ -515,8 +579,8 @@ __global__ void __launch_bounds__(B_THREADS)
     }
   }
 
-  // db: the 8 row groups of a warp by a fixed butterfly, then the 4 row
-  // warps in a fixed order
+  // db (the slice-0 blocks write it): the 8 row groups of a warp by a fixed
+  // butterfly, then the 4 row warps in a fixed order
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -529,7 +593,7 @@ __global__ void __launch_bounds__(B_THREADS)
     }
   }
   __syncthreads();
-  if (db != nullptr && tid < B_BV && v0 + tid < V)
+  if (db != nullptr && y0 == 0 && tid < B_BV && v0 + tid < V)
     db[v0 + tid] =
         ((sDB[0][tid] + sDB[1][tid]) + sDB[2][tid]) + sDB[3][tid];
 
@@ -541,7 +605,7 @@ __global__ void __launch_bounds__(B_THREADS)
       const int col = v0 + 16 * wc + 8 * s + 2 * t;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        float* o = dw + (size_t)(hr0 + 16 * i + g + 8 * hh) * V + col;
+        float* o = dw + (size_t)(y0 + hr0 + 16 * i + g + 8 * hh) * V + col;
         if (col < V) o[0] = acc[i][s][2 * hh];
         if (col + 1 < V) o[1] = acc[i][s][2 * hh + 1];
       }
@@ -628,8 +692,10 @@ __global__ void __launch_bounds__(FF_THREADS)
   }
 }
 
-// K5a, f32: 16 rows per block; the dh carry (16 x H f32) lives in dynamic
-// shared memory, each element owned by one thread.
+// K5a, f32: 16 rows per block; grid y is the H slice of dh the block
+// writes. The logits run over the full H from device memory; the dh carry
+// (16 x slice f32) lives in dynamic shared memory, each element owned by
+// one thread.
 constexpr int FA_BN = 16, FA_BV = 64, FA_KC = 64, FA_THREADS = 256;
 
 __global__ void __launch_bounds__(FA_THREADS)
@@ -637,8 +703,8 @@ __global__ void __launch_bounds__(FA_THREADS)
                   const float* __restrict__ b, const int* __restrict__ labels,
                   const float* __restrict__ lse,
                   const float* __restrict__ scale, void* __restrict__ dh,
-                  int dh_bf16, int N, int H, int V) {
-  extern __shared__ float sDH[];  // FA_BN x H
+                  int dh_bf16, int N, int H, int V, int KS) {
+  extern __shared__ float sDH[];  // FA_BN x KS
   __shared__ float sH[FA_BN][FA_KC + 1];
   __shared__ float sW[FA_KC][FA_BV + 1];
   __shared__ float sDL[FA_BN][FA_BV + 1];
@@ -651,7 +717,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   const int lab = in ? labels[grow] : -1;
   const float row_lse = in ? lse[grow] : INFINITY;
   const float row_scale = in ? scale[grow] : 0.f;
-  for (int c = q; c < H; c += 16) sDH[r * H + c] = 0.f;
+  const int y0 = blockIdx.y * KS, dwid = min(KS, H - y0);
+  for (int c = q; c < dwid; c += 16) sDH[r * KS + c] = 0.f;
 
   for (int v0 = 0; v0 < V; v0 += FA_BV) {
     float acc[FA_BV / 16];
@@ -688,7 +755,7 @@ __global__ void __launch_bounds__(FA_THREADS)
       }
       sDL[r][cl] = (p - oh) * row_scale;
     }
-    for (int k0 = 0; k0 < H; k0 += FA_KC) {
+    for (int k0 = y0; k0 < y0 + dwid; k0 += FA_KC) {
       __syncthreads();  // dl complete; the W chunk is free
       for (int i = tid; i < FA_KC * FA_BV; i += FA_THREADS) {
         const int kk = i / FA_BV, c = i % FA_BV;
@@ -698,26 +765,27 @@ __global__ void __launch_bounds__(FA_THREADS)
 #pragma unroll
       for (int j = 0; j < FA_KC / 16; ++j) {
         const int kh = q + 16 * j;
-        float s = sDH[r * H + k0 + kh];
+        float s = sDH[r * KS + k0 - y0 + kh];
         for (int v = 0; v < FA_BV; ++v) s = fmaf(sDL[r][v], sW[kh][v], s);
-        sDH[r * H + k0 + kh] = s;
+        sDH[r * KS + k0 - y0 + kh] = s;
       }
     }
   }
   if (in) {
-    for (int c = q; c < H; c += 16) {
-      const size_t o = (size_t)grow * H + c;
+    for (int c = q; c < dwid; c += 16) {
+      const size_t o = (size_t)grow * H + y0 + c;
       if (dh_bf16)
-        static_cast<bf16*>(dh)[o] = __float2bfloat16(sDH[r * H + c]);
+        static_cast<bf16*>(dh)[o] = __float2bfloat16(sDH[r * KS + c]);
       else
-        static_cast<float*>(dh)[o] = sDH[r * H + c];
+        static_cast<float*>(dh)[o] = sDH[r * KS + c];
     }
   }
 }
 
-// K5b, f32: 16 vocab columns per block, all rows in 64-row tiles; the dW
-// carry (H x 16 f32) lives in dynamic shared memory, each element owned by
-// one thread; db is one thread's running sum per column.
+// K5b, f32: 16 vocab columns per block, all rows in 64-row tiles; grid y
+// is the H slice of dW the block writes. The dW carry (slice x 16 f32)
+// lives in dynamic shared memory, each element owned by one thread; db is
+// one thread's running sum per column (written by the slice-0 blocks).
 constexpr int FB_BN = 64, FB_BV = 16, FB_KC = 64, FB_THREADS = 256;
 
 __global__ void __launch_bounds__(FB_THREADS)
@@ -725,8 +793,8 @@ __global__ void __launch_bounds__(FB_THREADS)
                   const float* __restrict__ b, const int* __restrict__ labels,
                   const float* __restrict__ lse,
                   const float* __restrict__ scale, float* __restrict__ dw,
-                  float* __restrict__ db, int N, int H, int V) {
-  extern __shared__ float sDW[];  // H x FB_BV
+                  float* __restrict__ db, int N, int H, int V, int KS) {
+  extern __shared__ float sDW[];  // KS x FB_BV
   __shared__ float sH[FB_BN][FB_KC + 1];
   __shared__ float sW[FB_KC][FB_BV + 1];
   __shared__ float sDL[FB_BN][FB_BV + 1];
@@ -737,7 +805,8 @@ __global__ void __launch_bounds__(FB_THREADS)
   const int r = tid >> 2, q = tid & 3;       // logits: row, columns q + 4j
   const int c = tid & 15, kr = tid >> 4;     // dW: column, rows kr + 16i
   const int v0 = blockIdx.x * FB_BV;
-  for (int k = kr; k < H; k += 16) sDW[k * FB_BV + c] = 0.f;
+  const int y0 = blockIdx.y * KS, dwid = min(KS, H - y0);
+  for (int k = kr; k < dwid; k += 16) sDW[k * FB_BV + c] = 0.f;
   if (tid < FB_BV)
     sB[tid] = (b != nullptr && v0 + tid < V) ? b[v0 + tid] : 0.f;
   float db_acc = 0.f;
@@ -786,7 +855,7 @@ __global__ void __launch_bounds__(FB_THREADS)
     __syncthreads();  // dl complete
     if (tid < FB_BV)
       for (int n = 0; n < FB_BN; ++n) db_acc += sDL[n][tid];
-    for (int k0 = 0; k0 < H; k0 += FB_KC) {
+    for (int k0 = y0; k0 < y0 + dwid; k0 += FB_KC) {
       __syncthreads();  // the previous h chunk is consumed
       for (int i = tid; i < FB_BN * FB_KC; i += FB_THREADS) {
         const int rr = i / FB_KC, cc = i % FB_KC;
@@ -796,16 +865,17 @@ __global__ void __launch_bounds__(FB_THREADS)
 #pragma unroll
       for (int i = 0; i < FB_KC / 16; ++i) {
         const int kh = kr + 16 * i;
-        float s = sDW[(k0 + kh) * FB_BV + c];
+        float s = sDW[(k0 - y0 + kh) * FB_BV + c];
         for (int n = 0; n < FB_BN; ++n) s = fmaf(sH[n][kh], sDL[n][c], s);
-        sDW[(k0 + kh) * FB_BV + c] = s;
+        sDW[(k0 - y0 + kh) * FB_BV + c] = s;
       }
     }
   }
   if (v0 + c < V)
-    for (int k = kr; k < H; k += 16)
-      dw[(size_t)k * V + v0 + c] = sDW[k * FB_BV + c];
-  if (db != nullptr && tid < FB_BV && v0 + tid < V) db[v0 + tid] = db_acc;
+    for (int k = kr; k < dwid; k += 16)
+      dw[(size_t)(y0 + k) * V + v0 + c] = sDW[k * FB_BV + c];
+  if (db != nullptr && blockIdx.y == 0 && tid < FB_BV && v0 + tid < V)
+    db[v0 + tid] = db_acc;
 }
 
 template <typename Kernel>
@@ -815,12 +885,21 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// H must be a positive multiple of 64 (the wrapper pads it)
 bool bad_dims(int N, int H, int V, int dtype) {
-  return N <= 0 || V <= 0 || H < 64 || H > 1024 || H % 64 != 0 ||
+  return N <= 0 || V <= 0 || H < 64 || H % 64 != 0 ||
          (dtype != 0 && dtype != 1);
 }
 
 int blocks(int n, int per) { return (n + per - 1) / per; }
+
+// The slice width KS: H cut into S = ceil(H / 1024) slices of equal width,
+// rounded up to a multiple of 64 (so KS <= 1024 and KS = H when H <= 1024).
+int slice_width(int H) {
+  const int S = (H + 1023) / 1024;
+  const int m = H / 64;
+  return 64 * ((m + S - 1) / S);
+}
 
 }  // namespace
 
@@ -841,13 +920,15 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* b,
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
         static_cast<float*>(lse), static_cast<float*>(ll), N, H, V);
   } else {
-    const size_t smem = fwd_mma_smem_bytes(H);
-    cudaError_t err = set_smem(ce_fwd_mma, smem);
+    const int KS = slice_width(H);
+    const size_t smem = fwd_mma_smem_bytes(KS);
+    const auto kernel = KS < H ? ce_fwd_mma<true> : ce_fwd_mma<false>;
+    cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    ce_fwd_mma<<<blocks(N, F_BN), F_THREADS, smem, s>>>(
+    kernel<<<blocks(N, F_BN), F_THREADS, smem, s>>>(
         static_cast<const bf16*>(h), static_cast<const bf16*>(w), bias, lab,
-        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V, vec);
+        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V, KS, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -864,29 +945,29 @@ extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
   const int* lab = static_cast<const int*>(labels);
   const float* l = static_cast<const float*>(lse);
   const float* sc = static_cast<const float*>(scale);
+  const int KS = slice_width(H);
   cudaError_t err;
   if (dtype == 0) {
-    const size_t smem = sizeof(float) * (size_t)FA_BN * H;
+    const dim3 grid(blocks(N, FA_BN), blocks(H, KS));
+    const size_t smem = sizeof(float) * (size_t)FA_BN * KS;
     if ((err = set_smem(ce_bwd_dh_fma, smem)) != cudaSuccess) return (int)err;
-    ce_bwd_dh_fma<<<blocks(N, FA_BN), FA_THREADS, smem, s>>>(
+    ce_bwd_dh_fma<<<grid, FA_THREADS, smem, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
-        l, sc, dh, dh_dtype, N, H, V);
+        l, sc, dh, dh_dtype, N, H, V, KS);
   } else {
-    const size_t smem = dh_mma_smem_bytes(H);
+    const dim3 grid(blocks(N, A_BN), blocks(H, KS));
+    const size_t smem = dh_mma_smem_bytes(KS);
     const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     const bf16* hb = static_cast<const bf16*>(h);
     const bf16* wb = static_cast<const bf16*>(w);
-    if (H <= 512) {
-      if ((err = set_smem(ce_bwd_dh_mma<16>, smem)) != cudaSuccess)
-        return (int)err;
-      ce_bwd_dh_mma<16><<<blocks(N, A_BN), A_THREADS, smem, s>>>(
-          hb, wb, bias, lab, l, sc, dh, dh_dtype, N, H, V, vec);
-    } else {
-      if ((err = set_smem(ce_bwd_dh_mma<32>, smem)) != cudaSuccess)
-        return (int)err;
-      ce_bwd_dh_mma<32><<<blocks(N, A_BN), A_THREADS, smem, s>>>(
-          hb, wb, bias, lab, l, sc, dh, dh_dtype, N, H, V, vec);
-    }
+    // the dh carry's register tiles by slice width; sliced or not
+    const auto kernel =
+        KS < H ? ce_bwd_dh_mma<32, true>
+               : (KS <= 512 ? ce_bwd_dh_mma<16, false>
+                            : ce_bwd_dh_mma<32, false>);
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return (int)err;
+    kernel<<<grid, A_THREADS, smem, s>>>(hb, wb, bias, lab, l, sc, dh,
+                                         dh_dtype, N, H, V, KS, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -904,29 +985,29 @@ extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* b,
   const float* sc = static_cast<const float*>(scale);
   float* dwf = static_cast<float*>(dw);
   float* dbf = static_cast<float*>(db);
+  const int KS = slice_width(H);
   cudaError_t err;
   if (dtype == 0) {
-    const size_t smem = sizeof(float) * (size_t)H * FB_BV;
+    const dim3 grid(blocks(V, FB_BV), blocks(H, KS));
+    const size_t smem = sizeof(float) * (size_t)KS * FB_BV;
     if ((err = set_smem(ce_bwd_dw_fma, smem)) != cudaSuccess) return (int)err;
-    ce_bwd_dw_fma<<<blocks(V, FB_BV), FB_THREADS, smem, s>>>(
+    ce_bwd_dw_fma<<<grid, FB_THREADS, smem, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
-        l, sc, dwf, dbf, N, H, V);
+        l, sc, dwf, dbf, N, H, V, KS);
   } else {
-    const size_t smem = dw_mma_smem_bytes(H);
+    const dim3 grid(blocks(V, B_BV), blocks(H, KS));
+    const size_t smem = dw_mma_smem_bytes(KS);
     const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
     const bf16* hb = static_cast<const bf16*>(h);
     const bf16* wb = static_cast<const bf16*>(w);
-    if (H <= 512) {
-      if ((err = set_smem(ce_bwd_dw_mma<8>, smem)) != cudaSuccess)
-        return (int)err;
-      ce_bwd_dw_mma<8><<<blocks(V, B_BV), B_THREADS, smem, s>>>(
-          hb, wb, bias, lab, l, sc, dwf, dbf, N, H, V, vec);
-    } else {
-      if ((err = set_smem(ce_bwd_dw_mma<16>, smem)) != cudaSuccess)
-        return (int)err;
-      ce_bwd_dw_mma<16><<<blocks(V, B_BV), B_THREADS, smem, s>>>(
-          hb, wb, bias, lab, l, sc, dwf, dbf, N, H, V, vec);
-    }
+    // the dW carry's register tiles by slice width; sliced or not
+    const auto kernel =
+        KS < H ? ce_bwd_dw_mma<16, true>
+               : (KS <= 512 ? ce_bwd_dw_mma<8, false>
+                            : ce_bwd_dw_mma<16, false>);
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return (int)err;
+    kernel<<<grid, B_THREADS, smem, s>>>(hb, wb, bias, lab, l, sc, dwf, dbf,
+                                         N, H, V, KS, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,27 @@
 """ZooModel — port of the ``ZooModel`` facade of ``analytics_zoo_tpu/
 models/common/zoo_model.py``: a subclass declares its constructor config
 and builds an inner network in ``build_model()``; the facade delegates
-the forward pass to it. ``.npz`` save/load is not ported yet.
+the forward pass to it; ``register_model`` names the zoo's classes.
+``.npz`` save/load is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Type
 
 import torch
 
 from ...common.context import get_zoo_context, resolve_device
-from ...pipeline.api.keras.engine import KerasNet
+from ...pipeline.api.keras.engine import KerasNet, load_param_tree
+
+_REGISTRY: Dict[str, Type["ZooModel"]] = {}
+
+
+def register_model(cls: Type["ZooModel"]) -> Type["ZooModel"]:
+    """Class decorator: register a ZooModel by its class name."""
+    _REGISTRY[cls.__name__] = cls
+    return cls
+
 
 class ZooModel(KerasNet):
     """Base for built-in models. ``device`` is where the weights live
@@ -43,7 +53,16 @@ class ZooModel(KerasNet):
             generator = get_zoo_context().generator()
         self.model.build(self.model.input_shape, generator=generator)
         self.to(self.device)
-        self.built = True
+        self.built = self.model.built = True
+        return self
+
+    def load_jax_params(self, tree: Dict[str, Any]) -> "ZooModel":
+        """Fill the inner network from the JAX model's param tree, name for
+        name (the inner network's parameter paths are the tree's); builds
+        first if needed."""
+        if not self.built:
+            self.init_weights()
+        load_param_tree(self.model, tree)
         return self
 
     def call(self, x, *, training=False, generator=None):

@@ -19,7 +19,11 @@ f32; ``dl`` enters both products rounded to the compute dtype, ``db`` sums
 it in f32 before the rounding.
 
 On a CUDA tensor each wrapper launches the kernels in
-``csrc/fused_cross_entropy.cu`` or raises; on a CPU tensor it runs the
+``csrc/fused_cross_entropy.cu`` or raises, for any hidden width: ``h``'s
+columns and ``w``'s rows are padded with zeros to a multiple of 64 (the
+pad adds exact zeros to every logit, as the JAX wrapper's
+``pad_to_multiple`` does) and ``dh``/``dW`` are sliced back; the kernels
+stage H in slices of at most 1024. On a CPU tensor it runs the
 plain version (:func:`fused_ce_forward_reference`,
 :func:`fused_ce_backward_reference`), which follows the kernels' rounding
 points and walks the rows in chunks, so it never forms an ``(N, V)``
@@ -42,8 +46,9 @@ from .common import pad_to_multiple
 from .flash_attention import _LaunchCount
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: hidden sizes the kernels take: multiples of 64 in [64, MAX_HIDDEN]
-MAX_HIDDEN = 1024
+#: the kernels take a hidden width that is a multiple of this; the
+#: wrappers pad to it
+HIDDEN_ALIGN = 64
 #: rows per streamed logits tile of the plain versions (512·V·4 bytes of
 #: transient f32 per tile); ``zoo.train.fused_ce_chunk`` overrides it on
 #: the fused loss's plain route
@@ -177,23 +182,21 @@ def _check(h, w, b, labels) -> None:
 
 
 def _kernel_operands(h, w, b, labels):
-    """The operands as the kernels take them, checked: H a multiple of 64
-    in [64, MAX_HIDDEN], h and w contiguous, h 16-byte aligned (its bf16
-    rows are read as 16-byte vectors); bias f32, labels int32."""
-    hidden = h.shape[1]
-    if hidden % 64 or not 64 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"the CUDA kernels take a hidden size that is a "
-                         f"multiple of 64 in [64, {MAX_HIDDEN}]; got "
-                         f"{hidden}")
+    """``(h, w, b, labels)`` as the kernels take them: h and w contiguous
+    (checked), H zero-padded to a multiple of ``HIDDEN_ALIGN``, h 16-byte
+    aligned (its bf16 rows are read as 16-byte vectors); bias f32, labels
+    int32."""
     for name, t in (("h", h), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the CUDA "
                              f"kernels")
+    h = pad_to_multiple(h, 1, HIDDEN_ALIGN)
+    w = pad_to_multiple(w, 0, HIDDEN_ALIGN)
     if h.data_ptr() % 16:
         raise ValueError("h must start on a 16-byte boundary for the CUDA "
                          "kernels")
     b = None if b is None else b.to(torch.float32).contiguous()
-    return b, labels.to(torch.int32).contiguous()
+    return h, w, b, labels.to(torch.int32).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -214,18 +217,18 @@ def fused_ce_forward(h: torch.Tensor, w: torch.Tensor,
     _check(h, w, b, labels)
     if h.device.type == "cpu":
         return fused_ce_forward_reference(h, w, b, labels)
-    n, hidden = h.shape
+    n = h.shape[0]
     v = w.shape[1]
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     ll = torch.empty_like(lse)
     if n == 0:
         return lse, ll
-    b, labels = _kernel_operands(h, w, b, labels)
+    h, w, b, labels = _kernel_operands(h, w, b, labels)
     lib = LIBRARY.get()
     with torch.cuda.device(h.device):
         err = lib.fused_ce_fwd(
             h.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(),
-            lse.data_ptr(), ll.data_ptr(), n, hidden, v,
+            lse.data_ptr(), ll.data_ptr(), n, h.shape[1], v,
             _DTYPE_CODES[h.dtype],
             torch.cuda.current_stream(h.device).cuda_stream)
     _raise_on(err, "fused_ce_fwd")
@@ -235,9 +238,9 @@ def fused_ce_forward(h: torch.Tensor, w: torch.Tensor,
 
 def _backward_operands(h, w, b, labels, lse, scale):
     """The six inputs of K5a/K5b as the kernels take them (tensors, kept
-    alive by the caller until the launch)."""
-    b, labels = _kernel_operands(h, w, b, labels)
-    return (h, w, b, labels, lse.to(torch.float32).contiguous(),
+    alive by the caller until the launch; H padded)."""
+    return (*_kernel_operands(h, w, b, labels),
+            lse.to(torch.float32).contiguous(),
             scale.to(torch.float32).contiguous())
 
 
@@ -249,42 +252,42 @@ def _dh_dtype(h, dh_dtype):
     return dh_dtype
 
 
-def _launch_dh(ops, dh_dtype) -> torch.Tensor:
-    """K5a on checked operands (``_backward_operands``)."""
+def _launch_dh(ops, dh_dtype, hidden: int) -> torch.Tensor:
+    """K5a on checked operands (``_backward_operands``); ``dh`` sliced
+    back to the unpadded ``hidden``."""
     h, w = ops[0], ops[1]
-    n, hidden = h.shape
-    dh = torch.empty(n, hidden, dtype=dh_dtype, device=h.device)
-    if n == 0:
-        return dh
-    with torch.cuda.device(h.device):
-        err = LIBRARY.get().fused_ce_bwd_dh(
-            *(_ptr(t) for t in ops), dh.data_ptr(),
-            n, hidden, w.shape[1], _DTYPE_CODES[h.dtype],
-            _DTYPE_CODES[dh_dtype],
-            torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(err, "fused_ce_bwd_dh")
-    KERNEL_CE_BWD_DH.launches += 1
-    return dh
+    n, hp = h.shape
+    dh = torch.empty(n, hp, dtype=dh_dtype, device=h.device)
+    if n > 0:
+        with torch.cuda.device(h.device):
+            err = LIBRARY.get().fused_ce_bwd_dh(
+                *(_ptr(t) for t in ops), dh.data_ptr(),
+                n, hp, w.shape[1], _DTYPE_CODES[h.dtype],
+                _DTYPE_CODES[dh_dtype],
+                torch.cuda.current_stream(h.device).cuda_stream)
+        _raise_on(err, "fused_ce_bwd_dh")
+        KERNEL_CE_BWD_DH.launches += 1
+    return dh if hp == hidden else dh[:, :hidden].contiguous()
 
 
-def _launch_dw(ops, with_bias: bool):
-    """K5b on checked operands (``_backward_operands``)."""
+def _launch_dw(ops, with_bias: bool, hidden: int):
+    """K5b on checked operands (``_backward_operands``); ``dW`` sliced
+    back to the unpadded ``hidden`` rows."""
     h, w = ops[0], ops[1]
-    n, hidden = h.shape
+    n, hp = h.shape
     v = w.shape[1]
-    dw = torch.zeros(hidden, v, dtype=torch.float32, device=h.device)
+    dw = torch.zeros(hp, v, dtype=torch.float32, device=h.device)
     db = (torch.zeros(v, dtype=torch.float32, device=h.device)
           if with_bias else None)
-    if n == 0:
-        return dw, db
-    with torch.cuda.device(h.device):
-        err = LIBRARY.get().fused_ce_bwd_dw(
-            *(_ptr(t) for t in ops), dw.data_ptr(),
-            _ptr(db), n, hidden, v, _DTYPE_CODES[h.dtype],
-            torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(err, "fused_ce_bwd_dw")
-    KERNEL_CE_BWD_DW.launches += 1
-    return dw, db
+    if n > 0:
+        with torch.cuda.device(h.device):
+            err = LIBRARY.get().fused_ce_bwd_dw(
+                *(_ptr(t) for t in ops), dw.data_ptr(),
+                _ptr(db), n, hp, v, _DTYPE_CODES[h.dtype],
+                torch.cuda.current_stream(h.device).cuda_stream)
+        _raise_on(err, "fused_ce_bwd_dw")
+        KERNEL_CE_BWD_DW.launches += 1
+    return dw[:hidden], db
 
 
 def fused_ce_backward_dh(h, w, b, labels, lse, scale,
@@ -298,7 +301,7 @@ def fused_ce_backward_dh(h, w, b, labels, lse, scale,
         return fused_ce_backward_reference(h, w, b, labels, lse, scale,
                                            dh_dtype)[0]
     return _launch_dh(_backward_operands(h, w, b, labels, lse, scale),
-                      dh_dtype)
+                      dh_dtype, h.shape[1])
 
 
 def fused_ce_backward_dw(h, w, b, labels, lse, scale):
@@ -308,7 +311,7 @@ def fused_ce_backward_dw(h, w, b, labels, lse, scale):
     if h.device.type == "cpu":
         return fused_ce_backward_reference(h, w, b, labels, lse, scale)[1:]
     return _launch_dw(_backward_operands(h, w, b, labels, lse, scale),
-                      b is not None)
+                      b is not None, h.shape[1])
 
 
 def fused_ce_backward(h: torch.Tensor, w: torch.Tensor,
@@ -324,4 +327,5 @@ def fused_ce_backward(h: torch.Tensor, w: torch.Tensor,
         return fused_ce_backward_reference(h, w, b, labels, lse, scale,
                                            dh_dtype)
     ops = _backward_operands(h, w, b, labels, lse, scale)
-    return (_launch_dh(ops, dh_dtype), *_launch_dw(ops, b is not None))
+    return (_launch_dh(ops, dh_dtype, h.shape[1]),
+            *_launch_dw(ops, b is not None, h.shape[1]))

@@ -1,0 +1,159 @@
+"""Dedup'd-embedding kernels — the Hopper counterpart of
+``analytics_zoo_tpu/ops/pallas/embedding.py`` (kernel K1) and of the
+scatter-add in the dedup'd lookup's backward (kernel SA), behind
+``ops/sharded_embedding.py``.
+
+:func:`embed_expand` (K1) expands the ``(capacity, D)`` block of unique
+rows to the ``(N, D)`` row stream by the inverse ids: ``rows[inv]``, bit
+for bit in every dtype. The TPU kernel does it as a one-hot MXU product;
+on the card it is a row gather (``csrc/embedding.cu``).
+
+:func:`dedup_scatter_add` (SA) is the first half of the lookup's
+backward: the row cotangents ``g (N, D)`` summed per slot of ``inv`` into
+a ``(capacity, D)`` f32 block, each slot's rows in ascending position
+order from 0 — the order of the JAX package's CPU scatter. It has no
+Pallas counterpart (the JAX backward is an XLA scatter); it exists
+because ``index_add_`` on CUDA adds with float atomics in an order that
+changes from run to run.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version (:func:`embed_expand_reference`,
+:func:`dedup_scatter_add_reference`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda_build import CudaLibrary
+from .cross_entropy import _raise_on
+from .flash_attention import _LaunchCount
+
+__all__ = ["embed_expand", "embed_expand_reference", "dedup_scatter_add",
+           "dedup_scatter_add_reference", "pallas_embed_gather_enabled"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.embed_expand.argtypes = [p, p, p, i, i, i, p]
+    lib.dedup_scatter_add.argtypes = [p, p, p, p, i, i, i, i, p]
+    for fn in (lib.embed_expand, lib.dedup_scatter_add):
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("embedding", ["embedding.cu"], _bind)
+
+KERNEL_EMBED_EXPAND = _LaunchCount()   # K1
+KERNEL_SCATTER_ADD = _LaunchCount()    # SA
+
+
+def pallas_embed_gather_enabled(device) -> bool:
+    """``zoo.pallas.embed_gather``: auto | true | false. ``auto`` engages
+    the expand kernel for tensors on a CUDA ``device`` (the convention of
+    ``pallas_ce_enabled``); ``true`` on the CPU runs its plain version."""
+    from ...common.context import tri_state_conf
+    flag = tri_state_conf("zoo.pallas.embed_gather")
+    if flag == "auto":
+        return torch.device(device).type == "cuda"
+    return flag
+
+
+def _check(x: torch.Tensor, inv: torch.Tensor, what: str) -> None:
+    if x.dim() != 2 or inv.dim() != 1:
+        raise ValueError(f"{what} takes a 2-D tensor and (N,) ids; got "
+                         f"{tuple(x.shape)} and {tuple(inv.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16; got {x.dtype}")
+    if inv.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{what} takes int32 or int64 ids; got {inv.dtype}")
+    if inv.device != x.device:
+        raise ValueError(f"{what} operands lie on different devices")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device.type}")
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def embed_expand_reference(rows: torch.Tensor,
+                           inv: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: ``rows[inv]``."""
+    return rows[inv.long()]
+
+
+def embed_expand(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """K1: ``rows[inv]`` for ``rows (capacity, D)`` and ``inv (N,)`` ids in
+    ``[0, capacity)``. CUDA tensors launch the kernel (or raise); CPU
+    tensors run :func:`embed_expand_reference`."""
+    _check(rows, inv, "embed_expand")
+    if rows.device.type == "cpu":
+        return embed_expand_reference(rows, inv)
+    n, (capacity, d) = inv.shape[0], rows.shape
+    out = torch.empty(n, d, dtype=rows.dtype, device=rows.device)
+    if n == 0 or d == 0:
+        return out
+    if capacity == 0:
+        raise ValueError("embed_expand: no rows to gather from")
+    rows = rows.contiguous()
+    inv = inv.to(torch.int32).contiguous()
+    with torch.cuda.device(rows.device):
+        err = LIBRARY.get().embed_expand(
+            rows.data_ptr(), inv.data_ptr(), out.data_ptr(), n, capacity,
+            d * rows.element_size(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on(err, "embed_expand")
+    KERNEL_EMBED_EXPAND.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SA
+# ---------------------------------------------------------------------------
+
+def dedup_scatter_add_reference(g: torch.Tensor, inv: torch.Tensor,
+                                capacity: int) -> torch.Tensor:
+    """Plain version of SA: ``zeros(capacity, D).index_add_(0, inv, g)``
+    in f32 — on the CPU, ``index_add_`` adds the rows one after the other
+    in position order."""
+    out = torch.zeros(capacity, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, inv.long(), g.float())
+
+
+def dedup_scatter_add(g: torch.Tensor, inv: torch.Tensor,
+                      capacity: int) -> torch.Tensor:
+    """SA: the ``(capacity, D)`` f32 sums of ``g (N, D)``'s rows per slot
+    of ``inv (N,)`` (ids in ``[0, capacity)``), each slot's rows added in
+    ascending position order from 0. CUDA tensors launch the kernel (or
+    raise); CPU tensors run :func:`dedup_scatter_add_reference`."""
+    _check(g, inv, "dedup_scatter_add")
+    if g.shape[0] != inv.shape[0]:
+        raise ValueError(f"dedup_scatter_add: {g.shape[0]} rows of g for "
+                         f"{inv.shape[0]} ids")
+    if g.device.type == "cpu":
+        return dedup_scatter_add_reference(g, inv, capacity)
+    n, d = g.shape
+    out = torch.empty(capacity, d, dtype=torch.float32, device=g.device)
+    if capacity == 0 or d == 0:
+        return out
+    # the positions sorted stably by slot, and each slot's range of them:
+    # fixed shapes, no host synchronisation
+    key, order = torch.sort(inv.to(torch.int32), stable=True)
+    offsets = torch.searchsorted(
+        key, torch.arange(capacity + 1, dtype=torch.int32, device=g.device),
+        out_int32=True)
+    order = order.to(torch.int32)
+    g = g.contiguous()
+    with torch.cuda.device(g.device):
+        err = LIBRARY.get().dedup_scatter_add(
+            g.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), n, capacity, d, _DTYPES.index(g.dtype),
+            torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_on(err, "dedup_scatter_add")
+    KERNEL_SCATTER_ADD.launches += 1
+    return out

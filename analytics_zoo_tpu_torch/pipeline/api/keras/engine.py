@@ -10,8 +10,10 @@ keys (``W``, ``b``, ``gamma``, ``block0`` ...), so ``named_parameters``
 spells the same paths as the JAX tree and weights move across name for
 name. A Dense ``W`` stays ``(d_in, d_out)``.
 
-``Sequential`` stacks layers in order; ``Model``/``Input``/``Lambda`` (the
-graph toposort) are not ported yet.
+``Sequential`` stacks layers in order; ``Model`` runs a graph built with
+the functional API (``Input``, then layers called on ``Variable``s), in
+the JAX package's toposort order and with its positional auto-names.
+``Lambda`` and ``Variable`` arithmetic are not ported yet.
 """
 
 from __future__ import annotations
@@ -288,8 +290,65 @@ class Layer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         return self.call(x, training=training, generator=generator)
 
+    def __call__(self, x, *args, **kwargs):
+        """On graph ``Variable``s (one or a list): connect this layer into
+        the graph (the functional API). On tensors: run it."""
+        if isinstance(x, Variable) or (
+                isinstance(x, (list, tuple)) and x
+                and all(isinstance(v, Variable) for v in x)):
+            return Variable(Node(self, [v.node for v in as_list(x)]))
+        return super().__call__(x, *args, **kwargs)
+
     def extra_repr(self) -> str:
         return self.name
+
+
+# --------------------------------------------------------------------------
+# graph nodes and Variables
+# --------------------------------------------------------------------------
+
+class Node:
+    """One call of a layer in a graph, on its parents' outputs."""
+
+    __slots__ = ("layer", "parents", "name")
+
+    def __init__(self, layer: Layer, parents: Sequence["Node"]):
+        self.layer = layer
+        self.parents = list(parents)
+        self.name = layer.name
+
+
+class InputLayer(Layer):
+    """A graph input of ``shape`` (without the batch dim)."""
+
+    def __init__(self, shape: Sequence[int], name: Optional[str] = None):
+        super().__init__(name=name or unique_name("input_"))
+        self.shape = (None,) + tuple(shape)
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        return x
+
+
+class Variable:
+    """A graph-node handle — ``autograd.Variable`` of the reference. The
+    operator overloads of the JAX package's ``Variable`` (arithmetic,
+    slicing) are not ported yet."""
+
+    def __init__(self, node: Node):
+        self.node = node
+
+    @property
+    def name(self) -> str:
+        return self.node.name
+
+
+def Input(shape: Sequence[int], name: Optional[str] = None) -> Variable:
+    """A graph input — keras ``Input`` / ``autograd.Variable(inputShape)``
+    in the reference."""
+    return Variable(Node(InputLayer(shape, name=name), []))
 
 
 class KerasNet(Layer):
@@ -310,6 +369,26 @@ class KerasNet(Layer):
     def apply(self, x, *, training: bool = False,
               generator: Optional[torch.Generator] = None):
         return self(x, training=training, generator=generator)
+
+    def init_weights(self, generator: Optional[torch.Generator] = None
+                     ) -> "KerasNet":
+        """Create every parameter from ``generator`` (default: seeded from
+        ``zoo.seed``) on the CPU, then move it to ``self.device``."""
+        from ....common.context import get_zoo_context
+        if generator is None:
+            generator = get_zoo_context().generator()
+        self.build(generator=generator)
+        self.to(self.device)
+        self.built = True
+        return self
+
+    def load_jax_params(self, tree: Dict[str, Any]) -> "KerasNet":
+        """Fill the weights from the JAX network's param tree (nested dicts
+        of arrays) name for name; builds first if needed."""
+        if not self.built:
+            self.init_weights()
+        load_param_tree(self, tree)
+        return self
 
     def __getstate__(self):
         """Copies (``copy.deepcopy``, pickling) carry the network and its
@@ -444,26 +523,6 @@ class Sequential(KerasNet):
             layer.build(shape, generator=generator)
             shape = layer.compute_output_shape(shape)
 
-    def init_weights(self, generator: Optional[torch.Generator] = None
-                     ) -> "Sequential":
-        """Create every parameter from ``generator`` (default: seeded from
-        ``zoo.seed``) on the CPU, then move it to ``self.device``."""
-        from ....common.context import get_zoo_context
-        if generator is None:
-            generator = get_zoo_context().generator()
-        self.build(generator=generator)
-        self.to(self.device)
-        self.built = True
-        return self
-
-    def load_jax_params(self, tree: Dict[str, Any]) -> "Sequential":
-        """Fill the weights from a JAX ``Sequential`` param tree (nested
-        dicts of arrays) name for name; builds first if needed."""
-        if not self.built:
-            self.init_weights()
-        load_param_tree(self, tree)
-        return self
-
     def call(self, x, *, training=False, generator=None):
         if not self.built:
             raise RuntimeError("no weights; call init_weights() first")
@@ -475,6 +534,118 @@ class Sequential(KerasNet):
         for layer, g in zip(self.layers, gens):
             h = dispatch_layer(layer, h, training=training, generator=g)
         return h
+
+
+class Model(KerasNet):
+    """Graph container — ``Model`` (``Topology.scala:602``):
+    ``Model(input=[vars], output=var)``. Nodes run in the JAX package's
+    toposort (depth first from the outputs, parents in order); a layer
+    that joins with an automatic name is renamed ``f"{type}_{position}"``
+    by its place in that order and registered under it, so the parameter
+    paths are the JAX param tree's (``embedding_2/embeddings``,
+    ``dense_13/W``). A layer called in two nodes shares its weights.
+    ``device`` is where the weights live: ``cuda`` unless given (raises
+    without a GPU). Each node is called through :func:`dispatch_layer`."""
+
+    def __init__(self, input, output, name: Optional[str] = None,
+                 device=None):
+        from ....common.context import resolve_device
+        super().__init__(name=name or unique_name("model_"))
+        self.device = resolve_device(device)
+        self.inputs = as_list(input)
+        self.outputs = as_list(output)
+        self._multi_output = isinstance(output, (list, tuple))
+        self._topo = self._toposort()
+        taken = {n.layer.name for n in self._topo if not n.layer._auto_name}
+        for i, node in enumerate(self._topo):
+            if node.layer._auto_name:
+                cand = f"{type(node.layer).__name__.lower()}_{i}"
+                while cand in taken:        # dodge user-chosen names
+                    cand += "_"
+                node.layer.name = cand
+                taken.add(cand)
+                node.layer._auto_name = False  # shared layers keep one name
+            node.name = node.layer.name
+        for node in self._topo:
+            if not node.parents:
+                continue
+            known = self._modules.get(node.name)
+            if known is None:
+                self.add_module(node.name, node.layer)
+            elif known is not node.layer:
+                raise ValueError(f"{self.name}: two different layers named "
+                                 f"{node.name!r}; give them distinct "
+                                 f"name=...")
+        self.built = False
+
+    def _toposort(self):
+        seen, order = set(), []
+
+        def visit(node):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for p in node.parents:
+                visit(p)
+            order.append(node)
+
+        for v in self.outputs:
+            visit(v.node)
+        return order
+
+    @property
+    def input_shape(self):
+        shapes = [v.node.layer.shape for v in self.inputs]
+        return shapes if len(shapes) > 1 else shapes[0]
+
+    def _propagate(self, input_shape, generator=None):
+        """Walk the graph's shapes from ``input_shape``; with a
+        ``generator``, build each layer on its input shape on the way (a
+        shared layer once). Returns the output shape(s)."""
+        shapes = input_shape or self.input_shape
+        shape_of = {id(v.node): s for v, s in zip(
+            self.inputs, shapes if isinstance(shapes, list) else [shapes])}
+        built = set()
+        for node in self._topo:
+            if not node.parents:
+                shape_of.setdefault(id(node), node.layer.shape)
+                continue
+            args = [shape_of[id(p)] for p in node.parents]
+            in_shape = args if len(args) > 1 else args[0]
+            if generator is not None and id(node.layer) not in built:
+                node.layer.build(in_shape, generator=generator)
+                built.add(id(node.layer))
+            shape_of[id(node)] = node.layer.compute_output_shape(in_shape)
+        outs = [shape_of[id(v.node)] for v in self.outputs]
+        return outs if self._multi_output else outs[0]
+
+    def compute_output_shape(self, input_shape):
+        return self._propagate(input_shape)
+
+    def build(self, input_shape=None, *, generator: torch.Generator):
+        self._propagate(input_shape, generator)
+
+    def call(self, x, *, training=False, generator=None):
+        if not self.built:
+            raise RuntimeError("no weights; call init_weights() first")
+        from ....common.noise import split_seeds
+        xs = as_list(x)
+        if len(xs) != len(self.inputs):
+            raise ValueError(f"{self.name} expects {len(self.inputs)} "
+                             f"inputs, got {len(xs)}")
+        gens = ([torch.Generator().manual_seed(s)
+                 for s in split_seeds(generator, len(self._topo))]
+                if generator is not None else [None] * len(self._topo))
+        value_of = {id(v.node): a for v, a in zip(self.inputs, xs)}
+        for node, g in zip(self._topo, gens):
+            if not node.parents:
+                continue
+            args = [value_of[id(p)] for p in node.parents]
+            value_of[id(node)] = dispatch_layer(
+                node.layer, args if len(args) > 1 else args[0],
+                training=training, generator=g)
+        outs = [value_of[id(v.node)] for v in self.outputs]
+        return outs if self._multi_output else outs[0]
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:

@@ -20,10 +20,11 @@ Recognized patterns (``zoo.train.fused_ce``: auto | true | false):
   probability form's eps-clip makes saturated losses differ.
 
 ``auto`` engages at ``V >= AUTO_MIN_VOCAB``. Heads are found on a
-``Sequential`` (its last layer) or through a ``fused_head() -> (dense,
-param_path)`` hook (``BERTClassifier``'s network has one, and the
-``ZooModel`` facade sees through to it). ``Model`` waits for the graph
-engine. The full-logits objective stays the oracle: ``evaluate``/
+``Sequential`` (its last layer), on a single-output ``Model`` whose output
+node is a Dense, or through a ``fused_head() -> (dense, param_path)`` hook
+(``BERTClassifier``'s network has one, and the ``ZooModel`` facade sees
+through to the inner network). The full-logits objective stays the
+oracle: ``evaluate``/
 ``predict`` and every non-matching model keep it. The port drives one
 device, so the vocab-sharded form never engages.
 """
@@ -41,7 +42,7 @@ from ....ops.fused_cross_entropy import (AUTO_MIN_VOCAB,
 def find_head(model) -> Optional[Tuple[object, Tuple[str, ...]]]:
     """``(head_dense_layer, param_path)`` for the model's logits head, or
     None when no unique container-dispatched Dense head exists."""
-    from .engine import Sequential
+    from .engine import Model, Sequential
     from .layers.core import Dense
 
     hook = getattr(model, "fused_head", None)
@@ -52,6 +53,12 @@ def find_head(model) -> Optional[Tuple[object, Tuple[str, ...]]]:
         if (isinstance(head, Dense)
                 and sum(1 for l in model.layers if l is head) == 1):
             return head, (head.name,)
+        return None
+    if isinstance(model, Model) and len(model.outputs) == 1:
+        node = model.outputs[0].node
+        if (node.parents and isinstance(node.layer, Dense)
+                and sum(1 for n in model._topo if n.layer is node.layer) == 1):
+            return node.layer, (node.name,)
     return None
 
 
@@ -100,11 +107,8 @@ def _mode() -> str:
 def resolve_fused_loss(model, loss_fn: Callable) -> Optional[FusedHeadSpec]:
     """The spec for (model, loss) when the fused path applies, else None.
 
-    The hidden size does not enter the decision. On a CUDA tensor the
-    kernels take a head input width that is a multiple of 64 in [64, 1024]
-    and raise on any other, so a model outside that range trains on the
-    card only with ``zoo.pallas.cross_entropy=false`` (the plain route) or
-    ``zoo.train.fused_ce=false``."""
+    The hidden size does not enter the decision: the CUDA kernels take
+    any head input width."""
     from . import objectives
     from .layers.core import ACTIVATIONS
 

@@ -1,5 +1,6 @@
 """Core layers — port of ``analytics_zoo_tpu/pipeline/api/keras/layers/
-core.py``: ``Dense`` and ``Dropout``."""
+core.py``: ``Activation``, ``Dense``, ``Dropout``, ``Merge``/``merge`` and
+``Select``."""
 
 from __future__ import annotations
 
@@ -40,6 +41,21 @@ def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         y = y + b.to(cd)
     return y
+
+
+class Activation(Layer):
+    """``keras/layers/Activation.scala``: ``activation`` by name (or a
+    callable) on the input."""
+
+    def __init__(self, activation: Union[str, Callable], **kwargs):
+        super().__init__(**kwargs)
+        self.fn = get_activation(activation)
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        return self.fn(x)
 
 
 class Dense(Layer):
@@ -101,3 +117,80 @@ class Dropout(Layer):
             raise ValueError(f"{self.name}: training dropout needs a "
                              f"generator")
         return dropout(x, self.p, generator, training)
+
+
+def _fold(fn, xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = fn(out, x)
+    return out
+
+
+def _unit_rows(a):
+    return a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-8)
+
+
+#: Merge modes, the JAX package's formulas and orders of operation
+MERGE_MODES: Dict[str, Callable] = {
+    "sum": lambda xs: _fold(torch.add, xs),
+    "mul": lambda xs: _fold(torch.mul, xs),
+    "ave": lambda xs: sum(xs) / len(xs),
+    "max": lambda xs: _fold(torch.maximum, xs),
+    "min": lambda xs: _fold(torch.minimum, xs),
+    "dot": lambda xs: torch.sum(xs[0] * xs[1], dim=-1, keepdim=True),
+    "cos": lambda xs: torch.sum(_unit_rows(xs[0]) * _unit_rows(xs[1]),
+                                dim=-1, keepdim=True),
+}
+
+
+class Merge(Layer):
+    """``keras/layers/Merge.scala``: combines a list of inputs. Modes:
+    sum, mul, ave, max, min, concat, dot, cos."""
+
+    def __init__(self, mode: str = "sum", concat_axis: int = -1, **kwargs):
+        super().__init__(**kwargs)
+        if mode != "concat" and mode not in MERGE_MODES:
+            raise ValueError(f"unknown merge mode {mode}")
+        self.mode = mode
+        self.concat_axis = concat_axis
+
+    def compute_output_shape(self, input_shape):
+        first = tuple(input_shape[0])
+        if self.mode == "concat":
+            axis = self.concat_axis % len(first)
+            return first[:axis] + (sum(s[axis] for s in input_shape),) \
+                + first[axis + 1:]
+        if self.mode in ("dot", "cos"):
+            return first[:-1] + (1,)
+        return first
+
+    def call(self, xs, *, training=False, generator=None):
+        if not isinstance(xs, (list, tuple)):
+            raise ValueError(f"{self.name}: Merge expects a list of inputs")
+        if self.mode == "concat":
+            return torch.cat(list(xs), dim=self.concat_axis)
+        return MERGE_MODES[self.mode](list(xs))
+
+
+def merge(inputs, mode: str = "sum", concat_axis: int = -1, name=None):
+    """Functional helper mirroring pyzoo's ``merge``."""
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(inputs)
+
+
+class Select(Layer):
+    """``keras/layers/Select.scala``: index ``index`` of dimension ``dim``
+    (0 = batch, negatives allowed), which drops that dimension. Integer
+    inputs stay integer."""
+
+    def __init__(self, dim: int, index: int, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim
+        self.index = index
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        del shape[self.dim]
+        return tuple(shape)
+
+    def call(self, x, *, training=False, generator=None):
+        return torch.select(x, self.dim, self.index)

@@ -1,16 +1,24 @@
-"""Embedding gathers — the part of ``analytics_zoo_tpu/pipeline/api/keras/
-layers/embeddings.py`` that BERT needs.
+"""Embedding layers — port of ``analytics_zoo_tpu/pipeline/api/keras/
+layers/embeddings.py``: ``Embedding``, ``ShardedEmbedding`` and the gather
+BERT uses (:func:`take_rows`).
 
-The JAX package gathers with ``jnp.take(table, ids, axis=0)``, whose
-default out-of-bounds mode is "fill": an id in ``[-V, 0)`` wraps once (as
-numpy indexing does) and any other id outside ``[0, V)`` reads a row of
-NaN. ``F.embedding`` and plain indexing raise instead, so :func:`take_rows`
-reproduces the JAX rule explicitly.
+The two layers keep their JAX counterparts' different rules for an id
+outside ``[0, V)``. ``Embedding`` gathers with ``jnp.take(table, ids,
+axis=0)``, whose default out-of-bounds mode is "fill": an id in ``[-V, 0)``
+wraps once (as numpy indexing does) and any other id reads a row of NaN.
+``F.embedding`` and plain indexing raise instead, so :func:`take_rows`
+reproduces the JAX rule explicitly. ``ShardedEmbedding`` runs the dedup'd
+engine (``ops/sharded_embedding.py``), which clamps ids into ``[0, V)``.
+``SparseEmbedding`` and ``WordEmbedding`` are not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..engine import Layer, get_initializer, param_dtype
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -24,3 +32,42 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(valid.unsqueeze(-1), rows,
                        torch.full((), float("nan"), dtype=table.dtype,
                                   device=table.device))
+
+
+class Embedding(Layer):
+    """``Embedding(input_dim, output_dim, init, input_length)``: int ids
+    ``(B, ...)`` to rows ``(B, ..., output_dim)`` of the ``embeddings``
+    table, in its dtype, by :func:`take_rows`. Ids are 0-based."""
+
+    def __init__(self, input_dim: int, output_dim: int, init: str = "uniform",
+                 input_length: Optional[int] = None, **kwargs):
+        if input_length is not None and "input_shape" not in kwargs:
+            kwargs["input_shape"] = (input_length,)
+        super().__init__(**kwargs)
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.init = init
+
+    def build(self, input_shape, *, generator):
+        self.add_weight("embeddings", get_initializer(self.init)(
+            generator, (self.input_dim, self.output_dim), param_dtype()))
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.output_dim,)
+
+    def call(self, x, *, training=False, generator=None):
+        return take_rows(self.embeddings, x)
+
+
+class ShardedEmbedding(Embedding):
+    """Drop-in ``Embedding`` on the dedup'd engine
+    (``ops.sharded_embedding.sharded_embedding_lookup``): each step gathers
+    the distinct ids' rows once and expands them to the id stream (K1 on
+    the card), and the backward sums the row cotangents per distinct id
+    in a fixed order (the SA kernel) before one scatter onto the table.
+    Ids clamp into ``[0, V)``. The port drives one device, so the table is
+    never row-partitioned."""
+
+    def call(self, x, *, training=False, generator=None):
+        from .....ops.sharded_embedding import sharded_embedding_lookup
+        return sharded_embedding_lookup(self.embeddings, x)

@@ -27,7 +27,10 @@ big-vocab Dense head with a sparse-CE loss streams through the fused
 LM-head cross-entropy (``keras/fused_loss.py``, ``zoo.train.fused_ce``)
 and the ``zoo_train_fused_ce`` gauge says so; everything else runs the
 plain forward and objective, which ``evaluate`` and ``predict`` always
-use (the full-logits oracle).
+use (the full-logits oracle). The sharded-embedding resolution
+(``keras/sharded_embed.py``, ``zoo.embed.sharded``) runs there once per
+loop too; on the port's one device it declines. Integer inputs (ids)
+stay integer from the ``FeatureSet`` to the model.
 
 Not ported yet, with their seams left where the JAX loop has them:
 anomaly sentinels and gradient clipping in the step, checkpoints and
@@ -182,7 +185,11 @@ class TrainingLoop:
         if self._apply_loss is not None:
             return self._apply_loss
         from .fused_loss import resolve_fused_loss
+        from .sharded_embed import resolve_sharded_embeddings
         model, loss_fn = self.model, self.loss
+        # declines on one device (it raises where the JAX package would
+        # row-shard the plain embeddings)
+        resolve_sharded_embeddings(model)
         spec = resolve_fused_loss(model, loss_fn)
         prev = TrainingLoop._last_fused_labels
         if spec is None:

@@ -178,7 +178,6 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> None:
     raises. A ``ZooModel`` is filled through its inner network, whose
     parameter paths are the JAX tree's."""
     if isinstance(model, ZooModel):
-        if not model.built:
-            model.init_weights()
-        model = model.model
-    load_param_tree(model, dict(tree))
+        model.load_jax_params(dict(tree))
+    else:
+        load_param_tree(model, dict(tree))

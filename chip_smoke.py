@@ -45,10 +45,33 @@
    gradients against the full-logits oracle, and that the fused route's
    peak memory over that step is at least one bf16 logits tensor lower.
 
+8. CE hidden-width phase: K4/K5a/K5b against their plain versions at
+   N=4100, V=8192, bf16, H = 100 (padded to 128), 1280 and 2048 (H staged
+   in two slices), each timed.
+9. Embedding kernel phase: K1 (the dedup'd expand) and SA (the dedup
+   scatter-add) against their plain versions at the NCF path's shapes
+   (the first batch's user and item ids, capacities 8192 and 4096, D=20)
+   and at a DLRM-Terabyte width (D=128, N=2048x26 ids over a million
+   rows, f32 and bf16): K1 bit for bit, SA bit for bit against the CPU's
+   position-order sum and the same bits over two runs. Each is timed
+   beside ``index_select`` / ``index_add_`` and its byte bound.
+10. NCF phase: the JAX package's NeuralCF bench configuration
+   (``bench.py:50-52, 1279-1285``: ``NeuralCF(6040, 3706, 5)``, Adam lr
+   1e-3, ``scce``, batch 8192, 1,000,000 MovieLens-1M-shaped ratings from
+   numpy seed 0, ``FeatureSet.array(x, y, seed=0)``), then the same graph
+   on ``ShardedEmbedding`` tables: a warm-up epoch and two timed epochs of
+   122 steps each. Checks the loss gate (last epoch below the first and
+   below ln 5), 4 launches per step of K1 and of SA on the sharded graph
+   and none on the stock model, one step's gradients of the two from the
+   same weights (1e-5 relative per leaf), the same dW bits over two
+   backward passes, and ``recommend_for_user`` against a plain eager
+   forward.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
 path; the attention kernels also checked against their plain versions
-and timed at the LM shape), and last ``{"ok":
+and timed at the LM shape, K1 and SA also at the DLRM width), and last
+``{"ok":
 true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device, outside the repository, or when any check fails.
 """
@@ -101,6 +124,20 @@ LM_CFG = dict(vocab=LM_VOCAB, seq_len=LM_SEQ, n_block=4, hidden_size=512,
 LM_GRAD_REL_TOL = 0.02
 
 
+#: the JAX package's NeuralCF bench configuration (bench.py:50-52,
+#: 1279-1285): MovieLens-1M's shape
+N_USERS, N_ITEMS, N_CLASSES = 6040, 3706, 5
+N_EXAMPLES = 1_000_000
+NCF_BATCH = 8192
+#: one step's gradients, stock NeuralCF against its ShardedEmbedding
+#: graph from the same weights: both gather the same f32 rows and sum the
+#: repeated ids' cotangents in f32 (position order against the gather's
+#: own backward), so they differ by summation order only
+NCF_GRAD_REL_TOL = 1e-5
+#: DLRM-Terabyte's width: 26 sparse features of dimension 128, batch 2048
+DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -120,6 +157,21 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed between two events, so the host's launch cost stays
+    out of the timed region (``time_ms`` of a wrapper that runs for a few
+    microseconds reads the host's launch rate instead)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, iters=5, warmup=1) / iters
 
 
 def attention_bound(q, k, mask, causal, flops_per_pair_per_d=4,
@@ -1031,6 +1083,398 @@ def lm_attention_errors(q, k, v, do, out, lse, delta):
             "flash_attention_bwd_dkv": max(err["dk"], err["dv"])}
 
 
+def ce_hidden_phase():
+    """K4, K5a and K5b at hidden widths the kernels pad (H = 100 to 128)
+    or slice (H = 1280 and 2048, two slices of 640 and 1024) against their
+    plain versions, bf16, N=4100, V=8192, and their times."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_backward_dh, fused_ce_backward_dw,
+        fused_ce_backward_reference, fused_ce_forward,
+        fused_ce_forward_reference)
+    n, v = 4100, 8192
+    tol = CE_TOL["bfloat16"]
+    g = torch.Generator().manual_seed(5)
+    rows = []
+    for hidden in (100, 1280, 2048):
+        h = torch.randn(n, hidden, generator=g).to("cuda", torch.bfloat16)
+        w = (torch.randn(hidden, v, generator=g) * hidden ** -0.5).to(
+            "cuda", torch.bfloat16)
+        b = (torch.randn(v, generator=g) * 0.5).cuda()
+        labels = torch.randint(0, v, (n,), generator=g,
+                               dtype=torch.int32).cuda()
+        labels[::3] = -1
+        scale = torch.where(labels >= 0, 1.0 / n, 0.0).float()
+        lse, ll = fused_ce_forward(h, w, b, labels)
+        dh = fused_ce_backward_dh(h, w, b, labels, lse, scale)
+        dw, db = fused_ce_backward_dw(h, w, b, labels, lse, scale)
+        torch.cuda.synchronize()
+        ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
+        ref = fused_ce_backward_reference(h, w, b, labels, lse, scale)
+        row = {"case": f"bf16_h{hidden}", "n": n, "hidden": hidden,
+               "vocab": v, "lse_err": (lse - ref_lse).abs().max().item(),
+               "ll_rel_err": ((ll - ref_ll).abs()
+                              / ref_ll.abs().clamp_min(1.0)).max().item()}
+        check(row["lse_err"] <= tol["lse"], f"H={hidden}: K4 lse "
+              f"{row['lse_err']}")
+        check(row["ll_rel_err"] <= tol["ll_rel"], f"H={hidden}: K4 label "
+              f"logit {row['ll_rel_err']}")
+        check(dh.shape == h.shape and dw.shape == w.shape,
+              f"H={hidden}: gradient shapes {dh.shape} {dw.shape}")
+        for key, got, want in (("dh", dh, ref[0]), ("dw", dw, ref[1]),
+                               ("db", db, ref[2])):
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            row[f"{key}_max_abs_err"], row[f"{key}_max_abs"] = err, top
+            check(bool(torch.isfinite(got).all()) and err <= tol["grad"]
+                  * top, f"H={hidden}: {key} {err} > {tol['grad']} x {top}")
+        row["ms"] = {
+            "fused_ce_fwd": time_ms(lambda: fused_ce_forward(h, w, b,
+                                                             labels)),
+            "fused_ce_bwd_dh": time_ms(lambda: fused_ce_backward_dh(
+                h, w, b, labels, lse, scale)),
+            "fused_ce_bwd_dw": time_ms(lambda: fused_ce_backward_dw(
+                h, w, b, labels, lse, scale))}
+        # the products' operations over the bf16 peak
+        row["bound_ms"] = {
+            "fused_ce_fwd": 2.0 * n * hidden * v / PEAK_FLOPS["bfloat16"]
+            * 1e3,
+            "fused_ce_bwd_dh": 4.0 * n * hidden * v / PEAK_FLOPS["bfloat16"]
+            * 1e3,
+            "fused_ce_bwd_dw": 4.0 * n * hidden * v / PEAK_FLOPS["bfloat16"]
+            * 1e3}
+        rows.append(row)
+        print(f"ce hidden case {json.dumps(row)}")
+        del h, w, dh, dw, ref
+    return rows
+
+
+def make_movielens_like(rng):
+    """The JAX package's bench data (bench.py:87-102): ratings from a
+    ground-truth latent-factor model, quantized to 5 balanced classes."""
+    import numpy as np
+    dim = 8
+    uf = rng.normal(0, 1.0, (N_USERS + 1, dim))
+    vf = rng.normal(0, 1.0, (N_ITEMS + 1, dim))
+    users = rng.integers(1, N_USERS + 1, N_EXAMPLES).astype(np.int32)
+    items = rng.integers(1, N_ITEMS + 1, N_EXAMPLES).astype(np.int32)
+    score = np.einsum("nd,nd->n", uf[users], vf[items]) / np.sqrt(dim)
+    score += rng.normal(0, 0.25, N_EXAMPLES)
+    # quantize to 5 roughly-balanced classes
+    edges = np.quantile(score, [0.2, 0.4, 0.6, 0.8])
+    y = np.digitize(score, edges).astype(np.int32)
+    x = np.stack([users, items], axis=1)
+    return x, y
+
+
+def bytes_bound_ms(nbytes):
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def embed_case(name, table, ids, dtype, g_seed):
+    """K1 and SA on one lookup's dedup'd block: ``ids`` clamped, made
+    unique at ``dedup_capacity``, the unique rows gathered; K1 expands
+    them (bit for bit against ``rows[inv]``), SA sums a seeded cotangent
+    per slot (bit for bit against the CPU's index_add_, same bits over
+    two runs). Returns the case's row with times and byte bounds. ``ms``
+    times calls of the wrapper back to back (SA's includes its sort and
+    offsets), which at the NCF shapes reads the host's launch rate;
+    ``device_ms`` the same call's device work alone (``graph_ms``)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        dedup_scatter_add, dedup_scatter_add_reference, embed_expand,
+        embed_expand_reference)
+    from analytics_zoo_tpu_torch.ops.sharded_embedding import (
+        _unique_ids, dedup_capacity)
+    v, d = table.shape
+    n = ids.shape[0]
+    cap = dedup_capacity(n, v)
+    uniq, inv = _unique_ids(ids.clamp(0, v - 1), cap, fill=v)
+    rows = table.index_select(0, uniq.clamp(0, v - 1).long()).to(dtype)
+    g = torch.randn(n, d, generator=torch.Generator().manual_seed(g_seed)
+                    ).to("cuda", dtype)
+    out = embed_expand(rows, inv)
+    sums = [dedup_scatter_add(g, inv, cap) for _ in range(2)]
+    torch.cuda.synchronize()
+    es = rows.element_size()
+    n_unique = int(torch.unique(inv).numel())
+    k1_ref = embed_expand_reference(rows, inv)
+    sa_ref = dedup_scatter_add_reference(g.cpu(), inv.cpu(), cap)
+    k1_equal = torch.equal(out.view(torch.int16), k1_ref.view(torch.int16))
+    sa_same = torch.equal(sums[0].view(torch.int32), sums[1].view(torch.int32))
+    sa_equal = torch.equal(sums[0].cpu().view(torch.int32),
+                           sa_ref.view(torch.int32))
+    check(k1_equal, f"{name}: K1 differs from rows[inv]")
+    check(sa_equal, f"{name}: SA differs from the CPU's position-order sum")
+    check(sa_same, f"{name}: SA differs between two runs")
+    inv64 = inv.long()
+    acc = torch.zeros(cap, d, dtype=torch.float32, device="cuda")
+    gf = g.float()
+    row = {"case": name, "n": n, "capacity": cap, "unique": n_unique, "d": d,
+           "dtype": str(dtype).replace("torch.", ""),
+           "k1_bit_equal": k1_equal, "sa_bit_equal_cpu": sa_equal,
+           "sa_same_bits_two_runs": sa_same,
+           "embed_expand": {
+               "max_abs_err": (out.float() - k1_ref.float()).abs().max()
+               .item(),
+               "ms": time_ms(lambda: embed_expand(rows, inv), iters=50),
+               "device_ms": graph_ms(lambda: embed_expand(rows, inv)),
+               "plain_ms": time_ms(lambda: embed_expand_reference(rows, inv),
+                                   iters=50),
+               "library_ms": time_ms(lambda: torch.index_select(rows, 0,
+                                                                inv64),
+                                     iters=50),
+               # the referenced unique rows and the ids read, the rows
+               # written
+               "bound_ms": bytes_bound_ms(n_unique * d * es + n * 4
+                                          + n * d * es)},
+           "dedup_scatter_add": {
+               "max_abs_err": (sums[0].cpu() - sa_ref).abs().max().item(),
+               "ms": time_ms(lambda: dedup_scatter_add(g, inv, cap),
+                             iters=50),
+               "device_ms": graph_ms(lambda: dedup_scatter_add(g, inv, cap)),
+               "plain_ms": time_ms(lambda: dedup_scatter_add_reference(
+                   g, inv, cap), iters=50),
+               "library_ms": time_ms(lambda: acc.index_add_(0, inv64, gf),
+                                     iters=50),
+               # g and the ids read, the (capacity, D) f32 block written
+               "bound_ms": bytes_bound_ms(n * d * es + n * 4
+                                          + cap * d * 4)}}
+    print(f"embed kernel case {json.dumps(row)}")
+    return row
+
+
+def embed_kernel_phase(x):
+    """K1 and SA at the NCF path's shapes (its first batch's user and item
+    ids) and at a DLRM-Terabyte width."""
+    import torch
+    g = torch.Generator().manual_seed(6)
+    batch = torch.from_numpy(x[:NCF_BATCH]).cuda()
+    cases = [
+        ("ncf_user", torch.randn(N_USERS + 1, 20, generator=g).cuda(),
+         batch[:, 0].contiguous(), torch.float32),
+        ("ncf_item", torch.randn(N_ITEMS + 1, 20, generator=g).cuda(),
+         batch[:, 1].contiguous(), torch.float32)]
+    dlrm_table = torch.randn(DLRM_V, DLRM_D, generator=g).cuda()
+    dlrm_ids = torch.randint(0, DLRM_V, (DLRM_N,), generator=g,
+                             dtype=torch.int32).cuda()
+    cases += [("dlrm_f32", dlrm_table, dlrm_ids, torch.float32),
+              ("dlrm_bf16", dlrm_table, dlrm_ids, torch.bfloat16)]
+    rows = {name: embed_case(name, table, ids, dtype, i)
+            for i, (name, table, ids, dtype) in enumerate(cases)}
+    del dlrm_table
+    return rows
+
+
+def sharded_ncf(user_count, item_count, class_num, device="cuda"):
+    """NeuralCF's graph (``models/recommendation/neural_cf.py``: embeddings
+    20/20, MLP 40-20-10, MF 20) built with the functional API on
+    ``ShardedEmbedding`` tables: what a user writes to put the tables on
+    the dedup'd engine."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (Input,
+                                                                   Model)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, Merge, Select, ShardedEmbedding)
+    inp = Input(shape=(2,))
+    user = Select(1, 0)(inp)
+    item = Select(1, 1)(inp)
+    h = Merge(mode="concat", concat_axis=-1)([
+        ShardedEmbedding(user_count + 1, 20, init="normal")(user),
+        ShardedEmbedding(item_count + 1, 20, init="normal")(item)])
+    for units in (40, 20, 10):
+        h = Dense(units, activation="relu")(h)
+    mf = Merge(mode="mul")([
+        ShardedEmbedding(user_count + 1, 20, init="normal")(user),
+        ShardedEmbedding(item_count + 1, 20, init="normal")(item)])
+    h = Merge(mode="concat", concat_axis=-1)([h, mf])
+    return Model(inp, Dense(class_num, activation="softmax")(h),
+                 device=device)
+
+
+def ncf_plain_forward(params, pairs):
+    """NeuralCF's forward written out on the weight tensors, in the
+    order of ``neural_cf.py`` (the eager reference for the ranking)."""
+    import torch
+    p = list(params)
+    mlp_u, mlp_i, d1w, d1b, d2w, d2b, d3w, d3b, mf_u, mf_i, ow, ob = p
+    users, items = pairs[:, 0].long(), pairs[:, 1].long()
+    h = torch.cat([mlp_u[users], mlp_i[items]], dim=-1)
+    for w, b in ((d1w, d1b), (d2w, d2b), (d3w, d3b)):
+        h = torch.relu(h @ w + b)
+    h = torch.cat([h, mf_u[users] * mf_i[items]], dim=-1)
+    return torch.softmax(h @ ow + ob, dim=-1)
+
+
+def ncf_fit(name, model, fs, counters):
+    """compile/fit: a warm-up epoch, then two timed epochs with the
+    launch counters set to 0 just before and read just after."""
+    import torch
+    model.compile(optimizer="adam", loss="scce", metrics=["accuracy"],
+                  lr=1e-3)
+    records = []
+    t0 = time.perf_counter()
+    model.fit(fs, batch_size=NCF_BATCH, nb_epoch=1,
+              callbacks=[records.append])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    for c in counters:
+        c.reset()
+    timed = []
+    t0 = time.perf_counter()
+    model.fit(fs, batch_size=NCF_BATCH, nb_epoch=2,
+              callbacks=[timed.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    records += timed
+    steps = 2 * fs.steps_per_epoch(NCF_BATCH)
+    losses = [r["loss"] for r in records]
+    summary = {"steps": steps, "batch": NCF_BATCH,
+               "recs_per_s": max(r["throughput"] for r in timed),
+               "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
+               "warmup_s": warm, "losses": losses,
+               "launches": dict(zip(("embed_expand", "dedup_scatter_add"),
+                                    launches))}
+    print(f"ncf {name}: {steps} steps of {NCF_BATCH} in {wall:.3f}s = "
+          f"{summary['recs_per_s']:.1f} recs/s (best epoch), "
+          f"{summary['ms_per_step']:.2f} ms/step (warm-up {warm:.1f}s); "
+          f"losses {losses}; launches {json.dumps(summary['launches'])}")
+    check(all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0] and losses[-1] < math.log(N_CLASSES),
+          f"ncf {name} loss gate: {losses}")
+    return summary
+
+
+def ncf_phase(x, y):
+    """Both NCF configurations through compile/fit at the bench width,
+    their launch counts, one step's gradients against each other, the dW
+    bits of two backward passes, and recommend_for_user."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
+    from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+
+    init_zoo_context(conf={"zoo.seed": 0, "zoo.compute.dtype": "float32",
+                           "zoo.pallas.embed_gather": "auto"})
+    counters = (KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
+    n_users = max(N_USERS, int(x[:, 0].max()))
+    n_items = max(N_ITEMS, int(x[:, 1].max()))
+    fs = FeatureSet.array(x, y, seed=0)
+    steps_per_epoch = fs.steps_per_epoch(NCF_BATCH)
+
+    reset_uids()
+    stock = NeuralCF(n_users, n_items, N_CLASSES, device="cuda")
+    stock.init_weights()
+    start = [p.detach().clone() for p in stock.model.parameters()]
+    out = {"stock": ncf_fit("stock NeuralCF", stock, fs, counters)}
+    check(out["stock"]["launches"] == {"embed_expand": 0,
+                                       "dedup_scatter_add": 0},
+          f"the stock NeuralCF launched the embedding kernels: "
+          f"{out['stock']['launches']}")
+
+    reset_uids()
+    sharded = sharded_ncf(n_users, n_items, N_CLASSES).init_weights()
+    out["sharded"] = ncf_fit("ShardedEmbedding graph", sharded, fs, counters)
+    want = 4 * out["sharded"]["steps"]
+    check(out["sharded"]["launches"] == {"embed_expand": want,
+                                         "dedup_scatter_add": want},
+          f"sharded graph launches {out['sharded']['launches']}, want "
+          f"{want} each (4 tables x {out['sharded']['steps']} steps)")
+
+    # one step's gradients of the two from the same (starting) weights
+    xb = torch.from_numpy(x[:NCF_BATCH]).cuda()
+    yb = torch.from_numpy(y[:NCF_BATCH]).cuda()
+    loss_fn = objectives.get_loss("scce")
+    with torch.no_grad():
+        for net in (stock.model, sharded):
+            for p, p0 in zip(net.parameters(), start):
+                p.copy_(p0)
+    grads = {}
+    for key, net in (("stock", stock.model), ("sharded", sharded),
+                     ("sharded_again", sharded)):
+        net.zero_grad(set_to_none=True)
+        loss_fn(yb, net(xb, training=True)).backward()
+        grads[key] = [p.grad.detach().clone() for p in net.parameters()]
+    names = [n for n, _ in sharded.named_parameters()]
+    rel = {n: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for n, a, b in zip(names, grads["sharded"], grads["stock"])}
+    worst = max(rel, key=rel.get)
+    tables = [i for i, n in enumerate(names) if n.endswith("embeddings")]
+    same_bits = all(torch.equal(grads["sharded"][i].view(torch.int32),
+                                grads["sharded_again"][i].view(torch.int32))
+                    for i in tables)
+    print(f"ncf: one step, sharded graph vs stock NeuralCF: largest "
+          f"per-leaf gradient relative error {rel[worst]:.3e} ({worst}; "
+          f"tolerance {NCF_GRAD_REL_TOL}); the tables' dW the same bits "
+          f"over two backward passes: {same_bits}")
+    check(rel[worst] <= NCF_GRAD_REL_TOL, f"ncf gradients: {worst} "
+          f"{rel[worst]}")
+    check(same_bits, "the sharded tables' dW differ between two runs")
+    out.update(grad_rel_err_max=rel[worst], grad_rel_err_leaf=worst,
+               dw_same_bits=same_bits, steps_per_epoch=steps_per_epoch)
+    del grads
+
+    # recommend_for_user against the plain eager forward
+    items = np.arange(1, n_items + 1, dtype=np.int32)
+    recs = {}
+    for user in (1, 1234, n_users):
+        got = stock.recommend_for_user(user, items, max_items=10,
+                                       batch_size=NCF_BATCH)
+        # the same (padded) batch predict runs: the last pair repeated
+        pairs = np.stack([np.full_like(items, user), items], axis=1)
+        pairs = np.concatenate([pairs, np.repeat(
+            pairs[-1:], NCF_BATCH - len(items), axis=0)])
+        with torch.no_grad():
+            probs = ncf_plain_forward(stock.model.parameters(),
+                                      torch.from_numpy(pairs).cuda())
+        want = NeuralCF._top_ids(items, probs[:len(items)].cpu().numpy(), 10)
+        check(np.array_equal(got, want), f"recommend_for_user({user}): "
+              f"{got} vs the plain forward's {want}")
+        recs[user] = got.tolist()
+    print(f"ncf: recommend_for_user matches the plain forward: "
+          f"{json.dumps(recs)}")
+    out["recommend_for_user"] = recs
+    return out
+
+
+def embed_kernel_rows(embed_rows, launches):
+    """The K1 and SA rows of the kernels line: at the NCF path's user-table
+    shape, with the DLRM-width times beside."""
+    src = "analytics_zoo_tpu_torch/csrc/embedding.cu"
+    replaces = {"embed_expand": "analytics_zoo_tpu/ops/pallas/"
+                                "embedding.py:104",
+                "dedup_scatter_add": "analytics_zoo_tpu/ops/"
+                                     "sharded_embedding.py:148 (XLA "
+                                     "scatter; no Pallas kernel)"}
+    main, dlrm = embed_rows["ncf_user"], embed_rows["dlrm_f32"]
+    rows = []
+    for name in ("embed_expand", "dedup_scatter_add"):
+        t, td = main[name], dlrm[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces[name],
+                     "launches": launches[name],
+                     "max_abs_err": max(t["max_abs_err"], td["max_abs_err"]),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "library_ms": t["library_ms"],
+                     "library_by": ("index_select" if name == "embed_expand"
+                                    else "index_add_ (float atomics)"),
+                     "device_ms": t["device_ms"],
+                     "ms_dlrm": td["ms"], "device_ms_dlrm": td["device_ms"],
+                     "plain_ms_dlrm": td["plain_ms"],
+                     "bound_ms_dlrm": td["bound_ms"],
+                     "library_ms_dlrm": td["library_ms"]})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1040,6 +1484,8 @@ def main() -> int:
     from analytics_zoo_tpu_torch.ops.cuda_build import build_all
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
         LIBRARY as LIBRARY_CE
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import \
+        LIBRARY as LIBRARY_EMB
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         LIBRARY, LIBRARY_BWD)
 
@@ -1052,14 +1498,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE])
+    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB])
     print(f"build: flash_attention_fwd, flash_attention_bwd, "
-          f"fused_cross_entropy in {time.perf_counter() - t0:.1f}s (nvcc "
-          f"sm_90a, in parallel)")
+          f"fused_cross_entropy, embedding in {time.perf_counter() - t0:.1f}s "
+          f"(nvcc sm_90a, in parallel)")
 
+    import numpy as np
+    t0 = time.perf_counter()
+    ncf_x, ncf_y = make_movielens_like(np.random.default_rng(0))
+    print(f"ncf: {N_EXAMPLES} ratings made in {time.perf_counter() - t0:.1f}s")
     kernel_rows = kernel_phase()
     bwd_rows = bwd_kernel_phase()
     ce_rows = ce_kernel_phase()
+    ce_hidden_rows = ce_hidden_phase()
+    embed_rows = embed_kernel_phase(ncf_x)
     serving = serving_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
@@ -1068,9 +1520,13 @@ def main() -> int:
     for row in rows:
         row.update(flash_lm[row["name"]])
     rows += ce_kernel_rows
+    ncf = ncf_phase(ncf_x, ncf_y)
+    rows = embed_kernel_rows(embed_rows, ncf["sharded"]["launches"]) + rows
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
-                      "ce_cases": ce_rows, "serving": serving,
-                      "training": training, "lm": lm, "card": card}))
+                      "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
+                      "embed_cases": embed_rows, "serving": serving,
+                      "training": training, "lm": lm, "ncf": ncf,
+                      "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Trace full-width training steps of the PyTorch port on one GPU.
 
-    python3 scripts/torch_train_profile.py [--model bert|lm] [--steps 3]
-                                           [--trace PATH]
+    python3 scripts/torch_train_profile.py [--model bert|lm|ncf|ncf_sharded]
+                                           [--steps 3] [--trace PATH]
 
 ``--model bert`` (the default) builds the JAX package's seq-512 fine-tune
 configuration as ``chip_smoke.py``'s training phase does (BERT-base,
@@ -11,7 +11,11 @@ vocab 30522, bf16 compute with f32 params, AdamW lr 2e-5, batch 32,
 language model as ``chip_smoke.py``'s LM phase does (``TransformerLayer``
 + ``Dense(8192)``, seq 4096, batch 16, Adam lr 3e-4, bf16 compute, every
 flag at auto, so the fused LM-head cross-entropy and the attention run
-through their kernels). Fits a warm-up epoch of two steps, then records
+through their kernels). ``--model ncf`` builds the JAX package's NeuralCF
+bench configuration as ``chip_smoke.py``'s NCF phase does (``NeuralCF(6040,
+3706, 5)``, Adam lr 1e-3, batch 8192, MovieLens-1M-shaped ratings);
+``--model ncf_sharded`` the same graph on ``ShardedEmbedding`` tables (the
+dedup'd engine with K1 and SA). Fits a warm-up epoch of two steps, then records
 ``--steps`` steps of ``fit`` under ``torch.profiler``. Prints the card's
 name and power limit, the device time per step by kernel family and for
 the top kernels, the share of the traced window in which any kernel ran
@@ -37,6 +41,9 @@ FAMILIES = (
     ("flash_attention_fwd (K2)", ("flash_fwd_mma", "flash_fwd_fma")),
     ("flash_attention_bwd_dq (K3a)", ("bwd_dq_mma", "bwd_dq_fma")),
     ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_mma", "bwd_dkv_fma")),
+    ("embed_expand (K1)", ("expand_rows",)),
+    ("dedup_scatter_add (SA)", ("segment_sum_rows",)),
+    ("sort (unique ids, SA order)", ("Sort", "sort")),
     ("gemm (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "gemv")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("memcpy/memset", ("memcpy", "memset", "Memcpy", "Memset")),
@@ -92,10 +99,30 @@ def build_lm(steps: int):
     return model, x, y, LM_BATCH
 
 
+def build_ncf(steps: int, sharded: bool = False):
+    """The NeuralCF bench configuration, stock or on ShardedEmbedding
+    tables: ``(model, x, y, batch)``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from chip_smoke import (N_CLASSES, N_ITEMS, N_USERS, NCF_BATCH,
+                            make_movielens_like, sharded_ncf)
+    init_zoo_context(conf={"zoo.seed": 0})
+    model = (sharded_ncf(N_USERS, N_ITEMS, N_CLASSES) if sharded
+             else NeuralCF(N_USERS, N_ITEMS, N_CLASSES, device="cuda"))
+    model.init_weights()
+    model.compile(optimizer="adam", loss="scce", lr=1e-3)
+    x, y = make_movielens_like(np.random.default_rng(0))
+    n = NCF_BATCH * max(steps, 2)
+    return model, x[:n], y[:n], NCF_BATCH
+
+
 def main() -> int:
     import torch
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", choices=("bert", "lm"), default="bert")
+    parser.add_argument("--model", choices=("bert", "lm", "ncf",
+                                            "ncf_sharded"), default="bert")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--trace", default=None)
     args = parser.parse_args()
@@ -111,8 +138,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    model, x, y, batch = (build_lm if args.model == "lm"
-                          else build_bert)(args.steps)
+    builders = {"bert": build_bert, "lm": build_lm, "ncf": build_ncf,
+                "ncf_sharded": lambda n: build_ncf(n, sharded=True)}
+    model, x, y, batch = builders[args.model](args.steps)
     model.fit([a[:2 * batch] for a in x] if isinstance(x, list)
               else x[:2 * batch], y[:2 * batch], batch_size=batch,
               nb_epoch=1)                                # warm-up

@@ -12,6 +12,8 @@ tolerances, relative to the largest gradient of the case: f32 1e-4 (other
 summation order), bf16 2e-2 (P and dS are rounded to bf16 at the same
 points in both versions, but a value that the two f32 sums leave on
 either side of a rounding boundary moves by one bf16 step, 2^-8).
+The embedding kernels are held bit for bit: K1 against ``rows[inv]``, SA
+against its plain version on the CPU (position-order sums) and itself.
 """
 
 import numpy as np
@@ -219,7 +221,7 @@ def _ce_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hidden", [64, 512, 768])
+@pytest.mark.parametrize("hidden", [64, 100, 512, 768, 1280, 2048])
 @pytest.mark.parametrize("n,v,bias", [(70, 130, True), (200, 1000, False),
                                       (33, 8, True)])
 def test_ce_kernels_match_plain_versions(cuda, dtype, hidden, n, v, bias):
@@ -294,14 +296,21 @@ def test_ce_backward_is_bit_identical_over_runs(cuda, dtype):
 
 @pytest.mark.cuda
 def test_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
-        fused_ce_forward
+    """A non-contiguous operand is refused. Any hidden width is taken:
+    H = 96 and 1088 (padded to 128 and 1152, the latter in two slices)
+    launch the kernel and match the plain version."""
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        fused_ce_forward, fused_ce_forward_reference)
     labels = torch.zeros(4, dtype=torch.int32, device=cuda)
     for hidden in (96, 1088):
-        h = torch.zeros(4, hidden, device=cuda)
-        w = torch.zeros(hidden, 10, device=cuda)
-        with pytest.raises(ValueError, match="hidden size"):
-            fused_ce_forward(h, w, None, labels)
+        h = torch.randn(4, hidden, device=cuda)
+        w = torch.randn(hidden, 10, device=cuda) * hidden ** -0.5
+        before = _ce_counts()[0]
+        lse, _ = fused_ce_forward(h, w, None, labels)
+        torch.cuda.synchronize()
+        assert _ce_counts()[0] == before + 1
+        ref, _ = fused_ce_forward_reference(h, w, None, labels)
+        assert (lse - ref).abs().max().item() <= CE_TOL[torch.float32]["lse"]
     w = torch.zeros(10, 64, device=cuda).T
     with pytest.raises(ValueError, match="contiguous"):
         fused_ce_forward(torch.zeros(4, 64, device=cuda), w, None, labels)
@@ -336,4 +345,132 @@ def test_lm_training_step_on_cuda_matches_cpu(cuda):
                        for n, p in model.named_parameters()}
     for name, want in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][name], want, atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_with_hidden_100_fits_through_the_ce_kernels(cuda, dtype):
+    """A Sequential LM whose head input width (100) is no multiple of 64
+    fits on the card with the fused CE engaged (auto, V = 1024): one
+    launch of each of K4/K5a/K5b per step; in f32 its losses match the
+    same fit on the CPU (plain versions) within 1e-4."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import engine
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    init_zoo_context()
+    engine.set_policy(compute_dtype=dtype)
+    cfg = dict(vocab=1024, seq_len=16, n_block=1, hidden_size=100, n_head=4,
+               hidden_drop=0.0, attn_drop=0.0, embedding_drop=0.0)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 1024, (16, 16)).astype(np.int32)
+    y = ((7 * x + 13) % 1024).astype(np.int32)
+    losses = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            model = Sequential([TransformerLayer(**cfg, input_shape=(16,)),
+                                Dense(1024)], device=dev)
+            model.init_weights(torch.Generator().manual_seed(2))
+            model.compile(optimizer="adam", loss="scce_with_logits", lr=1e-3)
+            before = _ce_counts()
+            losses[dev] = model.fit(x, y, batch_size=8, nb_epoch=2)["loss"]
+            if dev == "cuda":
+                assert _ce_counts() == tuple(c + 4 for c in before)
+    finally:
+        engine.set_policy()
+    assert all(np.isfinite(losses["cuda"]))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4,
+                                   rtol=0)
+
+
+# --- K1 (embed_expand) and SA (dedup_scatter_add): bit for bit ---
+
+def _embed_counts():
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
+    return KERNEL_EMBED_EXPAND.launches, KERNEL_SCATTER_ADD.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [20, 21, 64, 128])
+def test_embed_expand_kernel_is_rows_at_inv(cuda, dtype, d):
+    """K1 against rows[inv], bit for bit, at a ragged N (1001 ids over 300
+    unique rows; D = 21 bf16 rows take 2-byte copies, D = 20 bf16 8-byte,
+    f32 16-byte)."""
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import embed_expand
+    g = torch.Generator().manual_seed(d)
+    rows = torch.randn(300, d, generator=g).to(cuda, dtype)
+    inv = torch.randint(0, 300, (1001,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    before = _embed_counts()[0]
+    out = embed_expand(rows, inv)
+    torch.cuda.synchronize()
+    assert _embed_counts()[0] == before + 1
+    assert out.dtype == dtype and out.shape == (1001, d)
+    assert torch.equal(out.view(torch.int16), rows[inv.long()].view(
+        torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [20, 128])
+def test_dedup_scatter_add_kernel_matches_cpu_bit_for_bit(cuda, dtype, d):
+    """SA against its plain version on the CPU (index_add_ in position
+    order), bit for bit, and the same bits over two runs; heavy repeats
+    and empty slots."""
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        dedup_scatter_add, dedup_scatter_add_reference)
+    gen = torch.Generator().manual_seed(d + 1)
+    g = (torch.randn(4096, d, generator=gen)
+         * 10.0 ** torch.randint(-3, 3, (4096, 1), generator=gen)).to(dtype)
+    inv = torch.randint(0, 97, (4096,), generator=gen, dtype=torch.int32)
+    want = dedup_scatter_add_reference(g, inv, 128)
+    before = _embed_counts()[1]
+    runs = [dedup_scatter_add(g.to(cuda), inv.to(cuda), 128)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _embed_counts()[1] == before + 2
+    for got in runs:
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    assert torch.all(runs[0][97:] == 0)
+
+
+@pytest.mark.cuda
+def test_sharded_embedding_graph_step_on_cuda_matches_cpu(cuda):
+    """One SGD step of a NeuralCF-shaped graph on ShardedEmbedding tables
+    on the card (K1 and SA, four launches each) against the same step on
+    the CPU (plain versions): parameters within 1e-6."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (Input,
+                                                                   Model)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, Merge, Select, ShardedEmbedding)
+    init_zoo_context()
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(1, 64, 256), rng.integers(1, 128, 256)],
+                 1).astype(np.int32)
+    y = (x.sum(1) % 5).astype(np.int32)
+    params = {}
+    for dev in ("cpu", "cuda"):
+        inp = Input(shape=(2,))
+        user, item = Select(1, 0)(inp), Select(1, 1)(inp)
+        h = Merge(mode="concat")([ShardedEmbedding(64, 8)(user),
+                                  ShardedEmbedding(128, 8)(item)])
+        mf = Merge(mode="mul")([ShardedEmbedding(64, 8)(user),
+                                ShardedEmbedding(128, 8)(item)])
+        h = Merge(mode="concat")([Dense(16, activation="relu")(h), mf])
+        model = Model(inp, Dense(5, activation="softmax")(h), device=dev)
+        model.init_weights(torch.Generator().manual_seed(1))
+        model.compile(optimizer="sgd", loss="scce", lr=0.1)
+        before = _embed_counts()
+        model.fit(x, y, batch_size=256, nb_epoch=1, shuffle=False)
+        if dev == "cuda":
+            assert _embed_counts() == tuple(c + 4 for c in before)
+        params[dev] = {n: p.detach().cpu().numpy()
+                       for n, p in model.named_parameters()}
+    for name, want in params["cpu"].items():
+        np.testing.assert_allclose(params["cuda"][name], want, atol=1e-6,
                                    rtol=0, err_msg=name)
