@@ -34,6 +34,8 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
     "zoo.embed.sharded": "auto",     # row-partitioned lookup for plain Embedding: auto | true | false
     "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
+    "zoo.serving.dtype": "float32",  # precision of models the server wraps:
+    #   float32 | bfloat16 | int8 (int8 = weight-only, fp32 on the wire)
 }
 
 _ENV_PREFIX = "ZOO_TPU_"

@@ -2,13 +2,25 @@
 models/common/zoo_model.py``: a subclass declares its constructor config
 and builds an inner network in ``build_model()``; the facade delegates
 the forward pass to it; ``register_model`` names the zoo's classes.
-``.npz`` save/load is not ported yet.
+
+``save(path)`` writes the JAX package's one-file ``.npz``: a
+``__zoo_header__`` JSON (class, config, extra, n_params, n_state) and the
+weights as ``p_i`` in the JAX ``tree_flatten`` order of the param tree
+(sorted keys, depth first). :func:`load_model` rebuilds the registered
+class from the header and installs the weights. A file written by either
+package loads into the other. Model state (``s_i``, BatchNorm statistics)
+is not ported: the port's models have none, and a file holding some is
+refused.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Type
+import json
+import logging
+import os
+from typing import Any, Dict, List, Optional, Tuple, Type
 
+import numpy as np
 import torch
 
 from ...common.context import get_zoo_context, resolve_device
@@ -76,7 +88,92 @@ class ZooModel(KerasNet):
         from ...pipeline.api.keras.fused_loss import find_head
         return find_head(self.model)
 
+    # ---- save / load (ZooModel.scala:38-154) ------------------------------
+    def save(self, path: str, over_write: bool = True) -> str:
+        """``saveModel(path, overWrite)``: one ``.npz`` with the config and
+        the weights, in the JAX package's format."""
+        if not path.endswith(".npz"):
+            path += ".npz"
+        if os.path.exists(path) and not over_write:
+            raise FileExistsError(f"{path} exists and over_write=False")
+        if not self.built:
+            self.init_weights()
+        leaves = [p.detach().cpu() for _, p in _tree_order(self.model)]
+        arrays = {f"p_{i}": (t.float() if t.dtype == torch.bfloat16
+                             else t).numpy()
+                  for i, t in enumerate(leaves)}
+        # no port model takes constructor arrays, so "extra" stays empty
+        header = json.dumps({"class": type(self).__name__,
+                             "config": self.get_config(), "extra": {},
+                             "n_params": len(leaves), "n_state": 0})
+        np.savez(path, __zoo_header__=np.frombuffer(
+            header.encode("utf-8"), dtype=np.uint8), **arrays)
+        return path
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "ZooModel":
+        return load_model(path, device=device)
+
     def summary(self) -> str:
         n = sum(p.numel() for p in self.parameters())
         return (f"Model: {type(self).__name__} ({self.name})\n"
                 f"Trainable parameters: {n:,}")
+
+
+def _tree_order(module: torch.nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """``module``'s parameters in the JAX ``tree_flatten`` order of the
+    matching param tree: sorted keys, depth first — the lexicographic order
+    of the key paths."""
+    return sorted(module.named_parameters(), key=lambda kv: kv[0].split("."))
+
+
+def _populate_registry() -> None:
+    """Import the port's model packages so their ``@register_model``
+    decorators run — a fresh process may call :func:`load_model` before
+    any zoo model module was imported."""
+    import importlib
+    for mod in ("analytics_zoo_tpu_torch.models.recommendation",
+                "analytics_zoo_tpu_torch.tfpark.bert_classifier"):
+        try:
+            importlib.import_module(mod)
+        except ImportError as e:  # pragma: no cover - partial installs
+            logging.getLogger("analytics_zoo_tpu_torch.models").warning(
+                "model package %s failed to import (%s); its classes will "
+                "be unavailable to load_model", mod, e)
+
+
+def load_model(path: str, device=None) -> ZooModel:
+    """``ZooModel.loadModel`` (``ZooModel.scala:119-154``): rebuild the
+    registered class from the ``.npz`` header on ``device`` (``cuda``
+    unless given), then install the saved weights."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with np.load(path) as data:
+        header = json.loads(bytes(data["__zoo_header__"]).decode("utf-8"))
+        p_loaded = [data[f"p_{i}"] for i in range(header["n_params"])]
+        extras = {k: data[ref]
+                  for k, ref in header.get("extra", {}).items()}
+    if header.get("n_state", 0):
+        raise NotImplementedError(
+            f"{path} holds {header['n_state']} model-state arrays; model "
+            f"state (BatchNorm) is not ported yet")
+    cls = _REGISTRY.get(header["class"])
+    if cls is None:
+        _populate_registry()
+        cls = _REGISTRY.get(header["class"])
+    if cls is None:
+        raise ValueError(f"unknown model class {header['class']!r}; "
+                         f"registered: {sorted(_REGISTRY)}")
+    model = cls(**header["config"], **extras, device=device)
+    model.init_weights()
+    want = _tree_order(model.model)
+    if len(want) != len(p_loaded):
+        raise ValueError(f"{path} holds {len(p_loaded)} weights; "
+                         f"{header['class']} has {len(want)}")
+    with torch.no_grad():
+        for (name, p), a in zip(want, p_loaded):
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: saved shape {tuple(a.shape)} "
+                                 f"does not match {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.asarray(a)).to(p.dtype))
+    return model

@@ -1,6 +1,6 @@
 """Core layers — port of ``analytics_zoo_tpu/pipeline/api/keras/layers/
-core.py``: ``Activation``, ``Dense``, ``Dropout``, ``Merge``/``merge`` and
-``Select``."""
+core.py``: ``Activation``, ``Dense`` (with the static-int8
+``quantized_call``), ``Dropout``, ``Merge``/``merge`` and ``Select``."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from .....common.noise import noise_generator
+from .....ops.pallas.quantized import int8_matmul
 from ..engine import Layer, compute_dtype, get_initializer, param_dtype
 
 ACTIVATIONS: Dict[str, Callable] = {
@@ -32,15 +33,49 @@ def get_activation(act: Union[str, Callable, None]) -> Optional[Callable]:
 
 
 def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
-          cd: torch.dtype) -> torch.Tensor:
+          cd: torch.dtype, scale: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
     """``x @ W`` accumulated in f32 and rounded to ``cd``, THEN the bias
     added in ``cd`` — the JAX package's rounding order. ``F.linear`` with
     a bias would add it to the f32 accumulator before the one rounding,
-    which differs in bf16."""
-    y = torch.matmul(x.to(cd), W.to(cd))
+    which differs in bf16.
+
+    An int8 ``W`` (weight-only int8 inference) comes with its per-column
+    f32 ``scale`` and goes through K6, :func:`int8_matmul`, which applies
+    the scale after the f32 reduction and rounds once to ``cd``; the bias
+    follows in ``cd`` as above. An int8 ``W`` without a scale raises: read
+    as a float it would be the unscaled integers."""
+    if W.dtype == torch.int8:
+        if scale is None:
+            raise ValueError("dense: an int8 W needs its per-column scale")
+        lead = x.shape[:-1]
+        y = int8_matmul(x.to(cd).reshape(-1, x.shape[-1]), W, scale)
+        y = y.reshape(*lead, W.shape[1])
+    else:
+        y = torch.matmul(x.to(cd), W.to(cd))
     if b is not None:
         y = y + b.to(cd)
     return y
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 ``xq (..., K)`` and ``wq (K, N)``
+    through ``torch._int_mm`` (the JAX package leaves this product to XLA,
+    not to a Pallas kernel). On CUDA ``_int_mm`` takes only M > 16 and K,
+    N multiples of 8: rows and columns are zero-padded to that, which adds
+    exact zeros, and the result is sliced back."""
+    lead, k, n = xq.shape[:-1], xq.shape[-1], wq.shape[1]
+    a = xq.reshape(-1, k)
+    m = a.shape[0]
+    if xq.device.type == "cuda":
+        pk, pn = -k % 8, -n % 8
+        pm = max(17 - m, 0)
+        if pm or pk:
+            a = F.pad(a, (0, pk, 0, pm))
+        if pk or pn:
+            wq = F.pad(wq, (0, pn, 0, pk))
+    y = torch._int_mm(a.contiguous(), wq.contiguous())
+    return y[:m, :n].reshape(*lead, n)
 
 
 class Activation(Layer):
@@ -82,7 +117,24 @@ class Dense(Layer):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
     def call(self, x, *, training=False, generator=None):
-        y = dense(x, self.W, self.b if self.bias else None, compute_dtype())
+        y = dense(x, self.W, self.b if self.bias else None, compute_dtype(),
+                  getattr(self, "w_scale", None))
+        if self.activation is not None:
+            y = self.activation(y)
+        return y
+
+    def quantized_call(self, x):
+        """Static int8 path (the inference runtime installs ``W`` as int8
+        beside ``w_scale`` and the calibrated ``x_scale``): the activations
+        quantize to ``x_scale`` (a division, round half to even, clip to
+        +-127), the int8 x int8 product is exact in int32, and one f32
+        rescale by ``x_scale * w_scale`` restores float before the f32
+        bias and the activation — the JAX package's order."""
+        xq = torch.clamp(torch.round(x.float() / self.x_scale), -127, 127
+                         ).to(torch.int8)
+        y = int8_product(xq, self.W).float() * (self.x_scale * self.w_scale)
+        if self.bias:
+            y = y + self.b
         if self.activation is not None:
             y = self.activation(y)
         return y

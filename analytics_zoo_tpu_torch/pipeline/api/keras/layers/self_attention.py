@@ -22,7 +22,11 @@ from .normalization import LayerNorm
 
 class DenseParams(Layer):
     """A bare ``{"W", "b"}`` projection inside a transformer layer (the
-    JAX package's ``_dense_params``/``_dense`` pair)."""
+    JAX package's ``_dense_params``/``_dense`` pair). Under weight-only
+    int8 inference ``W`` is int8 beside its ``w_scale`` and the product
+    runs K6 through ``dense``. It has no ``quantized_call``: the JAX
+    package's static int8 never sees these products (they are not
+    container-dispatched layers)."""
 
     def __init__(self, d_in: int, d_out: int, init: str = "glorot_uniform",
                  **kwargs):
@@ -35,7 +39,8 @@ class DenseParams(Layer):
         self.add_weight("b", torch.zeros(self.d_out, dtype=param_dtype()))
 
     def call(self, x, *, training=False, generator=None):
-        return dense(x, self.W, self.b, compute_dtype())
+        return dense(x, self.W, self.b, compute_dtype(),
+                     getattr(self, "w_scale", None))
 
 
 def _split_generator(generator: Optional[torch.Generator], n: int):

@@ -19,6 +19,11 @@ with a bounded dispatch window → readback → async publish → ack.
   writes them in one ``set_results`` call, and acks the entries only
   after the results landed.
 
+A bare model (a ``KerasNet`` or ``ZooModel``) is wrapped, as the JAX
+package wraps it, in an ``InferenceModel(concurrent_num=2)`` on the
+serving dtype (``dtype=`` or ``zoo.serving.dtype``): float32, bfloat16 or
+int8 weight-only; anything with ``predict_async`` passes through.
+
 Metrics keep the JAX package's names: ``zoo_serving_records_total``,
 ``zoo_serving_batches_total``, ``zoo_serving_dispatch_seconds`` (and the
 failure/undecodable counters). Multi-model lanes, shape buckets, load
@@ -69,10 +74,16 @@ _BUSY_POLL_MS = 1
 
 _CONSUMER_SEQ = itertools.count()
 
+#: serving dtype paths for a model the server wraps (conf
+#: ``zoo.serving.dtype``); models with their own predict surface carry
+#: their own precision and pass through untouched
+_LANE_DTYPES = ("float32", "bfloat16", "bf16", "int8")
+
 
 class ClusterServing:
-    """Owns the serve loop for one model (anything with ``predict_async``
-    like :class:`InferenceModel`, or a plain ``predict``)."""
+    """Owns the serve loop for one model: anything with ``predict_async``
+    like :class:`InferenceModel`, a bare ``KerasNet`` (wrapped on the
+    serving dtype), or a plain ``predict``."""
 
     def __init__(self, model, backend: Optional[LocalBackend] = None,
                  batch_size: int = 32, stream: str = INPUT_STREAM,
@@ -80,8 +91,20 @@ class ClusterServing:
                  publish_queue: int = 8,
                  breaker: Optional[CircuitBreaker] = None,
                  consumer_group: str = "serving",
-                 consumer_name: Optional[str] = None):
-        self.model = model
+                 consumer_name: Optional[str] = None,
+                 dtype: Optional[str] = None):
+        if isinstance(model, dict):
+            raise NotImplementedError(
+                "multi-model lanes are not ported yet; serve one model")
+        if dtype is None:
+            from ..common.context import get_zoo_context
+            dtype = get_zoo_context().get("zoo.serving.dtype", "float32")
+        #: serving dtype path for a model the server wraps
+        self.dtype = str(dtype)
+        if self.dtype not in _LANE_DTYPES:
+            raise ValueError(f"unknown serving dtype {self.dtype!r}; "
+                             f"use one of {_LANE_DTYPES}")
+        self.model = self._wrap_model(model, self.dtype)
         self.backend = backend if backend is not None else default_backend()
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
@@ -126,6 +149,31 @@ class ClusterServing:
         self.consumer_group = consumer_group
         self.consumer_name = consumer_name or (
             f"{socket.gethostname()}-{os.getpid()}-{next(_CONSUMER_SEQ)}")
+
+    @staticmethod
+    def _wrap_model(model, dtype: str):
+        """The int8/bf16 serving wiring: a bare ``KerasNet`` (a layer graph
+        with ``apply`` and its own weights, ``ZooModel``s included) is
+        wrapped in an ``InferenceModel`` on its own device and the serving
+        dtype — ``"int8"`` loads the int8 weight-only path (int8 weights on
+        the device, fp32 activations and fp32 results on the wire).
+        Anything already exposing ``predict_async`` carries its own
+        precision and passes through, as does any other object with only a
+        ``predict``. (The port's ``KerasNet`` has a ``predict`` of its own,
+        so the test is the class, not the absence of ``predict_async``.)"""
+        if hasattr(model, "predict_async"):
+            return model
+        from ..pipeline.api.keras.engine import KerasNet
+        if isinstance(model, KerasNet):
+            from ..pipeline.inference import InferenceModel
+            im = InferenceModel(concurrent_num=2,
+                                device=getattr(model, "device", None))
+            if dtype == "int8":
+                return im.from_keras(model, quantize="int8")
+            if dtype in ("bfloat16", "bf16"):
+                return im.from_keras(model, dtype="bfloat16")
+            return im.from_keras(model)
+        return model
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ClusterServing":

@@ -12,7 +12,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 from torch import nn
 
-from ..models.common.zoo_model import ZooModel
+from ..models.common.zoo_model import ZooModel, register_model
 from ..pipeline.api.keras.engine import Layer, dispatch_layer, load_param_tree
 from ..pipeline.api.keras.layers import BERT, Dense, Dropout
 
@@ -58,6 +58,7 @@ class _BertClassifierNet(Layer):
         return self.cls, ("cls",)
 
 
+@register_model
 class BERTClassifier(ZooModel):
     """``BERTClassifier(num_classes, bert_config..., device=)`` — input
     ``[token_ids, token_type_ids, position_ids, attention_mask]``, each

@@ -67,6 +67,30 @@
    backward passes, and ``recommend_for_user`` against a plain eager
    forward.
 
+11. int8 kernel phase: K6 (the int8 weight-only dequant-matmul,
+   ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
+   the head's batch-1 and batch-32 shapes (K = N = 4096), BERT-base's qkv
+   and fc/out products (M = 32 x 512), BERT's Dense(2) head and a ragged
+   (17, 100, 10): f32 within 1e-4 of the case's largest value, bf16 within
+   one bf16 step there, the same bits over two runs; each timed (wrapper,
+   CUDA-graph device time, plain, ``torch.matmul`` on the dequantized
+   weight, bound). The static path's padded ``torch._int_mm`` bit for bit
+   against the CPU's int32 product at M = 1 and 32.
+12. int8 serving phase (config B): the serving phase's BERT-base, records
+   and adapter on the weight-only int8 ``InferenceModel`` that
+   ``ClusterServing._wrap_model`` builds for ``dtype="int8"``: every matmul
+   weight int8 on the device, 50 K6 and 12 K2 launches per dispatch, the
+   answers within 2e-2 of bf16 serving on the dequantized weights.
+13. int8 head phase (config A): the JAX bench's weight-streaming scoring
+   head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
+   f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
+   weight-only int8 (K6 on all four layers) and static int8 calibrated on
+   8 rows (``_int_mm`` on all four): resident weight bytes (int8 at most
+   0.3 x fp32), each int8 mode within 1e-4 relative of its float
+   counterpart, top-1 agreement and batch-1 device time by CUDA-graph
+   replay (printed), and ``ClusterServing(model, dtype="int8")`` answering
+   all 256 records with 4 K6 launches per dispatch.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
 path; the attention kernels also checked against their plain versions
@@ -136,6 +160,20 @@ NCF_BATCH = 8192
 NCF_GRAD_REL_TOL = 1e-5
 #: DLRM-Terabyte's width: 26 sparse features of dimension 128, batch 2048
 DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
+
+#: config A, the JAX bench's weight-streaming scoring head
+#: (bench.py:797-815): 3 x Dense(4096) + Dense(8), 256 seeded rows
+HEAD_D, HEAD_CLASSES, HEAD_ROWS = 4096, 8, 256
+#: K6's cases (M, K, N): the head at batch 1 and 32, BERT-base's qkv and
+#: fc/out products at 32 x 512 tokens, BERT's Dense(2) head, a ragged one
+INT8_CASES = [(1, 4096, 4096), (32, 4096, 4096), (16384, 768, 2304),
+              (16384, 3072, 768), (32, 768, 2), (17, 100, 10)]
+#: weight-only and static int8 against their float counterparts on the
+#: same weights: the same products in another order (weight-only: scale
+#: after the sum against a dequantized weight; static: the card's int32
+#: product against the CPU's, the same f32 rescale), so the probabilities
+#: differ by rounding only
+INT8_REL_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -299,14 +337,53 @@ class BertAdapter:
         return collect
 
 
+def serving_records(vocab):
+    """The served BERT records: 256 rows of 512 token ids from numpy seed
+    0, valid lengths uniform in 64..512, pad id 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, vocab, (N_RECORDS, SEQ)).astype(np.int32)
+    lens = rng.integers(64, SEQ + 1, N_RECORDS)
+    ids[np.arange(SEQ)[None, :] >= lens[:, None]] = 0
+    return ids
+
+
+def serve(make_server, records, counters):
+    """``make_server(backend)`` builds a ``ClusterServing`` on a fresh
+    ``LocalBackend`` that holds ``records``, pre-enqueued; it answers them.
+    Returns the answers, the wall time from server start to the last
+    answer, and the stopped server. ``counters`` are set to 0 just before
+    the start."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.serving import (InputQueue, LocalBackend,
+                                                 OutputQueue)
+    backend = LocalBackend()
+    server = make_server(backend)
+    q = InputQueue(backend)
+    for i, rec in enumerate(records):
+        q.enqueue(f"rec-{i}", rec)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    server.start()
+    out = OutputQueue(backend)
+    try:
+        got = np.stack([out.query(f"rec-{i}", timeout=300)
+                        for i in range(len(records))])
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    return got, wall, server
+
+
 def serving_phase():
     import numpy as np
 
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import KERNEL
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
-    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
-                                                 LocalBackend, OutputQueue)
+    from analytics_zoo_tpu_torch.serving import ClusterServing
     from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
         BERTClassifier
 
@@ -322,29 +399,13 @@ def serving_phase():
     n_block = cfg["n_block"]
     print(f"serving: BERT-base built in {time.perf_counter() - t0:.1f}s "
           f"({json.dumps(cfg)})")
-    rng = np.random.default_rng(0)
-    ids = rng.integers(1, cfg["vocab"], (N_RECORDS, SEQ)).astype(np.int32)
-    lens = rng.integers(64, SEQ + 1, N_RECORDS)
-    ids[np.arange(SEQ)[None, :] >= lens[:, None]] = 0
+    ids = serving_records(cfg["vocab"])
     adapter = BertAdapter(im)
     adapter.predict_async(ids[:T_BATCH])()          # warm-up, not counted
-
-    backend = LocalBackend()
-    q = InputQueue(backend)
-    for i in range(N_RECORDS):
-        q.enqueue(f"rec-{i}", ids[i])
-    KERNEL.reset()
     adapter.dispatches = 0
-    t0 = time.perf_counter()
-    server = ClusterServing(adapter, backend=backend,
-                            batch_size=T_BATCH).start()
-    out = OutputQueue(backend)
-    try:
-        got = np.stack([out.query(f"rec-{i}", timeout=300)
-                        for i in range(N_RECORDS)])
-        wall = time.perf_counter() - t0
-    finally:
-        server.stop()
+    got, wall, server = serve(
+        lambda backend: ClusterServing(adapter, backend=backend,
+                                       batch_size=T_BATCH), ids, [KERNEL])
     launches = KERNEL.launches
     chunks = adapter.dispatches
     print(f"serving: {N_RECORDS} records in {wall:.3f}s = "
@@ -372,6 +433,346 @@ def serving_phase():
     return {"records_per_s": N_RECORDS / wall, "wall_s": wall,
             "dispatches": chunks, "launches": launches,
             "flash_vs_oracle": diff}
+
+
+def bf16_step(v):
+    """One bf16 step (unit in the last place) at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def int8_bound(m, k, n, dtype):
+    """K6's least time: x read, the int8 weights and f32 scales read, the
+    output written once, against 2 M K N operations at the peak of x's
+    dtype."""
+    name = str(dtype).replace("torch.", "")
+    es = 4 if name == "float32" else 2
+    t_bytes = (m * k * es + k * n + n * 4 + m * n * es) / PEAK_BYTES_PER_S
+    t_ops = 2.0 * m * n * k / PEAK_FLOPS[name]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def cycling(fn, copies):
+    """A zero-argument call of ``fn(j)`` that walks ``j`` over
+    ``range(copies)`` call by call."""
+    state = [0]
+
+    def call():
+        j = state[0] % copies
+        state[0] += 1
+        return fn(j)
+    return call
+
+
+def int8_kernel_phase():
+    """K6 against its plain version at the shapes of the two int8 paths:
+    the scoring head at batch 1 and 32 (K = N = 4096), BERT-base's qkv and
+    fc/out products at 32 x 512 tokens, BERT's Dense(2) head, and a ragged
+    case; f32 and bf16. Weight sets above 8 MB rotate over enough copies
+    to exceed the 50 MB L2, so each timed call reads its weights from HBM,
+    as a batch-1 predict through the 4-layer head does. Then the padded
+    ``torch._int_mm`` of the static path, bit for bit against the CPU's
+    int32 product."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        int8_matmul, int8_matmul_reference)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
+        int8_product
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in INT8_CASES:
+            name = f"{str(dtype)[6:]}_{m}x{k}x{n}"
+            g = torch.Generator().manual_seed(m + k + n)
+            x = torch.randn(m, k, generator=g).to("cuda", dtype)
+            copies = math.ceil(64e6 / (k * n)) if k * n > 8e6 else 1
+            ws = [torch.randint(-127, 128, (k, n), generator=g,
+                                dtype=torch.int8).cuda()
+                  for _ in range(copies)]
+            sc = (torch.rand(n, generator=g) * 0.09 + 0.01).cuda()
+            out = int8_matmul(x, ws[0], sc)
+            again = int8_matmul(x, ws[0], sc)
+            torch.cuda.synchronize()
+            ref = int8_matmul_reference(x, ws[0], sc)
+            top = ref.float().abs().max().item()
+            tol = 1e-4 * top if dtype == torch.float32 else bf16_step(top)
+            err = (out.float() - ref.float()).abs().max().item()
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            same = torch.equal(out.view(bits), again.view(bits))
+            check(err <= tol, f"K6 {name}: max |kernel - plain| {err} > "
+                  f"{tol}")
+            check(same, f"K6 {name}: two runs differ")
+            deq = [(w.float() * sc).to(dtype) for w in ws]
+            bound_ms, bound_by = int8_bound(m, k, n, dtype)
+            row = {
+                "case": name, "m": m, "k": k, "n": n,
+                "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+                "same_bits_two_runs": same, "weight_copies": copies,
+                "ms": time_ms(cycling(lambda j: int8_matmul(x, ws[j], sc),
+                                      copies)),
+                "device_ms": graph_ms(cycling(
+                    lambda j: int8_matmul(x, ws[j], sc), copies)),
+                "plain_ms": time_ms(cycling(
+                    lambda j: int8_matmul_reference(x, ws[j], sc), copies)),
+                "library_ms": time_ms(cycling(
+                    lambda j: torch.matmul(x, deq[j]), copies)),
+                "library_device_ms": graph_ms(cycling(
+                    lambda j: torch.matmul(x, deq[j]), copies)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            rows[name] = row
+            print(f"int8 kernel case {json.dumps(row)}")
+            del x, ws, deq, out, again, ref
+    for m in (1, T_BATCH):
+        g = torch.Generator().manual_seed(m)
+        xq = torch.randint(-127, 128, (m, HEAD_D), generator=g,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (HEAD_D, HEAD_D), generator=g,
+                           dtype=torch.int8)
+        xc, wc = xq.cuda(), wq.cuda()
+        got = int8_product(xc, wc)
+        equal = torch.equal(got.cpu(), torch._int_mm(xq, wq))
+        check(equal, f"padded _int_mm at M={m} differs from the CPU's")
+        row = {"case": f"int_mm_{m}x{HEAD_D}x{HEAD_D}", "bit_equal": equal,
+               "ms": time_ms(lambda: int8_product(xc, wc)),
+               "device_ms": graph_ms(lambda: int8_product(xc, wc))}
+        rows[row["case"]] = row
+        print(f"int8 kernel case {json.dumps(row)}")
+    return rows
+
+
+def dequantized_copy(net):
+    """A float copy of a weight-only int8 network: each int8 ``W`` becomes
+    ``W.float() * w_scale`` (every other leaf already is what the runtime
+    computes with) — the model the int8 path is held against."""
+    import copy
+
+    import torch
+    net = copy.deepcopy(net)
+    for mod in net.modules():
+        if "w_scale" in mod._buffers:
+            w = mod._buffers.pop("W")
+            s = mod._buffers.pop("w_scale")
+            mod.register_parameter("W", torch.nn.Parameter(
+                w.float() * s, requires_grad=False))
+    return net
+
+
+def rel_err(a, b):
+    """Largest elementwise |a - b| / |b| (|b| floored at 1e-6)."""
+    import numpy as np
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+
+
+def int8_head_phase():
+    """Config A: the JAX bench's weight-streaming scoring head
+    (``bench.py:797-815``) trained one epoch, then served three ways."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        KERNEL_INT8_MATMUL
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import ClusterServing
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
+    d = HEAD_D
+    fm = Sequential([Dense(d, activation="relu", input_shape=(d,)),
+                     Dense(d, activation="relu"),
+                     Dense(d, activation="relu"),
+                     Dense(HEAD_CLASSES, activation="softmax")],
+                    device="cuda").init_weights()
+    fm.compile(optimizer="adam", loss="scce", lr=1e-4)
+    rng = np.random.default_rng(2)
+    xf = rng.normal(size=(HEAD_ROWS, d)).astype(np.float32)
+    yf = rng.integers(0, HEAD_CLASSES, HEAD_ROWS).astype(np.int32)
+    hist = fm.fit(FeatureSet.array(xf, yf, seed=0), batch_size=64,
+                  nb_epoch=1)
+    check(bool(np.all(np.isfinite(hist["loss"]))), f"head loss {hist}")
+    host = copy.deepcopy(fm).to("cpu")
+    host.device = torch.device("cpu")
+
+    def resident(build):
+        """The runtime ``build()`` makes and the device bytes it holds."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        im = build()
+        torch.cuda.synchronize()
+        return im, torch.cuda.memory_allocated() - before
+
+    fp, fp_bytes = resident(
+        lambda: InferenceModel(device="cuda").from_keras(host))
+    w8, w8_bytes = resident(lambda: InferenceModel(device="cuda").from_keras(
+        host, quantize="int8"))
+    st, st_bytes = resident(lambda: InferenceModel(device="cuda").from_keras(
+        host, quantize="int8", calibrate=xf[:8]))
+    print(f"int8 head: resident weight bytes fp32 {fp_bytes}, weight-only "
+          f"int8 {w8_bytes} ({w8_bytes / fp_bytes:.4f}x), static int8 "
+          f"{st_bytes} ({st_bytes / fp_bytes:.4f}x)")
+    check(w8_bytes <= 0.3 * fp_bytes and st_bytes <= 0.3 * fp_bytes,
+          f"int8 resident bytes {w8_bytes}, {st_bytes} vs fp32 {fp_bytes}")
+
+    deq = InferenceModel(device="cuda").from_keras(dequantized_copy(w8._model))
+    p_fp, p_w8, p_st = fp.predict(xf), w8.predict(xf), st.predict(xf)
+    w8_rel = rel_err(p_w8, deq.predict(xf))
+    cpu_static = InferenceModel(device="cpu").from_keras(
+        host, quantize="int8", calibrate=xf[:8])
+    st_rel = rel_err(st.predict(xf[:8]), cpu_static.predict(xf[:8]))
+    print(f"int8 head: weight-only vs fp32 on the dequantized weights "
+          f"{w8_rel:.3e}, static vs its plain CPU route (8 rows) "
+          f"{st_rel:.3e} (relative, limit {INT8_REL_TOL})")
+    check(w8_rel <= INT8_REL_TOL, f"weight-only int8 vs dequantized fp32 "
+          f"{w8_rel}")
+    check(st_rel <= INT8_REL_TOL, f"static int8 vs its CPU route {st_rel}")
+    top1 = {mode: float((p.argmax(1) == p_fp.argmax(1)).mean() * 100.0)
+            for mode, p in (("int8_weight_only", p_w8),
+                            ("int8_static", p_st))}
+
+    x1 = torch.from_numpy(xf[:1]).cuda()
+    b1 = {mode: graph_ms(lambda im=im: im._forward([x1]))
+          for mode, im in (("fp32", fp), ("int8_weight_only", w8),
+                           ("int8_static", st))}
+    speedup = {mode: b1["fp32"] / b1[mode]
+               for mode in ("int8_weight_only", "int8_static")}
+    print(f"int8 head: top-1 agreement with fp32 over {HEAD_ROWS} rows "
+          f"{json.dumps(top1)} (%); batch-1 device ms {json.dumps(b1)}; "
+          f"fp32 / int8 {json.dumps(speedup)}")
+
+    registry = MetricsRegistry()
+
+    def make_server(backend):
+        server = ClusterServing(fm, backend=backend, batch_size=T_BATCH,
+                                dtype="int8", registry=registry)
+        check(isinstance(server.model, InferenceModel)
+              and server.model._quantize == "int8",
+              "ClusterServing did not wrap the head on the int8 path")
+        server.model.predict(xf[:T_BATCH])          # warm-up, not counted
+        return server
+
+    got, wall, server = serve(make_server, xf, [KERNEL_INT8_MATMUL])
+    launches = KERNEL_INT8_MATMUL.launches
+    batches = int(registry.snapshot()["zoo_serving_batches_total"]["value"])
+    served_rel = rel_err(got, p_w8)
+    print(f"int8 head: ClusterServing(dtype='int8') answered {HEAD_ROWS} "
+          f"records in {wall:.3f}s = {HEAD_ROWS / wall:.1f} records/s; "
+          f"{batches} dispatches, {launches} int8_matmul launches; vs "
+          f"predict {served_rel:.3e}")
+    check(server.served == HEAD_ROWS, f"served {server.served}")
+    check(got.shape == (HEAD_ROWS, HEAD_CLASSES), f"shape {got.shape}")
+    check(launches == 4 * batches and batches > 0,
+          f"{launches} K6 launches for {batches} dispatches of 4 layers")
+    check(served_rel <= INT8_REL_TOL, f"served vs predict {served_rel}")
+    return {"loss": hist["loss"], "resident_bytes": {
+        "fp32": fp_bytes, "int8_weight_only": w8_bytes,
+        "int8_static": st_bytes},
+        "weight_only_vs_dequantized": w8_rel, "static_vs_cpu": st_rel,
+        "top1_agreement_pct": top1, "b1_device_ms": b1,
+        "b1_speedup": speedup, "records_per_s": HEAD_ROWS / wall,
+        "wall_s": wall, "dispatches": batches, "launches": launches}
+
+
+def int8_serving_phase(bf16_records_per_s):
+    """Config B: BERT-base served through ClusterServing on the weight-only
+    int8 InferenceModel that ``_wrap_model`` builds for ``dtype="int8"``,
+    behind the serving phase's adapter and on its records."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import KERNEL
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        KERNEL_INT8_MATMUL
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.self_attention \
+        import DenseParams
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import ClusterServing
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    t0 = time.perf_counter()
+    model = BERTClassifier(num_classes=2, device="cuda").init_weights()
+    cfg = model.get_config()
+    im = ClusterServing._wrap_model(model, "int8")
+    del model
+    check(isinstance(im, InferenceModel) and im._quantize == "int8"
+          and im.concurrent_num == 2, "_wrap_model: not the int8 runtime")
+    mats = [mod.W for mod in im._model.modules()
+            if isinstance(mod, (Dense, DenseParams))]
+    int8_weights = sum(w.numel() for w in mats if w.dtype == torch.int8)
+    check(all(w.dtype == torch.int8 for w in mats),
+          "a BERT matmul weight is not int8")
+    print(f"int8 serving: BERT-base quantized in "
+          f"{time.perf_counter() - t0:.1f}s; {len(mats)} matmul weights, "
+          f"{int8_weights} int8 bytes on the device")
+    check(int8_weights >= 85e6, f"{int8_weights} int8 matmul weights")
+    deq = InferenceModel(concurrent_num=2, device="cuda").from_keras(
+        dequantized_copy(im._model))
+    n_block = cfg["n_block"]
+    ids = serving_records(cfg["vocab"])
+    adapter = BertAdapter(im)
+    adapter.predict_async(ids[:T_BATCH])()          # warm-up, not counted
+    adapter.dispatches = 0
+    got, wall, server = serve(
+        lambda backend: ClusterServing(adapter, backend=backend,
+                                       batch_size=T_BATCH), ids,
+        [KERNEL, KERNEL_INT8_MATMUL])
+    k6, k2, chunks = KERNEL_INT8_MATMUL.launches, KERNEL.launches, \
+        adapter.dispatches
+    print(f"int8 serving: {N_RECORDS} records in {wall:.3f}s = "
+          f"{N_RECORDS / wall:.1f} records/s (bf16 serving in this run: "
+          f"{bf16_records_per_s:.1f}); {chunks} dispatches, {k6} "
+          f"int8_matmul and {k2} flash_attention_fwd launches")
+    check(server.served == N_RECORDS, f"served {server.served}")
+    check(got.shape == (N_RECORDS, 2), f"result shape {got.shape}")
+    check(bool(np.isfinite(got).all()), "non-finite probabilities")
+    sums = float(np.abs(got.sum(-1) - 1.0).max())
+    check(sums <= 1e-2, f"probabilities sum off 1 by {sums}")
+    check(chunks > 0 and k6 == (4 * n_block + 2) * chunks,
+          f"{k6} K6 launches for {chunks} dispatches")
+    check(k2 == n_block * chunks, f"{k2} K2 launches for {chunks} dispatches")
+    want = np.concatenate([deq.predict(adapter.inputs(ids[i:i + T_BATCH]))
+                           for i in range(0, N_RECORDS, T_BATCH)])
+    diff = float(np.abs(got - want).max())
+    print(f"int8 serving: max |int8 - bf16 on the dequantized weights| "
+          f"probability {diff:.3e} (tolerance 2e-2)")
+    check(diff <= 2e-2, f"int8 vs dequantized bf16 {diff}")
+    return {"records_per_s": N_RECORDS / wall, "wall_s": wall,
+            "bf16_records_per_s": bf16_records_per_s, "dispatches": chunks,
+            "launches": k6, "flash_launches": k2, "int8_bytes": int8_weights,
+            "vs_dequantized": diff}
+
+
+def int8_kernel_row(int8_rows, launches):
+    """K6's row of the kernels line: at BERT's qkv shape (config B's
+    largest product), with the scoring head's batch-1 and batch-32 f32
+    shapes (config A) beside."""
+    main = int8_rows["bfloat16_16384x768x2304"]
+    row = {"name": "int8_matmul", "route": "cuda",
+           "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
+           "replaces": "analytics_zoo_tpu/ops/pallas/quantized.py:63",
+           "launches": sum(launches.values()),
+           "launches_by_path": launches,
+           "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+           "library_by": "torch.matmul on the dequantized weight",
+           "device_ms": main["device_ms"],
+           "library_device_ms": main["library_device_ms"]}
+    for tag, case in (("head_b1", "float32_1x4096x4096"),
+                      ("head_b32", "float32_32x4096x4096")):
+        for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms"):
+            row[f"{key}_{tag}"] = int8_rows[case][key]
+    return row
 
 
 def bwd_kernel_phase():
@@ -1488,6 +1889,8 @@ def main() -> int:
         LIBRARY as LIBRARY_EMB
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         LIBRARY, LIBRARY_BWD)
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        LIBRARY as LIBRARY_Q
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1498,10 +1901,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB])
+    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB, LIBRARY_Q])
     print(f"build: flash_attention_fwd, flash_attention_bwd, "
-          f"fused_cross_entropy, embedding in {time.perf_counter() - t0:.1f}s "
-          f"(nvcc sm_90a, in parallel)")
+          f"fused_cross_entropy, embedding, quantized in "
+          f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
 
     import numpy as np
     t0 = time.perf_counter()
@@ -1512,7 +1915,10 @@ def main() -> int:
     ce_rows = ce_kernel_phase()
     ce_hidden_rows = ce_hidden_phase()
     embed_rows = embed_kernel_phase(ncf_x)
+    int8_rows = int8_kernel_phase()
     serving = serving_phase()
+    int8_serving = int8_serving_phase(serving["records_per_s"])
+    int8_head = int8_head_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
     lm, lm_labels = lm_phase()
@@ -1522,11 +1928,15 @@ def main() -> int:
     rows += ce_kernel_rows
     ncf = ncf_phase(ncf_x, ncf_y)
     rows = embed_kernel_rows(embed_rows, ncf["sharded"]["launches"]) + rows
+    rows.append(int8_kernel_row(int8_rows, {
+        "head_serving": int8_head["launches"],
+        "bert_serving": int8_serving["launches"]}))
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
-                      "embed_cases": embed_rows, "serving": serving,
-                      "training": training, "lm": lm, "ncf": ncf,
-                      "card": card}))
+                      "embed_cases": embed_rows, "int8_cases": int8_rows,
+                      "serving": serving, "int8_serving": int8_serving,
+                      "int8_head": int8_head, "training": training,
+                      "lm": lm, "ncf": ncf, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

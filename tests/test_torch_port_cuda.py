@@ -474,3 +474,102 @@ def test_sharded_embedding_graph_step_on_cuda_matches_cpu(cuda):
     for name, want in params["cpu"].items():
         np.testing.assert_allclose(params["cuda"][name], want, atol=1e-6,
                                    rtol=0, err_msg=name)
+
+
+def _bf16_step(v: float) -> float:
+    """One bf16 step (unit in the last place) at magnitude ``v``."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def _int8_operands(m, k, n, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen).to(dtype)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    s = torch.rand(n, generator=gen) * 0.09 + 0.01
+    return x, w, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (32, 4096, 4096),
+                                   (2, 256, 48), (17, 100, 10),
+                                   (32, 768, 2), (33, 130, 130),
+                                   (300, 768, 2304), (257, 96, 50),
+                                   (129, 3072, 768)])
+def test_int8_matmul_kernel_matches_plain_version(cuda, dtype, m, k, n):
+    """K6 against its plain version on the card (TF32 off): f32 within
+    1e-4 of the case's largest value (summation order only); bf16 within
+    one bf16 step at the case's largest value (the two f32 sums may round
+    to neighbouring bf16 values). Then the same bits on a second run."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, int8_matmul, int8_matmul_reference)
+    x, w, s = (t.to(cuda) for t in _int8_operands(m, k, n, dtype, m + k))
+    before = KERNEL_INT8_MATMUL.launches
+    got = int8_matmul(x, w, s)
+    again = int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_MATMUL.launches == before + 2
+    want = int8_matmul_reference(x, w, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    top = want.float().abs().max().item()
+    tol = 1e-4 * top if dtype == torch.float32 else _bf16_step(top)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_what_the_kernel_does_not_take(cuda):
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import int8_matmul
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(8, 3, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        int8_matmul(x, w, torch.zeros(4, device=cuda))
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul(x, w.float(), torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="devices"):
+        int8_matmul(x, w, torch.zeros(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (32, 4096, 8),
+                                   (1, 100, 10), (32, 768, 2),
+                                   (40, 24, 16)])
+def test_int8_product_pads_for_int_mm_exactly(cuda, m, k, n):
+    """``torch._int_mm`` on the card wants M > 16 and K, N multiples of
+    8; the padded product is the CPU's int32 product bit for bit."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
+        int8_product
+    gen = torch.Generator().manual_seed(m * k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    got = int8_product(xq.to(cuda), wq.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), xq.int() @ wq.int())
+
+
+@pytest.mark.cuda
+def test_weight_only_dense_raises_without_the_kernel_library(cuda,
+                                                             monkeypatch):
+    """A weight-only int8 Dense on the card runs K6 or raises: with the
+    kernel's library missing it does not fall back to a float product."""
+    from analytics_zoo_tpu_torch.ops import cuda_build
+    from analytics_zoo_tpu_torch.ops.pallas import quantized
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    init_zoo_context()
+    model = Sequential([Dense(32, input_shape=(64,))],
+                       device="cpu").init_weights()
+    im = InferenceModel(device=cuda).from_keras(model, quantize="int8")
+    x = np.ones((4, 64), np.float32)
+    before = quantized.KERNEL_INT8_MATMUL.launches
+    im.predict(x)
+    assert quantized.KERNEL_INT8_MATMUL.launches == before + 1
+    monkeypatch.setattr(quantized, "LIBRARY", cuda_build.CudaLibrary(
+        "missing", ["no_such_source.cu"], quantized._bind))
+    with pytest.raises((RuntimeError, OSError)):
+        im.predict(x)
+    assert quantized.KERNEL_INT8_MATMUL.launches == before + 1
