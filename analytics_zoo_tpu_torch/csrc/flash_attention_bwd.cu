@@ -4,37 +4,57 @@
 // Replaces: analytics_zoo_tpu/ops/pallas/flash_attention.py, the Pallas
 // kernels launched by _flash_bwd: _bwd_dq_kernel (K3a, pl.pallas_call at
 // :524) and _bwd_dkv_kernel (K3b, pl.pallas_call at :544). Same contract:
-// q/dO (B,H,Tq,D), k/v (B,H,Tk,D) in f32 or bf16; lse and delta =
-// rowsum(dO*O) as f32 (B*H, Tq); an optional (B,Tk) f32 key-padding
-// keep-mask (>= 1.0 attends); bottom-right aligned causal masking (offset
-// = Tk - Tq). Each kernel rebuilds the probability tile from the saved
-// lse, p = visible ? exp(s*scale - lse) : 0, so a row with lse = +inf (no
-// visible key) gives exact zeros and never an inf - inf. Then
-// ds = p * (dp - delta), dq = scale * ds K, dk = scale * ds^T Q,
-// dv = p^T dO, accumulated in f32 and written once in the input dtype.
-// Rounding points in bf16 follow the Pallas kernels: p enters the dv
-// product in bf16, ds enters the dq and dk products in bf16, and the
-// scale multiplies the f32 sum after the products.
+// q/dO (B,H,Tq,D), k/v (B,H,Tk,D) in f32 or bf16, D in {32, 64, 128}, any
+// Tq and Tk; lse and delta = rowsum(dO*O) as f32 (B*H, Tq); an optional
+// (B,Tk) f32 key-padding keep-mask (>= 1.0 attends); bottom-right aligned
+// causal masking (offset = Tk - Tq, either sign). Each kernel rebuilds the
+// probability tile from the saved lse, p = visible ? exp(s*scale - lse) :
+// 0, so a row with lse = +inf (no visible key) gives exact zeros and never
+// an inf - inf. Then ds = p * (dp - delta), dq = scale * ds K, dk = scale *
+// ds^T Q, dv = p^T dO, accumulated in f32 and written once in the input
+// dtype. Rounding points in bf16 follow the Pallas kernels: p enters the dv
+// product in bf16, ds enters the dq and dk products in bf16, and the scale
+// multiplies the f32 sum after the products.
 //
 // Two kernels, no atomics: K3a owns a (batch*head, 64-query) tile and
 // loops over key tiles; K3b owns a (batch*head, 64-key) tile and loops
 // over query tiles. Each output element is written by exactly one block
-// in a fixed summation order, so dq/dk/dv are deterministic. A one-kernel
-// scheme (dk/dv per block, dq by atomic adds) would save recomputing P
-// once but makes dq depend on the order blocks finish in.
+// in a fixed summation order, so dq/dk/dv are the same bits from run to
+// run. A one-kernel scheme (dk/dv per block, dq by atomic adds) would save
+// recomputing P once but makes dq depend on the order blocks finish in.
 //
-// What bounds it on this card: at BERT's shapes (T=512, D=64) K3a does
-// 6*D and K3b 8*D operations per visible (query, key) pair against a few
-// elements per row moved, so the products bound both. Hence:
-//  * bf16 (the training path): every product runs on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate). The score and dP
-//    accumulators become the next product's A operand in registers; the
-//    B operands that need the other orientation (K for dq, Q and dO for
-//    dk/dv) are stored transposed in shared memory. wgmma and TMA staging
-//    are later work.
+// What bounds it on this card: K3a does 6*D and K3b 8*D operations per
+// visible (query, key) pair against a few elements per row moved, so at
+// BERT's (T=512) and the LM's (T=4096) shapes the tensor-core products
+// bound both (0.42 and 0.56 ms at the LM's causal shape). The bf16 path
+// (training's) is built for that:
+//  * Products on wgmma (m64nNk16, bf16 in, f32 accumulate) from one
+//    warpgroup of 128 threads, 64 rows of the block's tile. The first two
+//    products (S = Q K^T and dP = dO V^T in K3a; S^T = K Q^T and dP^T =
+//    V dO^T in K3b) read both operands from shared memory; their f32
+//    accumulators are turned into p and ds in registers, rounded to bf16
+//    and fed to the second products (dq += ds K; dv += p^T dO, dk +=
+//    ds^T Q) as the register A operand.
+//  * No transposed copies: the operand the second products need in the
+//    other orientation (K for dq, Q and dO for dk/dv) is the tile already
+//    in shared memory, read through an MN-major descriptor.
+//  * Tiles arrive by TMA (cp.async.bulk.tensor, a CUtensorMap per operand
+//    built on the host) in the 128-byte swizzled layout the descriptors
+//    name (64-byte for D = 32), into a ring of stages of the streamed
+//    tiles (2 of K and V in K3a; 3 of Q, dO, lse and delta in K3b, 2 at
+//    D = 128),
+//    each completed on an mbarrier. One thread issues them: the next tiles
+//    load while the current one is multiplied. TMA zero-fills rows past
+//    T, so ragged tiles need no branch on load.
+//  * Tiles are classified before any work: invisible key tiles (beyond the
+//    causal diagonal, or hidden entirely by the key-padding mask, whose
+//    bits each K3a block reads once) are never loaded; a K3b key tile that
+//    the mask hides entirely writes zeros without looping; only diagonal,
+//    partly masked or ragged tiles test each element.
 //  * f32: plain FMAs on the CUDA cores (TF32 would round the operands to
 //    10 mantissa bits, outside the f32 contract).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,7 +64,7 @@ namespace {
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // four warps
+constexpr int THREADS = 128;  // four warps: one warpgroup in the bf16 path
 
 typedef __nv_bfloat16 bf16;
 
@@ -285,24 +305,251 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16. Each warp owns 16 rows of
-// the block's tile. Fragment layouts (PTX ISA, m16n8k16 .bf16): with
-// g = lane / 4 and t = lane % 4, a thread holds A rows g and g+8 at
-// columns 2t, 2t+1 (and +8); B columns g at rows 2t, 2t+1 (and +8); and
-// C rows g and g+8 at columns 2t, 2t+1.
+// bf16: wgmma on TMA-fed tiles. Fragment layouts (PTX ISA, wgmma m64nNk16):
+// warp w of the warpgroup owns rows 16w .. 16w + 15; with g = lane / 4 and
+// t = lane % 4, accumulator register 4j + e holds row 16w + g + 8 (e >> 1),
+// column 8j + 2t + (e & 1); the register A operand of a 16-wide k step is
+// the same layout over its 16 columns, packed in pairs.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A 64-row bf16 tile of head dim D lies in shared memory as D / CW chunks
+// of 64 rows x SWB bytes, each in the swizzled layout TMA writes and the
+// wgmma descriptors name: a 128-byte swizzle (a chunk row is 128 bytes, 64
+// columns), or a 64-byte one at D = 32.
+template <int D>
+struct Tile {
+  static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int CW = SWB / 2;              // columns per chunk
+  static constexpr int CHUNKS = D / CW;
+  static constexpr int CHUNK_BYTES = 64 * SWB;
+  static constexpr int BYTES = CHUNKS * CHUNK_BYTES;
+  static constexpr uint32_t LAYOUT = SWB == 128 ? 1u : 2u;  // descriptor
+  // ring depths: K3a's 2 stages keep a block at about 50 KB of shared
+  // memory at D = 64, so four blocks share an SM (measured: 3-5% faster
+  // than 3 stages); K3b's third stage costs no block (its registers allow
+  // three)
+  static constexpr int DQ_STAGES = 2;
+  static constexpr int DKV_STAGES = D == 128 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the issuing thread's arrival, announcing `bytes` of TMA to come
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// waits for the barrier's phase of this parity to complete. A phase that
+// never completes (a copy that was never issued) traps after some 2^28
+// polls, seconds, so the launch fails with an error instead of holding
+// the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// TMA: box {CW, 64, 1} at (column c0, row c1, batch*head c2) of a
+// (B*H, T, D) tensor
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// TMA: VEC_BOX f32 from element c0 of a flat (B*H*T) vector. The box's
+// first element must lie on a 16-byte boundary (the copy faults on the
+// card otherwise), so a caller that wants 64 elements from element c asks
+// for c rounded down to a multiple of 4 and skips c % 4 of them.
+constexpr int VEC_BOX = 68;
+constexpr int VEC_BYTES = 4 * VEC_BOX;
+constexpr int ROW_STRIDE = 384;  // bytes from a stage's lse to its delta
+__device__ __forceinline__ void tma_vec(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor (PTX ISA "Matrix Descriptor"):
+// start address, leading and stride byte offsets (all >> 4), layout type
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32) |
+         ((uint64_t)layout << 62);
+}
+
+// K-major operand: the tile's rows are M (or N), its D columns the
+// reduction; k step kk takes columns 16kk .. 16kk + 15. Within a swizzle
+// row the step is a plain byte offset (the swizzle is applied to the
+// address); 8-row groups lie 8 * SWB bytes apart (SBO); LBO is unused.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  typedef Tile<D> G;
+  const uint32_t a = tile + (16 * kk / G::CW) * G::CHUNK_BYTES +
+                     (16 * kk % G::CW) * 2;
+  return smem_desc(a, 16, 8 * G::SWB, G::LAYOUT);
+}
+
+// MN-major B operand: the tile's rows are the reduction, its D columns the
+// output columns; k step kk takes rows 16kk .. 16kk + 15. 8-row groups lie
+// 8 * SWB bytes apart (SBO), swizzle atoms of CW columns a chunk apart
+// (LBO).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  typedef Tile<D> G;
+  return smem_desc(tile + 16 * kk * G::SWB, G::CHUNK_BYTES, 8 * G::SWB,
+                   G::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence/commit/wait above
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// D(64 x 64) (+)= A B^T, A and B 64-row K-major bf16 tiles in shared memory
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 32) += A B, A (64 x 16) bf16 in registers (the accumulator
+// layout of a 64 x 16 product, packed), B (16 x 32) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D(64 x 64) += A B, A (64 x 16) bf16 in registers (the accumulator
+// layout of a 64 x 16 product, packed), B (16 x 64) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D(64 x 128) += A B, A (64 x 16) bf16 in registers (the accumulator
+// layout of a 64 x 16 product, packed), B (16 x 128) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // the lower column lands in the low half, as the fragments expect
@@ -311,290 +558,417 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragment of rows r0, r0+8, columns c..c+15 from a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base,
-                                       int ld, int r0, int c, int t) {
-  const bf16* p = base + r0 * ld + c + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
+// a 64 x 64 f32 accumulator, rounded to bf16, as the A operands of four
+// 16-wide k steps
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
 }
 
-// 16 x 64 = A (16 x D, rows r0/r0+8 of sA) times B^T where B is a 64 x D
-// row-major tile (the 64 output columns are B's rows)
+// dynamic shared memory of K3a: the Q and dO tiles, the K/V ring, its
+// barriers (and Q/dO's), the keep-mask bits of every key and the list of
+// visible key tiles; 1024 bytes of slack align the tiles
 template <int D>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4],
-                                                 const bf16* sA,
-                                                 const bf16* sB, int ld,
-                                                 int r0, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, sA, ld, r0, kk * 16, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* b = sB + (j * 8 + g) * ld + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-// out (16 x D) += P (16 x 64, the C layout of mma_rows_by_rows, rounded
-// to bf16) times a 64 x D operand stored transposed: sBt is D x ldt
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&p)[8][4],
-                                       int kk) {
-  a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-  a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-  a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-  a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-}
-
-template <int D>
-__device__ __forceinline__ void mma_acc_by_cols(float (&out)[D / 8][4],
-                                                const float (&p)[8][4],
-                                                const bf16* sBt, int ldt,
-                                                int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    pack_a(a, p, kk);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* b = sBt + (n * 8 + g) * ldt + kk * 16 + 2 * t;
-      mma_bf16(out[n], a, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-// copy rows [r_begin, r_begin + 64) of a (rows x D) bf16 matrix into a
-// row-major tile (stride ld) and, when sT is given, its transpose (D x ldt);
-// rows past `rows` are zero
-template <int D>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src,
-                                          int r_begin, int rows, bf16* sM,
-                                          int ld, bf16* sT, int ldt,
-                                          int tid) {
-  constexpr int VEC = 8;  // bf16 per 16-byte load
-  for (int i = tid; i < 64 * D / VEC; i += THREADS) {
-    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r_begin + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r_begin + r) * D +
-                                            c);
-    *reinterpret_cast<uint4*>(sM + r * ld + c) = val;
-    if (sT != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int x = 0; x < VEC; ++x) sT[(c + x) * ldt + r] = e[x];
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  // sQ, sDO, sK, sV: 64 x (D+8); sKt: D x (64+8)
-  return sizeof(bf16) * (size_t)(4 * 64 * (D + 8) + D * (64 + 8));
+size_t dq_wgmma_smem_bytes(int t_kv) {
+  constexpr int S = Tile<D>::DQ_STAGES;
+  const int n_words = (t_kv + 31) / 32, n_tiles = (t_kv + BK - 1) / BK;
+  return 1024 + (size_t)(2 + 2 * S) * Tile<D>::BYTES + 8 * (S + 1) +
+         4 * (size_t)(n_words + n_tiles + 1);
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-    bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta,
-               const float* __restrict__ mask, bf16* __restrict__ dq, int H,
-               int t_q, int t_kv, int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = BK + 8;
-  constexpr int NT = D / 8;
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ mask, bf16* __restrict__ dq,
+                 int H, int t_q, int t_kv, int causal, float scale) {
+  typedef Tile<D> G;
+  constexpr int S = Tile<D>::DQ_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sDO = sQ + BQ * LD;
-  bf16* sK = sDO + BQ * LD;
-  bf16* sV = sK + BK * LD;
-  bf16* sKt = sV + BK * LD;
-  __shared__ float sKeep[BK];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sDO = base + G::BYTES;
+  const uint32_t sRing = base + 2 * G::BYTES;  // stage s: K, then V
+  const uint32_t sBar = sRing + 2 * S * G::BYTES;  // S ring barriers, Q/dO's
+  const uint32_t qbar = sBar + 8 * S;
+  const int n_words = (t_kv + 31) / 32;
+  uint32_t* keep_bits = reinterpret_cast<uint32_t*>(
+      smem_raw + (sBar - raw) + 8 * (S + 1));
+  int* tiles = reinterpret_cast<int*>(keep_bits + n_words);
+  int* n_vis_shared = tiles + (t_kv + BK - 1) / BK;
 
+  // the last query tiles see the most keys under causal masking: start them
+  // first
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
   const int qp[2] = {q0 + r0, q0 + r0 + 8};
   const int offset = t_kv - t_q;
   const float* mrow = mask ? mask + (size_t)(bh / H) * t_kv : nullptr;
+  const CUtensorMap *pk = &tm_k, *pv = &tm_v;
 
-  load_tile<D>(q + (size_t)bh * t_q * D, q0, t_q, sQ, LD, nullptr, 0, tid);
-  load_tile<D>(dout + (size_t)bh * t_q * D, q0, t_q, sDO, LD, nullptr, 0,
-               tid);
-  float row_lse[2], row_delta[2];
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s <= S; ++s) mbar_init(sBar + 8 * s);
+    fence_barrier_init();
+    mbar_expect(qbar, 2 * G::BYTES);
+#pragma unroll
+    for (int c = 0; c < G::CHUNKS; ++c) {
+      tma_rows(sQ + c * G::CHUNK_BYTES, &tm_q, qbar, c * G::CW, q0, bh);
+      tma_rows(sDO + c * G::CHUNK_BYTES, &tm_do, qbar, c * G::CW, q0, bh);
+    }
+  }
+
+  // the keys this tile can see: causally up to q0 + BQ - 1 + offset; the
+  // mask's keep bits of those keys, 0 past t_kv
+  int k_end = t_kv;
+  if (causal) k_end = min(k_end, q0 + BQ + offset);
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  for (int b0 = 0; b0 < n_tiles * BK; b0 += THREADS) {
+    const int key = b0 + tid;
+    const bool keep = key < t_kv && (mrow == nullptr || mrow[key] >= 1.0f);
+    const uint32_t bits = __ballot_sync(0xffffffffu, keep);
+    const int word = (b0 >> 5) + warp;
+    if (lane == 0 && word < n_words) keep_bits[word] = bits;
+  }
+  __syncthreads();
+  // the key tiles with any visible key, in order
+  if (warp == 0) {
+    int n = 0;
+    for (int jb = 0; jb < n_tiles; jb += 32) {
+      const int j = jb + lane;
+      bool vis = false;
+      if (j < n_tiles) {
+        const uint32_t w1 = 2 * j + 1 < n_words ? keep_bits[2 * j + 1] : 0u;
+        vis = (keep_bits[2 * j] | w1) != 0u;
+      }
+      const uint32_t ballot = __ballot_sync(0xffffffffu, vis);
+      if (vis) tiles[n + __popc(ballot & ((1u << lane) - 1u))] = j;
+      n += __popc(ballot);
+    }
+    if (lane == 0) *n_vis_shared = n;
+  }
+  __syncthreads();
+  const int n_vis = *n_vis_shared;
+
+  // K and V of the i-th visible key tile into ring stage i % S
+  auto issue = [&](int i) {
+    const int s = i % S;
+    const uint32_t bar = sBar + 8 * s;
+    const uint32_t dst = sRing + 2 * s * G::BYTES;
+    const int k0 = tiles[i] * BK;
+    mbar_expect(bar, 2 * G::BYTES);
+#pragma unroll
+    for (int c = 0; c < G::CHUNKS; ++c) {
+      tma_rows(dst + c * G::CHUNK_BYTES, pk, bar, c * G::CW, k0, bh);
+      tma_rows(dst + G::BYTES + c * G::CHUNK_BYTES, pv, bar, c * G::CW, k0,
+               bh);
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(S, n_vis); ++i) issue(i);
+
+  float lse2[2], dlt[2];  // lse in log2 units (+inf past t_q), delta
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool in = qp[h] < t_q;
-    row_lse[h] = in ? lse[(size_t)bh * t_q + qp[h]] : INFINITY;
-    row_delta[h] = in ? delta[(size_t)bh * t_q + qp[h]] : 0.f;
+    lse2[h] = in ? lse[(size_t)bh * t_q + qp[h]] * LOG2E : INFINITY;
+    dlt[h] = in ? delta[(size_t)bh * t_q + qp[h]] : 0.f;
   }
+  const float sl2 = scale * LOG2E;
 
-  int k_end = t_kv;
-  if (causal) k_end = min(k_end, q0 + BQ + offset);
-
-  float o[NT][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);  // also when no key tile is visible: no TMA in flight
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed; sQ/sDO are written
-    load_tile<D>(k + (size_t)bh * t_kv * D, k0, t_kv, sK, LD, sKt, LDT, tid);
-    load_tile<D>(v + (size_t)bh * t_kv * D, k0, t_kv, sV, LD, nullptr, 0,
-                 tid);
-    if (tid < BK) {
-      const int kp = k0 + tid;
-      sKeep[tid] = (kp < t_kv && (mrow == nullptr || mrow[kp] >= 1.0f))
-                       ? 1.f
-                       : 0.f;
+  for (int i = 0; i < n_vis; ++i) {
+    const int s = i % S;
+    if (i > 0) {
+      __syncthreads();  // every thread is done with tile i - 1's stage
+      if (tid == 0 && i - 1 + S < n_vis) issue(i - 1 + S);
     }
-    __syncthreads();
+    mbar_wait(sBar + 8 * s, (i / S) & 1);
+    const uint32_t sK = sRing + 2 * s * G::BYTES, sV = sK + G::BYTES;
 
-    float s[8][4], dp[8][4];
-    mma_rows_by_rows<D>(s, sQ, sK, LD, r0, g, t);    // Q K^T
-    mma_rows_by_rows<D>(dp, sDO, sV, LD, r0, g, t);  // dO V^T
-    // p and ds for rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3); ds into s
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(sc, desc_k<D>(sQ, kk), desc_k<D>(sK, kk), kk);  // Q K^T
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss64(dp, desc_k<D>(sDO, kk), desc_k<D>(sV, kk), kk);  // dO V^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // a tile is fully visible when every key is kept and lies on or before
+    // the diagonal of the tile's first row; only the others test elements
+    // (rows past t_q have lse = +inf, so they give p = 0 either way)
+    const int j = tiles[i];
+    const int k0 = j * BK;
+    const uint32_t w0 = keep_bits[2 * j];
+    const uint32_t w1 = 2 * j + 1 < n_words ? keep_bits[2 * j + 1] : 0u;
+    const bool full = (w0 & w1) == 0xffffffffu &&
+                      (!causal || k0 + BK - 1 <= q0 + offset);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const uint32_t word = jj < 4 ? w0 : w1;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
-        const int kl = j * 8 + 2 * t + (e & 1);
-        const bool ok = qp[h] < t_q && sKeep[kl] != 0.f &&
-                        (!causal || k0 + kl <= qp[h] + offset);
-        const float p = ok ? expf(s[j][e] * scale - row_lse[h]) : 0.f;
-        s[j][e] = p * (dp[j][e] - row_delta[h]);
+        const int kl = 8 * jj + 2 * t + (e & 1);
+        float p = exp2f(fmaf(sc[4 * jj + e], sl2, -lse2[h]));
+        if (!full) {
+          const bool ok = ((word >> (kl & 31)) & 1u) != 0u &&
+                          (!causal || k0 + kl <= qp[h] + offset);
+          p = ok ? p : 0.f;
+        }
+        sc[4 * jj + e] = p * (dp[4 * jj + e] - dlt[h]);  // ds
       }
     }
-    mma_acc_by_cols<D>(o, s, sKt, LDT, g, t);  // dS K
+    uint32_t a[4][4];
+    pack_a(a, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[kk], desc_mn<D>(sK, kk));  // dS K
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(a);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qp[h] >= t_q) continue;
-    bf16* drow = dq + (size_t)bh * t_q * D + (size_t)qp[h] * D;
+    bf16* drow = dq + ((size_t)bh * t_q + qp[h]) * D;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(drow + n * 8 + 2 * t) =
-          pack_bf16(o[n][2 * h] * scale, o[n][2 * h + 1] * scale);
+          pack_bf16(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
   }
 }
 
+// dynamic shared memory of K3b: the K and V tiles, the Q/dO ring, each
+// stage's lse and delta rows (2 * ROW_STRIDE bytes), the ring's barriers
+// and K/V's
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // sK, sV, sQ, sDO: 64 x (D+8); sQt, sDOt: D x (64+8)
-  return sizeof(bf16) * (size_t)(4 * 64 * (D + 8) + 2 * D * (64 + 8));
+size_t dkv_wgmma_smem_bytes() {
+  constexpr int S = Tile<D>::DKV_STAGES;
+  return 1024 + (size_t)(2 + 2 * S) * Tile<D>::BYTES + 2 * ROW_STRIDE * S +
+         8 * (S + 1);
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-    bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                const float* __restrict__ mask, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int H, int t_q, int t_kv, int causal,
-                float scale) {
-  constexpr int LD = D + 8;
-  constexpr int LDT = BQ + 8;
-  constexpr int NT = D / 8;
+    bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_lse,
+                  const __grid_constant__ CUtensorMap tm_delta,
+                  const float* __restrict__ mask, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int H, int t_q, int t_kv, int causal,
+                  float scale) {
+  typedef Tile<D> G;
+  constexpr int S = Tile<D>::DKV_STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sDO = sQ + BQ * LD;
-  bf16* sQt = sDO + BQ * LD;
-  bf16* sDOt = sQt + D * LDT;
-  __shared__ float sLse[BQ];
-  __shared__ float sDelta[BQ];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + G::BYTES;
+  const uint32_t sRing = base + 2 * G::BYTES;  // stage s: Q, then dO
+  const uint32_t sRows = sRing + 2 * S * G::BYTES;  // stage s: lse, delta
+  const uint32_t sBar = sRows + 2 * ROW_STRIDE * S;  // ring barriers, K/V's
+  const uint32_t kvbar = sBar + 8 * S;
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8
   const int kp[2] = {k0 + r0, k0 + r0 + 8};
   const int offset = t_kv - t_q;
   const float* mrow = mask ? mask + (size_t)(bh / H) * t_kv : nullptr;
+  const CUtensorMap *pq = &tm_q, *pdo = &tm_do, *plse = &tm_lse,
+                    *pdelta = &tm_delta;
   bool keep[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     keep[h] = kp[h] < t_kv && (mrow == nullptr || mrow[kp[h]] >= 1.0f);
-
-  load_tile<D>(k + (size_t)bh * t_kv * D, k0, t_kv, sK, LD, nullptr, 0, tid);
-  load_tile<D>(v + (size_t)bh * t_kv * D, k0, t_kv, sV, LD, nullptr, 0, tid);
-
-  float gk[NT][4], gv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
-
+  // a key tile the mask hides entirely (or that no query sees) is zero
+  const bool any = __syncthreads_or(keep[0] || keep[1]) != 0;
+  const bool all = __syncthreads_and(keep[0] && keep[1]) != 0;
   const int q_begin = causal ? first_q_tile(k0, offset) : 0;
-  for (int q0 = q_begin; q0 < t_q; q0 += BQ) {
-    __syncthreads();  // the previous tile is consumed; sK/sV are written
-    load_tile<D>(q + (size_t)bh * t_q * D, q0, t_q, sQ, LD, sQt, LDT, tid);
-    load_tile<D>(dout + (size_t)bh * t_q * D, q0, t_q, sDO, LD, sDOt, LDT,
-                 tid);
-    if (tid < BQ) {
-      const bool in = q0 + tid < t_q;
-      sLse[tid] = in ? lse[(size_t)bh * t_q + q0 + tid] : INFINITY;
-      sDelta[tid] = in ? delta[(size_t)bh * t_q + q0 + tid] : 0.f;
-    }
-    __syncthreads();
+  const int n_q = any && q_begin < t_q ? (t_q - q_begin + BQ - 1) / BQ : 0;
 
-    float p[8][4], ds[8][4];
-    mma_rows_by_rows<D>(p, sK, sQ, LD, r0, g, t);    // K Q^T = S^T
-    mma_rows_by_rows<D>(ds, sV, sDO, LD, r0, g, t);  // V dO^T = dP^T
-    // key rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3), query columns
+  float gk[D / 2], gv[D / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.f;
+
+  // Q, dO, lse and delta of the i-th query tile into ring stage i % S
+  auto issue = [&](int i) {
+    const int s = i % S;
+    const uint32_t bar = sBar + 8 * s;
+    const uint32_t dst = sRing + 2 * s * G::BYTES;
+    const int q0 = q_begin + i * BQ;
+    const int row0 = (bh * t_q + q0) & ~3;
+    mbar_expect(bar, 2 * G::BYTES + 2 * VEC_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int ql = j * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + ql;
-        const bool ok = keep[h] && qpos < t_q &&
-                        (!causal || kp[h] <= qpos + offset);
-        const float pv = ok ? expf(p[j][e] * scale - sLse[ql]) : 0.f;
-        p[j][e] = pv;
-        ds[j][e] = pv * (ds[j][e] - sDelta[ql]);
-      }
+    for (int c = 0; c < G::CHUNKS; ++c) {
+      tma_rows(dst + c * G::CHUNK_BYTES, pq, bar, c * G::CW, q0, bh);
+      tma_rows(dst + G::BYTES + c * G::CHUNK_BYTES, pdo, bar, c * G::CW, q0,
+               bh);
     }
-    mma_acc_by_cols<D>(gv, p, sDOt, LDT, g, t);  // P^T dO
-    mma_acc_by_cols<D>(gk, ds, sQt, LDT, g, t);  // dS^T Q
+    tma_vec(sRows + 2 * ROW_STRIDE * s, plse, bar, row0);
+    tma_vec(sRows + 2 * ROW_STRIDE * s + ROW_STRIDE, pdelta, bar, row0);
+  };
+
+  if (n_q > 0) {
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s <= S; ++s) mbar_init(sBar + 8 * s);
+      fence_barrier_init();
+      mbar_expect(kvbar, 2 * G::BYTES);
+#pragma unroll
+      for (int c = 0; c < G::CHUNKS; ++c) {
+        tma_rows(sK + c * G::CHUNK_BYTES, &tm_k, kvbar, c * G::CW, k0, bh);
+        tma_rows(sV + c * G::CHUNK_BYTES, &tm_v, kvbar, c * G::CW, k0, bh);
+      }
+      for (int i = 0; i < min(S, n_q); ++i) issue(i);
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits
+    const float sl2 = scale * LOG2E;
+    mbar_wait(kvbar, 0);
+
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % S;
+      if (i > 0) {
+        __syncthreads();  // every thread is done with tile i - 1's stage
+        if (tid == 0 && i - 1 + S < n_q) issue(i - 1 + S);
+      }
+      mbar_wait(sBar + 8 * s, (i / S) & 1);
+      const int q0 = q_begin + i * BQ;
+      const uint32_t sQ = sRing + 2 * s * G::BYTES, sDO = sQ + G::BYTES;
+      // this tile's lse and delta, past the copies' alignment
+      const float* rl = rows + (2 * ROW_STRIDE / 4) * s + ((bh * t_q + q0) & 3);
+      const float* rd = rl + ROW_STRIDE / 4;
+
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(st, desc_k<D>(sK, kk), desc_k<D>(sQ, kk), kk);  // K Q^T
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(dpt, desc_k<D>(sV, kk), desc_k<D>(sDO, kk), kk);  // V dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // fully visible: every key kept, every query in range, every pair on
+      // or before the diagonal; only the others test elements
+      const bool full = all && q0 + BQ <= t_q &&
+                        (!causal || k0 + BK - 1 <= q0 + offset);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int ql = 8 * jj + 2 * t + (e & 1);
+          const float lv = rl[ql];
+          const float dl = rd[ql];
+          float p = exp2f(fmaf(st[4 * jj + e], sl2, -lv * LOG2E));
+          float ds = p * (dpt[4 * jj + e] - dl);
+          if (!full) {
+            const bool ok = keep[h] && q0 + ql < t_q &&
+                            (!causal || kp[h] <= q0 + ql + offset);
+            p = ok ? p : 0.f;
+            ds = ok ? ds : 0.f;
+          }
+          st[4 * jj + e] = p;
+          dpt[4 * jj + e] = ds;
+        }
+      }
+      uint32_t ap[4][4], as[4][4];
+      pack_a(ap, st);
+      pack_a(as, dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(gv, ap[kk], desc_mn<D>(sDO, kk));  // P^T dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(gk, as[kk], desc_mn<D>(sQ, kk));  // dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(gv);
+      fence_regs(gk);
+      fence_regs(ap);
+      fence_regs(as);
+    }
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (kp[h] >= t_kv) continue;
-    const size_t o = (size_t)bh * t_kv * D + (size_t)kp[h] * D;
+    const size_t o = ((size_t)bh * t_kv + kp[h]) * D;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(dk + o + n * 8 + 2 * t) =
-          pack_bf16(gk[n][2 * h] * scale, gk[n][2 * h + 1] * scale);
+          pack_bf16(gk[4 * n + 2 * h] * scale, gk[4 * n + 2 * h + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + o + n * 8 + 2 * t) =
-          pack_bf16(gv[n][2 * h], gv[n][2 * h + 1]);
+          pack_bf16(gv[4 * n + 2 * h], gv[4 * n + 2 * h + 1]);
     }
   }
+}
+
+// host: tensor maps. A (B*H, T, D) bf16 tensor read as boxes of 64 rows x
+// CW columns in the swizzled layout; rows past T (within each batch*head)
+// read as zeros.
+template <int D>
+bool encode_rows(CUtensorMap* map, const void* ptr, int T, int BH) {
+  typedef Tile<D> G;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)G::CW, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             G::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a flat f32 vector of n elements read as boxes of VEC_BOX (zeros past n)
+bool encode_vec(CUtensorMap* map, const float* ptr, long long n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // rank 1: none is read
+  const cuuint32_t box[1] = {VEC_BOX};
+  const cuuint32_t step[1] = {1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+             const_cast<float*>(ptr), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename Kernel>
@@ -620,12 +994,17 @@ cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, mask, static_cast<float*>(dq), H, t_q, t_kv, causal, scale);
   } else {
-    const size_t smem = dq_mma_smem_bytes<D>();
-    if ((err = set_smem(bwd_dq_mma<D>, smem)) != cudaSuccess) return err;
-    bwd_dq_mma<D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, mask, static_cast<bf16*>(dq), H, t_q, t_kv, causal, scale);
+    CUtensorMap mq, mdo, mk, mv;
+    if (!encode_rows<D>(&mq, q, t_q, B * H) ||
+        !encode_rows<D>(&mdo, dout, t_q, B * H) ||
+        !encode_rows<D>(&mk, k, t_kv, B * H) ||
+        !encode_rows<D>(&mv, v, t_kv, B * H))
+      return cudaErrorInvalidValue;
+    const size_t smem = dq_wgmma_smem_bytes<D>(t_kv);
+    if ((err = set_smem(bwd_dq_wgmma<D>, smem)) != cudaSuccess) return err;
+    bwd_dq_wgmma<D><<<grid, THREADS, smem, stream>>>(
+        mq, mdo, mk, mv, lse, delta, mask, static_cast<bf16*>(dq), H, t_q,
+        t_kv, causal, scale);
   }
   return cudaGetLastError();
 }
@@ -647,30 +1026,40 @@ cudaError_t launch_dkv(int dtype, const void* q, const void* k,
         delta, mask, static_cast<float*>(dk), static_cast<float*>(dv), H,
         t_q, t_kv, causal, scale);
   } else {
-    const size_t smem = dkv_mma_smem_bytes<D>();
-    if ((err = set_smem(bwd_dkv_mma<D>, smem)) != cudaSuccess) return err;
-    bwd_dkv_mma<D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, t_q,
-        t_kv, causal, scale);
+    CUtensorMap mq, mdo, mk, mv, ml, md;
+    const long long rows = (long long)B * H * t_q;
+    if (!encode_rows<D>(&mq, q, t_q, B * H) ||
+        !encode_rows<D>(&mdo, dout, t_q, B * H) ||
+        !encode_rows<D>(&mk, k, t_kv, B * H) ||
+        !encode_rows<D>(&mv, v, t_kv, B * H) ||
+        !encode_vec(&ml, lse, rows) || !encode_vec(&md, delta, rows))
+      return cudaErrorInvalidValue;
+    const size_t smem = dkv_wgmma_smem_bytes<D>();
+    if ((err = set_smem(bwd_dkv_wgmma<D>, smem)) != cudaSuccess) return err;
+    bwd_dkv_wgmma<D><<<grid, THREADS, smem, stream>>>(
+        mq, mdo, mk, mv, ml, md, mask, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, t_q, t_kv, causal, scale);
   }
   return cudaGetLastError();
 }
 
 bool bad_dims(int B, int H, int t_q, int t_kv, int dtype) {
+  // TMA coordinates are 32-bit: the flat lse/delta index b*h*t_q + q too
   return B <= 0 || H <= 0 || t_q <= 0 || t_kv <= 0 ||
-         (long long)B * H > 2147483647LL || (t_q + BQ - 1) / BQ > 65535 ||
-         (t_kv + BK - 1) / BK > 65535 || (dtype != 0 && dtype != 1);
+         (long long)B * H * t_q > 2147483647LL ||
+         (long long)B * H * t_kv > 2147483647LL ||
+         (t_q + BQ - 1) / BQ > 65535 || (t_kv + BK - 1) / BK > 65535 ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse and delta are f32 (B*H, t_q);
-// mask may be null. Each returns the launch's cudaError_t (0 on success);
-// the kernel runs on `stream` and the call does not synchronise. q/k/v/
-// dout and the outputs must be contiguous; the bf16 path reads and writes
-// 16-byte vectors, so their base pointers must be 16-byte aligned.
+// mask may be null. Each returns the launch's cudaError_t (0 on success;
+// cudaErrorInvalidValue also where a tensor map cannot be built); the
+// kernel runs on `stream` and the call does not synchronise. q/k/v/dout,
+// lse, delta and the outputs must be contiguous; the bf16 path reads them
+// through TMA, so their base pointers must be 16-byte aligned.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

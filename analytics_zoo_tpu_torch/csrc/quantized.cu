@@ -2,13 +2,25 @@
 // plain C entry point and loaded with ctypes.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas/quantized.py, the Pallas kernel
-// _kernel (pl.pallas_call in int8_matmul at :63). Same contract:
-// out (M, N) = (x (M, K) @ w_q (K, N) as f32) * scales[col], in x's dtype
-// (f32 or bf16); int8 weights, f32 per-column scales, f32 accumulation,
-// the scale applied to each column after its reduction, then one rounding
-// to the output dtype. The int8 weights stay int8 in device memory: they
-// are widened on the way from device memory to the products, so the bytes
-// read per weight stay one, the point of weight-only quantization.
+// _kernel (pl.pallas_call in int8_matmul at :63). Int8 weights, f32
+// per-column scales, x and out in f32 or bf16, f32 accumulation. Two
+// modes, chosen by the caller:
+//  * scale after (the Pallas contract, the default of the Python
+//    wrapper): out = (x @ w_q as f32) * scales[col], the scale applied to
+//    each column after its reduction, then one rounding to x's dtype.
+//  * dequantize first (what the JAX package's weight-only predict
+//    computes, dequantize_int8 in pipeline/inference/inference_model.py,
+//    and what the port's dense layer asks for): each weight is formed in
+//    x's dtype before the product, w = q * s with s first rounded to that
+//    dtype and the product rounded once (exact before that rounding:
+//    |q| <= 127 has 7 bits, a bf16 s 8), then out = x @ w summed in f32
+//    and rounded once, with no scale after. In bf16 the two modes differ
+//    by up to half a bf16 step per column (the rounding of s) and per
+//    weight; only the second gives the JAX predict's numbers.
+// The int8 weights stay int8 in device memory: they are widened (and, in
+// the second mode, scaled) on the way from device memory to the
+// products, so the bytes read per weight stay one, the point of
+// weight-only quantization.
 //
 // What bounds it on this card: at batch 1 (config A's M = 1, K = N = 4096)
 // it is a matrix-vector product, 16.8 MB of int8 and nothing else, so the
@@ -20,19 +32,23 @@
 //    threads walks every 128th row of w, a thread loading 16 int8 of a row
 //    in one 16-byte load (where N and w's alignment allow; byte loads
 //    elsewhere, as for the Dense(8) and Dense(2) heads), four rows ahead.
-//    Products in f32 FMAs (a bf16 x int8 product is exact in f32). The
-//    128 partial sums of each output are then added in a fixed tree: a
-//    butterfly over the 16 k-groups of a warp, then the 8 warps in order.
+//    Products in f32 FMAs (a bf16 x int8 or bf16 x bf16 product is exact
+//    in f32). The 128 partial sums of each output are then added in a
+//    fixed tree: a butterfly over the 16 k-groups of a warp, then the 8
+//    warps in order. The second mode scales the 16 weights where they are
+//    widened in registers.
 //  * mma (M > 32, bf16 x): a block owns a 128 x 128 output tile and loops
 //    over K in 32-wide steps. The x tile and the int8 w tile widened to
-//    bf16 (exact: |q| <= 127 fits bf16's 8-bit mantissa) are staged in
-//    shared memory, the next step's tiles loaded into registers while the
-//    current one is multiplied. Products with mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate), as K2 and K4 do; 8 warps of 64 x 32 outputs each;
-//    the w fragments come from the row-major tile through ldmatrix.trans.
-//    Epilogue: acc * scales[col] in f32, one rounding to bf16. bf16 x bf16
-//    products are exact in f32, so the only difference from the TPU
-//    kernel is the order of the sum. wgmma and TMA staging are later work.
+//    bf16 (exact: |q| <= 127 fits bf16's 8-bit mantissa; in the second
+//    mode q * s rounded to bf16) are staged in shared memory, the next
+//    step's tiles loaded into registers while the current one is
+//    multiplied. Products with mma.sync m16n8k16 (bf16 in, f32
+//    accumulate), as K2 and K4 do; 8 warps of 64 x 32 outputs each; the w
+//    fragments come from the row-major tile through ldmatrix.trans.
+//    Epilogue: in the first mode acc * scales[col] in f32; one rounding to
+//    bf16. bf16 x bf16 products are exact in f32, so the only difference
+//    from the TPU kernel (or the JAX predict) is the order of the sum.
+//    wgmma and TMA staging are later work.
 //  * fma (M > 32, f32 x): a block owns a 64 x 64 output tile, 16 rows of
 //    K at a time through shared memory, each thread 4 x 4 outputs, plain
 //    FMAs on the CUDA cores (TF32 would round x to 10 mantissa bits, which
@@ -64,6 +80,20 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
+// v rounded to T and widened back: the value a T holds
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// a column's scale as the dequantize-first mode uses it: rounded to the
+// compute dtype T (0 past N)
+template <typename T>
+__device__ __forceinline__ float col_scale(const float* __restrict__ scales,
+                                           int col, int N) {
+  return col < N ? round_to<T>(scales[col]) : 0.f;
+}
+
 __device__ __forceinline__ float int8_at(uint32_t word, int byte) {
   return static_cast<float>(static_cast<int8_t>(word >> (8 * byte)));
 }
@@ -93,7 +123,9 @@ constexpr int S_KG = S_THREADS / 2;     // k groups (pairs of threads)
 constexpr int S_AHEAD = 4;              // rows of w in flight per thread
 constexpr int SKINNY_MAX_M = 32;
 
-template <typename T, int MT>
+// PRE: dequantize first (each weight q * s rounded to T before its
+// product, no scale after); else the scale after the reduction
+template <typename T, int MT, bool PRE>
 __global__ void __launch_bounds__(S_THREADS)
     int8_mm_skinny(const T* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ scales, T* __restrict__ out,
@@ -108,6 +140,10 @@ __global__ void __launch_bounds__(S_THREADS)
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+  float sc[16];  // this thread's 16 column scales, rounded to T
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    sc[j] = PRE ? col_scale<T>(scales, c0 + j, N) : 0.f;
 
   for (int kb = kg; kb < K; kb += S_KG * S_AHEAD) {
     uint4 raw[S_AHEAD];
@@ -128,8 +164,9 @@ __global__ void __launch_bounds__(S_THREADS)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const float q = int8_at(word[j >> 2], j & 3);
+        const float wv = PRE ? round_to<T>(q * sc[j]) : q;
 #pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[u][m], q, acc[m][j]);
+        for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[u][m], wv, acc[m][j]);
       }
     }
   }
@@ -159,7 +196,7 @@ __global__ void __launch_bounds__(S_THREADS)
       float s = 0.f;
 #pragma unroll
       for (int p = 0; p < S_THREADS / 32; ++p) s += part[p][m][c];
-      out[(size_t)row * N + col] = from_f32<T>(s * scales[col]);
+      out[(size_t)row * N + col] = from_f32<T>(PRE ? s : s * scales[col]);
     }
   }
 }
@@ -206,12 +243,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(a));
 }
 
+template <bool PRE>
 __global__ void __launch_bounds__(T_THREADS)
     int8_mm_mma(const bf16* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ scales, bf16* __restrict__ out,
                 int M, int K, int N, int xvec, int wvec) {
   __shared__ __align__(16) bf16 sA[2][T_BM * LDA];
   __shared__ __align__(16) bf16 sB[2][T_BK * LDB];
+  // PRE: the block's column scales rounded to bf16, in pairs (in shared
+  // memory, not registers: 16 more live registers a thread would halve
+  // the blocks an SM holds)
+  __shared__ __align__(16) __nv_bfloat162 sS[T_BN / 2];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
@@ -222,6 +264,10 @@ __global__ void __launch_bounds__(T_THREADS)
   // columns 16 (tid % 8) ..)
   uint4 ra[2];
   uint4 rb;
+  if (PRE && tid < T_BN / 2)
+    sS[tid] =
+        __floats2bfloat162_rn(col_scale<bf16>(scales, n0 + 2 * tid, N),
+                              col_scale<bf16>(scales, n0 + 2 * tid + 1, N));
   auto load = [&](int k0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -251,11 +297,28 @@ __global__ void __launch_bounds__(T_THREADS)
       *reinterpret_cast<uint4*>(&sA[buf][(tid / 4 + 64 * h) * LDA +
                                          (tid % 4) * 8]) = ra[h];
     const uint32_t word[4] = {rb.x, rb.y, rb.z, rb.w};
-    uint32_t v[8];
+    uint32_t v[8];  // columns 2e and 2e + 1 of the 16
+    if (PRE) {
+      // q * s in one bf16 rounding of the exact product (a bf16x2
+      // multiply; q is exact in bf16)
+      __nv_bfloat162 s2[8];
+      const uint4* sp = reinterpret_cast<const uint4*>(sS) + (tid % 8) * 2;
+      *reinterpret_cast<uint4*>(s2) = sp[0];
+      *reinterpret_cast<uint4*>(s2 + 4) = sp[1];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = pack_bf16(int8_at(word[e >> 1], 2 * (e & 1)),
-                       int8_at(word[e >> 1], 2 * (e & 1) + 1));
+      for (int e = 0; e < 8; ++e) {
+        __nv_bfloat162 w = __hmul2(
+            __floats2bfloat162_rn(int8_at(word[e >> 1], 2 * (e & 1)),
+                                  int8_at(word[e >> 1], 2 * (e & 1) + 1)),
+            s2[e]);
+        v[e] = *reinterpret_cast<uint32_t*>(&w);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = pack_bf16(int8_at(word[e >> 1], 2 * (e & 1)),
+                         int8_at(word[e >> 1], 2 * (e & 1) + 1));
+    }
     uint4* dst = reinterpret_cast<uint4*>(
         &sB[buf][(tid / 8) * LDB + (tid % 8) * 16]);
     dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
@@ -276,6 +339,7 @@ __global__ void __launch_bounds__(T_THREADS)
                     8 * (lane >> 4);
   const int nk = (K + T_BK - 1) / T_BK;
   load(0);
+  if (PRE) __syncthreads();  // sS is written
   store(0);
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
@@ -313,8 +377,8 @@ __global__ void __launch_bounds__(T_THREADS)
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int col = n0 + wn + 8 * j + 2 * t;
-    const float s0 = col < N ? scales[col] : 0.f;
-    const float s1 = col + 1 < N ? scales[col + 1] : 0.f;
+    const float s0 = PRE ? 1.f : (col < N ? scales[col] : 0.f);
+    const float s1 = PRE ? 1.f : (col + 1 < N ? scales[col + 1] : 0.f);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -341,6 +405,7 @@ __global__ void __launch_bounds__(T_THREADS)
 
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
 
+template <bool PRE>
 __global__ void __launch_bounds__(F_THREADS)
     int8_mm_fma(const float* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ scales, float* __restrict__ out,
@@ -353,6 +418,10 @@ __global__ void __launch_bounds__(F_THREADS)
   // tid / 16, columns 4 (tid % 16) ..
   float ra[4];
   uint32_t rb;
+  float sc[4];  // the scales of this thread's 4 w columns (PRE only)
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sc[e] = PRE ? col_scale<float>(scales, n0 + (tid % 16) * 4 + e, N) : 1.f;
   auto load = [&](int k0) {
     const int r = m0 + tid / 4, c = k0 + (tid % 4) * 4;
     const float* p = x + (size_t)r * K + c;
@@ -386,7 +455,8 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sA[(tid % 4) * 4 + e][tid / 4] = ra[e];
-      sB[tid / 16][(tid % 16) * 4 + e] = int8_at(rb, e);
+      sB[tid / 16][(tid % 16) * 4 + e] =
+          PRE ? int8_at(rb, e) * sc[e] : int8_at(rb, e);
     }
     __syncthreads();
     if (kt + 1 < nk) load((kt + 1) * F_BK);
@@ -408,7 +478,7 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int j = 0; j < 4; ++j) {
     const int col = n0 + tx + 16 * j;
     if (col >= N) continue;
-    const float s = scales[col];
+    const float s = PRE ? 1.f : scales[col];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = m0 + ty + 16 * i;
@@ -423,52 +493,67 @@ int aligned(const void* p, int bytes) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T>
+template <typename T, bool PRE>
 void launch_skinny(const T* x, const int8_t* w, const float* s, T* out, int M,
                    int K, int N, cudaStream_t stream) {
   const int vec = N % 16 == 0 && aligned(w, 16);
   if (M == 1) {
-    int8_mm_skinny<T, 1><<<dim3(cdiv(N, S_BN), 1), S_THREADS, 0, stream>>>(
-        x, w, s, out, M, K, N, vec);
+    int8_mm_skinny<T, 1, PRE>
+        <<<dim3(cdiv(N, S_BN), 1), S_THREADS, 0, stream>>>(x, w, s, out, M,
+                                                          K, N, vec);
   } else {
-    int8_mm_skinny<T, 4><<<dim3(cdiv(N, S_BN), cdiv(M, 4)), S_THREADS, 0,
-                           stream>>>(x, w, s, out, M, K, N, vec);
+    int8_mm_skinny<T, 4, PRE>
+        <<<dim3(cdiv(N, S_BN), cdiv(M, 4)), S_THREADS, 0, stream>>>(
+            x, w, s, out, M, K, N, vec);
+  }
+}
+
+template <bool PRE>
+void launch(const void* x, const int8_t* wq, const float* sc, void* out,
+            int M, int K, int N, int dtype, cudaStream_t s) {
+  if (M <= SKINNY_MAX_M) {
+    if (dtype == 0)
+      launch_skinny<float, PRE>(static_cast<const float*>(x), wq, sc,
+                                static_cast<float*>(out), M, K, N, s);
+    else
+      launch_skinny<bf16, PRE>(static_cast<const bf16*>(x), wq, sc,
+                               static_cast<bf16*>(out), M, K, N, s);
+  } else if (dtype == 1) {
+    const int xvec = K % 8 == 0 && aligned(x, 16);
+    const int wvec = N % 16 == 0 && aligned(wq, 16);
+    int8_mm_mma<PRE>
+        <<<dim3(cdiv(N, T_BN), cdiv(M, T_BM)), T_THREADS, 0, s>>>(
+        static_cast<const bf16*>(x), wq, sc, static_cast<bf16*>(out), M, K,
+        N, xvec, wvec);
+  } else {
+    const int xvec = K % 4 == 0 && aligned(x, 16);
+    const int wvec = N % 4 == 0 && aligned(wq, 4);
+    int8_mm_fma<PRE>
+        <<<dim3(cdiv(N, F_BN), cdiv(M, F_BM)), F_THREADS, 0, s>>>(
+        static_cast<const float*>(x), wq, sc, static_cast<float*>(out), M, K,
+        N, xvec, wvec);
   }
 }
 
 }  // namespace
 
 // x (M, K) f32 (dtype 0) or bf16 (dtype 1), w (K, N) int8, scales (N,) f32,
-// out (M, N) in x's dtype; all contiguous. Returns the launch's cudaError_t
-// (0 on success); the kernel runs on `stream` and the call does not
-// synchronise.
+// out (M, N) in x's dtype; all contiguous. dequantize_first: 0 applies the
+// scale after the reduction (the Pallas contract), 1 forms each weight
+// q * s in x's dtype before the product (the JAX weight-only predict).
+// Returns the launch's cudaError_t (0 on success); the kernel runs on
+// `stream` and the call does not synchronise.
 extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
                            void* out, int M, int K, int N, int dtype,
-                           void* stream) {
+                           int dequantize_first, void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scales);
-  if (M <= SKINNY_MAX_M) {
-    if (dtype == 0)
-      launch_skinny(static_cast<const float*>(x), wq, sc,
-                    static_cast<float*>(out), M, K, N, s);
-    else
-      launch_skinny(static_cast<const bf16*>(x), wq, sc,
-                    static_cast<bf16*>(out), M, K, N, s);
-  } else if (dtype == 1) {
-    const int xvec = K % 8 == 0 && aligned(x, 16);
-    const int wvec = N % 16 == 0 && aligned(w, 16);
-    int8_mm_mma<<<dim3(cdiv(N, T_BN), cdiv(M, T_BM)), T_THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), wq, sc, static_cast<bf16*>(out), M, K,
-        N, xvec, wvec);
-  } else {
-    const int xvec = K % 4 == 0 && aligned(x, 16);
-    const int wvec = N % 4 == 0 && aligned(w, 4);
-    int8_mm_fma<<<dim3(cdiv(N, F_BN), cdiv(M, F_BM)), F_THREADS, 0, s>>>(
-        static_cast<const float*>(x), wq, sc, static_cast<float*>(out), M, K,
-        N, xvec, wvec);
-  }
+  if (dequantize_first)
+    launch<true>(x, wq, sc, out, M, K, N, dtype, s);
+  else
+    launch<false>(x, wq, sc, out, M, K, N, dtype, s);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: after the sources: the driver API (the toolkit's stub at build time, the
+#: driver's ``libcuda.so.1`` at load), for ``cuTensorMapEncodeTiled``, which
+#: builds the TMA tensor maps of the flash-attention backward
+LINK_FLAGS = ("-lcuda",)
 
 
 def _nvcc() -> str:
@@ -54,7 +58,7 @@ class CudaLibrary:
         self.build_seconds: Optional[float] = None
 
     def path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for src in self.sources:
             h.update(src.name.encode())
             h.update(src.read_bytes())
@@ -70,7 +74,7 @@ class CudaLibrary:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             *[str(s) for s in self.sources]],
+             *[str(s) for s in self.sources], *LINK_FLAGS],
             capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
         self.build_log = proc.stdout + proc.stderr

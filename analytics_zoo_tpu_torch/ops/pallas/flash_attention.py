@@ -197,6 +197,12 @@ def _check(q, k, v, mask):
 
 
 def _check_operands(d: int, **tensors) -> None:
+    """What the CUDA kernels need of their operands: a head dim they are
+    built for, and each tensor contiguous from a 16-byte boundary (the
+    forward and the f32 backward read 16-byte vectors; the bf16 backward
+    reads q, k, v, dO, lse and delta through TMA, whose tensor maps take
+    only 16-byte aligned bases, rows of D * 2 bytes being multiples of 16
+    for every head dim here)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIMS}; "
                          f"got {d}")
@@ -205,7 +211,6 @@ def _check_operands(d: int, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous for the CUDA "
                              f"kernel")
         if t.data_ptr() % 16:
-            # the bf16 path reads 16-byte vectors
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              f"for the CUDA kernel")
 
@@ -243,11 +248,11 @@ def _launch_bwd_kernel(name: str, counter: _LaunchCount, q, k, v, mask,
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device.type}")
     b, h, t_q, d = q.shape
-    _check_operands(d, q=q, k=k, v=v, do=do)
     for t in (lse, delta):
         if t.dtype != torch.float32 or t.shape != (b, h, t_q) \
                 or not t.is_contiguous():
             raise ValueError("lse/delta must be contiguous f32 (B, H, Tq)")
+    _check_operands(d, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
     if outs[0].numel() == 0:

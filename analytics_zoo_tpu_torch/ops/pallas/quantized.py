@@ -11,6 +11,14 @@ predict, leaving the fusion to XLA; eager PyTorch has no such fusion, so in
 the port K6 itself is that fused program: every ``dense`` over an int8
 weight runs it (``pipeline/api/keras/layers/core.py``).
 
+That program computes what the JAX predict computes, which is not the
+Pallas kernel's formula: ``dequantize_int8`` forms each weight in the
+compute dtype first, ``w = q.astype(dtype) * s.astype(dtype)`` (in bf16
+both ``s`` and ``q * s`` round to bf16), and the product then rounds once.
+``dequantize_first=True`` selects that order (the kernel scales each weight
+where it widens it); the default keeps the Pallas contract. In f32 the two
+differ by rounding only; in bf16 by up to half a bf16 step per column.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`int8_matmul_reference`, the TPU kernel's own arithmetic.
 The JAX wrapper's ``block_m``/``block_n``/``interpret`` arguments are TPU
@@ -35,7 +43,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matmul.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.int8_matmul.restype = ctypes.c_int
 
 
@@ -62,21 +70,30 @@ def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
 
 
 def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
-                          scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of K6, the TPU kernel's arithmetic: the f32 product,
-    then the per-column scale, then one rounding to ``x``'s dtype."""
+                          scales: torch.Tensor,
+                          dequantize_first: bool = False) -> torch.Tensor:
+    """Plain version of K6. By default the TPU kernel's arithmetic: the f32
+    product, then the per-column scale, then one rounding to ``x``'s
+    dtype. ``dequantize_first``: the JAX weight-only predict's, each
+    weight ``q * s`` formed in ``x``'s dtype (``s`` rounded to it first),
+    then the f32 product rounded once."""
+    if dequantize_first:
+        w = w_q.to(x.dtype) * scales.to(x.dtype)
+        return (x.float() @ w.float()).to(x.dtype)
     return ((x.float() @ w_q.float()) * scales.float()).to(x.dtype)
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                scales: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
+                dequantize_first: bool = False) -> torch.Tensor:
     """K6: ``x (M, K) @ dequant(w_q (K, N) int8, scales (N,))`` → ``(M, N)``
-    in ``x.dtype``; equivalent to ``x @ (w_q.float() * scales)``. CUDA
-    tensors launch the kernel (or raise); CPU tensors run
+    in ``x.dtype``; by default ``(x @ w_q.float()) * scales``, the Pallas
+    contract, with ``dequantize_first`` ``x @ (w_q.to(x.dtype) *
+    scales.to(x.dtype))``, the JAX predict's (see the module docstring).
+    CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`int8_matmul_reference`."""
     _check(x, w_q, scales)
     if x.device.type == "cpu":
-        return int8_matmul_reference(x, w_q, scales)
+        return int8_matmul_reference(x, w_q, scales, dequantize_first)
     (m, k), n = x.shape, w_q.shape[1]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
@@ -86,7 +103,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     with torch.cuda.device(x.device):
         err = LIBRARY.get().int8_matmul(
             x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            m, k, n, _DTYPE_CODES[x.dtype],
+            m, k, n, _DTYPE_CODES[x.dtype], int(dequantize_first),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "int8_matmul")
     KERNEL_INT8_MATMUL.launches += 1

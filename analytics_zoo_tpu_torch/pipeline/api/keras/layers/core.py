@@ -41,15 +41,20 @@ def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
     which differs in bf16.
 
     An int8 ``W`` (weight-only int8 inference) comes with its per-column
-    f32 ``scale`` and goes through K6, :func:`int8_matmul`, which applies
-    the scale after the f32 reduction and rounds once to ``cd``; the bias
-    follows in ``cd`` as above. An int8 ``W`` without a scale raises: read
-    as a float it would be the unscaled integers."""
+    f32 ``scale`` and goes through K6, :func:`int8_matmul`, in its
+    dequantize-first mode: each weight ``q * s`` is formed in ``cd`` (``s``
+    rounded to ``cd`` first) before the f32 product rounds once to ``cd``,
+    which is what the JAX predict's ``dequantize_int8`` followed by the
+    matmul computes. (K6's default, the Pallas contract, scales after the
+    reduction; in bf16 that differs by up to half a step per column.) The
+    bias follows in ``cd`` as above. An int8 ``W`` without a scale raises:
+    read as a float it would be the unscaled integers."""
     if W.dtype == torch.int8:
         if scale is None:
             raise ValueError("dense: an int8 W needs its per-column scale")
         lead = x.shape[:-1]
-        y = int8_matmul(x.to(cd).reshape(-1, x.shape[-1]), W, scale)
+        y = int8_matmul(x.to(cd).reshape(-1, x.shape[-1]), W, scale,
+                        True)   # dequantize first
         y = y.reshape(*lead, W.shape[1])
     else:
         y = torch.matmul(x.to(cd), W.to(cd))

@@ -13,7 +13,8 @@
    (timed here only, as a yardstick) and its roofline bound.
 3. Backward kernel phase: holds K3a (dq) and K3b (dk/dv) against their
    plain versions at the same shapes (key padding, causal, t_q != t_kv
-   both ways, a fully masked batch row whose gradients must be exactly 0).
+   both ways, a fully masked batch row whose gradients must be exactly 0)
+   and against themselves: the same bits on a second run.
 4. Serving phase: a full-width BERT-base ``BERTClassifier`` (random
    weights from a seed, bf16 policy, ``zoo.pallas.attention=true``) behind
    ``InferenceModel`` and ``ClusterServing(batch_size=32)`` on a
@@ -71,16 +72,20 @@
    ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
    the head's batch-1 and batch-32 shapes (K = N = 4096), BERT-base's qkv
    and fc/out products (M = 32 x 512), BERT's Dense(2) head and a ragged
-   (17, 100, 10): f32 within 1e-4 of the case's largest value, bf16 within
-   one bf16 step there, the same bits over two runs; each timed (wrapper,
-   CUDA-graph device time, plain, ``torch.matmul`` on the dequantized
-   weight, bound). The static path's padded ``torch._int_mm`` bit for bit
+   (17, 100, 10), in both modes (dequantize-first, which ``dense`` runs,
+   and the Pallas contract's scale-after): f32 within 1e-4 of the case's
+   largest value, bf16 within one bf16 step there, the same bits over two
+   runs; each timed in the first mode (wrapper, CUDA-graph device time,
+   plain, ``torch.matmul`` on the dequantized weight, bound) with the
+   second mode's device time beside. The static path's padded ``torch._int_mm`` bit for bit
    against the CPU's int32 product at M = 1 and 32.
 12. int8 serving phase (config B): the serving phase's BERT-base, records
    and adapter on the weight-only int8 ``InferenceModel`` that
    ``ClusterServing._wrap_model`` builds for ``dtype="int8"``: every matmul
    weight int8 on the device, 50 K6 and 12 K2 launches per dispatch, the
-   answers within 2e-2 of bf16 serving on the dequantized weights.
+   answers within 2e-2 of bf16 serving on the dequantized weights (and,
+   printed beside, of bf16 serving on the weights the JAX predict forms,
+   ``bf16(q) * bf16(s)``, which K6's dequantize-first mode forms too).
 13. int8 head phase (config A): the JAX bench's weight-streaming scoring
    head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
    f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
@@ -93,8 +98,10 @@
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
-path; the attention kernels also checked against their plain versions
-and timed at the LM shape, K1 and SA also at the DLRM width), and last
+path; the attention kernels also checked against their plain versions,
+checked for the same gradient bits over two runs and timed at the LM
+shape beside SDPA's causal forward and backward there, K1 and SA also at
+the DLRM width), and last
 ``{"ok":
 true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device, outside the repository, or when any check fails.
@@ -468,7 +475,9 @@ def int8_kernel_phase():
     """K6 against its plain version at the shapes of the two int8 paths:
     the scoring head at batch 1 and 32 (K = N = 4096), BERT-base's qkv and
     fc/out products at 32 x 512 tokens, BERT's Dense(2) head, and a ragged
-    case; f32 and bf16. Weight sets above 8 MB rotate over enough copies
+    case; f32 and bf16; in both modes, dequantize-first (what ``dense``,
+    hence both paths, runs: the row's numbers) and the Pallas contract's
+    scale-after (checked and timed beside). Weight sets above 8 MB rotate over enough copies
     to exceed the 50 MB L2, so each timed call reads its weights from HBM,
     as a batch-1 predict through the 4-layer head does. Then the padded
     ``torch._int_mm`` of the static path, bit for bit against the CPU's
@@ -490,30 +499,40 @@ def int8_kernel_phase():
                                 dtype=torch.int8).cuda()
                   for _ in range(copies)]
             sc = (torch.rand(n, generator=g) * 0.09 + 0.01).cuda()
-            out = int8_matmul(x, ws[0], sc)
-            again = int8_matmul(x, ws[0], sc)
-            torch.cuda.synchronize()
-            ref = int8_matmul_reference(x, ws[0], sc)
-            top = ref.float().abs().max().item()
-            tol = 1e-4 * top if dtype == torch.float32 else bf16_step(top)
-            err = (out.float() - ref.float()).abs().max().item()
-            bits = torch.int32 if dtype == torch.float32 else torch.int16
-            same = torch.equal(out.view(bits), again.view(bits))
-            check(err <= tol, f"K6 {name}: max |kernel - plain| {err} > "
-                  f"{tol}")
-            check(same, f"K6 {name}: two runs differ")
-            deq = [(w.float() * sc).to(dtype) for w in ws]
+            errs = {}
+            for first in (True, False):
+                out = int8_matmul(x, ws[0], sc, first)
+                again = int8_matmul(x, ws[0], sc, first)
+                torch.cuda.synchronize()
+                ref = int8_matmul_reference(x, ws[0], sc, first)
+                top = ref.float().abs().max().item()
+                tol = (1e-4 * top if dtype == torch.float32
+                       else bf16_step(top))
+                err = (out.float() - ref.float()).abs().max().item()
+                bits = torch.int32 if dtype == torch.float32 else torch.int16
+                same = torch.equal(out.view(bits), again.view(bits))
+                mode = "dequantize-first" if first else "scale-after"
+                check(err <= tol, f"K6 {name} {mode}: max |kernel - plain| "
+                      f"{err} > {tol}")
+                check(same, f"K6 {name} {mode}: two runs differ")
+                errs[first] = (err, tol, same)
+            err, tol, same = errs[True]
+            deq = [w.to(dtype) * sc.to(dtype) for w in ws]
             bound_ms, bound_by = int8_bound(m, k, n, dtype)
             row = {
                 "case": name, "m": m, "k": k, "n": n,
                 "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
                 "same_bits_two_runs": same, "weight_copies": copies,
-                "ms": time_ms(cycling(lambda j: int8_matmul(x, ws[j], sc),
-                                      copies)),
+                "max_abs_err_scale_after": errs[False][0],
+                "ms": time_ms(cycling(
+                    lambda j: int8_matmul(x, ws[j], sc, True), copies)),
                 "device_ms": graph_ms(cycling(
+                    lambda j: int8_matmul(x, ws[j], sc, True), copies)),
+                "device_ms_scale_after": graph_ms(cycling(
                     lambda j: int8_matmul(x, ws[j], sc), copies)),
                 "plain_ms": time_ms(cycling(
-                    lambda j: int8_matmul_reference(x, ws[j], sc), copies)),
+                    lambda j: int8_matmul_reference(x, ws[j], sc, True),
+                    copies)),
                 "library_ms": time_ms(cycling(
                     lambda j: torch.matmul(x, deq[j]), copies)),
                 "library_device_ms": graph_ms(cycling(
@@ -540,10 +559,13 @@ def int8_kernel_phase():
     return rows
 
 
-def dequantized_copy(net):
+def dequantized_copy(net, dtype=None):
     """A float copy of a weight-only int8 network: each int8 ``W`` becomes
     ``W.float() * w_scale`` (every other leaf already is what the runtime
-    computes with) — the model the int8 path is held against."""
+    computes with) — the model the int8 path is held against. With
+    ``dtype``, ``W.to(dtype) * w_scale.to(dtype)`` instead: the weights the
+    JAX weight-only predict forms (``dequantize_int8``), which K6's
+    dequantize-first mode forms too."""
     import copy
 
     import torch
@@ -552,8 +574,10 @@ def dequantized_copy(net):
         if "w_scale" in mod._buffers:
             w = mod._buffers.pop("W")
             s = mod._buffers.pop("w_scale")
+            deq = (w.float() * s if dtype is None
+                   else w.to(dtype) * s.to(dtype))
             mod.register_parameter("W", torch.nn.Parameter(
-                w.float() * s, requires_grad=False))
+                deq, requires_grad=False))
     return net
 
 
@@ -716,6 +740,8 @@ def int8_serving_phase(bf16_records_per_s):
     check(int8_weights >= 85e6, f"{int8_weights} int8 matmul weights")
     deq = InferenceModel(concurrent_num=2, device="cuda").from_keras(
         dequantized_copy(im._model))
+    deq_jax = InferenceModel(concurrent_num=2, device="cuda").from_keras(
+        dequantized_copy(im._model, torch.bfloat16))
     n_block = cfg["n_block"]
     ids = serving_records(cfg["vocab"])
     adapter = BertAdapter(im)
@@ -739,16 +765,21 @@ def int8_serving_phase(bf16_records_per_s):
     check(chunks > 0 and k6 == (4 * n_block + 2) * chunks,
           f"{k6} K6 launches for {chunks} dispatches")
     check(k2 == n_block * chunks, f"{k2} K2 launches for {chunks} dispatches")
-    want = np.concatenate([deq.predict(adapter.inputs(ids[i:i + T_BATCH]))
-                           for i in range(0, N_RECORDS, T_BATCH)])
+    want, want_jax = (
+        np.concatenate([m.predict(adapter.inputs(ids[i:i + T_BATCH]))
+                        for i in range(0, N_RECORDS, T_BATCH)])
+        for m in (deq, deq_jax))
     diff = float(np.abs(got - want).max())
+    diff_jax = float(np.abs(got - want_jax).max())
     print(f"int8 serving: max |int8 - bf16 on the dequantized weights| "
-          f"probability {diff:.3e} (tolerance 2e-2)")
+          f"probability {diff:.3e} (tolerance 2e-2); on the weights the JAX "
+          f"predict forms, bf16(q) * bf16(s) in bf16: {diff_jax:.3e}")
     check(diff <= 2e-2, f"int8 vs dequantized bf16 {diff}")
+    check(diff_jax <= 2e-2, f"int8 vs the JAX predict's weights {diff_jax}")
     return {"records_per_s": N_RECORDS / wall, "wall_s": wall,
             "bf16_records_per_s": bf16_records_per_s, "dispatches": chunks,
             "launches": k6, "flash_launches": k2, "int8_bytes": int8_weights,
-            "vs_dequantized": diff}
+            "vs_dequantized": diff, "vs_jax_predict_weights": diff_jax}
 
 
 def int8_kernel_row(int8_rows, launches):
@@ -775,9 +806,17 @@ def int8_kernel_row(int8_rows, launches):
     return row
 
 
+def same_bits(a, b):
+    """Same bits, bf16 or f32."""
+    import torch
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
 def bwd_kernel_phase():
     """K3a and K3b against their plain versions on one forward's output and
-    lse. Tolerances relative to the case's largest gradient: f32 1e-4
+    lse, and against themselves: the same bits on a second run.
+    Tolerances relative to the case's largest gradient: f32 1e-4
     (summation order), bf16 2e-2 (one bf16 step where the two f32 sums
     fall on either side of a rounding boundary)."""
     import torch
@@ -808,13 +847,18 @@ def bwd_kernel_phase():
         delta = (do.float() * out.float()).sum(-1)
         dq = bwd_dq(q, k, v, mask, lse, delta, do, causal)
         dk, dv = bwd_dkv(q, k, v, mask, lse, delta, do, causal)
+        again = (bwd_dq(q, k, v, mask, lse, delta, do, causal),
+                 *bwd_dkv(q, k, v, mask, lse, delta, do, causal))
         torch.cuda.synchronize()
         want = (bwd_dq_reference(q, k, v, mask, lse, delta, do, causal),
                 *bwd_dkv_reference(q, k, v, mask, lse, delta, do, causal))
         row = {"case": name, "shape": [8, 12, tq, tk, 64],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "tol_rel": tol}
-        for key, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        for key, got, ref, got2 in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       want, again):
+            check(same_bits(got, got2), f"{name}: {key} not the same bits "
+                  f"on a second run")
             check(bool(torch.isfinite(got).all()), f"{name}: {key} not "
                   f"finite")
             err = (got.float() - ref.float()).abs().max().item()
@@ -996,7 +1040,13 @@ def main_path_kernel_rows(ids, launches):
     delta = (do.float() * out.float()).sum(-1)
     dq = bwd_dq(q, k, v, mask, lse, delta, do)
     dk, dv = bwd_dkv(q, k, v, mask, lse, delta, do)
+    again = (bwd_dq(q, k, v, mask, lse, delta, do),
+             *bwd_dkv(q, k, v, mask, lse, delta, do))
     torch.cuda.synchronize()
+    for key, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        check(same_bits(a, b), f"main-path shape: {key} not the same bits "
+              f"on a second run")
+    del again
     ref_out, _ = flash_attention_reference(q, k, v, mask, want_lse=True)
     ref_dq = bwd_dq_reference(q, k, v, mask, lse, delta, do)
     ref_dk, ref_dv = bwd_dkv_reference(q, k, v, mask, lse, delta, do)
@@ -1432,18 +1482,43 @@ def lm_kernel_rows(labels_np, launches):
         "flash_attention_bwd_dkv": time_ms(lambda: bwd_dkv(
             q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
     }
+    # yardsticks only: SDPA forward and backward (dq, dk, dv in one call),
+    # causal, at this shape
+    sdpa_lm = lm_sdpa_ms(q, k, vv, do)
+    print(f"lm attention SDPA yardsticks, causal bf16: {json.dumps(sdpa_lm)}")
     return rows, {name: {"launches_lm": launches[name], "ms_lm": ms,
                          "max_abs_err_lm": errors_lm[name],
                          "bound_ms_lm": bounds_lm[name][0],
-                         "bound_by_lm": bounds_lm[name][1]}
+                         "bound_by_lm": bounds_lm[name][1],
+                         "library_ms_lm": sdpa_lm[
+                             "fwd" if name == "flash_attention_fwd"
+                             else "bwd"]}
                   for name, ms in flash_lm.items()}
+
+
+def lm_sdpa_ms(q, k, v, do):
+    """``scaled_dot_product_attention(is_causal=True)`` at the LM shape: the
+    forward's time, and the backward's (one call computes dq, dk and dv:
+    the K3a + K3b pair's yardstick). Timed here only; the port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True),
+                  iters=5, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                              retain_graph=True),
+                  iters=5, warmup=1)
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def lm_attention_errors(q, k, v, do, out, lse, delta):
     """K2, K3a and K3b against their plain versions at the LM shape
     (causal, no mask, bf16), with the tolerances of the BERT-shape phases:
     K2's output 2e-2 absolute and its lse 1e-3, the gradients 2e-2 of the
-    largest. The plain versions form the f32 score matrix, 8.6 GB at this
+    largest, and the same gradient bits on a second run. The plain versions form the f32 score matrix, 8.6 GB at this
     shape, so they run one batch row at a time. Returns each kernel's
     largest absolute error."""
     import torch
@@ -1453,7 +1528,13 @@ def lm_attention_errors(q, k, v, do, out, lse, delta):
         flash_attention_reference)
     dq = bwd_dq(q, k, v, None, lse, delta, do, True)
     dk, dv = bwd_dkv(q, k, v, None, lse, delta, do, True)
+    again = (bwd_dq(q, k, v, None, lse, delta, do, True),
+             *bwd_dkv(q, k, v, None, lse, delta, do, True))
     torch.cuda.synchronize()
+    for key, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        check(same_bits(a, b), f"LM shape: {key} not the same bits on a "
+              f"second run")
+    del again
     got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
     err = dict.fromkeys(got, 0.0)
     top = dict.fromkeys(got, 0.0)

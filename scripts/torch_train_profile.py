@@ -39,8 +39,8 @@ FAMILIES = (
     ("fused_ce_bwd_dh (K5a)", ("ce_bwd_dh_mma", "ce_bwd_dh_fma")),
     ("fused_ce_bwd_dw (K5b)", ("ce_bwd_dw_mma", "ce_bwd_dw_fma")),
     ("flash_attention_fwd (K2)", ("flash_fwd_mma", "flash_fwd_fma")),
-    ("flash_attention_bwd_dq (K3a)", ("bwd_dq_mma", "bwd_dq_fma")),
-    ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_mma", "bwd_dkv_fma")),
+    ("flash_attention_bwd_dq (K3a)", ("bwd_dq_wgmma", "bwd_dq_fma")),
+    ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_wgmma", "bwd_dkv_fma")),
     ("embed_expand (K1)", ("expand_rows",)),
     ("dedup_scatter_add (SA)", ("segment_sum_rows",)),
     ("sort (unique ids, SA order)", ("Sort", "sort")),

@@ -106,6 +106,17 @@ def test_bert_serving_goes_through_the_kernel(cuda):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+def _tile_edge_mask(mask):
+    """Batch rows 2 and 3 of a key-padding mask at the kernels' 64-key tile
+    edges: row 2 keeps only the first key tile, row 3 hides its second key
+    tile (keys 64..127) entirely and keeps every other key."""
+    mask[2] = 0.0
+    mask[2, :64] = 1.0
+    mask[3] = 1.0
+    mask[3, 64:128] = 0.0
+    return mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2e-2)])
@@ -113,12 +124,20 @@ def test_bert_serving_goes_through_the_kernel(cuda):
 @pytest.mark.parametrize("causal,tq,tk", [(False, 130, 130),
                                           (True, 130, 130),
                                           (True, 200, 70),
-                                          (False, 33, 260)])
+                                          (False, 33, 260),
+                                          (False, 200, 200),
+                                          (True, 70, 200),
+                                          (True, 4100, 4100)])
 def test_backward_kernels_match_plain_version(cuda, dtype, rtol, d, causal,
                                               tq, tk):
     """K3a and K3b against the plain backward on the same forward output
-    and lse; batch row 0 sees no key, so its grads are exactly zero."""
-    q, k, v, mask = _inputs(2, 3, tq, tk, d, dtype, seed=d + tk)
+    and lse, over ragged tiles (T = 200, 4100), both causal cross lengths
+    and every head dim. Batch row 0 sees no key, so its grads are exactly
+    zero; row 2 sees only the first key tile and row 3 none of the second
+    (``_tile_edge_mask``), so dk and dv of the hidden keys are exactly
+    zero. The same bits again on a second run."""
+    q, k, v, mask = _inputs(4, 3, tq, tk, d, dtype, seed=d + tk)
+    mask = _tile_edge_mask(mask)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)
                      ).to("cuda", dtype)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -127,19 +146,26 @@ def test_backward_kernels_match_plain_version(cuda, dtype, rtol, d, causal,
     out, lse = flash_attention(q, k, v, mask=mask, causal=causal,
                                want_lse=True)
     assert out.grad_fn is not None
-    got = torch.autograd.grad(out, (q, k, v), do)
+    got = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert (KERNEL.launches, KERNEL_BWD_DQ.launches,
-            KERNEL_BWD_DKV.launches) == tuple(n + 1 for n in before)
+            KERNEL_BWD_DKV.launches) == (before[0] + 1, before[1] + 2,
+                                         before[2] + 2)
     want = flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
                                          mask, out.detach(), lse, do, causal)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
         assert g.dtype == dtype and g.shape == w.shape
         assert torch.all(g[0] == 0), f"{name}: empty batch row not zero"
         assert torch.isfinite(g).all(), name
         scale = max(w.float().abs().max().item(), 1e-6)
         err = (g.float() - w.float()).abs().max().item()
         assert err <= rtol * scale, f"{name}: {err} > {rtol} * {scale}"
+        assert torch.equal(g.view(bits), g2.view(bits)), f"{name}: bits"
+    for name, g in (("dk", got[1]), ("dv", got[2])):
+        assert torch.all(g[2, :, 64:] == 0), f"{name}: keys past tile 0"
+        assert torch.all(g[3, :, 64:128] == 0), f"{name}: hidden key tile"
 
 
 @pytest.mark.cuda
@@ -519,6 +545,35 @@ def test_int8_matmul_kernel_matches_plain_version(cuda, dtype, m, k, n):
                                 else torch.int32),
                        again.view(torch.int16 if dtype == torch.bfloat16
                                   else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (32, 4096, 4096),
+                                   (17, 100, 10), (32, 768, 2),
+                                   (33, 130, 130), (300, 768, 2304),
+                                   (129, 3072, 768)])
+def test_int8_matmul_dequantize_first_matches_plain_version(cuda, dtype, m,
+                                                            k, n):
+    """K6's dequantize-first mode (each weight q * s formed in x's dtype
+    before the product, as the JAX weight-only predict does) against its
+    plain version: the tolerances above, then the same bits twice."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, int8_matmul, int8_matmul_reference)
+    x, w, s = (t.to(cuda) for t in _int8_operands(m, k, n, dtype, m + n))
+    before = KERNEL_INT8_MATMUL.launches
+    got = int8_matmul(x, w, s, dequantize_first=True)
+    again = int8_matmul(x, w, s, dequantize_first=True)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_MATMUL.launches == before + 2
+    want = int8_matmul_reference(x, w, s, dequantize_first=True)
+    assert got.dtype == dtype and got.shape == (m, n)
+    top = want.float().abs().max().item()
+    tol = 1e-4 * top if dtype == torch.float32 else _bf16_step(top)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), again.view(bits))
 
 
 @pytest.mark.cuda

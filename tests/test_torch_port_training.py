@@ -139,6 +139,48 @@ def test_flash_grads_match_jax_bf16(causal):
                                    rtol=0)
 
 
+@pytest.mark.parametrize("d,causal,tq,tk", [(32, False, 200, 200),
+                                            (128, True, 200, 200),
+                                            (64, True, 70, 200),
+                                            (64, True, 200, 70)])
+def test_flash_grads_match_jax_at_kernel_tile_edges(d, causal, tq, tk):
+    """The shapes and masks the CUDA backward's 64-row tiles are classified
+    by, on the plain version against JAX: ragged T = 200, D = 32 and 128,
+    causal with t_q < t_kv and t_q > t_kv; batch row 0 keeps only the
+    first 64 keys and row 1 hides keys 64..127 entirely, so dk and dv of
+    those keys are exactly zero on both sides."""
+    q, k, v, do, mask = _attn_inputs(2, 2, tq, tk, d, seed=d + tq)
+    mask[0] = 0.0
+    mask[0, :64] = 1.0
+    mask[1] = 1.0
+    mask[1, 64:128] = 0.0
+    got = _port_grads(q, k, v, do, mask, causal)
+    want = _jax_grads(q, k, v, do, mask, causal)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+    for g, w in zip(got[1:], want[1:]):
+        assert np.all(g[0, :, 64:] == 0.0) and np.all(w[0, :, 64:] == 0.0)
+        assert np.all(g[1, :, 64:128] == 0.0)
+        assert np.all(w[1, :, 64:128] == 0.0)
+
+
+@pytest.mark.parametrize("name", ["q", "lse"])
+def test_backward_wrapper_refuses_misaligned_operands(name):
+    """The CUDA backward reads q, k, v, dO, lse and delta through TMA, whose
+    tensor maps take only 16-byte aligned bases: the operand check refuses
+    a view that starts 4 bytes in (checked before any launch, so it runs
+    on CPU tensors too)."""
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import \
+        _check_operands
+    ok = {"q": torch.zeros(1, 2, 8, 64), "lse": torch.zeros(1, 2, 8)}
+    _check_operands(64, **ok)
+    flat = torch.zeros(ok[name].numel() + 1)
+    ok[name] = flat[1:].view(ok[name].shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _check_operands(64, **ok)
+
+
 @pytest.mark.parametrize("causal,tq,tk", [(False, 24, 40), (True, 40, 24),
                                           (True, 24, 40)])
 def test_plain_backward_matches_autograd_of_plain_forward(causal, tq, tk):
