@@ -54,11 +54,10 @@
 //  * f32: plain FMAs on the CUDA cores (TF32 would round the operands to
 //    10 mantissa bits, outside the f32 contract).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -305,276 +304,30 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma on TMA-fed tiles. Fragment layouts (PTX ISA, wgmma m64nNk16):
-// warp w of the warpgroup owns rows 16w .. 16w + 15; with g = lane / 4 and
-// t = lane % 4, accumulator register 4j + e holds row 16w + g + 8 (e >> 1),
-// column 8j + 2t + (e & 1); the register A operand of a 16-wide k step is
-// the same layout over its 16 columns, packed in pairs.
+// bf16: wgmma on TMA-fed tiles (the helpers and fragment layouts are in
+// hopper.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace hopper;
 
-// A 64-row bf16 tile of head dim D lies in shared memory as D / CW chunks
-// of 64 rows x SWB bytes, each in the swizzled layout TMA writes and the
-// wgmma descriptors name: a 128-byte swizzle (a chunk row is 128 bytes, 64
-// columns), or a 64-byte one at D = 32.
+// ring depths: K3a's 2 stages keep a block at about 50 KB of shared
+// memory at D = 64, so four blocks share an SM (measured: 3-5% faster
+// than 3 stages); K3b's third stage costs no block (its registers allow
+// three)
 template <int D>
-struct Tile {
-  static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle span, bytes
-  static constexpr int CW = SWB / 2;              // columns per chunk
-  static constexpr int CHUNKS = D / CW;
-  static constexpr int CHUNK_BYTES = 64 * SWB;
-  static constexpr int BYTES = CHUNKS * CHUNK_BYTES;
-  static constexpr uint32_t LAYOUT = SWB == 128 ? 1u : 2u;  // descriptor
-  // ring depths: K3a's 2 stages keep a block at about 50 KB of shared
-  // memory at D = 64, so four blocks share an SM (measured: 3-5% faster
-  // than 3 stages); K3b's third stage costs no block (its registers allow
-  // three)
-  static constexpr int DQ_STAGES = 2;
-  static constexpr int DKV_STAGES = D == 128 ? 2 : 3;
+struct Stages {
+  static constexpr int DQ = 2;
+  static constexpr int DKV = D == 128 ? 2 : 3;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// the issuing thread's arrival, announcing `bytes` of TMA to come
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// waits for the barrier's phase of this parity to complete. A phase that
-// never completes (a copy that was never issued) traps after some 2^28
-// polls, seconds, so the launch fails with an error instead of holding
-// the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// TMA: box {CW, 64, 1} at (column c0, row c1, batch*head c2) of a
-// (B*H, T, D) tensor
-__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// TMA: VEC_BOX f32 from element c0 of a flat (B*H*T) vector. The box's
-// first element must lie on a 16-byte boundary (the copy faults on the
-// card otherwise), so a caller that wants 64 elements from element c asks
-// for c rounded down to a multiple of 4 and skips c % 4 of them.
-constexpr int VEC_BOX = 68;
-constexpr int VEC_BYTES = 4 * VEC_BOX;
 constexpr int ROW_STRIDE = 384;  // bytes from a stage's lse to its delta
-__device__ __forceinline__ void tma_vec(uint32_t dst, const CUtensorMap* map,
-                                        uint32_t bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor (PTX ISA "Matrix Descriptor"):
-// start address, leading and stride byte offsets (all >> 4), layout type
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFFu) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFFu) >> 4) << 32) |
-         ((uint64_t)layout << 62);
-}
-
-// K-major operand: the tile's rows are M (or N), its D columns the
-// reduction; k step kk takes columns 16kk .. 16kk + 15. Within a swizzle
-// row the step is a plain byte offset (the swizzle is applied to the
-// address); 8-row groups lie 8 * SWB bytes apart (SBO); LBO is unused.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  typedef Tile<D> G;
-  const uint32_t a = tile + (16 * kk / G::CW) * G::CHUNK_BYTES +
-                     (16 * kk % G::CW) * 2;
-  return smem_desc(a, 16, 8 * G::SWB, G::LAYOUT);
-}
-
-// MN-major B operand: the tile's rows are the reduction, its D columns the
-// output columns; k step kk takes rows 16kk .. 16kk + 15. 8-row groups lie
-// 8 * SWB bytes apart (SBO), swizzle atoms of CW columns a chunk apart
-// (LBO).
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  typedef Tile<D> G;
-  return smem_desc(tile + 16 * kk * G::SWB, G::CHUNK_BYTES, 8 * G::SWB,
-                   G::LAYOUT);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence/commit/wait above
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// D(64 x 64) (+)= A B^T, A and B 64-row K-major bf16 tiles in shared memory
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 32) += A B, A (64 x 16) bf16 in registers (the accumulator
-// layout of a 64 x 16 product, packed), B (16 x 32) MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D(64 x 64) += A B, A (64 x 16) bf16 in registers (the accumulator
-// layout of a 64 x 16 product, packed), B (16 x 64) MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D(64 x 128) += A B, A (64 x 16) bf16 in registers (the accumulator
-// layout of a 64 x 16 product, packed), B (16 x 128) MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// the lower column lands in the low half, as the fragments expect
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a 64 x 64 f32 accumulator, rounded to bf16, as the A operands of four
-// 16-wide k steps
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&c)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
-}
 
 // dynamic shared memory of K3a: the Q and dO tiles, the K/V ring, its
 // barriers (and Q/dO's), the keep-mask bits of every key and the list of
 // visible key tiles; 1024 bytes of slack align the tiles
 template <int D>
 size_t dq_wgmma_smem_bytes(int t_kv) {
-  constexpr int S = Tile<D>::DQ_STAGES;
+  constexpr int S = Stages<D>::DQ;
   const int n_words = (t_kv + 31) / 32, n_tiles = (t_kv + BK - 1) / BK;
   return 1024 + (size_t)(2 + 2 * S) * Tile<D>::BYTES + 8 * (S + 1) +
          4 * (size_t)(n_words + n_tiles + 1);
@@ -591,7 +344,7 @@ __global__ void __launch_bounds__(THREADS)
                  const float* __restrict__ mask, bf16* __restrict__ dq,
                  int H, int t_q, int t_kv, int causal, float scale) {
   typedef Tile<D> G;
-  constexpr int S = Tile<D>::DQ_STAGES;
+  constexpr int S = Stages<D>::DQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -767,7 +520,7 @@ __global__ void __launch_bounds__(THREADS)
 // and K/V's
 template <int D>
 size_t dkv_wgmma_smem_bytes() {
-  constexpr int S = Tile<D>::DKV_STAGES;
+  constexpr int S = Stages<D>::DKV;
   return 1024 + (size_t)(2 + 2 * S) * Tile<D>::BYTES + 2 * ROW_STRIDE * S +
          8 * (S + 1);
 }
@@ -784,7 +537,7 @@ __global__ void __launch_bounds__(THREADS)
                   bf16* __restrict__ dv, int H, int t_q, int t_kv, int causal,
                   float scale) {
   typedef Tile<D> G;
-  constexpr int S = Tile<D>::DKV_STAGES;
+  constexpr int S = Stages<D>::DKV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -935,47 +688,6 @@ __global__ void __launch_bounds__(THREADS)
           pack_bf16(gv[4 * n + 2 * h], gv[4 * n + 2 * h + 1]);
     }
   }
-}
-
-// host: tensor maps. A (B*H, T, D) bf16 tensor read as boxes of 64 rows x
-// CW columns in the swizzled layout; rows past T (within each batch*head)
-// read as zeros.
-template <int D>
-bool encode_rows(CUtensorMap* map, const void* ptr, int T, int BH) {
-  typedef Tile<D> G;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)G::CW, 64, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-             const_cast<void*>(ptr), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             G::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// a flat f32 vector of n elements read as boxes of VEC_BOX (zeros past n)
-bool encode_vec(CUtensorMap* map, const float* ptr, long long n) {
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {0};  // rank 1: none is read
-  const cuuint32_t box[1] = {VEC_BOX};
-  const cuuint32_t step[1] = {1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-             const_cast<float*>(ptr), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <int D>

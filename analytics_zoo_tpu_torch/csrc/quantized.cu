@@ -26,7 +26,7 @@
 // it is a matrix-vector product, 16.8 MB of int8 and nothing else, so the
 // bytes bound it (0.0050 ms at 3.35 TB/s). At BERT's shapes (M = 16,384
 // rows of 32 x 512 tokens, K and N 768 to 3072, bf16) it does thousands
-// of operations per byte and the products bound it. Three kernels:
+// of operations per byte and the products bound it. Four kernels:
 //  * skinny (M <= 32, f32 or bf16 x): a block owns 32 columns and up to 4
 //    rows (1 at M = 1) and loops over all of K: each of its 128 pairs of
 //    threads walks every 128th row of w, a thread loading 16 int8 of a row
@@ -37,18 +37,39 @@
 //    fixed tree: a butterfly over the 16 k-groups of a warp, then the 8
 //    warps in order. The second mode scales the 16 weights where they are
 //    widened in registers.
-//  * mma (M > 32, bf16 x): a block owns a 128 x 128 output tile and loops
-//    over K in 32-wide steps. The x tile and the int8 w tile widened to
-//    bf16 (exact: |q| <= 127 fits bf16's 8-bit mantissa; in the second
-//    mode q * s rounded to bf16) are staged in shared memory, the next
-//    step's tiles loaded into registers while the current one is
+//  * wgmma (M > 32, bf16 x, K % 8 == 0, N % 16 == 0, 16-byte aligned x
+//    and w: every BERT product): the product is taken transposed, out^T =
+//    w^T x^T, so the int8 weights are wgmma's register A operand and are
+//    never written back widened. A block owns 256 rows of x and 128
+//    columns of w and loops over K in 64-wide steps through a ring of 5
+//    stages, each holding the x tile (bf16, 256 rows in the 128-byte
+//    swizzle: wgmma's K-major B operand) and the w tile as int8 (one byte
+//    a weight from device memory, 128-byte swizzled), copied by TMA from a
+//    producer warp. Two consumer warpgroups own 64 columns of w each: a
+//    thread loads the int8 pairs of its A fragment (its two accumulator
+//    rows are two adjacent columns, so one 2-byte load a k row) and widens
+//    them in registers with two byte permutes and a subtraction (exact:
+//    |q| <= 127 fits bf16's 8-bit mantissa; in the second mode q * s
+//    rounded once to bf16), then runs wgmma m64n256k16 (bf16 in, f32
+//    accumulate) against the x tile, and releases the stage on an
+//    mbarrier the producer waits on before refilling it. Widening in
+//    registers keeps shared memory for the copies and the x operand: a
+//    design that widened each w tile into shared memory as wgmma's B
+//    operand moved more shared-memory bytes than the products could hide
+//    and ran at less than half this one's speed. Epilogue: the
+//    accumulator holds out^T, each thread two adjacent columns of 64 rows;
+//    in the first mode acc * scales[col] in f32; one rounding to bf16.
+//  * mma (M > 32, bf16 x, the shapes TMA cannot address): a block owns a
+//    128 x 128 output tile and loops over K in 32-wide steps. The x tile
+//    and the int8 w tile widened to bf16 are staged in shared memory, the
+//    next step's tiles loaded into registers while the current one is
 //    multiplied. Products with mma.sync m16n8k16 (bf16 in, f32
-//    accumulate), as K2 and K4 do; 8 warps of 64 x 32 outputs each; the w
-//    fragments come from the row-major tile through ldmatrix.trans.
-//    Epilogue: in the first mode acc * scales[col] in f32; one rounding to
-//    bf16. bf16 x bf16 products are exact in f32, so the only difference
-//    from the TPU kernel (or the JAX predict) is the order of the sum.
-//    wgmma and TMA staging are later work.
+//    accumulate); 8 warps of 64 x 32 outputs each; the w fragments come
+//    from the row-major tile through ldmatrix.trans. Epilogue: in the
+//    first mode acc * scales[col] in f32; one rounding to bf16. bf16 x bf16
+//    products are exact in f32, so the only difference between the tile
+//    kernels and the TPU kernel (or the JAX predict) is the order of the
+//    sum.
 //  * fma (M > 32, f32 x): a block owns a 64 x 64 output tile, 16 rows of
 //    K at a time through shared memory, each thread 4 x 4 outputs, plain
 //    FMAs on the CUDA cores (TF32 would round x to 10 mantissa bits, which
@@ -58,11 +79,13 @@
 // fixed order, so the result is the same bits from run to run. Any M, K
 // and N: edges are masked on load (zeros) and on store.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -96,6 +119,24 @@ __device__ __forceinline__ float col_scale(const float* __restrict__ scales,
 
 __device__ __forceinline__ float int8_at(uint32_t word, int byte) {
   return static_cast<float>(static_cast<int8_t>(word >> (8 * byte)));
+}
+
+// the 4 int8 of `word` as two bf16 pairs (bytes 0-1 in lo, 2-3 in hi),
+// exactly and without conversion instructions: each byte, offset to
+// unsigned, becomes the low mantissa byte of the f32 2^23 + 128 + q (one
+// byte permute), one subtraction leaves q, and since |q| <= 128 needs at
+// most 8 significant bits the f32's upper half is q in bf16
+__device__ __forceinline__ void widen4(uint32_t word, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) -
+        8388736.f);
+  lo = __byte_perm(f[0], f[1], 0x7632);
+  hi = __byte_perm(f[2], f[3], 0x7632);
 }
 
 // 16 int8 of row k of w (K x N), columns c .. c + 15; zeros past N. `vec`:
@@ -223,11 +264,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // four 8x8 b16 matrices, transposed on the way: lanes 8j..8j+7 give the
@@ -399,6 +435,177 @@ __global__ void __launch_bounds__(T_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// wgmma: M > 32, bf16 x, K % 8 == 0 and N % 16 == 0 (the rows TMA can
+// address), 16-byte aligned bases. Warps 0-7 (two warpgroups) consume,
+// warp 8 issues the copies (the helpers and fragment layouts are in
+// hopper.cuh).
+// ---------------------------------------------------------------------------
+
+constexpr int G_BM = 256, G_BN = 128, G_BK = 64;  // x rows, w columns, k
+constexpr int G_THREADS = 288;  // two consumer warpgroups, a producer warp
+constexpr int G_STAGES = 5;
+// a stage: x (four 64-row K-major boxes in the 128-byte swizzle, one
+// K-major B operand of 256 rows) and w as it lies in device memory (64
+// rows of 128 int8, 128-byte swizzled)
+constexpr int G_XBOX_BYTES = Tile<64>::BYTES;
+constexpr int G_X_BYTES = 4 * G_XBOX_BYTES;
+constexpr int G_W_BYTES = G_BK * G_BN;
+constexpr int G_STAGE_BYTES = G_X_BYTES + G_W_BYTES;
+constexpr size_t G_SMEM = 1024 + (size_t)G_STAGES * G_STAGE_BYTES +
+                          16 * G_STAGES;
+
+template <bool PRE>
+__global__ void __launch_bounds__(G_THREADS, 1)
+    int8_mm_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_w,
+                  const float* __restrict__ scales, bf16* __restrict__ out,
+                  int M, int K, int N) {
+  constexpr int S = G_STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  auto x_slot = [&](int i) { return base + (i % S) * G_STAGE_BYTES; };
+  auto w_slot = [&](int i) { return x_slot(i) + G_X_BYTES; };
+  const uint32_t full = base + S * G_STAGE_BYTES;  // a k step's tiles landed
+  const uint32_t empty = full + 8 * S;  // both warpgroups multiplied them
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
+  const int nk = (K + G_BK - 1) / G_BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s);
+      mbar_init(empty + 8 * s, 8);  // the consumers' eight warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: k step j into stage j % S once both warpgroups are done
+    // with step j - S; x's rows m0 .. m0 + 255 (the boxes with any row
+    // before M) and w's rows 64 j .., columns n0 .. n0 + 127, zeros past
+    // M, K and N
+    if (lane == 0) {
+      const int n_box = min(4, (M - m0 + 63) / 64);
+      for (int j = 0; j < nk; ++j) {
+        const uint32_t bar = full + 8 * (j % S);
+        if (j >= S) mbar_wait(empty + 8 * (j % S), (j / S - 1) & 1);
+        mbar_expect(bar, n_box * G_XBOX_BYTES + G_W_BYTES);
+        for (int b = 0; b < n_box; ++b)
+          tma_2d(x_slot(j) + b * G_XBOX_BYTES, &tm_x, bar, j * G_BK,
+                 m0 + 64 * b);
+        tma_2d(w_slot(j), &tm_w, bar, n0, j * G_BK);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns w columns n0 + 64 wg .. + 63. Its A rows
+  // are those columns, ordered so that a thread's two rows (g, g + 8 of
+  // its warp's 16) are two adjacent columns: one 2-byte load a k row
+  const int wg = warp >> 2, v = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int c = 64 * wg + 16 * v + 2 * g;  // this thread's column pair
+  const int n = n0 + c;
+  const bool active = n0 + 64 * wg < N;
+  // dequantize-first: each column's scale rounded to bf16, in both halves
+  __nv_bfloat162 s2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sc = PRE ? col_scale<bf16>(scales, n + h, N) : 1.f;
+    s2[h] = __floats2bfloat162_rn(sc, sc);
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    mbar_wait(full + 8 * (i % S), (i / S) & 1);
+    if (active) {
+      // A = w^T: for each 16-row k step, rows k = 2t, 2t + 1 (registers 0
+      // and 1) and 2t + 8, 2t + 9 (2 and 3) of this thread's two columns,
+      // widened in registers (in the dequantize-first mode times the
+      // column's bf16 scale, one rounding)
+      const unsigned char* w8 = smem_raw + (w_slot(i) - raw);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int k = 16 * kk + 2 * t + 8 * half;
+          // the 128-byte swizzle: 16-byte chunk c / 16 of row k lies at
+          // chunk (c / 16) ^ (k % 8)
+          const uint32_t lo = *reinterpret_cast<const uint16_t*>(
+              w8 + k * G_BN + ((((c >> 4) ^ (k & 7)) << 4) | (c & 15)));
+          const uint32_t hi = *reinterpret_cast<const uint16_t*>(
+              w8 + (k + 1) * G_BN + ((((c >> 4) ^ ((k + 1) & 7)) << 4) |
+                                     (c & 15)));
+          uint32_t r0, r1;  // (k, k + 1) of column c, of column c + 1
+          widen4(__byte_perm(lo, hi, 0x5140), r0, r1);
+          if (PRE) {
+            __nv_bfloat162 p0 = __hmul2(
+                *reinterpret_cast<__nv_bfloat162*>(&r0), s2[0]);
+            __nv_bfloat162 p1 = __hmul2(
+                *reinterpret_cast<__nv_bfloat162*>(&r1), s2[1]);
+            r0 = *reinterpret_cast<uint32_t*>(&p0);
+            r1 = *reinterpret_cast<uint32_t*>(&p1);
+          }
+          a[kk][2 * half] = r0;
+          a[kk][2 * half + 1] = r1;
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs256_k(acc, a[kk], desc_k<64>(x_slot(i), kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(a);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (i % S));
+  }
+  if (!active || n >= N) return;
+
+  // epilogue: acc holds out^T; register 4j + e is column n + (e >> 1) of
+  // row m0 + 8j + 2t + (e & 1). In the scale-after mode acc * scales[col]
+  // in f32; one rounding to bf16
+  const float s0 = PRE ? 1.f : scales[n], s1 = PRE ? 1.f : scales[n + 1];
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * t + h;
+      if (m < M)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+            __floats2bfloat162_rn(acc[4 * j + h] * s0,
+                                  acc[4 * j + 2 + h] * s1);
+    }
+}
+
+// host: x (M, K) bf16 as 64 x 64 boxes and w (K, N) int8 as 64-row x
+// 128-column boxes, both in the 128-byte swizzle
+bool encode_x(CUtensorMap* map, const void* x, int M, int K) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+bool encode_w(CUtensorMap* map, const void* w, int K, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {(cuuint32_t)G_BN, (cuuint32_t)G_BK};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+// ---------------------------------------------------------------------------
 // fma: M > 32, f32. Thread (ty, tx) = (tid / 16, tid % 16) owns rows
 // ty + 16 i and columns tx + 16 j of the block's tile, i, j < 4.
 // ---------------------------------------------------------------------------
@@ -508,17 +715,34 @@ void launch_skinny(const T* x, const int8_t* w, const float* s, T* out, int M,
   }
 }
 
+// the kernel each shape takes (reported to the caller)
+enum Route { ROUTE_WGMMA = 0, ROUTE_MMA = 1, ROUTE_SKINNY = 2, ROUTE_FMA = 3 };
+
 template <bool PRE>
-void launch(const void* x, const int8_t* wq, const float* sc, void* out,
-            int M, int K, int N, int dtype, cudaStream_t s) {
+cudaError_t launch(const void* x, const int8_t* wq, const float* sc,
+                   void* out, int M, int K, int N, int dtype, cudaStream_t s,
+                   int* route) {
   if (M <= SKINNY_MAX_M) {
+    *route = ROUTE_SKINNY;
     if (dtype == 0)
       launch_skinny<float, PRE>(static_cast<const float*>(x), wq, sc,
                                 static_cast<float*>(out), M, K, N, s);
     else
       launch_skinny<bf16, PRE>(static_cast<const bf16*>(x), wq, sc,
                                static_cast<bf16*>(out), M, K, N, s);
+  } else if (dtype == 1 && K > 0 && K % 8 == 0 && N % 16 == 0 &&
+             aligned(x, 16) && aligned(wq, 16)) {
+    *route = ROUTE_WGMMA;
+    CUtensorMap mx, mw;
+    if (!encode_x(&mx, x, M, K) || !encode_w(&mw, wq, K, N))
+      return cudaErrorInvalidValue;
+    cudaError_t err = set_smem(int8_mm_wgmma<PRE>, G_SMEM);
+    if (err != cudaSuccess) return err;
+    int8_mm_wgmma<PRE>
+        <<<dim3(cdiv(N, G_BN), cdiv(M, G_BM)), G_THREADS, G_SMEM, s>>>(
+            mx, mw, sc, static_cast<bf16*>(out), M, K, N);
   } else if (dtype == 1) {
+    *route = ROUTE_MMA;
     const int xvec = K % 8 == 0 && aligned(x, 16);
     const int wvec = N % 16 == 0 && aligned(wq, 16);
     int8_mm_mma<PRE>
@@ -526,6 +750,7 @@ void launch(const void* x, const int8_t* wq, const float* sc, void* out,
         static_cast<const bf16*>(x), wq, sc, static_cast<bf16*>(out), M, K,
         N, xvec, wvec);
   } else {
+    *route = ROUTE_FMA;
     const int xvec = K % 4 == 0 && aligned(x, 16);
     const int wvec = N % 4 == 0 && aligned(wq, 4);
     int8_mm_fma<PRE>
@@ -533,6 +758,7 @@ void launch(const void* x, const int8_t* wq, const float* sc, void* out,
         static_cast<const float*>(x), wq, sc, static_cast<float*>(out), M, K,
         N, xvec, wvec);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -541,19 +767,20 @@ void launch(const void* x, const int8_t* wq, const float* sc, void* out,
 // out (M, N) in x's dtype; all contiguous. dequantize_first: 0 applies the
 // scale after the reduction (the Pallas contract), 1 forms each weight
 // q * s in x's dtype before the product (the JAX weight-only predict).
-// Returns the launch's cudaError_t (0 on success); the kernel runs on
-// `stream` and the call does not synchronise.
+// *route receives the kernel taken: 0 wgmma, 1 mma, 2 skinny, 3 fma.
+// Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue
+// also where a tensor map cannot be built); the kernel runs on `stream`
+// and the call does not synchronise.
 extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
                            void* out, int M, int K, int N, int dtype,
-                           int dequantize_first, void* stream) {
+                           int dequantize_first, void* stream, int* route) {
+  *route = -1;
   if (M <= 0 || N <= 0 || K < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scales);
-  if (dequantize_first)
-    launch<true>(x, wq, sc, out, M, K, N, dtype, s);
-  else
-    launch<false>(x, wq, sc, out, M, K, N, dtype, s);
-  return (int)cudaGetLastError();
+  return (int)(dequantize_first
+                   ? launch<true>(x, wq, sc, out, M, K, N, dtype, s, route)
+                   : launch<false>(x, wq, sc, out, M, K, N, dtype, s, route));
 }

@@ -2,7 +2,9 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` from the sources under
 ``analytics_zoo_tpu_torch/csrc/`` into ``build/`` at the repository root,
-named by a hash of its sources and flags, and loaded with ``ctypes``. The
+named by a hash of its sources, the headers they include (``#include
+"..."``, resolved under ``csrc/``) and the flags, and loaded with
+``ctypes``. The
 build happens at the first launch of one of its kernels, never at import,
 so the CPU tests (which have no ``nvcc``) import every module freely.
 """
@@ -13,6 +15,7 @@ import ctypes
 import concurrent.futures
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +32,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: driver's ``libcuda.so.1`` at load), for ``cuTensorMapEncodeTiled``, which
 #: builds the TMA tensor maps of the flash-attention backward
 LINK_FLAGS = ("-lcuda",)
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(sources: Sequence[Path],
+                     include_dir: Path = CSRC_DIR) -> list:
+    """Every header that ``sources`` include with ``#include "..."``,
+    directly or through another header, resolved under ``include_dir``
+    (where ``nvcc -I`` points), in first-seen order."""
+    seen: list = []
+    todo = list(sources)
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in _INCLUDE.findall(text):
+            header = include_dir / name
+            if header.exists() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
 
 
 def _nvcc() -> str:
@@ -48,9 +70,11 @@ class CudaLibrary:
     and ``restype``. Thread-safe; builds at most once per process."""
 
     def __init__(self, name: str, sources: Sequence[str],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 src_dir: Path = CSRC_DIR):
         self.name = name
-        self.sources = [CSRC_DIR / s for s in sources]
+        self.src_dir = Path(src_dir)
+        self.sources = [self.src_dir / s for s in sources]
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
@@ -58,8 +82,11 @@ class CudaLibrary:
         self.build_seconds: Optional[float] = None
 
     def path(self) -> Path:
+        """The library's file: a header edit names a new one, so a stale
+        build is never reused."""
         h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-        for src in self.sources:
+        for src in self.sources + included_headers(self.sources,
+                                                   self.src_dir):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
@@ -73,7 +100,7 @@ class CudaLibrary:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            [_nvcc(), *NVCC_FLAGS, "-I", str(self.src_dir), "-o", str(tmp),
              *[str(s) for s in self.sources], *LINK_FLAGS],
             capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0

@@ -12,7 +12,8 @@ dtype. ``want_lse=True`` also returns the f32 row log-sum-exp ``(B, H,
 Tq)``, ``+inf`` for empty rows.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/flash_attention_fwd.cu`` or raises; on a CPU tensor it runs
+``csrc/flash_attention_fwd.cu`` (bf16: ``wgmma`` on TMA-fed tiles; f32:
+CUDA-core FMAs) or raises; on a CPU tensor it runs
 :func:`flash_attention_reference`, the plain PyTorch version with the same
 semantics. Tile sizes are the kernel's own; the TPU block selection and
 sweep do not carry over.
@@ -198,11 +199,12 @@ def _check(q, k, v, mask):
 
 def _check_operands(d: int, **tensors) -> None:
     """What the CUDA kernels need of their operands: a head dim they are
-    built for, and each tensor contiguous from a 16-byte boundary (the
-    forward and the f32 backward read 16-byte vectors; the bf16 backward
-    reads q, k, v, dO, lse and delta through TMA, whose tensor maps take
-    only 16-byte aligned bases, rows of D * 2 bytes being multiples of 16
-    for every head dim here)."""
+    built for, and each tensor contiguous from a 16-byte boundary (the f32
+    kernels read 16-byte vectors; the bf16 forward reads q, k and v, and the
+    bf16 backward q, k, v, dO, lse and delta, through TMA, whose tensor maps
+    take only 16-byte aligned bases, rows of D * 2 bytes being multiples of
+    16 for every head dim here). An operand that breaks this is refused
+    before any launch, never handed to another route."""
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIMS}; "
                          f"got {d}")

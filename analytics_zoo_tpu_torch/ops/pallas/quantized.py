@@ -21,9 +21,15 @@ differ by rounding only; in bf16 by up to half a bf16 step per column.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`int8_matmul_reference`, the TPU kernel's own arithmetic.
+The C entry point picks one of four hand-written kernels by shape and
+reports it: ``skinny`` (M <= 32), ``wgmma`` (bf16, M > 32, K % 8 == 0 and
+N % 16 == 0 with 16-byte aligned operands: the rows TMA can address;
+every BERT product), ``mma`` (the other bf16 shapes) and ``fma`` (f32,
+M > 32). :data:`KERNEL_INT8_MATMUL` counts every launch and
+:data:`KERNEL_INT8_ROUTES` each route's.
 The JAX wrapper's ``block_m``/``block_n``/``interpret`` arguments are TPU
 tiling and the Pallas interpreter; they are not carried over (the CUDA
-kernel picks its own tiles and takes any M, K and N).
+kernels pick their own tiles and take any M, K and N).
 """
 
 from __future__ import annotations
@@ -43,13 +49,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p,
+                                ctypes.POINTER(i)]
     lib.int8_matmul.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("quantized", ["quantized.cu"], _bind)
 
-KERNEL_INT8_MATMUL = _LaunchCount()   # K6
+KERNEL_INT8_MATMUL = _LaunchCount()   # K6, every route
+#: the kernel the C entry point took, by the code it reports
+ROUTES = ("wgmma", "mma", "skinny", "fma")
+KERNEL_INT8_ROUTES = {name: _LaunchCount() for name in ROUTES}
 
 
 def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
@@ -100,11 +110,14 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
         return out
     x, w_q = x.contiguous(), w_q.contiguous()
     scales = scales.to(torch.float32).contiguous()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         err = LIBRARY.get().int8_matmul(
             x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
             m, k, n, _DTYPE_CODES[x.dtype], int(dequantize_first),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.byref(route))
     _raise_on(err, "int8_matmul")
     KERNEL_INT8_MATMUL.launches += 1
+    KERNEL_INT8_ROUTES[ROUTES[route.value]].launches += 1
     return out

@@ -6,9 +6,10 @@
 1. Builds every CUDA kernel of the port from ``analytics_zoo_tpu_torch/
    csrc`` with ``nvcc`` (into ``build/``; one ``nvcc`` per source, all
    started together) and prints the build time.
-2. Forward kernel phase: holds K2 against its plain PyTorch version at
-   BERT-base attention shapes (B=8, H=12, T=512, D=64; f32 and bf16, key
-   padding, a causal case, a t_q != t_kv case, a fully masked row) and
+2. Forward kernel phase: holds K2 (bf16: wgmma on TMA-fed tiles; f32:
+   CUDA-core FMAs) against its plain PyTorch version at BERT-base
+   attention shapes (B=8, H=12, T=512, D=64; f32 and bf16, key padding, a
+   causal case, a t_q != t_kv case, a fully masked row) and
    times it beside the plain version, ``scaled_dot_product_attention``
    (timed here only, as a yardstick) and its roofline bound.
 3. Backward kernel phase: holds K3a (dq) and K3b (dk/dv) against their
@@ -71,9 +72,12 @@
 11. int8 kernel phase: K6 (the int8 weight-only dequant-matmul,
    ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
    the head's batch-1 and batch-32 shapes (K = N = 4096), BERT-base's qkv
-   and fc/out products (M = 32 x 512), BERT's Dense(2) head and a ragged
-   (17, 100, 10), in both modes (dequantize-first, which ``dense`` runs,
-   and the Pallas contract's scale-after): f32 within 1e-4 of the case's
+   and fc/out products (M = 32 x 512), BERT's Dense(2) head, a ragged
+   (17, 100, 10) and a (300, 100, 130) whose rows TMA cannot address,
+   each checked for the kernel it takes (skinny at M <= 32, fma in f32,
+   wgmma in bf16 where K % 8 and N % 16 are 0, else mma), in both modes
+   (dequantize-first, which ``dense`` runs, and the Pallas contract's
+   scale-after): f32 within 1e-4 of the case's
    largest value, bf16 within one bf16 step there, the same bits over two
    runs; each timed in the first mode (wrapper, CUDA-graph device time,
    plain, ``torch.matmul`` on the dequantized weight, bound) with the
@@ -82,7 +86,9 @@
 12. int8 serving phase (config B): the serving phase's BERT-base, records
    and adapter on the weight-only int8 ``InferenceModel`` that
    ``ClusterServing._wrap_model`` builds for ``dtype="int8"``: every matmul
-   weight int8 on the device, 50 K6 and 12 K2 launches per dispatch, the
+   weight int8 on the device, 50 K6 and 12 K2 launches per dispatch (48
+   of the K6 ones, every product over the 32 x 512 tokens, on the wgmma
+   tile kernel, the pooler and the Dense(2) head on the skinny one), the
    answers within 2e-2 of bf16 serving on the dequantized weights (and,
    printed beside, of bf16 serving on the weights the JAX predict forms,
    ``bf16(q) * bf16(s)``, which K6's dequantize-first mode forms too).
@@ -94,7 +100,8 @@
    0.3 x fp32), each int8 mode within 1e-4 relative of its float
    counterpart, top-1 agreement and batch-1 device time by CUDA-graph
    replay (printed), and ``ClusterServing(model, dtype="int8")`` answering
-   all 256 records with 4 K6 launches per dispatch.
+   all 256 records with 4 K6 launches per dispatch, all on the skinny
+   kernel.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
@@ -172,9 +179,11 @@ DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
 #: (bench.py:797-815): 3 x Dense(4096) + Dense(8), 256 seeded rows
 HEAD_D, HEAD_CLASSES, HEAD_ROWS = 4096, 8, 256
 #: K6's cases (M, K, N): the head at batch 1 and 32, BERT-base's qkv and
-#: fc/out products at 32 x 512 tokens, BERT's Dense(2) head, a ragged one
+#: fc/out products at 32 x 512 tokens, BERT's Dense(2) head, a ragged one,
+#: and a tile-path shape TMA cannot address (K % 8, N % 16 not 0)
 INT8_CASES = [(1, 4096, 4096), (32, 4096, 4096), (16384, 768, 2304),
-              (16384, 3072, 768), (32, 768, 2), (17, 100, 10)]
+              (16384, 3072, 768), (32, 768, 2), (17, 100, 10),
+              (300, 100, 130)]
 #: weight-only and static int8 against their float counterparts on the
 #: same weights: the same products in another order (weight-only: scale
 #: after the sum against a dequantized weight; static: the card's int32
@@ -485,7 +494,7 @@ def int8_kernel_phase():
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        int8_matmul, int8_matmul_reference)
+        KERNEL_INT8_ROUTES, int8_matmul, int8_matmul_reference)
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
         int8_product
     rows = {}
@@ -500,6 +509,7 @@ def int8_kernel_phase():
                   for _ in range(copies)]
             sc = (torch.rand(n, generator=g) * 0.09 + 0.01).cuda()
             errs = {}
+            before = {r: c.launches for r, c in KERNEL_INT8_ROUTES.items()}
             for first in (True, False):
                 out = int8_matmul(x, ws[0], sc, first)
                 again = int8_matmul(x, ws[0], sc, first)
@@ -517,10 +527,17 @@ def int8_kernel_phase():
                 check(same, f"K6 {name} {mode}: two runs differ")
                 errs[first] = (err, tol, same)
             err, tol, same = errs[True]
+            (route,) = [r for r, c in KERNEL_INT8_ROUTES.items()
+                        if c.launches != before[r]]
+            want_route = (
+                "skinny" if m <= 32 else "fma" if dtype == torch.float32
+                else "wgmma" if k % 8 == 0 and n % 16 == 0 else "mma")
+            check(route == want_route, f"K6 {name}: route {route}, not "
+                  f"{want_route}")
             deq = [w.to(dtype) * sc.to(dtype) for w in ws]
             bound_ms, bound_by = int8_bound(m, k, n, dtype)
             row = {
-                "case": name, "m": m, "k": k, "n": n,
+                "case": name, "m": m, "k": k, "n": n, "route": route,
                 "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
                 "same_bits_two_runs": same, "weight_copies": copies,
                 "max_abs_err_scale_after": errs[False][0],
@@ -598,8 +615,8 @@ def int8_head_phase():
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
     from analytics_zoo_tpu_torch.observability import MetricsRegistry
-    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
-        KERNEL_INT8_MATMUL
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
@@ -679,8 +696,10 @@ def int8_head_phase():
         server.model.predict(xf[:T_BATCH])          # warm-up, not counted
         return server
 
-    got, wall, server = serve(make_server, xf, [KERNEL_INT8_MATMUL])
+    got, wall, server = serve(make_server, xf, [KERNEL_INT8_MATMUL,
+                                                *KERNEL_INT8_ROUTES.values()])
     launches = KERNEL_INT8_MATMUL.launches
+    routes = {name: c.launches for name, c in KERNEL_INT8_ROUTES.items()}
     batches = int(registry.snapshot()["zoo_serving_batches_total"]["value"])
     served_rel = rel_err(got, p_w8)
     print(f"int8 head: ClusterServing(dtype='int8') answered {HEAD_ROWS} "
@@ -691,6 +710,8 @@ def int8_head_phase():
     check(got.shape == (HEAD_ROWS, HEAD_CLASSES), f"shape {got.shape}")
     check(launches == 4 * batches and batches > 0,
           f"{launches} K6 launches for {batches} dispatches of 4 layers")
+    check(routes["skinny"] == launches, f"K6 routes {routes}: a dispatch of "
+          f"at most {T_BATCH} rows off the skinny kernel")
     check(served_rel <= INT8_REL_TOL, f"served vs predict {served_rel}")
     return {"loss": hist["loss"], "resident_bytes": {
         "fp32": fp_bytes, "int8_weight_only": w8_bytes,
@@ -698,7 +719,8 @@ def int8_head_phase():
         "weight_only_vs_dequantized": w8_rel, "static_vs_cpu": st_rel,
         "top1_agreement_pct": top1, "b1_device_ms": b1,
         "b1_speedup": speedup, "records_per_s": HEAD_ROWS / wall,
-        "wall_s": wall, "dispatches": batches, "launches": launches}
+        "wall_s": wall, "dispatches": batches, "launches": launches,
+        "launches_by_route": routes}
 
 
 def int8_serving_phase(bf16_records_per_s):
@@ -710,8 +732,8 @@ def int8_serving_phase(bf16_records_per_s):
 
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import KERNEL
-    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
-        KERNEL_INT8_MATMUL
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.self_attention \
         import DenseParams
@@ -750,13 +772,15 @@ def int8_serving_phase(bf16_records_per_s):
     got, wall, server = serve(
         lambda backend: ClusterServing(adapter, backend=backend,
                                        batch_size=T_BATCH), ids,
-        [KERNEL, KERNEL_INT8_MATMUL])
+        [KERNEL, KERNEL_INT8_MATMUL, *KERNEL_INT8_ROUTES.values()])
     k6, k2, chunks = KERNEL_INT8_MATMUL.launches, KERNEL.launches, \
         adapter.dispatches
+    routes = {name: c.launches for name, c in KERNEL_INT8_ROUTES.items()}
     print(f"int8 serving: {N_RECORDS} records in {wall:.3f}s = "
           f"{N_RECORDS / wall:.1f} records/s (bf16 serving in this run: "
           f"{bf16_records_per_s:.1f}); {chunks} dispatches, {k6} "
-          f"int8_matmul and {k2} flash_attention_fwd launches")
+          f"int8_matmul ({json.dumps(routes)} by route) and {k2} "
+          f"flash_attention_fwd launches")
     check(server.served == N_RECORDS, f"served {server.served}")
     check(got.shape == (N_RECORDS, 2), f"result shape {got.shape}")
     check(bool(np.isfinite(got).all()), "non-finite probabilities")
@@ -765,6 +789,11 @@ def int8_serving_phase(bf16_records_per_s):
     check(chunks > 0 and k6 == (4 * n_block + 2) * chunks,
           f"{k6} K6 launches for {chunks} dispatches")
     check(k2 == n_block * chunks, f"{k2} K2 launches for {chunks} dispatches")
+    # every product over the 32 x 512 tokens (M > 32) on the wgmma tile
+    # path; the pooler and the Dense(2) head (M = 32) on the skinny kernel
+    check(routes == {"wgmma": 4 * n_block * chunks, "mma": 0,
+                     "skinny": 2 * chunks, "fma": 0},
+          f"K6 routes {routes} for {chunks} dispatches")
     want, want_jax = (
         np.concatenate([m.predict(adapter.inputs(ids[i:i + T_BATCH]))
                         for i in range(0, N_RECORDS, T_BATCH)])
@@ -778,20 +807,22 @@ def int8_serving_phase(bf16_records_per_s):
     check(diff_jax <= 2e-2, f"int8 vs the JAX predict's weights {diff_jax}")
     return {"records_per_s": N_RECORDS / wall, "wall_s": wall,
             "bf16_records_per_s": bf16_records_per_s, "dispatches": chunks,
-            "launches": k6, "flash_launches": k2, "int8_bytes": int8_weights,
+            "launches": k6, "launches_by_route": routes,
+            "flash_launches": k2, "int8_bytes": int8_weights,
             "vs_dequantized": diff, "vs_jax_predict_weights": diff_jax}
 
 
-def int8_kernel_row(int8_rows, launches):
+def int8_kernel_row(int8_rows, launches, launches_by_route):
     """K6's row of the kernels line: at BERT's qkv shape (config B's
-    largest product), with the scoring head's batch-1 and batch-32 f32
-    shapes (config A) beside."""
+    largest product, the wgmma tile path), with the scoring head's batch-1
+    and batch-32 f32 shapes (config A) beside."""
     main = int8_rows["bfloat16_16384x768x2304"]
     row = {"name": "int8_matmul", "route": "cuda",
            "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
            "replaces": "analytics_zoo_tpu/ops/pallas/quantized.py:63",
            "launches": sum(launches.values()),
            "launches_by_path": launches,
+           "launches_by_route": launches_by_route,
            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2011,7 +2042,10 @@ def main() -> int:
     rows = embed_kernel_rows(embed_rows, ncf["sharded"]["launches"]) + rows
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
-        "bert_serving": int8_serving["launches"]}))
+        "bert_serving": int8_serving["launches"]},
+        {name: int8_head["launches_by_route"][name]
+         + int8_serving["launches_by_route"][name]
+         for name in int8_serving["launches_by_route"]}))
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,

@@ -38,7 +38,7 @@ FAMILIES = (
     ("fused_ce_fwd (K4)", ("ce_fwd_mma", "ce_fwd_fma")),
     ("fused_ce_bwd_dh (K5a)", ("ce_bwd_dh_mma", "ce_bwd_dh_fma")),
     ("fused_ce_bwd_dw (K5b)", ("ce_bwd_dw_mma", "ce_bwd_dw_fma")),
-    ("flash_attention_fwd (K2)", ("flash_fwd_mma", "flash_fwd_fma")),
+    ("flash_attention_fwd (K2)", ("flash_fwd_wgmma", "flash_fwd_fma")),
     ("flash_attention_bwd_dq (K3a)", ("bwd_dq_wgmma", "bwd_dq_fma")),
     ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_wgmma", "bwd_dkv_fma")),
     ("embed_expand (K1)", ("expand_rows",)),

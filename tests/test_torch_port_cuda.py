@@ -89,6 +89,62 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,tq,tk", [(False, 200, 200),
+                                          (True, 200, 200),
+                                          (False, 4100, 4100),
+                                          (True, 4100, 4100),
+                                          (True, 70, 200),
+                                          (True, 200, 70)])
+def test_forward_kernel_at_tile_edges(cuda, dtype, atol, d, causal, tq, tk):
+    """K2 over ragged tiles (T = 200, 4100), causal Tq < Tk and Tq > Tk, the
+    tile-edge mask of ``_tile_edge_mask`` (row 2 sees only the first key
+    tile, row 3 none of keys 64..127): within the tolerances above, exact
+    zeros and an infinite lse on every row that sees no key, the same
+    output without the lse, and the same bits on a second call."""
+    q, k, v, mask = _inputs(4, 3, tq, tk, d, dtype, seed=d + tq + tk)
+    mask = _tile_edge_mask(mask)
+    before = KERNEL.launches
+    out, lse = flash_attention(q, k, v, mask=mask, causal=causal,
+                               want_lse=True)
+    plain = flash_attention(q, k, v, mask=mask, causal=causal)
+    again = flash_attention(q, k, v, mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 3
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal,
+                                             want_lse=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert torch.all(out[~fin] == 0), "a row that sees no key is not zero"
+    np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                               ref_lse[fin].cpu().numpy(), atol=1e-4, rtol=0)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(plain.view(bits), out.view(bits))
+    assert torch.equal(again.view(bits), out.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_forward_wrapper_refuses_a_misaligned_operand(cuda, name):
+    """The bf16 forward reads q, k and v through TMA, whose tensor maps take
+    only 16-byte aligned bases: a view two bytes in is refused before any
+    launch, and never handed to another route."""
+    ops = {key: torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
+           for key in ("q", "k", "v")}
+    flat = torch.zeros(ops[name].numel() + 1, device=cuda,
+                       dtype=torch.bfloat16)
+    ops[name] = flat[1:].view(ops[name].shape)
+    before = KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(ops["q"], ops["k"], ops["v"])
+    assert KERNEL.launches == before
+
+
+@pytest.mark.cuda
 def test_bert_serving_goes_through_the_kernel(cuda):
     init_zoo_context(conf={"zoo.pallas.attention": True})
     cfg = dict(vocab=99, hidden_size=64, n_block=2, n_head=2, seq_len=96,
@@ -574,6 +630,40 @@ def test_int8_matmul_dequantize_first_matches_plain_version(cuda, dtype, m,
     assert err <= tol, (err, tol)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got.view(bits), again.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("m,k,n,route", [(1024, 768, 2304, "wgmma"),
+                                         (129, 3072, 768, "wgmma"),
+                                         (300, 768, 2304, "wgmma"),
+                                         (64, 128, 130, "mma"),
+                                         (64, 100, 128, "mma")])
+def test_int8_matmul_tile_routes(cuda, first, m, k, n, route):
+    """K6's bf16 tile path for M > 32: shapes whose x and w rows TMA can
+    address (K % 8 == 0, N % 16 == 0) take the wgmma kernel, the others
+    the mma.sync one, in both modes; each within one bf16 step of its
+    plain version at the case's largest value, the same bits twice, and
+    counted under its route."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, int8_matmul,
+        int8_matmul_reference)
+    x, w, s = (t.to(cuda) for t in _int8_operands(m, k, n, torch.bfloat16,
+                                                  m + k + n))
+    before = {name: c.launches for name, c in KERNEL_INT8_ROUTES.items()}
+    total = KERNEL_INT8_MATMUL.launches
+    got = int8_matmul(x, w, s, first)
+    again = int8_matmul(x, w, s, first)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_MATMUL.launches == total + 2
+    assert {name: c.launches - before[name]
+            for name, c in KERNEL_INT8_ROUTES.items()} == {
+        name: 2 if name == route else 0 for name in KERNEL_INT8_ROUTES}
+    want = int8_matmul_reference(x, w, s, first)
+    top = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _bf16_step(top), (err, _bf16_step(top))
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
 @pytest.mark.cuda
