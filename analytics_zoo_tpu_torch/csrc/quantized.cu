@@ -24,19 +24,47 @@
 //
 // What bounds it on this card: at batch 1 (config A's M = 1, K = N = 4096)
 // it is a matrix-vector product, 16.8 MB of int8 and nothing else, so the
-// bytes bound it (0.0050 ms at 3.35 TB/s). At BERT's shapes (M = 16,384
-// rows of 32 x 512 tokens, K and N 768 to 3072, bf16) it does thousands
-// of operations per byte and the products bound it. Four kernels:
-//  * skinny (M <= 32, f32 or bf16 x): a block owns 32 columns and up to 4
-//    rows (1 at M = 1) and loops over all of K: each of its 128 pairs of
-//    threads walks every 128th row of w, a thread loading 16 int8 of a row
-//    in one 16-byte load (where N and w's alignment allow; byte loads
-//    elsewhere, as for the Dense(8) and Dense(2) heads), four rows ahead.
-//    Products in f32 FMAs (a bf16 x int8 or bf16 x bf16 product is exact
-//    in f32). The 128 partial sums of each output are then added in a
-//    fixed tree: a butterfly over the 16 k-groups of a warp, then the 8
-//    warps in order. The second mode scales the 16 weights where they are
-//    widened in registers.
+// bytes bound it (0.0050 ms at 3.35 TB/s); at M = 32 in f32 the 2 M K N
+// operations on the CUDA cores do (0.0160 ms at 67 TFLOP/s). At BERT's
+// shapes (M = 16,384 rows of 32 x 512 tokens, K and N 768 to 3072, bf16)
+// it does thousands of operations per byte and the products bound it.
+// Four kernels:
+//  * skinny (M <= 32, f32 or bf16 x): every int8 weight byte is read from
+//    device memory once, whatever M is. The grid is (N / 128 column
+//    panels) x (K slices): block (p, s) owns the 128 columns of panel p
+//    for all M rows at once and the rows of slice s of K, a multiple of 64
+//    chosen here (skinny_k_slice, from the card's SM count) so that the
+//    grid fills the blocks the card holds at once (K = N = 4096 on 132 SMs:
+//    32 panels x 16 slices of 256 rows = 512 blocks, or x 11 slices of 384
+//    = 352 for f32 at more than 4 rows). Its weight
+//    panel streams through a 3-stage ring in shared memory, 64 rows of 128
+//    int8 a stage, filled by 16-byte cp.async (zeros past K and N; plain
+//    byte loads where N % 16 or w's alignment rule them out, as for the
+//    Dense(8) and Dense(2) heads); x, all M rows padded with zeros to MT
+//    (1, 4, 8, 16 or 32 in f32; 8, 16 or 32 in bf16), is staged in shared
+//    memory too (the block's K slice at once, or, in the f32 tile kernel,
+//    with each weight stage) and read from there.
+//    bf16: the product is taken transposed, out^T = w^T x^T, on the tensor
+//    cores with mma.sync m16n8k16 (bf16 in, f32 accumulate): a warp owns
+//    16 columns, the int8 weights are the A operand, loaded as 2-byte
+//    column pairs and widened in registers with widen4 (in the
+//    dequantize-first mode times the column's bf16 scale, one rounding),
+//    x^T the B operand (MT / 8 tiles of 8 rows). f32: FMAs on the CUDA
+//    cores (TF32 would round x), each weight widened exactly with a byte
+//    permute and a subtraction. Up to 8 rows a thread owns 4 columns x all
+//    rows, the 8 warps take 4-row groups of each stage in turn and their
+//    sums are added in a fixed tree; from 16 rows each warp widens its 16
+//    columns once into an f32 tile and its lanes own 4 columns x MT / 8
+//    rows (register tiles; x streams through the ring, so three blocks fit
+//    an SM; the FMAs run at about half the card's peak rate in that
+//    loop at 32 rows). With one K slice the block applies the epilogue and
+//    writes the output; with more it writes its f32 partial sums to a
+//    workspace [slices, M, panels x 128], and a second kernel, launched as
+//    its programmatic dependent, adds each output's slices in slice order
+//    (no float atomics) and applies the epilogue: in the scale-after mode
+//    the column scale, one rounding to x's dtype T, then, if asked,
+//    round_T(y + round_T(bias)) and max(y, 0) -- what the port's dense
+//    layer and its ReLU compute after the product.
 //  * wgmma (M > 32, bf16 x, K % 8 == 0, N % 16 == 0, 16-byte aligned x
 //    and w: every BERT product): the product is taken transposed, out^T =
 //    w^T x^T, so the int8 weights are wgmma's register A operand and are
@@ -74,12 +102,15 @@
 //    K at a time through shared memory, each thread 4 x 4 outputs, plain
 //    FMAs on the CUDA cores (TF32 would round x to 10 mantissa bits, which
 //    the f32 contract does not allow).
-// No block carries anything to another and nothing is split over K across
-// blocks: every output is written once by one thread, its sum taken in a
-// fixed order, so the result is the same bits from run to run. Any M, K
-// and N: edges are masked on load (zeros) and on store.
+// No float atomics anywhere: every output (and every skinny partial sum)
+// is written once by one thread, its sum taken in a fixed order, so the
+// result is the same bits from run to run. Any M, K and N: edges are masked
+// on load (zeros) and on store.
 
 #include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
 
 #include "hopper.cuh"
 
@@ -154,105 +185,6 @@ __device__ __forceinline__ uint4 load16(const int8_t* __restrict__ w, int k,
   return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
-// ---------------------------------------------------------------------------
-// skinny: M <= 32
-// ---------------------------------------------------------------------------
-
-constexpr int S_THREADS = 256;
-constexpr int S_BN = 32;                // columns per block
-constexpr int S_KG = S_THREADS / 2;     // k groups (pairs of threads)
-constexpr int S_AHEAD = 4;              // rows of w in flight per thread
-constexpr int SKINNY_MAX_M = 32;
-
-// PRE: dequantize first (each weight q * s rounded to T before its
-// product, no scale after); else the scale after the reduction
-template <typename T, int MT, bool PRE>
-__global__ void __launch_bounds__(S_THREADS)
-    int8_mm_skinny(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scales, T* __restrict__ out,
-                   int M, int K, int N, int vec) {
-  __shared__ float part[S_THREADS / 32][MT][S_BN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int half = tid & 1, kg = tid >> 1;
-  const int c0 = blockIdx.x * S_BN + 16 * half;
-  const int m0 = blockIdx.y * MT;
-  float acc[MT][16];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
-  float sc[16];  // this thread's 16 column scales, rounded to T
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    sc[j] = PRE ? col_scale<T>(scales, c0 + j, N) : 0.f;
-
-  for (int kb = kg; kb < K; kb += S_KG * S_AHEAD) {
-    uint4 raw[S_AHEAD];
-    float xv[S_AHEAD][MT];
-#pragma unroll
-    for (int u = 0; u < S_AHEAD; ++u) {
-      const int k = kb + u * S_KG;
-      raw[u] = k < K ? load16(w, k, c0, N, vec) : uint4{};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        xv[u][m] = k < K && m0 + m < M
-                       ? to_f32(x[(size_t)(m0 + m) * K + k])
-                       : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < S_AHEAD; ++u) {
-      const uint32_t word[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float q = int8_at(word[j >> 2], j & 3);
-        const float wv = PRE ? round_to<T>(q * sc[j]) : q;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m][j] = fmaf(xv[u][m], wv, acc[m][j]);
-      }
-    }
-  }
-
-  // the 16 k groups of a warp with the same column half: a butterfly, so
-  // every lane ends with the same bits of the same tree
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float v = acc[m][j];
-#pragma unroll
-      for (int o = 2; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      acc[m][j] = v;
-    }
-  if (lane < 2) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) part[warp][m][16 * lane + j] = acc[m][j];
-  }
-  __syncthreads();
-  if (tid < MT * S_BN) {
-    const int m = tid / S_BN, c = tid % S_BN;
-    const int row = m0 + m, col = blockIdx.x * S_BN + c;
-    if (row < M && col < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int p = 0; p < S_THREADS / 32; ++p) s += part[p][m][c];
-      out[(size_t)row * N + col] = from_f32<T>(PRE ? s : s * scales[col]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// mma: M > 32, bf16. mma.sync m16n8k16 fragments (PTX ISA): with g = lane / 4
-// and t = lane % 4 a thread holds A rows g and g+8 at columns 2t, 2t+1 (and
-// +8); B columns g at rows 2t, 2t+1 (and +8); C rows g and g+8 at columns
-// 2t, 2t+1.
-// ---------------------------------------------------------------------------
-
-constexpr int T_BM = 128, T_BN = 128, T_BK = 32, T_THREADS = 256;
-constexpr int LDA = T_BK + 8;   // bf16; 80-byte rows: conflict-free fragments
-constexpr int LDB = T_BN + 8;   // bf16; 272-byte rows: conflict-free ldmatrix
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -265,6 +197,595 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
+
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// `src_bytes` (all 16 when it is 0) are written as zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// skinny: M <= 32. Grid (panels, K slices); block (p, s) owns columns
+// 128 p .. 128 p + 127 for all M rows and rows ks s .. ks (s + 1) - 1 of w.
+// Shared memory: the weight ring (S_STAGES stages of S_BK rows of S_BN
+// int8, rows S_LDW bytes apart), then the block's slice of x, [MT][ldx]
+// (the f32 tile kernel lays out its own stages, x beside each).
+// ---------------------------------------------------------------------------
+
+constexpr int SKINNY_MAX_M = 32;
+constexpr int S_THREADS = 256;
+constexpr int S_BN = 128;                // columns per block (a panel)
+constexpr int S_BK = 64;                 // rows of w per ring stage
+constexpr int S_STAGES = 3;
+// a stage row is 128 bytes padded to 144: the bf16 kernel's 2-byte A loads
+// (rows 2t of a 16-row step, columns 2g) then fall on 32 distinct banks
+constexpr int S_LDW = S_BN + 16;
+constexpr int S_STAGE_BYTES = S_BK * S_LDW;
+constexpr int S_RING_BYTES = S_STAGES * S_STAGE_BYTES;
+constexpr int S_KS_MAX = 512;            // rows of a K slice at most
+
+// x's row stride in shared memory, in elements: rows are padded by 16
+// bytes, so that the bf16 B fragments' 32-bit loads (rows g, columns 2t)
+// and the f32 tile kernel's 16-byte loads (rows 8 apart) fall on distinct
+// banks
+template <typename T>
+__host__ __device__ constexpr int skinny_ldx(int ks) {
+  return ks + 16 / (int)sizeof(T);
+}
+
+// blocks an SM each skinny kernel is built for (its register budget):
+// four, so that the 512 blocks of K = N = 4096 run in one wave; three for
+// f32 from 8 rows (32 sums a thread, and the tile kernel's shared memory),
+// for which skinny_k_slice slices K so that the grid fills three an SM
+template <typename T, int MT>
+__host__ __device__ constexpr int skinny_min_blocks() {
+  return sizeof(T) == 2 || MT <= 4 ? 4 : 3;
+}
+
+// rows k0 .. k0 + S_BK - 1 of the block's panel into the stage at `stage`,
+// zeros past k_end (the slice's end, at most K) and past N: 16-byte
+// cp.async where `vec` (N % 16 == 0 and w 16-byte aligned), else plain
+// byte loads
+__device__ __forceinline__ void skinny_load_w(
+    unsigned char* stage, const int8_t* __restrict__ w, int k0, int k_end,
+    int n0, int N, int vec, int tid) {
+#pragma unroll
+  for (int i = 0; i < S_BK * S_BN / 16 / S_THREADS; ++i) {
+    const int chunk = tid + i * S_THREADS;
+    const int r = chunk / (S_BN / 16), c = (chunk % (S_BN / 16)) * 16;
+    const int k = k0 + r, col = n0 + c;
+    unsigned char* dst = stage + r * S_LDW + c;
+    if (vec) {
+      const bool ok = k < k_end && col < N;
+      cp_async16(smem_u32(dst), ok ? w + (size_t)k * N + col : w,
+                 ok ? 16 : 0);
+    } else {
+      *reinterpret_cast<uint4*>(dst) =
+          k < k_end ? load16(w, k, col, N, 0) : uint4{};
+    }
+  }
+}
+
+// the block's slice of x, rows 0 .. MT - 1 (zeros from M) and columns
+// k_beg .. k_beg + ks - 1 (zeros from k_end), into xs [MT][ldx]: 16-byte
+// cp.async where `xvec` (K a multiple of 16 bytes' elements, x 16-byte
+// aligned), else element by element
+template <typename T, int MT>
+__device__ __forceinline__ void skinny_stage_x(T* xs, const T* __restrict__ x,
+                                               int M, int K, int k_beg,
+                                               int k_end, int ks, int xvec,
+                                               int tid) {
+  constexpr int PER = 16 / sizeof(T);
+  const int chunks = ks / PER, ldx = skinny_ldx<T>(ks);
+  for (int idx = tid; idx < MT * chunks; idx += S_THREADS) {
+    const int m = idx / chunks, k = k_beg + (idx - m * chunks) * PER;
+    T* dst = xs + m * ldx + (k - k_beg);
+    if (xvec) {
+      const bool ok = m < M && k < k_end;
+      cp_async16(smem_u32(dst), ok ? x + (size_t)m * K + k : x,
+                 ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        dst[e] = m < M && k + e < k_end ? x[(size_t)m * K + k + e]
+                                        : from_f32<T>(0.f);
+    }
+  }
+}
+
+// the ring's first S_STAGES - 1 stages and x (in the first group)
+template <typename T, int MT>
+__device__ __forceinline__ void skinny_prologue(
+    unsigned char* smem, T* xs, const T* __restrict__ x,
+    const int8_t* __restrict__ w, int M, int K, int N, int n0, int k_beg,
+    int k_end, int ks, int nk, int vec, int xvec, int tid) {
+  skinny_stage_x<T, MT>(xs, x, M, K, k_beg, k_end, ks, xvec, tid);
+#pragma unroll
+  for (int st = 0; st < S_STAGES - 1; ++st) {
+    if (st < nk)
+      skinny_load_w(smem + st * S_STAGE_BYTES, w, k_beg + st * S_BK, k_end,
+                    n0, N, vec, tid);
+    cp_async_commit();
+  }
+}
+
+// step i of the ring: stage i has landed for every thread, and the stage
+// step i - 1 read is refilled with step i + S_STAGES - 1
+__device__ __forceinline__ void skinny_advance(unsigned char* smem,
+                                               const int8_t* __restrict__ w,
+                                               int i, int nk, int k_beg,
+                                               int k_end, int n0, int N,
+                                               int vec, int tid) {
+  cp_async_wait<S_STAGES - 2>();
+  __syncthreads();
+  const int j = i + S_STAGES - 1;
+  if (j < nk)
+    skinny_load_w(smem + (j % S_STAGES) * S_STAGE_BYTES, w, k_beg + j * S_BK,
+                  k_end, n0, N, vec, tid);
+  cp_async_commit();
+}
+
+// an output from its f32 sum: in the scale-after mode times the column's
+// scale, rounded once to T; then, if asked, the bias added in T
+// (round_T(y + round_T(b)), the dense layer's order) and max(y, 0) (NaN
+// and -0 kept, as torch.relu keeps them on the CPU). __fmul_rn and
+// __fadd_rn are never contracted into one FMA, which in f32 would round
+// the scaled sum plus the bias once where the dense layer rounds twice.
+template <typename T>
+__device__ __forceinline__ T skinny_finish(float acc, int n,
+                                           const float* __restrict__ scales,
+                                           const float* __restrict__ bias,
+                                           bool pre, int relu) {
+  float y = round_to<T>(pre ? acc : __fmul_rn(acc, scales[n]));
+  if (bias != nullptr) y = round_to<T>(__fadd_rn(y, round_to<T>(bias[n])));
+  if (relu && y < 0.f) y = 0.f;
+  return from_f32<T>(y);
+}
+
+// q of byte e of `u` (the int8 word XOR 0x80808080) as an exact f32: the
+// byte becomes the low mantissa byte of 2^23 + 128 + q, one subtraction
+// leaves q (a byte permute and an add, where a conversion instruction
+// would run at a quarter of the FMA rate)
+__device__ __forceinline__ float widen1(uint32_t u, int e) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | e)) -
+         8388736.f;
+}
+
+// f32, MT <= 8 rows (bytes bound them). Lane l of every warp owns columns
+// n0 + 4l .. 4l + 3 and all MT rows; warp v takes rows 4 (v + 8h) .. + 3
+// of each stage (h < 2), reading its 4 x 4 weights once (widened exactly,
+// in the dequantize-first mode times the f32 column scale) and x[m][k ..
+// k + 3] as one broadcast 16-byte load per row. Then the 8 warps' sums
+// meet in a fixed tree: 4-7 into 0-3, 2-3 into 0-1, 1 into 0.
+template <int MT, bool PRE>
+__global__ void __launch_bounds__(S_THREADS, skinny_min_blocks<float, MT>())
+    int8_mm_skinny_f32(const float* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ scales,
+                       const float* __restrict__ bias,
+                       float* __restrict__ out, float* __restrict__ ws,
+                       int M, int K, int N, int ks, int vec, int xvec,
+                       int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * S_BN, k_beg = blockIdx.y * ks;
+  const int k_end = min(K, k_beg + ks);
+  const int nk = k_end > k_beg ? (k_end - k_beg + S_BK - 1) / S_BK : 0;
+  const int ldx = skinny_ldx<float>(ks);
+  float* xs = reinterpret_cast<float*>(smem + S_RING_BYTES);
+  skinny_prologue<float, MT>(smem, xs, x, w, M, K, N, n0, k_beg, k_end, ks,
+                             nk, vec, xvec, tid);
+  // the reduce kernel may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  float sc[4];  // dequantize-first: this lane's column scales (0 past N)
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sc[e] = PRE ? col_scale<float>(scales, n0 + 4 * lane + e, N) : 1.f;
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    skinny_advance(smem, w, i, nk, k_beg, k_end, n0, N, vec, tid);
+    const unsigned char* st = smem + (i % S_STAGES) * S_STAGE_BYTES;
+#pragma unroll
+    for (int h = 0; h < S_BK / 32; ++h) {
+      const int r = 4 * (warp + 8 * h);
+      float wv[4][4];  // [row r + j][column 4 lane + e]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(
+                               st + (r + j) * S_LDW + 4 * lane) ^
+                           0x80808080u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[j][e] = PRE ? widen1(u, e) * sc[e] : widen1(u, e);
+      }
+      const float* xr = xs + i * S_BK + r;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float4 xv = *reinterpret_cast<const float4*>(xr + m * ldx);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = acc[m][e];
+          a = fmaf(xv.x, wv[0][e], a);
+          a = fmaf(xv.y, wv[1][e], a);
+          a = fmaf(xv.z, wv[2][e], a);
+          a = fmaf(xv.w, wv[3][e], a);
+          acc[m][e] = a;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* red = reinterpret_cast<float*>(smem);  // [4][MT][S_BN]
+#pragma unroll
+  for (int half = 4; half >= 1; half >>= 1) {
+    __syncthreads();
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        *reinterpret_cast<float4*>(
+            red + ((warp - half) * MT + m) * S_BN + 4 * lane) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    }
+    __syncthreads();
+    if (warp < half) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            red + (warp * MT + m) * S_BN + 4 * lane);
+        acc[m][0] += v.x, acc[m][1] += v.y, acc[m][2] += v.z,
+            acc[m][3] += v.w;
+      }
+    }
+  }
+  if (warp != 0) return;
+  const int n = n0 + 4 * lane;
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (m < M && n + e < N)
+          out[(size_t)m * N + n + e] =
+              skinny_finish<float>(acc[m][e], n + e, scales, bias, PRE, relu);
+  } else {
+    const int np = gridDim.x * S_BN;
+    float* p = ws + (size_t)blockIdx.y * M * np + n;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      if (m < M)
+        *reinterpret_cast<float4*>(p + (size_t)m * np) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+}
+
+// the tile kernel's stage: the weight rows (S_STAGE_BYTES), then x's MT
+// rows over the same S_BK columns of K, rows XT_LD floats apart (a 16-byte
+// pad puts rows 8 apart on distinct banks)
+constexpr int XT_LD = S_BK + 4;
+
+template <int MT>
+__host__ __device__ constexpr int tile_stage_bytes() {
+  return S_STAGE_BYTES + MT * XT_LD * 4;
+}
+
+// columns k0 .. k0 + S_BK - 1 of x's rows 0 .. MT - 1 (zeros from M and
+// from k_end) into `dst`: 16-byte cp.async where `xvec`, else element by
+// element
+template <int MT>
+__device__ __forceinline__ void skinny_load_xk(float* dst,
+                                               const float* __restrict__ x,
+                                               int M, int K, int k0,
+                                               int k_end, int xvec, int tid) {
+  constexpr int CH = S_BK / 4;  // 16-byte chunks a row
+  for (int idx = tid; idx < MT * CH; idx += S_THREADS) {
+    const int m = idx / CH, c = (idx % CH) * 4, k = k0 + c;
+    float* d = dst + m * XT_LD + c;
+    if (xvec) {
+      const bool ok = m < M && k < k_end;
+      cp_async16(smem_u32(d), ok ? x + (size_t)m * K + k : x, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[e] = m < M && k + e < k_end ? x[(size_t)m * K + k + e] : 0.f;
+    }
+  }
+}
+
+// f32, MT = 16 or 32 rows (operations bound them at 32): a small SGEMM
+// on each stage. x streams through the ring with the weights, S_BK columns
+// a stage, so shared memory does not grow with the K slice and three
+// blocks fit an SM. Warp v owns columns n0 + 16v .. + 15 and all MT
+// rows. For each half stage (32 k rows) it first widens its 16 columns,
+// once, into an f32 tile of its own (in the dequantize-first mode times
+// the column scale), so that only the warp, not the block, waits for it;
+// lane (g, c) = (lane % 8, lane / 8) then owns columns 16v + 4c .. + 3
+// and rows g + 8q (q < MT / 8): per 4 k rows it loads MT / 8 x quads and
+// 4 weight quads and runs 16 MT / 8 FMAs, each sum taking its k rows in
+// order. No sums are split inside the block.
+template <int MT, bool PRE>
+__global__ void __launch_bounds__(S_THREADS, skinny_min_blocks<float, MT>())
+    int8_mm_skinny_f32_tile(const float* __restrict__ x,
+                            const int8_t* __restrict__ w,
+                            const float* __restrict__ scales,
+                            const float* __restrict__ bias,
+                            float* __restrict__ out, float* __restrict__ ws,
+                            int M, int K, int N, int ks, int vec, int xvec,
+                            int relu) {
+  constexpr int RT = MT / 8;  // rows a thread
+  constexpr int TS = tile_stage_bytes<MT>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * S_BN, k_beg = blockIdx.y * ks;
+  const int k_end = min(K, k_beg + ks);
+  const int nk = k_end > k_beg ? (k_end - k_beg + S_BK - 1) / S_BK : 0;
+  // this warp's widened half stage, [S_BK / 2][16]
+  float* wf = reinterpret_cast<float*>(smem + S_STAGES * TS) +
+              warp * (S_BK / 2) * 16;
+  // step j's weights and x into its stage, then one commit
+  auto fill = [&](int j) {
+    if (j < nk) {
+      unsigned char* stage = smem + (j % S_STAGES) * TS;
+      const int k0 = k_beg + j * S_BK;
+      skinny_load_w(stage, w, k0, k_end, n0, N, vec, tid);
+      skinny_load_xk<MT>(reinterpret_cast<float*>(stage + S_STAGE_BYTES), x,
+                         M, K, k0, k_end, xvec, tid);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < S_STAGES - 1; ++j) fill(j);
+  // the reduce kernel may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // widening: lane (lane / 4 + 8j, quad lane % 4) of the warp's columns
+  const int wq = lane & 3, wr = lane >> 2;
+  float sc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    sc[e] = PRE ? col_scale<float>(scales, n0 + 16 * warp + 4 * wq + e, N)
+                : 1.f;
+  const int g = lane & 7, cg = lane >> 3;
+  float acc[RT][4];
+#pragma unroll
+  for (int q = 0; q < RT; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<S_STAGES - 2>();
+    __syncthreads();  // step i landed; step i - 1's stage is free
+    fill(i + S_STAGES - 1);
+    const unsigned char* st = smem + (i % S_STAGES) * TS;
+    const float* xst = reinterpret_cast<const float*>(st + S_STAGE_BYTES);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int j = 0; j < S_BK / 16; ++j) {
+        const int r = wr + 8 * j;
+        const uint32_t u =
+            *reinterpret_cast<const uint32_t*>(
+                st + (32 * half + r) * S_LDW + 16 * warp + 4 * wq) ^
+            0x80808080u;
+        float4 v;
+        v.x = PRE ? widen1(u, 0) * sc[0] : widen1(u, 0);
+        v.y = PRE ? widen1(u, 1) * sc[1] : widen1(u, 1);
+        v.z = PRE ? widen1(u, 2) * sc[2] : widen1(u, 2);
+        v.w = PRE ? widen1(u, 3) * sc[3] : widen1(u, 3);
+        *reinterpret_cast<float4*>(wf + r * 16 + 4 * wq) = v;
+      }
+      __syncwarp();
+      const float* xr = xst + g * XT_LD + 32 * half;
+#pragma unroll 4
+      for (int k = 0; k < S_BK / 2; k += 4) {
+        float xv[RT][4];  // [row g + 8q][k + j]
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              xr + 8 * q * XT_LD + k);
+          xv[q][0] = v.x, xv[q][1] = v.y, xv[q][2] = v.z, xv[q][3] = v.w;
+        }
+        float wv[4][4];  // [k + j][column 16 warp + 4 cg + e]
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(wf + (k + j) * 16 + 4 * cg);
+          wv[j][0] = v.x, wv[j][1] = v.y, wv[j][2] = v.z, wv[j][3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < RT; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[q][e] = fmaf(xv[q][j], wv[j][e], acc[q][e]);
+      }
+      __syncwarp();  // the tile is read before the next half widens into it
+    }
+  }
+  cp_async_wait<0>();
+
+  const int n = n0 + 16 * warp + 4 * cg;
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int q = 0; q < RT; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (g + 8 * q < M && n + e < N)
+          out[(size_t)(g + 8 * q) * N + n + e] =
+              skinny_finish<float>(acc[q][e], n + e, scales, bias, PRE, relu);
+  } else {
+    const int np = gridDim.x * S_BN;
+    float* p = ws + (size_t)blockIdx.y * M * np + n;
+#pragma unroll
+    for (int q = 0; q < RT; ++q)
+      if (g + 8 * q < M)
+        *reinterpret_cast<float4*>(p + (size_t)(g + 8 * q) * np) =
+            make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+  }
+}
+
+// bf16. Warp v owns columns n0 + 16 v .. + 15 as the 16 rows of mma's A
+// operand (w^T), ordered so that a thread's two rows g and g + 8 are the
+// adjacent columns c = 16 v + 2g and c + 1: for each 16-row k step it
+// loads the 2-byte column pair at rows 2t, 2t + 1, 2t + 8, 2t + 9 and
+// widens them in registers. x^T is the B operand, MT / 8 tiles of 8 rows
+// of x, read from the staged slice. Accumulator j holds out^T for rows
+// 8j .. 8j + 7: register e at column c + (e >> 1), row 8j + 2t + (e & 1).
+template <int MT, bool PRE>
+__global__ void __launch_bounds__(S_THREADS, skinny_min_blocks<bf16, MT>())
+    int8_mm_skinny_bf16(const bf16* __restrict__ x,
+                        const int8_t* __restrict__ w,
+                        const float* __restrict__ scales,
+                        const float* __restrict__ bias,
+                        bf16* __restrict__ out, float* __restrict__ ws,
+                        int M, int K, int N, int ks, int vec, int xvec,
+                        int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * S_BN, k_beg = blockIdx.y * ks;
+  const int k_end = min(K, k_beg + ks);
+  const int nk = k_end > k_beg ? (k_end - k_beg + S_BK - 1) / S_BK : 0;
+  const int ldx = skinny_ldx<bf16>(ks);
+  bf16* xs = reinterpret_cast<bf16*>(smem + S_RING_BYTES);
+  skinny_prologue<bf16, MT>(smem, xs, x, w, M, K, N, n0, k_beg, k_end, ks,
+                            nk, vec, xvec, tid);
+  // the reduce kernel may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int c = 16 * warp + 2 * g;  // this thread's column pair
+  const bool active = n0 + 16 * warp < N;
+  // dequantize-first: each column's scale rounded to bf16, in both halves
+  __nv_bfloat162 s2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sv = PRE ? col_scale<bf16>(scales, n0 + c + h, N) : 1.f;
+    s2[h] = __floats2bfloat162_rn(sv, sv);
+  }
+  float acc[MT / 8][4];
+#pragma unroll
+  for (int j = 0; j < MT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    skinny_advance(smem, w, i, nk, k_beg, k_end, n0, N, vec, tid);
+    if (!active) continue;
+    const unsigned char* st = smem + (i % S_STAGES) * S_STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < S_BK / 16; ++kk) {
+      const int k = 16 * kk + 2 * t;
+      uint32_t a[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const unsigned char* p = st + (k + 8 * half) * S_LDW + c;
+        const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+        const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + S_LDW);
+        uint32_t r0, r1;  // (k, k + 1) of column c, of column c + 1
+        widen4(__byte_perm(lo, hi, 0x5140), r0, r1);
+        if (PRE) {
+          __nv_bfloat162 p0 =
+              __hmul2(*reinterpret_cast<__nv_bfloat162*>(&r0), s2[0]);
+          __nv_bfloat162 p1 =
+              __hmul2(*reinterpret_cast<__nv_bfloat162*>(&r1), s2[1]);
+          r0 = *reinterpret_cast<uint32_t*>(&p0);
+          r1 = *reinterpret_cast<uint32_t*>(&p1);
+        }
+        a[2 * half] = r0;
+        a[2 * half + 1] = r1;
+      }
+#pragma unroll
+      for (int j = 0; j < MT / 8; ++j) {
+        const bf16* xr = xs + (8 * j + g) * ldx + i * S_BK + k;
+        mma_bf16(acc[j], a, ld32(xr), ld32(xr + 8));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  const int n = n0 + c;
+  const int np = gridDim.x * S_BN;
+#pragma unroll
+  for (int j = 0; j < MT / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 8 * j + 2 * t + h;
+      if (m >= M) continue;
+      if (gridDim.y == 1) {
+        if (n < N)
+          out[(size_t)m * N + n] =
+              skinny_finish<bf16>(acc[j][h], n, scales, bias, PRE, relu);
+        if (n + 1 < N)
+          out[(size_t)m * N + n + 1] = skinny_finish<bf16>(
+              acc[j][2 + h], n + 1, scales, bias, PRE, relu);
+      } else {
+        *reinterpret_cast<float2*>(ws + ((size_t)blockIdx.y * M + m) * np +
+                                   n) = make_float2(acc[j][h], acc[j][2 + h]);
+      }
+    }
+}
+
+// the slices' partial sums of each output added in slice order, then the
+// epilogue (skinny_finish). Launched as a programmatic dependent of the
+// skinny kernel: its launch overlaps that kernel's tail, and
+// griddepcontrol.wait holds it until the partial sums are all written.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    int8_mm_skinny_reduce(const float* __restrict__ ws,
+                          const float* __restrict__ scales,
+                          const float* __restrict__ bias, T* __restrict__ out,
+                          int M, int N, int np, int slices, int pre,
+                          int relu) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= M * N) return;
+  const int m = i / N, n = i - m * N;
+  const float* p = ws + (size_t)m * np + n;
+  const size_t step = (size_t)M * np;
+  float acc = 0.f;
+  for (int s0 = 0; s0 < slices; s0 += 16) {
+    float v[16];  // sixteen slices' loads in flight at once
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      v[j] = s0 + j < slices ? p[(s0 + j) * step] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (s0 + j < slices) acc += v[j];
+  }
+  out[i] = skinny_finish<T>(acc, n, scales, bias, pre != 0, relu);
+}
+
+// ---------------------------------------------------------------------------
+// mma: M > 32, bf16. mma.sync m16n8k16 fragments (PTX ISA): with g = lane / 4
+// and t = lane % 4 a thread holds A rows g and g+8 at columns 2t, 2t+1 (and
+// +8); B columns g at rows 2t, 2t+1 (and +8); C rows g and g+8 at columns
+// 2t, 2t+1.
+// ---------------------------------------------------------------------------
+
+constexpr int T_BM = 128, T_BN = 128, T_BK = 32, T_THREADS = 256;
+constexpr int LDA = T_BK + 8;   // bf16; 80-byte rows: conflict-free fragments
+constexpr int LDB = T_BN + 8;   // bf16; 272-byte rows: conflict-free ldmatrix
 
 // four 8x8 b16 matrices, transposed on the way: lanes 8j..8j+7 give the
 // row addresses of matrix j, and register j receives that matrix's
@@ -700,49 +1221,177 @@ int aligned(const void* p, int bytes) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// the SM count of device `dev` into *sms, read once a device
+cudaError_t sm_count(int dev, int* sms) {
+  static std::atomic<int> cached[64];
+  if (dev >= 0 && dev < 64 && (*sms = cached[dev].load()) > 0)
+    return cudaSuccess;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) cached[dev].store(*sms);
+  return err;
+}
+
+// The skinny route's K slicing, its one owner: rows of K a block takes (a
+// multiple of S_BK, at most S_KS_MAX), as many slices as let the grid of
+// cdiv(N, S_BN) panels x slices fill one wave of the blocks `sms` SMs hold
+// at once (skinny_min_blocks of the kernel M takes: three for f32 above 4
+// rows, four for the others). K = N = 4096 on 132 SMs: 16 slices of 256
+// rows (512 blocks), or 11 of 384 (352) for f32 above 4 rows.
+int skinny_k_slice(int M, int K, int N, int dtype, int sms) {
+  const int per_sm = dtype == 0 && M > 4 ? skinny_min_blocks<float, 8>()
+                                         : skinny_min_blocks<bf16, 8>();
+  const int slices =
+      std::max({per_sm * sms / cdiv(N, S_BN), cdiv(K, S_KS_MAX), 1});
+  return std::min(std::max(cdiv(cdiv(K, slices), S_BK) * S_BK, S_BK),
+                  S_KS_MAX);
+}
+
+int skinny_slices(int K, int ks) { return K > 0 ? cdiv(K, ks) : 1; }
+
+// f32 floats of the workspace the split-K partial sums take: [slices][M]
+// [panels x S_BN], none for one slice
+long long skinny_workspace(int M, int K, int N, int ks) {
+  const int slices = skinny_slices(K, ks);
+  return slices > 1 ? (long long)slices * M * cdiv(N, S_BN) * S_BN : 0;
+}
+
+// shared memory: the ring and the K slice of x; the f32 tile kernel
+// instead streams x through its ring and adds the warps' widened half
+// stages; the small f32 kernel reuses its space for the tree's first
+// round, 4 x [MT][S_BN] floats
+template <typename T, int MT>
+constexpr size_t skinny_smem(int ks) {
+  if (sizeof(T) == 4 && MT >= 16)
+    return (size_t)S_STAGES * tile_stage_bytes<MT>() +
+           (size_t)8 * (S_BK / 2) * 16 * 4;
+  const size_t staged =
+      S_RING_BYTES + (size_t)MT * skinny_ldx<T>(ks) * sizeof(T);
+  const size_t tree = sizeof(T) == 4 ? (size_t)4 * MT * S_BN * 4 : 0;
+  return staged > tree ? staged : tree;
+}
+
+// cudaFuncSetAttribute for `kernel`'s largest dynamic shared memory, once
+// a device, not at every launch (`done` is the kernel's own mask of
+// devices)
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
+                            std::atomic<unsigned long long>& done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+  err = set_smem(kernel, bytes);
+  if (err == cudaSuccess && bit) done.fetch_or(bit);
+  return err;
+}
+
+template <typename T, int MT, bool PRE>
+cudaError_t launch_skinny_mt(const T* x, const int8_t* w, const float* s,
+                             const float* bias, int relu, T* out, float* ws,
+                             int M, int K, int N, int ks, int vec, int xvec,
+                             dim3 grid, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  auto kernel = [] {
+    if constexpr (sizeof(T) == 2)
+      return int8_mm_skinny_bf16<MT, PRE>;
+    else if constexpr (MT >= 16)
+      return int8_mm_skinny_f32_tile<MT, PRE>;
+    else
+      return int8_mm_skinny_f32<MT, PRE>;
+  }();
+  cudaError_t err =
+      allow_smem_once(kernel, skinny_smem<T, MT>(S_KS_MAX), done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, S_THREADS, skinny_smem<T, MT>(ks), stream>>>(
+      x, w, s, bias, out, ws, M, K, N, ks, vec, xvec, relu);
+  return cudaGetLastError();
+}
+
+// M <= 32 on the current device: skinny_k_slice's rows of K a block,
+// cdiv(K, ks) slices (into *splits); with more than one, `ws` (ws_floats
+// long, at least skinny_workspace's) takes [slices][M][panels x S_BN] f32
+// partial sums and a second kernel adds them
 template <typename T, bool PRE>
-void launch_skinny(const T* x, const int8_t* w, const float* s, T* out, int M,
-                   int K, int N, cudaStream_t stream) {
+cudaError_t launch_skinny(const T* x, const int8_t* w, const float* s,
+                          const float* bias, int relu, T* out, float* ws,
+                          long long ws_floats, int M, int K, int N,
+                          cudaStream_t stream, int* splits) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return err;
+  const int ks = skinny_k_slice(M, K, N, sizeof(T) == 4 ? 0 : 1, sms);
+  const int slices = skinny_slices(K, ks);
+  if (slices > 1 && (ws == nullptr ||
+                     ws_floats < skinny_workspace(M, K, N, ks)))
+    return cudaErrorInvalidValue;
+  *splits = slices;
+  const dim3 grid(cdiv(N, S_BN), slices);
   const int vec = N % 16 == 0 && aligned(w, 16);
-  if (M == 1) {
-    int8_mm_skinny<T, 1, PRE>
-        <<<dim3(cdiv(N, S_BN), 1), S_THREADS, 0, stream>>>(x, w, s, out, M,
-                                                          K, N, vec);
+  const int xvec = K % (16 / (int)sizeof(T)) == 0 && aligned(x, 16);
+#define SKINNY(MT)                                                        \
+  launch_skinny_mt<T, MT, PRE>(x, w, s, bias, relu, out, ws, M, K, N, ks, \
+                               vec, xvec, grid, stream)
+  // rows padded to MT: f32 1, 4, 8, 16, 32; bf16 (8-row mma tiles) 8, 16, 32
+  if constexpr (sizeof(T) == 4) {
+    if (M <= 4) err = M == 1 ? SKINNY(1) : SKINNY(4);
+    else err = M <= 8 ? SKINNY(8) : M <= 16 ? SKINNY(16) : SKINNY(32);
   } else {
-    int8_mm_skinny<T, 4, PRE>
-        <<<dim3(cdiv(N, S_BN), cdiv(M, 4)), S_THREADS, 0, stream>>>(
-            x, w, s, out, M, K, N, vec);
+    err = M <= 8 ? SKINNY(8) : M <= 16 ? SKINNY(16) : SKINNY(32);
   }
+#undef SKINNY
+  if (err != cudaSuccess || slices == 1) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cdiv(M * N, 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_mm_skinny_reduce<T>, (const float*)ws,
+                            s, bias, out, M, N, (int)grid.x * S_BN, slices,
+                            (int)PRE, relu);
 }
 
 // the kernel each shape takes (reported to the caller)
 enum Route { ROUTE_WGMMA = 0, ROUTE_MMA = 1, ROUTE_SKINNY = 2, ROUTE_FMA = 3 };
 
+// info[0] the route, info[1] the K slices (1 off the skinny route)
 template <bool PRE>
 cudaError_t launch(const void* x, const int8_t* wq, const float* sc,
-                   void* out, int M, int K, int N, int dtype, cudaStream_t s,
-                   int* route) {
+                   const float* bias, int relu, float* ws,
+                   long long ws_floats, void* out, int M, int K, int N,
+                   int dtype, cudaStream_t s, int* info) {
   if (M <= SKINNY_MAX_M) {
-    *route = ROUTE_SKINNY;
+    info[0] = ROUTE_SKINNY;
     if (dtype == 0)
-      launch_skinny<float, PRE>(static_cast<const float*>(x), wq, sc,
-                                static_cast<float*>(out), M, K, N, s);
-    else
-      launch_skinny<bf16, PRE>(static_cast<const bf16*>(x), wq, sc,
-                               static_cast<bf16*>(out), M, K, N, s);
-  } else if (dtype == 1 && K > 0 && K % 8 == 0 && N % 16 == 0 &&
-             aligned(x, 16) && aligned(wq, 16)) {
-    *route = ROUTE_WGMMA;
+      return launch_skinny<float, PRE>(static_cast<const float*>(x), wq, sc,
+                                       bias, relu, static_cast<float*>(out),
+                                       ws, ws_floats, M, K, N, s, info + 1);
+    return launch_skinny<bf16, PRE>(static_cast<const bf16*>(x), wq, sc,
+                                    bias, relu, static_cast<bf16*>(out), ws,
+                                    ws_floats, M, K, N, s, info + 1);
+  }
+  info[1] = 1;
+  if (dtype == 1 && K > 0 && K % 8 == 0 && N % 16 == 0 && aligned(x, 16) &&
+      aligned(wq, 16)) {
+    info[0] = ROUTE_WGMMA;
     CUtensorMap mx, mw;
     if (!encode_x(&mx, x, M, K) || !encode_w(&mw, wq, K, N))
       return cudaErrorInvalidValue;
-    cudaError_t err = set_smem(int8_mm_wgmma<PRE>, G_SMEM);
+    static std::atomic<unsigned long long> done{0};
+    cudaError_t err = allow_smem_once(int8_mm_wgmma<PRE>, G_SMEM, done);
     if (err != cudaSuccess) return err;
     int8_mm_wgmma<PRE>
         <<<dim3(cdiv(N, G_BN), cdiv(M, G_BM)), G_THREADS, G_SMEM, s>>>(
             mx, mw, sc, static_cast<bf16*>(out), M, K, N);
   } else if (dtype == 1) {
-    *route = ROUTE_MMA;
+    info[0] = ROUTE_MMA;
     const int xvec = K % 8 == 0 && aligned(x, 16);
     const int wvec = N % 16 == 0 && aligned(wq, 16);
     int8_mm_mma<PRE>
@@ -750,7 +1399,7 @@ cudaError_t launch(const void* x, const int8_t* wq, const float* sc,
         static_cast<const bf16*>(x), wq, sc, static_cast<bf16*>(out), M, K,
         N, xvec, wvec);
   } else {
-    *route = ROUTE_FMA;
+    info[0] = ROUTE_FMA;
     const int xvec = K % 4 == 0 && aligned(x, 16);
     const int wvec = N % 4 == 0 && aligned(wq, 4);
     int8_mm_fma<PRE>
@@ -763,24 +1412,54 @@ cudaError_t launch(const void* x, const int8_t* wq, const float* sc,
 
 }  // namespace
 
+// The skinny route's plan for x (M, K) in `dtype` (0 f32, 1 bf16) times w
+// (K, N) on CUDA device `device`: returns 1 when M <= 32 takes the skinny
+// route (which applies bias and relu itself), 0 when another route does
+// (the caller applies them after it), -1 when the device cannot be read;
+// *workspace_floats receives the f32 workspace int8_matmul then needs (0
+// for one K slice and off the skinny route).
+extern "C" int int8_matmul_plan(int M, int K, int N, int dtype, int device,
+                                long long* workspace_floats) {
+  *workspace_floats = 0;
+  if (M > SKINNY_MAX_M) return 0;
+  int sms = 0;
+  if (sm_count(device, &sms) != cudaSuccess) return -1;
+  *workspace_floats =
+      skinny_workspace(M, K, N, skinny_k_slice(M, K, N, dtype, sms));
+  return 1;
+}
+
 // x (M, K) f32 (dtype 0) or bf16 (dtype 1), w (K, N) int8, scales (N,) f32,
 // out (M, N) in x's dtype; all contiguous. dequantize_first: 0 applies the
 // scale after the reduction (the Pallas contract), 1 forms each weight
 // q * s in x's dtype before the product (the JAX weight-only predict).
-// *route receives the kernel taken: 0 wgmma, 1 mma, 2 skinny, 3 fma.
+// The skinny route (M <= 32) also takes the epilogue: bias (N,) f32 or
+// null, added in x's dtype after the rounding, and relu (0 or 1); it
+// slices K itself (skinny_k_slice) and, with more than one slice, needs
+// `workspace`, workspace_floats f32 long (int8_matmul_plan's size). The
+// other routes ignore the four (the caller applies bias and relu after
+// them). info[0] receives the kernel taken (0 wgmma, 1 mma, 2 skinny,
+// 3 fma), info[1] the K slices it ran (1 off the skinny route).
 // Returns the launch's cudaError_t (0 on success; cudaErrorInvalidValue
-// also where a tensor map cannot be built); the kernel runs on `stream`
-// and the call does not synchronise.
+// also where a tensor map cannot be built or the workspace is short); the
+// kernels run on `stream` and the call does not synchronise.
 extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
-                           void* out, int M, int K, int N, int dtype,
-                           int dequantize_first, void* stream, int* route) {
-  *route = -1;
+                           const void* bias, int relu, void* workspace,
+                           long long workspace_floats, void* out, int M, int K,
+                           int N, int dtype, int dequantize_first, int* info,
+                           void* stream) {
+  info[0] = -1;
+  info[1] = 0;
   if (M <= 0 || N <= 0 || K < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scales);
+  const float* b = static_cast<const float*>(bias);
+  float* ws = static_cast<float*>(workspace);
   return (int)(dequantize_first
-                   ? launch<true>(x, wq, sc, out, M, K, N, dtype, s, route)
-                   : launch<false>(x, wq, sc, out, M, K, N, dtype, s, route));
+                   ? launch<true>(x, wq, sc, b, relu, ws, workspace_floats,
+                                  out, M, K, N, dtype, s, info)
+                   : launch<false>(x, wq, sc, b, relu, ws, workspace_floats,
+                                   out, M, K, N, dtype, s, info));
 }

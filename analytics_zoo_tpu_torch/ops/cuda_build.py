@@ -7,6 +7,14 @@ named by a hash of its sources, the headers they include (``#include
 ``ctypes``. The
 build happens at the first launch of one of its kernels, never at import,
 so the CPU tests (which have no ``nvcc``) import every module freely.
+
+Every kernel wrapper launches through :func:`launch`, the lean path: the
+entry point is resolved once (:meth:`CudaLibrary.entry`, no lock after
+the first load), the stream's handle is read without building a
+``torch.cuda.Stream`` (:func:`current_raw_stream`), and the current device
+is switched only when the tensor lies on another (:func:`launch`).
+At the NCF shapes a kernel's device work is a few microseconds, so these
+host costs decide the wrapper's time.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -77,6 +87,7 @@ class CudaLibrary:
         self.sources = [self.src_dir / s for s in sources]
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
+        self._entries: dict = {}
         self._lock = threading.Lock()
         self.build_log = ""
         self.build_seconds: Optional[float] = None
@@ -112,12 +123,27 @@ class CudaLibrary:
         return out
 
     def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                self._bind(lib)
-                self._lib = lib
-            return self._lib
+        """The loaded library, built on first use. Double-checked: the lock
+        is taken only until the first load has finished."""
+        lib = self._lib
+        if lib is None:
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(self.build()))
+                    self._bind(lib)
+                    self._lib = lib
+                lib = self._lib
+        return lib
+
+    def entry(self, name: str):
+        """The bound C entry point ``name``, resolved once and handed back
+        from a dict afterwards (no lock, no attribute lookup on the
+        library)."""
+        fn = self._entries.get(name)
+        if fn is None:
+            fn = getattr(self.get(), name)
+            self._entries[name] = fn
+        return fn
 
 
 def build_all(libraries: Sequence[CudaLibrary]) -> None:
@@ -126,3 +152,30 @@ def build_all(libraries: Sequence[CudaLibrary]) -> None:
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         for fut in [pool.submit(lib.get) for lib in libraries]:
             fut.result()
+
+
+def _no_cuda(*args):
+    raise RuntimeError("this torch build has no CUDA")
+
+
+#: ``current_device()``: the index of the current CUDA device, torch's raw
+#: binding (no lazy-init check: a caller holds a CUDA tensor, so CUDA is
+#: up)
+current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
+#: ``current_raw_stream(index)``: the handle of device ``index``'s current
+#: stream as an int, read without building a ``torch.cuda.Stream`` (what
+#: ``torch.cuda.current_stream(index).cuda_stream`` returns)
+current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
+
+
+def launch(entry, tensor: torch.Tensor, *args) -> int:
+    """Calls the C entry point ``entry(*args, stream)`` with ``stream`` the
+    current stream of ``tensor``'s CUDA device, that device current for
+    the call (``torch.cuda.device`` switches to it only when another one
+    is); returns the entry point's error code. Only CUDA tensors come
+    here: each wrapper runs its plain version for CPU tensors before it."""
+    index = tensor.get_device()
+    if current_device() == index:
+        return entry(*args, current_raw_stream(index))
+    with torch.cuda.device(index):
+        return entry(*args, current_raw_stream(index))

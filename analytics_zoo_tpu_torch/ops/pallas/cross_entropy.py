@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..cuda_build import CudaLibrary
+from ..cuda_build import CudaLibrary, launch
 from .common import pad_to_multiple
 from .flash_attention import _LaunchCount
 
@@ -224,13 +224,9 @@ def fused_ce_forward(h: torch.Tensor, w: torch.Tensor,
     if n == 0:
         return lse, ll
     h, w, b, labels = _kernel_operands(h, w, b, labels)
-    lib = LIBRARY.get()
-    with torch.cuda.device(h.device):
-        err = lib.fused_ce_fwd(
-            h.data_ptr(), w.data_ptr(), _ptr(b), labels.data_ptr(),
-            lse.data_ptr(), ll.data_ptr(), n, h.shape[1], v,
-            _DTYPE_CODES[h.dtype],
-            torch.cuda.current_stream(h.device).cuda_stream)
+    err = launch(LIBRARY.entry("fused_ce_fwd"), h, h.data_ptr(),
+                 w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
+                 ll.data_ptr(), n, h.shape[1], v, _DTYPE_CODES[h.dtype])
     _raise_on(err, "fused_ce_fwd")
     KERNEL_CE_FWD.launches += 1
     return lse, ll
@@ -259,12 +255,10 @@ def _launch_dh(ops, dh_dtype, hidden: int) -> torch.Tensor:
     n, hp = h.shape
     dh = torch.empty(n, hp, dtype=dh_dtype, device=h.device)
     if n > 0:
-        with torch.cuda.device(h.device):
-            err = LIBRARY.get().fused_ce_bwd_dh(
-                *(_ptr(t) for t in ops), dh.data_ptr(),
-                n, hp, w.shape[1], _DTYPE_CODES[h.dtype],
-                _DTYPE_CODES[dh_dtype],
-                torch.cuda.current_stream(h.device).cuda_stream)
+        err = launch(LIBRARY.entry("fused_ce_bwd_dh"), h,
+                     *(_ptr(t) for t in ops), dh.data_ptr(), n, hp,
+                     w.shape[1], _DTYPE_CODES[h.dtype],
+                     _DTYPE_CODES[dh_dtype])
         _raise_on(err, "fused_ce_bwd_dh")
         KERNEL_CE_BWD_DH.launches += 1
     return dh if hp == hidden else dh[:, :hidden].contiguous()
@@ -280,11 +274,9 @@ def _launch_dw(ops, with_bias: bool, hidden: int):
     db = (torch.zeros(v, dtype=torch.float32, device=h.device)
           if with_bias else None)
     if n > 0:
-        with torch.cuda.device(h.device):
-            err = LIBRARY.get().fused_ce_bwd_dw(
-                *(_ptr(t) for t in ops), dw.data_ptr(),
-                _ptr(db), n, hp, v, _DTYPE_CODES[h.dtype],
-                torch.cuda.current_stream(h.device).cuda_stream)
+        err = launch(LIBRARY.entry("fused_ce_bwd_dw"), h,
+                     *(_ptr(t) for t in ops), dw.data_ptr(), _ptr(db), n,
+                     hp, v, _DTYPE_CODES[h.dtype])
         _raise_on(err, "fused_ce_bwd_dw")
         KERNEL_CE_BWD_DW.launches += 1
     return dw[:hidden], db

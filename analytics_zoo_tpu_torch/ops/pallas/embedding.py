@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import CudaLibrary
+from ..cuda_build import CudaLibrary, launch
 from .cross_entropy import _raise_on
 from .flash_attention import _LaunchCount
 
@@ -70,9 +70,12 @@ def _check(x: torch.Tensor, inv: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what} takes float32 or bfloat16; got {x.dtype}")
     if inv.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{what} takes int32 or int64 ids; got {inv.dtype}")
-    if inv.device != x.device:
+    if x.is_cuda and inv.is_cuda:
+        if inv.get_device() != x.get_device():
+            raise ValueError(f"{what} operands lie on different devices")
+    elif inv.device != x.device:
         raise ValueError(f"{what} operands lie on different devices")
-    if x.device.type not in ("cuda", "cpu"):
+    elif x.device.type != "cpu":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device.type}")
 
 
@@ -91,21 +94,21 @@ def embed_expand(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     ``[0, capacity)``. CUDA tensors launch the kernel (or raise); CPU
     tensors run :func:`embed_expand_reference`."""
     _check(rows, inv, "embed_expand")
-    if rows.device.type == "cpu":
+    if not rows.is_cuda:
         return embed_expand_reference(rows, inv)
     n, (capacity, d) = inv.shape[0], rows.shape
-    out = torch.empty(n, d, dtype=rows.dtype, device=rows.device)
+    out = rows.new_empty((n, d))
     if n == 0 or d == 0:
         return out
     if capacity == 0:
         raise ValueError("embed_expand: no rows to gather from")
-    rows = rows.contiguous()
-    inv = inv.to(torch.int32).contiguous()
-    with torch.cuda.device(rows.device):
-        err = LIBRARY.get().embed_expand(
-            rows.data_ptr(), inv.data_ptr(), out.data_ptr(), n, capacity,
-            d * rows.element_size(),
-            torch.cuda.current_stream(rows.device).cuda_stream)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if inv.dtype != torch.int32 or not inv.is_contiguous():
+        inv = inv.to(torch.int32).contiguous()
+    err = launch(LIBRARY.entry("embed_expand"), rows, rows.data_ptr(),
+                 inv.data_ptr(), out.data_ptr(), n, capacity,
+                 d * rows.element_size())
     _raise_on(err, "embed_expand")
     KERNEL_EMBED_EXPAND.launches += 1
     return out
@@ -135,7 +138,7 @@ def dedup_scatter_add(g: torch.Tensor, inv: torch.Tensor,
     if g.shape[0] != inv.shape[0]:
         raise ValueError(f"dedup_scatter_add: {g.shape[0]} rows of g for "
                          f"{inv.shape[0]} ids")
-    if g.device.type == "cpu":
+    if not g.is_cuda:
         return dedup_scatter_add_reference(g, inv, capacity)
     n, d = g.shape
     out = torch.empty(capacity, d, dtype=torch.float32, device=g.device)
@@ -149,11 +152,9 @@ def dedup_scatter_add(g: torch.Tensor, inv: torch.Tensor,
         out_int32=True)
     order = order.to(torch.int32)
     g = g.contiguous()
-    with torch.cuda.device(g.device):
-        err = LIBRARY.get().dedup_scatter_add(
-            g.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), n, capacity, d, _DTYPES.index(g.dtype),
-            torch.cuda.current_stream(g.device).cuda_stream)
+    err = launch(LIBRARY.entry("dedup_scatter_add"), g, g.data_ptr(),
+                 order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
+                 capacity, d, _DTYPES.index(g.dtype))
     _raise_on(err, "dedup_scatter_add")
     KERNEL_SCATTER_ADD.launches += 1
     return out

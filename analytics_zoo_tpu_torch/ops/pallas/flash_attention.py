@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from ..cuda_build import CudaLibrary
+from ..cuda_build import CudaLibrary, launch
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -228,15 +228,11 @@ def _launch(q, k, v, mask, causal: bool, want_lse: bool):
            if want_lse else None)
     if out.numel() == 0:
         return (out, lse) if want_lse else out
-    lib = LIBRARY.get()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, t_q, t_kv, d,
-            int(causal), _DTYPE_CODES[q.dtype], 1.0 / float(d) ** 0.5,
-            stream)
+    err = launch(
+        LIBRARY.entry("flash_attention_fwd"), q, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, t_q,
+        t_kv, d, int(causal), _DTYPE_CODES[q.dtype], 1.0 / float(d) ** 0.5)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
                            f"error {err}")
@@ -259,15 +255,12 @@ def _launch_bwd_kernel(name: str, counter: _LaunchCount, q, k, v, mask,
         mask = mask.to(torch.float32).contiguous()
     if outs[0].numel() == 0:
         return
-    lib = LIBRARY_BWD.get()
-    with torch.cuda.device(q.device):
-        err = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            *(t.data_ptr() for t in outs), b, h, t_q, k.shape[2], d,
-            int(causal), _DTYPE_CODES[q.dtype], 1.0 / float(d) ** 0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    err = launch(
+        LIBRARY_BWD.entry(name), q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        *(t.data_ptr() for t in outs), b, h, t_q, k.shape[2], d,
+        int(causal), _DTYPE_CODES[q.dtype], 1.0 / float(d) ** 0.5)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1

@@ -22,11 +22,22 @@ differ by rounding only; in bf16 by up to half a bf16 step per column.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs :func:`int8_matmul_reference`, the TPU kernel's own arithmetic.
 The C entry point picks one of four hand-written kernels by shape and
-reports it: ``skinny`` (M <= 32), ``wgmma`` (bf16, M > 32, K % 8 == 0 and
-N % 16 == 0 with 16-byte aligned operands: the rows TMA can address;
-every BERT product), ``mma`` (the other bf16 shapes) and ``fma`` (f32,
-M > 32). :data:`KERNEL_INT8_MATMUL` counts every launch and
-:data:`KERNEL_INT8_ROUTES` each route's.
+reports it: ``skinny`` (M <= 32: every weight byte read once, the K range
+split over blocks whose partial sums a second kernel adds in a fixed
+order; the C side picks the K slices from the card's SM count and sizes
+the workspace, ``int8_matmul_plan``), ``wgmma`` (bf16, M > 32, K % 8 == 0 and N % 16 == 0 with 16-byte
+aligned operands: the rows TMA can address; every BERT product), ``mma``
+(the other bf16 shapes) and ``fma`` (f32, M > 32).
+:data:`KERNEL_INT8_MATMUL` counts every launch and
+:data:`KERNEL_INT8_ROUTES` each route's; :data:`LAST_LAUNCH` holds the
+route and the K slices the entry point reported for the latest one.
+
+``bias`` and ``relu`` are the dense layer's epilogue, ``relu(round(y +
+round(bias)))`` in ``x``'s dtype after the product's rounding (what
+``dense`` and ``Dense``'s ReLU compute, and what the JAX predict leaves
+XLA to fuse). The skinny kernel applies them itself; after the other
+routes the wrapper applies them with two torch ops (``add_``, ``relu_``),
+the same numbers as the separate layer ops.
 The JAX wrapper's ``block_m``/``block_n``/``interpret`` arguments are TPU
 tiling and the Pallas interpreter; they are not carried over (the CUDA
 kernels pick their own tiles and take any M, K and N).
@@ -35,10 +46,12 @@ kernels pick their own tiles and take any M, K and N).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
-from ..cuda_build import CudaLibrary
+from ..cuda_build import CudaLibrary, launch
 from .cross_entropy import _raise_on
 from .flash_attention import _LaunchCount
 
@@ -48,10 +61,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int8_matmul.argtypes = [p, p, p, p, i, i, i, i, i, p,
-                                ctypes.POINTER(i)]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.int8_matmul.argtypes = [p, p, p, p, i, p, ll, p, i, i, i, i, i,
+                                ctypes.POINTER(i), p]
     lib.int8_matmul.restype = ctypes.c_int
+    lib.int8_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
+    lib.int8_matmul_plan.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("quantized", ["quantized.cu"], _bind)
@@ -62,62 +77,124 @@ ROUTES = ("wgmma", "mma", "skinny", "fma")
 KERNEL_INT8_ROUTES = {name: _LaunchCount() for name in ROUTES}
 
 
-def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor) -> None:
+class _Launched:
+    """The latest K6 launch as its C entry point reported it: the route's
+    name and the K slices it ran (1 off the skinny route)."""
+
+    __slots__ = ("route", "splits")
+
+    def __init__(self):
+        self.route, self.splits = None, 0
+
+
+LAST_LAUNCH = _Launched()
+_INFO = ctypes.c_int * 2   # the entry point's report: route, K slices
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, k: int, n: int, code: int, index: int):
+    """``(fused, floats)`` for ``(m, k) @ (k, n)`` in dtype ``code`` on
+    CUDA device ``index``, from the C side, which owns the skinny route's
+    K slicing: whether the kernel applies the epilogue itself (the skinny
+    route), and the f32 workspace its split-K partial sums need."""
+    floats = ctypes.c_longlong(0)
+    fused = LIBRARY.entry("int8_matmul_plan")(m, k, n, code, index,
+                                              ctypes.byref(floats))
+    if fused < 0:
+        raise RuntimeError(f"int8_matmul: cannot read CUDA device {index}")
+    return bool(fused), floats.value
+
+
+def _check(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> None:
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] \
             or tuple(scales.shape) != (w_q.shape[1],):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q "
                          f"{tuple(w_q.shape)}, scales {tuple(scales.shape)}")
+    if bias is not None and tuple(bias.shape) != (w_q.shape[1],):
+        raise ValueError(f"shape mismatch: bias {tuple(bias.shape)} for "
+                         f"{w_q.shape[1]} columns")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"int8_matmul takes float32 or bfloat16 x; got "
                         f"{x.dtype}")
     if w_q.dtype != torch.int8:
         raise TypeError(f"int8_matmul takes int8 w_q; got {w_q.dtype}")
-    if not (x.device == w_q.device == scales.device):
+    if not (x.device == w_q.device == scales.device) or (
+            bias is not None and bias.device != x.device):
         raise ValueError("int8_matmul operands lie on different devices")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"int8_matmul runs on cuda or cpu, not "
                          f"{x.device.type}")
 
 
+def _epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
+              relu: bool) -> torch.Tensor:
+    """``dense``'s bias (in ``y``'s dtype, after the product's rounding)
+    and ``Dense``'s ReLU, as separate torch ops, in place."""
+    if bias is not None:
+        y.add_(bias.to(y.dtype))
+    if relu:
+        y.relu_()
+    return y
+
+
 def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
                           scales: torch.Tensor,
-                          dequantize_first: bool = False) -> torch.Tensor:
+                          dequantize_first: bool = False,
+                          bias: Optional[torch.Tensor] = None,
+                          relu: bool = False) -> torch.Tensor:
     """Plain version of K6. By default the TPU kernel's arithmetic: the f32
     product, then the per-column scale, then one rounding to ``x``'s
     dtype. ``dequantize_first``: the JAX weight-only predict's, each
     weight ``q * s`` formed in ``x``'s dtype (``s`` rounded to it first),
-    then the f32 product rounded once."""
+    then the f32 product rounded once. Then ``bias`` added in ``x``'s
+    dtype and ``relu``, as ``dense`` and ``Dense`` apply them."""
     if dequantize_first:
         w = w_q.to(x.dtype) * scales.to(x.dtype)
-        return (x.float() @ w.float()).to(x.dtype)
-    return ((x.float() @ w_q.float()) * scales.float()).to(x.dtype)
+        y = (x.float() @ w.float()).to(x.dtype)
+    else:
+        y = ((x.float() @ w_q.float()) * scales.float()).to(x.dtype)
+    return _epilogue(y, bias, relu)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
-                dequantize_first: bool = False) -> torch.Tensor:
+                dequantize_first: bool = False,
+                bias: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
     """K6: ``x (M, K) @ dequant(w_q (K, N) int8, scales (N,))`` → ``(M, N)``
     in ``x.dtype``; by default ``(x @ w_q.float()) * scales``, the Pallas
     contract, with ``dequantize_first`` ``x @ (w_q.to(x.dtype) *
-    scales.to(x.dtype))``, the JAX predict's (see the module docstring).
-    CUDA tensors launch the kernel (or raise); CPU tensors run
+    scales.to(x.dtype))``, the JAX predict's (see the module docstring);
+    then ``bias (N,)`` added and ``relu`` applied in ``x.dtype`` (fused
+    into the skinny kernel, torch ops after the others). CUDA tensors
+    launch the kernel (or raise); CPU tensors run
     :func:`int8_matmul_reference`."""
-    _check(x, w_q, scales)
-    if x.device.type == "cpu":
-        return int8_matmul_reference(x, w_q, scales, dequantize_first)
+    _check(x, w_q, scales, bias)
+    if not x.is_cuda:
+        return int8_matmul_reference(x, w_q, scales, dequantize_first, bias,
+                                     relu)
     (m, k), n = x.shape, w_q.shape[1]
-    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    out = x.new_empty((m, n))
     if m == 0 or n == 0:
         return out
     x, w_q = x.contiguous(), w_q.contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    route = ctypes.c_int(-1)
-    with torch.cuda.device(x.device):
-        err = LIBRARY.get().int8_matmul(
-            x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            m, k, n, _DTYPE_CODES[x.dtype], int(dequantize_first),
-            torch.cuda.current_stream(x.device).cuda_stream,
-            ctypes.byref(route))
+    if scales.dtype != torch.float32 or not scales.is_contiguous():
+        scales = scales.to(torch.float32).contiguous()
+    code = _DTYPE_CODES[x.dtype]
+    fused, floats = _plan(m, k, n, code, x.get_device())
+    ws = torch.empty(floats, dtype=torch.float32, device=x.device) \
+        if floats else None
+    b = bias.to(torch.float32).contiguous() \
+        if fused and bias is not None else None
+    info = _INFO()
+    err = launch(LIBRARY.entry("int8_matmul"), x, x.data_ptr(),
+                 w_q.data_ptr(), scales.data_ptr(),
+                 None if b is None else b.data_ptr(), int(fused and relu),
+                 None if ws is None else ws.data_ptr(), floats,
+                 out.data_ptr(), m, k, n, code, int(dequantize_first), info)
     _raise_on(err, "int8_matmul")
+    route = ROUTES[info[0]]
     KERNEL_INT8_MATMUL.launches += 1
-    KERNEL_INT8_ROUTES[ROUTES[route.value]].launches += 1
-    return out
+    KERNEL_INT8_ROUTES[route].launches += 1
+    LAST_LAUNCH.route, LAST_LAUNCH.splits = route, info[1]
+    return out if fused else _epilogue(out, bias, relu)

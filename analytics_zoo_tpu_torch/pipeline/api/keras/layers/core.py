@@ -33,12 +33,12 @@ def get_activation(act: Union[str, Callable, None]) -> Optional[Callable]:
 
 
 def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
-          cd: torch.dtype, scale: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
+          cd: torch.dtype, scale: Optional[torch.Tensor] = None,
+          relu: bool = False) -> torch.Tensor:
     """``x @ W`` accumulated in f32 and rounded to ``cd``, THEN the bias
-    added in ``cd`` — the JAX package's rounding order. ``F.linear`` with
-    a bias would add it to the f32 accumulator before the one rounding,
-    which differs in bf16.
+    added in ``cd`` — the JAX package's rounding order — then, with
+    ``relu``, ``torch.relu``. ``F.linear`` with a bias would add it to the
+    f32 accumulator before the one rounding, which differs in bf16.
 
     An int8 ``W`` (weight-only int8 inference) comes with its per-column
     f32 ``scale`` and goes through K6, :func:`int8_matmul`, in its
@@ -47,19 +47,22 @@ def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
     which is what the JAX predict's ``dequantize_int8`` followed by the
     matmul computes. (K6's default, the Pallas contract, scales after the
     reduction; in bf16 that differs by up to half a step per column.) The
-    bias follows in ``cd`` as above. An int8 ``W`` without a scale raises:
+    bias and the ReLU go to K6 too, which adds them in the same order (in
+    its kernel for at most 32 rows, the JAX predict's XLA fusion; as torch
+    ops after its other kernels). An int8 ``W`` without a scale raises:
     read as a float it would be the unscaled integers."""
     if W.dtype == torch.int8:
         if scale is None:
             raise ValueError("dense: an int8 W needs its per-column scale")
         lead = x.shape[:-1]
         y = int8_matmul(x.to(cd).reshape(-1, x.shape[-1]), W, scale,
-                        True)   # dequantize first
-        y = y.reshape(*lead, W.shape[1])
-    else:
-        y = torch.matmul(x.to(cd), W.to(cd))
+                        True, bias=b, relu=relu)   # dequantize first
+        return y.reshape(*lead, W.shape[1])
+    y = torch.matmul(x.to(cd), W.to(cd))
     if b is not None:
         y = y + b.to(cd)
+    if relu:
+        y = torch.relu(y)
     return y
 
 
@@ -122,9 +125,12 @@ class Dense(Layer):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
     def call(self, x, *, training=False, generator=None):
+        # an int8 W hands its ReLU to K6 with the bias (the fused epilogue)
+        fused = (self.activation is ACTIVATIONS["relu"]
+                 and self.W.dtype == torch.int8)
         y = dense(x, self.W, self.b if self.bias else None, compute_dtype(),
-                  getattr(self, "w_scale", None))
-        if self.activation is not None:
+                  getattr(self, "w_scale", None), relu=fused)
+        if self.activation is not None and not fused:
             y = self.activation(y)
         return y
 

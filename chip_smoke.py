@@ -71,18 +71,23 @@
 
 11. int8 kernel phase: K6 (the int8 weight-only dequant-matmul,
    ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
-   the head's batch-1 and batch-32 shapes (K = N = 4096), BERT-base's qkv
-   and fc/out products (M = 32 x 512), BERT's Dense(2) head, a ragged
-   (17, 100, 10) and a (300, 100, 130) whose rows TMA cannot address,
-   each checked for the kernel it takes (skinny at M <= 32, fma in f32,
-   wgmma in bf16 where K % 8 and N % 16 are 0, else mma), in both modes
-   (dequantize-first, which ``dense`` runs, and the Pallas contract's
-   scale-after): f32 within 1e-4 of the case's
-   largest value, bf16 within one bf16 step there, the same bits over two
-   runs; each timed in the first mode (wrapper, CUDA-graph device time,
-   plain, ``torch.matmul`` on the dequantized weight, bound) with the
-   second mode's device time beside. The static path's padded ``torch._int_mm`` bit for bit
-   against the CPU's int32 product at M = 1 and 32.
+   the head's batch-1, batch-8 and batch-32 shapes (K = N = 4096; at 32
+   also with the dense layer's bias and ReLU fused into the skinny kernel,
+   which must give the bits of the unfused kernel followed by the two
+   torch ops), BERT-base's qkv and fc/out products (M = 32 x 512), BERT's
+   Dense(2) head, a ragged (17, 100, 10) and a (300, 100, 130) whose rows
+   TMA cannot address, each checked for the kernel it takes (skinny at
+   M <= 32, fma in f32, wgmma in bf16 where K % 8 and N % 16 are 0, else
+   mma), in both modes (dequantize-first, which ``dense`` runs, and the
+   Pallas contract's scale-after): f32 within 1e-4 of the case's largest
+   value, bf16 within one bf16 step there, the same bits over two runs;
+   each timed in the first mode (wrapper, CUDA-graph device time, plain,
+   ``torch.matmul`` on the dequantized weight, bound; with the route and
+   the K slices the C entry point reported for the timed calls, checked
+   against the route expected; the fused case with the unfused
+   sequence's device time beside) with the second mode's device time
+   beside. The static path's padded ``torch._int_mm`` bit for bit against
+   the CPU's int32 product at M = 1 and 32.
 12. int8 serving phase (config B): the serving phase's BERT-base, records
    and adapter on the weight-only int8 ``InferenceModel`` that
    ``ClusterServing._wrap_model`` builds for ``dtype="int8"``: every matmul
@@ -95,13 +100,16 @@
 13. int8 head phase (config A): the JAX bench's weight-streaming scoring
    head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
    f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
-   weight-only int8 (K6 on all four layers) and static int8 calibrated on
-   8 rows (``_int_mm`` on all four): resident weight bytes (int8 at most
-   0.3 x fp32), each int8 mode within 1e-4 relative of its float
-   counterpart, top-1 agreement and batch-1 device time by CUDA-graph
-   replay (printed), and ``ClusterServing(model, dtype="int8")`` answering
-   all 256 records with 4 K6 launches per dispatch, all on the skinny
-   kernel.
+   weight-only int8 (K6 on all four layers, bias and ReLU fused into its
+   skinny kernel) and static int8 calibrated on 8 rows (``_int_mm`` on all
+   four): resident weight bytes (int8 at most 0.3 x fp32), each int8 mode
+   within 1e-4 relative of its float counterpart, top-1 agreement and
+   batch-1 device time by CUDA-graph replay (printed; weight-only also
+   with the bias adds and ReLUs as torch ops of their own, as before the
+   fusion, and the device kernels one batch-1 ``_forward`` launches each
+   way, fewer with the fusion), and ``ClusterServing(model,
+   dtype="int8")`` answering all 256 records with 4 K6 launches per
+   dispatch, all on the skinny kernel.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
@@ -178,12 +186,15 @@ DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
 #: config A, the JAX bench's weight-streaming scoring head
 #: (bench.py:797-815): 3 x Dense(4096) + Dense(8), 256 seeded rows
 HEAD_D, HEAD_CLASSES, HEAD_ROWS = 4096, 8, 256
-#: K6's cases (M, K, N): the head at batch 1 and 32, BERT-base's qkv and
+#: K6's cases (M, K, N, fused bias + ReLU): the head at batch 1, 8 and
+#: 32 and at 32 with the dense layer's epilogue fused, BERT-base's qkv and
 #: fc/out products at 32 x 512 tokens, BERT's Dense(2) head, a ragged one,
 #: and a tile-path shape TMA cannot address (K % 8, N % 16 not 0)
-INT8_CASES = [(1, 4096, 4096), (32, 4096, 4096), (16384, 768, 2304),
-              (16384, 3072, 768), (32, 768, 2), (17, 100, 10),
-              (300, 100, 130)]
+INT8_CASES = [(1, 4096, 4096, False), (8, 4096, 4096, False),
+              (32, 4096, 4096, False), (32, 4096, 4096, True),
+              (16384, 768, 2304, False), (16384, 3072, 768, False),
+              (32, 768, 2, False), (17, 100, 10, False),
+              (300, 100, 130, False)]
 #: weight-only and static int8 against their float counterparts on the
 #: same weights: the same products in another order (weight-only: scale
 #: after the sum against a dequantized weight; static: the card's int32
@@ -456,13 +467,14 @@ def bf16_step(v):
     return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
-def int8_bound(m, k, n, dtype):
-    """K6's least time: x read, the int8 weights and f32 scales read, the
-    output written once, against 2 M K N operations at the peak of x's
-    dtype."""
+def int8_bound(m, k, n, dtype, bias=False):
+    """K6's least time: x read, the int8 weights and f32 scales (and the
+    f32 bias) read, the output written once, against 2 M K N operations at
+    the peak of x's dtype."""
     name = str(dtype).replace("torch.", "")
     es = 4 if name == "float32" else 2
-    t_bytes = (m * k * es + k * n + n * 4 + m * n * es) / PEAK_BYTES_PER_S
+    t_bytes = (m * k * es + k * n + n * 4 * (2 if bias else 1)
+               + m * n * es) / PEAK_BYTES_PER_S
     t_ops = 2.0 * m * n * k / PEAK_FLOPS[name]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -482,25 +494,29 @@ def cycling(fn, copies):
 
 def int8_kernel_phase():
     """K6 against its plain version at the shapes of the two int8 paths:
-    the scoring head at batch 1 and 32 (K = N = 4096), BERT-base's qkv and
-    fc/out products at 32 x 512 tokens, BERT's Dense(2) head, and a ragged
-    case; f32 and bf16; in both modes, dequantize-first (what ``dense``,
-    hence both paths, runs: the row's numbers) and the Pallas contract's
-    scale-after (checked and timed beside). Weight sets above 8 MB rotate over enough copies
-    to exceed the 50 MB L2, so each timed call reads its weights from HBM,
-    as a batch-1 predict through the 4-layer head does. Then the padded
-    ``torch._int_mm`` of the static path, bit for bit against the CPU's
-    int32 product."""
+    the scoring head at batch 1, 8 and 32 (K = N = 4096; at 32 also with
+    the dense layer's bias and ReLU fused into the skinny kernel),
+    BERT-base's qkv and fc/out products at 32 x 512 tokens, BERT's Dense(2)
+    head, and a ragged case; f32 and bf16; in both modes, dequantize-first
+    (what ``dense``, hence both paths, runs: the row's numbers) and the
+    Pallas contract's scale-after (checked and timed beside). The fused
+    case must also give the bits of the unfused kernel followed by the
+    bias add and ReLU as torch ops. Weight sets above 8 MB rotate over
+    enough copies to exceed the 50 MB L2, so each timed call reads its
+    weights from HBM, as a batch-1 predict through the 4-layer head does.
+    Then the padded ``torch._int_mm`` of the static path, bit for bit
+    against the CPU's int32 product."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_ROUTES, int8_matmul, int8_matmul_reference)
+        KERNEL_INT8_ROUTES, LAST_LAUNCH, int8_matmul, int8_matmul_reference)
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
         int8_product
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n in INT8_CASES:
-            name = f"{str(dtype)[6:]}_{m}x{k}x{n}"
+        for m, k, n, epi in INT8_CASES:
+            name = f"{str(dtype)[6:]}_{m}x{k}x{n}" + ("_bias_relu" if epi
+                                                       else "")
             g = torch.Generator().manual_seed(m + k + n)
             x = torch.randn(m, k, generator=g).to("cuda", dtype)
             copies = math.ceil(64e6 / (k * n)) if k * n > 8e6 else 1
@@ -508,53 +524,80 @@ def int8_kernel_phase():
                                 dtype=torch.int8).cuda()
                   for _ in range(copies)]
             sc = (torch.rand(n, generator=g) * 0.09 + 0.01).cuda()
+            bias = (torch.randn(n, generator=g) * 4.0).cuda() if epi \
+                else None
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
             errs = {}
             before = {r: c.launches for r, c in KERNEL_INT8_ROUTES.items()}
             for first in (True, False):
-                out = int8_matmul(x, ws[0], sc, first)
-                again = int8_matmul(x, ws[0], sc, first)
+                out = int8_matmul(x, ws[0], sc, first, bias=bias, relu=epi)
+                again = int8_matmul(x, ws[0], sc, first, bias=bias,
+                                    relu=epi)
                 torch.cuda.synchronize()
-                ref = int8_matmul_reference(x, ws[0], sc, first)
-                top = ref.float().abs().max().item()
+                ref = int8_matmul_reference(x, ws[0], sc, first, bias=bias,
+                                            relu=epi)
+                top = max(ref.float().abs().max().item(),
+                          int8_matmul_reference(x, ws[0], sc, first)
+                          .float().abs().max().item())
                 tol = (1e-4 * top if dtype == torch.float32
                        else bf16_step(top))
                 err = (out.float() - ref.float()).abs().max().item()
-                bits = torch.int32 if dtype == torch.float32 else torch.int16
                 same = torch.equal(out.view(bits), again.view(bits))
                 mode = "dequantize-first" if first else "scale-after"
                 check(err <= tol, f"K6 {name} {mode}: max |kernel - plain| "
                       f"{err} > {tol}")
                 check(same, f"K6 {name} {mode}: two runs differ")
+                if epi:
+                    plain = int8_matmul(x, ws[0], sc, first)
+                    unfused = torch.relu(plain + bias.to(dtype))
+                    check(torch.equal(out.view(bits), unfused.view(bits)),
+                          f"K6 {name} {mode}: the fused epilogue differs "
+                          f"from the product + bias + ReLU as torch ops")
                 errs[first] = (err, tol, same)
             err, tol, same = errs[True]
-            (route,) = [r for r, c in KERNEL_INT8_ROUTES.items()
-                        if c.launches != before[r]]
+            routes = {r for r, c in KERNEL_INT8_ROUTES.items()
+                      if c.launches != before[r]}
             want_route = (
                 "skinny" if m <= 32 else "fma" if dtype == torch.float32
                 else "wgmma" if k % 8 == 0 and n % 16 == 0 else "mma")
-            check(route == want_route, f"K6 {name}: route {route}, not "
+            check(routes == {want_route}, f"K6 {name}: routes {routes}, not "
                   f"{want_route}")
             deq = [w.to(dtype) * sc.to(dtype) for w in ws]
-            bound_ms, bound_by = int8_bound(m, k, n, dtype)
+            bound_ms, bound_by = int8_bound(m, k, n, dtype, epi)
+
+            def fused(j):
+                return int8_matmul(x, ws[j], sc, True, bias=bias, relu=epi)
+            ms = time_ms(cycling(fused, copies))
+            # the route and K slices the entry point reported for the
+            # timed calls (1 slice off the skinny route)
+            check(LAST_LAUNCH.route == want_route, f"K6 {name}: timed on "
+                  f"{LAST_LAUNCH.route}, not {want_route}")
             row = {
-                "case": name, "m": m, "k": k, "n": n, "route": route,
-                "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+                "case": name, "m": m, "k": k, "n": n, "route": want_route,
+                "splits": LAST_LAUNCH.splits,
+                "dtype": str(dtype)[6:], "epilogue": "bias+relu" if epi
+                else None, "max_abs_err": err, "tol": tol,
                 "same_bits_two_runs": same, "weight_copies": copies,
                 "max_abs_err_scale_after": errs[False][0],
-                "ms": time_ms(cycling(
-                    lambda j: int8_matmul(x, ws[j], sc, True), copies)),
-                "device_ms": graph_ms(cycling(
-                    lambda j: int8_matmul(x, ws[j], sc, True), copies)),
+                "ms": ms, "device_ms": graph_ms(cycling(fused, copies)),
                 "device_ms_scale_after": graph_ms(cycling(
-                    lambda j: int8_matmul(x, ws[j], sc), copies)),
+                    lambda j: int8_matmul(x, ws[j], sc, bias=bias,
+                                          relu=epi), copies)),
                 "plain_ms": time_ms(cycling(
-                    lambda j: int8_matmul_reference(x, ws[j], sc, True),
+                    lambda j: int8_matmul_reference(x, ws[j], sc, True,
+                                                    bias=bias, relu=epi),
                     copies)),
                 "library_ms": time_ms(cycling(
                     lambda j: torch.matmul(x, deq[j]), copies)),
                 "library_device_ms": graph_ms(cycling(
                     lambda j: torch.matmul(x, deq[j]), copies)),
                 "bound_ms": bound_ms, "bound_by": bound_by}
+            if epi:
+                # the same product with the bias add and ReLU as the two
+                # torch ops they were before the fusion
+                row["device_ms_unfused"] = graph_ms(cycling(
+                    lambda j: torch.relu(int8_matmul(x, ws[j], sc, True)
+                                         + bias.to(dtype)), copies))
             rows[name] = row
             print(f"int8 kernel case {json.dumps(row)}")
             del x, ws, deq, out, again, ref
@@ -602,6 +645,46 @@ def rel_err(a, b):
     """Largest elementwise |a - b| / |b| (|b| floored at 1e-6)."""
     import numpy as np
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` launches (after a
+    warm-up call), from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(names, "the profiler recorded no device kernel")
+    return [name.split("(")[0][-60:] for name in names]
+
+
+class unfused_epilogue:
+    """Within the block, ``dense`` runs K6 without its fused epilogue: the
+    product, then the bias add and the ReLU as torch ops of their own, the
+    port's weight-only predict before the fusion (the same numbers)."""
+
+    def __enter__(self):
+        import torch
+
+        from analytics_zoo_tpu_torch.pipeline.api.keras.layers import core
+        self.core, self.fused = core, core.int8_matmul
+
+        def unfused(x, w, s, first=False, bias=None, relu=False):
+            y = self.fused(x, w, s, first)
+            if bias is not None:
+                y = y + bias.to(y.dtype)
+            return torch.relu(y) if relu else y
+        core.int8_matmul = unfused
+        return self
+
+    def __exit__(self, *exc):
+        self.core.int8_matmul = self.fused
+        return False
 
 
 def int8_head_phase():
@@ -679,11 +762,28 @@ def int8_head_phase():
     b1 = {mode: graph_ms(lambda im=im: im._forward([x1]))
           for mode, im in (("fp32", fp), ("int8_weight_only", w8),
                            ("int8_static", st))}
+    launches_b1 = {"int8_weight_only": device_kernels(
+        lambda: w8._forward([x1]))}
+    with unfused_epilogue():
+        # the weight-only predict as it ran before the epilogue fusion:
+        # each bias add and ReLU a torch op of its own after K6
+        b1["int8_weight_only_unfused"] = graph_ms(
+            lambda: w8._forward([x1]))
+        launches_b1["int8_weight_only_unfused"] = device_kernels(
+            lambda: w8._forward([x1]))
     speedup = {mode: b1["fp32"] / b1[mode]
-               for mode in ("int8_weight_only", "int8_static")}
+               for mode in ("int8_weight_only", "int8_static",
+                            "int8_weight_only_unfused")}
     print(f"int8 head: top-1 agreement with fp32 over {HEAD_ROWS} rows "
           f"{json.dumps(top1)} (%); batch-1 device ms {json.dumps(b1)}; "
           f"fp32 / int8 {json.dumps(speedup)}")
+    print(f"int8 head: device kernels of one batch-1 weight-only _forward, "
+          f"fused epilogue {len(launches_b1['int8_weight_only'])}, before "
+          f"the fusion {len(launches_b1['int8_weight_only_unfused'])}: "
+          f"{json.dumps(launches_b1)}")
+    check(len(launches_b1["int8_weight_only"])
+          < len(launches_b1["int8_weight_only_unfused"]),
+          f"the fused epilogue launched no fewer kernels: {launches_b1}")
 
     registry = MetricsRegistry()
 
@@ -718,7 +818,9 @@ def int8_head_phase():
         "int8_static": st_bytes},
         "weight_only_vs_dequantized": w8_rel, "static_vs_cpu": st_rel,
         "top1_agreement_pct": top1, "b1_device_ms": b1,
-        "b1_speedup": speedup, "records_per_s": HEAD_ROWS / wall,
+        "b1_speedup": speedup, "b1_device_kernels": {
+            mode: len(names) for mode, names in launches_b1.items()},
+        "records_per_s": HEAD_ROWS / wall,
         "wall_s": wall, "dispatches": batches, "launches": launches,
         "launches_by_route": routes}
 
@@ -815,7 +917,8 @@ def int8_serving_phase(bf16_records_per_s):
 def int8_kernel_row(int8_rows, launches, launches_by_route):
     """K6's row of the kernels line: at BERT's qkv shape (config B's
     largest product, the wgmma tile path), with the scoring head's batch-1
-    and batch-32 f32 shapes (config A) beside."""
+    and batch-32 shapes (config A's f32, the skinny route; bf16 too)
+    beside."""
     main = int8_rows["bfloat16_16384x768x2304"]
     row = {"name": "int8_matmul", "route": "cuda",
            "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
@@ -830,9 +933,11 @@ def int8_kernel_row(int8_rows, launches, launches_by_route):
            "device_ms": main["device_ms"],
            "library_device_ms": main["library_device_ms"]}
     for tag, case in (("head_b1", "float32_1x4096x4096"),
-                      ("head_b32", "float32_32x4096x4096")):
+                      ("head_b32", "float32_32x4096x4096"),
+                      ("head_b1_bf16", "bfloat16_1x4096x4096"),
+                      ("head_b32_bf16", "bfloat16_32x4096x4096")):
         for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                    "library_device_ms", "bound_ms"):
+                    "library_device_ms", "bound_ms", "splits"):
             row[f"{key}_{tag}"] = int8_rows[case][key]
     return row
 
@@ -1681,6 +1786,19 @@ def make_movielens_like(rng):
     return x, y
 
 
+def host_ms_in_turns(*fns, rounds=5, iters=100):
+    """Per-call ms of each of ``fns`` timed in turns (one batch of
+    ``iters`` calls each, ``rounds`` times) and the median of each's
+    rounds: where the host's launch rate sets the time, this keeps the
+    drift of a shared host out of the comparison."""
+    import statistics
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, t in zip(fns, times):
+            t.append(time_ms(fn, iters=iters))
+    return [statistics.median(t) for t in times]
+
+
 def bytes_bound_ms(nbytes):
     return nbytes / PEAK_BYTES_PER_S * 1e3
 
@@ -1692,7 +1810,8 @@ def embed_case(name, table, ids, dtype, g_seed):
     per slot (bit for bit against the CPU's index_add_, same bits over
     two runs). Returns the case's row with times and byte bounds. ``ms``
     times calls of the wrapper back to back (SA's includes its sort and
-    offsets), which at the NCF shapes reads the host's launch rate;
+    offsets), which at the NCF shapes reads the host's launch rate (K1's
+    in turns with ``index_select``, medians of five rounds);
     ``device_ms`` the same call's device work alone (``graph_ms``)."""
     import torch
 
@@ -1732,13 +1851,12 @@ def embed_case(name, table, ids, dtype, g_seed):
            "embed_expand": {
                "max_abs_err": (out.float() - k1_ref.float()).abs().max()
                .item(),
-               "ms": time_ms(lambda: embed_expand(rows, inv), iters=50),
+               **dict(zip(("ms", "library_ms"), host_ms_in_turns(
+                   lambda: embed_expand(rows, inv),
+                   lambda: torch.index_select(rows, 0, inv64)))),
                "device_ms": graph_ms(lambda: embed_expand(rows, inv)),
                "plain_ms": time_ms(lambda: embed_expand_reference(rows, inv),
                                    iters=50),
-               "library_ms": time_ms(lambda: torch.index_select(rows, 0,
-                                                                inv64),
-                                     iters=50),
                # the referenced unique rows and the ids read, the rows
                # written
                "bound_ms": bytes_bound_ms(n_unique * d * es + n * 4

@@ -86,3 +86,181 @@ def test_nvcc_gets_the_include_directory_not_the_header(tmp_path,
     assert cmd[cmd.index("-I") + 1] == str(src)
     assert [a for a in cmd if a.endswith((".cu", ".cuh"))] == \
         [str(src / "flash_attention_fwd.cu")]
+
+
+# --- the launch path: cached entry points, raw stream, device guard ---
+
+class _FakeCDLL:
+    """Stands in for a loaded library: every attribute is an entry point
+    of its own, the same object each time it is read."""
+
+    loads = 0
+
+    def __init__(self, path):
+        type(self).loads += 1
+        self.path = path
+
+    def __getattr__(self, name):
+        fn = object()
+        setattr(self, name, fn)
+        return fn
+
+
+class _NoLock:
+    def __enter__(self):
+        raise AssertionError("the library's lock was taken")
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _fake_library(monkeypatch, tmp_path):
+    """A ``CudaLibrary`` whose build and load are faked (no nvcc here)."""
+    monkeypatch.setattr(cuda_build.CudaLibrary, "build",
+                        lambda self: tmp_path / "libfake.so")
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", _FakeCDLL)
+    _FakeCDLL.loads = 0
+    bound = []
+    return cuda_build.CudaLibrary("fake", ["fake.cu"], bound.append,
+                                  src_dir=tmp_path), bound
+
+
+def test_entry_point_is_cached_and_read_without_the_lock(monkeypatch,
+                                                        tmp_path):
+    lib, bound = _fake_library(monkeypatch, tmp_path)
+    first = lib.entry("embed_expand")
+    assert _FakeCDLL.loads == 1 and len(bound) == 1
+    lib._lock = _NoLock()          # a second lookup must not touch it
+    assert lib.entry("embed_expand") is first
+    assert lib.get() is bound[0]
+    other = lib.entry("dedup_scatter_add")
+    assert other is not first and lib.entry("dedup_scatter_add") is other
+    assert _FakeCDLL.loads == 1
+
+
+def test_library_loads_once_under_concurrent_first_lookups(monkeypatch,
+                                                          tmp_path):
+    import threading
+    lib, bound = _fake_library(monkeypatch, tmp_path)
+    start = threading.Barrier(8)
+    got = []
+
+    def look():
+        start.wait()
+        got.append(lib.entry("int8_matmul"))
+    threads = [threading.Thread(target=look) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _FakeCDLL.loads == 1 and len(bound) == 1
+    assert len(got) == 8 and all(fn is got[0] for fn in got)
+
+
+class _OnDevice:
+    """A tensor stand-in: ``launch`` reads only its device index."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+def test_launch_passes_the_raw_stream_and_switches_device_only_if_needed(
+        monkeypatch):
+    import torch
+    switched = []
+
+    class Switch:
+        def __init__(self, index):
+            switched.append(index)
+
+        def __enter__(self):
+            return None
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch.cuda, "device", Switch)
+    monkeypatch.setattr(cuda_build, "current_raw_stream",
+                        lambda index: 0xA000 + index)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 7
+    monkeypatch.setattr(cuda_build, "current_device", lambda: 1)
+    assert cuda_build.launch(entry, _OnDevice(1), 5, None, 6) == 7
+    assert calls == [(5, None, 6, 0xA001)] and switched == []
+    monkeypatch.setattr(cuda_build, "current_device", lambda: 0)
+    assert cuda_build.launch(entry, _OnDevice(1), 8) == 7
+    assert calls[-1] == (8, 0xA001) and switched == [1]
+
+
+def test_cpu_tensors_never_reach_the_stream_or_the_device_guard(
+        monkeypatch):
+    """Every kernel wrapper runs its plain version for CPU tensors before
+    any launch machinery: the raw-stream helper, the device guard and the
+    libraries are never touched."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas import cross_entropy, embedding
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("launch machinery reached for a CPU tensor")
+    monkeypatch.setattr(cuda_build, "current_raw_stream", refuse)
+    monkeypatch.setattr(cuda_build, "current_device", refuse)
+    monkeypatch.setattr(torch.cuda, "device", refuse)
+    monkeypatch.setattr(quantized, "_plan", refuse)
+    monkeypatch.setattr(cuda_build.CudaLibrary, "entry", refuse)
+    monkeypatch.setattr(cuda_build.CudaLibrary, "get", refuse)
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randn(6, 4, generator=g)
+    inv = torch.tensor([0, 5, 2, 5], dtype=torch.int32)
+    embedding.embed_expand(rows, inv)
+    embedding.dedup_scatter_add(torch.randn(4, 4, generator=g), inv, 6)
+    w = torch.randint(-127, 128, (16, 5), generator=g, dtype=torch.int8)
+    s = torch.rand(5, generator=g) + 0.01
+    for m in (3, 40):              # the skinny route's rows and the others'
+        quantized.int8_matmul(torch.randn(m, 16, generator=g), w, s, True,
+                              bias=torch.randn(5, generator=g), relu=True)
+    q, k, v, do = (torch.randn(1, 2, 8, 32, generator=g) for _ in range(4))
+    out, lse = flash_attention.flash_attention(q, k, v, want_lse=True)
+    delta = (do * out).sum(-1)
+    flash_attention.bwd_dq(q, k, v, None, lse, delta, do)
+    flash_attention.bwd_dkv(q, k, v, None, lse, delta, do)
+    h = torch.randn(5, 16, generator=g)
+    wh = torch.randn(16, 12, generator=g)
+    labels = torch.tensor([0, 3, 11, -1, 4], dtype=torch.int32)
+    lse_ce, _ = cross_entropy.fused_ce_forward(h, wh, None, labels)
+    scale = torch.ones(5)
+    cross_entropy.fused_ce_backward_dh(h, wh, None, labels, lse_ce, scale)
+    cross_entropy.fused_ce_backward_dw(h, wh, None, labels, lse_ce, scale)
+
+
+def test_int8_plan_is_the_c_sides_and_asked_once_a_shape(monkeypatch):
+    """K6's skinny route takes its K slicing and workspace size from the C
+    side (``int8_matmul_plan``), asked once per shape and device; a device
+    it cannot read raises."""
+    import ctypes
+    asked = []
+
+    def plan(m, k, n, code, index, floats):
+        asked.append((m, k, n, code, index))
+        if index == 3:
+            return -1
+        ctypes.cast(floats, ctypes.POINTER(ctypes.c_longlong))[0] = \
+            16 * m if m <= 32 else 0
+        return int(m <= 32)
+    monkeypatch.setattr(quantized.LIBRARY, "entry",
+                        lambda name: {"int8_matmul_plan": plan}[name])
+    quantized._plan.cache_clear()
+    try:
+        assert quantized._plan(8, 4096, 4096, 0, 0) == (True, 128)
+        assert quantized._plan(8, 4096, 4096, 0, 0) == (True, 128)
+        assert quantized._plan(64, 4096, 4096, 1, 0) == (False, 0)
+        assert asked == [(8, 4096, 4096, 0, 0), (64, 4096, 4096, 1, 0)]
+        with pytest.raises(RuntimeError, match="device 3"):
+            quantized._plan(8, 64, 64, 0, 3)
+    finally:
+        quantized._plan.cache_clear()

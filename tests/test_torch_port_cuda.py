@@ -499,6 +499,35 @@ def test_embed_expand_kernel_is_rows_at_inv(cuda, dtype, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [20, 128])
+def test_embed_expand_zero_rows_for_out_of_range_ids(cuda, dtype, d,
+                                                     monkeypatch):
+    """K1 through the lean launch path (no ``torch.cuda.Stream`` built:
+    ``current_stream`` is made to raise): rows[inv] bit for bit where an
+    id is in [0, capacity), a row of zeros where it is not, with int32
+    and int64 ids alike."""
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import embed_expand
+
+    def no_stream(*args, **kwargs):
+        raise AssertionError("a torch.cuda.Stream was built")
+    monkeypatch.setattr(torch.cuda, "current_stream", no_stream)
+    g = torch.Generator().manual_seed(d + 7)
+    rows = torch.randn(300, d, generator=g).to(cuda, dtype)
+    inv = torch.randint(-20, 320, (1001,), generator=g, dtype=torch.int32)
+    valid = (inv >= 0) & (inv < 300)
+    want = torch.where(valid[:, None], rows.cpu()[inv.clamp(0, 299).long()],
+                       torch.zeros((), dtype=dtype))
+    for ids in (inv, inv.long()):
+        before = _embed_counts()[0]
+        out = embed_expand(rows, ids.to(cuda))
+        torch.cuda.synchronize()
+        assert _embed_counts()[0] == before + 1
+        assert torch.equal(out.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [20, 128])
 def test_dedup_scatter_add_kernel_matches_cpu_bit_for_bit(cuda, dtype, d):
     """SA against its plain version on the CPU (index_add_ in position
     order), bit for bit, and the same bits over two runs; heavy repeats
@@ -664,6 +693,127 @@ def test_int8_matmul_tile_routes(cuda, first, m, k, n, route):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _bf16_step(top), (err, _bf16_step(top))
     assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting one element past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+#: (K, N, misaligned, one K slice): the int8 head at K = N = 4096, BERT's
+#: pooler and Dense(2) head, a ragged one, an odd K with N % 16 != 0 (byte
+#: loads), x and w views that start off a 16-byte boundary (all split K);
+#: then shapes the kernel runs in one K slice and so finishes itself
+#: (epilogue and store in the block, no reduce kernel): K <= 64, and a K
+#: of 256 over N wide enough (547 panels) that its panels alone fill the
+#: card
+SKINNY_SHAPES = [(4096, 4096, False, False), (768, 768, False, False),
+                 (768, 2, False, False), (100, 10, False, False),
+                 (4097, 130, False, False), (768, 768, True, False),
+                 (64, 768, False, True), (48, 130, False, True),
+                 (256, 70000, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 31, 32])
+@pytest.mark.parametrize("k,n,misaligned,one_slice", SKINNY_SHAPES)
+def test_int8_matmul_skinny_route(cuda, dtype, first, m, k, n, misaligned,
+                                  one_slice):
+    """K6's skinny route (M <= 32: split-K blocks, a second kernel adding
+    the slices in order; or one K slice, the block finishing the output
+    itself) in both modes, without and with the fused bias/ReLU epilogue:
+    within the file's tolerance of its plain version (f32 1e-4, bf16 one
+    step, at the case's largest value before or after the epilogue), the
+    same bits on a second call, counted as ``skinny`` with the K slices
+    the entry point reports, and the fused epilogue the same bits as the
+    unfused kernel's output followed by the bias add and ReLU as torch
+    ops."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_ROUTES, LAST_LAUNCH, int8_matmul, int8_matmul_reference)
+    x, w, s = (t.to(cuda) for t in _int8_operands(m, k, n, dtype,
+                                                  m * 7 + k + n))
+    b = (torch.randn(n, generator=torch.Generator().manual_seed(n)) * 4.0
+         ).to(cuda)
+    if misaligned:
+        x, w = _misaligned(x), _misaligned(w)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    plain = int8_matmul_reference(x, w, s, first)
+    for bias, relu in ((None, False), (b, False), (None, True), (b, True)):
+        before = KERNEL_INT8_ROUTES["skinny"].launches
+        got = int8_matmul(x, w, s, first, bias=bias, relu=relu)
+        assert LAST_LAUNCH.route == "skinny"
+        assert (LAST_LAUNCH.splits == 1) == one_slice, LAST_LAUNCH.splits
+        again = int8_matmul(x, w, s, first, bias=bias, relu=relu)
+        unfused = int8_matmul(x, w, s, first)
+        torch.cuda.synchronize()
+        assert KERNEL_INT8_ROUTES["skinny"].launches == before + 3
+        want = int8_matmul_reference(x, w, s, first, bias=bias, relu=relu)
+        assert got.dtype == dtype and got.shape == (m, n)
+        top = max(want.float().abs().max().item(),
+                  plain.float().abs().max().item())
+        tol = 1e-4 * top if dtype == torch.float32 else _bf16_step(top)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (bias is not None, relu, err, tol)
+        assert torch.equal(got.view(bits), again.view(bits))
+        if bias is not None:
+            unfused = unfused + bias.to(dtype)
+        if relu:
+            unfused = torch.relu(unfused)
+        assert torch.equal(got.view(bits), unfused.view(bits)), \
+            (bias is not None, relu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,route", [(32, "skinny"), (33, "fma")])
+def test_int8_matmul_epilogue_off_the_skinny_route(cuda, m, route):
+    """Past the skinny route the wrapper adds the bias and applies the
+    ReLU as torch ops after the kernel: the same bits as doing so by hand,
+    and the same numbers as the skinny kernel's fused epilogue."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_ROUTES, int8_matmul, int8_matmul_reference)
+    x, w, s = (t.to(cuda) for t in _int8_operands(m, 256, 96,
+                                                  torch.float32, m))
+    b = torch.linspace(-3.0, 3.0, 96, device=cuda)
+    before = KERNEL_INT8_ROUTES[route].launches
+    got = int8_matmul(x, w, s, True, bias=b, relu=True)
+    plain = int8_matmul(x, w, s, True)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_ROUTES[route].launches == before + 2
+    assert torch.equal(got.view(torch.int32),
+                       torch.relu(plain + b).view(torch.int32))
+    want = int8_matmul_reference(x, w, s, True, bias=b, relu=True)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * top
+
+
+@pytest.mark.cuda
+def test_weight_only_relu_head_fuses_its_epilogue_on_cuda(cuda):
+    """A weight-only int8 Sequential of Dense(relu) layers on the card:
+    every hidden layer's bias and ReLU ride K6's skinny kernel, and the
+    predict matches the same model on the CPU (plain versions)."""
+    from analytics_zoo_tpu_torch.ops.pallas import quantized
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    init_zoo_context()
+    model = Sequential([Dense(256, activation="relu", input_shape=(64,)),
+                        Dense(256, activation="relu"),
+                        Dense(8, activation="softmax")],
+                       device="cpu").init_weights()
+    x = np.random.default_rng(3).normal(size=(5, 64)).astype(np.float32)
+    want = InferenceModel(device="cpu").from_keras(
+        model, quantize="int8").predict(x)
+    im = InferenceModel(device=cuda).from_keras(model, quantize="int8")
+    before = quantized.KERNEL_INT8_ROUTES["skinny"].launches
+    got = im.predict(x)
+    assert quantized.KERNEL_INT8_ROUTES["skinny"].launches == before + 3
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

@@ -300,13 +300,18 @@ def _bert_rows(n, seed=0):
     return make_bert_inputs(ids, attention_mask=(ids != 0))
 
 
-def _count_k6(monkeypatch):
-    """Count ``dense``'s calls of K6 (on the CPU, its plain version)."""
+def _count_k6(monkeypatch, epilogues=None):
+    """Count ``dense``'s calls of K6 (on the CPU, its plain version): each
+    call's weight shape, and into ``epilogues`` (a list, if given) whether
+    it carried a bias and ``relu``."""
     calls = []
 
-    def counted(*args):
+    def counted(*args, **kwargs):
         calls.append(args[1].shape)
-        return pq.int8_matmul(*args)
+        if epilogues is not None:
+            epilogues.append((kwargs.get("bias") is not None,
+                              kwargs.get("relu", False)))
+        return pq.int8_matmul(*args, **kwargs)
     monkeypatch.setattr(pcore, "int8_matmul", counted)
     return calls
 
@@ -574,3 +579,80 @@ def test_unknown_serving_dtype_and_lane_dicts_are_refused():
     assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="multi-model lanes"):
         ClusterServing({"a": pm}, backend=LocalBackend())
+
+
+# ---------------------------------------------------------------------------
+# K6's fused epilogue (bias, ReLU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("m", [1, 7, 32])
+@pytest.mark.parametrize("n", [2, 8, 130])
+def test_int8_matmul_epilogue_is_dense_bias_then_relu_bit_for_bit(
+        dtype, first, m, n):
+    """K6's plain version with ``bias``/``relu`` gives the bits of the
+    unfused sequence the port ran before the fusion: the product, then
+    ``dense``'s bias add in the compute dtype, then ``Dense``'s ReLU (and
+    ``dense(..., relu=True)`` the bits of ``dense`` followed by it)."""
+    rng = np.random.default_rng(m * 1000 + n * 10 + first)
+    k = 96
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(td)
+    q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(_near_half_step_scales(rng, n))
+    b = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 3.0)
+    bits = torch.int16 if td == torch.bfloat16 else torch.int32
+    relu = pcore.ACTIVATIONS["relu"]
+    for bias, with_relu in ((b, False), (None, True), (b, True)):
+        got = pq.int8_matmul(x, q, s, first, bias=bias, relu=with_relu)
+        want = pq.int8_matmul(x, q, s, first)
+        if bias is not None:
+            want = want + bias.to(td)
+        if with_relu:
+            want = relu(want)
+        assert got.dtype == td and got.shape == (m, n)
+        assert torch.equal(got.view(bits), want.view(bits))
+    fused = pcore.dense(x, q, b, td, s, relu=True)
+    unfused = relu(pcore.dense(x, q, b, td, s))
+    assert torch.equal(fused.view(bits), unfused.view(bits))
+
+
+def _relu_head_pair(d_in=48):
+    """Two weight-only quantized Dense(relu) layers and a quantized
+    Dense(softmax) head (64 x 8 = 512 weights) in both packages."""
+    jm = JaxSequential([jl.Dense(600, activation="relu", input_shape=(d_in,)),
+                        jl.Dense(64, activation="relu"),
+                        jl.Dense(8, activation="softmax")])
+    jm.init_weights(rng=jax.random.key(6))
+    pm = Sequential([Dense(600, activation="relu", input_shape=(d_in,)),
+                     Dense(64, activation="relu"),
+                     Dense(8, activation="softmax")], device="cpu")
+    pm.load_jax_params(jax.tree.map(np.asarray, jm.params))
+    return jm, pm
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("policy,runtime", [("float32", "float32"),
+                                            ("float32", "bfloat16")])
+def test_weight_only_relu_head_fuses_its_epilogue_and_matches_jax(
+        batch, policy, runtime, monkeypatch):
+    """A weight-only int8 Sequential of Dense(relu) layers and a
+    Dense(softmax) head at batch 1 and 32: the predict still matches the
+    JAX weight-only predict (the file's tolerances), each Dense(relu)
+    hands its bias and ReLU to K6, and the softmax head only its bias."""
+    _policy(policy)
+    jm, pm = _relu_head_pair()
+    x = np.random.default_rng(batch).normal(size=(batch, 48)).astype(
+        np.float32)
+    want = np.asarray(JaxIM().from_keras(jm, dtype=runtime,
+                                         quantize="int8").predict(x))
+    im = InferenceModel(device="cpu").from_keras(pm, dtype=runtime,
+                                                 quantize="int8")
+    epilogues = []
+    calls = _count_k6(monkeypatch, epilogues)
+    got = im.predict(x)
+    tol = TOL["bfloat16" if "bfloat16" in (policy, runtime) else "float32"]
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    assert calls == [(48, 600), (600, 64), (64, 8)]
+    assert epilogues == [(True, True), (True, True), (True, False)]
