@@ -22,13 +22,27 @@
 // JAX package's CPU scatter (.at[inv].add, sharded_embedding.py:148-149 in
 // _dedup_take_bwd) and the CPU index_add_ add. It has no Pallas
 // counterpart; it replaces torch's index_add_ on CUDA, whose float atomics
-// add in an order that changes from run to run. Design: the wrapper sorts
-// the positions stably by inv (a fixed-shape sort, no host sync) and takes
-// each slot's offsets into that order by a binary search; one warp owns a
-// slot and its lanes own columns, each lane adding its column of the
-// slot's rows in the sorted (= ascending position) order. Every output is
-// written by one thread in a fixed order: the same bits on every run. The
-// bytes bound it too (g read once, out written once).
+// add in an order that changes from run to run. It reads the positions
+// sorted stably by slot (`order`) and the slot of each sorted position
+// (`sorted_slot`, ascending), both int64: the dedup'd lookup's
+// forward already made them in its unique (its stable sort of the ids,
+// whose slots rise with the id), so the backward is this one launch; the
+// standalone op sorts inv itself first. Design: a slot's rows take min(U,
+// 32) lanes, U the row's units of 4, 2 or 1 columns (the widest that
+// divides D and keeps g's and out's units aligned), so a warp serves 32 /
+// U slots at once when U < 32 (D = 20 f32: five 16-byte units, six slots
+// a warp) and loops over a longer row. The warp finds its slots' ranges
+// of the sorted positions itself: a 32-ary search over sorted_slot (one
+// load a lane a round, three rounds at N = 8192) narrows the start of its
+// first slot to 32 positions, whose slots the last round loads; ballots
+// over them give every slot's [lo, hi) (more rounds of 32 only where the
+// warp's positions run on). Then each lane adds its units of its slot's
+// rows in sorted (= ascending position) order from 0.0f, bf16 widened to
+// f32 on load, four rows' loads in flight at a time. A slot without
+// positions writes zeros. Every output is written by one thread in a
+// fixed order: the same bits on every run. The bytes bound it too (g read
+// once, out written once); at the NCF shapes the chain of dependent loads
+// (search, window, position, row) sets its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,20 +80,89 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename G>
+// VEC consecutive elements of g as one load
+template <typename G, int VEC>
+struct alignas(sizeof(G) * VEC) Unit {
+  G v[VEC];
+};
+
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename G, int VEC>
 __global__ void __launch_bounds__(THREADS)
-    segment_sum_rows(const G* __restrict__ g, const int* __restrict__ order,
-                     const int* __restrict__ offsets, float* __restrict__ out,
-                     int C, int D) {
+    segment_sum_sorted(const G* __restrict__ g,
+                       const long long* __restrict__ order,
+                       const long long* __restrict__ slot,
+                       float* __restrict__ out, int N, int C, int units) {
+  typedef Unit<G, VEC> In;
   const int lane = threadIdx.x & 31;
-  const long long c =
+  const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (c >= C) return;
-  const int j0 = offsets[c], j1 = offsets[c + 1];
-  for (int d = lane; d < D; d += 32) {
-    float acc = 0.f;
-    for (int j = j0; j < j1; ++j) acc += to_f32(g[(size_t)order[j] * D + d]);
-    out[(size_t)c * D + d] = acc;
+  const int lpr = units < 32 ? units : 32;  // lanes per slot
+  const int spw = 32 / lpr;                 // slots per warp
+  const int sub = lane / lpr;
+  const long long c0 = warp * spw;          // the warp's slots c0 ..
+  if (c0 >= C) return;
+  // a 32-ary search over all lanes for a lower bound `lo` of the first
+  // position whose slot is c0 or more, to within 32 positions
+  int lo = 0, hi = N;
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + (lane + 1) * step - 1;
+    const bool below = p < hi && slot[p] < c0;
+    const int n = __popc(__ballot_sync(FULL, below));
+    hi = min(hi, lo + (n + 1) * step - 1);
+    lo += n * step;
+  }
+  // then 32 positions a round from lo, one a lane (the last round of the
+  // search is the first of these): each slot's range [lo + below(c),
+  // lo + below(c + 1)), below(c) the positions from lo whose slot is
+  // under c, one ballot a slot
+  int n_lo = 0, n_hi = 0;
+  for (int base = lo;; base += 32) {
+    const int p = base + lane;
+    const long long sv = p < N ? slot[p] : c0 + spw;
+    int n_end = 0;
+    for (int k = 0; k <= spw; ++k) {
+      const int n = __popc(__ballot_sync(FULL, sv < c0 + k));
+      if (k == sub) n_lo += n;
+      if (k == sub + 1) n_hi += n;
+      if (k == spw) n_end = n;
+    }
+    if (n_end < 32) break;  // the round reached the warp's last slot's end
+  }
+  const int lo_c = lo + n_lo, hi_c = lo + n_hi;
+  const long long c = c0 + sub;
+  if (sub >= spw || c >= C) return;
+  const In* rows = reinterpret_cast<const In*>(g);
+  for (int u = lane % lpr; u < units; u += lpr) {
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    int j = lo_c;
+    for (; j + 4 <= hi_c; j += 4) {  // four rows' loads in flight
+      In x[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        x[r] = rows[(size_t)order[j + r] * units + u];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += to_f32(x[r].v[e]);
+    }
+    for (; j < hi_c; ++j) {
+      const In x = rows[(size_t)order[j] * units + u];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += to_f32(x.v[e]);
+    }
+    float* o = out + ((size_t)c * units + u) * VEC;
+    if (VEC == 4)
+      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2],
+                                                  acc[3]);
+    else if (VEC == 2)
+      *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
+    else
+      o[0] = acc[0];
   }
 }
 
@@ -94,6 +177,32 @@ void launch_expand(const void* rows, const int* inv, void* out, int N, int C,
   const long long warps = (N + 32 / lpr - 1) / (32 / lpr);
   expand_rows<T><<<grid_for_warps(warps), THREADS, 0, s>>>(
       static_cast<const T*>(rows), inv, static_cast<T*>(out), N, C, units);
+}
+
+template <typename G, int VEC>
+void launch_segment_sum(const void* g, const long long* order,
+                        const long long* slot, float* out, int N, int C,
+                        int D, cudaStream_t s) {
+  const int units = D / VEC;
+  const int lpr = units < 32 ? units : 32;
+  const long long warps = (C + 32 / lpr - 1) / (32 / lpr);
+  segment_sum_sorted<G, VEC><<<grid_for_warps(warps), THREADS, 0, s>>>(
+      static_cast<const G*>(g), order, slot, out, N, C, units);
+}
+
+template <typename G>
+void launch_segment_sum(const void* g, const long long* order,
+                        const long long* slot, float* out, int N, int C,
+                        int D, cudaStream_t s) {
+  // the widest unit of columns that divides D and keeps both g's and out's
+  // units aligned (out is a fresh allocation)
+  const uintptr_t gp = reinterpret_cast<uintptr_t>(g);
+  if (D % 4 == 0 && gp % (4 * sizeof(G)) == 0)
+    launch_segment_sum<G, 4>(g, order, slot, out, N, C, D, s);
+  else if (D % 2 == 0 && gp % (2 * sizeof(G)) == 0)
+    launch_segment_sum<G, 2>(g, order, slot, out, N, C, D, s);
+  else
+    launch_segment_sum<G, 1>(g, order, slot, out, N, C, D, s);
 }
 
 }  // namespace
@@ -122,25 +231,25 @@ extern "C" int embed_expand(const void* rows, const void* inv, void* out,
   return (int)cudaGetLastError();
 }
 
-// g (N, D) f32 (g_dtype 0) or bf16 (1), contiguous; order (N,) int32, the
-// positions sorted stably by inv; offsets (capacity + 1,) int32, slot c's
-// range [offsets[c], offsets[c + 1]) of order; out (capacity, D) f32.
+// g (N, D) f32 (g_dtype 0) or bf16 (1), contiguous; order (N,) int64, the
+// positions sorted stably by slot; sorted_slot (N,) int64, ascending,
+// the slot of each sorted position (slots outside [0, capacity) are
+// summed nowhere); out (capacity, D) f32, 16-byte aligned. Both arrays
+// are trusted: an order entry outside [0, N) reads outside g.
 extern "C" int dedup_scatter_add(const void* g, const void* order,
-                                 const void* offsets, void* out, int N,
+                                 const void* sorted_slot, void* out, int N,
                                  int capacity, int D, int g_dtype,
                                  void* stream) {
-  if (N < 0 || capacity <= 0 || D <= 0 || (g_dtype != 0 && g_dtype != 1))
+  if (N < 0 || capacity <= 0 || D <= 0 || (g_dtype != 0 && g_dtype != 1) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ord = static_cast<const int*>(order);
-  const int* off = static_cast<const int*>(offsets);
+  const long long* ord = static_cast<const long long*>(order);
+  const long long* sl = static_cast<const long long*>(sorted_slot);
   float* o = static_cast<float*>(out);
-  const int grid = grid_for_warps(capacity);
   if (g_dtype == 0)
-    segment_sum_rows<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(g), ord, off, o, capacity, D);
+    launch_segment_sum<float>(g, ord, sl, o, N, capacity, D, s);
   else
-    segment_sum_rows<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), ord, off, o, capacity, D);
+    launch_segment_sum<__nv_bfloat16>(g, ord, sl, o, N, capacity, D, s);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Fused LM-head cross-entropy for Hopper (sm_90a): three kernels, bound
-// through plain C entry points and loaded with ctypes.
+// Fused LM-head cross-entropy for Hopper (sm_90a): three kernels (K5a in
+// two forms), bound through plain C entry points and loaded with ctypes.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas/cross_entropy.py, the Pallas
 // kernels _ce_fwd_kernel (K4, pl.pallas_call in fused_ce_forward at :325),
@@ -18,8 +18,11 @@
 //    accumulates dh = dl W^T in f32, written once in dh's dtype.
 //  * K5b accumulates dW = h^T dl (dl rounded as in K5a) in f32 and
 //    db = the column sum of the f32 dl, taken before the rounding.
-// All three form the logits with the same device function and the same
-// k order, so the backward re-forms the forward's p bit for bit. Scale is
+// All three sum every logit over k = 0..H-1 in 16-wide tensor-core steps
+// in the same order: K4, K5b and K5a's mma.sync route with one device
+// function, K5a's wgmma route with wgmma steps, whose dh matched the
+// mma.sync route's bit for bit at the LM shape on an H100 (so the logits
+// too). The backward thus re-forms the forward's p bit for bit. Scale is
 // 0 on masked rows and NaN on rows with an over-range label; nothing skips
 // a row, so a NaN row spreads into dh's row and every column of dW, as in
 // the XLA form.
@@ -28,12 +31,13 @@
 // V=8192, bf16) K4 does 2NHV and K5a/K5b 4NHV operations each against
 // O(NH + HV) bytes, thousands of operations per byte: the products bound
 // all three. Hence:
-//  * bf16 (the training path): every product runs on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands that the
-//    fragment wants in the other orientation (W for the logits, h^T and
-//    dl for dW) are read from row-major shared-memory tiles with
-//    ldmatrix.trans, so no tile is stored transposed. wgmma and TMA staging
-//    are later work.
+//  * bf16 (the training path): every product runs on the tensor cores.
+//    K5a, where TMA can address its operands (the LM path), runs on wgmma
+//    with TMA-fed tiles (ce_bwd_dh_wgmma, below). K4, K5b and K5a's other
+//    shapes use mma.sync m16n8k16 (bf16 in, f32 accumulate): operands that
+//    the fragment wants in the other orientation (W for the logits, h^T
+//    and dl for dW) are read from row-major shared-memory tiles with
+//    ldmatrix.trans, so no tile is stored transposed.
 //  * f32: plain FMAs on the CUDA cores (TF32 would round the operands to
 //    10 mantissa bits, outside the f32 contract).
 //
@@ -43,10 +47,11 @@
 //  * K4: a block owns 64 rows and loops over 32-column vocab tiles; each
 //    warp holds 16 rows' running max, denominator and label logit in
 //    registers (the flash-forward scheme).
-//  * K5a: a block owns 32 rows and loops over 64-column vocab tiles. The
-//    logits tile becomes a bf16 dl tile in shared memory; then each of 8
-//    warps accumulates a 16-row by H/4 slice of dh in registers (at most
-//    128 f32 per thread at H=1024).
+//  * K5a, wgmma route: see ce_bwd_dh_wgmma. mma.sync route: a block owns
+//    32 rows and loops over 64-column vocab tiles. The logits tile becomes
+//    a bf16 dl tile in shared memory; then each of 8 warps accumulates a
+//    16-row by H/4 slice of dh in registers (at most 128 f32 per thread at
+//    H=1024).
 //  * K5b: a block owns 32 vocab columns of dW/db and loops over all rows in
 //    64-row tiles; each of 8 warps carries an H/4 by 16 slice of dW in
 //    registers (64 f32 per thread at H=512, 128 at H=1024). At V=8192 that
@@ -70,12 +75,16 @@
 // one thread, summed in a fixed order (db over the four row warps in a
 // fixed order too), so dh, dW and db are the same bits from run to run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -97,11 +106,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -449,6 +453,240 @@ __global__ void __launch_bounds__(A_THREADS)
         *reinterpret_cast<float2*>(static_cast<float*>(dh) + o) =
             make_float2(acc[i][2 * hh], acc[i][2 * hh + 1]);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5a, bf16 on wgmma: H <= 512 (padded), V % 8 == 0, h and w 16-byte
+// aligned (what TMA can address; the LM path). A block owns 64 rows of h
+// and walks the vocab in 64-column tiles with two warpgroups.
+//  * The h tile is loaded once (H / 64 boxes of 64 x 64 by TMA, the
+//    K-major A operand) and W tiles (H rows x 64 columns, 128 bytes a row
+//    in the 128-byte swizzle) stream through a 2-stage ring on mbarriers.
+//    Thread 0 issues every copy: the first two tiles up front, then tile i
+//    + 2 as soon as both warpgroups have released tile i's stage, so it
+//    lands while tile i + 1 is multiplied.
+//  * Warpgroup wg forms the logits of tile columns 32 wg .. + 31, S = h
+//    W_tile (m64n32k16 x H / 16, A the h tile, B the W tile read MN-major:
+//    no transposed copy), k = 0..H-1 in 16-wide steps as K4's mma.sync
+//    steps (the same logits bits, checked on the card); then p = exp(x -
+//    lse) and dl = (p - onehot) * scale with Dense's roundings, rounded to
+//    bf16 into a 64 x 64 dl tile in shared memory (128-byte swizzle, two
+//    buffers). Behind a barrier over both warpgroups it adds dh[:, wg
+//    H/2 ..] += dl W_tile^T over the tile's 64 vocab columns (A the dl
+//    tile, B the same W tile's rows wg H/2 .. read K-major; m64n256k16 at
+//    H = 512, else m64n32k16 pieces), then releases the stage.
+//  * The dh carry, 64 x H/2 f32 a warpgroup (128 registers a thread at H
+//    = 512), stays in registers over the whole vocab loop and is written
+//    once in dh's dtype. Two warpgroups at one block an SM leave each
+//    thread 255 registers.
+// Where its time goes at the LM shape (65,536 x 512 x 8192) is measured by
+// scripts/ce_dh_breakdown.py: the logits, whose shared-memory reads (192
+// KB a tile) bound them, take the most. Designs tried on an H100 and
+// dropped as slower: a producer warp or warpgroup beside the two (the
+// compiler then held every thread to 168 registers, setmaxnreg
+// notwithstanding, and serialised the wgmmas); two-block clusters sharing
+// each W tile by TMA multicast; one warpgroup forming all of dl (m64n64
+// logits) for two dh warpgroups a tile behind; each tile's dh product
+// issued before the next tile's logits (with two stages the load of tile
+// i + 2 then waits for both); the column tests in every tile instead of
+// the last (predicated around expf, they cost more than the products).
+// ---------------------------------------------------------------------------
+
+constexpr int X_BN = 64, X_BV = 64, X_STAGES = 2;
+constexpr int X_THREADS = 256;  // two warpgroups
+constexpr int X_DL_BYTES = 64 * 128;
+
+constexpr size_t dh_wgmma_smem(int H) {
+  return 1024 + (size_t)H * 128 * (1 + X_STAGES) + 2 * X_DL_BYTES +
+         8 * (1 + 2 * X_STAGES);
+}
+
+// W tiles load as boxes of this many rows (at most 256, dividing H)
+__host__ __device__ constexpr int dh_box_rows(int H) {
+  return H <= 256 ? H : H / 2;
+}
+
+template <int H>
+__global__ void __launch_bounds__(X_THREADS, 1)
+    ce_bwd_dh_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                    const __grid_constant__ CUtensorMap tm_w,
+                    const float* __restrict__ b, const int* __restrict__ labels,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ scale, void* __restrict__ dh,
+                    int dh_bf16, int N, int V) {
+  constexpr int DW = H / 2;  // dh columns of a warpgroup
+  constexpr int S = X_STAGES;
+  constexpr uint32_t TILE_BYTES = H * 128;  // the h tile, a W tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sH = base;
+  const uint32_t sW = sH + TILE_BYTES;             // stage s: + s TILE_BYTES
+  const uint32_t sDL = sW + S * TILE_BYTES;        // dl tile i % 2
+  const uint32_t full = sDL + 2 * X_DL_BYTES;      // stage s's W landed
+  const uint32_t empty = full + 8 * S;             // both warpgroups done
+  const uint32_t hbar = empty + 8 * S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + g;  // this thread's rows: r0, r0 + 8
+  const int n0 = blockIdx.x * X_BN;
+  const int nv = (V + X_BV - 1) / X_BV;
+  auto load_w = [&](int i) {  // tile i into its stage
+    const int s = i % S;
+    mbar_expect(full + 8 * s, TILE_BYTES);
+    for (int r = 0; r < H; r += dh_box_rows(H))
+      tma_2d(sW + s * TILE_BYTES + r * 128, &tm_w, full + 8 * s, i * X_BV,
+             r);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s);
+      mbar_init(empty + 8 * s, 8);  // every warp
+    }
+    mbar_init(hbar);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(hbar, TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < H / 64; ++c)
+      tma_2d(sH + c * Tile<64>::BYTES, &tm_h, hbar, 64 * c, n0);
+    for (int i = 0; i < S && i < nv; ++i) load_w(i);
+  }
+  __syncwarp();
+
+  int lab[2];
+  float row_lse[2], row_scale[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + r0 + 8 * hh;
+    const bool in = r < N;
+    lab[hh] = in ? labels[r] : -1;
+    // pad rows: lse = +inf (every p is exactly 0) and scale 0
+    row_lse[hh] = in ? lse[r] : INFINITY;
+    row_scale[hh] = in ? scale[r] : 0.f;
+  }
+  float acc[DW / 2];
+#pragma unroll
+  for (int j = 0; j < DW / 2; ++j) acc[j] = 0.f;
+  unsigned char* dl_base = smem_raw + (sDL - raw);
+
+  mbar_wait(hbar, 0);
+  for (int i = 0; i < nv; ++i) {
+    const int s = i % S;
+    const uint32_t w_tile = sW + s * TILE_BYTES;
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    // S = h W_tile over this warpgroup's 32 columns
+    float sc[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk)
+      wgmma_ss32<1>(sc, 0, desc_k<H>(sH, kk),
+                    desc_mn<64>(w_tile + 64 * wg, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // dl, rounded to bf16, into this tile's dl buffer (the other buffer may
+    // still feed the other warpgroup's product of the previous tile):
+    // register 4j + e is row r0 + 8 (e >> 1), tile column 32 wg + 8j + 2t
+    // + (e & 1). Only the last tile of a ragged V tests its columns: in
+    // every tile the tests, predicated around expf, cost more than the dh
+    // products.
+    const int v0 = i * X_BV;
+    unsigned char* dlb = dl_base + (i & 1) * X_DL_BYTES;
+    auto form_dl = [&](auto ragged_tile) {
+      constexpr bool RAGGED = decltype(ragged_tile)::value;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = 32 * wg + 8 * j + 2 * t;
+        float bias[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          bias[e] = (b != nullptr && (!RAGGED || v0 + cl + e < V))
+                        ? round_bf16(b[v0 + cl + e]) : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = v0 + cl + e;
+            float p = 0.f, oh = 0.f;
+            if (!RAGGED || col < V) {
+              const float x =
+                  round_bf16(round_bf16(sc[4 * j + 2 * hh + e]) + bias[e]);
+              p = expf(x - row_lse[hh]);
+              oh = col == lab[hh] ? 1.f : 0.f;
+            }
+            d[e] = (p - oh) * row_scale[hh];
+          }
+          // the 128-byte swizzle: 16-byte chunk c / 8 of row r lies at
+          // chunk (c / 8) ^ (r % 8)
+          const int r = r0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(
+              dlb + r * 128 + (((cl >> 3) ^ (r & 7)) << 4) + (cl & 7) * 2) =
+              pack_bf16(d[0], d[1]);
+        }
+      }
+    };
+    if (v0 + X_BV <= V)
+      form_dl(std::false_type{});
+    else
+      form_dl(std::true_type{});
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups' halves of dl are written
+
+    // dh[:, wg DW ..] += dl W_tile^T: B the tile's rows wg DW .., K-major
+    const uint32_t dl_tile = sDL + (i & 1) * X_DL_BYTES;
+    const uint32_t w_rows = w_tile + wg * DW * 128;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < X_BV / 16; ++kk) {
+      if constexpr (DW == 256) {
+        wgmma_ss256(acc, desc_k<64>(dl_tile, kk), desc_k<64>(w_rows, kk));
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < DW / 32; ++nt)
+          wgmma_ss32<0>(acc, 16 * nt, desc_k<64>(dl_tile, kk),
+                        desc_k<64>(w_rows + nt * 32 * 128, kk), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    // release the stage; thread 0 refills it with tile i + 2 once both
+    // warpgroups have
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (tid == 0 && i + S < nv) {
+      mbar_wait(empty + 8 * s, (i / S) & 1);
+      load_w(i + S);
+    }
+    __syncwarp();
+  }
+
+  // register 4j + e: row r0 + 8 (e >> 1), dh column wg DW + 8j + 2t +
+  // (e & 1)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + r0 + 8 * hh;
+    if (r >= N) continue;
+#pragma unroll
+    for (int j = 0; j < DW / 8; ++j) {
+      const size_t o = (size_t)r * H + wg * DW + 8 * j + 2 * t;
+      if (dh_bf16)
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dh) + o) =
+            pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(dh) + o) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   }
 }
@@ -878,13 +1116,6 @@ __global__ void __launch_bounds__(FB_THREADS)
     db[v0 + tid] = db_acc;
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 // H must be a positive multiple of 64 (the wrapper pads it)
 bool bad_dims(int N, int H, int V, int dtype) {
   return N <= 0 || V <= 0 || H < 64 || H % 64 != 0 ||
@@ -899,6 +1130,74 @@ int slice_width(int H) {
   const int S = (H + 1023) / 1024;
   const int m = H / 64;
   return 64 * ((m + S - 1) / S);
+}
+
+// the dh kernel each shape takes (reported to the caller)
+enum DhRoute { DH_WGMMA = 0, DH_MMA = 1, DH_FMA = 2 };
+
+// host: h (N, H) bf16 as 64 x 64 boxes, w (H, V) bf16 as boxes of 64
+// columns x `rows` rows, both in the 128-byte swizzle; zeros past N and V
+bool encode_ce_h(CUtensorMap* map, const void* h, int N, int H) {
+  const cuuint64_t dims[2] = {(cuuint64_t)H, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)H * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+bool encode_ce_w(CUtensorMap* map, const void* w, int H, int V, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)V, (cuuint64_t)H};
+  const cuuint64_t strides[1] = {(cuuint64_t)V * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)rows};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+}
+
+template <int H>
+cudaError_t launch_dh_wgmma(const void* h, const void* w, const float* b,
+                            const int* labels, const float* lse,
+                            const float* scale, void* dh, int dh_bf16, int N,
+                            int V, cudaStream_t stream) {
+  CUtensorMap mh, mw;
+  if (!encode_ce_h(&mh, h, N, H) ||
+      !encode_ce_w(&mw, w, H, V, dh_box_rows(H)))
+    return cudaErrorInvalidValue;
+  const size_t smem = dh_wgmma_smem(H);
+  cudaError_t err = set_smem(ce_bwd_dh_wgmma<H>, smem);
+  if (err != cudaSuccess) return err;
+  ce_bwd_dh_wgmma<H><<<blocks(N, X_BN), X_THREADS, smem, stream>>>(
+      mh, mw, b, labels, lse, scale, dh, dh_bf16, N, V);
+  return cudaGetLastError();
+}
+
+// the wgmma kernel for a padded H <= 512
+cudaError_t launch_dh_wgmma_any(int H, const void* h, const void* w,
+                                const float* b, const int* labels,
+                                const float* lse, const float* scale,
+                                void* dh, int dh_bf16, int N, int V,
+                                cudaStream_t stream) {
+  switch (H) {
+#define DH_WGMMA_CASE(HH)                                                 \
+  case HH:                                                                \
+    return launch_dh_wgmma<HH>(h, w, b, labels, lse, scale, dh, dh_bf16, N, \
+                               V, stream);
+    DH_WGMMA_CASE(64)
+    DH_WGMMA_CASE(128)
+    DH_WGMMA_CASE(192)
+    DH_WGMMA_CASE(256)
+    DH_WGMMA_CASE(320)
+    DH_WGMMA_CASE(384)
+    DH_WGMMA_CASE(448)
+    DH_WGMMA_CASE(512)
+#undef DH_WGMMA_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -933,11 +1232,15 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// dh_dtype: 0 = float32, 1 = bfloat16.
+// dh_dtype: 0 = float32, 1 = bfloat16. *route receives the kernel taken
+// (DhRoute): in bf16 the wgmma kernel where TMA can address the operands
+// (H <= 512, V % 8 == 0, h and w 16-byte aligned), the mma.sync kernel
+// elsewhere; f32 the FMA kernel.
 extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
                                const void* labels, const void* lse,
                                const void* scale, void* dh, int N, int H,
-                               int V, int dtype, int dh_dtype, void* stream) {
+                               int V, int dtype, int dh_dtype, int* route,
+                               void* stream) {
   if (bad_dims(N, H, V, dtype) || (dh_dtype != 0 && dh_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -948,16 +1251,22 @@ extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
   const int KS = slice_width(H);
   cudaError_t err;
   if (dtype == 0) {
+    *route = DH_FMA;
     const dim3 grid(blocks(N, FA_BN), blocks(H, KS));
     const size_t smem = sizeof(float) * (size_t)FA_BN * KS;
     if ((err = set_smem(ce_bwd_dh_fma, smem)) != cudaSuccess) return (int)err;
     ce_bwd_dh_fma<<<grid, FA_THREADS, smem, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
         l, sc, dh, dh_dtype, N, H, V, KS);
+  } else if (H <= 512 && V % 8 == 0 && aligned16(h) && aligned16(w)) {
+    *route = DH_WGMMA;
+    return (int)launch_dh_wgmma_any(H, h, w, bias, lab, l, sc, dh, dh_dtype,
+                                    N, V, s);
   } else {
+    *route = DH_MMA;
     const dim3 grid(blocks(N, A_BN), blocks(H, KS));
     const size_t smem = dh_mma_smem_bytes(KS);
-    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const int vec = V % 8 == 0 && aligned16(w);
     const bf16* hb = static_cast<const bf16*>(h);
     const bf16* wb = static_cast<const bf16*>(w);
     // the dh carry's register tiles by slice width; sliced or not

@@ -23,8 +23,12 @@ On a CUDA tensor each wrapper launches the kernels in
 columns and ``w``'s rows are padded with zeros to a multiple of 64 (the
 pad adds exact zeros to every logit, as the JAX wrapper's
 ``pad_to_multiple`` does) and ``dh``/``dW`` are sliced back; the kernels
-stage H in slices of at most 1024. On a CPU tensor it runs the
-plain version (:func:`fused_ce_forward_reference`,
+stage H in slices of at most 1024. K5a's C entry point picks its kernel
+by shape and reports it (:data:`KERNEL_CE_BWD_DH_ROUTES`,
+:data:`LAST_DH_LAUNCH`): in bf16 a ``wgmma`` kernel fed by TMA where TMA
+can address the operands (the LM path), an ``mma.sync`` one elsewhere.
+On a CPU tensor it runs the plain version
+(:func:`fused_ce_forward_reference`,
 :func:`fused_ce_backward_reference`), which follows the kernels' rounding
 points and walks the rows in chunks, so it never forms an ``(N, V)``
 tensor either; ``zoo.pallas.cross_entropy=false`` routes the fused loss
@@ -58,7 +62,8 @@ DEFAULT_CHUNK = 512
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_ce_fwd.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.fused_ce_bwd_dh.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.fused_ce_bwd_dh.argtypes = [p] * 7 + [i] * 5 + [
+        ctypes.POINTER(i), p]
     lib.fused_ce_bwd_dw.argtypes = [p] * 8 + [i] * 4 + [p]
     for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd_dh, lib.fused_ce_bwd_dw):
         fn.restype = ctypes.c_int
@@ -70,6 +75,25 @@ LIBRARY = CudaLibrary("fused_cross_entropy", ["fused_cross_entropy.cu"],
 KERNEL_CE_FWD = _LaunchCount()      # K4
 KERNEL_CE_BWD_DH = _LaunchCount()   # K5a
 KERNEL_CE_BWD_DW = _LaunchCount()   # K5b
+#: K5a's kernels, by the code its C entry point reports: ``wgmma`` (bf16
+#: where TMA can address the operands: padded H <= 512, V % 8 == 0, h and
+#: w 16-byte aligned — the LM path), ``mma`` (the other bf16 shapes),
+#: ``fma`` (f32)
+DH_ROUTES = ("wgmma", "mma", "fma")
+KERNEL_CE_BWD_DH_ROUTES = {name: _LaunchCount() for name in DH_ROUTES}
+
+
+class _DhLaunch:
+    """The route of the latest K5a launch, as its C entry point reported
+    it (None before the first)."""
+
+    __slots__ = ("route",)
+
+    def __init__(self):
+        self.route = None
+
+
+LAST_DH_LAUNCH = _DhLaunch()
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +279,16 @@ def _launch_dh(ops, dh_dtype, hidden: int) -> torch.Tensor:
     n, hp = h.shape
     dh = torch.empty(n, hp, dtype=dh_dtype, device=h.device)
     if n > 0:
+        route = ctypes.c_int(-1)
         err = launch(LIBRARY.entry("fused_ce_bwd_dh"), h,
                      *(_ptr(t) for t in ops), dh.data_ptr(), n, hp,
                      w.shape[1], _DTYPE_CODES[h.dtype],
-                     _DTYPE_CODES[dh_dtype])
+                     _DTYPE_CODES[dh_dtype], ctypes.byref(route))
         _raise_on(err, "fused_ce_bwd_dh")
+        name = DH_ROUTES[route.value]
         KERNEL_CE_BWD_DH.launches += 1
+        KERNEL_CE_BWD_DH_ROUTES[name].launches += 1
+        LAST_DH_LAUNCH.route = name
     return dh if hp == hidden else dh[:, :hidden].contiguous()
 
 

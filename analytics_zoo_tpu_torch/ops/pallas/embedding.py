@@ -14,7 +14,11 @@ a ``(capacity, D)`` f32 block, each slot's rows in ascending position
 order from 0 — the order of the JAX package's CPU scatter. It has no
 Pallas counterpart (the JAX backward is an XLA scatter); it exists
 because ``index_add_`` on CUDA adds with float atomics in an order that
-changes from run to run.
+changes from run to run. The kernel reads the positions sorted stably by
+slot and each sorted position's slot: the lookup's forward hands over the
+arrays its unique already made (``order``, ``sorted_slot``), so the
+backward launches the kernel alone; called without them, the op sorts
+``inv`` itself first.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (:func:`embed_expand_reference`,
@@ -24,6 +28,7 @@ tensor it runs the plain version (:func:`embed_expand_reference`,
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -128,32 +133,64 @@ def dedup_scatter_add_reference(g: torch.Tensor, inv: torch.Tensor,
     return out.index_add_(0, inv.long(), g.float())
 
 
-def dedup_scatter_add(g: torch.Tensor, inv: torch.Tensor,
-                      capacity: int) -> torch.Tensor:
+def _check_sorted(order, sorted_slot, g: torch.Tensor,
+                  inv: torch.Tensor) -> None:
+    """Shape, dtype and device of a handed sort; on the CPU, where the
+    plain version reads ``inv`` alone, also that it is ``inv``'s stable
+    sort, so a caller handing a wrong one fails there rather than summing
+    other rows on the card (which trusts it)."""
+    if (order is None) != (sorted_slot is None):
+        raise ValueError("dedup_scatter_add takes order and sorted_slot "
+                         "together")
+    for name, t in (("order", order), ("sorted_slot", sorted_slot)):
+        if t.shape != (g.shape[0],) or t.dtype != torch.int64:
+            raise ValueError(f"dedup_scatter_add: {name} must be "
+                             f"({g.shape[0]},) torch.int64; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != g.device:
+            raise ValueError("dedup_scatter_add operands lie on different "
+                             "devices")
+    if not g.is_cuda:
+        key, idx = torch.sort(inv.long(), stable=True)
+        if not (torch.equal(order, idx) and torch.equal(sorted_slot, key)):
+            raise ValueError("dedup_scatter_add: order and sorted_slot are "
+                             "not the stable sort of inv")
+
+
+def dedup_scatter_add(g: torch.Tensor, inv: torch.Tensor, capacity: int, *,
+                      order: Optional[torch.Tensor] = None,
+                      sorted_slot: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """SA: the ``(capacity, D)`` f32 sums of ``g (N, D)``'s rows per slot
     of ``inv (N,)`` (ids in ``[0, capacity)``), each slot's rows added in
-    ascending position order from 0. CUDA tensors launch the kernel (or
-    raise); CPU tensors run :func:`dedup_scatter_add_reference`."""
+    ascending position order from 0. ``order`` and ``sorted_slot``, both
+    ``(N,)`` int64, when given, are the positions sorted stably by slot
+    and the slot of each of them, as the dedup'd lookup's forward made
+    them; then a CUDA tensor launches the kernel and nothing else. The
+    kernel trusts them (the CPU path checks them against ``inv``).
+    Without them the op sorts ``inv`` itself. CUDA tensors launch
+    the kernel (or raise); CPU tensors run
+    :func:`dedup_scatter_add_reference`."""
     _check(g, inv, "dedup_scatter_add")
     if g.shape[0] != inv.shape[0]:
         raise ValueError(f"dedup_scatter_add: {g.shape[0]} rows of g for "
                          f"{inv.shape[0]} ids")
+    if order is not None or sorted_slot is not None:
+        _check_sorted(order, sorted_slot, g, inv)
     if not g.is_cuda:
         return dedup_scatter_add_reference(g, inv, capacity)
     n, d = g.shape
     out = torch.empty(capacity, d, dtype=torch.float32, device=g.device)
     if capacity == 0 or d == 0:
         return out
-    # the positions sorted stably by slot, and each slot's range of them:
-    # fixed shapes, no host synchronisation
-    key, order = torch.sort(inv.to(torch.int32), stable=True)
-    offsets = torch.searchsorted(
-        key, torch.arange(capacity + 1, dtype=torch.int32, device=g.device),
-        out_int32=True)
-    order = order.to(torch.int32)
-    g = g.contiguous()
+    if order is None:
+        # the positions sorted stably by slot (a fixed-shape sort, no host
+        # synchronisation)
+        sorted_slot, order = torch.sort(inv.long(), stable=True)
+    g, order = g.contiguous(), order.contiguous()
+    sorted_slot = sorted_slot.contiguous()
     err = launch(LIBRARY.entry("dedup_scatter_add"), g, g.data_ptr(),
-                 order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n,
+                 order.data_ptr(), sorted_slot.data_ptr(), out.data_ptr(), n,
                  capacity, d, _DTYPES.index(g.dtype))
     _raise_on(err, "dedup_scatter_add")
     KERNEL_SCATTER_ADD.launches += 1

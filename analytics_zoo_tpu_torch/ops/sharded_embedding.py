@@ -8,8 +8,9 @@ batch sizes share shapes), gathers each distinct row once into a
 kernel K1 (``ops/pallas/embedding.py``, ``zoo.pallas.embed_gather``). The
 backward never forms a dense cotangent per id: the row cotangents are
 summed per distinct id onto the unique block in f32 (kernel SA, a fixed
-order, so the same bits on every run), then scattered onto the table
-through the dump-row trick. Out-of-range ids clamp into ``[0, V)``.
+order, so the same bits on every run; it reads the forward's sort, so it
+is one launch), then scattered onto the table through the dump-row
+trick. Out-of-range ids clamp into ``[0, V)``.
 
 The port drives one device: a mesh with a ``model`` axis larger than 1
 (the row-partitioned lookup), ``OutOfCoreEmbeddingCache`` and the host
@@ -52,13 +53,13 @@ def dedup_capacity(n_ids: int, vocab: int) -> int:
     return max(min(cap, round_up(int(n_ids), 8)), 8)
 
 
-def _unique_ids(ids: torch.Tensor, capacity: int,
-                fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jnp.unique(ids, size=capacity, fill_value=fill,
-    return_inverse=True)``: ``uniq`` the sorted distinct ids padded with
-    ``fill`` (truncated past ``capacity``), ``inv`` (int32) each id's
-    index in it. Built from a sort, boundary marks and a cumulative sum:
-    fixed shapes, no host synchronisation."""
+def _dedup_sort(ids: torch.Tensor, capacity: int, fill: int
+                ) -> Tuple[torch.Tensor, ...]:
+    """``(uniq, inv, order, slot)``: :func:`_unique_ids`' two and what its
+    stable sort leaves on the way, ``order`` (int64) the positions sorted
+    stably by id and ``slot`` (int64, ascending) the slot of each sorted
+    position — the sort of the positions by slot that SA reads (the slots
+    rise with the id)."""
     n = ids.shape[0]
     srt, order = torch.sort(ids, stable=True)
     new = torch.ones(n, dtype=torch.bool, device=ids.device)
@@ -71,7 +72,17 @@ def _unique_ids(ids: torch.Tensor, capacity: int,
     uniq = torch.full((capacity + 1,), fill, dtype=ids.dtype,
                       device=ids.device)
     uniq.scatter_(0, slot.clamp(max=capacity), srt)
-    return uniq[:capacity], inv
+    return uniq[:capacity], inv, order, slot
+
+
+def _unique_ids(ids: torch.Tensor, capacity: int,
+                fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(ids, size=capacity, fill_value=fill,
+    return_inverse=True)``: ``uniq`` the sorted distinct ids padded with
+    ``fill`` (truncated past ``capacity``), ``inv`` (int32) each id's
+    index in it. Built from a sort, boundary marks and a cumulative sum:
+    fixed shapes, no host synchronisation."""
+    return _dedup_sort(ids, capacity, fill)[:2]
 
 
 class _DedupTake(torch.autograd.Function):
@@ -82,10 +93,11 @@ class _DedupTake(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, capacity: int, use_kernel: bool):
         v = table.shape[0]
-        uniq, inv = _unique_ids(ids, capacity, fill=v)
+        uniq, inv, order, slot = _dedup_sort(ids, capacity, fill=v)
         rows = table.index_select(0, uniq.clamp(0, v - 1).long())
         expand = embed_expand if use_kernel else embed_expand_reference
-        ctx.save_for_backward(uniq, inv)
+        # the backward's SA reads the forward's sort as it lies
+        ctx.save_for_backward(uniq, inv, order, slot)
         ctx.capacity = capacity
         ctx.table_shape = table.shape
         ctx.table_dtype = table.dtype
@@ -93,9 +105,10 @@ class _DedupTake(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        uniq, inv = ctx.saved_tensors
+        uniq, inv, order, slot = ctx.saved_tensors
         v, d = ctx.table_shape
-        d_rows = dedup_scatter_add(g.contiguous(), inv, ctx.capacity)
+        d_rows = dedup_scatter_add(g.contiguous(), inv, ctx.capacity,
+                                   order=order, sorted_slot=slot)
         # dump-row trick: fill slots (uniq == v) land on the sliced-off row;
         # every other target is distinct, so the atomics of index_add_ add
         # each row once onto 0 and the bits are the same on every run

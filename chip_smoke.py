@@ -43,7 +43,8 @@
    f32 params, batch 16) through ``compile``/``fit`` on 32 sequences of
    ``y = (7x + 13) mod 8192`` with every flag at ``auto``: a warm-up of
    two epochs, then two timed epochs of two steps. Checks the loss gate,
-   1 launch per step of K4/K5a/K5b and 4 of K2/K3a/K3b, one step's
+   1 launch per step of K4/K5a/K5b (every K5a on its wgmma route) and 4
+   of K2/K3a/K3b, one step's
    gradients against the full-logits oracle, and that the fused route's
    peak memory over that step is at least one bf16 logits tensor lower.
 
@@ -55,8 +56,11 @@
    (the first batch's user and item ids, capacities 8192 and 4096, D=20)
    and at a DLRM-Terabyte width (D=128, N=2048x26 ids over a million
    rows, f32 and bf16): K1 bit for bit, SA bit for bit against the CPU's
-   position-order sum and the same bits over two runs. Each is timed
-   beside ``index_select`` / ``index_add_`` and its byte bound.
+   position-order sum and the same bits over two runs, both through the
+   forward's sort (the engine's call: one device kernel) and standalone
+   (it sorts first). Each is timed beside ``index_select`` /
+   ``index_add_`` and its byte bound (SA's also beside the byte time of
+   the int64 sorted positions and slots it reads in place of the ids).
 10. NCF phase: the JAX package's NeuralCF bench configuration
    (``bench.py:50-52, 1279-1285``: ``NeuralCF(6040, 3706, 5)``, Adam lr
    1e-3, ``scce``, batch 8192, 1,000,000 MovieLens-1M-shaped ratings from
@@ -64,8 +68,11 @@
    on ``ShardedEmbedding`` tables: a warm-up epoch and two timed epochs of
    122 steps each. Checks the loss gate (last epoch below the first and
    below ln 5), 4 launches per step of K1 and of SA on the sharded graph
-   and none on the stock model, one step's gradients of the two from the
-   same weights (1e-5 relative per leaf), the same dW bits over two
+   and none on the stock model, the device kernels of one forward and one
+   backward of the sharded graph (``torch.profiler``: SA four times in
+   the backward, no sort or search there), one step's gradients of the
+   two from the same weights (1e-5 relative per leaf), the same dW bits
+   over two
    backward passes, and ``recommend_for_user`` against a plain eager
    forward.
 
@@ -1277,8 +1284,8 @@ def ce_kernel_phase():
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        fused_ce_backward, fused_ce_backward_reference, fused_ce_forward,
-        fused_ce_forward_reference)
+        LAST_DH_LAUNCH, fused_ce_backward, fused_ce_backward_reference,
+        fused_ce_forward, fused_ce_forward_reference)
     n, hidden = 4100, 512
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, dtype, V, bias, over-range labels, one bias of 100
@@ -1326,6 +1333,11 @@ def ce_kernel_phase():
             runs.append(fused_ce_backward(h, w, b, labels, lse, scale))
             torch.cuda.synchronize()
         dh, dw, db = runs[0]
+        want_route = "wgmma" if dtype == bf16 else "fma"
+        check(LAST_DH_LAUNCH.route == want_route, f"{name}: K5a took "
+              f"{LAST_DH_LAUNCH.route}, want {want_route}")
+        dh_same = bit_equal(runs[0][0].float(), runs[1][0].float())
+        check(dh_same, f"{name}: K5a dh differs between two runs")
         same = bit_equal(runs[0][1], runs[1][1]) and bit_equal(runs[0][2],
                                                                runs[1][2])
         check(same, f"{name}: K5b dW/db differ between two runs")
@@ -1335,7 +1347,8 @@ def ce_kernel_phase():
         row = {"case": name, "n": n, "hidden": hidden, "vocab": v,
                "dtype": str(dtype).replace("torch.", ""), "bias": bias,
                "lse_err": lse_err, "ll_rel_err": ll_err,
-               "tol": tol, "dw_db_bit_identical": same}
+               "tol": tol, "dw_db_bit_identical": same,
+               "dh_route": LAST_DH_LAUNCH.route, "dh_bit_identical": dh_same}
         if over:
             check(bool(torch.isnan(dh[bad]).all()
                        and torch.isfinite(dh[~bad]).all()),
@@ -1379,7 +1392,8 @@ def lm_phase():
 
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL_CE_FWD)
+        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DH_ROUTES, KERNEL_CE_BWD_DW,
+        KERNEL_CE_FWD)
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
@@ -1411,7 +1425,7 @@ def lm_phase():
 
     kernels = (KERNEL_CE_FWD, KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL,
                KERNEL_BWD_DQ, KERNEL_BWD_DKV)
-    for c in kernels:
+    for c in kernels + tuple(KERNEL_CE_BWD_DH_ROUTES.values()):
         c.reset()
     timed = []
     t0 = time.perf_counter()
@@ -1423,6 +1437,7 @@ def lm_phase():
                          "fused_ce_bwd_dw", "flash_attention_fwd",
                          "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
                         (c.launches for c in kernels)))
+    dh_routes = {k: c.launches for k, c in KERNEL_CE_BWD_DH_ROUTES.items()}
     records += timed
     steps = 2 * (LM_SEQS // LM_BATCH)
     loss_first, loss_last = records[0]["loss"], records[-1]["loss"]
@@ -1431,18 +1446,20 @@ def lm_phase():
                "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
                "warmup_s": warm,
                "losses": [r["loss"] for r in records],
-               "launches": launches}
+               "launches": launches, "dh_routes": dh_routes}
     print(f"lm: {steps} steps of {LM_BATCH}x{LM_SEQ} tokens in {wall:.3f}s "
           f"= {summary['tokens_per_s']:.1f} tokens/s (best epoch), "
           f"{summary['ms_per_step']:.1f} ms/step (warm-up {warm:.1f}s); "
           f"loss {loss_first:.4f} -> {loss_last:.4f}; launches "
-          f"{json.dumps(launches)}")
+          f"{json.dumps(launches)}; K5a by route {json.dumps(dh_routes)}")
     check(math.isfinite(loss_last) and loss_last < 0.98 * loss_first,
           f"loss gate: {loss_first} -> {loss_last}")
     n_block = LM_CFG["n_block"]
     for name, count in launches.items():
         want = steps * (n_block if name.startswith("flash") else 1)
         check(count == want, f"{name}: {count} launches, want {want}")
+    check(dh_routes["wgmma"] == steps, f"K5a on the wgmma route {dh_routes}, "
+          f"want all {steps}")
 
     # one step's gradients and peak memory: the fused route against the
     # full-logits oracle on the same batch and weights
@@ -1501,7 +1518,7 @@ def lm_kernel_rows(labels_np, launches):
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        fused_ce_backward_dh, fused_ce_backward_dw,
+        LAST_DH_LAUNCH, fused_ce_backward_dh, fused_ce_backward_dw,
         fused_ce_backward_reference, fused_ce_forward,
         fused_ce_forward_reference)
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
@@ -1516,6 +1533,8 @@ def lm_kernel_rows(labels_np, launches):
     scale = torch.full((n,), 1.0 / n, device="cuda")
     lse, ll = fused_ce_forward(h, w, b, labels)
     dh = fused_ce_backward_dh(h, w, b, labels, lse, scale)
+    dh_route = LAST_DH_LAUNCH.route
+    check(dh_route == "wgmma", f"LM shape: K5a took {dh_route}")
     dw, db = fused_ce_backward_dw(h, w, b, labels, lse, scale)
     torch.cuda.synchronize()
     ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
@@ -1591,6 +1610,8 @@ def lm_kernel_rows(labels_np, launches):
         if name != "fused_ce_fwd":
             rows[-1]["plain_by"] = ("the plain backward computes dh, dW "
                                     "and db together: the pair's time")
+        if name == "fused_ce_bwd_dh":
+            rows[-1]["dh_route"] = dh_route
     del h, w, dh, dw
 
     q, k, vv, do = (torch.randn(LM_BATCH, LM_CFG["n_head"], LM_SEQ, 64,
@@ -1807,28 +1828,37 @@ def embed_case(name, table, ids, dtype, g_seed):
     """K1 and SA on one lookup's dedup'd block: ``ids`` clamped, made
     unique at ``dedup_capacity``, the unique rows gathered; K1 expands
     them (bit for bit against ``rows[inv]``), SA sums a seeded cotangent
-    per slot (bit for bit against the CPU's index_add_, same bits over
-    two runs). Returns the case's row with times and byte bounds. ``ms``
-    times calls of the wrapper back to back (SA's includes its sort and
-    offsets), which at the NCF shapes reads the host's launch rate (K1's
-    in turns with ``index_select``, medians of five rounds);
-    ``device_ms`` the same call's device work alone (``graph_ms``)."""
+    per slot both ways: through the forward's sort (the engine's call, one
+    device kernel) and standalone (it sorts first), each bit for bit
+    against the CPU's index_add_ and the engine's call the same bits over
+    two runs. Returns the case's row with times and byte bounds. ``ms``
+    times calls of the wrapper, in turns with ``index_select`` /
+    ``index_add_`` (medians of five rounds): at the NCF shapes it reads
+    the host's launch rate; ``device_ms`` the same call's device work
+    alone (``graph_ms``)."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.embedding import (
         dedup_scatter_add, dedup_scatter_add_reference, embed_expand,
         embed_expand_reference)
     from analytics_zoo_tpu_torch.ops.sharded_embedding import (
-        _unique_ids, dedup_capacity)
+        _dedup_sort, dedup_capacity)
     v, d = table.shape
     n = ids.shape[0]
     cap = dedup_capacity(n, v)
-    uniq, inv = _unique_ids(ids.clamp(0, v - 1), cap, fill=v)
+    uniq, inv, order, slot = _dedup_sort(ids.clamp(0, v - 1), cap, fill=v)
     rows = table.index_select(0, uniq.clamp(0, v - 1).long()).to(dtype)
     g = torch.randn(n, d, generator=torch.Generator().manual_seed(g_seed)
                     ).to("cuda", dtype)
+
+    def sa_engine():
+        return dedup_scatter_add(g, inv, cap, order=order, sorted_slot=slot)
+
+    def sa_alone():
+        return dedup_scatter_add(g, inv, cap)
     out = embed_expand(rows, inv)
-    sums = [dedup_scatter_add(g, inv, cap) for _ in range(2)]
+    sums = [sa_engine() for _ in range(2)]
+    alone = sa_alone()
     torch.cuda.synchronize()
     es = rows.element_size()
     n_unique = int(torch.unique(inv).numel())
@@ -1838,15 +1868,22 @@ def embed_case(name, table, ids, dtype, g_seed):
     sa_same = torch.equal(sums[0].view(torch.int32), sums[1].view(torch.int32))
     sa_equal = torch.equal(sums[0].cpu().view(torch.int32),
                            sa_ref.view(torch.int32))
+    alone_equal = torch.equal(alone.cpu().view(torch.int32),
+                              sa_ref.view(torch.int32))
     check(k1_equal, f"{name}: K1 differs from rows[inv]")
     check(sa_equal, f"{name}: SA differs from the CPU's position-order sum")
+    check(alone_equal, f"{name}: standalone SA differs from the CPU's sum")
     check(sa_same, f"{name}: SA differs between two runs")
+    engine_kernels = device_kernels(sa_engine)
+    check(len(engine_kernels) == 1, f"{name}: SA through the forward's sort "
+          f"launched {engine_kernels}")
     inv64 = inv.long()
     acc = torch.zeros(cap, d, dtype=torch.float32, device="cuda")
     gf = g.float()
     row = {"case": name, "n": n, "capacity": cap, "unique": n_unique, "d": d,
            "dtype": str(dtype).replace("torch.", ""),
            "k1_bit_equal": k1_equal, "sa_bit_equal_cpu": sa_equal,
+           "sa_standalone_bit_equal_cpu": alone_equal,
            "sa_same_bits_two_runs": sa_same,
            "embed_expand": {
                "max_abs_err": (out.float() - k1_ref.float()).abs().max()
@@ -1863,16 +1900,26 @@ def embed_case(name, table, ids, dtype, g_seed):
                                           + n * d * es)},
            "dedup_scatter_add": {
                "max_abs_err": (sums[0].cpu() - sa_ref).abs().max().item(),
-               "ms": time_ms(lambda: dedup_scatter_add(g, inv, cap),
-                             iters=50),
-               "device_ms": graph_ms(lambda: dedup_scatter_add(g, inv, cap)),
+               **dict(zip(("ms", "ms_standalone", "library_ms"),
+                          host_ms_in_turns(
+                              sa_engine, sa_alone,
+                              lambda: acc.index_add_(0, inv64, gf)))),
+               "device_ms": graph_ms(sa_engine),
+               "device_ms_standalone": graph_ms(sa_alone),
+               "library_device_ms": graph_ms(
+                   lambda: acc.index_add_(0, inv64, gf)),
+               "device_kernels": len(engine_kernels),
+               "device_kernels_standalone": len(device_kernels(sa_alone)),
                "plain_ms": time_ms(lambda: dedup_scatter_add_reference(
                    g, inv, cap), iters=50),
-               "library_ms": time_ms(lambda: acc.index_add_(0, inv64, gf),
-                                     iters=50),
-               # g and the ids read, the (capacity, D) f32 block written
+               # what the function needs: g and the int32 ids read, the
+               # (capacity, D) f32 block written
                "bound_ms": bytes_bound_ms(n * d * es + n * 4
-                                          + cap * d * 4)}}
+                                          + cap * d * 4),
+               # the same with the int64 sorted positions and slots this
+               # design reads in place of the ids
+               "bytes_ms_as_read": bytes_bound_ms(n * d * es + 2 * n * 8
+                                                  + cap * d * 4)}}
     print(f"embed kernel case {json.dumps(row)}")
     return row
 
@@ -1922,6 +1969,27 @@ def sharded_ncf(user_count, item_count, class_num, device="cuda"):
     h = Merge(mode="concat", concat_axis=-1)([h, mf])
     return Model(inp, Dense(class_num, activation="softmax")(h),
                  device=device)
+
+
+def step_kernels(net, xb, yb, loss_fn):
+    """The names of the device kernels one forward (with the loss) and one
+    backward of ``net`` launch, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(prof):
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        loss = loss_fn(yb, net(xb, training=True))
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        loss.backward()
+        torch.cuda.synchronize()
+    net.zero_grad(set_to_none=True)
+    return names(fwd), names(bwd)
 
 
 def ncf_plain_forward(params, pairs):
@@ -2046,6 +2114,20 @@ def ncf_phase(x, y):
           f"per-leaf gradient relative error {rel[worst]:.3e} ({worst}; "
           f"tolerance {NCF_GRAD_REL_TOL}); the tables' dW the same bits "
           f"over two backward passes: {same_bits}")
+    # the device kernels of one forward and one backward of the sharded
+    # graph: SA once a table, nothing sorted or searched in the backward
+    fwd_names, bwd_names = step_kernels(sharded, xb, yb, loss_fn)
+    sa = [k for k in bwd_names if "segment_sum_sorted" in k]
+    searched = [k for k in bwd_names if "radix" in k.lower()
+                or "searchsorted" in k.lower()]
+    print(f"ncf: one step of the sharded graph launches {len(fwd_names)} "
+          f"device kernels forward and {len(bwd_names)} backward; SA "
+          f"{len(sa)} in the backward, sorts and searches there "
+          f"{len(searched)}")
+    check(len(sa) == 4 and not searched, f"the sharded backward launched "
+          f"SA {len(sa)} times and {searched}")
+    out.update(step_kernels_fwd=len(fwd_names),
+               step_kernels_bwd=len(bwd_names))
     check(rel[worst] <= NCF_GRAD_REL_TOL, f"ncf gradients: {worst} "
           f"{rel[worst]}")
     check(same_bits, "the sharded tables' dW differ between two runs")
@@ -2103,6 +2185,13 @@ def embed_kernel_rows(embed_rows, launches):
                      "plain_ms_dlrm": td["plain_ms"],
                      "bound_ms_dlrm": td["bound_ms"],
                      "library_ms_dlrm": td["library_ms"]})
+        if name == "dedup_scatter_add":
+            rows[-1].update({
+                key + suffix: case[key]
+                for key in ("ms_standalone", "device_ms_standalone",
+                            "library_device_ms", "device_kernels",
+                            "device_kernels_standalone", "bytes_ms_as_read")
+                for suffix, case in (("", t), ("_dlrm", td))})
     return rows
 
 

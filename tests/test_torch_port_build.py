@@ -16,9 +16,12 @@ flash_attention = importlib.import_module(
     "analytics_zoo_tpu_torch.ops.pallas.flash_attention")
 quantized = importlib.import_module(
     "analytics_zoo_tpu_torch.ops.pallas.quantized")
+cross_entropy = importlib.import_module(
+    "analytics_zoo_tpu_torch.ops.pallas.cross_entropy")
 
 LIBRARIES = {"flash_attention_fwd": flash_attention.LIBRARY,
              "flash_attention_bwd": flash_attention.LIBRARY_BWD,
+             "fused_cross_entropy": cross_entropy.LIBRARY,
              "quantized": quantized.LIBRARY}
 
 
@@ -32,7 +35,7 @@ def _copy(lib, tmp_path):
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))
 def test_library_path_follows_the_shared_header(name, tmp_path):
-    """K2, K3a/K3b and K6 include ``hopper.cuh``: editing a copy of it
+    """K2, K3a/K3b, K5a and K6 include ``hopper.cuh``: editing a copy of it
     names a new library file, and the sources alone do not change."""
     lib, src = _copy(LIBRARIES[name], tmp_path)
     assert [h.name for h in cuda_build.included_headers(lib.sources, src)] \
@@ -219,6 +222,9 @@ def test_cpu_tensors_never_reach_the_stream_or_the_device_guard(
     inv = torch.tensor([0, 5, 2, 5], dtype=torch.int32)
     embedding.embed_expand(rows, inv)
     embedding.dedup_scatter_add(torch.randn(4, 4, generator=g), inv, 6)
+    key, order = torch.sort(inv.long(), stable=True)
+    embedding.dedup_scatter_add(torch.randn(4, 4, generator=g), inv, 6,
+                                order=order, sorted_slot=key)
     w = torch.randint(-127, 128, (16, 5), generator=g, dtype=torch.int8)
     s = torch.rand(5, generator=g) + 0.01
     for m in (3, 40):              # the skinny route's rows and the others'
@@ -264,3 +270,31 @@ def test_int8_plan_is_the_c_sides_and_asked_once_a_shape(monkeypatch):
             quantized._plan(8, 64, 64, 0, 3)
     finally:
         quantized._plan.cache_clear()
+
+
+def test_cpu_paths_of_sa_and_k5a_count_no_launch_and_report_no_route():
+    """SA with the forward's sort and K5a on CPU tensors run their plain
+    versions: no launch is counted and K5a's route report (its counters
+    by route, ``LAST_DH_LAUNCH``) stays as it was."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas import embedding
+    g = torch.Generator().manual_seed(1)
+    inv = torch.tensor([1, 0, 1], dtype=torch.int32)
+    key, order = torch.sort(inv.long(), stable=True)
+    sa = embedding.KERNEL_SCATTER_ADD.launches
+    embedding.dedup_scatter_add(torch.randn(3, 2, generator=g), inv, 2,
+                                order=order, sorted_slot=key)
+    assert embedding.KERNEL_SCATTER_ADD.launches == sa
+    routes = {k: c.launches
+              for k, c in cross_entropy.KERNEL_CE_BWD_DH_ROUTES.items()}
+    last = cross_entropy.LAST_DH_LAUNCH.route
+    h = torch.randn(5, 16, generator=g).bfloat16()
+    w = torch.randn(16, 24, generator=g).bfloat16()
+    labels = torch.tensor([0, 3, 23, -1, 4], dtype=torch.int32)
+    lse, _ = cross_entropy.fused_ce_forward(h, w, None, labels)
+    cross_entropy.fused_ce_backward_dh(h, w, None, labels, lse,
+                                       torch.ones(5))
+    assert {k: c.launches for k, c in
+            cross_entropy.KERNEL_CE_BWD_DH_ROUTES.items()} == routes
+    assert cross_entropy.LAST_DH_LAUNCH.route == last

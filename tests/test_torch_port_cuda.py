@@ -13,7 +13,8 @@ summation order), bf16 2e-2 (P and dS are rounded to bf16 at the same
 points in both versions, but a value that the two f32 sums leave on
 either side of a rounding boundary moves by one bf16 step, 2^-8).
 The embedding kernels are held bit for bit: K1 against ``rows[inv]``, SA
-against its plain version on the CPU (position-order sums) and itself.
+against its plain version on the CPU (position-order sums) and itself,
+both standalone and through the dedup'd lookup's forward sort.
 """
 
 import numpy as np
@@ -467,6 +468,86 @@ def test_lm_with_hidden_100_fits_through_the_ce_kernels(cuda, dtype):
                                    rtol=0)
 
 
+def _ce_dh_case(v, bias, dh_dtype, special, hidden=512, n=4100, seed=5):
+    """One case of K5a's wgmma route: h (n, hidden), w (hidden, v) bf16,
+    labels with every third row masked; ``bias100`` puts a bias of 100 on
+    column 3, ``over_range`` gives three rows labels past V (NaN scale)."""
+    h, w, b, labels = _ce_inputs(n, hidden, v, torch.bfloat16, seed,
+                                 bias=bias)
+    bad = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if special == "bias100":
+        b[3] = 100.0
+    if special == "over_range":
+        bad[[7, 2000, n - 1]] = True
+        labels[bad] = torch.tensor([v, v + 1, 10 ** 6], dtype=torch.int32,
+                                   device="cuda")
+    scale = torch.where(labels >= 0, 1.0 / n, 0.0).float()
+    scale = torch.where(labels >= v, float("nan"), scale)
+    return h, w, b, labels, scale, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [8192, 8000])
+@pytest.mark.parametrize("dh_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias,special", [(True, ""), (False, ""),
+                                          (True, "bias100"),
+                                          (True, "over_range"),
+                                          (False, "over_range")])
+def test_ce_dh_wgmma_route_matches_plain_version(cuda, v, dh_dtype, bias,
+                                                 special):
+    """K5a on its wgmma route (N = 4100, H = 512, bf16, the ragged V = 8000
+    too) against its plain version at CE_TOL: masked rows exactly 0,
+    over-range labels poison exactly their dh rows, a bias of 100 holds
+    the tolerance, dh in bf16 and f32, the same bits twice."""
+    from analytics_zoo_tpu_torch.ops.pallas import cross_entropy as ce
+    h, w, b, labels, scale, bad = _ce_dh_case(v, bias, dh_dtype, special)
+    lse, _ = ce.fused_ce_forward(h, w, b, labels)
+    before = ce.KERNEL_CE_BWD_DH_ROUTES["wgmma"].launches
+    runs = [ce.fused_ce_backward_dh(h, w, b, labels, lse, scale, dh_dtype)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ce.KERNEL_CE_BWD_DH_ROUTES["wgmma"].launches == before + 2
+    assert ce.LAST_DH_LAUNCH.route == "wgmma"
+    dh = runs[0]
+    assert dh.dtype == dh_dtype and dh.shape == h.shape
+    assert torch.equal(runs[0].view(torch.uint8), runs[1].view(torch.uint8))
+    want = ce.fused_ce_backward_reference(h, w, b, labels, lse, scale,
+                                          dh_dtype)[0]
+    assert torch.all(dh[labels < 0] == 0)
+    assert torch.equal(torch.isnan(dh).any(dim=1), bad)
+    ok = ~bad
+    assert torch.isfinite(dh[ok]).all()
+    top = want[ok].float().abs().max().item()
+    err = (dh[ok].float() - want[ok].float()).abs().max().item()
+    assert err <= CE_TOL[torch.bfloat16]["grad"] * top, (err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hidden,v,route", [
+    (torch.bfloat16, 512, 8192, "wgmma"), (torch.bfloat16, 100, 1000,
+                                           "wgmma"),
+    (torch.bfloat16, 320, 8, "wgmma"), (torch.bfloat16, 512, 130, "mma"),
+    (torch.bfloat16, 768, 8192, "mma"), (torch.float32, 512, 8192, "fma")])
+def test_ce_dh_route_by_shape(cuda, dtype, hidden, v, route):
+    """K5a's C entry point reports the kernel it took: wgmma in bf16 where
+    TMA can address the operands (padded H <= 512, V % 8 == 0: the LM
+    shape), mma.sync at V = 130 and H = 768, FMAs in f32; each within
+    CE_TOL of the plain version."""
+    from analytics_zoo_tpu_torch.ops.pallas import cross_entropy as ce
+    h, w, b, labels = _ce_inputs(300, hidden, v, dtype, seed=hidden + v)
+    lse, _ = ce.fused_ce_forward(h, w, b, labels)
+    scale = torch.where(labels >= 0, 1.0 / 300, 0.0).float()
+    before = ce.KERNEL_CE_BWD_DH_ROUTES[route].launches
+    dh = ce.fused_ce_backward_dh(h, w, b, labels, lse, scale)
+    torch.cuda.synchronize()
+    assert ce.LAST_DH_LAUNCH.route == route
+    assert ce.KERNEL_CE_BWD_DH_ROUTES[route].launches == before + 1
+    want = ce.fused_ce_backward_reference(h, w, b, labels, lse, scale)[0]
+    top = want.float().abs().max().item()
+    err = (dh.float() - want.float()).abs().max().item()
+    assert err <= CE_TOL[dtype]["grad"] * top, (err, top)
+
+
 # --- K1 (embed_expand) and SA (dedup_scatter_add): bit for bit ---
 
 def _embed_counts():
@@ -548,6 +629,83 @@ def test_dedup_scatter_add_kernel_matches_cpu_bit_for_bit(cuda, dtype, d):
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32))
     assert torch.all(runs[0][97:] == 0)
+
+
+def _sa_case(case, n, d, dtype, seed):
+    """Ids of one SA case on the card and a seeded cotangent: ``ncf``
+    draws 3n/4 distinct values with repeats, ``all_equal`` repeats one id,
+    ``empty`` has no ids (n = 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    if case == "empty":
+        n = 0
+    hi = 1 if case == "all_equal" else max(3 * n // 4, 1)
+    ids = torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32) * 7
+    g = (torch.randn(n, d, generator=gen)
+         * 10.0 ** torch.randint(-3, 3, (n, 1), generator=gen)).to(dtype)
+    return ids.cuda(), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 20, 128, 130])
+@pytest.mark.parametrize("case", ["ncf", "all_equal", "empty"])
+@pytest.mark.parametrize("sorted_by", ["forward", "standalone"])
+def test_dedup_scatter_add_through_the_forward_sort(cuda, dtype, d, case,
+                                                    sorted_by):
+    """SA on the positions sorted by the dedup'd lookup's forward
+    (``order``/``sorted_slot`` from its unique), and standalone (the op
+    sorts ``inv`` itself): bit for bit the CPU's position-order sum, the
+    same bits twice, zeros in the slots past the unique count (the
+    capacity exceeds it), one launch counted per call."""
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        dedup_scatter_add, dedup_scatter_add_reference)
+    from analytics_zoo_tpu_torch.ops.sharded_embedding import (
+        _dedup_sort, dedup_capacity)
+    ids, g = _sa_case(case, 3000, d, dtype, seed=d)
+    cap = max(dedup_capacity(ids.shape[0], 10 ** 6), 8)
+    _, inv, order, slot = _dedup_sort(ids, cap, fill=10 ** 6)
+    kw = (dict(order=order, sorted_slot=slot) if sorted_by == "forward"
+          else {})
+    before = _embed_counts()[1]
+    runs = [dedup_scatter_add(g.to(cuda), inv, cap, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _embed_counts()[1] == before + 2
+    want = dedup_scatter_add_reference(g, inv.cpu(), cap)
+    n_unique = int(torch.unique(inv).numel())
+    assert cap > n_unique
+    for got in runs:
+        assert got.shape == (cap, d) and got.dtype == torch.float32
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    assert torch.all(runs[0][n_unique:] == 0)
+
+
+@pytest.mark.cuda
+def test_dedup_scatter_add_with_the_forward_sort_is_one_kernel(cuda):
+    """Given the forward's sort, SA launches one device kernel and nothing
+    else (no sort, no search, no cast; ``torch.profiler``); standalone it
+    sorts first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import \
+        dedup_scatter_add
+    from analytics_zoo_tpu_torch.ops.sharded_embedding import _dedup_sort
+    ids, g = _sa_case("ncf", 8192, 20, torch.float32, seed=3)
+    _, inv, order, slot = _dedup_sort(ids, 8192, fill=10 ** 6)
+    g = g.to(cuda)
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    one = kernels(lambda: dedup_scatter_add(g, inv, 8192, order=order,
+                                            sorted_slot=slot))
+    assert len(one) == 1 and "segment_sum_sorted" in one[0], one
+    assert len(kernels(lambda: dedup_scatter_add(g, inv, 8192))) > 1
 
 
 @pytest.mark.cuda

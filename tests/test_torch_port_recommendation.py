@@ -122,6 +122,89 @@ def test_fixed_size_unique_matches_jnp_unique(capacity):
                                   np.asarray(want_i).reshape(-1))
 
 
+@pytest.mark.parametrize("capacity", [16, 32, 4])
+def test_dedup_sort_hands_over_the_stable_sort_of_inv(capacity):
+    """``_dedup_sort`` gives ``_unique_ids``' uniq and inv bit for bit and
+    beside them the arrays SA reads: ``order`` and ``slot`` equal
+    ``torch.sort(inv, stable=True)``'s indices and values (int64)."""
+    ids = np.random.default_rng(capacity + 1).integers(0, 12, 23).astype(
+        np.int32)
+    t = torch.from_numpy(ids)
+    uniq, inv, order, slot = pse._dedup_sort(t, capacity, fill=12)
+    want_u, want_i = pse._unique_ids(t, capacity, fill=12)
+    assert torch.equal(uniq, want_u) and torch.equal(inv, want_i)
+    key, idx = torch.sort(inv.long(), stable=True)
+    assert order.dtype == torch.int64 and slot.dtype == torch.int64
+    assert torch.equal(order, idx) and torch.equal(slot, key)
+
+
+def test_dedup_lookup_backward_hands_sa_the_forward_sort(monkeypatch):
+    """The lookup's backward calls SA with the forward's ``order`` and
+    ``sorted_slot`` (the stable sort of inv by slot), and its gradient
+    still matches ``jax.vjp`` as in the test above."""
+    _both_contexts()
+    table, ids = _table_ids()
+    seen = []
+    real = pse.dedup_scatter_add
+
+    def record(g, inv, capacity, **kw):
+        seen.append((inv, kw))
+        return real(g, inv, capacity, **kw)
+    monkeypatch.setattr(pse, "dedup_scatter_add", record)
+    g = np.random.default_rng(2).normal(size=ids.shape + (16,)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda t: jse.dedup_embedding_lookup(
+        t, jnp.asarray(ids), use_pallas=True, interpret=True),
+        jnp.asarray(table))
+    (want_dw,) = vjp(jnp.asarray(g))
+    tt = torch.from_numpy(table).requires_grad_()
+    pse.dedup_embedding_lookup(tt, torch.from_numpy(ids)).backward(
+        torch.from_numpy(g))
+    (inv, kw), = seen
+    key, idx = torch.sort(inv.long(), stable=True)
+    assert torch.equal(kw["order"], idx) and torch.equal(kw["sorted_slot"],
+                                                         key)
+    want_dw = np.asarray(want_dw)
+    np.testing.assert_allclose(tt.grad.numpy(), want_dw, rtol=0,
+                               atol=1e-6 * np.abs(want_dw).max())
+
+
+def test_dedup_scatter_add_checks_the_sort_it_is_handed():
+    """On the CPU the handed sort leaves the plain version's result as it
+    is; ``order`` without ``sorted_slot``, or either of another shape or
+    dtype, is refused."""
+    g = torch.randn(5, 3)
+    inv = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32)
+    key, idx = torch.sort(inv.long(), stable=True)
+    want = dedup_scatter_add_reference(g, inv, 4)
+    assert torch.equal(dedup_scatter_add(g, inv, 4, order=idx,
+                                         sorted_slot=key), want)
+    with pytest.raises(ValueError, match="together"):
+        dedup_scatter_add(g, inv, 4, order=idx)
+    with pytest.raises(ValueError, match="int64"):
+        dedup_scatter_add(g, inv, 4, order=idx.int(), sorted_slot=key)
+    with pytest.raises(ValueError, match="int64"):
+        dedup_scatter_add(g, inv, 4, order=idx[:4], sorted_slot=key[:4])
+
+
+@pytest.mark.parametrize("wrong", ["unstable", "other_slots", "reversed"])
+def test_dedup_scatter_add_refuses_a_sort_that_is_not_invs(wrong):
+    """The kernel trusts the sort it is handed; on the CPU the op checks
+    that it is ``inv``'s stable sort, so a caller handing another one
+    fails here instead of summing other rows on the card."""
+    g = torch.randn(5, 3)
+    inv = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32)
+    key, idx = torch.sort(inv.long(), stable=True)   # idx 1 4 3 0 2
+    if wrong == "unstable":        # slot 0's positions out of order
+        idx = idx[[1, 0, 2, 3, 4]]
+    elif wrong == "other_slots":
+        key = key.clamp(max=1)
+    else:
+        key, idx = key.flip(0), idx.flip(0)
+    with pytest.raises(ValueError, match="stable sort of inv"):
+        dedup_scatter_add(g, inv, 4, order=idx, sorted_slot=key)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_embed_expand_plain_version_matches_jax_kernel(dtype):
     """K1's plain version against the interpret-mode Pallas kernel, D=24."""
