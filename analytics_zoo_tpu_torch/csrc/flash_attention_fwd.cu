@@ -212,14 +212,6 @@ constexpr int min_blocks() {
   return D == 128 ? 1 : 2;
 }
 
-// 2^x on the special-function unit (exp2f adds a range fix-up around
-// the same instruction; results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // dynamic shared memory: the two Q tiles, the K/V ring, its full and
 // empty barriers and Q's, the keep-mask bits of every key and the list of
 // visible key tiles; 1024 bytes of slack align the tiles

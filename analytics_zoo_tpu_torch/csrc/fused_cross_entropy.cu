@@ -1,5 +1,6 @@
-// Fused LM-head cross-entropy for Hopper (sm_90a): three kernels (K5a in
-// two forms), bound through plain C entry points and loaded with ctypes.
+// Fused LM-head cross-entropy for Hopper (sm_90a): three kernels, each in
+// a wgmma, an mma.sync and an FMA form, bound through plain C entry points
+// and loaded with ctypes.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas/cross_entropy.py, the Pallas
 // kernels _ce_fwd_kernel (K4, pl.pallas_call in fused_ce_forward at :325),
@@ -19,61 +20,68 @@
 //  * K5b accumulates dW = h^T dl (dl rounded as in K5a) in f32 and
 //    db = the column sum of the f32 dl, taken before the rounding.
 // All three sum every logit over k = 0..H-1 in 16-wide tensor-core steps
-// in the same order: K4, K5b and K5a's mma.sync route with one device
-// function, K5a's wgmma route with wgmma steps, whose dh matched the
-// mma.sync route's bit for bit at the LM shape on an H100 (so the logits
-// too). The backward thus re-forms the forward's p bit for bit. Scale is
-// 0 on masked rows and NaN on rows with an over-range label; nothing skips
-// a row, so a NaN row spreads into dh's row and every column of dW, as in
-// the XLA form.
+// in the same order: the mma.sync kernels with one device function, the
+// wgmma kernels with wgmma steps, which give the mma.sync steps' logits bit
+// for bit (K5a's dh, on an H100 at the LM shape). The backward thus
+// re-forms the forward's p bit for bit. Scale is 0 on masked rows and NaN
+// on rows with an over-range label; nothing skips a row, so a NaN row
+// spreads into dh's row and every column of dW, as in the XLA form.
 //
 // What bounds them on this card: at the LM path's shape (N=65,536, H=512,
 // V=8192, bf16) K4 does 2NHV and K5a/K5b 4NHV operations each against
 // O(NH + HV) bytes, thousands of operations per byte: the products bound
 // all three. Hence:
 //  * bf16 (the training path): every product runs on the tensor cores.
-//    K5a, where TMA can address its operands (the LM path), runs on wgmma
-//    with TMA-fed tiles (ce_bwd_dh_wgmma, below). K4, K5b and K5a's other
-//    shapes use mma.sync m16n8k16 (bf16 in, f32 accumulate): operands that
-//    the fragment wants in the other orientation (W for the logits, h^T
-//    and dl for dW) are read from row-major shared-memory tiles with
+//    Where TMA can address the operands (padded H <= 512, V % 8 == 0, h and
+//    w 16-byte aligned: the LM path) all three run on wgmma with TMA-fed
+//    tiles (ce_fwd_wgmma, ce_bwd_dh_wgmma, ce_bwd_dw_wgmma, below); each
+//    C entry point reports the kernel it took. The other bf16 shapes use
+//    mma.sync m16n8k16 (bf16 in, f32 accumulate): operands that the
+//    fragment wants in the other orientation (W for the logits, h^T and dl
+//    for dW) are read from row-major shared-memory tiles with
 //    ldmatrix.trans, so no tile is stored transposed.
 //  * f32: plain FMAs on the CUDA cores (TF32 would round the operands to
 //    10 mantissa bits, outside the f32 contract).
+// On the wgmma routes at the LM shape (times on an H100 in PERF.md, phases
+// by scripts/ce_breakdown.py): K4 is bound by its logits products (m64n256
+// steps, two warpgroups sharing each W stage) and by its tile epilogue,
+// which the products do not overlap; K5a and K5b by their m64n32 logits,
+// whose shared-memory reads outrun the tensor cores, and by streaming W
+// (K5a) or h (K5b) through L2 once a block. Each kernel's note names the
+// designs tried and dropped.
 //
 // Design: on the TPU each kernel walks a sequential grid and carries its
 // accumulator in VMEM scratch. Here blocks run in no order, so each output
-// is owned by one block that loops itself:
+// is owned by one block that loops itself. The wgmma kernels are described
+// at each kernel; the mma.sync ones:
 //  * K4: a block owns 64 rows and loops over 32-column vocab tiles; each
 //    warp holds 16 rows' running max, denominator and label logit in
 //    registers (the flash-forward scheme).
-//  * K5a, wgmma route: see ce_bwd_dh_wgmma. mma.sync route: a block owns
-//    32 rows and loops over 64-column vocab tiles. The logits tile becomes
-//    a bf16 dl tile in shared memory; then each of 8 warps accumulates a
-//    16-row by H/4 slice of dh in registers (at most 128 f32 per thread at
-//    H=1024).
+//  * K5a: a block owns 32 rows and loops over 64-column vocab tiles. The
+//    logits tile becomes a bf16 dl tile in shared memory; then each of 8
+//    warps accumulates a 16-row by H/4 slice of dh in registers (at most
+//    128 f32 per thread at H=1024).
 //  * K5b: a block owns 32 vocab columns of dW/db and loops over all rows in
 //    64-row tiles; each of 8 warps carries an H/4 by 16 slice of dW in
-//    registers (64 f32 per thread at H=512, 128 at H=1024). At V=8192 that
-//    is 256 blocks for 132 SMs. The other choice, a split of the row loop
-//    into groups whose partial dW a second kernel sums, buys parallelism
-//    only for small V and costs an extra (H,V) f32 pass; it is not needed
-//    on the main path.
+//    registers (64 f32 per thread at H=512, 128 at H=1024). The other
+//    choice, a split of the row loop into groups whose partial dW a second
+//    kernel sums, buys parallelism only for small V and costs an extra
+//    (H,V) f32 pass; it is not needed on the main path.
 // Any hidden width: H must be a multiple of 64 (the wrapper pads h's
 // columns and w's rows with zeros, which add exact zeros to every logit).
-// H is cut into S = ceil(H / 1024) slices of KS <= 1024 columns
-// (slice_width). K4 stages h and W one slice at a time through shared
-// memory and carries each logits tile across the slices. K5a and K5b gain
-// a grid dimension over the slices of dh or dW: each block re-forms its p
-// tile over the full H, slice by slice, and carries only its own slice of
-// dh or dW, so the shared memory and the register carry stay those of
-// H = KS. With S = 1 (H <= 1024) the SLICED template flag is false and
-// each kernel compiles to a single pass that stages h (K4, K5a) or W (K5b)
-// once (a slice loop there cost K5b 16% at the LM shape on an H100).
-// The k order of every logit is 0..H-1 in all three kernels whatever S is.
+// In the mma.sync kernels H is cut into S = ceil(H / 1024) slices of KS <=
+// 1024 columns (slice_width). K4 stages h and W one slice at a time through
+// shared memory and carries each logits tile across the slices. K5a and
+// K5b gain a grid dimension over the slices of dh or dW: each block
+// re-forms its p tile over the full H, slice by slice, and carries only its
+// own slice of dh or dW, so the shared memory and the register carry stay
+// those of H = KS. With S = 1 (H <= 1024) the SLICED template flag is false
+// and each kernel compiles to a single pass that stages h (K4, K5a) or W
+// (K5b) once (a slice loop there cost K5b 16% at the LM shape on an H100).
+// The k order of every logit is 0..H-1 in all kernels whatever S is.
 // No float atomics anywhere: every output element is written by exactly
-// one thread, summed in a fixed order (db over the four row warps in a
-// fixed order too), so dh, dW and db are the same bits from run to run.
+// one thread, summed in a fixed order (db over the row warps in a fixed
+// order too), so dh, dW and db are the same bits from run to run.
 
 #include <math.h>
 #include <stdint.h>
@@ -110,6 +118,33 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// Dense's rounding of two adjacent logits at once: bf16(bf16(acc) + bf16(b))
+// for both halves of bf16x2 words (a, b the rounded values). One bf16x2
+// fma by 1.0 rounds the exact sum once, which is what the f32 add and its
+// rounding give: two bf16 values whose exponents differ by at most 15 add
+// exactly in f32, and further apart the smaller lies under half an ulp of
+// the larger either way.
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(0x3F803F80u),
+      "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// the lower and the upper half of a bf16x2 word as f32
+__device__ __forceinline__ float lo_bf16(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
 }
 
 // four 8x8 b16 matrices, transposed on the way: lanes 8j..8j+7 give the
@@ -327,6 +362,262 @@ __global__ void __launch_bounds__(F_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// K4, bf16 on wgmma: H <= 512 (padded), V % 8 == 0, h and w 16-byte aligned
+// (what TMA can address; the LM path). A block owns 128 rows, 64 a
+// warpgroup, and walks the vocab in 256-column tiles.
+//  * The h tile is loaded once by TMA (H / 64 boxes of 64 x 64 a
+//    warpgroup, the K-major A operand). W streams through a 5-stage ring
+//    of 32 rows x 256 columns (four 64-column boxes in the 128-byte
+//    swizzle, 16 KB) on mbarriers, one vocab tile after another in k
+//    order; both warpgroups read every stage.
+//  * Warpgroup wg forms its rows' 64 x 256 logits tile on wgmma m64n256k16
+//    (B the W stage read MN-major: no transposed copy), k = 0..H-1 in
+//    16-wide steps in order (the steps K5a's and K5b's m64n32 logits take:
+//    the same bits). Each stage's wgmma group is committed on its own and
+//    waited for one stage later, so two are in flight; then a block
+//    barrier, and thread 0 refills the stage. Its copies are predicated
+//    instructions, not a branch: ptxas serialises every wgmma of a kernel
+//    whose in-flight groups cross a divergent path.
+//  * The epilogue of a tile works in registers: Dense's roundings two
+//    columns at a time on bf16x2 words (add_bf16x2: the same bits as the
+//    f32 form), the running max, the denominator on ex2 of a
+//    log2e-prescaled difference, both over four interleaved partials; the
+//    label logit is picked by the one thread whose columns hold it. Only
+//    the last tile of a ragged V tests columns. Each row's state lives in
+//    the four threads of its quad and is summed by a fixed butterfly at
+//    the end; no logits tile reaches device memory.
+// Bound at the LM shape: the logits products (0.56 ms of bf16 tensor
+// time); the m64n256 instruction reads 10 KB of shared memory for 128
+// tensor cycles, under shared memory's 128 bytes a cycle, where K5a's
+// m64n32 logits read 3 KB for 16. Each block streams all of W from L2 (4.3
+// GB a call at the LM shape), and the tiles' epilogues do not overlap the
+// products: two warps an SM quarter hide little latency, which is why the
+// epilogue packs its arithmetic. Designs tried on an H100 and dropped
+// (scripts/ce_breakdown.py and throwaway probes): thread 0 waiting
+// on an empty mbarrier of both warpgroups inside the stage loop (the
+// wgmmas were serialised, C7520, and the logits took much longer);
+// 128-column tiles alternating between the warpgroups with a producer warp
+// (ping-pong: 288 threads hold ptxas to 168 registers, which spilled, and
+// the arrivals still serialised the wgmmas); the epilogue in f32, one
+// element at a time; a write-only first step of each tile (to free the
+// accumulator registers across the epilogue: the compiler then spilled
+// more and the epilogue slowed down).
+// ---------------------------------------------------------------------------
+
+constexpr int Y_BN = 128, Y_BV = 256, Y_KC = 32, Y_STAGES = 5;
+constexpr int Y_THREADS = 256;  // two warpgroups
+constexpr uint32_t Y_STAGE_BYTES = Y_KC * Y_BV * 2;
+
+constexpr size_t fwd_wgmma_smem(int H) {
+  return 1024 + (size_t)H * 256 + Y_STAGES * Y_STAGE_BYTES +
+         2 * Y_BV * sizeof(float) + 8 * (1 + Y_STAGES);
+}
+
+template <int H>
+__global__ void __launch_bounds__(Y_THREADS, 1)
+    ce_fwd_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const float* __restrict__ b, const int* __restrict__ labels,
+                 float* __restrict__ lse, float* __restrict__ ll, int N,
+                 int V) {
+  constexpr int S = Y_STAGES;
+  constexpr int KCH = H / Y_KC;                // ring stages a vocab tile
+  constexpr uint32_t H_TILE = H * 128;         // one warpgroup's 64 rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sH = base;                    // warpgroup wg: + wg H_TILE
+  const uint32_t sW = sH + 2 * H_TILE;         // stage s: + s Y_STAGE_BYTES
+  const uint32_t sBias = sW + S * Y_STAGE_BYTES;  // tile i: + (i & 1) 1 KB
+  const uint32_t full = sBias + 2 * Y_BV * sizeof(float);
+  const uint32_t hbar = full + 8 * S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);  // rows r0, r0 + 8
+  const int nb = blockIdx.x * Y_BN;
+  const int n0 = nb + 64 * wg;                    // this warpgroup's rows
+  const int nv = (V + Y_BV - 1) / Y_BV;
+  const int nq = nv * KCH;                        // ring stages in all
+  // stage q: W rows (q % KCH) KC .., columns (q / KCH) 256 .., issued by
+  // the threads for which `pred` holds (thread 0; predicated, so the
+  // wgmmas in flight around it are not serialised); boxes that lie wholly
+  // past V are not loaded (their columns are masked)
+  auto load_w = [&](bool pred, int q) {
+    const int s = q % S;
+    const int v0 = (q / KCH) * Y_BV, k0 = (q % KCH) * Y_KC;
+    const int boxes = min(Y_BV / 64, (V - v0 + 63) / 64);
+    mbar_expect_if(pred, full + 8 * s, boxes * Y_KC * 128);
+#pragma unroll
+    for (int a = 0; a < Y_BV / 64; ++a)
+      tma_2d_if(pred && a < boxes, sW + s * Y_STAGE_BYTES + a * Y_KC * 128,
+                &tm_w, full + 8 * s, v0 + 64 * a, k0);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s);
+    mbar_init(hbar);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the second warpgroup's rows only where some lie below N (a box wholly
+    // past N is not loaded; those rows are never written)
+    const int tiles = nb + 64 < N ? 2 : 1;
+    mbar_expect(hbar, tiles * H_TILE);
+    for (int w2 = 0; w2 < tiles; ++w2)
+#pragma unroll
+      for (int c = 0; c < H / 64; ++c)
+        tma_2d(sH + w2 * H_TILE + c * Tile<64>::BYTES, &tm_h, hbar, 64 * c,
+               nb + 64 * w2);
+    for (int q = 0; q < S && q < nq; ++q) load_w(true, q);
+  }
+  __syncwarp();
+
+  int lab[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = n0 + r0 + 8 * hh;
+    lab[hh] = r < N ? labels[r] : -1;
+    if (lab[hh] >= V) lab[hh] = -1;  // an over-range label hits no column
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+  float acc[128];
+  const uint32_t h_tile = sH + wg * H_TILE;
+  uint32_t* bias_base = reinterpret_cast<uint32_t*>(
+      smem_raw + (sBias - raw));
+
+  // stage q has been read by both warpgroups' wgmmas once every thread is
+  // past its wait for them: thread 0 refills it with stage q + S
+  auto refill = [&](int q) {
+    __syncthreads();
+    load_w(tid == 0 && q + S < nq, q + S);
+  };
+
+  mbar_wait(hbar, 0);
+  for (int i = 0; i < nv; ++i) {
+    const int v0 = i * Y_BV;
+    // this tile's bias, rounded, as bf16x2 words of column pairs (read
+    // after the barriers below; tile i + 2 reuses the buffer after tile i +
+    // 1's)
+    if (tid < Y_BV / 2) {
+      const int col = v0 + 2 * tid;
+      float pair[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        pair[e] = (b != nullptr && col + e < V) ? b[col + e] : 0.f;
+      bias_base[(i & 1) * (Y_BV / 2) + tid] = pack_bf16(pair[0], pair[1]);
+    }
+    wgmma_fence();
+    for (int c = 0; c < KCH; ++c) {
+      const int q = i * KCH + c, s = q % S;
+      mbar_wait(full + 8 * s, (q / S) & 1);
+      const uint32_t stage = sW + s * Y_STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < Y_KC / 16; ++kk)
+        wgmma_ss256<0, 1>(acc, desc_k<H>(h_tile, c * (Y_KC / 16) + kk),
+                          smem_desc(stage + 16 * kk * 128, Y_KC * 128, 1024,
+                                    1),
+                          c > 0 || kk > 0);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();  // stage q - 1's group is done
+        refill(q - 1);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    refill(i * KCH + KCH - 1);  // its barrier also publishes the bias tile
+
+    // register 4j + e: row r0 + 8 (e >> 1), tile column 8j + 2t + (e & 1).
+    // The rounded logits of columns 8j + 2t and + 1 go back into register
+    // 4j + 2 (e >> 1) as a bf16x2 word; row maxima and sums are carried in
+    // four interleaved partials (short dependence chains: two warps an SM
+    // quarter hide little latency) and summed in a fixed order.
+    const uint32_t* sb = bias_base + (i & 1) * (Y_BV / 2);
+    auto finish = [&](auto ragged_tile) {
+      constexpr bool RAGGED = decltype(ragged_tile)::value;
+      uint32_t mx4[2][4];
+#pragma unroll
+      for (int j = 0; j < Y_BV / 8; ++j) {
+        const uint32_t bias = sb[4 * j + t];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          uint32_t x = add_bf16x2(
+              pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]), bias);
+          if (RAGGED) {  // columns past V: -inf
+            const int col = v0 + 8 * j + 2 * t;
+            if (col >= V) x = (x & 0xFFFF0000u) | 0xFF80u;
+            if (col + 1 >= V) x = (x & 0xFFFFu) | 0xFF800000u;
+          }
+          acc[4 * j + 2 * hh] = __uint_as_float(x);
+          mx4[hh][j & 3] = j < 4 ? x : max_bf16x2(mx4[hh][j & 3], x);
+        }
+      }
+      float msc[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t m2 = max_bf16x2(max_bf16x2(mx4[hh][0], mx4[hh][1]),
+                                       max_bf16x2(mx4[hh][2], mx4[hh][3]));
+        float mx = fmaxf(lo_bf16(m2), hi_bf16(m2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        l[hh] *= m[hh] == -INFINITY ? 0.f : ex2((m[hh] - m_safe) * LOG2E);
+        m[hh] = m_new;
+        msc[hh] = m_safe * LOG2E;
+      }
+      float ls[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < Y_BV / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {  // masked columns: ex2(-inf) = 0
+          const uint32_t x = __float_as_uint(acc[4 * j + 2 * hh]);
+          ls[hh][j & 3] += ex2(fmaf(lo_bf16(x), LOG2E, -msc[hh]));
+          ls[hh][j & 3] += ex2(fmaf(hi_bf16(x), LOG2E, -msc[hh]));
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        l[hh] += (ls[hh][0] + ls[hh][1]) + (ls[hh][2] + ls[hh][3]);
+      // the label's logit: only the thread whose columns hold it looks
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lc = lab[hh] - v0 - 2 * t;
+        if (lc >= 0 && lc < Y_BV && (lc & 6) == 0) {
+#pragma unroll
+          for (int j = 0; j < Y_BV / 8; ++j)
+            if (lc >> 3 == j) {
+              const uint32_t x = __float_as_uint(acc[4 * j + 2 * hh]);
+              a[hh] += (lc & 1) ? hi_bf16(x) : lo_bf16(x);
+            }
+        }
+      }
+    };
+    if (v0 + Y_BV <= V)
+      finish(std::false_type{});
+    else
+      finish(std::true_type{});
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float ls = l[hh], as = a[hh];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    as += __shfl_xor_sync(0xffffffffu, as, 1);
+    as += __shfl_xor_sync(0xffffffffu, as, 2);
+    const int r = n0 + r0 + 8 * hh;
+    if (t == 0 && r < N) {
+      lse[r] = m[hh] + logf(ls == 0.f ? 1.f : ls);
+      ll[r] = as;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K5a, bf16: 32 rows per block, 8 warps, 64-column vocab tiles; grid y is
 // the H slice of dh the block writes. Logits: warp (w & 1) takes rows
 // 16 (w & 1), columns 16 (w >> 1). dh: warp takes rows 16 (w & 1) and
@@ -482,7 +773,7 @@ __global__ void __launch_bounds__(A_THREADS)
 //    once in dh's dtype. Two warpgroups at one block an SM leave each
 //    thread 255 registers.
 // Where its time goes at the LM shape (65,536 x 512 x 8192) is measured by
-// scripts/ce_dh_breakdown.py: the logits, whose shared-memory reads (192
+// scripts/ce_breakdown.py: the logits, whose shared-memory reads (192
 // KB a tile) bound them, take the most. Designs tried on an H100 and
 // dropped as slower: a producer warp or warpgroup beside the two (the
 // compiler then held every thread to 168 registers, setmaxnreg
@@ -852,6 +1143,251 @@ __global__ void __launch_bounds__(B_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// K5b, bf16 on wgmma: the shapes of K5a's wgmma route. K5a's kernel with
+// the roles of h and W swapped: a block owns 64 vocab columns and all of
+// H, and walks the rows in 64-row tiles with two warpgroups.
+//  * The W tile (H rows x 64 columns, 128 bytes a row in the 128-byte
+//    swizzle) is loaded once by TMA; h tiles (H / 64 boxes of 64 x 64, the
+//    K-major A operand) stream through a 2-stage ring on mbarriers. Thread
+//    0 issues every copy: the first two tiles up front, then tile i + 2 as
+//    soon as both warpgroups have released tile i's stage.
+//  * Warpgroup wg forms the logits of tile columns 32 wg .. + 31 exactly
+//    as K5a does (m64n32k16 x H / 16, A the h tile, B the W tile read
+//    MN-major: the same bits), then dl = (p - onehot) * scale with K5a's
+//    roundings into a 64 x 64 bf16 dl tile in shared memory (128-byte
+//    swizzle, two buffers), and adds the f32 dl to its columns' db.
+//  * Behind a barrier over both warpgroups each adds its chunks of H to
+//    the dW carry over the tile's 64 rows: dW^T[64 columns, H chunk] +=
+//    dl^T h, A the dl tile and B the same h tile, both read MN-major (no
+//    transposed copy); m64n256k16 at H = 512, else m64n64k16 a 64-column
+//    chunk.
+//  * The carry (64 x H/2 f32 a warpgroup, 128 registers a thread at H =
+//    512) stays in registers over the whole row loop; rows are summed in
+//    ascending order, db by a fixed butterfly and then the warps in order.
+//    dW and db are written once, with no atomics.
+// Bound at the LM shape: the products (1.11 ms of bf16 tensor time); the
+// m64n32 logits read 3 KB of shared memory for 16 tensor cycles, above the
+// 128 bytes a cycle shared memory gives, and each block streams all of h
+// from L2 (8.6 GB a call).
+// ---------------------------------------------------------------------------
+
+template <int H>
+__global__ void __launch_bounds__(X_THREADS, 1)
+    ce_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                    const __grid_constant__ CUtensorMap tm_w,
+                    const float* __restrict__ b, const int* __restrict__ labels,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ scale, float* __restrict__ dw,
+                    float* __restrict__ db, int N, int V) {
+  constexpr int S = X_STAGES;
+  constexpr uint32_t TILE_BYTES = H * 128;  // the W tile, an h tile
+  constexpr int C = H / 64;                 // 64-column chunks of H
+  constexpr int C0 = (C + 1) / 2;           // warpgroup 0's chunks (the more)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float sDB[8][32];  // each warp's column sums of db
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sW = base;
+  const uint32_t sH = sW + TILE_BYTES;        // stage s: + s TILE_BYTES
+  const uint32_t sDL = sH + S * TILE_BYTES;   // dl tile i % 2
+  const uint32_t full = sDL + 2 * X_DL_BYTES; // stage s's h landed
+  const uint32_t empty = full + 8 * S;        // both warpgroups done
+  const uint32_t wbar = empty + 8 * S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + g;  // this thread's rows: r0, r0 + 8
+  const int v0 = blockIdx.x * X_BV;
+  const int nt = (N + X_BN - 1) / X_BN;
+  auto load_h = [&](int i) {  // row tile i into its stage
+    const int s = i % S;
+    mbar_expect(full + 8 * s, TILE_BYTES);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      tma_2d(sH + s * TILE_BYTES + c * Tile<64>::BYTES, &tm_h, full + 8 * s,
+             64 * c, i * X_BN);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s);
+      mbar_init(empty + 8 * s, 8);  // every warp
+    }
+    mbar_init(wbar);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(wbar, TILE_BYTES);
+    for (int r = 0; r < H; r += dh_box_rows(H))
+      tma_2d(sW + r * 128, &tm_w, wbar, v0, r);
+    for (int i = 0; i < S && i < nt; ++i) load_h(i);
+  }
+  __syncwarp();
+
+  // this thread's columns 32 wg + 8j + 2t + e: their rounded bias, and
+  // their db over this thread's rows
+  float bias[4][2], dbp[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = v0 + 32 * wg + 8 * j + 2 * t + e;
+      bias[j][e] = (b != nullptr && col < V) ? round_bf16(b[col]) : 0.f;
+      dbp[j][e] = 0.f;
+    }
+  // this warpgroup's chunks of H: [c_lo, c_lo + nc)
+  const int c_lo = wg == 0 ? 0 : C0, nc = wg == 0 ? C0 : C - C0;
+  float acc[C0 * 32];
+#pragma unroll
+  for (int j = 0; j < C0 * 32; ++j) acc[j] = 0.f;
+  unsigned char* dl_base = smem_raw + (sDL - raw);
+  const bool ragged = v0 + X_BV > V;
+
+  mbar_wait(wbar, 0);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % S;
+    const uint32_t h_tile = sH + s * TILE_BYTES;
+    // the tile's rows (pad rows: lse = +inf, so every p is exactly 0, and
+    // scale 0)
+    int lab[2];
+    float row_lse[2], row_scale[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = i * X_BN + r0 + 8 * hh;
+      const bool in = r < N;
+      lab[hh] = in ? labels[r] : -1;
+      row_lse[hh] = in ? lse[r] : INFINITY;
+      row_scale[hh] = in ? scale[r] : 0.f;
+    }
+    mbar_wait(full + 8 * s, (i / S) & 1);
+    // S = h_tile W over this warpgroup's 32 columns
+    float sc[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk)
+      wgmma_ss32<1>(sc, 0, desc_k<H>(h_tile, kk),
+                    desc_mn<64>(sW + 64 * wg, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // dl, rounded to bf16, into this tile's dl buffer, as K5a forms it:
+    // register 4j + e is row r0 + 8 (e >> 1), tile column 32 wg + 8j + 2t
+    // + (e & 1). Only a ragged V's last block tests its columns.
+    unsigned char* dlb = dl_base + (i & 1) * X_DL_BYTES;
+    auto form_dl = [&](auto ragged_tile) {
+      constexpr bool RAGGED = decltype(ragged_tile)::value;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = 32 * wg + 8 * j + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = v0 + cl + e;
+            float p = 0.f, oh = 0.f;
+            if (!RAGGED || col < V) {
+              const float x =
+                  round_bf16(round_bf16(sc[4 * j + 2 * hh + e]) + bias[j][e]);
+              p = expf(x - row_lse[hh]);
+              oh = col == lab[hh] ? 1.f : 0.f;
+            }
+            d[e] = (p - oh) * row_scale[hh];
+            dbp[j][e] += d[e];
+          }
+          // the 128-byte swizzle: 16-byte chunk c / 8 of row r lies at
+          // chunk (c / 8) ^ (r % 8)
+          const int r = r0 + 8 * hh;
+          *reinterpret_cast<uint32_t*>(
+              dlb + r * 128 + (((cl >> 3) ^ (r & 7)) << 4) + (cl & 7) * 2) =
+              pack_bf16(d[0], d[1]);
+        }
+      }
+    };
+    if (!ragged)
+      form_dl(std::false_type{});
+    else
+      form_dl(std::true_type{});
+    fence_proxy_async();
+    __syncthreads();  // both warpgroups' halves of dl are written
+
+    // dW^T[64 columns, this warpgroup's chunks] += dl^T h_tile: A the dl
+    // tile and B the h tile's chunks, both MN-major
+    const uint32_t dl_tile = sDL + (i & 1) * X_DL_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < X_BN / 16; ++kk) {
+      if constexpr (H == 512) {
+        wgmma_ss256<1, 1>(acc, desc_mn<64>(dl_tile, kk),
+                          desc_mn<256>(h_tile + wg * 4 * Tile<64>::BYTES,
+                                       kk));
+      } else {
+        // every warpgroup issues C0 products (no branch around a wgmma);
+        // with an odd C, warpgroup 1's last one repeats its last chunk
+        // into a piece of the carry that is never written
+#pragma unroll
+        for (int p = 0; p < C0; ++p)
+          wgmma_ss64<1, 1>(
+              *reinterpret_cast<float(*)[32]>(acc + 32 * p),
+              desc_mn<64>(dl_tile, kk),
+              desc_mn<64>(h_tile + min(c_lo + p, C - 1) * Tile<64>::BYTES,
+                          kk),
+              1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    // release the stage; thread 0 refills it with tile i + 2 once both
+    // warpgroups have
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (tid == 0 && i + S < nt) {
+      mbar_wait(empty + 8 * s, (i / S) & 1);
+      load_h(i + S);
+    }
+    __syncwarp();
+  }
+
+  // db: the 8 row groups of a warp by a fixed butterfly, then the four
+  // warps of the column's warpgroup in order
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = dbp[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) sDB[warp][8 * j + 2 * t + e] = v;
+    }
+  __syncthreads();
+  if (db != nullptr && tid < X_BV && v0 + tid < V) {
+    const int w0 = 4 * (tid >> 5), c = tid & 31;
+    db[v0 + tid] =
+        ((sDB[w0][c] + sDB[w0 + 1][c]) + sDB[w0 + 2][c]) + sDB[w0 + 3][c];
+  }
+
+  // register 4j + e: vocab column v0 + 16 (warp & 3) + g + 8 (e >> 1),
+  // dW row 64 c_lo + 8j + 2t + (e & 1)
+#pragma unroll
+  for (int j = 0; j < C0 * 8; ++j) {
+    if (j >= nc * 8) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = v0 + 16 * (warp & 3) + g + 8 * (e >> 1);
+      if (col < V)
+        dw[(size_t)(64 * c_lo + 8 * j + 2 * t + (e & 1)) * V + col] =
+            acc[4 * j + e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA-core FMAs. Every logit is one fmaf chain over k = 0..H-1 from
 // 0, the same in all three kernels, so p is re-formed bit for bit.
 // ---------------------------------------------------------------------------
@@ -1132,8 +1668,8 @@ int slice_width(int H) {
   return 64 * ((m + S - 1) / S);
 }
 
-// the dh kernel each shape takes (reported to the caller)
-enum DhRoute { DH_WGMMA = 0, DH_MMA = 1, DH_FMA = 2 };
+// the kernel each shape takes (reported to the caller)
+enum Route { ROUTE_WGMMA = 0, ROUTE_MMA = 1, ROUTE_FMA = 2 };
 
 // host: h (N, H) bf16 as 64 x 64 boxes, w (H, V) bf16 as boxes of 64
 // columns x `rows` rows, both in the 128-byte swizzle; zeros past N and V
@@ -1155,6 +1691,42 @@ bool encode_ce_w(CUtensorMap* map, const void* w, int H, int V, int rows) {
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
+// calls f(std::integral_constant<int, H>{}) for a padded H <= 512 (the
+// wgmma kernels' template argument)
+template <typename F>
+cudaError_t with_hidden(int H, F&& f) {
+  switch (H) {
+#define CE_HIDDEN_CASE(HH) \
+  case HH:                 \
+    return f(std::integral_constant<int, HH>{});
+    CE_HIDDEN_CASE(64)
+    CE_HIDDEN_CASE(128)
+    CE_HIDDEN_CASE(192)
+    CE_HIDDEN_CASE(256)
+    CE_HIDDEN_CASE(320)
+    CE_HIDDEN_CASE(384)
+    CE_HIDDEN_CASE(448)
+    CE_HIDDEN_CASE(512)
+#undef CE_HIDDEN_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int H>
+cudaError_t launch_fwd_wgmma(const void* h, const void* w, const float* b,
+                             const int* labels, float* lse, float* ll, int N,
+                             int V, cudaStream_t stream) {
+  CUtensorMap mh, mw;
+  if (!encode_ce_h(&mh, h, N, H) || !encode_ce_w(&mw, w, H, V, Y_KC))
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_wgmma_smem(H);
+  cudaError_t err = set_smem(ce_fwd_wgmma<H>, smem);
+  if (err != cudaSuccess) return err;
+  ce_fwd_wgmma<H><<<blocks(N, Y_BN), Y_THREADS, smem, stream>>>(
+      mh, mw, b, labels, lse, ll, N, V);
+  return cudaGetLastError();
+}
+
 template <int H>
 cudaError_t launch_dh_wgmma(const void* h, const void* w, const float* b,
                             const int* labels, const float* lse,
@@ -1172,32 +1744,30 @@ cudaError_t launch_dh_wgmma(const void* h, const void* w, const float* b,
   return cudaGetLastError();
 }
 
-// the wgmma kernel for a padded H <= 512
-cudaError_t launch_dh_wgmma_any(int H, const void* h, const void* w,
-                                const float* b, const int* labels,
-                                const float* lse, const float* scale,
-                                void* dh, int dh_bf16, int N, int V,
-                                cudaStream_t stream) {
-  switch (H) {
-#define DH_WGMMA_CASE(HH)                                                 \
-  case HH:                                                                \
-    return launch_dh_wgmma<HH>(h, w, b, labels, lse, scale, dh, dh_bf16, N, \
-                               V, stream);
-    DH_WGMMA_CASE(64)
-    DH_WGMMA_CASE(128)
-    DH_WGMMA_CASE(192)
-    DH_WGMMA_CASE(256)
-    DH_WGMMA_CASE(320)
-    DH_WGMMA_CASE(384)
-    DH_WGMMA_CASE(448)
-    DH_WGMMA_CASE(512)
-#undef DH_WGMMA_CASE
-  }
-  return cudaErrorInvalidValue;
+template <int H>
+cudaError_t launch_dw_wgmma(const void* h, const void* w, const float* b,
+                            const int* labels, const float* lse,
+                            const float* scale, float* dw, float* db, int N,
+                            int V, cudaStream_t stream) {
+  CUtensorMap mh, mw;
+  if (!encode_ce_h(&mh, h, N, H) ||
+      !encode_ce_w(&mw, w, H, V, dh_box_rows(H)))
+    return cudaErrorInvalidValue;
+  const size_t smem = dh_wgmma_smem(H);  // the same tiles as K5a's
+  cudaError_t err = set_smem(ce_bwd_dw_wgmma<H>, smem);
+  if (err != cudaSuccess) return err;
+  ce_bwd_dw_wgmma<H><<<blocks(V, X_BV), X_THREADS, smem, stream>>>(
+      mh, mw, b, labels, lse, scale, dw, db, N, V);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the bf16 shapes TMA can address, which the wgmma kernels take
+bool wgmma_shape(int H, int V, const void* h, const void* w) {
+  return H <= 512 && V % 8 == 0 && aligned16(h) && aligned16(w);
 }
 
 }  // namespace
@@ -1207,35 +1777,46 @@ bool aligned16(const void* p) {
 // success); the kernel runs on `stream` and the call does not synchronise.
 // h and w must be contiguous; in bf16 h's rows are read as 16-byte vectors,
 // so h must be 16-byte aligned (w may be unaligned: `vec` is derived here).
+// *route receives the kernel taken (Route): in bf16 the wgmma kernel where
+// TMA can address the operands (H <= 512, V % 8 == 0, h and w 16-byte
+// aligned), the mma.sync kernel elsewhere; f32 the FMA kernel.
 extern "C" int fused_ce_fwd(const void* h, const void* w, const void* b,
                             const void* labels, void* lse, void* ll, int N,
-                            int H, int V, int dtype, void* stream) {
+                            int H, int V, int dtype, int* route,
+                            void* stream) {
   if (bad_dims(N, H, V, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bias = static_cast<const float*>(b);
   const int* lab = static_cast<const int*>(labels);
+  float* lse_f = static_cast<float*>(lse);
+  float* ll_f = static_cast<float*>(ll);
   if (dtype == 0) {
+    *route = ROUTE_FMA;
     ce_fwd_fma<<<blocks(N, FF_BN), FF_THREADS, 0, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
-        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V);
+        lse_f, ll_f, N, H, V);
+  } else if (wgmma_shape(H, V, h, w)) {
+    *route = ROUTE_WGMMA;
+    return (int)with_hidden(H, [&](auto hc) {
+      return launch_fwd_wgmma<decltype(hc)::value>(h, w, bias, lab, lse_f,
+                                                   ll_f, N, V, s);
+    });
   } else {
+    *route = ROUTE_MMA;
     const int KS = slice_width(H);
     const size_t smem = fwd_mma_smem_bytes(KS);
     const auto kernel = KS < H ? ce_fwd_mma<true> : ce_fwd_mma<false>;
     cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const int vec = V % 8 == 0 && aligned16(w);
     kernel<<<blocks(N, F_BN), F_THREADS, smem, s>>>(
         static_cast<const bf16*>(h), static_cast<const bf16*>(w), bias, lab,
-        static_cast<float*>(lse), static_cast<float*>(ll), N, H, V, KS, vec);
+        lse_f, ll_f, N, H, V, KS, vec);
   }
   return (int)cudaGetLastError();
 }
 
-// dh_dtype: 0 = float32, 1 = bfloat16. *route receives the kernel taken
-// (DhRoute): in bf16 the wgmma kernel where TMA can address the operands
-// (H <= 512, V % 8 == 0, h and w 16-byte aligned), the mma.sync kernel
-// elsewhere; f32 the FMA kernel.
+// dh_dtype: 0 = float32, 1 = bfloat16. *route as fused_ce_fwd's.
 extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
                                const void* labels, const void* lse,
                                const void* scale, void* dh, int N, int H,
@@ -1251,19 +1832,21 @@ extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
   const int KS = slice_width(H);
   cudaError_t err;
   if (dtype == 0) {
-    *route = DH_FMA;
+    *route = ROUTE_FMA;
     const dim3 grid(blocks(N, FA_BN), blocks(H, KS));
     const size_t smem = sizeof(float) * (size_t)FA_BN * KS;
     if ((err = set_smem(ce_bwd_dh_fma, smem)) != cudaSuccess) return (int)err;
     ce_bwd_dh_fma<<<grid, FA_THREADS, smem, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
         l, sc, dh, dh_dtype, N, H, V, KS);
-  } else if (H <= 512 && V % 8 == 0 && aligned16(h) && aligned16(w)) {
-    *route = DH_WGMMA;
-    return (int)launch_dh_wgmma_any(H, h, w, bias, lab, l, sc, dh, dh_dtype,
-                                    N, V, s);
+  } else if (wgmma_shape(H, V, h, w)) {
+    *route = ROUTE_WGMMA;
+    return (int)with_hidden(H, [&](auto hc) {
+      return launch_dh_wgmma<decltype(hc)::value>(h, w, bias, lab, l, sc, dh,
+                                                  dh_dtype, N, V, s);
+    });
   } else {
-    *route = DH_MMA;
+    *route = ROUTE_MMA;
     const dim3 grid(blocks(N, A_BN), blocks(H, KS));
     const size_t smem = dh_mma_smem_bytes(KS);
     const int vec = V % 8 == 0 && aligned16(w);
@@ -1281,11 +1864,12 @@ extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// dw f32 (H,V); db f32 (V,) or null (not written).
+// dw f32 (H,V); db f32 (V,) or null (not written). *route as fused_ce_fwd's.
 extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* b,
                                const void* labels, const void* lse,
                                const void* scale, void* dw, void* db, int N,
-                               int H, int V, int dtype, void* stream) {
+                               int H, int V, int dtype, int* route,
+                               void* stream) {
   if (bad_dims(N, H, V, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bias = static_cast<const float*>(b);
@@ -1297,16 +1881,24 @@ extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* b,
   const int KS = slice_width(H);
   cudaError_t err;
   if (dtype == 0) {
+    *route = ROUTE_FMA;
     const dim3 grid(blocks(V, FB_BV), blocks(H, KS));
     const size_t smem = sizeof(float) * (size_t)KS * FB_BV;
     if ((err = set_smem(ce_bwd_dw_fma, smem)) != cudaSuccess) return (int)err;
     ce_bwd_dw_fma<<<grid, FB_THREADS, smem, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w), bias, lab,
         l, sc, dwf, dbf, N, H, V, KS);
+  } else if (wgmma_shape(H, V, h, w)) {
+    *route = ROUTE_WGMMA;
+    return (int)with_hidden(H, [&](auto hc) {
+      return launch_dw_wgmma<decltype(hc)::value>(h, w, bias, lab, l, sc, dwf,
+                                                  dbf, N, V, s);
+    });
   } else {
+    *route = ROUTE_MMA;
     const dim3 grid(blocks(V, B_BV), blocks(H, KS));
     const size_t smem = dw_mma_smem_bytes(KS);
-    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const int vec = V % 8 == 0 && aligned16(w);
     const bf16* hb = static_cast<const bf16*>(h);
     const bf16* wb = static_cast<const bf16*>(w);
     // the dW carry's register tiles by slice width; sliced or not

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // the flash-attention forward (K2) and backward (K3a, K3b), the int8
-// dequant-matmul's tile path (K6) and the fused CE's dh kernel (K5a).
+// dequant-matmul's tile path (K6) and the fused CE's kernels (K4, K5a,
+// K5b).
 //
 //  * mbarriers and TMA: tiles are copied by cp.async.bulk.tensor from a
 //    CUtensorMap built on the host (cuTensorMapEncodeTiled, -lcuda) and
@@ -40,6 +41,14 @@ struct Tile {
   static constexpr uint32_t LAYOUT = SWB == 128 ? 1u : 2u;  // descriptor
 };
 
+// 2^x on the special-function unit (exp2f adds a range fix-up around
+// the same instruction; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -67,6 +76,19 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
+}
+
+// mbar_expect made only by the threads for which `pred` holds: a predicated
+// instruction, not a branch, so code around it stays convergent (ptxas
+// serialises wgmmas in flight across a divergent branch)
+__device__ __forceinline__ void mbar_expect_if(bool pred, uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::
+          "r"(bar),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
 }
 
 // waits for the barrier's phase of this parity to complete. A phase that
@@ -107,6 +129,20 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// tma_2d issued only by the threads for which `pred` holds (predicated, as
+// mbar_expect_if)
+__device__ __forceinline__ void tma_2d_if(bool pred, uint32_t dst,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"((int)pred)
       : "memory");
 }
 
@@ -173,6 +209,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// waits until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving reads or writes of registers that an
 // in-flight wgmma owns across the fence/commit/wait above
 template <int N>
@@ -188,7 +229,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
-// D(64 x 64) (+)= A B^T, A and B 64-row K-major bf16 tiles in shared memory
+// D(64 x 64) (+)= A B^T, A and B 64-row K-major bf16 tiles in shared memory;
+// TA = 1 reads A MN-major instead (desc_mn: its 16 rows the reduction, its
+// 64 columns the output rows), TB = 1 B (desc_mn: its 64 columns the output
+// columns)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
                                            uint64_t b, int accumulate) {
   asm volatile(
@@ -197,7 +242,7 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -206,7 +251,7 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d[o .. o + 15] (+)= D(64 x 32) = A B, A a 64-row K-major bf16 tile in
@@ -228,10 +273,14 @@ __device__ __forceinline__ void wgmma_ss32(float (&d)[N], int o, uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
 }
 
-// D(64 x 256) += A B, A a 64-row K-major bf16 tile and B (16 x 256)
-// K-major (desc_k: its 256 rows the output columns), both in shared memory
+// D(64 x 256) (+)= A B, A a 64-row K-major bf16 tile and B (16 x 256)
+// K-major (desc_k: its 256 rows the output columns), both in shared memory;
+// TA = 1 reads A MN-major (desc_mn: its 16 rows the reduction, its 64
+// columns the output rows), TB = 1 reads B MN-major (its 16 rows the
+// reduction, its 256 columns the output columns)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss256(float (&d)[128], uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -253,7 +302,7 @@ __device__ __forceinline__ void wgmma_ss256(float (&d)[128], uint64_t a,
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
       "}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -287,7 +336,7 @@ __device__ __forceinline__ void wgmma_ss256(float (&d)[128], uint64_t a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D(64 x 256) += A B, A (64 x 16) bf16 in registers (the accumulator

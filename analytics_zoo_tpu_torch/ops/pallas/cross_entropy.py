@@ -23,10 +23,12 @@ On a CUDA tensor each wrapper launches the kernels in
 columns and ``w``'s rows are padded with zeros to a multiple of 64 (the
 pad adds exact zeros to every logit, as the JAX wrapper's
 ``pad_to_multiple`` does) and ``dh``/``dW`` are sliced back; the kernels
-stage H in slices of at most 1024. K5a's C entry point picks its kernel
-by shape and reports it (:data:`KERNEL_CE_BWD_DH_ROUTES`,
-:data:`LAST_DH_LAUNCH`): in bf16 a ``wgmma`` kernel fed by TMA where TMA
-can address the operands (the LM path), an ``mma.sync`` one elsewhere.
+stage H in slices of at most 1024. Each kernel's C entry point picks its
+kernel by shape and reports it (:data:`KERNEL_CE_FWD_ROUTES`,
+:data:`KERNEL_CE_BWD_DH_ROUTES`, :data:`KERNEL_CE_BWD_DW_ROUTES`;
+:data:`LAST_FWD_LAUNCH`, :data:`LAST_DH_LAUNCH`, :data:`LAST_DW_LAUNCH`):
+in bf16 a ``wgmma`` kernel fed by TMA where TMA can address the operands
+(the LM path), an ``mma.sync`` one elsewhere, FMAs in f32.
 On a CPU tensor it runs the plain version
 (:func:`fused_ce_forward_reference`,
 :func:`fused_ce_backward_reference`), which follows the kernels' rounding
@@ -61,10 +63,10 @@ DEFAULT_CHUNK = 512
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_ce_fwd.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.fused_ce_bwd_dh.argtypes = [p] * 7 + [i] * 5 + [
-        ctypes.POINTER(i), p]
-    lib.fused_ce_bwd_dw.argtypes = [p] * 8 + [i] * 4 + [p]
+    route = ctypes.POINTER(i)
+    lib.fused_ce_fwd.argtypes = [p] * 6 + [i] * 4 + [route, p]
+    lib.fused_ce_bwd_dh.argtypes = [p] * 7 + [i] * 5 + [route, p]
+    lib.fused_ce_bwd_dw.argtypes = [p] * 8 + [i] * 4 + [route, p]
     for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd_dh, lib.fused_ce_bwd_dw):
         fn.restype = ctypes.c_int
 
@@ -75,17 +77,19 @@ LIBRARY = CudaLibrary("fused_cross_entropy", ["fused_cross_entropy.cu"],
 KERNEL_CE_FWD = _LaunchCount()      # K4
 KERNEL_CE_BWD_DH = _LaunchCount()   # K5a
 KERNEL_CE_BWD_DW = _LaunchCount()   # K5b
-#: K5a's kernels, by the code its C entry point reports: ``wgmma`` (bf16
-#: where TMA can address the operands: padded H <= 512, V % 8 == 0, h and
-#: w 16-byte aligned — the LM path), ``mma`` (the other bf16 shapes),
-#: ``fma`` (f32)
-DH_ROUTES = ("wgmma", "mma", "fma")
-KERNEL_CE_BWD_DH_ROUTES = {name: _LaunchCount() for name in DH_ROUTES}
+#: each kernel's routes, by the code its C entry point reports: ``wgmma``
+#: (bf16 where TMA can address the operands: padded H <= 512, V % 8 == 0,
+#: h and w 16-byte aligned — the LM path), ``mma`` (the other bf16
+#: shapes), ``fma`` (f32)
+ROUTES = ("wgmma", "mma", "fma")
+KERNEL_CE_FWD_ROUTES = {name: _LaunchCount() for name in ROUTES}
+KERNEL_CE_BWD_DH_ROUTES = {name: _LaunchCount() for name in ROUTES}
+KERNEL_CE_BWD_DW_ROUTES = {name: _LaunchCount() for name in ROUTES}
 
 
-class _DhLaunch:
-    """The route of the latest K5a launch, as its C entry point reported
-    it (None before the first)."""
+class _Launch:
+    """The route of a kernel's latest launch, as its C entry point
+    reported it (None before the first)."""
 
     __slots__ = ("route",)
 
@@ -93,7 +97,9 @@ class _DhLaunch:
         self.route = None
 
 
-LAST_DH_LAUNCH = _DhLaunch()
+LAST_FWD_LAUNCH = _Launch()
+LAST_DH_LAUNCH = _Launch()
+LAST_DW_LAUNCH = _Launch()
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +238,20 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _launch_routed(name: str, total: _LaunchCount, by_route: dict,
+                   last: _Launch, h: torch.Tensor, *args) -> None:
+    """Launches entry point ``name`` (its route pointer last before the
+    stream), raises on a failed launch, and counts the launch in all and
+    under the route the C side reported."""
+    route = ctypes.c_int(-1)
+    err = launch(LIBRARY.entry(name), h, *args, ctypes.byref(route))
+    _raise_on(err, name)
+    taken = ROUTES[route.value]
+    total.launches += 1
+    by_route[taken].launches += 1
+    last.route = taken
+
+
 def fused_ce_forward(h: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor], labels: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -242,17 +262,21 @@ def fused_ce_forward(h: torch.Tensor, w: torch.Tensor,
     if h.device.type == "cpu":
         return fused_ce_forward_reference(h, w, b, labels)
     n = h.shape[0]
-    v = w.shape[1]
+    if n == 0:
+        lse = torch.empty(0, dtype=torch.float32, device=h.device)
+        return lse, torch.empty_like(lse)
+    return _launch_fwd(*_kernel_operands(h, w, b, labels))
+
+
+def _launch_fwd(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on checked operands (``_kernel_operands``): ``(lse, ll)``."""
+    n = h.shape[0]
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
     ll = torch.empty_like(lse)
-    if n == 0:
-        return lse, ll
-    h, w, b, labels = _kernel_operands(h, w, b, labels)
-    err = launch(LIBRARY.entry("fused_ce_fwd"), h, h.data_ptr(),
-                 w.data_ptr(), _ptr(b), labels.data_ptr(), lse.data_ptr(),
-                 ll.data_ptr(), n, h.shape[1], v, _DTYPE_CODES[h.dtype])
-    _raise_on(err, "fused_ce_fwd")
-    KERNEL_CE_FWD.launches += 1
+    _launch_routed("fused_ce_fwd", KERNEL_CE_FWD, KERNEL_CE_FWD_ROUTES,
+                   LAST_FWD_LAUNCH, h, h.data_ptr(), w.data_ptr(), _ptr(b),
+                   labels.data_ptr(), lse.data_ptr(), ll.data_ptr(), n,
+                   h.shape[1], w.shape[1], _DTYPE_CODES[h.dtype])
     return lse, ll
 
 
@@ -279,16 +303,11 @@ def _launch_dh(ops, dh_dtype, hidden: int) -> torch.Tensor:
     n, hp = h.shape
     dh = torch.empty(n, hp, dtype=dh_dtype, device=h.device)
     if n > 0:
-        route = ctypes.c_int(-1)
-        err = launch(LIBRARY.entry("fused_ce_bwd_dh"), h,
-                     *(_ptr(t) for t in ops), dh.data_ptr(), n, hp,
-                     w.shape[1], _DTYPE_CODES[h.dtype],
-                     _DTYPE_CODES[dh_dtype], ctypes.byref(route))
-        _raise_on(err, "fused_ce_bwd_dh")
-        name = DH_ROUTES[route.value]
-        KERNEL_CE_BWD_DH.launches += 1
-        KERNEL_CE_BWD_DH_ROUTES[name].launches += 1
-        LAST_DH_LAUNCH.route = name
+        _launch_routed("fused_ce_bwd_dh", KERNEL_CE_BWD_DH,
+                       KERNEL_CE_BWD_DH_ROUTES, LAST_DH_LAUNCH, h,
+                       *(_ptr(t) for t in ops), dh.data_ptr(), n, hp,
+                       w.shape[1], _DTYPE_CODES[h.dtype],
+                       _DTYPE_CODES[dh_dtype])
     return dh if hp == hidden else dh[:, :hidden].contiguous()
 
 
@@ -298,15 +317,15 @@ def _launch_dw(ops, with_bias: bool, hidden: int):
     h, w = ops[0], ops[1]
     n, hp = h.shape
     v = w.shape[1]
-    dw = torch.zeros(hp, v, dtype=torch.float32, device=h.device)
-    db = (torch.zeros(v, dtype=torch.float32, device=h.device)
-          if with_bias else None)
+    # every kernel writes all of dW and db; with no rows they are zeros
+    alloc = torch.empty if n > 0 else torch.zeros
+    dw = alloc(hp, v, dtype=torch.float32, device=h.device)
+    db = alloc(v, dtype=torch.float32, device=h.device) if with_bias else None
     if n > 0:
-        err = launch(LIBRARY.entry("fused_ce_bwd_dw"), h,
-                     *(_ptr(t) for t in ops), dw.data_ptr(), _ptr(db), n,
-                     hp, v, _DTYPE_CODES[h.dtype])
-        _raise_on(err, "fused_ce_bwd_dw")
-        KERNEL_CE_BWD_DW.launches += 1
+        _launch_routed("fused_ce_bwd_dw", KERNEL_CE_BWD_DW,
+                       KERNEL_CE_BWD_DW_ROUTES, LAST_DW_LAUNCH, h,
+                       *(_ptr(t) for t in ops), dw.data_ptr(), _ptr(db), n,
+                       hp, v, _DTYPE_CODES[h.dtype])
     return dw[:hidden], db
 
 

@@ -35,7 +35,8 @@
    and bf16: V=8192 and a ragged V=8000, no bias, labels of -1 on every
    third row (loss 0, dh rows exactly 0), three over-range labels (NaN in
    those rows and in dW) and one bias entry of 100 over a ragged row tile.
-   Each case runs twice and K5b's dW/db must be the same bits.
+   Each case runs twice and K5b's dW/db must be the same bits; every
+   kernel must report its wgmma route in bf16 and its FMA route in f32.
 7. LM training phase: the JAX package's 4k long-context configuration
    (``bench.py:415-438``: ``Sequential([TransformerLayer(vocab=8192,
    seq_len=4096, n_block=4, hidden_size=512, n_head=8, causal),
@@ -43,10 +44,13 @@
    f32 params, batch 16) through ``compile``/``fit`` on 32 sequences of
    ``y = (7x + 13) mod 8192`` with every flag at ``auto``: a warm-up of
    two epochs, then two timed epochs of two steps. Checks the loss gate,
-   1 launch per step of K4/K5a/K5b (every K5a on its wgmma route) and 4
+   1 launch per step of K4/K5a/K5b (every one on its wgmma route) and 4
    of K2/K3a/K3b, one step's
    gradients against the full-logits oracle, and that the fused route's
    peak memory over that step is at least one bf16 logits tensor lower.
+   Then prints the JAX bench's ``fused_ce_speedup`` (``bench.py:254-325``:
+   one forward and backward of the fused loss against the full-logits
+   objective at 32,768 rows, best of three; not gated).
 
 8. CE hidden-width phase: K4/K5a/K5b against their plain versions at
    N=4100, V=8192, bf16, H = 100 (padded to 128), 1280 and 2048 (H staged
@@ -1284,8 +1288,9 @@ def ce_kernel_phase():
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        LAST_DH_LAUNCH, fused_ce_backward, fused_ce_backward_reference,
-        fused_ce_forward, fused_ce_forward_reference)
+        LAST_DH_LAUNCH, LAST_DW_LAUNCH, LAST_FWD_LAUNCH, fused_ce_backward,
+        fused_ce_backward_reference, fused_ce_forward,
+        fused_ce_forward_reference)
     n, hidden = 4100, 512
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # name, dtype, V, bias, over-range labels, one bias of 100
@@ -1317,6 +1322,7 @@ def ce_kernel_phase():
             b[3] = 100.0
         lse, ll = fused_ce_forward(h, w, b, labels)
         torch.cuda.synchronize()
+        fwd_route = LAST_FWD_LAUNCH.route
         ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
         lse_err = (lse - ref_lse).abs().max().item()
         ll_err = ((ll - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)
@@ -1334,8 +1340,12 @@ def ce_kernel_phase():
             torch.cuda.synchronize()
         dh, dw, db = runs[0]
         want_route = "wgmma" if dtype == bf16 else "fma"
-        check(LAST_DH_LAUNCH.route == want_route, f"{name}: K5a took "
-              f"{LAST_DH_LAUNCH.route}, want {want_route}")
+        routes = {"fused_ce_fwd": fwd_route,
+                  "fused_ce_bwd_dh": LAST_DH_LAUNCH.route,
+                  "fused_ce_bwd_dw": LAST_DW_LAUNCH.route}
+        for kernel, route in routes.items():
+            check(route == want_route, f"{name}: {kernel} took {route}, "
+                  f"want {want_route}")
         dh_same = bit_equal(runs[0][0].float(), runs[1][0].float())
         check(dh_same, f"{name}: K5a dh differs between two runs")
         same = bit_equal(runs[0][1], runs[1][1]) and bit_equal(runs[0][2],
@@ -1348,7 +1358,7 @@ def ce_kernel_phase():
                "dtype": str(dtype).replace("torch.", ""), "bias": bias,
                "lse_err": lse_err, "ll_rel_err": ll_err,
                "tol": tol, "dw_db_bit_identical": same,
-               "dh_route": LAST_DH_LAUNCH.route, "dh_bit_identical": dh_same}
+               "routes": routes, "dh_bit_identical": dh_same}
         if over:
             check(bool(torch.isnan(dh[bad]).all()
                        and torch.isfinite(dh[~bad]).all()),
@@ -1393,7 +1403,7 @@ def lm_phase():
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
         KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DH_ROUTES, KERNEL_CE_BWD_DW,
-        KERNEL_CE_FWD)
+        KERNEL_CE_BWD_DW_ROUTES, KERNEL_CE_FWD, KERNEL_CE_FWD_ROUTES)
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
@@ -1425,7 +1435,11 @@ def lm_phase():
 
     kernels = (KERNEL_CE_FWD, KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL,
                KERNEL_BWD_DQ, KERNEL_BWD_DKV)
-    for c in kernels + tuple(KERNEL_CE_BWD_DH_ROUTES.values()):
+    by_route = {"fused_ce_fwd": KERNEL_CE_FWD_ROUTES,
+                "fused_ce_bwd_dh": KERNEL_CE_BWD_DH_ROUTES,
+                "fused_ce_bwd_dw": KERNEL_CE_BWD_DW_ROUTES}
+    for c in kernels + tuple(c for routes in by_route.values()
+                             for c in routes.values()):
         c.reset()
     timed = []
     t0 = time.perf_counter()
@@ -1437,7 +1451,8 @@ def lm_phase():
                          "fused_ce_bwd_dw", "flash_attention_fwd",
                          "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
                         (c.launches for c in kernels)))
-    dh_routes = {k: c.launches for k, c in KERNEL_CE_BWD_DH_ROUTES.items()}
+    ce_routes = {name: {k: c.launches for k, c in routes.items()}
+                 for name, routes in by_route.items()}
     records += timed
     steps = 2 * (LM_SEQS // LM_BATCH)
     loss_first, loss_last = records[0]["loss"], records[-1]["loss"]
@@ -1446,20 +1461,22 @@ def lm_phase():
                "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
                "warmup_s": warm,
                "losses": [r["loss"] for r in records],
-               "launches": launches, "dh_routes": dh_routes}
+               "launches": launches, "ce_routes": ce_routes}
     print(f"lm: {steps} steps of {LM_BATCH}x{LM_SEQ} tokens in {wall:.3f}s "
           f"= {summary['tokens_per_s']:.1f} tokens/s (best epoch), "
           f"{summary['ms_per_step']:.1f} ms/step (warm-up {warm:.1f}s); "
           f"loss {loss_first:.4f} -> {loss_last:.4f}; launches "
-          f"{json.dumps(launches)}; K5a by route {json.dumps(dh_routes)}")
+          f"{json.dumps(launches)}; CE kernels by route "
+          f"{json.dumps(ce_routes)}")
     check(math.isfinite(loss_last) and loss_last < 0.98 * loss_first,
           f"loss gate: {loss_first} -> {loss_last}")
     n_block = LM_CFG["n_block"]
     for name, count in launches.items():
         want = steps * (n_block if name.startswith("flash") else 1)
         check(count == want, f"{name}: {count} launches, want {want}")
-    check(dh_routes["wgmma"] == steps, f"K5a on the wgmma route {dh_routes}, "
-          f"want all {steps}")
+    for name, routes in ce_routes.items():
+        check(routes["wgmma"] == steps, f"{name} on the wgmma route "
+              f"{routes}, want all {steps}")
 
     # one step's gradients and peak memory: the fused route against the
     # full-logits oracle on the same batch and weights
@@ -1510,7 +1527,7 @@ def lm_phase():
     return summary, y[:LM_BATCH]
 
 
-def lm_kernel_rows(labels_np, launches):
+def lm_kernel_rows(labels_np, launches, launches_by_route):
     """K4, K5a and K5b at the LM path's shape (N=65,536, H=512, V=8192,
     bf16, a bias, the run's labels), and the attention kernels at the LM's
     causal B=16, H=8, T=4096, D=64 (time, launches on the LM path and
@@ -1518,8 +1535,8 @@ def lm_kernel_rows(labels_np, launches):
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        LAST_DH_LAUNCH, fused_ce_backward_dh, fused_ce_backward_dw,
-        fused_ce_backward_reference, fused_ce_forward,
+        LAST_DH_LAUNCH, LAST_DW_LAUNCH, LAST_FWD_LAUNCH, fused_ce_backward_dh,
+        fused_ce_backward_dw, fused_ce_backward_reference, fused_ce_forward,
         fused_ce_forward_reference)
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         bwd_dkv, bwd_dq, flash_attention)
@@ -1533,10 +1550,13 @@ def lm_kernel_rows(labels_np, launches):
     scale = torch.full((n,), 1.0 / n, device="cuda")
     lse, ll = fused_ce_forward(h, w, b, labels)
     dh = fused_ce_backward_dh(h, w, b, labels, lse, scale)
-    dh_route = LAST_DH_LAUNCH.route
-    check(dh_route == "wgmma", f"LM shape: K5a took {dh_route}")
     dw, db = fused_ce_backward_dw(h, w, b, labels, lse, scale)
     torch.cuda.synchronize()
+    routes = {"fused_ce_fwd": LAST_FWD_LAUNCH.route,
+              "fused_ce_bwd_dh": LAST_DH_LAUNCH.route,
+              "fused_ce_bwd_dw": LAST_DW_LAUNCH.route}
+    for name, route in routes.items():
+        check(route == "wgmma", f"LM shape: {name} took {route}")
     ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
     ref_dh, ref_dw, ref_db = fused_ce_backward_reference(h, w, b, labels,
                                                          lse, scale)
@@ -1610,8 +1630,8 @@ def lm_kernel_rows(labels_np, launches):
         if name != "fused_ce_fwd":
             rows[-1]["plain_by"] = ("the plain backward computes dh, dW "
                                     "and db together: the pair's time")
-        if name == "fused_ce_bwd_dh":
-            rows[-1]["dh_route"] = dh_route
+        rows[-1]["kernel_route"] = routes[name]
+        rows[-1]["launches_by_route"] = launches_by_route[name]
     del h, w, dh, dw
 
     q, k, vv, do = (torch.randn(LM_BATCH, LM_CFG["n_head"], LM_SEQ, 64,
@@ -1651,6 +1671,55 @@ def lm_kernel_rows(labels_np, launches):
                              "fwd" if name == "flash_attention_fwd"
                              else "bwd"]}
                   for name, ms in flash_lm.items()}
+
+
+def fused_ce_speedup():
+    """The JAX bench's ``fused_ce_speedup`` yardstick (``bench.py:254-325``):
+    one forward and backward (gradients of h, W and b) of the fused LM-head
+    loss against the full-logits objective as ``Dense`` +
+    ``scce_with_logits`` run it, at T = 32,768 rows, V = 8192, H = 512, bf16
+    h, f32 W and b, the inputs made as that function makes them (numpy seed
+    11); tokens/s best of three each, and their ratio. Printed, not gated
+    (the JAX bench floors it at 1.0, ``bench.py:1528``)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.fused_cross_entropy import \
+        fused_sparse_cross_entropy
+    from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
+    t, v, h_dim = 32768, 8192, 512
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.normal(size=(t, h_dim)).astype(np.float32)).to(
+        "cuda", torch.bfloat16).requires_grad_()
+    w = torch.from_numpy(rng.normal(size=(h_dim, v)).astype(np.float32)
+                         * 0.02).cuda().requires_grad_()
+    b = torch.zeros(v, device="cuda", requires_grad=True)
+    y = torch.from_numpy(rng.integers(0, v, t).astype(np.int32)).cuda()
+
+    def full_loss():
+        logits = torch.matmul(h, w.to(h.dtype)) + b.to(h.dtype)
+        return objectives.sparse_categorical_crossentropy_from_logits(
+            y, logits)
+
+    def fused_loss():
+        return fused_sparse_cross_entropy(y, h, w, b)
+
+    rates = {}
+    for tag, fn in (("fullvocab", full_loss), ("fused", fused_loss)):
+        torch.autograd.grad(fn(), (h, w, b))        # warm-up
+        torch.cuda.synchronize()
+        best = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            torch.autograd.grad(fn(), (h, w, b))
+            torch.cuda.synchronize()
+            best = max(best, t / (time.perf_counter() - t0))
+        rates[tag] = best
+    out = {f"{tag}_ce_tokens_per_sec": rate for tag, rate in rates.items()}
+    out["fused_ce_speedup"] = rates["fused"] / rates["fullvocab"]
+    print(f"fused ce speedup (T={t}, V={v}, H={h_dim}, bf16 h; the JAX "
+          f"bench's yardstick, floored there at 1.0): {json.dumps(out)}")
+    return out
 
 
 def lm_sdpa_ms(q, k, v, do):
@@ -2241,7 +2310,9 @@ def main() -> int:
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
     lm, lm_labels = lm_phase()
-    ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"])
+    ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"],
+                                              lm["ce_routes"])
+    lm["fused_ce_speedup"] = fused_ce_speedup()
     for row in rows:
         row.update(flash_lm[row["name"]])
     rows += ce_kernel_rows

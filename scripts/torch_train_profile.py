@@ -35,10 +35,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: kernel families by name fragment, first match wins
 FAMILIES = (
-    ("fused_ce_fwd (K4)", ("ce_fwd_mma", "ce_fwd_fma")),
+    ("fused_ce_fwd (K4)", ("ce_fwd_wgmma", "ce_fwd_mma", "ce_fwd_fma")),
     ("fused_ce_bwd_dh (K5a)", ("ce_bwd_dh_wgmma", "ce_bwd_dh_mma",
                                "ce_bwd_dh_fma")),
-    ("fused_ce_bwd_dw (K5b)", ("ce_bwd_dw_mma", "ce_bwd_dw_fma")),
+    ("fused_ce_bwd_dw (K5b)", ("ce_bwd_dw_wgmma", "ce_bwd_dw_mma",
+                               "ce_bwd_dw_fma")),
     ("flash_attention_fwd (K2)", ("flash_fwd_wgmma", "flash_fwd_fma")),
     ("flash_attention_bwd_dq (K3a)", ("bwd_dq_wgmma", "bwd_dq_fma")),
     ("flash_attention_bwd_dkv (K3b)", ("bwd_dkv_wgmma", "bwd_dkv_fma")),

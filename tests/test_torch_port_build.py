@@ -272,29 +272,117 @@ def test_int8_plan_is_the_c_sides_and_asked_once_a_shape(monkeypatch):
         quantized._plan.cache_clear()
 
 
-def test_cpu_paths_of_sa_and_k5a_count_no_launch_and_report_no_route():
-    """SA with the forward's sort and K5a on CPU tensors run their plain
-    versions: no launch is counted and K5a's route report (its counters
-    by route, ``LAST_DH_LAUNCH``) stays as it was."""
+def _ce_routes():
+    """Every CE counter: each kernel's total and by-route launch counts and
+    its latest route."""
+    return ({name: c.launches for name, c in (
+                ("fwd", cross_entropy.KERNEL_CE_FWD),
+                ("dh", cross_entropy.KERNEL_CE_BWD_DH),
+                ("dw", cross_entropy.KERNEL_CE_BWD_DW))},
+            [{k: c.launches for k, c in routes.items()} for routes in (
+                cross_entropy.KERNEL_CE_FWD_ROUTES,
+                cross_entropy.KERNEL_CE_BWD_DH_ROUTES,
+                cross_entropy.KERNEL_CE_BWD_DW_ROUTES)],
+            [last.route for last in (cross_entropy.LAST_FWD_LAUNCH,
+                                     cross_entropy.LAST_DH_LAUNCH,
+                                     cross_entropy.LAST_DW_LAUNCH)])
+
+
+@pytest.mark.parametrize("kernel", ["sa", "k4", "k5a", "k5b"])
+def test_cpu_paths_of_sa_and_k5a_count_no_launch_and_report_no_route(kernel):
+    """SA with the forward's sort, and K4, K5a and K5b on CPU tensors, run
+    their plain versions: no launch is counted and the CE kernels' route
+    reports (their counters by route, ``LAST_*_LAUNCH``) stay as they
+    were."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas import embedding
     g = torch.Generator().manual_seed(1)
-    inv = torch.tensor([1, 0, 1], dtype=torch.int32)
-    key, order = torch.sort(inv.long(), stable=True)
-    sa = embedding.KERNEL_SCATTER_ADD.launches
-    embedding.dedup_scatter_add(torch.randn(3, 2, generator=g), inv, 2,
-                                order=order, sorted_slot=key)
-    assert embedding.KERNEL_SCATTER_ADD.launches == sa
-    routes = {k: c.launches
-              for k, c in cross_entropy.KERNEL_CE_BWD_DH_ROUTES.items()}
-    last = cross_entropy.LAST_DH_LAUNCH.route
+    if kernel == "sa":
+        inv = torch.tensor([1, 0, 1], dtype=torch.int32)
+        key, order = torch.sort(inv.long(), stable=True)
+        sa = embedding.KERNEL_SCATTER_ADD.launches
+        embedding.dedup_scatter_add(torch.randn(3, 2, generator=g), inv, 2,
+                                    order=order, sorted_slot=key)
+        assert embedding.KERNEL_SCATTER_ADD.launches == sa
+        return
     h = torch.randn(5, 16, generator=g).bfloat16()
     w = torch.randn(16, 24, generator=g).bfloat16()
     labels = torch.tensor([0, 3, 23, -1, 4], dtype=torch.int32)
-    lse, _ = cross_entropy.fused_ce_forward(h, w, None, labels)
-    cross_entropy.fused_ce_backward_dh(h, w, None, labels, lse,
-                                       torch.ones(5))
-    assert {k: c.launches for k, c in
-            cross_entropy.KERNEL_CE_BWD_DH_ROUTES.items()} == routes
-    assert cross_entropy.LAST_DH_LAUNCH.route == last
+    lse, _ = cross_entropy.fused_ce_forward_reference(h, w, None, labels)
+    before = _ce_routes()
+    {"k4": lambda: cross_entropy.fused_ce_forward(h, w, None, labels),
+     "k5a": lambda: cross_entropy.fused_ce_backward_dh(
+         h, w, None, labels, lse, torch.ones(5)),
+     "k5b": lambda: cross_entropy.fused_ce_backward_dw(
+         h, w, None, labels, lse, torch.ones(5))}[kernel]()
+    assert _ce_routes() == before
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dh", "dw"])
+@pytest.mark.parametrize("code,route", [(0, "wgmma"), (1, "mma"),
+                                        (2, "fma")])
+def test_ce_wrappers_pass_a_route_pointer_and_record_the_route(
+        monkeypatch, kernel, code, route):
+    """Each CE kernel's launch hands its C entry point a route pointer
+    after its last argument and before the stream (as ``_bind`` declares
+    it), and records the code the C side writes there: the launch counted
+    in all and under that route, and ``LAST_*_LAUNCH`` set. The library
+    and the launch are faked (no nvcc or card here); the operands are CPU
+    tensors that ``launch`` never reads."""
+    import ctypes
+
+    import torch
+
+    class Fn:
+        argtypes = None
+    lib = type("Lib", (), {})()
+    for name in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw"):
+        setattr(lib, name, Fn())
+    cross_entropy._bind(lib)
+    entry = f"fused_ce_{kernel}" if kernel == "fwd" else \
+        f"fused_ce_bwd_{kernel}"
+    argtypes = getattr(lib, entry).argtypes
+    assert argtypes[-2] == ctypes.POINTER(ctypes.c_int)
+    assert argtypes[-1] == ctypes.c_void_p
+
+    calls = []
+
+    def fake_launch(fn, tensor, *args):
+        assert fn == entry
+        calls.append(args)
+        args[-1]._obj.value = code   # the C side writes the route
+        return 0
+    monkeypatch.setattr(cross_entropy.LIBRARY, "entry", lambda name: name)
+    monkeypatch.setattr(cross_entropy, "launch", fake_launch)
+    g = torch.Generator().manual_seed(2)
+    ops = cross_entropy._backward_operands(
+        torch.randn(6, 64, generator=g).bfloat16(),
+        torch.randn(64, 16, generator=g).bfloat16(),
+        torch.randn(16, generator=g), torch.arange(6, dtype=torch.int32),
+        torch.zeros(6), torch.ones(6))
+    total, by_route, last = {
+        "fwd": (cross_entropy.KERNEL_CE_FWD,
+                cross_entropy.KERNEL_CE_FWD_ROUTES,
+                cross_entropy.LAST_FWD_LAUNCH),
+        "dh": (cross_entropy.KERNEL_CE_BWD_DH,
+               cross_entropy.KERNEL_CE_BWD_DH_ROUTES,
+               cross_entropy.LAST_DH_LAUNCH),
+        "dw": (cross_entropy.KERNEL_CE_BWD_DW,
+               cross_entropy.KERNEL_CE_BWD_DW_ROUTES,
+               cross_entropy.LAST_DW_LAUNCH)}[kernel]
+    counts = (total.launches, {k: c.launches for k, c in by_route.items()})
+    prev = last.route
+    try:
+        {"fwd": lambda: cross_entropy._launch_fwd(*ops[:4]),
+         "dh": lambda: cross_entropy._launch_dh(ops, torch.bfloat16, 64),
+         "dw": lambda: cross_entropy._launch_dw(ops, True, 64)}[kernel]()
+        (args,) = calls
+        assert isinstance(args[-1], type(ctypes.byref(ctypes.c_int())))
+        assert len(args) == len(argtypes) - 1   # the stream comes last
+        assert total.launches == counts[0] + 1
+        assert {k: c.launches for k, c in by_route.items()} == \
+            {k: n + (k == route) for k, n in counts[1].items()}
+        assert last.route == route
+    finally:
+        last.route = prev

@@ -469,7 +469,8 @@ def test_lm_with_hidden_100_fits_through_the_ce_kernels(cuda, dtype):
 
 
 def _ce_dh_case(v, bias, dh_dtype, special, hidden=512, n=4100, seed=5):
-    """One case of K5a's wgmma route: h (n, hidden), w (hidden, v) bf16,
+    """One case of the CE kernels' wgmma routes: h (n, hidden), w (hidden,
+    v) bf16,
     labels with every third row masked; ``bias100`` puts a bias of 100 on
     column 3, ``over_range`` gives three rows labels past V (NaN scale)."""
     h, w, b, labels = _ce_inputs(n, hidden, v, torch.bfloat16, seed,
@@ -522,30 +523,125 @@ def test_ce_dh_wgmma_route_matches_plain_version(cuda, v, dh_dtype, bias,
     assert err <= CE_TOL[torch.bfloat16]["grad"] * top, (err, top)
 
 
+def _misaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 2 bytes past a 16-byte
+    boundary (TMA cannot address it)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hidden,v,route", [
-    (torch.bfloat16, 512, 8192, "wgmma"), (torch.bfloat16, 100, 1000,
-                                           "wgmma"),
-    (torch.bfloat16, 320, 8, "wgmma"), (torch.bfloat16, 512, 130, "mma"),
-    (torch.bfloat16, 768, 8192, "mma"), (torch.float32, 512, 8192, "fma")])
-def test_ce_dh_route_by_shape(cuda, dtype, hidden, v, route):
-    """K5a's C entry point reports the kernel it took: wgmma in bf16 where
-    TMA can address the operands (padded H <= 512, V % 8 == 0: the LM
-    shape), mma.sync at V = 130 and H = 768, FMAs in f32; each within
-    CE_TOL of the plain version."""
+@pytest.mark.parametrize("hidden", [64, 320, 512])
+@pytest.mark.parametrize("v", [8192, 8000])
+@pytest.mark.parametrize("bias,special", [(True, ""), (False, ""),
+                                          (True, "bias100"),
+                                          (True, "over_range")])
+def test_ce_fwd_dw_wgmma_routes_match_plain_versions(cuda, hidden, v, bias,
+                                                     special):
+    """K4 and K5b on their wgmma routes (N = 4100: a ragged last row
+    block; H = 64, 320 and 512; the ragged V = 8000 too) against their
+    plain versions at CE_TOL: lse, the label logit (0 on masked and
+    over-range rows), dW and db, the same bits twice; over-range labels
+    poison exactly their rows of dh and every element of dW and db, and
+    masked rows' dh stays exactly 0."""
+    from analytics_zoo_tpu_torch.ops.pallas import cross_entropy as ce
+    tol = CE_TOL[torch.bfloat16]
+    h, w, b, labels, scale, bad = _ce_dh_case(v, bias, torch.bfloat16,
+                                              special, hidden=hidden,
+                                              seed=hidden + v)
+    before = (ce.KERNEL_CE_FWD_ROUTES["wgmma"].launches,
+              ce.KERNEL_CE_BWD_DW_ROUTES["wgmma"].launches)
+    fwd = [ce.fused_ce_forward(h, w, b, labels) for _ in range(2)]
+    dws = [ce.fused_ce_backward_dw(h, w, b, labels, fwd[0][0], scale)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (ce.KERNEL_CE_FWD_ROUTES["wgmma"].launches,
+            ce.KERNEL_CE_BWD_DW_ROUTES["wgmma"].launches) == \
+        tuple(c + 2 for c in before)
+    assert ce.LAST_FWD_LAUNCH.route == ce.LAST_DW_LAUNCH.route == "wgmma"
+    for a, c in zip(fwd[0] + dws[0], fwd[1] + dws[1]):
+        assert (a is None and c is None) or torch.equal(
+            a.view(torch.int32), c.view(torch.int32))
+    lse, ll = fwd[0]
+    ref_lse, ref_ll = ce.fused_ce_forward_reference(h, w, b, labels)
+    assert (lse - ref_lse).abs().max().item() <= tol["lse"]
+    assert torch.all(ll[labels < 0] == 0) and torch.all(ll[bad] == 0)
+    ll_err = (ll - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)
+    assert ll_err.max().item() <= tol["ll_rel"]
+    dw, db = dws[0]
+    assert dw.shape == w.shape and (db is None) == (not bias)
+    ref = ce.fused_ce_backward_reference(h, w, b, labels, lse, scale)
+    if special == "over_range":
+        dh = ce.fused_ce_backward_dh(h, w, b, labels, lse, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(dh).any(dim=1), bad)
+        assert torch.all(dh[labels < 0] == 0)
+        assert torch.isnan(dw).all() and torch.isnan(db).all()
+        return
+    for name, got, want in (("dw", dw, ref[1]), ("db", db, ref[2])):
+        if want is None:
+            continue
+        assert torch.isfinite(got).all(), name
+        top = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        assert err <= tol["grad"] * top, (name, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "dh", "dw"])
+@pytest.mark.parametrize("dtype,hidden,v,shape,route", [
+    (torch.bfloat16, 512, 8192, "", "wgmma"),
+    (torch.bfloat16, 100, 1000, "", "wgmma"),
+    (torch.bfloat16, 320, 8, "", "wgmma"),
+    (torch.bfloat16, 512, 130, "", "mma"),
+    (torch.bfloat16, 576, 1000, "", "mma"),
+    (torch.bfloat16, 1024, 8192, "", "mma"),
+    (torch.bfloat16, 512, 1000, "misaligned_w", "mma"),
+    (torch.float32, 512, 8192, "", "fma")])
+def test_ce_dh_route_by_shape(cuda, kernel, dtype, hidden, v, shape, route):
+    """Each CE kernel's C entry point (K4 fwd, K5a dh, K5b dw) reports the
+    kernel it took, counted under that route: wgmma in bf16 where TMA can
+    address the operands (padded H <= 512, V % 8 == 0, 16-byte aligned h
+    and w: the LM shape), mma.sync at V = 130, at H = 576 and 1024, and on
+    a misaligned w, FMAs in f32; each within CE_TOL of its plain
+    version."""
     from analytics_zoo_tpu_torch.ops.pallas import cross_entropy as ce
     h, w, b, labels = _ce_inputs(300, hidden, v, dtype, seed=hidden + v)
-    lse, _ = ce.fused_ce_forward(h, w, b, labels)
+    if shape == "misaligned_w":
+        w = _misaligned_copy(w)
+    lse, _ = ce.fused_ce_forward_reference(h, w, b, labels)
     scale = torch.where(labels >= 0, 1.0 / 300, 0.0).float()
-    before = ce.KERNEL_CE_BWD_DH_ROUTES[route].launches
-    dh = ce.fused_ce_backward_dh(h, w, b, labels, lse, scale)
+    counters, last, run = {
+        "fwd": (ce.KERNEL_CE_FWD_ROUTES, ce.LAST_FWD_LAUNCH,
+                lambda: ce.fused_ce_forward(h, w, b, labels)),
+        "dh": (ce.KERNEL_CE_BWD_DH_ROUTES, ce.LAST_DH_LAUNCH,
+               lambda: (ce.fused_ce_backward_dh(h, w, b, labels, lse,
+                                                scale),)),
+        "dw": (ce.KERNEL_CE_BWD_DW_ROUTES, ce.LAST_DW_LAUNCH,
+               lambda: ce.fused_ce_backward_dw(h, w, b, labels, lse, scale)),
+    }[kernel]
+    before = {k: c.launches for k, c in counters.items()}
+    got = run()
     torch.cuda.synchronize()
-    assert ce.LAST_DH_LAUNCH.route == route
-    assert ce.KERNEL_CE_BWD_DH_ROUTES[route].launches == before + 1
-    want = ce.fused_ce_backward_reference(h, w, b, labels, lse, scale)[0]
-    top = want.float().abs().max().item()
-    err = (dh.float() - want.float()).abs().max().item()
-    assert err <= CE_TOL[dtype]["grad"] * top, (err, top)
+    assert last.route == route
+    assert {k: c.launches for k, c in counters.items()} == \
+        {k: n + (k == route) for k, n in before.items()}
+    tol = CE_TOL[dtype]
+    if kernel == "fwd":
+        ref_lse, ref_ll = ce.fused_ce_forward_reference(h, w, b, labels)
+        assert (got[0] - ref_lse).abs().max().item() <= tol["lse"]
+        ll_err = (got[1] - ref_ll).abs() / ref_ll.abs().clamp_min(1.0)
+        assert ll_err.max().item() <= tol["ll_rel"]
+        return
+    ref = ce.fused_ce_backward_reference(h, w, b, labels, lse, scale)
+    want = ref[:1] if kernel == "dh" else ref[1:]
+    for a, c in zip(got, want):
+        top = c.float().abs().max().item()
+        err = (a.float() - c.float()).abs().max().item()
+        assert err <= tol["grad"] * top, (err, top)
 
 
 # --- K1 (embed_expand) and SA (dedup_scatter_add): bit for bit ---
