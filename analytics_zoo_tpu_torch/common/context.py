@@ -28,8 +28,9 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.pallas.embed_gather": "auto",   # dedup'd-embedding expand kernel: auto (CUDA) | true | false
     "zoo.compute.dtype": "float32",  # float32 | bfloat16
     "zoo.log.level": "INFO",
-    "zoo.train.scan_steps": 1,       # only 1: fused multi-step dispatch
-    "zoo.train.device_cache": False,  # only false: device-resident data
+    "zoo.train.scan_steps": 1,       # optimizer steps a dispatch (one CUDA graph replay)
+    "zoo.train.device_cache": False,  # dataset resident on the device, batches gathered there
+    "zoo.train.fuse_epochs": 1,      # epochs a block with no host read (device_cache only)
     "zoo.train.fused_ce": "auto",    # fused LM-head CE: auto (V >= 1024) | true | false
     "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
     "zoo.embed.sharded": "auto",     # row-partitioned lookup for plain Embedding: auto | true | false
@@ -172,7 +173,7 @@ def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
     # validate before any global side effect
     merged["zoo.compute.dtype"] = dtype_name(
         merged.get("zoo.compute.dtype", "float32"))
-    _check_ported_train_conf(merged)
+    train_dispatch(merged)
     logging.basicConfig(level=merged.get("zoo.log.level", "INFO"))
     # ownership: an explicit zoo.compute.dtype makes the CONTEXT own the
     # policy; a re-init without one resets a context-owned policy; a
@@ -184,22 +185,42 @@ def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
     return _context
 
 
-def _check_ported_train_conf(conf: Mapping[str, Any]) -> None:
-    """The training loop runs one optimizer step per dispatch from host
-    batches; the JAX package's fused and device-cached paths are not
-    ported, so their keys are accepted only at those values."""
-    steps = conf.get("zoo.train.scan_steps", 1)
-    if int(steps) != 1:
-        raise NotImplementedError(
-            f"zoo.train.scan_steps={steps!r}: fused multi-step dispatch is "
-            f"not ported yet; set 1")
-    cache = conf.get("zoo.train.device_cache", False)
-    if isinstance(cache, str):
-        cache = cache.strip().lower() not in FALSE_FLAG_SPELLINGS
-    if cache:
-        raise NotImplementedError(
-            f"zoo.train.device_cache={conf['zoo.train.device_cache']!r}: "
-            f"the device-resident dataset is not ported yet; set false")
+def _flag(value: Any, key: str, spellings: str = "true|false") -> bool:
+    """A boolean flag from its value or one of its accepted spellings."""
+    if isinstance(value, str):
+        low = value.strip().lower()
+        if low in TRUE_FLAG_SPELLINGS:
+            return True
+        if low in FALSE_FLAG_SPELLINGS:
+            return False
+        raise ValueError(f"{key} must be {spellings}, got {value!r}")
+    return bool(value)
+
+
+def _count(value: Any, key: str) -> int:
+    try:
+        n = int(value)
+    except (TypeError, ValueError):
+        n = 0
+    if n < 1 or n != float(value):
+        raise ValueError(f"{key} must be an integer >= 1, got {value!r}")
+    return n
+
+
+def train_dispatch(conf: Optional[Mapping[str, Any]] = None):
+    """``(scan_steps, device_cache, fuse_epochs)`` from ``conf`` (default:
+    the context's), checked: ``scan_steps`` optimizer steps a dispatch,
+    the dataset resident on the device, and ``fuse_epochs`` epochs a
+    block without a host read, which act only on the device-cached path
+    (as ``fit`` applies them; JAX ``training.py:1716-1723``)."""
+    if conf is None:
+        conf = get_zoo_context().conf
+    return (_count(conf.get("zoo.train.scan_steps", 1),
+                   "zoo.train.scan_steps"),
+            _flag(conf.get("zoo.train.device_cache", False),
+                  "zoo.train.device_cache"),
+            _count(conf.get("zoo.train.fuse_epochs", 1),
+                   "zoo.train.fuse_epochs"))
 
 
 def get_zoo_context() -> ZooContext:
@@ -217,16 +238,9 @@ def tri_state_conf(key: str, default: str = "auto"):
     ``False``; the call site decides what ``auto`` means. Raises
     ``ValueError`` on an unrecognised spelling."""
     flag = get_zoo_context().get(key, default)
-    if isinstance(flag, str):
-        low = flag.strip().lower()
-        if low == "auto":
-            return "auto"
-        if low in TRUE_FLAG_SPELLINGS:
-            return True
-        if low in FALSE_FLAG_SPELLINGS:
-            return False
-        raise ValueError(f"{key} must be auto|true|false, got {flag!r}")
-    return bool(flag)
+    if isinstance(flag, str) and flag.strip().lower() == "auto":
+        return "auto"
+    return _flag(flag, key, "auto|true|false")
 
 
 def reset_zoo_context() -> None:

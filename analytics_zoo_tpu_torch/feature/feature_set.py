@@ -5,14 +5,18 @@ a list of arrays) and optional ``y``, with a per-epoch reshuffled order.
 The permutation is the JAX package's bit for bit:
 ``np.random.default_rng(seed + epoch).permutation(n)``, and the training
 loop passes ``epoch = zoo.seed + epoch`` as the JAX loop does, so both
-packages see the same batches in the same order. Device prefetch, disk
+packages see the same batches in the same order. :func:`chunked` stacks
+K batches into one ``(K, batch, ...)`` chunk for the multi-step dispatch
+(``zoo.train.scan_steps``), the last chunk of an epoch shorter; a set
+whose batches can be gathered from a copy on the device says so with
+``device_cacheable`` (``zoo.train.device_cache``). Device prefetch, disk
 slices and transforms are not ported yet; the training loop copies each
-batch to the device itself.
+batch or chunk to the device itself.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Iterable, Iterator, List, Tuple
 
 import numpy as np
 
@@ -23,8 +27,39 @@ def _as_list(x) -> List[np.ndarray]:
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
+def stack_batches(items: List[Tuple[Any, Any]]) -> Tuple[Any, Any]:
+    """K ``(x, y)`` batches stacked into one ``(K, batch, ...)`` chunk (an
+    ``x`` list stacks feature by feature; None labels stay None)."""
+    def stack(parts):
+        if parts[0] is None:
+            return None
+        if isinstance(parts[0], (list, tuple)):
+            return [np.stack(group) for group in zip(*parts)]
+        return np.stack(parts)
+    xs, ys = zip(*items)
+    return stack(list(xs)), stack(list(ys))
+
+
+def chunked(batches: Iterable[Tuple[Any, Any]], k: int
+            ) -> Iterator[Tuple[Any, Any]]:
+    """The batches in order, ``k`` to a chunk; the last chunk holds what
+    is left (JAX ``training.py`` ``_chunked``)."""
+    buf = []
+    for item in batches:
+        buf.append(item)
+        if len(buf) == k:
+            yield stack_batches(buf)
+            buf = []
+    if buf:
+        yield stack_batches(buf)
+
+
 class FeatureSet:
     """In-memory cached dataset (``CachedDistributedFeatureSet``'s role)."""
+
+    #: its arrays can be copied to the device once and each epoch's
+    #: batches gathered there (a bucketed set of ragged batches cannot)
+    device_cacheable = True
 
     def __init__(self, x, y=None, shuffle: bool = True, seed: int = 0):
         self.xs = [np.asarray(a) for a in _as_list(x)]

@@ -127,7 +127,8 @@ def fused_cross_entropy_rows(hidden: torch.Tensor, w: torch.Tensor,
     """Per-row cross-entropy of ``softmax(hidden @ w [+ b])`` against int
     ``labels`` — f32 ``(N,)``; label < 0 rows give 0 loss and 0 gradient,
     label >= V rows NaN. Differentiable in ``hidden``/``w``/``b``; the
-    ``(N, V)`` logits tensor is never formed. ``use_pallas`` None reads
+    ``(N, V)`` logits tensor is never formed. ``hidden``, ``w`` and ``b``
+    may be strided views. ``use_pallas`` None reads
     ``zoo.pallas.cross_entropy``."""
     n = hidden.shape[0]
     labels = torch.as_tensor(labels, device=hidden.device).reshape(-1).to(
@@ -138,7 +139,12 @@ def fused_cross_entropy_rows(hidden: torch.Tensor, w: torch.Tensor,
     chunk = _resolve_chunk(n, chunk)
     if use_pallas is None:
         use_pallas = pallas_ce_enabled(hidden.device)
-    return _FusedRows.apply(hidden, w, b, labels, chunk, bool(use_pallas))
+    # the kernels take dense operands: a view (a tied head's ``emb.T``, a
+    # column slice of ``hidden``) is copied here, and autograd hands each
+    # gradient back through the copy in the caller's layout
+    return _FusedRows.apply(hidden.contiguous(), w.contiguous(),
+                            None if b is None else b.contiguous(), labels,
+                            chunk, bool(use_pallas))
 
 
 def fused_sparse_cross_entropy(y_true, hidden: torch.Tensor,
@@ -151,7 +157,7 @@ def fused_sparse_cross_entropy(y_true, hidden: torch.Tensor,
     ``sparse_categorical_crossentropy_from_logits(y, hidden @ w + b)``.
     ``hidden`` may be (..., H); labels reshape to the leading dims. The
     mean runs over valid (label >= 0) rows."""
-    h2 = hidden.reshape(-1, hidden.shape[-1]).contiguous()
+    h2 = hidden.reshape(-1, hidden.shape[-1])
     l2 = torch.as_tensor(y_true, device=hidden.device).reshape(-1).to(
         torch.int32)
     rows = fused_cross_entropy_rows(h2, w, b, l2, chunk=chunk,

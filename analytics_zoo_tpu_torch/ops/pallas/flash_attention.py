@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 
 from ..cuda_build import CudaLibrary, launch
+from ..launch_count import LaunchCount as _LaunchCount
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,17 +64,6 @@ LIBRARY = CudaLibrary("flash_attention_fwd", ["flash_attention_fwd.cu"],
                       _bind)
 LIBRARY_BWD = CudaLibrary("flash_attention_bwd", ["flash_attention_bwd.cu"],
                           _bind_bwd)
-
-
-class _LaunchCount:
-    """Kernel launches made through :func:`flash_attention` (incremented
-    exactly where the kernel is launched)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self) -> None:
-        self.launches = 0
 
 
 KERNEL = _LaunchCount()            # K2, the forward

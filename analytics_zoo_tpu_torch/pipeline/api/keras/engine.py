@@ -526,10 +526,8 @@ class Sequential(KerasNet):
     def call(self, x, *, training=False, generator=None):
         if not self.built:
             raise RuntimeError("no weights; call init_weights() first")
-        from ....common.noise import split_seeds
-        gens = ([torch.Generator().manual_seed(s)
-                 for s in split_seeds(generator, len(self.layers))]
-                if generator is not None else [None] * len(self.layers))
+        from ....common.noise import split_generators
+        gens = split_generators(generator, len(self.layers))
         h = x
         for layer, g in zip(self.layers, gens):
             h = dispatch_layer(layer, h, training=training, generator=g)
@@ -628,14 +626,12 @@ class Model(KerasNet):
     def call(self, x, *, training=False, generator=None):
         if not self.built:
             raise RuntimeError("no weights; call init_weights() first")
-        from ....common.noise import split_seeds
+        from ....common.noise import split_generators
         xs = as_list(x)
         if len(xs) != len(self.inputs):
             raise ValueError(f"{self.name} expects {len(self.inputs)} "
                              f"inputs, got {len(xs)}")
-        gens = ([torch.Generator().manual_seed(s)
-                 for s in split_seeds(generator, len(self._topo))]
-                if generator is not None else [None] * len(self._topo))
+        gens = split_generators(generator, len(self._topo))
         value_of = {id(v.node): a for v, a in zip(self.inputs, xs)}
         for node, g in zip(self._topo, gens):
             if not node.parents:

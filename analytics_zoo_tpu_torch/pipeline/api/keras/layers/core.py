@@ -153,8 +153,9 @@ class Dense(Layer):
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator], training: bool):
-    """Inverted dropout drawn from ``generator`` (a CPU generator; the mask
-    is drawn on ``x``'s device); identity at inference."""
+    """Inverted dropout drawn from ``generator`` (the step's generator,
+    ``common/noise.py``; the mask is drawn on ``x``'s device); identity at
+    inference."""
     if not training or rate <= 0.0 or generator is None:
         return x
     keep = torch.rand(x.shape, generator=noise_generator(generator,

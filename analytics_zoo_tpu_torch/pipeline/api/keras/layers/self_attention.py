@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .....common.noise import split_seeds
+from .....common.noise import split_generators
 from .....ops.attention import dot_product_attention, merge_heads, split_heads
 from ..engine import Layer, compute_dtype, get_initializer, param_dtype
 from .core import dense, dropout
@@ -44,13 +44,10 @@ class DenseParams(Layer):
 
 
 def _split_generator(generator: Optional[torch.Generator], n: int):
-    """``n`` independent CPU generators drawn from the CPU ``generator``
-    (or Nones). Only seeds are split here; each noise draw makes its own
-    generator on the device it draws for (``noise_generator``)."""
-    if generator is None:
-        return [None] * n
-    return [torch.Generator().manual_seed(s)
-            for s in split_seeds(generator, n)]
+    """``n`` generators for ``n`` noise sites (``noise.split_generators``):
+    split CPU generators, or a device generator shared in program
+    order."""
+    return split_generators(generator, n)
 
 
 class MultiHeadSelfAttention(Layer):

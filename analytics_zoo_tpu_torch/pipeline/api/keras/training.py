@@ -1,7 +1,6 @@
 """TrainingLoop — port of ``analytics_zoo_tpu/pipeline/api/keras/
-training.py`` on its plain path: ``fit`` → ``fit_feature_set`` → the
-per-step loop (``scan_steps=1``, no device cache), the plain step of
-``_make_step_core`` (forward, loss, backward, optimizer update),
+training.py``: ``fit`` → ``fit_feature_set`` → the step loop, the plain
+step of ``_make_step_core`` (forward, loss, backward, optimizer update),
 ``evaluate`` with masked padded tails, and ``predict``.
 
 What the JAX loop does and this one keeps:
@@ -11,15 +10,28 @@ What the JAX loop does and this one keeps:
 * ``nb_epoch`` is additive over fit calls; the epoch loss is the mean of
   the step losses; ``history["loss"]`` holds one value per epoch and
   every callback gets ``{"epoch", "loss", "iteration", "throughput"}``;
-* no host sync inside an epoch: batches go to the device through pinned
-  memory without blocking, step losses stay on the device and are read
-  once at the epoch's end;
+* the dispatch paths (``dispatch.py``): one step at a time by default;
+  ``zoo.train.scan_steps = K`` steps a dispatch over chunks of K
+  FeatureSet batches; ``zoo.train.device_cache`` the dataset resident on
+  the device, each epoch's order a permutation drawn there (seeded from
+  ``fs.seed + zoo.seed + epoch``), drop-last, batches gathered on the
+  device; with it, ``zoo.train.fuse_epochs = g`` runs g epochs a block
+  when there is no validation, with one read of the device a block. On
+  CUDA a multi-step dispatch is the replay of a captured CUDA graph;
+* no host sync inside an epoch (or a fused block): batches go to the
+  device through pinned memory without blocking, step losses stay on the
+  device and are read once at the epoch's (the block's) end;
+* the optimizer's count and per-step values: the count is kept beside
+  the optimizer state (``model.opt_state``) and continues over fits; the
+  host computes each step's scalars and every path's update reads them
+  from a device row (``optimizers.step_scalars``);
 * the ``zoo_train_*`` step-time, throughput, step and example metrics in
   the process registry.
 
-Training noise: each step draws from a CPU generator seeded from
+Training noise: each step draws from a generator seeded from
 ``(zoo.seed, iteration)``, the counterpart of ``fold_in(base_rng,
-iteration)``; dropout masks are drawn on the device (``common/noise.py``).
+iteration)``: on the CPU a CPU generator the layers split, on CUDA a
+device generator every noise site draws from (``common/noise.py``).
 
 The step's forward and loss come from :meth:`TrainingLoop.
 _loss_application`, resolved once per loop as in the JAX package: a
@@ -34,9 +46,8 @@ stay integer from the ``FeatureSet`` to the model.
 
 Not ported yet, with their seams left where the JAX loop has them:
 anomaly sentinels and gradient clipping in the step, checkpoints and
-resume, retry on failure, SIGTERM snapshots, goodput accounting, scan and
-epoch fusion, the device-resident dataset, remat and the
-sequence/pipeline scopes.
+resume, retry on failure, SIGTERM snapshots, goodput accounting, remat
+and the sequence/pipeline scopes.
 """
 
 from __future__ import annotations
@@ -48,12 +59,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ....common.context import get_zoo_context
-from ....feature.feature_set import FeatureSet
+from ....common.context import get_zoo_context, train_dispatch
+from ....common.noise import step_seed
+from ....feature.feature_set import FeatureSet, chunked
 from ....observability import default_registry
-from . import objectives
+from . import dispatch, objectives
 from .metrics import Metric
-from .optimizers import GradientTransformation, apply_updates
+from .optimizers import GradientTransformation, apply_updates, scalar_rows
 
 log = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -111,9 +123,7 @@ def _padded_batches(x, y, batch_size: int):
 
 def step_generator(seed: int, iteration: int) -> torch.Generator:
     """The CPU generator of one training step's noise."""
-    state = np.random.SeedSequence([seed, iteration]).generate_state(2)
-    return torch.Generator().manual_seed(
-        (int(state[0]) << 32 | int(state[1])) & ((1 << 63) - 1))
+    return torch.Generator().manual_seed(step_seed(seed, iteration))
 
 
 class TrainingLoop:
@@ -143,6 +153,11 @@ class TrainingLoop:
             "zoo_train_steps_total", "optimizer steps run")
         self._m_examples = self._registry.counter(
             "zoo_train_examples_total", "training examples consumed")
+        #: the step losses of the latest fit, one array an epoch
+        self.step_losses: List[np.ndarray] = []
+        self._noise_gen: Optional[torch.Generator] = None
+        self._data = None      # (key, fs, dispatch.DeviceData): the latest set
+        self._program = None   # (key, dispatch.StepProgram)
 
     # -- model plumbing -----------------------------------------------------
     def _ensure_weights(self) -> None:
@@ -157,13 +172,15 @@ class TrainingLoop:
                 if p.requires_grad}
 
     def _opt_state(self, params):
-        """The model's optimizer state when this loop's optimizer made it
-        (a later fit continues it), else a fresh one."""
+        """``{"count", "state"}``: the model's optimizer state and update
+        count when this loop's optimizer made them (a later fit continues
+        both), else fresh ones."""
         model = self.model
         if (model.opt_state is None
                 or getattr(model, "_opt_state_owner", None)
                 is not self.optimizer):
-            model.opt_state = self.optimizer.init(params)
+            model.opt_state = {"count": 0,
+                               "state": self.optimizer.init(params)}
             model._opt_state_owner = self.optimizer
         return model.opt_state
 
@@ -218,9 +235,12 @@ class TrainingLoop:
         return apply_loss
 
     def train_step(self, x, y, generator: Optional[torch.Generator],
-                   params: Dict[str, torch.Tensor], opt_state) -> torch.Tensor:
-        """Forward, loss, backward, optimizer update (the JAX plain step).
-        Returns the step's loss as a device scalar; nothing syncs."""
+                   params: Dict[str, torch.Tensor], opt_state,
+                   scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Forward, loss, backward, optimizer update (the JAX plain step):
+        the step every dispatch path runs. ``opt_state`` is the
+        optimizer's state, ``scalars`` the step's row of its per-step
+        values. Returns the loss as a device scalar; nothing syncs."""
         for p in params.values():
             p.grad = None
         loss = self._loss_application()(x, y, generator)
@@ -229,9 +249,19 @@ class TrainingLoop:
                  for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        updates, _ = self.optimizer.update(grads, opt_state, params)
+        updates, _ = self.optimizer.update(grads, opt_state, params,
+                                           scalars)
         apply_updates(params, updates)
         return loss.detach()
+
+    def _noise(self, seed: int, iteration: int, device: torch.device):
+        """The eager step's generator: a CPU one on the CPU; on CUDA the
+        loop's device generator, seeded as a replayed step's is."""
+        if device.type != "cuda":
+            return step_generator(seed, iteration)
+        if self._noise_gen is None:
+            self._noise_gen = torch.Generator(device=device)
+        return self._noise_gen.manual_seed(step_seed(seed, iteration))
 
     # -- fit ------------------------------------------------------------------
     def fit(self, x, y, *, batch_size: int, nb_epoch: int,
@@ -252,50 +282,164 @@ class TrainingLoop:
         if fs.y is None:
             raise ValueError("fit needs labels")
         ctx = get_zoo_context()
+        scan_steps, device_cache, fuse = train_dispatch()
         model = self.model
         self._ensure_weights()
         device = self._device()
         params = self._params()
-        opt_state = self._opt_state(params)
+        opt = self._opt_state(params)
+        # the JAX loop turns device_cache off while an anomaly sentinel is
+        # active (training.py:1650-1661); the port has no sentinel yet,
+        # and that rule goes here when it lands
+        cached = device_cache and getattr(fs, "device_cacheable", True)
+        if cached:
+            self._device_data(fs, scan_steps, batch_size, device)
+        # epochs a block: the fused path only without validation (no
+        # checkpoint manager or end trigger is ported to need the host)
+        block = fuse if cached and validation_data is None else 1
+        n_steps = fs.steps_per_epoch(batch_size, drop_last=True)
         history: Dict[str, List[float]] = {"loss": []}
-        iteration = model.finished_iterations
-        target = model.finished_epochs + nb_epoch
-        for epoch in range(model.finished_epochs + 1, target + 1):
+        self.step_losses = []
+        epoch, target = model.finished_epochs, model.finished_epochs + nb_epoch
+        while epoch < target:
+            g = min(block, target - epoch)
             t0 = time.time()
+            rows = (scalar_rows(self.optimizer, opt["count"], g * n_steps,
+                                device) if n_steps else None)
             losses = []
-            for bx, by in fs.iter_batches(batch_size,
-                                          epoch=ctx.seed + epoch,
-                                          drop_last=True):
-                losses.append(self.train_step(
-                    _to_device(bx, device), _to_device(by, device),
-                    step_generator(ctx.seed, iteration), params,
-                    opt_state))
-                iteration += 1
-            # the epoch's one read of the device
-            epoch_loss = (float(torch.stack(losses).float().mean())
-                          if losses else float("nan"))
-            dt = time.time() - t0
-            n_seen = len(losses) * batch_size
-            self._observe_fit_metrics(len(losses), dt, n_seen)
-            history["loss"].append(epoch_loss)
-            model.finished_epochs = epoch
-            model.finished_iterations = iteration
-            record = {"epoch": epoch, "loss": epoch_loss,
-                      "iteration": iteration,
-                      "throughput": n_seen / dt if dt > 0 else 0.0}
-            if validation_data is not None:
-                vx, vy = ((validation_data.x, validation_data.y)
-                          if isinstance(validation_data, FeatureSet)
-                          else validation_data)
-                val = self.evaluate(vx, vy, batch_size=batch_size)
-                for k, v in val.items():
-                    history.setdefault("val_" + k, []).append(v)
-                record.update({"val_" + k: v for k, v in val.items()})
-            log.info("Epoch %d: loss=%.6f (%.1f ex/s)", epoch,
-                     epoch_loss, record["throughput"])
-            for cb in callbacks:
-                cb(record)
+            for j in range(g):
+                args = (fs, epoch + 1 + j, ctx.seed,
+                        model.finished_iterations + j * n_steps, batch_size,
+                        params, opt,
+                        None if rows is None else rows[j * n_steps:
+                                                       (j + 1) * n_steps])
+                if cached:
+                    losses.append(self._cached_epoch(*args, scan_steps))
+                elif scan_steps > 1:
+                    losses.append(self._chunked_epoch(*args, scan_steps))
+                else:
+                    losses.append(self._eager_epoch(*args))
+            # the block's one read of the device
+            block_losses = torch.stack(losses).float().cpu()
+            dt = (time.time() - t0) / g
+            self._observe_fit_metrics(g * n_steps, dt * g,
+                                      g * n_steps * batch_size)
+            for j in range(g):
+                e = epoch + 1 + j
+                step_l = block_losses[j]
+                epoch_loss = (float(step_l.mean()) if n_steps
+                              else float("nan"))
+                self.step_losses.append(step_l.numpy())
+                history["loss"].append(epoch_loss)
+                model.finished_epochs = e
+                record = {"epoch": e, "loss": epoch_loss,
+                          "iteration": (model.finished_iterations
+                                        + (j + 1) * n_steps),
+                          "throughput": (n_steps * batch_size / dt
+                                         if dt > 0 else 0.0)}
+                if validation_data is not None:
+                    vx, vy = ((validation_data.x, validation_data.y)
+                              if isinstance(validation_data, FeatureSet)
+                              else validation_data)
+                    val = self.evaluate(vx, vy, batch_size=batch_size)
+                    for k, v in val.items():
+                        history.setdefault("val_" + k, []).append(v)
+                    record.update({"val_" + k: v for k, v in val.items()})
+                log.info("Epoch %d: loss=%.6f (%.1f ex/s)", e, epoch_loss,
+                         record["throughput"])
+                for cb in callbacks:
+                    cb(record)
+            model.finished_iterations += g * n_steps
+            epoch += g
         return history
+
+    # -- the dispatch paths (each returns one epoch's step losses, on the
+    #    device) ----------------------------------------------------------
+    def _eager_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
+                     rows):
+        """One step a dispatch, each batch copied to the device."""
+        device = self._device()
+        losses = []
+        for i, (bx, by) in enumerate(fs.iter_batches(
+                batch_size, epoch=seed + epoch, drop_last=True)):
+            losses.append(self.train_step(
+                _to_device(bx, device), _to_device(by, device),
+                self._noise(seed, it0 + i, device), params, opt["state"],
+                rows[i]))
+            opt["count"] += 1
+        return (torch.stack(losses) if losses
+                else torch.zeros(0, device=device))
+
+    def _chunked_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
+                       rows, k_max):
+        """``k_max`` steps a dispatch: the FeatureSet's batches stacked K to
+        a chunk (the last shorter), copied into the program's buffers."""
+        device = self._device()
+        losses, done = [], 0
+        for chunk in chunked(fs.iter_batches(batch_size, epoch=seed + epoch,
+                                             drop_last=True), k_max):
+            program = self._step_program(
+                ("chunks", batch_size, k_max,
+                 tuple((a.dtype.str, a.shape[1:]) for a in fs.xs),
+                 (fs.y.dtype.str, fs.y.shape[1:])),
+                lambda: dispatch.HostChunks(fs.xs, fs.y, k_max, batch_size,
+                                            device),
+                params, opt, k_max)
+            k = program.inputs.fill(chunk)
+            losses.append(program.run(k, seed, it0 + done,
+                                      rows[done:done + k]))
+            opt["count"] += k
+            done += k
+        return (torch.cat(losses) if losses
+                else torch.zeros(0, device=device))
+
+    def _device_data(self, fs, k_max, batch_size, device):
+        """The device-resident copy of ``fs``, uploaded once and kept while
+        ``fs`` is the latest set (device memory is the scarce resource;
+        switching sets back and forth uploads again)."""
+        key = (id(fs), len(fs), k_max, batch_size, str(device))
+        if self._data is None or self._data[0] != key:
+            self._data = self._program = None
+            # holding ``fs`` keeps its id from naming another set
+            self._data = (key, fs, dispatch.DeviceData(
+                fs.xs, fs.y, k_max, batch_size, device))
+        return self._data[2]
+
+    def _cached_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
+                      rows, k_max):
+        """The device-resident set in the epoch's order (a permutation drawn
+        on the device, the first ``n_steps x batch`` rows), gathered on the
+        device ``k_max`` steps a dispatch."""
+        device = self._device()
+        data = self._device_data(fs, k_max, batch_size, device)
+        n_steps = fs.steps_per_epoch(batch_size, drop_last=True)
+        n = len(fs)
+        order = (dispatch.device_permutation(n, fs.seed + seed + epoch,
+                                             device)
+                 if fs.shuffle else torch.arange(n, device=device))
+        order = order[:n_steps * batch_size].reshape(n_steps, batch_size)
+        program = self._step_program(("cached", self._data[0]),
+                                     lambda: data, params, opt, k_max)
+        losses = []
+        for done in range(0, n_steps, k_max):
+            k = data.fill(order[done:done + k_max])
+            losses.append(program.run(k, seed, it0 + done,
+                                      rows[done:done + k]))
+            opt["count"] += k
+        return (torch.cat(losses) if losses
+                else torch.zeros(0, device=device))
+
+    def _step_program(self, key, make_inputs, params, opt, k_max):
+        """The loop's program for ``key``, made (with ``make_inputs()``'s
+        buffers) on first use and kept over fits while the parameters and
+        the optimizer state are the same tensors."""
+        key = (key, id(opt["state"]),
+               tuple(p.data_ptr() for p in params.values()))
+        if self._program is None or self._program[0] != key:
+            self._program = None
+            self._program = (key, dispatch.StepProgram(
+                self, params, opt["state"], make_inputs(), k_max))
+        return self._program[1]
 
     def _observe_fit_metrics(self, steps: int, dt: float,
                              n_examples: int) -> None:
@@ -337,7 +481,8 @@ class TrainingLoop:
                     for k, d in stats.items()}
         if totals is None:
             return {}
-        host = {k: {s: v.item() for s, v in d.items()}
+        host = {k: {s: (v.item() if v.dim() == 0 else v.cpu())
+                    for s, v in d.items()}
                 for k, d in totals.items()}
         out = {m.name: float(m.finalize(host[m.name])) for m in self.metrics}
         out["loss"] = host["loss"]["sum"] / max(host["loss"]["count"], 1.0)

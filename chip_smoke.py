@@ -78,7 +78,16 @@
    two from the same weights (1e-5 relative per leaf), the same dW bits
    over two
    backward passes, and ``recommend_for_user`` against a plain eager
-   forward.
+   forward. Each configuration is fitted four times from the same start,
+   in turns: the eager loop, the JAX bench's dispatch keys
+   (``zoo.train.scan_steps=16``, ``device_cache=true``; ``fuse_epochs=2``
+   for the two timed epochs, the bench's 12 cut), the keys again, the
+   eager loop; each prints records/s, ms a step and the device's busy
+   share over one more epoch under ``torch.profiler``; the keyed fits'
+   K1 and SA count 4 a step under CUDA-graph replay. The keyed loop runs
+   once more with the device permutation replaced by the FeatureSet's own
+   order: its step losses against the eager loop's (the same bits, or
+   within 1e-6 relative, printed which).
 
 11. int8 kernel phase: K6 (the int8 weight-only dequant-matmul,
    ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
@@ -121,6 +130,16 @@
    way, fewer with the fusion), and ``ClusterServing(model,
    dtype="int8")`` answering all 256 records with 4 K6 launches per
    dispatch, all on the skinny kernel.
+14. Fault l phase: the fused LM-head cross-entropy on views (a column
+   slice of a wider hidden array, a tied head's transposed embedding) at
+   N=4100, H=512, V=8192, f32 and bf16: one launch each of K4/K5a/K5b,
+   the loss rows and the three gradients against the plain route.
+15. Captured BERT phase: BERT at two blocks of full width, seq 512, batch
+   8, hidden dropout 0.1, four steps a captured graph: K2, K3a and K3b
+   launch 2 a step under replay, every step of two replays draws a new
+   dropout mask (sgd at lr 0 on one repeated record: 8 distinct step
+   losses), the eager steps' masks; with dropout 0 and AdamW the captured
+   fit's losses and parameters against the eager fit's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
@@ -191,6 +210,14 @@ NCF_BATCH = 8192
 #: repeated ids' cotangents in f32 (position order against the gather's
 #: own backward), so they differ by summation order only
 NCF_GRAD_REL_TOL = 1e-5
+#: the JAX bench's dispatch keys (bench.py:53-54, 1258-1262), fuse_epochs
+#: cut from its 12 to the phase's two timed epochs
+NCF_KEYED_CONF = {"zoo.train.scan_steps": 16, "zoo.train.device_cache": True,
+                  "zoo.train.fuse_epochs": 2}
+#: the keyed loop's step losses against the eager loop's in the same batch
+#: order: the same ops on the same values, so the same bits are expected;
+#: this bounds any difference a captured kernel might still make
+NCF_STEP_REL_TOL = 1e-6
 #: DLRM-Terabyte's width: 26 sparse features of dimension 128, batch 2048
 DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
 
@@ -1043,12 +1070,13 @@ def step_breakdown(model, xb, yb):
     AdamW update with its parameter add."""
     import torch
 
-    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
-        apply_updates
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import (
+        apply_updates, scalar_rows)
     from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
         step_generator
     loop = model._loop
     params = loop._params()
+    row = scalar_rows(loop.optimizer, model.opt_state["count"], 1, "cuda")[0]
 
     def forward():
         return loop.loss(yb, model(xb, training=True,
@@ -1061,7 +1089,8 @@ def step_breakdown(model, xb, yb):
     grads = {n: torch.full_like(p, 1e-3) for n, p in params.items()}
 
     def update():
-        upd, _ = loop.optimizer.update(dict(grads), model.opt_state, params)
+        upd, _ = loop.optimizer.update(dict(grads), model.opt_state["state"],
+                                       params, row)
         apply_updates(params, upd)
 
     out = {"forward": time_ms(forward, iters=5, warmup=1),
@@ -1791,6 +1820,165 @@ def lm_attention_errors(q, k, v, do, out, lse, delta):
             "flash_attention_bwd_dkv": max(err["dk"], err["dv"])}
 
 
+def fault_l_phase():
+    """``fused_cross_entropy_rows`` on views the kernels do not take as
+    they lie, a column slice of a wider hidden array and a tied head's
+    transposed ``(V, H)`` embedding, at the CE phase's N=4100, H=512,
+    V=8192 (f32 and bf16): one launch each of K4, K5a and K5b on dense
+    copies, held to the plain route, the loss rows and the gradients of
+    the wide array, the embedding and the bias (each in its caller's
+    layout) at CE_TOL."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.fused_cross_entropy import \
+        fused_cross_entropy_rows
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL_CE_FWD,
+        fused_ce_forward_reference)
+    n, hidden, v = 4100, 512, 8192
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        g = torch.Generator().manual_seed(11)
+        wide = torch.randn(n, hidden + 64, generator=g).to("cuda", dtype)
+        emb = (torch.randn(v, hidden, generator=g)
+               * hidden ** -0.5).to("cuda", dtype)
+        b = (torch.randn(v, generator=g) * 0.5).cuda()
+        labels = torch.randint(0, v, (n,), generator=g, dtype=torch.int32)
+        labels[::3] = -1
+        labels = labels.cuda()
+
+        def run(use_pallas):
+            ts = [t.detach().clone().requires_grad_()
+                  for t in (wide, emb, b)]
+            rows = fused_cross_entropy_rows(ts[0][:, 32:32 + hidden],
+                                            ts[1].T, ts[2], labels,
+                                            use_pallas=use_pallas)
+            grads = torch.autograd.grad(rows.sum(), ts)
+            check(all(gr.shape == t.shape and gr.dtype == t.dtype
+                      for t, gr in zip(ts, grads)),
+                  "fault l: a gradient left its caller's layout")
+            return rows.detach(), grads
+        counters = (KERNEL_CE_FWD, KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW)
+        before = [c.launches for c in counters]
+        got, g_got = run(True)
+        torch.cuda.synchronize()
+        launched = [c.launches - n0 for c, n0 in zip(counters, before)]
+        want, g_want = run(False)
+        _, ll = fused_ce_forward_reference(
+            wide[:, 32:32 + hidden].contiguous(), emb.T.contiguous(), b,
+            labels)
+        tol = CE_TOL[name]
+        err = (got - want).abs().max().item()
+        bound = tol["lse"] + tol["ll_rel"] * ll.abs().max().item()
+        g_err = [((a.float() - c.float()).abs().max()
+                  / c.float().abs().max()).item()
+                 for a, c in zip(g_got, g_want)]
+        out[name] = {"loss_err": err, "loss_tol": bound,
+                     "grad_rel_err": g_err, "launches": launched}
+        print(f"fault l ({name}): hidden[:, 32:544] and emb.T through the "
+              f"kernels vs the plain route: loss rows {err:.3e} (tol "
+              f"{bound:.3e}), gradients of the wide array, emb, b "
+              f"{[f'{e:.3e}' for e in g_err]} of their largest (tol "
+              f"{tol['grad']}); K4/K5a/K5b launches {launched}")
+        check(launched == [1, 1, 1], f"fault l: launches {launched}")
+        check(err <= bound and all(e <= tol["grad"] for e in g_err),
+              f"fault l ({name}): {out[name]}")
+    return out
+
+
+#: the captured BERT check: BERT-base width, 2 blocks, seq 512, batch 8,
+#: hidden dropout 0.1 (attention dropout 0, so the flash kernels run)
+CAPTURE_CFG = dict(TRAIN_CFG, n_block=2, hidden_drop=0.1)
+CAPTURE_BATCH, CAPTURE_STEPS = 8, 8
+
+
+def captured_bert_phase():
+    """BERT at two blocks of full width, four steps a captured graph
+    (``zoo.train.scan_steps=4``): K2, K3a and K3b and the dropout draws run
+    inside the graph. With sgd at lr 0 on one record repeated (so the
+    weights and the batch never change), every step loss of the two
+    replays differs (each step draws new masks) and equals the eager
+    loop's at that iteration; with dropout 0 and AdamW, the captured
+    fit's losses and final parameters against the eager fit's (the same
+    bits, or within 1e-6 relative, said which)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    x, y, _ = training_data(CAPTURE_BATCH * CAPTURE_STEPS)
+    counters = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)
+
+    def fit(keyed, drop, one_record):
+        init_zoo_context(conf={"zoo.pallas.attention": True,
+                               "zoo.compute.dtype": "bfloat16",
+                               "zoo.seed": 0,
+                               "zoo.train.scan_steps": 4 if keyed else 1})
+        reset_uids()
+        model = BERTClassifier(**dict(CAPTURE_CFG, hidden_drop=drop),
+                               device="cuda").init_weights()
+        if one_record:
+            model.compile(optimizer="sgd", loss="scce", lr=0.0)
+            xs = [np.repeat(a[:1], len(a), 0) for a in x]
+            ys = np.repeat(y[:1], len(y), 0)
+        else:
+            model.compile(optimizer="adamw", loss="scce", lr=2e-5)
+            xs, ys = x, y
+        model.fit(xs, ys, batch_size=CAPTURE_BATCH, nb_epoch=1,
+                  shuffle=False)                     # captures when keyed
+        for c in counters:
+            c.reset()
+        model.fit(xs, ys, batch_size=CAPTURE_BATCH, nb_epoch=1,
+                  shuffle=False)
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        return (np.concatenate(model._loop.step_losses),
+                [p.detach().clone() for p in model.parameters()], launches)
+
+    keyed, _, launches = fit(True, 0.1, True)
+    eager, _, _ = fit(False, 0.1, True)
+    want = CAPTURE_CFG["n_block"] * CAPTURE_STEPS
+    distinct = len(set(keyed.tolist()))
+    masks_equal = bool(np.array_equal(keyed.view(np.int32),
+                                      eager.view(np.int32)))
+    print(f"captured BERT (2 blocks, seq 512, batch {CAPTURE_BATCH}, hidden "
+          f"dropout 0.1, lr 0, one record): {CAPTURE_STEPS} step losses "
+          f"over two replays, {distinct} distinct (a new mask every step); "
+          f"the eager steps' losses, the same bits: {masks_equal}; "
+          f"K2/K3a/K3b launches under replay {launches} (want {want} each)")
+    check(distinct == CAPTURE_STEPS, f"captured dropout repeated a mask: "
+          f"{keyed.tolist()}")
+    check(masks_equal, f"captured dropout draws differ from the eager "
+          f"steps': {keyed.tolist()} vs {eager.tolist()}")
+    check(launches == [want] * 3, f"captured BERT launches {launches}")
+
+    k_loss, k_params, _ = fit(True, 0.0, False)
+    e_loss, e_params, _ = fit(False, 0.0, False)
+    loss_bits = bool(np.array_equal(k_loss.view(np.int32),
+                                    e_loss.view(np.int32)))
+    param_bits = all(torch.equal(a, b) for a, b in zip(k_params, e_params))
+    rel = max([float(np.max(np.abs(k_loss - e_loss) / np.abs(e_loss)))]
+              + [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                 for a, b in zip(k_params, e_params)])
+    print(f"captured BERT, dropout 0, AdamW 2e-5: captured vs eager step "
+          f"losses the same bits {loss_bits}, final parameters the same "
+          f"bits {param_bits}"
+          + ("" if loss_bits and param_bits
+             else f"; largest relative difference {rel:.3e} (tolerance "
+                  f"1e-6)"))
+    check((loss_bits and param_bits) or rel <= 1e-6,
+          f"captured BERT differs from eager by {rel}")
+    return {"distinct_step_losses": distinct,
+            "dropout_masks_eager_bits": masks_equal,
+            "launches": launches, "losses_same_bits": loss_bits,
+            "params_same_bits": param_bits, "max_rel_diff": rel}
+
+
 def ce_hidden_phase():
     """K4, K5a and K5b at hidden widths the kernels pad (H = 100 to 128)
     or slice (H = 1280 and 2048, two slices of 640 and 1024) against their
@@ -2075,9 +2263,45 @@ def ncf_plain_forward(params, pairs):
     return torch.softmax(h @ ow + ob, dim=-1)
 
 
+def busy_share(intervals, t0, t1):
+    """Fraction of [t0, t1] covered by the union of ``intervals``."""
+    covered, end = 0.0, t0
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, t1)
+        if e > s:
+            covered += e - s
+            end = e
+    return covered / (t1 - t0) if t1 > t0 else 0.0
+
+
+def profiled_busy_share(fn):
+    """``fn()`` under ``torch.profiler``: the share of the wall window (the
+    first to the last traced event) in which a device kernel ran, and the
+    summed kernel ms; None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, window = [], [float("inf"), float("-inf")]
+    for evt in prof.events():
+        tr = evt.time_range
+        window[0] = min(window[0], tr.start)
+        window[1] = max(window[1], tr.end)
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((tr.start, tr.end))
+    if not kernels:
+        return None, None
+    return (busy_share(kernels, *window),
+            sum(e - s for s, e in kernels) / 1e3)
+
+
 def ncf_fit(name, model, fs, counters):
     """compile/fit: a warm-up epoch, then two timed epochs with the
     launch counters set to 0 just before and read just after."""
+    import numpy as np
     import torch
     model.compile(optimizer="adam", loss="scce", metrics=["accuracy"],
                   lr=1e-3)
@@ -2087,6 +2311,7 @@ def ncf_fit(name, model, fs, counters):
               callbacks=[records.append])
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    step_losses = list(model._loop.step_losses)
     for c in counters:
         c.reset()
     timed = []
@@ -2096,6 +2321,7 @@ def ncf_fit(name, model, fs, counters):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [c.launches for c in counters]
+    step_losses += model._loop.step_losses
     records += timed
     steps = 2 * fs.steps_per_epoch(NCF_BATCH)
     losses = [r["loss"] for r in records]
@@ -2103,6 +2329,7 @@ def ncf_fit(name, model, fs, counters):
                "recs_per_s": max(r["throughput"] for r in timed),
                "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
                "warmup_s": warm, "losses": losses,
+               "step_losses": np.concatenate(step_losses),
                "launches": dict(zip(("embed_expand", "dedup_scatter_add"),
                                     launches))}
     print(f"ncf {name}: {steps} steps of {NCF_BATCH} in {wall:.3f}s = "
@@ -2115,10 +2342,92 @@ def ncf_fit(name, model, fs, counters):
     return summary
 
 
+def ncf_build(kind, n_users, n_items):
+    """A fresh NCF of ``kind`` (stock or sharded) with the seeded start
+    weights (``zoo.seed`` 0, names from a reset uid counter): ``(model,
+    net)``, ``net`` the module holding the parameters."""
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    reset_uids()
+    if kind == "stock":
+        model = NeuralCF(n_users, n_items, N_CLASSES, device="cuda")
+        model.init_weights()
+        return model, model.model
+    net = sharded_ncf(n_users, n_items, N_CLASSES).init_weights()
+    return net, net
+
+
+def ncf_conf(keyed):
+    return {"zoo.seed": 0, "zoo.compute.dtype": "float32",
+            "zoo.pallas.embed_gather": "auto",
+            **(NCF_KEYED_CONF if keyed else {})}
+
+
+def ncf_in_turns(kind, fs, counters, n_users, n_items):
+    """``kind``'s fit four times from the same start, eager, keyed, keyed,
+    eager (the host's speed moves NCF between machines, so the loops are
+    compared within one call), each the device's busy share over one
+    more epoch under the profiler after its timed epochs; then the keyed
+    loop once more with the device permutation replaced by the
+    FeatureSet's own order, its step losses held to the first eager
+    run's."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras import dispatch
+    runs = {"eager": [], "keyed": []}
+    first = None
+    for mode in ("eager", "keyed", "keyed", "eager"):
+        init_zoo_context(conf=ncf_conf(mode == "keyed"))
+        model, net = ncf_build(kind, n_users, n_items)
+        summary = ncf_fit(f"{kind} {mode} run {len(runs[mode]) + 1}",
+                          model, fs, counters)
+        share, kernel_ms = profiled_busy_share(
+            lambda: model.fit(fs, batch_size=NCF_BATCH, nb_epoch=1))
+        summary.update(busy_share=share, profiled_kernel_ms=kernel_ms)
+        print(f"ncf {kind} {mode}: device busy "
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f" of one profiled epoch ({kernel_ms} ms of kernels)")
+        runs[mode].append(summary)
+        if first is None:
+            first = (model, net)
+        else:
+            del model, net
+    order = dispatch.device_permutation
+    dispatch.device_permutation = (
+        lambda n, seed, device: torch.from_numpy(
+            np.random.default_rng(seed).permutation(n)).to(device))
+    try:
+        init_zoo_context(conf=ncf_conf(True))
+        model, _ = ncf_build(kind, n_users, n_items)
+        same = ncf_fit(f"{kind} keyed in the FeatureSet's order", model, fs,
+                       counters)
+    finally:
+        dispatch.device_permutation = order
+    del model
+    want = runs["eager"][0]["step_losses"]
+    got = same["step_losses"]
+    bits = bool(np.array_equal(got.view(np.int32), want.view(np.int32)))
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"ncf {kind}: keyed loop in the FeatureSet's order vs the eager "
+          f"loop, {len(want)} step losses: the same bits {bits}"
+          + ("" if bits else f", largest relative difference {rel:.3e} "
+             f"(tolerance {NCF_STEP_REL_TOL})"))
+    check(len(got) == len(want) and (bits or rel <= NCF_STEP_REL_TOL),
+          f"ncf {kind}: keyed step losses differ from the eager loop's by "
+          f"{rel}")
+    for mode, rs in runs.items():
+        for r in rs:
+            r.pop("step_losses")
+    return runs, {"same_bits": bits, "max_rel_diff": rel}, first
+
+
 def ncf_phase(x, y):
-    """Both NCF configurations through compile/fit at the bench width,
-    their launch counts, one step's gradients against each other, the dW
-    bits of two backward passes, and recommend_for_user."""
+    """Both NCF configurations through compile/fit at the bench width, each
+    in turns eager and with the JAX bench's dispatch keys, their launch
+    counts, one step's gradients against each other, the dW bits of two
+    backward passes, and recommend_for_user."""
     import numpy as np
     import torch
 
@@ -2128,34 +2437,43 @@ def ncf_phase(x, y):
     from analytics_zoo_tpu_torch.ops.pallas.embedding import (
         KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
     from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
-    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
 
-    init_zoo_context(conf={"zoo.seed": 0, "zoo.compute.dtype": "float32",
-                           "zoo.pallas.embed_gather": "auto"})
     counters = (KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
     n_users = max(N_USERS, int(x[:, 0].max()))
     n_items = max(N_ITEMS, int(x[:, 1].max()))
     fs = FeatureSet.array(x, y, seed=0)
     steps_per_epoch = fs.steps_per_epoch(NCF_BATCH)
-
-    reset_uids()
-    stock = NeuralCF(n_users, n_items, N_CLASSES, device="cuda")
-    stock.init_weights()
-    start = [p.detach().clone() for p in stock.model.parameters()]
-    out = {"stock": ncf_fit("stock NeuralCF", stock, fs, counters)}
-    check(out["stock"]["launches"] == {"embed_expand": 0,
-                                       "dedup_scatter_add": 0},
-          f"the stock NeuralCF launched the embedding kernels: "
-          f"{out['stock']['launches']}")
-
-    reset_uids()
-    sharded = sharded_ncf(n_users, n_items, N_CLASSES).init_weights()
-    out["sharded"] = ncf_fit("ShardedEmbedding graph", sharded, fs, counters)
-    want = 4 * out["sharded"]["steps"]
-    check(out["sharded"]["launches"] == {"embed_expand": want,
-                                         "dedup_scatter_add": want},
-          f"sharded graph launches {out['sharded']['launches']}, want "
-          f"{want} each (4 tables x {out['sharded']['steps']} steps)")
+    out = {}
+    nets = {}
+    for kind in ("stock", "sharded"):
+        runs, same, (model, net) = ncf_in_turns(kind, fs, counters, n_users,
+                                                n_items)
+        nets[kind] = (model, net)
+        want = ({"embed_expand": 0, "dedup_scatter_add": 0}
+                if kind == "stock" else
+                {"embed_expand": 4 * runs["eager"][0]["steps"],
+                 "dedup_scatter_add": 4 * runs["eager"][0]["steps"]})
+        for mode, rs in runs.items():
+            for r in rs:
+                check(r["launches"] == want,
+                      f"ncf {kind} {mode}: launches {r['launches']}, want "
+                      f"{want} (4 tables x steps on the sharded graph, "
+                      f"none on the stock model)")
+        out[kind] = runs["eager"][0]
+        out[kind + "_runs"] = runs
+        out[kind + "_keyed_vs_eager"] = same
+        print(f"ncf {kind}: records/s eager "
+              f"{[r['recs_per_s'] for r in runs['eager']]}, keyed "
+              f"{[r['recs_per_s'] for r in runs['keyed']]}; ms/step eager "
+              f"{[r['ms_per_step'] for r in runs['eager']]}, keyed "
+              f"{[r['ms_per_step'] for r in runs['keyed']]}; device busy "
+              f"eager {[r['busy_share'] for r in runs['eager']]}, keyed "
+              f"{[r['busy_share'] for r in runs['keyed']]}")
+    init_zoo_context(conf=ncf_conf(False))
+    stock, sharded = nets["stock"][0], nets["sharded"][1]
+    start_stock = ncf_build("stock", n_users, n_items)[1]
+    start = [p.detach().clone() for p in start_stock.parameters()]
+    del start_stock
 
     # one step's gradients of the two from the same (starting) weights
     xb = torch.from_numpy(x[:NCF_BATCH]).cuda()
@@ -2316,8 +2634,11 @@ def main() -> int:
     for row in rows:
         row.update(flash_lm[row["name"]])
     rows += ce_kernel_rows
+    fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
-    rows = embed_kernel_rows(embed_rows, ncf["sharded"]["launches"]) + rows
+    captured_bert = captured_bert_phase()
+    rows = embed_kernel_rows(
+        embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
         "bert_serving": int8_serving["launches"]},
@@ -2329,7 +2650,8 @@ def main() -> int:
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
                       "serving": serving, "int8_serving": int8_serving,
                       "int8_head": int8_head, "training": training,
-                      "lm": lm, "ncf": ncf, "card": card}))
+                      "lm": lm, "ncf": ncf, "fault_l": fault_l,
+                      "captured_bert": captured_bert, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

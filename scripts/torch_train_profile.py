@@ -16,7 +16,11 @@ bench configuration as ``chip_smoke.py``'s NCF phase does (``NeuralCF(6040,
 3706, 5)``, Adam lr 1e-3, batch 8192, MovieLens-1M-shaped ratings);
 ``--model ncf_sharded`` the same graph on ``ShardedEmbedding`` tables (the
 dedup'd engine with K1 and SA). Fits a warm-up epoch of two steps, then records
-``--steps`` steps of ``fit`` under ``torch.profiler``. Prints the card's
+``--steps`` steps of ``fit`` under ``torch.profiler``. ``--keyed`` fits with
+the JAX bench's dispatch keys (``zoo.train.scan_steps=16``,
+``device_cache=true``): the warm-up is a whole epoch of the same
+FeatureSet, so the graphs are captured before the traced epoch, which then
+replays them. Prints the card's
 name and power limit, the device time per step by kernel family and for
 the top kernels, the share of the traced window in which any kernel ran
 (the device busy share), and one JSON summary as the last line.
@@ -59,17 +63,6 @@ def family(name: str) -> str:
         if any(k in name for k in keys):
             return fam
     return "elementwise/other"
-
-
-def busy_share(intervals, t0, t1):
-    """Fraction of [t0, t1] covered by the union of ``intervals``."""
-    covered, end = 0.0, t0
-    for s, e in sorted(intervals):
-        s, e = max(s, end), min(e, t1)
-        if e > s:
-            covered += e - s
-            end = e
-    return covered / (t1 - t0) if t1 > t0 else 0.0
 
 
 def build_bert(steps: int):
@@ -127,6 +120,7 @@ def main() -> int:
                                             "ncf_sharded"), default="bert")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--trace", default=None)
+    parser.add_argument("--keyed", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device; nothing was run",
@@ -134,6 +128,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import busy_share
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -143,9 +139,18 @@ def main() -> int:
     builders = {"bert": build_bert, "lm": build_lm, "ncf": build_ncf,
                 "ncf_sharded": lambda n: build_ncf(n, sharded=True)}
     model, x, y, batch = builders[args.model](args.steps)
-    model.fit([a[:2 * batch] for a in x] if isinstance(x, list)
-              else x[:2 * batch], y[:2 * batch], batch_size=batch,
-              nb_epoch=1)                                # warm-up
+    if args.keyed:
+        from analytics_zoo_tpu_torch.common.context import (get_zoo_context,
+                                                            init_zoo_context)
+        from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+        from chip_smoke import NCF_KEYED_CONF
+        init_zoo_context(conf={**get_zoo_context().conf, **NCF_KEYED_CONF})
+        x, y = FeatureSet.array(x, y, seed=0), None
+        model.fit(x, batch_size=batch, nb_epoch=1)       # warm-up, capture
+    else:
+        model.fit([a[:2 * batch] for a in x] if isinstance(x, list)
+                  else x[:2 * batch], y[:2 * batch], batch_size=batch,
+                  nb_epoch=1)                            # warm-up
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -177,7 +182,8 @@ def main() -> int:
     steps = args.steps
     device_ms = sum(by_name.values()) / 1e3 / steps
     share = busy_share([(s, e) for _, s, e in kernels], *window)
-    print(f"{args.model}: {steps} steps of {batch} in {wall:.3f}s "
+    print(f"{args.model}{' keyed' if args.keyed else ''}: {steps} steps "
+          f"of {batch} in {wall:.3f}s "
           f"({1e3 * wall / steps:.1f} ms/step under the profiler); kernel "
           f"time {device_ms:.1f} ms/step; device busy {100 * share:.1f}% "
           f"of the traced window")
@@ -189,7 +195,8 @@ def main() -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {us / 1e3 / steps:9.3f}  {name[:110]}")
     print(json.dumps({
-        "card": card, "model": args.model, "steps": steps, "batch": batch,
+        "card": card, "model": args.model, "keyed": args.keyed,
+        "steps": steps, "batch": batch,
         "ms_per_step_profiled": 1e3 * wall / steps,
         "kernel_ms_per_step": device_ms, "device_busy_share": share,
         "family_ms_per_step": {f: us / 1e3 / steps

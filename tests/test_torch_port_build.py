@@ -386,3 +386,65 @@ def test_ce_wrappers_pass_a_route_pointer_and_record_the_route(
         assert last.route == route
     finally:
         last.route = prev
+
+
+@pytest.mark.parametrize("replays", [0, 1, 7])
+def test_a_captured_steps_launches_count_at_every_replay(monkeypatch,
+                                                         replays):
+    """What a capture counted (here the CE forward's launch path with the
+    library and the launch faked, twice, and K2's and K1's counters as
+    their wrappers bump them) comes off the counters when the capture
+    ends (nothing launched then) and is added back at every replay, by
+    kernel and by route; counters the capture did not touch stay."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import launch_count
+    from analytics_zoo_tpu_torch.ops.pallas import embedding
+
+    def fake_launch(fn, tensor, *args):
+        args[-1]._obj.value = 0      # the C side reports wgmma
+        return 0
+    monkeypatch.setattr(cross_entropy.LIBRARY, "entry", lambda name: name)
+    monkeypatch.setattr(cross_entropy, "launch", fake_launch)
+    g = torch.Generator().manual_seed(3)
+    ops = cross_entropy._backward_operands(
+        torch.randn(4, 64, generator=g).bfloat16(),
+        torch.randn(64, 16, generator=g).bfloat16(), None,
+        torch.arange(4, dtype=torch.int32), torch.zeros(4), torch.ones(4))
+    counters = {"k4": cross_entropy.KERNEL_CE_FWD,
+                "k4_wgmma": cross_entropy.KERNEL_CE_FWD_ROUTES["wgmma"],
+                "k4_fma": cross_entropy.KERNEL_CE_FWD_ROUTES["fma"],
+                "k2": flash_attention.KERNEL,
+                "k1": embedding.KERNEL_EMBED_EXPAND,
+                "sa": embedding.KERNEL_SCATTER_ADD}
+    assert all(c in launch_count.LaunchCount.ALL for c in counters.values())
+    before = {k: c.launches for k, c in counters.items()}
+    last = cross_entropy.LAST_FWD_LAUNCH.route
+    try:
+        with launch_count.record_launches() as record:
+            for _ in range(2):
+                cross_entropy._launch_fwd(*ops[:4])
+            flash_attention.KERNEL.launches += 4
+            embedding.KERNEL_EMBED_EXPAND.launches += 1
+        assert {k: c.launches for k, c in counters.items()} == before
+        for _ in range(replays):
+            record.replayed()
+        per = {"k4": 2, "k4_wgmma": 2, "k4_fma": 0, "k2": 4, "k1": 1,
+               "sa": 0}
+        assert {k: record.of(c) for k, c in counters.items()} == per
+        assert {k: c.launches for k, c in counters.items()} == \
+            {k: before[k] + replays * per[k] for k in counters}
+    finally:
+        for k, c in counters.items():
+            c.launches = before[k]
+        cross_entropy.LAST_FWD_LAUNCH.route = last
+
+
+def test_a_failed_capture_leaves_the_counters_as_they_were():
+    from analytics_zoo_tpu_torch.ops import launch_count
+    before = flash_attention.KERNEL_BWD_DQ.launches
+    with pytest.raises(RuntimeError, match="not capturable"):
+        with launch_count.record_launches():
+            flash_attention.KERNEL_BWD_DQ.launches += 3
+            raise RuntimeError("not capturable")
+    assert flash_attention.KERNEL_BWD_DQ.launches == before

@@ -1122,3 +1122,211 @@ def test_weight_only_dense_raises_without_the_kernel_library(cuda,
     with pytest.raises((RuntimeError, OSError)):
         im.predict(x)
     assert quantized.KERNEL_INT8_MATMUL.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# fault l on the card, and the fused training dispatch (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_rows_take_a_transposed_w_and_a_sliced_hidden_on_cuda(
+        cuda, dtype):
+    """Fault l: a tied head's ``emb.T`` and a column slice of ``hidden``
+    reach the kernels as dense copies (one launch each of K4, K5a and
+    K5b) and give the plain route's loss rows and gradients at CE_TOL,
+    each gradient in its caller's layout."""
+    from analytics_zoo_tpu_torch.ops.fused_cross_entropy import \
+        fused_cross_entropy_rows
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
+        fused_ce_forward_reference
+    g = torch.Generator().manual_seed(8)
+    n, hidden, v = 300, 128, 8192
+    wide = torch.randn(n, hidden + 16, generator=g).to(cuda, dtype)
+    emb = (torch.randn(v, hidden, generator=g) * hidden ** -0.5).to(cuda,
+                                                                    dtype)
+    b = (torch.randn(v, generator=g) * 0.5).cuda()
+    labels = torch.randint(0, v, (n,), generator=g, dtype=torch.int32)
+    labels[::3] = -1
+    labels = labels.cuda()
+    tol = CE_TOL[dtype]
+
+    def run(use_pallas):
+        ts = [t.detach().clone().requires_grad_() for t in (wide, emb, b)]
+        rows = fused_cross_entropy_rows(ts[0][:, 8:8 + hidden], ts[1].T,
+                                        ts[2], labels,
+                                        use_pallas=use_pallas)
+        grads = torch.autograd.grad(rows.sum(), ts)
+        for t, gr in zip(ts, grads):
+            assert gr.shape == t.shape and gr.dtype == t.dtype
+        return rows.detach(), grads
+    before = _ce_counts()
+    got, g_got = run(True)
+    torch.cuda.synchronize()
+    assert _ce_counts() == tuple(c + 1 for c in before)
+    want, g_want = run(False)
+    _, ll = fused_ce_forward_reference(wide[:, 8:8 + hidden].contiguous(),
+                                       emb.T.contiguous(), b, labels)
+    err = (got - want).abs().max().item()
+    assert err <= tol["lse"] + tol["ll_rel"] * ll.abs().max().item(), err
+    for a, c in zip(g_got, g_want):
+        top = c.float().abs().max().item()
+        assert (a.float() - c.float()).abs().max().item() <= \
+            tol["grad"] * top
+
+
+def _sharded_ncf(users=300, items=500, embed=16, classes=5):
+    """NeuralCF's graph on ShardedEmbedding tables (K1 and SA on every
+    table)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (Input,
+                                                                   Model)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, Merge, Select, ShardedEmbedding)
+    inp = Input(shape=(2,))
+    user, item = Select(1, 0)(inp), Select(1, 1)(inp)
+    h = Merge(mode="concat")([ShardedEmbedding(users + 1, embed)(user),
+                              ShardedEmbedding(items + 1, embed)(item)])
+    h = Dense(32, activation="relu")(h)
+    mf = Merge(mode="mul")([ShardedEmbedding(users + 1, embed)(user),
+                            ShardedEmbedding(items + 1, embed)(item)])
+    h = Merge(mode="concat")([h, mf])
+    return Model(inp, Dense(classes, activation="softmax")(h),
+                 device="cuda")
+
+
+def _feature_set_order(monkeypatch):
+    from analytics_zoo_tpu_torch.pipeline.api.keras import dispatch
+    monkeypatch.setattr(
+        dispatch, "device_permutation", lambda n, seed, device:
+        torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(
+            device))
+
+
+def _ncf_fit(conf, nb_epochs=(1, 2)):
+    """A seeded sharded NCF fitted over ``nb_epochs`` fits of one
+    FeatureSet (960 ratings, batch 64: 15 steps an epoch): the epoch and
+    step losses, the parameters, and K1's and SA's launches in the last
+    fit."""
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 0, **conf})
+    reset_uids()
+    rng = np.random.default_rng(2)
+    x = np.stack([rng.integers(1, 301, 960), rng.integers(1, 501, 960)],
+                 axis=1).astype(np.int32)
+    fs = FeatureSet.array(x, ((x[:, 0] + x[:, 1]) % 5).astype(np.int32),
+                          seed=0)
+    net = _sharded_ncf().init_weights(torch.Generator().manual_seed(1))
+    net.compile(optimizer="adam", loss="scce", lr=0.01)
+    losses, steps = [], []
+    for n in nb_epochs:
+        for c in (KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD):
+            c.reset()
+        losses += net.fit(fs, batch_size=64, nb_epoch=n)["loss"]
+        steps += [torch.from_numpy(s) for s in net._loop.step_losses]
+    torch.cuda.synchronize()
+    return (losses, torch.stack(steps),
+            {k: p.detach().clone() for k, p in net.named_parameters()},
+            (KERNEL_EMBED_EXPAND.launches, KERNEL_SCATTER_ADD.launches))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", [
+    {"zoo.train.scan_steps": 4},
+    {"zoo.train.device_cache": True, "zoo.train.scan_steps": 4,
+     "zoo.train.fuse_epochs": 2},
+], ids=["scan4", "cache_scan4_fuse2"])
+def test_captured_ncf_fit_gives_the_eager_fits_bits(cuda, conf,
+                                                    monkeypatch):
+    """A sharded NCF fitted 1 + 2 epochs as replays of captured K-step
+    graphs (chunks of 4, 4, 4 and a short 3) against the eager fit in the
+    same batch order: the same step losses, epoch losses and parameters,
+    bit for bit; K1 and SA launch 4 a step in the second fit, counted at
+    every replay (the graphs were captured in the first)."""
+    _feature_set_order(monkeypatch)
+    eager = _ncf_fit({})
+    keyed = _ncf_fit(conf)
+    assert keyed[0] == eager[0]
+    assert torch.equal(keyed[1], eager[1])
+    for k in eager[2]:
+        assert torch.equal(keyed[2][k], eager[2][k]), k
+    assert keyed[3] == eager[3] == (4 * 2 * 15, 4 * 2 * 15)
+
+
+def _dropout_fit(conf, drop=0.5, lr=0.0):
+    """A Dense-Dropout-Dense net on 64 copies of one row, batch 8, two
+    epochs of sgd: with ``lr`` 0 every step loss differs only by its
+    dropout masks."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (Dense,
+                                                                   Dropout)
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 3, **conf})
+    reset_uids()
+    net = Sequential([Dense(64, activation="relu", input_shape=(8,)),
+                      Dropout(drop), Dense(3, activation="softmax")],
+                     device="cuda").init_weights(
+                         torch.Generator().manual_seed(0))
+    net.compile(optimizer="sgd", loss="scce", lr=lr)
+    x = np.repeat(np.linspace(-1, 1, 8, dtype=np.float32)[None], 64, 0)
+    y = np.ones(64, np.int32)
+    net.fit(x, y, batch_size=8, nb_epoch=2, shuffle=False)
+    torch.cuda.synchronize()
+    return (np.concatenate(net._loop.step_losses),
+            [p.detach().clone() for p in net.parameters()])
+
+
+@pytest.mark.cuda
+def test_replays_draw_new_dropout_masks_the_eager_steps_masks(cuda):
+    """Dropout inside a captured 4-step graph: every step of every replay
+    draws a new mask (16 distinct step losses from one repeated row and
+    unchanging weights), and each is the mask the eager step draws at
+    that iteration (the same step losses, bit for bit); with dropout 0
+    and a moving lr the captured fit is the eager fit's bits."""
+    keyed, _ = _dropout_fit({"zoo.train.scan_steps": 4})
+    assert len(set(keyed.tolist())) == len(keyed) == 16
+    eager, _ = _dropout_fit({})
+    np.testing.assert_array_equal(keyed, eager)
+    a = _dropout_fit({"zoo.train.scan_steps": 4}, drop=0.0, lr=0.1)
+    b = _dropout_fit({}, drop=0.0, lr=0.1)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert all(torch.equal(p, q) for p, q in zip(a[1], b[1]))
+
+
+@pytest.mark.cuda
+def test_a_step_that_syncs_inside_capture_raises(cuda):
+    """A loss that reads a device value on the host cannot be captured:
+    the keyed fit raises (no eager fallback). Run in a fresh process, so
+    an aborted capture cannot touch the other tests."""
+    import os
+    import subprocess
+    import sys
+    code = """
+import numpy as np, torch
+from analytics_zoo_tpu_torch.common.context import init_zoo_context
+from analytics_zoo_tpu_torch.pipeline.api.keras import objectives
+from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+init_zoo_context(conf={"zoo.train.scan_steps": 2})
+def syncing(y, p):
+    loss = objectives.get_loss("scce")(y, p)
+    return loss * float(loss.item() > -1.0)
+net = Sequential([Dense(3, activation="softmax", input_shape=(4,))],
+                 device="cuda").init_weights()
+net.compile(optimizer="sgd", loss=syncing)
+try:
+    net.fit(np.ones((16, 4), np.float32), np.zeros(16, np.int32),
+            batch_size=4, nb_epoch=1)
+except RuntimeError as e:
+    assert "cannot be captured" in str(e), e
+    print("raised")
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "raised", out.stdout

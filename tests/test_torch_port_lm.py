@@ -143,6 +143,49 @@ def test_fused_ce_f32_matches_jax_op_and_oracle(port_kernels):
             np.testing.assert_allclose(a, c, rtol=RTOL, atol=ATOL)
 
 
+def _strided_views(seed=6, n=37, h=24, v=130):
+    """A tied head's operands as views: ``hidden`` a column slice of a
+    wider array and ``w`` the transpose of a ``(V, H)`` embedding."""
+    rng = np.random.default_rng(seed)
+    wide = rng.normal(size=(n, h + 7)).astype(np.float32)
+    emb = (rng.normal(size=(v, h)) * 0.2).astype(np.float32)
+    b = (rng.normal(size=(v,)) * 0.1).astype(np.float32)
+    y = rng.integers(-1, v, n).astype(np.int32)
+    return wide, emb, b, y, slice(3, 3 + h)
+
+
+@pytest.mark.parametrize("port_kernels", [True, False])
+def test_fused_ce_rows_take_a_transposed_w_and_a_sliced_hidden(
+        port_kernels):
+    """Fault l: ``fused_cross_entropy_rows`` with ``w = emb.T`` and a
+    column-sliced ``hidden`` (views the kernels do not take as they lie)
+    against the JAX op on the same views: the loss and the gradients of
+    the wide array, the embedding and the bias, each in the caller's
+    layout."""
+    wide, emb, b, y, cols = _strided_views()
+
+    def jax_f(wide, emb, b):
+        rows = jfce.fused_cross_entropy_rows(
+            wide[:, cols], emb.T, b, jnp.asarray(y), chunk=8,
+            use_pallas=True, interpret=True)
+        return jnp.sum(rows)
+    want, g_want = jax.value_and_grad(jax_f, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (wide, emb, b)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (wide, emb, b)]
+    h, w = ts[0][:, cols], ts[1].T
+    assert not h.is_contiguous() and not w.is_contiguous()
+    rows = pfce.fused_cross_entropy_rows(h, w, ts[2], torch.from_numpy(y),
+                                         chunk=8, use_pallas=port_kernels)
+    got = rows.sum()
+    grads = torch.autograd.grad(got, ts)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
+                               atol=1e-6)
+    for a, c, t in zip(grads, g_want, ts):
+        assert a.shape == t.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=RTOL,
+                                   atol=ATOL)
+
+
 def test_fused_ce_bf16_matches_jax_op():
     hid, w, b, y = _setup(n=64, h=16, v=256, seed=4)
     got, g_got = _port_loss_and_grads(y, hid, w, b, dtype=torch.bfloat16,

@@ -261,12 +261,15 @@ def test_loss_matches_jax(name):
 
 
 def test_unknown_loss_and_unported_pieces_raise():
+    """Every optimizer and metric name of the JAX package is ported now;
+    a name neither package knows raises."""
     with pytest.raises(ValueError, match="unknown loss"):
         pobj.get_loss("nope")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        popt.get_optimizer("rmsprop")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pmet.get_metric("auc")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        popt.get_optimizer("nope")
+    with pytest.raises(ValueError, match="unknown metric"):
+        pmet.get_metric("nope")
+    assert sorted(popt.OPTIMIZERS) == sorted(jopt.OPTIMIZERS)
 
 
 def test_accuracy_masks_padded_rows():
@@ -318,11 +321,12 @@ def test_optimizer_matches_optax(case):
     po = _OPT_CASES[case](popt)
     pp = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
     ps = po.init(pp)
-    for g, jg in zip(grads, jax.tree.map(jnp.asarray, grads)):
+    rows = popt.scalar_rows(po, 0, len(grads), "cpu")
+    for g, jg, row in zip(grads, jax.tree.map(jnp.asarray, grads), rows):
         upd, js = jo.update(jg, js, jp)
         jp = optax.apply_updates(jp, upd)
         pu, _ = po.update({n: torch.from_numpy(a.copy())
-                           for n, a in g.items()}, ps, pp)
+                           for n, a in g.items()}, ps, pp, row)
         popt.apply_updates(pp, pu)
     for n in shapes:
         np.testing.assert_allclose(pp[n].numpy(), np.asarray(jp[n]),
@@ -493,12 +497,17 @@ def test_a_fitted_model_serves_through_inference_model():
 
 
 def test_unported_train_conf_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pctx.init_zoo_context(conf={"zoo.train.scan_steps": 4})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pctx.init_zoo_context(conf={"zoo.train.device_cache": "true"})
-    pctx.init_zoo_context(conf={"zoo.train.scan_steps": 1,
-                                "zoo.train.device_cache": "false"})
+    """The dispatch keys are ported: the context takes them and refuses
+    only values no dispatch has (a count below 1 or not whole, a flag that
+    is neither true nor false)."""
+    for bad in ({"zoo.train.scan_steps": 0}, {"zoo.train.fuse_epochs": 2.5},
+                {"zoo.train.device_cache": "sometimes"}):
+        with pytest.raises(ValueError, match="zoo.train"):
+            pctx.init_zoo_context(conf=bad)
+    pctx.init_zoo_context(conf={"zoo.train.scan_steps": 4,
+                                "zoo.train.device_cache": "true",
+                                "zoo.train.fuse_epochs": 2})
+    assert pctx.train_dispatch() == (4, True, 2)
 
 
 def test_fit_before_compile_raises():
