@@ -37,6 +37,24 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
     "zoo.serving.dtype": "float32",  # precision of models the server wraps:
     #   float32 | bfloat16 | int8 (int8 = weight-only, fp32 on the wire)
+    "zoo.faults.enabled": False,     # gate for common.faults.activate (chaos tests)
+    # -- telemetry plane -----------------------------------------------------
+    "zoo.telemetry.sample_interval_s": 1.0,  # cadence of the registry and
+    #   device-memory samplers
+    "zoo.telemetry.retention_s": 900.0,  # per-series history window; ring
+    #   capacity = retention / sample interval (bounded, oldest evicted)
+    "zoo.telemetry.device_memory": True,  # poll torch.cuda's allocator into
+    #   zoo_device_hbm_bytes and the /statusz device block (no-op off-GPU)
+    # -- performance attribution: goodput ledger + profiler trigger ---------
+    "zoo.goodput.enabled": True,  # per-replica GoodputLedger: attribute
+    #   every wall-clock second to an exclusive category
+    "zoo.profiler.dir": "",       # ProfilerTrigger trace-dir root
+    #   ("" = ./zoo-profiles); captures land in capture-NNNN-<trigger>/
+    "zoo.profiler.keep": 3,       # newest capture dirs retained
+    "zoo.profiler.duration_s": 10.0,  # time bound per capture (daemon
+    #   timer stops the trace); used when zoo.profiler.steps == 0
+    "zoo.profiler.steps": 0,      # >0 bounds a capture by step()
+    #   notifications from the hosting loop instead of wall time
 }
 
 _ENV_PREFIX = "ZOO_TPU_"

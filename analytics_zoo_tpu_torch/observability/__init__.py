@@ -1,18 +1,43 @@
-"""Observability — port of ``analytics_zoo_tpu/observability``: the
-metrics registry (same ``zoo_*`` metric names) and trace ids."""
+"""Observability — port of ``analytics_zoo_tpu/observability``, under the
+JAX package's names: the metrics registry (same ``zoo_*`` metric names),
+span tracing and trace ids, the Prometheus / JSON-lines exports with the
+``/metrics``, ``/healthz``, ``/statusz`` and ``POST /profilez`` endpoint,
+ring-buffer time series, the fleet rollup the status CLI uses, device
+memory from ``torch.cuda``, goodput accounting and the profiler trigger
+on ``torch.profiler``.
 
-import secrets
+Not ported yet: jit compile accounting (``instrument_jit``), the
+TensorBoard sink, the alert engine, and the continuous fleet collector
+with its ``/fleetz`` endpoint.
+"""
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       QuantileDigest, Summary, default_registry,
                       reset_default_registry)
+from .tracing import current_span, new_trace_id, span
+from .export import (JsonEventSink, ScrapeServer, dump, parse_prometheus,
+                     read_events, render_prometheus)
+from .timeseries import (RegistrySampler, RingBuffer, SummarySample,
+                         TimeSeriesStore, rehydrate_digest)
+from .device import (DeviceMemorySampler, device_memory_stats,
+                     sample_device_memory)
+from .collector import base_url, endpoint_rows, fleet_rows, summary_points
+from .goodput import (GOOD_CATEGORY, SERVE_CATEGORIES, TRAIN_CATEGORIES,
+                      GoodputLedger, goodput_enabled)
+from .goodput import registry_snapshot as goodput_snapshot
+from .profiler import ProfilerTrigger
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "QuantileDigest", "Summary", "default_registry",
-           "reset_default_registry", "new_trace_id"]
-
-
-def new_trace_id() -> str:
-    """A fresh Dapper-style trace id: 16 lowercase hex chars — the
-    serving wire contract's ``trace`` field."""
-    return secrets.token_hex(8)
+__all__ = [
+    "Counter", "Gauge", "Histogram", "QuantileDigest", "Summary",
+    "MetricsRegistry", "default_registry", "reset_default_registry",
+    "span", "current_span", "new_trace_id",
+    "JsonEventSink", "ScrapeServer",
+    "dump", "parse_prometheus", "read_events", "render_prometheus",
+    "RingBuffer", "SummarySample", "TimeSeriesStore", "RegistrySampler",
+    "rehydrate_digest",
+    "DeviceMemorySampler", "device_memory_stats", "sample_device_memory",
+    "summary_points", "fleet_rows", "endpoint_rows", "base_url",
+    "GoodputLedger", "GOOD_CATEGORY", "TRAIN_CATEGORIES",
+    "SERVE_CATEGORIES", "goodput_enabled", "goodput_snapshot",
+    "ProfilerTrigger",
+]

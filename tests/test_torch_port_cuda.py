@@ -1330,3 +1330,30 @@ except RuntimeError as e:
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "raised", out.stdout
+
+
+@pytest.mark.cuda
+def test_device_memory_stats_read_the_allocator(cuda):
+    """``device_memory_stats`` on the card: one ``gpu:<i>`` row a device,
+    ``in_use`` the allocator's current bytes (a 64 MiB tensor shows),
+    ``peak`` at least that, ``limit`` the card's total; the gauges land
+    in the registry."""
+    from analytics_zoo_tpu_torch.observability import (
+        MetricsRegistry, device_memory_stats, sample_device_memory)
+    before = device_memory_stats()
+    x = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+    rows = device_memory_stats()
+    assert [r["device"] for r in rows] == [
+        f"gpu:{i}" for i in range(torch.cuda.device_count())]
+    row = rows[torch.cuda.current_device()]
+    assert row["in_use"] == torch.cuda.memory_allocated()
+    assert row["in_use"] >= (before[0]["in_use"] if before else 0) + (64 << 20)
+    assert row["peak"] >= row["in_use"]
+    assert row["limit"] == torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+    reg = MetricsRegistry()
+    sample_device_memory(reg)
+    snap = reg.snapshot()
+    key = f'zoo_device_hbm_bytes{{device="{row["device"]}",kind="limit"}}'
+    assert snap[key]["value"] == row["limit"]
+    del x
