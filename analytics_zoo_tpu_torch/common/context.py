@@ -37,6 +37,19 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
     "zoo.serving.dtype": "float32",  # precision of models the server wraps:
     #   float32 | bfloat16 | int8 (int8 = weight-only, fp32 on the wire)
+    "zoo.serving.shed_watermark": 0,  # stream depth above which each
+    #   admission window's newest records are shed (0 = off)
+    "zoo.serving.adaptive_batch": False,  # AIMD batch target from the
+    #   publish backlog and each read's queue waits
+    "zoo.serving.queue_wait_target_ms": 500,  # the AIMD's queue-wait target
+    "zoo.serving.shape_buckets": "",  # dispatch buckets, "4,16,32"
+    #   ("" = powers of two up to batch_size)
+    "zoo.serving.lane_max_inflight": "",  # per-lane windows, "lane:n,..."
+    "zoo.serving.lane_batch_size": "",  # per-lane batch ceilings, "lane:n,..."
+    "zoo.serving.dlq_dir": "",       # non-empty: the on-disk dead-letter queue
+    "zoo.serving.dlq_max_bytes": 64 << 20,  # its disk bound, oldest evicted
+    "zoo.serving.consumer_group": "serving",  # stream consumer group
+    #   ("" = consume-on-read)
     "zoo.faults.enabled": False,     # gate for common.faults.activate (chaos tests)
     # -- telemetry plane -----------------------------------------------------
     "zoo.telemetry.sample_interval_s": 1.0,  # cadence of the registry and

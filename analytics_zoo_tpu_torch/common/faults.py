@@ -22,12 +22,25 @@ Fault kinds:
   here; the SITE receives the spec back and applies its own semantics.
 
 Sites are plain strings. The port's catalog so far (grep
-``faults.inject``): the profiler trigger's ``profiler.capture``
-(``observability/profiler.py``: one fire per capture-arm attempt, before
-the trace starts — a capture failure degrades to a counter bump + event
-and must never kill the serve loop hosting the trigger). The JAX
-package's backend, serving, checkpoint and training sites arrive with
-the modules that hold them.
+``faults.inject``):
+
+* ``LocalBackend``'s ``backend.xadd`` / ``backend.xread`` (fired by
+  ``xread`` AND ``xreadgroup``: one site per serve-loop read in either
+  mode) / ``backend.xack`` / ``backend.xclaim`` / ``backend.stream_len``
+  / ``backend.set_result`` / ``backend.set_results`` (which also applies
+  ``partial_write``),
+* the serve loop's ``serving.loop`` (top of each iteration),
+  ``serving.dispatch`` (before every model call, solo retries included)
+  and ``serving.publish`` (one per published result batch, on the
+  publisher thread: unlike ``backend.set_results`` it never hits the
+  shed or error-record writes),
+* the profiler trigger's ``profiler.capture``
+  (``observability/profiler.py``: one fire per capture-arm attempt,
+  before the trace starts — a capture failure degrades to a counter
+  bump + event and must never kill the serve loop hosting the trigger).
+
+The JAX package's RESP, checkpoint and training sites arrive with the
+modules that hold them.
 
 Determinism: each site keeps a 0-based call counter; a spec fires when
 its site's counter is in ``at`` (or, for rate-based specs, when the

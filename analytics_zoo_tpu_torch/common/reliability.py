@@ -1,9 +1,20 @@
 """Reliability primitives — port of ``analytics_zoo_tpu/common/
-reliability.py``: :class:`RetryPolicy` (exponential backoff with full
-jitter, bounded attempts, a deadline cap, error classification) and
-:class:`CircuitBreaker` (closed → open → half-open with single-probe
-admission). Pure Python; the serving loop and the inference runtime use
-them exactly as the JAX package does.
+reliability.py``, pure Python:
+
+* :class:`RetryPolicy` — exponential backoff with full jitter, bounded
+  attempts, a deadline cap and error classification;
+* :class:`CircuitBreaker` — closed → open → half-open with single-probe
+  admission (``zoo_breaker_state{breaker=}``,
+  ``zoo_breaker_transitions_total{breaker=,state=}``);
+* :class:`RetryBudget` — a shared deterministic token bucket: retries
+  withdraw, successes deposit, an empty bucket refuses
+  (``zoo_retry_budget_exhausted_total{budget=}``);
+* :class:`AIMDController` — bounded additive-increase /
+  multiplicative-decrease control, deterministic (no clock, no RNG).
+
+Consumers: the serving loop (supervised loops, breaker-guarded reads,
+dispatch breakers, retries, the adaptive batch target) and the inference
+runtime (chunk readback retries), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,10 +28,12 @@ from typing import Callable, Iterator, Optional, Tuple, Type
 
 log = logging.getLogger("analytics_zoo_tpu_torch.reliability")
 
-__all__ = ["RetryPolicy", "CircuitBreaker", "CircuitOpenError"]
+__all__ = ["RetryPolicy", "RetryBudget", "CircuitBreaker",
+           "CircuitOpenError", "AIMDController"]
 
 #: default transient-transport classification: connection drops, socket
-#: errors and timeouts retry; everything else propagates immediately
+#: errors and timeouts retry; everything else (protocol errors, bugs)
+#: propagates immediately
 DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
     ConnectionError, OSError, TimeoutError)
 
@@ -37,6 +50,72 @@ class CircuitOpenError(RuntimeError):
         self.breaker = name
         self.retry_in = retry_in
 
+
+class RetryBudget:
+    """Global retry token bucket — the fleet-wide brake on correlated
+    retries (the classic Finagle/SRE "retry budget": per-op backoff
+    bounds ONE caller, but when a whole backend goes down every caller
+    retries ``max_attempts`` times at once and the retry storm multiplies
+    the outage load).
+
+    Semantics (deterministic — no RNG, so chaos tests reconcile exactly):
+
+    * each **retry** withdraws one token (``withdraw()`` → False once the
+      bucket is empty; the caller must NOT retry, counting the refusal in
+      ``zoo_retry_budget_exhausted_total{budget=...}``),
+    * each **success** deposits ``deposit`` tokens (capped at
+      ``capacity``), so the sustained retry rate is bounded at roughly
+      ``deposit`` retries per success — a healthy system earns its retry
+      allowance, a broken one drains the bucket once and then fails fast.
+
+    One budget is meant to be SHARED across every caller of a protected
+    resource (pass the same instance to each ``RetryPolicy.call`` /
+    ``ClusterServing(retry_budget=...)``); all methods are thread-safe.
+    """
+
+    def __init__(self, capacity: float = 100.0, deposit: float = 0.1,
+                 name: str = "default", registry=None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1 ({capacity})")
+        if deposit < 0:
+            raise ValueError(f"deposit must be >= 0 ({deposit})")
+        self.capacity = float(capacity)
+        self.deposit = float(deposit)
+        self.name = name
+        self._tokens = float(capacity)
+        self._lock = threading.Lock()
+        self._m_exhausted = None
+        if registry is not None:
+            # budget names are operator-chosen code identifiers (a
+            # handful per process), not request data
+            self._m_exhausted = registry.counter(  # zoolint: disable=ZL015 bounded label set
+                "zoo_retry_budget_exhausted_total",
+                "retries refused because the shared retry budget was "
+                "empty (a correlated outage draining the bucket)",
+                labels={"budget": name})
+
+    @property
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+    def withdraw(self) -> bool:
+        """Take one token for a retry. False (and a count in the
+        exhausted metric) when the bucket is empty — the caller must not
+        retry."""
+        with self._lock:
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+        if self._m_exhausted is not None:
+            self._m_exhausted.inc()
+        log.warning("retry budget %r exhausted; refusing retry", self.name)
+        return False
+
+    def on_success(self) -> None:
+        """Deposit after a successful call (retried or not)."""
+        with self._lock:
+            self._tokens = min(self.capacity, self._tokens + self.deposit)
 
 
 class RetryPolicy:
@@ -137,13 +216,19 @@ class RetryPolicy:
     def call(self, fn: Callable, *, op: str = "op",
              classify: Optional[Callable[[BaseException], bool]] = None,
              sleep: Callable[[float], None] = time.sleep,
-             timeout: Optional[float] = None, registry=None):
+             timeout: Optional[float] = None, registry=None,
+             budget: Optional["RetryBudget"] = None):
         """Run ``fn()`` with retries. Non-retryable errors propagate
         immediately; retryable ones back off and re-run until attempts or
         the deadline run out, then the LAST error propagates. Each retry
         increments ``zoo_retry_attempts_total{op=...}`` in ``registry``
         (when given) and logs at warning level — silent retries hide a
-        dying backend until it is fully dead."""
+        dying backend until it is fully dead.
+
+        ``budget`` (a shared :class:`RetryBudget`) additionally gates
+        every retry on the GLOBAL token bucket — an exhausted budget
+        raises the last error immediately instead of piling this caller's
+        retries onto a correlated outage; successes deposit back."""
         deadline = None
         time_budget = self.deadline if timeout is None else timeout
         if time_budget is not None:
@@ -159,6 +244,10 @@ class RetryPolicy:
                 labels={"op": op})
         for d in itertools.chain((None,), self.delays(deadline)):
             if d is not None:
+                if budget is not None and not budget.withdraw():
+                    log.warning("%s: retry budget exhausted after (%s); "
+                                "not retrying", op, last)
+                    break
                 if counter is not None:
                     counter.inc()
                 log.warning("%s failed (%s); retry in %.3fs", op, last, d)
@@ -171,7 +260,10 @@ class RetryPolicy:
                     raise
                 last = e
             else:
+                if budget is not None:
+                    budget.on_success()
                 return result
+        assert last is not None
         raise last
 
     def wait_for(self, predicate: Callable[[], bool], *,
@@ -203,7 +295,6 @@ class RetryPolicy:
             if d > 0:
                 sleep(d)
         return False    # unreachable (itertools.count never ends)
-
 
 
 # ---------------------------------------------------------------------------
@@ -355,3 +446,62 @@ class CircuitBreaker:
             raise
         self.record_success()
         return result
+
+
+# ---------------------------------------------------------------------------
+# AIMD controller
+# ---------------------------------------------------------------------------
+
+class AIMDController:
+    """Bounded additive-increase / multiplicative-decrease controller.
+
+    The control shape TCP congestion avoidance (and Clipper-style
+    adaptive batching) uses: while the observed signal is healthy the
+    value climbs ``add`` per update toward ``ceiling``; one breach backs
+    it off by ``backoff`` (multiplicative), never below ``floor``. The
+    asymmetry is the point — growth probes capacity slowly, a breach
+    sheds it immediately, and the loop converges instead of oscillating
+    wall to wall.
+
+    Deterministic: no RNG, no clock — the value after N updates is a
+    pure function of the breach sequence, so tests reconcile the target
+    trajectory exactly. Thread-safe; ``value`` reads the current target
+    without updating it."""
+
+    def __init__(self, floor: int = 1, ceiling: int = 32,
+                 initial: Optional[int] = None, add: float = 1.0,
+                 backoff: float = 0.5):
+        if floor < 1:
+            raise ValueError(f"floor must be >= 1 ({floor})")
+        if ceiling < floor:
+            raise ValueError(f"ceiling {ceiling} < floor {floor}")
+        if add <= 0:
+            raise ValueError(f"add must be > 0 ({add})")
+        if not 0.0 < backoff < 1.0:
+            raise ValueError(f"backoff must be in (0, 1) ({backoff})")
+        self.floor = int(floor)
+        self.ceiling = int(ceiling)
+        self.add = float(add)
+        self.backoff = float(backoff)
+        v = ceiling if initial is None else initial
+        if not floor <= v <= ceiling:
+            raise ValueError(f"initial {v} outside [{floor}, {ceiling}]")
+        self._value = float(v)
+        self._lock = threading.Lock()
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return int(self._value)
+
+    def update(self, overloaded: bool) -> int:
+        """One control step: ``overloaded=True`` backs off
+        multiplicatively, ``False`` grows additively. Returns the new
+        integer target."""
+        with self._lock:
+            if overloaded:
+                self._value = max(float(self.floor),
+                                  self._value * self.backoff)
+            else:
+                self._value = min(float(self.ceiling), self._value + self.add)
+            return int(self._value)

@@ -12,7 +12,8 @@ Every kernel wrapper launches through :func:`launch`, the lean path: the
 entry point is resolved once (:meth:`CudaLibrary.entry`, no lock after
 the first load), the stream's handle is read without building a
 ``torch.cuda.Stream`` (:func:`current_raw_stream`), and the current device
-is switched only when the tensor lies on another (:func:`launch`).
+is switched only when the tensor lies on another (:func:`launch`); a
+thread-local flag makes the device's context current once a thread.
 At the NCF shapes a kernel's device work is a few microseconds, so these
 host costs decide the wrapper's time.
 """
@@ -168,13 +169,67 @@ current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
 current_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
 
 
+#: per-thread state of :func:`launch`: ``bound`` once the thread has made
+#: a device's context current
+_THREAD = threading.local()
+#: device index -> its retained primary context (driver handle)
+_PRIMARY: dict = {}
+_DRIVER: list = []
+
+
+def _libcuda() -> ctypes.CDLL:
+    """The driver API (``libcuda.so.1``), loaded once."""
+    if not _DRIVER:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                    ctypes.c_int]
+        lib.cuDevicePrimaryCtxRetain.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        lib.cuCtxSetCurrent.argtypes = [ctypes.c_void_p]
+        for fn in (lib.cuDeviceGet, lib.cuDevicePrimaryCtxRetain,
+                   lib.cuCtxSetCurrent):
+            fn.restype = ctypes.c_int
+        _DRIVER.append(lib)
+    return _DRIVER[0]
+
+
+def make_current(index: int) -> None:
+    """Make device ``index``'s primary context (the one torch uses) current
+    on the calling thread. A thread that has made no CUDA runtime call yet
+    has no current context, and reads ``current_device()`` as 0 all the
+    same: the kernels' first driver-API call there (the TMA tensor maps'
+    ``cuTensorMapEncodeTiled``) then fails. :func:`launch` calls this once
+    a thread."""
+    cu = _libcuda()
+    ctx = _PRIMARY.get(index)
+    if ctx is None:
+        dev = ctypes.c_int()
+        handle = ctypes.c_void_p()
+        for code in (cu.cuDeviceGet(ctypes.byref(dev), index),
+                     cu.cuDevicePrimaryCtxRetain(ctypes.byref(handle),
+                                                 dev)):
+            if code:
+                raise RuntimeError(f"CUDA driver error {code} retaining "
+                                   f"device {index}'s primary context")
+        ctx = _PRIMARY.setdefault(index, handle)
+    code = cu.cuCtxSetCurrent(ctx)
+    if code:
+        raise RuntimeError(f"CUDA driver error {code} making device "
+                           f"{index}'s context current")
+
+
 def launch(entry, tensor: torch.Tensor, *args) -> int:
     """Calls the C entry point ``entry(*args, stream)`` with ``stream`` the
     current stream of ``tensor``'s CUDA device, that device current for
     the call (``torch.cuda.device`` switches to it only when another one
-    is); returns the entry point's error code. Only CUDA tensors come
-    here: each wrapper runs its plain version for CPU tensors before it."""
+    is); returns the entry point's error code. A thread's first launch
+    makes the device's context current first (:func:`make_current`).
+    Only CUDA tensors come here: each wrapper runs its plain version for
+    CPU tensors before it."""
     index = tensor.get_device()
+    if not getattr(_THREAD, "bound", False):
+        make_current(index)
+        _THREAD.bound = True
     if current_device() == index:
         return entry(*args, current_raw_stream(index))
     with torch.cuda.device(index):

@@ -1,9 +1,12 @@
 """Serving queue backend — port of ``LocalBackend`` from
 ``analytics_zoo_tpu/serving/backend.py``: an in-process, thread-safe,
 bounded stream + result store with Redis-stream semantics (xadd/xread,
-consumer groups with a pending-entries list, xack, xautoclaim). Pure
-Python and threads. ``RedisBackend`` and the fault-injection sites are not
-ported yet.
+consumer groups with a pending-entries list, xack, xautoclaim), with the
+JAX package's fault-injection sites (``backend.xadd``, ``backend.xread``
+— ``xread`` and ``xreadgroup`` —, ``backend.xack``, ``backend.xclaim``,
+``backend.stream_len``, ``backend.set_result``, ``backend.set_results``,
+which also takes ``partial_write``). Pure Python and threads.
+``RedisBackend`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+from ..common import faults
 
 __all__ = ["LocalBackend", "QueueFullError", "default_backend"]
 
@@ -92,6 +97,7 @@ class LocalBackend:
              timeout: Optional[float] = None) -> str:
         """Append; blocks while the stream holds ``maxlen`` unsettled
         entries (unread backlog + in-flight PEL, matching XLEN)."""
+        faults.inject("backend.xadd")
         timeout = self.default_timeout if timeout is None else timeout
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
@@ -113,6 +119,7 @@ class LocalBackend:
               block_ms: int = 100) -> List[Tuple[str, dict]]:
         """Pop up to ``count`` entries, waiting up to ``block_ms`` for the
         first (consume-on-read: the serving loop is the only consumer group)."""
+        faults.inject("backend.xread")
         deadline = time.monotonic() + block_ms / 1000.0
         with self._lock:
             entries = self._streams.setdefault(stream, [])
@@ -140,6 +147,7 @@ class LocalBackend:
         tracking each in the group's PEL until :meth:`xack`. Fires the
         same ``backend.xread`` fault site as :meth:`xread` — one site per
         loop read, whichever mode the server runs in."""
+        faults.inject("backend.xread")
         deadline = time.monotonic() + block_ms / 1000.0
         with self._lock:
             pel = self._pending.setdefault((stream, group),
@@ -161,6 +169,7 @@ class LocalBackend:
         """Settle delivered entries: remove them from the group's PEL.
         Idempotent — acking a gone id counts 0. Returns how many were
         actually removed."""
+        faults.inject("backend.xack")
         removed = 0
         with self._lock:
             pel = self._pending.get((stream, group))
@@ -181,6 +190,7 @@ class LocalBackend:
         claim resets the idle clock and bumps the delivery count, so two
         racing survivors can never both win one entry. Returns
         ``[(entry_id, fields, previous_consumer, delivery_count), ...]``."""
+        faults.inject("backend.xclaim")
         now = time.monotonic()
         claimed = []
         with self._lock:
@@ -221,11 +231,13 @@ class LocalBackend:
             return len(self._streams.get(stream, []))
 
     def stream_len(self, stream: str) -> int:
+        faults.inject("backend.stream_len")
         with self._lock:
             return len(self._streams.get(stream, []))
 
     # -- results -----------------------------------------------------------
     def set_result(self, uri: str, fields: dict) -> None:
+        faults.inject("backend.set_result")
         with self._lock:
             self._results[uri] = dict(fields)
             self._lock.notify_all()
@@ -237,6 +249,18 @@ class LocalBackend:
         ``notify_all`` each)."""
         if not results:
             return
+        spec = faults.inject("backend.set_results")
+        if spec is not None and spec.kind == "partial_write":
+            # the injected mid-write crash: apply a prefix of the batch,
+            # then fail like a dropped connection would
+            uris = list(results)
+            keep = uris[:max(int(len(uris) * spec.fraction), 0)]
+            with self._lock:
+                for uri in keep:
+                    self._results[uri] = dict(results[uri])
+                self._lock.notify_all()
+            raise ConnectionError(
+                f"injected partial write: {len(keep)}/{len(uris)} applied")
         with self._lock:
             for uri, fields in results.items():
                 self._results[uri] = dict(fields)

@@ -1,8 +1,9 @@
 """Cluster Serving client — port of ``analytics_zoo_tpu/serving/client.py``:
 the wire codec (v2: raw little-endian tensor bytes plus ``dtype``/``shape``
 fields, decoded as a zero-copy view; v1: base64 ``.npy``, still accepted)
-and the ``InputQueue``/``OutputQueue`` producer and consumer. Numpy and
-threads only. Fleet backpressure is not ported yet.
+and the ``InputQueue``/``OutputQueue`` producer and consumer, with the
+``deadline_ms`` and ``model`` wire fields. Numpy and threads only. Fleet
+backpressure is not ported yet.
 """
 
 from __future__ import annotations
@@ -203,7 +204,9 @@ def decode_payload(fields: Dict, key: str = "data") -> np.ndarray:
 
 class InputQueue:
     """Producer side: ``enqueue(uri, tensor)``. Blocks (up to ``timeout``)
-    when the stream is at capacity."""
+    when the stream is at capacity. The JAX producer's fleet backpressure
+    (``_check_fleet``: slow, then refuse, when every live replica reports
+    itself saturated) waits for the fleet registry and is not ported."""
 
     def __init__(self, backend: Optional[LocalBackend] = None,
                  stream: str = INPUT_STREAM, timeout: float = 30.0):
@@ -212,12 +215,27 @@ class InputQueue:
         self.timeout = timeout
 
     def enqueue(self, uri: str, data: np.ndarray,
-                trace: Optional[str] = None) -> str:
+                trace: Optional[str] = None,
+                deadline_ms: Optional[int] = None,
+                model: Optional[str] = None) -> str:
         """Enqueue one record in wire format v2, stamped with a 16-hex
-        ``trace`` id (``trace=`` adopts a caller's id)."""
+        ``trace`` id (``trace=`` adopts a caller's id).
+
+        ``deadline_ms`` stamps an absolute epoch-millisecond deadline (the
+        clock the stream entry ids share): a server reading the record
+        after it passed answers ``deadline exceeded`` instead of
+        dispatching it. ``model`` routes the record to one named lane of
+        a multi-model server; without it the record goes to the primary
+        lane, and a name the server does not host is answered ``unknown
+        model``."""
         fields = encode_tensor(np.asarray(data))
         fields["uri"] = uri
+        # a falsy trace ("" from an unset upstream header) mints one too
         fields["trace"] = trace or new_trace_id()
+        if deadline_ms is not None:
+            fields["deadline_ms"] = str(int(deadline_ms))
+        if model:
+            fields["model"] = str(model)
         return self.backend.xadd(self.stream, fields, timeout=self.timeout)
 
 

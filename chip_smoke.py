@@ -134,6 +134,37 @@
    answers within 2e-2 of bf16 serving on the dequantized weights (and,
    printed beside, of bf16 serving on the weights the JAX predict forms,
    ``bf16(q) * bf16(s)``, which K6's dequantize-first mode forms too).
+12b. Lanes phase: K2 launched from a fresh thread as its first CUDA
+   work gives the main thread's bits (fault m). Then one
+   ``ClusterServing`` with two lanes on one stream, ``bert`` (the
+   serving phase's BERT-base, bf16, behind its adapter) and ``head`` (the
+   JAX bench's head as ``{"model": net, "dtype": "int8"}``), 256 records
+   each, interleaved and pre-enqueued, in turns with ``bert`` alone:
+   every record answered by its own lane, against each lane's predict
+   of the same batches ``bert`` within 2e-2 and ``head`` within 1e-4
+   relative (and within 2e-2 of one predict of all its rows: the compute
+   policy is process-wide, as in the JAX package, so under BERT's bf16
+   policy the head's products run K6 in bf16), 12 K2 launches a ``bert``
+   dispatch and 4 K6 (all skinny) a ``head`` dispatch, 256 records a
+   lane; records/s a lane, dispatch and e2e p50/p99, answer times, bucket
+   hit rates and pad rows printed. Ragged waves (1, 3, 2, 3, 1) under
+   ``shape_buckets="4,16,32"``: the model sees only those row counts,
+   the pad rows are the rows seen less the records, the answers are the
+   unpadded predict's (2e-2); five pre-enqueued batches two in flight
+   give the bits of one at a time (an arena released early would show).
+   1024 pre-enqueued records without and with ``shed_watermark=64``:
+   answered + shed = 1024 exactly, the admitted e2e p99 under half the
+   unshedded run's; the two lanes weighted 3:1 under watermark 16
+   (admitted shares printed). 64 records past their ``deadline_ms``:
+   ``deadline exceeded``, no K2 launch. Paced runs with
+   ``adaptive_batch`` at queue-wait targets of 100 and 20 ms: the AIMD
+   target's trajectory stays in [1, 32] and the gauges read the
+   controller. A head-lane wrapper raising on marked
+   records with ``dispatch_retries=1`` and a ``DeadLetterQueue``: the
+   marked records dead-lettered and spilled with their lane, their
+   batch-mates answered (2e-2), the ``bert`` lane's counts untouched;
+   ``replay`` onto a server with the plain head under a ``serving.loop``
+   fault fired once: one supervised restart, every record answered.
 13. int8 head phase (config A): the JAX bench's weight-streaming scoring
    head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
    f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
@@ -254,6 +285,13 @@ INT8_CASES = [(1, 4096, 4096, False), (8, 4096, 4096, False),
               (16384, 768, 2304, False), (16384, 3072, 768, False),
               (32, 768, 2, False), (17, 100, 10, False),
               (300, 100, 130, False)]
+#: the lanes phase: records a lane and the flood's pre-enqueued backlog
+N_LANE = 256
+N_OVERLOAD = 1024
+#: the poison marker the head lane's wrapper raises on (a record's first
+#: value), and the ragged bucket waves of the JAX lanes test
+POISON = 12345.0
+BUCKET_WAVES = (1, 3, 2, 3, 1)
 #: weight-only and static int8 against their float counterparts on the
 #: same weights: the same products in another order (weight-only: scale
 #: after the sum against a dequantized weight; static: the card's int32
@@ -1279,6 +1317,554 @@ def int8_serving_phase(bf16_records_per_s):
             "vs_dequantized": diff, "vs_jax_predict_weights": diff_jax}
 
 
+def serve_lanes(make_server, records, counters=(), backend=None,
+                waiting=()):
+    """``make_server(backend)`` on ``backend`` (a fresh ``LocalBackend``
+    unless given) holding ``records`` (``[(uri, array, lane)]``,
+    pre-enqueued after whatever ``waiting`` — ``[(uri, lane)]`` — names
+    already there); one consumer thread a lane reads its answers in
+    order. ``counters`` are set to 0 just before the start. Returns the
+    answers (``uri -> array or error text``), each lane's seconds from
+    the start to its last answer, the answer times (seconds from the
+    start) and the stopped server."""
+    import threading
+
+    from analytics_zoo_tpu_torch.serving import (InputQueue, LocalBackend,
+                                                 OutputQueue, ServingError)
+    backend = backend if backend is not None else LocalBackend()
+    server = make_server(backend)
+    q = InputQueue(backend)
+    by_lane = {}
+    for uri, lane in waiting:
+        by_lane.setdefault(lane, []).append(uri)
+    for uri, x, lane in records:
+        q.enqueue(uri, x, model=lane)
+        by_lane.setdefault(lane, []).append(uri)
+    for c in counters:
+        c.reset()
+    got, at, lane_s = {}, {}, {}
+    t0 = time.perf_counter()
+    server.start()
+
+    def consume(lane, uris):
+        out = OutputQueue(backend)
+        for uri in uris:
+            try:
+                got[uri] = out.query(uri, timeout=300)
+            except ServingError as e:
+                got[uri] = str(e)
+            at[uri] = time.perf_counter() - t0
+        lane_s[lane] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=consume, args=item)
+               for item in by_lane.items()]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        server.stop()
+    return got, lane_s, at, server
+
+
+def lanes_phase():
+    """Two lanes on one stream at full width: ``bert`` (BERT-base, bf16,
+    K2 in its 12 blocks) and ``head`` (the JAX bench's int8 weight-
+    streaming head, K6's skinny route on its 4 products), then buckets,
+    arenas, overload, deadlines, AIMD, poison with the DLQ and a
+    supervised restart."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, flash_attention)
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 DeadLetterQueue)
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+
+    out = {}
+    # 1. fault m: K2 as a fresh thread's first CUDA work
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 12, SEQ, 64, generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    want = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    box = {}
+
+    def first_work():
+        try:
+            box["out"] = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        except Exception as e:
+            box["error"] = repr(e)
+    t = threading.Thread(target=first_work, name="fault-m")
+    t.start()
+    t.join()
+    check("error" not in box, f"fault m: K2 from a fresh thread raised "
+          f"{box.get('error')}")
+    check(torch.equal(box["out"].view(torch.int16), want.view(torch.int16)),
+          "fault m: a fresh thread's K2 is not the main thread's bits")
+    print("lanes: fault m: K2 launched as a fresh thread's first CUDA work, "
+          "the main thread's bits")
+
+    # 2. the two lanes
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    t0 = time.perf_counter()
+    bert = BERTClassifier(num_classes=2, device="cuda").init_weights()
+    cfg = bert.get_config()
+    im = InferenceModel(concurrent_num=2, device="cuda").from_keras(
+        bert, dtype="bfloat16")
+    del bert
+    n_block = cfg["n_block"]
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0,
+                           "zoo.pallas.attention": True})
+    head_net = Sequential([Dense(HEAD_D, activation="relu",
+                                 input_shape=(HEAD_D,)),
+                           Dense(HEAD_D, activation="relu"),
+                           Dense(HEAD_D, activation="relu"),
+                           Dense(HEAD_CLASSES, activation="softmax")],
+                          device="cuda").init_weights()
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    head_im = ClusterServing._wrap_model(head_net, "int8")
+    del head_net                    # the runtime holds its int8 copy
+    print(f"lanes: BERT-base bf16 and the int8 head built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    adapter = BertAdapter(im)
+    ids = serving_records(cfg["vocab"], N_LANE, seed=5)
+    rows = np.random.default_rng(6).normal(size=(N_LANE, HEAD_D)).astype(
+        np.float32)
+    adapter.predict_async(ids[:T_BATCH])()      # warm-up, not counted
+    head_im.predict(rows[:T_BATCH])
+    torch.cuda.synchronize()
+    mixed = [r for i in range(N_LANE)
+             for r in ((f"bert-{i}", ids[i], "bert"),
+                       (f"head-{i}", rows[i], "head"))]
+    counters = [KERNEL, KERNEL_INT8_MATMUL, *KERNEL_INT8_ROUTES.values()]
+
+    def two_lanes(registry, **kw):
+        def make(backend):
+            return ClusterServing(
+                {"bert": adapter, "head": {"model": head_im,
+                                           "dtype": "int8"}},
+                backend=backend, batch_size=T_BATCH, registry=registry, **kw)
+        return make
+
+    def bert_only(registry, **kw):
+        return lambda backend: ClusterServing(
+            {"bert": adapter}, backend=backend, batch_size=T_BATCH,
+            registry=registry, **kw)
+
+    # in turns: bert alone, both lanes, both lanes, bert alone; the main
+    # path's launch counts are the first two-lane run's
+    turns = []
+    for turn, kind in enumerate(("bert", "mixed", "mixed", "bert")):
+        registry = MetricsRegistry()
+        recs = mixed if kind == "mixed" else [
+            (f"bert-{i}", ids[i], "bert") for i in range(N_LANE)]
+        adapter.dispatches = 0
+        got, lane_s, at, server = serve_lanes(
+            (two_lanes if kind == "mixed" else bert_only)(registry), recs,
+            counters)
+        snap = registry.snapshot()
+        run = {"kind": kind, "lane_s": lane_s,
+               "records_per_s": {n: N_LANE / s for n, s in lane_s.items()},
+               "bert_dispatches": adapter.dispatches,
+               "k2": KERNEL.launches, "k6": KERNEL_INT8_MATMUL.launches,
+               "k6_routes": {n: c.launches
+                             for n, c in KERNEL_INT8_ROUTES.items()}}
+        for fam in ("dispatch", "e2e"):
+            s = next(m for m in registry.metrics()
+                     if m.name == f"zoo_serving_{fam}_quantiles_seconds")
+            run[f"{fam}_ms"] = {f"p{int(p * 100)}": s.quantile(p) * 1e3
+                                for p in (0.5, 0.99)}
+        run["answer_ms"] = {lane: {
+            f"p{p}": float(np.percentile(
+                [at[u] for u, _x, n in recs if n == lane], p)) * 1e3
+            for p in (50, 99)} for lane in lane_s}
+        models = server._health_info()["serving"]["models"]
+        run["models"] = {n: {key: r[key] for key in (
+            "records", "bucket_hit_rate", "pad_rows", "breaker")}
+            for n, r in models.items()}
+        run["head_dispatches"] = snap.get(
+            'zoo_serving_model_dispatches_total{model="head"}',
+            {}).get("value", 0)
+        print(f"lanes turn {turn} ({kind}): " + ", ".join(
+            f"{n} {N_LANE} records in {s:.3f}s = {N_LANE / s:.1f} "
+            f"records/s" for n, s in lane_s.items())
+              + f"; dispatch p50/p99 {run['dispatch_ms']['p50']:.3f}/"
+              f"{run['dispatch_ms']['p99']:.3f} ms, e2e p50/p99 "
+              f"{run['e2e_ms']['p50']:.3f}/{run['e2e_ms']['p99']:.3f} ms; "
+              f"answers (ms from start) {json.dumps(run['answer_ms'])}; "
+              f"models {json.dumps(run['models'])}")
+        turns.append(run)
+        if turn == 1:
+            main_got, main = got, run
+    out["turns"] = turns
+    bert_n = main["bert_dispatches"]
+    head_n = int(main["head_dispatches"])
+    bad = [u for u, a in main_got.items() if isinstance(a, str)]
+    check(not bad, f"lanes: {len(bad)} errors, e.g. {bad[:3]}: "
+          f"{main_got[bad[0]] if bad else ''}")
+    check(main["models"]["bert"]["records"] == N_LANE
+          and main["models"]["head"]["records"] == N_LANE,
+          f"lanes: per-lane records {main['models']}")
+    got_bert = np.stack([main_got[f"bert-{i}"] for i in range(N_LANE)])
+    got_head = np.stack([main_got[f"head-{i}"] for i in range(N_LANE)])
+    check(got_bert.shape == (N_LANE, 2) and got_head.shape == (
+        N_LANE, HEAD_CLASSES), f"lanes: shapes {got_bert.shape}, "
+          f"{got_head.shape}: a record answered by the wrong lane")
+    # each lane's predict of the same rows, in the served batches (a read
+    # takes 32 records of each lane, in order). The compute policy is
+    # process-wide, as in the JAX package: under BERT's bf16 policy the
+    # head's products run K6 in bf16 too, so the head's predict of all
+    # 256 rows at once (M = 256, another route) agrees to bf16's 2e-2
+    want_bert = np.concatenate([im.predict(adapter.inputs(ids[i:i + T_BATCH]))
+                                for i in range(0, N_LANE, T_BATCH)])
+    want_head = np.concatenate([head_im.predict(rows[i:i + T_BATCH])
+                                for i in range(0, N_LANE, T_BATCH)])
+    bert_err = float(np.abs(got_bert - want_bert).max())
+    head_rel = rel_err(got_head, want_head)
+    head_whole = float(np.abs(got_head - head_im.predict(rows)).max())
+    print(f"lanes: bert vs its predict {bert_err:.3e} (bf16 2e-2), head vs "
+          f"its predict {head_rel:.3e} relative (1e-4), vs one predict of "
+          f"all {N_LANE} rows {head_whole:.3e} (2e-2); {bert_n} bert "
+          f"dispatches, {main['k2']} K2 launches; {head_n} head dispatches, "
+          f"{main['k6']} K6 launches {json.dumps(main['k6_routes'])}")
+    check(bert_err <= 2e-2, f"lanes: bert answers vs predict {bert_err}")
+    check(head_rel <= INT8_REL_TOL, f"lanes: head answers vs predict "
+          f"{head_rel}")
+    check(head_whole <= 2e-2, f"lanes: head answers vs one predict "
+          f"{head_whole}")
+    check(bert_n > 0 and main["k2"] == n_block * bert_n,
+          f"lanes: {main['k2']} K2 launches for {bert_n} bert dispatches")
+    check(head_n > 0 and main["k6"] == 4 * head_n
+          and main["k6_routes"]["skinny"] == main["k6"],
+          f"lanes: K6 {main['k6']} ({main['k6_routes']}) for {head_n} head "
+          f"dispatches")
+    out.update(main=main, bert_vs_predict=bert_err, head_vs_predict=head_rel,
+               head_vs_one_predict=head_whole,
+               launches={"k2": main["k2"], "k6": main["k6"]},
+               k6_routes=main["k6_routes"])
+
+    # 3. buckets: ragged waves through the bert lane, buckets {4, 16, 32}
+    seen_rows = []
+
+    class Recording(BertAdapter):
+        def predict_async(self, x, block=True):
+            collect = super().predict_async(x, block=block)
+            if collect is not None:
+                seen_rows.append(len(x))
+            return collect
+
+    from analytics_zoo_tpu_torch.serving import (InputQueue, LocalBackend,
+                                                 OutputQueue)
+    rec_adapter = Recording(im)
+    registry = MetricsRegistry()
+    backend = LocalBackend()
+    server = ClusterServing({"bert": rec_adapter}, backend=backend,
+                            batch_size=T_BATCH, registry=registry,
+                            shape_buckets="4,16,32").start()
+    wave_ids = serving_records(cfg["vocab"], sum(BUCKET_WAVES), seed=7)
+    answers = []
+    try:
+        inq, outq = InputQueue(backend), OutputQueue(backend)
+        i = 0
+        for k_wave in BUCKET_WAVES:
+            for j in range(i, i + k_wave):
+                inq.enqueue(f"w-{j}", wave_ids[j], model="bert")
+            answers += [outq.query(f"w-{j}", timeout=300)
+                        for j in range(i, i + k_wave)]
+            i += k_wave
+    finally:
+        server.stop()
+    pad = registry.snapshot()[
+        'zoo_serving_bucket_pad_rows_total{model="bert"}']["value"]
+    unpadded = np.concatenate([im.predict(adapter.inputs(wave_ids[j:j + 1]))
+                               for j in range(len(wave_ids))])
+    wave_err = float(np.abs(np.stack(answers) - unpadded).max())
+    print(f"lanes buckets: waves {BUCKET_WAVES}, rows the model saw "
+          f"{seen_rows}, pad rows {pad}; vs unpadded predict {wave_err:.3e}")
+    check(seen_rows and set(seen_rows) <= {4, 16, 32},
+          f"lanes buckets: rows {seen_rows} outside {{4, 16, 32}}")
+    check(pad == sum(seen_rows) - len(wave_ids),
+          f"lanes buckets: pad rows {pad} for rows {seen_rows}")
+    check(wave_err <= 2e-2, f"lanes buckets: vs unpadded {wave_err}")
+    out["buckets"] = {"rows": seen_rows, "pad_rows": pad,
+                      "vs_unpadded": wave_err}
+
+    # arenas: batches in flight two at a time (arenas reused while one is
+    # out) against one at a time, the same pre-enqueued batches
+    arena_ids = serving_records(cfg["vocab"], 5 * T_BATCH, seed=8)
+    arena_recs = [(f"a-{i}", arena_ids[i], "bert")
+                  for i in range(len(arena_ids))]
+    bits = []
+    for inflight in (2, 1):
+        got, _, _, _ = serve_lanes(
+            bert_only(MetricsRegistry(), max_inflight=inflight), arena_recs)
+        bits.append(np.stack([got[u] for u, _x, _n in arena_recs]))
+    check(np.array_equal(bits[0], bits[1]),
+          "lanes arenas: two in flight are not the bits of one at a time")
+    print(f"lanes arenas: {len(arena_recs)} records, max_inflight 2 gives "
+          f"the bits of max_inflight 1")
+
+    # 4. overload: 1024 bert records without and with a watermark of 64
+    over_ids = serving_records(cfg["vocab"], N_OVERLOAD, seed=9)
+    over_recs = [(f"o-{i}", over_ids[i], "bert") for i in range(N_OVERLOAD)]
+    over = {}
+    for watermark in (0, 64):
+        registry = MetricsRegistry()
+        got, lane_s, _, server = serve_lanes(
+            bert_only(registry, shed_watermark=watermark), over_recs)
+        snap = registry.snapshot()
+        shed = sum(isinstance(a, str) and a.endswith(
+            "shed: server overloaded") for a in got.values())
+        answered = sum(not isinstance(a, str) for a in got.values())
+        e2e = next(m for m in registry.metrics()
+                   if m.name == "zoo_serving_e2e_quantiles_seconds")
+        over[watermark] = {
+            "answered": answered, "shed": shed,
+            "shed_total": snap['zoo_serving_shed_total{reason="depth"}'][
+                "value"],
+            "e2e_p50_ms": e2e.quantile(0.5) * 1e3,
+            "e2e_p99_ms": e2e.quantile(0.99) * 1e3, "wall_s": lane_s["bert"]}
+        print(f"lanes overload (watermark {watermark}): {answered} answered, "
+              f"{shed} shed in {lane_s['bert']:.3f}s; admitted e2e p50/p99 "
+              f"{over[watermark]['e2e_p50_ms']:.3f}/"
+              f"{over[watermark]['e2e_p99_ms']:.3f} ms")
+        check(answered + shed == N_OVERLOAD
+              and shed == over[watermark]["shed_total"],
+              f"lanes overload: {answered} + {shed} != {N_OVERLOAD}")
+    check(over[0]["shed"] == 0 and over[64]["shed"] > 0,
+          f"lanes overload: sheds {over[0]['shed']}, {over[64]['shed']}")
+    check(over[64]["e2e_p99_ms"] * 2 < over[0]["e2e_p99_ms"],
+          f"lanes overload: admitted p99 {over[64]['e2e_p99_ms']} not under "
+          f"half of {over[0]['e2e_p99_ms']}")
+    registry = MetricsRegistry()
+    got, _, _, _ = serve_lanes(
+        two_lanes(registry, shed_watermark=16,
+                  weights={"bert": 3, "head": 1}), mixed)
+    admitted = {n: sum(not isinstance(got[u], str)
+                       for u, _x, lane in mixed if lane == n)
+                for n in ("bert", "head")}
+    shed = sum(isinstance(a, str) and a.endswith("shed: server overloaded")
+               for a in got.values())
+    check(sum(admitted.values()) + shed == len(mixed),
+          f"lanes weighted: {admitted} + {shed} != {len(mixed)}")
+    print(f"lanes weighted (3:1, watermark 16): admitted {admitted} "
+          f"({admitted['bert'] / max(admitted['head'], 1):.2f}:1), {shed} "
+          f"shed")
+    over["weighted"] = {"admitted": admitted, "shed": shed}
+    out["overload"] = over
+
+    # 5. deadlines: records past their deadline launch no K2
+    late = [(f"late-{i}", ids[i]) for i in range(64)]
+    registry = MetricsRegistry()
+    backend = LocalBackend()
+    inq = InputQueue(backend)
+    stamp = int(time.time() * 1000) - 1
+    for uri, x in late:
+        inq.enqueue(uri, x, deadline_ms=stamp, model="bert")
+    server = ClusterServing({"bert": adapter}, backend=backend,
+                            batch_size=T_BATCH, registry=registry)
+    KERNEL.reset()
+    server.start()
+    try:
+        outq = OutputQueue(backend)
+        errs = []
+        for uri, _x in late:
+            try:
+                outq.query(uri, timeout=60)
+                errs.append("value")
+            except Exception as e:
+                errs.append(str(e))
+    finally:
+        server.stop()
+    check(all(e.endswith("deadline exceeded") for e in errs)
+          and KERNEL.launches == 0,
+          f"lanes deadlines: {set(errs)}, {KERNEL.launches} K2 launches")
+    print(f"lanes deadlines: {len(late)} expired records answered "
+          f"'deadline exceeded', 0 K2 launches")
+
+    # AIMD: paced runs with adaptive_batch at two queue-wait targets; the
+    # target's trajectory (run-length printed), answers and e2e
+    rate = 600.0
+    paced_ids = serving_records(cfg["vocab"], N_LANE, seed=10)
+    out["aimd"] = {}
+    for target_s in (0.1, 0.02):
+        registry = MetricsRegistry()
+        backend = LocalBackend()
+        server = ClusterServing({"bert": adapter}, backend=backend,
+                                batch_size=T_BATCH, registry=registry,
+                                adaptive_batch=True,
+                                queue_wait_target_s=target_s)
+        ctl = server._lanes["bert"].batch_ctl
+        trajectory = []
+        update = ctl.update
+
+        def recording(breach, update=update, trajectory=trajectory):
+            trajectory.append(update(breach))
+            return trajectory[-1]
+        ctl.update = recording
+        server.start()
+        try:
+            inq, outq = InputQueue(backend), OutputQueue(backend)
+            t0 = time.perf_counter()
+            for i in range(N_LANE):
+                delay = t0 + i / rate - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                inq.enqueue(f"p-{i}", paced_ids[i], model="bert")
+            paced = [outq.query(f"p-{i}", timeout=300)
+                     for i in range(N_LANE)]
+            wall = time.perf_counter() - t0
+        finally:
+            server.stop()
+        snap = registry.snapshot()
+        gauge = snap["zoo_serving_batch_size_target"]["value"]
+        lane_gauge = snap['zoo_serving_model_batch_target{model="bert"}'][
+            "value"]
+        e2e = next(m for m in registry.metrics()
+                   if m.name == "zoo_serving_e2e_quantiles_seconds")
+        runs = []
+        for t in trajectory:
+            if runs and runs[-1][0] == t:
+                runs[-1][1] += 1
+            else:
+                runs.append([t, 1])
+        shape = ", ".join(f"{t}" if n == 1 else f"{t} x{n}"
+                          for t, n in runs)
+        run = {"target_s": target_s, "trajectory": runs,
+               "wall_s": wall, "e2e_p50_ms": e2e.quantile(0.5) * 1e3,
+               "e2e_p99_ms": e2e.quantile(0.99) * 1e3,
+               "batches": snap["zoo_serving_batches_total"]["value"]}
+        print(f"lanes AIMD (target {target_s * 1e3:.0f} ms): {N_LANE} "
+              f"records paced at {rate:.0f}/s answered in {wall:.3f}s in "
+              f"{run['batches']:.0f} batches, e2e p50/p99 "
+              f"{run['e2e_p50_ms']:.3f}/{run['e2e_p99_ms']:.3f} ms; target "
+              f"trajectory {shape}; gauge {gauge}")
+        check(trajectory and all(1 <= t <= T_BATCH for t in trajectory),
+              f"lanes AIMD: trajectory {shape} outside [1, {T_BATCH}]")
+        check(gauge == lane_gauge == ctl.value == trajectory[-1],
+              f"lanes AIMD: gauges {gauge}/{lane_gauge} vs {ctl.value}")
+        check(len(paced) == N_LANE
+              and all(np.isfinite(p).all() for p in paced),
+              "lanes AIMD: paced answers")
+        out["aimd"][f"{target_s * 1e3:.0f}ms"] = run
+
+    # 6. poison: the head lane raises in Python on marked records
+    class PoisonHead:
+        def __init__(self, model):
+            self.model = model
+
+        def _check(self, x):
+            if np.any(np.asarray(x)[:, 0] == POISON):
+                raise RuntimeError("poison record")
+
+        def predict(self, x):
+            self._check(x)
+            return self.model.predict(x)
+
+        def predict_async(self, x, block=True):
+            self._check(x)
+            return self.model.predict_async(x, block=block)
+
+    tmp = tempfile.TemporaryDirectory(prefix="zoo-dlq-")
+    dlq = DeadLetterQueue(tmp.name, registry=MetricsRegistry())
+    poison_rows = rows[:64].copy()
+    marked = {3, 20, 41}
+    for i in marked:
+        poison_rows[i, 0] = POISON
+    recs = [r for i in range(64)
+            for r in ((f"pb-{i}", ids[i], "bert"),
+                      (f"ph-{i}", poison_rows[i], "head"))]
+    registry = MetricsRegistry()
+    adapter.dispatches = 0
+    got, _, _, _ = serve_lanes(
+        lambda backend: ClusterServing(
+            {"bert": adapter, "head": PoisonHead(head_im)}, backend=backend,
+            batch_size=T_BATCH, registry=registry, dispatch_retries=1,
+            dlq=dlq), recs, [KERNEL])
+    snap = registry.snapshot()
+    dead = {u for u, a in got.items() if isinstance(a, str)}
+    spilled = {r["uri"]: r.get("model") for _s, r in dlq.scan()}
+    # batch-mates of a poison record were retried one at a time (M = 1):
+    # against a predict of the same rows, bf16's 2e-2
+    good_head = np.stack([got[f"ph-{i}"] for i in range(64)
+                          if i not in marked])
+    good_err = float(np.abs(good_head - head_im.predict(
+        rows[[i for i in range(64) if i not in marked]])).max())
+    print(f"lanes poison: {sorted(dead)} dead-lettered, DLQ {spilled}; "
+          f"batch-mates vs predict {good_err:.3e}; bert "
+          f"{snap['zoo_serving_model_records_total{model=\"bert\"}']['value']}"
+          f" records, {KERNEL.launches} K2 for {adapter.dispatches} "
+          f"dispatches")
+    check(dead == {f"ph-{i}" for i in marked}
+          and all(got[u].endswith("dead-lettered: dispatch crashed "
+                                  "repeatedly") for u in dead),
+          f"lanes poison: dead-lettered {dead}")
+    check(spilled == {f"ph-{i}": "head" for i in marked},
+          f"lanes poison: DLQ {spilled}")
+    check(good_err <= 2e-2, f"lanes poison: batch-mates {good_err}")
+    check(snap['zoo_serving_model_records_total{model="bert"}']["value"]
+          == 64 and KERNEL.launches == n_block * adapter.dispatches,
+          "lanes poison: the bert lane's counts moved")
+
+    # replay onto a server with the fixed head model; serving.loop fires
+    # once, on the loop's first iteration (before any read, so no answer
+    # can race the crash), and the supervisor restarts the loop
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0,
+                           "zoo.faults.enabled": True})
+    registry = MetricsRegistry()
+    backend = LocalBackend()
+    replayed = dlq.replay(backend)
+    tail = [(f"rb-{i}", ids[i], "bert") for i in range(16)]
+    plan = faults.FaultPlan(seed=0).add("serving.loop", "error", at=(0,))
+    with faults.activate(plan):
+        got, _, _, _ = serve_lanes(
+            lambda b: ClusterServing(
+                {"bert": adapter, "head": head_im}, backend=b,
+                batch_size=T_BATCH, registry=registry), tail,
+            backend=backend,
+            waiting=[(f"ph-{i}", "head") for i in sorted(marked)])
+    restarts = registry.snapshot()[
+        'zoo_serving_loop_restarts_total{loop="serve"}']["value"]
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0,
+                           "zoo.faults.enabled": False})
+    tmp.cleanup()
+    replay_err = float(np.abs(
+        np.stack([got[f"ph-{i}"] for i in sorted(marked)])
+        - head_im.predict(poison_rows[sorted(marked)])).max())
+    print(f"lanes replay: {replayed} re-enqueued with their lane; "
+          f"serving.loop fired {len(plan.fired)}, loop restarts "
+          f"{restarts}; {len(got)} answered, the replayed vs the fixed "
+          f"head's predict {replay_err:.3e}")
+    check(replayed == len(marked), f"lanes replay: {replayed}")
+    check(restarts == 1 and len(plan.fired) == 1,
+          f"lanes restart: {restarts} restarts, fired {plan.fired}")
+    check(len(got) == len(tail) + len(marked)
+          and all(not isinstance(a, str) for a in got.values()),
+          "lanes replay: a record unanswered after the restart")
+    check(replay_err <= 2e-2, f"lanes replay: {replay_err}")
+    out["poison"] = {"dead": sorted(dead), "replayed": replayed,
+                     "restarts": restarts}
+    return out
 def int8_kernel_row(int8_rows, launches, launches_by_route):
     """K6's row of the kernels line: at BERT's qkv shape (config B's
     largest product, the wgmma tile path), with the scoring head's batch-1
@@ -2951,6 +3537,7 @@ def main() -> int:
     int8_rows = int8_kernel_phase()
     serving = serving_phase()
     int8_serving = int8_serving_phase(serving["records_per_s"])
+    lanes = lanes_phase()
     int8_head = int8_head_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
@@ -2960,6 +3547,11 @@ def main() -> int:
     lm["fused_ce_speedup"] = fused_ce_speedup()
     for row in rows:
         row.update(flash_lm[row["name"]])
+    # K2 serves too: its launches on the lanes path beside the training's
+    k2_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
+    k2_row["launches_by_path"] = {"bert_training": k2_row["launches"],
+                                  "lanes": lanes["launches"]["k2"]}
+    k2_row["launches"] += lanes["launches"]["k2"]
     rows += ce_kernel_rows
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
@@ -2968,15 +3560,17 @@ def main() -> int:
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
-        "bert_serving": int8_serving["launches"]},
+        "bert_serving": int8_serving["launches"],
+        "lanes": lanes["launches"]["k6"]},
         {name: int8_head["launches_by_route"][name]
          + int8_serving["launches_by_route"][name]
+         + lanes["k6_routes"][name]
          for name in int8_serving["launches_by_route"]}))
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
                       "serving": serving, "int8_serving": int8_serving,
-                      "int8_head": int8_head, "training": training,
+                      "lanes": lanes, "int8_head": int8_head, "training": training,
                       "lm": lm, "ncf": ncf, "fault_l": fault_l,
                       "captured_bert": captured_bert, "card": card}))
     print(json.dumps({"kernels": rows}))

@@ -6,6 +6,7 @@ line is checked)."""
 import importlib
 import shutil
 import subprocess
+import threading
 
 import pytest
 
@@ -187,6 +188,9 @@ def test_launch_passes_the_raw_stream_and_switches_device_only_if_needed(
     monkeypatch.setattr(torch.cuda, "device", Switch)
     monkeypatch.setattr(cuda_build, "current_raw_stream",
                         lambda index: 0xA000 + index)
+    made = []
+    monkeypatch.setattr(cuda_build, "_THREAD", threading.local())
+    monkeypatch.setattr(cuda_build, "make_current", made.append)
     calls = []
 
     def entry(*args):
@@ -198,6 +202,45 @@ def test_launch_passes_the_raw_stream_and_switches_device_only_if_needed(
     monkeypatch.setattr(cuda_build, "current_device", lambda: 0)
     assert cuda_build.launch(entry, _OnDevice(1), 8) == 7
     assert calls[-1] == (8, 0xA001) and switched == [1]
+    # the thread's first launch made the device's context current, once
+    assert made == [1]
+
+
+def test_launch_makes_the_context_current_once_per_new_thread(monkeypatch):
+    """Fault m's guard: every thread's first launch makes the tensor's
+    device current before the entry point runs, and that thread's later
+    launches do not again; under 8 threads each does so once, for
+    itself."""
+    made = []
+    order = []
+    monkeypatch.setattr(cuda_build, "_THREAD", threading.local())
+    monkeypatch.setattr(cuda_build, "make_current", lambda index: (
+        made.append((threading.get_ident(), index)),
+        order.append(("make", threading.get_ident()))))
+    monkeypatch.setattr(cuda_build, "current_device", lambda: 0)
+    monkeypatch.setattr(cuda_build, "current_raw_stream", lambda index: 0)
+
+    def entry(*args):
+        order.append(("entry", threading.get_ident()))
+        return 0
+    start = threading.Barrier(8)
+    idents = []
+
+    def work():
+        idents.append(threading.get_ident())
+        start.wait()
+        for _ in range(3):
+            assert cuda_build.launch(entry, _OnDevice(0)) == 0
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(made) == sorted((i, 0) for i in idents)
+    for ident in idents:
+        mine = [kind for kind, who in order if who == ident]
+        assert mine == ["make"] + ["entry"] * 3
+    assert len(order) == 8 * 4
 
 
 def test_cpu_tensors_never_reach_the_stream_or_the_device_guard(
@@ -213,6 +256,7 @@ def test_cpu_tensors_never_reach_the_stream_or_the_device_guard(
         raise AssertionError("launch machinery reached for a CPU tensor")
     monkeypatch.setattr(cuda_build, "current_raw_stream", refuse)
     monkeypatch.setattr(cuda_build, "current_device", refuse)
+    monkeypatch.setattr(cuda_build, "make_current", refuse)
     monkeypatch.setattr(torch.cuda, "device", refuse)
     monkeypatch.setattr(quantized, "_plan", refuse)
     monkeypatch.setattr(cuda_build.CudaLibrary, "entry", refuse)

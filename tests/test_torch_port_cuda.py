@@ -240,6 +240,34 @@ def test_flash_output_has_a_grad_fn_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+def test_k2_as_a_fresh_threads_first_cuda_work_matches_the_main_thread(
+        cuda):
+    """Fault m's guard on the card: a thread whose first CUDA work is K2's
+    wrapper, on bf16 tensors made in the main thread, launches it and
+    gives the main thread's bits."""
+    import threading
+    q, k, v, _ = _inputs(2, 12, 512, 512, 64, torch.bfloat16, seed=5)
+    want = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def first_work():
+        try:
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            got.append(out)
+        except Exception as e:      # surfaced in the main thread below
+            errors.append(e)
+    before = KERNEL.launches
+    t = threading.Thread(target=first_work)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert KERNEL.launches == before + 1
+    assert torch.equal(got[0].view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_bert_training_step_on_cuda_matches_cpu(cuda):
     """One SGD step of a small BERTClassifier through the kernels on the
     card against the same step on the CPU (plain versions), in f32."""

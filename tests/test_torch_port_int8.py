@@ -570,15 +570,50 @@ def test_wrap_model_passes_other_models_through():
         assert JaxClusterServing._wrap_model(plain, dtype) is plain
 
 
-def test_unknown_serving_dtype_and_lane_dicts_are_refused():
-    _, pm = _head_pair()
+def _serve_lanes(server_cls, inq_cls, outq_cls, backend, lanes, rows):
+    """``rows`` alternate between the lanes ``"f"`` and ``"q"``; returns
+    the server and the answers in row order."""
+    server = server_cls(lanes, backend=backend, batch_size=4).start()
+    try:
+        q = inq_cls(backend)
+        for i, r in enumerate(rows):
+            q.enqueue(f"r-{i}", r, model="fq"[i % 2])
+        out = outq_cls(backend)
+        got = np.stack([out.query(f"r-{i}", timeout=60)
+                        for i in range(len(rows))])
+    finally:
+        server.stop()
+    return server, got
+
+
+def test_unknown_serving_dtype_is_refused_and_a_lane_dict_serves():
+    """The dtype refusal with JAX's message, and a lane dict — a float32
+    lane and an int8 lane on the same head — serving each record on its
+    own lane's path as the JAX server does."""
+    jm, pm = _head_pair()
     with pytest.raises(ValueError, match="unknown serving dtype") as got:
         ClusterServing(pm, backend=LocalBackend(), dtype="fp17")
     with pytest.raises(ValueError, match="unknown serving dtype") as want:
         JaxClusterServing(pm, backend=JaxLocalBackend(), dtype="fp17")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="multi-model lanes"):
-        ClusterServing({"a": pm}, backend=LocalBackend())
+    rows = np.random.default_rng(12).normal(size=(10, 48)).astype(
+        np.float32)
+    _, want = _serve_lanes(JaxClusterServing, JaxInputQueue, JaxOutputQueue,
+                           JaxLocalBackend(), {
+                               "f": jm, "q": {"model": jm, "dtype": "int8"}},
+                           rows)
+    server, got = _serve_lanes(ClusterServing, InputQueue, OutputQueue,
+                               LocalBackend(), {
+                                   "f": pm,
+                                   "q": {"model": pm, "dtype": "int8"}},
+                               rows)
+    assert server._lanes["f"].model._quantize is None
+    assert server._lanes["q"].model._quantize == "int8"
+    assert server.served == len(rows)
+    np.testing.assert_allclose(got, want, atol=TOL["float32"], rtol=0)
+    # the lanes differ: the int8 lane answers on its own weights
+    f_only = InferenceModel(device="cpu").from_keras(pm).predict(rows[1::2])
+    assert np.abs(got[1::2] - f_only).max() > TOL["float32"]
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@ raises. Both servers must give the same records, batches, undecodable,
 failure and failure-breakdown counters, the same queue-wait, e2e and
 dispatch counts, and the same per-trace phase chains and parents. The
 ``/healthz`` and ``/statusz`` payloads differ only by the fields the port
-declares not ported yet (``server.HEALTH_NOT_PORTED``), and the port's
-status CLI gives what the JAX script gives on the same endpoint. The JAX
-server runs with ``dispatch_retries=0``: the port has no solo retries
-yet, and a failed batch fails whole in both.
+declares not ported yet (``server.HEALTH_NOT_PORTED``: the fleet's
+``scaling`` block), and the port's status CLI gives what the JAX script
+gives on the same endpoint. Both servers run with ``dispatch_retries=0``,
+so a failed batch fails whole in both (the solo retries are held to JAX
+in ``tests/test_torch_port_serving_overload.py``).
 
 Nothing here sleeps to wait: results are awaited through ``query``
 timeouts, and counters and events are read after ``stop()``, which joins
@@ -198,7 +199,8 @@ def _jax_server(model, **kw):
 
 def _port_server(model, **kw):
     return lambda backend, reg: ClusterServing(
-        model, backend=backend, batch_size=4, registry=reg, **kw)
+        model, backend=backend, batch_size=4, registry=reg,
+        dispatch_retries=0, **kw)
 
 
 def _pair(kind):
@@ -342,9 +344,24 @@ def test_healthz_statusz_match_jax_but_for_the_declared_fields(tmp_path):
     finally:
         jscrape.close()
         pscrape.close()
+    # what is left to port is the fleet's scaling block (item 2f); the
+    # overload block and every field of a models row match JAX's
+    assert pserver.HEALTH_NOT_PORTED == {"serving": ("scaling",),
+                                         "models": ()}
     declared = {f"serving.{k}" for k in pserver.HEALTH_NOT_PORTED["serving"]}
     declared |= {f"serving.models.default.{k}"
                  for k in pserver.HEALTH_NOT_PORTED["models"]}
+    assert declared == {"serving.scaling"}
+    for j, p in ((jh, ph), (js, ps)):
+        assert p["serving"]["overload"] == j["serving"]["overload"]
+        jrow = dict(j["serving"]["models"]["default"])
+        prow = dict(p["serving"]["models"]["default"])
+        assert set(prow) == set(jrow)
+        # one 6-record read: buckets, hit rate, padding as JAX's
+        for key in ("weight", "dtype", "batch_target", "batch_ceiling",
+                    "max_inflight", "buckets", "bucket_hit_rate",
+                    "breaker", "pad_rows"):
+            assert prow[key] == jrow[key], key
     for j, p in ((jh, ph), (js, ps)):
         missing, extra, types = _type_diff(j, p)
         assert missing == declared
@@ -476,16 +493,19 @@ def test_status_cli_human_output_and_unreachable_exit():
 
 def test_a_crashed_serve_loop_reads_down_and_the_cli_exits_1(tmp_path):
     """An escaped exception in the serve loop flips /healthz to down with
-    the traceback on /statusz, as the JAX server reads once its
-    supervisor gives up; both CLIs then exit 1."""
+    the traceback on /statusz once the supervisor gives up (here at the
+    first crash, ``max_loop_restarts=0``), as the JAX server reads; both
+    CLIs then exit 1."""
 
     class BrokenBackend(LocalBackend):
         def backlog_len(self, stream, group=None):
             raise ValueError("backend wedged")
 
-    make_j, make_p = _pair("model")
+    _, pm = _models()
     backend = BrokenBackend()
-    server = make_p(backend, pobs.MetricsRegistry())
+    server = _port_server(InferenceModel(device="cpu").from_keras(pm),
+                          max_loop_restarts=0)(backend,
+                                               pobs.MetricsRegistry())
     events = str(tmp_path / "crash.jsonl")
     server.set_json_events(events)
     scrape = server.serve_metrics(port=0)
