@@ -50,6 +50,13 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.serving.dlq_max_bytes": 64 << 20,  # its disk bound, oldest evicted
     "zoo.serving.consumer_group": "serving",  # stream consumer group
     #   ("" = consume-on-read)
+    "zoo.serving.claim_idle_ms": 30000,  # pending entries idle past this are
+    #   reclaimable by a surviving replica (crash-safe entry reclaim)
+    "zoo.serving.max_deliveries": 5,  # deliveries (read + reclaims) past
+    #   this dead-letter the entry instead of reclaiming it forever
+    "zoo.serving.fleet_backpressure": False,  # InputQueue.enqueue consults
+    #   the fleet registry and slows, then refuses, producers when every
+    #   live replica reports itself saturated (FleetSaturatedError)
     "zoo.faults.enabled": False,     # gate for common.faults.activate (chaos tests)
     # -- telemetry plane -----------------------------------------------------
     "zoo.telemetry.sample_interval_s": 1.0,  # cadence of the registry and

@@ -2,13 +2,13 @@
 JAX package's names: the metrics registry (same ``zoo_*`` metric names),
 span tracing and trace ids, the Prometheus / JSON-lines exports with the
 ``/metrics``, ``/healthz``, ``/statusz`` and ``POST /profilez`` endpoint,
-ring-buffer time series, the fleet rollup the status CLI uses, device
+ring-buffer time series, the alert engine, the fleet collector with its
+``/fleetz`` endpoint (and the fleet rollup the status CLI uses), device
 memory from ``torch.cuda``, goodput accounting and the profiler trigger
 on ``torch.profiler``.
 
-Not ported yet: jit compile accounting (``instrument_jit``), the
-TensorBoard sink, the alert engine, and the continuous fleet collector
-with its ``/fleetz`` endpoint.
+Not ported: jit compile accounting (``instrument_jit``; the port has no
+jit) and the TensorBoard sink.
 """
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -21,7 +21,12 @@ from .timeseries import (RegistrySampler, RingBuffer, SummarySample,
                          TimeSeriesStore, rehydrate_digest)
 from .device import (DeviceMemorySampler, device_memory_stats,
                      sample_device_memory)
-from .collector import base_url, endpoint_rows, fleet_rows, summary_points
+from .alerts import (AlertEngine, AlertRule, StoreSignals,
+                     burn_rate_rule, default_ruleset,
+                     quantile_burn_rule)
+from .collector import (FleetCollector, FleetSignals, FleetzServer,
+                        base_url, endpoint_rows, fleet_rows,
+                        summary_points)
 from .goodput import (GOOD_CATEGORY, SERVE_CATEGORIES, TRAIN_CATEGORIES,
                       GoodputLedger, goodput_enabled)
 from .goodput import registry_snapshot as goodput_snapshot
@@ -36,6 +41,9 @@ __all__ = [
     "RingBuffer", "SummarySample", "TimeSeriesStore", "RegistrySampler",
     "rehydrate_digest",
     "DeviceMemorySampler", "device_memory_stats", "sample_device_memory",
+    "AlertEngine", "AlertRule", "StoreSignals", "burn_rate_rule",
+    "quantile_burn_rule", "default_ruleset",
+    "FleetCollector", "FleetSignals", "FleetzServer",
     "summary_points", "fleet_rows", "endpoint_rows", "base_url",
     "GoodputLedger", "GOOD_CATEGORY", "TRAIN_CATEGORIES",
     "SERVE_CATEGORIES", "goodput_enabled", "goodput_snapshot",

@@ -28,10 +28,9 @@ Entry points:
 from __future__ import annotations
 
 import logging
+import sys
 import threading
 from typing import Dict, List, Optional
-
-import torch
 
 from .metrics import MetricsRegistry, default_registry
 
@@ -52,7 +51,11 @@ def device_memory_stats() -> List[Dict[str, float]]:
     ``[{"device": "gpu:0", "in_use": ..., "peak": ..., "limit": ...},
     ...]``. Without a CUDA device it returns ``[]``. A device the
     allocator has not touched yet reports 0 in use; polling never
-    initialises CUDA on a host whose process has not."""
+    initialises CUDA on a host whose process has not, and never imports
+    torch into one that has not (the operator CLIs start without it)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return []
     try:
         if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return []

@@ -9,8 +9,9 @@ it:
 
 * **http** — ``POST /profilez`` on a :class:`~.export.ScrapeServer`
   built with ``profiler=``,
-* **alert** — :meth:`on_alert`, the transition hook an alert engine
-  calls (the port's alert engine is not ported yet),
+* **alert** — register :meth:`on_alert` with
+  :meth:`AlertEngine.add_transition_hook`: a rule entering ``firing``
+  arms a capture,
 * **manual** — call :meth:`arm` from code or a debugger.
 
 The default start/stop run ``torch.profiler.profile`` over the CPU and,

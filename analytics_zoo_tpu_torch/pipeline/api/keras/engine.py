@@ -457,7 +457,7 @@ class KerasNet(Layer):
     def predict_classes(self, x, batch_size: int = 32,
                         zero_based: bool = True):
         """``predictClass`` (``Predictor.scala:210``)."""
-        from .training import probs_to_classes
+        from ....utils.prediction import probs_to_classes
         return probs_to_classes(self.predict(x, batch_size=batch_size),
                                 zero_based=zero_based)
 

@@ -501,15 +501,3 @@ class TrainingLoop:
         if not outs:
             return None
         return torch.cat(outs).float().cpu().numpy()
-
-
-def probs_to_classes(probs: np.ndarray, zero_based: bool = True,
-                     threshold: float = 0.5) -> np.ndarray:
-    """Multi-class: argmax over the last axis. Binary (one column or 1-D):
-    threshold at ``threshold`` (the ``predictClass`` rule)."""
-    probs = np.asarray(probs)
-    if probs.ndim > 1 and probs.shape[-1] > 1:
-        cls = np.argmax(probs, axis=-1).astype(np.int32)
-    else:
-        cls = (probs.reshape(-1) > threshold).astype(np.int32)
-    return cls if zero_based else cls + 1

@@ -400,6 +400,12 @@ class InferenceModel:
         Thread-safe."""
         return self.predict_async(x, batch_size)()
 
+    def predict_classes(self, x, zero_based: bool = True):
+        """Class ids of :meth:`predict`'s probabilities (argmax, or a 0.5
+        threshold for one column)."""
+        from ...utils.prediction import probs_to_classes
+        return probs_to_classes(self.predict(x), zero_based=zero_based)
+
     def predict_async(self, x, batch_size: Optional[int] = None,
                       block: bool = True):
         """Dispatch a predict without waiting for the device. Returns a

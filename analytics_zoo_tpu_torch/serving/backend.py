@@ -1,12 +1,24 @@
-"""Serving queue backend — port of ``LocalBackend`` from
-``analytics_zoo_tpu/serving/backend.py``: an in-process, thread-safe,
-bounded stream + result store with Redis-stream semantics (xadd/xread,
-consumer groups with a pending-entries list, xack, xautoclaim), with the
-JAX package's fault-injection sites (``backend.xadd``, ``backend.xread``
-— ``xread`` and ``xreadgroup`` —, ``backend.xack``, ``backend.xclaim``,
-``backend.stream_len``, ``backend.set_result``, ``backend.set_results``,
-which also takes ``partial_write``). Pure Python and threads.
-``RedisBackend`` is not ported yet.
+"""Serving queue backends — port of ``analytics_zoo_tpu/serving/
+backend.py``, the transport under Cluster Serving (pure Python):
+
+* ``LocalBackend`` — an in-process, thread-safe, bounded stream + result
+  store with Redis-stream semantics (xadd/xread, consumer groups with a
+  pending-entries list, xack, xautoclaim) and the fleet key-value surface
+  (``fleet_set``/``fleet_all``/``fleet_del``) the replica heartbeats use;
+* ``RedisBackend`` — the same contract against a Redis server: input
+  stream entries and ``result:<uri>`` hashes, the group commands (XGROUP
+  / XREADGROUP / XACK / XPENDING / XCLAIM) and the ``fleet:<stream>``
+  hash, through redis-py when it is installed and otherwise through the
+  in-repo RESP client (``serving/resp.py``).
+
+The JAX package's fault-injection sites sit where it has them:
+``backend.xadd``, ``backend.xread`` (at ``xreadgroup``), ``backend.xack``
+and ``backend.xclaim`` on both backends; on ``LocalBackend`` also
+``backend.xread`` at ``xread``, ``backend.stream_len``,
+``backend.set_result`` and ``backend.set_results`` (which also takes
+``partial_write``). Every wait is bounded: ``timeout=None`` means the
+backend's ``default_timeout``, and ``RedisBackend``'s polls back off
+through ``poll_policy``.
 """
 
 from __future__ import annotations
@@ -18,8 +30,10 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..common import faults
+from ..common.reliability import RetryPolicy
 
-__all__ = ["LocalBackend", "QueueFullError", "default_backend"]
+__all__ = ["LocalBackend", "RedisBackend", "QueueFullError",
+           "default_backend"]
 
 #: bound applied when a caller passes ``timeout=None`` — an unbounded
 #: producer/consumer wait turns a dead serve loop into a hung client
@@ -78,6 +92,8 @@ class LocalBackend:
         self._pending: Dict[Tuple[str, str],
                             "collections.OrderedDict[str, _PendingEntry]"] \
             = {}
+        #: stream -> {consumer: json payload} — replica heartbeats
+        self._fleet: Dict[str, Dict[str, str]] = {}
         self._lock = threading.Condition()
         self._seq = itertools.count()
 
@@ -136,7 +152,7 @@ class LocalBackend:
     # -- consumer groups ----------------------------------------------------
     def xgroup_create(self, stream: str, group: str) -> None:
         """Idempotent: creating a group that exists is a no-op (the Redis
-        BUSYGROUP reply is likewise swallowed by a Redis backend)."""
+        BUSYGROUP reply is likewise swallowed in ``RedisBackend``)."""
         with self._lock:
             self._pending.setdefault((stream, group), collections.OrderedDict())
             self._streams.setdefault(stream, [])
@@ -225,10 +241,23 @@ class LocalBackend:
         """Entries a new read would see (undelivered backlog). For
         ``LocalBackend`` this equals :meth:`stream_len` — delivered
         entries left the stream list for the PEL; the ``group`` arg
-        exists for signature parity with a Redis backend, where XLEN
+        exists for signature parity with ``RedisBackend``, where XLEN
         still counts delivered-but-unacked entries."""
         with self._lock:
             return len(self._streams.get(stream, []))
+
+    # -- fleet key-value (replica heartbeats, serving/fleet.py) -------------
+    def fleet_set(self, stream: str, consumer: str, payload: str) -> None:
+        with self._lock:
+            self._fleet.setdefault(stream, {})[consumer] = str(payload)
+
+    def fleet_all(self, stream: str) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._fleet.get(stream, {}))
+
+    def fleet_del(self, stream: str, consumer: str) -> None:
+        with self._lock:
+            self._fleet.get(stream, {}).pop(consumer, None)
 
     def stream_len(self, stream: str) -> int:
         faults.inject("backend.stream_len")
@@ -283,3 +312,305 @@ class LocalBackend:
         with self._lock:
             out, self._results = self._results, {}
             return out
+
+
+#: wire fields carried as binary end to end (Redis streams/hashes are
+#: binary-safe): the v2 tensor payloads. Every other field (uri, trace,
+#: dtype, shape, error text) is utf-8 text.
+_BINARY_FIELDS = frozenset({"data", "value"})
+
+
+class RedisBackend:
+    """Same contract against a real Redis; keys match the reference: input
+    stream entries + ``result:<uri>`` hashes
+    (``serving/ClusterServing.scala:103-134``). Uses the redis-py client
+    when installed, otherwise the in-repo RESP wire client
+    (``serving/resp.py``) — no package dependency to talk to a real
+    server. The ``data``/``value`` payload fields round-trip as raw
+    bytes (wire-format v2); all other fields are text.
+
+    The full-stream and result waits poll with jittered backoff through
+    ``poll_policy`` (no fixed-interval spin hammering the server) and
+    are bounded by ``default_timeout`` when the caller passes no
+    timeout. Transport-level reconnects live one layer down, in the
+    RESP client (``serving/resp.py``)."""
+
+    def __init__(self, host: str = "localhost", port: int = 6379,
+                 maxlen: int = 10000,
+                 default_timeout: float = _DEFAULT_TIMEOUT,
+                 poll_policy: Optional[RetryPolicy] = None):
+        try:
+            import redis
+            self._r = redis.Redis(host=host, port=port)
+            # redis-py's transport errors subclass RedisError, NOT the
+            # builtin ConnectionError — normalize them (see _call) or the
+            # breaker/retry classification upstream never engages
+            self._driver_errors: Tuple[type, ...] = (
+                redis.exceptions.ConnectionError,
+                redis.exceptions.TimeoutError)
+            self._is_resp = False
+        except ImportError:
+            from .resp import RespClient
+            self._r = RespClient(host=host, port=port)
+            self._driver_errors = ()    # RespClient raises builtins already
+            self._is_resp = True
+        self.maxlen = maxlen
+        self.default_timeout = default_timeout
+        #: backoff for the client-side polls (full stream, result wait):
+        #: starts near the old 10 ms spin, backs off to 50 ms so a long
+        #: wait costs dozens of round trips, not thousands
+        self.poll_policy = poll_policy if poll_policy is not None \
+            else RetryPolicy(base_delay=0.005, max_delay=0.05)
+        self._last_id: Dict[str, str] = {}
+        #: (stream, group) -> (monotonic, total) — bounds the XPENDING
+        #: summaries behind the serve loop's depth probes (pre-read shed
+        #: check, post-read gauge, heartbeat — each would otherwise be
+        #: its own round trip). Invalidated on this instance's own
+        #: reads/acks/claims, so local accounting stays exact; other
+        #: replicas' settlements surface within the window
+        self._pending_cache: Dict[Tuple[str, str], Tuple[float, int]] = {}
+        self.pending_cache_s = 0.25
+
+    def _call(self, fn, *args, **kwargs):
+        """One driver call with driver-specific transport exceptions
+        normalized to the builtin ``ConnectionError`` the reliability
+        layer (serve-loop breaker, retry classification) keys on."""
+        try:
+            return fn(*args, **kwargs)
+        except self._driver_errors as e:
+            raise ConnectionError(f"{type(e).__name__}: {e}") from e
+
+    def xadd(self, stream: str, fields: dict,
+             timeout: Optional[float] = None) -> str:
+        # same named fault site as LocalBackend.xadd, so the chaos
+        # scenarios in test_chaos.py can also run against a live Redis
+        faults.inject("backend.xadd")
+        timeout = self.default_timeout if timeout is None else timeout
+        if not self.poll_policy.wait_for(
+                lambda: self._call(self._r.xlen, stream) < self.maxlen,
+                timeout=timeout):
+            raise QueueFullError(
+                f"stream {stream!r} full ({self.maxlen}); inference is "
+                f"not keeping up — dequeue or raise maxlen")
+        return self._call(self._r.xadd, stream, fields).decode()
+
+    def xread(self, stream: str, count: int,
+              block_ms: int = 100) -> List[Tuple[str, dict]]:
+        last = self._last_id.get(stream, "0")
+        resp = self._call(self._r.xread, {stream: last}, count=count,
+                          block=block_ms)
+        out = []
+        for _, entries in resp or []:
+            for eid, fields in entries:
+                eid = eid.decode()
+                out.append((eid, self._decode_fields(fields)))
+                self._last_id[stream] = eid
+                self._call(self._r.xdel, stream, eid)
+        return out
+
+    # -- consumer groups ----------------------------------------------------
+    def xgroup_create(self, stream: str, group: str) -> None:
+        """XGROUP CREATE (from id 0, MKSTREAM); an already-existing
+        group's BUSYGROUP reply is swallowed — creation is idempotent."""
+        try:
+            if self._is_resp:
+                self._call(self._r.xgroup_create, stream, group)
+            else:
+                self._call(self._r.xgroup_create, stream, group, id="0",
+                           mkstream=True)
+        except ConnectionError:
+            raise
+        except Exception as e:
+            if "BUSYGROUP" not in str(e):
+                raise
+
+    def xreadgroup(self, stream: str, group: str, consumer: str, count: int,
+                   block_ms: int = 100) -> List[Tuple[str, dict]]:
+        """XREADGROUP ``>``: deliver new entries to this consumer, into
+        the group's PEL. Entries stay in the stream until the post-
+        settlement :meth:`xack` deletes them. Same fault site as
+        :meth:`xread` — one ``backend.xread`` per loop read."""
+        faults.inject("backend.xread")
+        resp = self._call(self._r.xreadgroup, group, consumer,
+                          {stream: ">"}, count=count, block=block_ms)
+        out = []
+        for _, entries in resp or []:
+            for eid, fields in entries:
+                out.append((eid.decode() if isinstance(eid, bytes) else eid,
+                            self._decode_fields(fields)))
+        if out:
+            self._pending_cache.pop((stream, group), None)
+        return out
+
+    def xack(self, stream: str, group: str, *entry_ids: str) -> int:
+        """XDEL + XACK: settle the entries AND delete them from the
+        stream, so XLEN tracks live work (undelivered + in-flight), not
+        history. Both halves are idempotent — a re-ack counts 0.
+
+        XDEL runs FIRST: a connection dropped between the two commands
+        then leaves a stream-deleted entry still pending, which the next
+        reclaim sweep finds and settles (:meth:`xautoclaim` acks
+        nil-field tombstones). The reverse order would leak permanently
+        — an acked-but-undeleted entry has left the PEL, is never
+        redelivered (the group's last-delivered id already passed it),
+        and occupies XLEN/maxlen capacity forever."""
+        faults.inject("backend.xack")
+        if not entry_ids:
+            return 0
+        self._call(self._r.xdel, stream, *entry_ids)
+        n = int(self._call(self._r.xack, stream, group, *entry_ids))
+        self._pending_cache.pop((stream, group), None)
+        return n
+
+    def xautoclaim(self, stream: str, group: str, consumer: str,
+                   min_idle_ms: float, count: int = 100
+                   ) -> List[Tuple[str, dict, str, int]]:
+        """Survivor-side reclaim: XPENDING (idle-filtered, with owner and
+        delivery count) then XCLAIM the candidate ids. XCLAIM only
+        returns entries actually transferred — a racing survivor's claim
+        reset their idle clock, so exactly one claimer wins each entry.
+        Returns ``[(id, fields, previous_consumer, delivery_count)]``."""
+        faults.inject("backend.xclaim")
+        min_idle = int(min_idle_ms)
+        if self._is_resp:
+            pend = self._call(self._r.xpending_range, stream, group,
+                              min_idle, count)
+        else:
+            pend = [(p["message_id"], p["consumer"], p["times_delivered"])
+                    for p in self._call(
+                        self._r.xpending_range, stream, group, min="-",
+                        max="+", count=count, idle=min_idle)]
+        if not pend:
+            return []
+        owners = {self._as_text(eid): (self._as_text(owner), int(times))
+                  for eid, owner, times in pend}
+        claimed = self._call(self._r.xclaim, stream, group, consumer,
+                             min_idle, list(owners))
+        self._pending_cache.pop((stream, group), None)
+        out = []
+        tombstones = []
+        for eid, fields in claimed or []:
+            eid = self._as_text(eid)
+            if fields is None:
+                # the message is gone from the stream (an ack whose
+                # connection dropped between XDEL and XACK, or trimming):
+                # nothing is left to re-answer, so settle the dangling
+                # PEL entry instead of re-claiming it every sweep
+                tombstones.append(eid)
+                continue
+            prev, times = owners.get(eid, ("?", 0))
+            out.append((eid, self._decode_fields(fields), prev, times + 1))
+        if tombstones:
+            try:
+                self._call(self._r.xack, stream, group, *tombstones)
+            except (ConnectionError, OSError):
+                pass            # the next sweep retries the settlement
+        return out
+
+    def xpending(self, stream: str, group: str) -> Dict[str, int]:
+        """Per-consumer pending counts from the XPENDING summary form."""
+        if self._is_resp:
+            return self._call(self._r.xpending_summary, stream, group)
+        info = self._call(self._r.xpending, stream, group)
+        return {self._as_text(c["name"]): int(c["pending"])
+                for c in (info.get("consumers") or [])}
+
+    def pending_len(self, stream: str, group: str) -> int:
+        """Total PEL size, cached for ``pending_cache_s`` (the depth
+        probes behind shed checks / gauges / heartbeats call this up to
+        several times per serve-loop iteration; each miss is an XPENDING
+        round trip). This instance's own reads/acks/claims invalidate
+        the cache, so the staleness window only covers OTHER replicas'
+        activity: their reads move entries from backlog into the PEL (a
+        stale low count overestimates backlog — errs toward shedding),
+        their acks shrink XLEN and PEL together (the derived backlog
+        clamps at 0 — errs toward flushing). Neither direction parks
+        records, and both converge within the window."""
+        key = (stream, group)
+        now = time.monotonic()
+        hit = self._pending_cache.get(key)
+        if hit is not None and now - hit[0] < self.pending_cache_s:
+            return hit[1]
+        n = sum(self.xpending(stream, group).values())
+        self._pending_cache[key] = (now, n)
+        return n
+
+    def backlog_len(self, stream: str, group: Optional[str] = None) -> int:
+        """Undelivered backlog: XLEN minus the group's PEL (on real
+        Redis, delivered-but-unacked entries still count in XLEN)."""
+        n = int(self._call(self._r.xlen, stream))
+        if group:
+            n -= self.pending_len(stream, group)
+        return max(n, 0)
+
+    @staticmethod
+    def _as_text(v) -> str:
+        return v.decode() if isinstance(v, bytes) else str(v)
+
+    # -- fleet key-value (replica heartbeats, serving/fleet.py) -------------
+    def fleet_set(self, stream: str, consumer: str, payload: str) -> None:
+        self._call(self._r.hset, f"fleet:{stream}",
+                   mapping={consumer: payload})
+
+    def fleet_all(self, stream: str) -> Dict[str, str]:
+        vals = self._call(self._r.hgetall, f"fleet:{stream}")
+        return {self._as_text(k): self._as_text(v)
+                for k, v in (vals or {}).items()}
+
+    def fleet_del(self, stream: str, consumer: str) -> None:
+        self._call(self._r.hdel, f"fleet:{stream}", consumer)
+
+    @staticmethod
+    def _decode_fields(fields: Dict[bytes, bytes]) -> dict:
+        """Field decode for stream entries / result hashes: keys are
+        always text; payload fields stay bytes (see ``_BINARY_FIELDS``)."""
+        out = {}
+        for k, v in fields.items():
+            key = k.decode()
+            out[key] = v if key in _BINARY_FIELDS else v.decode()
+        return out
+
+    def stream_len(self, stream: str) -> int:
+        return int(self._call(self._r.xlen, stream))
+
+    def set_result(self, uri: str, fields: dict) -> None:
+        self._call(self._r.hset, f"result:{uri}", mapping=fields)
+
+    def set_results(self, results: Dict[str, dict]) -> None:
+        """Batched result publish: ONE pipelined round trip for the whole
+        batch (both redis-py and the in-repo RESP client expose the
+        ``pipeline()`` surface) instead of one HSET round trip per
+        record — the async publisher's write path."""
+        if not results:
+            return
+        pipe = self._r.pipeline()
+        for uri, fields in results.items():
+            pipe.hset(f"result:{uri}", mapping=fields)
+        self._call(pipe.execute)
+
+    def pop_result(self, uri: str,
+                   timeout: Optional[float] = None) -> Optional[dict]:
+        timeout = self.default_timeout if timeout is None else timeout
+        key = f"result:{uri}"
+        found: List[Dict[bytes, bytes]] = []
+
+        def check() -> bool:
+            vals = self._call(self._r.hgetall, key)
+            if vals:
+                found.append(vals)
+                return True
+            return False
+
+        if not self.poll_policy.wait_for(check, timeout=timeout):
+            return None
+        self._call(self._r.delete, key)
+        return self._decode_fields(found[0])
+
+    def pop_all_results(self) -> Dict[str, dict]:
+        out = {}
+        for key in self._call(self._r.keys, "result:*"):
+            uri = key.decode().split(":", 1)[1]
+            res = self.pop_result(uri, timeout=0)
+            if res is not None:
+                out[uri] = res
+        return out

@@ -2,8 +2,10 @@
 the wire codec (v2: raw little-endian tensor bytes plus ``dtype``/``shape``
 fields, decoded as a zero-copy view; v1: base64 ``.npy``, still accepted)
 and the ``InputQueue``/``OutputQueue`` producer and consumer, with the
-``deadline_ms`` and ``model`` wire fields. Numpy and threads only. Fleet
-backpressure is not ported yet.
+``deadline_ms`` and ``model`` wire fields, and fleet backpressure: a
+producer slowed, then refused, when every live replica reports itself
+saturated. Numpy and threads only; any backend with the stream/result
+contract (``LocalBackend``, ``RedisBackend``) carries it.
 """
 
 from __future__ import annotations
@@ -201,18 +203,56 @@ def decode_payload(fields: Dict, key: str = "data") -> np.ndarray:
     return decode_array(fields[key])
 
 
-
 class InputQueue:
     """Producer side: ``enqueue(uri, tensor)``. Blocks (up to ``timeout``)
-    when the stream is at capacity. The JAX producer's fleet backpressure
-    (``_check_fleet``: slow, then refuse, when every live replica reports
-    itself saturated) waits for the fleet registry and is not ported."""
+    when the stream is at capacity.
+
+    With ``fleet_backpressure`` on (or conf
+    ``zoo.serving.fleet_backpressure``), enqueue also consults the fleet
+    registry (``serving/fleet.py``; a cached :class:`FleetView`): when
+    every live replica reports itself saturated the producer is first
+    slowed (a backed-off wait up to ``fleet_wait_s``), then refused with
+    :class:`~analytics_zoo_tpu_torch.serving.fleet.FleetSaturatedError`
+    — backpressure upstream of the stream, so a replica's own shedding
+    becomes the backstop."""
 
     def __init__(self, backend: Optional[LocalBackend] = None,
-                 stream: str = INPUT_STREAM, timeout: float = 30.0):
+                 stream: str = INPUT_STREAM, timeout: float = 30.0,
+                 fleet_backpressure: Optional[bool] = None,
+                 fleet_wait_s: float = 1.0,
+                 fleet_view=None):
         self.backend = backend if backend is not None else default_backend()
         self.stream = stream
         self.timeout = timeout
+        if fleet_backpressure is None:
+            from ..common.context import get_zoo_context
+            fleet_backpressure = bool(get_zoo_context().get(
+                "zoo.serving.fleet_backpressure", False))
+        self.fleet_backpressure = bool(fleet_backpressure)
+        self.fleet_wait_s = float(fleet_wait_s)
+        self._fleet_view = fleet_view
+        if self.fleet_backpressure and self._fleet_view is None:
+            from .fleet import FleetView
+            self._fleet_view = FleetView(self.backend, self.stream)
+
+    def _check_fleet(self) -> None:
+        """Slow, then refuse: wait (backed off) up to ``fleet_wait_s``
+        for the fleet to report headroom; raise once the budget is spent.
+        The cached view bounds the backend reads underneath."""
+        if not self.fleet_backpressure or self._fleet_view is None:
+            return
+        if not self._fleet_view.saturated():
+            return
+        from ..common.reliability import RetryPolicy
+        from .fleet import FleetSaturatedError
+        wait = RetryPolicy(base_delay=0.02, max_delay=0.2)
+        if not wait.wait_for(lambda: not self._fleet_view.saturated(),
+                             timeout=self.fleet_wait_s):
+            raise FleetSaturatedError(
+                f"fleet serving stream {self.stream!r} is saturated "
+                f"(every live replica above its shed watermark for "
+                f"{self.fleet_wait_s:.1f}s); enqueue refused — retry "
+                f"with backoff or scale the fleet")
 
     def enqueue(self, uri: str, data: np.ndarray,
                 trace: Optional[str] = None,
@@ -227,7 +267,9 @@ class InputQueue:
         dispatching it. ``model`` routes the record to one named lane of
         a multi-model server; without it the record goes to the primary
         lane, and a name the server does not host is answered ``unknown
-        model``."""
+        model``. With fleet backpressure on, a saturated fleet slows and
+        then refuses the call (``FleetSaturatedError``)."""
+        self._check_fleet()
         fields = encode_tensor(np.asarray(data))
         fields["uri"] = uri
         # a falsy trace ("" from an unset upstream header) mints one too

@@ -28,9 +28,9 @@ carry fresh trace ids, the original kept as ``replay_of``, and their
 Metrics: ``zoo_serving_dlq_records`` / ``zoo_serving_dlq_bytes`` gauges,
 ``zoo_serving_dlq_spilled_total{reason=}``,
 ``zoo_serving_dlq_evicted_total``, ``zoo_serving_dlq_corrupt_total``,
-``zoo_serving_dlq_replayed_total``. The JAX package's ``zoo-dlq``
-operator CLI replays over RESP and waits for ``RedisBackend``; it is not
-ported yet.
+``zoo_serving_dlq_replayed_total``. The operator CLI, ``python -m
+analytics_zoo_tpu_torch.serving.dlq_cli`` (the port of ``zoo-dlq``),
+lists, inspects, purges and replays a directory over RESP.
 """
 
 from __future__ import annotations

@@ -70,9 +70,23 @@ analytics_zoo_tpu_torch.serving.status`` reads. With
 ``zoo.goodput.enabled`` the loop attributes its wall clock to ``idle``,
 ``shed``, ``host_decode``, ``device_dispatch`` and ``publish``.
 
-Not ported yet: fleet heartbeats and the reclaim sweep, fleet
-backpressure, ``RedisBackend`` and the ``zoo-dlq`` CLI. The ``/statusz``
-fields that come with them are listed in :data:`HEALTH_NOT_PORTED`.
+**Fleet.** Replicas scale out on one stream, on ``LocalBackend`` in one
+process or on ``RedisBackend`` across processes and hosts. Each joins
+the stream's consumer group under a unique ``consumer_name``: a read
+delivers an entry to one replica, which acks it only once its outcome
+landed (a result, an error answer, a shed answer or a DLQ spill). A
+replica that dies between read and publish loses nothing: a survivor's
+reclaim sweep, run ahead of each read every ``claim_sweep_s``, takes
+over the dead peer's entries idle past ``claim_idle_ms``
+(``zoo_serving_reclaimed_total{from=}``, ``serving.reclaim`` events) and
+serves them again; an entry delivered more than ``max_deliveries`` times
+is dead-lettered. Reclaimed entries report no queue wait. Each replica
+heartbeats its mode, depth, pending entries, saturation, utilization
+and scrape endpoint into the fleet registry (``serving/fleet.py``) from
+a thread of its own that touches no device: ``start()`` registers, then
+refuses a stream a live peer serves in another mode; producers read the
+registry for fleet backpressure; the fleet collector finds its targets
+there; ``/statusz`` carries it as the ``scaling`` block.
 """
 
 from __future__ import annotations
@@ -95,6 +109,7 @@ from ..common import faults
 from ..common.reliability import (AIMDController, CircuitBreaker,
                                   RetryBudget, RetryPolicy)
 from ..observability import default_registry, span
+from . import fleet as fleet_lib
 from .backend import LocalBackend, default_backend
 from .client import (INPUT_STREAM, decode_payload, encode_array,
                      encode_tensor, is_v2, validate_v2)
@@ -166,10 +181,9 @@ _BUSY_POLL_MS = 1
 #: their own precision and pass through untouched
 _LANE_DTYPES = ("float32", "bfloat16", "bf16", "int8")
 
-#: the JAX server's ``/healthz`` / ``/statusz`` fields that arrive with
-#: later serving items: the ``scaling`` block under ``serving`` (fleet
-#: heartbeats, pending entries, utilization)
-HEALTH_NOT_PORTED = {"serving": ("scaling",), "models": ()}
+#: the JAX server's ``/healthz`` / ``/statusz`` fields the port lacks:
+#: none left, every block (``scaling`` included) has the JAX keys
+HEALTH_NOT_PORTED = {"serving": (), "models": ()}
 
 
 def _parse_buckets(spec, batch_size: int):
@@ -377,7 +391,12 @@ class ClusterServing:
                  dlq: Optional[DeadLetterQueue] = None,
                  dlq_dir: Optional[str] = None,
                  consumer_group: Optional[str] = None,
-                 consumer_name: Optional[str] = None):
+                 consumer_name: Optional[str] = None,
+                 claim_idle_ms: Optional[float] = None,
+                 claim_sweep_s: Optional[float] = None,
+                 max_deliveries: Optional[int] = None,
+                 heartbeat_s: float = 1.0,
+                 fleet_ttl_s: float = fleet_lib.DEFAULT_TTL_S):
         self.backend = backend if backend is not None else default_backend()
         self.batch_size = int(batch_size)
         self.stream = stream
@@ -390,6 +409,8 @@ class ClusterServing:
         self._pub_maxsize = max(int(publish_queue), 1)
         self._pub_queue: Optional["queue.Queue"] = None
         self._pub_thread: Optional[threading.Thread] = None
+        self._hb_thread: Optional[threading.Thread] = None
+        self._hb_lock = threading.Lock()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -447,10 +468,6 @@ class ClusterServing:
             "zoo_serving_e2e_quantiles_seconds",
             "enqueue to publish end-to-end p50/p95/p99 per record "
             "(quantile digest)")
-        self._m_acks = m.counter(
-            "zoo_serving_acks_total",
-            "stream entries acked (settled) out of the consumer group's "
-            "pending-entries set")
         self._last_flush_wall = None   # epoch s of the newest publish
         self._events = None            # JsonEventSink (set_json_events)
         self._scrape = None            # ScrapeServer (serve_metrics)
@@ -639,14 +656,58 @@ class ClusterServing:
         self.consumer_group = consumer_group
         self._group_mode = bool(consumer_group) and all(
             hasattr(self.backend, meth)
-            for meth in ("xgroup_create", "xreadgroup", "xack"))
+            for meth in ("xgroup_create", "xreadgroup", "xack",
+                         "xautoclaim"))
         if consumer_group and not self._group_mode:
             log.info("backend %s has no consumer-group surface; serving "
                      "in legacy single-consumer mode",
                      type(self.backend).__name__)
+        #: this replica's identity in the group and the fleet registry,
+        #: stable across supervisor restarts
         self.consumer_name = consumer_name if consumer_name else (
             f"{socket.gethostname()}-{os.getpid()}-{next(_CONSUMER_SEQ)}")
+        #: pending entries idle past this are reclaimable by a survivor
+        self.claim_idle_ms = float(
+            self._conf("zoo.serving.claim_idle_ms", 30000)
+            if claim_idle_ms is None else claim_idle_ms)
+        if self.claim_idle_ms <= 0:
+            raise ValueError("claim_idle_ms must be > 0")
+        #: the reclaim sweep's cadence: half the idle threshold by
+        #: default, so a dead peer's entries wait at most ~1.5x
+        #: claim_idle_ms
+        self.claim_sweep_s = float(
+            max(self.claim_idle_ms / 2000.0, 0.01)
+            if claim_sweep_s is None else claim_sweep_s)
+        #: an entry delivered (read + reclaims) more than this many times
+        #: is poison hopping replica to replica: dead-lettered
+        self.max_deliveries = int(
+            self._conf("zoo.serving.max_deliveries", 5)
+            if max_deliveries is None else max_deliveries)
+        self.heartbeat_s = float(heartbeat_s)
+        self.fleet_ttl_s = float(fleet_ttl_s)
+        self._m_acks = m.counter(
+            "zoo_serving_acks_total",
+            "stream entries acked (settled) out of the consumer group's "
+            "pending-entries set")
+        self._m_pending = m.gauge(
+            "zoo_serving_pending_entries",
+            "entries delivered to THIS consumer and not yet acked")
+        self._m_util = m.gauge(
+            "zoo_serving_utilization",
+            "busy-dispatch fraction of the serve loop between heartbeats "
+            "(0 = idle poll, 1 = saturated) — the autoscaler signal")
+        self._last_sweep = 0.0
+        self._last_hb = 0.0
+        self._busy_s = 0.0
+        self._util_anchors: Dict[str, Tuple[float, float]] = {}
         self._killed = False
+
+    @property
+    def _mode(self) -> str:
+        """The fleet registry's mode string, which the mode guard
+        compares: ``group:<name>`` or ``single``."""
+        return (f"group:{self.consumer_group}" if self._group_mode
+                else "single")
 
     @staticmethod
     def _conf(key: str, default):
@@ -745,7 +806,7 @@ class ClusterServing:
         thread = self._thread
         pub = self._pub_queue
         try:
-            if self._group_mode:
+            if self._group_mode and hasattr(self.backend, "backlog_len"):
                 depth = self.backend.backlog_len(self.stream,
                                                  self.consumer_group)
             else:
@@ -780,6 +841,20 @@ class ClusterServing:
             overload["dlq_records"] = self._dlq._m_records.value
             overload["dlq_bytes"] = self._dlq._m_bytes.value
         info["serving"]["overload"] = overload
+        # the autoscaler's block: this replica's backlog view, its own
+        # in-flight pending entries and the busy-dispatch fraction since
+        # the last scrape
+        info["serving"]["scaling"] = {
+            "consumer": self.consumer_name,
+            "group": self.consumer_group if self._group_mode else None,
+            "stream_depth": depth,
+            "pending_entries": self._own_pending(),
+            "utilization": round(self._utilization("health"), 4),
+            "batch_size_target": overload["batch_size_target"],
+            "goodput": (None if self._goodput is None
+                        or self._goodput.wall() <= 0
+                        else round(self._goodput.ratio(), 4)),
+        }
         models = {}
         for name, lane in self._lanes.items():
             hit = lane.bucket_hit_rate()
@@ -804,18 +879,125 @@ class ClusterServing:
             info["status"] = "down"
         return info
 
+    def _own_pending(self) -> Optional[int]:
+        """This consumer's pending-entry count (delivered, unacked); None
+        in consume-on-read mode or when the backend cannot answer."""
+        if not self._group_mode:
+            return None
+        try:
+            return int(self.backend.xpending(
+                self.stream, self.consumer_group).get(self.consumer_name, 0))
+        except Exception as e:
+            log.debug("xpending failed: %s", e)
+            return None
+
+    def _utilization(self, anchor: str) -> float:
+        """Busy-dispatch fraction of the serve loop since this anchor's
+        last reading (the ``/statusz`` scrapes and the heartbeats each
+        keep their own window). The loop adds to ``_busy_s`` everything
+        it does between blocking reads."""
+        now = time.perf_counter()
+        busy = self._busy_s
+        prev = self._util_anchors.get(anchor)
+        self._util_anchors[anchor] = (now, busy)
+        if prev is None or now - prev[0] <= 1e-6:
+            return 0.0
+        return min(max((busy - prev[1]) / (now - prev[0]), 0.0), 1.0)
+
+    def _heartbeat_loop(self) -> None:
+        """The heartbeat thread: keeps this replica's registry entry
+        fresh while the serve loop sits in a long dispatch (the loop also
+        beats each iteration; ``_last_hb`` bounds the combined cadence).
+        It touches the backend only, never the device. Exits with
+        ``_stop``; a kill flips ``_killed`` first, so the corpse stops
+        beating at once."""
+        while not self._stop.wait(self.heartbeat_s):
+            try:
+                self._heartbeat()
+            except Exception as e:
+                log.debug("background heartbeat failed: %s", e)
+
+    def _heartbeat(self, force: bool = False) -> None:
+        """Publish this replica's state into the fleet registry (at most
+        once a ``heartbeat_s``) and refresh the pending and utilization
+        gauges. The loop and the heartbeat thread both call it;
+        ``_hb_lock`` keeps two beats from passing the cadence check
+        together (the second would read the utilization anchor the first
+        just wrote and publish 0.0 for a busy replica). Failures log and
+        drop."""
+        if self._killed:
+            return      # a corpse must not refresh its own heartbeat
+        with self._hb_lock:
+            now = time.monotonic()
+            if not force and now - self._last_hb < self.heartbeat_s:
+                return
+            self._last_hb = now
+            self._publish_heartbeat()
+
+    def _publish_heartbeat(self) -> None:
+        """One registry write and gauge refresh; the caller holds
+        ``_hb_lock`` and passed the cadence check."""
+        try:
+            depth = self._stream_depth()
+        except Exception:
+            depth = 0
+        pending = self._own_pending()
+        if pending is not None:
+            self._m_pending.set(pending)
+        util = self._utilization("heartbeat")
+        self._m_util.set(util)
+        fleet_lib.publish_member(self.backend, self.stream,
+                                 self.consumer_name, {
+            "mode": self._mode,
+            "depth": depth,
+            "pending": pending,
+            "watermark": self.shed_watermark,
+            # the replica's own saturation verdict, which fleet
+            # backpressure aggregates: live work is the backlog plus its
+            # own in-flight (delivered, unacked) entries
+            "saturated": bool(self.shed_watermark > 0
+                              and depth + (pending or 0)
+                              > self.shed_watermark),
+            "utilization": round(util, 4),
+            "batch_target": (self._batch_ctl.value if self.adaptive_batch
+                             else self.batch_size),
+            # the scrape address (serve_metrics), where the fleet
+            # collector finds its targets; None until mounted
+            "endpoint": (f"{self._scrape.host}:{self._scrape.port}"
+                         if self._scrape is not None else None),
+        })
+
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ClusterServing":
         if self._thread is not None:
             raise RuntimeError("serving already started")
         self._killed = False
-        if self._group_mode:
-            try:
-                self.backend.xgroup_create(self.stream, self.consumer_group)
-            except (ConnectionError, OSError) as e:
-                raise RuntimeError(
-                    f"cannot create consumer group {self.consumer_group!r} "
-                    f"on stream {self.stream!r}: {e}") from e
+        self._busy_s = 0.0
+        self._util_anchors = {}
+        self._last_hb = 0.0
+        # the mixed-mode guard, before the first read can take an entry
+        # out from under the other mode's accounting. Register first,
+        # then check: two incompatible replicas starting together then
+        # see at least one of each other and refuse; the loser
+        # deregisters so it does not haunt the registry for a TTL
+        self._heartbeat(force=True)     # registration: mode + first state
+        try:
+            fleet_lib.check_mode_conflict(self.backend, self.stream,
+                                          self.consumer_name, self._mode,
+                                          ttl_s=self.fleet_ttl_s)
+            if self._group_mode:
+                try:
+                    self.backend.xgroup_create(self.stream,
+                                               self.consumer_group)
+                except (ConnectionError, OSError) as e:
+                    raise RuntimeError(
+                        f"cannot create consumer group "
+                        f"{self.consumer_group!r} on stream "
+                        f"{self.stream!r}: {e}") from e
+        except Exception:
+            fleet_lib.remove_member(self.backend, self.stream,
+                                    self.consumer_name)
+            raise
         self._stop.clear()
         self._crash_info = {}
         self._loop_down = set()
@@ -832,6 +1014,14 @@ class ClusterServing:
             target=self._supervised, args=("serve", self._loop),
             daemon=True, name="cluster-serving")
         self._thread.start()
+        # liveness must not ride the serve loop's progress: a first
+        # dispatch (the kernels' build) or a long one would age the
+        # heartbeat past the TTL, and peers would take a busy replica
+        # for dead
+        self._hb_thread = threading.Thread(
+            target=self._heartbeat_loop, daemon=True,
+            name="cluster-serving-heartbeat")
+        self._hb_thread.start()
         return self
 
     def _supervised(self, name: str, body) -> None:
@@ -907,14 +1097,22 @@ class ClusterServing:
         self._thread = None
         self._shutdown_workers(timeout)
         self._close_sinks()
+        # clean deregistration; a crash skips it and the TTL reaps the
+        # stale heartbeat instead
+        fleet_lib.remove_member(self.backend, self.stream,
+                                self.consumer_name)
 
     def kill(self, join: bool = True) -> None:
         """Die like a SIGKILL: stop both loops WITHOUT settling anything —
-        no drain, no publishes, no error answers, no acks; in-flight
+        no drain, no publishes, no error answers, no acks, no fleet
+        deregistration (the heartbeat goes stale past the TTL); in-flight
         device work is abandoned. In consumer-group mode every entry read
-        but not acked stays pending under this consumer. With ``join``
-        the threads are joined and the sinks closed, so the process stays
-        clean; ``join=False`` only flips the switch. Idempotent."""
+        but not acked stays pending under this consumer until a
+        survivor's reclaim sweep takes it over. With ``join`` the threads
+        are joined and the sinks closed, so the process stays clean;
+        ``join=False`` only flips the switch (a test whose model still
+        holds the loop releases it, then calls ``kill()`` again).
+        Idempotent."""
         self._killed = True
         self._stop.set()
         if not join:
@@ -937,6 +1135,10 @@ class ClusterServing:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+        hb = self._hb_thread
+        if hb is not None:
+            hb.join(timeout=timeout)    # exits on _stop; beats are short
+            self._hb_thread = None
         t, q = self._pub_thread, self._pub_queue
         if t is None:
             return
@@ -982,12 +1184,16 @@ class ClusterServing:
         routed and assembled. While any lane has work in flight (or
         records buffered behind a half-open probe or a restart) the read
         is a 1 ms poll, so the device idles only when the stream is
-        empty."""
+        empty. The reclaim sweep runs ahead of each read, and each
+        iteration adds its time outside the blocking read to the
+        utilization the heartbeat publishes."""
         lanes = self._lanes
         if self._goodput is not None:
             self._goodput.open()
         try:
             while not self._stop.is_set():
+                it0 = time.perf_counter()
+                idle_s = 0.0
                 try:
                     faults.inject("serving.loop")
                     busy = any(lane.pendings or lane.buffer
@@ -998,9 +1204,12 @@ class ClusterServing:
                     # pulls the window's newest remainder, to shed it
                     want = sum(self._lane_target(lane)
                                for lane in lanes.values())
+                    # a dead peer's entries are the oldest work there is:
+                    # they take this read's admission slots first
+                    reclaimed = self._reclaim_sweep()
                     buffered = sum(len(lane.buffer)
                                    for lane in lanes.values())
-                    want_read = max(want - buffered, 0)
+                    want_read = max(want - len(reclaimed) - buffered, 0)
                     extra = 0
                     if want_read > 0 and self.shed_watermark > 0 \
                             and self._breaker.state == CircuitBreaker.CLOSED:
@@ -1011,15 +1220,17 @@ class ClusterServing:
                         if overage > 0:
                             extra = min(overage, _SHED_MAX_PER_READ)
                     if want_read + extra > 0:
+                        t_read = time.perf_counter()
                         entries = self._read_entries(
                             want_read + extra,
                             block_ms=_BUSY_POLL_MS if busy else None)
+                        idle_s = time.perf_counter() - t_read
                     else:
                         entries = []
-                    # read wait is idle time: the device had nothing
-                    # admitted to chew on
+                    # read wait (and the sweep before it) is idle time:
+                    # the device had nothing admitted to chew on
                     self._gp_note("idle")
-                    if not entries and not buffered:
+                    if not entries and not reclaimed and not buffered:
                         self._drain_all()
                         self._gp_note("publish")
                         continue
@@ -1027,11 +1238,13 @@ class ClusterServing:
                         entries, shed = self._admit_fair(entries, want_read)
                         self._shed(shed, reason="depth")
                         self._gp_note("shed")
+                    entries = reclaimed + entries
                     # one depth probe a read feeds the gauge and the
                     # drain checks
                     depth = self._stream_depth()
                     self._m_depth.set(depth)
-                    routed = self._route(entries)
+                    routed = self._route(entries,
+                                         n_reclaimed=len(reclaimed))
                     self._gp_note("host_decode")
                     for name, items in routed.items():
                         lane = lanes[name]
@@ -1044,6 +1257,11 @@ class ClusterServing:
                         self._pump(lane, depth)
                     self._gp_note("device_dispatch")
                 finally:
+                    # everything but the blocking read counts as busy;
+                    # the heartbeat publishes it (at its own cadence)
+                    self._busy_s += max(
+                        time.perf_counter() - it0 - idle_s, 0.0)
+                    self._heartbeat()
                     # residual per-iteration overhead lands on idle, so
                     # no interval is left unattributed
                     self._gp_note("idle")
@@ -1159,13 +1377,89 @@ class ClusterServing:
         the shed overage; a transport failure reads as 0, which errs
         toward flushing and never sheds on a missing reading."""
         try:
-            if self._group_mode:
+            if self._group_mode and hasattr(self.backend, "backlog_len"):
                 return self.backend.backlog_len(self.stream,
                                                 self.consumer_group)
             return self.backend.stream_len(self.stream)
         except (ConnectionError, OSError) as e:
             log.debug("stream depth failed after a read: %s", e)
             return 0
+
+    def _reclaim_sweep(self) -> List[Tuple[str, dict]]:
+        """Take over pending entries whose owner went quiet
+        (``claim_idle_ms``): a dead peer's reads, or this replica's own
+        whose reply was lost. At most once a ``claim_sweep_s`` and
+        ``batch_size`` entries. Reclaimed entries go through the normal
+        pipeline, so one the dead peer had in fact answered answers again
+        with the same prediction. Entries past ``max_deliveries`` are
+        answered with an error and settled instead. A transport failure
+        logs and waits for the next sweep."""
+        if not self._group_mode:
+            return []
+        now = time.monotonic()
+        if now - self._last_sweep < self.claim_sweep_s:
+            return []
+        self._last_sweep = now
+        try:
+            claimed = self.backend.xautoclaim(
+                self.stream, self.consumer_group, self.consumer_name,
+                self.claim_idle_ms, count=self.batch_size)
+        except (ConnectionError, OSError) as e:
+            log.warning("reclaim sweep failed (%s: %s); retrying next "
+                        "interval", type(e).__name__, e)
+            return []
+        out: List[Tuple[str, dict]] = []
+        for eid, fields, prev, deliveries in claimed:
+            # from = the previous owner's consumer name: bounded by the
+            # fleet's membership, not by request data
+            self.metrics.counter(
+                "zoo_serving_reclaimed_total",
+                "pending entries taken over from an idle consumer, by "
+                "previous owner",
+                labels={"from": prev}).inc()
+            self.metrics.emit("serving.reclaim", entry=eid,
+                              uri=fields.get("uri"),
+                              trace=fields.get("trace"),
+                              prev_consumer=prev, deliveries=deliveries)
+            if deliveries > self.max_deliveries:
+                log.error("entry %s (uri=%r) delivered %d times (max "
+                          "%d); dead-lettering instead of reclaiming "
+                          "forever", eid, fields.get("uri"), deliveries,
+                          self.max_deliveries)
+                self._m_dead_letter.inc()
+                self.metrics.emit("serving.dead_letter",
+                                  uri=fields.get("uri"),
+                                  trace=fields.get("trace"),
+                                  error="exceeded max deliveries")
+                self._settle_drop(
+                    fields, eid,
+                    error="dead-lettered: exceeded max deliveries")
+                continue
+            out.append((eid, fields))
+        return out
+
+    def _settle_drop(self, fields: dict, eid: Optional[str],
+                     error: str) -> None:
+        """Answer a record with an addressable error and ack it — the
+        settlement of a record given up on at read time. The ack lands
+        only once the answer did (or when there is no uri to answer): an
+        unanswered drop stays pending for a later reclaim."""
+        self._m_failures.inc()
+        self.metrics.counter(
+            "zoo_serving_failure_errors_total",
+            "failed records by error kind (model vs result-store)",
+            labels={"error": error}).inc()
+        uri = fields.get("uri")
+        if not uri:
+            self._ack([eid])
+            return
+        try:
+            self.backend.set_result(uri, {"error": error})
+        except Exception:
+            log.exception("error record for %r could not be written "
+                          "(backend down?); entry stays pending", uri)
+            return
+        self._ack([eid])
 
     def _ack(self, eids) -> None:
         """Settle entries out of the group's pending list — only after the
@@ -1241,10 +1535,12 @@ class ClusterServing:
             self._m_batch_target.set(target)
 
     # -- routing + batch assembly --------------------------------------------
-    def _route(self, entries):
+    def _route(self, entries, n_reclaimed: int = 0):
         """Validate one read and route each record to its lane:
-        ``{lane_name: [_Item, ...]}`` in read order. Per record: queue
-        wait observed, then the cheap drops — no uri, unknown ``model``,
+        ``{lane_name: [_Item, ...]}`` in read order. The first
+        ``n_reclaimed`` entries came from the reclaim sweep: they serve
+        as any other but give no queue wait (``_observe_queue_wait``).
+        Per record: queue wait observed, then the cheap drops — no uri, unknown ``model``,
         an expired or doomed deadline, an undecodable payload — answered
         before any trace event. v2 headers are validated here (the arena
         copy after it cannot fail); v1 payloads decode on the worker
@@ -1253,8 +1549,9 @@ class ClusterServing:
         now_p = time.perf_counter()
         staged: List[Tuple[str, _Item]] = []
         v1_idx: List[int] = []
-        for eid, fields in entries:
-            wait, t_enq = self._observe_queue_wait(eid, now_s)
+        for idx, (eid, fields) in enumerate(entries):
+            wait, t_enq = self._observe_queue_wait(
+                eid, now_s, reclaimed=idx < n_reclaimed)
             uri = fields.get("uri")
             if not uri:
                 log.error("record with no uri dropped (entry id %s)", eid)
@@ -1575,19 +1872,27 @@ class ClusterServing:
                                   trace=rec.trace, uri=rec.uri,
                                   parent="enqueue", dur_s=item.wait)
 
-    def _observe_queue_wait(self, entry_id, now_s: float):
-        """Enqueue→read wait from the stream entry id (``LocalBackend``
-        stamps ids as ``<epoch_ms>-<seq>``, the Redis-stream convention).
+    def _observe_queue_wait(self, entry_id, now_s: float,
+                            reclaimed: bool = False):
+        """Enqueue→read wait from the stream entry id (both backends
+        stamp ids as ``<epoch_ms>-<seq>``, the Redis-stream convention).
         Returns ``(wait_s, enqueue_epoch_s)`` for the per-request trace
         events, ``(None, None)`` on a foreign id scheme. A negative wait
         (client clock ahead of the server) clamps to zero and counts in
         ``zoo_serving_clock_skew_total`` instead of polluting the
-        distribution with a bogus sample."""
+        distribution with a bogus sample. A ``reclaimed`` entry gives
+        ``(None, t_enq)``: its age is the dead peer's ``claim_idle_ms``,
+        not this replica's admission, and observing it would hand the
+        quantiles an outlier and the AIMD controller a breach just when
+        the survivor must take the dead peer's load (the
+        ``serving.reclaim`` event keeps the entry id)."""
         try:
             enq_ms = int(str(entry_id).split("-", 1)[0])
         except (TypeError, ValueError):
             return None, None   # foreign id scheme: skip, never break loop
         t_enq = enq_ms / 1000.0
+        if reclaimed:
+            return None, t_enq
         wait = now_s - t_enq
         if wait < 0:
             self._m_skew.inc()

@@ -165,6 +165,32 @@
    batch-mates answered (2e-2), the ``bert`` lane's counts untouched;
    ``replay`` onto a server with the plain head under a ``serving.loop``
    fault fired once: one supervised restart, every record answered.
+12c. Fleet phase: BERT-base replicas (bf16, K2 in 12 blocks), each on its
+   own ``InferenceModel(concurrent_num=2)`` and ``RedisBackend``, against
+   one ``MiniResp`` broker (this file's RESP server, the JAX test fake's
+   command subset and replies, in a child process; it counts result
+   writes a key). (a) One replica on 256 pre-enqueued records over RESP
+   and over ``LocalBackend`` in turns (local, RESP, RESP, local),
+   records/s each, answers against the oracle route within 2e-2. (b) Two
+   replicas with endpoints on 512 records: records/s against (a)'s RESP
+   replica, each one's share; K2 launches 12 a dispatch, every uri
+   written once, 512 acks, an empty PEL. (e) On that pair: the
+   ``FleetCollector`` finds both from the heartbeats, ``/fleetz`` lists 2
+   live, ``fleet_cli check`` exits 0, the status CLI rolls up both
+   endpoints, each ``/statusz`` ``scaling`` block printed; after a kill
+   ``/fleetz`` lists 1 live and 1 down. (c) A victim reads 32 of 512
+   records alone and holds them, two survivors start, the victim is
+   killed: every uri written once, answered + shed + dead-lettered = 512
+   with the victim at 0, 32 reclaimed from the victim, 512 acks, an empty
+   PEL, K2 12 a dispatch, answers within 2e-2; the kill to the last
+   reclaimed answer printed. (d) A held replica under
+   ``shed_watermark=48``: a blind producer's extra records are shed; a
+   fleet-aware one (``fleet_wait_s=0.2``) is refused with
+   ``FleetSaturatedError`` while the fleet is saturated, nothing is shed,
+   and the refused records enqueue and are answered once it drains. (f)
+   A poison record dead-lettered to a ``dlq_dir``; ``python -m
+   ...serving.dlq_cli`` ``list``, ``inspect`` and ``replay --host --port``
+   over RESP; a healthy replica answers the replayed record.
 13. int8 head phase (config A): the JAX bench's weight-streaming scoring
    head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
    f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
@@ -292,6 +318,17 @@ N_OVERLOAD = 1024
 #: value), and the ragged bucket waves of the JAX lanes test
 POISON = 12345.0
 BUCKET_WAVES = (1, 3, 2, 3, 1)
+#: the fleet phase: records of (a)'s one replica and of the two-replica,
+#: kill and backpressure runs; the kill test's claim idle and heartbeat
+N_FLEET_ONE, N_FLEET = 256, 512
+FLEET_CLAIM_IDLE_MS, FLEET_HEARTBEAT_S = 500, 0.1
+#: backpressure: the replica's watermark; the preload, at the shed point
+#: (batch + watermark), so the first read sheds nothing; the records a
+#: blind producer adds (enough to push the backlog past the shed point
+#: once the held read is out of the stream) and the records a
+#: fleet-aware producer is refused
+FLEET_WATERMARK, FLEET_PRELOAD = 48, 80
+FLEET_EXTRA_BLIND, FLEET_EXTRA = 40, 8
 #: weight-only and static int8 against their float counterparts on the
 #: same weights: the same products in another order (weight-only: scale
 #: after the sum against a dequantized weight; static: the card's int32
@@ -303,6 +340,392 @@ INT8_REL_TOL = 1e-4
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+class MiniResp:
+    """A RESP server for the fleet phase: the command subset Cluster
+    Serving's ``RedisBackend`` speaks (XADD, XLEN, XREAD with BLOCK, XDEL,
+    XGROUP CREATE, XREADGROUP, XACK, XPENDING summary and IDLE range,
+    XCLAIM, HSET, HGETALL, HDEL, DEL, KEYS, PING) with the semantics and
+    replies of the JAX package's test fake (``tests/test_serving_redis.py``
+    ``_MiniRedisServer``): one handler thread a connection, one command at
+    a time, all state under one condition. It also counts HSETs a key,
+    read back by the extra command ``ZOOWRITES`` (``[key, count, ...]``):
+    the fleet phase's "every uri answered exactly once" is a count of
+    result writes. ``ZOOSTATS`` returns, a command name at a time, the
+    calls served and the seconds spent in them (``[name, calls, seconds,
+    ...]``), the broker's share of a run. Run it in a child process
+    (:func:`mini_resp_child`), so its threads do not share a GIL with the
+    replicas it serves."""
+
+    def __init__(self, host="127.0.0.1", port=0):
+        import socket
+        import socketserver
+        import threading
+
+        state = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                # as Redis does for its clients: without it a pipeline's
+                # small replies wait on the client's delayed ACK (Nagle),
+                # about 40 ms a pipelined batch on Linux
+                self.request.setsockopt(socket.IPPROTO_TCP,
+                                        socket.TCP_NODELAY, 1)
+                state._serve(self.request)
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self.lock = threading.Condition()
+        self.streams = {}       # name -> [(id, {field: value})]
+        self.hashes = {}        # key -> {field: value}
+        self.groups = {}        # (stream, group) -> {"last", "pel"}
+        self.writes = {}        # key -> HSETs
+        self.stats = {}         # command -> [calls, seconds]
+        self.seq = 0
+        self.server = Server((host, port), Handler)
+        self.port = self.server.server_address[1]
+
+    # -- framing ----------------------------------------------------------
+    @staticmethod
+    def _read_command(sock, buf):
+        while b"\r\n" not in buf:
+            chunk = sock.recv(65536)
+            if not chunk:
+                return None, buf
+            buf += chunk
+        line, buf = buf.split(b"\r\n", 1)
+        parts = []
+        for _ in range(int(line[1:])):
+            while b"\r\n" not in buf:
+                buf += sock.recv(65536)
+            head, buf = buf.split(b"\r\n", 1)
+            n = int(head[1:])
+            while len(buf) < n + 2:
+                buf += sock.recv(65536)
+            parts.append(buf[:n])
+            buf = buf[n + 2:]
+        return parts, buf
+
+    @staticmethod
+    def _bulk(b):
+        return b"$%d\r\n%s\r\n" % (len(b), b)
+
+    @staticmethod
+    def _array(items):
+        return b"*%d\r\n%s" % (len(items), b"".join(items))
+
+    @staticmethod
+    def _id_key(eid):
+        ms, _, seq = eid.partition(b"-")
+        return (int(ms), int(seq or 0))
+
+    def _entry(self, eid, fields):
+        return self._array([self._bulk(eid), self._array(
+            [self._bulk(x) for kv in fields.items() for x in kv])])
+
+    @staticmethod
+    def _has_command(buf):
+        """Whether ``buf`` already holds a whole command frame."""
+        end = buf.find(b"\r\n")
+        if end < 0:
+            return False
+        pos = end + 2
+        for _ in range(int(buf[1:end])):
+            end = buf.find(b"\r\n", pos)
+            if end < 0:
+                return False
+            pos = end + 2 + int(buf[pos + 1:end]) + 2
+            if pos > len(buf):
+                return False
+        return True
+
+    def _serve(self, sock):
+        """Serve one connection, a command at a time. As Redis does, the
+        replies to a pipeline's commands (all already in the buffer) go
+        out in one write when the last of them is answered."""
+        buf = b""
+        replies = []
+        while True:
+            try:
+                cmd, buf = self._read_command(sock, buf)
+            except (ConnectionError, OSError):
+                return
+            if cmd is None:
+                return
+            name = cmd[0].upper().decode()
+            do = getattr(self, "_do_" + name.lower(), None)
+            t0 = time.perf_counter()
+            reply = (do(cmd[1:]) if do is not None else
+                     b"-ERR unknown command '%s'\r\n" % name.encode())
+            spent = time.perf_counter() - t0
+            with self.lock:
+                st = self.stats.setdefault(name, [0, 0.0])
+                st[0] += 1
+                st[1] += spent
+            replies.append(reply)
+            if self._has_command(buf):
+                continue
+            try:
+                sock.sendall(b"".join(replies))
+            except OSError:
+                return
+            replies = []
+
+    @staticmethod
+    def _read_opts(args, i):
+        """COUNT/BLOCK options and the STREAMS list from ``args[i:]``."""
+        count = block = None
+        streams, lasts = [], []
+        while i < len(args):
+            a = args[i].upper()
+            if a == b"COUNT":
+                count, i = int(args[i + 1]), i + 2
+            elif a == b"BLOCK":
+                block, i = int(args[i + 1]), i + 2
+            elif a == b"STREAMS":
+                rest = args[i + 1:]
+                streams = rest[:len(rest) // 2]
+                lasts = rest[len(rest) // 2:]
+                break
+            else:
+                i += 1
+        return count, block, streams, lasts
+
+    def _wait_for(self, block, collect):
+        """``collect()`` under the lock until it gives replies or the
+        BLOCK window passes (no BLOCK: one pass)."""
+        deadline = time.monotonic() + (block or 0) / 1000.0
+        with self.lock:
+            while True:
+                out = collect()
+                if out or block is None:
+                    return out
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return out
+                self.lock.wait(remaining)
+
+    # -- commands ---------------------------------------------------------
+    def _do_ping(self, args):
+        return b"+PONG\r\n"
+
+    def _do_zoostats(self, args):
+        with self.lock:
+            return self._array([self._bulk(str(x).encode())
+                                for k, (n, t) in self.stats.items()
+                                for x in (k, n, repr(t))])
+
+    def _do_zoowrites(self, args):
+        with self.lock:
+            return self._array([self._bulk(x) for k, n in self.writes.items()
+                                for x in (k.encode(), b"%d" % n)])
+
+    def _do_xadd(self, args):
+        stream = args[0].decode()
+        fields = {args[i]: args[i + 1] for i in range(2, len(args), 2)}
+        with self.lock:
+            self.seq += 1
+            eid = b"%d-%d" % (int(time.time() * 1000), self.seq)
+            self.streams.setdefault(stream, []).append((eid, fields))
+            self.lock.notify_all()
+        return self._bulk(eid)
+
+    def _do_xlen(self, args):
+        with self.lock:
+            return b":%d\r\n" % len(self.streams.get(args[0].decode(), []))
+
+    def _do_xread(self, args):
+        count, block, streams, lasts = self._read_opts(args, 0)
+
+        def collect():
+            out = []
+            for s, last in zip(streams, lasts):
+                entries = [(eid, f) for eid, f in
+                           self.streams.get(s.decode(), [])
+                           if last == b"0"
+                           or self._id_key(eid) > self._id_key(last)]
+                if count is not None:
+                    entries = entries[:count]
+                if entries:
+                    out.append(self._array([self._bulk(s), self._array(
+                        [self._entry(eid, f) for eid, f in entries])]))
+            return out
+
+        out = self._wait_for(block, collect)
+        return self._array(out) if out else b"*-1\r\n"
+
+    def _do_xdel(self, args):
+        stream, eids = args[0].decode(), set(args[1:])
+        with self.lock:
+            entries = self.streams.get(stream, [])
+            kept = [(i, f) for i, f in entries if i not in eids]
+            self.streams[stream] = kept
+            self.lock.notify_all()
+            return b":%d\r\n" % (len(entries) - len(kept))
+
+    def _do_xgroup(self, args):
+        if args[0].upper() != b"CREATE":
+            return b"-ERR unsupported XGROUP subcommand\r\n"
+        key = (args[1].decode(), args[2].decode())
+        with self.lock:
+            if key in self.groups:
+                return (b"-BUSYGROUP Consumer Group name already "
+                        b"exists\r\n")
+            self.groups[key] = {"last": b"0", "pel": {}}
+        return b"+OK\r\n"
+
+    def _do_xreadgroup(self, args):
+        group, consumer = args[1].decode(), args[2]
+        count, block, streams, _ = self._read_opts(args, 3)
+
+        def collect():
+            out = []
+            for s in (x.decode() for x in streams):
+                g = self.groups.get((s, group))
+                if g is None:
+                    continue
+                last = self._id_key(g["last"])
+                entries = [(eid, f) for eid, f in self.streams.get(s, [])
+                           if self._id_key(eid) > last]
+                if count is not None:
+                    entries = entries[:count]
+                if not entries:
+                    continue
+                now_ms = time.monotonic() * 1000.0
+                for eid, _f in entries:
+                    g["last"] = eid
+                    g["pel"][eid] = [consumer, now_ms, 1]
+                out.append(self._array([self._bulk(s.encode()), self._array(
+                    [self._entry(eid, f) for eid, f in entries])]))
+            return out
+
+        out = self._wait_for(block, collect)
+        return self._array(out) if out else b"*-1\r\n"
+
+    def _do_xack(self, args):
+        with self.lock:
+            g = self.groups.get((args[0].decode(), args[1].decode()))
+            n = 0
+            if g is not None:
+                for eid in args[2:]:
+                    n += g["pel"].pop(eid, None) is not None
+        return b":%d\r\n" % n
+
+    def _do_xpending(self, args):
+        with self.lock:
+            g = self.groups.get((args[0].decode(), args[1].decode()))
+            pel = dict(g["pel"]) if g else {}
+        now_ms = time.monotonic() * 1000.0
+        if len(args) == 2:          # the summary form
+            if not pel:
+                return self._array([b":0\r\n", b"$-1\r\n", b"$-1\r\n",
+                                    b"*-1\r\n"])
+            per = {}
+            for consumer, _t, _n in pel.values():
+                per[consumer] = per.get(consumer, 0) + 1
+            ids = sorted(pel, key=self._id_key)
+            return self._array([
+                b":%d\r\n" % len(pel), self._bulk(ids[0]),
+                self._bulk(ids[-1]),
+                self._array([self._array([self._bulk(c),
+                                          self._bulk(b"%d" % n)])
+                             for c, n in per.items()])])
+        i, min_idle = 2, 0          # [IDLE ms] - + count
+        if args[i].upper() == b"IDLE":
+            min_idle, i = int(args[i + 1]), i + 2
+        count = int(args[i + 2])
+        rows = []
+        for eid in sorted(pel, key=self._id_key):
+            consumer, t_ms, times = pel[eid]
+            idle = now_ms - t_ms
+            if idle < min_idle:
+                continue
+            rows.append(self._array([self._bulk(eid), self._bulk(consumer),
+                                     b":%d\r\n" % int(idle),
+                                     b":%d\r\n" % times]))
+            if len(rows) >= count:
+                break
+        return self._array(rows)
+
+    def _do_xclaim(self, args):
+        stream, group = args[0].decode(), args[1].decode()
+        consumer, min_idle = args[2], int(args[3])
+        out = []
+        with self.lock:
+            g = self.groups.get((stream, group))
+            if g is None:
+                return b"*0\r\n"
+            now_ms = time.monotonic() * 1000.0
+            by_id = dict(self.streams.get(stream, []))
+            for eid in args[4:]:
+                pe = g["pel"].get(eid)
+                if pe is None or now_ms - pe[1] < min_idle:
+                    continue        # gone, or a racing claimer won it
+                fields = by_id.get(eid)
+                if fields is None:  # deleted from the stream: drop it
+                    del g["pel"][eid]
+                    continue
+                g["pel"][eid] = [consumer, now_ms, pe[2] + 1]
+                out.append(self._entry(eid, fields))
+        return self._array(out)
+
+    def _do_hset(self, args):
+        key = args[0].decode()
+        with self.lock:
+            h = self.hashes.setdefault(key, {})
+            added = 0
+            for i in range(1, len(args), 2):
+                added += args[i] not in h
+                h[args[i]] = args[i + 1]
+            self.writes[key] = self.writes.get(key, 0) + 1
+            self.lock.notify_all()
+        return b":%d\r\n" % added
+
+    def _do_hgetall(self, args):
+        with self.lock:
+            h = self.hashes.get(args[0].decode(), {})
+            return self._array([self._bulk(x) for kv in h.items()
+                                for x in kv])
+
+    def _do_hdel(self, args):
+        with self.lock:
+            h = self.hashes.get(args[0].decode(), {})
+            n = sum(h.pop(f, None) is not None for f in args[1:])
+        return b":%d\r\n" % n
+
+    def _do_del(self, args):
+        with self.lock:
+            n = sum(self.hashes.pop(a.decode(), None) is not None
+                    for a in args)
+        return b":%d\r\n" % n
+
+    def _do_keys(self, args):
+        import fnmatch
+        pat = args[0].decode()
+        with self.lock:
+            ks = [k for k in self.hashes if fnmatch.fnmatch(k, pat)]
+        return self._array([self._bulk(k.encode()) for k in ks])
+
+    def serve_forever(self):
+        self.server.serve_forever()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def mini_resp_child():
+    """Serve a :class:`MiniResp` until stdin closes; its port is the first
+    line on stdout."""
+    import threading
+    srv = MiniResp()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    print(srv.port, flush=True)
+    sys.stdin.read()
+    srv.close()
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -1865,6 +2288,586 @@ def lanes_phase():
     out["poison"] = {"dead": sorted(dead), "replayed": replayed,
                      "restarts": restarts}
     return out
+
+class HeldAdapter(BertAdapter):
+    """The BERT adapter whose first dispatch waits for ``release``: the
+    replica holds its read entries in flight as long as the phase wants
+    (the kill window, a saturated fleet)."""
+
+    def __init__(self, im):
+        import threading
+        super().__init__(im)
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def predict_async(self, ids, block=True):
+        self.entered.set()
+        check(self.release.wait(timeout=300), "held dispatch never released")
+        return super().predict_async(ids, block=block)
+
+
+class Broker:
+    """A :class:`MiniResp` in a child process (its own GIL): ``port``,
+    ``writes()`` (the HSETs a ``result:`` key), ``close()``."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+             f"chip_smoke.mini_resp_child()"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.port = int(self.proc.stdout.readline())
+
+    def backend(self, **kw):
+        from analytics_zoo_tpu_torch.serving import RedisBackend
+        return RedisBackend(host="127.0.0.1", port=self.port, **kw)
+
+    def writes(self):
+        raw = self.backend()._r.command("ZOOWRITES")
+        return {k.decode()[len("result:"):]: int(v)
+                for k, v in zip(raw[::2], raw[1::2])
+                if k.startswith(b"result:")}
+
+    def stats(self):
+        """``{command: (calls, seconds in its handler)}`` so far."""
+        raw = self.backend()._r.command("ZOOSTATS")
+        return {raw[i].decode(): (int(raw[i + 1]), float(raw[i + 2]))
+                for i in range(0, len(raw), 3)}
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=30)
+
+
+def fleet_enqueue(backend, ids, prefix, stream=None):
+    """Pre-enqueue ``ids`` untraced (the serving phase's plain records)."""
+    from analytics_zoo_tpu_torch.serving.client import (INPUT_STREAM,
+                                                        encode_tensor)
+    for i, rec in enumerate(ids):
+        backend.xadd(stream or INPUT_STREAM,
+                     dict(encode_tensor(rec), uri=f"{prefix}-{i}"))
+
+
+def fleet_wait_served(servers, n, timeout=300):
+    """Wait, without touching the backend, until ``servers`` have
+    published ``n`` records between them: a RESP consumer polling the
+    result keys while the replicas serve would hand the interpreter's
+    lock back and forth with their loops, and time that instead."""
+    deadline = time.monotonic() + timeout
+    while sum(s.served for s in servers) < n:
+        check(time.monotonic() < deadline, f"served "
+              f"{sum(s.served for s in servers)} of {n} in {timeout}s")
+        time.sleep(0.005)
+
+
+def fleet_answers(backend, prefix, n, first=()):
+    """Answers ``{prefix}-0..n-1`` in order, the uris of ``first`` read
+    before the rest: ``(answers, perf_counter when each was seen)``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.serving import OutputQueue
+    out = OutputQueue(backend)
+    first = list(first)
+    uris = first + [f"{prefix}-{i}" for i in range(n)
+                    if f"{prefix}-{i}" not in set(first)]
+    got, at = {}, {}
+    for uri in uris:
+        got[uri] = out.query(uri, timeout=300)
+        at[uri] = time.perf_counter()
+    return np.stack([got[f"{prefix}-{i}"] for i in range(n)]), at
+
+
+def fleet_phase():
+    """Fleet serving at full width over the RESP wire: BERT-base replicas
+    (bf16, K2 in its 12 blocks), each on its own ``InferenceModel`` and
+    ``RedisBackend``, against one :class:`MiniResp` broker in a child
+    process. (a) one replica over RESP against ``LocalBackend`` in turns,
+    (b) two replicas on one stream, (c) one killed with a batch in flight
+    and reclaimed by two survivors, (d) fleet backpressure refusing and
+    then admitting, (e) the fleet collector, ``/fleetz``, ``fleet_cli``
+    and the status CLI on the fleet, (f) a dead letter replayed over RESP
+    by ``dlq_cli``."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.common.reliability import RetryPolicy
+    from analytics_zoo_tpu_torch.observability import (FleetCollector,
+                                                       FleetzServer,
+                                                       MetricsRegistry)
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import KERNEL
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 FleetSaturatedError,
+                                                 FleetView, InputQueue,
+                                                 LocalBackend, OutputQueue,
+                                                 ServingError)
+    from analytics_zoo_tpu_torch.serving.client import INPUT_STREAM
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+
+    out = {}
+    conf = {"zoo.pallas.attention": True, "zoo.compute.dtype": "bfloat16",
+            "zoo.seed": 0}
+    init_zoo_context(conf=conf)
+    t0 = time.perf_counter()
+    bert = BERTClassifier(num_classes=2, device="cuda").init_weights()
+    cfg = bert.get_config()
+    # two replicas' runtimes and the victim's: each replica its own
+    ims = [InferenceModel(concurrent_num=2, device="cuda").from_keras(
+        bert, dtype="bfloat16") for _ in range(3)]
+    del bert
+    n_block = cfg["n_block"]
+    print(f"fleet: three BERT-base runtimes built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    ids = serving_records(cfg["vocab"], N_FLEET, seed=9)
+    adapters = [BertAdapter(im) for im in ims[:2]]
+    for a in adapters:
+        a.predict_async(ids[:T_BATCH])()            # warm-up, not counted
+    torch.cuda.synchronize()
+    # the serving phase's oracle route on the same records and batches
+    init_zoo_context(conf={**conf, "zoo.pallas.attention": False})
+    KERNEL.reset()
+    oracle = np.concatenate([ims[0].predict(adapters[0].inputs(
+        ids[i:i + T_BATCH])) for i in range(0, N_FLEET, T_BATCH)])
+    check(KERNEL.launches == 0, "fleet: the oracle route launched K2")
+    init_zoo_context(conf=conf)
+
+    def vs_oracle(name, got):
+        """Answers to the first ``len(got)`` records against the oracle's,
+        record by record, at bf16's 2e-2."""
+        err = float(np.abs(got - oracle[:len(got)]).max())
+        check(got.shape[1:] == (2,) and bool(np.isfinite(got).all())
+              and err <= 2e-2, f"fleet {name}: answers vs oracle {err}")
+        return err
+
+    def total(registries, name):
+        return sum(v["value"] for r in registries
+                   for k, v in r.snapshot().items()
+                   if k.split("{", 1)[0] == name)
+
+    def dispatch_ms(registries):
+        """Mean dispatch-to-publish ms over the registries' batches."""
+        snaps = [r.snapshot()["zoo_serving_dispatch_seconds"]
+                 for r in registries]
+        return (sum(x["sum"] for x in snaps)
+                / max(sum(x["count"] for x in snaps), 1) * 1e3)
+
+    # (a) one replica, RESP against local, in turns; records/s from the
+    # start to the last publish
+    turns = []
+    for turn, kind in enumerate(("local", "resp", "resp", "local")):
+        broker = Broker() if kind == "resp" else None
+        backend = broker.backend() if broker else LocalBackend()
+        reader = broker.backend() if broker else backend
+        fleet_enqueue(backend, ids[:N_FLEET_ONE], f"a{turn}")
+        registry = MetricsRegistry()
+        server = ClusterServing(adapters[0], backend=backend,
+                                batch_size=T_BATCH, registry=registry)
+        # the wall runs from the start to the server's last publish; the
+        # answers are read after it
+        t0 = time.time()
+        server.start()
+        try:
+            try:
+                fleet_wait_served([server], N_FLEET_ONE)
+            finally:
+                server.stop()       # joins the publisher: the last publish
+            # the broker's own share: seconds in each command's handler
+            # (a blocking read's wait included)
+            handlers = ({k: round(t * 1e3, 3) for k, (_, t)
+                         in broker.stats().items()} if broker else None)
+            got, _ = fleet_answers(reader, f"a{turn}", N_FLEET_ONE)
+        finally:
+            if broker:
+                broker.close()
+        wall = server._last_flush_wall - t0
+        err = vs_oracle(f"(a) {kind}", got)
+        turns.append({"backend": kind, "wall_s": wall,
+                      "records_per_s": N_FLEET_ONE / wall, "vs_oracle": err,
+                      "dispatch_ms": dispatch_ms([registry]),
+                      "goodput_s": server._goodput.snapshot()["seconds"],
+                      "broker_handler_ms": handlers})
+        print(f"fleet (a) turn {turn} ({kind}): {N_FLEET_ONE} records in "
+              f"{wall:.3f}s = {N_FLEET_ONE / wall:.1f} records/s; dispatch "
+              f"mean {turns[-1]['dispatch_ms']:.2f} ms; goodput "
+              f"{json.dumps(turns[-1]['goodput_s'])}; broker handler ms "
+              f"{json.dumps(handlers)}; vs oracle {err:.3e}")
+    local = np.mean([t["records_per_s"] for t in turns
+                     if t["backend"] == "local"])
+    resp = np.mean([t["records_per_s"] for t in turns
+                    if t["backend"] == "resp"])
+    out["resp_vs_local"] = {"turns": turns, "local_records_per_s": local,
+                            "resp_records_per_s": resp,
+                            "resp_over_local": resp / local}
+    print(f"fleet (a): RESP {resp:.1f} records/s against local "
+          f"{local:.1f} ({(1 - resp / local) * 100:.1f}% below; mean of "
+          f"two each)")
+
+    # (b) two replicas on one stream, each with its endpoint; kept
+    # running for (e)
+    broker = Broker()
+    try:
+        fleet_enqueue(broker.backend(), ids, "b")
+        regs = [MetricsRegistry(), MetricsRegistry()]
+        reps = [ClusterServing(adapters[i], backend=broker.backend(),
+                               batch_size=T_BATCH, registry=regs[i],
+                               consumer_name=f"rep{i}",
+                               heartbeat_s=FLEET_HEARTBEAT_S)
+                for i in range(2)]
+        for a in adapters:
+            a.dispatches = 0
+        scrapes = [r.serve_metrics(0) for r in reps]
+        endpoints = [f"127.0.0.1:{sc.port}" for sc in scrapes]
+        reader = broker.backend()
+        KERNEL.reset()
+        t0 = time.time()
+        for r in reps:
+            r.start()
+        fleet_wait_served(reps, N_FLEET)
+        time.sleep(0.01)            # the publishers' bookkeeping after acks
+        wall = max(r._last_flush_wall for r in reps) - t0
+        got, _ = fleet_answers(reader, "b", N_FLEET)
+        probe = broker.backend()
+        dispatches = [a.dispatches for a in adapters]
+        launches = KERNEL.launches
+        writes = broker.writes()
+        acks = total(regs, "zoo_serving_acks_total")
+        pel = probe.pending_len(INPUT_STREAM, "serving")
+        err = vs_oracle("(b)", got)
+        shares = [r.served / N_FLEET for r in reps]
+        print(f"fleet (b): two replicas, {N_FLEET} records in {wall:.3f}s "
+              f"= {N_FLEET / wall:.1f} records/s ({N_FLEET / wall / resp:.2f}"
+              f"x one RESP replica); shares {shares[0]:.3f}/{shares[1]:.3f},"
+              f" dispatches {dispatches}, dispatch mean "
+              f"{dispatch_ms(regs):.2f} ms, {launches} K2 launches; acks "
+              f"{acks:.0f}, PEL {pel}; vs oracle {err:.3e}")
+        check(launches == n_block * sum(dispatches) and all(dispatches),
+              f"fleet (b): {launches} K2 launches for {dispatches}")
+        check(sorted(writes) == sorted(f"b-{i}" for i in range(N_FLEET))
+              and set(writes.values()) == {1},
+              f"fleet (b): result writes {len(writes)} keys, counts "
+              f"{sorted(set(writes.values()))}")
+        check(acks == N_FLEET and pel == 0,
+              f"fleet (b): acks {acks}, PEL {pel}")
+        out["two_replicas"] = {
+            "wall_s": wall, "records_per_s": N_FLEET / wall,
+            "over_one_resp_replica": N_FLEET / wall / resp,
+            "shares": shares, "dispatches": dispatches,
+            "dispatch_ms": dispatch_ms(regs), "launches": launches,
+            "vs_oracle": err}
+        fleet_launches = launches
+
+        # (e) the collector, on the running pair
+        creg = MetricsRegistry()
+        collector = FleetCollector(backend=broker.backend(),
+                                   stream=INPUT_STREAM, registry=creg,
+                                   interval_s=0.2, registry_ttl_s=3.0,
+                                   retry=RetryPolicy(max_attempts=1))
+        fz = FleetzServer(collector, port=0)
+        try:
+            deadline = time.monotonic() + 30
+            while collector.poll() < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            page = get_json(fz.url)[1]
+            check(set(page["replicas"]) == set(endpoints)
+                  and page["fleet"]["replicas_live"] == 2
+                  and all(r["source"] == "registry"
+                          for r in page["replicas"].values()),
+                  f"fleet (e): /fleetz replicas {page['replicas']}")
+            scaling = {ep: get_json(f"http://{ep}/statusz")[1]["serving"][
+                "scaling"] for ep in endpoints}
+            for ep, sc in scaling.items():
+                print(f"fleet (e): {ep} /statusz scaling {json.dumps(sc)}")
+            cli = subprocess.run(
+                [sys.executable, "-m",
+                 "analytics_zoo_tpu_torch.observability.fleet_cli", "check",
+                 *endpoints], cwd=REPO, capture_output=True, text=True,
+                timeout=120)
+            check(cli.returncode == 0 and "2 live" in cli.stdout,
+                  f"fleet (e): fleet_cli check exit {cli.returncode}: "
+                  f"{cli.stdout[-500:]} {cli.stderr[-500:]}")
+            status = subprocess.run(
+                [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.status",
+                 *endpoints, "--json"], cwd=REPO, capture_output=True,
+                text=True, timeout=120)
+            doc = json.loads(status.stdout)
+            check(status.returncode == 0
+                  and sorted(doc["endpoints"]) == sorted(
+                      f"http://{ep}" for ep in endpoints),
+                  f"fleet (e): status CLI exit {status.returncode}")
+            print(f"fleet (e): /fleetz lists {page['fleet']['replicas_live']}"
+                  f" live (verdict {page['saturation']['verdict']}); "
+                  f"fleet_cli check exits 0; the status CLI rolls up "
+                  f"{len(doc['endpoints'])} endpoints")
+            # one replica killed: its endpoint and heartbeat die
+            reps[1].kill()
+            t_kill = time.monotonic()
+            while True:
+                collector.poll()
+                page = get_json(fz.url)[1]
+                if page["fleet"]["replicas_down"] == 1:
+                    break
+                check(time.monotonic() - t_kill < 3.0 + 1.0,
+                      f"fleet (e): the killed replica never listed down")
+                time.sleep(0.05)
+            down_s = time.monotonic() - t_kill
+            check(page["fleet"]["replicas_live"] == 1,
+                  f"fleet (e): after the kill {page['fleet']}")
+            print(f"fleet (e): after a kill /fleetz lists 1 live, 1 down "
+                  f"in {down_s:.3f}s")
+            out["collector"] = {"scaling": scaling, "down_after_s": down_s,
+                                "fleet_cli_exit": cli.returncode,
+                                "status_cli_exit": status.returncode}
+        finally:
+            fz.close()
+            collector.close()
+            reps[0].stop()
+    finally:
+        broker.close()
+
+    # (c) kill and reclaim at full width
+    broker = Broker()
+    try:
+        fleet_enqueue(broker.backend(), ids, "c")
+        victim_model = HeldAdapter(ims[2])
+        regs = [MetricsRegistry() for _ in range(3)]
+        common = dict(batch_size=T_BATCH, claim_idle_ms=FLEET_CLAIM_IDLE_MS,
+                      heartbeat_s=FLEET_HEARTBEAT_S)
+        for a in adapters:
+            a.dispatches = 0
+        KERNEL.reset()
+        victim = ClusterServing(victim_model, backend=broker.backend(),
+                                registry=regs[2], consumer_name="victim",
+                                **common).start()
+        check(victim_model.entered.wait(60), "fleet (c): victim never read")
+        probe = broker.backend()
+        window = probe.xpending(INPUT_STREAM, "serving")
+        window_uris = [f"c-{i}" for i in range(T_BATCH)]
+        survivors = [ClusterServing(adapters[i], backend=broker.backend(),
+                                    registry=regs[i],
+                                    consumer_name=f"survivor{i}", **common)
+                     for i in range(2)]
+        for s_ in survivors:
+            s_.start()
+        victim.kill(join=False)
+        t_kill = time.perf_counter()
+        victim_model.release.set()
+        victim.kill()
+        # the window's answers are timed: a 1-2 ms poll
+        reader = broker.backend(poll_policy=RetryPolicy(base_delay=0.001,
+                                                        max_delay=0.002))
+        got, at = fleet_answers(reader, "c", N_FLEET, first=window_uris)
+        reclaim_s = max(at[u] for u in window_uris) - t_kill
+        for s_ in survivors:
+            s_.stop()
+        snaps = regs[:2]
+        writes = broker.writes()
+        answered = total(snaps, "zoo_serving_records_total")
+        shed = total(snaps, "zoo_serving_shed_total")
+        dead = total(snaps, "zoo_serving_dead_letter_total")
+        reclaimed = {k: v["value"] for r in snaps
+                     for k, v in r.snapshot().items()
+                     if k.startswith("zoo_serving_reclaimed_total")}
+        from_victim = sum(v for k, v in reclaimed.items()
+                          if k == 'zoo_serving_reclaimed_total{from="victim"}')
+        acks = total(snaps, "zoo_serving_acks_total")
+        pel = probe.pending_len(INPUT_STREAM, "serving")
+        launches = KERNEL.launches
+        dispatches = [a.dispatches for a in adapters] + [
+            victim_model.dispatches]
+        err = vs_oracle("(c)", got)
+        print(f"fleet (c): kill window {window}; answered {answered:.0f} + "
+              f"shed {shed:.0f} + dead-lettered {dead:.0f} of {N_FLEET}, "
+              f"victim answered {victim.served}; reclaimed {reclaimed}; "
+              f"acks {acks:.0f}, PEL {pel}; dispatches {dispatches}, "
+              f"{launches} K2 launches; kill to last reclaimed answer "
+              f"{reclaim_s:.3f}s (claim_idle_ms {FLEET_CLAIM_IDLE_MS}); vs "
+              f"oracle {err:.3e}")
+        check(window == {"victim": T_BATCH}, f"fleet (c): window {window}")
+        check(sorted(writes) == sorted(f"c-{i}" for i in range(N_FLEET))
+              and set(writes.values()) == {1},
+              f"fleet (c): result writes not once each "
+              f"({len(writes)} keys, counts {sorted(set(writes.values()))})")
+        check(answered + shed + dead == N_FLEET and victim.served == 0,
+              f"fleet (c): {answered} + {shed} + {dead}, victim "
+              f"{victim.served}")
+        check(from_victim == T_BATCH, f"fleet (c): reclaimed {reclaimed}")
+        check(acks == N_FLEET and pel == 0,
+              f"fleet (c): acks {acks}, PEL {pel}")
+        check(launches == n_block * sum(dispatches),
+              f"fleet (c): {launches} K2 launches for {dispatches}")
+        out["kill_reclaim"] = {
+            "window": window, "answered": answered, "shed": shed,
+            "dead": dead, "reclaimed": reclaimed, "acks": acks,
+            "kill_to_reclaimed_s": reclaim_s, "dispatches": dispatches,
+            "launches": launches, "vs_oracle": err}
+        fleet_launches += launches
+    finally:
+        broker.close()
+
+    # (d) fleet backpressure: a blind control sheds, a fleet-aware
+    # producer is refused while the fleet is saturated, then admitted
+    def saturated(preload, tag):
+        broker_ = Broker()
+        fleet_enqueue(broker_.backend(), ids[:preload], tag)
+        model = HeldAdapter(ims[0])
+        reg = MetricsRegistry()
+        rep = ClusterServing(model, backend=broker_.backend(),
+                             batch_size=T_BATCH, registry=reg,
+                             consumer_name="rep",
+                             shed_watermark=FLEET_WATERMARK,
+                             heartbeat_s=0.05, fleet_ttl_s=30.0).start()
+        check(model.entered.wait(60), "fleet (d): the replica never read")
+        return broker_, model, reg, rep
+
+    blind = ids[N_FLEET - FLEET_EXTRA_BLIND:]
+    broker, model, reg, rep = saturated(FLEET_PRELOAD, "dc")
+    try:
+        inq = InputQueue(broker.backend(), fleet_backpressure=False)
+        for i, x in enumerate(blind):
+            inq.enqueue(f"dc-x{i}", x)
+        model.release.set()
+        outq = OutputQueue(broker.backend())
+        shed_uris = []
+        for uri in ([f"dc-{i}" for i in range(FLEET_PRELOAD)]
+                    + [f"dc-x{i}" for i in range(FLEET_EXTRA_BLIND)]):
+            try:
+                outq.query(uri, timeout=300)
+            except ServingError:
+                shed_uris.append(uri)
+        rep.stop()
+    finally:
+        broker.close()
+    control_shed = total([reg], "zoo_serving_shed_total")
+    # the preload alone sits at the shed point: what is shed, the newest
+    # of the read after the release, is shed because of the extras
+    check(control_shed > 0 and len(shed_uris) == control_shed,
+          f"fleet (d): the blind control shed {control_shed}: {shed_uris}")
+    extra = ids[N_FLEET - FLEET_EXTRA:]
+    broker, model, reg, rep = saturated(FLEET_PRELOAD, "dt")
+    try:
+        backend = broker.backend()
+        inq = InputQueue(backend, fleet_backpressure=True, fleet_wait_s=0.2,
+                         fleet_view=FleetView(backend, INPUT_STREAM,
+                                              cache_s=0.05, ttl_s=30.0))
+        refused = 0
+        for i, x in enumerate(extra):
+            try:
+                inq.enqueue(f"dt-x{i}", x)
+            except FleetSaturatedError:
+                refused += 1
+        model.release.set()
+        t_rel = time.perf_counter()
+        remaining = dict(enumerate(extra))
+        while remaining and time.perf_counter() - t_rel < 60:
+            for i, x in list(remaining.items()):
+                try:
+                    inq.enqueue(f"dt-x{i}", x)
+                    del remaining[i]
+                except FleetSaturatedError:
+                    time.sleep(0.02)
+        admitted_s = time.perf_counter() - t_rel
+        outq = OutputQueue(broker.backend())
+        got = [outq.query(f"dt-{i}", timeout=300)
+               for i in range(FLEET_PRELOAD)]
+        got += [outq.query(f"dt-x{i}", timeout=300)
+                for i in range(FLEET_EXTRA)]
+        rep.stop()
+    finally:
+        broker.close()
+    shed = total([reg], "zoo_serving_shed_total")
+    print(f"fleet (d): blind control: {FLEET_EXTRA_BLIND} extra records "
+          f"on a preload of {FLEET_PRELOAD} (watermark {FLEET_WATERMARK}) "
+          f"shed {control_shed:.0f}; "
+          f"fleet-aware producer refused {refused} of {FLEET_EXTRA} "
+          f"(FleetSaturatedError), all admitted {admitted_s:.3f}s after the "
+          f"release; the replica shed {shed:.0f}")
+    check(refused == FLEET_EXTRA and not remaining and shed == 0
+          and all(g is not None for g in got),
+          f"fleet (d): refused {refused}, left {len(remaining)}, shed "
+          f"{shed}")
+    out["backpressure"] = {"control_shed": control_shed,
+                           "control_shed_uris": shed_uris, "refused": refused,
+                           "admitted_after_s": admitted_s,
+                           "treatment_shed": shed}
+
+    # (f) a poison record dead-lettered, replayed over RESP by dlq_cli
+    class Poison(BertAdapter):
+        def predict_async(self, x, block=True):
+            if np.any(np.asarray(x)[:, 0] == int(POISON)):
+                raise RuntimeError("poison record")
+            return super().predict_async(x, block=block)
+
+    tmp = tempfile.TemporaryDirectory(prefix="zoo-fleet-dlq-")
+    broker = Broker()
+    try:
+        rows = ids[:4].copy()
+        rows[2, 0] = int(POISON)
+        fleet_enqueue(broker.backend(), rows, "f")
+        sick = ClusterServing(Poison(ims[0]), backend=broker.backend(),
+                              batch_size=T_BATCH,
+                              registry=MetricsRegistry(), dlq_dir=tmp.name,
+                              dispatch_retries=1, consumer_name="sick")
+        sick.start()
+        outq = OutputQueue(broker.backend())
+        answers = {}
+        for i in range(4):
+            try:
+                answers[i] = outq.query(f"f-{i}", timeout=300)
+            except ServingError as e:
+                answers[i] = str(e)
+        sick.stop()
+        check(isinstance(answers[2], str)
+              and answers[2].endswith("dead-lettered: dispatch crashed "
+                                      "repeatedly")
+              and all(not isinstance(answers[i], str) for i in (0, 1, 3)),
+              f"fleet (f): answers {answers}")
+
+        def dlq_cli(*argv):
+            return subprocess.run(
+                [sys.executable, "-m",
+                 "analytics_zoo_tpu_torch.serving.dlq_cli", *argv],
+                cwd=REPO, capture_output=True, text=True, timeout=120)
+
+        listed = dlq_cli("list", tmp.name)
+        inspected = dlq_cli("inspect", tmp.name)
+        check(listed.returncode == 0
+              and "replayable: 1 record(s)" in listed.stdout,
+              f"fleet (f): dlq_cli list {listed.stdout} {listed.stderr}")
+        check(inspected.returncode == 0 and "f-2" in inspected.stdout,
+              f"fleet (f): dlq_cli inspect {inspected.stdout}")
+        replayed = dlq_cli("replay", tmp.name, "--host", "127.0.0.1",
+                           "--port", str(broker.port))
+        check(replayed.returncode == 0
+              and "replayed 1 record(s)" in replayed.stdout,
+              f"fleet (f): dlq_cli replay {replayed.returncode} "
+              f"{replayed.stdout} {replayed.stderr}")
+        healthy = ClusterServing(adapters[0], backend=broker.backend(),
+                                 batch_size=T_BATCH,
+                                 registry=MetricsRegistry(),
+                                 consumer_name="healthy").start()
+        try:
+            fixed = outq.query("f-2", timeout=300)
+        finally:
+            healthy.stop()
+        want = ims[0].predict(adapters[0].inputs(rows[2:3]))
+        replay_err = float(np.abs(fixed - want[0]).max())
+        print(f"fleet (f): f-2 dead-lettered; dlq_cli list, inspect and "
+              f"replay over RESP exit 0; the replayed record answered by a "
+              f"healthy replica ({replay_err:.3e} from its predict)")
+        check(replay_err <= 2e-2, f"fleet (f): replayed answer {replay_err}")
+        out["dlq_replay"] = {"replayed": 1, "vs_predict": replay_err}
+    finally:
+        broker.close()
+        tmp.cleanup()
+    out["launches"] = fleet_launches
+    return out
+
+
 def int8_kernel_row(int8_rows, launches, launches_by_route):
     """K6's row of the kernels line: at BERT's qkv shape (config B's
     largest product, the wgmma tile path), with the scoring head's batch-1
@@ -3538,6 +4541,7 @@ def main() -> int:
     serving = serving_phase()
     int8_serving = int8_serving_phase(serving["records_per_s"])
     lanes = lanes_phase()
+    fleet = fleet_phase()
     int8_head = int8_head_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
@@ -3547,11 +4551,13 @@ def main() -> int:
     lm["fused_ce_speedup"] = fused_ce_speedup()
     for row in rows:
         row.update(flash_lm[row["name"]])
-    # K2 serves too: its launches on the lanes path beside the training's
+    # K2 serves too: its launches on the lanes and fleet paths beside the
+    # training's
     k2_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
     k2_row["launches_by_path"] = {"bert_training": k2_row["launches"],
-                                  "lanes": lanes["launches"]["k2"]}
-    k2_row["launches"] += lanes["launches"]["k2"]
+                                  "lanes": lanes["launches"]["k2"],
+                                  "fleet": fleet["launches"]}
+    k2_row["launches"] += lanes["launches"]["k2"] + fleet["launches"]
     rows += ce_kernel_rows
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
@@ -3570,7 +4576,8 @@ def main() -> int:
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
                       "serving": serving, "int8_serving": int8_serving,
-                      "lanes": lanes, "int8_head": int8_head, "training": training,
+                      "lanes": lanes, "fleet": fleet, "int8_head": int8_head,
+                      "training": training,
                       "lm": lm, "ncf": ncf, "fault_l": fault_l,
                       "captured_bert": captured_bert, "card": card}))
     print(json.dumps({"kernels": rows}))

@@ -1385,3 +1385,108 @@ def test_device_memory_stats_read_the_allocator(cuda):
     key = f'zoo_device_hbm_bytes{{device="{row["device"]}",kind="limit"}}'
     assert snap[key]["value"] == row["limit"]
     del x
+
+
+class _HeldAdapter:
+    """A served record is a ``(512,)`` int32 token row, pad id 0; the
+    model takes BERT's four inputs. ``hold`` makes the first dispatch wait
+    until released (the replica then holds its read entries in flight);
+    ``dispatches`` counts the batches launched."""
+
+    def __init__(self, im, hold=False):
+        import threading
+        self.im = im
+        self.dispatches = 0
+        self.entered = threading.Event()
+        self.release = threading.Event()
+        if not hold:
+            self.release.set()
+
+    def inputs(self, ids):
+        return make_bert_inputs(ids, attention_mask=(ids != 0))
+
+    def predict_async(self, ids, block=True):
+        self.entered.set()
+        assert self.release.wait(timeout=120), "dispatch never released"
+        collect = self.im.predict_async(self.inputs(ids), block=block)
+        self.dispatches += collect is not None
+        return collect
+
+
+@pytest.mark.cuda
+def test_fleet_over_resp_reclaims_a_killed_replicas_batch(cuda):
+    """Two replicas of a 2-block BERT at full width (bf16, K2 in every
+    block) on one stream over ``RedisBackend`` and a local
+    ``chip_smoke.MiniResp``. The victim reads a batch alone and is killed
+    with it in flight; the survivor reclaims it: every record answered
+    once (the broker's result-write count), 8 reclaimed from the victim,
+    the PEL empty, K2 launched 2 a dispatch, and the reclaimed batch's
+    answers the bits of the same batch read fresh."""
+    import threading
+
+    import chip_smoke
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
+                                                 OutputQueue, RedisBackend)
+
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    model = BERTClassifier(2, n_block=2, device="cuda").init_weights()
+    vocab = model.get_config()["vocab"]
+    ims = [InferenceModel(concurrent_num=2, device="cuda").from_keras(
+        model, dtype="bfloat16") for _ in range(2)]
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, vocab, (32, 512)).astype(np.int32)
+    lens = rng.integers(64, 513, 32)
+    ids[np.arange(512)[None, :] >= lens[:, None]] = 0
+    broker = chip_smoke.MiniResp()
+    threading.Thread(target=broker.serve_forever, daemon=True).start()
+    victim_model = _HeldAdapter(ims[0], hold=True)
+    survivor_model = _HeldAdapter(ims[1])
+    regs = [MetricsRegistry(), MetricsRegistry()]
+    common = dict(batch_size=8, claim_sweep_s=0.05, heartbeat_s=0.05)
+    try:
+        q = InputQueue(RedisBackend(port=broker.port))
+        for i in range(32):
+            q.enqueue(f"r-{i}", ids[i])
+        probe = RedisBackend(port=broker.port)
+        KERNEL.reset()
+        victim = ClusterServing(victim_model,
+                                backend=RedisBackend(port=broker.port),
+                                registry=regs[0], consumer_name="victim",
+                                claim_idle_ms=60000, **common).start()
+        assert victim_model.entered.wait(120)
+        window = probe.xpending("tensor_stream", "serving")
+        survivor = ClusterServing(survivor_model,
+                                  backend=RedisBackend(port=broker.port),
+                                  registry=regs[1], consumer_name="survivor",
+                                  claim_idle_ms=500, **common).start()
+        victim.kill(join=False)
+        victim_model.release.set()
+        victim.kill()
+        out = OutputQueue(RedisBackend(port=broker.port))
+        got = np.stack([out.query(f"r-{i}", timeout=300)
+                        for i in range(32)])
+        survivor.stop()
+        launches = KERNEL.launches
+        pel = probe.pending_len("tensor_stream", "serving")
+        writes = dict(zip(*[iter(probe._r.command("ZOOWRITES"))] * 2))
+    finally:
+        broker.close()
+    snap = regs[1].snapshot()
+    assert window == {"victim": 8}
+    assert snap['zoo_serving_reclaimed_total{from="victim"}'][
+        "value"] == 8
+    assert snap["zoo_serving_records_total"]["value"] == 32
+    assert snap["zoo_serving_acks_total"]["value"] == 32 and pel == 0
+    assert victim.served == 0
+    assert {k: v for k, v in writes.items()
+            if k.startswith(b"result:")} == {
+        f"result:r-{i}".encode(): b"1" for i in range(32)}
+    dispatches = victim_model.dispatches + survivor_model.dispatches
+    assert launches == 2 * dispatches and survivor_model.dispatches >= 4
+    assert np.isfinite(got).all() and got.shape == (32, 2)
+    # the victim's batch was its first read: records 0..7, in order
+    fresh = ims[1].predict(survivor_model.inputs(ids[:8]))
+    assert np.array_equal(got[:8].view(np.uint32),
+                          np.asarray(fresh, np.float32).view(np.uint32))

@@ -7,10 +7,10 @@ other runs serve a model whose predict raises and one whose readback
 raises. Both servers must give the same records, batches, undecodable,
 failure and failure-breakdown counters, the same queue-wait, e2e and
 dispatch counts, and the same per-trace phase chains and parents. The
-``/healthz`` and ``/statusz`` payloads differ only by the fields the port
-declares not ported yet (``server.HEALTH_NOT_PORTED``: the fleet's
-``scaling`` block), and the port's status CLI gives what the JAX script
-gives on the same endpoint. Both servers run with ``dispatch_retries=0``,
+``/healthz`` and ``/statusz`` payloads have the same fields and types
+(``server.HEALTH_NOT_PORTED`` is empty: the fleet's ``scaling`` block is
+ported), and the port's status CLI gives what the JAX script gives on
+the same endpoint. Both servers run with ``dispatch_retries=0``,
 so a failed batch fails whole in both (the solo retries are held to JAX
 in ``tests/test_torch_port_serving_overload.py``).
 
@@ -344,16 +344,20 @@ def test_healthz_statusz_match_jax_but_for_the_declared_fields(tmp_path):
     finally:
         jscrape.close()
         pscrape.close()
-    # what is left to port is the fleet's scaling block (item 2f); the
-    # overload block and every field of a models row match JAX's
-    assert pserver.HEALTH_NOT_PORTED == {"serving": ("scaling",),
-                                         "models": ()}
+    # nothing is left to port: the overload and scaling blocks and every
+    # field of a models row match JAX's
+    assert pserver.HEALTH_NOT_PORTED == {"serving": (), "models": ()}
     declared = {f"serving.{k}" for k in pserver.HEALTH_NOT_PORTED["serving"]}
     declared |= {f"serving.models.default.{k}"
                  for k in pserver.HEALTH_NOT_PORTED["models"]}
-    assert declared == {"serving.scaling"}
+    assert declared == set()
     for j, p in ((jh, ph), (js, ps)):
         assert p["serving"]["overload"] == j["serving"]["overload"]
+        jsc, psc = j["serving"]["scaling"], p["serving"]["scaling"]
+        assert set(psc) == set(jsc)
+        for key in ("group", "stream_depth", "pending_entries",
+                    "batch_size_target"):
+            assert psc[key] == jsc[key], key
         jrow = dict(j["serving"]["models"]["default"])
         prow = dict(p["serving"]["models"]["default"])
         assert set(prow) == set(jrow)
