@@ -33,6 +33,23 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.train.fuse_epochs": 1,      # epochs a block with no host read (device_cache only)
     "zoo.train.fused_ce": "auto",    # fused LM-head CE: auto (V >= 1024) | true | false
     "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
+    # -- anomaly sentinels / self-healing training
+    "zoo.train.sentinel": "off",         # off | warn | recover: on-device
+    #   nan-loss / nan-grad / grad-norm-spike checks folded into the step
+    "zoo.train.spike_factor": 10.0,      # grad-norm spike = factor x its EWMA
+    "zoo.train.grad_clip": 0.0,          # >0: global-norm gradient clipping in
+    #   the step builders (zoo_train_grad_clip_engaged_total)
+    "zoo.train.max_skips_per_epoch": 8,  # recover mode: skips past this in one
+    #   epoch escalate to rollback-to-last-good-checkpoint
+    "zoo.train.max_rollbacks": 3,        # rollbacks per fit before the loop
+    #   fails loudly with TrainingDiverged (RetryBudget-backed)
+    "zoo.failure.retry_times": 5,        # ≅ bigdl.failure.retryTimes (Topology.scala:1172)
+    "zoo.failure.retry_window_sec": 3600,
+    "zoo.checkpoint.keep": 3,
+    "zoo.checkpoint.on_sigterm": False,  # SIGTERM during fit → final sync snapshot + clean exit
+    "zoo.checkpoint.sigterm_grace_s": 0.0,  # >0: cut a MID-EPOCH snapshot from the
+    #   SIGTERM handler when the estimated time to the next step boundary
+    #   exceeds this budget (preemption deadline shorter than a dispatch)
     "zoo.embed.sharded": "auto",     # row-partitioned lookup for plain Embedding: auto | true | false
     "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
     "zoo.serving.dtype": "float32",  # precision of models the server wraps:

@@ -4,11 +4,12 @@ span tracing and trace ids, the Prometheus / JSON-lines exports with the
 ``/metrics``, ``/healthz``, ``/statusz`` and ``POST /profilez`` endpoint,
 ring-buffer time series, the alert engine, the fleet collector with its
 ``/fleetz`` endpoint (and the fleet rollup the status CLI uses), device
-memory from ``torch.cuda``, goodput accounting and the profiler trigger
-on ``torch.profiler``.
+memory from ``torch.cuda``, goodput accounting, the profiler trigger
+on ``torch.profiler``, and compile accounting (``compile.py``: CUDA-graph
+captures and kernel library builds under the ``zoo_jit_*`` names; the
+port has no jit, so ``instrument_jit`` itself has no counterpart).
 
-Not ported: jit compile accounting (``instrument_jit``; the port has no
-jit) and the TensorBoard sink.
+Not ported: the TensorBoard sink.
 """
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -31,6 +32,7 @@ from .goodput import (GOOD_CATEGORY, SERVE_CATEGORIES, TRAIN_CATEGORIES,
                       GoodputLedger, goodput_enabled)
 from .goodput import registry_snapshot as goodput_snapshot
 from .profiler import ProfilerTrigger
+from .compile import CompileTracker, record_compile
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "QuantileDigest", "Summary",
@@ -47,5 +49,5 @@ __all__ = [
     "summary_points", "fleet_rows", "endpoint_rows", "base_url",
     "GoodputLedger", "GOOD_CATEGORY", "TRAIN_CATEGORIES",
     "SERVE_CATEGORIES", "goodput_enabled", "goodput_snapshot",
-    "ProfilerTrigger",
+    "ProfilerTrigger", "CompileTracker", "record_compile",
 ]

@@ -121,6 +121,8 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed building {self.name}:\n"
                                f"{self.build_log}")
         os.replace(tmp, out)
+        from ..observability.compile import record_compile
+        record_compile(self.name, self.build_seconds, out.name)
         return out
 
     def get(self) -> ctypes.CDLL:

@@ -27,7 +27,19 @@ The first capture follows a warm-up step on the capture stream, whose
 effect on the parameters and the optimizer state is undone. An op that
 cannot be captured (a host sync, a copy from pageable memory) makes the
 fit raise: there is no eager fallback. The kernel wrappers' launch
-counters are kept true under replay (``ops/launch_count.py``).
+counters are kept true under replay (``ops/launch_count.py``), and each
+capture counts as a compile (``observability/compile.py``; a capture for
+a new K of a program that captured before, as a retrace).
+
+With the anomaly sentinel or gradient clipping active (the loop's
+:class:`Guard`), each step is the guarded step
+(``TrainingLoop.guarded_step``) and the program holds its inputs and
+outputs in static buffers too: a ``(K, 2)`` fault input the host fills
+before each replay (``train.grads``), the ``(K,)`` flag words, and a
+``(K, n)`` table of per-step values gathered on the device, before the
+replay, from the block's table at the device count's offset — after a
+discarded step the optimizer count does not advance, so the steps
+behind it read the rows of the counts they really have.
 
 On the CPU the same program runs its steps as they are, with a loop in
 place of the replay: the same buffers, gathers and per-step values,
@@ -36,12 +48,15 @@ which is what the CPU tests hold against the JAX loop.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ....common import anomaly
 from ....common.noise import step_seed
+from ....observability.compile import CompileTracker
 from ....ops.launch_count import Launches, record_launches
 from .optimizers import n_scalars
 
@@ -135,33 +150,104 @@ def _leaves(tree) -> List[torch.Tensor]:
     return []
 
 
+class Guard:
+    """The device state of a training loop's guarded step
+    (``anomaly.SentinelConfig.active``): the spike check's EWMA state
+    (two f32 scalars, fresh each fit attempt), the optimizer count (an
+    int64 scalar, set by the host at each block start and advanced by
+    each applied update), ``base``, the count of row 0 of the per-step
+    table the eager steps read, and — in ``recover`` mode — the pre-step
+    copies of the parameters and the optimizer state that a discarded
+    update is undone from. The tensors are made once a loop and updated
+    in place, so a captured graph keeps reading them."""
+
+    def __init__(self, cfg: anomaly.SentinelConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.ewma, self.obs = anomaly.init_state(device)
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self.base = torch.zeros((), dtype=torch.int64, device=device)
+        self.prev: Optional[List[torch.Tensor]] = None
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.ewma, self.obs, self.count, self.base]
+
+    def reset(self) -> None:
+        """A fit attempt's fresh EWMA state."""
+        self.ewma.zero_()
+        self.obs.zero_()
+
+    def start_block(self, count: int) -> None:
+        """The host's exact count at a block's start (no host wait)."""
+        self.count.fill_(count)
+        self.base.fill_(count)
+
+    def keep(self, state: List[torch.Tensor]) -> None:
+        """Copies ``state`` (the step's parameters and optimizer state)
+        before the update."""
+        if self.prev is None or len(self.prev) != len(state):
+            with torch.no_grad():
+                self.prev = [torch.empty_like(t) for t in state]
+        torch._foreach_copy_(self.prev, state)
+
+    def commit(self, state: List[torch.Tensor], bad: torch.Tensor) -> None:
+        """Where ``bad``, the pre-step values back; else the update's, bit
+        for bit (a select, no arithmetic)."""
+        for t, p in zip(state, self.prev):
+            torch.where(bad, p, t, out=t)
+
+
 class StepProgram:
     """Up to ``k_max`` optimizer steps of a training loop over the static
     buffers of ``inputs``: captured and replayed on CUDA, run as they are
     on the CPU. ``run`` returns the steps' losses on the device."""
 
     def __init__(self, loop, params: Dict[str, torch.Tensor], opt_state,
-                 inputs, k_max: int):
+                 inputs, k_max: int, guard: Optional[Guard] = None,
+                 name: str = "train.scan_chunk"):
         device = inputs.device
         self.loop, self.params, self.opt_state = loop, params, opt_state
         self.inputs = inputs
+        self.guard = guard
         self.cuda = device.type == "cuda"
         n = n_scalars(loop.optimizer)
         self.scalars = (torch.zeros(k_max, n, device=device) if n
                         else None)
         self.losses = torch.zeros(k_max, device=device)
+        self.flags = self.fault = None
+        if guard is not None:
+            self.flags = torch.zeros(k_max, dtype=torch.int32, device=device)
+            self.base = torch.zeros((), dtype=torch.int64, device=device)
+            self.steps = torch.arange(k_max, device=device)
+            if guard.cfg.faults:
+                self.fault = torch.zeros(k_max, 2, device=device)
         self.noise: List[torch.Generator] = (
             [torch.Generator(device=device) for _ in range(k_max)]
             if self.cuda else [])
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, Launches]] = {}
         self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.compiles = CompileTracker(name, loop._registry)
 
     def run(self, k: int, seed: int, iteration: int,
-            scalars: Optional[torch.Tensor]) -> torch.Tensor:
+            scalars: Optional[torch.Tensor],
+            fault: Optional[np.ndarray] = None):
         """Steps ``iteration .. iteration + k - 1`` on the batches filled
-        into ``inputs``; ``scalars`` their ``(k, n)`` per-step values."""
-        if self.scalars is not None:
-            self.scalars[:k].copy_(scalars)
+        into ``inputs``; returns their losses (and, guarded, their flag
+        words) on the device. ``scalars`` are the steps' ``(k, n)``
+        per-step values; guarded, the block's table, whose row 0 is the
+        guard's ``base`` count; ``fault`` the steps' ``(k, 2)``
+        ``train.grads`` inputs."""
+        guard = self.guard
+        if guard is None:
+            if self.scalars is not None:
+                self.scalars[:k].copy_(scalars)
+        else:
+            if self.scalars is not None:
+                rows = (guard.count - guard.base) + self.steps[:k]
+                self.scalars[:k].copy_(scalars.index_select(0, rows))
+            self.base.copy_(guard.count)
+            if self.fault is not None:
+                _copy_in(self.fault[:k], fault)
         if self.cuda:
             graph, launches = self._graph(k)
             # seeded after the capture (and its warm-up step's draws): a
@@ -175,18 +261,30 @@ class StepProgram:
             self.noise = [torch.Generator().manual_seed(
                 step_seed(seed, iteration + j)) for j in range(k)]
             self._steps(k)
-        return self.losses[:k].clone()
+        if guard is None:
+            return self.losses[:k].clone()
+        return self.losses[:k].clone(), self.flags[:k].clone()
 
     def _steps(self, k: int) -> None:
         for j in range(k):
             x, y = self.inputs.batch(j)
-            loss = self.loop.train_step(
-                x, y, self.noise[j], self.params, self.opt_state,
-                None if self.scalars is None else self.scalars[j])
+            if self.guard is None:
+                loss = self.loop.train_step(
+                    x, y, self.noise[j], self.params, self.opt_state,
+                    None if self.scalars is None else self.scalars[j])
+            else:
+                loss, flags = self.loop.guarded_step(
+                    x, y, self.noise[j], self.params, self.opt_state,
+                    self.scalars, self.base,
+                    None if self.fault is None else self.fault[j])
+                self.flags[j].copy_(flags)
             self.losses[j].copy_(loss)
 
     def _graph(self, k: int):
         if k not in self.graphs:
+            # the capture is this path's compile (goodput: "compile")
+            self.loop._gp_note("device_step")
+            t0 = time.perf_counter()
             if not self.graphs:
                 self._warm_up()
             graph = torch.cuda.CUDAGraph()
@@ -206,6 +304,8 @@ class StepProgram:
                     f"op in it syncs with the host or is not capturable: "
                     f"{e}") from e
             self.graphs[k] = (graph, launches)
+            self.compiles.record(k, time.perf_counter() - t0)
+            self.loop._gp_note("compile")
         return self.graphs[k]
 
     def _warm_up(self) -> None:
@@ -214,6 +314,8 @@ class StepProgram:
         lazy allocations set up outside the graph); its update of the
         parameters and the optimizer state is undone."""
         state = list(self.params.values()) + _leaves(self.opt_state)
+        if self.guard is not None:
+            state += self.guard.tensors()
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         self.stream.wait_stream(torch.cuda.current_stream())

@@ -365,6 +365,8 @@ class KerasNet(Layer):
     finished_epochs = 0
     finished_iterations = 0
     _loop = None
+    #: ``set_checkpoint``'s ``{"path", "trigger", "keep"}``
+    _checkpoint = None
 
     def apply(self, x, *, training: bool = False,
               generator: Optional[torch.Generator] = None):
@@ -422,21 +424,35 @@ class KerasNet(Layer):
             raise RuntimeError(f"call compile() before {what}()")
         return self._loop
 
+    def set_checkpoint(self, path: str, trigger=None,
+                       keep: Optional[int] = None) -> "KerasNet":
+        """``KerasNet.setCheckpoint`` (``Topology.scala:245-255``):
+        snapshot params + optimizer state + net state into ``path``
+        whenever ``trigger`` fires (default: every epoch); ``keep``
+        snapshots are kept (default ``zoo.checkpoint.keep``; 0 keeps
+        every one). ``fit`` resumes from the newest snapshot there that
+        verifies."""
+        self._checkpoint = {"path": path, "trigger": trigger, "keep": keep}
+        return self
+
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
-            validation_data=None, shuffle: bool = True, callbacks=()):
+            validation_data=None, shuffle: bool = True, callbacks=(),
+            end_trigger=None):
         """``KerasNet.fit`` (``Topology.scala:418``): ``x`` an array, a
         list of arrays or a ``FeatureSet`` (then ``y=None``). ``nb_epoch``
-        more epochs; returns ``{"loss": [...], "val_*": [...]}``."""
+        more epochs, ``end_trigger`` (``common/triggers.py``) stopping
+        earlier; returns ``{"loss": [...], "val_*": [...]}``."""
         from ....feature.feature_set import FeatureSet
         loop = self._compiled_loop("fit")
         if isinstance(x, FeatureSet):
             return loop.fit_feature_set(x, batch_size=batch_size,
                                         nb_epoch=nb_epoch,
                                         validation_data=validation_data,
-                                        callbacks=callbacks)
+                                        callbacks=callbacks,
+                                        end_trigger=end_trigger)
         return loop.fit(x, y, batch_size=batch_size, nb_epoch=nb_epoch,
                         validation_data=validation_data, shuffle=shuffle,
-                        callbacks=callbacks)
+                        callbacks=callbacks, end_trigger=end_trigger)
 
     def evaluate(self, x, y=None, batch_size: int = 32):
         """``KerasNet.evaluate`` (``Topology.scala:496``): the loss and

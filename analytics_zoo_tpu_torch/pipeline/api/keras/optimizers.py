@@ -35,6 +35,14 @@ Updates happen in place: each transform rewrites the gradient tensors it
 is handed (they become the updates) and its own state, with
 ``torch._foreach_*`` kernels, so no second copy of the parameters'
 size is held beyond the optimizer state and one temporary.
+
+Each transform also names its state in optax's leaf order
+(``GradientTransformation.slots``): ``"count"`` where optax keeps an
+update count, a per-parameter list of tensors where it keeps a moment.
+Checkpoints write the optimizer state in that order
+(:func:`optax_leaves`), so a snapshot of the JAX package resumes here and
+back; a transform without a counterpart (``multi_optimizer``) has no
+slots.
 """
 
 from __future__ import annotations
@@ -53,16 +61,23 @@ def no_scalars(count: int) -> List[float]:
     return []
 
 
+def no_slots(state) -> List[Any]:
+    return []
+
+
 class GradientTransformation(NamedTuple):
     """``init(params) -> state``; ``update(updates, state, params=None,
     scalars=None) -> (updates, state)``, rewriting ``updates`` and
     ``state`` in place, with ``scalars`` the step's row of this
     transform's per-step values (a 1-D f32 tensor, None when
     ``scalars(0)`` is empty); ``scalars(count)`` lists those values for
-    update number ``count``."""
+    update number ``count``; ``slots(state)`` the state in optax's leaf
+    order (``"count"`` or a per-parameter tensor list, each), None when
+    the state has no optax counterpart."""
     init: Callable[[Params], Any]
     update: Callable[..., Any]
     scalars: Callable[[int], List[float]] = no_scalars
+    slots: Optional[Callable[[Any], List[Any]]] = no_slots
 
 
 def _values(d: Params) -> List[torch.Tensor]:
@@ -108,6 +123,58 @@ def apply_updates(params: Params, updates: Params) -> None:
         torch._foreach_add_(_values(params), _values(updates))
 
 
+def optax_order(names: List[str]) -> List[int]:
+    """The positions of parameters ``names`` (dotted paths, the port's
+    order) in the JAX param tree's flatten order (nested dicts, keys
+    sorted at each level)."""
+    return sorted(range(len(names)), key=lambda i: names[i].split("."))
+
+
+def optax_leaves(opt: GradientTransformation, state, count: int,
+                 names: List[str]) -> Optional[List[Any]]:
+    """``state`` (with update count ``count``) as optax's leaves for the
+    parameters ``names``: a count as an int32 scalar, each moment's
+    tensors in the JAX tree's order. None when ``opt`` has no optax
+    layout."""
+    if opt.slots is None:
+        return None
+    order = optax_order(names)
+    out: List[Any] = []
+    for slot in opt.slots(state):
+        if isinstance(slot, str):
+            out.append(np.int32(count))
+        else:
+            out.extend(slot[i] for i in order)
+    return out
+
+
+def load_optax_leaves(opt: GradientTransformation, state, leaves,
+                      names: List[str]) -> Optional[int]:
+    """Copies optax-ordered ``leaves`` (host arrays) into ``state``'s
+    tensors in place; returns the count they carry (None when none
+    does)."""
+    order = optax_order(names)
+    it = iter(leaves)
+    count = None
+    with torch.no_grad():
+        for slot in opt.slots(state):
+            if isinstance(slot, str):
+                count = int(np.asarray(next(it)))
+                continue
+            for i in order:
+                slot[i].copy_(torch.as_tensor(np.asarray(next(it))))
+    return count
+
+
+def _chain_slots(transforms):
+    if any(t.slots is None for t in transforms):
+        return None
+
+    def slots(state):
+        return [x for t, s in zip(transforms, state) for x in t.slots(s)]
+    return slots
+
+
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     sizes = [n_scalars(t) for t in transforms]
 
@@ -124,7 +191,8 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
     def values(count):
         return [v for t in transforms for v in t.scalars(count)]
-    return GradientTransformation(init, update, values)
+    return GradientTransformation(init, update, values,
+                                  _chain_slots(transforms))
 
 
 
@@ -226,8 +294,10 @@ def scale_by_learning_rate(lr: Union[float, Schedule]
     def update(updates, state, params=None, scalars=None):
         torch._foreach_mul_(_values(updates), _row_slice(scalars, 0, 1)[0])
         return updates, state
+    # optax's ScaleByScheduleState holds the count
     return GradientTransformation(lambda params: None, update,
-                                  lambda count: [-lr(count)])
+                                  lambda count: [-lr(count)],
+                                  lambda state: ["count"])
 
 
 def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
@@ -243,7 +313,8 @@ def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
         else:
             torch._foreach_copy_(g, t)
         return updates, state
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update,
+                                  slots=lambda state: [state["trace"]])
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -293,7 +364,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         return updates, state
     return GradientTransformation(
         init, update, lambda count: [_bias_correction(b1, count + 1),
-                                     _bias_correction(b2, count + 1)])
+                                     _bias_correction(b2, count + 1)],
+        lambda state: ["count", state["mu"], state["nu"]])
 
 
 def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
@@ -314,8 +386,10 @@ def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
         torch._foreach_div_(g, bc1)
         torch._foreach_div_(g, nu)
         return updates, state
+    # optax keeps adamax's moments in a ScaleByAdamState (count, mu, nu)
     return GradientTransformation(
-        init, update, lambda count: [_bias_correction(b1, count + 1)])
+        init, update, lambda count: [_bias_correction(b1, count + 1)],
+        lambda state: ["count", state["mu"], state["nu"]])
 
 
 def scale_by_rms(decay: float = 0.9, eps: float = 1e-8,
@@ -331,7 +405,8 @@ def scale_by_rms(decay: float = 0.9, eps: float = 1e-8,
         torch._foreach_rsqrt_(scale)
         torch._foreach_mul_(g, scale)
         return updates, state
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update,
+                                  slots=lambda state: [state["nu"]])
 
 
 def scale_by_rss(initial_accumulator_value: float = 0.1,
@@ -348,7 +423,8 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
                                 torch.zeros((), dtype=si.dtype,
                                             device=si.device)))
         return updates, state
-    return GradientTransformation(init, update)
+    return GradientTransformation(
+        init, update, slots=lambda state: [state["sum_of_squares"]])
 
 
 def scale_by_adadelta(rho: float = 0.9, eps: float = 1e-6
@@ -369,7 +445,8 @@ def scale_by_adadelta(rho: float = 0.9, eps: float = 1e-6
         torch._foreach_mul_(g, num)
         _moment(e_x, g, rho, square=True)
         return updates, state
-    return GradientTransformation(init, update)
+    return GradientTransformation(
+        init, update, slots=lambda state: [state["e_g"], state["e_x"]])
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
@@ -558,7 +635,9 @@ def multi_optimizer(rules: Dict[str, Union[str, GradientTransformation]],
 
     def values(count):
         return [v for t in transforms.values() for v in t.scalars(count)]
-    return GradientTransformation(init, update, values)
+    # optax.multi_transform's state nests each group's state under masked
+    # trees the port does not form: no optax layout (slots None)
+    return GradientTransformation(init, update, values, None)
 
 
 def with_clipping(opt: GradientTransformation,

@@ -1,32 +1,63 @@
 """TrainingLoop — port of ``analytics_zoo_tpu/pipeline/api/keras/
-training.py``: ``fit`` → ``fit_feature_set`` → the step loop, the plain
-step of ``_make_step_core`` (forward, loss, backward, optimizer update),
+training.py``: ``fit`` → ``fit_feature_set`` (retry, rollback, SIGTERM,
+goodput) → the epoch loop, the plain step of ``_make_step_core``
+(forward, loss, backward, optimizer update) and its guarded form,
 ``evaluate`` with masked padded tails, and ``predict``.
 
 What the JAX loop does and this one keeps:
 
 * batch order: ``FeatureSet(seed=zoo.seed)`` walked with ``epoch =
   zoo.seed + epoch`` (epochs count from ``finished_epochs + 1``), drop-last;
-* ``nb_epoch`` is additive over fit calls; the epoch loss is the mean of
-  the step losses; ``history["loss"]`` holds one value per epoch and
-  every callback gets ``{"epoch", "loss", "iteration", "throughput"}``;
+* ``nb_epoch`` is additive over fit calls (the target fixed once, after a
+  resume); the epoch loss is the mean of the step losses;
+  ``history["loss"]`` holds one value per epoch and every callback gets
+  ``{"epoch", "loss", "iteration", "throughput"}``; ``end_trigger``
+  (``common/triggers.py``) stops the fit early;
 * the dispatch paths (``dispatch.py``): one step at a time by default;
   ``zoo.train.scan_steps = K`` steps a dispatch over chunks of K
   FeatureSet batches; ``zoo.train.device_cache`` the dataset resident on
   the device, each epoch's order a permutation drawn there (seeded from
   ``fs.seed + zoo.seed + epoch``), drop-last, batches gathered on the
-  device; with it, ``zoo.train.fuse_epochs = g`` runs g epochs a block
-  when there is no validation, with one read of the device a block. On
-  CUDA a multi-step dispatch is the replay of a captured CUDA graph;
+  device, triggers observed at epoch boundaries; with it,
+  ``zoo.train.fuse_epochs = g`` runs g epochs a block when nothing needs
+  the host between epochs (no checkpoint manager, validation or end
+  trigger), with one read of the device a block. On CUDA a multi-step
+  dispatch is the replay of a captured CUDA graph;
 * no host sync inside an epoch (or a fused block): batches go to the
-  device through pinned memory without blocking, step losses stay on the
-  device and are read once at the epoch's (the block's) end;
+  device through pinned memory without blocking, step losses (and flag
+  words) stay on the device and are read once at the epoch's (the
+  block's) end;
 * the optimizer's count and per-step values: the count is kept beside
   the optimizer state (``model.opt_state``) and continues over fits; the
   host computes each step's scalars and every path's update reads them
   from a device row (``optimizers.step_scalars``);
-* the ``zoo_train_*`` step-time, throughput, step and example metrics in
-  the process registry.
+* **anomaly sentinels and gradient clipping** (``common/anomaly.py``;
+  ``zoo.train.sentinel``, ``zoo.train.grad_clip``), decided once a loop:
+  off and unclipped, the step is the plain one, with no added op; active,
+  :meth:`TrainingLoop.guarded_step` computes the global gradient norm,
+  the packed flag word and the clip on the device, and in ``recover``
+  mode discards an anomalous step's update of the parameters and the
+  optimizer state on the device (a select against pre-step copies, so
+  a healthy step keeps the update's bits) without advancing the count,
+  which then lives on the device (:class:`dispatch.Guard`). The host reads
+  the flags with the losses and keeps the books (:class:`_SentinelMonitor`:
+  counters, ``train.anomaly`` events, the skip budget); past
+  ``zoo.train.max_skips_per_epoch`` it rolls back to the last good
+  snapshot and replays with the flagged window skipped, at most
+  ``zoo.train.max_rollbacks`` times a fit (``TrainingDiverged`` after);
+  an active sentinel turns ``device_cache`` off;
+* **checkpoints** (``utils/checkpoint.py``, the JAX on-disk format) on
+  the ``set_checkpoint`` trigger (``EveryEpoch`` by default), written
+  off the step path; ``fit`` resumes from the newest snapshot that
+  verifies; a failed step retries from it, at most
+  ``zoo.failure.retry_times`` times in ``zoo.failure.retry_window_sec``;
+  with ``zoo.checkpoint.on_sigterm`` a SIGTERM cuts a final synchronous
+  snapshot at the next step boundary and raises ``TrainingPreempted``
+  (``zoo.checkpoint.sigterm_grace_s``: a mid-epoch snapshot at once when
+  the next boundary is further off than the budget);
+* the ``zoo_train_*`` step-time, throughput, step, example, anomaly,
+  skip, rollback and clip metrics in the process registry, and the fit's
+  goodput ledger (``zoo.goodput.enabled``).
 
 Training noise: each step draws from a generator seeded from
 ``(zoo.seed, iteration)``, the counterpart of ``fold_in(base_rng,
@@ -44,30 +75,81 @@ use (the full-logits oracle). The sharded-embedding resolution
 loop too; on the port's one device it declines. Integer inputs (ids)
 stay integer from the ``FeatureSet`` to the model.
 
-Not ported yet, with their seams left where the JAX loop has them:
-anomaly sentinels and gradient clipping in the step, checkpoints and
-resume, retry on failure, SIGTERM snapshots, goodput accounting, remat
-and the sequence/pipeline scopes.
+Not ported yet: the TensorBoard sink, remat, and the elastic re-mesh
+restore (the port drives one device and writes the JAX package's
+one-device mesh block).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+import signal
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ....common import anomaly, faults
 from ....common.context import get_zoo_context, train_dispatch
 from ....common.noise import step_seed
+from ....common.reliability import RetryBudget
+from ....common.triggers import (EveryEpoch, SeveralIteration,
+                                 TrainLoopState, Trigger)
 from ....feature.feature_set import FeatureSet, chunked
-from ....observability import default_registry
+from ....observability import default_registry, span
+from ....utils.checkpoint import (MESH_ONE_DEVICE,
+                                  CheckpointArchitectureError,
+                                  CheckpointManager)
 from . import dispatch, objectives
+from .engine import load_param_tree
 from .metrics import Metric
-from .optimizers import GradientTransformation, apply_updates, scalar_rows
+from .optimizers import (GradientTransformation, apply_updates,
+                         load_optax_leaves, optax_leaves, scalar_rows)
 
 log = logging.getLogger("analytics_zoo_tpu_torch")
+
+#: the manifest meta of a snapshot whose optimizer state has no optax
+#: layout (``multi_optimizer``): its leaves are the port's own order
+OPT_STATE_ORDER = ("opt_state_order", "analytics_zoo_tpu_torch")
+
+
+class TrainingPreempted(SystemExit):
+    """Raised out of ``fit`` after a SIGTERM-requested final checkpoint
+    (``zoo.checkpoint.on_sigterm``): the snapshot is on disk, in-memory
+    model state is published, and the process should now exit — a
+    ``SystemExit`` subclass so it escapes the step-failure retry loop and
+    terminates cleanly."""
+
+
+class TrainingDiverged(RuntimeError):
+    """The anomaly sentinels (``zoo.train.sentinel=recover``) could not
+    contain a divergence: either skip-then-rollback recovery exhausted
+    its ``zoo.train.max_rollbacks`` budget, or escalation was required
+    with no checkpoint to roll back to. Raised INSTEAD of looping
+    forever or silently training on garbage — the params published on
+    the model are the last known-good (restored) state."""
+
+
+class _RollbackRequested(RuntimeError):
+    """Internal escalation signal: more than
+    ``zoo.train.max_skips_per_epoch`` updates were discarded in one
+    epoch — reload the last good checkpoint and replay with the
+    offending data window skipped. Handled by ``_fit_with_retry``
+    under the rollback :class:`RetryBudget`; never escapes ``fit``."""
+
+    def __init__(self, skips: int, epoch: int):
+        super().__init__(
+            f"{skips} anomalous step(s) skipped in epoch {epoch} "
+            f"(zoo.train.max_skips_per_epoch exceeded)")
+        self.skips = skips
+        self.epoch = epoch
+
+
+#: the "no fault" train.grads input, shared by every healthy dispatch
+_NO_FAULT = np.zeros(2, np.float32)
 
 
 def _as_list(x):
@@ -126,6 +208,161 @@ def step_generator(seed: int, iteration: int) -> torch.Generator:
     return torch.Generator().manual_seed(step_seed(seed, iteration))
 
 
+def _fired_within(trigger: Optional[Trigger], state: TrainLoopState,
+                  prev_iter: int) -> bool:
+    """Whether a trigger fired at any step in ``(prev_iter,
+    state.iteration]``: multi-step dispatches are observed at their
+    boundaries, so an interval trigger is checked over the whole window
+    (acted on at the boundary, up to the window's length late)."""
+    if trigger is None:
+        return False
+    if isinstance(trigger, SeveralIteration):
+        return (state.iteration // trigger.interval
+                > prev_iter // trigger.interval)
+    return trigger(state)
+
+
+def _param_tree(named: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"a.b": x}`` → ``{"a": {"b": x}}``: the JAX param tree's
+    nesting, whose sorted flatten order a snapshot's leaves follow."""
+    tree: Dict[str, Any] = {}
+    for name, value in named.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def tree_module(model) -> torch.nn.Module:
+    """The module whose parameter paths spell the JAX param tree: a
+    ZooModel's inner network (the JAX model's tree is its network's), else
+    the model itself."""
+    inner = getattr(model, "model", None)
+    if hasattr(model, "build_model") and isinstance(inner, torch.nn.Module):
+        return inner
+    return model
+
+
+def _shape_of(t: torch.Tensor) -> np.ndarray:
+    """A zero-byte host stand-in of ``t``'s shape (a restore template)."""
+    return np.broadcast_to(np.zeros((), np.float32), tuple(t.shape))
+
+
+def _clone_tree(tree):
+    """Device copies of every tensor of a state (dicts and lists)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+class _SentinelMonitor:
+    """Host-side bookkeeping for the packed per-step sentinel flags
+    (``common/anomaly.py``; one int32 per step), the JAX loop's monitor:
+    counters, ``train.anomaly`` events, the per-epoch skip budget and the
+    rollback replay set. The flags are read once an epoch, with the step
+    losses, and the budget is checked after each dispatch's words in
+    dispatch order. The JAX monitor reads each dispatch's flags four
+    dispatches late, so where the budget runs out before an epoch's last
+    four dispatches it escalates before running them, and the port runs
+    them first (their steps are discarded by the rollback either way;
+    their ``train.grads`` site calls are made)."""
+
+    def __init__(self, loop: "TrainingLoop", cfg: anomaly.SentinelConfig):
+        self.loop = loop
+        self.cfg = cfg
+        self.pending: collections.deque = collections.deque()
+        self.epoch = 0
+        self.epoch_start = 0                # iteration at epoch start
+        self.epoch_skips = 0
+        self.epoch_flags: List[int] = []    # one per recorded loss
+        self.epoch_step_iters: List[int] = []   # global iter per loss
+
+    def begin_epoch(self, epoch: int, start_iter: int) -> None:
+        self.pending.clear()
+        self.epoch = epoch
+        self.epoch_start = start_iter
+        self.epoch_skips = 0
+        self.epoch_flags = []
+        self.epoch_step_iters = []
+
+    def step_key(self, it: int):
+        """Replay-stable identity of a dispatched step: (epoch, ordinal
+        within the epoch) — the batch order per epoch is deterministic,
+        global iterations shift after a mid-epoch restore."""
+        return (self.epoch, it - self.epoch_start)
+
+    def push(self, first_iter: int, k: int) -> None:
+        """One dispatch of ``k`` steps (its flags come with the read)."""
+        self.epoch_step_iters.extend(range(first_iter, first_iter + k))
+        self.pending.append((first_iter, k))
+
+    def note_replay_skip(self, k: int) -> None:
+        """``k`` steps of a rollback replay were not re-dispatched (the
+        offending data window) — counted as skipped, no loss recorded."""
+        self.loop._m_skipped.inc(k)
+
+    def drain(self, words: np.ndarray) -> None:
+        """The epoch's flag words, in dispatch order, against the pushes;
+        raises :class:`_RollbackRequested` past the skip budget."""
+        at = 0
+        while self.pending:
+            first_iter, k = self.pending.popleft()
+            self._observe(first_iter, words[at:at + k])
+            at += k
+
+    def _observe(self, first_iter: int, words) -> None:
+        loop = self.loop
+        for j, word in enumerate(words):
+            f = int(word)
+            self.epoch_flags.append(f)
+            if f & anomaly.GRAD_CLIPPED:
+                loop._m_clip.inc()
+            kinds = anomaly.kinds_of(f)
+            if not kinds:
+                continue
+            it = first_iter + j
+            for kind in kinds:
+                loop._m_anomaly[kind].inc()
+            loop._registry.emit(
+                "train.anomaly", iteration=it, epoch=self.epoch,
+                kinds=",".join(kinds), mode=self.cfg.mode,
+                action="skip" if self.cfg.mode == "recover" else "warn")
+            if self.cfg.mode == "recover":
+                loop._m_skipped.inc()
+                loop._anomalous_steps.add(self.step_key(it))
+                self.epoch_skips += 1
+                log.warning(
+                    "anomalous step at iteration %d (%s): update "
+                    "discarded (%d/%d skips this epoch)", it,
+                    ",".join(kinds), self.epoch_skips,
+                    self.cfg.max_skips_per_epoch)
+            else:
+                log.warning(
+                    "anomalous step at iteration %d (%s) — "
+                    "zoo.train.sentinel=warn: update APPLIED", it,
+                    ",".join(kinds))
+        if (self.cfg.mode == "recover"
+                and self.epoch_skips > self.cfg.max_skips_per_epoch):
+            raise _RollbackRequested(self.epoch_skips, self.epoch)
+
+    def loss_mask(self, n: int) -> np.ndarray:
+        """Valid-loss mask over this epoch's ``n`` recorded losses: in
+        recover mode an anomalous step's loss was never applied and is
+        left out of the epoch mean."""
+        mask = np.ones(n, bool)
+        if self.cfg.mode == "recover":
+            for i, f in enumerate(self.epoch_flags[:n]):
+                if f & anomaly.ANOMALY_MASK:
+                    mask[i] = False
+        return mask
+
+
 class TrainingLoop:
     """Owns the step of one (model, optimizer, loss, metrics) triple."""
 
@@ -158,6 +395,59 @@ class TrainingLoop:
         self._noise_gen: Optional[torch.Generator] = None
         self._data = None      # (key, fs, dispatch.DeviceData): the latest set
         self._program = None   # (key, dispatch.StepProgram)
+        # durable checkpointing: the manager of the fit attempt in flight
+        # (its async writer is joined by _close_active_ckpt_mgr), the
+        # published state a retry falls back to, and the SIGTERM latch
+        self._active_ckpt_mgr: Optional[CheckpointManager] = None
+        self._published = None     # (tensor copies, count)
+        self._preempted = threading.Event()
+        # SIGTERM grace budget (zoo.checkpoint.sigterm_grace_s): the
+        # in-flight dispatch segment's start stamp + EWMA duration
+        # estimate, and — only when the estimate already exceeds the
+        # budget — a copy of the last boundary state the handler cuts a
+        # mid-epoch snapshot from
+        self._sigterm_grace: Optional[float] = None
+        self._segment_t0: Optional[float] = None
+        self._segment_est: Optional[float] = None
+        self._segment_count = 0     # loop-lifetime; first sample discarded
+        self._boundary_ref = None
+        # anomaly sentinels: resolved once per loop; the guarded step's
+        # device state made once per loop; the per-fit recovery state
+        # (flagged steps, rollback budget) reset at each fit() entry
+        self._sentinel: Optional[anomaly.SentinelConfig] = None
+        self._guard: Optional[dispatch.Guard] = None
+        # kind iterates anomaly.KIND_BITS — a 3-entry module constant
+        self._m_anomaly = {
+            kind: self._registry.counter(  # zoolint: disable=ZL015 bounded label set
+                "zoo_train_anomaly_total",
+                "anomalous training steps detected by the sentinels, by "
+                "kind (zoo.train.sentinel)", labels={"kind": kind})
+            for _bit, kind in anomaly.KIND_BITS}
+        self._m_skipped = self._registry.counter(
+            "zoo_train_skipped_steps_total",
+            "optimizer steps whose update was discarded (sentinel skip) "
+            "or not re-dispatched on rollback replay")
+        self._m_rollback = self._registry.counter(
+            "zoo_train_rollback_total",
+            "skip-budget escalations that reloaded the last good "
+            "checkpoint and replayed past the offending window")
+        self._m_clip = self._registry.counter(
+            "zoo_train_grad_clip_engaged_total",
+            "steps where zoo.train.grad_clip global-norm clipping "
+            "actually rescaled the gradients")
+        self._anomalous_steps: set = set()   # {(epoch, ordinal)} flagged
+        self._rollback_budget: Optional[RetryBudget] = None
+        self._rollback_pending = False
+        # goodput/badput attribution: one ledger per fit
+        self._goodput = None
+        self._gp_restarting = False   # a retry attempt's resume pending
+
+    # -- goodput attribution ------------------------------------------------
+    def _gp_note(self, category: str) -> None:
+        """Attribute wall clock since the ledger's mark to ``category``
+        (no-op outside an accounted fit)."""
+        if self._goodput is not None:
+            self._goodput.note(category)
 
     # -- model plumbing -----------------------------------------------------
     def _ensure_weights(self) -> None:
@@ -170,6 +460,10 @@ class TrainingLoop:
     def _params(self) -> Dict[str, torch.Tensor]:
         return {n: p for n, p in self.model.named_parameters()
                 if p.requires_grad}
+
+    def _tree_params(self) -> Dict[str, torch.Tensor]:
+        """Every parameter under its JAX param-tree path (dotted)."""
+        return dict(tree_module(self.model).named_parameters())
 
     def _opt_state(self, params):
         """``{"count", "state"}``: the model's optimizer state and update
@@ -234,13 +528,29 @@ class TrainingLoop:
         self._apply_loss = apply_loss
         return apply_loss
 
-    def train_step(self, x, y, generator: Optional[torch.Generator],
-                   params: Dict[str, torch.Tensor], opt_state,
-                   scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Forward, loss, backward, optimizer update (the JAX plain step):
-        the step every dispatch path runs. ``opt_state`` is the
-        optimizer's state, ``scalars`` the step's row of its per-step
-        values. Returns the loss as a device scalar; nothing syncs."""
+    def _sentinel_config(self) -> anomaly.SentinelConfig:
+        """Resolve the anomaly-sentinel/grad-clip knobs ONCE per loop:
+        every step of a loop must agree, and with ``sentinel=off`` and no
+        clipping the loop runs the plain step exactly — no sentinel op,
+        the same bits."""
+        if self._sentinel is None:
+            self._sentinel = anomaly.resolve_config()
+            cfg = self._sentinel
+            if cfg.sentinel:
+                log.info(
+                    "anomaly sentinels armed (zoo.train.sentinel=%s): "
+                    "nan-loss/nan-grad checks + grad-norm spike at %gx "
+                    "EWMA%s%s", cfg.mode, cfg.spike_factor,
+                    "; updates from anomalous steps are DISCARDED, "
+                    "escalating to checkpoint rollback past "
+                    f"{cfg.max_skips_per_epoch} skips/epoch"
+                    if cfg.mode == "recover" else "",
+                    "; train.grads fault injection in the step"
+                    if cfg.faults else "")
+        return self._sentinel
+
+    def _grads(self, x, y, generator, params):
+        """Forward, loss and backward: ``(loss, {name: grad})``."""
         for p in params.values():
             p.grad = None
         loss = self._loss_application()(x, y, generator)
@@ -249,10 +559,75 @@ class TrainingLoop:
                  for n, p in params.items()}
         for p in params.values():
             p.grad = None
+        return loss.detach(), grads
+
+    def train_step(self, x, y, generator: Optional[torch.Generator],
+                   params: Dict[str, torch.Tensor], opt_state,
+                   scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Forward, loss, backward, optimizer update (the JAX plain step):
+        the step every dispatch path runs with the sentinel off and no
+        clipping. ``opt_state`` is the optimizer's state, ``scalars`` the
+        step's row of its per-step values. Returns the loss as a device
+        scalar; nothing syncs."""
+        loss, grads = self._grads(x, y, generator, params)
         updates, _ = self.optimizer.update(grads, opt_state, params,
                                            scalars)
         apply_updates(params, updates)
-        return loss.detach()
+        return loss
+
+    def guarded_step(self, x, y, generator: Optional[torch.Generator],
+                     params: Dict[str, torch.Tensor], opt_state,
+                     table: Optional[torch.Tensor], base: torch.Tensor,
+                     fault: Optional[torch.Tensor] = None):
+        """The JAX guarded step: :meth:`train_step` with, on the device,
+        the ``train.grads`` poison (``fault``, ``[code, scale]``, when the
+        loop's sentinel takes faults), the global gradient norm, the
+        sentinel's flag word and EWMA update, the global-norm clip, and in
+        ``recover`` mode the discard of an anomalous step's update. The
+        step's per-step values are row ``count - base`` of ``table`` (the
+        guard's device count). Returns ``(loss, flags)``, device scalars;
+        nothing syncs."""
+        guard = self._guard
+        cfg = guard.cfg
+        loss, grads = self._grads(x, y, generator, params)
+        gl = list(grads.values())
+        if cfg.faults:
+            loss = anomaly.inject_grads(loss, gl, fault[0], fault[1])
+        gnorm = anomaly.global_norm(gl)
+        if cfg.sentinel:
+            flags, (ewma, obs) = anomaly.check(
+                loss, gnorm, (guard.ewma, guard.obs), cfg.spike_factor)
+            guard.ewma.copy_(ewma)
+            guard.obs.copy_(obs)
+        else:
+            flags = torch.zeros((), dtype=torch.int32, device=loss.device)
+        if cfg.grad_clip > 0:
+            engaged = anomaly.clip_by_global_norm(gl, gnorm, cfg.grad_clip)
+            flags = flags | engaged.to(torch.int32) * anomaly.GRAD_CLIPPED
+        row = (None if table is None or table.shape[-1] == 0
+               else table.index_select(0, (guard.count - base).view(1))[0])
+        recover = cfg.mode == "recover"
+        with torch.no_grad():
+            if recover:
+                state = (list(params.values())
+                         + dispatch._leaves(opt_state))
+                guard.keep(state)
+            updates, _ = self.optimizer.update(grads, opt_state, params,
+                                               row)
+            apply_updates(params, updates)
+            if recover:
+                bad = (flags & anomaly.ANOMALY_MASK) > 0
+                guard.commit(state, bad)
+                guard.count.add_((~bad).to(torch.int64))
+            else:
+                guard.count.add_(1)
+        return loss, flags
+
+    def _guard_state(self, device: torch.device) -> dispatch.Guard:
+        if self._guard is None or self._guard.device != device:
+            self._guard = dispatch.Guard(self._sentinel_config(), device)
+            self._program = None
+        return self._guard
 
     def _noise(self, seed: int, iteration: int, device: torch.device):
         """The eager step's generator: a CPU one on the CPU; on CUDA the
@@ -263,64 +638,676 @@ class TrainingLoop:
             self._noise_gen = torch.Generator(device=device)
         return self._noise_gen.manual_seed(step_seed(seed, iteration))
 
+    def _fault_input(self) -> np.ndarray:
+        """Host-side ``train.grads`` fault scheduling: one site call per
+        dispatched optimizer step. Returns the ``[code, scale]`` pair the
+        step consumes (``anomaly.inject_grads``) — zeros unless an active
+        plan fires a nan_loss/nan_grad/spike spec at this call index."""
+        spec = faults.inject("train.grads")
+        if spec is None:
+            return _NO_FAULT
+        code = anomaly.FAULT_CODES.get(spec.kind)
+        if code is None:        # e.g. a latency spec: already applied
+            return _NO_FAULT
+        return np.asarray([code, spec.scale], np.float32)
+
+    # -- checkpoint plumbing ------------------------------------------------
+    def _ckpt_manager(self) -> Optional[CheckpointManager]:
+        spec = getattr(self.model, "_checkpoint", None)
+        if spec is None:
+            return None
+        ctx = get_zoo_context()
+        keep = spec.get("keep")
+        if keep is None:  # keep=0 means keep-all, so no falsy check
+            keep = int(ctx.get("zoo.checkpoint.keep", 3))
+        return CheckpointManager(spec["path"], keep=keep,
+                                 registry=self._registry,
+                                 ledger=self._goodput)
+
+    def _ckpt_trigger(self) -> Trigger:
+        spec = getattr(self.model, "_checkpoint", None) or {}
+        return spec.get("trigger") or EveryEpoch()
+
+    def _count_now(self, opt) -> int:
+        """The optimizer count as the device has it: with the sentinel
+        active a discarded step did not advance it (a read of the
+        device); else the host's."""
+        if self._guard is not None and self._sentinel_config().active:
+            return int(self._guard.count)
+        return int(opt["count"])
+
+    def _checkpoint_trees(self, named: Dict[str, torch.Tensor], opt_state,
+                          count: int):
+        """``(trees, meta)`` of a snapshot in the JAX format: the param tree
+        (nested dicts), the optimizer state as optax's leaves (the port's
+        own order, said so in ``meta``, when it has no optax layout) and
+        an empty net state."""
+        names = list(self._params())
+        opt_leaves = optax_leaves(self.optimizer, opt_state, count, names)
+        meta = {}
+        if opt_leaves is None:
+            opt_leaves = ([np.int64(count)]
+                          + dispatch._leaves(opt_state))
+            meta[OPT_STATE_ORDER[0]] = OPT_STATE_ORDER[1]
+        return ({"params": _param_tree(named), "opt_state": opt_leaves,
+                 "net_state": {}}, meta)
+
+    def _save_checkpoint(self, mgr: CheckpointManager, loop_state, params,
+                         opt, sync: bool = False) -> None:
+        """Cut a snapshot. Async by default: the step path pays one
+        batched device-to-host copy and the serialization/commit rides the
+        manager's writer thread; ``sync=True`` (the SIGTERM path) blocks
+        until committed."""
+        trees, extra = self._checkpoint_trees(
+            self._tree_params(), opt["state"], self._count_now(opt))
+        mgr.save(loop_state.iteration, trees,
+                 meta={"epoch": loop_state.epoch,
+                       "iteration": loop_state.iteration,
+                       "epoch_finished": loop_state.epoch_finished,
+                       **extra},
+                 sync=sync, mesh=MESH_ONE_DEVICE)
+
+    def _close_active_ckpt_mgr(self, surface: bool) -> None:
+        """Join the active manager's in-flight save. ``surface=True``
+        re-raises a background save failure (the end-of-fit surfacing
+        point); ``surface=False`` is exception-path cleanup."""
+        mgr, self._active_ckpt_mgr = self._active_ckpt_mgr, None
+        if mgr is not None:
+            mgr.close(raise_pending=surface)
+
+    def _try_resume(self, mgr: CheckpointManager, params, opt,
+                    allow_regress: bool = False):
+        """Restore the newest VALID snapshot into the live parameter and
+        optimizer tensors, in place (a captured step keeps reading them):
+        a corrupt or uncommitted snapshot is quarantined and the restore
+        falls back to the next one that verifies. Returns the snapshot's
+        meta, or None when nothing at or past the model's progress
+        verifies (``allow_regress``, the rollback path, may go back past
+        it). A snapshot of the JAX package restores here: the same leaves
+        in the same order."""
+        named = self._tree_params()
+        count = int(opt["count"])
+        templates, extra = self._checkpoint_trees(
+            {n: _shape_of(p) for n, p in named.items()}, opt["state"],
+            count)
+        templates["opt_state"] = [
+            t if not isinstance(t, torch.Tensor) else _shape_of(t)
+            for t in templates["opt_state"]]
+        out = mgr.restore_latest(
+            templates,
+            min_step=None if allow_regress
+            else self.model.finished_iterations)
+        if out is None:
+            return None
+        step, trees, meta = out
+        port_order = meta.get(OPT_STATE_ORDER[0]) == OPT_STATE_ORDER[1]
+        if port_order != bool(extra):
+            raise CheckpointArchitectureError(
+                f"ckpt-{step}: its optimizer state is in "
+                f"{'this package' if port_order else 'optax'}'s leaf "
+                f"order, and this loop's optimizer "
+                f"{'has no optax layout' if extra else 'reads optax order'}"
+                f" — a snapshot of an optimizer without an optax layout "
+                f"restores only in the package that wrote it, under the "
+                f"same optimizer")
+        load_param_tree(tree_module(self.model), trees["params"])
+        with torch.no_grad():
+            leaves = trees["opt_state"]
+            if extra:
+                restored = int(np.asarray(leaves[0]))
+                for t, a in zip(dispatch._leaves(opt["state"]), leaves[1:]):
+                    t.copy_(torch.as_tensor(np.asarray(a)))
+            else:
+                restored = load_optax_leaves(
+                    self.optimizer, opt["state"], leaves, list(params))
+        opt["count"] = (restored if restored is not None
+                        else int(meta.get("iteration", count)))
+        log.info("resumed from checkpoint ckpt-%d (epoch %s)", step,
+                 meta.get("epoch"))
+        return meta
+
+    def _state_tensors(self, params, opt) -> List[torch.Tensor]:
+        return list(params.values()) + dispatch._leaves(opt["state"])
+
+    def _publish(self, params, opt, fresh: bool = False) -> None:
+        """Keep a device copy of the live state as the model's published
+        state — what a retry falls back to when no snapshot at or past
+        the model's progress verifies (the JAX loop's per-epoch
+        ``model.params`` clone)."""
+        state = self._state_tensors(params, opt)
+        if fresh or self._published is None:
+            with torch.no_grad():
+                copies = [t.detach().clone() for t in state]
+        else:
+            copies = self._published[0]
+            torch._foreach_copy_(copies, state)
+        self._published = (copies, int(opt["count"]))
+
+    def _restore_published(self, params, opt) -> None:
+        if self._published is None:
+            return
+        copies, count = self._published
+        with torch.no_grad():
+            torch._foreach_copy_(self._state_tensors(params, opt), copies)
+        opt["count"] = count
+
+    # -- SIGTERM ------------------------------------------------------------
+    def _maybe_preempt(self, mgr, loop_state, params, opt) -> None:
+        """SIGTERM arrived (``zoo.checkpoint.on_sigterm``): cut one final
+        SYNCHRONOUS checkpoint at this step boundary, publish in-memory
+        state, and exit cleanly via :class:`TrainingPreempted`."""
+        if mgr is None or not self._preempted.is_set():
+            return
+        log.warning("SIGTERM: cutting a final synchronous checkpoint at "
+                    "iteration %d before exiting", loop_state.iteration)
+        try:
+            self._save_checkpoint(mgr, loop_state, params, opt, sync=True)
+        except Exception:
+            # the process is going down either way; the newest previous
+            # snapshot (already committed) remains the resume point
+            log.exception("final preemption checkpoint failed")
+        opt["count"] = self._count_now(opt)
+        self.model.finished_iterations = loop_state.iteration
+        raise TrainingPreempted(
+            f"training preempted by SIGTERM; final checkpoint cut at "
+            f"iteration {loop_state.iteration}")
+
+    def _on_sigterm(self, signum, frame) -> None:
+        grace = self._sigterm_grace
+        if grace is not None:
+            self._try_grace_cut(grace)      # raises when it cuts
+        log.warning("SIGTERM received; requesting a final checkpoint at "
+                    "the next step boundary")
+        self._preempted.set()
+
+    def _segment_begin(self, mgr, loop_state, params, opt) -> None:
+        """A dispatch segment is about to run. When the running duration
+        estimate already exceeds the grace budget, copy the boundary
+        state NOW — the handler cuts its mid-epoch snapshot from it; a
+        segment estimated to finish within the budget skips the copy."""
+        if self._sigterm_grace is None or mgr is None:
+            return
+        est = self._segment_est
+        if est is not None and est > self._sigterm_grace:
+            self._boundary_ref = (
+                mgr, loop_state.iteration, loop_state.epoch,
+                loop_state.epoch_finished,
+                {n: p.detach().clone()
+                 for n, p in self._tree_params().items()},
+                _clone_tree(opt["state"]), self._count_now(opt), params,
+                opt)
+        else:
+            self._boundary_ref = None
+        self._segment_t0 = time.monotonic()
+
+    def _segment_end(self) -> None:
+        """Fold the finished segment's wall time into the EWMA estimate;
+        the loop's first segment (its compile or capture) is left out."""
+        if self._sigterm_grace is None:
+            return
+        t0 = self._segment_t0
+        self._segment_t0 = None
+        self._boundary_ref = None
+        if t0 is None:
+            return
+        self._segment_count += 1
+        if self._segment_count == 1:
+            return                      # compile-contaminated sample
+        dur = time.monotonic() - t0
+        est = self._segment_est
+        self._segment_est = dur if est is None else 0.5 * est + 0.5 * dur
+
+    def _try_grace_cut(self, grace: float) -> None:
+        """SIGTERM-handler path: when the estimated time to the next step
+        boundary exceeds the grace budget, cut one synchronous snapshot of
+        the LAST boundary's state immediately — mid-epoch — publish it and
+        exit via :class:`TrainingPreempted`. No estimate, no boundary
+        copy, or a near boundary → return and let the next-boundary path
+        run."""
+        t0, est, ref = self._segment_t0, self._segment_est, \
+            self._boundary_ref
+        if t0 is None or est is None or ref is None:
+            return
+        eta = est - (time.monotonic() - t0)
+        if eta <= grace:
+            return
+        # de-arm BEFORE the synchronous save: a re-sent SIGTERM must fall
+        # through to the boundary-latch path
+        self._boundary_ref = None
+        self._segment_t0 = None
+        (mgr, iteration, epoch, epoch_finished, named, opt_state, count,
+         params, opt) = ref
+        log.warning("SIGTERM: estimated %.2fs to the next step boundary "
+                    "exceeds the %.2fs grace budget; cutting a mid-epoch "
+                    "snapshot at iteration %d now", eta, grace, iteration)
+        trees, extra = self._checkpoint_trees(named, opt_state, count)
+        try:
+            mgr.save(iteration, trees,
+                     meta={"epoch": epoch, "iteration": iteration,
+                           "epoch_finished": epoch_finished, **extra},
+                     sync=True, mesh=MESH_ONE_DEVICE)
+        except Exception:
+            log.exception("grace-budget preemption checkpoint failed")
+        live = self._tree_params()
+        with torch.no_grad():
+            for n, t in named.items():
+                live[n].copy_(t)
+            torch._foreach_copy_(dispatch._leaves(opt["state"]),
+                                 dispatch._leaves(opt_state))
+        opt["count"] = count
+        self.model.finished_iterations = iteration
+        raise TrainingPreempted(
+            f"training preempted by SIGTERM; grace budget {grace:g}s is "
+            f"shorter than the ~{eta:.2f}s to the next step boundary — "
+            f"mid-epoch checkpoint cut at iteration {iteration}")
+
     # -- fit ------------------------------------------------------------------
     def fit(self, x, y, *, batch_size: int, nb_epoch: int,
             validation_data=None, shuffle: bool = True,
             callbacks: Sequence[Callable[[Dict[str, Any]], None]] = (),
+            end_trigger: Optional[Trigger] = None,
             ) -> Dict[str, List[float]]:
         fs = FeatureSet.array(x, y, shuffle=shuffle,
                               seed=get_zoo_context().seed)
         return self.fit_feature_set(fs, batch_size=batch_size,
                                     nb_epoch=nb_epoch,
                                     validation_data=validation_data,
-                                    callbacks=callbacks)
+                                    callbacks=callbacks,
+                                    end_trigger=end_trigger)
 
     def fit_feature_set(self, fs: FeatureSet, *, batch_size: int,
                         nb_epoch: int, validation_data=None,
                         callbacks: Sequence[Callable] = (),
+                        end_trigger: Optional[Trigger] = None,
                         ) -> Dict[str, List[float]]:
+        """Train on a FeatureSet with retry-on-failure semantics: a step
+        failure reloads the latest checkpoint (when ``set_checkpoint`` is
+        configured) and retries, at most ``zoo.failure.retry_times``
+        times per ``zoo.failure.retry_window_sec`` window."""
         if fs.y is None:
             raise ValueError("fit needs labels")
         ctx = get_zoo_context()
+        retry_times = int(ctx.get("zoo.failure.retry_times", 5))
+        window_sec = float(ctx.get("zoo.failure.retry_window_sec", 3600))
+        # per-fit self-healing state (zoo.train.sentinel=recover): the
+        # flagged-step set survives rollback attempts within this fit,
+        # and the rollback RetryBudget bounds escalations
+        sen = self._sentinel_config()
+        self._anomalous_steps = set()
+        self._rollback_pending = False
+        self._gp_restarting = False
+        self._rollback_budget = (
+            RetryBudget(capacity=sen.max_rollbacks, deposit=0.0,
+                        name="train.rollback", registry=self._registry)
+            if sen.mode == "recover" else None)
+        # the epoch target is fixed once, after any checkpoint resume
+        # inside the first attempt — retries must not extend it
+        target_holder: Dict[str, int] = {}
+        # preemption-safe shutdown (zoo.checkpoint.on_sigterm, opt-in);
+        # signal handlers only install on the main thread
+        self._preempted.clear()
+        sig_installed = False
+        prev_handler = None
+        self._sigterm_grace = None
+        self._segment_t0 = self._segment_est = None
+        self._boundary_ref = None
+        if (bool(ctx.get("zoo.checkpoint.on_sigterm", False))
+                and getattr(self.model, "_checkpoint", None) is not None):
+            if threading.current_thread() is threading.main_thread():
+                prev_handler = signal.signal(signal.SIGTERM,
+                                             self._on_sigterm)
+                sig_installed = True
+                grace = float(ctx.get("zoo.checkpoint.sigterm_grace_s", 0)
+                              or 0)
+                self._sigterm_grace = grace if grace > 0 else None
+            else:
+                log.warning("zoo.checkpoint.on_sigterm is set but fit() "
+                            "is not on the main thread; SIGTERM "
+                            "checkpointing disabled for this fit")
+        # goodput/badput ledger for this fit (zoo.goodput.enabled)
+        from ....observability.goodput import GoodputLedger, goodput_enabled
+        self._goodput = (GoodputLedger("train", registry=self._registry)
+                         if goodput_enabled() else None)
+        if self._goodput is not None:
+            self._goodput.open()
+        try:
+            with span("train.fit", registry=self._registry):
+                return self._fit_with_retry(
+                    fs, batch_size=batch_size, nb_epoch=nb_epoch,
+                    target_holder=target_holder,
+                    validation_data=validation_data, callbacks=callbacks,
+                    end_trigger=end_trigger, retry_times=retry_times,
+                    window_sec=window_sec)
+        finally:
+            # close the ledger's last open interval — teardown is idle
+            self._gp_note("idle")
+            self._boundary_ref = None
+            self._segment_t0 = None
+            self._published = None
+            if sig_installed:
+                signal.signal(signal.SIGTERM,
+                              prev_handler if prev_handler is not None
+                              else signal.SIG_DFL)
+
+    def _fit_with_retry(self, fs, *, batch_size, nb_epoch, target_holder,
+                        validation_data, callbacks, end_trigger,
+                        retry_times, window_sec):
+        attempts = 0
+        window_start = time.time()
+        first = True
+        while True:
+            try:
+                history = self._fit_impl(
+                    fs, batch_size=batch_size, nb_epoch=nb_epoch,
+                    target_holder=target_holder,
+                    validation_data=validation_data, callbacks=callbacks,
+                    end_trigger=end_trigger, first=first)
+                # end-of-fit join of the async checkpoint writer: a
+                # background save failure surfaces HERE (and is re-cut
+                # through the retry path below)
+                self._close_active_ckpt_mgr(surface=True)
+                return history
+            except KeyboardInterrupt:
+                self._close_active_ckpt_mgr(surface=False)
+                raise
+            except _RollbackRequested as rb:
+                self._close_active_ckpt_mgr(surface=False)
+                mgr = self._ckpt_manager()
+                if mgr is None or mgr.latest() is None:
+                    self._restore_published_on_exit()
+                    raise TrainingDiverged(
+                        f"{rb} — and no checkpoint is configured/"
+                        f"committed to roll back to "
+                        f"(model.set_checkpoint enables recovery)") from rb
+                budget = self._rollback_budget
+                if budget is None or not budget.withdraw():
+                    self._restore_published_on_exit()
+                    raise TrainingDiverged(
+                        f"{rb} — rollback budget exhausted "
+                        f"(zoo.train.max_rollbacks); the model holds the "
+                        f"last known-good state") from rb
+                self._gp_note("rollback_replay")
+                self._m_rollback.inc()
+                self._registry.emit("train.rollback", epoch=rb.epoch,
+                                    skips=rb.skips,
+                                    restore_step=mgr.latest(),
+                                    skipped_iters=len(self._anomalous_steps))
+                log.warning(
+                    "training diverging (%s); rolling back to ckpt-%s and "
+                    "replaying with %d flagged step(s) skipped", rb,
+                    mgr.latest(), len(self._anomalous_steps))
+                self._rollback_pending = True
+            except (ValueError, TypeError):
+                # user/config errors are not transient
+                self._close_active_ckpt_mgr(surface=False)
+                raise
+            except Exception:
+                self._close_active_ckpt_mgr(surface=False)
+                mgr = self._ckpt_manager()
+                if mgr is None or mgr.latest() is None:
+                    raise  # nothing to recover from
+                if time.time() - window_start > window_sec:
+                    attempts = 0
+                    window_start = time.time()
+                attempts += 1
+                if attempts > retry_times:
+                    log.exception("giving up after %d failed attempts",
+                                  attempts)
+                    raise
+                log.warning("training step failed (attempt %d/%d); reloading "
+                            "latest checkpoint and retrying", attempts,
+                            retry_times, exc_info=True)
+                self._gp_note("restart")
+                self._gp_restarting = True
+            except BaseException:
+                # TrainingPreempted (SystemExit): the final sync snapshot is
+                # already committed — just release the writer and exit
+                self._close_active_ckpt_mgr(surface=False)
+                raise
+            first = False
+
+    def _restore_published_on_exit(self) -> None:
+        """A fit that gives up leaves the model at its published state."""
+        if self._published is not None:
+            params = self._params()
+            self._restore_published(params, self._opt_state(params))
+
+    def _fit_impl(self, fs: FeatureSet, *, batch_size: int, nb_epoch: int,
+                  target_holder: Dict[str, int], validation_data=None,
+                  callbacks: Sequence[Callable] = (),
+                  end_trigger: Optional[Trigger] = None,
+                  first: bool = True) -> Dict[str, List[float]]:
+        ctx = get_zoo_context()
         scan_steps, device_cache, fuse = train_dispatch()
+        sen = self._sentinel_config()
+        monitor = _SentinelMonitor(self, sen) if sen.active else None
         model = self.model
         self._ensure_weights()
         device = self._device()
         params = self._params()
         opt = self._opt_state(params)
-        # the JAX loop turns device_cache off while an anomaly sentinel is
-        # active (training.py:1650-1661); the port has no sentinel yet,
-        # and that rule goes here when it lands
+        guard = self._guard_state(device) if sen.active else None
+        if guard is not None:
+            # fresh EWMA each attempt: after a rollback the restored
+            # params' gradient scale is the baseline worth learning
+            guard.reset()
+
+        mgr = self._ckpt_manager()
+        self._active_ckpt_mgr = mgr
+        ckpt_trigger = self._ckpt_trigger()
+        if mgr is not None:
+            if first:
+                self._publish(params, opt, fresh=True)
+            else:
+                self._restore_published(params, opt)
+            rollback = self._rollback_pending
+            self._rollback_pending = False
+            meta = self._try_resume(mgr, params, opt,
+                                    allow_regress=rollback)
+            self._gp_note("rollback_replay" if rollback
+                          else "restart" if self._gp_restarting
+                          else "idle")
+            self._gp_restarting = False
+            if meta is not None and meta.get("epoch") is not None:
+                resumed_epoch = int(meta["epoch"]) - (
+                    0 if meta.get("epoch_finished") else 1)
+                if rollback or resumed_epoch > model.finished_epochs:
+                    model.finished_epochs = resumed_epoch
+                model.finished_iterations = int(meta.get(
+                    "iteration", model.finished_iterations))
+            elif rollback:
+                log.warning("rollback requested but no snapshot could be "
+                            "restored; continuing from the in-memory "
+                            "state (further anomalies will re-escalate "
+                            "within the rollback budget)")
+        if "target" not in target_holder:
+            target_holder["target"] = model.finished_epochs + nb_epoch
+        target = target_holder["target"]
+
+        if device_cache and sen.active:
+            log.warning(
+                "zoo.train.device_cache disabled for this fit: the "
+                "anomaly-sentinel/grad-clip layer is active "
+                "(zoo.train.sentinel=%s, zoo.train.grad_clip=%g); using "
+                "the streamed dispatch path", sen.mode, sen.grad_clip)
+            device_cache = False
         cached = device_cache and getattr(fs, "device_cacheable", True)
-        if cached:
-            self._device_data(fs, scan_steps, batch_size, device)
-        # epochs a block: the fused path only without validation (no
-        # checkpoint manager or end trigger is ported to need the host)
-        block = fuse if cached and validation_data is None else 1
         n_steps = fs.steps_per_epoch(batch_size, drop_last=True)
+        if cached:
+            for trig, role in ((ckpt_trigger if mgr is not None else None,
+                                "checkpoint"), (end_trigger, "end")):
+                if (isinstance(trig, SeveralIteration)
+                        and trig.interval < n_steps):
+                    log.warning(
+                        "device_cache runs one dispatch per epoch, so the %s "
+                        "trigger SeveralIteration(%d) is only observed at "
+                        "epoch boundaries (%d steps) — up to %d steps late",
+                        role, trig.interval, n_steps,
+                        n_steps - trig.interval)
+            self._device_data(fs, scan_steps, batch_size, device)
         history: Dict[str, List[float]] = {"loss": []}
         self.step_losses = []
-        epoch, target = model.finished_epochs, model.finished_epochs + nb_epoch
+        # fused blocks: only when nothing needs the host between epochs
+        if (cached and fuse > 1 and mgr is None
+                and validation_data is None and end_trigger is None):
+            return self._fused_blocks(fs, batch_size, target, fuse,
+                                      scan_steps, n_steps, params, opt,
+                                      callbacks, history)
+
+        loop_state = TrainLoopState(iteration=model.finished_iterations,
+                                    epoch=model.finished_epochs + 1)
+        stop = False
+        for epoch in range(model.finished_epochs + 1, target + 1):
+            # epoch-boundary overhead since the last step lands on idle
+            self._gp_note("idle")
+            t0 = time.time()
+            loop_state.epoch = epoch
+            # mid-epoch trigger checks must not see the previous epoch's
+            # boundary flag
+            loop_state.epoch_finished = False
+            if monitor is not None:
+                monitor.begin_epoch(epoch, loop_state.iteration)
+            rows = (scalar_rows(self.optimizer, opt["count"], n_steps,
+                                device) if n_steps else None)
+            if guard is not None:
+                guard.start_block(opt["count"])
+            if cached:
+                dispatches = self._cached_dispatches(
+                    fs, epoch, ctx.seed, loop_state.iteration, batch_size,
+                    params, opt, rows, scan_steps)
+            elif scan_steps > 1:
+                dispatches = self._chunk_dispatches(
+                    fs, epoch, ctx.seed, loop_state.iteration, batch_size,
+                    params, opt, rows, scan_steps, guard)
+            else:
+                dispatches = self._eager_dispatches(
+                    fs, epoch, ctx.seed, loop_state.iteration, batch_size,
+                    params, opt, rows, guard)
+            losses, flags = [], []
+            n_seen = 0
+            for k, run in dispatches:
+                # host batch assembly since the last dispatch
+                self._gp_note("data_wait")
+                prev_iter = loop_state.iteration
+                if (monitor is not None and self._anomalous_steps
+                        and any(monitor.step_key(prev_iter + j)
+                                in self._anomalous_steps
+                                for j in range(k))):
+                    # rollback replay: the offending data window is NOT
+                    # re-dispatched; the iteration still advances so the
+                    # noise schedule and trigger windows stay aligned
+                    loop_state.iteration += k
+                    monitor.note_replay_skip(k)
+                    self._gp_note("anomaly_skip")
+                else:
+                    self._segment_begin(mgr, loop_state, params, opt)
+                    step_l, step_f = run()
+                    self._segment_end()
+                    self._gp_note("device_step")
+                    losses.append(step_l)
+                    if monitor is not None:
+                        flags.append(step_f)
+                        monitor.push(prev_iter, k)
+                    if guard is None:
+                        opt["count"] += k
+                    loop_state.iteration += k
+                    n_seen += k * batch_size
+                if mgr is not None and _fired_within(ckpt_trigger, loop_state,
+                                                     prev_iter):
+                    self._save_checkpoint(mgr, loop_state, params, opt)
+                self._maybe_preempt(mgr, loop_state, params, opt)
+                if _fired_within(end_trigger, loop_state, prev_iter):
+                    stop = True
+                    break
+            completed = not stop  # stop=True means the epoch was cut short
+            # the epoch's one read of the device: losses (and flag words
+            # and the device count)
+            if monitor is not None:
+                parts = [torch.cat(losses).double()] if losses else []
+                parts += [torch.cat(flags).double()] if flags else []
+                host = torch.cat(parts + [guard.count.double().view(1)]
+                                 ).cpu().numpy()
+                n = sum(int(t.numel()) for t in losses)
+                lv = host[:n].astype(np.float32)
+                opt["count"] = int(host[-1])
+                # escalation may raise here, before the boundary snapshot
+                monitor.drain(host[n:2 * n].astype(np.int64))
+                lmask = monitor.loss_mask(n)
+                epoch_loss = (float(lv[lmask].mean()) if lmask.any()
+                              else float("nan"))
+            else:
+                lv = (torch.cat(losses).float().cpu().numpy() if losses
+                      else np.zeros(0, np.float32))
+                epoch_loss = float(lv.mean()) if len(lv) else float("nan")
+            dt = time.time() - t0
+            self._observe_fit_metrics(n_seen // batch_size, dt, n_seen)
+            self.step_losses.append(lv)
+            history["loss"].append(epoch_loss)
+            loop_state.epoch_finished = completed
+            if hasattr(end_trigger, "record"):
+                end_trigger.record(epoch_loss)
+            # cut a snapshot at the trigger, or unconditionally on a
+            # mid-epoch stop so the truncated epoch's progress survives
+            if mgr is not None and (stop or ckpt_trigger(loop_state)):
+                self._save_checkpoint(mgr, loop_state, params, opt)
+            # publish progress every epoch: what a retry attempt falls
+            # back to when the newest snapshot is older
+            if mgr is not None:
+                self._publish(params, opt)
+            if completed:
+                model.finished_epochs = epoch
+            model.finished_iterations = loop_state.iteration
+            record = {"epoch": epoch, "loss": epoch_loss,
+                      "iteration": loop_state.iteration,
+                      "throughput": n_seen / dt if dt > 0 else 0.0}
+            if validation_data is not None:
+                val = self._validate(validation_data, batch_size)
+                for key, v in val.items():
+                    history.setdefault("val_" + key, []).append(v)
+                record.update({"val_" + key: v for key, v in val.items()})
+            log.info("Epoch %d%s: loss=%.6f (%.1f ex/s)", epoch,
+                     "" if completed else " (stopped mid-epoch)",
+                     epoch_loss, record["throughput"])
+            for cb in callbacks:
+                cb(record)
+            # epoch_finished stays True through this boundary check:
+            # MaxEpoch must see the finished count
+            if stop or (end_trigger is not None and end_trigger(loop_state)):
+                break
+        return history
+
+    def _validate(self, validation_data, batch_size: int):
+        vx, vy = ((validation_data.x, validation_data.y)
+                  if isinstance(validation_data, FeatureSet)
+                  else validation_data)
+        return self.evaluate(vx, vy, batch_size=batch_size)
+
+    def _fused_blocks(self, fs, batch_size, target, fuse, scan_steps,
+                      n_steps, params, opt, callbacks, history):
+        """``zoo.train.fuse_epochs`` epochs a block on the device-cached
+        path, with one read of the device a block."""
+        ctx = get_zoo_context()
+        model = self.model
+        device = self._device()
+        epoch = model.finished_epochs
         while epoch < target:
-            g = min(block, target - epoch)
+            g = min(fuse, target - epoch)
             t0 = time.time()
             rows = (scalar_rows(self.optimizer, opt["count"], g * n_steps,
                                 device) if n_steps else None)
             losses = []
             for j in range(g):
-                args = (fs, epoch + 1 + j, ctx.seed,
-                        model.finished_iterations + j * n_steps, batch_size,
-                        params, opt,
-                        None if rows is None else rows[j * n_steps:
-                                                       (j + 1) * n_steps])
-                if cached:
-                    losses.append(self._cached_epoch(*args, scan_steps))
-                elif scan_steps > 1:
-                    losses.append(self._chunked_epoch(*args, scan_steps))
-                else:
-                    losses.append(self._eager_epoch(*args))
+                it0 = model.finished_iterations + j * n_steps
+                for _k, run in self._cached_dispatches(
+                        fs, epoch + 1 + j, ctx.seed, it0, batch_size,
+                        params, opt, None if rows is None
+                        else rows[j * n_steps:(j + 1) * n_steps],
+                        scan_steps):
+                    losses.append(run()[0])
+                opt["count"] += n_steps
             # the block's one read of the device
-            block_losses = torch.stack(losses).float().cpu()
+            block_losses = torch.stack(losses).float().cpu().numpy()
+            self._gp_note("device_step")
             dt = (time.time() - t0) / g
             self._observe_fit_metrics(g * n_steps, dt * g,
                                       g * n_steps * batch_size)
@@ -329,7 +1316,7 @@ class TrainingLoop:
                 step_l = block_losses[j]
                 epoch_loss = (float(step_l.mean()) if n_steps
                               else float("nan"))
-                self.step_losses.append(step_l.numpy())
+                self.step_losses.append(step_l)
                 history["loss"].append(epoch_loss)
                 model.finished_epochs = e
                 record = {"epoch": e, "loss": epoch_loss,
@@ -337,14 +1324,6 @@ class TrainingLoop:
                                         + (j + 1) * n_steps),
                           "throughput": (n_steps * batch_size / dt
                                          if dt > 0 else 0.0)}
-                if validation_data is not None:
-                    vx, vy = ((validation_data.x, validation_data.y)
-                              if isinstance(validation_data, FeatureSet)
-                              else validation_data)
-                    val = self.evaluate(vx, vy, batch_size=batch_size)
-                    for k, v in val.items():
-                        history.setdefault("val_" + k, []).append(v)
-                    record.update({"val_" + k: v for k, v in val.items()})
                 log.info("Epoch %d: loss=%.6f (%.1f ex/s)", e, epoch_loss,
                          record["throughput"])
                 for cb in callbacks:
@@ -353,45 +1332,58 @@ class TrainingLoop:
             epoch += g
         return history
 
-    # -- the dispatch paths (each returns one epoch's step losses, on the
-    #    device) ----------------------------------------------------------
-    def _eager_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
-                     rows):
+    # -- the dispatch paths: each yields ``(k, run)`` per dispatch of k
+    #    steps; ``run()`` dispatches them and returns their losses (and,
+    #    guarded, their flag words) on the device ----------------------
+    def _eager_dispatches(self, fs, epoch, seed, it0, batch_size, params,
+                          opt, rows, guard):
         """One step a dispatch, each batch copied to the device."""
         device = self._device()
-        losses = []
+        faults_on = guard is not None and guard.cfg.faults
         for i, (bx, by) in enumerate(fs.iter_batches(
                 batch_size, epoch=seed + epoch, drop_last=True)):
-            losses.append(self.train_step(
-                _to_device(bx, device), _to_device(by, device),
-                self._noise(seed, it0 + i, device), params, opt["state"],
-                rows[i]))
-            opt["count"] += 1
-        return (torch.stack(losses) if losses
-                else torch.zeros(0, device=device))
+            def run(i=i, bx=bx, by=by):
+                x, y = _to_device(bx, device), _to_device(by, device)
+                gen = self._noise(seed, it0 + i, device)
+                if guard is None:
+                    return self.train_step(x, y, gen, params, opt["state"],
+                                           rows[i]).view(1), None
+                fault = (_to_device(self._fault_input(), device)
+                         if faults_on else None)
+                loss, flags = self.guarded_step(
+                    x, y, gen, params, opt["state"], rows, guard.base, fault)
+                return loss.view(1), flags.view(1)
+            yield 1, run
 
-    def _chunked_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
-                       rows, k_max):
-        """``k_max`` steps a dispatch: the FeatureSet's batches stacked K to
-        a chunk (the last shorter), copied into the program's buffers."""
+    def _chunk_dispatches(self, fs, epoch, seed, it0, batch_size, params,
+                          opt, rows, k_max, guard):
+        """``k_max`` steps a dispatch: the FeatureSet's batches stacked K
+        to a chunk (the last shorter), copied into the program's
+        buffers."""
         device = self._device()
-        losses, done = [], 0
+        faults_on = guard is not None and guard.cfg.faults
+        done = 0
         for chunk in chunked(fs.iter_batches(batch_size, epoch=seed + epoch,
                                              drop_last=True), k_max):
-            program = self._step_program(
-                ("chunks", batch_size, k_max,
-                 tuple((a.dtype.str, a.shape[1:]) for a in fs.xs),
-                 (fs.y.dtype.str, fs.y.shape[1:])),
-                lambda: dispatch.HostChunks(fs.xs, fs.y, k_max, batch_size,
-                                            device),
-                params, opt, k_max)
-            k = program.inputs.fill(chunk)
-            losses.append(program.run(k, seed, it0 + done,
-                                      rows[done:done + k]))
-            opt["count"] += k
+            k = chunk[1].shape[0]
+
+            def run(chunk=chunk, done=done, k=k):
+                program = self._step_program(
+                    ("chunks", batch_size, k_max,
+                     tuple((a.dtype.str, a.shape[1:]) for a in fs.xs),
+                     (fs.y.dtype.str, fs.y.shape[1:])),
+                    lambda: dispatch.HostChunks(fs.xs, fs.y, k_max,
+                                                batch_size, device),
+                    params, opt, k_max, guard, "train.scan_chunk")
+                program.inputs.fill(chunk)
+                if guard is None:
+                    return program.run(k, seed, it0 + done,
+                                       rows[done:done + k]), None
+                fault = (np.stack([self._fault_input() for _ in range(k)])
+                         if faults_on else None)
+                return program.run(k, seed, it0 + done, rows, fault)
+            yield k, run
             done += k
-        return (torch.cat(losses) if losses
-                else torch.zeros(0, device=device))
 
     def _device_data(self, fs, k_max, batch_size, device):
         """The device-resident copy of ``fs``, uploaded once and kept while
@@ -405,40 +1397,46 @@ class TrainingLoop:
                 fs.xs, fs.y, k_max, batch_size, device))
         return self._data[2]
 
-    def _cached_epoch(self, fs, epoch, seed, it0, batch_size, params, opt,
-                      rows, k_max):
+    def _cached_dispatches(self, fs, epoch, seed, it0, batch_size, params,
+                           opt, rows, k_max):
         """The device-resident set in the epoch's order (a permutation drawn
         on the device, the first ``n_steps x batch`` rows), gathered on the
-        device ``k_max`` steps a dispatch."""
+        device ``k_max`` steps a replay: the whole epoch is one segment, as
+        the JAX loop's one dispatch an epoch."""
         device = self._device()
-        data = self._device_data(fs, k_max, batch_size, device)
         n_steps = fs.steps_per_epoch(batch_size, drop_last=True)
-        n = len(fs)
-        order = (dispatch.device_permutation(n, fs.seed + seed + epoch,
-                                             device)
-                 if fs.shuffle else torch.arange(n, device=device))
-        order = order[:n_steps * batch_size].reshape(n_steps, batch_size)
-        program = self._step_program(("cached", self._data[0]),
-                                     lambda: data, params, opt, k_max)
-        losses = []
-        for done in range(0, n_steps, k_max):
-            k = data.fill(order[done:done + k_max])
-            losses.append(program.run(k, seed, it0 + done,
-                                      rows[done:done + k]))
-            opt["count"] += k
-        return (torch.cat(losses) if losses
-                else torch.zeros(0, device=device))
 
-    def _step_program(self, key, make_inputs, params, opt, k_max):
+        def run():
+            data = self._device_data(fs, k_max, batch_size, device)
+            n = len(fs)
+            order = (dispatch.device_permutation(n, fs.seed + seed + epoch,
+                                                 device)
+                     if fs.shuffle else torch.arange(n, device=device))
+            order = order[:n_steps * batch_size].reshape(n_steps, batch_size)
+            program = self._step_program(("cached", self._data[0]),
+                                         lambda: data, params, opt, k_max,
+                                         None, "train.epoch")
+            losses = []
+            for done in range(0, n_steps, k_max):
+                k = data.fill(order[done:done + k_max])
+                losses.append(program.run(k, seed, it0 + done,
+                                          rows[done:done + k]))
+            return (torch.cat(losses) if losses
+                    else torch.zeros(0, device=device)), None
+        yield n_steps, run
+
+    def _step_program(self, key, make_inputs, params, opt, k_max, guard,
+                      name):
         """The loop's program for ``key``, made (with ``make_inputs()``'s
         buffers) on first use and kept over fits while the parameters and
         the optimizer state are the same tensors."""
-        key = (key, id(opt["state"]),
+        key = (key, id(opt["state"]), id(guard),
                tuple(p.data_ptr() for p in params.values()))
         if self._program is None or self._program[0] != key:
             self._program = None
             self._program = (key, dispatch.StepProgram(
-                self, params, opt["state"], make_inputs(), k_max))
+                self, params, opt["state"], make_inputs(), k_max, guard,
+                name))
         return self._program[1]
 
     def _observe_fit_metrics(self, steps: int, dt: float,

@@ -1,7 +1,9 @@
 """InferenceModel — port of ``analytics_zoo_tpu/pipeline/inference/
 inference_model.py`` for one device: the replica-permit queue, the
 precision paths of ``from_keras`` (fp32, bf16, int8 weight-only and
-calibrated static int8), ``load`` of a ZooModel ``.npz``, and
+calibrated static int8), ``load`` of a ZooModel ``.npz``,
+``load_checkpoint`` of a training run's newest snapshot that verifies
+(``utils/checkpoint.py``, either package's), and
 ``predict``/``predict_async`` with power-of-two chunk padding and a bounded
 number of in-flight chunks.
 
@@ -204,6 +206,35 @@ class InferenceModel:
         from ...models.common.zoo_model import load_model
         return self.from_keras(load_model(path, device=self.device),
                                dtype=dtype, quantize=quantize,
+                               calibrate=calibrate)
+
+    def load_checkpoint(self, model: KerasNet, ckpt_dir: str, *,
+                        dtype: str = "float32",
+                        quantize: Optional[str] = None,
+                        calibrate=None) -> "InferenceModel":
+        """Load the newest training snapshot from ``ckpt_dir`` (this
+        package's or the JAX package's, ``utils/checkpoint.py``) into
+        ``model``'s architecture (``doLoadTF(checkpoint)`` role), then
+        serve it as :meth:`from_keras` does. A verified restore with
+        fallback, READ-ONLY (``quarantine=False``): this process does not
+        own the directory, and what looks uncommitted may be a live
+        training run's save in flight."""
+        from ...pipeline.api.keras.engine import load_param_tree
+        from ...pipeline.api.keras.training import (_param_tree, _shape_of,
+                                                    tree_module)
+        from ...utils.checkpoint import CheckpointManager
+        if getattr(model, "built", True) is False:
+            model.init_weights()
+        net = tree_module(model)
+        mgr = CheckpointManager(ckpt_dir, registry=self.metrics)
+        out = mgr.restore_latest(
+            {"params": _param_tree({n: _shape_of(p)
+                                    for n, p in net.named_parameters()}),
+             "net_state": {}}, quarantine=False)
+        if out is None:
+            raise FileNotFoundError(f"no valid snapshot in {ckpt_dir}")
+        load_param_tree(net, out[1]["params"])
+        return self.from_keras(model, dtype=dtype, quantize=quantize,
                                calibrate=calibrate)
 
     def from_keras(self, model: KerasNet, *, dtype: str = "float32",

@@ -214,6 +214,34 @@
    dropout mask (sgd at lr 0 on one repeated record: 8 distinct step
    losses), the eager steps' masks; with dropout 0 and AdamW the captured
    fit's losses and parameters against the eager fit's.
+16. Reliability phase (slice 15; run after the training phase): BERT-base
+   as the training phase fine-tunes it, 3 epochs of 8 steps a run from
+   the same initial weights, snapshots (keep 2, 1.31 GB each) under a
+   temporary directory. (a) No checkpoint, ``EveryEpoch``,
+   ``EveryEpoch``, no checkpoint, in turns: samples/s over each fit and
+   in its epochs' records, each save's snapshot copy (one batched copy
+   into pinned memory) and its writer's ms and bytes; the checkpointed
+   fits end on the unchecked fits' bits, every snapshot verifies,
+   ``ckpt_cli verify`` exits 0. (b) A second model object resumes
+   ``ckpt-16`` and ends on the uninterrupted run's bits;
+   ``InferenceModel.load_checkpoint`` answers as it; one flipped byte
+   makes ``verify`` exit 2 and a restore fall back a snapshot. (c)
+   ``recover`` under a ``train.grads`` plan (nan_grad, spike, nan_loss
+   at calls 3, 10, 17): each kind counted once, 3 skips, the events'
+   iterations, finite params, 12 launches a step of K2/K3a/K3b; the
+   guarded step's cost in turns (off, recover, recover, off; an empty
+   plan gives sentinel-off's bits). (d) A rollback past
+   ``max_skips_per_epoch=1`` to ``ckpt-8``, the replay skipping the
+   flagged steps. (e) A child process fitting with ``on_sigterm`` is
+   signalled at its epoch-1 callback and exits through
+   ``TrainingPreempted`` with ``ckpt-9`` (signal to commit printed); a
+   second child resumes it and ends on this process's resume's bits
+   (SHA-256 per leaf). (f) The captured configuration (2 blocks, batch
+   8, ``scan_steps=4``) under ``recover``: the sentinel-off bits with an
+   empty plan, a ``nan_grad`` inside the second replay skipped with the
+   count held and the eager guarded run's bits, ``device_cache`` turned
+   off with the warning, one compile counted a capture. (g) Goodput
+   plus badput is each ledger's wall on (c) and (d).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
@@ -226,6 +254,7 @@ true, "device": {...}}``. Exits non-zero, printing no result, without a
 CUDA device, outside the repository, or when any check fails.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -4498,6 +4527,611 @@ def embed_kernel_rows(embed_rows, launches):
     return rows
 
 
+#: the reliability phase (slice 15): BERT-base as in the training phase,
+#: 3 epochs of 8 steps a run; snapshots keep 2 under a temporary directory
+REL_CFG = TRAIN_CFG
+REL_DEVICE = "cuda"
+REL_CAPTURE_CFG = CAPTURE_CFG
+REL_EPOCHS = 3
+#: train.grads plan of part (c): (call, kind, scale); the spike's scale
+#: clears spike_factor 10 past the EWMA's five warm-up steps
+REL_FAULTS = ((3, "nan_grad", 1.0), (10, "spike", 1e4), (17, "nan_loss", 1.0))
+#: seconds the SIGTERM child's epoch-1 callback waits for the signal
+REL_SIGNAL_WAIT_S = 60.0
+
+#: the SIGTERM child (part e): imports only the port; one JSON argument
+REL_CHILD = r"""
+import hashlib, json, sys, time
+args = json.loads(sys.argv[1])
+sys.path.insert(0, args["repo"])
+import numpy as np
+from analytics_zoo_tpu_torch.common.context import init_zoo_context
+from analytics_zoo_tpu_torch.common.triggers import Trigger
+from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+    TrainingPreempted
+from analytics_zoo_tpu_torch.tfpark.bert_classifier import BERTClassifier
+
+
+class Never(Trigger):
+    def __call__(self, state):
+        return False
+
+
+init_zoo_context(conf=args["conf"])
+data = np.load(args["data"])
+x = [data["x%d" % i] for i in range(args["n_x"])]
+y = data["y"]
+model = BERTClassifier(**args["cfg"], device=args["device"]).init_weights()
+model.compile(optimizer="adamw", loss="scce", lr=2e-5)
+# a resume-only run reads the directory and writes no snapshot
+model.set_checkpoint(args["dir"], keep=2,
+                     trigger=None if args["signal"] else Never())
+
+
+def callback(record):
+    if args["signal"] and record["epoch"] == 1:
+        print("EPOCH1", flush=True)
+        deadline = time.time() + args["wait_s"]
+        while (not model._loop._preempted.is_set()
+               and time.time() < deadline):
+            time.sleep(0.005)
+
+try:
+    model.fit(x, y, batch_size=args["batch"], nb_epoch=args["nb_epoch"],
+              callbacks=[callback])
+except TrainingPreempted:
+    print("PREEMPTED " + json.dumps(
+        {"iteration": model.finished_iterations}), flush=True)
+    sys.exit(3)
+print("DONE " + json.dumps({
+    "epochs": model.finished_epochs,
+    "sha256": {n: hashlib.sha256(p.detach().cpu().numpy().tobytes())
+               .hexdigest() for n, p in model.named_parameters()}}),
+    flush=True)
+"""
+
+
+class Never:
+    """A trigger that never fires: a resume-only fit writes nothing."""
+
+    def __call__(self, state):
+        return False
+
+
+class EventLog:
+    """An in-memory event sink: the registry's events of one kind."""
+
+    def __init__(self):
+        self.events = []
+
+    def write(self, event):
+        self.events.append(dict(event))
+
+    def of(self, kind):
+        return [e for e in self.events if e["kind"] == kind]
+
+
+def param_digest(model):
+    import hashlib
+    return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, p in model.named_parameters()}
+
+
+def max_param_diff(a, b):
+    """Largest |a - b| over the leaves of two parameter dicts."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def reliability_phase():
+    """Slice 15 at BERT-base width (``REL_CFG``, bf16 compute, f32 params,
+    AdamW 2e-5, batch 32, the 256 ``training_data`` records, 3 epochs of 8
+    steps a run, every run from the same initial weights):
+
+    (a) checkpoint cost in turns — no checkpoint, ``EveryEpoch``,
+        ``EveryEpoch``, no checkpoint (keep 2): samples/s, each save's
+        on-path snapshot copy and its writer's time and bytes; the
+        checkpointed runs end on the unchecked runs' bits (or within the
+        two unchecked runs' difference, printed as a fault), every
+        snapshot verifies and ``ckpt_cli verify`` exits 0;
+    (b) resume and serve: a second model object resumes a copy of (a)'s
+        directory at ``ckpt-16`` and ends on the unchecked run's bits;
+        ``InferenceModel.load_checkpoint`` answers within 2e-2 of its
+        ``predict``; a flipped byte makes ``ckpt_cli verify`` exit 2 and a
+        restore fall back to ``ckpt-16`` with ``zoo_ckpt_corrupt_total`` 1;
+    (c) ``zoo.train.sentinel=recover`` under a ``train.grads`` plan
+        (``REL_FAULTS``): one anomaly of each kind, 3 skipped steps, the
+        events at iterations 3, 10, 17, finite params, no rollback, 12
+        launches a step of K2, K3a and K3b; with an empty plan
+        ``recover`` gives sentinel-off's bits; samples/s in turns (off,
+        recover, recover, off);
+    (d) rollback: ``max_skips_per_epoch=1`` and two ``nan_grad`` in epoch
+        2 of a checkpointed fit: one rollback to ``ckpt-8``, the replay
+        skipping the two flagged steps, finite params at epoch 3;
+    (e) SIGTERM: a child process (``REL_CHILD``) fitting with
+        ``zoo.checkpoint.on_sigterm`` is signalled at its epoch-1
+        callback and exits through ``TrainingPreempted`` with a snapshot
+        past iteration 8 (the signal-to-commit time printed); a second
+        child resumes it and finishes, writing nothing; its final
+        params' SHA-256 per leaf equal this process's resume from the
+        same snapshot (a mid-epoch snapshot re-streams its epoch from the
+        first batch, as in the JAX loop, so they are not the
+        uninterrupted run's: the difference is printed);
+    (f) captured (``REL_CAPTURE_CFG``, batch 8, ``scan_steps=4``):
+        ``recover`` with an empty plan gives the captured sentinel-off
+        bits; a ``nan_grad`` at call 5 (the second chunk) is skipped in the
+        replay, the count ends one below the steps, and the params are the
+        eager guarded run's; ``device_cache`` is turned off with the
+        warning; ``zoo_jit_compile_total`` counts the captures;
+    (g) goodput: on (c)'s and (d)'s fits goodput plus badput is the
+        ledger's wall within 1%.
+    Returns the summary and the K2/K3a/K3b launches of the phase."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.observability import (MetricsRegistry,
+                                                       default_registry)
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import (
+        _param_tree, _shape_of)
+    from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
+        InferenceModel
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    from analytics_zoo_tpu_torch.utils import checkpoint as ckpt_mod
+    from analytics_zoo_tpu_torch.utils.checkpoint import CheckpointManager
+
+    counters = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)
+    for c in counters:
+        c.reset()
+    root = tempfile.mkdtemp(prefix="zoo-reliability-")
+    base_conf = {"zoo.pallas.attention": True,
+                 "zoo.compute.dtype": "bfloat16", "zoo.seed": 0}
+    reg = default_registry()
+    events = EventLog()
+    reg.add_event_sink(events)
+    real_snapshot = ckpt_mod._snapshot_leaves
+    out = {}
+    try:
+        init_zoo_context(conf=base_conf)
+        reset_uids()
+        x, y, _ = training_data(N_RECORDS)
+        t0 = time.perf_counter()
+        model = BERTClassifier(**REL_CFG, device=REL_DEVICE).init_weights()
+        start = [p.detach().clone() for p in model.parameters()]
+        print(f"reliability: BERT-base built in "
+              f"{time.perf_counter() - t0:.1f}s")
+
+        # the snapshot copy on the step path, timed where it runs
+        snap_ms = []
+
+        def timed_snapshot(tree):
+            t = time.perf_counter()
+            leaves = real_snapshot(tree)
+            snap_ms.append(1e3 * (time.perf_counter() - t))
+            return leaves
+        ckpt_mod._snapshot_leaves = timed_snapshot
+
+        def run(conf=None, ckpt=None, plan=None, nb_epoch=REL_EPOCHS,
+                net=model, init=True, trigger=None):
+            """One fit of ``net`` from the initial weights (unless
+            ``init`` is False) under ``conf``, checkpointing into ``ckpt``
+            on ``trigger`` (``EveryEpoch``); returns (history, records,
+            wall seconds, the loop)."""
+            init_zoo_context(conf={**base_conf, **(conf or {})})
+            if init:
+                with torch.no_grad():
+                    for p, s in zip(net.parameters(), start):
+                        p.copy_(s)
+                net.opt_state = None
+                net.finished_epochs = net.finished_iterations = 0
+            net._checkpoint = None
+            net.compile(optimizer="adamw", loss="scce", lr=2e-5)
+            if ckpt is not None:
+                net.set_checkpoint(ckpt, keep=2, trigger=trigger)
+            records = []
+            t = time.perf_counter()
+            with (faults.activate(plan) if plan is not None
+                  else contextlib.nullcontext()):
+                hist = net.fit(x, y, batch_size=T_BATCH, nb_epoch=nb_epoch,
+                               callbacks=[records.append])
+            torch.cuda.synchronize() if REL_DEVICE == "cuda" else None
+            return hist, records, time.perf_counter() - t, net._loop
+
+        def params_of(net):
+            return {n: p.detach().clone() for n, p in net.named_parameters()}
+
+        def samples_per_s(records):
+            return float(np.mean([r["throughput"] for r in records[1:]]))
+
+        def bits_equal(a, b):
+            return all(torch.equal(a[n], b[n]) for n in a)
+
+        # -- (a) checkpoint cost in turns, after one warm-up epoch --------
+        run(nb_epoch=1)
+        a_runs, final = [], {}
+        for i, with_ckpt in enumerate((False, True, True, False)):
+            d = os.path.join(root, f"a{i}") if with_ckpt else None
+            before = len(events.of("ckpt.save"))
+            snap_ms.clear()
+            hist, records, wall, _ = run(ckpt=d)
+            saves = events.of("ckpt.save")[before:]
+            final[i] = params_of(model)
+            a_runs.append({
+                "checkpoint": "EveryEpoch" if with_ckpt else None,
+                "fit_samples_per_s": REL_EPOCHS * N_RECORDS / wall,
+                "samples_per_s": samples_per_s(records),
+                "epoch_samples_per_s": [r["throughput"] for r in records],
+                "wall_s": wall, "snapshot_copy_ms": list(snap_ms),
+                "writer_ms": [1e3 * e["dur_s"] for e in saves],
+                "snapshot_bytes": [e["bytes"] for e in saves]})
+            print(f"reliability (a) run {i} ({a_runs[-1]['checkpoint']}): "
+                  f"{a_runs[-1]['fit_samples_per_s']:.2f} samples/s over "
+                  f"the fit ({wall:.2f}s, the last writer joined), "
+                  f"{a_runs[-1]['samples_per_s']:.2f} in epochs 2-3's "
+                  f"records; snapshot copies ms "
+                  f"{[round(v, 1) for v in snap_ms]}, writers ms "
+                  f"{[round(v, 1) for v in a_runs[-1]['writer_ms']]}, "
+                  f"bytes {a_runs[-1]['snapshot_bytes']}")
+        control_diff = max_param_diff(final[0], final[3])
+        if control_diff:
+            print(f"reliability FAULT: two uninterrupted BERT-base fits "
+                  f"differ by {control_diff:.3e} (max |a - b|); the resume "
+                  f"gates are held at that difference")
+        for i in (1, 2):
+            diff = max_param_diff(final[i], final[0])
+            check(diff <= control_diff, f"(a) checkpointed run {i} differs "
+                  f"from the unchecked run by {diff}")
+            mgr = CheckpointManager(os.path.join(root, f"a{i}"),
+                                    registry=MetricsRegistry())
+            check(mgr.steps() == [16, 24], f"(a) snapshots {mgr.steps()}")
+            check(all(mgr.verify(s)[0] == "ok" for s in mgr.steps()),
+                  f"(a) run {i}: a snapshot does not verify")
+        cli = [sys.executable, "-m", "analytics_zoo_tpu_torch.utils.ckpt_cli"]
+        r = subprocess.run(cli + ["verify", os.path.join(root, "a1")],
+                           capture_output=True, text=True, cwd=REPO,
+                           timeout=300)
+        check(r.returncode == 0, f"(a) ckpt_cli verify: {r.returncode} "
+              f"{r.stdout} {r.stderr}")
+        out["checkpoint_cost"] = {"runs": a_runs,
+                                  "control_max_diff": control_diff}
+        shutil.rmtree(os.path.join(root, "a1"))
+
+        # -- (b) resume and serve ----------------------------------------
+        resume_dir = os.path.join(root, "b")
+        shutil.move(os.path.join(root, "a2"), resume_dir)
+        shutil.rmtree(os.path.join(resume_dir, "ckpt-24"))
+        fresh = BERTClassifier(**REL_CFG, device=REL_DEVICE).init_weights(
+            torch.Generator().manual_seed(1))
+        t = time.perf_counter()
+        _, records, wall, _ = run(ckpt=resume_dir, nb_epoch=1, net=fresh,
+                                  init=False)
+        resumed = params_of(fresh)
+        diff = max_param_diff(resumed, final[0])
+        print(f"reliability (b): a fresh model resumed ckpt-16 and trained "
+              f"epoch {fresh.finished_epochs} in {wall:.2f}s; max |diff| "
+              f"against the uninterrupted run {diff:.3e}")
+        check(fresh.finished_epochs == 3 and records[0]["epoch"] == 3,
+              f"(b) resumed at {records[0]['epoch']}")
+        check(diff <= control_diff, f"(b) resume differs by {diff}")
+        batch = [a[:T_BATCH] for a in x]
+        served = InferenceModel(device=REL_DEVICE).load_checkpoint(
+            BERTClassifier(**REL_CFG, device=REL_DEVICE).init_weights(
+                torch.Generator().manual_seed(2)), resume_dir)
+        serve_err = float(np.max(np.abs(served.predict(batch)
+                                        - fresh.predict(batch))))
+        print(f"reliability (b): load_checkpoint answers within "
+              f"{serve_err:.2e} of the trained model's predict (2e-2)")
+        check(serve_err <= 2e-2, f"(b) load_checkpoint predict {serve_err}")
+        del served
+        flip = os.path.join(resume_dir, "ckpt-24", "params.npz")
+        with open(flip, "r+b") as f:
+            f.seek(os.path.getsize(flip) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        r = subprocess.run(cli + ["verify", resume_dir], capture_output=True,
+                           text=True, cwd=REPO, timeout=300)
+        check(r.returncode == 2, f"(b) verify after a flip: {r.returncode}")
+        probe = MetricsRegistry()
+        got = CheckpointManager(resume_dir, registry=probe).restore_latest(
+            {"params": _param_tree({n: _shape_of(p) for n, p in
+                                    fresh.model.named_parameters()})})
+        corrupt = probe.snapshot()["zoo_ckpt_corrupt_total"]["value"]
+        check(got is not None and got[0] == 16 and corrupt == 1,
+              f"(b) fallback to {got and got[0]}, corrupt {corrupt}")
+        print(f"reliability (b): after one flipped byte verify exits 2 and "
+              f"a restore falls back to ckpt-16 (zoo_ckpt_corrupt_total "
+              f"{corrupt:g})")
+        out["resume"] = {"max_diff": diff, "serve_max_err": serve_err,
+                         "verify_rc_after_flip": r.returncode,
+                         "fallback_step": got[0]}
+        shutil.rmtree(resume_dir)
+
+        # -- (c) the sentinel under a fault plan, then its cost in turns --
+        anomaly_keys = ['zoo_train_anomaly_total{kind="nan_loss"}',
+                        'zoo_train_anomaly_total{kind="nan_grad"}',
+                        'zoo_train_anomaly_total{kind="spike"}',
+                        "zoo_train_skipped_steps_total",
+                        "zoo_train_rollback_total"]
+
+        def counts():
+            snap = reg.snapshot()
+            return {k: snap.get(k, {}).get("value", 0) for k in anomaly_keys}
+
+        plan = faults.FaultPlan(seed=0)
+        for call, kind, scale in REL_FAULTS:
+            plan.add("train.grads", kind, at=(call,), scale=scale)
+        recover = {"zoo.train.sentinel": "recover",
+                   "zoo.faults.enabled": True}
+        c0, e0 = counts(), len(events.of("train.anomaly"))
+        launches0 = [c.launches for c in counters]
+        _, _, _, loop_c = run(conf=recover, plan=plan)
+        launches_c = [c.launches - l for c, l in zip(counters, launches0)]
+        delta = {k: v - c0[k] for k, v in counts().items()}
+        anomalies = events.of("train.anomaly")[e0:]
+        print(f"reliability (c): counters {json.dumps(delta)}; events at "
+              f"iterations {[e['iteration'] for e in anomalies]} "
+              f"({[e['kinds'] for e in anomalies]}); K2/K3a/K3b "
+              f"{launches_c}")
+        check([delta[k] for k in anomaly_keys] == [1, 1, 1, 3, 0],
+              f"(c) counters {delta}")
+        check([e["iteration"] for e in anomalies] == [3, 10, 17],
+              f"(c) events {anomalies}")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+              "(c) non-finite params")
+        want = REL_CFG["n_block"] * REL_EPOCHS * (N_RECORDS // T_BATCH)
+        check(REL_DEVICE != "cuda" or launches_c == [want] * 3,
+              f"(c) launches {launches_c}, want {want}")
+        check(model.opt_state["count"] == REL_EPOCHS * 8 - 3,
+              f"(c) count {model.opt_state['count']}")
+        gp = {"sentinel": loop_c._goodput}
+        turns = []
+        for conf in (None, recover, recover, None):
+            _, records, _, _ = run(
+                conf=conf, plan=(faults.FaultPlan(seed=0) if conf
+                                 else None))
+            turns.append((conf is not None, samples_per_s(records),
+                          params_of(model)))
+        for sen, sps, params in turns:
+            check(bits_equal(params, final[0]) or max_param_diff(
+                params, final[0]) <= control_diff,
+                  f"(c) {'recover' if sen else 'off'} with an empty plan "
+                  f"is not sentinel-off's bits")
+        off_sps = [s for sen, s, _ in turns if not sen]
+        rec_sps = [s for sen, s, _ in turns if sen]
+        cost = 1 - np.mean(rec_sps) / np.mean(off_sps)
+        print(f"reliability (c): samples/s in turns off/recover/recover/off "
+              f"{[round(s, 2) for _, s, _ in turns]}: the norm, flags and "
+              f"select cost {100 * cost:.2f}%; recover with an empty plan "
+              f"gives sentinel-off's bits")
+        out["sentinel"] = {"counters": delta, "events": [
+            e["iteration"] for e in anomalies], "launches": launches_c,
+            "samples_per_s_turns": [s for _, s, _ in turns],
+            "cost_fraction": float(cost)}
+        del turns
+
+        # -- (d) rollback ------------------------------------------------
+        d_dir = os.path.join(root, "d")
+        c0, r0 = counts(), len(events.of("train.rollback"))
+        plan = faults.FaultPlan(seed=1).add("train.grads", "nan_grad",
+                                            at=(10, 13))
+        _, records, wall, loop_d = run(
+            conf={**recover, "zoo.train.max_skips_per_epoch": 1},
+            ckpt=d_dir, plan=plan)
+        delta = {k: v - c0[k] for k, v in counts().items()}
+        rollbacks = events.of("train.rollback")[r0:]
+        print(f"reliability (d): counters {json.dumps(delta)}; rollback "
+              f"events {rollbacks}; epochs {[r['epoch'] for r in records]} "
+              f"in {wall:.2f}s")
+        check(delta["zoo_train_rollback_total"] == 1
+              and len(rollbacks) == 1
+              and rollbacks[0]["restore_step"] == 8,
+              f"(d) rollback {delta} {rollbacks}")
+        check(delta["zoo_train_skipped_steps_total"] == 4,
+              f"(d) 2 skipped and 2 not replayed: {delta}")
+        check(model.finished_epochs == REL_EPOCHS
+              and all(bool(torch.isfinite(p).all())
+                      for p in model.parameters()), "(d) final state")
+        gp["rollback"] = loop_d._goodput
+        out["rollback"] = {"counters": delta,
+                           "restore_step": rollbacks[0]["restore_step"]}
+        shutil.rmtree(d_dir)
+
+        # -- (g) goodput on (c) and (d) -----------------------------------
+        out["goodput"] = {}
+        for name, led in gp.items():
+            sec = led.seconds()
+            total = led.goodput_seconds() + sum(led.badput_seconds().values())
+            print(f"reliability (g) {name}: wall {led.wall():.3f}s, "
+                  f"categories {json.dumps({k: round(v, 4) for k, v in sec.items()})}")
+            check(abs(total - led.wall()) <= 0.01 * led.wall(),
+                  f"(g) {name}: goodput + badput {total} vs {led.wall()}")
+            out["goodput"][name] = {"wall_s": led.wall(), "seconds": sec}
+
+        # -- (e) SIGTERM in a child, resumed in another ---------------------
+        e_dir = os.path.join(root, "e")
+        data = os.path.join(root, "data.npz")
+        np.savez(data, y=y, **{f"x{i}": a for i, a in enumerate(x)})
+        args = {"repo": REPO, "data": data, "n_x": len(x), "cfg": REL_CFG,
+                "device": REL_DEVICE, "batch": T_BATCH, "dir": e_dir,
+                "conf": {**base_conf, "zoo.checkpoint.on_sigterm": True},
+                "signal": True, "wait_s": REL_SIGNAL_WAIT_S,
+                "nb_epoch": REL_EPOCHS}
+        child = subprocess.Popen([sys.executable, "-c", REL_CHILD,
+                                  json.dumps(args)], stdout=subprocess.PIPE,
+                                 text=True, cwd=REPO)
+        try:
+            line = child.stdout.readline()
+            check(line.strip() == "EPOCH1", f"(e) child said {line!r}")
+            t_signal = time.time()
+            os.kill(child.pid, signal.SIGTERM)
+            rest = child.communicate(timeout=600)[0]
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        check(child.returncode == 3 and "PREEMPTED" in rest,
+              f"(e) child exit {child.returncode}: {rest}")
+        cut = json.loads(rest.split("PREEMPTED ", 1)[1].splitlines()[0])
+        step = cut["iteration"]
+        manifest = os.path.join(e_dir, f"ckpt-{step}", "manifest.json")
+        commit_s = os.path.getmtime(manifest) - t_signal
+        check(step > 8 and CheckpointManager(
+            e_dir, registry=MetricsRegistry()).verify(step)[0] == "ok",
+              f"(e) snapshot ckpt-{step}")
+        print(f"reliability (e): SIGTERM at the epoch-1 callback; the child "
+              f"committed ckpt-{step} {commit_s:.2f}s after the signal and "
+              f"exited through TrainingPreempted")
+        # the resumes read the directory and write nothing to it
+        args2 = dict(args, signal=False, conf=base_conf,
+                     nb_epoch=REL_EPOCHS - 1)
+        r = subprocess.run([sys.executable, "-c", REL_CHILD,
+                            json.dumps(args2)], capture_output=True,
+                           text=True, cwd=REPO, timeout=600)
+        check(r.returncode == 0 and "DONE " in r.stdout,
+              f"(e) resume child {r.returncode}: {r.stdout} {r.stderr[-2000:]}")
+        done = json.loads(r.stdout.split("DONE ", 1)[1].splitlines()[0])
+        run(ckpt=e_dir, nb_epoch=REL_EPOCHS - 1, net=fresh,
+            trigger=Never())
+        mine = param_digest(fresh)
+        same = done["sha256"] == mine and done["epochs"] == REL_EPOCHS
+        vs_uninterrupted = max_param_diff(params_of(fresh), final[0])
+        print(f"reliability (e): the resumed child's final params, SHA-256 "
+              f"per leaf, equal this process's resume from ckpt-{step}: "
+              f"{same}; against the uninterrupted run (the resumed epoch "
+              f"re-streams from its first batch, as in the JAX loop) max "
+              f"|diff| {vs_uninterrupted:.3e}")
+        check(same, "(e) the resumed child differs from this process's "
+              "resume of the same snapshot")
+        out["sigterm"] = {"snapshot_step": step, "signal_to_commit_s":
+                          commit_s, "resumed_sha256_equal": same,
+                          "max_diff_vs_uninterrupted": vs_uninterrupted}
+        shutil.rmtree(e_dir)
+        del fresh, model, start, final
+
+        # -- (f) the guarded captured step --------------------------------
+        out["captured"] = captured_guard_part(base_conf)
+    finally:
+        ckpt_mod._snapshot_leaves = real_snapshot
+        reg.remove_event_sink(events)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = [c.launches for c in counters]
+    out["launches"] = dict(zip(("flash_attention_fwd",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv"), launches))
+    print(f"reliability: K2/K3a/K3b launches over the phase {launches}")
+    check(REL_DEVICE != "cuda" or all(n > 0 for n in launches),
+          f"reliability launches {launches}")
+    return out
+
+
+def captured_guard_part(base_conf):
+    """Part (f) of :func:`reliability_phase`: the captured configuration
+    (``scan_steps=4``, 8 steps an epoch: two replays) with the sentinel."""
+    import logging
+
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.observability import default_registry
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    init_zoo_context(conf=base_conf)
+    reset_uids()
+    x, y, _ = training_data(CAPTURE_BATCH * CAPTURE_STEPS)
+    model = BERTClassifier(**dict(REL_CAPTURE_CFG, hidden_drop=0.0),
+                           device=REL_DEVICE).init_weights()
+    start = [p.detach().clone() for p in model.parameters()]
+    reg = default_registry()
+
+    def compiles():
+        return reg.snapshot().get("zoo_jit_compile_total", {}).get("value", 0)
+
+    def fit(scan, sentinel, plan_at=None, cache=False):
+        conf = {**base_conf, "zoo.train.scan_steps": scan,
+                "zoo.train.device_cache": cache}
+        if sentinel:
+            conf.update({"zoo.train.sentinel": "recover",
+                         "zoo.faults.enabled": True})
+        init_zoo_context(conf=conf)
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+        model.opt_state = None
+        model.finished_epochs = model.finished_iterations = 0
+        model.compile(optimizer="adamw", loss="scce", lr=2e-5)
+        plan = faults.FaultPlan(seed=0)
+        if plan_at is not None:
+            plan.add("train.grads", "nan_grad", at=(plan_at,))
+        c0 = compiles()
+        with (faults.activate(plan) if sentinel else contextlib.nullcontext()):
+            model.fit(x, y, batch_size=CAPTURE_BATCH, nb_epoch=1,
+                      shuffle=False)
+        program = model._loop._program
+        graphs = len(program[1].graphs) if program is not None else 0
+        return ({n: p.detach().clone() for n, p in model.named_parameters()},
+                model.opt_state["count"], compiles() - c0, graphs,
+                len(plan.fired))
+
+    def same(a, b):
+        return all(torch.equal(a[n], b[n]) for n in a)
+
+    off, off_count, off_c, off_g = fit(4, False)[:4]
+    empty, empty_count, empty_c, empty_g = fit(4, True)[:4]
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logger = logging.getLogger("analytics_zoo_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        skip, skip_count, skip_c, skip_g, fired = fit(4, True, plan_at=5,
+                                                      cache=True)
+    finally:
+        logger.removeHandler(handler)
+    eager, eager_count = fit(1, True, plan_at=5)[:2]
+    rel = max(float(((skip[n] - eager[n]).norm()
+                     / eager[n].norm().clamp_min(1e-30))) for n in skip)
+    warned = any("zoo.train.device_cache disabled for this fit" in w
+                 for w in warnings)
+    cuda = REL_DEVICE == "cuda"
+    print(f"reliability (f) captured (2 blocks, batch {CAPTURE_BATCH}, "
+          f"scan_steps 4): recover with an empty plan gives the captured "
+          f"sentinel-off bits {same(off, empty)}; nan_grad at call 5 "
+          f"({fired} fired) skipped in the replay: count {skip_count} of "
+          f"{CAPTURE_STEPS} steps; against the eager guarded run the same "
+          f"bits {same(skip, eager)} (largest relative difference "
+          f"{rel:.2e}), eager count {eager_count}; device_cache turned off "
+          f"with the warning {warned}; zoo_jit_compile_total "
+          f"{off_c}/{empty_c}/{skip_c} for {off_g}/{empty_g}/{skip_g} "
+          f"captured graphs")
+    check(same(off, empty), "(f) recover with an empty plan is not the "
+          "captured sentinel-off bits")
+    check(fired == 1 and skip_count == CAPTURE_STEPS - 1
+          and eager_count == CAPTURE_STEPS - 1,
+          f"(f) count {skip_count}/{eager_count}, fired {fired}")
+    check(same(skip, eager) or rel <= 1e-6, f"(f) captured guarded run vs "
+          f"the eager one: {rel}")
+    check(warned, "(f) device_cache was not turned off with the warning")
+    check((off_c, empty_c, skip_c) == (off_g, empty_g, skip_g)
+          and (not cuda or min(off_g, empty_g, skip_g) >= 1),
+          f"(f) compiles {(off_c, empty_c, skip_c)} vs graphs "
+          f"{(off_g, empty_g, skip_g)}")
+    return {"empty_plan_same_bits": same(off, empty),
+            "skip_count": skip_count, "eager_same_bits": same(skip, eager),
+            "max_rel_diff": rel, "device_cache_warning": warned,
+            "compiles": [off_c, empty_c, skip_c]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4545,6 +5179,7 @@ def main() -> int:
     int8_head = int8_head_phase()
     training, main_ids = training_phase()
     rows = main_path_kernel_rows(main_ids, training["launches"])
+    reliability = reliability_phase()
     lm, lm_labels = lm_phase()
     ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"],
                                               lm["ce_routes"])
@@ -4558,6 +5193,13 @@ def main() -> int:
                                   "lanes": lanes["launches"]["k2"],
                                   "fleet": fleet["launches"]}
     k2_row["launches"] += lanes["launches"]["k2"] + fleet["launches"]
+    # K2, K3a and K3b on the reliability path (slice 15)
+    for row in rows:
+        n = reliability["launches"][row["name"]]
+        row.setdefault("launches_by_path",
+                       {"bert_training": row["launches"]})
+        row["launches_by_path"]["reliability"] = n
+        row["launches"] += n
     rows += ce_kernel_rows
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
@@ -4579,7 +5221,8 @@ def main() -> int:
                       "lanes": lanes, "fleet": fleet, "int8_head": int8_head,
                       "training": training,
                       "lm": lm, "ncf": ncf, "fault_l": fault_l,
-                      "captured_bert": captured_bert, "card": card}))
+                      "captured_bert": captured_bert,
+                      "reliability": reliability, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

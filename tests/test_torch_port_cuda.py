@@ -1490,3 +1490,126 @@ def test_fleet_over_resp_reclaims_a_killed_replicas_batch(cuda):
     fresh = ims[1].predict(survivor_model.inputs(ids[:8]))
     assert np.array_equal(got[:8].view(np.uint32),
                           np.asarray(fresh, np.float32).view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the guarded step under capture, checkpoints of CUDA tensors
+# ---------------------------------------------------------------------------
+
+#: BERT at two blocks (narrow, seq 128) on the captured path's shapes
+GUARD_CFG = dict(num_classes=2, vocab=300, hidden_size=128, n_block=2,
+                 n_head=2, seq_len=128, intermediate_size=256,
+                 hidden_drop=0.0, attn_drop=0.0)
+
+
+def _guard_fit(conf, plan_at=None, sentinel=True):
+    """One epoch of 8 steps of batch 8 on the 2-block BERT, AdamW, with
+    ``conf``; ``recover`` with an empty ``train.grads`` plan (or a
+    ``nan_grad`` at ``plan_at``) when ``sentinel``. Returns (params,
+    count, step losses)."""
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    reset_zoo_context()
+    extra = ({"zoo.train.sentinel": "recover", "zoo.faults.enabled": True}
+             if sentinel else {})
+    init_zoo_context(conf={"zoo.seed": 0, "zoo.pallas.attention": True,
+                           **extra, **conf})
+    reset_uids()
+    model = BERTClassifier(**GUARD_CFG, device="cuda").init_weights(
+        torch.Generator().manual_seed(0))
+    model.compile(optimizer="adamw", loss="scce", lr=1e-3)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, GUARD_CFG["vocab"], (64, 128)).astype(np.int32)
+    ids[:, 100:] = 0
+    x = make_bert_inputs(ids, attention_mask=(ids != 0))
+    y = rng.integers(0, 2, 64).astype(np.int32)
+    plan = faults.FaultPlan(seed=0)
+    if plan_at is not None:
+        plan.add("train.grads", "nan_grad", at=(plan_at,))
+    if sentinel:
+        with faults.activate(plan):
+            model.fit(x, y, batch_size=8, nb_epoch=1, shuffle=False)
+    else:
+        model.fit(x, y, batch_size=8, nb_epoch=1, shuffle=False)
+    torch.cuda.synchronize()
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            model.opt_state["count"],
+            np.concatenate(model._loop.step_losses))
+
+
+@pytest.mark.cuda
+def test_guarded_captured_step_keeps_the_bits_and_skips_inside_a_chunk(
+        cuda):
+    """``recover`` with nothing flagged, captured 4 steps a replay: the
+    captured sentinel-off fit's bits. A ``nan_grad`` at call 5 (inside
+    the second chunk) is discarded inside the replay: the count ends one
+    below the 8 steps, the params stay finite and are the eager guarded
+    fit's bits (the later steps read the rows of the counts they have)."""
+    off = _guard_fit({"zoo.train.scan_steps": 4}, sentinel=False)
+    empty = _guard_fit({"zoo.train.scan_steps": 4})
+    assert off[1] == empty[1] == 8
+    np.testing.assert_array_equal(off[2], empty[2])
+    for name in off[0]:
+        assert torch.equal(off[0][name], empty[0][name]), name
+    skipped = _guard_fit({"zoo.train.scan_steps": 4}, plan_at=5)
+    eager = _guard_fit({}, plan_at=5)
+    assert skipped[1] == eager[1] == 7
+    for name in skipped[0]:
+        assert bool(torch.isfinite(skipped[0][name]).all()), name
+        assert torch.equal(skipped[0][name], eager[0][name]), name
+    np.testing.assert_array_equal(skipped[2], eager[2])
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_cuda_tensors_is_bit_for_bit(cuda,
+                                                              tmp_path):
+    """CUDA leaves (f32, int64, an empty one) through the pinned batched
+    snapshot, the async writer and a verified restore: the same bits."""
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.utils.checkpoint import CheckpointManager
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w": torch.randn(1000, 37, device="cuda", generator=g),
+            "b": {"c": torch.arange(7, device="cuda"),
+                  "e": torch.zeros(0, 3, device="cuda")},
+            "s": torch.tensor(2.5, device="cuda")}
+    want = tree["w"].cpu().numpy().copy()
+    mgr = CheckpointManager(str(tmp_path), registry=MetricsRegistry())
+    mgr.save(5, {"t": tree})
+    tree["w"].add_(1.0)              # the snapshot was taken at save()
+    mgr.close()
+    template = {"w": np.zeros((1000, 37), np.float32),
+                "b": {"c": np.zeros(7, np.int64),
+                      "e": np.zeros((0, 3), np.float32)},
+                "s": np.zeros((), np.float32)}
+    step, trees, _ = mgr.restore_latest({"t": template})
+    assert step == 5 and mgr.verify(5)[0] == "ok"
+    got = trees["t"]
+    np.testing.assert_array_equal(got["w"], want)
+    np.testing.assert_array_equal(got["b"]["c"], np.arange(7))
+    assert got["b"]["e"].shape == (0, 3) and float(got["s"]) == 2.5
+
+
+@pytest.mark.cuda
+def test_load_checkpoint_onto_cuda(cuda, tmp_path):
+    """A CPU-trained snapshot served on the GPU: the model's weights on
+    the card after ``load_checkpoint``, and its answers within 1e-4 of
+    the CPU model's (f32)."""
+    init_zoo_context(conf={"zoo.seed": 0})
+    cfg = dict(GUARD_CFG, seq_len=16)
+    cpu = BERTClassifier(**cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(1))
+    cpu.compile(optimizer="adamw", loss="scce", lr=1e-3)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, cfg["vocab"], (16, 16)).astype(np.int32)
+    x = make_bert_inputs(ids)
+    y = rng.integers(0, 2, 16).astype(np.int32)
+    cpu.set_checkpoint(str(tmp_path))
+    cpu.fit(x, y, batch_size=8, nb_epoch=1)
+    gpu = BERTClassifier(**cfg, device="cuda").init_weights(
+        torch.Generator().manual_seed(2))
+    im = InferenceModel(device="cuda").load_checkpoint(gpu, str(tmp_path))
+    assert all(p.is_cuda for p in im._model.parameters())
+    for (n, a), (_, b) in zip(cpu.named_parameters(),
+                              gpu.named_parameters()):
+        assert torch.equal(a, b.cpu()), n
+    np.testing.assert_allclose(im.predict(x), cpu.predict(x), atol=1e-4)
