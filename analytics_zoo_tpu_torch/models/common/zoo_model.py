@@ -6,11 +6,14 @@ the forward pass to it; ``register_model`` names the zoo's classes.
 ``save(path)`` writes the JAX package's one-file ``.npz``: a
 ``__zoo_header__`` JSON (class, config, extra, n_params, n_state) and the
 weights as ``p_i`` in the JAX ``tree_flatten`` order of the param tree
-(sorted keys, depth first). :func:`load_model` rebuilds the registered
-class from the header and installs the weights. A file written by either
-package loads into the other. Model state (``s_i``, BatchNorm statistics)
-is not ported: the port's models have none, and a file holding some is
-refused.
+(sorted keys, depth first), then the constant model state (a frozen
+``WordEmbedding`` table, :meth:`Layer.add_state`) as ``s_i`` in the
+order of the JAX ``net_state`` tree. Constructor arrays
+(:meth:`ZooModel.extra_arrays`) ride as ``x_<kwarg>``, or as a reference
+to a saved leaf with the same bits. :func:`load_model` rebuilds the
+registered class from the header and installs the weights and the state.
+A file written by either package loads into the other. (The state that
+BatchNorm updates in the step waits for BatchNorm's port.)
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from ...common.context import get_zoo_context, resolve_device
-from ...pipeline.api.keras.engine import KerasNet, load_param_tree
+from ...pipeline.api.keras.engine import (KerasNet, load_param_tree,
+                                          named_state, tree_order)
 
 _REGISTRY: Dict[str, Type["ZooModel"]] = {}
 
@@ -53,6 +57,11 @@ class ZooModel(KerasNet):
     def get_config(self) -> Dict[str, Any]:
         raise NotImplementedError(type(self).__name__)
 
+    def extra_arrays(self) -> Dict[str, np.ndarray]:
+        """Constructor kwargs that are arrays (a pretrained embedding
+        table): saved beside the weights and handed back on load."""
+        return {}
+
     @property
     def input_shape(self):
         return self.model.input_shape
@@ -68,13 +77,15 @@ class ZooModel(KerasNet):
         self.built = self.model.built = True
         return self
 
-    def load_jax_params(self, tree: Dict[str, Any]) -> "ZooModel":
-        """Fill the inner network from the JAX model's param tree, name for
-        name (the inner network's parameter paths are the tree's); builds
-        first if needed."""
+    def load_jax_params(self, tree: Dict[str, Any],
+                        state: Optional[Dict[str, Any]] = None
+                        ) -> "ZooModel":
+        """Fill the inner network from the JAX model's param tree (and its
+        ``net_state`` tree when given), name for name (the inner network's
+        paths are the trees'); builds first if needed."""
         if not self.built:
             self.init_weights()
-        load_param_tree(self.model, tree)
+        load_param_tree(self.model, tree, state)
         return self
 
     def call(self, x, *, training=False, generator=None):
@@ -98,14 +109,27 @@ class ZooModel(KerasNet):
             raise FileExistsError(f"{path} exists and over_write=False")
         if not self.built:
             self.init_weights()
-        leaves = [p.detach().cpu() for _, p in _tree_order(self.model)]
-        arrays = {f"p_{i}": (t.float() if t.dtype == torch.bfloat16
-                             else t).numpy()
-                  for i, t in enumerate(leaves)}
-        # no port model takes constructor arrays, so "extra" stays empty
+        p_leaves = _host(tree_order(dict(self.model.named_parameters())))
+        s_leaves = _host(tree_order(named_state(self.model)))
+        arrays = {f"p_{i}": a for i, a in enumerate(p_leaves)}
+        arrays.update({f"s_{i}": a for i, a in enumerate(s_leaves)})
+        # a constructor array with the bits of a saved leaf (a frozen
+        # table in the state) is stored once, as a reference to it
+        extra_refs: Dict[str, str] = {}
+        for k, v in self.extra_arrays().items():
+            v = np.asarray(v)
+            ref = next((name for name, a in arrays.items()
+                        if a.shape == v.shape and a.dtype == v.dtype
+                        and np.array_equal(a, v)), None)
+            if ref is None:
+                ref = f"x_{k}"
+                arrays[ref] = v
+            extra_refs[k] = ref
         header = json.dumps({"class": type(self).__name__,
-                             "config": self.get_config(), "extra": {},
-                             "n_params": len(leaves), "n_state": 0})
+                             "config": self.get_config(),
+                             "extra": extra_refs,
+                             "n_params": len(p_leaves),
+                             "n_state": len(s_leaves)})
         np.savez(path, __zoo_header__=np.frombuffer(
             header.encode("utf-8"), dtype=np.uint8), **arrays)
         return path
@@ -120,11 +144,26 @@ class ZooModel(KerasNet):
                 f"Trainable parameters: {n:,}")
 
 
-def _tree_order(module: torch.nn.Module) -> List[Tuple[str, torch.Tensor]]:
-    """``module``'s parameters in the JAX ``tree_flatten`` order of the
-    matching param tree: sorted keys, depth first — the lexicographic order
-    of the key paths."""
-    return sorted(module.named_parameters(), key=lambda kv: kv[0].split("."))
+def _host(pairs: List[Tuple[str, torch.Tensor]]) -> List[np.ndarray]:
+    """Host copies of the tensors of ``pairs`` (bf16 widened to f32)."""
+    out = []
+    for _, t in pairs:
+        t = t.detach().cpu()
+        out.append((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+    return out
+
+
+def _install(pairs: List[Tuple[str, torch.Tensor]], arrays, path: str,
+             what: str) -> None:
+    if len(pairs) != len(arrays):
+        raise ValueError(f"{path} holds {len(arrays)} {what} arrays; the "
+                         f"model has {len(pairs)}")
+    with torch.no_grad():
+        for (name, t), a in zip(pairs, arrays):
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: saved shape {tuple(a.shape)} "
+                                 f"does not match {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.asarray(a)).to(t.dtype))
 
 
 def _populate_registry() -> None:
@@ -151,12 +190,9 @@ def load_model(path: str, device=None) -> ZooModel:
     with np.load(path) as data:
         header = json.loads(bytes(data["__zoo_header__"]).decode("utf-8"))
         p_loaded = [data[f"p_{i}"] for i in range(header["n_params"])]
+        s_loaded = [data[f"s_{i}"] for i in range(header.get("n_state", 0))]
         extras = {k: data[ref]
                   for k, ref in header.get("extra", {}).items()}
-    if header.get("n_state", 0):
-        raise NotImplementedError(
-            f"{path} holds {header['n_state']} model-state arrays; model "
-            f"state (BatchNorm) is not ported yet")
     cls = _REGISTRY.get(header["class"])
     if cls is None:
         _populate_registry()
@@ -166,14 +202,7 @@ def load_model(path: str, device=None) -> ZooModel:
                          f"registered: {sorted(_REGISTRY)}")
     model = cls(**header["config"], **extras, device=device)
     model.init_weights()
-    want = _tree_order(model.model)
-    if len(want) != len(p_loaded):
-        raise ValueError(f"{path} holds {len(p_loaded)} weights; "
-                         f"{header['class']} has {len(want)}")
-    with torch.no_grad():
-        for (name, p), a in zip(want, p_loaded):
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: saved shape {tuple(a.shape)} "
-                                 f"does not match {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.asarray(a)).to(p.dtype))
+    _install(tree_order(dict(model.model.named_parameters())), p_loaded,
+             path, "weight")
+    _install(tree_order(named_state(model.model)), s_loaded, path, "state")
     return model

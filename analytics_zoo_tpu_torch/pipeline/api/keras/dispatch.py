@@ -233,7 +233,8 @@ class StepProgram:
             fault: Optional[np.ndarray] = None):
         """Steps ``iteration .. iteration + k - 1`` on the batches filled
         into ``inputs``; returns their losses (and, guarded, their flag
-        words) on the device. ``scalars`` are the steps' ``(k, n)``
+        words: the program's buffer, which the next run overwrites) on the
+        device. ``scalars`` are the steps' ``(k, n)``
         per-step values; guarded, the block's table, whose row 0 is the
         guard's ``base`` count; ``fault`` the steps' ``(k, 2)``
         ``train.grads`` inputs."""
@@ -263,7 +264,7 @@ class StepProgram:
             self._steps(k)
         if guard is None:
             return self.losses[:k].clone()
-        return self.losses[:k].clone(), self.flags[:k].clone()
+        return self.losses[:k].clone(), self.flags[:k]
 
     def _steps(self, k: int) -> None:
         for j in range(k):

@@ -13,7 +13,17 @@ name. A Dense ``W`` stays ``(d_in, d_out)``.
 ``Sequential`` stacks layers in order; ``Model`` runs a graph built with
 the functional API (``Input``, then layers called on ``Variable``s), in
 the JAX package's toposort order and with its positional auto-names.
-``Lambda`` and ``Variable`` arithmetic are not ported yet.
+``Lambda`` wraps a torch function as a graph node, and ``Variable``'s
+operators (``+ - * / **``, unary ``-``, slicing, ``index_select``,
+``squeeze``) each add one, under the JAX package's name prefixes. A
+``Lambda``'s output shape comes from running its function on tensors on
+``torch.device("meta")`` (:func:`probe_output_shape`, the counterpart of
+``jax.eval_shape``): nothing is computed.
+
+Constant model state (the JAX package's ``net_state`` tree, e.g. a frozen
+``WordEmbedding`` table) is kept as buffers registered with
+:meth:`Layer.add_state` under the JAX state tree's keys
+(:func:`named_state`); the optimizer never sees them.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import collections
 import contextlib
 import contextvars
 import math
+import operator
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -94,6 +105,16 @@ def param_dtype() -> torch.dtype:
 # --------------------------------------------------------------------------
 
 _uid_counters: Dict[str, int] = collections.defaultdict(int)
+
+
+#: True while a shape probe (:func:`probe_output_shape`) runs: probes use
+#: placeholder batch dims on the meta device, so batch-dependent decisions
+#: must not warn or raise off them
+_in_shape_probe = False
+
+
+def in_shape_probe() -> bool:
+    return _in_shape_probe
 
 
 def unique_name(prefix: str) -> str:
@@ -282,6 +303,18 @@ class Layer(nn.Module):
         """Register ``value`` as parameter ``key`` (the JAX tree key)."""
         self.register_parameter(key, nn.Parameter(value))
 
+    #: the buffers that are constant model state (:meth:`add_state`)
+    _state_keys: tuple = ()
+
+    def add_state(self, key: str, value: torch.Tensor) -> None:
+        """Register ``value`` as constant model state ``key`` (the JAX
+        ``net_state`` tree's key): a buffer, moved with the module and
+        written to checkpoints and ``.npz`` files, never given to the
+        optimizer."""
+        self.register_buffer(key, value)
+        if key not in self._state_keys:
+            self._state_keys = self._state_keys + (key,)
+
     def call(self, x, *, training: bool = False,
              generator: Optional[torch.Generator] = None):
         raise NotImplementedError(type(self).__name__)
@@ -332,10 +365,128 @@ class InputLayer(Layer):
         return x
 
 
+def _concrete(shape):
+    return tuple(1 if d is None else d for d in shape)
+
+
+def _meta(shape) -> torch.Tensor:
+    return torch.empty(_concrete(shape), dtype=_compute_dtype,
+                       device="meta")
+
+
+def _out_shape(out):
+    if isinstance(out, (list, tuple)):
+        return [_out_shape(o) for o in out]
+    return (None,) + tuple(out.shape[1:])
+
+
+def probe_output_shape(fn: Callable, input_shape):
+    """The output shape(s) of ``fn`` on inputs of ``input_shape`` (a shape
+    or a list of shapes, leading ``None`` batch dims): ``fn`` runs on
+    tensors of the compute dtype on the meta device, so only shapes are
+    worked out, as ``jax.eval_shape`` does in the JAX package."""
+    global _in_shape_probe
+    spec = ([_meta(s) for s in input_shape]
+            if isinstance(input_shape, list) else _meta(input_shape))
+    prev = _in_shape_probe
+    _in_shape_probe = True
+    try:
+        with torch.no_grad():
+            out = fn(spec)
+    finally:
+        _in_shape_probe = prev
+    return _out_shape(out)
+
+
+class Lambda(Layer):
+    """A torch-function layer — ``autograd.Lambda`` of the reference
+    (``Lambda.scala``). ``fn`` takes the input tensor (a list input as
+    ``*x``) and returns a tensor; its output shape is probed on the meta
+    device. ``fn`` runs inside the training step, so it must not read a
+    tensor back to the host (a captured step cannot) and should make its
+    constants on its input's device."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        super().__init__(name=name or unique_name("lambda_"))
+        self.fn = fn
+
+    def compute_output_shape(self, input_shape):
+        return probe_output_shape(self.call, input_shape)
+
+    def call(self, x, *, training=False, generator=None):
+        if isinstance(x, (list, tuple)):
+            return self.fn(*x)
+        return self.fn(x)
+
+
+class _Constant:
+    """A non-``Variable`` operand of a graph op: a Python number as it is;
+    an array made a tensor once, then kept on each device it is used on
+    (made outside a captured step: the capture's warm-up step runs
+    first)."""
+
+    def __init__(self, value):
+        self.value = value
+        self.tensors: Dict[Any, torch.Tensor] = {}
+
+    def on(self, like: torch.Tensor):
+        if isinstance(self.value, (bool, int, float)):
+            return self.value
+        key = like.device
+        t = self.tensors.get(key)
+        if t is None:
+            t = torch.as_tensor(np.asarray(self.value)).to(like.device)
+            if t.is_floating_point() and like.is_floating_point():
+                t = t.to(like.dtype)
+            self.tensors[key] = t
+        return t
+
+
+def graph_op(a, b, fn: Callable, name: str) -> "Variable":
+    """``fn(a, b)`` as a ``Lambda`` node named ``unique_name(name + "_")``:
+    two ``Variable``s become a two-input node; a constant on either side
+    is closed over (``_Constant``)."""
+    if isinstance(a, Variable) and isinstance(b, Variable):
+        return Lambda(fn, name=unique_name(name + "_"))([a, b])
+    if isinstance(a, Variable):
+        c = _Constant(b)
+        return Lambda(lambda x: fn(x, c.on(x)),
+                      name=unique_name(name + "_"))(a)
+    c = _Constant(a)
+    return Lambda(lambda x: fn(c.on(x), x), name=unique_name(name + "_"))(b)
+
+
+def take_index(a: torch.Tensor, index: int, dim: int) -> torch.Tensor:
+    """``jnp.take(a, index, axis=dim)`` for one integer index: an index in
+    ``[-n, 0)`` wraps once, any other outside ``[0, n)`` reads the fill
+    value (NaN, or the most negative integer), as ``jnp.take``'s default
+    "fill" mode does."""
+    n = a.shape[dim]
+    if -n <= index < 0:
+        index += n
+    if 0 <= index < n:
+        return a.select(dim, index)
+    shape = list(a.shape)
+    del shape[dim]
+    fill = (float("nan") if a.is_floating_point()
+            else torch.iinfo(a.dtype).min)
+    return torch.full(shape, fill, dtype=a.dtype, device=a.device)
+
+
+def squeeze_dim(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.squeeze(a, axis=dim)``: raises unless that dim is 1."""
+    if a.shape[dim] != 1:
+        raise ValueError(f"cannot squeeze axis {dim} of size "
+                         f"{a.shape[dim]} (shape {tuple(a.shape)})")
+    return a.squeeze(dim)
+
+
 class Variable:
-    """A graph-node handle — ``autograd.Variable`` of the reference. The
-    operator overloads of the JAX package's ``Variable`` (arithmetic,
-    slicing) are not ported yet."""
+    """A graph-node handle with operator overloading —
+    ``autograd.Variable`` (``autograd/math.scala:365-640``). Each operator
+    adds a ``Lambda`` node named by the JAX package's prefix (``add_``,
+    ``sub_``, ``mul_``, ``div_``, ``pow_``, ``neg_``, ``slice_``,
+    ``indexselect_``, ``squeeze_``)."""
 
     def __init__(self, node: Node):
         self.node = node
@@ -343,6 +494,45 @@ class Variable:
     @property
     def name(self) -> str:
         return self.node.name
+
+    # -- binary ops ---------------------------------------------------------
+    def _binop(self, other, fn, opname):
+        return graph_op(self, other, fn, opname)
+
+    def _rbinop(self, other, fn, opname):
+        return graph_op(other, self, fn, opname)
+
+    def __add__(self, o): return self._binop(o, operator.add, "add")
+    def __radd__(self, o): return self._rbinop(o, operator.add, "add")
+    def __sub__(self, o): return self._binop(o, operator.sub, "sub")
+    def __rsub__(self, o): return self._rbinop(o, operator.sub, "sub")
+    def __mul__(self, o): return self._binop(o, operator.mul, "mul")
+    def __rmul__(self, o): return self._rbinop(o, operator.mul, "mul")
+    def __truediv__(self, o): return self._binop(o, operator.truediv, "div")
+    def __rtruediv__(self, o): return self._rbinop(o, operator.truediv, "div")
+    def __pow__(self, o): return self._binop(o, operator.pow, "pow")
+
+    def __neg__(self):
+        return Lambda(torch.negative, name=unique_name("neg_"))(self)
+
+    # -- keras-style slicing (Variable.slice / indexSelect in math.scala) ---
+    def __getitem__(self, idx):
+        return Lambda(lambda a: a[idx], name=unique_name("slice_"))(self)
+
+    def slice(self, dim: int, start: int, length: int) -> "Variable":
+        def f(a):
+            sl = [slice(None)] * a.dim()
+            sl[dim] = slice(start, start + length)
+            return a[tuple(sl)]
+        return Lambda(f, name=unique_name("slice_"))(self)
+
+    def index_select(self, dim: int, index: int) -> "Variable":
+        return Lambda(lambda a: take_index(a, index, dim),
+                      name=unique_name("indexselect_"))(self)
+
+    def squeeze(self, dim: int) -> "Variable":
+        return Lambda(lambda a: squeeze_dim(a, dim),
+                      name=unique_name("squeeze_"))(self)
 
 
 def Input(shape: Sequence[int], name: Optional[str] = None) -> Variable:
@@ -356,9 +546,10 @@ class KerasNet(Layer):
     pass, and ``compile``/``fit``/``evaluate``/``predict``/
     ``predict_classes`` are the Keras facade over ``training.
     TrainingLoop`` with the JAX package's argument conventions
-    (``training.py:2197-2330``). The port's layers are stateless, so
-    ``apply`` returns the output alone (the JAX package threads a ``state``
-    tree beside it for BatchNorm, which is not ported yet)."""
+    (``training.py:2197-2330``). ``apply`` returns the output alone: the
+    JAX package threads a ``state`` tree beside it, which the port keeps
+    as buffers (:meth:`Layer.add_state`) while it is constant; the state
+    BatchNorm updates in the step is not ported yet."""
 
     #: training progress and optimizer state, kept across fit calls
     opt_state = None
@@ -384,12 +575,15 @@ class KerasNet(Layer):
         self.built = True
         return self
 
-    def load_jax_params(self, tree: Dict[str, Any]) -> "KerasNet":
+    def load_jax_params(self, tree: Dict[str, Any],
+                        state: Optional[Dict[str, Any]] = None
+                        ) -> "KerasNet":
         """Fill the weights from the JAX network's param tree (nested dicts
-        of arrays) name for name; builds first if needed."""
+        of arrays) name for name, and the constant state from its
+        ``net_state`` tree when given; builds first if needed."""
         if not self.built:
             self.init_weights()
-        load_param_tree(self, tree)
+        load_param_tree(self, tree, state)
         return self
 
     def __getstate__(self):
@@ -672,26 +866,51 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def load_param_tree(module: nn.Module, tree: Dict[str, Any]) -> None:
-    """Fill ``module``'s parameters from a nested dict of arrays keyed as
-    the JAX param tree. Every key must match a parameter of the same
-    shape; a missing or an extra key raises."""
-    want = {name.replace(".", "/"): p
-            for name, p in module.named_parameters()}
+def named_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s constant model state (:meth:`Layer.add_state`) by
+    dotted path — the JAX ``net_state`` tree's paths."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, m in module.named_modules():
+        for key in getattr(m, "_state_keys", ()):
+            out[f"{prefix}.{key}" if prefix else key] = getattr(m, key)
+    return out
+
+
+def tree_order(named: Dict[str, Any]) -> list:
+    """``named``'s ``(path, value)`` pairs in the JAX ``tree_flatten``
+    order of the matching nested dict: sorted keys, depth first — the
+    lexicographic order of the key paths."""
+    return sorted(named.items(), key=lambda kv: kv[0].split("."))
+
+
+def _load_tree(want: Dict[str, torch.Tensor], tree: Dict[str, Any],
+               what: str) -> None:
+    want = {name.replace(".", "/"): t for name, t in want.items()}
     got = flatten_tree(tree)
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
     if missing or extra:
-        raise KeyError(f"param tree mismatch: missing {missing}, "
+        raise KeyError(f"{what} tree mismatch: missing {missing}, "
                        f"extra {extra}")
     src = {key: torch.tensor(np.asarray(got[key])) for key in want}
-    for key, p in want.items():
-        if tuple(src[key].shape) != tuple(p.shape):
+    for key, t in want.items():
+        if tuple(src[key].shape) != tuple(t.shape):
             raise ValueError(f"{key}: shape {tuple(src[key].shape)} does "
-                             f"not match the port's {tuple(p.shape)}")
+                             f"not match the port's {tuple(t.shape)}")
     with torch.no_grad():
-        for key, p in want.items():
-            p.copy_(src[key].to(p.dtype))
+        for key, t in want.items():
+            t.copy_(src[key].to(t.dtype))
+
+
+def load_param_tree(module: nn.Module, tree: Dict[str, Any],
+                    state: Optional[Dict[str, Any]] = None) -> None:
+    """Fill ``module``'s parameters from a nested dict of arrays keyed as
+    the JAX param tree, and, when ``state`` is given, its constant state
+    from the JAX ``net_state`` tree. Every key must match a tensor of the
+    same shape; a missing or an extra key raises."""
+    _load_tree(dict(module.named_parameters()), tree, "param")
+    if state is not None:
+        _load_tree(named_state(module), state, "state")
 
 
 def as_list(x) -> Sequence:

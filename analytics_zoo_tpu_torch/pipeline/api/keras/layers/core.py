@@ -1,26 +1,54 @@
 """Core layers — port of ``analytics_zoo_tpu/pipeline/api/keras/layers/
 core.py``: ``Activation``, ``Dense`` (with the static-int8
-``quantized_call``), ``Dropout``, ``Merge``/``merge`` and ``Select``."""
+``quantized_call``), ``Dropout``, ``Flatten``, ``Reshape``, ``Permute``,
+``RepeatVector``, ``Merge``/``merge``, ``Select``, ``Squeeze``,
+``ExpandDim``, ``Narrow``, ``Masking``, ``GaussianNoise``,
+``GaussianDropout``, ``TimeDistributed``, ``Highway`` and
+``SparseDense``. Each states its output-shape rule. The noise layers draw
+on the input's device from the step's generator (``common/noise.py``);
+at inference they are the identity."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from .....common.noise import noise_generator
 from .....ops.pallas.quantized import int8_matmul
-from ..engine import Layer, compute_dtype, get_initializer, param_dtype
+from ..engine import (Layer, compute_dtype, get_initializer, param_dtype,
+                      squeeze_dim)
+
+
+def _hard_sigmoid(x):
+    # Keras-1's clip(0.2 x + 0.5, 0, 1), not jax.nn's relu6(x + 3) / 6
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+def _softplus(x):
+    # jax.nn.softplus: logaddexp(x, 0)
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+
 
 ACTIVATIONS: Dict[str, Callable] = {
     "relu": torch.relu,
+    "relu6": F.relu6,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
+    "hard_sigmoid": _hard_sigmoid,
     "softmax": lambda x: torch.softmax(x, dim=-1),
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    "softplus": _softplus,
+    "softsign": lambda x: x / (1 + torch.abs(x)),
+    "elu": F.elu,
+    "selu": F.selu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu default
+    "swish": F.silu,
+    "silu": F.silu,
     "linear": lambda x: x,
+    "exp": torch.exp,
 }
 
 
@@ -258,3 +286,282 @@ class Select(Layer):
 
     def call(self, x, *, training=False, generator=None):
         return torch.select(x, self.dim, self.index)
+
+
+def _axis(dim: int, ndim: int) -> int:
+    return dim + ndim if dim < 0 else dim
+
+
+class Flatten(Layer):
+    """``keras/layers/Flatten.scala``: ``(B, ...)`` to ``(B, prod)``."""
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], math.prod(input_shape[1:]))
+
+    def call(self, x, *, training=False, generator=None):
+        return x.reshape(x.shape[0], -1)
+
+
+class Reshape(Layer):
+    """``keras/layers/Reshape.scala``: ``target_shape`` excludes the batch
+    dim (one ``-1`` allowed)."""
+
+    def __init__(self, target_shape: Tuple[int, ...], **kwargs):
+        super().__init__(**kwargs)
+        self.target_shape = tuple(target_shape)
+
+    def compute_output_shape(self, input_shape):
+        target = list(self.target_shape)
+        if -1 in target:
+            known = math.prod(d for d in target if d != -1)
+            target[target.index(-1)] = math.prod(input_shape[1:]) // known
+        return (input_shape[0],) + tuple(target)
+
+    def call(self, x, *, training=False, generator=None):
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+
+class Permute(Layer):
+    """``keras/layers/Permute.scala``: ``dims`` are the non-batch axes in
+    their new order, counted from 1 (the batch axis stays first)."""
+
+    def __init__(self, dims: Tuple[int, ...], **kwargs):
+        super().__init__(**kwargs)
+        self.dims = tuple(dims)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + tuple(input_shape[d] for d in self.dims)
+
+    def call(self, x, *, training=False, generator=None):
+        return x.permute((0,) + self.dims)
+
+
+class RepeatVector(Layer):
+    """``keras/layers/RepeatVector.scala``: ``(B, D)`` to ``(B, n, D)``."""
+
+    def __init__(self, n: int, **kwargs):
+        super().__init__(**kwargs)
+        self.n = n
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], self.n) + tuple(input_shape[1:])
+
+    def call(self, x, *, training=False, generator=None):
+        return x.unsqueeze(1).repeat(1, self.n, *([1] * (x.dim() - 1)))
+
+
+class Squeeze(Layer):
+    """Drops dimension ``dim``, which must be 1 (``jnp.squeeze``)."""
+
+    def __init__(self, dim: int, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        del shape[self.dim]
+        return tuple(shape)
+
+    def call(self, x, *, training=False, generator=None):
+        return squeeze_dim(x, self.dim)
+
+
+class ExpandDim(Layer):
+    """Inserts a dimension of 1 at ``dim`` (``jnp.expand_dims``)."""
+
+    def __init__(self, dim: int, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        shape.insert(_axis(self.dim, len(shape) + 1), 1)
+        return tuple(shape)
+
+    def call(self, x, *, training=False, generator=None):
+        return x.unsqueeze(self.dim)
+
+
+class Narrow(Layer):
+    """``keras/layers/Narrow.scala``: ``length`` entries from ``offset``
+    along ``dim`` (Python slice rules)."""
+
+    def __init__(self, dim: int, offset: int, length: int = 1, **kwargs):
+        super().__init__(**kwargs)
+        self.dim, self.offset, self.length = dim, offset, length
+
+    def _slice(self) -> slice:
+        return slice(self.offset, self.offset + self.length)
+
+    def compute_output_shape(self, input_shape):
+        shape = list(input_shape)
+        axis = _axis(self.dim, len(shape))
+        if shape[axis] is not None:
+            shape[axis] = len(range(shape[axis])[self._slice()])
+        return tuple(shape)
+
+    def call(self, x, *, training=False, generator=None):
+        sl = [slice(None)] * x.dim()
+        sl[self.dim] = self._slice()
+        return x[tuple(sl)]
+
+
+class Masking(Layer):
+    """``keras/layers/Masking.scala``: zeroes the timesteps whose every
+    feature equals ``mask_value`` (soft masking, no ragged shapes)."""
+
+    def __init__(self, mask_value: float = 0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.mask_value = mask_value
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        keep = torch.any(x != self.mask_value, dim=-1, keepdim=True)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+
+def _normal_noise(x: torch.Tensor, generator: torch.Generator,
+                  name: str) -> torch.Tensor:
+    if generator is None:
+        raise ValueError(f"{name}: training noise needs a generator")
+    return torch.randn(x.shape, generator=noise_generator(generator,
+                                                          x.device),
+                       device=x.device, dtype=x.dtype)
+
+
+class GaussianNoise(Layer):
+    """``keras/layers/GaussianNoise.scala``: adds ``sigma`` times unit
+    normal noise in training; the identity at inference."""
+
+    def __init__(self, sigma: float, **kwargs):
+        super().__init__(**kwargs)
+        self.sigma = sigma
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        if not training:
+            return x
+        return x + self.sigma * _normal_noise(x, generator, self.name)
+
+
+class GaussianDropout(Layer):
+    """``keras/layers/GaussianDropout.scala``: multiplies by ``1 + s n``,
+    ``s = sqrt(p / (1 - p))``, in training; the identity at inference."""
+
+    def __init__(self, p: float, **kwargs):
+        super().__init__(**kwargs)
+        self.p = p
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        if not training or self.p <= 0:
+            return x
+        stddev = (self.p / (1.0 - self.p)) ** 0.5
+        return x * (1.0 + stddev * _normal_noise(x, generator, self.name))
+
+
+class TimeDistributed(Layer):
+    """``keras/layers/TimeDistributed.scala``: the inner layer on every
+    timestep, by folding time into the batch. The inner layer's weights
+    and state nest under its name, as in the JAX param and state trees."""
+
+    def __init__(self, layer: Layer, **kwargs):
+        super().__init__(**kwargs)
+        self._inner_name = layer.name
+        self.add_module(layer.name, layer)
+
+    @property
+    def layer(self) -> Layer:
+        return self._modules[self._inner_name]
+
+    @staticmethod
+    def _inner(input_shape):
+        return (input_shape[0],) + tuple(input_shape[2:])
+
+    def build(self, input_shape, *, generator):
+        self.layer.build(self._inner(input_shape), generator=generator)
+
+    def compute_output_shape(self, input_shape):
+        out = self.layer.compute_output_shape(self._inner(input_shape))
+        return (input_shape[0], input_shape[1]) + tuple(out[1:])
+
+    def call(self, x, *, training=False, generator=None):
+        b, t = x.shape[0], x.shape[1]
+        y = self.layer(x.reshape((b * t,) + tuple(x.shape[2:])),
+                       training=training, generator=generator)
+        return y.reshape((b, t) + tuple(y.shape[1:]))
+
+
+def _promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as jnp's ``@`` computes it."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
+
+
+class Highway(Layer):
+    """``keras/layers/Highway.scala``: ``t h + (1 - t) x`` with the
+    transform gate ``t = sigmoid(x W_t + b_t)`` (``b_t`` starts at -2)
+    and ``h = activation(x W + b)``."""
+
+    def __init__(self, activation="tanh", bias: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        self.activation = get_activation(activation)
+        self.bias = bias
+
+    def build(self, input_shape, *, generator):
+        d = input_shape[-1]
+        init = get_initializer("glorot_uniform")
+        self.add_weight("W", init(generator, (d, d), param_dtype()))
+        self.add_weight("W_t", init(generator, (d, d), param_dtype()))
+        if self.bias:
+            self.add_weight("b", torch.zeros(d, dtype=param_dtype()))
+            self.add_weight("b_t", torch.full((d,), -2.0,
+                                              dtype=param_dtype()))
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        t = _promoted_matmul(x, self.W_t)
+        h = _promoted_matmul(x, self.W)
+        if self.bias:
+            t = t + self.b_t
+            h = h + self.b
+        t = torch.sigmoid(t)
+        if self.activation is not None:
+            h = self.activation(h)
+        return t * h + (1.0 - t) * x
+
+
+class SparseDense(Layer):
+    """``keras/layers/SparseDense.scala``: a dense layer on one-hot or
+    multi-hot rows given as a dense 0/1 matrix — ``Dense``'s weights
+    (``W``, ``b``) and product."""
+
+    def __init__(self, output_dim: int, init="glorot_uniform",
+                 activation=None, bias: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        self.output_dim, self.init = output_dim, init
+        self.activation = get_activation(activation)
+        self.bias = bias
+
+    def build(self, input_shape, *, generator):
+        self.add_weight("W", get_initializer(self.init)(
+            generator, (input_shape[-1], self.output_dim), param_dtype()))
+        if self.bias:
+            self.add_weight("b", torch.zeros(self.output_dim,
+                                             dtype=param_dtype()))
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
+    def call(self, x, *, training=False, generator=None):
+        y = dense(x, self.W, self.b if self.bias else None, compute_dtype())
+        return y if self.activation is None else self.activation(y)

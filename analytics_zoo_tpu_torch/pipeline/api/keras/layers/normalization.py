@@ -1,5 +1,7 @@
-"""Normalization — port of ``LayerNorm`` from ``analytics_zoo_tpu/pipeline/
-api/keras/layers/normalization.py``."""
+"""Normalization — port of ``LayerNorm`` and ``L2Normalize`` from
+``analytics_zoo_tpu/pipeline/api/keras/layers/normalization.py``
+(``BatchNormalization``, whose state the step updates, is not ported
+yet)."""
 
 from __future__ import annotations
 
@@ -30,3 +32,20 @@ class LayerNorm(Layer):
         var = xf.var(dim=-1, keepdim=True, unbiased=False)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.gamma + self.beta).to(x.dtype)
+
+
+class L2Normalize(Layer):
+    """autograd ``l2Normalize`` as a layer: ``x / sqrt(sum(x^2) + eps)``
+    along ``axis``."""
+
+    def __init__(self, axis: int = -1, epsilon: float = 1e-12, **kwargs):
+        super().__init__(**kwargs)
+        self.axis, self.epsilon = axis, epsilon
+
+    def compute_output_shape(self, input_shape):
+        return input_shape
+
+    def call(self, x, *, training=False, generator=None):
+        norm = torch.sqrt(torch.sum(x * x, dim=self.axis, keepdim=True)
+                          + self.epsilon)
+        return x / norm

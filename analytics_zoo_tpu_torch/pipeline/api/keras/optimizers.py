@@ -39,10 +39,11 @@ size is held beyond the optimizer state and one temporary.
 Each transform also names its state in optax's leaf order
 (``GradientTransformation.slots``): ``"count"`` where optax keeps an
 update count, a per-parameter list of tensors where it keeps a moment.
-Checkpoints write the optimizer state in that order
-(:func:`optax_leaves`), so a snapshot of the JAX package resumes here and
-back; a transform without a counterpart (``multi_optimizer``) has no
-slots.
+A slot over a subset of the parameters (a ``multi_optimizer`` group's)
+is a ``{name: tensor}`` dict. Checkpoints write the optimizer state in
+that order (:func:`optax_leaves`), so a snapshot of the JAX package
+resumes here and back; a transform without an optax counterpart would
+have no slots (``slots=None``).
 """
 
 from __future__ import annotations
@@ -143,9 +144,16 @@ def optax_leaves(opt: GradientTransformation, state, count: int,
     for slot in opt.slots(state):
         if isinstance(slot, str):
             out.append(np.int32(count))
+        elif isinstance(slot, dict):
+            out.extend(t for _, t in _by_path(slot))
         else:
             out.extend(slot[i] for i in order)
     return out
+
+
+def _by_path(slot: Dict[str, torch.Tensor]):
+    """A subset slot's ``(name, tensor)`` pairs in the JAX tree order."""
+    return sorted(slot.items(), key=lambda kv: kv[0].split("."))
 
 
 def load_optax_leaves(opt: GradientTransformation, state, leaves,
@@ -161,8 +169,11 @@ def load_optax_leaves(opt: GradientTransformation, state, leaves,
             if isinstance(slot, str):
                 count = int(np.asarray(next(it)))
                 continue
-            for i in order:
-                slot[i].copy_(torch.as_tensor(np.asarray(next(it))))
+            tensors = ([t for _, t in _by_path(slot)]
+                       if isinstance(slot, dict) else
+                       [slot[i] for i in order])
+            for t in tensors:
+                t.copy_(torch.as_tensor(np.asarray(next(it))))
     return count
 
 
@@ -606,7 +617,12 @@ def multi_optimizer(rules: Dict[str, Union[str, GradientTransformation]],
     prefixes its layer's name (the first component of the parameter's
     name, the JAX param tree's top-level key), else to ``default`` (an
     explicit ``"__default__"`` rule wins over it), as
-    ``optax.multi_transform`` routes them."""
+    ``optax.multi_transform`` routes them.
+
+    The state keeps each group's state beside the names of the parameters
+    it owns. Its slots are ``optax.multi_transform``'s leaves: the groups
+    in sorted label order, each with its own transform's slots over only
+    the parameters it owns (a masked parameter leaves no leaf)."""
     keys = list(rules)
     transforms = {k: get_optimizer(v) for k, v in rules.items()}
     transforms.setdefault("__default__", get_optimizer(default))
@@ -621,23 +637,34 @@ def multi_optimizer(rules: Dict[str, Union[str, GradientTransformation]],
             n: t for n, t in tree.items() if label(n) == lab}
 
     def init(params):
-        return {k: t.init(part(params, k)) for k, t in transforms.items()}
+        return {"groups": {k: t.init(part(params, k))
+                           for k, t in transforms.items()},
+                "owned": {k: list(part(params, k)) for k in transforms}}
 
     def update(updates, state, params=None, scalars=None):
         at = 0
         for k, t in transforms.items():
             mine = part(updates, k)
             if mine:
-                t.update(mine, state[k], part(params, k),
+                t.update(mine, state["groups"][k], part(params, k),
                          _row_slice(scalars, at, sizes[k]))
             at += sizes[k]
         return updates, state
 
     def values(count):
         return [v for t in transforms.values() for v in t.scalars(count)]
-    # optax.multi_transform's state nests each group's state under masked
-    # trees the port does not form: no optax layout (slots None)
-    return GradientTransformation(init, update, values, None)
+
+    slots = None
+    if all(t.slots is not None for t in transforms.values()):
+        def slots(state):
+            out: List[Any] = []
+            for k in sorted(transforms):
+                names = state["owned"][k]
+                for slot in transforms[k].slots(state["groups"][k]):
+                    out.append(slot if isinstance(slot, str)
+                               else dict(zip(names, slot)))
+            return out
+    return GradientTransformation(init, update, values, slots)
 
 
 def with_clipping(opt: GradientTransformation,

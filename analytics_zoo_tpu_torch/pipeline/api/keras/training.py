@@ -24,9 +24,9 @@ What the JAX loop does and this one keeps:
   trigger), with one read of the device a block. On CUDA a multi-step
   dispatch is the replay of a captured CUDA graph;
 * no host sync inside an epoch (or a fused block): batches go to the
-  device through pinned memory without blocking, step losses (and flag
-  words) stay on the device and are read once at the epoch's (the
-  block's) end;
+  device through pinned memory without blocking, step losses stay on the
+  device and are read once at the epoch's (the block's) end (flag words
+  are copied to the host as they come and read four dispatches late);
 * the optimizer's count and per-step values: the count is kept beside
   the optimizer state (``model.opt_state``) and continues over fits; the
   host computes each step's scalars and every path's update reads them
@@ -40,8 +40,9 @@ What the JAX loop does and this one keeps:
   optimizer state on the device (a select against pre-step copies, so
   a healthy step keeps the update's bits) without advancing the count,
   which then lives on the device (:class:`dispatch.Guard`). The host reads
-  the flags with the losses and keeps the books (:class:`_SentinelMonitor`:
-  counters, ``train.anomaly`` events, the skip budget); past
+  each dispatch's flags four dispatches late, as the JAX loop does, and
+  keeps the books (:class:`_SentinelMonitor`: counters, ``train.anomaly``
+  events, the skip budget); past
   ``zoo.train.max_skips_per_epoch`` it rolls back to the last good
   snapshot and replays with the flagged window skipped, at most
   ``zoo.train.max_rollbacks`` times a fit (``TrainingDiverged`` after);
@@ -104,7 +105,7 @@ from ....utils.checkpoint import (MESH_ONE_DEVICE,
                                   CheckpointArchitectureError,
                                   CheckpointManager)
 from . import dispatch, objectives
-from .engine import load_param_tree
+from .engine import load_param_tree, named_state
 from .metrics import Metric
 from .optimizers import (GradientTransformation, apply_updates,
                          load_optax_leaves, optax_leaves, scalar_rows)
@@ -112,7 +113,7 @@ from .optimizers import (GradientTransformation, apply_updates,
 log = logging.getLogger("analytics_zoo_tpu_torch")
 
 #: the manifest meta of a snapshot whose optimizer state has no optax
-#: layout (``multi_optimizer``): its leaves are the port's own order
+#: layout (a transform without slots): its leaves are the port's own order
 OPT_STATE_ORDER = ("opt_state_order", "analytics_zoo_tpu_torch")
 
 
@@ -265,13 +266,22 @@ class _SentinelMonitor:
     """Host-side bookkeeping for the packed per-step sentinel flags
     (``common/anomaly.py``; one int32 per step), the JAX loop's monitor:
     counters, ``train.anomaly`` events, the per-epoch skip budget and the
-    rollback replay set. The flags are read once an epoch, with the step
-    losses, and the budget is checked after each dispatch's words in
-    dispatch order. The JAX monitor reads each dispatch's flags four
-    dispatches late, so where the budget runs out before an epoch's last
-    four dispatches it escalates before running them, and the port runs
-    them first (their steps are discarded by the rollback either way;
-    their ``train.grads`` site calls are made)."""
+    rollback replay set.
+
+    Flag reads trail the dispatch stream by ``LAG`` dispatches, as in the
+    JAX loop, so observing them never waits on the step in flight: after
+    each dispatch its flag words are copied, without a host wait, into the
+    next of a ring of ``LAG + 1`` host buffers (pinned, with a CUDA event
+    each, on a CUDA device; a captured program's words live in its static
+    buffer, so the copy is queued after its replay and before the next).
+    Once more than ``LAG`` dispatches are pending the oldest is read (its
+    event waited for); the rest are read at the epoch's end. The budget
+    check and the escalation therefore happen at the JAX loop's
+    iteration, and a ``train.grads`` fault plan sees the same site
+    calls."""
+
+    #: dispatches a flag word may trail the stream before being read
+    LAG = 4
 
     def __init__(self, loop: "TrainingLoop", cfg: anomaly.SentinelConfig):
         self.loop = loop
@@ -282,9 +292,13 @@ class _SentinelMonitor:
         self.epoch_skips = 0
         self.epoch_flags: List[int] = []    # one per recorded loss
         self.epoch_step_iters: List[int] = []   # global iter per loss
+        self._ring: List[Optional[torch.Tensor]] = [None] * (self.LAG + 1)
+        self._events: List[Optional[torch.cuda.Event]] = \
+            [None] * (self.LAG + 1)
+        self._slot = 0
 
     def begin_epoch(self, epoch: int, start_iter: int) -> None:
-        self.pending.clear()
+        self.drain()                        # belongs to the PREVIOUS epoch
         self.epoch = epoch
         self.epoch_start = start_iter
         self.epoch_skips = 0
@@ -297,24 +311,54 @@ class _SentinelMonitor:
         global iterations shift after a mid-epoch restore."""
         return (self.epoch, it - self.epoch_start)
 
-    def push(self, first_iter: int, k: int) -> None:
-        """One dispatch of ``k`` steps (its flags come with the read)."""
+    def push(self, first_iter: int, flags: torch.Tensor) -> None:
+        """Queue one dispatch's flag words (``k`` int32 on the device);
+        reads the oldest pending dispatch once more than ``LAG`` are
+        pending, which may raise :class:`_RollbackRequested`."""
+        k = int(flags.numel())
         self.epoch_step_iters.extend(range(first_iter, first_iter + k))
-        self.pending.append((first_iter, k))
+        self.pending.append((first_iter, *self._stage(flags.view(-1))))
+        if len(self.pending) > self.LAG:
+            self._drain_one()
+
+    def _stage(self, flags: torch.Tensor):
+        """Copies ``flags`` into the ring's next host buffer without a host
+        wait; returns the buffer's view and its event (None on the CPU).
+        The slot reused was pushed ``LAG + 1`` dispatches ago and has been
+        read."""
+        slot = self._slot
+        self._slot = (slot + 1) % len(self._ring)
+        k = flags.numel()
+        buf = self._ring[slot]
+        if buf is None or buf.numel() < k:
+            buf = self._ring[slot] = torch.empty(
+                k, dtype=flags.dtype, pin_memory=flags.is_cuda)
+        view = buf[:k]
+        view.copy_(flags, non_blocking=flags.is_cuda)
+        if not flags.is_cuda:
+            return view, None
+        event = self._events[slot]
+        if event is None:
+            event = self._events[slot] = torch.cuda.Event()
+        event.record()
+        return view, event
 
     def note_replay_skip(self, k: int) -> None:
         """``k`` steps of a rollback replay were not re-dispatched (the
         offending data window) — counted as skipped, no loss recorded."""
         self.loop._m_skipped.inc(k)
 
-    def drain(self, words: np.ndarray) -> None:
-        """The epoch's flag words, in dispatch order, against the pushes;
-        raises :class:`_RollbackRequested` past the skip budget."""
-        at = 0
+    def drain(self) -> None:
+        """Reads every pending dispatch (may raise
+        :class:`_RollbackRequested`)."""
         while self.pending:
-            first_iter, k = self.pending.popleft()
-            self._observe(first_iter, words[at:at + k])
-            at += k
+            self._drain_one()
+
+    def _drain_one(self) -> None:
+        first_iter, view, event = self.pending.popleft()
+        if event is not None:
+            event.synchronize()
+        self._observe(first_iter, view.numpy())
 
     def _observe(self, first_iter: int, words) -> None:
         loop = self.loop
@@ -458,7 +502,10 @@ class TrainingLoop:
         return next(self.model.parameters()).device
 
     def _params(self) -> Dict[str, torch.Tensor]:
-        return {n: p for n, p in self.model.named_parameters()
+        """The trained parameters under their JAX param-tree paths
+        (dotted), so a name's first component is its layer's tree key, as
+        ``multi_optimizer``'s routing reads it."""
+        return {n: p for n, p in tree_module(self.model).named_parameters()
                 if p.requires_grad}
 
     def _tree_params(self) -> Dict[str, torch.Tensor]:
@@ -677,11 +724,12 @@ class TrainingLoop:
         return int(opt["count"])
 
     def _checkpoint_trees(self, named: Dict[str, torch.Tensor], opt_state,
-                          count: int):
+                          count: int, state: Dict[str, Any]):
         """``(trees, meta)`` of a snapshot in the JAX format: the param tree
         (nested dicts), the optimizer state as optax's leaves (the port's
         own order, said so in ``meta``, when it has no optax layout) and
-        an empty net state."""
+        the net state tree of the constant model state (``state``, dotted
+        paths)."""
         names = list(self._params())
         opt_leaves = optax_leaves(self.optimizer, opt_state, count, names)
         meta = {}
@@ -690,7 +738,11 @@ class TrainingLoop:
                           + dispatch._leaves(opt_state))
             meta[OPT_STATE_ORDER[0]] = OPT_STATE_ORDER[1]
         return ({"params": _param_tree(named), "opt_state": opt_leaves,
-                 "net_state": {}}, meta)
+                 "net_state": _param_tree(state)}, meta)
+
+    def _tree_state(self) -> Dict[str, torch.Tensor]:
+        """The constant model state under its JAX net-state path."""
+        return named_state(tree_module(self.model))
 
     def _save_checkpoint(self, mgr: CheckpointManager, loop_state, params,
                          opt, sync: bool = False) -> None:
@@ -699,7 +751,8 @@ class TrainingLoop:
         manager's writer thread; ``sync=True`` (the SIGTERM path) blocks
         until committed."""
         trees, extra = self._checkpoint_trees(
-            self._tree_params(), opt["state"], self._count_now(opt))
+            self._tree_params(), opt["state"], self._count_now(opt),
+            self._tree_state())
         mgr.save(loop_state.iteration, trees,
                  meta={"epoch": loop_state.epoch,
                        "iteration": loop_state.iteration,
@@ -729,7 +782,7 @@ class TrainingLoop:
         count = int(opt["count"])
         templates, extra = self._checkpoint_trees(
             {n: _shape_of(p) for n, p in named.items()}, opt["state"],
-            count)
+            count, {n: _shape_of(t) for n, t in self._tree_state().items()})
         templates["opt_state"] = [
             t if not isinstance(t, torch.Tensor) else _shape_of(t)
             for t in templates["opt_state"]]
@@ -750,7 +803,8 @@ class TrainingLoop:
                 f" — a snapshot of an optimizer without an optax layout "
                 f"restores only in the package that wrote it, under the "
                 f"same optimizer")
-        load_param_tree(tree_module(self.model), trees["params"])
+        load_param_tree(tree_module(self.model), trees["params"],
+                        trees["net_state"])
         with torch.no_grad():
             leaves = trees["opt_state"]
             if extra:
@@ -880,7 +934,8 @@ class TrainingLoop:
         log.warning("SIGTERM: estimated %.2fs to the next step boundary "
                     "exceeds the %.2fs grace budget; cutting a mid-epoch "
                     "snapshot at iteration %d now", eta, grace, iteration)
-        trees, extra = self._checkpoint_trees(named, opt_state, count)
+        trees, extra = self._checkpoint_trees(named, opt_state, count,
+                                              self._tree_state())
         try:
             mgr.save(iteration, trees,
                      meta={"epoch": epoch, "iteration": iteration,
@@ -1183,7 +1238,7 @@ class TrainingLoop:
                 dispatches = self._eager_dispatches(
                     fs, epoch, ctx.seed, loop_state.iteration, batch_size,
                     params, opt, rows, guard)
-            losses, flags = [], []
+            losses = []
             n_seen = 0
             for k, run in dispatches:
                 # host batch assembly since the last dispatch
@@ -1206,8 +1261,7 @@ class TrainingLoop:
                     self._gp_note("device_step")
                     losses.append(step_l)
                     if monitor is not None:
-                        flags.append(step_f)
-                        monitor.push(prev_iter, k)
+                        monitor.push(prev_iter, step_f)
                     if guard is None:
                         opt["count"] += k
                     loop_state.iteration += k
@@ -1220,19 +1274,17 @@ class TrainingLoop:
                     stop = True
                     break
             completed = not stop  # stop=True means the epoch was cut short
-            # the epoch's one read of the device: losses (and flag words
-            # and the device count)
+            # the epoch's one read of the device: losses (and the device
+            # count; the flag words of the last dispatches first)
             if monitor is not None:
+                # escalation may raise here, before the boundary snapshot
+                monitor.drain()
                 parts = [torch.cat(losses).double()] if losses else []
-                parts += [torch.cat(flags).double()] if flags else []
                 host = torch.cat(parts + [guard.count.double().view(1)]
                                  ).cpu().numpy()
-                n = sum(int(t.numel()) for t in losses)
-                lv = host[:n].astype(np.float32)
+                lv = host[:-1].astype(np.float32)
                 opt["count"] = int(host[-1])
-                # escalation may raise here, before the boundary snapshot
-                monitor.drain(host[n:2 * n].astype(np.int64))
-                lmask = monitor.loss_mask(n)
+                lmask = monitor.loss_mask(len(lv))
                 epoch_loss = (float(lv[lmask].mean()) if lmask.any()
                               else float("nan"))
             else:

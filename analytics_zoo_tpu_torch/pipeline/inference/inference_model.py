@@ -219,7 +219,8 @@ class InferenceModel:
         fallback, READ-ONLY (``quarantine=False``): this process does not
         own the directory, and what looks uncommitted may be a live
         training run's save in flight."""
-        from ...pipeline.api.keras.engine import load_param_tree
+        from ...pipeline.api.keras.engine import (load_param_tree,
+                                                  named_state)
         from ...pipeline.api.keras.training import (_param_tree, _shape_of,
                                                     tree_module)
         from ...utils.checkpoint import CheckpointManager
@@ -230,10 +231,12 @@ class InferenceModel:
         out = mgr.restore_latest(
             {"params": _param_tree({n: _shape_of(p)
                                     for n, p in net.named_parameters()}),
-             "net_state": {}}, quarantine=False)
+             "net_state": _param_tree({n: _shape_of(t) for n, t
+                                       in named_state(net).items()})},
+            quarantine=False)
         if out is None:
             raise FileNotFoundError(f"no valid snapshot in {ckpt_dir}")
-        load_param_tree(net, out[1]["params"])
+        load_param_tree(net, out[1]["params"], out[1]["net_state"])
         return self.from_keras(model, dtype=dtype, quantize=quantize,
                                calibrate=calibrate)
 

@@ -105,6 +105,26 @@
    once more with the device permutation replaced by the FeatureSet's own
    order: its step losses against the eager loop's (the same bits, or
    within 1e-6 relative, printed which).
+10b. Wide & Deep phase: the JAX bench's Census configuration
+   (``bench.py:105-160``: 200,000 synthetic rows from numpy seed 1,
+   ``WideAndDeep("wide_n_deep", 2, hidden (40, 20, 10))``, wide dims 2,
+   10, 20, indicator 16, embeds 10 -> 16 twice, two continuous columns)
+   through ``NNClassifier`` (``feature_preprocessing`` =
+   ``info.input_arrays``), Adam 1e-3, batch 8192, under the bench's keys
+   (``scan_steps=16``, ``device_cache``, ``fuse_epochs=12``): a warm-up
+   ``clf.fit(table)`` and a warm-up 6-epoch ``fit_feature_set``, then
+   three timed 6-epoch dispatches, each in turns with the same fit on the
+   eager loop; prints ``wide_deep_train_samples_per_sec`` (median of the
+   dispatches' best epochs) and ``wide_deep_max_samples_per_sec``, and,
+   for one profiled fit of each loop, the device's busy share, the top
+   kernels with their share and the embedding gradient's share. Gates:
+   the captured fit's per-epoch losses against the eager fit's in the
+   same batch order (bits, else 1e-4), the loss falling,
+   ``NNClassifierModel.transform`` = argmax of ``predict``, ``NNModel.save``
+   here and ``NNModel.load(...).transform`` in a child process the same
+   predictions bit for bit, and an ``Estimator(optim_methods={"dense":
+   "sgd"}, model_dir=...)`` run resumed from its snapshot after epoch 2
+   ending on the uninterrupted run's parameters (bits, else 1e-3).
 
 11. int8 kernel phase: K6 (the int8 weight-only dequant-matmul,
    ``csrc/quantized.cu``) against its plain version in f32 and bf16 at
@@ -232,7 +252,9 @@
    guarded step's cost in turns (off, recover, recover, off; an empty
    plan gives sentinel-off's bits). (d) A rollback past
    ``max_skips_per_epoch=1`` to ``ckpt-8``, the replay skipping the
-   flagged steps. (e) A child process fitting with ``on_sigterm`` is
+   flagged steps; the ``train.grads`` site calls (30) and, for each
+   flagged step, the calls made when the host read its flags: four
+   dispatches late or at the epoch's end, the JAX loop's lag. (e) A child process fitting with ``on_sigterm`` is
    signalled at its epoch-1 callback and exits through
    ``TrainingPreempted`` with ``ckpt-9`` (signal to commit printed); a
    second child resumes it and ends on this process's resume's bits
@@ -242,6 +264,11 @@
    count held and the eager guarded run's bits, ``device_cache`` turned
    off with the warning, one compile counted a capture. (g) Goodput
    plus badput is each ledger's wall on (c) and (d).
+
+Device kernel lists (``device_kernels``, ``step_kernels``) name each
+kernel without its return type, namespaces and arguments, and leave
+memcpy and memset records out; two captures of one call that disagree
+are both printed.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
@@ -327,6 +354,26 @@ NCF_KEYED_CONF = {"zoo.train.scan_steps": 16, "zoo.train.device_cache": True,
 NCF_STEP_REL_TOL = 1e-6
 #: DLRM-Terabyte's width: 26 sparse features of dimension 128, batch 2048
 DLRM_D, DLRM_N, DLRM_V = 128, 2048 * 26, 1_000_000
+
+#: the JAX bench's Wide & Deep configuration (bench.py:105-160): 200,000
+#: Census-shaped rows from numpy seed 1, WideAndDeep("wide_n_deep", 2,
+#: hidden (40, 20, 10)) through NNClassifier, Adam 1e-3, batch 8192, six
+#: epochs a timed dispatch under the bench's keys (bench.py:1261-1262)
+WD_ROWS, WD_BATCH, WD_EPOCHS = 200_000, 8192, 6
+WD_KEYED_CONF = {"zoo.train.scan_steps": 16, "zoo.train.device_cache": True,
+                 "zoo.train.fuse_epochs": 12}
+#: the captured fit against the eager fit in the same batch order, and a
+#: resumed Estimator fit against the uninterrupted one: the same ops on
+#: the same values, so the same bits are expected and printed; but the
+#: embedding tables' backward (``table[ids]``'s ``index_put_`` with
+#: accumulation, 8,192 rows onto 10-row and 32-row tables) adds in an
+#: order the card does not fix, and Adam turns the last bits of a
+#: gradient that nearly cancels into a fraction of a step on that weight
+#: (on the CPU, one weight of a 96-step Census fit moved 1.1e-4 that way
+#: while the losses stayed within 1e-6): per-epoch losses are held to
+#: 1e-4 relative and parameters to 1e-3 absolute when the bits differ
+WD_LOSS_REL_TOL = 1e-4
+WD_PARAM_TOL = 1e-3
 
 #: config A, the JAX bench's weight-streaming scoring head
 #: (bench.py:797-815): 3 x Dense(4096) + Dense(8), 256 seeded rows
@@ -1492,30 +1539,71 @@ def rel_err(a, b):
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
 
 
+def kernel_name(raw):
+    """A device kernel's name without its return type, its namespaces and
+    its argument list, its template arguments kept: ``void
+    (anonymous namespace)::ce_fwd_wgmma<256>(float const*, ...)`` reads
+    ``ce_fwd_wgmma<256>``, ``void at::native::vectorized_elementwise_
+    kernel<4, ...>(...)`` reads ``vectorized_elementwise_kernel<4, ...>``
+    (cut to 80 characters)."""
+    s = raw.replace("(anonymous namespace)::", "")
+    if s.startswith("void "):
+        s = s[len("void "):]
+    depth, end, start = 0, len(s), 0
+    for i, ch in enumerate(s):
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif depth == 0 and ch == "(":
+            end = i
+            break
+        elif depth == 0 and s.startswith("::", i):
+            start = i + 2
+    return s[start:end][:80]
+
+
+def is_kernel_event(name):
+    """A profiler device record that is a kernel launch, not a copy or a
+    fill."""
+    return not name.startswith(("Memcpy", "Memset"))
+
+
 def device_kernels(fn):
-    """The names of the device kernels one call of ``fn`` launches (after a
-    warm-up call), from ``torch.profiler``. A capture that holds no
-    device event at all is taken again, up to three times: on the card a
-    capture of one call of a few microseconds came back empty once in
-    three runs (CUPTI's records of it not delivered), which says nothing
-    of the kernels; a call that launches none still fails."""
+    """The names (:func:`kernel_name`) of the device kernels one call of
+    ``fn`` launches, from ``torch.profiler``: a warm-up call, then two
+    captured calls; memcpy and memset records are not kernels and are
+    left out. Where the two captures disagree both lists are printed and
+    the longer is returned. A capture that holds no kernel at all is taken
+    again, up to three times: on the card a capture of one call of a few
+    microseconds came back empty once in three runs (CUPTI's records of
+    it not delivered), which says nothing of the kernels; a call that
+    launches none still fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    names = []
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-        print(f"device_kernels: capture {attempt + 1} of one call held no "
-              f"device event; taking it again")
-    check(names, "the profiler recorded no device kernel")
-    return [name.split("(")[0][-60:] for name in names]
+
+    def capture():
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [kernel_name(e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and is_kernel_event(e.name)]
+            if names:
+                return names
+            print(f"device_kernels: capture {attempt + 1} of one call held "
+                  f"no kernel; taking it again")
+        return []
+
+    first, second = capture(), capture()
+    check(first and second, "the profiler recorded no device kernel")
+    if first != second:
+        print(f"device_kernels: two captures of one call disagree: "
+              f"{json.dumps(first)} vs {json.dumps(second)}")
+    return max(first, second, key=len)
 
 
 class unfused_epilogue:
@@ -4180,8 +4268,9 @@ def step_kernels(net, xb, yb, loss_fn):
     from torch.profiler import ProfilerActivity, profile
 
     def names(prof):
-        return [e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        return [kernel_name(e.name) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and is_kernel_event(e.name)]
     net.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as fwd:
@@ -4529,6 +4618,366 @@ def embed_kernel_rows(embed_rows, launches):
 
 #: the reliability phase (slice 15): BERT-base as in the training phase,
 #: 3 epochs of 8 steps a run; snapshots keep 2 under a temporary directory
+def wide_deep_table():
+    """The JAX bench's synthetic Census rows (``bench.py:116-127``, numpy
+    seed 1; ``WD_ROWS`` of them) and its ``ColumnFeatureInfo``
+    (``:128-134``)."""
+    import numpy as np
+    n = WD_ROWS
+
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        ColumnFeatureInfo
+    rng = np.random.default_rng(1)
+    table = {
+        "gender": rng.integers(0, 2, n),
+        "occupation": rng.integers(0, 10, n),
+        "education": rng.integers(0, 16, n),
+        "age_bucket": rng.integers(0, 10, n),
+        "hours": rng.normal(size=n).astype(np.float32),
+        "capital_gain": rng.normal(size=n).astype(np.float32),
+    }
+    table["gender_x_occupation"] = table["gender"] * 10 + table["occupation"]
+    table["label"] = ((table["occupation"] + table["education"]) % 2
+                      ).astype(np.int32)
+    info = ColumnFeatureInfo(
+        wide_base_cols=["gender", "occupation"], wide_base_dims=[2, 10],
+        wide_cross_cols=["gender_x_occupation"], wide_cross_dims=[20],
+        indicator_cols=["education"], indicator_dims=[16],
+        embed_cols=["occupation", "age_bucket"], embed_in_dims=[10, 10],
+        embed_out_dims=[16, 16],
+        continuous_cols=["hours", "capital_gain"])
+    return table, info
+
+
+WD_CHILD = r"""
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from analytics_zoo_tpu_torch.pipeline.nnframes import NNClassifierModel, NNModel
+m = NNModel.load({path!r})
+assert isinstance(m, NNClassifierModel), type(m).__name__
+assert m.model._loop is None and m.model.opt_state is None
+table, _ = chip_smoke.wide_deep_table()
+np.save({out!r}, m.transform(table)["prediction"])
+print("child: NNModel.load + transform on", m.model.device)
+"""
+
+
+def wide_deep_conf(keyed):
+    return {"zoo.seed": 0, "zoo.compute.dtype": "float32",
+            **(WD_KEYED_CONF if keyed else {})}
+
+
+def wide_deep_model(info):
+    """A fresh WideAndDeep at the bench's width on the card, its weights
+    from ``zoo.seed`` 0 (names from a reset uid counter)."""
+    from analytics_zoo_tpu_torch.models.recommendation import WideAndDeep
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    reset_uids()
+    return WideAndDeep("wide_n_deep", 2, info, hidden_layers=(40, 20, 10),
+                       device="cuda").init_weights()
+
+
+def top_kernels(fn, top=8):
+    """``fn()`` under ``torch.profiler`` once: the device's busy share of
+    the wall window (as :func:`profiled_busy_share`), each device kernel's
+    summed time by :func:`kernel_name`, the largest ``top`` with their
+    share of the kernels' time, and the embedding gradient's share
+    (``index_put_``'s sort and accumulation, the tables' backward). None
+    when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, spans, window = {}, [], [float("inf"), float("-inf")]
+    for e in prof.events():
+        tr = e.time_range
+        window[0] = min(window[0], tr.start)
+        window[1] = max(window[1], tr.end)
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and is_kernel_event(e.name)):
+            name = kernel_name(e.name)
+            by_name[name] = by_name.get(name, 0.0) + (tr.end - tr.start)
+            spans.append((tr.start, tr.end))
+    total = sum(by_name.values())
+    if not total:
+        return None
+    order = sorted(by_name.items(), key=lambda kv: -kv[1])
+    embed = sum(us for name, us in by_name.items()
+                if "indexing_backward" in name
+                or "radix" in name.lower().replace("_", ""))
+    return {"busy_share": busy_share(spans, *window),
+            "kernel_ms": total / 1e3, "kernels": len(by_name),
+            "embedding_grad_share": embed / total,
+            "top": [{"name": n, "share": us / total, "ms": us / 1e3}
+                    for n, us in order[:top]]}
+
+
+def wide_deep_estimator(info, optim_methods=None, model_dir=None):
+    """An Estimator over a fresh :func:`wide_deep_model` (Adam 1e-3
+    unless ``optim_methods`` says otherwise)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import adam
+    from analytics_zoo_tpu_torch.pipeline.estimator import Estimator
+    return Estimator(wide_deep_model(info),
+                     optim_methods=optim_methods or adam(1e-3),
+                     model_dir=model_dir)
+
+
+def wide_deep_fit(est, fs, epochs, keyed, callbacks=()):
+    """``epochs`` more epochs of ``est``'s model (scce), under the bench's
+    keys or on the eager loop; the per-epoch losses."""
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    init_zoo_context(conf=wide_deep_conf(keyed))
+    return est.train(fs, "scce", batch_size=WD_BATCH, nb_epoch=epochs,
+                     callbacks=callbacks)["loss"]
+
+
+def bits_or_close(name, got, want, tol, absolute):
+    """Whether two float arrays are the same bits, and their largest
+    difference (relative or absolute); checks it against ``tol`` when the
+    bits differ."""
+    import numpy as np
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    bits = got.shape == want.shape and bool(np.array_equal(
+        got.view(np.int32), want.view(np.int32)))
+    diff = np.abs(got - want)
+    diff = float(np.max(diff if absolute else diff / np.abs(want)))
+    print(f"wide&deep {name}: the same bits {bits}"
+          + ("" if bits else f", largest {'absolute' if absolute else 'relative'}"
+             f" difference {diff:.3e} (tolerance {tol})"))
+    check(got.shape == want.shape and (bits or diff <= tol),
+          f"wide&deep {name}: differ by {diff}")
+    return {"same_bits": bits, "max_diff": diff}
+
+
+def wide_deep_phase():
+    """The JAX bench's Wide & Deep channel on the card (``bench.py:
+    105-160``): 200,000 Census-shaped rows, ``WideAndDeep("wide_n_deep",
+    2, hidden (40, 20, 10))`` through ``NNClassifier`` with
+    ``feature_preprocessing`` = ``info.input_arrays`` (a
+    ``functools.partial``, so the fitted model pickles), Adam 1e-3, batch
+    8192, under the bench's keys (``scan_steps=16``, ``device_cache``,
+    ``fuse_epochs=12``): one warm-up ``clf.fit(table)``, one warm-up
+    6-epoch ``fit_feature_set``, then three timed 6-epoch dispatches;
+    ``wide_deep_train_samples_per_sec`` is the median over the dispatches
+    of each one's best epoch throughput, ``wide_deep_max_samples_per_sec``
+    the largest. In turns with each dispatch, the same 6-epoch fit on the
+    eager loop (keys off) of a second model. One dispatch of each is
+    profiled: the device's busy share and the top kernels with their
+    share, the embedding gradient's among them.
+
+    Gates: the captured fit against the eager fit from the same weights
+    in the same batch order (the device permutation replaced by the
+    FeatureSet's order), per-epoch losses: bits or ``WD_LOSS_REL_TOL``;
+    the loss falls from the first epoch to the last;
+    ``NNClassifierModel.transform``'s prediction is the argmax of
+    ``model.predict`` (training accuracy printed); ``NNModel.save`` here
+    and ``NNModel.load(...).transform`` in a child process give the same
+    predictions bit for bit; ``Estimator(model, optim_methods={"dense":
+    "sgd"}, model_dir=...)`` (the deep tower's Dense layers on sgd, the
+    rest on Adam: ``multi_optimizer``'s slots) for 3 epochs with
+    ``EveryEpoch`` snapshots, and a second model resumed from the
+    snapshot after epoch 2 for the third: the uninterrupted run's
+    parameters, bits or ``WD_PARAM_TOL``."""
+    import functools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature import FeatureSet
+    from analytics_zoo_tpu_torch.pipeline.api.keras import dispatch
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import adam
+    from analytics_zoo_tpu_torch.pipeline.nnframes import NNClassifier
+    from analytics_zoo_tpu_torch.utils.prediction import probs_to_classes
+
+    t_phase = time.perf_counter()
+    table, info = wide_deep_table()
+    out = {"rows": WD_ROWS, "batch": WD_BATCH, "epochs_a_dispatch": WD_EPOCHS,
+           "keys": WD_KEYED_CONF}
+
+    # -- the bench's path under its keys ---------------------------------
+    init_zoo_context(conf=wide_deep_conf(True))
+    model = wide_deep_model(info)
+    prep = functools.partial(info.input_arrays, model_type="wide_n_deep")
+    clf = (NNClassifier(model, feature_preprocessing=prep)
+           .set_optim_method(adam(1e-3)).set_batch_size(WD_BATCH)
+           .set_max_epoch(1))
+    t0 = time.perf_counter()
+    fitted = clf.fit(table)                      # warm-up epoch (capture)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    fs = FeatureSet.array(clf._features(table), clf._label(table))
+    loop = model._loop
+    loop.fit_feature_set(fs, batch_size=WD_BATCH, nb_epoch=WD_EPOCHS)
+    steps = WD_EPOCHS * fs.steps_per_epoch(WD_BATCH)
+
+    # the eager loop's model (keys off), warmed up the same way
+    init_zoo_context(conf=wide_deep_conf(False))
+    eager = wide_deep_estimator(info)
+    wide_deep_fit(eager, fs, 1, keyed=False)
+
+    disp, eager_sps, losses = [], [], []
+    for _ in range(3):
+        init_zoo_context(conf=wide_deep_conf(True))
+        records = []
+        t0 = time.perf_counter()
+        loop.fit_feature_set(fs, batch_size=WD_BATCH, nb_epoch=WD_EPOCHS,
+                             callbacks=[records.append])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        disp.append(max(r["throughput"] for r in records))
+        losses += [r["loss"] for r in records]
+        records = []
+        t0 = time.perf_counter()
+        wide_deep_fit(eager, fs, WD_EPOCHS, keyed=False,
+                      callbacks=[records.append])
+        torch.cuda.synchronize()
+        eager_sps.append(max(r["throughput"] for r in records))
+        print(f"wide&deep: keyed dispatch {len(disp)}: {steps} steps in "
+              f"{wall:.3f}s, best epoch {disp[-1]:.1f} samples/s; eager "
+              f"best epoch {eager_sps[-1]:.1f} samples/s")
+    out.update(wide_deep_train_samples_per_sec=float(np.median(disp)),
+               wide_deep_max_samples_per_sec=float(max(disp)),
+               keyed_dispatch_samples_per_sec=disp,
+               eager_samples_per_sec=eager_sps,
+               eager_median_samples_per_sec=float(np.median(eager_sps)),
+               warmup_s=warm, steps_a_dispatch=steps)
+    print(f"wide&deep: wide_deep_train_samples_per_sec "
+          f"{out['wide_deep_train_samples_per_sec']:.1f}, "
+          f"wide_deep_max_samples_per_sec "
+          f"{out['wide_deep_max_samples_per_sec']:.1f} (bench keys, "
+          f"median/max of 3 dispatches of {WD_EPOCHS} epochs); eager loop "
+          f"median {out['eager_median_samples_per_sec']:.1f}; first "
+          f"clf.fit (captures) {warm:.1f}s")
+
+    # -- busy share and top kernels, one dispatch of each ----------------
+    for name, keyed, fn in (
+            ("keyed", True, lambda: loop.fit_feature_set(
+                fs, batch_size=WD_BATCH, nb_epoch=WD_EPOCHS)),
+            ("eager", False, lambda: wide_deep_fit(eager, fs, WD_EPOCHS,
+                                                   keyed=False))):
+        init_zoo_context(conf=wide_deep_conf(keyed))
+        trace = top_kernels(fn)
+        out[f"{name}_trace"] = trace
+        if trace is None:
+            print(f"wide&deep {name}: device busy share, kernels and the "
+                  f"embedding gradient's share not measured (the profiler "
+                  f"saw no device time)")
+            continue
+        print(f"wide&deep {name}: device busy "
+              f"{100 * trace['busy_share']:.1f}% of one profiled "
+              f"{WD_EPOCHS}-epoch fit ({trace['kernel_ms']:.3f} ms of "
+              f"kernels, {trace['kernel_ms'] / steps:.4f} a step); the "
+              f"embedding gradient (index_put sort + accumulate) "
+              f"{100 * trace['embedding_grad_share']:.1f}% of kernel "
+              f"time; top kernels {json.dumps(trace['top'])}")
+
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"wide&deep loss gate: {losses}")
+
+    # -- captured against eager in the FeatureSet's order ----------------
+    order = dispatch.device_permutation
+    dispatch.device_permutation = (
+        lambda n, seed, device: torch.from_numpy(
+            np.random.default_rng(seed).permutation(n)).to(device))
+    try:
+        init_zoo_context(conf=wide_deep_conf(True))
+        a = wide_deep_estimator(info)
+        ha = wide_deep_fit(a, fs, WD_EPOCHS, keyed=True)
+    finally:
+        dispatch.device_permutation = order
+    init_zoo_context(conf=wide_deep_conf(False))
+    b = wide_deep_estimator(info)
+    hb = wide_deep_fit(b, fs, WD_EPOCHS, keyed=False)
+    out["captured_vs_eager"] = bits_or_close(
+        f"captured vs eager fit, {WD_EPOCHS} per-epoch losses", ha, hb,
+        WD_LOSS_REL_TOL, absolute=False)
+    out["captured_vs_eager"]["losses"] = ha
+    check(ha[-1] < ha[0], f"wide&deep captured fit loss gate: {ha}")
+    del a, b
+
+    # -- transform against predict; the NNModel file in a child ----------
+    init_zoo_context(conf=wide_deep_conf(False))
+    pred = fitted.transform(table)["prediction"]
+    want = probs_to_classes(model.predict(prep(table), batch_size=WD_BATCH))
+    check(pred.dtype == np.int32 and np.array_equal(pred, want),
+          "wide&deep: transform's prediction is not predict's argmax")
+    acc = float((pred == table["label"]).mean())
+    out["train_accuracy"] = acc
+    print(f"wide&deep: NNClassifierModel.transform = argmax(predict) on "
+          f"{WD_ROWS} rows; training accuracy {acc:.4f}")
+    tmp = tempfile.mkdtemp(prefix="wide_deep_")
+    try:
+        path = os.path.join(tmp, "fitted.nnmodel")
+        fitted.save(path)
+        check(next(model.parameters()).device.type == model.device.type,
+              "wide&deep: save moved the live model off its device")
+        npy = os.path.join(tmp, "child.npy")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", WD_CHILD.format(repo=REPO, path=path,
+                                                   out=npy)],
+            capture_output=True, text=True, timeout=300, cwd=REPO)
+        check(proc.returncode == 0,
+              f"wide&deep child failed: {proc.stdout}{proc.stderr[-3000:]}")
+        child = np.load(npy)
+        check(np.array_equal(child, pred),
+              "wide&deep: the child's NNModel.load(...).transform differs "
+              "from this process's predictions")
+        print(f"wide&deep: NNModel.save ({os.path.getsize(path)} bytes) + "
+              f"NNModel.load(...).transform in a child: the same {WD_ROWS} "
+              f"predictions bit for bit ({time.perf_counter() - t0:.1f}s; "
+              f"{proc.stdout.strip()})")
+
+        # -- the Estimator's model_dir resume, multi_optimizer slots -----
+        def estimator(d):
+            return wide_deep_estimator(info, {"dense": "sgd"}, d)
+
+        whole = estimator(os.path.join(tmp, "whole"))
+        h_whole = wide_deep_fit(whole, fs, 3, keyed=True)
+        cut_dir = os.path.join(tmp, "cut")
+        wide_deep_fit(estimator(cut_dir), fs, 2, keyed=True)
+        from analytics_zoo_tpu_torch.utils.checkpoint import \
+            CheckpointManager
+        steps_ep = fs.steps_per_epoch(WD_BATCH)
+        mgr = CheckpointManager(cut_dir)
+        check(mgr.latest() == 2 * steps_ep,
+              f"wide&deep: newest snapshot {mgr.latest()}")
+        meta = json.load(open(os.path.join(
+            cut_dir, f"ckpt-{2 * steps_ep}", "manifest.json")))["meta"]
+        check("opt_state_order" not in meta,
+              f"wide&deep: multi_optimizer snapshot not in optax order "
+              f"{meta}")
+        resumed = estimator(cut_dir)
+        h_res = wide_deep_fit(resumed, fs, 1, keyed=True)
+        check(resumed.model.finished_epochs == 3 and len(h_res) == 1,
+              f"wide&deep: the resume ran epochs "
+              f"{resumed.model.finished_epochs}")
+        pw = torch.cat([p.detach().flatten()
+                        for p in whole.model.parameters()])
+        pr = torch.cat([p.detach().flatten()
+                        for p in resumed.model.parameters()])
+        out["estimator_resume"] = bits_or_close(
+            "Estimator resumed from ckpt after epoch 2 vs uninterrupted, "
+            "parameters", pr.cpu().numpy(), pw.cpu().numpy(), WD_PARAM_TOL,
+            absolute=True)
+        out["estimator_resume"]["epoch3_loss"] = [h_res[0], h_whole[2]]
+        print(f"wide&deep: Estimator({{'dense': 'sgd'}}, model_dir) epoch 3 "
+              f"loss resumed {h_res[0]!r} vs uninterrupted {h_whole[2]!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"wide&deep phase: {out['phase_s']:.1f}s")
+    return out
+
+
 REL_CFG = TRAIN_CFG
 REL_DEVICE = "cuda"
 REL_CAPTURE_CFG = CAPTURE_CFG
@@ -4611,6 +5060,21 @@ class EventLog:
         return [e for e in self.events if e["kind"] == kind]
 
 
+class CallsAtAnomaly:
+    """An event sink noting, at each ``train.anomaly`` event, the flagged
+    iteration and the ``train.grads`` site calls (steps dispatched) the
+    plan had seen when the host read that step's flags."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.seen = []
+
+    def write(self, event):
+        if event["kind"] == "train.anomaly":
+            self.seen.append((event["iteration"],
+                              self.plan.calls("train.grads")))
+
+
 def param_digest(model):
     import hashlib
     return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
@@ -4680,7 +5144,7 @@ def reliability_phase():
         KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
     from analytics_zoo_tpu_torch.pipeline.api.keras.training import (
-        _param_tree, _shape_of)
+        _param_tree, _SentinelMonitor, _shape_of)
     from analytics_zoo_tpu_torch.pipeline.inference.inference_model import \
         InferenceModel
     from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
@@ -4923,14 +5387,32 @@ def reliability_phase():
         c0, r0 = counts(), len(events.of("train.rollback"))
         plan = faults.FaultPlan(seed=1).add("train.grads", "nan_grad",
                                             at=(10, 13))
-        _, records, wall, loop_d = run(
-            conf={**recover, "zoo.train.max_skips_per_epoch": 1},
-            ckpt=d_dir, plan=plan)
+        seen = CallsAtAnomaly(plan)
+        reg.add_event_sink(seen)
+        try:
+            _, records, wall, loop_d = run(
+                conf={**recover, "zoo.train.max_skips_per_epoch": 1},
+                ckpt=d_dir, plan=plan)
+        finally:
+            reg.remove_event_sink(seen)
         delta = {k: v - c0[k] for k, v in counts().items()}
         rollbacks = events.of("train.rollback")[r0:]
         print(f"reliability (d): counters {json.dumps(delta)}; rollback "
               f"events {rollbacks}; epochs {[r['epoch'] for r in records]} "
               f"in {wall:.2f}s")
+        # fault n: each dispatch's flags are read LAG dispatches late, as
+        # the JAX loop reads them, or at the epoch's end (step 16 here)
+        lag = _SentinelMonitor.LAG
+        want = [(it, min(it + lag + 1, 16)) for it in (10, 13)]
+        calls = plan.calls("train.grads")
+        print(f"reliability (d): train.grads site calls {calls}; anomalies "
+              f"(iteration, site calls when the host read them) "
+              f"{seen.seen}, the escalation at iteration {seen.seen[-1][0]} "
+              f"read after {seen.seen[-1][1]} calls (JAX lag {lag}: "
+              f"{want})")
+        check(seen.seen == want and calls == 16 + 6 + 8,
+              f"(d) flags not read at the JAX lag: {seen.seen}, {calls} "
+              f"site calls")
         check(delta["zoo_train_rollback_total"] == 1
               and len(rollbacks) == 1
               and rollbacks[0]["restore_step"] == 8,
@@ -4942,7 +5424,9 @@ def reliability_phase():
                       for p in model.parameters()), "(d) final state")
         gp["rollback"] = loop_d._goodput
         out["rollback"] = {"counters": delta,
-                           "restore_step": rollbacks[0]["restore_step"]}
+                           "restore_step": rollbacks[0]["restore_step"],
+                           "train_grads_calls": calls,
+                           "anomalies_read_at_calls": seen.seen}
         shutil.rmtree(d_dir)
 
         # -- (g) goodput on (c) and (d) -----------------------------------
@@ -5203,6 +5687,7 @@ def main() -> int:
     rows += ce_kernel_rows
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
+    wide_deep = wide_deep_phase()
     captured_bert = captured_bert_phase()
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
@@ -5220,7 +5705,8 @@ def main() -> int:
                       "serving": serving, "int8_serving": int8_serving,
                       "lanes": lanes, "fleet": fleet, "int8_head": int8_head,
                       "training": training,
-                      "lm": lm, "ncf": ncf, "fault_l": fault_l,
+                      "lm": lm, "ncf": ncf, "wide_deep": wide_deep,
+                      "fault_l": fault_l,
                       "captured_bert": captured_bert,
                       "reliability": reliability, "card": card}))
     print(json.dumps({"kernels": rows}))

@@ -964,13 +964,100 @@ def test_a_port_snapshot_restores_in_the_jax_package(tmp_path, opt):
     _assert_fit_close(_port_flat(pm), _jax_flat(jm2), 4)
 
 
-def test_multi_optimizer_refuses_a_cross_package_restore(tmp_path):
-    """An optimizer without an optax layout writes the port's own order,
-    says so in the manifest's meta, restores in the port, and refuses a
-    snapshot in optax's order (CheckpointArchitectureError — never a
-    scrambled state)."""
+def _multi_pair(seed):
+    """``Dense(8, relu) -> Dense(1)`` named d0/d1 in both packages, each
+    with its own weights, under ``multi_optimizer({"d0": sgd with
+    momentum}, "adam")``."""
+    import optax
+    from analytics_zoo_tpu.pipeline.api.keras import optimizers as jopt
+    from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers as popt
+    jctx.init_zoo_context(conf={"zoo.seed": 0})
+    pctx.init_zoo_context(conf={"zoo.seed": 0})
+    jm = JSequential([jl.Dense(8, activation="relu", input_shape=(4,),
+                               name="d0"), jl.Dense(1, name="d1")])
+    jm.init_weights(rng=jax.random.key(seed))
+    jm.compile(optimizer=jopt.multi_optimizer(
+        {"d0": optax.sgd(0.05, momentum=0.9)}, "adam"), loss="mse")
+    pm = Sequential([pl.Dense(8, activation="relu", input_shape=(4,),
+                              name="d0"), pl.Dense(1, name="d1")],
+                    device="cpu")
+    pm.init_weights(torch.Generator().manual_seed(seed))
+    pm.compile(optimizer=multi_optimizer(
+        {"d0": popt.sgd(0.05, momentum=0.9)}, "adam"), loss="mse")
+    return jm, pm
+
+
+def _port_opt_leaves(pm):
+    from analytics_zoo_tpu_torch.pipeline.api.keras.optimizers import \
+        optax_leaves
+    names = [n for n, _ in pm.named_parameters()]
+    return [np.asarray(t.detach().numpy() if isinstance(t, torch.Tensor)
+                       else t)
+            for t in optax_leaves(pm._loop.optimizer,
+                                  pm.opt_state["state"],
+                                  pm.opt_state["count"], names)]
+
+
+def test_multi_optimizer_snapshot_resumes_across_packages(tmp_path):
+    """``multi_optimizer``'s state checkpoints in
+    ``optax.multi_transform``'s leaf order (the order taken from
+    ``jax.tree_util.tree_flatten`` of the JAX state): a JAX snapshot
+    resumes in the port with the same leaves, bit for bit; the port's next
+    snapshot restores in the JAX manager against the JAX state's template
+    with the port's leaves; the port's next epoch matches the JAX model
+    resumed on a copy of the first snapshot."""
+    x, y = _data()
+    jm, pm = _multi_pair(3)
+    jm.set_checkpoint(str(tmp_path / "a"))
+    jm.fit(x, y, batch_size=32, nb_epoch=1)
+    shutil.copytree(str(tmp_path / "a"), str(tmp_path / "b"))
+    meta = _manifest(str(tmp_path / "a" / "ckpt-8"))["meta"]
+    assert "opt_state_order" not in meta
+    pm.set_checkpoint(str(tmp_path / "a"))
+    pm.fit(x, y, batch_size=32, nb_epoch=0)                # resume only
+    assert pm.opt_state["count"] == 8
+    for name, a in _params(pm).items():
+        np.testing.assert_array_equal(
+            a, peng.flatten_tree(jax.tree.map(np.asarray, jm.params))[
+                name.replace(".", "/")])
+    want = [np.asarray(l) for l in jax.tree_util.tree_leaves(jm.opt_state)]
+    got = _port_opt_leaves(pm)
+    assert [a.shape for a in got] == [a.shape for a in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+    hp = pm.fit(x, y, batch_size=32, nb_epoch=1)
+    assert "opt_state_order" not in _manifest(
+        str(tmp_path / "a" / "ckpt-16"))["meta"]
+    jm2, _ = _multi_pair(4)
+    jm2.set_checkpoint(str(tmp_path / "b"))
+    hj = jm2.fit(x, y, batch_size=32, nb_epoch=1)
+    np.testing.assert_allclose(hp["loss"], hj["loss"], atol=1e-5, rtol=0)
+    mgr = JCheckpointManager(str(tmp_path / "a"), registry=JRegistry())
+    step, trees, _ = mgr.restore_latest(
+        {"params": jm2.params,
+         "opt_state": jm2._loop.optimizer.init(jm2.params),
+         "net_state": jm2.net_state})
+    assert step == 16
+    for a, b in zip(_port_opt_leaves(pm),
+                    jax.tree_util.tree_leaves(trees["opt_state"])):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    for a, b in zip(_port_opt_leaves(pm),
+                    jax.tree_util.tree_leaves(jm2.opt_state)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=0)
+
+
+def test_an_optimizer_without_slots_restores_only_in_the_port(tmp_path):
+    """A transform without an optax layout (``slots=None``) writes the
+    port's own order, says so in the manifest's meta, restores in the
+    port, and refuses a snapshot in optax's order and the other way round
+    (CheckpointArchitectureError — never a scrambled state)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras import optimizers as popt
     pctx.init_zoo_context()
     x, y = _data()
+
+    def slotless():
+        return popt.GradientTransformation(*popt.adam(0.05)[:3], None)
 
     def build(opt):
         m = Sequential([pl.Dense(8, activation="relu", input_shape=(4,),
@@ -980,28 +1067,26 @@ def test_multi_optimizer_refuses_a_cross_package_restore(tmp_path):
         m.compile(optimizer=opt, loss="mse")
         return m
 
-    m = build(multi_optimizer({"d0": "sgd"}, default="adam"))
-    m.set_checkpoint(str(tmp_path / "multi"))
+    m = build(slotless())
+    m.set_checkpoint(str(tmp_path / "own"))
     m.fit(x, y, batch_size=32, nb_epoch=1)
-    meta = _manifest(str(tmp_path / "multi" / "ckpt-8"))["meta"]
+    meta = _manifest(str(tmp_path / "own" / "ckpt-8"))["meta"]
     assert meta["opt_state_order"] == "analytics_zoo_tpu_torch"
-    m2 = build(multi_optimizer({"d0": "sgd"}, default="adam"))
-    m2.set_checkpoint(str(tmp_path / "multi"))
+    m2 = build(slotless())
+    m2.set_checkpoint(str(tmp_path / "own"))
     m2.fit(x, y, batch_size=32, nb_epoch=0)
     for name, a in _params(m).items():
         np.testing.assert_array_equal(_params(m2)[name], a)
     assert m2.opt_state["count"] == 8
-    # an optax-order snapshot refuses a multi_optimizer loop ...
     adam = build("adam")
     adam.set_checkpoint(str(tmp_path / "adam"))
     adam.fit(x, y, batch_size=32, nb_epoch=1)
-    m3 = build(multi_optimizer({"d0": "sgd"}, default="adam"))
+    m3 = build(slotless())
     m3.set_checkpoint(str(tmp_path / "adam"))
     with pytest.raises(CheckpointArchitectureError):
         m3.fit(x, y, batch_size=32, nb_epoch=1)
-    # ... and the port-order snapshot refuses an optax-layout loop
     m4 = build("adam")
-    m4.set_checkpoint(str(tmp_path / "multi"))
+    m4.set_checkpoint(str(tmp_path / "own"))
     with pytest.raises(CheckpointArchitectureError):
         m4.fit(x, y, batch_size=32, nb_epoch=1)
 

@@ -403,6 +403,55 @@ def test_rollback_regresses_past_in_memory_progress(tmp_path):
     np.testing.assert_allclose(h["loss"], out["jax"][1]["loss"], rtol=RTOL)
 
 
+class _CallsAtAnomaly:
+    """An event sink that notes, at each ``train.anomaly`` event, the
+    flagged iteration and how many ``train.grads`` site calls (steps
+    dispatched) the plan had seen when the host observed it."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.seen = []
+
+    def write(self, event):
+        if event["kind"] == "train.anomaly":
+            self.seen.append((event["iteration"],
+                              self.plan.calls("train.grads")))
+
+
+@pytest.mark.parametrize("scan_steps", [1, 2])
+def test_escalation_reads_flags_at_the_jax_lag(scan_steps):
+    """The skip budget (1) runs out at the second dispatch of an epoch of
+    24 steps: both packages observe each dispatch's flags four dispatches
+    late, so they escalate at the same iteration, after the same number
+    of ``train.grads`` site calls (six dispatches), with no host read per
+    step — eager (one step a dispatch) and on the multi-step program."""
+    _init(faults_enabled=True, train_sentinel="recover",
+          train_max_skips_per_epoch=1, train_scan_steps=scan_steps)
+    x, y = _data(n=24 * BATCH)
+    poisoned = (0, scan_steps)      # the first step of dispatches 0 and 1
+    out = {}
+    for pkg in BOTH:
+        m = _model(pkg)
+        plan = pkg.faults.FaultPlan(seed=7).add(
+            "train.grads", "nan_loss", at=poisoned)
+        sink = _CallsAtAnomaly(plan)
+        pkg.obs.default_registry().add_event_sink(sink)
+        try:
+            with pkg.faults.activate(plan):
+                with pytest.raises(pkg.TrainingDiverged,
+                                   match="no checkpoint"):
+                    m.fit(x, y, batch_size=BATCH, nb_epoch=1,
+                          shuffle=False)
+        finally:
+            pkg.obs.default_registry().remove_event_sink(sink)
+        out[pkg.name] = (sink.seen, plan.calls("train.grads"))
+    lag = ptraining._SentinelMonitor.LAG
+    assert lag == jtraining._SentinelMonitor.LAG == 4
+    want = [(0, (lag + 1) * scan_steps),
+            (scan_steps, (lag + 2) * scan_steps)]
+    assert out["port"] == out["jax"] == (want, (lag + 2) * scan_steps)
+
+
 def test_rollback_budget_exhaustion_raises_training_diverged(tmp_path):
     _init(faults_enabled=True, train_sentinel="recover",
           train_max_skips_per_epoch=1, train_max_rollbacks=2)
