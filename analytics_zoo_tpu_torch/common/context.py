@@ -52,6 +52,8 @@ DEFAULT_CONF: Dict[str, Any] = {
     #   exceeds this budget (preemption deadline shorter than a dispatch)
     "zoo.embed.sharded": "auto",     # row-partitioned lookup for plain Embedding: auto | true | false
     "zoo.embed.dedup": True,         # per-step unique-id dedup in the lookup
+    "zoo.embed.hot_rows_budget_mb": 64,  # device budget for the oocore hot tier
+    "zoo.embed.prefetch_depth": 2,   # staged plans ahead of the consuming step
     "zoo.serving.dtype": "float32",  # precision of models the server wraps:
     #   float32 | bfloat16 | int8 (int8 = weight-only, fp32 on the wire)
     "zoo.serving.shed_watermark": 0,  # stream depth above which each

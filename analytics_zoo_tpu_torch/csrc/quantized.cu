@@ -102,6 +102,20 @@
 //    K at a time through shared memory, each thread 4 x 4 outputs, plain
 //    FMAs on the CUDA cores (TF32 would round x to 10 mantissa bits, which
 //    the f32 contract does not allow).
+// Beside K6, Q8 (int8_static_skinny + int8_static_reduce): the static int8
+// dense layer for M <= 32, replacing no TPU kernel (the JAX package's
+// Dense.quantized_call leaves its int8 x int8 product to XLA's
+// dot_general; the port's had padded M to 17 for torch._int_mm and run
+// the quantize and the rescale, bias and ReLU as about ten torch ops a
+// layer). It fuses all of them: x is quantized by each block into shared
+// memory, the products run as __dp4a on the CUDA cores with the int8
+// weights transposed 4 x 4 bytes at a time by byte permutes on their way
+// out of the skinny route's ring, and the exact int32 sums are finished
+// as the static path finishes them. The bytes bound it (config A's M = 1,
+// K = N = 4096: 16.8 MB of int8, 0.0050 ms at 3.35 TB/s): at M <= 32 a
+// weight word feeds at most 128 dp4a, which the CUDA cores issue faster
+// than the ring delivers it, so the tensor cores' s8 mma (whose fragments
+// want the same transpose plus a shuffle between lanes) would buy nothing.
 // No float atomics anywhere: every output (and every skinny partial sum)
 // is written once by one thread, its sum taken in a fixed order, so the
 // result is the same bits from run to run. Any M, K and N: edges are masked
@@ -777,6 +791,201 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
+// Q8: static int8, M <= 32 (Dense.quantized_call). out = act(float(sum_k
+// xq[m][k] w[k][n]) * (x_scale * w_scale[n]) + bias[n]) with xq =
+// clamp(rint(x / x_scale), -127, 127), f32 x and out. The skinny route's
+// grid, ring and split-K reduce: block (p, s) owns the 128 columns of panel
+// p and the rows of K slice s; it quantizes its slice of x into shared
+// memory (int8, [MT][ks + Q8_LDQ_PAD]) while the first weight stages are in
+// flight, then each warp takes 4-row groups of each stage: a lane loads its
+// 4 columns of 4 rows as four 32-bit words, transposes the 4 x 4 bytes so
+// that each word holds one column's 4 k values (q8_transpose4x4), and adds
+// them times x's 4 k values of each row with __dp4a (s8 x s8 -> s32). The
+// warps' int32 sums meet in shared memory (integer atomics: exact, so any
+// order gives the same bits), then one K slice finishes the output itself
+// and more slices write int32 partials that int8_static_reduce, a PDL
+// dependent, adds in slice order and finishes.
+// ---------------------------------------------------------------------------
+
+constexpr int Q8_LDQ_PAD = 16;  // bytes a quantized row of x is padded by
+
+// blocks an SM each Q8 instance is built for: 4 * MT int32 sums a thread
+template <int MT>
+__host__ __device__ constexpr int q8_min_blocks() {
+  return MT <= 8 ? 4 : MT <= 16 ? 2 : 1;
+}
+
+// v quantized as the static path does, as an int8 byte: the IEEE quotient
+// (no reciprocal), rounded half to even (rintf, torch.round's rule),
+// clamped to +-127
+__device__ __forceinline__ uint32_t q8_quantize(float v, float xs) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, xs)), -127.f), 127.f);
+  return static_cast<uint32_t>(
+      static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(q))));
+}
+
+// the 4 x 4 int8 block of rows r0 .. r3 (4 columns each) transposed: word e
+// of c holds column e's bytes of rows 0..3, the k-major quadruple __dp4a
+// takes
+__device__ __forceinline__ void q8_transpose4x4(uint32_t r0, uint32_t r1,
+                                                uint32_t r2, uint32_t r3,
+                                                uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const uint32_t t1 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// an output from its exact int32 sum, in the static path's order: the
+// round-to-nearest float of the sum times the f32 product x_scale *
+// w_scale[n], then the bias added, then max(y, 0) (NaN and -0 kept, as
+// torch.relu keeps them); __fmul_rn and __fadd_rn are never contracted
+__device__ __forceinline__ float q8_finish(int acc, int n, float xs,
+                                           const float* __restrict__ w_scale,
+                                           const float* __restrict__ bias,
+                                           int relu) {
+  float y = __fmul_rn(__int2float_rn(acc), __fmul_rn(xs, w_scale[n]));
+  if (bias != nullptr) y = __fadd_rn(y, bias[n]);
+  if (relu && y < 0.f) y = 0.f;
+  return y;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(S_THREADS, q8_min_blocks<MT>())
+    int8_static_skinny(const float* __restrict__ x,
+                       const float* __restrict__ x_scale,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ w_scale,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       int* __restrict__ ws, int M, int K, int N, int ks,
+                       int vec, int xvec, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * S_BN, k_beg = blockIdx.y * ks;
+  const int k_end = min(K, k_beg + ks);
+  const int nk = k_end > k_beg ? (k_end - k_beg + S_BK - 1) / S_BK : 0;
+  const int ldq = ks + Q8_LDQ_PAD;
+  unsigned char* xq = smem + S_RING_BYTES;
+#pragma unroll
+  for (int st = 0; st < S_STAGES - 1; ++st) {
+    if (st < nk)
+      skinny_load_w(smem + st * S_STAGE_BYTES, w, k_beg + st * S_BK, k_end,
+                    n0, N, vec, tid);
+    cp_async_commit();
+  }
+  // the reduce kernel may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // x's slice quantized while the weights stream in: rows 0 .. MT - 1
+  // (zeros from M), columns k_beg .. k_beg + ks - 1 (zeros from k_end), four
+  // columns a word. With xvec K % 4 == 0, so k_end is a multiple of 4 too.
+  const float xs = *x_scale;
+  const int words = ks / 4;
+  for (int idx = tid; idx < MT * words; idx += S_THREADS) {
+    const int m = idx / words, k = k_beg + (idx - m * words) * 4;
+    uint32_t word = 0u;
+    if (m < M && k < k_end) {
+      const float* p = x + (size_t)m * K + k;
+      if (xvec) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        word = q8_quantize(v.x, xs) | q8_quantize(v.y, xs) << 8 |
+               q8_quantize(v.z, xs) << 16 | q8_quantize(v.w, xs) << 24;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < k_end) word |= q8_quantize(p[e], xs) << (8 * e);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(xq + m * ldq + (k - k_beg)) = word;
+  }
+
+  int acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0;
+
+  for (int i = 0; i < nk; ++i) {
+    // (its first barrier also publishes the quantized x)
+    skinny_advance(smem, w, i, nk, k_beg, k_end, n0, N, vec, tid);
+    const unsigned char* st = smem + (i % S_STAGES) * S_STAGE_BYTES;
+#pragma unroll
+    for (int h = 0; h < S_BK / 32; ++h) {
+      const int r = 4 * (warp + 8 * h);
+      const unsigned char* wr = st + r * S_LDW + 4 * lane;
+      uint32_t c[4];
+      q8_transpose4x4(*reinterpret_cast<const uint32_t*>(wr),
+                      *reinterpret_cast<const uint32_t*>(wr + S_LDW),
+                      *reinterpret_cast<const uint32_t*>(wr + 2 * S_LDW),
+                      *reinterpret_cast<const uint32_t*>(wr + 3 * S_LDW), c);
+      const unsigned char* xr = xq + i * S_BK + r;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int xw = *reinterpret_cast<const int*>(xr + m * ldq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][e] = __dp4a(static_cast<int>(c[e]), xw, acc[m][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' sums, in the free ring: red[m][e][lane] is column 4 lane + e
+  // of row m (a warp's 32 lanes on 32 banks)
+  int* red = reinterpret_cast<int*>(smem);
+  for (int idx = tid; idx < MT * S_BN; idx += S_THREADS) red[idx] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      atomicAdd(red + (m * 4 + e) * 32 + lane, acc[m][e]);
+  __syncthreads();
+  const int np = gridDim.x * S_BN;
+  for (int idx = tid; idx < MT * S_BN; idx += S_THREADS) {
+    const int m = idx / S_BN, c = idx - m * S_BN, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const int v = red[(m * 4 + (c & 3)) * 32 + (c >> 2)];
+    if (gridDim.y == 1)
+      out[(size_t)m * N + n] = q8_finish(v, n, xs, w_scale, bias, relu);
+    else
+      ws[((size_t)blockIdx.y * M + m) * np + n] = v;
+  }
+}
+
+// the slices' int32 partial sums of each output added in slice order, then
+// q8_finish. A programmatic dependent of int8_static_skinny, as
+// int8_mm_skinny_reduce is of the K6 skinny kernels.
+__global__ void __launch_bounds__(256)
+    int8_static_reduce(const int* __restrict__ ws,
+                       const float* __restrict__ x_scale,
+                       const float* __restrict__ w_scale,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       int M, int N, int np, int slices, int relu) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= M * N) return;
+  const int m = i / N, n = i - m * N;
+  const int* p = ws + (size_t)m * np + n;
+  const size_t step = (size_t)M * np;
+  int acc = 0;
+  for (int s0 = 0; s0 < slices; s0 += 16) {
+    int v[16];  // sixteen slices' loads in flight at once
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      v[j] = s0 + j < slices ? p[(s0 + j) * step] : 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc += v[j];
+  }
+  out[i] = q8_finish(acc, n, *x_scale, w_scale, bias, relu);
+}
+
+// ---------------------------------------------------------------------------
 // mma: M > 32, bf16. mma.sync m16n8k16 fragments (PTX ISA): with g = lane / 4
 // and t = lane % 4 a thread holds A rows g and g+8 at columns 2t, 2t+1 (and
 // +8); B columns g at rows 2t, 2t+1 (and +8); C rows g and g+8 at columns
@@ -1358,6 +1567,80 @@ cudaError_t launch_skinny(const T* x, const int8_t* w, const float* s,
                             (int)PRE, relu);
 }
 
+// Q8's K slicing, as skinny_k_slice's: one wave of the blocks `sms` SMs
+// hold at once (q8_min_blocks of the instance M takes)
+int q8_k_slice(int M, int K, int N, int sms) {
+  const int per_sm = M <= 8    ? q8_min_blocks<8>()
+                     : M <= 16 ? q8_min_blocks<16>()
+                               : q8_min_blocks<32>();
+  const int slices =
+      std::max({per_sm * sms / cdiv(N, S_BN), cdiv(K, S_KS_MAX), 1});
+  return std::min(std::max(cdiv(cdiv(K, slices), S_BK) * S_BK, S_BK),
+                  S_KS_MAX);
+}
+
+// the ring and the quantized K slice of x (the warps' sums reuse the ring:
+// MT x S_BN int32 fit it); at most 44,544 bytes, under the 48 KB default
+template <int MT>
+constexpr size_t q8_smem(int ks) {
+  return S_RING_BYTES + (size_t)MT * (ks + Q8_LDQ_PAD);
+}
+
+template <int MT>
+cudaError_t launch_q8_mt(const float* x, const float* xs, const int8_t* w,
+                         const float* s, const float* bias, int relu,
+                         float* out, int* ws, int M, int K, int N, int ks,
+                         int vec, int xvec, dim3 grid, cudaStream_t stream) {
+  static_assert(q8_smem<MT>(S_KS_MAX) <= 48 * 1024, "Q8 shared memory");
+  static_assert(MT * S_BN * 4 <= S_RING_BYTES, "Q8 sums outgrow the ring");
+  int8_static_skinny<MT><<<grid, S_THREADS, q8_smem<MT>(ks), stream>>>(
+      x, xs, w, s, bias, out, ws, M, K, N, ks, vec, xvec, relu);
+  return cudaGetLastError();
+}
+
+// Q8 for M <= 32 on the current device: q8_k_slice's rows of K a block,
+// cdiv(K, ks) slices (into *splits); with more than one, `ws` (ws_ints
+// long, at least skinny_workspace's) takes [slices][M][panels x S_BN]
+// int32 partial sums and int8_static_reduce adds them
+cudaError_t launch_q8(const float* x, const float* xs, const int8_t* w,
+                      const float* s, const float* bias, int relu, float* out,
+                      int* ws, long long ws_ints, int M, int K, int N,
+                      cudaStream_t stream, int* splits) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, &sms);
+  if (err != cudaSuccess) return err;
+  const int ks = q8_k_slice(M, K, N, sms);
+  const int slices = skinny_slices(K, ks);
+  if (slices > 1 &&
+      (ws == nullptr || ws_ints < skinny_workspace(M, K, N, ks)))
+    return cudaErrorInvalidValue;
+  *splits = slices;
+  const dim3 grid(cdiv(N, S_BN), slices);
+  const int vec = N % 16 == 0 && aligned(w, 16);
+  const int xvec = K % 4 == 0 && aligned(x, 16);
+#define Q8(MT)                                                           \
+  launch_q8_mt<MT>(x, xs, w, s, bias, relu, out, ws, M, K, N, ks, vec, xvec, \
+                   grid, stream)
+  // rows padded to MT: 1, 4, 8, 16, 32
+  if (M <= 4) err = M == 1 ? Q8(1) : Q8(4);
+  else err = M <= 8 ? Q8(8) : M <= 16 ? Q8(16) : Q8(32);
+#undef Q8
+  if (err != cudaSuccess || slices == 1) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cdiv(M * N, 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int8_static_reduce, (const int*)ws, xs, s,
+                            bias, out, M, N, (int)grid.x * S_BN, slices,
+                            relu);
+}
+
 // the kernel each shape takes (reported to the caller)
 enum Route { ROUTE_WGMMA = 0, ROUTE_MMA = 1, ROUTE_SKINNY = 2, ROUTE_FMA = 3 };
 
@@ -1462,4 +1745,44 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
                                   out, M, K, N, dtype, s, info)
                    : launch<false>(x, wq, sc, b, relu, ws, workspace_floats,
                                    out, M, K, N, dtype, s, info));
+}
+
+// Q8's plan for x (M, K) f32 times w (K, N) int8 on CUDA device `device`:
+// *workspace_ints receives the int32 workspace int8_static_matmul then
+// needs (0 for one K slice). Returns 0, or -1 when M is not in 1..32 or
+// the device cannot be read.
+extern "C" int int8_static_plan(int M, int K, int N, int device,
+                                long long* workspace_ints) {
+  *workspace_ints = 0;
+  if (M < 1 || M > SKINNY_MAX_M) return -1;
+  int sms = 0;
+  if (sm_count(device, &sms) != cudaSuccess) return -1;
+  *workspace_ints = skinny_workspace(M, K, N, q8_k_slice(M, K, N, sms));
+  return 0;
+}
+
+// Q8, the static int8 dense layer for 1 <= M <= 32: x (M, K) f32,
+// x_scale one f32 on the device (read there, so a captured graph replays
+// whatever the buffer holds), w (K, N) int8, w_scale (N,) f32, bias (N,)
+// f32 or null, relu 0 or 1, out (M, N) f32; all contiguous. out =
+// relu(float(sum_k clamp(rint(x / x_scale), -127, 127) w) * (x_scale *
+// w_scale) + bias), the static path's arithmetic bit for bit. With more
+// than one K slice it needs `workspace`, workspace_ints int32 long
+// (int8_static_plan's size). *splits receives the K slices it ran.
+// Returns the launch's cudaError_t; the kernels run on `stream` and the
+// call does not synchronise.
+extern "C" int int8_static_matmul(const void* x, const void* x_scale,
+                                  const void* w, const void* w_scale,
+                                  const void* bias, int relu, void* workspace,
+                                  long long workspace_ints, void* out, int M,
+                                  int K, int N, int* splits, void* stream) {
+  *splits = 0;
+  if (M < 1 || M > SKINNY_MAX_M || N <= 0 || K < 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_q8(
+      static_cast<const float*>(x), static_cast<const float*>(x_scale),
+      static_cast<const int8_t*>(w), static_cast<const float*>(w_scale),
+      static_cast<const float*>(bias), relu, static_cast<float*>(out),
+      static_cast<int*>(workspace), workspace_ints, M, K, N,
+      static_cast<cudaStream_t>(stream), splits);
 }

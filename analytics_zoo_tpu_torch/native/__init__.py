@@ -1,0 +1,7 @@
+"""The port's bindings of the host-side C++ libraries under the
+repository's ``native/`` (built into ``build/``, never next to their
+sources): the disk tier's IO (``zoo_io.cc``)."""
+
+from .io import NativeArrayFile, load_native_io, native_io_available
+
+__all__ = ["NativeArrayFile", "load_native_io", "native_io_available"]

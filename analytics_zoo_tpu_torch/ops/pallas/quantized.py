@@ -41,21 +41,38 @@ the same numbers as the separate layer ops.
 The JAX wrapper's ``block_m``/``block_n``/``interpret`` arguments are TPU
 tiling and the Pallas interpreter; they are not carried over (the CUDA
 kernels pick their own tiles and take any M, K and N).
+
+Beside K6, :func:`static_int8_dense` (kernel Q8) is the static int8 dense
+layer at most 32 rows deep, ``Dense.quantized_call``'s whole arithmetic in
+one kernel and its split-K reduce: ``x`` quantized to the calibrated
+``x_scale`` (an IEEE division, round half to even, clipped to +-127), the
+int8 x int8 product exact in int32, one f32 rescale by ``x_scale *
+w_scale``, the f32 bias and the ReLU. It replaces no TPU kernel: the JAX
+package leaves that product to XLA's ``dot_general``.
+:func:`static_int8_dense_reference` is its plain version, the static
+path's torch ops, with the int8 product on :func:`int8_product` (the
+padded ``torch._int_mm``), which ``quantized_call`` keeps for more than 32
+rows. ``x_scale`` stays on the device: the kernel reads it there, so a
+captured graph bakes no host value. :data:`KERNEL_INT8_STATIC` counts Q8's
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..cuda_build import CudaLibrary, launch
 from .cross_entropy import _raise_on
 from .flash_attention import _LaunchCount
 
-__all__ = ["int8_matmul", "int8_matmul_reference"]
+__all__ = ["int8_matmul", "int8_matmul_reference", "int8_product",
+           "static_int8_dense", "static_int8_dense_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +84,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.int8_matmul.restype = ctypes.c_int
     lib.int8_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
     lib.int8_matmul_plan.restype = ctypes.c_int
+    lib.int8_static_matmul.argtypes = [p, p, p, p, p, i, p, ll, p, i, i, i,
+                                       ctypes.POINTER(i), p]
+    lib.int8_static_matmul.restype = ctypes.c_int
+    lib.int8_static_plan.argtypes = [i, i, i, i, ctypes.POINTER(ll)]
+    lib.int8_static_plan.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("quantized", ["quantized.cu"], _bind)
@@ -75,6 +97,9 @@ KERNEL_INT8_MATMUL = _LaunchCount()   # K6, every route
 #: the kernel the C entry point took, by the code it reports
 ROUTES = ("wgmma", "mma", "skinny", "fma")
 KERNEL_INT8_ROUTES = {name: _LaunchCount() for name in ROUTES}
+KERNEL_INT8_STATIC = _LaunchCount()   # Q8
+#: the most rows Q8 takes (K6's skinny bound)
+STATIC_MAX_M = 32
 
 
 class _Launched:
@@ -198,3 +223,124 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
     KERNEL_INT8_ROUTES[route].launches += 1
     LAST_LAUNCH.route, LAST_LAUNCH.splits = route, info[1]
     return out if fused else _epilogue(out, bias, relu)
+
+
+# ---------------------------------------------------------------------------
+# Q8: the static int8 dense layer
+# ---------------------------------------------------------------------------
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 ``xq (..., K)`` and ``wq (K, N)``
+    through ``torch._int_mm`` (the JAX package leaves this product to XLA,
+    not to a Pallas kernel). On CUDA ``_int_mm`` takes only M > 16 and K,
+    N multiples of 8: rows and columns are zero-padded to that, which adds
+    exact zeros, and the result is sliced back."""
+    lead, k, n = xq.shape[:-1], xq.shape[-1], wq.shape[1]
+    a = xq.reshape(-1, k)
+    m = a.shape[0]
+    if xq.device.type == "cuda":
+        pk, pn = -k % 8, -n % 8
+        pm = max(17 - m, 0)
+        if pm or pk:
+            a = F.pad(a, (0, pk, 0, pm))
+        if pk or pn:
+            wq = F.pad(wq, (0, pn, 0, pk))
+    y = torch._int_mm(a.contiguous(), wq.contiguous())
+    return y[:m, :n].reshape(*lead, n)
+
+
+def static_int8_dense_reference(x: torch.Tensor, x_scale: torch.Tensor,
+                                w_q: torch.Tensor, w_scale: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                relu: bool = False) -> torch.Tensor:
+    """Plain version of Q8, the static path as torch ops (the JAX
+    ``quantized_call``'s order): ``x`` quantizes to ``x_scale`` (a
+    division, round half to even, clip to +-127), the int8 x int8 product
+    is exact in int32 (:func:`int8_product`), one f32 rescale by ``x_scale
+    * w_scale`` restores float, then the f32 ``bias`` and ``relu``."""
+    xq = torch.clamp(torch.round(x.float() / x_scale), -127, 127
+                     ).to(torch.int8)
+    y = int8_product(xq, w_q).float() * (x_scale * w_scale)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def _check_static(x, x_scale, w_q, w_scale, bias) -> None:
+    k, n = w_q.shape if w_q.dim() == 2 else (None, None)
+    if (w_q.dim() != 2 or x.dim() < 1 or x.shape[-1] != k
+            or x_scale.numel() != 1 or tuple(w_scale.shape) != (n,)
+            or (bias is not None and tuple(bias.shape) != (n,))):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, x_scale "
+            f"{tuple(x_scale.shape)}, w_q {tuple(w_q.shape)}, w_scale "
+            f"{tuple(w_scale.shape)}, bias "
+            f"{None if bias is None else tuple(bias.shape)}")
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"static_int8_dense takes int8 w_q; got {w_q.dtype}")
+    if not x.is_floating_point():
+        raise TypeError(f"static_int8_dense takes a float x; got {x.dtype}")
+    if any(t.device != x.device for t in (x_scale, w_q, w_scale)) or (
+            bias is not None and bias.device != x.device):
+        raise ValueError("static_int8_dense operands lie on different "
+                         "devices")
+
+
+@functools.lru_cache(maxsize=4096)
+def _static_plan(m: int, k: int, n: int, index: int) -> int:
+    """The int32 workspace Q8's split-K partial sums need for ``(m, k) @
+    (k, n)`` on CUDA device ``index``, from the C side (which owns the
+    K slicing)."""
+    ints = ctypes.c_longlong(0)
+    if LIBRARY.entry("int8_static_plan")(m, k, n, index,
+                                         ctypes.byref(ints)) < 0:
+        raise RuntimeError(f"static_int8_dense: no plan for M={m} on CUDA "
+                           f"device {index}")
+    return ints.value
+
+
+LAST_STATIC_LAUNCH = _Launched()   # Q8's latest launch (route "q8")
+
+
+def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
+                      w_q: torch.Tensor, w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      relu: bool = False) -> torch.Tensor:
+    """Q8: ``relu(float(quantize(x, x_scale) @ w_q) * (x_scale * w_scale)
+    + bias)`` for ``x (..., K)`` with at most :data:`STATIC_MAX_M` rows,
+    ``x_scale`` one f32, ``w_q (K, N)`` int8, ``w_scale (N,)`` and ``bias
+    (N,)`` f32 → ``(..., N)`` f32, bit for bit
+    :func:`static_int8_dense_reference`. CUDA tensors launch the kernel
+    (or raise, also above 32 rows); CPU tensors run the plain version."""
+    _check_static(x, x_scale, w_q, w_scale, bias)
+    if not x.is_cuda:
+        return static_int8_dense_reference(x, x_scale, w_q, w_scale, bias,
+                                           relu)
+    lead, (k, n) = x.shape[:-1], w_q.shape
+    m = math.prod(lead)
+    x2 = x.reshape(m, k).float().contiguous()
+    if m > STATIC_MAX_M:
+        raise ValueError(f"static_int8_dense takes at most {STATIC_MAX_M} "
+                         f"rows on CUDA; got {m}")
+    out = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out.reshape(*lead, n)
+    xs = x_scale.reshape(1).float().contiguous()
+    w_q = w_q.contiguous()
+    s = w_scale.float().contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    ints = _static_plan(m, k, n, x.get_device())
+    ws = (torch.empty(ints, dtype=torch.int32, device=x.device)
+          if ints else None)
+    splits = ctypes.c_int(0)
+    err = launch(LIBRARY.entry("int8_static_matmul"), x2, x2.data_ptr(),
+                 xs.data_ptr(), w_q.data_ptr(), s.data_ptr(),
+                 None if b is None else b.data_ptr(), int(relu),
+                 None if ws is None else ws.data_ptr(), ints,
+                 out.data_ptr(), m, k, n, ctypes.byref(splits))
+    _raise_on(err, "static_int8_dense")
+    KERNEL_INT8_STATIC.launches += 1
+    LAST_STATIC_LAUNCH.route, LAST_STATIC_LAUNCH.splits = "q8", splits.value
+    return out.reshape(*lead, n)

@@ -12,15 +12,28 @@ order, so the same bits on every run; it reads the forward's sort, so it
 is one launch), then scattered onto the table through the dump-row
 trick. Out-of-range ids clamp into ``[0, V)``.
 
+The host-RAM cold tier: :class:`OutOfCoreEmbeddingCache` keeps the
+table's head on the device (sized by ``zoo.embed.hot_rows_budget_mb``)
+and the rest in pinned host memory; :meth:`~OutOfCoreEmbeddingCache.plan`
+resolves one batch on the host (np.unique's dedup, the staged LRU of cold
+rows, one fetch of the missing ones) into an :class:`EmbeddingFetchPlan`,
+:meth:`~OutOfCoreEmbeddingCache.stream` stages the plans on a prefetch
+thread, and :func:`oocore_gather` reads the virtual ``[hot; cold]`` table
+(plain torch, as the JAX package leaves it to XLA). Its gradient per
+distinct id is taken by SA in position order, from the plan's sort, so
+it has the same bits on every run.
+
 The port drives one device: a mesh with a ``model`` axis larger than 1
-(the row-partitioned lookup), ``OutOfCoreEmbeddingCache`` and the host
-cold tier are not ported yet.
+(the row-partitioned lookup) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+import collections
+import threading
+from typing import Iterable, Iterator, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..common.context import get_zoo_context
@@ -28,8 +41,10 @@ from .pallas.embedding import (dedup_scatter_add, embed_expand,
                                embed_expand_reference,
                                pallas_embed_gather_enabled)
 
-__all__ = ["dedup_capacity", "dedup_embedding_lookup",
-           "model_row_shard_count", "sharded_embedding_lookup"]
+__all__ = ["EmbeddingFetchPlan", "OutOfCoreEmbeddingCache",
+           "dedup_capacity", "dedup_embedding_lookup",
+           "model_row_shard_count", "oocore_gather",
+           "sharded_embedding_lookup"]
 
 
 def round_up(x: int, mult: int) -> int:
@@ -157,3 +172,310 @@ def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     cap = capacity or (dedup_capacity(n, table.shape[0]) if dedup
                        else round_up(n, 8))
     return dedup_embedding_lookup(table, ids, cap, use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# the host-RAM cold tier
+# ---------------------------------------------------------------------------
+
+def _conf(key: str, default):
+    """``key`` from the zoo context when one is constructible, else
+    ``default`` (the op stays usable standalone)."""
+    try:
+        return get_zoo_context().get(key, default)
+    except Exception:  # zoolint: disable=ZL007 no context constructible
+        return default
+
+
+def oocore_gather(hot: torch.Tensor, cold: torch.Tensor,
+                  remap: torch.Tensor) -> torch.Tensor:
+    """The two-tier gather: ``remap`` indexes the virtual table ``[hot;
+    cold]``, ``hot`` the device-resident head, ``cold`` the staged
+    ``(capacity, D)`` rows the host plan uploaded. Plain torch
+    (``index_select`` and ``torch.where``), differentiable in both tiers
+    through torch's own backward; :meth:`OutOfCoreEmbeddingCache.rows`
+    takes the gradient through SA instead."""
+    hr, d = hot.shape[0], cold.shape[1]
+    flat = remap.reshape(-1).long()
+    cold_part = cold.index_select(
+        0, (flat - hr).clamp(0, cold.shape[0] - 1)).reshape(
+            *remap.shape, d)
+    if hr == 0:
+        return cold_part
+    hot_part = hot.index_select(0, flat.clamp(0, hr - 1)).reshape(
+        *remap.shape, d)
+    return torch.where((remap < hr)[..., None], hot_part, cold_part)
+
+
+class _OocoreRows(torch.autograd.Function):
+    """:func:`oocore_gather` forward; backward: the row cotangents summed
+    per distinct id by SA, each id's rows in position order (the plan's
+    stable sort of ``inv``), then each sum copied to its id's row of the
+    hot tier or its slot of the cold block (distinct targets, so no float
+    atomics: the same bits on every run)."""
+
+    @staticmethod
+    def forward(ctx, hot, cold, remap, inv, order, sorted_slot, uniq_slot):
+        ctx.save_for_backward(inv, order, sorted_slot, uniq_slot)
+        ctx.hot_rows, ctx.cap = hot.shape[0], cold.shape[0]
+        ctx.dtypes = (hot.dtype, cold.dtype)
+        return oocore_gather(hot, cold, remap)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, order, sorted_slot, uniq_slot = ctx.saved_tensors
+        hr = ctx.hot_rows
+        d = g.shape[-1]
+        sums = dedup_scatter_add(g.reshape(-1, d).contiguous(), inv,
+                                 uniq_slot.shape[0], order=order,
+                                 sorted_slot=sorted_slot)
+        virt = torch.zeros(hr + ctx.cap, d, dtype=torch.float32,
+                           device=g.device)
+        virt.index_copy_(0, uniq_slot, sums)
+        return (virt[:hr].to(ctx.dtypes[0]), virt[hr:].to(ctx.dtypes[1]),
+                None, None, None, None, None)
+
+
+class EmbeddingFetchPlan:
+    """One batch's host plan: the ``cold`` row block (its shape bucketed
+    by :func:`dedup_capacity`), the ``remap`` into the virtual ``[hot;
+    cold]`` table, and what the gradient needs: ``inv`` (each position's
+    distinct id), its stable sort (``order``, ``sorted_slot``) and each
+    distinct id's virtual row (``uniq_slot``). The arrays are numpy views
+    of the host tensors the upload reads (pinned for a CUDA cache)."""
+
+    __slots__ = ("ids", "remap", "cold", "cold_ids", "hot_rows",
+                 "table_shape", "inv", "order", "sorted_slot", "uniq_slot",
+                 "host")
+
+    def __init__(self, ids, remap, cold, cold_ids, hot_rows, table_shape,
+                 inv, order, sorted_slot, uniq_slot, pin: bool = False):
+        self.ids = ids
+        self.cold_ids = cold_ids
+        self.hot_rows = int(hot_rows)
+        self.table_shape = tuple(table_shape)
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                (cold, remap, inv, order, sorted_slot, uniq_slot)]
+        #: (cold, remap, inv, order, sorted_slot, uniq_slot) as host tensors
+        self.host = tuple(t.pin_memory() for t in host) if pin \
+            else tuple(host)
+        (self.cold, self.remap, self.inv, self.order, self.sorted_slot,
+         self.uniq_slot) = (t.numpy() for t in self.host)
+
+    def scatter_grad(self, d_hot, d_cold) -> np.ndarray:
+        """The dense ``(V, D)`` f32 gradient from the tier cotangents (the
+        host-side scatter-add an optimizer, or a parity test, applies to
+        the master table)."""
+        v, d = self.table_shape
+        dw = np.zeros((v, d), np.float32)
+        if self.hot_rows:
+            dw[:self.hot_rows] += _numpy_f32(d_hot)
+        dc = _numpy_f32(d_cold)
+        np.add.at(dw, self.cold_ids, dc[:self.cold_ids.size])
+        return dw
+
+
+def _numpy_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+class OutOfCoreEmbeddingCache:
+    """A two-tier table: the hot head on ``device`` (its rows from the
+    ``zoo.embed.hot_rows_budget_mb`` budget) and the cold tail in host
+    memory (pinned for a CUDA device). :meth:`plan` resolves one batch's
+    missing rows (dedup'd: each distinct cold row fetched and uploaded
+    once); :meth:`stream` overlaps that with the device's work on a
+    prefetch thread and degrades to a fetch on the consumer's thread when
+    a prefetch fails (the ``embed.prefetch`` fault site): a step can
+    stall, never wedge. Fetches from host memory pass the
+    ``embed.host_fetch`` site; a ledger charges blocked time to
+    ``data_wait``. The counters and gauges are the JAX package's."""
+
+    def __init__(self, table, *, hot_rows: Optional[int] = None,
+                 prefetch_depth: Optional[int] = None,
+                 staged_rows: int = 8192, registry=None, ledger=None,
+                 device="cuda"):
+        from ..observability import default_registry
+        self.device = torch.device(device)
+        self._pin = self.device.type == "cuda"
+        self._table = np.ascontiguousarray(np.asarray(table, np.float32))
+        v, d = self._table.shape
+        if hot_rows is None:
+            budget_mb = float(_conf("zoo.embed.hot_rows_budget_mb", 64))
+            hot_rows = int((budget_mb * 1024 * 1024) // max(d * 4, 1))
+        self.hot_rows = max(0, min(int(hot_rows), v))
+        self._hot = torch.from_numpy(
+            self._table[:self.hot_rows].copy()).to(self.device)
+        cold = torch.from_numpy(self._table[self.hot_rows:].copy())
+        # the cold tier stays in host memory, contiguous for fast slicing
+        self._cold_host = cold.pin_memory() if self._pin else cold
+        self._cold = self._cold_host.numpy()
+        if prefetch_depth is None:
+            prefetch_depth = int(_conf("zoo.embed.prefetch_depth", 2))
+        self.prefetch_depth = max(1, int(prefetch_depth))
+        self._staged_max = max(int(staged_rows), 1)
+        self._staged: "collections.OrderedDict[int, np.ndarray]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._ledger = ledger
+        reg = registry if registry is not None else default_registry()
+        self._c_hits = reg.counter(
+            "zoo_embed_cache_hits_total",
+            "unique ids served without a host fetch (device-resident hot "
+            "tier or already-staged cold rows)")
+        self._c_misses = reg.counter(
+            "zoo_embed_cache_misses_total",
+            "unique cold-tier ids that required a host-RAM row fetch")
+        self._c_prefetch = reg.counter(
+            "zoo_embed_prefetch_rows_total",
+            "cold rows staged ahead of the consuming step by the "
+            "prefetch thread")
+        self._c_dedup = reg.counter(
+            "zoo_embed_dedup_saved_rows_total",
+            "gathered rows saved by per-batch id dedup (ids seen minus "
+            "unique ids)")
+        self._c_prefetch_err = reg.counter(
+            "zoo_embed_prefetch_errors_total",
+            "prefetch attempts that failed and degraded to a "
+            "synchronous fetch on the consumer thread")
+        self._g_ids = reg.counter(
+            "zoo_embed_ids_total",
+            "ids resolved through the cache (dedup ratio denominator)")
+        reg.gauge("zoo_embed_prefetch_depth",
+                  "plan buffer depth of the cold-tier prefetch thread"
+                  ).set(self.prefetch_depth)
+        reg.gauge("zoo_embed_hot_rows",
+                  "rows of the embedding table resident on device (the "
+                  "hot tier; the rest live in host RAM)"
+                  ).set(self.hot_rows)
+
+    @property
+    def hot(self) -> torch.Tensor:
+        """The device-resident hot tier."""
+        return self._hot
+
+    @property
+    def table(self) -> np.ndarray:
+        """The host master copy."""
+        return self._table
+
+    def plan(self, ids) -> EmbeddingFetchPlan:
+        """One batch resolved on the host: the ids clamped and dedup'd,
+        hot and staged rows served from the cache, the missing cold rows
+        fetched from host memory (``embed.host_fetch``), and the ``(cold,
+        remap)`` pair with the gradient's sort, in (pinned) host
+        tensors."""
+        v, d = self._table.shape
+        ids_np = np.asarray(ids)
+        flat = np.clip(ids_np.reshape(-1).astype(np.int64), 0,
+                       max(v - 1, 0))
+        uniq, inv = np.unique(flat, return_inverse=True)
+        inv = inv.reshape(-1)
+        self._g_ids.inc(int(flat.size))
+        self._c_dedup.inc(int(flat.size - uniq.size))
+        hot_mask = uniq < self.hot_rows
+        self._c_hits.inc(int(hot_mask.sum()))
+        cold_ids = uniq[~hot_mask]
+        rows = self._cold_rows(cold_ids)
+        cap = dedup_capacity(max(int(cold_ids.size), 1), max(v, 1))
+        cold = np.zeros((cap, d), np.float32)
+        cold[:cold_ids.size] = rows
+        slot = np.empty(uniq.size, np.int64)
+        slot[hot_mask] = uniq[hot_mask]
+        slot[~hot_mask] = self.hot_rows + np.arange(cold_ids.size)
+        remap = slot[inv].astype(np.int32).reshape(ids_np.shape)
+        order = np.argsort(inv, kind="stable")
+        return EmbeddingFetchPlan(ids_np, remap, cold, cold_ids,
+                                  self.hot_rows, (v, d), inv=inv,
+                                  order=order, sorted_slot=inv[order],
+                                  uniq_slot=slot, pin=self._pin)
+
+    def _cold_rows(self, cold_ids: np.ndarray) -> np.ndarray:
+        """Rows of the (distinct) cold ids: staged LRU hits first, then one
+        batched host fetch for the misses."""
+        d = self._table.shape[1]
+        out = np.empty((cold_ids.size, d), np.float32)
+        miss_pos, miss_ids = [], []
+        with self._lock:
+            for j, i in enumerate(cold_ids.tolist()):
+                row = self._staged.get(i)
+                if row is not None:
+                    self._staged.move_to_end(i)
+                    out[j] = row
+                else:
+                    miss_pos.append(j)
+                    miss_ids.append(i)
+        self._c_hits.inc(cold_ids.size - len(miss_ids))
+        if miss_ids:
+            self._c_misses.inc(len(miss_ids))
+            fetched = self._host_fetch(np.asarray(miss_ids, np.int64))
+            out[np.asarray(miss_pos)] = fetched
+            with self._lock:
+                for i, row in zip(miss_ids, fetched):
+                    self._staged[i] = row
+                while len(self._staged) > self._staged_max:
+                    self._staged.popitem(last=False)
+        return out
+
+    def _host_fetch(self, miss_ids: np.ndarray) -> np.ndarray:
+        from ..common import faults
+        faults.inject("embed.host_fetch")
+        return self._cold[miss_ids - self.hot_rows]
+
+    def rows(self, plan: EmbeddingFetchPlan,
+             hot: Optional[torch.Tensor] = None,
+             cold: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rows of a planned batch on the device, ``ids.shape + (D,)``:
+        the plan's host tensors uploaded once (from pinned memory, without
+        a host sync), then the two-tier gather. ``hot`` (default the cache's
+        tier) and ``cold`` (default the plan's block) may be tensors that
+        take the gradient, which flows back through SA."""
+        hot = self._hot if hot is None else hot
+        dev = hot.device
+        host = plan.host
+        up = [t.to(dev, non_blocking=True) for t in host]
+        if cold is not None:
+            up[0] = cold
+        return _OocoreRows.apply(hot, *up)
+
+    def stream(self, batches: Iterable, *, ledger=None
+               ) -> Iterator[Tuple[np.ndarray, EmbeddingFetchPlan]]:
+        """``(ids, plan)`` for each batch, the upcoming plans staged by a
+        background thread (``feature_set._ThreadedIterator``, the machinery
+        of ``prefetch_to_device``). A failed prefetch (``embed.prefetch``)
+        is counted and its plan rebuilt on the consumer's thread. Blocked
+        pulls and such rebuilds are ``data_wait`` on the ledger, the
+        consumer's work ``device_step``."""
+        from ..common import faults
+        from ..feature.feature_set import _ThreadedIterator
+        ledger = ledger if ledger is not None else self._ledger
+
+        def note(category):
+            if ledger is not None:
+                ledger.note(category)
+
+        def staged():
+            for ids in batches:
+                try:
+                    faults.inject("embed.prefetch")
+                    p = self.plan(ids)
+                    self._c_prefetch.inc(int(p.cold_ids.size))
+                    yield ids, p
+                # degrade, never wedge: the consumer refetches in line
+                except Exception:  # zoolint: disable=ZL007
+                    self._c_prefetch_err.inc()
+                    yield ids, None
+        src = _ThreadedIterator(staged(), buffer_size=self.prefetch_depth)
+        note("idle")
+        try:
+            for ids, p in src:
+                if p is None:
+                    p = self.plan(ids)    # the degraded fetch, in line
+                note("data_wait")
+                yield ids, p
+                note("device_step")
+        finally:
+            note("data_wait")
+            src.close()

@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from .....common.noise import noise_generator
-from .....ops.pallas.quantized import int8_matmul
+from .....ops.pallas.quantized import (STATIC_MAX_M, int8_matmul,
+                                       static_int8_dense,
+                                       static_int8_dense_reference)
 from ..engine import (Layer, compute_dtype, get_initializer, param_dtype,
                       squeeze_dim)
 
@@ -94,26 +96,6 @@ def dense(x: torch.Tensor, W: torch.Tensor, b: Optional[torch.Tensor],
     return y
 
 
-def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """The exact int32 product of int8 ``xq (..., K)`` and ``wq (K, N)``
-    through ``torch._int_mm`` (the JAX package leaves this product to XLA,
-    not to a Pallas kernel). On CUDA ``_int_mm`` takes only M > 16 and K,
-    N multiples of 8: rows and columns are zero-padded to that, which adds
-    exact zeros, and the result is sliced back."""
-    lead, k, n = xq.shape[:-1], xq.shape[-1], wq.shape[1]
-    a = xq.reshape(-1, k)
-    m = a.shape[0]
-    if xq.device.type == "cuda":
-        pk, pn = -k % 8, -n % 8
-        pm = max(17 - m, 0)
-        if pm or pk:
-            a = F.pad(a, (0, pk, 0, pm))
-        if pk or pn:
-            wq = F.pad(wq, (0, pn, 0, pk))
-    y = torch._int_mm(a.contiguous(), wq.contiguous())
-    return y[:m, :n].reshape(*lead, n)
-
-
 class Activation(Layer):
     """``keras/layers/Activation.scala``: ``activation`` by name (or a
     callable) on the input."""
@@ -168,13 +150,18 @@ class Dense(Layer):
         quantize to ``x_scale`` (a division, round half to even, clip to
         +-127), the int8 x int8 product is exact in int32, and one f32
         rescale by ``x_scale * w_scale`` restores float before the f32
-        bias and the activation — the JAX package's order."""
-        xq = torch.clamp(torch.round(x.float() / self.x_scale), -127, 127
-                         ).to(torch.int8)
-        y = int8_product(xq, self.W).float() * (self.x_scale * self.w_scale)
-        if self.bias:
-            y = y + self.b
-        if self.activation is not None:
+        bias and the activation — the JAX package's order. Up to
+        ``STATIC_MAX_M`` rows all of it but an activation other than ReLU
+        runs in Q8 (:func:`static_int8_dense`; its plain version on the
+        CPU); more rows take the plain version, whose product is the
+        padded ``torch._int_mm``."""
+        relu = self.activation is ACTIVATIONS["relu"]
+        b = self.b if self.bias else None
+        rows = math.prod(x.shape[:-1])
+        op = (static_int8_dense if rows <= STATIC_MAX_M
+              else static_int8_dense_reference)
+        y = op(x, self.x_scale, self.W, self.w_scale, b, relu)
+        if self.activation is not None and not relu:
             y = self.activation(y)
         return y
 

@@ -23,10 +23,18 @@ What the JAX loop does and this one keeps:
   the host between epochs (no checkpoint manager, validation or end
   trigger), with one read of the device a block. On CUDA a multi-step
   dispatch is the replay of a captured CUDA graph;
-* no host sync inside an epoch (or a fused block): batches go to the
-  device through pinned memory without blocking, step losses stay on the
-  device and are read once at the epoch's (the block's) end (flag words
-  are copied to the host as they come and read four dispatches late);
+* no host sync inside an epoch (or a fused block): the eager loop,
+  ``evaluate`` and ``predict`` stream their batches through
+  ``prefetch_to_device`` (assembled and pinned on a thread, copied ahead
+  on a copy stream of their own, as the JAX loop streams them); the
+  multi-step path assembles its chunks on a thread and copies each into
+  the captured program's buffers on the compute stream; step losses stay
+  on the device and are read once at the epoch's (the block's) end (flag
+  words are copied to the host as they come and read four dispatches
+  late);
+* a sliced ``DiskFeatureSet``: one loop epoch is one slice pass;
+  ``nb_epoch``, ``EveryEpoch`` and ``MaxEpoch`` count full passes of its
+  ``num_of_slice`` slices, and ``device_cache`` declines it;
 * the optimizer's count and per-step values: the count is kept beside
   the optimizer state (``model.opt_state``) and continues over fits; the
   host computes each step's scalars and every path's update reads them
@@ -84,6 +92,7 @@ one-device mesh block).
 from __future__ import annotations
 
 import collections
+import contextlib
 import logging
 import signal
 import threading
@@ -97,9 +106,10 @@ from ....common import anomaly, faults
 from ....common.context import get_zoo_context, train_dispatch
 from ....common.noise import step_seed
 from ....common.reliability import RetryBudget
-from ....common.triggers import (EveryEpoch, SeveralIteration,
+from ....common.triggers import (EveryEpoch, MaxEpoch, SeveralIteration,
                                  TrainLoopState, Trigger)
-from ....feature.feature_set import FeatureSet, chunked
+from ....feature.feature_set import (FeatureSet, _ThreadedIterator, chunked,
+                                     prefetch_to_device)
 from ....observability import default_registry, span
 from ....utils.checkpoint import (MESH_ONE_DEVICE,
                                   CheckpointArchitectureError,
@@ -174,6 +184,18 @@ def _to_device(x, device: torch.device):
     return xs if isinstance(x, (list, tuple)) else xs[0]
 
 
+def _host_arrays(x, y):
+    """``(x, y)`` of a FeatureSet (its host view: tensors read back once),
+    or the arrays as given."""
+    if isinstance(x, FeatureSet):
+        if getattr(x, "ragged", False):
+            raise ValueError("a ragged (bucketed) FeatureSet has no single "
+                             "dense array: evaluate or predict each bucket")
+        xs, y = x._host_view()
+        return (xs if len(xs) > 1 else xs[0]), y
+    return x, y
+
+
 def _pad_to(x, size: int):
     """Pad the batch dim to ``size`` by repeating the last row."""
     out = []
@@ -207,6 +229,18 @@ def _padded_batches(x, y, batch_size: int):
 def step_generator(seed: int, iteration: int) -> torch.Generator:
     """The CPU generator of one training step's noise."""
     return torch.Generator().manual_seed(step_seed(seed, iteration))
+
+
+class _FullPassEveryEpoch(Trigger):
+    """``EveryEpoch`` over a sliced dataset: fires only when the finished
+    slice pass completes a full pass over all slices
+    (``ZooTrigger.scala:53-58``: ``currentSlice % numSlice == 0``)."""
+
+    def __init__(self, num_slices: int):
+        self.num_slices = int(num_slices)
+
+    def __call__(self, state: TrainLoopState) -> bool:
+        return state.epoch_finished and state.epoch % self.num_slices == 0
 
 
 def _fired_within(trigger: Optional[Trigger], state: TrainLoopState,
@@ -979,9 +1013,21 @@ class TrainingLoop:
         failure reloads the latest checkpoint (when ``set_checkpoint`` is
         configured) and retries, at most ``zoo.failure.retry_times``
         times per ``zoo.failure.retry_window_sec`` window."""
-        if fs.y is None:
+        # a disk set's y would gather the whole label file
+        if (fs.file_y if hasattr(fs, "file_y") else fs.y) is None:
             raise ValueError("fit needs labels")
         ctx = get_zoo_context()
+        # fail now, not after an epoch: a multi-step chunk stacks batches of
+        # one shape, and validation needs one dense array
+        if getattr(fs, "ragged", False) and train_dispatch()[0] > 1:
+            raise ValueError(
+                "bucketed (ragged) datasets cannot use "
+                "zoo.train.scan_steps > 1 — fused chunks stack same-shape "
+                "batches; set scan_steps=1")
+        if getattr(validation_data, "ragged", False):
+            raise ValueError(
+                "bucketed validation_data is not supported — evaluate per "
+                "bucket (validation_data.buckets) instead")
         retry_times = int(ctx.get("zoo.failure.retry_times", 5))
         window_sec = float(ctx.get("zoo.failure.retry_window_sec", 3600))
         # per-fit self-healing state (zoo.train.sentinel=recover): the
@@ -1175,8 +1221,26 @@ class TrainingLoop:
                             "restored; continuing from the in-memory "
                             "state (further anomalies will re-escalate "
                             "within the rollback budget)")
+        # the sliced disk tier: one loop epoch is one slice pass; nb_epoch
+        # and EveryEpoch/MaxEpoch count full passes of num_of_slice slices
+        n_slices = int(getattr(fs, "num_of_slice", 1) or 1)
+        if n_slices > 1:
+            def slice_aware(trig):
+                if isinstance(trig, EveryEpoch):
+                    return _FullPassEveryEpoch(n_slices)
+                if isinstance(trig, MaxEpoch):
+                    return MaxEpoch(trig.max_epoch * n_slices)
+                if trig is not None and not isinstance(
+                        trig, (SeveralIteration, _FullPassEveryEpoch)):
+                    log.warning("trigger %s under a %d-slice DiskFeatureSet "
+                                "observes SLICE passes as epochs, not full "
+                                "passes", type(trig).__name__, n_slices)
+                return trig
+            ckpt_trigger = slice_aware(ckpt_trigger)
+            end_trigger = slice_aware(end_trigger)
         if "target" not in target_holder:
-            target_holder["target"] = model.finished_epochs + nb_epoch
+            target_holder["target"] = (model.finished_epochs
+                                       + nb_epoch * n_slices)
         target = target_holder["target"]
 
         if device_cache and sen.active:
@@ -1186,7 +1250,9 @@ class TrainingLoop:
                 "(zoo.train.sentinel=%s, zoo.train.grad_clip=%g); using "
                 "the streamed dispatch path", sen.mode, sen.grad_clip)
             device_cache = False
-        cached = device_cache and getattr(fs, "device_cacheable", True)
+        # a sliced set has no one array to keep on the device
+        cached = (device_cache and n_slices <= 1
+                  and getattr(fs, "device_cacheable", True))
         n_steps = fs.steps_per_epoch(batch_size, drop_last=True)
         if cached:
             for trig, role in ((ckpt_trigger if mgr is not None else None,
@@ -1240,39 +1306,41 @@ class TrainingLoop:
                     params, opt, rows, guard)
             losses = []
             n_seen = 0
-            for k, run in dispatches:
-                # host batch assembly since the last dispatch
-                self._gp_note("data_wait")
-                prev_iter = loop_state.iteration
-                if (monitor is not None and self._anomalous_steps
-                        and any(monitor.step_key(prev_iter + j)
-                                in self._anomalous_steps
-                                for j in range(k))):
-                    # rollback replay: the offending data window is NOT
-                    # re-dispatched; the iteration still advances so the
-                    # noise schedule and trigger windows stay aligned
-                    loop_state.iteration += k
-                    monitor.note_replay_skip(k)
-                    self._gp_note("anomaly_skip")
-                else:
-                    self._segment_begin(mgr, loop_state, params, opt)
-                    step_l, step_f = run()
-                    self._segment_end()
-                    self._gp_note("device_step")
-                    losses.append(step_l)
-                    if monitor is not None:
-                        monitor.push(prev_iter, step_f)
-                    if guard is None:
-                        opt["count"] += k
-                    loop_state.iteration += k
-                    n_seen += k * batch_size
-                if mgr is not None and _fired_within(ckpt_trigger, loop_state,
-                                                     prev_iter):
-                    self._save_checkpoint(mgr, loop_state, params, opt)
-                self._maybe_preempt(mgr, loop_state, params, opt)
-                if _fired_within(end_trigger, loop_state, prev_iter):
-                    stop = True
-                    break
+            # closed on every exit: the prefetch thread ends with it
+            with contextlib.closing(dispatches):
+                for k, run in dispatches:
+                    # host batch assembly since the last dispatch
+                    self._gp_note("data_wait")
+                    prev_iter = loop_state.iteration
+                    if (monitor is not None and self._anomalous_steps
+                            and any(monitor.step_key(prev_iter + j)
+                                    in self._anomalous_steps
+                                    for j in range(k))):
+                        # rollback replay: the offending data window is NOT
+                        # re-dispatched; the iteration still advances so the
+                        # noise schedule and trigger windows stay aligned
+                        loop_state.iteration += k
+                        monitor.note_replay_skip(k)
+                        self._gp_note("anomaly_skip")
+                    else:
+                        self._segment_begin(mgr, loop_state, params, opt)
+                        step_l, step_f = run()
+                        self._segment_end()
+                        self._gp_note("device_step")
+                        losses.append(step_l)
+                        if monitor is not None:
+                            monitor.push(prev_iter, step_f)
+                        if guard is None:
+                            opt["count"] += k
+                        loop_state.iteration += k
+                        n_seen += k * batch_size
+                    if mgr is not None and _fired_within(
+                            ckpt_trigger, loop_state, prev_iter):
+                        self._save_checkpoint(mgr, loop_state, params, opt)
+                    self._maybe_preempt(mgr, loop_state, params, opt)
+                    if _fired_within(end_trigger, loop_state, prev_iter):
+                        stop = True
+                        break
             completed = not stop  # stop=True means the epoch was cut short
             # the epoch's one read of the device: losses (and the device
             # count; the flag words of the last dispatches first)
@@ -1329,9 +1397,9 @@ class TrainingLoop:
         return history
 
     def _validate(self, validation_data, batch_size: int):
-        vx, vy = ((validation_data.x, validation_data.y)
-                  if isinstance(validation_data, FeatureSet)
-                  else validation_data)
+        if isinstance(validation_data, FeatureSet):
+            return self.evaluate(validation_data, batch_size=batch_size)
+        vx, vy = validation_data
         return self.evaluate(vx, vy, batch_size=batch_size)
 
     def _fused_blocks(self, fs, batch_size, target, fuse, scan_steps,
@@ -1389,13 +1457,16 @@ class TrainingLoop:
     #    guarded, their flag words) on the device ----------------------
     def _eager_dispatches(self, fs, epoch, seed, it0, batch_size, params,
                           opt, rows, guard):
-        """One step a dispatch, each batch copied to the device."""
+        """One step a dispatch, the batches streamed to the device through
+        :func:`prefetch_to_device` (assembled on its thread, copied ahead
+        on its stream), as the JAX loop streams them."""
         device = self._device()
         faults_on = guard is not None and guard.cfg.faults
-        for i, (bx, by) in enumerate(fs.iter_batches(
-                batch_size, epoch=seed + epoch, drop_last=True)):
-            def run(i=i, bx=bx, by=by):
-                x, y = _to_device(bx, device), _to_device(by, device)
+        stream = prefetch_to_device(
+            fs.iter_batches(batch_size, epoch=seed + epoch, drop_last=True),
+            device, ledger=self._goodput)
+        for i, (x, y) in enumerate(stream):
+            def run(i=i, x=x, y=y):
                 gen = self._noise(seed, it0 + i, device)
                 if guard is None:
                     return self.train_step(x, y, gen, params, opt["state"],
@@ -1414,28 +1485,42 @@ class TrainingLoop:
         buffers."""
         device = self._device()
         faults_on = guard is not None and guard.cfg.faults
-        done = 0
-        for chunk in chunked(fs.iter_batches(batch_size, epoch=seed + epoch,
-                                             drop_last=True), k_max):
-            k = chunk[1].shape[0]
+        # only the host assembly runs ahead, on a thread: the copy into the
+        # captured program's static buffers (fill) stays on the compute
+        # stream after the previous replay, which reads them
+        src = _ThreadedIterator(chunked(fs.iter_batches(
+            batch_size, epoch=seed + epoch, drop_last=True), k_max),
+            buffer_size=2)
+        try:
+            done = 0
+            for chunk in src:
+                k = chunk[1].shape[0]
+                # one step's arrays of the chunk: the buffers' dtypes and
+                # shapes
+                step_xs = [a[0] for a in _as_list(chunk[0])]
+                step_y = chunk[1][0]
 
-            def run(chunk=chunk, done=done, k=k):
-                program = self._step_program(
-                    ("chunks", batch_size, k_max,
-                     tuple((a.dtype.str, a.shape[1:]) for a in fs.xs),
-                     (fs.y.dtype.str, fs.y.shape[1:])),
-                    lambda: dispatch.HostChunks(fs.xs, fs.y, k_max,
-                                                batch_size, device),
-                    params, opt, k_max, guard, "train.scan_chunk")
-                program.inputs.fill(chunk)
-                if guard is None:
-                    return program.run(k, seed, it0 + done,
-                                       rows[done:done + k]), None
-                fault = (np.stack([self._fault_input() for _ in range(k)])
-                         if faults_on else None)
-                return program.run(k, seed, it0 + done, rows, fault)
-            yield k, run
-            done += k
+                def run(chunk=chunk, done=done, k=k, step_xs=step_xs,
+                        step_y=step_y):
+                    program = self._step_program(
+                        ("chunks", batch_size, k_max,
+                         tuple((a.dtype.str, a.shape[1:]) for a in step_xs),
+                         (step_y.dtype.str, step_y.shape[1:])),
+                        lambda: dispatch.HostChunks(step_xs, step_y, k_max,
+                                                    batch_size, device),
+                        params, opt, k_max, guard, "train.scan_chunk")
+                    program.inputs.fill(chunk)
+                    if guard is None:
+                        return program.run(k, seed, it0 + done,
+                                           rows[done:done + k]), None
+                    fault = (np.stack([self._fault_input()
+                                       for _ in range(k)])
+                             if faults_on else None)
+                    return program.run(k, seed, it0 + done, rows, fault)
+                yield k, run
+                done += k
+        finally:
+            src.close()
 
     def _device_data(self, fs, k_max, batch_size, device):
         """The device-resident copy of ``fs``, uploaded once and kept while
@@ -1446,7 +1531,7 @@ class TrainingLoop:
             self._data = self._program = None
             # holding ``fs`` keeps its id from naming another set
             self._data = (key, fs, dispatch.DeviceData(
-                fs.xs, fs.y, k_max, batch_size, device))
+                *fs._host_view(), k_max, batch_size, device))
         return self._data[2]
 
     def _cached_dispatches(self, fs, epoch, seed, it0, batch_size, params,
@@ -1503,17 +1588,17 @@ class TrainingLoop:
     # -- evaluate / predict -------------------------------------------------
     def evaluate(self, x, y=None, *, batch_size: int = 32
                  ) -> Dict[str, float]:
-        if isinstance(x, FeatureSet):
-            x, y = x.x, x.y
+        x, y = _host_arrays(x, y)
         self._ensure_weights()
         device = self._device()
         pe_loss = objectives.per_example_loss(self.loss)
         totals: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         with torch.no_grad():
-            for bx, by, mask, _ in _padded_batches(x, y, batch_size):
-                by_d = _to_device(by, device)
-                mask_d = _to_device(mask, device)
-                y_pred = self.model(_to_device(bx, device), training=False)
+            # streamed through the training loop's prefetch pipeline; the
+            # running totals stay on the device
+            for bx_d, by_d, mask_d, _ in prefetch_to_device(
+                    _padded_batches(x, y, batch_size), device):
+                y_pred = self.model(bx_d, training=False)
                 stats = {m.name: m.update(by_d, y_pred, mask_d)
                          for m in self.metrics}
                 if pe_loss is not None:
@@ -1539,14 +1624,14 @@ class TrainingLoop:
         return out
 
     def predict(self, x, *, batch_size: int = 32):
-        if isinstance(x, FeatureSet):
-            x = x.x
+        x, _ = _host_arrays(x, None)
         self._ensure_weights()
         device = self._device()
         outs = []
         with torch.no_grad():
-            for bx, _, _, real in _padded_batches(x, None, batch_size):
-                y_pred = self.model(_to_device(bx, device), training=False)
+            for bx_d, _, _, real in prefetch_to_device(
+                    _padded_batches(x, None, batch_size), device):
+                y_pred = self.model(bx_d, training=False)
                 outs.append(y_pred[:real])
         if not outs:
             return None

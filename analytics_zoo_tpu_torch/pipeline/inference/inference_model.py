@@ -28,7 +28,10 @@ Static int8 (``quantize="int8", calibrate=batch``): one eager forward
 records each quantizable layer's input range (``_calibrate``), the
 calibrated layers' weights become int8 with their activation scale
 (``_rewrite_quantized``), and predict routes those layers to
-``quantized_call`` (int8 x int8 -> int32 through ``torch._int_mm``).
+``quantized_call``: up to 32 rows kernel Q8 (``ops/pallas/quantized.py``
+``static_int8_dense``: the quantize, the int8 x int8 -> int32 product,
+the rescale, bias and ReLU in one kernel), above that the same ops in
+torch with the product on ``torch._int_mm``.
 
 The weights are put on the device once, at load, never per predict.
 """

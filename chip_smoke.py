@@ -105,6 +105,26 @@
    once more with the device permutation replaced by the FeatureSet's own
    order: its step losses against the eager loop's (the same bits, or
    within 1e-6 relative, printed which).
+10a. Disk fit phase: the NCF phase's ratings saved as ``.npy`` files in a
+   temporary directory, ``NeuralCF(6040, 3706, 5)`` fitted eagerly (every
+   batch through ``prefetch_to_device``) on a ``DiskFeatureSet`` of two
+   slices in rotation mode for one full pass, and again on
+   ``FeatureSet.array`` of each slice in turn: the same step losses bit
+   for bit; the IO path that read the files (``native``: the port's
+   ``libzoo_io`` built into ``build/native``) and records/s of both.
+10c. Out-of-core embedding phase: the JAX bench's
+   ``bench_embedding_oocore`` (``bench.py:326-389``) at its 2 MB hot
+   budget (8,192 hot rows of 81,920, d 64) and at the default 64 MB
+   (262,144 of 2,621,440, a 671 MB table in host memory): 24 batches of
+   4096 zipf(1.1) ids (numpy seed 7), plans staged by the prefetch thread,
+   one upload and the two-tier gather each; prints
+   ``embedding_oocore_recs_per_sec``, ``embedding_dedup_rows_saved_ratio``,
+   ``embedding_oocore_cache_hit_rate`` and the table and hot row counts.
+   Gates: the rows the master table's gather bit for bit, the counters
+   what numpy's plan gives on the same ids, one batch's gradient through
+   SA against the dense scatter-add (1e-6 relative) and the same bits
+   twice, and a stream under an ``embed.prefetch`` error plan (calls 0
+   and 2) the same rows with 2 errors counted.
 10b. Wide & Deep phase: the JAX bench's Census configuration
    (``bench.py:105-160``: 200,000 synthetic rows from numpy seed 1,
    ``WideAndDeep("wide_n_deep", 2, hidden (40, 20, 10))``, wide dims 2,
@@ -145,6 +165,15 @@
    sequence's device time beside) with the second mode's device time
    beside. The static path's padded ``torch._int_mm`` bit for bit against
    the CPU's int32 product at M = 1 and 32.
+11b. Static int8 kernel phase (fault j): Q8 (the static int8 dense
+   layer, ``csrc/quantized.cu``: quantize, int8 x int8 -> int32 by dp4a,
+   rescale, bias, ReLU, split K with a PDL reduce) against its plain
+   version (the static path's torch ops, the padded ``_int_mm``) on the
+   card and on the CPU, bit for bit and the same bits twice, at M = 1, 7
+   and 32 with K = N = 4096, at the head's Dense(8) (M = 1 and 32) and at
+   K = 1000, each without and with the bias and the fused ReLU; each timed
+   beside the plain version, ``torch._int_mm`` alone on the padded
+   operands and with its padding, and the bound.
 12. int8 serving phase (config B): the serving phase's BERT-base, records
    and adapter on the weight-only int8 ``InferenceModel`` that
    ``ClusterServing._wrap_model`` builds for ``dtype="int8"``: every matmul
@@ -215,13 +244,16 @@
    head (``bench.py:797-815``: 3 x Dense(4096, relu) + Dense(8, softmax),
    f32, one epoch of Adam 1e-4 on 256 seeded rows, batch 64) served fp32,
    weight-only int8 (K6 on all four layers, bias and ReLU fused into its
-   skinny kernel) and static int8 calibrated on 8 rows (``_int_mm`` on all
-   four): resident weight bytes (int8 at most 0.3 x fp32), each int8 mode
-   within 1e-4 relative of its float counterpart, top-1 agreement and
-   batch-1 device time by CUDA-graph replay (printed; weight-only also
-   with the bias adds and ReLUs as torch ops of their own, as before the
-   fusion, and the device kernels one batch-1 ``_forward`` launches each
-   way, fewer with the fusion), and ``ClusterServing(model,
+   skinny kernel) and static int8 calibrated on 8 rows (Q8 on all four
+   layers up to 32 rows, 4 launches a predict counted; the padded
+   ``_int_mm`` above): resident weight bytes (int8 at most 0.3 x fp32),
+   each int8 mode within 1e-4 relative of its float counterpart (static
+   at 1, 8 and 32 rows and 8 of 256), top-1 agreement and batch-1 device
+   time by CUDA-graph replay (weight-only also with the bias adds and
+   ReLUs as torch ops of their own, as before the fusion; static also as
+   before Q8; the device kernels one batch-1 ``_forward`` launches each
+   way), fault j's gate ``fp32 / static int8 >= 1.5`` (the JAX bench's
+   ``int8_stream_b1_speedup`` floor), and ``ClusterServing(model,
    dtype="int8")`` answering all 256 records with 4 K6 launches per
    dispatch, all on the skinny kernel.
 14. Fault l phase: the fused LM-head cross-entropy on views (a column
@@ -270,9 +302,13 @@ kernel without its return type, namespaces and arguments, and leave
 memcpy and memset records out; two captures of one call that disagree
 are both printed.
 
+The eager training loops (BERT's, NCF's and Wide & Deep's when their
+keys are off) stream every batch through ``prefetch_to_device``.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
-path; the attention kernels also checked against their plain versions,
+path; Q8's from config A's static predicts, SA's also from the oocore
+gradient; the attention kernels also checked against their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
 shape beside SDPA's causal forward and backward there, K1 and SA also at
 the DLRM width), and last
@@ -292,7 +328,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 T_BATCH = 32          # ClusterServing and fit batch size: the kernels' B
@@ -387,6 +423,26 @@ INT8_CASES = [(1, 4096, 4096, False), (8, 4096, 4096, False),
               (16384, 768, 2304, False), (16384, 3072, 768, False),
               (32, 768, 2, False), (17, 100, 10, False),
               (300, 100, 130, False)]
+#: Q8's cases (M, K, N): the head's three Dense(4096) layers at batch 1,
+#: 7 and 32, its Dense(8) layer at 1 and 32, and a K that is not a
+#: multiple of 32; each without and with the bias and the fused ReLU
+STATIC_CASES = [(1, 4096, 4096), (7, 4096, 4096), (32, 4096, 4096),
+                (1, 4096, 8), (32, 4096, 8), (5, 1000, 4096)]
+#: the JAX bench's floor on fp32 / static int8 batch-1 ms of config A
+#: (int8_stream_b1_speedup, bench.py:1524)
+STATIC_B1_FLOOR = 1.5
+#: the out-of-core embedding phase: the JAX bench's configuration
+#: (bench.py:326-389: d 64, a 2 MB hot budget, a 10x table, batch 4096,
+#: 24 batches of zipf(1.1) ids, numpy seed 7) and the default budget's
+OOCORE_D, OOCORE_BATCH, OOCORE_BATCHES, OOCORE_SEED = 64, 4096, 24, 7
+OOCORE_BUDGETS_MB = {"bench_2mb": 2.0, "default_64mb": 64.0}
+OOCORE_DEVICE = "cuda"
+#: the oocore gradient against the dense scatter-add of the same rows:
+#: SA's position-order f32 sums against np.add.at's, the same order
+OOCORE_GRAD_TOL = 1e-6
+#: the DiskFeatureSet fit: NCF on the NCF phase's ratings, two slices in
+#: rotation mode, one full pass
+DISK_SLICES, DISK_BATCH = 2, 8192
 #: the lanes phase: records a lane and the flood's pre-enqueued backlog
 N_LANE = 256
 N_OVERLOAD = 1024
@@ -1401,9 +1457,8 @@ def int8_kernel_phase():
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_ROUTES, LAST_LAUNCH, int8_matmul, int8_matmul_reference)
-    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
-        int8_product
+        KERNEL_INT8_ROUTES, LAST_LAUNCH, int8_matmul, int8_matmul_reference,
+        int8_product)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for m, k, n, epi in INT8_CASES:
@@ -1509,6 +1564,126 @@ def int8_kernel_phase():
         rows[row["case"]] = row
         print(f"int8 kernel case {json.dumps(row)}")
     return rows
+
+
+def q8_bound(m, k, n, bias=False):
+    """Q8's least time: x (f32) and x_scale read, the int8 weights and f32
+    w_scale (and bias) read, the f32 output written once, against 2 M K N
+    operations at the int8 peak."""
+    t_bytes = (m * k * 4 + 4 + k * n + n * 4 * (2 if bias else 1)
+               + m * n * 4) / PEAK_BYTES_PER_S
+    t_ops = 2.0 * m * n * k / PEAK_FLOPS["int8"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def static_int8_kernel_phase():
+    """Q8 (the static int8 dense layer, ``csrc/quantized.cu``) against its
+    plain version, the static path's torch ops (the padded ``_int_mm``),
+    on the card and on the CPU, bit for bit, at the head's shapes and a
+    ragged K, without and with the bias and the fused ReLU; the same bits
+    twice. Each timed: the wrapper, CUDA-graph device time, the plain
+    version, the padded ``_int_mm`` alone and with its padding and
+    quantize (the library), and the bound; weights above 8 MB rotate over
+    enough copies to exceed the L2."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        LAST_STATIC_LAUNCH, int8_product, static_int8_dense,
+        static_int8_dense_reference)
+    rows = {}
+    for m, k, n in STATIC_CASES:
+        for epi in (False, True):
+            name = f"{m}x{k}x{n}" + ("_bias_relu" if epi else "")
+            g = torch.Generator().manual_seed(m * 7 + k + n)
+            x = torch.randn(m, k, generator=g) * 3.0
+            x[0, :3] = torch.tensor([0.125, -0.375, 6.4])  # exact .5 ties
+            xs = torch.tensor(0.05)
+            copies = math.ceil(64e6 / (k * n)) if k * n > 8e6 else 1
+            ws = [torch.randint(-127, 128, (k, n), generator=g,
+                                dtype=torch.int8) for _ in range(copies)]
+            sc = torch.rand(n, generator=g) * 0.02 + 0.001
+            bias = torch.randn(n, generator=g) * 2.0 if epi else None
+            xc, xsc, scc = x.cuda(), xs.cuda(), sc.cuda()
+            wc = [w.cuda() for w in ws]
+            bc = None if bias is None else bias.cuda()
+            out = static_int8_dense(xc, xsc, wc[0], scc, bc, epi)
+            again = static_int8_dense(xc, xsc, wc[0], scc, bc, epi)
+            torch.cuda.synchronize()
+            ref = static_int8_dense_reference(xc, xsc, wc[0], scc, bc, epi)
+            cpu = static_int8_dense_reference(x, xs, ws[0], sc, bias, epi)
+            same = {what: torch.equal(out.cpu().view(torch.int32),
+                                      want.cpu().view(torch.int32))
+                    for what, want in (("plain_cuda", ref), ("plain_cpu", cpu),
+                                       ("second_run", again))}
+            err = (out - ref).abs().max().item()
+            check(all(same.values()), f"Q8 {name}: not the plain version's "
+                  f"bits {same} (max |diff| {err})")
+            bound_ms, bound_by = q8_bound(m, k, n, epi)
+            xq = torch.clamp(torch.round(xc / xsc), -127, 127).to(torch.int8)
+            xq_pad = torch.nn.functional.pad(xq, (0, -k % 8, 0,
+                                                  max(17 - m, 0)))
+            w_pad = [torch.nn.functional.pad(w, (0, -n % 8, 0, -k % 8))
+                     for w in wc]
+
+            def q8(j):
+                return static_int8_dense(xc, xsc, wc[j], scc, bc, epi)
+            row = {"case": name, "m": m, "k": k, "n": n,
+                   "epilogue": "bias+relu" if epi else None,
+                   "bit_equal": same, "max_abs_err": err,
+                   "weight_copies": copies,
+                   "ms": time_ms(cycling(q8, copies)),
+                   "splits": LAST_STATIC_LAUNCH.splits,
+                   "device_ms": graph_ms(cycling(q8, copies)),
+                   "plain_ms": time_ms(cycling(
+                       lambda j: static_int8_dense_reference(
+                           xc, xsc, wc[j], scc, bc, epi), copies)),
+                   "plain_device_ms": graph_ms(cycling(
+                       lambda j: static_int8_dense_reference(
+                           xc, xsc, wc[j], scc, bc, epi), copies)),
+                   "library_ms": time_ms(cycling(
+                       lambda j: torch._int_mm(xq_pad, w_pad[j]), copies)),
+                   "library_device_ms": graph_ms(cycling(
+                       lambda j: torch._int_mm(xq_pad, w_pad[j]), copies)),
+                   "library_by": "torch._int_mm alone on the padded int8 "
+                                 "operands",
+                   "padded_int_mm_path_device_ms": graph_ms(cycling(
+                       lambda j: int8_product(xq, wc[j]), copies)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            rows[name] = row
+            print(f"static int8 kernel case {json.dumps(row)}")
+            del x, ws, wc, w_pad, out, again, ref, cpu
+    return rows
+
+
+def static_int8_kernel_row(static_rows, launches):
+    """Q8's row of the kernels line: at config A's batch-1 Dense(4096)
+    layer, the main path's shape, with M = 32 and the Dense(8) layer
+    beside."""
+    main = static_rows["1x4096x4096_bias_relu"]
+    row = {"name": "static_int8_dense", "route": "cuda",
+           "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
+           "replaces": "analytics_zoo_tpu/pipeline/api/keras/layers/"
+                       "core.py:106 (Dense.quantized_call; XLA "
+                       "dot_general, no Pallas kernel)",
+           "launches": launches,
+           "max_abs_err": max(r["max_abs_err"] for r in static_rows.values()),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"],
+           "library_by": main["library_by"],
+           "device_ms": main["device_ms"],
+           "plain_device_ms": main["plain_device_ms"],
+           "library_device_ms": main["library_device_ms"],
+           "padded_int_mm_path_device_ms":
+               main["padded_int_mm_path_device_ms"],
+           "splits": main["splits"]}
+    for tag, case in (("b32", "32x4096x4096_bias_relu"),
+                      ("dense8_b1", "1x4096x8_bias_relu")):
+        for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "splits"):
+            row[f"{key}_{tag}"] = static_rows[case][key]
+    return row
 
 
 def dequantized_copy(net, dtype=None):
@@ -1630,9 +1805,29 @@ class unfused_epilogue:
         return False
 
 
+class static_before_q8:
+    """Within the block, ``Dense.quantized_call`` runs the static path as
+    it did before Q8 at every row count: the quantize, the padded
+    ``torch._int_mm`` and the rescale, bias and activation as torch ops
+    (Q8's plain version; the same numbers)."""
+
+    def __enter__(self):
+        from analytics_zoo_tpu_torch.pipeline.api.keras.layers import core
+        self.core, self.q8 = core, core.static_int8_dense
+        core.static_int8_dense = core.static_int8_dense_reference
+        return self
+
+    def __exit__(self, *exc):
+        self.core.static_int8_dense = self.q8
+        return False
+
+
 def int8_head_phase():
     """Config A: the JAX bench's weight-streaming scoring head
-    (``bench.py:797-815``) trained one epoch, then served three ways."""
+    (``bench.py:797-815``) trained one epoch, then served three ways. The
+    static path's predicts of at most 32 rows run Q8 on every layer
+    (counted); fault j's gate: fp32 / static int8 batch-1 device ms at
+    least ``STATIC_B1_FLOOR``."""
     import copy
 
     import numpy as np
@@ -1642,7 +1837,7 @@ def int8_head_phase():
     from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
     from analytics_zoo_tpu_torch.observability import MetricsRegistry
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
@@ -1686,17 +1881,28 @@ def int8_head_phase():
           f"int8 resident bytes {w8_bytes}, {st_bytes} vs fp32 {fp_bytes}")
 
     deq = InferenceModel(device="cuda").from_keras(dequantized_copy(w8._model))
-    p_fp, p_w8, p_st = fp.predict(xf), w8.predict(xf), st.predict(xf)
-    w8_rel = rel_err(p_w8, deq.predict(xf))
     cpu_static = InferenceModel(device="cpu").from_keras(
         host, quantize="int8", calibrate=xf[:8])
-    st_rel = rel_err(st.predict(xf[:8]), cpu_static.predict(xf[:8]))
+    # the static path's main run: 256 rows (one chunk, the padded
+    # _int_mm), then 1, 8 and 32 rows (Q8 on all four layers)
+    KERNEL_INT8_STATIC.reset()
+    p_fp, p_w8, p_st = fp.predict(xf), w8.predict(xf), st.predict(xf)
+    st_small = {m: st.predict(xf[:m]) for m in (1, 8, T_BATCH)}
+    q8_launches = KERNEL_INT8_STATIC.launches
+    w8_rel = rel_err(p_w8, deq.predict(xf))
+    st_rel = max(rel_err(p, cpu_static.predict(xf[:m]))
+                 for m, p in st_small.items())
+    st_rel = max(st_rel, rel_err(p_st[:8], cpu_static.predict(xf[:8])))
     print(f"int8 head: weight-only vs fp32 on the dequantized weights "
-          f"{w8_rel:.3e}, static vs its plain CPU route (8 rows) "
-          f"{st_rel:.3e} (relative, limit {INT8_REL_TOL})")
+          f"{w8_rel:.3e}, static vs its plain CPU route (1, 8, 32 rows on "
+          f"Q8, 8 of 256 on the padded _int_mm) {st_rel:.3e} (relative, "
+          f"limit {INT8_REL_TOL}); Q8 launches {q8_launches} for three "
+          f"predicts of at most {T_BATCH} rows")
     check(w8_rel <= INT8_REL_TOL, f"weight-only int8 vs dequantized fp32 "
           f"{w8_rel}")
     check(st_rel <= INT8_REL_TOL, f"static int8 vs its CPU route {st_rel}")
+    check(q8_launches == 4 * len(st_small), f"{q8_launches} Q8 launches "
+          f"for {len(st_small)} static predicts of 4 layers")
     top1 = {mode: float((p.argmax(1) == p_fp.argmax(1)).mean() * 100.0)
             for mode, p in (("int8_weight_only", p_w8),
                             ("int8_static", p_st))}
@@ -1714,9 +1920,17 @@ def int8_head_phase():
             lambda: w8._forward([x1]))
         launches_b1["int8_weight_only_unfused"] = device_kernels(
             lambda: w8._forward([x1]))
+    launches_b1["int8_static"] = device_kernels(lambda: st._forward([x1]))
+    with static_before_q8():
+        # the static predict as it ran before Q8: the padded _int_mm and
+        # the quantize, rescale, bias and activation as torch ops
+        b1["int8_static_before_q8"] = graph_ms(lambda: st._forward([x1]))
+        launches_b1["int8_static_before_q8"] = device_kernels(
+            lambda: st._forward([x1]))
     speedup = {mode: b1["fp32"] / b1[mode]
                for mode in ("int8_weight_only", "int8_static",
-                            "int8_weight_only_unfused")}
+                            "int8_weight_only_unfused",
+                            "int8_static_before_q8")}
     print(f"int8 head: top-1 agreement with fp32 over {HEAD_ROWS} rows "
           f"{json.dumps(top1)} (%); batch-1 device ms {json.dumps(b1)}; "
           f"fp32 / int8 {json.dumps(speedup)}")
@@ -1727,6 +1941,19 @@ def int8_head_phase():
     check(len(launches_b1["int8_weight_only"])
           < len(launches_b1["int8_weight_only_unfused"]),
           f"the fused epilogue launched no fewer kernels: {launches_b1}")
+    print(f"int8 head: device kernels of one batch-1 static _forward, Q8 "
+          f"{len(launches_b1['int8_static'])}, before Q8 "
+          f"{len(launches_b1['int8_static_before_q8'])}; fault j: fp32 / "
+          f"static int8 batch-1 device ms {speedup['int8_static']:.4f} "
+          f"(floor {STATIC_B1_FLOOR}; before Q8 "
+          f"{speedup['int8_static_before_q8']:.4f})")
+    check(sum(name.startswith("int8_static_skinny")
+              for name in launches_b1["int8_static"]) == 4,
+          f"the static _forward did not run Q8 on its 4 layers: "
+          f"{launches_b1['int8_static']}")
+    check(speedup["int8_static"] >= STATIC_B1_FLOOR,
+          f"fault j: fp32 / static int8 batch-1 {speedup['int8_static']} "
+          f"below the floor {STATIC_B1_FLOOR}")
 
     registry = MetricsRegistry()
 
@@ -1763,6 +1990,8 @@ def int8_head_phase():
         "top1_agreement_pct": top1, "b1_device_ms": b1,
         "b1_speedup": speedup, "b1_device_kernels": {
             mode: len(names) for mode, names in launches_b1.items()},
+        "q8_launches": q8_launches,
+        "int8_stream_b1_speedup": speedup["int8_static"],
         "records_per_s": HEAD_ROWS / wall,
         "wall_s": wall, "dispatches": batches, "launches": launches,
         "launches_by_route": routes}
@@ -4579,6 +4808,246 @@ def ncf_phase(x, y):
     return out
 
 
+def oocore_plan_counters(v, hot_rows, batches, staged_rows=8192):
+    """The out-of-core cache's counters after planning ``batches`` in
+    order, from numpy and an LRU of this function's own (the plan's
+    rules: np.unique's dedup, hot ids hits, staged cold rows hits moved to
+    the LRU's end, the misses added in id order, then the oldest dropped
+    past ``staged_rows``). Also each batch's distinct cold ids."""
+    import collections
+
+    import numpy as np
+    lru = collections.OrderedDict()
+    c = {"ids": 0, "dedup_saved": 0, "hits": 0, "misses": 0}
+    cold_per_batch = []
+    for ids in batches:
+        flat = np.clip(ids.reshape(-1).astype(np.int64), 0, v - 1)
+        uniq = np.unique(flat)
+        c["ids"] += int(flat.size)
+        c["dedup_saved"] += int(flat.size - uniq.size)
+        hot = uniq < hot_rows
+        c["hits"] += int(hot.sum())
+        cold = uniq[~hot].tolist()
+        cold_per_batch.append(len(cold))
+        misses = []
+        for i in cold:
+            if i in lru:
+                lru.move_to_end(i)
+                c["hits"] += 1
+            else:
+                misses.append(i)
+        c["misses"] += len(misses)
+        for i in misses:
+            lru[i] = True
+        while len(lru) > staged_rows:
+            lru.popitem(last=False)
+    return c, cold_per_batch
+
+
+def oocore_phase():
+    """The JAX bench's ``bench_embedding_oocore`` (``bench.py:326-389``) on
+    the port's ``OutOfCoreEmbeddingCache`` at the bench's 2 MB hot budget
+    and at the default 64 MB: a table ten times the hot tier, 24 batches
+    of 4096 zipf(1.1) ids (numpy seed 7, the table drawn first), each
+    batch's plan staged by the prefetch thread, then one upload and the
+    two-tier gather on the card, synchronised. Prints the bench's
+    channels; gates: every batch's rows the master table's gather bit for
+    bit, the counters what numpy's plan gives on the same ids, the
+    gradient of one batch through SA against the dense scatter-add of the
+    same cotangents (and the same bits twice), and a stream under an
+    ``embed.prefetch`` error plan still giving the same rows."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import \
+        KERNEL_SCATTER_ADD
+    from analytics_zoo_tpu_torch.ops.sharded_embedding import \
+        OutOfCoreEmbeddingCache
+
+    def fams(reg):
+        out = {}
+        for m in reg.metrics():
+            out[m.name] = out.get(m.name, 0.0) + m.value
+        return out
+
+    results = {}
+    sa_launches = 0
+    for name, budget in OOCORE_BUDGETS_MB.items():
+        init_zoo_context(conf={"zoo.seed": 0,
+                               "zoo.embed.hot_rows_budget_mb": budget},
+                         faults_enabled=True)
+        d = OOCORE_D
+        hot_rows = max(int(budget * (1 << 20) // (d * 4)), 1024)
+        v = hot_rows * 10
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(OOCORE_SEED)
+        table = rng.normal(size=(v, d)).astype(np.float32)
+        ids = [((rng.zipf(1.1, size=OOCORE_BATCH) - 1) % v).astype(np.int64)
+               for _ in range(OOCORE_BATCHES)]
+        reg = MetricsRegistry()
+        cache = OutOfCoreEmbeddingCache(table, registry=reg,
+                                        device=OOCORE_DEVICE)
+        setup_s = time.perf_counter() - t0
+        check(cache.hot_rows == hot_rows, f"oocore {name}: hot rows "
+              f"{cache.hot_rows}, not the budget's {hot_rows}")
+        p0 = cache.plan(ids[0])          # warm-up, as the bench's
+        cache.rows(p0)
+        torch.cuda.synchronize()
+        got, rows_out = [], 0
+        t0 = time.perf_counter()
+        for ids_b, p in cache.stream(iter(ids)):
+            got.append(cache.rows(p))
+            torch.cuda.synchronize()
+            rows_out += ids_b.size
+        dt = time.perf_counter() - t0
+        f = fams(reg)
+        seen, saved = f["zoo_embed_ids_total"], \
+            f["zoo_embed_dedup_saved_rows_total"]
+        hits, misses = f["zoo_embed_cache_hits_total"], \
+            f["zoo_embed_cache_misses_total"]
+        channels = {
+            "embedding_oocore_recs_per_sec": rows_out / dt,
+            "embedding_dedup_rows_saved_ratio": saved / max(seen, 1.0),
+            "embedding_oocore_table_rows": v,
+            "embedding_oocore_hot_rows": cache.hot_rows,
+            "embedding_oocore_cache_hit_rate": hits / max(hits + misses,
+                                                          1.0)}
+        bit_equal = all(torch.equal(r.cpu(), torch.from_numpy(table[i]))
+                        for i, r in zip(ids, got))
+        check(bit_equal, f"oocore {name}: rows differ from the master "
+              f"table's gather")
+        want, cold_per_batch = oocore_plan_counters(v, hot_rows,
+                                                    [ids[0]] + ids)
+        counters = {"ids": seen, "dedup_saved": saved, "hits": hits,
+                    "misses": misses}
+        check(counters == want and f["zoo_embed_prefetch_rows_total"]
+              == sum(cold_per_batch[1:])
+              and f["zoo_embed_prefetch_errors_total"] == 0,
+              f"oocore {name}: counters {f} vs numpy's plan {want}, "
+              f"prefetch rows {sum(cold_per_batch[1:])}")
+
+        # the gradient of one batch: SA per distinct id in position order
+        g = torch.Generator(device=OOCORE_DEVICE).manual_seed(1)
+        cot = torch.randn(OOCORE_BATCH, d, generator=g,
+                          device=OOCORE_DEVICE)
+        KERNEL_SCATTER_ADD.reset()
+        grads = []
+        for _ in range(2):
+            hot = cache.hot.detach().clone().requires_grad_()
+            cold = torch.from_numpy(p0.cold).to(
+                OOCORE_DEVICE).requires_grad_()
+            (cache.rows(p0, hot=hot, cold=cold) * cot).sum().backward()
+            grads.append((hot.grad, cold.grad))
+        torch.cuda.synchronize()
+        sa = KERNEL_SCATTER_ADD.launches
+        sa_launches += sa
+        same = all(torch.equal(a, b) for a, b in zip(*grads))
+        dw = p0.scatter_grad(*grads[0])
+        ref = np.zeros((v, d), np.float32)
+        np.add.at(ref, ids[0], cot.cpu().numpy())
+        grad_err = float(np.max(np.abs(dw - ref)
+                                / np.maximum(np.abs(ref), 1e-6)))
+        want_sa = 2 if OOCORE_DEVICE == "cuda" else 0  # the CPU: no kernel
+        check(same and sa == want_sa and grad_err <= OOCORE_GRAD_TOL,
+              f"oocore {name}: gradient same bits {same}, SA launches {sa}, "
+              f"relative error {grad_err} (limit {OOCORE_GRAD_TOL})")
+
+        # a failing prefetch degrades and gives the same rows
+        freg = MetricsRegistry()
+        fcache = OutOfCoreEmbeddingCache(table, registry=freg,
+                                         device=OOCORE_DEVICE)
+        plan = faults.FaultPlan(seed=7).add("embed.prefetch", "error",
+                                            at=(0, 2))
+        with faults.activate(plan):
+            degraded = [(i, fcache.rows(p)) for i, p in
+                        fcache.stream(iter(ids[:6]))]
+        torch.cuda.synchronize()
+        errors = fams(freg)["zoo_embed_prefetch_errors_total"]
+        check(len(degraded) == len(ids[:6]) and errors == 2
+              and all(torch.equal(r.cpu(), torch.from_numpy(table[i]))
+                      for i, r in degraded),
+              f"oocore {name}: the degraded stream ({errors} errors)")
+        del fcache, degraded
+        results[name] = {**channels, "wall_s": dt, "setup_s": setup_s,
+                         "batches": OOCORE_BATCHES, "batch": OOCORE_BATCH,
+                         "d": d, "counters": counters,
+                         "rows_bit_equal": bit_equal,
+                         "grad_rel_err": grad_err, "grad_same_bits": same,
+                         "sa_launches": sa, "prefetch_errors_degraded":
+                         errors,
+                         "table_bytes": int(table.nbytes)}
+        print(f"oocore {name}: {json.dumps(results[name])}")
+        del cache, got, table
+    results["sa_launches"] = sa_launches
+    return results
+
+
+def disk_fit_phase(x, y):
+    """NCF (``NeuralCF(6040, 3706, 5)``, the NCF phase's ratings) fitted
+    from ``.npy`` files in a temporary directory through a
+    ``DiskFeatureSet`` of two slices in rotation mode for one full pass,
+    eager, against the same model fitted on ``FeatureSet.array`` of each
+    slice in turn: the same step losses bit for bit. Reports which IO path
+    read the files and the disk fit's records/s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.feature_set import (DiskFeatureSet,
+                                                             FeatureSet)
+    tmp = tempfile.mkdtemp(prefix="zoo-disk-")
+    try:
+        xp, yp = os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy")
+        np.save(xp, x)
+        np.save(yp, y)
+        init_zoo_context(conf=ncf_conf(False))
+        fs = DiskFeatureSet(xp, yp, num_slices=DISK_SLICES, shuffle=False)
+        losses = {}
+        walls = {}
+        for kind in ("disk", "ram"):
+            model, _ = ncf_build("stock", N_USERS, N_ITEMS)
+            model.compile(optimizer="adam", loss="scce", lr=1e-3)
+            steps = []
+            t0 = time.perf_counter()
+            if kind == "disk":
+                model.fit(fs, batch_size=DISK_BATCH, nb_epoch=1)
+                steps = list(model._loop.step_losses)
+            else:
+                for e in range(1, DISK_SLICES + 1):
+                    idx = fs._slice_indices(e)
+                    model.fit(FeatureSet.array(x[idx], y[idx],
+                                               shuffle=False),
+                              batch_size=DISK_BATCH, nb_epoch=1)
+                    steps += list(model._loop.step_losses)
+            torch.cuda.synchronize()
+            walls[kind] = time.perf_counter() - t0
+            losses[kind] = np.concatenate(steps)
+        same = (losses["disk"].shape == losses["ram"].shape
+                and np.array_equal(losses["disk"].view(np.int32),
+                                   losses["ram"].view(np.int32)))
+        n = DISK_SLICES * fs.steps_per_epoch(DISK_BATCH) * DISK_BATCH
+        row = {"io_path": fs.io_path, "slices": DISK_SLICES,
+               "steps": int(losses["disk"].size),
+               "losses_bit_equal": same,
+               "recs_per_s_disk": n / walls["disk"],
+               "recs_per_s_ram": n / walls["ram"],
+               "wall_s": walls}
+        print(f"disk fit: {json.dumps(row)}")
+        check(same and losses["disk"].size > 0, "disk fit: the step losses "
+              "differ from the in-RAM fit over the same slices")
+        check(np.all(np.isfinite(losses["disk"])), "disk fit: loss")
+        fs.close()
+        return row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def embed_kernel_rows(embed_rows, launches):
     """The K1 and SA rows of the kernels line: at the NCF path's user-table
     shape, with the DLRM-width times beside."""
@@ -5656,6 +6125,7 @@ def main() -> int:
     ce_hidden_rows = ce_hidden_phase()
     embed_rows = embed_kernel_phase(ncf_x)
     int8_rows = int8_kernel_phase()
+    static_rows = static_int8_kernel_phase()
     serving = serving_phase()
     int8_serving = int8_serving_phase(serving["records_per_s"])
     lanes = lanes_phase()
@@ -5687,10 +6157,17 @@ def main() -> int:
     rows += ce_kernel_rows
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
+    disk_fit = disk_fit_phase(ncf_x, ncf_y)
     wide_deep = wide_deep_phase()
+    oocore = oocore_phase()
     captured_bert = captured_bert_phase()
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
+    # SA takes the out-of-core cache's gradient too (slice 17)
+    sa_row = next(r for r in rows if r["name"] == "dedup_scatter_add")
+    sa_row["launches_by_path"] = {"ncf_sharded_keyed": sa_row["launches"],
+                                  "oocore": oocore["sa_launches"]}
+    sa_row["launches"] += oocore["sa_launches"]
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
         "bert_serving": int8_serving["launches"],
@@ -5699,9 +6176,13 @@ def main() -> int:
          + int8_serving["launches_by_route"][name]
          + lanes["k6_routes"][name]
          for name in int8_serving["launches_by_route"]}))
+    rows.append(static_int8_kernel_row(static_rows,
+                                       int8_head["q8_launches"]))
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
+                      "static_int8_cases": static_rows, "oocore": oocore,
+                      "disk_fit": disk_fit,
                       "serving": serving, "int8_serving": int8_serving,
                       "lanes": lanes, "fleet": fleet, "int8_head": int8_head,
                       "training": training,

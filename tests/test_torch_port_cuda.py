@@ -1118,8 +1118,7 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(cuda):
 def test_int8_product_pads_for_int_mm_exactly(cuda, m, k, n):
     """``torch._int_mm`` on the card wants M > 16 and K, N multiples of
     8; the padded product is the CPU's int32 product bit for bit."""
-    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.core import \
-        int8_product
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import int8_product
     gen = torch.Generator().manual_seed(m * k + n)
     xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
     wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
@@ -1613,3 +1612,101 @@ def test_load_checkpoint_onto_cuda(cuda, tmp_path):
                               gpu.named_parameters()):
         assert torch.equal(a, b.cpu()), n
     np.testing.assert_allclose(im.predict(x), cpu.predict(x), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Q8: the static int8 dense layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias,relu", [(False, False), (True, True),
+                                       (True, False)])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (7, 4096, 4096),
+                                   (32, 4096, 4096), (1, 4096, 8),
+                                   (32, 4096, 8), (4, 1000, 130),
+                                   (16, 333, 17), (3, 64, 70),
+                                   (2, 4100, 256)])
+def test_q8_is_its_plain_version_bit_for_bit(cuda, m, k, n, bias, relu):
+    """Q8 against the static path's torch ops on the CPU (and on the card
+    at the head's shapes): the same bits (the int32 sum is exact, the finish rounds as they do),
+    and the same bits twice; one launch a call. Ragged K and N pad with
+    zeros; x / x_scale lands on .5 for a few entries."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_STATIC, static_int8_dense, static_int8_dense_reference)
+    g = torch.Generator().manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, generator=g) * 3.0
+    x[0, :3] = torch.tensor([0.125, -0.375, 6.4])
+    xs = torch.tensor(0.05)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 0.02 + 0.001
+    b = torch.randn(n, generator=g) * 2.0 if bias else None
+    dev = [t if t is None else t.to(cuda) for t in (x, xs, w, s, b)]
+    before = KERNEL_INT8_STATIC.launches
+    got = static_int8_dense(*dev, relu=relu)
+    again = static_int8_dense(*dev, relu=relu)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_STATIC.launches == before + 2
+    cpu = static_int8_dense_reference(x, xs, w, s, b, relu=relu)
+    wants = [cpu, again.cpu()]
+    if n in (8, 4096):
+        # the plain version on the card too (the padded _int_mm; cuBLASLt
+        # refuses some small padded shapes, such as K = 64 with N = 72)
+        wants.append(static_int8_dense_reference(*dev, relu=relu).cpu())
+    for want in wants:
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_q8_refuses_more_than_32_rows_and_reads_x_scale_on_the_device(cuda):
+    """Above 32 rows the wrapper raises (``quantized_call`` sends those to
+    the padded ``_int_mm``); a captured call replays what the ``x_scale``
+    buffer holds at replay time."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        static_int8_dense, static_int8_dense_reference)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(33, 256, generator=g).to(cuda)
+    w = torch.randint(-127, 128, (256, 64), generator=g,
+                      dtype=torch.int8).to(cuda)
+    s = torch.full((64,), 0.01, device=cuda)
+    xs = torch.tensor(0.05, device=cuda)
+    with pytest.raises(ValueError, match="at most 32"):
+        static_int8_dense(x, xs, w, s)
+    x1 = x[:1].contiguous()
+    static_int8_dense(x1, xs, w, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = static_int8_dense(x1, xs, w, s)
+    xs.fill_(0.1)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = static_int8_dense_reference(x1.cpu(), xs.cpu(), w.cpu(), s.cpu())
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_static_int8_head_forward_launches_q8_on_every_layer(cuda):
+    """A calibrated 3-layer head at batch 1 and 32 runs Q8 once a layer
+    and agrees with its plain CPU route bit for bit but the softmax."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        KERNEL_INT8_STATIC
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    init_zoo_context(conf={"zoo.seed": 0})
+    net = Sequential([Dense(256, activation="relu", input_shape=(96,)),
+                      Dense(130, activation="relu"),
+                      Dense(8, activation="softmax")],
+                     device="cpu").init_weights()
+    x = np.random.default_rng(0).normal(size=(32, 96)).astype(np.float32)
+    im = InferenceModel(device="cuda").from_keras(net, quantize="int8",
+                                                  calibrate=x[:8])
+    ref = InferenceModel(device="cpu").from_keras(net, quantize="int8",
+                                                  calibrate=x[:8])
+    for m in (1, 32):
+        before = KERNEL_INT8_STATIC.launches
+        got = im.predict(x[:m])
+        torch.cuda.synchronize()
+        assert KERNEL_INT8_STATIC.launches == before + 3
+        np.testing.assert_allclose(got, ref.predict(x[:m]), rtol=1e-6,
+                                   atol=1e-7)

@@ -691,3 +691,106 @@ def test_weight_only_relu_head_fuses_its_epilogue_and_matches_jax(
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
     assert calls == [(48, 600), (600, 64), (64, 8)]
     assert epilogues == [(True, True), (True, True), (True, False)]
+
+
+# ---------------------------------------------------------------------------
+# Q8: the static int8 dense layer (fault j)
+# ---------------------------------------------------------------------------
+
+def _static_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, k)) * 3.0).astype(np.float32)
+    # x / x_scale lands exactly on .5 for some entries: round half to even
+    x[0, :4] = np.array([0.125, -0.375, 0.625, 6.4], np.float32)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.02, n).astype(np.float32)
+    b = (rng.normal(size=n) * 2.0).astype(np.float32)
+    return x, np.float32(0.05), w, ws, b
+
+
+def _torch_static(x, xs, w, ws, b):
+    return (torch.from_numpy(x), torch.tensor(xs), torch.from_numpy(w),
+            torch.from_numpy(ws), None if b is None else torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("bias,relu", [(False, False), (True, False),
+                                       (True, True), (False, True)])
+@pytest.mark.parametrize("m,k,n", [(1, 96, 8), (7, 96, 130), (32, 64, 8),
+                                   (33, 96, 130), (5, 100, 130)])
+def test_static_int8_plain_version_is_jax_quantized_call_bit_for_bit(
+        m, k, n, bias, relu):
+    """Q8's plain version (the static path's torch ops) against the JAX
+    ``Dense.quantized_call`` on the same inputs: the same bits (an exact
+    int32 product, IEEE division, round half to even, one f32 rescale,
+    the f32 bias). K = 100 is not a multiple of 32 or of 8."""
+    x, xs, w, ws, b = _static_case(m, k, n, m * 1000 + k + n)
+    b = b if bias else None
+    layer = jl.Dense(n, activation="relu" if relu else None, bias=bias)
+    qp = {"W": jnp.asarray(w), "w_scale": jnp.asarray(ws),
+          "x_scale": jnp.asarray(xs)}
+    if bias:
+        qp["b"] = jnp.asarray(b)
+    want = np.asarray(layer.quantized_call(qp, jnp.asarray(x)))
+    got = pq.static_int8_dense_reference(*_torch_static(x, xs, w, ws, b),
+                                         relu=relu)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    # the wrapper on CPU tensors is its plain version (and refuses nothing
+    # above 32 rows there)
+    wrapped = pq.static_int8_dense(*_torch_static(x, xs, w, ws, b),
+                                   relu=relu)
+    assert torch.equal(wrapped.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("act", ["relu", "softmax", None])
+@pytest.mark.parametrize("m", [1, 7, 32, 33, 64])
+def test_quantized_call_routes_to_q8_up_to_32_rows(m, act, monkeypatch):
+    """``Dense.quantized_call`` hands at most 32 rows to Q8's wrapper (the
+    ReLU with them; another activation after it) and more rows to the
+    padded ``torch._int_mm`` path; both give the JAX layer's bits."""
+    x, xs, w, ws, b = _static_case(m, 48, 8, m)
+    calls = {"q8": 0, "plain": 0, "int8_product": 0}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+    monkeypatch.setattr(pcore, "static_int8_dense",
+                        counted("q8", pcore.static_int8_dense))
+    monkeypatch.setattr(pcore, "static_int8_dense_reference",
+                        counted("plain", pcore.static_int8_dense_reference))
+    monkeypatch.setattr(pq, "int8_product",
+                        counted("int8_product", pq.int8_product))
+    layer = Dense(8, activation=act)
+    tx, txs, tw, tws, tb = _torch_static(x, xs, w, ws, b)
+    layer.W, layer.x_scale, layer.w_scale, layer.b = tw, txs, tws, tb
+    got = layer.quantized_call(tx)
+    assert calls == {"q8": int(m <= 32), "plain": int(m > 32),
+                     "int8_product": 1}
+    jlayer = jl.Dense(8, activation=act)
+    want = np.asarray(jlayer.quantized_call(
+        {"W": jnp.asarray(w), "w_scale": jnp.asarray(ws),
+         "x_scale": jnp.asarray(xs), "b": jnp.asarray(b)}, jnp.asarray(x)))
+    if act == "softmax":   # two softmax implementations: rounding only
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    else:
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_static_int8_dense_refuses_what_q8_does_not_take():
+    x, xs, w, ws, b = _torch_static(*_static_case(2, 16, 4, 0))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pq.static_int8_dense(x, xs, w[:8], ws, b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pq.static_int8_dense(x, xs, w, ws[:2], b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pq.static_int8_dense(x, torch.ones(2), w, ws, b)
+    with pytest.raises(TypeError, match="int8"):
+        pq.static_int8_dense(x, xs, w.float(), ws, b)
+    with pytest.raises(TypeError, match="float"):
+        pq.static_int8_dense(w, xs, torch.ones(4, 4, dtype=torch.int8),
+                             torch.ones(4), None)
+    assert pq.KERNEL_INT8_STATIC.launches == 0   # CPU: no launch counted
