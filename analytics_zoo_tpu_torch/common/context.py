@@ -33,6 +33,7 @@ DEFAULT_CONF: Dict[str, Any] = {
     "zoo.train.fuse_epochs": 1,      # epochs a block with no host read (device_cache only)
     "zoo.train.fused_ce": "auto",    # fused LM-head CE: auto (V >= 1024) | true | false
     "zoo.train.fused_ce_chunk": 512,  # rows per streamed logits tile
+    "zoo.train.remat": False,         # scan-body remat: false | true/dots | full
     # -- anomaly sentinels / self-healing training
     "zoo.train.sentinel": "off",         # off | warn | recover: on-device
     #   nan-loss / nan-grad / grad-norm-spike checks folded into the step

@@ -17,14 +17,33 @@ that into a key per noise site. The port keeps that shape with
 A CPU generator handed to a model on a CUDA device (a direct call)
 seeds a device generator for each draw. Torch's and JAX's streams never
 agree; parity tests run with dropout 0.
+
+Under ``zoo.train.remat`` the backward runs the step's forward again, and
+that recompute must draw the forward's noise bit for bit, as JAX's
+recompute does from the same key. :func:`stash` takes what the recompute
+needs when the forward starts and :func:`redraw` puts it back around the
+recompute: the generator's state (a host copy of its seed and offset) in
+an eager step, or, in a step being captured in a CUDA graph, where a
+generator's offset cannot be read, its *twin* (:func:`twins`): a
+generator registered with the same graph and seeded as it is before
+every replay, which the recompute draws from in its place
+(``graphsafe_set_state``, which only swaps the generator's state for the
+twin's). The twin has drawn nothing when the recompute starts, and the
+forward started at its generator's seed, so both see the same offsets.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import contextlib
+import threading
+from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+#: the twins of the step generators of the capture in progress on this
+#: thread (:func:`twins`), by the generator's id
+_CAPTURE = threading.local()
 
 
 def step_seed(seed: int, iteration: int) -> int:
@@ -71,3 +90,60 @@ def noise_generator(generator: torch.Generator,
                          f"CPU noise")
     return torch.Generator(device=device).manual_seed(
         split_seeds(generator, 1)[0])
+
+
+@contextlib.contextmanager
+def twins(pairs: Iterable[Tuple[torch.Generator, torch.Generator]]):
+    """For the steps captured inside: each ``(generator, twin)`` pair
+    names the generator a recompute draws ``generator``'s noise from
+    (both registered with the graph and seeded alike before each
+    replay)."""
+    prev = getattr(_CAPTURE, "twins", None)
+    _CAPTURE.twins = {id(g): (g, t) for g, t in pairs}
+    try:
+        yield
+    finally:
+        _CAPTURE.twins = prev
+
+
+def stash(generator: Optional[torch.Generator]
+          ) -> Union[None, torch.Tensor, torch.Generator]:
+    """What a recompute needs to draw ``generator``'s noise again, taken
+    where the forward starts: its state, or under capture its twin."""
+    if generator is None:
+        return None
+    if (generator.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        pair = (getattr(_CAPTURE, "twins", None) or {}).get(id(generator))
+        if pair is None or pair[0] is not generator:
+            raise RuntimeError(
+                "a rematerialised step captured in a CUDA graph draws its "
+                "noise again from a twin of the step's generator, and this "
+                "generator has none (common.noise.twins)")
+        return pair[1]
+    return generator.get_state()
+
+
+@contextlib.contextmanager
+def redraw(generator: Optional[torch.Generator],
+           stashed: Union[None, torch.Tensor, torch.Generator]):
+    """Runs a recompute that draws from ``generator`` the noise the
+    forward drew after :func:`stash`; ``generator`` is left where the
+    forward left it."""
+    if generator is None:
+        yield
+        return
+    if isinstance(stashed, torch.Generator):
+        own = generator.graphsafe_get_state()
+        generator.graphsafe_set_state(stashed)
+        try:
+            yield
+        finally:
+            generator.graphsafe_set_state(own)
+        return
+    after = generator.get_state()
+    generator.set_state(stashed)
+    try:
+        yield
+    finally:
+        generator.set_state(after)

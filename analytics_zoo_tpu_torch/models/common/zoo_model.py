@@ -172,7 +172,9 @@ def _populate_registry() -> None:
     any zoo model module was imported."""
     import importlib
     for mod in ("analytics_zoo_tpu_torch.models.recommendation",
-                "analytics_zoo_tpu_torch.tfpark.bert_classifier"):
+                "analytics_zoo_tpu_torch.models.textmatching",
+                "analytics_zoo_tpu_torch.tfpark.bert_classifier",
+                "analytics_zoo_tpu_torch.tfpark.bert_ner"):
         try:
             importlib.import_module(mod)
         except ImportError as e:  # pragma: no cover - partial installs

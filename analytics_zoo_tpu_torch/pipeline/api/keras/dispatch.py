@@ -20,11 +20,14 @@ K steps of forward, backward and optimizer update. Its inputs:
   (``optimizers.step_scalars``);
 * the step's noise: one device generator a step, registered with the
   graph and seeded from ``(zoo.seed, iteration)`` before each replay
-  (``common/noise.py``).
+  (``common/noise.py``); under ``zoo.train.remat`` a twin of each,
+  registered and seeded alike, from which the backward's recompute draws
+  the forward's noise again.
 
 A shorter last chunk gets a graph of its own, in the same memory pool.
 The first capture follows a warm-up step on the capture stream, whose
-effect on the parameters and the optimizer state is undone. An op that
+effect on the parameters and the optimizer state is undone; garbage is
+collected before each capture and not during it. An op that
 cannot be captured (a host sync, a copy from pageable memory) makes the
 fit raise: there is no eager fallback. The kernel wrappers' launch
 counters are kept true under replay (``ops/launch_count.py``), and each
@@ -48,6 +51,8 @@ which is what the CPU tests hold against the JAX loop.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from ....common import anomaly
-from ....common.noise import step_seed
+from ....common.noise import step_seed, twins
 from ....observability.compile import CompileTracker
 from ....ops.launch_count import Launches, record_launches
 from .optimizers import n_scalars
@@ -137,6 +142,25 @@ class DeviceData:
         idx = self.idx[j]
         return _batch([a.index_select(0, idx) for a in self.xs],
                       self.y.index_select(0, idx))
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Garbage collected before a capture and not inside it: a
+    collection inside may free a dead cycle that holds CUDA resources
+    (pinned host memory, whose release queries events; events; graphs),
+    and that CUDA call invalidates the capture (``torch.cuda.graph`` no
+    longer collects first). The remat'd captured step, whose checkpoint
+    bookkeeping makes many Python objects, lost its capture that way on
+    the card after other fits had left such cycles behind."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -224,6 +248,9 @@ class StepProgram:
         self.noise: List[torch.Generator] = (
             [torch.Generator(device=device) for _ in range(k_max)]
             if self.cuda else [])
+        self.twins: List[torch.Generator] = (
+            [torch.Generator(device=device) for _ in self.noise]
+            if loop._resolve_remat() is not None else [])
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, Launches]] = {}
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.compiles = CompileTracker(name, loop._registry)
@@ -255,7 +282,10 @@ class StepProgram:
             # replay draws from each generator's seed and offset as they
             # stand when it starts
             for j in range(k):
-                self.noise[j].manual_seed(step_seed(seed, iteration + j))
+                s = step_seed(seed, iteration + j)
+                self.noise[j].manual_seed(s)
+                if self.twins:
+                    self.twins[j].manual_seed(s)
             graph.replay()
             launches.replayed()
         else:
@@ -289,14 +319,15 @@ class StepProgram:
             if not self.graphs:
                 self._warm_up()
             graph = torch.cuda.CUDAGraph()
-            for gen in self.noise[:k]:
+            for gen in self.noise[:k] + self.twins[:k]:
                 graph.register_generator_state(gen)
             pool = (next(iter(self.graphs.values()))[0].pool()
                     if self.graphs else None)
             try:
-                with record_launches() as launches:
+                with record_launches() as launches, _no_collection():
                     with torch.cuda.graph(graph, pool=pool,
-                                          stream=self.stream):
+                                          stream=self.stream), \
+                            twins(zip(self.noise, self.twins)):
                         self._steps(k)
             except RuntimeError as e:
                 raise RuntimeError(

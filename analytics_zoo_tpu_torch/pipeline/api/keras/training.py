@@ -84,15 +84,27 @@ use (the full-logits oracle). The sharded-embedding resolution
 loop too; on the port's one device it declines. Integer inputs (ids)
 stay integer from the ``FeatureSet`` to the model.
 
-Not ported yet: the TensorBoard sink, remat, and the elastic re-mesh
-restore (the port drives one device and writes the JAX package's
-one-device mesh block).
+``zoo.train.remat`` (opt-in, resolved once per loop like the fused loss
+and the sentinel) wraps the step's forward and loss in
+``torch.utils.checkpoint`` (:func:`remat`): ``true``/``dots`` keeps the
+outputs of the dense products with no batch dims (``aten.mm``/``addmm``,
+JAX's ``dots_with_no_batch_dims_saveable``, by selective checkpointing),
+``full`` keeps nothing; every other tensor, the hand-written kernels'
+autograd functions included, is recomputed in the backward, whose noise
+is the forward's again (``common/noise.py``). It sits in
+:meth:`TrainingLoop._grads`, so the eager, guarded and captured steps all
+run it.
+
+Not ported yet: the TensorBoard sink and the elastic re-mesh restore (the
+port drives one device and writes the JAX package's one-device mesh
+block).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import logging
 import signal
 import threading
@@ -102,8 +114,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ....common import anomaly, faults
-from ....common.context import get_zoo_context, train_dispatch
+from ....common import anomaly, faults, noise
+from ....common.context import (FALSE_FLAG_SPELLINGS, TRUE_FLAG_SPELLINGS,
+                                get_zoo_context, train_dispatch)
 from ....common.noise import step_seed
 from ....common.reliability import RetryBudget
 from ....common.triggers import (EveryEpoch, MaxEpoch, SeveralIteration,
@@ -224,6 +237,70 @@ def _padded_batches(x, y, batch_size: int):
         mask = np.zeros(batch_size, np.float32)
         mask[:real] = 1.0
         yield bx, by, mask, real
+
+
+#: the products ``dots`` keeps: dense matmuls with no batch dims (a
+#: ``Dense`` on any rank folds to one); ``bmm`` and everything else is
+#: recomputed, as under JAX's ``dots_with_no_batch_dims_saveable``
+_DOTS = frozenset([torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode(value: Any = None) -> Optional[str]:
+    """``zoo.train.remat`` (default: the context's) as ``None`` (off),
+    ``"dots"`` or ``"full"``, with the JAX package's spellings; anything
+    else raises its ``ValueError``."""
+    mode = (get_zoo_context().get("zoo.train.remat", False)
+            if value is None else value)
+    if isinstance(mode, str):
+        low = mode.strip().lower()
+        if low in FALSE_FLAG_SPELLINGS or low == "none":
+            return None
+        if low in TRUE_FLAG_SPELLINGS or low in (
+                "dots", "dots_with_no_batch_dims_saveable"):
+            return "dots"
+        if low in ("full", "all", "nothing_saveable"):
+            return "full"
+        raise ValueError(f"zoo.train.remat must be "
+                         f"false|true|dots|full, got {mode!r}")
+    return "dots" if mode else None
+
+
+def remat(fn: Callable, mode: str) -> Callable:
+    """``fn(x, y, generator) -> loss`` rematerialised: the backward runs
+    ``fn`` again for what ``mode`` does not keep (:func:`remat_mode`),
+    drawing the forward's noise from ``generator`` again
+    (``noise.stash``/``noise.redraw``). The default generators' states are
+    not stashed (``preserve_rng_state=False``): every noise site of a step
+    draws from the step's own generator, and a CUDA generator's state
+    cannot be read while a step is being captured."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _keep_dots)
+                  if mode == "dots" else noop_context_fn)
+
+    def run(x, y, generator):
+        stashed = noise.stash(generator)
+        forward = True
+
+        def body(x, y):
+            nonlocal forward
+            if forward:
+                forward = False
+                return fn(x, y, generator)
+            with noise.redraw(generator, stashed):      # the recompute
+                return fn(x, y, generator)
+
+        return checkpoint(body, x, y, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+    return run
 
 
 def step_generator(seed: int, iteration: int) -> torch.Generator:
@@ -458,6 +535,10 @@ class TrainingLoop:
         self.loss = loss
         self.metrics = list(metrics)
         self._apply_loss = None
+        #: the resolved ``zoo.train.remat`` (``None``, ``"dots"``,
+        #: ``"full"``; :meth:`_resolve_remat`), once ``_remat_resolved``
+        self.remat_mode: Optional[str] = None
+        self._remat_resolved = False
         self._registry = default_registry()
         self._m_step_time = self._registry.histogram(
             "zoo_train_step_seconds",
@@ -630,11 +711,28 @@ class TrainingLoop:
                     if cfg.faults else "")
         return self._sentinel
 
+    def _resolve_remat(self) -> Optional[str]:
+        """``zoo.train.remat`` resolved ONCE per loop (:func:`remat_mode`)
+        into ``remat_mode``, which it returns."""
+        if not self._remat_resolved:
+            mode = self.remat_mode = remat_mode()
+            self._remat_resolved = True
+            if mode is not None:
+                log.info("zoo.train.remat=%s: the backward recomputes the "
+                         "step's forward%s", mode,
+                         " but its dense products" if mode == "dots" else "")
+        return self.remat_mode
+
     def _grads(self, x, y, generator, params):
-        """Forward, loss and backward: ``(loss, {name: grad})``."""
+        """Forward, loss and backward: ``(loss, {name: grad})``. Under
+        ``zoo.train.remat`` the forward and loss run through :func:`remat`;
+        off, the step is the historical one, op for op."""
         for p in params.values():
             p.grad = None
-        loss = self._loss_application()(x, y, generator)
+        apply_loss, mode = self._loss_application(), self._resolve_remat()
+        if mode is not None:
+            apply_loss = remat(apply_loss, mode)
+        loss = apply_loss(x, y, generator)
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}

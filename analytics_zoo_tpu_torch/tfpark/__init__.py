@@ -1,1 +1,6 @@
-"""Port of the matching ``analytics_zoo_tpu`` package."""
+"""Port of the matching ``analytics_zoo_tpu`` package: ``BERTClassifier``,
+``BERTNER`` and ``BERTSQuAD``."""
+
+from .bert_classifier import BERTClassifier  # noqa: F401
+from .bert_ner import (BERTNER, BERTSQuAD, masked_token_scce,  # noqa: F401
+                       squad_span_loss)

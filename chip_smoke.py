@@ -68,6 +68,48 @@
    Then prints the JAX bench's ``fused_ce_speedup`` (``bench.py:254-325``:
    one forward and backward of the fused loss against the full-logits
    objective at 32,768 rows, best of three; not gated).
+7b. 32k long-context phase: the JAX bench's second tag
+   (``bench.py:424-428``: the 4k model at seq 32768, batch 1, 4
+   sequences), uncut, with every flag at ``auto``, once for each
+   ``zoo.train.remat`` mode (``false``, ``dots``, ``full``) from the same
+   weights: the first step's loss and gradients through the loop's own
+   step, its launches and peak memory, the bench's two fits of two
+   epochs (tokens/s of the best timed epoch, ms a step, MFU by
+   ``bench.py:457-460`` over the dense bf16 peak, peak memory over the
+   fits, launches a step and the CE routes) and one profiled epoch's busy
+   share. Gates: each fit's loss drop, one launch a step of K3a/K3b a
+   block and of K5a/K5b, one of K2 a block and of K4 without remat and
+   two under it (the recompute), every CE kernel on its wgmma route, and
+   each remat mode's first step against ``false``'s: the loss's bits,
+   every gradient leaf that ``false`` gives the same bits twice bit for
+   bit and any other within ``LM_GRAD_REL_TOL``. Once more under
+   ``zoo.train.scan_steps`` 2 with ``full`` (the step captured in CUDA
+   graphs, the recompute drawing from each step generator's twin): its
+   step losses against the eager ``full`` fit's (bits, else 1e-6
+   relative). Then K2, K3a and K3b at T = 32768 (causal, bf16) against
+   their plain versions on a cut (out, lse and dq on the last 2048 query
+   rows against every key, dk and dv for one head at full length; the
+   same gradient bits twice) and timed beside SDPA, and K4, K5a and K5b
+   at the 32,768-row head as at the 4k LM's 65,536.
+7c. BERT NER phase: ``BERTNER(num_entities=9)`` at BERT-base width and
+   the JAX class's defaults (vocab 40990, seq 512) with ``attn_drop`` 0
+   and hidden dropout 0.1, bf16 compute, AdamW 5e-5, batch 32, on 256
+   rows (ids drawn as ``bench.py:196-197`` draws them, valid lengths
+   64..512, tags ``id mod 9`` and -1 past each length): a warm-up and a
+   timed epoch of 8 steps, samples/s and a profiled epoch's busy share.
+   Gates: the loss falls, 12 launches a step of K2, K3a and K3b, the
+   first batch's loss the same bits with other ids past the valid
+   lengths, ``predict_tags`` = argmax ``predict``; then ``BERTSQuAD`` at
+   the same width: ``predict_spans`` over a batch, end >= start.
+7d. KNRM phase: a seeded corpus of a 20,000-word vocabulary (4096
+   queries of 10 words, five docs of 40 each, the first relevant)
+   through ``TextSet`` (tokenize, ``word2idx``, ``shape_sequence``) and
+   relation pairs, ``KNRM`` at the JAX class's widths (embed 300, 21
+   kernels) trained with ``rank_hinge`` for 3 epochs of batch 512:
+   records/s, busy share, NDCG@3 and MAP over 256 held-out queries'
+   lists. Gates:
+   the loss falls, the metrics in [0, 1], and no hand-written kernel
+   launched (none lies on this path).
 
 8. CE hidden-width phase: K4/K5a/K5b against their plain versions at
    N=4100, V=8192, bf16, H = 100 (padded to 128), 1280 and 2048 (H staged
@@ -90,7 +132,7 @@
    122 steps each. Checks the loss gate (last epoch below the first and
    below ln 5), 4 launches per step of K1 and of SA on the sharded graph
    and none on the stock model, the device kernels of one forward and one
-   backward of the sharded graph (``torch.profiler``: SA four times in
+   backward of the sharded graph (a CUDA graph's kernel nodes: SA four times in
    the backward, no sort or search there), one step's gradients of the
    two from the same weights (1e-5 relative per leaf), the same dW bits
    over two
@@ -297,10 +339,10 @@
    off with the warning, one compile counted a capture. (g) Goodput
    plus badput is each ledger's wall on (c) and (d).
 
-Device kernel lists (``device_kernels``, ``step_kernels``) name each
-kernel without its return type, namespaces and arguments, and leave
-memcpy and memset records out; two captures of one call that disagree
-are both printed.
+Device kernel lists (``device_kernels``, ``step_kernels``) are read
+from a CUDA graph of the call: its kernel nodes through the driver API,
+each named without its return type, namespaces and arguments; copies
+and fills are nodes of other types and left out.
 
 The eager training loops (BERT's, NCF's and Wide & Deep's when their
 keys are off) stream every batch through ``prefetch_to_device``.
@@ -308,7 +350,8 @@ keys are off) stream every batch through ``prefetch_to_device``.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
 path; Q8's from config A's static predicts, SA's also from the oocore
-gradient; the attention kernels also checked against their plain versions,
+gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
+32k shapes' fields; the attention kernels also checked against their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
 shape beside SDPA's causal forward and backward there, K1 and SA also at
 the DLRM width), and last
@@ -318,9 +361,12 @@ CUDA device, outside the repository, or when any check fails.
 """
 
 import contextlib
+import ctypes
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -353,6 +399,11 @@ TRAIN_CFG = dict(num_classes=2, vocab=30522, hidden_size=768, n_block=12,
 GRAD_REL_TOL = 0.1
 
 
+#: the six kernels of the LM path, by the names of the kernels line
+LM_KERNELS = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+              "flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
 #: the JAX package's 4k long-context configuration (bench.py:415-438)
 LM_VOCAB, LM_SEQ, LM_BATCH, LM_SEQS = 8192, 4096, 16, 32
 LM_CFG = dict(vocab=LM_VOCAB, seq_len=LM_SEQ, n_block=4, hidden_size=512,
@@ -368,6 +419,34 @@ LM_CFG = dict(vocab=LM_VOCAB, seq_len=LM_SEQ, n_block=4, hidden_size=512,
 #: well under 1%; 2% leaves room for the four blocks the difference
 #: crosses on its way back. A missing head gradient would read 100%.
 LM_GRAD_REL_TOL = 0.02
+#: the JAX bench's 32k long-context configuration (bench.py:424-428): the
+#: 4k model at seq 32768, batch 1, 4 sequences drawn as the 4k ones are
+#: (numpy seed 7); nothing is cut
+LC_SEQ, LC_BATCH, LC_SEQS = 32768, 1, 4
+LC_CFG = dict(LM_CFG, seq_len=LC_SEQ)
+#: the zoo.train.remat modes of the 32k phase; each mode's first step is
+#: held to the first's
+LC_REMAT = ("false", "dots", "full")
+#: query rows of the 32k attention check: the last ones, which see the
+#: most keys (causal masking is bottom-right aligned, so the plain
+#: versions on these rows against every key give the full problem's rows)
+LC_CUT_ROWS = 2048
+
+#: BERT-base NER at the JAX class's defaults (tfpark/bert_ner.py) with
+#: CoNLL-2003's nine BIO tags; attention dropout 0 keeps K2, K3a and K3b
+#: on the path (self_attention._use_flash), hidden dropout 0.1
+NER_CFG = dict(num_entities=9, vocab=40990, hidden_size=768, n_block=12,
+               n_head=12, seq_len=SEQ, intermediate_size=3072,
+               hidden_drop=0.1, attn_drop=0.0)
+NER_STEPS = 8
+
+#: KNRM at the JAX class's widths (models/textmatching/knrm.py) on a
+#: seeded corpus of a 20,000-word vocabulary: queries of 10 words, docs of
+#: 40, each query with one relevant doc (sharing 2 of its words) and four
+#: others (sharing 0 to 2 others), trained on relation pairs with rank_hinge
+KNRM_VOCAB, KNRM_T1, KNRM_T2 = 20000, 10, 40
+KNRM_QUERIES, KNRM_CANDIDATES, KNRM_BATCH, KNRM_EPOCHS = 4096, 5, 512, 3
+KNRM_EVAL_QUERIES = 256
 
 
 #: the JAX package's NeuralCF bench configuration (bench.py:50-52,
@@ -1744,41 +1823,100 @@ def is_kernel_event(name):
     return not name.startswith(("Memcpy", "Memset"))
 
 
+class KernelNodeParams(ctypes.Structure):
+    """The driver's ``CUDA_KERNEL_NODE_PARAMS_v2`` (``cuda.h``, CUDA 12)."""
+    _fields_ = ([("func", ctypes.c_void_p)]
+                + [(f, ctypes.c_uint) for f in (
+                    "grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                    "block_z", "shared_bytes")]
+                + [("kernel_params", ctypes.c_void_p),
+                   ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                   ("ctx", ctypes.c_void_p)])
+
+
+#: ``CUgraphNodeType``: a kernel, and a child graph
+GRAPH_NODE_KERNEL, GRAPH_NODE_GRAPH = 0, 4
+
+
+def graph_kernel_names(graph):
+    """The (mangled) names of the kernel nodes of a CUDA graph
+    (``cudaGraph_t``, the driver's ``CUgraph``), child graphs' too, in the
+    driver's node order, which for one stream's capture is the order of
+    the launches. Read through the driver API (``cuFuncGetName`` and
+    ``cuKernelGetName`` need a CUDA 12.3 driver)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+
+    def call(name, *args):
+        code = getattr(cu, name)(*args)
+        if code:
+            raise RuntimeError(f"CUDA driver error {code} in {name}")
+
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", ptr(graph), None, ctypes.byref(count))
+    nodes = (ptr * count.value)()
+    call("cuGraphGetNodes", ptr(graph), nodes, ctypes.byref(count))
+    names = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ptr(node), ctypes.byref(kind))
+        if kind.value == GRAPH_NODE_GRAPH:
+            child = ptr()
+            call("cuGraphChildGraphNodeGetGraph", ptr(node),
+                 ctypes.byref(child))
+            names += graph_kernel_names(child.value)
+        elif kind.value == GRAPH_NODE_KERNEL:
+            params, name = KernelNodeParams(), ctypes.c_char_p()
+            call("cuGraphKernelNodeGetParams_v2", ptr(node),
+                 ctypes.byref(params))
+            if params.func:
+                call("cuFuncGetName", ctypes.byref(name), ptr(params.func))
+            else:
+                call("cuKernelGetName", ctypes.byref(name),
+                     ptr(params.kern))
+            names.append(name.value.decode())
+    return names
+
+
+def demangle(names):
+    """Itanium-mangled C++ names through ``c++filt`` (binutils, beside the
+    host compiler that ``nvcc`` needs); unchanged where it is not on the
+    path, which the callers' checks allow: they look for a kernel's own
+    name inside the string."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
 def device_kernels(fn):
     """The names (:func:`kernel_name`) of the device kernels one call of
-    ``fn`` launches, from ``torch.profiler``: a warm-up call, then two
-    captured calls; memcpy and memset records are not kernels and are
-    left out. Where the two captures disagree both lists are printed and
-    the longer is returned. A capture that holds no kernel at all is taken
-    again, up to three times: on the card a capture of one call of a few
-    microseconds came back empty once in three runs (CUPTI's records of
-    it not delivered), which says nothing of the kernels; a call that
-    launches none still fails."""
+    ``fn`` launches: a warm-up call on a side stream, then one call
+    captured into a CUDA graph, whose kernel nodes are read through the
+    driver API (:func:`graph_kernel_names`); copies and fills are other
+    node types. ``torch.profiler`` read these before: on the card its
+    CUPTI records of such short captures lost their first kernel in some
+    runs and, in one run of the whole script, came back empty three times
+    in a row. A graph holds every launch of the call. Each caller's ``fn``
+    is one that :func:`graph_ms` captures as well; a call that launches no
+    kernel fails."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-
-    def capture():
-        for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            names = [kernel_name(e.name) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and is_kernel_event(e.name)]
-            if names:
-                return names
-            print(f"device_kernels: capture {attempt + 1} of one call held "
-                  f"no kernel; taking it again")
-        return []
-
-    first, second = capture(), capture()
-    check(first and second, "the profiler recorded no device kernel")
-    if first != second:
-        print(f"device_kernels: two captures of one call disagree: "
-              f"{json.dumps(first)} vs {json.dumps(second)}")
-    return max(first, second, key=len)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    names = [kernel_name(n) for n in demangle(graph_kernel_names(
+        graph.raw_cuda_graph()))]
+    del graph
+    check(names, "the captured call launched no device kernel")
+    return names
 
 
 class unfused_epilogue:
@@ -1947,7 +2085,7 @@ def int8_head_phase():
           f"static int8 batch-1 device ms {speedup['int8_static']:.4f} "
           f"(floor {STATIC_B1_FLOOR}; before Q8 "
           f"{speedup['int8_static_before_q8']:.4f})")
-    check(sum(name.startswith("int8_static_skinny")
+    check(sum("int8_static_skinny" in name
               for name in launches_b1["int8_static"]) == 4,
           f"the static _forward did not run Q8 on its 4 layers: "
           f"{launches_b1['int8_static']}")
@@ -3677,12 +3815,12 @@ def ce_kernel_phase():
     return rows
 
 
-def lm_data(n: int = LM_SEQS):
-    """The bench's data: ``n`` sequences of 4096 ids from numpy seed 7 and
-    the learnable map y = (7x + 13) mod V."""
+def lm_data(n: int = LM_SEQS, seq: int = LM_SEQ):
+    """The bench's data: ``n`` sequences of ``seq`` ids from numpy seed 7
+    and the learnable map y = (7x + 13) mod V."""
     import numpy as np
     rng = np.random.default_rng(7)
-    x = rng.integers(0, LM_VOCAB, (n, LM_SEQ)).astype(np.int32)
+    x = rng.integers(0, LM_VOCAB, (n, seq)).astype(np.int32)
     return x, ((7 * x + 13) % LM_VOCAB).astype(np.int32)
 
 
@@ -3692,11 +3830,6 @@ def lm_phase():
     import torch
 
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
-    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
-        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DH_ROUTES, KERNEL_CE_BWD_DW,
-        KERNEL_CE_BWD_DW_ROUTES, KERNEL_CE_FWD, KERNEL_CE_FWD_ROUTES)
-    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
-        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
     from analytics_zoo_tpu_torch.pipeline.api.keras.fused_loss import \
         resolve_fused_loss
@@ -3724,26 +3857,14 @@ def lm_phase():
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
 
-    kernels = (KERNEL_CE_FWD, KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DW, KERNEL,
-               KERNEL_BWD_DQ, KERNEL_BWD_DKV)
-    by_route = {"fused_ce_fwd": KERNEL_CE_FWD_ROUTES,
-                "fused_ce_bwd_dh": KERNEL_CE_BWD_DH_ROUTES,
-                "fused_ce_bwd_dw": KERNEL_CE_BWD_DW_ROUTES}
-    for c in kernels + tuple(c for routes in by_route.values()
-                             for c in routes.values()):
-        c.reset()
+    reset_lm_counts()
     timed = []
     t0 = time.perf_counter()
     model.fit(x, y, batch_size=LM_BATCH, nb_epoch=2,
               callbacks=[timed.append])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(zip(("fused_ce_fwd", "fused_ce_bwd_dh",
-                         "fused_ce_bwd_dw", "flash_attention_fwd",
-                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
-                        (c.launches for c in kernels)))
-    ce_routes = {name: {k: c.launches for k, c in routes.items()}
-                 for name, routes in by_route.items()}
+    launches, ce_routes = lm_counts()
     records += timed
     steps = 2 * (LM_SEQS // LM_BATCH)
     loss_first, loss_last = records[0]["loss"], records[-1]["loss"]
@@ -3825,14 +3946,72 @@ def lm_kernel_rows(labels_np, launches, launches_by_route):
     bound): ``(ce_rows, flash_lm)``."""
     import torch
 
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dq, flash_attention)
+    g = torch.Generator().manual_seed(3)
+    rows = ce_rows_at(LM_BATCH * LM_SEQ, labels_np, g, launches,
+                      launches_by_route)
+
+    q, k, vv, do = (torch.randn(LM_BATCH, LM_CFG["n_head"], LM_SEQ, 64,
+                                generator=g).to("cuda", torch.bfloat16)
+                    for _ in range(4))
+    out, lse = flash_attention(q, k, vv, causal=True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    errors_lm = lm_attention_errors(q, k, vv, do, out, lse, delta)
+    bounds_lm = causal_attention_bounds(q, k)
+    flash_lm = {
+        "flash_attention_fwd": time_ms(lambda: flash_attention(
+            q, k, vv, causal=True, want_lse=True), iters=5, warmup=1),
+        "flash_attention_bwd_dq": time_ms(lambda: bwd_dq(
+            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
+        "flash_attention_bwd_dkv": time_ms(lambda: bwd_dkv(
+            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
+    }
+    # yardsticks only: SDPA forward and backward (dq, dk, dv in one call),
+    # causal, at this shape
+    sdpa_lm = lm_sdpa_ms(q, k, vv, do)
+    print(f"lm attention SDPA yardsticks, causal bf16: {json.dumps(sdpa_lm)}")
+    return rows, {name: {"launches_lm": launches[name], "ms_lm": ms,
+                         "max_abs_err_lm": errors_lm[name],
+                         "bound_ms_lm": bounds_lm[name][0],
+                         "bound_by_lm": bounds_lm[name][1],
+                         "library_ms_lm": sdpa_lm[
+                             "fwd" if name == "flash_attention_fwd"
+                             else "bwd"]}
+                  for name, ms in flash_lm.items()}
+
+
+def causal_attention_bounds(q, k):
+    """K2's, K3a's and K3b's bounds on causal, unmasked inputs, with the
+    operation and byte counts of ``main_path_kernel_rows``."""
+    return {
+        "flash_attention_fwd": attention_bound(q, k, None, True,
+                                               n_row_f32=1),
+        "flash_attention_bwd_dq": attention_bound(q, k, None, True, 6,
+                                                  n_q_sized=3, n_kv_sized=2,
+                                                  n_row_f32=2),
+        "flash_attention_bwd_dkv": attention_bound(q, k, None, True, 8,
+                                                   n_q_sized=2,
+                                                   n_kv_sized=4,
+                                                   n_row_f32=2),
+    }
+
+
+def ce_rows_at(n, labels_np, g, launches, launches_by_route,
+               tag="LM shape"):
+    """K4, K5a and K5b at ``n`` rows of the LM head (H=512, V=8192, bf16
+    h and W, an f32 bias, ``labels_np``), inputs drawn from ``g``: each
+    checked against its plain version and for its wgmma route, timed
+    beside the plain version, the cuBLAS products and its bound; the
+    kernels line's rows, with ``launches``; ``tag`` names the shape in
+    the checks."""
+    import torch
+
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
         LAST_DH_LAUNCH, LAST_DW_LAUNCH, LAST_FWD_LAUNCH, fused_ce_backward_dh,
         fused_ce_backward_dw, fused_ce_backward_reference, fused_ce_forward,
         fused_ce_forward_reference)
-    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
-        bwd_dkv, bwd_dq, flash_attention)
-    n, hidden, v = LM_BATCH * LM_SEQ, LM_CFG["hidden_size"], LM_VOCAB
-    g = torch.Generator().manual_seed(3)
+    hidden, v = LM_CFG["hidden_size"], LM_VOCAB
     h = torch.randn(n, hidden, generator=g).to("cuda", torch.bfloat16)
     w = (torch.randn(hidden, v, generator=g) * hidden ** -0.5).to(
         "cuda", torch.bfloat16)
@@ -3847,7 +4026,7 @@ def lm_kernel_rows(labels_np, launches, launches_by_route):
               "fused_ce_bwd_dh": LAST_DH_LAUNCH.route,
               "fused_ce_bwd_dw": LAST_DW_LAUNCH.route}
     for name, route in routes.items():
-        check(route == "wgmma", f"LM shape: {name} took {route}")
+        check(route == "wgmma", f"{tag}: {name} took {route}")
     ref_lse, ref_ll = fused_ce_forward_reference(h, w, b, labels)
     ref_dh, ref_dw, ref_db = fused_ce_backward_reference(h, w, b, labels,
                                                          lse, scale)
@@ -3861,13 +4040,13 @@ def lm_kernel_rows(labels_np, launches, launches_by_route):
     errors = {"fused_ce_fwd": max(lse_err, err(ll, ref_ll)),
               "fused_ce_bwd_dh": err(dh, ref_dh),
               "fused_ce_bwd_dw": max(err(dw, ref_dw), err(db, ref_db))}
-    check(lse_err <= tol["lse"], f"LM shape: K4 lse {lse_err}")
-    check(ll_rel <= tol["ll_rel"], f"LM shape: K4 label logit {ll_rel}")
+    check(lse_err <= tol["lse"], f"{tag}: K4 lse {lse_err}")
+    check(ll_rel <= tol["ll_rel"], f"{tag}: K4 label logit {ll_rel}")
     del ref_lse, ref_ll
     for name, ref in (("fused_ce_bwd_dh", ref_dh), ("fused_ce_bwd_dw",
                                                     ref_dw)):
         top = ref.float().abs().max().item()
-        check(errors[name] <= tol["grad"] * top, f"LM shape: {name} "
+        check(errors[name] <= tol["grad"] * top, f"{tag}: {name} "
               f"{errors[name]} > {tol['grad']} x {top}")
     del ref_dh, ref_dw, ref_db
 
@@ -3923,45 +4102,7 @@ def lm_kernel_rows(labels_np, launches, launches_by_route):
                                     "and db together: the pair's time")
         rows[-1]["kernel_route"] = routes[name]
         rows[-1]["launches_by_route"] = launches_by_route[name]
-    del h, w, dh, dw
-
-    q, k, vv, do = (torch.randn(LM_BATCH, LM_CFG["n_head"], LM_SEQ, 64,
-                                generator=g).to("cuda", torch.bfloat16)
-                    for _ in range(4))
-    out, lse = flash_attention(q, k, vv, causal=True, want_lse=True)
-    delta = (do.float() * out.float()).sum(-1)
-    errors_lm = lm_attention_errors(q, k, vv, do, out, lse, delta)
-    bounds_lm = {   # operation and byte counts as main_path_kernel_rows'
-        "flash_attention_fwd": attention_bound(q, k, None, True,
-                                               n_row_f32=1),
-        "flash_attention_bwd_dq": attention_bound(q, k, None, True, 6,
-                                                  n_q_sized=3, n_kv_sized=2,
-                                                  n_row_f32=2),
-        "flash_attention_bwd_dkv": attention_bound(q, k, None, True, 8,
-                                                   n_q_sized=2,
-                                                   n_kv_sized=4,
-                                                   n_row_f32=2),
-    }
-    flash_lm = {
-        "flash_attention_fwd": time_ms(lambda: flash_attention(
-            q, k, vv, causal=True, want_lse=True), iters=5, warmup=1),
-        "flash_attention_bwd_dq": time_ms(lambda: bwd_dq(
-            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
-        "flash_attention_bwd_dkv": time_ms(lambda: bwd_dkv(
-            q, k, vv, None, lse, delta, do, True), iters=5, warmup=1),
-    }
-    # yardsticks only: SDPA forward and backward (dq, dk, dv in one call),
-    # causal, at this shape
-    sdpa_lm = lm_sdpa_ms(q, k, vv, do)
-    print(f"lm attention SDPA yardsticks, causal bf16: {json.dumps(sdpa_lm)}")
-    return rows, {name: {"launches_lm": launches[name], "ms_lm": ms,
-                         "max_abs_err_lm": errors_lm[name],
-                         "bound_ms_lm": bounds_lm[name][0],
-                         "bound_by_lm": bounds_lm[name][1],
-                         "library_ms_lm": sdpa_lm[
-                             "fwd" if name == "flash_attention_fwd"
-                             else "bwd"]}
-                  for name, ms in flash_lm.items()}
+    return rows
 
 
 def fused_ce_speedup():
@@ -4080,6 +4221,591 @@ def lm_attention_errors(q, k, v, do, out, lse, delta):
     return {"flash_attention_fwd": max(err["out"], err["lse"]),
             "flash_attention_bwd_dq": err["dq"],
             "flash_attention_bwd_dkv": max(err["dk"], err["dv"])}
+
+
+def lm_counters():
+    """The LM path's kernels' launch counters by the kernels line's names,
+    and the CE kernels' counters by route."""
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import (
+        KERNEL_CE_BWD_DH, KERNEL_CE_BWD_DH_ROUTES, KERNEL_CE_BWD_DW,
+        KERNEL_CE_BWD_DW_ROUTES, KERNEL_CE_FWD, KERNEL_CE_FWD_ROUTES)
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    kernels = dict(zip(LM_KERNELS, (KERNEL_CE_FWD, KERNEL_CE_BWD_DH,
+                                    KERNEL_CE_BWD_DW, KERNEL, KERNEL_BWD_DQ,
+                                    KERNEL_BWD_DKV)))
+    routes = {"fused_ce_fwd": KERNEL_CE_FWD_ROUTES,
+              "fused_ce_bwd_dh": KERNEL_CE_BWD_DH_ROUTES,
+              "fused_ce_bwd_dw": KERNEL_CE_BWD_DW_ROUTES}
+    return kernels, routes
+
+
+def lm_counts():
+    """``(launches, launches by CE route)`` as the counters read now."""
+    kernels, routes = lm_counters()
+    return ({n: c.launches for n, c in kernels.items()},
+            {n: {k: c.launches for k, c in r.items()}
+             for n, r in routes.items()})
+
+
+def reset_lm_counts():
+    kernels, routes = lm_counters()
+    for c in list(kernels.values()) + [c for r in routes.values()
+                                       for c in r.values()]:
+        c.reset()
+
+
+def count_diff(after, before):
+    """``after - before`` of two (nested) launch-count dicts."""
+    return {k: (count_diff(v, before[k]) if isinstance(v, dict)
+                else v - before[k]) for k, v in after.items()}
+
+
+def long_context_32k_fit(mode, x, y, scan_steps=1, twice=False):
+    """One ``zoo.train.remat`` mode of the 32k configuration, from the
+    weights every mode starts from (``zoo.seed`` 0), every other flag at
+    auto: the first step's loss and gradients through the loop's own step
+    (``TrainingLoop._grads``, where remat applies; run twice when
+    ``twice``, to see which leaves come out the same bits run to run),
+    its launches and peak memory (the gradients then held on the host),
+    then the bench's two fits of two epochs (warm-up, timed; peak memory
+    over both and above what is allocated at their start, and, eager, the
+    same allocation after each) and one more epoch
+    under ``torch.profiler`` for the busy share. The launch counters are
+    zeroed at the start; the summary's ``launches`` are the whole mode's.
+    Returns ``(summary, first)``, ``first`` the step's ``(loss, grads)``
+    runs."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+        _to_device
+    tag = f"32k remat={mode}" + (f" scan_steps={scan_steps}"
+                                 if scan_steps > 1 else "")
+    init_zoo_context(conf={"zoo.compute.dtype": "bfloat16", "zoo.seed": 0,
+                           "zoo.pallas.attention": "auto",
+                           "zoo.pallas.cross_entropy": "auto",
+                           "zoo.train.fused_ce": "auto",
+                           "zoo.train.remat": mode,
+                           "zoo.train.scan_steps": scan_steps})
+    reset_lm_counts()
+    # the previous mode's model and loop (which hold each other) and its
+    # optimizer state go before this mode's fits are measured
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = Sequential([TransformerLayer(**LC_CFG, input_shape=(LC_SEQ,)),
+                        Dense(LM_VOCAB)]).init_weights()
+    model.compile(optimizer="adam", loss="scce_with_logits", lr=3e-4)
+    loop = model._loop
+    dev = torch.device("cuda")
+    xb, yb = _to_device(x[:LC_BATCH], dev), _to_device(y[:LC_BATCH], dev)
+    params = loop._params()
+    first = []
+    for _ in range(2 if twice else 1):
+        before = lm_counts()[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = loop._grads(xb, yb, loop._noise(0, 0, dev), params)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - base
+        step_launches = count_diff(lm_counts()[0], before)
+        # held for the comparison off the card, out of the fits' memory
+        first.append((loss.cpu(), {n: g.cpu() for n, g in grads.items()}))
+        del loss, grads
+    remat = loop.remat_mode is not None
+    want_step = {n: ((LC_CFG["n_block"] if n.startswith("flash") else 1)
+                     * (2 if remat and n in ("fused_ce_fwd",
+                                             "flash_attention_fwd") else 1))
+                 for n in LM_KERNELS}
+    check(step_launches == want_step, f"{tag}: one step's launches "
+          f"{step_launches}, want {want_step}")
+
+    torch.cuda.synchronize()
+    fit_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    records, losses = [], []
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=LC_BATCH, nb_epoch=2,
+              callbacks=[records.append])                 # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    after_fits = [torch.cuda.memory_allocated()]
+    losses += [float(v) for e in loop.step_losses for v in e]
+    before = lm_counts()
+    timed = []
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=LC_BATCH, nb_epoch=2,
+              callbacks=[timed.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses += [float(v) for e in loop.step_losses for v in e]
+    fit_peak = torch.cuda.max_memory_allocated()
+    after_fits.append(torch.cuda.memory_allocated())
+    steps = 2 * (LC_SEQS // LC_BATCH)
+    fit_launches, fit_routes = (count_diff(a, b) for a, b in
+                                zip(lm_counts(), before))
+    busy, kernel_ms = profiled_busy_share(lambda: model.fit(
+        x, y, batch_size=LC_BATCH, nb_epoch=1))
+    launches, ce_routes = lm_counts()
+    records += timed
+    tokens_per_s = max(r["throughput"] for r in timed) * LC_SEQ
+    hidden, n_block = LC_CFG["hidden_size"], LC_CFG["n_block"]
+    # bench.py:457-460: 3 x the forward's flops a token, the causal
+    # attention half of 4 T H
+    fwd_per_tok = (n_block * (24 * hidden * hidden
+                              + 4 * LC_SEQ * hidden * 0.5)
+                   + 2 * hidden * LM_VOCAB)
+    loss_first, loss_last = records[0]["loss"], records[-1]["loss"]
+    summary = {"remat": mode, "scan_steps": scan_steps, "steps": steps,
+               "tokens_per_s": tokens_per_s,
+               "ms_per_step": 1e3 * wall / steps, "wall_s": wall,
+               "warmup_s": warm,
+               "mfu": 3.0 * fwd_per_tok * tokens_per_s
+               / PEAK_FLOPS["bfloat16"],
+               "peak_step_bytes": step_peak, "peak_fit_bytes": fit_peak,
+               "fit_start_bytes": fit_start,
+               "allocated_after_fits_bytes": after_fits,
+               "busy_share": busy, "profiled_kernel_ms": kernel_ms,
+               "launches_per_step": {n: c / steps
+                                     for n, c in fit_launches.items()},
+               "ce_routes": ce_routes, "launches": launches,
+               "epoch_losses": [r["loss"] for r in records],
+               "step_losses": losses}
+    print(f"{tag}: {steps} steps of {LC_BATCH}x{LC_SEQ} tokens in "
+          f"{wall:.3f}s = {tokens_per_s:.1f} tokens/s (best epoch), "
+          f"{summary['ms_per_step']:.1f} ms/step, MFU "
+          f"{summary['mfu']:.4f} (warm-up {warm:.1f}s); peak memory "
+          f"{step_peak / 1e9:.3f} GB over one step, {fit_peak / 1e9:.3f} "
+          f"GB over the fits ({(fit_peak - fit_start) / 1e9:.3f} GB above "
+          f"the {fit_start / 1e9:.3f} GB allocated at their start; "
+          f"allocated after each fit {after_fits[0] / 1e9:.4f} / "
+          f"{after_fits[1] / 1e9:.4f} GB); busy {busy}; loss "
+          f"{loss_first:.4f} -> "
+          f"{loss_last:.4f}; launches a step "
+          f"{json.dumps(summary['launches_per_step'])}; CE kernels by route "
+          f"{json.dumps(fit_routes)}")
+    check(math.isfinite(loss_last) and loss_last < 0.98 * loss_first,
+          f"{tag}: loss gate {loss_first} -> {loss_last}")
+    # eager steps leave nothing behind (a captured fit may capture anew)
+    check(scan_steps > 1 or after_fits[0] == after_fits[1],
+          f"{tag}: allocated after the warm-up fit {after_fits[0]} vs "
+          f"after the timed fit {after_fits[1]}")
+    check(fit_launches == {n: c * steps for n, c in want_step.items()},
+          f"{tag}: {fit_launches} launches over {steps} steps, want "
+          f"{want_step} a step")
+    for name, r in fit_routes.items():
+        check(r["wgmma"] == fit_launches[name], f"{tag}: {name} on the "
+              f"wgmma route {r}, want all {fit_launches[name]}")
+    check(np.all(np.isfinite(losses)), f"{tag}: step losses {losses}")
+    return summary, first
+
+
+def long_context_attention_rows():
+    """K2, K3a and K3b at the 32k path's shape (B=1, H=8, T=32768, D=64,
+    causal, bf16). The plain versions form the f32 score matrix, 34 GB at
+    this shape, so they run on a cut: K2's output and lse and K3a's dq on
+    the last ``LC_CUT_ROWS`` query rows against every key, K3b's dk and dv
+    for one head at full length; tolerances as ``lm_attention_errors``
+    but for the output, held to 2e-2 of the reference's largest value as
+    the gradients are (each of these rows averages some 30k keys, so
+    |out| is near sqrt(e / T), far under the 4k shape's absolute 2e-2),
+    and the same gradient bits on a second run. Each kernel timed beside
+    SDPA's causal forward and backward and its bound. Returns the rows'
+    ``*_32k`` fields by kernel name."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dkv_reference, bwd_dq, bwd_dq_reference,
+        flash_attention, flash_attention_reference)
+    g = torch.Generator().manual_seed(11)
+    shape = (LC_BATCH, LC_CFG["n_head"], LC_SEQ, 64)
+    q, k, v, do = (torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bwd_dq(q, k, v, None, lse, delta, do, True)
+    dk, dv = bwd_dkv(q, k, v, None, lse, delta, do, True)
+    again = (bwd_dq(q, k, v, None, lse, delta, do, True),
+             *bwd_dkv(q, k, v, None, lse, delta, do, True))
+    torch.cuda.synchronize()
+    for key, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        check(same_bits(a, b), f"32k: {key} not the same bits on a second "
+              f"run")
+    del again
+    rows = slice(LC_SEQ - LC_CUT_ROWS, LC_SEQ)
+    want = dict(zip(("out", "lse"), flash_attention_reference(
+        q[:, :, rows], k, v, None, True, want_lse=True)))
+    want["dq"] = bwd_dq_reference(q[:, :, rows], k, v, None,
+                                  lse[:, :, rows], delta[:, :, rows],
+                                  do[:, :, rows], True)
+    got = {"out": out[:, :, rows], "lse": lse[:, :, rows],
+           "dq": dq[:, :, rows]}
+    head = slice(0, 1)
+    want["dk"], want["dv"] = bwd_dkv_reference(
+        q[:, head], k[:, head], v[:, head], None, lse[:, head],
+        delta[:, head], do[:, head], True)
+    got["dk"], got["dv"] = dk[:, head], dv[:, head]
+    err = {key: (got[key].float() - w.float()).abs().max().item()
+           for key, w in want.items()}
+    top = {key: w.float().abs().max().item() for key, w in want.items()}
+    del want
+    torch.cuda.empty_cache()
+    print(f"32k attention kernels vs plain, B={shape[0]} H={shape[1]} "
+          f"T={shape[2]} D={shape[3]} causal bf16 (out, lse, dq: the last "
+          f"{LC_CUT_ROWS} rows; dk, dv: head 0 at full length): "
+          f"{json.dumps({'max_abs_err': err, 'max_abs': top})}")
+    check(err["out"] <= 2e-2 * top["out"], f"32k: K2 vs plain "
+          f"{err['out']} > 2e-2 x {top['out']}")
+    check(err["lse"] <= 1e-3, f"32k: K2 lse {err['lse']}")
+    for key in ("dq", "dk", "dv"):
+        check(bool(torch.isfinite(got[key]).all()), f"32k: {key} not "
+              f"finite")
+        check(err[key] <= 2e-2 * top[key], f"32k: {key} vs plain "
+              f"{err[key]} > 2e-2 x {top[key]}")
+    errors = {"flash_attention_fwd": max(err["out"], err["lse"]),
+              "flash_attention_bwd_dq": err["dq"],
+              "flash_attention_bwd_dkv": max(err["dk"], err["dv"])}
+    del got, dq, dk, dv
+    bounds = causal_attention_bounds(q, k)
+    ms = {
+        "flash_attention_fwd": time_ms(lambda: flash_attention(
+            q, k, v, causal=True, want_lse=True), iters=5, warmup=1),
+        "flash_attention_bwd_dq": time_ms(lambda: bwd_dq(
+            q, k, v, None, lse, delta, do, True), iters=5, warmup=1),
+        "flash_attention_bwd_dkv": time_ms(lambda: bwd_dkv(
+            q, k, v, None, lse, delta, do, True), iters=5, warmup=1),
+    }
+    sdpa = lm_sdpa_ms(q, k, v, do)
+    print(f"32k attention kernels ms {json.dumps(ms)}, bounds "
+          f"{json.dumps(bounds)}, SDPA causal {json.dumps(sdpa)}")
+    return {name: {"ms_32k": ms[name], "max_abs_err_32k": errors[name],
+                   "bound_ms_32k": bounds[name][0],
+                   "bound_by_32k": bounds[name][1],
+                   "library_ms_32k": sdpa[
+                       "fwd" if name == "flash_attention_fwd" else "bwd"]}
+            for name in ms}
+
+
+def long_context_32k_phase():
+    """The JAX bench's 32k long-context configuration, uncut, in each
+    ``zoo.train.remat`` mode (``LC_REMAT``) and once more under
+    ``zoo.train.scan_steps`` 2 with ``full``. Gates: each fit's loss drop
+    (``bench.py:448-453``), the launches a step (K2 and K4 twice under
+    remat: the recompute), the wgmma CE routes, each remat mode's first
+    step against ``false``'s (the loss's bits; every gradient leaf that
+    comes out the same bits twice under ``false`` bit for bit, any other
+    at ``LM_GRAD_REL_TOL``), the captured fit's step losses against the
+    eager ``full`` fit's (bits, else 1e-6 relative), and K2, K3a, K3b, K4,
+    K5a and K5b at the 32k shapes against their plain versions. Returns
+    the summary, the attention rows' and the CE rows' 32k fields, and the
+    path's launches (``long_context_32k``: the ``false`` mode's;
+    ``remat``: the rest)."""
+    import torch
+    x, y = lm_data(LC_SEQS, LC_SEQ)
+    runs, firsts = {}, {}
+    for mode in LC_REMAT:
+        runs[mode], firsts[mode] = long_context_32k_fit(
+            mode, x, y, twice=mode == LC_REMAT[0])
+    (ref_loss, ref), (_, again) = firsts[LC_REMAT[0]]
+    steady = sorted(n for n in ref if same_bits(ref[n], again[n]))
+    print(f"32k remat={LC_REMAT[0]}: {len(steady)} of {len(ref)} gradient "
+          f"leaves the same bits on a second step; the others "
+          f"{sorted(set(ref) - set(steady))}")
+    del again
+    agreement = {}
+    for mode in LC_REMAT[1:]:
+        loss, grads = firsts[mode][0]
+        bits = [n for n in ref if same_bits(grads[n], ref[n])]
+        rel = {n: ((grads[n].float() - ref[n].float()).norm()
+                   / ref[n].float().norm().clamp_min(1e-30)).item()
+               for n in ref if n not in bits}
+        worst = max(rel, key=rel.get) if rel else None
+        agreement[mode] = {"loss_same_bits": same_bits(loss, ref_loss),
+                           "leaves_same_bits": len(bits),
+                           "leaves": len(ref),
+                           "worst_rel_err": rel.get(worst, 0.0),
+                           "worst_leaf": worst}
+        print(f"32k remat={mode} vs {LC_REMAT[0]}, first step: loss "
+              f"{loss.item():.6f} / {ref_loss.item():.6f} the same bits "
+              f"{agreement[mode]['loss_same_bits']}; {len(bits)} of "
+              f"{len(ref)} gradient leaves the same bits"
+              + (f", the others' largest relative error {rel[worst]:.3e} "
+                 f"({worst}; tolerance {LM_GRAD_REL_TOL})" if rel else ""))
+        check(agreement[mode]["loss_same_bits"], f"32k remat={mode}: first "
+              f"loss {loss.item()} vs {ref_loss.item()}")
+        moved = [n for n in steady if n not in bits]
+        check(not moved, f"32k remat={mode}: leaves that are the same bits "
+              f"run to run differ from remat={LC_REMAT[0]}: {moved}")
+        check(all(r <= LM_GRAD_REL_TOL for r in rel.values()),
+              f"32k remat={mode}: {worst} {rel.get(worst)}")
+    del firsts, ref
+    captured, _ = long_context_32k_fit("full", x, y, scan_steps=2)
+    same = bits_or_close("32k captured full vs eager full step losses",
+                         captured["step_losses"],
+                         runs["full"]["step_losses"], 1e-6, absolute=False)
+    torch.cuda.empty_cache()
+    attention = long_context_attention_rows()
+    g = torch.Generator().manual_seed(13)
+    ce = {r["name"]: r for r in ce_rows_at(
+        LC_BATCH * LC_SEQ, y[:LC_BATCH], g, runs[LC_REMAT[0]]["launches"],
+        runs[LC_REMAT[0]]["ce_routes"], tag="32k shape")}
+    launches = {"long_context_32k": runs[LC_REMAT[0]]["launches"],
+                "remat": {n: sum(r["launches"][n] for r in
+                                 [runs[m] for m in LC_REMAT[1:]]
+                                 + [captured])
+                          for n in LM_KERNELS}}
+    summary = {"runs": runs, "captured_full": captured,
+               "captured_vs_eager": same, "first_step": agreement,
+               "steady_leaves": len(steady)}
+    return summary, attention, ce, launches
+
+
+def ner_data(n):
+    """``n`` NER rows: token ids drawn as the JAX BERT bench draws them
+    (``bench.py:196-197``: numpy seed 3, ids in [1, 30000)), valid lengths
+    uniform in 64..512 as the serving records', pad id 0 past them; each
+    tag a function of its id (id mod 9), -1 past the row's length.
+    Returns ``(ids, mask, tags)``."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    ids = rng.integers(1, 30000, (n, SEQ)).astype(np.int32)
+    lens = rng.integers(64, SEQ + 1, n)
+    pad = np.arange(SEQ)[None, :] >= lens[:, None]
+    ids[pad] = 0
+    tags = (ids % NER_CFG["num_entities"]).astype(np.int32)
+    tags[pad] = -1
+    return ids, (~pad).astype(np.float32), tags
+
+
+def bert_ner_phase():
+    """``BERTNER`` at BERT-base width (``NER_CFG``), bf16 compute, AdamW
+    5e-5, batch 32: a warm-up epoch and a timed epoch of ``NER_STEPS``
+    steps, then one more under ``torch.profiler`` for the busy share.
+    Gates: the loss falls, 12 launches a step of K2, K3a and K3b, other
+    ids past the valid lengths give the same loss bits, ``predict_tags``
+    equals the argmax of ``predict``; then ``BERTSQuAD`` at the same width
+    gives spans with end >= start for a batch. Returns the summary with
+    the path's launches."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+        _to_device
+    from analytics_zoo_tpu_torch.tfpark import BERTNER, BERTSQuAD
+
+    init_zoo_context(conf={"zoo.pallas.attention": True,
+                           "zoo.compute.dtype": "bfloat16", "zoo.seed": 0})
+    kernels = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"),
+                       (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)))
+    for c in kernels.values():
+        c.reset()
+
+    def counts():
+        return {n: c.launches for n, c in kernels.items()}
+
+    t0 = time.perf_counter()
+    model = BERTNER(**NER_CFG, device="cuda").init_weights()
+    model.compile(optimizer="adamw", lr=5e-5)
+    print(f"bert ner: built in {time.perf_counter() - t0:.1f}s "
+          f"({json.dumps(model.get_config())}), bf16 compute, f32 params, "
+          f"AdamW lr 5e-5, batch {T_BATCH}")
+    ids, mask, tags = ner_data(NER_STEPS * T_BATCH)
+    x = model.make_inputs(ids, attention_mask=mask)
+    records = []
+    t0 = time.perf_counter()
+    model.fit(x, tags, batch_size=T_BATCH, nb_epoch=1,
+              callbacks=[records.append])                 # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    before = counts()
+    t0 = time.perf_counter()
+    model.fit(x, tags, batch_size=T_BATCH, nb_epoch=1,
+              callbacks=[records.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_launches = {n: (c - before[n]) / NER_STEPS
+                     for n, c in counts().items()}
+    busy, kernel_ms = profiled_busy_share(lambda: model.fit(
+        x, tags, batch_size=T_BATCH, nb_epoch=1))
+    losses = [r["loss"] for r in records]
+    summary = {"steps": NER_STEPS, "batch": T_BATCH,
+               "samples_per_s": records[1]["throughput"],
+               "ms_per_step": 1e3 * wall / NER_STEPS, "wall_s": wall,
+               "warmup_epoch_s": warm, "epoch_losses": losses,
+               "busy_share": busy, "profiled_kernel_ms": kernel_ms,
+               "launches_per_step": step_launches}
+    print(f"bert ner: {NER_STEPS} steps of {T_BATCH} in {wall:.3f}s = "
+          f"{summary['samples_per_s']:.2f} samples/s, "
+          f"{summary['ms_per_step']:.1f} ms/step (warm-up epoch "
+          f"{warm:.1f}s); busy {busy}; epoch losses {losses}; launches a "
+          f"step {json.dumps(step_launches)}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"bert ner: the loss did not fall {losses}")
+    want = float(NER_CFG["n_block"])
+    check(all(v == want for v in step_launches.values()),
+          f"bert ner: launches a step {step_launches}, want {want} each")
+
+    # other ids past the valid lengths: the same loss bits
+    loop, dev = model._loop, torch.device("cuda")
+    rng = np.random.default_rng(5)
+    other = ids[:T_BATCH].copy()
+    pad = mask[:T_BATCH] == 0
+    other[pad] = rng.integers(1, 30000, int(pad.sum()))
+    yb = _to_device(tags[:T_BATCH], dev)
+    losses_pad = []
+    for rows in (ids[:T_BATCH], other):
+        xb = _to_device(model.make_inputs(rows,
+                                          attention_mask=mask[:T_BATCH]), dev)
+        with torch.no_grad():
+            losses_pad.append(loop.loss(yb, model(
+                xb, training=True, generator=loop._noise(0, 0, dev))))
+    summary["padding_same_bits"] = same_bits(*losses_pad)
+    print(f"bert ner: the first batch's loss {losses_pad[0].item():.6f}, "
+          f"with other ids past the valid lengths {losses_pad[1].item():.6f}"
+          f": the same bits {summary['padding_same_bits']}")
+    check(summary["padding_same_bits"], "bert ner: padded positions moved "
+          "the loss")
+    xs = [a[:2 * T_BATCH] for a in x]
+    logits = model.predict(xs, batch_size=T_BATCH)
+    tags_pred = model.predict_tags(xs, batch_size=T_BATCH)
+    check(tags_pred.shape == (2 * T_BATCH, SEQ)
+          and np.array_equal(tags_pred, np.argmax(logits, axis=-1)),
+          "bert ner: predict_tags is not the argmax of predict")
+    del model, loop
+
+    cfg = {k: v for k, v in NER_CFG.items() if k != "num_entities"}
+    squad = BERTSQuAD(**cfg, device="cuda").init_weights()
+    spans = squad.predict_spans([a[:T_BATCH] for a in x],
+                                batch_size=T_BATCH)
+    print(f"bert squad: predict_spans over {T_BATCH} rows, the first "
+          f"{spans[:4].tolist()}")
+    check(spans.shape == (T_BATCH, 2) and bool((spans[:, 1]
+                                                >= spans[:, 0]).all()),
+          f"bert squad: spans {spans.tolist()}")
+    del squad
+    summary["launches"] = counts()
+    return summary
+
+
+def knrm_corpus():
+    """The KNRM phase's seeded corpus (numpy seed 17) over ``w0 ..
+    w19999``: ``KNRM_QUERIES`` queries of ``KNRM_T1`` words, each with
+    ``KNRM_CANDIDATES`` docs of ``KNRM_T2`` words, the first relevant (the
+    query's first 2 words among its own) and the others not (0, 1 or 2
+    of the query's next two words among theirs, uniformly). Returns
+    ``(queries, docs, relations)``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.feature.text import Relation
+    rng = np.random.default_rng(17)
+    words = np.asarray([f"w{i}" for i in range(KNRM_VOCAB)])
+    queries, docs, rels = {}, {}, []
+    q_ids = rng.integers(0, KNRM_VOCAB, (KNRM_QUERIES, KNRM_T1))
+    d_ids = rng.integers(0, KNRM_VOCAB,
+                         (KNRM_QUERIES, KNRM_CANDIDATES, KNRM_T2))
+    d_ids[:, 0, :2] = q_ids[:, :2]
+    # the other docs share 0, 1 or 2 of the query's other words
+    shares = rng.integers(0, 3, (KNRM_QUERIES, KNRM_CANDIDATES))
+    for j in range(2):
+        hit = (shares > j) & (np.arange(KNRM_CANDIDATES) > 0)
+        d_ids[:, :, j] = np.where(hit, q_ids[:, 2 + j:3 + j],
+                                  d_ids[:, :, j])
+    for i in range(KNRM_QUERIES):
+        queries[f"q{i}"] = " ".join(words[q_ids[i]])
+        for c in range(KNRM_CANDIDATES):
+            doc = rng.permutation(d_ids[i, c])
+            docs[f"d{i}_{c}"] = " ".join(words[doc])
+            rels.append(Relation(f"q{i}", f"d{i}_{c}", int(c == 0)))
+    return queries, docs, rels
+
+
+def knrm_phase():
+    """KNRM trained through the text path: the seeded corpus
+    (``knrm_corpus``) through ``TextSet`` (tokenize, one ``word2idx`` over
+    both corpora, ``shape_sequence`` to 10 and 40), relation pairs
+    (``generate_relation_pairs`` via ``relation_pairs_to_arrays``: rows
+    alternate the relevant doc and another, as ``rank_hinge`` reads them),
+    then ``KNRM`` at the JAX class's widths (embed 300, 21 kernels, sigma
+    0.1, exact sigma 0.001) with Adam 1e-3 and ``rank_hinge``, batch 512,
+    unshuffled, for ``KNRM_EPOCHS`` epochs on all queries but the first
+    ``KNRM_EVAL_QUERIES``, whose lists give NDCG@3 and MAP. Gates: the loss falls, finite
+    metrics in [0, 1], and no hand-written kernel launched (none lies on
+    this path)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.text import (
+        TextSet, generate_relation_pairs, relation_lists_to_groups,
+        relation_pairs_to_arrays)
+    from analytics_zoo_tpu_torch.models.textmatching import KNRM
+    from analytics_zoo_tpu_torch.ops.launch_count import LaunchCount
+
+    init_zoo_context(conf={"zoo.seed": 0})
+    t0 = time.perf_counter()
+    queries, docs, rels = knrm_corpus()
+    c1 = TextSet.from_corpus(queries).tokenize()
+    c2 = TextSet.from_corpus(docs).tokenize()
+    both = TextSet(c1.features + c2.features).word2idx()
+    c1.word_index = c2.word_index = both.get_word_index()
+    c1.shape_sequence(KNRM_T1)
+    c2.shape_sequence(KNRM_T2)
+    # the first KNRM_EVAL_QUERIES queries are held out for the metrics
+    held = KNRM_EVAL_QUERIES * KNRM_CANDIDATES
+    pairs = generate_relation_pairs(rels[held:])
+    x, y = relation_pairs_to_arrays(rels[held:], c1, c2)
+    setup = time.perf_counter() - t0
+    vocab = len(both.get_word_index())
+    print(f"knrm: {len(queries)} queries, {len(docs)} docs, vocabulary "
+          f"{vocab}, {len(pairs)} relation pairs -> x {x.shape} in "
+          f"{setup:.1f}s (TextSet and relations)")
+    before = [c.launches for c in LaunchCount.ALL]
+    model = KNRM(KNRM_T1, KNRM_T2, vocab_size=vocab + 1, embed_size=300,
+                 kernel_num=21, sigma=0.1, exact_sigma=0.001,
+                 device="cuda").init_weights()
+    model.compile(optimizer="adam", loss="rank_hinge", lr=1e-3)
+    records = []
+    t0 = time.perf_counter()
+    model.fit(x, y, batch_size=KNRM_BATCH, nb_epoch=KNRM_EPOCHS,
+              shuffle=False, callbacks=[records.append])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, kernel_ms = profiled_busy_share(lambda: model.fit(
+        x, y, batch_size=KNRM_BATCH, nb_epoch=1, shuffle=False))
+    groups = relation_lists_to_groups(rels[:held], c1, c2)
+    t0 = time.perf_counter()
+    ndcg3 = model.evaluate_ndcg(groups, k=3)
+    mean_ap = model.evaluate_map(groups)
+    eval_s = time.perf_counter() - t0
+    launched = sum(c.launches for c in LaunchCount.ALL) - sum(before)
+    losses = [r["loss"] for r in records]
+    summary = {"records_per_s": max(r["throughput"] for r in records),
+               "epochs": KNRM_EPOCHS, "wall_s": wall, "setup_s": setup,
+               "epoch_losses": losses, "ndcg_at_3": ndcg3, "map": mean_ap,
+               "eval_s": eval_s, "busy_share": busy,
+               "profiled_kernel_ms": kernel_ms, "vocab": vocab,
+               "pairs": len(pairs), "kernel_launches": launched}
+    print(f"knrm: {KNRM_EPOCHS} epochs in {wall:.3f}s, "
+          f"{summary['records_per_s']:.1f} records/s (best epoch), busy "
+          f"{busy}; epoch losses {losses}; NDCG@3 {ndcg3:.4f}, MAP "
+          f"{mean_ap:.4f} over {len(groups)} queries ({eval_s:.1f}s); "
+          f"no hand-written kernel lies on this path: {launched} launched")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"knrm: the loss did not fall {losses}")
+    check(0.0 <= ndcg3 <= 1.0 and 0.0 <= mean_ap <= 1.0,
+          f"knrm: NDCG@3 {ndcg3}, MAP {mean_ap}")
+    check(launched == 0, f"knrm: {launched} hand-written kernel launches")
+    return summary
 
 
 def fault_l_phase():
@@ -4492,24 +5218,20 @@ def sharded_ncf(user_count, item_count, class_num, device="cuda"):
 
 def step_kernels(net, xb, yb, loss_fn):
     """The names of the device kernels one forward (with the loss) and one
-    backward of ``net`` launch, from ``torch.profiler``."""
+    backward of ``net`` launch: one step read by :func:`device_kernels`,
+    split at a marker kernel (``torch.cuda._sleep``) launched between the
+    two."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    def names(prof):
-        return [kernel_name(e.name) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and is_kernel_event(e.name)]
-    net.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+    def step():
+        net.zero_grad(set_to_none=True)
         loss = loss_fn(yb, net(xb, training=True))
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        torch.cuda._sleep(1)
         loss.backward()
-        torch.cuda.synchronize()
+    names = device_kernels(step)
     net.zero_grad(set_to_none=True)
-    return names(fwd), names(bwd)
+    cut = next(i for i, name in enumerate(names) if "spin_kernel" in name)
+    return names[:cut], names[cut + 1:]
 
 
 def ncf_plain_forward(params, pairs):
@@ -5215,11 +5937,11 @@ def bits_or_close(name, got, want, tol, absolute):
         got.view(np.int32), want.view(np.int32)))
     diff = np.abs(got - want)
     diff = float(np.max(diff if absolute else diff / np.abs(want)))
-    print(f"wide&deep {name}: the same bits {bits}"
+    print(f"{name}: the same bits {bits}"
           + ("" if bits else f", largest {'absolute' if absolute else 'relative'}"
              f" difference {diff:.3e} (tolerance {tol})"))
     check(got.shape == want.shape and (bits or diff <= tol),
-          f"wide&deep {name}: differ by {diff}")
+          f"{name}: differ by {diff}")
     return {"same_bits": bits, "max_diff": diff}
 
 
@@ -5366,7 +6088,8 @@ def wide_deep_phase():
     b = wide_deep_estimator(info)
     hb = wide_deep_fit(b, fs, WD_EPOCHS, keyed=False)
     out["captured_vs_eager"] = bits_or_close(
-        f"captured vs eager fit, {WD_EPOCHS} per-epoch losses", ha, hb,
+        f"wide&deep captured vs eager fit, {WD_EPOCHS} per-epoch losses",
+        ha, hb,
         WD_LOSS_REL_TOL, absolute=False)
     out["captured_vs_eager"]["losses"] = ha
     check(ha[-1] < ha[0], f"wide&deep captured fit loss gate: {ha}")
@@ -5434,8 +6157,8 @@ def wide_deep_phase():
         pr = torch.cat([p.detach().flatten()
                         for p in resumed.model.parameters()])
         out["estimator_resume"] = bits_or_close(
-            "Estimator resumed from ckpt after epoch 2 vs uninterrupted, "
-            "parameters", pr.cpu().numpy(), pw.cpu().numpy(), WD_PARAM_TOL,
+            "wide&deep Estimator resumed from ckpt after epoch 2 vs "
+            "uninterrupted, parameters", pr.cpu().numpy(), pw.cpu().numpy(), WD_PARAM_TOL,
             absolute=True)
         out["estimator_resume"]["epoch3_loss"] = [h_res[0], h_whole[2]]
         print(f"wide&deep: Estimator({{'dense': 'sgd'}}, model_dir) epoch 3 "
@@ -6138,6 +6861,10 @@ def main() -> int:
     ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"],
                                               lm["ce_routes"])
     lm["fused_ce_speedup"] = fused_ce_speedup()
+    long_context, attention_32k, ce_32k, lc_launches = \
+        long_context_32k_phase()
+    bert_ner = bert_ner_phase()
+    knrm = knrm_phase()
     for row in rows:
         row.update(flash_lm[row["name"]])
     # K2 serves too: its launches on the lanes and fleet paths beside the
@@ -6155,6 +6882,23 @@ def main() -> int:
         row["launches_by_path"]["reliability"] = n
         row["launches"] += n
     rows += ce_kernel_rows
+    # slice 18: the 32k LM (remat false), its remat modes and captured
+    # remat fit, and BERT NER; the six kernels' 32k shapes
+    for row in rows:
+        name = row["name"]
+        if name not in LM_KERNELS:
+            continue
+        row.update(attention_32k.get(name, {}))
+        if name in ce_32k:
+            row.update({f"{key}_32k": ce_32k[name][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")})
+        new = {path: lc_launches[path][name] for path in lc_launches}
+        if name in bert_ner["launches"]:
+            new["bert_ner"] = bert_ner["launches"][name]
+        row.setdefault("launches_by_path", {"lm_4k": row["launches"]})
+        row["launches_by_path"].update(new)
+        row["launches"] += sum(new.values())
     fault_l = fault_l_phase()
     ncf = ncf_phase(ncf_x, ncf_y)
     disk_fit = disk_fit_phase(ncf_x, ncf_y)
@@ -6186,7 +6930,9 @@ def main() -> int:
                       "serving": serving, "int8_serving": int8_serving,
                       "lanes": lanes, "fleet": fleet, "int8_head": int8_head,
                       "training": training,
-                      "lm": lm, "ncf": ncf, "wide_deep": wide_deep,
+                      "lm": lm, "long_context_32k": long_context,
+                      "bert_ner": bert_ner, "knrm": knrm,
+                      "ncf": ncf, "wide_deep": wide_deep,
                       "fault_l": fault_l,
                       "captured_bert": captured_bert,
                       "reliability": reliability, "card": card}))

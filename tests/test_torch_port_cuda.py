@@ -1710,3 +1710,168 @@ def test_static_int8_head_forward_launches_q8_on_every_layer(cuda):
         assert KERNEL_INT8_STATIC.launches == before + 3
         np.testing.assert_allclose(got, ref.predict(x[:m]), rtol=1e-6,
                                    atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# slice 18: the 32k shape, remat on the card, RReLU under capture
+# ---------------------------------------------------------------------------
+
+#: the 32k LM's attention shape (bench.py:424-425: batch 1, 8 heads of
+#: 64, T = 32768, causal); the plain versions form the (T, T) f32 score
+#: matrix, so they run on a cut: the last rows (which see the most keys)
+#: against every key for out, lse and dq, one head at full length for dk
+#: and dv
+LC_SHAPE = (1, 8, 32768, 64)
+LC_ROWS = 1024
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_32k_match_plain_versions_on_a_cut(cuda):
+    from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
+        bwd_dkv, bwd_dkv_reference, bwd_dq, bwd_dq_reference)
+    g = torch.Generator().manual_seed(32)
+    q, k, v, do = (torch.randn(*LC_SHAPE, generator=g).to("cuda",
+                                                          torch.bfloat16)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bwd_dq(q, k, v, None, lse, delta, do, True)
+    dk, dv = bwd_dkv(q, k, v, None, lse, delta, do, True)
+    rows = slice(LC_SHAPE[2] - LC_ROWS, LC_SHAPE[2])
+    ref, ref_lse = flash_attention_reference(q[:, :, rows], k, v, None,
+                                             True, want_lse=True)
+    # |out| is about sqrt(e / T) here, so out is held relative to the
+    # reference's largest value, as dq, dk and dv are
+    top = ref.float().abs().max().item()
+    assert (out[:, :, rows].float() - ref.float()).abs().max() <= 2e-2 * top
+    np.testing.assert_allclose(lse[:, :, rows].cpu().numpy(),
+                               ref_lse.cpu().numpy(), atol=1e-3, rtol=0)
+    want = bwd_dq_reference(q[:, :, rows], k, v, None, lse[:, :, rows],
+                            delta[:, :, rows], do[:, :, rows], True)
+    top = want.float().abs().max().item()
+    assert (dq[:, :, rows].float() - want.float()).abs().max() <= 2e-2 * top
+    del ref, want
+    h = slice(7, 8)
+    wk, wv = bwd_dkv_reference(q[:, h], k[:, h], v[:, h], None, lse[:, h],
+                               delta[:, h], do[:, h], True)
+    for got, want in ((dk[:, h], wk), (dv[:, h], wv)):
+        top = want.float().abs().max().item()
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max() <= 2e-2 * top
+
+
+def _remat_lm(conf, remat):
+    """A small causal LM (2 blocks, hidden 64, seq 64, dropout 0.1 on the
+    embeddings and hidden states) on the card through its kernels, under
+    ``zoo.train.remat = remat``, compiled; with its data ``(x, y)``."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Dense, TransformerLayer)
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 3, "zoo.pallas.attention": True,
+                           "zoo.pallas.cross_entropy": True,
+                           "zoo.train.fused_ce": True,
+                           "zoo.train.remat": remat, **conf})
+    reset_uids()
+    net = Sequential([TransformerLayer(vocab=256, seq_len=64, n_block=2,
+                                       hidden_size=64, n_head=2,
+                                       hidden_drop=0.1, embedding_drop=0.1,
+                                       attn_drop=0.0, bidirectional=False,
+                                       input_shape=(64,)),
+                      Dense(256)], device="cuda").init_weights(
+                          torch.Generator().manual_seed(0))
+    net.compile(optimizer="adam", loss="scce_with_logits", lr=1e-3)
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 256, (32, 64)).astype(np.int32)
+    return net, x, ((7 * x + 13) % 256).astype(np.int32)
+
+
+def _remat_lm_fit(conf, remat):
+    """:func:`_remat_lm` fitted 2 epochs: step losses, parameters, K2/K4
+    launches."""
+    from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
+        KERNEL_CE_FWD
+    net, x, y = _remat_lm(conf, remat)
+    k2, k4 = KERNEL.launches, KERNEL_CE_FWD.launches
+    net.fit(x, y, batch_size=8, nb_epoch=2, shuffle=False)
+    torch.cuda.synchronize()
+    return (np.concatenate(net._loop.step_losses),
+            [p.detach().clone() for p in net.parameters()],
+            (KERNEL.launches - k2, KERNEL_CE_FWD.launches - k4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", [{}, {"zoo.train.scan_steps": 4}],
+                         ids=["eager", "captured"])
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_on_the_card_gives_the_unremated_fits_bits(cuda, conf, remat):
+    """Dropout on: the remat'd fit's step losses and parameters are the
+    fit without remat's bits, in eager steps and in steps captured 4 a
+    graph (the recompute redraws the forward's masks from the twin of
+    each step's generator), with K2 and K4 launched twice a block (head)
+    a step; the masks are live (dropout 0 gives other losses)."""
+    off = _remat_lm_fit(conf, False)
+    on = _remat_lm_fit(conf, remat)
+    np.testing.assert_array_equal(on[0], off[0])
+    assert all(torch.equal(p, q) for p, q in zip(on[1], off[1]))
+    # a captured fit also runs one warm-up step before its first capture
+    steps = 2 * 32 // 8 + (1 if conf else 0)
+    assert off[2] == (2 * steps, steps)
+    assert on[2] == (2 * 2 * steps, 2 * steps)
+    assert len(set(on[0].tolist())) == len(on[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, "dots", "full"])
+def test_remat_step_leaves_nothing_on_the_card(cuda, remat):
+    """With dropout on, the memory allocated after each forward and
+    backward (``TrainingLoop._grads``, where remat applies) whose loss and
+    gradients are dropped is the same from step to step: no recompute
+    cache, stashed generator state or saved tensor outlives its step. The
+    first step may leave the libraries' workspaces behind."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+        _to_device
+    net, x, y = _remat_lm({}, remat)
+    loop, dev = net._loop, torch.device("cuda")
+    xb, yb = _to_device(x[:8], dev), _to_device(y[:8], dev)
+    params = loop._params()
+    after = []
+    for i in range(4):
+        loss, grads = loop._grads(xb, yb, loop._noise(3, i, dev), params)
+        assert torch.isfinite(loss)
+        del loss, grads
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[1:] == after[:1] * 3, after
+
+
+@pytest.mark.cuda
+def test_rrelu_draws_its_slopes_on_the_device_under_capture(cuda):
+    """RReLU in a Sequential fitted 4 steps a captured graph: the slopes
+    come from each step's device generator (the captured fit's step
+    losses are the eager fit's bits), every step draws new ones (8
+    distinct losses at lr 0 on one repeated row) and no CPU generator is
+    split."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (Dense,
+                                                                   RReLU)
+
+    def fit(conf):
+        reset_zoo_context()
+        init_zoo_context(conf={"zoo.seed": 3, **conf})
+        reset_uids()
+        net = Sequential([Dense(64, input_shape=(8,)), RReLU(),
+                          Dense(3, activation="softmax")],
+                         device="cuda").init_weights(
+                             torch.Generator().manual_seed(0))
+        net.compile(optimizer="sgd", loss="scce", lr=0.0)
+        x = np.repeat(np.linspace(-1, 1, 8, dtype=np.float32)[None], 64, 0)
+        net.fit(x, np.ones(64, np.int32), batch_size=16, nb_epoch=2,
+                shuffle=False)
+        torch.cuda.synchronize()
+        return np.concatenate(net._loop.step_losses)
+    keyed = fit({"zoo.train.scan_steps": 4})
+    assert len(set(keyed.tolist())) == len(keyed) == 8
+    np.testing.assert_array_equal(keyed, fit({}))
