@@ -6,14 +6,14 @@ the forward pass to it; ``register_model`` names the zoo's classes.
 ``save(path)`` writes the JAX package's one-file ``.npz``: a
 ``__zoo_header__`` JSON (class, config, extra, n_params, n_state) and the
 weights as ``p_i`` in the JAX ``tree_flatten`` order of the param tree
-(sorted keys, depth first), then the constant model state (a frozen
-``WordEmbedding`` table, :meth:`Layer.add_state`) as ``s_i`` in the
-order of the JAX ``net_state`` tree. Constructor arrays
+(sorted keys, depth first), then the model state (a frozen
+``WordEmbedding`` table, BatchNorm's statistics; :meth:`Layer.add_state`)
+as ``s_i`` in the order of the JAX ``net_state`` tree. Constructor arrays
 (:meth:`ZooModel.extra_arrays`) ride as ``x_<kwarg>``, or as a reference
 to a saved leaf with the same bits. :func:`load_model` rebuilds the
 registered class from the header and installs the weights and the state.
-A file written by either package loads into the other. (The state that
-BatchNorm updates in the step waits for BatchNorm's port.)
+A file written by either package loads into the other; the model state
+includes what the training step writes (BatchNorm's moving statistics).
 """
 
 from __future__ import annotations
@@ -173,6 +173,7 @@ def _populate_registry() -> None:
     import importlib
     for mod in ("analytics_zoo_tpu_torch.models.recommendation",
                 "analytics_zoo_tpu_torch.models.textmatching",
+                "analytics_zoo_tpu_torch.models.image",
                 "analytics_zoo_tpu_torch.tfpark.bert_classifier",
                 "analytics_zoo_tpu_torch.tfpark.bert_ner"):
         try:

@@ -1,0 +1,7 @@
+"""Vision model zoo — port of ``analytics_zoo_tpu/models/image`` (image
+classification; object detection is not ported yet)."""
+
+from .common.image_model import ImageModel
+from .imageclassification.image_classifier import ImageClassifier, inception_v1
+
+__all__ = ["ImageModel", "ImageClassifier", "inception_v1"]

@@ -55,6 +55,15 @@ padded ``torch._int_mm``), which ``quantized_call`` keeps for more than 32
 rows. ``x_scale`` stays on the device: the kernel reads it there, so a
 captured graph bakes no host value. :data:`KERNEL_INT8_STATIC` counts Q8's
 launches.
+
+:func:`static_int8_conv2d` (kernel C8, ``csrc/conv_int8.cu``, its own
+library :data:`LIBRARY_CONV`) is the conv counterpart of Q8: the static
+int8 ``Convolution2D`` forward (the JAX ``quantized_call``, whose int8
+conv the JAX package leaves to XLA) as one implicit-GEMM kernel with the
+quantize on load and the same epilogue. PyTorch has no int8 conv on CUDA;
+its only library route, im2col and the padded ``_int_mm``, writes each
+activation ``kh · kw`` times. :func:`static_int8_conv2d_reference` is its
+plain version; :data:`KERNEL_INT8_CONV` counts its launches.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from .cross_entropy import _raise_on
 from .flash_attention import _LaunchCount
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "int8_product",
+           "static_int8_conv2d", "static_int8_conv2d_reference",
            "static_int8_dense", "static_int8_dense_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -249,6 +259,13 @@ def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return y[:m, :n].reshape(*lead, n)
 
 
+def quantize_static(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
+    """``x`` quantized to ``x_scale`` as the static path does: an f32
+    division, round half to even, clipped to +-127, as int8."""
+    return torch.clamp(torch.round(x.float() / x_scale), -127, 127
+                       ).to(torch.int8)
+
+
 def static_int8_dense_reference(x: torch.Tensor, x_scale: torch.Tensor,
                                 w_q: torch.Tensor, w_scale: torch.Tensor,
                                 bias: Optional[torch.Tensor] = None,
@@ -258,9 +275,8 @@ def static_int8_dense_reference(x: torch.Tensor, x_scale: torch.Tensor,
     division, round half to even, clip to +-127), the int8 x int8 product
     is exact in int32 (:func:`int8_product`), one f32 rescale by ``x_scale
     * w_scale`` restores float, then the f32 ``bias`` and ``relu``."""
-    xq = torch.clamp(torch.round(x.float() / x_scale), -127, 127
-                     ).to(torch.int8)
-    y = int8_product(xq, w_q).float() * (x_scale * w_scale)
+    y = int8_product(quantize_static(x, x_scale), w_q).float() * (
+        x_scale * w_scale)
     if bias is not None:
         y = y + bias
     if relu:
@@ -344,3 +360,142 @@ def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
     KERNEL_INT8_STATIC.launches += 1
     LAST_STATIC_LAUNCH.route, LAST_STATIC_LAUNCH.splits = "q8", splits.value
     return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# C8: the static int8 conv layer
+# ---------------------------------------------------------------------------
+
+def _bind_conv(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.int8_static_conv2d.argtypes = ([p, p, p, p, p, i, p, p, ll]
+                                       + [i] * 15
+                                       + [ctypes.POINTER(i), p])
+    lib.int8_static_conv2d.restype = ctypes.c_int
+    lib.int8_static_conv2d_plan.argtypes = [ll, i, i, i, ctypes.POINTER(ll)]
+    lib.int8_static_conv2d_plan.restype = ctypes.c_int
+
+
+LIBRARY_CONV = CudaLibrary("conv_int8", ["conv_int8.cu"], _bind_conv)
+KERNEL_INT8_CONV = _LaunchCount()     # C8
+#: C8's latest launch: route "c8" and the K splits it ran
+LAST_CONV_LAUNCH = _Launched()
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_plan(m: int, f: int, k: int, index: int) -> int:
+    """The int32 workspace C8's K split needs for an ``(m, f, k)`` conv on
+    CUDA device ``index`` (0 without a split), from the C side, which owns
+    the split."""
+    ints = ctypes.c_longlong(0)
+    if LIBRARY_CONV.entry("int8_static_conv2d_plan")(
+            m, f, k, index, ctypes.byref(ints)) < 0:
+        raise RuntimeError(f"static_int8_conv2d: no plan for M={m} on CUDA "
+                           f"device {index}")
+    return ints.value
+
+
+def _conv_geometry(x_shape, w_shape, strides, dilation, pads):
+    """``(Ho, Wo)`` of the conv of ``x (B, H, W, C)`` with ``w (kh, kw, C,
+    F)``."""
+    (_, h, w, _), (kh, kw) = x_shape, w_shape[:2]
+    (sh, sw), (dh, dw) = strides, dilation
+    (lh, hh), (lw, hw) = pads
+    return ((h + lh + hh - (kh - 1) * dh - 1) // sh + 1,
+            (w + lw + hw - (kw - 1) * dw - 1) // sw + 1)
+
+
+def _check_conv(x, x_scale, w_q, w_scale, bias) -> None:
+    if (x.dim() != 4 or w_q.dim() != 4 or x.shape[3] != w_q.shape[2]
+            or x_scale.numel() != 1 or tuple(w_scale.shape) != (w_q.shape[3],)
+            or (bias is not None and tuple(bias.shape) != (w_q.shape[3],))):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)} (NHWC), x_scale "
+            f"{tuple(x_scale.shape)}, w_q {tuple(w_q.shape)} (HWIO), "
+            f"w_scale {tuple(w_scale.shape)}, bias "
+            f"{None if bias is None else tuple(bias.shape)}")
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"static_int8_conv2d takes int8 w_q; got "
+                        f"{w_q.dtype}")
+    if not x.is_floating_point():
+        raise TypeError(f"static_int8_conv2d takes a float x; got "
+                        f"{x.dtype}")
+    if any(t.device != x.device for t in (x_scale, w_q, w_scale)) or (
+            bias is not None and bias.device != x.device):
+        raise ValueError("static_int8_conv2d operands lie on different "
+                         "devices")
+
+
+def static_int8_conv2d_reference(x, x_scale, w_q, w_scale, bias=None,
+                                 relu=False, strides=(1, 1),
+                                 dilation=(1, 1),
+                                 pads=((0, 0), (0, 0))) -> torch.Tensor:
+    """Plain version of C8, the JAX ``Convolution2D.quantized_call``'s
+    order: ``x (B, H, W, C)`` quantized to ``x_scale``, zero-padded by
+    ``pads`` ``((lo, hi), (lo, hi))`` (zeros are exact after quantizing),
+    the int8 conv with ``w_q (kh, kw, C, F)`` exact (``F.conv2d`` in
+    float64 on the int8 values: every partial sum is an integer below
+    127² · K < 2⁵³), then ``float(acc) * (x_scale * w_scale)``, the f32
+    ``bias`` and ``relu`` → ``(B, Ho, Wo, F)`` f32."""
+    (lh, hh), (lw, hw) = pads
+    xq = F.pad(quantize_static(x, x_scale), (0, 0, lw, hw, lh, hh))
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   w_q.permute(3, 2, 0, 1).double(), stride=tuple(strides),
+                   dilation=tuple(dilation))
+    y = (acc.permute(0, 2, 3, 1).to(torch.int32).float()
+         * (x_scale.float() * w_scale.float()))
+    if bias is not None:
+        y = y + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def static_int8_conv2d(x: torch.Tensor, x_scale: torch.Tensor,
+                       w_q: torch.Tensor, w_scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None,
+                       relu: bool = False, strides=(1, 1), dilation=(1, 1),
+                       pads=((0, 0), (0, 0))) -> torch.Tensor:
+    """C8: the static int8 ``Convolution2D`` forward as an implicit GEMM
+    (``csrc/conv_int8.cu``): ``x (B, H, W, C)`` quantized on load, any
+    stride, dilation and ``(lo, hi)`` zero padding, the int8 x int8
+    products exact in int32 on ``mma.sync`` s8 tiles (K split over blocks
+    into an int32 workspace where the output tiles cannot fill the card),
+    and the f32 epilogue (rescale, bias, ReLU) per output channel → ``(B,
+    Ho, Wo, F)`` f32, bit for bit :func:`static_int8_conv2d_reference`.
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    _check_conv(x, x_scale, w_q, w_scale, bias)
+    if not x.is_cuda:
+        return static_int8_conv2d_reference(x, x_scale, w_q, w_scale, bias,
+                                            relu, strides, dilation, pads)
+    (b, h, w, c), (kh, kw, _, f) = x.shape, w_q.shape
+    ho, wo = _conv_geometry(x.shape, w_q.shape, strides, dilation, pads)
+    if ho < 1 or wo < 1 or min(*strides, *dilation) < 1 or min(
+            p for pair in pads for p in pair) < 0:
+        raise ValueError(f"static_int8_conv2d: no output for x "
+                         f"{tuple(x.shape)}, w {tuple(w_q.shape)}, strides "
+                         f"{strides}, dilation {dilation}, pads {pads}")
+    if b * ho * wo >= 2 ** 31 or b * h * w * c >= 2 ** 31:
+        raise ValueError("static_int8_conv2d: more than 2**31 elements")
+    out = torch.empty(b, ho, wo, f, dtype=torch.float32, device=x.device)
+    x = x.float().contiguous()
+    xs = x_scale.reshape(1).float().contiguous()
+    w_q = w_q.contiguous()
+    s = w_scale.float().contiguous()
+    bb = None if bias is None else bias.float().contiguous()
+    (sh, sw), (dh, dw), ((lh, _), (lw, _)) = strides, dilation, pads
+    ints = _conv_plan(b * ho * wo, f, kh * kw * c, x.get_device())
+    ws = (torch.empty(ints, dtype=torch.int32, device=x.device)
+          if ints else None)
+    splits = ctypes.c_int(0)
+    err = launch(LIBRARY_CONV.entry("int8_static_conv2d"), x, x.data_ptr(),
+                 xs.data_ptr(), w_q.data_ptr(), s.data_ptr(),
+                 None if bb is None else bb.data_ptr(), int(relu),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 ints, b, h, w, c, kh, kw, f, ho, wo, sh, sw, dh, dw, lh, lw,
+                 ctypes.byref(splits))
+    _raise_on(err, "static_int8_conv2d")
+    KERNEL_INT8_CONV.launches += 1
+    LAST_CONV_LAUNCH.route, LAST_CONV_LAUNCH.splits = "c8", splits.value
+    return out

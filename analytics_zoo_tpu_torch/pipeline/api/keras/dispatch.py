@@ -119,16 +119,22 @@ class HostChunks:
         return _batch([b[j] for b in self.xs], self.y[j])
 
 
+def _on(a, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``: a tensor already there is used as it is."""
+    return (a if isinstance(a, torch.Tensor) else _tensor(a)).to(device)
+
+
 class DeviceData:
-    """A FeatureSet's arrays on the device, uploaded once, and the ``(K,
+    """A FeatureSet's arrays on the device, uploaded once (arrays that are
+    tensors on the device already stay where they are), and the ``(K,
     batch)`` row indices of the steps of one dispatch; each step gathers
     its batch on the device."""
 
     def __init__(self, xs: List[np.ndarray], y: np.ndarray, k: int,
                  batch_size: int, device: torch.device):
         self.device = device
-        self.xs = [_tensor(a).to(device) for a in xs]
-        self.y = _tensor(y).to(device)
+        self.xs = [_on(a, device) for a in xs]
+        self.y = _on(y, device)
         self.idx = torch.zeros(k, batch_size, dtype=torch.int64,
                                device=device)
 
@@ -342,10 +348,12 @@ class StepProgram:
 
     def _warm_up(self) -> None:
         """One step on the capture stream before the first capture, as
-        PyTorch's whole-network capture asks (libraries, workspaces and
-        lazy allocations set up outside the graph); its update of the
-        parameters and the optimizer state is undone."""
-        state = list(self.params.values()) + _leaves(self.opt_state)
+        PyTorch's whole-network capture asks (libraries, workspaces, cuDNN's
+        algorithm choice and lazy allocations set up outside the graph);
+        its update of the parameters, the optimizer state and the model
+        state the step writes is undone."""
+        state = (list(self.params.values()) + _leaves(self.opt_state)
+                 + self.loop._written_state())
         if self.guard is not None:
             state += self.guard.tensors()
         with torch.no_grad():

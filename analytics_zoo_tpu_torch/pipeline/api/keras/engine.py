@@ -20,16 +20,24 @@ operators (``+ - * / **``, unary ``-``, slicing, ``index_select``,
 ``torch.device("meta")`` (:func:`probe_output_shape`, the counterpart of
 ``jax.eval_shape``): nothing is computed.
 
-Constant model state (the JAX package's ``net_state`` tree, e.g. a frozen
-``WordEmbedding`` table) is kept as buffers registered with
-:meth:`Layer.add_state` under the JAX state tree's keys
-(:func:`named_state`); the optimizer never sees them.
+Model state (the JAX package's ``net_state`` tree) is kept as buffers
+registered with :meth:`Layer.add_state` under the JAX state tree's keys
+(:func:`named_state`); the optimizer never sees them. Some of it is
+constant (a frozen ``WordEmbedding`` table); some the training step writes
+(BatchNorm's moving statistics, ``add_state(..., written=True)``). A
+training forward never writes such a buffer itself: it hands the new value
+to :func:`emit_state`, and the step that ran it (:func:`collect_state`)
+commits what was handed once, after its update (:func:`commit_state`), as
+the JAX step takes ``new_state`` from ``apply``. Outside a collecting step
+(a plain call, the recompute of ``zoo.train.remat``) the values are
+dropped.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import contextvars
 import math
 import operator
@@ -267,6 +275,67 @@ def dispatch_layer(layer: "Layer", x, *, training: bool = False,
 
 
 # --------------------------------------------------------------------------
+# state the training step writes
+# --------------------------------------------------------------------------
+
+_STATE_SINK = contextvars.ContextVar("zoo_state_sink", default=None)
+
+
+@contextlib.contextmanager
+def collect_state():
+    """Scope over a training step's forward: every :func:`emit_state`
+    inside it lands in the yielded dict (``{id(buffer): (buffer,
+    value)}``; a layer called twice keeps its last value, as the JAX
+    containers keep a shared layer's last ``new_state``), which the step
+    hands to :func:`commit_state` after its update."""
+    sink: Dict[int, tuple] = {}
+    token = _STATE_SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _STATE_SINK.reset(token)
+
+
+@contextlib.contextmanager
+def discard_state():
+    """Scope whose :func:`emit_state` calls are dropped: the recompute of
+    a rematerialised forward, which must not write the state twice."""
+    token = _STATE_SINK.set(None)
+    try:
+        yield
+    finally:
+        _STATE_SINK.reset(token)
+
+
+def emit_state(layer: "Layer", key: str, value: torch.Tensor) -> None:
+    """A training forward's new value of ``layer``'s written state
+    ``key``, handed to the collecting step (dropped outside one)."""
+    sink = _STATE_SINK.get()
+    if sink is not None:
+        buf = getattr(layer, key)
+        sink[id(buf)] = (buf, value.detach())
+
+
+def commit_state(sink: Optional[Dict[int, tuple]]) -> None:
+    """Write each collected value into its buffer, in place (a captured
+    step keeps reading the same buffers)."""
+    if sink:
+        bufs, values = zip(*sink.values())
+        with torch.no_grad():
+            torch._foreach_copy_(list(bufs), list(values))
+
+
+def written_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s state that the training step writes, by dotted
+    path."""
+    out: Dict[str, torch.Tensor] = {}
+    for prefix, m in module.named_modules():
+        for key in getattr(m, "_written_keys", ()):
+            out[f"{prefix}.{key}" if prefix else key] = getattr(m, key)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Layer base
 # --------------------------------------------------------------------------
 
@@ -303,17 +372,24 @@ class Layer(nn.Module):
         """Register ``value`` as parameter ``key`` (the JAX tree key)."""
         self.register_parameter(key, nn.Parameter(value))
 
-    #: the buffers that are constant model state (:meth:`add_state`)
+    #: the buffers that are model state (:meth:`add_state`), and those of
+    #: them that the training step writes
     _state_keys: tuple = ()
+    _written_keys: tuple = ()
 
-    def add_state(self, key: str, value: torch.Tensor) -> None:
-        """Register ``value`` as constant model state ``key`` (the JAX
+    def add_state(self, key: str, value: torch.Tensor,
+                  written: bool = False) -> None:
+        """Register ``value`` as model state ``key`` (the JAX
         ``net_state`` tree's key): a buffer, moved with the module and
         written to checkpoints and ``.npz`` files, never given to the
-        optimizer."""
+        optimizer. ``written``: the training step writes it (the layer's
+        training forward hands the new value to :func:`emit_state`);
+        else it is constant."""
         self.register_buffer(key, value)
         if key not in self._state_keys:
             self._state_keys = self._state_keys + (key,)
+        if written and key not in self._written_keys:
+            self._written_keys = self._written_keys + (key,)
 
     def call(self, x, *, training: bool = False,
              generator: Optional[torch.Generator] = None):
@@ -548,8 +624,8 @@ class KerasNet(Layer):
     TrainingLoop`` with the JAX package's argument conventions
     (``training.py:2197-2330``). ``apply`` returns the output alone: the
     JAX package threads a ``state`` tree beside it, which the port keeps
-    as buffers (:meth:`Layer.add_state`) while it is constant; the state
-    BatchNorm updates in the step is not ported yet."""
+    as buffers (:meth:`Layer.add_state`); the new state of a training
+    forward goes to the step that collects it (:func:`collect_state`)."""
 
     #: training progress and optimizer state, kept across fit calls
     opt_state = None
@@ -579,7 +655,7 @@ class KerasNet(Layer):
                         state: Optional[Dict[str, Any]] = None
                         ) -> "KerasNet":
         """Fill the weights from the JAX network's param tree (nested dicts
-        of arrays) name for name, and the constant state from its
+        of arrays) name for name, and the model state from its
         ``net_state`` tree when given; builds first if needed."""
         if not self.built:
             self.init_weights()
@@ -833,6 +909,30 @@ class Model(KerasNet):
     def build(self, input_shape=None, *, generator: torch.Generator):
         self._propagate(input_shape, generator)
 
+    def __deepcopy__(self, memo):
+        """A deep copy with the graph's nodes copied parents first, so that
+        no node's copy recurses into its parents' (the default recursion
+        follows the chain of parents and runs out of stack on a deep
+        graph, ResNet-50's 175 nodes)."""
+        for node in self._topo:
+            copy.deepcopy(node, memo)
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__dict__.update(copy.deepcopy(self.__getstate__(), memo))
+        return new
+
+    def new_graph(self, outputs: Sequence[str]) -> "Model":
+        """Sub-graph surgery (``GraphNet.newGraph``, ``NetUtils.scala``;
+        JAX ``engine.py:634-639``): a ``Model`` from this one's inputs to
+        the nodes named ``outputs``, on the same layers, so it shares
+        their weights and state; built when this one is."""
+        by_name = {n.name: n for n in self._topo}
+        outs = [Variable(by_name[o]) for o in outputs]
+        sub = Model(self.inputs, outs if len(outs) > 1 else outs[0],
+                    device=self.device)
+        sub.built = self.built
+        return sub
+
     def call(self, x, *, training=False, generator=None):
         if not self.built:
             raise RuntimeError("no weights; call init_weights() first")
@@ -867,8 +967,8 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def named_state(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """``module``'s constant model state (:meth:`Layer.add_state`) by
-    dotted path — the JAX ``net_state`` tree's paths."""
+    """``module``'s model state (:meth:`Layer.add_state`), constant and
+    written, by dotted path — the JAX ``net_state`` tree's paths."""
     out: Dict[str, torch.Tensor] = {}
     for prefix, m in module.named_modules():
         for key in getattr(m, "_state_keys", ()):
@@ -905,7 +1005,7 @@ def _load_tree(want: Dict[str, torch.Tensor], tree: Dict[str, Any],
 def load_param_tree(module: nn.Module, tree: Dict[str, Any],
                     state: Optional[Dict[str, Any]] = None) -> None:
     """Fill ``module``'s parameters from a nested dict of arrays keyed as
-    the JAX param tree, and, when ``state`` is given, its constant state
+    the JAX param tree, and, when ``state`` is given, its model state
     from the JAX ``net_state`` tree. Every key must match a tensor of the
     same shape; a missing or an extra key raises."""
     _load_tree(dict(module.named_parameters()), tree, "param")

@@ -128,7 +128,8 @@ from ....utils.checkpoint import (MESH_ONE_DEVICE,
                                   CheckpointArchitectureError,
                                   CheckpointManager)
 from . import dispatch, objectives
-from .engine import load_param_tree, named_state
+from .engine import (collect_state, commit_state, discard_state,
+                     load_param_tree, named_state, written_state)
 from .metrics import Metric
 from .optimizers import (GradientTransformation, apply_updates,
                          load_optax_leaves, optax_leaves, scalar_rows)
@@ -295,7 +296,9 @@ def remat(fn: Callable, mode: str) -> Callable:
             if forward:
                 forward = False
                 return fn(x, y, generator)
-            with noise.redraw(generator, stashed):      # the recompute
+            # the recompute: the forward's noise again, its new state
+            # dropped (the first run handed it to the step)
+            with noise.redraw(generator, stashed), discard_state():
                 return fn(x, y, generator)
 
         return checkpoint(body, x, y, use_reentrant=False,
@@ -724,7 +727,16 @@ class TrainingLoop:
         return self.remat_mode
 
     def _grads(self, x, y, generator, params):
-        """Forward, loss and backward: ``(loss, {name: grad})``. Under
+        """Forward, loss and backward: ``(loss, {name: grad})``; the
+        forward's new model state is dropped (:meth:`_step_grads` keeps
+        it)."""
+        return self._step_grads(x, y, generator, params)[:2]
+
+    def _step_grads(self, x, y, generator, params):
+        """Forward, loss and backward: ``(loss, {name: grad}, new
+        state)``, the new state being what the forward handed over for the
+        state the step writes (``engine.collect_state``; BatchNorm's
+        moving statistics), for the step to commit after its update. Under
         ``zoo.train.remat`` the forward and loss run through :func:`remat`;
         off, the step is the historical one, op for op."""
         for p in params.values():
@@ -732,13 +744,14 @@ class TrainingLoop:
         apply_loss, mode = self._loss_application(), self._resolve_remat()
         if mode is not None:
             apply_loss = remat(apply_loss, mode)
-        loss = apply_loss(x, y, generator)
+        with collect_state() as new_state:
+            loss = apply_loss(x, y, generator)
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        return loss.detach(), grads
+        return loss.detach(), grads, new_state
 
     def train_step(self, x, y, generator: Optional[torch.Generator],
                    params: Dict[str, torch.Tensor], opt_state,
@@ -746,12 +759,15 @@ class TrainingLoop:
         """Forward, loss, backward, optimizer update (the JAX plain step):
         the step every dispatch path runs with the sentinel off and no
         clipping. ``opt_state`` is the optimizer's state, ``scalars`` the
-        step's row of its per-step values. Returns the loss as a device
+        step's row of its per-step values. The forward's new model state
+        is committed after the update, once. Returns the loss as a device
         scalar; nothing syncs."""
-        loss, grads = self._grads(x, y, generator, params)
+        loss, grads, new_state = self._step_grads(x, y, generator,
+                                                   params)
         updates, _ = self.optimizer.update(grads, opt_state, params,
                                            scalars)
         apply_updates(params, updates)
+        commit_state(new_state)
         return loss
 
     def guarded_step(self, x, y, generator: Optional[torch.Generator],
@@ -762,13 +778,15 @@ class TrainingLoop:
         the ``train.grads`` poison (``fault``, ``[code, scale]``, when the
         loop's sentinel takes faults), the global gradient norm, the
         sentinel's flag word and EWMA update, the global-norm clip, and in
-        ``recover`` mode the discard of an anomalous step's update. The
-        step's per-step values are row ``count - base`` of ``table`` (the
-        guard's device count). Returns ``(loss, flags)``, device scalars;
-        nothing syncs."""
+        ``recover`` mode the discard of an anomalous step's update and of
+        its new model state (the JAX step keeps the pre-step ``net_state``).
+        The step's per-step values are row ``count - base`` of ``table``
+        (the guard's device count). Returns ``(loss, flags)``, device
+        scalars; nothing syncs."""
         guard = self._guard
         cfg = guard.cfg
-        loss, grads = self._grads(x, y, generator, params)
+        loss, grads, new_state = self._step_grads(x, y, generator,
+                                                   params)
         gl = list(grads.values())
         if cfg.faults:
             loss = anomaly.inject_grads(loss, gl, fault[0], fault[1])
@@ -789,11 +807,13 @@ class TrainingLoop:
         with torch.no_grad():
             if recover:
                 state = (list(params.values())
-                         + dispatch._leaves(opt_state))
+                         + dispatch._leaves(opt_state)
+                         + self._written_state())
                 guard.keep(state)
             updates, _ = self.optimizer.update(grads, opt_state, params,
                                                row)
             apply_updates(params, updates)
+            commit_state(new_state)
             if recover:
                 bad = (flags & anomaly.ANOMALY_MASK) > 0
                 guard.commit(state, bad)
@@ -860,7 +880,7 @@ class TrainingLoop:
         """``(trees, meta)`` of a snapshot in the JAX format: the param tree
         (nested dicts), the optimizer state as optax's leaves (the port's
         own order, said so in ``meta``, when it has no optax layout) and
-        the net state tree of the constant model state (``state``, dotted
+        the net state tree of the model state (``state``, dotted
         paths)."""
         names = list(self._params())
         opt_leaves = optax_leaves(self.optimizer, opt_state, count, names)
@@ -873,7 +893,7 @@ class TrainingLoop:
                  "net_state": _param_tree(state)}, meta)
 
     def _tree_state(self) -> Dict[str, torch.Tensor]:
-        """The constant model state under its JAX net-state path."""
+        """The model state (constant and written) under its JAX net-state path."""
         return named_state(tree_module(self.model))
 
     def _save_checkpoint(self, mgr: CheckpointManager, loop_state, params,
@@ -952,8 +972,14 @@ class TrainingLoop:
                  meta.get("epoch"))
         return meta
 
+    def _written_state(self) -> List[torch.Tensor]:
+        """The model state the step writes (BatchNorm's moving
+        statistics), in a fixed order."""
+        return list(written_state(tree_module(self.model)).values())
+
     def _state_tensors(self, params, opt) -> List[torch.Tensor]:
-        return list(params.values()) + dispatch._leaves(opt["state"])
+        return (list(params.values()) + dispatch._leaves(opt["state"])
+                + self._written_state())
 
     def _publish(self, params, opt, fresh: bool = False) -> None:
         """Keep a device copy of the live state as the model's published
@@ -1627,9 +1653,15 @@ class TrainingLoop:
         key = (id(fs), len(fs), k_max, batch_size, str(device))
         if self._data is None or self._data[0] != key:
             self._data = self._program = None
+            arrays = fs.xs + ([fs.y] if fs.y is not None else [])
+            on_device = all(isinstance(a, torch.Tensor)
+                            and a.device == device for a in arrays)
+            # a set of tensors on the device stays there (the JAX loop
+            # relayouts device arrays on the device); else one upload
+            xs, y = (fs.xs, fs.y) if on_device else fs._host_view()
             # holding ``fs`` keeps its id from naming another set
             self._data = (key, fs, dispatch.DeviceData(
-                *fs._host_view(), k_max, batch_size, device))
+                xs, y, k_max, batch_size, device))
         return self._data[2]
 
     def _cached_dispatches(self, fs, epoch, seed, it0, batch_size, params,

@@ -28,10 +28,16 @@ Static int8 (``quantize="int8", calibrate=batch``): one eager forward
 records each quantizable layer's input range (``_calibrate``), the
 calibrated layers' weights become int8 with their activation scale
 (``_rewrite_quantized``), and predict routes those layers to
-``quantized_call``: up to 32 rows kernel Q8 (``ops/pallas/quantized.py``
-``static_int8_dense``: the quantize, the int8 x int8 -> int32 product,
-the rescale, bias and ReLU in one kernel), above that the same ops in
-torch with the product on ``torch._int_mm``.
+``quantized_call``. A ``Dense`` runs kernel Q8 up to 32 rows
+(``ops/pallas/quantized.py`` ``static_int8_dense``: the quantize, the int8
+x int8 -> int32 product, the rescale, bias and ReLU in one kernel), above
+that the same ops in torch with the product on ``torch._int_mm``; a
+``Convolution2D`` (and ``AtrousConvolution2D``, which keeps its ``call``)
+runs kernel C8 (``static_int8_conv2d``), the conv counterpart of Q8.
+
+Model state (BatchNorm's moving statistics) is not a parameter: it stays
+f32 in every mode and moves to the device as it is, as the JAX runtime
+keeps ``net_state`` apart from the params it casts or quantizes.
 
 The weights are put on the device once, at load, never per predict.
 """
@@ -51,7 +57,7 @@ from ...common.context import resolve_device
 from ...common.reliability import RetryPolicy
 from ...observability import default_registry
 from ..api.keras.engine import (KerasNet, as_list, as_torch_dtype,
-                                intercept_layer_calls)
+                                intercept_layer_calls, written_state)
 from ..api.keras.layers.core import Dense
 from ..api.keras.layers.self_attention import DenseParams
 
@@ -273,7 +279,12 @@ class InferenceModel:
                     model.device = self.device
                 model.to(device=self.device)
                 if self._dtype != torch.float32:
+                    kept = {n: t.clone()
+                            for n, t in written_state(model).items()}
                     model.to(dtype=self._dtype)
+                    for n, t in kept.items():   # the state stays f32
+                        mod, key = _owner(model, n)
+                        mod._buffers[key] = t
         elif quantize == "int8":
             if calibrate is not None:
                 self._act_scales = self._calibrate(model, calibrate)
@@ -310,7 +321,7 @@ class InferenceModel:
                 mod.register_buffer("w_scale", torch.from_numpy(s).to(device))
             else:
                 _set_param(mod, key, dequantize_int8(q, s, dtype).to(device))
-        return net
+        return net.to(device)     # the model state, as it is
 
     @staticmethod
     def _quantizable(layer) -> bool:
@@ -357,7 +368,7 @@ class InferenceModel:
             model.apply(xs if len(xs) > 1 else xs[0], training=False)
         if not records:
             raise ValueError("calibration found no quantizable layer "
-                             "(Dense) in the model")
+                             "(Dense/Convolution2D) in the model")
         return {name: (max(amax, 1e-8) / 127.0, shapes[name])
                 for name, amax in records.items()}
 
@@ -387,7 +398,10 @@ class InferenceModel:
                         {key.rpartition(".")[2]: v for key, v in sub.items()},
                         entry[0])
                     for key, v in e.items():
-                        t = torch.as_tensor(v).to(device)
+                        # contiguous: a conv kernel's float original is
+                        # O-major in memory, and C8 reads the HWIO order
+                        t = torch.as_tensor(np.ascontiguousarray(v)).to(
+                            device)
                         if key in ("W", "w_scale", "x_scale"):
                             child._parameters.pop(key, None)
                             child.register_buffer(key, t)
@@ -402,7 +416,7 @@ class InferenceModel:
             if path not in done:
                 mod, key = _owner(net, path)
                 _set_param(mod, key, p.detach().to(device))
-        return net
+        return net.to(device)     # the model state, as it is
 
     def _run(self, xs: List[np.ndarray]):
         """One chunk through the model; returns device outputs."""

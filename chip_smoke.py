@@ -338,6 +338,28 @@
    count held and the eager guarded run's bits, ``device_cache`` turned
    off with the warning, one compile counted a capture. (g) Goodput
    plus badput is each ledger's wall on (c) and (d).
+17. Image phases (slice 19; fp32, TF32 off). (a) C8, the static int8
+   conv: bits against its plain version (the exact float64 conv of the
+   int8 values) on the card, twice, and against the library route (im2col
+   and the padded ``_int_mm``) at every distinct conv of VGG-16's static
+   paths (batch 32 and 1 at 112 pixels), ResNet-50's and Inception-v1's
+   7x7/2 stems (XLA's (2, 3) pads) and a dilated ``AtrousConvolution2D``;
+   each timed beside its plain version, the library route, cuDNN's fp32
+   conv and its bound. (b) ``bench_int8_inference``: VGG-16 at 112
+   pixels, 8 classes, trained 3 epochs on 512 seeded prototype images,
+   served fp32 and static int8 at batch 32 (``image_infer_*_fps``,
+   ``int8_top1_agreement_pct`` gated at 97.0), 13 C8 and 3 Q8 launches a
+   predict, the batch-1 device ms of each path, AlexNet's held-out top-1
+   fp32 and int8 after 16 epochs. (c) ``bench_transfer_learning``:
+   Inception-v1's pooled features (``new_graph(["gap"])``) of 2048
+   images on the card, a ``Dense(2)`` head trained on them 2 epochs
+   (``transfer_learn_imgs_per_sec``, median of 3). (d) ResNet-50 serving
+   (``bench_serving`` and ``bench_serving_device``: 256 frames, batch
+   32; fp32, weight-only int8 with K6 on the head, both multiplexed).
+   (e) ResNet-50 training with BatchNorm (112 pixels, batch 32, 8 steps,
+   ``cudnn.deterministic``): eager and ``scan_steps`` 8 samples/s and
+   busy share, the captured fit's losses and moving statistics the eager
+   fit's bits, and a ``recover`` skip keeping the statistics' bits.
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -349,7 +371,8 @@ keys are off) stream every batch through ``prefetch_to_device``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
-path; Q8's from config A's static predicts, SA's also from the oocore
+path; Q8's from config A's and VGG-16's static predicts, C8's from
+VGG-16's, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
 32k shapes' fields; the attention kernels also checked against their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
@@ -1738,14 +1761,15 @@ def static_int8_kernel_phase():
 def static_int8_kernel_row(static_rows, launches):
     """Q8's row of the kernels line: at config A's batch-1 Dense(4096)
     layer, the main path's shape, with M = 32 and the Dense(8) layer
-    beside."""
+    beside; ``launches`` by path."""
     main = static_rows["1x4096x4096_bias_relu"]
     row = {"name": "static_int8_dense", "route": "cuda",
            "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
            "replaces": "analytics_zoo_tpu/pipeline/api/keras/layers/"
                        "core.py:106 (Dense.quantized_call; XLA "
                        "dot_general, no Pallas kernel)",
-           "launches": launches,
+           "launches": sum(launches.values()),
+           "launches_by_path": launches,
            "max_abs_err": max(r["max_abs_err"] for r in static_rows.values()),
            "ms": main["ms"], "plain_ms": main["plain_ms"],
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -6808,6 +6832,649 @@ def captured_guard_part(base_conf):
             "compiles": [off_c, empty_c, skip_c]}
 
 
+# ---------------------------------------------------------------------------
+# slice 19: C8, the image int8 cells, transfer learning, ResNet-50 serving
+# and training with BatchNorm
+# ---------------------------------------------------------------------------
+
+#: the JAX bench's image configurations (bench.py:568-796, 982-1228)
+IMG_HW = 112
+IMG_CLASSES, IMG_TRAIN, IMG_BATCH, IMG_REPS, IMG_WINDOWS = 8, 512, 32, 16, 4
+IMG_AGREE_FLOOR = 97.0          # int8_top1_agreement_pct (bench.py:1521)
+TRANSFER_N, TRANSFER_CHUNK = 2048, 512
+RESNET_CLASSES, RESNET_FRAMES, RESNET_BATCH = 1000, 256, 32
+RESNET_TRAIN_STEPS = 8
+#: C8's shapes: (name, batch, h, w, c, f, k, stride, dilation, bias,
+#: relu). Every distinct conv of VGG-16's two static paths (bias and
+#: ReLU, batch 32 and 1 at 112 pixels), ResNet-50's stem (no bias, its
+#: BatchNorm after), Inception-v1's stem (bias and ReLU), both 7x7/2 with
+#: XLA's (2, 3) pads, and a dilated AtrousConvolution2D
+VGG_CONVS = [(3, 64, 112), (64, 64, 112), (64, 128, 56), (128, 128, 56),
+             (128, 256, 28), (256, 256, 28), (256, 512, 14),
+             (512, 512, 14), (512, 512, 7)]
+C8_CASES = ([(f"vgg_b{b}_{c}x{f}_{hw}", b, hw, hw, c, f, 3, 1, 1, True,
+              True) for b in (32, 1) for c, f, hw in VGG_CONVS]
+            + [("resnet50_stem_b32", 32, 112, 112, 3, 64, 7, 2, 1, False,
+                False),
+               ("inception_v1_stem_b32", 32, 112, 112, 3, 64, 7, 2, 1, True,
+                True),
+               ("atrous_d2_b32_64x64_56", 32, 56, 56, 64, 64, 3, 1, 2, True,
+                True)])
+
+
+def c8_bound(m, k, n, x_elems, bias):
+    """C8's least time: x read once (f32), the int8 weights, w_scale (and
+    bias) read, the f32 output written once, against 2 M N K operations
+    at the int8 peak."""
+    t_bytes = (x_elems * 4 + 4 + k * n + n * 4 * (2 if bias else 1)
+               + m * n * 4) / PEAK_BYTES_PER_S
+    t_ops = 2.0 * m * n * k / PEAK_FLOPS["int8"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def im2col_int_mm(x, xs, w_q, w_scale, bias, relu, strides, dilation, pads):
+    """The library route of a static int8 conv, timed beside C8 (the port
+    never calls it): quantize, zero-pad, im2col (each activation written
+    kh * kw times), the padded ``torch._int_mm`` (``int8_product``), then
+    the f32 epilogue in the static path's order."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        int8_product, quantize_static)
+    (kh, kw, c, f), (sh, sw), (dh, dw) = w_q.shape, strides, dilation
+    (lh, hh), (lw, hw) = pads
+    xq = F.pad(quantize_static(x, xs), (0, 0, lw, hw, lh, hh))
+    b = xq.shape[0]
+    cols = xq.unfold(1, (kh - 1) * dh + 1, sh).unfold(2, (kw - 1) * dw + 1,
+                                                      sw)
+    cols = cols[..., ::dh, ::dw]            # (B, Ho, Wo, C, kh, kw)
+    ho, wo = cols.shape[1], cols.shape[2]
+    a = cols.permute(0, 1, 2, 4, 5, 3).reshape(b * ho * wo, kh * kw * c)
+    y = int8_product(a, w_q.reshape(kh * kw * c, f)).float() * (
+        xs * w_scale)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y.reshape(b, ho, wo, f)
+
+
+def c8_kernel_phase():
+    """C8 against its plain version (the exact float64 conv of the int8
+    values, on the card) bit for bit at ``C8_CASES``, the same bits twice
+    and the same bits as the library route; each timed: the wrapper, its
+    CUDA-graph device time, the plain version, the library route (im2col
+    and the padded ``_int_mm``), cuDNN's fp32 conv at the same shape (TF32
+    off), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV, LAST_CONV_LAUNCH, static_int8_conv2d,
+        static_int8_conv2d_reference)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.convolution \
+        import o_major, same_pads
+    rows = {}
+    for name, b, h, w, c, f, k, s, d, bias, relu in C8_CASES:
+        g = torch.Generator().manual_seed(b * 131 + c * 7 + f + k)
+        x = (torch.randn(b, h, w, c, generator=g) * 2.0).cuda()
+        x.view(-1)[:3] = torch.tensor([0.125, -0.375, 6.4])   # .5 ties
+        xs = torch.tensor(0.05).cuda()
+        wq = torch.randint(-127, 128, (k, k, c, f), generator=g,
+                           dtype=torch.int8).cuda()
+        ws = (torch.rand(f, generator=g) * 0.01 + 1e-3).cuda()
+        bb = torch.randn(f, generator=g).cuda() if bias else None
+        st, dil = (s, s), (d, d)
+        pads = [same_pads(n, k, s, d) for n in (h, w)]
+        args = (x, xs, wq, ws, bb, relu, st, dil, pads)
+        before = KERNEL_INT8_CONV.launches
+        out = static_int8_conv2d(*args)
+        splits = LAST_CONV_LAUNCH.splits
+        again = static_int8_conv2d(*args)
+        torch.cuda.synchronize()
+        launches = KERNEL_INT8_CONV.launches - before
+        ref = static_int8_conv2d_reference(*args)
+        lib = im2col_int_mm(*args)
+        same = {what: torch.equal(out.view(torch.int32),
+                                  want.view(torch.int32))
+                for what, want in (("plain_cuda", ref), ("second_run", again),
+                                   ("im2col_int_mm", lib))}
+        err = (out - ref).abs().max().item()
+        check(all(same.values()) and launches == 2,
+              f"C8 {name}: not the plain version's bits {same} (max |diff| "
+              f"{err}), launches {launches}")
+        m = out.shape[0] * out.shape[1] * out.shape[2]
+        bound_ms, bound_by = c8_bound(m, k * k * c, f, x.numel(), bias)
+        wf = o_major(wq.float())                        # cuDNN's layout
+        (lh, hh), (lw, hw) = pads
+        xf = F.pad(x, (0, 0, 0, hw - lw, 0, hh - lh)).permute(0, 3, 1, 2)
+        iters = 20 if m * f * k * k * c < 1e10 else 5
+        row = {"case": name, "batch": b, "hw": [h, w], "c": c, "f": f,
+               "k": k, "stride": s, "dilation": d, "pads": pads,
+               "m": m, "kdim": k * k * c, "splits": splits,
+               "bit_equal": same,
+               "max_abs_err": err, "launches": launches,
+               "ms": time_ms(lambda: static_int8_conv2d(*args), iters=iters),
+               "device_ms": graph_ms(lambda: static_int8_conv2d(*args),
+                                     iters=iters),
+               "plain_ms": time_ms(lambda: static_int8_conv2d_reference(
+                   *args), iters=3, warmup=1),
+               "library_ms": time_ms(lambda: im2col_int_mm(*args),
+                                     iters=iters),
+               "library_by": "im2col + padded torch._int_mm (int8_product)",
+               "cudnn_fp32_ms": time_ms(lambda: F.conv2d(
+                   xf, wf.permute(3, 2, 0, 1), stride=st, padding=(lh, lw),
+                   dilation=dil), iters=iters),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[name] = row
+        print(f"c8 kernel case {json.dumps(row)}")
+        del x, wq, out, again, ref, lib, xf, wf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def c8_kernel_row(c8_rows, launches):
+    """C8's row of the kernels line: at VGG-16's static batch-32 conv1_2
+    (64 -> 64 at 112 pixels, the path's largest), every other case's
+    numbers beside it in ``cases``."""
+    main = c8_rows["vgg_b32_64x64_112"]
+    row = {"name": "static_int8_conv2d", "route": "cuda",
+           "source": "analytics_zoo_tpu_torch/csrc/conv_int8.cu",
+           "replaces": "analytics_zoo_tpu/pipeline/api/keras/layers/"
+                       "convolution.py:134 (Convolution2D.quantized_call; "
+                       "XLA conv_general_dilated, no Pallas kernel)",
+           "launches": sum(launches.values()),
+           "launches_by_path": launches,
+           "max_abs_err": max(r["max_abs_err"] for r in c8_rows.values()),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"],
+           "library_by": main["library_by"],
+           "device_ms": main["device_ms"],
+           "cudnn_fp32_ms": main["cudnn_fp32_ms"],
+           "cases": {name: {key: r[key] for key in (
+               "ms", "device_ms", "plain_ms", "library_ms", "cudnn_fp32_ms",
+               "bound_ms", "bound_by", "launches", "splits")}
+               for name, r in c8_rows.items()}}
+    return row
+
+
+def image_int8_phase():
+    """``bench_int8_inference`` (``bench.py:636-796``) on the port: VGG-16
+    at 112 pixels with an 8-class head trained 3 epochs (Adam 1e-4, batch
+    64) on 512 seeded prototype images, served fp32 and static int8
+    (calibrated on ``xeval[:8]``) at batch 32 over 16 device-resident
+    rolled batches (``image_infer_{fp32,int8}_fps``, best of 4 windows;
+    ``int8_top1_agreement_pct`` gated at 97.0); AlexNet trained 16 epochs
+    (Adam 3e-4) scored on 512 held-out images fp32 and int8
+    (``image_top1_*``, ``int8_top1_delta_pct``); the batch-1 device ms of
+    each path's captured ``_forward`` (``image_infer_*_b1_fps``,
+    ``int8_b1_speedup``); C8's and Q8's launches in one batch-32 and one
+    batch-1 predict, and the device kernels of one static batch-1
+    forward."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV, KERNEL_INT8_STATIC)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
+    rng = np.random.default_rng(2)
+    hw, classes = IMG_HW, IMG_CLASSES
+    protos = rng.normal(size=(classes, hw, hw, 3)).astype(np.float32)
+    y = rng.integers(0, classes, IMG_TRAIN).astype(np.int32)
+    x = (protos[y] * 0.6
+         + rng.normal(size=(IMG_TRAIN, hw, hw, 3)) * 0.8).astype(np.float32)
+    out = {}
+    m = ImageClassifier("vgg-16", num_classes=classes,
+                        input_shape=(hw, hw, 3)).init_weights()
+    m.compile(optimizer="adam", loss="scce", lr=1e-4)
+    t0 = time.perf_counter()
+    hist = m.fit(FeatureSet.array(x, y, seed=0), batch_size=64, nb_epoch=3)
+    out["vgg16_train_s"] = time.perf_counter() - t0
+    out["vgg16_loss"] = hist["loss"]
+    check(bool(np.all(np.isfinite(hist["loss"]))), f"VGG-16 loss {hist}")
+
+    ye = rng.integers(0, classes, IMG_BATCH)
+    xeval = (protos[ye] * 0.6 + rng.normal(size=(IMG_BATCH, hw, hw, 3))
+             * 0.8).astype(np.float32)
+    xs = torch.from_numpy(np.stack([np.roll(xeval, i + 1, axis=0)
+                                    for i in range(IMG_REPS)])).cuda()
+    models = {"fp32": InferenceModel().from_keras(m),
+              "int8": InferenceModel().from_keras(m, quantize="int8",
+                                                  calibrate=xeval[:8])}
+    check(len(models["int8"]._act_scales) == 16,
+          f"VGG-16 calibrated {len(models['int8']._act_scales)} layers")
+    tops = {}
+    for mode, im in models.items():
+        def many(stacked):
+            return torch.stack([im._forward([xb]).argmax(-1)
+                                for xb in stacked])
+        with torch.no_grad():
+            tops[mode] = many(xs).cpu().numpy()
+            best = 0.0
+            for w in range(IMG_WINDOWS):
+                xs_w = torch.roll(xs, w + 1, dims=1)   # a fresh buffer
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                many(xs_w).cpu()                         # readback
+                best = max(best, IMG_REPS * IMG_BATCH
+                           / (time.perf_counter() - t0))
+        out[f"image_infer_{mode}_fps"] = best
+    agree = float((tops["fp32"] == tops["int8"]).mean()) * 100.0
+    out["int8_top1_agreement_pct"] = agree
+    check(agree >= IMG_AGREE_FLOOR, f"int8_top1_agreement_pct {agree} "
+          f"below the floor {IMG_AGREE_FLOOR}")
+
+    # C8's and Q8's launches a predict, batch 32 and batch 1
+    im8 = models["int8"]
+    for tag, xb in (("b32", xeval), ("b1", xeval[:1])):
+        KERNEL_INT8_CONV.reset()
+        KERNEL_INT8_STATIC.reset()
+        im8.predict(xb)
+        torch.cuda.synchronize()
+        out[f"launches_{tag}"] = {"c8": KERNEL_INT8_CONV.launches,
+                                  "q8": KERNEL_INT8_STATIC.launches}
+        check(out[f"launches_{tag}"] == {"c8": 13, "q8": 3},
+              f"static VGG-16 {tag} predict: {out[f'launches_{tag}']}")
+
+    # batch 1: the device time of each path's captured _forward
+    x1 = torch.from_numpy(xeval[:1]).cuda()
+    b1 = {}
+    with torch.no_grad():
+        for mode, im in models.items():
+            b1[mode] = graph_ms(lambda: im._forward([x1]), iters=10)
+            out[f"image_infer_{mode}_b1_fps"] = 1000.0 / b1[mode]
+        out["int8_b1_speedup"] = b1["fp32"] / b1["int8"]
+        out["int8_b1_device_kernels"] = device_kernels(
+            lambda: im8._forward([x1]))
+    out["b1_device_ms"] = b1
+
+    # the accuracy oracle: AlexNet
+    am = ImageClassifier("alexnet", num_classes=classes,
+                         input_shape=(hw, hw, 3)).init_weights()
+    am.compile(optimizer="adam", loss="scce", lr=3e-4)
+    t0 = time.perf_counter()
+    ahist = am.fit(FeatureSet.array(x, y, seed=0), batch_size=64,
+                   nb_epoch=16)
+    out["alexnet_train_s"] = time.perf_counter() - t0
+    check(ahist["loss"][-1] < ahist["loss"][0], f"AlexNet loss {ahist}")
+    n_eval = 512
+    y_acc = rng.integers(0, classes, n_eval).astype(np.int32)
+    x_acc = (protos[y_acc] * 0.6 + rng.normal(size=(n_eval, hw, hw, 3))
+             * 1.1).astype(np.float32)
+    for mode, quant in (("fp32", None), ("int8", "int8")):
+        aim = InferenceModel().from_keras(
+            am, quantize=quant, calibrate=x[:8] if quant else None)
+        pred = np.concatenate([aim.predict(x_acc[i:i + 64]).argmax(-1)
+                               for i in range(0, n_eval, 64)])
+        out[f"image_top1_{mode}_pct"] = float((pred == y_acc).mean()) * 100
+    out["int8_top1_delta_pct"] = (out["image_top1_fp32_pct"]
+                                  - out["image_top1_int8_pct"])
+    for key in ("image_infer_fp32_fps", "image_infer_int8_fps",
+                "int8_top1_agreement_pct", "image_top1_fp32_pct",
+                "image_top1_int8_pct"):
+        check(np.isfinite(out[key]) and out[key] > 0, f"{key} {out[key]}")
+    print(f"image int8 {json.dumps(out)}")
+    del m, am, models, im8, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def transfer_phase():
+    """``bench_transfer_learning`` (``bench.py:568-633``): Inception-v1 at
+    112 pixels, 2048 seeded images on the card, the backbone cut at the
+    pooled features (``model.new_graph(["gap"])``) run once in chunks of
+    512 under ``no_grad``; the features stay on the card and a
+    ``Dense(2)`` head trains 2 epochs at batch 64 from them
+    (``zoo.train.device_cache``: the set is gathered on the card).
+    ``transfer_learn_imgs_per_sec`` = images / (extract + head fit), the
+    median of 3 timed runs after a warm-up."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0,
+                           "zoo.train.device_cache": True})
+    n, hw = TRANSFER_N, IMG_HW
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, hw, hw, 3)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    m = ImageClassifier("inception-v1", num_classes=1000,
+                        input_shape=(hw, hw, 3)).init_weights()
+    extractor = m.model.new_graph(["gap"])
+    head = Sequential([Dense(2, activation="softmax", input_shape=(1024,))])
+    head.init_weights()
+    head.compile(optimizer="adam", loss="scce", lr=1e-3)
+    x_dev = torch.from_numpy(x).cuda()
+    y_dev = torch.from_numpy(y).cuda()
+    info = {}
+
+    def run():
+        with torch.no_grad():
+            feats = torch.cat([extractor(x_dev[i:i + TRANSFER_CHUNK])
+                               for i in range(0, n, TRANSFER_CHUNK)])
+        info["feats_device"] = str(feats.device)
+        return head.fit(FeatureSet.array(feats, y_dev, seed=0),
+                        batch_size=64, nb_epoch=2)
+
+    run()                                          # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = run()
+        times.append(time.perf_counter() - t0)
+    check(info["feats_device"].startswith("cuda")
+          and bool(np.all(np.isfinite(hist["loss"]))),
+          f"transfer: features on {info['feats_device']}, loss {hist}")
+    out = {"transfer_learn_imgs_per_sec": n / float(np.median(times)),
+           "seconds": times, "loss": hist["loss"]}
+    print(f"transfer {json.dumps(out)}")
+    del m, extractor, head, x_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+class CountedModel:
+    """A served model that counts the serve loop's dispatches, their rows
+    and each dispatch call's host seconds."""
+
+    def __init__(self, im):
+        self.im, self.dispatches, self.rows, self.host_s = im, 0, 0, 0.0
+
+    def predict_async(self, x, block=True):
+        t0 = time.perf_counter()
+        collect = self.im.predict_async(x, block=block)
+        if collect is not None:
+            self.dispatches += 1
+            self.rows += len(x)
+            self.host_s += time.perf_counter() - t0
+        return collect
+
+    def summary(self):
+        n = max(self.dispatches, 1)
+        return {"dispatches": self.dispatches,
+                "rows_per_dispatch": self.rows / n,
+                "host_ms_per_dispatch": self.host_s / n * 1e3}
+
+
+def resnet_serving_phase():
+    """``bench_serving`` (``bench.py:982-1052``): ResNet-50 at 112 pixels,
+    1000 classes, fp32, ``InferenceModel(concurrent_num=2)`` behind
+    ``ClusterServing(batch_size=32)`` on a ``LocalBackend``, 256 frames
+    from 4 producer threads, a warm pass then the median of 3
+    (``serving_resnet50_records_per_sec``); then ``bench_serving_device``
+    (``bench.py:1130-1228``): the same model's raw predict FPS at batch 32
+    against pre-filled drains (``max_inflight=4``, fresh server a pass,
+    median of 3 after a warm pass) of the fp32 model, the weight-only
+    int8 model (K6 on the 2048 x 1000 head: its launches counted over the
+    lane's timed passes) and both multiplexed; every answer checked
+    (shape, finite, summing to 1). The fp32 server's dispatches are
+    counted (rows a dispatch, host ms a dispatch call, the wait for a
+    permit included), the last fp32 drain's goodput split printed, and
+    the device kernels of one batch-32 forward counted by name (cuDNN's
+    layout conversions among them)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
+                                                 LocalBackend, OutputQueue)
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0,
+                           "zoo.goodput.enabled": True})
+    hw, n, batch = IMG_HW, RESNET_FRAMES, RESNET_BATCH
+    rng = np.random.default_rng(5)
+    m = ImageClassifier("resnet-50", num_classes=RESNET_CLASSES,
+                        input_shape=(hw, hw, 3)).init_weights()
+    frames = rng.normal(size=(n, hw, hw, 3)).astype(np.float32)
+
+    def good(a):
+        return (a is not None and a.shape == (RESNET_CLASSES,)
+                and bool(np.all(np.isfinite(a)))
+                and abs(float(a.sum()) - 1.0) < 1e-3)
+
+    im = CountedModel(InferenceModel(concurrent_num=2).from_keras(m))
+    backend = LocalBackend()
+    serving = ClusterServing(im, backend=backend, batch_size=batch).start()
+    inq, outq = InputQueue(backend), OutputQueue(backend)
+
+    def run(tag):
+        t0 = time.perf_counter()
+
+        def producer(lo, hi):
+            for i in range(lo, hi):
+                inq.enqueue(f"{tag}-{i}", frames[i])
+        threads = [threading.Thread(target=producer,
+                                    args=(j * n // 4, (j + 1) * n // 4))
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for i in range(n):
+            a = outq.query(f"{tag}-{i}", timeout=120.0)
+            # the message names the record only: an f-string holding
+            # ``a`` would print 1000 floats on every answer, on the clock
+            check(good(a), f"serving record {tag}-{i} is not a finite "
+                  f"distribution of {RESNET_CLASSES}")
+        return n / (time.perf_counter() - t0)
+
+    try:
+        run("warm")
+        rates = [run("t1"), run("t2"), run("t3")]
+    finally:
+        serving.stop(drain=False)
+    out = {"serving_resnet50_records_per_sec": float(np.median(rates)),
+           "serving_resnet50_passes": rates,
+           "serving_resnet50_dispatches": im.summary()}
+
+    im32 = InferenceModel(concurrent_num=4).from_keras(m)
+    im8 = InferenceModel(concurrent_num=4).from_keras(m, quantize="int8")
+
+    def raw_fps(model):
+        model.predict(frames[:batch])
+        best = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for lo in range(0, n, batch):
+                model.predict(frames[lo:lo + batch])
+            best = max(best, n / (time.perf_counter() - t0))
+        return best
+
+    splits = {}
+
+    def served_rps(models, route=None, tag_=""):
+        backend = LocalBackend(maxlen=4 * n)
+        inq, outq = InputQueue(backend), OutputQueue(backend)
+        rates, k6 = [], 0
+        for k in range(4):              # pass 0 warm, then 3 timed
+            tag = f"p{k}"
+            for i in range(n):
+                inq.enqueue(f"{tag}-{i}", frames[i],
+                            model=route[i % len(route)] if route else None)
+            server = ClusterServing(models, backend=backend,
+                                    batch_size=batch, block_ms=10,
+                                    max_inflight=4)
+            before = KERNEL_INT8_MATMUL.launches
+            t0 = time.perf_counter()
+            server.start()
+            try:
+                for i in range(n):
+                    a = outq.query(f"{tag}-{i}", timeout=120.0)
+                    check(good(a), f"serving-device record {tag}-{i} is "
+                          f"not a finite distribution")
+                if k:
+                    rates.append(n / (time.perf_counter() - t0))
+                    k6 += KERNEL_INT8_MATMUL.launches - before
+            finally:
+                server.stop(drain=False)
+        if tag_:
+            splits[tag_] = goodput_split(f"resnet50 {tag_}",
+                                         server._goodput.snapshot())
+        return float(np.median(rates)), k6
+
+    raw = raw_fps(im32)
+    served, _ = served_rps(im32, tag_="fp32 drain")
+    skinny0 = KERNEL_INT8_ROUTES["skinny"].launches
+    served_int8, k6_int8 = served_rps(im8)
+    served_mm, k6_mm = served_rps({"fp32": im32, "int8": im8},
+                                  route=["fp32", "int8"])
+    check(k6_int8 >= 3 * n // batch,
+          f"the int8 lane launched K6 {k6_int8} times in 3 passes")
+    out.update({
+        "serving_device_raw_fps": raw,
+        "serving_device_records_per_sec": served,
+        "serving_device_gap_x": raw / served,
+        "serving_device_int8_records_per_sec": served_int8,
+        "serving_device_multimodel_records_per_sec": served_mm,
+        "k6_launches": {"int8_lane": k6_int8, "multimodel": k6_mm},
+        "k6_skinny_launches": (KERNEL_INT8_ROUTES["skinny"].launches
+                               - skinny0),
+        "goodput_s": splits})
+    x32 = torch.from_numpy(frames[:batch]).cuda()
+    with torch.no_grad():
+        names = device_kernels(lambda: im32._forward([x32]))
+    counts = {}
+    for name in names:
+        counts[name] = counts.get(name, 0) + 1
+    out["forward_kernels"] = {"total": len(names), "by_name": counts}
+    print(f"resnet serving {json.dumps(out)}")
+    del m, im, im32, im8
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resnet_fit(x, y, conf, epochs, plan=None, timed=False):
+    """ResNet-50 at 112 pixels, 1000 classes, fp32, Adam 1e-3, batch 32
+    from the same seeded weights; ``epochs`` fits of one epoch each (the
+    last timed when ``timed``). Returns the model, its step losses, its
+    moving statistics and params (host copies) and the timed epoch's
+    seconds."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        named_state, reset_uids)
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0,
+                           **conf})
+    reset_uids()
+    m = ImageClassifier("resnet-50", num_classes=RESNET_CLASSES,
+                        input_shape=(IMG_HW, IMG_HW, 3)).init_weights(
+                            torch.Generator().manual_seed(0))
+    m.compile(optimizer="adam", loss="scce", lr=1e-3)
+    seconds = None
+    for e in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plan is None:
+            m.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1, shuffle=False)
+        else:
+            with faults.activate(plan):
+                m.fit(x, y, batch_size=RESNET_BATCH, nb_epoch=1,
+                      shuffle=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    losses = [v for a in m._loop.step_losses for v in a.tolist()]
+    state = {k: v.detach().cpu().clone()
+             for k, v in named_state(m.model).items()}
+    params = {k: v.detach().cpu().clone()
+              for k, v in m.model.named_parameters()}
+    return m, losses, state, params, seconds if timed else None
+
+
+def resnet_training_phase():
+    """ResNet-50 training with BatchNorm (no JAX channel times it): 112
+    pixels, batch 32, 8 steps an epoch, fp32, ``cudnn.deterministic``.
+    Eager: a warm-up epoch and a timed one (samples/s), then a profiled
+    epoch's busy share. Captured (``zoo.train.scan_steps`` 8): the same
+    two epochs, whose step losses and 106 moving-statistics tensors must
+    be the eager fit's bits. Then ``zoo.train.sentinel=recover`` with a
+    ``nan_grad`` at the 8th step: the statistics and params must be the
+    bits of the guarded fit of the first 7 steps (the skip keeps the
+    pre-step state)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common import faults
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(7)
+        n = RESNET_TRAIN_STEPS * RESNET_BATCH
+        x = rng.normal(size=(n, IMG_HW, IMG_HW, 3)).astype(np.float32)
+        y = rng.integers(0, RESNET_CLASSES, n).astype(np.int32)
+        out = {}
+        eager, e_loss, e_state, e_params, e_s = _resnet_fit(
+            x, y, {}, 2, timed=True)
+        out["eager_samples_per_s"] = n / e_s
+        share, kernel_ms = profiled_busy_share(lambda: eager.fit(
+            x, y, batch_size=RESNET_BATCH, nb_epoch=1, shuffle=False))
+        out["eager_busy_share"], out["eager_kernel_ms"] = share, kernel_ms
+        del eager
+        keyed, k_loss, k_state, _, k_s = _resnet_fit(
+            x, y, {"zoo.train.scan_steps": RESNET_TRAIN_STEPS}, 2,
+            timed=True)
+        out["captured_samples_per_s"] = n / k_s
+        share, kernel_ms = profiled_busy_share(lambda: keyed.fit(
+            x, y, batch_size=RESNET_BATCH, nb_epoch=1, shuffle=False))
+        out["captured_busy_share"] = share
+        out["captured_kernel_ms"] = kernel_ms
+        del keyed
+        out["losses"] = {"eager": e_loss, "captured": k_loss}
+        check(len(e_state) == 106 and all(
+            torch.equal(e_state[k], k_state[k]) for k in e_state)
+            and e_loss == k_loss,
+              "ResNet-50: the captured fit's losses or moving statistics "
+              "are not the eager fit's bits")
+        check(not torch.equal(e_state["res5c_c_bn.moving_var"],
+                              torch.ones_like(e_state[
+                                  "res5c_c_bn.moving_var"])),
+              "ResNet-50: the moving statistics did not move")
+        out["statistics_bits_equal"] = True
+
+        guard = {"zoo.faults.enabled": True, "zoo.train.sentinel": "recover"}
+        plan = faults.FaultPlan(seed=1).add(
+            "train.grads", "nan_grad", at=(RESNET_TRAIN_STEPS - 1,))
+        _, _, p_state, p_params, _ = _resnet_fit(x, y, guard, 1, plan=plan)
+        _, _, r_state, r_params, _ = _resnet_fit(
+            x[:-RESNET_BATCH], y[:-RESNET_BATCH], guard, 1)
+        same = (all(torch.equal(p_state[k], r_state[k]) for k in p_state)
+                and all(torch.equal(p_params[k], r_params[k])
+                        for k in p_params))
+        check(same, "ResNet-50 recover: the skipped step moved the "
+              "statistics or the params")
+        out["recover_skip_keeps_statistics"] = True
+        print(f"resnet training {json.dumps(out)}")
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6823,6 +7490,7 @@ def main() -> int:
         LIBRARY, LIBRARY_BWD)
     from analytics_zoo_tpu_torch.ops.pallas.quantized import \
         LIBRARY as LIBRARY_Q
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import LIBRARY_CONV
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6833,9 +7501,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB, LIBRARY_Q])
+    build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB, LIBRARY_Q,
+               LIBRARY_CONV])
     print(f"build: flash_attention_fwd, flash_attention_bwd, "
-          f"fused_cross_entropy, embedding, quantized in "
+          f"fused_cross_entropy, embedding, quantized, conv_int8 in "
           f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
 
     import numpy as np
@@ -6905,6 +7574,11 @@ def main() -> int:
     wide_deep = wide_deep_phase()
     oocore = oocore_phase()
     captured_bert = captured_bert_phase()
+    c8_rows = c8_kernel_phase()
+    image_int8 = image_int8_phase()
+    transfer = transfer_phase()
+    resnet_serving = resnet_serving_phase()
+    resnet_training = resnet_training_phase()
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     # SA takes the out-of-core cache's gradient too (slice 17)
@@ -6912,16 +7586,27 @@ def main() -> int:
     sa_row["launches_by_path"] = {"ncf_sharded_keyed": sa_row["launches"],
                                   "oocore": oocore["sa_launches"]}
     sa_row["launches"] += oocore["sa_launches"]
+    k6_routes = {name: int8_head["launches_by_route"][name]
+                 + int8_serving["launches_by_route"][name]
+                 + lanes["k6_routes"][name]
+                 for name in int8_serving["launches_by_route"]}
+    # slice 19: ResNet-50's weight-only int8 serving lane (batch 32, the
+    # skinny route)
+    k6_routes["skinny"] += resnet_serving["k6_skinny_launches"]
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
         "bert_serving": int8_serving["launches"],
-        "lanes": lanes["launches"]["k6"]},
-        {name: int8_head["launches_by_route"][name]
-         + int8_serving["launches_by_route"][name]
-         + lanes["k6_routes"][name]
-         for name in int8_serving["launches_by_route"]}))
-    rows.append(static_int8_kernel_row(static_rows,
-                                       int8_head["q8_launches"]))
+        "lanes": lanes["launches"]["k6"],
+        "resnet50_serving_int8": resnet_serving["k6_launches"]["int8_lane"],
+        "resnet50_serving_multimodel":
+            resnet_serving["k6_launches"]["multimodel"]}, k6_routes))
+    rows.append(static_int8_kernel_row(static_rows, {
+        "config_a_static": int8_head["q8_launches"],
+        "vgg16_static_b32": image_int8["launches_b32"]["q8"],
+        "vgg16_static_b1": image_int8["launches_b1"]["q8"]}))
+    rows.append(c8_kernel_row(c8_rows, {
+        "vgg16_static_b32": image_int8["launches_b32"]["c8"],
+        "vgg16_static_b1": image_int8["launches_b1"]["c8"]}))
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
@@ -6935,6 +7620,10 @@ def main() -> int:
                       "ncf": ncf, "wide_deep": wide_deep,
                       "fault_l": fault_l,
                       "captured_bert": captured_bert,
+                      "c8_cases": c8_rows, "image_int8": image_int8,
+                      "transfer": transfer,
+                      "resnet_serving": resnet_serving,
+                      "resnet_training": resnet_training,
                       "reliability": reliability, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

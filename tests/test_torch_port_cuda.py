@@ -1875,3 +1875,117 @@ def test_rrelu_draws_its_slopes_on_the_device_under_capture(cuda):
     keyed = fit({"zoo.train.scan_steps": 4})
     assert len(set(keyed.tolist())) == len(keyed) == 8
     np.testing.assert_array_equal(keyed, fit({}))
+
+
+# ---------------------------------------------------------------------------
+# slice 19: C8, the static int8 conv
+# ---------------------------------------------------------------------------
+
+#: (batch, h, w, c, f, k, stride, dilation, same): every conv shape of
+#: VGG-16 at 112 pixels (batch 1; batch 32 at its first and last block),
+#: the 7x7/2 stems of ResNet-50 and Inception-v1 (XLA's (2, 3) pads), a
+#: dilated AtrousConvolution2D, an odd K (45) and a 1x1 projection
+C8_CASES = ([(1, 112, 112, 3, 64, 3, 1, 1, True),
+             (1, 112, 112, 64, 64, 3, 1, 1, True),
+             (1, 56, 56, 64, 128, 3, 1, 1, True),
+             (1, 56, 56, 128, 128, 3, 1, 1, True),
+             (1, 28, 28, 128, 256, 3, 1, 1, True),
+             (1, 28, 28, 256, 256, 3, 1, 1, True),
+             (1, 14, 14, 256, 512, 3, 1, 1, True),
+             (1, 14, 14, 512, 512, 3, 1, 1, True),
+             (1, 7, 7, 512, 512, 3, 1, 1, True),
+             (32, 112, 112, 3, 64, 3, 1, 1, True),
+             (32, 7, 7, 512, 512, 3, 1, 1, True),
+             (2, 112, 112, 3, 64, 7, 2, 1, True),
+             (3, 33, 31, 16, 24, 3, 1, 2, True),
+             (2, 17, 13, 5, 7, 3, 2, 1, False),
+             (4, 28, 28, 256, 512, 1, 2, 1, True)])
+
+
+def _c8_operands(case, seed):
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.convolution \
+        import same_pads
+    b, h, w, c, f, k, s, d, same = case
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g) * 2.0
+    x.view(-1)[:3] = torch.tensor([0.125, -0.375, 6.4])   # .5 quotients
+    xs = torch.tensor(0.05)
+    wq = torch.randint(-127, 128, (k, k, c, f), generator=g,
+                       dtype=torch.int8)
+    ws = torch.rand(f, generator=g) * 0.01 + 1e-3
+    bias = torch.randn(f, generator=g)
+    pads = ([same_pads(n, k, s, d) for n in (h, w)] if same
+            else [(0, 0), (0, 0)])
+    return x, xs, wq, ws, bias, (s, s), (d, d), pads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("case", C8_CASES)
+def test_c8_is_its_plain_version_bit_for_bit(cuda, case, relu):
+    """C8 against its plain version (the exact float64 conv of the int8
+    values, on the card; small shapes on the CPU too): the same bits, the
+    same bits twice, one launch a call."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV, static_int8_conv2d, static_int8_conv2d_reference)
+    x, xs, wq, ws, bias, st, dil, pads = _c8_operands(case, sum(case[:6]))
+    dev = [t.to(cuda) for t in (x, xs, wq, ws, bias)]
+    before = KERNEL_INT8_CONV.launches
+    got = static_int8_conv2d(*dev, relu, st, dil, pads)
+    again = static_int8_conv2d(*dev, relu, st, dil, pads)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_CONV.launches == before + 2
+    wants = [again.cpu(),
+             static_int8_conv2d_reference(*dev, relu, st, dil, pads).cpu()]
+    if x.numel() * wq.shape[-1] < 2 ** 24:
+        wants.append(static_int8_conv2d_reference(x, xs, wq, ws, bias, relu,
+                                                  st, dil, pads))
+    for want in wants:
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_c8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        static_int8_conv2d
+    x = torch.zeros(1, 5, 5, 3, device=cuda)
+    xs = torch.ones((), device=cuda)
+    w = torch.zeros(7, 7, 3, 4, dtype=torch.int8, device=cuda)
+    s = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="no output"):
+        static_int8_conv2d(x, xs, w, s)             # 7x7 valid on 5x5
+    with pytest.raises(ValueError, match="different devices"):
+        static_int8_conv2d(x, xs, w.cpu(), s)
+    with pytest.raises(TypeError, match="int8 w_q"):
+        static_int8_conv2d(x, xs, w.float(), s)
+
+
+@pytest.mark.cuda
+def test_static_int8_vgg16_forward_launches_c8_once_per_conv(cuda):
+    """A calibrated static-int8 VGG-16 (at its smallest input, 32 pixels)
+    runs C8 once for each of its 13 convs and Q8 once for each of its 3
+    Dense layers in one ``_forward``, and agrees with the CPU runtime's
+    plain route (exact convs and products; the softmax within 1e-6)."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV, KERNEL_INT8_STATIC)
+    init_zoo_context(conf={"zoo.seed": 0})
+    m = ImageClassifier("vgg-16", num_classes=8, input_shape=(32, 32, 3),
+                        device="cpu").init_weights()
+    x = np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(
+        np.float32)
+    im = InferenceModel(device="cuda").from_keras(m, quantize="int8",
+                                                  calibrate=x[:2])
+    ref = InferenceModel(device="cpu").from_keras(m, quantize="int8",
+                                                  calibrate=x[:2])
+    assert len(im._act_scales) == 16
+    before = (KERNEL_INT8_CONV.launches, KERNEL_INT8_STATIC.launches)
+    with torch.no_grad():
+        out = im._forward([torch.from_numpy(x).cuda()])
+    torch.cuda.synchronize()
+    assert (KERNEL_INT8_CONV.launches - before[0],
+            KERNEL_INT8_STATIC.launches - before[1]) == (13, 3)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.predict(x), rtol=1e-6,
+                               atol=1e-7)
