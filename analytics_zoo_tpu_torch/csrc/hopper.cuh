@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // the flash-attention forward (K2) and backward (K3a, K3b), the int8
-// dequant-matmul's tile path (K6) and the fused CE's kernels (K4, K5a,
-// K5b).
+// dequant-matmul's tile path (K6), the fused CE's kernels (K4, K5a, K5b)
+// and the static int8 conv's wgmma route (C8).
 //
 //  * mbarriers and TMA: tiles are copied by cp.async.bulk.tensor from a
 //    CUtensorMap built on the host (cuTensorMapEncodeTiled, -lcuda) and
 //    complete on an mbarrier in shared memory.
 //  * wgmma: shared-memory matrix descriptors over the 128-byte (64-byte)
 //    swizzle TMA writes, in both orientations, and the m64nNk16 products
-//    (bf16 in, f32 accumulate) with A from shared memory or registers.
+//    (bf16 in, f32 accumulate) with A from shared memory or registers;
+//    the m64nNk32 s8 x s8 -> s32 products, both operands K-major in
+//    shared memory.
 //
 // Fragment layouts (PTX ISA, wgmma m64nNk16): warp w of the warpgroup owns
 // rows 16w .. 16w + 15; with g = lane / 4 and t = lane % 4, accumulator
@@ -227,6 +229,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D(64 x 64) (+)= A B^T, A and B 64-row K-major bf16 tiles in shared memory;
@@ -473,6 +480,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// K-major int8 operand in the 128-byte swizzle: rows of 128 int8 (one
+// swizzle row), 8-row groups 1024 bytes apart (SBO); k step kk (32 deep)
+// starts 32 kk bytes into the row, as desc_k's bf16 16-deep steps do
+__device__ __forceinline__ uint64_t desc_s8(uint32_t tile, int kk) {
+  return smem_desc(tile + 32 * kk, 16, 1024, 1);
+}
+
+// D(64 x 64) += A B in exact int32: A (64 x 32) and B (64 x 32) int8
+// tiles in shared memory, both K-major (wgmma takes s8 operands only
+// so; desc_s8 describes them)
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D(64 x 128) += A B in exact int32: A (64 x 32) and B (128 x 32) int8
+// tiles in shared memory, both K-major (wgmma takes s8 operands only
+// so; desc_s8 describes them)
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // the lower column lands in the low half, as the fragments expect

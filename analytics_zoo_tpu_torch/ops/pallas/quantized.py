@@ -59,11 +59,21 @@ launches.
 :func:`static_int8_conv2d` (kernel C8, ``csrc/conv_int8.cu``, its own
 library :data:`LIBRARY_CONV`) is the conv counterpart of Q8: the static
 int8 ``Convolution2D`` forward (the JAX ``quantized_call``, whose int8
-conv the JAX package leaves to XLA) as one implicit-GEMM kernel with the
-quantize on load and the same epilogue. PyTorch has no int8 conv on CUDA;
-its only library route, im2col and the padded ``_int_mm``, writes each
-activation ``kh · kw`` times. :func:`static_int8_conv2d_reference` is its
-plain version; :data:`KERNEL_INT8_CONV` counts its launches.
+conv the JAX package leaves to XLA) as an implicit GEMM with the same
+epilogue. PyTorch has no int8 conv on CUDA; its only library route,
+im2col and the padded ``_int_mm``, writes each activation ``kh · kw``
+times. :func:`conv_plan` picks C8's route by shape: ``c8_wgmma`` and
+``c8_split`` (``C % 16 == 0``) run the quantize pass
+(:func:`static_int8_quantize`, each activation divided once, written as
+int8) and then ``wgmma`` s8 tiles over the weight repacked K-major
+(:func:`repack_conv_weight`, made once where a static model is
+installed), ``c8_split`` splitting K where the output tiles are few;
+``c8_small_c`` (the 3-channel stems) quantizes on load into ``mma.sync``
+tiles. :func:`static_int8_conv2d_reference` is its plain version;
+:data:`KERNEL_INT8_CONV` counts the GEMM's launches,
+:data:`KERNEL_INT8_CONV_ROUTES` each route's,
+:data:`KERNEL_INT8_CONV_QUANTIZE` and :data:`KERNEL_INT8_CONV_REPACK` the
+two passes'.
 """
 
 from __future__ import annotations
@@ -80,9 +90,11 @@ from ..cuda_build import CudaLibrary, launch
 from .cross_entropy import _raise_on
 from .flash_attention import _LaunchCount
 
-__all__ = ["int8_matmul", "int8_matmul_reference", "int8_product",
-           "static_int8_conv2d", "static_int8_conv2d_reference",
-           "static_int8_dense", "static_int8_dense_reference"]
+__all__ = ["conv_plan", "int8_matmul", "int8_matmul_reference",
+           "int8_product", "repack_conv_weight",
+           "repack_conv_weight_reference", "static_int8_conv2d",
+           "static_int8_conv2d_reference", "static_int8_dense",
+           "static_int8_dense_reference", "static_int8_quantize"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -369,30 +381,136 @@ def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
 def _bind_conv(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.int8_static_conv2d.argtypes = ([p, p, p, p, p, i, p, p, ll]
-                                       + [i] * 15
-                                       + [ctypes.POINTER(i), p])
+                                       + [i] * 19 + [p])
     lib.int8_static_conv2d.restype = ctypes.c_int
-    lib.int8_static_conv2d_plan.argtypes = [ll, i, i, i, ctypes.POINTER(ll)]
-    lib.int8_static_conv2d_plan.restype = ctypes.c_int
+    lib.int8_conv_quantize.argtypes = [p, p, p, ll, p]
+    lib.int8_conv_quantize.restype = ctypes.c_int
+    lib.int8_conv_repack.argtypes = [p, p, i, i, p]
+    lib.int8_conv_repack.restype = ctypes.c_int
 
 
 LIBRARY_CONV = CudaLibrary("conv_int8", ["conv_int8.cu"], _bind_conv)
-KERNEL_INT8_CONV = _LaunchCount()     # C8
-#: C8's latest launch: route "c8" and the K splits it ran
+KERNEL_INT8_CONV = _LaunchCount()     # C8's GEMM, every route
+#: C8's routes: the name the wrapper records, the code the C side takes
+CONV_ROUTES = {"c8_small_c": 0, "c8_wgmma": 1, "c8_split": 1}
+KERNEL_INT8_CONV_ROUTES = {name: _LaunchCount() for name in CONV_ROUTES}
+KERNEL_INT8_CONV_QUANTIZE = _LaunchCount()   # C8's quantize pass
+KERNEL_INT8_CONV_REPACK = _LaunchCount()     # C8's weight repack
+#: C8's latest launch: its route and the K splits it ran
 LAST_CONV_LAUNCH = _Launched()
+
+#: c8_small_c: 64 x 64 tiles, 32 k a step, about 4 blocks an SM when split
+SMALL_C_TILE, SMALL_C_STEP, SMALL_C_BLOCKS_PER_SM = 64, 32, 4
+#: c8_wgmma/c8_split: 128 pixels a tile, 128 k a step, 2 blocks an SM
+WGMMA_TILE_M, WGMMA_STEP, WGMMA_BLOCKS_PER_SM = 128, 128, 2
+#: the fewest K steps a split takes (small_c, wgmma)
+MIN_SPLIT_STEPS = {"small_c": 4, "wgmma": 2}
+
+
+def conv_takes_kmajor(c: int) -> bool:
+    """Whether C8 runs a conv of ``c`` input channels on its wgmma routes,
+    which read the quantize pass's int8 input and the repacked (F, K)
+    weight: a filter tap's ``c`` bytes must be whole 16-byte chunks."""
+    return c % 16 == 0
+
+
+def _split(tiles: int, steps: int, want: int, least: int):
+    """``(splits, per)``: ``steps`` K steps cut into ``splits`` slices of
+    ``per`` steps, enough for ``tiles`` output tiles to make about
+    ``want`` blocks, each slice at least ``least`` steps."""
+    splits = max(1, min(-(-want // tiles), steps // least, 65535))
+    per = -(-steps // splits)
+    return -(-steps // per), per
 
 
 @functools.lru_cache(maxsize=4096)
-def _conv_plan(m: int, f: int, k: int, index: int) -> int:
-    """The int32 workspace C8's K split needs for an ``(m, f, k)`` conv on
-    CUDA device ``index`` (0 without a split), from the C side, which owns
-    the split."""
-    ints = ctypes.c_longlong(0)
-    if LIBRARY_CONV.entry("int8_static_conv2d_plan")(
-            m, f, k, index, ctypes.byref(ints)) < 0:
-        raise RuntimeError(f"static_int8_conv2d: no plan for M={m} on CUDA "
-                           f"device {index}")
-    return ints.value
+def conv_plan(m: int, f: int, k: int, c: int, sms: int):
+    """C8's launch for an ``(m, f, k)`` implicit GEMM over ``c`` input
+    channels on a card of ``sms`` SMs: ``(route, tile_n, splits, per)``.
+    ``c8_small_c`` where ``c % 16 != 0`` (64 x 64 tiles; K split when the
+    tiles fill fewer than 4 blocks an SM), else ``c8_wgmma`` (128 pixels
+    by 64 filters where ``f <= 64``, else 128) or, where those tiles fill
+    less than half the SMs, ``c8_split`` (K split for about 2 blocks an
+    SM, at least 2 steps of 128 k a split). ``per`` is the K steps a
+    split takes."""
+    if not conv_takes_kmajor(c):
+        tiles = -(-m // SMALL_C_TILE) * -(-f // SMALL_C_TILE)
+        steps = -(-k // SMALL_C_STEP)
+        least = MIN_SPLIT_STEPS["small_c"]
+        want = sms * SMALL_C_BLOCKS_PER_SM
+        if tiles >= want or steps < 2 * least:
+            return "c8_small_c", SMALL_C_TILE, 1, steps
+        return ("c8_small_c", SMALL_C_TILE,
+                *_split(tiles, steps, want, least))
+    tn = 64 if f <= 64 else 128
+    tiles = -(-m // WGMMA_TILE_M) * -(-f // tn)
+    steps = -(-k // WGMMA_STEP)
+    least = MIN_SPLIT_STEPS["wgmma"]
+    if 2 * tiles > sms or steps < 2 * least:
+        return "c8_wgmma", tn, 1, steps
+    splits, per = _split(tiles, steps, sms * WGMMA_BLOCKS_PER_SM, least)
+    return ("c8_split" if splits > 1 else "c8_wgmma"), tn, splits, per
+
+
+@functools.lru_cache(maxsize=64)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def repack_conv_weight_reference(w_q: torch.Tensor) -> torch.Tensor:
+    """Plain version of C8's weight repack: the HWIO ``w_q (kh, kw, C,
+    F)`` read as ``(K, F)`` and transposed to ``(F, K)``, K contiguous."""
+    return w_q.reshape(-1, w_q.shape[-1]).t().contiguous()
+
+
+def repack_conv_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """C8's weight repack, ``(kh, kw, C, F)`` int8 -> ``(F, kh·kw·C)``
+    int8 with K contiguous, the layout its wgmma routes read (``wgmma``
+    takes s8 operands only K-major). A static model makes it once, where
+    it is installed; :func:`static_int8_conv2d` makes it per call when it
+    is not given. CUDA tensors launch the kernel (or raise); CPU tensors
+    run :func:`repack_conv_weight_reference`."""
+    if w_q.dim() != 4 or w_q.dtype != torch.int8:
+        raise ValueError(f"repack_conv_weight takes an int8 HWIO weight; "
+                         f"got {w_q.dtype} {tuple(w_q.shape)}")
+    if not w_q.is_cuda:
+        return repack_conv_weight_reference(w_q)
+    f = w_q.shape[-1]
+    k = w_q.numel() // f if f else 0
+    w_q = w_q.contiguous()
+    wk = torch.empty(f, k, dtype=torch.int8, device=w_q.device)
+    if wk.numel() == 0:
+        return wk
+    err = launch(LIBRARY_CONV.entry("int8_conv_repack"), w_q,
+                 w_q.data_ptr(), wk.data_ptr(), k, f)
+    _raise_on(err, "repack_conv_weight")
+    KERNEL_INT8_CONV_REPACK.launches += 1
+    return wk
+
+
+def static_int8_quantize(x: torch.Tensor,
+                         x_scale: torch.Tensor) -> torch.Tensor:
+    """C8's quantize pass: ``x`` (any shape, float) quantized to the one
+    f32 ``x_scale`` (on the device) as int8 of the same shape, bit for bit
+    :func:`quantize_static`: an IEEE division, round half to even,
+    clipped to +-127. CUDA tensors launch the kernel (or raise); CPU
+    tensors run :func:`quantize_static`."""
+    if x_scale.numel() != 1 or x_scale.device != x.device:
+        raise ValueError(f"static_int8_quantize takes one x_scale on x's "
+                         f"device; got {tuple(x_scale.shape)} on "
+                         f"{x_scale.device}")
+    if not x.is_cuda:
+        return quantize_static(x, x_scale)
+    x = x.float().contiguous()
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel() == 0:
+        return xq
+    xs = x_scale.reshape(1).float().contiguous()
+    err = launch(LIBRARY_CONV.entry("int8_conv_quantize"), x, x.data_ptr(),
+                 xs.data_ptr(), xq.data_ptr(), x.numel())
+    _raise_on(err, "static_int8_quantize")
+    KERNEL_INT8_CONV_QUANTIZE.launches += 1
+    return xq
 
 
 def _conv_geometry(x_shape, w_shape, strides, dilation, pads):
@@ -455,20 +573,45 @@ def static_int8_conv2d(x: torch.Tensor, x_scale: torch.Tensor,
                        w_q: torch.Tensor, w_scale: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
                        relu: bool = False, strides=(1, 1), dilation=(1, 1),
-                       pads=((0, 0), (0, 0))) -> torch.Tensor:
+                       pads=((0, 0), (0, 0)),
+                       w_kmajor: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """C8: the static int8 ``Convolution2D`` forward as an implicit GEMM
-    (``csrc/conv_int8.cu``): ``x (B, H, W, C)`` quantized on load, any
-    stride, dilation and ``(lo, hi)`` zero padding, the int8 x int8
-    products exact in int32 on ``mma.sync`` s8 tiles (K split over blocks
-    into an int32 workspace where the output tiles cannot fill the card),
-    and the f32 epilogue (rescale, bias, ReLU) per output channel → ``(B,
-    Ho, Wo, F)`` f32, bit for bit :func:`static_int8_conv2d_reference`.
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    (``csrc/conv_int8.cu``): ``x (B, H, W, C)`` quantized to ``x_scale``,
+    any stride, dilation and ``(lo, hi)`` zero padding, the int8 x int8
+    products exact in int32, and the f32 epilogue (rescale, bias, ReLU)
+    per output channel → ``(B, Ho, Wo, F)`` f32, bit for bit
+    :func:`static_int8_conv2d_reference`. The route follows the shape
+    (:func:`conv_plan`): where ``C % 16 == 0`` the quantize pass
+    (:func:`static_int8_quantize`) and ``wgmma`` s8 tiles over the
+    repacked ``(F, K)`` weight, ``w_kmajor`` (:func:`repack_conv_weight`
+    of ``w_q``; repacked here when not given), with K split over blocks
+    where the output tiles are few; else the quantize-on-load
+    ``mma.sync`` kernel. :data:`KERNEL_INT8_CONV` counts the GEMM's
+    launches, :data:`KERNEL_INT8_CONV_ROUTES` each route's and
+    :data:`LAST_CONV_LAUNCH` holds the latest route and K splits. CUDA
+    tensors launch the kernels (or raise); CPU tensors run the plain
     version."""
     _check_conv(x, x_scale, w_q, w_scale, bias)
+    (b, h, w, c), (kh, kw, _, f) = x.shape, w_q.shape
+    if w_kmajor is not None and (
+            w_kmajor.dtype != torch.int8 or w_kmajor.device != x.device
+            or tuple(w_kmajor.shape) != (f, kh * kw * c)):
+        raise ValueError(f"static_int8_conv2d: w_kmajor must be the "
+                         f"({f}, {kh * kw * c}) int8 repack of w_q on "
+                         f"{x.device}; got {w_kmajor.dtype} "
+                         f"{tuple(w_kmajor.shape)} on {w_kmajor.device}")
     if not x.is_cuda:
         return static_int8_conv2d_reference(x, x_scale, w_q, w_scale, bias,
                                             relu, strides, dilation, pads)
+    return _launch_conv(x, x_scale, w_q, w_scale, bias, relu, strides,
+                        dilation, pads, w_kmajor)
+
+
+def _launch_conv(x, x_scale, w_q, w_scale, bias, relu, strides, dilation,
+                 pads, w_kmajor) -> torch.Tensor:
+    """C8 on checked operands: the plan, then the quantize pass and the
+    repack where the route reads them, and the GEMM's launch, counted."""
     (b, h, w, c), (kh, kw, _, f) = x.shape, w_q.shape
     ho, wo = _conv_geometry(x.shape, w_q.shape, strides, dilation, pads)
     if ho < 1 or wo < 1 or min(*strides, *dilation) < 1 or min(
@@ -478,24 +621,32 @@ def static_int8_conv2d(x: torch.Tensor, x_scale: torch.Tensor,
                          f"{strides}, dilation {dilation}, pads {pads}")
     if b * ho * wo >= 2 ** 31 or b * h * w * c >= 2 ** 31:
         raise ValueError("static_int8_conv2d: more than 2**31 elements")
+    m = b * ho * wo
+    route, tn, splits, per = conv_plan(m, f, kh * kw * c, c,
+                                       _sm_count(x.get_device()))
     out = torch.empty(b, ho, wo, f, dtype=torch.float32, device=x.device)
-    x = x.float().contiguous()
     xs = x_scale.reshape(1).float().contiguous()
-    w_q = w_q.contiguous()
+    if route == "c8_small_c":
+        src, wsrc = x.float().contiguous(), w_q.contiguous()
+    else:
+        src = static_int8_quantize(x, xs)
+        wsrc = (w_kmajor.contiguous() if w_kmajor is not None
+                else repack_conv_weight(w_q))
     s = w_scale.float().contiguous()
     bb = None if bias is None else bias.float().contiguous()
     (sh, sw), (dh, dw), ((lh, _), (lw, _)) = strides, dilation, pads
-    ints = _conv_plan(b * ho * wo, f, kh * kw * c, x.get_device())
+    ints = m * f if splits > 1 else 0
     ws = (torch.empty(ints, dtype=torch.int32, device=x.device)
           if ints else None)
-    splits = ctypes.c_int(0)
-    err = launch(LIBRARY_CONV.entry("int8_static_conv2d"), x, x.data_ptr(),
-                 xs.data_ptr(), w_q.data_ptr(), s.data_ptr(),
-                 None if bb is None else bb.data_ptr(), int(relu),
-                 out.data_ptr(), None if ws is None else ws.data_ptr(),
-                 ints, b, h, w, c, kh, kw, f, ho, wo, sh, sw, dh, dw, lh, lw,
-                 ctypes.byref(splits))
+    err = launch(LIBRARY_CONV.entry("int8_static_conv2d"), out,
+                 src.data_ptr(), xs.data_ptr(), wsrc.data_ptr(),
+                 s.data_ptr(), None if bb is None else bb.data_ptr(),
+                 int(relu), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(), ints, b, h, w, c,
+                 kh, kw, f, ho, wo, sh, sw, dh, dw, lh, lw,
+                 CONV_ROUTES[route], tn, splits, per)
     _raise_on(err, "static_int8_conv2d")
     KERNEL_INT8_CONV.launches += 1
-    LAST_CONV_LAUNCH.route, LAST_CONV_LAUNCH.splits = "c8", splits.value
+    KERNEL_INT8_CONV_ROUTES[route].launches += 1
+    LAST_CONV_LAUNCH.route, LAST_CONV_LAUNCH.splits = route, splits
     return out

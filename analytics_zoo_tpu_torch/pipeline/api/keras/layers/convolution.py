@@ -217,12 +217,15 @@ class Convolution2D(Layer):
         ``x_scale * w_scale``, then the f32 bias and the activation — the
         JAX order. All of it but an activation other than ReLU runs in
         kernel C8 (:func:`static_int8_conv2d`; its plain version on the
-        CPU)."""
+        CPU), on the K-major repack of ``W`` that the runtime made at
+        install (``W_kmajor``, a buffer kept out of every saved format)
+        where C8's route reads it."""
         relu = self.activation is ACTIVATIONS["relu"]
         y = static_int8_conv2d(x, self.x_scale, self.W, self.w_scale,
                                self.b if self.bias else None, relu,
                                self.subsample, self.dilation,
-                               self._pads(x))
+                               self._pads(x),
+                               w_kmajor=getattr(self, "W_kmajor", None))
         if self.activation is not None and not relu:
             y = self.activation(y)
         return y

@@ -33,7 +33,10 @@ calibrated layers' weights become int8 with their activation scale
 x int8 -> int32 product, the rescale, bias and ReLU in one kernel), above
 that the same ops in torch with the product on ``torch._int_mm``; a
 ``Convolution2D`` (and ``AtrousConvolution2D``, which keeps its ``call``)
-runs kernel C8 (``static_int8_conv2d``), the conv counterpart of Q8.
+runs kernel C8 (``static_int8_conv2d``), the conv counterpart of Q8; where
+C8's wgmma routes read the weight K-major, the rewrite repacks it once
+(``W_kmajor``, a non-persistent buffer: no checkpoint, ``.npz`` or param
+tree carries it).
 
 Model state (BatchNorm's moving statistics) is not a parameter: it stays
 f32 in every mode and moves to the device as it is, as the JAX runtime
@@ -56,8 +59,10 @@ from torch import nn
 from ...common.context import resolve_device
 from ...common.reliability import RetryPolicy
 from ...observability import default_registry
+from ...ops.pallas.quantized import conv_takes_kmajor, repack_conv_weight
 from ..api.keras.engine import (KerasNet, as_list, as_torch_dtype,
                                 intercept_layer_calls, written_state)
+from ..api.keras.layers.convolution import Convolution2D
 from ..api.keras.layers.core import Dense
 from ..api.keras.layers.self_attention import DenseParams
 
@@ -407,6 +412,13 @@ class InferenceModel:
                             child.register_buffer(key, t)
                         else:
                             _set_param(child, key, t)
+                    if isinstance(child, Convolution2D) and \
+                            conv_takes_kmajor(child.W.shape[2]):
+                        # C8's wgmma routes read W as (F, K), K contiguous:
+                        # repacked once here, never saved
+                        child.register_buffer(
+                            "W_kmajor", repack_conv_weight(child.W),
+                            persistent=False)
                     done.update(sub)
                 else:
                     rewrite(path + ".", child)

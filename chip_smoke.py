@@ -340,17 +340,25 @@
    plus badput is each ledger's wall on (c) and (d).
 17. Image phases (slice 19; fp32, TF32 off). (a) C8, the static int8
    conv: bits against its plain version (the exact float64 conv of the
-   int8 values) on the card, twice, and against the library route (im2col
-   and the padded ``_int_mm``) at every distinct conv of VGG-16's static
-   paths (batch 32 and 1 at 112 pixels), ResNet-50's and Inception-v1's
-   7x7/2 stems (XLA's (2, 3) pads) and a dilated ``AtrousConvolution2D``;
-   each timed beside its plain version, the library route, cuDNN's fp32
-   conv and its bound. (b) ``bench_int8_inference``: VGG-16 at 112
+   int8 values) on the card, twice (slice 20: the wrapper's own weight
+   repack, then one made beforehand), and against the library route
+   (im2col and the padded ``_int_mm``) at every distinct conv of VGG-16's
+   static paths (batch 32 and 1 at 112 pixels), ResNet-50's and
+   Inception-v1's 7x7/2 stems (XLA's (2, 3) pads) and a dilated
+   ``AtrousConvolution2D``; each with its route (``c8_wgmma``,
+   ``c8_split`` or ``c8_small_c``), timed beside its plain version, the
+   library route, cuDNN's fp32 conv and its bound, and on the wgmma
+   routes the quantize pass and the repack bit for bit their plain
+   versions and timed; C8's device ms summed over VGG-16's 13 convs at
+   batch 32 and 1. (b) ``bench_int8_inference``: VGG-16 at 112
    pixels, 8 classes, trained 3 epochs on 512 seeded prototype images,
    served fp32 and static int8 at batch 32 (``image_infer_*_fps``,
-   ``int8_top1_agreement_pct`` gated at 97.0), 13 C8 and 3 Q8 launches a
-   predict, the batch-1 device ms of each path, AlexNet's held-out top-1
-   fp32 and int8 after 16 epochs. (c) ``bench_transfer_learning``:
+   ``int8_top1_agreement_pct`` gated at 97.0), 12 weight repacks at the
+   static install, 13 C8 (1 ``c8_small_c``, 12 on the wgmma routes after
+   12 quantize passes, no repack) and 3 Q8 launches a predict, C8's
+   kernels' device ms in one batch-32 and one batch-1 forward (profiled),
+   the batch-1 device ms of each path, AlexNet's held-out top-1 fp32 and
+   int8 after 16 epochs. (c) ``bench_transfer_learning``:
    Inception-v1's pooled features (``new_graph(["gap"])``) of 2048
    images on the card, a ``Dense(2)`` head trained on them 2 epochs
    (``transfer_learn_imgs_per_sec``, median of 3). (d) ResNet-50 serving
@@ -371,8 +379,9 @@ keys are off) stream every batch through ``prefetch_to_device``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
-path; Q8's from config A's and VGG-16's static predicts, C8's from
-VGG-16's, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
+path; Q8's from config A's and VGG-16's static predicts, C8's and its
+quantize pass's from VGG-16's, its weight repack's from VGG-16's static
+install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
 32k shapes' fields; the attention kernels also checked against their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
@@ -6904,18 +6913,25 @@ def im2col_int_mm(x, xs, w_q, w_scale, bias, relu, strides, dilation, pads):
 def c8_kernel_phase():
     """C8 against its plain version (the exact float64 conv of the int8
     values, on the card) bit for bit at ``C8_CASES``, the same bits twice
-    and the same bits as the library route; each timed: the wrapper, its
-    CUDA-graph device time, the plain version, the library route (im2col
-    and the padded ``_int_mm``), cuDNN's fp32 conv at the same shape (TF32
-    off), and the bound."""
+    (the wrapper's own repack, then the one made beforehand) and the same
+    bits as the library route; the quantize pass and the repack bit for
+    bit their plain versions; each timed: the wrapper, its CUDA-graph
+    device time, the plain version, the library route (im2col and the
+    padded ``_int_mm``), cuDNN's fp32 conv at the same shape (TF32 off),
+    the bound, and on the wgmma routes the quantize pass's and the
+    repack's own device and wrapper times beside their plain versions'."""
     import torch
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_CONV, LAST_CONV_LAUNCH, static_int8_conv2d,
-        static_int8_conv2d_reference)
+        KERNEL_INT8_CONV, KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
+        LAST_CONV_LAUNCH, conv_takes_kmajor, quantize_static,
+        repack_conv_weight, repack_conv_weight_reference, static_int8_conv2d,
+        static_int8_conv2d_reference, static_int8_quantize)
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers.convolution \
         import o_major, same_pads
+    counters = (KERNEL_INT8_CONV, KERNEL_INT8_CONV_REPACK,
+                KERNEL_INT8_CONV_QUANTIZE)
     rows = {}
     for name, b, h, w, c, f, k, s, d, bias, relu in C8_CASES:
         g = torch.Generator().manual_seed(b * 131 + c * 7 + f + k)
@@ -6929,22 +6945,31 @@ def c8_kernel_phase():
         st, dil = (s, s), (d, d)
         pads = [same_pads(n, k, s, d) for n in (h, w)]
         args = (x, xs, wq, ws, bb, relu, st, dil, pads)
-        before = KERNEL_INT8_CONV.launches
-        out = static_int8_conv2d(*args)
-        splits = LAST_CONV_LAUNCH.splits
-        again = static_int8_conv2d(*args)
+        kmajor = conv_takes_kmajor(c)
+        before = [cnt.launches for cnt in counters]
+        out = static_int8_conv2d(*args)          # repacks the weight itself
+        route, splits = LAST_CONV_LAUNCH.route, LAST_CONV_LAUNCH.splits
+        wk = repack_conv_weight(wq) if kmajor else None
+        again = static_int8_conv2d(*args, w_kmajor=wk)
         torch.cuda.synchronize()
-        launches = KERNEL_INT8_CONV.launches - before
+        launches, repacks, quantizes = (cnt.launches - n for cnt, n in
+                                        zip(counters, before))
         ref = static_int8_conv2d_reference(*args)
         lib = im2col_int_mm(*args)
         same = {what: torch.equal(out.view(torch.int32),
                                   want.view(torch.int32))
                 for what, want in (("plain_cuda", ref), ("second_run", again),
                                    ("im2col_int_mm", lib))}
+        if kmajor:
+            same["quantize_pass"] = torch.equal(
+                static_int8_quantize(x, xs), quantize_static(x, xs))
+            same["repack"] = torch.equal(wk, repack_conv_weight_reference(wq))
         err = (out - ref).abs().max().item()
-        check(all(same.values()) and launches == 2,
+        check(all(same.values()) and launches == 2
+              and (repacks, quantizes) == ((2, 2) if kmajor else (0, 0)),
               f"C8 {name}: not the plain version's bits {same} (max |diff| "
-              f"{err}), launches {launches}")
+              f"{err}), launches {launches}, repacks {repacks}, quantize "
+              f"passes {quantizes}")
         m = out.shape[0] * out.shape[1] * out.shape[2]
         bound_ms, bound_by = c8_bound(m, k * k * c, f, x.numel(), bias)
         wf = o_major(wq.float())                        # cuDNN's layout
@@ -6953,12 +6978,13 @@ def c8_kernel_phase():
         iters = 20 if m * f * k * k * c < 1e10 else 5
         row = {"case": name, "batch": b, "hw": [h, w], "c": c, "f": f,
                "k": k, "stride": s, "dilation": d, "pads": pads,
-               "m": m, "kdim": k * k * c, "splits": splits,
+               "m": m, "kdim": k * k * c, "route": route, "splits": splits,
                "bit_equal": same,
                "max_abs_err": err, "launches": launches,
-               "ms": time_ms(lambda: static_int8_conv2d(*args), iters=iters),
-               "device_ms": graph_ms(lambda: static_int8_conv2d(*args),
-                                     iters=iters),
+               "ms": time_ms(lambda: static_int8_conv2d(*args, w_kmajor=wk),
+                             iters=iters),
+               "device_ms": graph_ms(lambda: static_int8_conv2d(
+                   *args, w_kmajor=wk), iters=iters),
                "plain_ms": time_ms(lambda: static_int8_conv2d_reference(
                    *args), iters=3, warmup=1),
                "library_ms": time_ms(lambda: im2col_int_mm(*args),
@@ -6968,11 +6994,84 @@ def c8_kernel_phase():
                    xf, wf.permute(3, 2, 0, 1), stride=st, padding=(lh, lw),
                    dilation=dil), iters=iters),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if kmajor:
+            kdim = k * k * c
+            row.update({
+                "quantize_ms": time_ms(lambda: static_int8_quantize(x, xs),
+                                       iters=iters),
+                "quantize_device_ms": graph_ms(
+                    lambda: static_int8_quantize(x, xs), iters=iters),
+                "quantize_plain_ms": time_ms(
+                    lambda: quantize_static(x, xs), iters=iters),
+                "quantize_bound_ms": x.numel() * 5 / PEAK_BYTES_PER_S * 1e3,
+                "repack_ms": time_ms(lambda: repack_conv_weight(wq),
+                                     iters=iters),
+                "repack_device_ms": graph_ms(
+                    lambda: repack_conv_weight(wq), iters=iters),
+                "repack_plain_ms": time_ms(
+                    lambda: repack_conv_weight_reference(wq), iters=iters),
+                "repack_bound_ms": 2 * kdim * f / PEAK_BYTES_PER_S * 1e3})
         rows[name] = row
         print(f"c8 kernel case {json.dumps(row)}")
-        del x, wq, out, again, ref, lib, xf, wf
+        del x, wq, out, again, ref, lib, xf, wf, wk
     torch.cuda.empty_cache()
     return rows
+
+
+#: how many of VGG-16's 13 convs each distinct shape of ``VGG_CONVS`` is
+VGG_CONV_COUNT = {(256, 256, 28): 2, (512, 512, 14): 2, (512, 512, 7): 3}
+
+
+def c8_profile(fn, gemms=13, tries=3):
+    """``fn()`` under ``torch.profiler``: the device ms of C8's kernels
+    (``conv_int8_*``) summed by kernel and in all, beside all the device
+    kernels' ms. CUPTI can drop records late in a long process, so a
+    trace that holds fewer than ``gemms`` of C8's GEMM kernels is taken
+    again, up to ``tries`` times; ``complete`` says whether the last one
+    held them all. None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        by_name, counts, total = {}, {}, 0.0
+        for e in prof.events():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or not is_kernel_event(e.name)):
+                continue
+            us = e.time_range.end - e.time_range.start
+            total += us
+            name = kernel_name(e.name)
+            if "conv_int8" in name:
+                by_name[name] = by_name.get(name, 0.0) + us / 1e3
+                counts[name] = counts.get(name, 0) + 1
+        found = sum(n for name, n in counts.items()
+                    if "wgmma" in name or "igemm" in name)
+        if found == gemms:
+            break
+    if not total:
+        return None
+    return {"c8_ms": sum(by_name.values()), "by_kernel": by_name,
+            "launches_by_kernel": counts, "complete": found == gemms,
+            "all_kernels_ms": total / 1e3}
+
+
+def c8_vgg_sums(c8_rows):
+    """C8's device ms (a CUDA-graph replay of the wrapper: the quantize
+    pass and the GEMM) summed over VGG-16's 13 convs at 112 pixels, batch
+    32 and batch 1, beside their bounds and cuDNN's fp32 convs."""
+    out = {}
+    for b in (32, 1):
+        rows = [(c8_rows[f"vgg_b{b}_{c}x{f}_{hw}"],
+                 VGG_CONV_COUNT.get((c, f, hw), 1))
+                for c, f, hw in VGG_CONVS]
+        for key in ("device_ms", "bound_ms", "cudnn_fp32_ms"):
+            out[f"vgg16_b{b}_{key}_sum"] = sum(r[key] * n for r, n in rows)
+    return out
 
 
 def c8_kernel_row(c8_rows, launches):
@@ -6994,11 +7093,54 @@ def c8_kernel_row(c8_rows, launches):
            "library_by": main["library_by"],
            "device_ms": main["device_ms"],
            "cudnn_fp32_ms": main["cudnn_fp32_ms"],
+           "main_route": main["route"],
+           **c8_vgg_sums(c8_rows),
            "cases": {name: {key: r[key] for key in (
                "ms", "device_ms", "plain_ms", "library_ms", "cudnn_fp32_ms",
-               "bound_ms", "bound_by", "launches", "splits")}
+               "bound_ms", "bound_by", "launches", "route", "splits",
+               "quantize_device_ms", "repack_device_ms") if key in r}
                for name, r in c8_rows.items()}}
     return row
+
+
+def c8_pass_rows(c8_rows, quantize_launches, repack_launches):
+    """The rows of C8's two passes in the kernels line, at VGG-16's
+    batch-32 conv1_2 (the quantize pass's largest input; the repack of its
+    weight): the quantize pass (its launches in the static predicts) and
+    the weight repack (its launches at the static install)."""
+    main = c8_rows["vgg_b32_64x64_112"]
+    replaces = ("analytics_zoo_tpu/pipeline/api/keras/layers/"
+                "convolution.py:138 (Convolution2D.quantized_call's "
+                "quantize; XLA, no Pallas kernel)")
+    src = "analytics_zoo_tpu_torch/csrc/conv_int8.cu"
+    kmajor = [r for r in c8_rows.values() if "quantize_ms" in r]
+    return [
+        {"name": "static_int8_quantize", "route": "cuda", "source": src,
+         "replaces": replaces,
+         "launches": sum(quantize_launches.values()),
+         "launches_by_path": quantize_launches,
+         "max_abs_err": 0 if all(r["bit_equal"]["quantize_pass"]
+                                 for r in kmajor) else None,
+         "ms": main["quantize_ms"], "device_ms": main["quantize_device_ms"],
+         "plain_ms": main["quantize_plain_ms"],
+         "bound_ms": main["quantize_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "library_by": "none: torch.quantize_per_tensor clips to -128 and "
+                       "multiplies by 1 / scale, another function"},
+        {"name": "repack_conv_weight", "route": "cuda", "source": src,
+         "replaces": "analytics_zoo_tpu/pipeline/api/keras/layers/"
+                     "convolution.py:139 (the HWIO int8 weight XLA's conv "
+                     "reads; no Pallas kernel)",
+         "launches": sum(repack_launches.values()),
+         "launches_by_path": repack_launches,
+         "max_abs_err": 0 if all(r["bit_equal"]["repack"]
+                                 for r in kmajor) else None,
+         "ms": main["repack_ms"], "device_ms": main["repack_device_ms"],
+         "plain_ms": main["repack_plain_ms"],
+         "bound_ms": main["repack_bound_ms"], "bound_by": "bytes",
+         "library_ms": main["repack_plain_ms"],
+         "library_by": "w.reshape(K, F).t().contiguous(), one copy kernel "
+                       "(also the plain version)"}]
 
 
 def image_int8_phase():
@@ -7011,8 +7153,10 @@ def image_int8_phase():
     (Adam 3e-4) scored on 512 held-out images fp32 and int8
     (``image_top1_*``, ``int8_top1_delta_pct``); the batch-1 device ms of
     each path's captured ``_forward`` (``image_infer_*_b1_fps``,
-    ``int8_b1_speedup``); C8's and Q8's launches in one batch-32 and one
-    batch-1 predict, and the device kernels of one static batch-1
+    ``int8_b1_speedup``); C8's weight repacks at the static install;
+    C8's (by route, with its quantize passes) and Q8's launches in one
+    batch-32 and one batch-1 predict, C8's kernels' device ms in one
+    forward of each, and the device kernels of one static batch-1
     forward."""
     import numpy as np
     import torch
@@ -7022,7 +7166,8 @@ def image_int8_phase():
     from analytics_zoo_tpu_torch.models.image.imageclassification import \
         ImageClassifier
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_CONV, KERNEL_INT8_STATIC)
+        KERNEL_INT8_CONV, KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
+        KERNEL_INT8_CONV_ROUTES, KERNEL_INT8_STATIC)
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
     init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
@@ -7047,11 +7192,19 @@ def image_int8_phase():
              * 0.8).astype(np.float32)
     xs = torch.from_numpy(np.stack([np.roll(xeval, i + 1, axis=0)
                                     for i in range(IMG_REPS)])).cuda()
+    KERNEL_INT8_CONV_REPACK.reset()
     models = {"fp32": InferenceModel().from_keras(m),
               "int8": InferenceModel().from_keras(m, quantize="int8",
                                                   calibrate=xeval[:8])}
+    torch.cuda.synchronize()
     check(len(models["int8"]._act_scales) == 16,
           f"VGG-16 calibrated {len(models['int8']._act_scales)} layers")
+    # C8's weight repack: once for each conv past the 3-channel stem, at
+    # the static install
+    out["repack_launches_install"] = KERNEL_INT8_CONV_REPACK.launches
+    check(out["repack_launches_install"] == 12,
+          f"static VGG-16 install: {out['repack_launches_install']} "
+          f"repacks")
     tops = {}
     for mode, im in models.items():
         def many(stacked):
@@ -7073,17 +7226,31 @@ def image_int8_phase():
     check(agree >= IMG_AGREE_FLOOR, f"int8_top1_agreement_pct {agree} "
           f"below the floor {IMG_AGREE_FLOOR}")
 
-    # C8's and Q8's launches a predict, batch 32 and batch 1
+    # C8's and Q8's launches a predict, batch 32 and batch 1: C8 on
+    # c8_small_c for the 3-channel conv, on its wgmma routes for the other
+    # 12 (each after one quantize pass, on the repack made at install)
     im8 = models["int8"]
+    c8_counters = {"c8": KERNEL_INT8_CONV, "q8": KERNEL_INT8_STATIC,
+                   "c8_quantize": KERNEL_INT8_CONV_QUANTIZE,
+                   "c8_repack": KERNEL_INT8_CONV_REPACK,
+                   **KERNEL_INT8_CONV_ROUTES}
     for tag, xb in (("b32", xeval), ("b1", xeval[:1])):
-        KERNEL_INT8_CONV.reset()
-        KERNEL_INT8_STATIC.reset()
+        for cnt in c8_counters.values():
+            cnt.reset()
         im8.predict(xb)
         torch.cuda.synchronize()
-        out[f"launches_{tag}"] = {"c8": KERNEL_INT8_CONV.launches,
-                                  "q8": KERNEL_INT8_STATIC.launches}
+        got = {key: cnt.launches for key, cnt in c8_counters.items()}
+        out[f"launches_{tag}"] = {"c8": got["c8"], "q8": got["q8"]}
+        out[f"c8_routes_{tag}"] = got
         check(out[f"launches_{tag}"] == {"c8": 13, "q8": 3},
               f"static VGG-16 {tag} predict: {out[f'launches_{tag}']}")
+        check(got["c8_small_c"] == 1
+              and got["c8_wgmma"] + got["c8_split"] == 12
+              and got["c8_quantize"] == 12 and got["c8_repack"] == 0,
+              f"static VGG-16 {tag} predict's C8 routes: {got}")
+        # C8's kernels' device time in one predict's forward, by kernel
+        out[f"c8_profile_{tag}"] = c8_profile(
+            lambda: im8._forward([torch.from_numpy(xb).cuda()]))
 
     # batch 1: the device time of each path's captured _forward
     x1 = torch.from_numpy(xeval[:1]).cuda()
@@ -7607,6 +7774,12 @@ def main() -> int:
     rows.append(c8_kernel_row(c8_rows, {
         "vgg16_static_b32": image_int8["launches_b32"]["c8"],
         "vgg16_static_b1": image_int8["launches_b1"]["c8"]}))
+    # slice 20: C8's quantize pass (in the predicts) and weight repack (at
+    # the static install)
+    rows += c8_pass_rows(c8_rows, {
+        "vgg16_static_b32": image_int8["c8_routes_b32"]["c8_quantize"],
+        "vgg16_static_b1": image_int8["c8_routes_b1"]["c8_quantize"]}, {
+        "vgg16_static_install": image_int8["repack_launches_install"]})
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
@@ -7625,6 +7798,8 @@ def main() -> int:
                       "resnet_serving": resnet_serving,
                       "resnet_training": resnet_training,
                       "reliability": reliability, "card": card}))
+    idle = [r["name"] for r in rows if not r["launches"]]
+    check(not idle, f"kernels never launched on their main path: {idle}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ cross_entropy = importlib.import_module(
 LIBRARIES = {"flash_attention_fwd": flash_attention.LIBRARY,
              "flash_attention_bwd": flash_attention.LIBRARY_BWD,
              "fused_cross_entropy": cross_entropy.LIBRARY,
-             "quantized": quantized.LIBRARY}
+             "quantized": quantized.LIBRARY,
+             "conv_int8": quantized.LIBRARY_CONV}
 
 
 def _copy(lib, tmp_path):
@@ -36,8 +37,9 @@ def _copy(lib, tmp_path):
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))
 def test_library_path_follows_the_shared_header(name, tmp_path):
-    """K2, K3a/K3b, K5a and K6 include ``hopper.cuh``: editing a copy of it
-    names a new library file, and the sources alone do not change."""
+    """K2, K3a/K3b, K5a, K6 and C8 include ``hopper.cuh``: editing a copy
+    of it names a new library file, and the sources alone do not
+    change."""
     lib, src = _copy(LIBRARIES[name], tmp_path)
     assert [h.name for h in cuda_build.included_headers(lib.sources, src)] \
         == ["hopper.cuh"]

@@ -1884,7 +1884,10 @@ def test_rrelu_draws_its_slopes_on_the_device_under_capture(cuda):
 #: (batch, h, w, c, f, k, stride, dilation, same): every conv shape of
 #: VGG-16 at 112 pixels (batch 1; batch 32 at its first and last block),
 #: the 7x7/2 stems of ResNet-50 and Inception-v1 (XLA's (2, 3) pads), a
-#: dilated AtrousConvolution2D, an odd K (45) and a 1x1 projection
+#: dilated AtrousConvolution2D, an odd K (45) and a 1x1 projection; then
+#: the wgmma routes at C in {16, 48, 64} with stride 2, dilation 2, XLA's
+#: asymmetric pads, F past a tile (130), F not a multiple of 4 (7), a 7x7/2
+#: on 16 channels and a many-tile 64-filter layer
 C8_CASES = ([(1, 112, 112, 3, 64, 3, 1, 1, True),
              (1, 112, 112, 64, 64, 3, 1, 1, True),
              (1, 56, 56, 64, 128, 3, 1, 1, True),
@@ -1899,7 +1902,13 @@ C8_CASES = ([(1, 112, 112, 3, 64, 3, 1, 1, True),
              (2, 112, 112, 3, 64, 7, 2, 1, True),
              (3, 33, 31, 16, 24, 3, 1, 2, True),
              (2, 17, 13, 5, 7, 3, 2, 1, False),
-             (4, 28, 28, 256, 512, 1, 2, 1, True)])
+             (4, 28, 28, 256, 512, 1, 2, 1, True),
+             (2, 12, 12, 16, 24, 3, 2, 1, True),
+             (1, 11, 12, 48, 7, 3, 2, 2, False),
+             (2, 8, 8, 64, 130, 3, 1, 2, True),
+             (3, 13, 11, 16, 64, 7, 2, 1, True),
+             (32, 28, 28, 64, 64, 3, 1, 1, True),
+             (2, 56, 56, 64, 200, 3, 1, 1, True)])
 
 
 def _c8_operands(case, seed):
@@ -1925,16 +1934,27 @@ def _c8_operands(case, seed):
 def test_c8_is_its_plain_version_bit_for_bit(cuda, case, relu):
     """C8 against its plain version (the exact float64 conv of the int8
     values, on the card; small shapes on the CPU too): the same bits, the
-    same bits twice, one launch a call."""
+    same bits twice and with the weight repacked beforehand, one launch a
+    call, on the route ``conv_plan`` names for the shape."""
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_CONV, static_int8_conv2d, static_int8_conv2d_reference)
+        KERNEL_INT8_CONV, KERNEL_INT8_CONV_ROUTES, LAST_CONV_LAUNCH,
+        conv_plan, repack_conv_weight, static_int8_conv2d,
+        static_int8_conv2d_reference)
     x, xs, wq, ws, bias, st, dil, pads = _c8_operands(case, sum(case[:6]))
     dev = [t.to(cuda) for t in (x, xs, wq, ws, bias)]
     before = KERNEL_INT8_CONV.launches
     got = static_int8_conv2d(*dev, relu, st, dil, pads)
-    again = static_int8_conv2d(*dev, relu, st, dil, pads)
+    route = LAST_CONV_LAUNCH.route
+    routed = KERNEL_INT8_CONV_ROUTES[route].launches
+    again = static_int8_conv2d(*dev, relu, st, dil, pads,
+                               w_kmajor=repack_conv_weight(dev[2]))
     torch.cuda.synchronize()
     assert KERNEL_INT8_CONV.launches == before + 2
+    assert KERNEL_INT8_CONV_ROUTES[route].launches == routed + 1
+    m = got.shape[0] * got.shape[1] * got.shape[2]
+    assert route == conv_plan(m, case[4], case[5] ** 2 * case[3], case[3],
+                              torch.cuda.get_device_properties(
+                                  0).multi_processor_count)[0]
     wants = [again.cpu(),
              static_int8_conv2d_reference(*dev, relu, st, dil, pads).cpu()]
     if x.numel() * wq.shape[-1] < 2 ** 24:
@@ -1970,7 +1990,8 @@ def test_static_int8_vgg16_forward_launches_c8_once_per_conv(cuda):
     from analytics_zoo_tpu_torch.models.image.imageclassification import \
         ImageClassifier
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_CONV, KERNEL_INT8_STATIC)
+        KERNEL_INT8_CONV, KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
+        KERNEL_INT8_CONV_ROUTES, KERNEL_INT8_STATIC)
     init_zoo_context(conf={"zoo.seed": 0})
     m = ImageClassifier("vgg-16", num_classes=8, input_shape=(32, 32, 3),
                         device="cpu").init_weights()
@@ -1981,11 +2002,105 @@ def test_static_int8_vgg16_forward_launches_c8_once_per_conv(cuda):
     ref = InferenceModel(device="cpu").from_keras(m, quantize="int8",
                                                   calibrate=x[:2])
     assert len(im._act_scales) == 16
-    before = (KERNEL_INT8_CONV.launches, KERNEL_INT8_STATIC.launches)
+    counters = [KERNEL_INT8_CONV, KERNEL_INT8_STATIC,
+                KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
+                *KERNEL_INT8_CONV_ROUTES.values()]
+    before = [c.launches for c in counters]
     with torch.no_grad():
         out = im._forward([torch.from_numpy(x).cuda()])
     torch.cuda.synchronize()
-    assert (KERNEL_INT8_CONV.launches - before[0],
-            KERNEL_INT8_STATIC.launches - before[1]) == (13, 3)
+    conv, static, quantize, repack, small_c, wgmma, split = (
+        c.launches - n for c, n in zip(counters, before))
+    assert (conv, static) == (13, 3)
+    # the 3-channel conv quantizes on load; the other 12 run the quantize
+    # pass and the wgmma routes on the repack made at install
+    assert (small_c, wgmma + split, quantize, repack) == (1, 12, 12, 0)
     np.testing.assert_allclose(out.cpu().numpy(), ref.predict(x), rtol=1e-6,
                                atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(16, 0), (4096 * 64 + 5, 0),
+                                      (1000, 3), (7, 1),
+                                      (32 * 56 * 56 * 64, 0)])
+def test_c8_quantize_pass_is_quantize_static_bit_for_bit(cuda, n, offset):
+    """The quantize pass (16 elements a thread where x and the output lie
+    on 16 bytes, one where not) is ``quantize_static``'s bits: half-way
+    quotients, the clip, zeros, an odd length, an unaligned view."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV_QUANTIZE, quantize_static, static_int8_quantize)
+    g = torch.Generator().manual_seed(n)
+    xs = torch.tensor(0.0371, device=cuda)
+    base = (torch.randn(n + offset, generator=g) * 3).to(cuda)
+    k = min(n, 261)
+    base[offset:offset + k] = (torch.arange(k, device=cuda) - 130 + 0.5
+                               ) * xs
+    x = base[offset:]
+    before = KERNEL_INT8_CONV_QUANTIZE.launches
+    got = static_int8_quantize(x, xs)
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_CONV_QUANTIZE.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    assert torch.equal(got, quantize_static(x, xs))
+    assert torch.equal(got.cpu(), quantize_static(x.cpu(), xs.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 3, 64, 64), (3, 3, 512, 512),
+                                   (7, 7, 3, 64), (1, 1, 16, 7),
+                                   (3, 3, 48, 130)])
+def test_c8_repack_is_its_plain_version(cuda, shape):
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV_REPACK, repack_conv_weight,
+        repack_conv_weight_reference)
+    g = torch.Generator().manual_seed(sum(shape))
+    w = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    before = KERNEL_INT8_CONV_REPACK.launches
+    got = repack_conv_weight(w.to(cuda))
+    torch.cuda.synchronize()
+    assert KERNEL_INT8_CONV_REPACK.launches == before + 1
+    assert torch.equal(got.cpu(), repack_conv_weight_reference(w))
+
+
+@pytest.mark.cuda
+def test_c8_cases_cover_every_route(cuda):
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import conv_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes = set()
+    for b, h, w, c, f, k, s, d, same in C8_CASES:
+        ho = -(-h // s) if same else (h - (k - 1) * d - 1) // s + 1
+        wo = -(-w // s) if same else (w - (k - 1) * d - 1) // s + 1
+        routes.add(conv_plan(b * ho * wo, f, k * k * c, c, sms)[0])
+    assert routes == {"c8_small_c", "c8_wgmma", "c8_split"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [32, 1])
+def test_static_int8_vgg16_forward_is_the_plain_forwards_bits(
+        cuda, batch, monkeypatch):
+    """A static int8 VGG-16 forward on the card gives the bits of the same
+    forward with every conv on ``static_int8_conv2d_reference`` (Q8 and
+    the other layers as they are): C8's routes change no bit."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import \
+        ImageClassifier
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import \
+        static_int8_conv2d_reference
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
+        convolution
+    init_zoo_context(conf={"zoo.seed": 0})
+    m = ImageClassifier("vgg-16", num_classes=8, input_shape=(32, 32, 3),
+                        device="cpu").init_weights()
+    x = np.random.default_rng(1).normal(size=(batch, 32, 32, 3)).astype(
+        np.float32)
+    im = InferenceModel(device="cuda").from_keras(m, quantize="int8",
+                                                  calibrate=x[:2])
+    xt = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        got = im._forward([xt])
+        torch.cuda.synchronize()
+
+        def plain(*args, w_kmajor=None, **kwargs):
+            return static_int8_conv2d_reference(*args, **kwargs)
+        monkeypatch.setattr(convolution, "static_int8_conv2d", plain)
+        want = im._forward([xt])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
