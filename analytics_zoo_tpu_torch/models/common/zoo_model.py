@@ -172,7 +172,10 @@ def _populate_registry() -> None:
     any zoo model module was imported."""
     import importlib
     for mod in ("analytics_zoo_tpu_torch.models.recommendation",
+                "analytics_zoo_tpu_torch.models.anomalydetection",
+                "analytics_zoo_tpu_torch.models.textclassification",
                 "analytics_zoo_tpu_torch.models.textmatching",
+                "analytics_zoo_tpu_torch.models.seq2seq",
                 "analytics_zoo_tpu_torch.models.image",
                 "analytics_zoo_tpu_torch.tfpark.bert_classifier",
                 "analytics_zoo_tpu_torch.tfpark.bert_ner"):

@@ -255,13 +255,14 @@ def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """The exact int32 product of int8 ``xq (..., K)`` and ``wq (K, N)``
     through ``torch._int_mm`` (the JAX package leaves this product to XLA,
     not to a Pallas kernel). On CUDA ``_int_mm`` takes only M > 16 and K,
-    N multiples of 8: rows and columns are zero-padded to that, which adds
-    exact zeros, and the result is sliced back."""
+    N multiples of 8, and on the H100 cuBLASLt refuses K under 128 at up to
+    40 rows: rows, the reduction and columns are zero-padded to that, which
+    adds exact zeros, and the result is sliced back."""
     lead, k, n = xq.shape[:-1], xq.shape[-1], wq.shape[1]
     a = xq.reshape(-1, k)
     m = a.shape[0]
     if xq.device.type == "cuda":
-        pk, pn = -k % 8, -n % 8
+        pk, pn = max(128, k + -k % 8) - k, -n % 8
         pm = max(17 - m, 0)
         if pm or pk:
             a = F.pad(a, (0, pk, 0, pm))

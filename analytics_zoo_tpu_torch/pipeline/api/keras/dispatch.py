@@ -54,7 +54,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -279,28 +279,40 @@ class StepProgram:
             if self.scalars is not None:
                 rows = (guard.count - guard.base) + self.steps[:k]
                 self.scalars[:k].copy_(scalars.index_select(0, rows))
-            self.base.copy_(guard.count)
             if self.fault is not None:
                 _copy_in(self.fault[:k], fault)
         if self.cuda:
-            graph, launches = self._graph(k)
-            # seeded after the capture (and its warm-up step's draws): a
-            # replay draws from each generator's seed and offset as they
-            # stand when it starts
-            for j in range(k):
-                s = step_seed(seed, iteration + j)
-                self.noise[j].manual_seed(s)
-                if self.twins:
-                    self.twins[j].manual_seed(s)
-            graph.replay()
-            launches.replayed()
+            self.replay(k, [step_seed(seed, iteration + j) for j in range(k)])
         else:
+            self._start_block()
             self.noise = [torch.Generator().manual_seed(
                 step_seed(seed, iteration + j)) for j in range(k)]
             self._steps(k)
         if guard is None:
             return self.losses[:k].clone()
         return self.losses[:k].clone(), self.flags[:k]
+
+    def replay(self, k: int, seeds: Sequence[int]) -> None:
+        """Replays the ``k``-step graph, captured at its first call, on
+        what ``inputs`` and the step tables hold: guarded, the block's
+        start count is the guard's count; each step's generator (and its
+        twin) is seeded from ``seeds``."""
+        self._start_block()
+        graph, launches = self._graph(k)
+        # seeded after the capture (and its warm-up step's draws): a
+        # replay draws from each generator's seed and offset as they
+        # stand when it starts
+        for j, s in enumerate(seeds):
+            self.noise[j].manual_seed(s)
+            if self.twins:
+                self.twins[j].manual_seed(s)
+        graph.replay()
+        launches.replayed()
+
+    def _start_block(self) -> None:
+        # guarded, the block's start count: the guard's count before it
+        if self.guard is not None:
+            self.base.copy_(self.guard.count)
 
     def _steps(self, k: int) -> None:
         for j in range(k):

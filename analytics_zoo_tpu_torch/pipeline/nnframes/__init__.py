@@ -1,8 +1,9 @@
 """Port of ``analytics_zoo_tpu/pipeline/nnframes``: the columnar-table ML
 pipeline (``NNEstimator``, ``NNModel``, ``NNClassifier``,
-``NNClassifierModel``). ``NNImageReader`` waits for the image features,
-which are not ported yet."""
+``NNClassifierModel``) and ``NNImageReader``."""
 
 from .nn_estimator import NNClassifier, NNClassifierModel, NNEstimator, NNModel
+from .nn_image_reader import NNImageReader
 
-__all__ = ["NNEstimator", "NNModel", "NNClassifier", "NNClassifierModel"]
+__all__ = ["NNEstimator", "NNModel", "NNClassifier", "NNClassifierModel",
+           "NNImageReader"]

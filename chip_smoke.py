@@ -368,6 +368,28 @@
    ``cudnn.deterministic``): eager and ``scan_steps`` 8 samples/s and
    busy share, the captured fit's losses and moving statistics the eager
    fit's bits, and a ``recover`` skip keeping the statistics' bits.
+18. Recurrent and 3D phases (slice 21). (a) ``TextClassifier`` at the
+   class defaults (200-wide tokens, 500 a sequence, encoder output 256,
+   20 classes) on a seeded frozen 5,000 x 200 ``WordEmbedding``: the cnn,
+   lstm and gru encoders fitted eager and captured (``scan_steps`` 4,
+   batch 128; samples/s, busy share, capture seconds and the graph's
+   kernel nodes; the captured step losses gated to the eager bits), then
+   the cnn and lstm classifiers served in fp32, weight-only and static
+   int8 (chunks of 32) and through a one-lane ``ClusterServing``:
+   records/s, top-1 agreement with fp32, K6 (skinny) and Q8 launches on
+   the two Dense layers gated. (b) ``AnomalyDetector`` at
+   examples/anomaly_detection.py's configuration on a seeded
+   100,000-point series (``detect_anomalies`` over all of it),
+   ``SessionRecommender`` at its defaults with history
+   (``recommend_for_session``), ``Seq2seq`` at
+   examples/seq2seq_chatbot.py's configuration and as a two-layer GRU
+   with ``densenonlinear`` (``infer`` with a stop sign): each fitted
+   eager and captured, the bits gated. (c) ``ConvLSTM2D(64, 3)`` on
+   Moving-MNIST's (16, 10, 64, 64, 1) and C3D's conv1a (``Convolution3D``
+   3 -> 64, (8, 16, 112, 112, 3)): ms a training step. (d) The JAX
+   bench's ``sentinel`` channel: ``sentinel_overhead_pct`` at the NCF
+   shape on captured 16-step dispatches, off and recover windows
+   interleaved, median of 5 (printed, not gated).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -379,7 +401,9 @@ keys are off) stream every batch through ``prefetch_to_device``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
-path; Q8's from config A's and VGG-16's static predicts, C8's and its
+path; K6's also from TextClassifier's weight-only int8 predicts and
+served lane, Q8's from config A's, VGG-16's and TextClassifier's static
+predicts, C8's and its
 quantize pass's from VGG-16's, its weight repack's from VGG-16's static
 install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
@@ -393,7 +417,6 @@ CUDA device, outside the repository, or when any check fails.
 """
 
 import contextlib
-import ctypes
 import gc
 import json
 import math
@@ -404,6 +427,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the CUDA-graph kernel-node reader (no CUDA work at import); outside a
+# checkout of the repository this import fails and the script exits non-zero
+from analytics_zoo_tpu_torch.ops.graph_kernels import (  # noqa: E402
+    demangle, device_kernels, graph_kernel_names, is_kernel_event,
+    kernel_name)
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
@@ -528,17 +557,21 @@ HEAD_D, HEAD_CLASSES, HEAD_ROWS = 4096, 8, 256
 #: K6's cases (M, K, N, fused bias + ReLU): the head at batch 1, 8 and
 #: 32 and at 32 with the dense layer's epilogue fused, BERT-base's qkv and
 #: fc/out products at 32 x 512 tokens, BERT's Dense(2) head, a ragged one,
-#: and a tile-path shape TMA cannot address (K % 8, N % 16 not 0)
+#: and a tile-path shape TMA cannot address (K % 8, N % 16 not 0); then
+#: TextClassifier's Dense(128, relu) and Dense(20) at batch 32
 INT8_CASES = [(1, 4096, 4096, False), (8, 4096, 4096, False),
               (32, 4096, 4096, False), (32, 4096, 4096, True),
               (16384, 768, 2304, False), (16384, 3072, 768, False),
               (32, 768, 2, False), (17, 100, 10, False),
-              (300, 100, 130, False)]
+              (300, 100, 130, False), (32, 256, 128, True),
+              (32, 128, 20, False)]
 #: Q8's cases (M, K, N): the head's three Dense(4096) layers at batch 1,
-#: 7 and 32, its Dense(8) layer at 1 and 32, and a K that is not a
-#: multiple of 32; each without and with the bias and the fused ReLU
+#: 7 and 32, its Dense(8) layer at 1 and 32, a K that is not a multiple
+#: of 32, and TextClassifier's Dense(128) and Dense(20) at batch 32; each
+#: without and with the bias and the fused ReLU
 STATIC_CASES = [(1, 4096, 4096), (7, 4096, 4096), (32, 4096, 4096),
-                (1, 4096, 8), (32, 4096, 8), (5, 1000, 4096)]
+                (1, 4096, 8), (32, 4096, 8), (5, 1000, 4096),
+                (32, 256, 128), (32, 128, 20)]
 #: the JAX bench's floor on fp32 / static int8 batch-1 ms of config A
 #: (int8_stream_b1_speedup, bench.py:1524)
 STATIC_B1_FLOOR = 1.5
@@ -1791,7 +1824,9 @@ def static_int8_kernel_row(static_rows, launches):
                main["padded_int_mm_path_device_ms"],
            "splits": main["splits"]}
     for tag, case in (("b32", "32x4096x4096_bias_relu"),
-                      ("dense8_b1", "1x4096x8_bias_relu")):
+                      ("dense8_b1", "1x4096x8_bias_relu"),
+                      ("text_fc1", "32x256x128_bias_relu"),
+                      ("text_fc2", "32x128x20_bias_relu")):
         for key in ("ms", "device_ms", "plain_ms", "library_ms",
                     "library_device_ms", "bound_ms", "splits"):
             row[f"{key}_{tag}"] = static_rows[case][key]
@@ -1824,132 +1859,6 @@ def rel_err(a, b):
     """Largest elementwise |a - b| / |b| (|b| floored at 1e-6)."""
     import numpy as np
     return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
-
-
-def kernel_name(raw):
-    """A device kernel's name without its return type, its namespaces and
-    its argument list, its template arguments kept: ``void
-    (anonymous namespace)::ce_fwd_wgmma<256>(float const*, ...)`` reads
-    ``ce_fwd_wgmma<256>``, ``void at::native::vectorized_elementwise_
-    kernel<4, ...>(...)`` reads ``vectorized_elementwise_kernel<4, ...>``
-    (cut to 80 characters)."""
-    s = raw.replace("(anonymous namespace)::", "")
-    if s.startswith("void "):
-        s = s[len("void "):]
-    depth, end, start = 0, len(s), 0
-    for i, ch in enumerate(s):
-        if ch == "<":
-            depth += 1
-        elif ch == ">":
-            depth -= 1
-        elif depth == 0 and ch == "(":
-            end = i
-            break
-        elif depth == 0 and s.startswith("::", i):
-            start = i + 2
-    return s[start:end][:80]
-
-
-def is_kernel_event(name):
-    """A profiler device record that is a kernel launch, not a copy or a
-    fill."""
-    return not name.startswith(("Memcpy", "Memset"))
-
-
-class KernelNodeParams(ctypes.Structure):
-    """The driver's ``CUDA_KERNEL_NODE_PARAMS_v2`` (``cuda.h``, CUDA 12)."""
-    _fields_ = ([("func", ctypes.c_void_p)]
-                + [(f, ctypes.c_uint) for f in (
-                    "grid_x", "grid_y", "grid_z", "block_x", "block_y",
-                    "block_z", "shared_bytes")]
-                + [("kernel_params", ctypes.c_void_p),
-                   ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
-                   ("ctx", ctypes.c_void_p)])
-
-
-#: ``CUgraphNodeType``: a kernel, and a child graph
-GRAPH_NODE_KERNEL, GRAPH_NODE_GRAPH = 0, 4
-
-
-def graph_kernel_names(graph):
-    """The (mangled) names of the kernel nodes of a CUDA graph
-    (``cudaGraph_t``, the driver's ``CUgraph``), child graphs' too, in the
-    driver's node order, which for one stream's capture is the order of
-    the launches. Read through the driver API (``cuFuncGetName`` and
-    ``cuKernelGetName`` need a CUDA 12.3 driver)."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    ptr = ctypes.c_void_p
-
-    def call(name, *args):
-        code = getattr(cu, name)(*args)
-        if code:
-            raise RuntimeError(f"CUDA driver error {code} in {name}")
-
-    count = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", ptr(graph), None, ctypes.byref(count))
-    nodes = (ptr * count.value)()
-    call("cuGraphGetNodes", ptr(graph), nodes, ctypes.byref(count))
-    names = []
-    for node in nodes[:count.value]:
-        kind = ctypes.c_int()
-        call("cuGraphNodeGetType", ptr(node), ctypes.byref(kind))
-        if kind.value == GRAPH_NODE_GRAPH:
-            child = ptr()
-            call("cuGraphChildGraphNodeGetGraph", ptr(node),
-                 ctypes.byref(child))
-            names += graph_kernel_names(child.value)
-        elif kind.value == GRAPH_NODE_KERNEL:
-            params, name = KernelNodeParams(), ctypes.c_char_p()
-            call("cuGraphKernelNodeGetParams_v2", ptr(node),
-                 ctypes.byref(params))
-            if params.func:
-                call("cuFuncGetName", ctypes.byref(name), ptr(params.func))
-            else:
-                call("cuKernelGetName", ctypes.byref(name),
-                     ptr(params.kern))
-            names.append(name.value.decode())
-    return names
-
-
-def demangle(names):
-    """Itanium-mangled C++ names through ``c++filt`` (binutils, beside the
-    host compiler that ``nvcc`` needs); unchanged where it is not on the
-    path, which the callers' checks allow: they look for a kernel's own
-    name inside the string."""
-    tool = shutil.which("c++filt")
-    if tool is None or not names:
-        return list(names)
-    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
-                         text=True, check=True).stdout.splitlines()
-    return out if len(out) == len(names) else list(names)
-
-
-def device_kernels(fn):
-    """The names (:func:`kernel_name`) of the device kernels one call of
-    ``fn`` launches: a warm-up call on a side stream, then one call
-    captured into a CUDA graph, whose kernel nodes are read through the
-    driver API (:func:`graph_kernel_names`); copies and fills are other
-    node types. ``torch.profiler`` read these before: on the card its
-    CUPTI records of such short captures lost their first kernel in some
-    runs and, in one run of the whole script, came back empty three times
-    in a row. A graph holds every launch of the call. Each caller's ``fn``
-    is one that :func:`graph_ms` captures as well; a call that launches no
-    kernel fails."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    names = [kernel_name(n) for n in demangle(graph_kernel_names(
-        graph.raw_cuda_graph()))]
-    del graph
-    check(names, "the captured call launched no device kernel")
-    return names
 
 
 class unfused_epilogue:
@@ -3406,7 +3315,9 @@ def int8_kernel_row(int8_rows, launches, launches_by_route):
     for tag, case in (("head_b1", "float32_1x4096x4096"),
                       ("head_b32", "float32_32x4096x4096"),
                       ("head_b1_bf16", "bfloat16_1x4096x4096"),
-                      ("head_b32_bf16", "bfloat16_32x4096x4096")):
+                      ("head_b32_bf16", "bfloat16_32x4096x4096"),
+                      ("text_fc1", "float32_32x256x128_bias_relu"),
+                      ("text_fc2", "float32_32x128x20")):
         for key in ("ms", "device_ms", "plain_ms", "library_ms",
                     "library_device_ms", "bound_ms", "splits"):
             row[f"{key}_{tag}"] = int8_rows[case][key]
@@ -7642,6 +7553,551 @@ def resnet_training_phase():
         torch.backends.cudnn.deterministic = False
 
 
+# ---------------------------------------------------------------------------
+# slice 21: the recurrent family (TextClassifier, AnomalyDetector,
+# SessionRecommender, Seq2seq), ConvLSTM2D and Convolution3D, and the JAX
+# bench's sentinel channel
+# ---------------------------------------------------------------------------
+
+#: TextClassifier at the class defaults (200-wide tokens, 500 a sequence,
+#: encoder output 256), news20's 20 classes, a frozen 5,000 x 200 table
+TC_VOCAB, TC_DIM, TC_SEQ, TC_OUT, TC_CLASSES = 5000, 200, 500, 256, 20
+TC_BATCH, TC_ROWS, TC_SCAN = 128, 512, 4
+#: the fits' timed epochs (eager, captured) by encoder: windows of about
+#: half a second or more on the H100
+TC_EPOCHS = {"cnn": (24, 24), "lstm": (1, 3), "gru": (1, 2)}
+#: records served a window (about 0.2-0.4 s for cnn, 0.5 s for lstm on
+#: the H100), windows a mode, the modes in turns
+TC_SERVE_ROWS = {"cnn": 8192, "lstm": 128}
+TC_SERVE_WINDOWS = 3
+#: int8 against fp32: the least top-1 agreement (the VGG-16 phase's
+#: floor); the weight-only forward against the same forward on K6's
+#: plain version, on the probabilities (4.5e-8 at most on the H100)
+TC_TOP1_FLOOR_PCT, TC_PLAIN_TOL = 97.0, 1e-6
+#: examples/anomaly_detection.py: unroll 24, one feature, hidden (8, 32,
+#: 15), batch 64; a seeded 100,000-point series
+AD_POINTS, AD_UNROLL, AD_BATCH, AD_ROWS, AD_SCAN = 100_000, 24, 64, 1024, 8
+AD_EPOCHS = (1, 5)
+#: SessionRecommender at its defaults with history on (10 items a session
+#: and of history)
+SR_ITEMS, SR_BATCH, SR_ROWS, SR_SCAN = 10_000, 512, 4096, 8
+SR_EPOCHS = (2, 14)
+#: examples/seq2seq_chatbot.py: a 12-token vocabulary, 6 steps, batch 64
+S2S_VOCAB, S2S_T, S2S_BATCH, S2S_ROWS, S2S_SCAN = 12, 6, 64, 768, 12
+#: timed epochs (eager, captured): the LSTM, the two-layer GRU
+S2S_EPOCHS = ((3, 18), (2, 10))
+#: ConvLSTM2D(64, 3) on Moving-MNIST's (10, 64, 64, 1) clips, batch 16
+#: (Shi et al., 2015), and C3D's first layer, Convolution3D 3 -> 64
+#: 3x3x3 on (16, 112, 112, 3) clips, batch 8 (Tran et al., 2015)
+CONV3D_STEPS = 3
+CLSTM_CLIPS, CLSTM_FILTERS = (16, 10, 64, 64, 1), 64
+C3D_CLIPS, C3D_FILTERS = (8, 16, 112, 112, 3), 64
+#: the JAX bench's sentinel channel (bench.py:847-860): NCF at 6040 x
+#: 3706 x 5, batch 8192, 16-step captured dispatches
+SENTINEL_STEPS, SENTINEL_CEILING_PCT = 16, 3.0
+
+
+def replay_ms(program, k, reps=3):
+    """Device ms of one replay of a training loop's captured ``k``-step
+    block (``StepProgram.replay``; CUDA events around ``reps`` back-to-back
+    replays after one untimed replay): its kernels run without host gaps,
+    so this is the replay's busy time."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    seeds = list(range(k))
+    program.replay(k, seeds)
+    start.record()
+    for _ in range(reps):
+        program.replay(k, seeds)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def capture_seconds(model):
+    """The seconds the loop's registry has counted capturing training
+    steps (``zoo_jit_compile_seconds`` of ``train.scan_chunk``), over the
+    process so far."""
+    hist = model._loop._registry.snapshot().get(
+        'zoo_jit_compile_seconds{fn="train.scan_chunk"}', {})
+    return hist.get("sum", 0.0)
+
+
+def rnn_fit_in_turns(name, build, x, y, loss, batch, scan, epochs, lr=1e-3):
+    """``build()``'s model (the seeded weights, names from a reset uid
+    counter) fitted eager, then captured (``zoo.train.scan_steps`` =
+    ``scan``, unshuffled as the eager fit), cuDNN deterministic: a
+    warm-up epoch (the capture) and then ``epochs`` (eager, captured)
+    timed epochs, a fixed count (so the model each mode leaves is the
+    same in every run) sized for windows of about half a second on the
+    H100. The busy share: eager, of one profiled step; captured, the
+    replays' device time (CUDA events) over the timed epochs' wall.
+    Returns each mode's samples/s, ms a step, busy share and
+    first two epochs' step losses (the captured mode's capture seconds,
+    as production captures, and the kernel nodes of one step, from a
+    capture of its own) and the captured model; gates the captured step
+    losses to the eager ones' bits."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    n = len(x[0]) if isinstance(x, list) else len(x)
+    steps = n // batch
+    check(n % batch == 0 and steps % scan == 0,
+          f"{name}: {n} rows must be whole chunks of {scan} steps of {batch}")
+    x1 = [a[:batch] for a in x] if isinstance(x, list) else x[:batch]
+    runs, model = {}, None
+    # cuDNN's conv backward sums with atomics unless deterministic: the
+    # bits then differ between any two fits, captured or not
+    torch.backends.cudnn.deterministic = True
+    for mode in ("eager", "captured"):
+        del model
+        gc.collect()
+        conf = {"zoo.seed": 0}
+        if mode == "captured":
+            conf["zoo.train.scan_steps"] = scan
+        init_zoo_context(conf=conf)
+        reset_uids()
+        model = build()
+        model.compile(optimizer="adam", loss=loss, lr=lr)
+        captures = capture_seconds(model)
+        t0 = time.perf_counter()
+        model.fit(x, y, batch_size=batch, nb_epoch=1, shuffle=False)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        losses = list(model._loop.step_losses)
+        timed = epochs[0] if mode == "eager" else epochs[1]
+        t0 = time.perf_counter()
+        for epoch in range(timed):
+            model.fit(x, y, batch_size=batch, nb_epoch=1, shuffle=False)
+            if epoch == 0:
+                losses += model._loop.step_losses
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"samples_per_s": timed * n / wall,
+               "ms_per_step": 1e3 * wall / (timed * steps),
+               "timed_epochs": timed,
+               "first_epoch_s": first, "step_losses": np.concatenate(losses)}
+        if mode == "eager":
+            share, kernel_ms = profiled_busy_share(lambda: model.fit(
+                x1, y[:batch], batch_size=batch, nb_epoch=1, shuffle=False))
+            run.update(busy_share=share, profiled_step_kernel_ms=kernel_ms)
+            how = "of a profiled step"
+        else:
+            program = model._loop._program[1]
+            run["capture_s"] = capture_seconds(model) - captures
+            run["replay_ms"] = replay_ms(program, scan)
+            share = run["replay_ms"] * timed * (steps // scan) / (1e3 * wall)
+            run["busy_share"] = share
+            # one step captured on its own (it also runs once, as the
+            # capture's warm-up): the loop's graphs are kept as production
+            # builds them, which frees each graph's nodes once instantiated
+            run["step_kernel_nodes"] = len(device_kernels(
+                lambda: program._steps(1), program.noise[:1]))
+            how = (f"(replays' device time over the epochs); capture "
+                   f"{run['capture_s']:.2f}s, {run['step_kernel_nodes']} "
+                   f"kernel nodes a step, a {scan}-step replay "
+                   f"{run['replay_ms']:.3f} ms")
+        print(f"{name} {mode}: {timed} x {steps} steps of {batch} in "
+              f"{wall:.3f}s = {run['samples_per_s']:.1f} samples/s, "
+              f"{run['ms_per_step']:.2f} ms/step (first epoch {first:.2f}s)"
+              f"; device busy "
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f" {how}")
+        runs[mode] = run
+    torch.backends.cudnn.deterministic = False
+    want, got = runs["eager"]["step_losses"], runs["captured"]["step_losses"]
+    bits = (len(got) == len(want)
+            and bool(np.array_equal(got.view(np.int32), want.view(np.int32))))
+    print(f"{name}: captured vs eager, {len(want)} step losses, the same "
+          f"bits {bits}")
+    check(np.isfinite(want).all(), f"{name}: eager losses {want}")
+    check(bits, f"{name}: captured step losses {got} are not the eager "
+          f"fit's {want}")
+    for run in runs.values():
+        run["step_losses"] = run["step_losses"].tolist()
+    return runs, model
+
+
+@contextlib.contextmanager
+def plain_int8_dense():
+    """Within the block, ``Dense`` layers run K6's and Q8's plain versions
+    (``int8_matmul_reference``, ``static_int8_dense_reference``) where
+    they would launch the kernels."""
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        int8_matmul_reference, static_int8_dense_reference)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import core
+    kept = core.int8_matmul, core.static_int8_dense
+    core.int8_matmul = int8_matmul_reference
+    core.static_int8_dense = static_int8_dense_reference
+    try:
+        yield
+    finally:
+        core.int8_matmul, core.static_int8_dense = kept
+
+
+def text_classifier_serving(name, model, xs):
+    """``model`` through ``InferenceModel`` in fp32, weight-only int8 and
+    static int8 (``max_batch_size`` 32: K6's skinny route and Q8 on both
+    Dense layers): ``TC_SERVE_WINDOWS`` windows of the records ``xs`` a
+    mode, the modes in turns; records/s (median and spread), top-1
+    agreement with fp32 and the launches, counted from 0 around each
+    window. Each int8 forward of one chunk is held to the same forward on
+    the kernels' plain versions. Then a one-lane ``ClusterServing`` of the
+    weight-only model."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.observability import MetricsRegistry
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC)
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import ClusterServing
+
+    def runtime():
+        return InferenceModel(device="cuda", max_batch_size=T_BATCH)
+    ims = {"fp32": runtime().from_keras(model),
+           "int8_weight_only": runtime().from_keras(model, quantize="int8"),
+           "int8_static": runtime().from_keras(model, quantize="int8",
+                                               calibrate=xs[:T_BATCH])}
+    counters = [KERNEL_INT8_MATMUL, KERNEL_INT8_STATIC,
+                *KERNEL_INT8_ROUTES.values()]
+    chunk = torch.from_numpy(xs[:T_BATCH]).cuda()
+    plain_err = {}
+    for mode, im in ims.items():
+        im.predict(xs[:T_BATCH])                             # warm-up
+        if mode != "fp32":
+            got = im._forward([chunk])
+            with plain_int8_dense():
+                want = im._forward([chunk])
+            plain_err[mode] = (got - want).abs().max().item()
+            plain_err[f"{mode}_bits_equal"] = same_bits(got, want)
+    torch.cuda.synchronize()
+    dispatches = -(-len(xs) // T_BATCH)
+    out = {mode: {"records_per_s_windows": [], "k6": 0, "k6_skinny": 0,
+                  "q8": 0} for mode in ims}
+    for _ in range(TC_SERVE_WINDOWS):
+        probs = {}
+        for mode, im in ims.items():
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            probs[mode] = im.predict(xs)
+            wall = time.perf_counter() - t0
+            r = out[mode]
+            r["records_per_s_windows"].append(len(xs) / wall)
+            launched = (KERNEL_INT8_MATMUL.launches,
+                        KERNEL_INT8_ROUTES["skinny"].launches,
+                        KERNEL_INT8_STATIC.launches)
+            want = {"fp32": (0, 0, 0),
+                    "int8_weight_only": (2 * dispatches, 2 * dispatches, 0),
+                    "int8_static": (0, 0, 2 * dispatches)}[mode]
+            check(launched == want, f"{name} {mode}: K6, K6 skinny, Q8 "
+                  f"launches {launched}, not {want} for {dispatches} "
+                  f"dispatches of two Dense layers")
+            r["k6"] += launched[0]
+            r["k6_skinny"] += launched[1]
+            r["q8"] += launched[2]
+            r["top1_agreement_pct"] = 100.0 * float(np.mean(
+                probs[mode].argmax(1) == probs["fp32"].argmax(1)))
+        check(all(np.isfinite(p).all() and np.allclose(p.sum(1), 1,
+                                                       atol=1e-3)
+                  for p in probs.values()), f"{name}: bad probabilities")
+    for r in out.values():
+        w = r["records_per_s_windows"]
+        r.update(records_per_s=float(np.median(w)), min=min(w), max=max(w))
+    registry = MetricsRegistry()
+
+    def make_server(backend):
+        server = ClusterServing(ims["int8_weight_only"], backend=backend,
+                                batch_size=T_BATCH, registry=registry)
+        server.model.predict(xs[:T_BATCH])               # warm-up
+        return server
+
+    got, wall, server = serve(make_server, list(xs), counters)
+    batches = int(registry.snapshot()["zoo_serving_batches_total"]["value"])
+    out["served_int8"] = {
+        "records_per_s": len(xs) / wall, "dispatches": batches,
+        "k6": KERNEL_INT8_MATMUL.launches,
+        "k6_skinny": KERNEL_INT8_ROUTES["skinny"].launches,
+        "top1_agreement_pct": 100.0 * float(np.mean(
+            got.argmax(1) == probs["fp32"].argmax(1)))}
+    out["plain_version_max_abs_err"] = plain_err
+    for mode, r in out.items():
+        if mode == "plain_version_max_abs_err":
+            continue
+        spread = (f" (median of {TC_SERVE_WINDOWS} windows, "
+                  f"{r['min']:.1f}-{r['max']:.1f})" if "min" in r else "")
+        print(f"text classifier {name} {mode}: {len(xs)} records = "
+              f"{r['records_per_s']:.1f} records/s{spread}, top-1 "
+              f"agreement with fp32 {r['top1_agreement_pct']:.2f}%, K6 "
+              f"{r['k6']} ({r['k6_skinny']} skinny), Q8 {r.get('q8', 0)}")
+    print(f"text classifier {name}: int8 forwards of {T_BATCH} records "
+          f"against the kernels' plain versions: {plain_err}")
+    check(plain_err["int8_static_bits_equal"], f"{name}: the static int8 "
+          f"forward is not the bits of its plain version's {plain_err}")
+    check(plain_err["int8_weight_only"] <= TC_PLAIN_TOL, f"{name}: the "
+          f"weight-only forward is {plain_err['int8_weight_only']} from "
+          f"its plain version's, over {TC_PLAIN_TOL}")
+    for mode in ("int8_weight_only", "int8_static", "served_int8"):
+        check(out[mode]["top1_agreement_pct"] >= TC_TOP1_FLOOR_PCT,
+              f"{name} {mode}: top-1 agreement with fp32 "
+              f"{out[mode]['top1_agreement_pct']}% < {TC_TOP1_FLOOR_PCT}%")
+    check(server.served == len(xs) and out["served_int8"]["k6"]
+          == 2 * batches, f"{name}: served {server.served}, "
+          f"{out['served_int8']}")
+    return out
+
+
+def text_classifier_phase():
+    """``TextClassifier`` at the class defaults on a seeded frozen
+    ``WordEmbedding`` (the GloVe path): the cnn, lstm and gru encoders
+    trained eager and captured (the captured step losses the eager bits),
+    then the cnn and lstm classifiers served in fp32, weight-only and
+    static int8 and through a one-lane ``ClusterServing``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    rng = np.random.default_rng(21)
+    table = (rng.normal(size=(TC_VOCAB, TC_DIM)) * 0.1).astype(np.float32)
+    x = rng.integers(1, TC_VOCAB, (TC_ROWS, TC_SEQ)).astype(np.int32)
+    y = (x[:, :8].sum(1) % TC_CLASSES).astype(np.int32)
+    serve_x = rng.integers(1, TC_VOCAB, (max(TC_SERVE_ROWS.values()),
+                                         TC_SEQ)).astype(np.int32)
+    out = {"fits": {}, "serving": {}}
+    launches = {"k6": 0, "k6_skinny": 0, "q8": 0}
+    for encoder in ("cnn", "lstm", "gru"):
+        def build(encoder=encoder):
+            return TextClassifier(TC_CLASSES, TC_DIM, TC_SEQ, encoder,
+                                  TC_OUT, embedding_weights=table,
+                                  device="cuda")
+        runs, model = rnn_fit_in_turns(f"text classifier {encoder}", build,
+                                       x, y, "scce", TC_BATCH, TC_SCAN,
+                                       TC_EPOCHS[encoder])
+        out["fits"][encoder] = runs
+        if encoder != "gru":
+            served = text_classifier_serving(
+                encoder, model, serve_x[:TC_SERVE_ROWS[encoder]])
+            out["serving"][encoder] = served
+            launches["k6"] += (served["int8_weight_only"]["k6"]
+                               + served["served_int8"]["k6"])
+            launches["k6_skinny"] += (served["int8_weight_only"]["k6_skinny"]
+                                      + served["served_int8"]["k6_skinny"])
+            launches["q8"] += served["int8_static"]["q8"]
+        del model
+    out["launches"] = launches
+    return out
+
+
+def recurrent_models_phase():
+    """AnomalyDetector (examples/anomaly_detection.py's configuration on a
+    seeded 100,000-point series, then ``detect_anomalies`` over all of
+    it), SessionRecommender at its defaults with history (then
+    ``recommend_for_session``) and Seq2seq at examples/seq2seq_chatbot.py's
+    configuration and a two-layer GRU with ``densenonlinear`` (then
+    ``infer`` with a stop sign), each trained eager and captured with the
+    bits gated."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.models.anomalydetection import (
+        AnomalyDetector, detect_anomalies, unroll)
+    from analytics_zoo_tpu_torch.models.recommendation import \
+        SessionRecommender
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    rng = np.random.default_rng(0)
+    out = {}
+    t = np.arange(AD_POINTS, dtype=np.float32)
+    series = (np.sin(t / 24 * 2 * np.pi)
+              + rng.normal(0, 0.05, t.shape)).astype(np.float32)
+    spikes = rng.choice(AD_POINTS, size=64, replace=False)
+    series[spikes] += rng.choice([-2.5, 2.5], size=64).astype(np.float32)
+    ax, ay, _ = unroll(series[:, None], AD_UNROLL)
+    runs, model = rnn_fit_in_turns(
+        "anomaly detector", lambda: AnomalyDetector((AD_UNROLL, 1),
+                                                    device="cuda"),
+        ax[:AD_ROWS], ay[:AD_ROWS, None], "mse", AD_BATCH, AD_SCAN,
+        AD_EPOCHS)
+    t0 = time.perf_counter()
+    pred = model.predict(ax, batch_size=4096).reshape(-1)
+    wall = time.perf_counter() - t0
+    flagged = detect_anomalies(ay, pred, anomaly_size=64)
+    hits = len(set(np.flatnonzero(~np.isnan(flagged)))
+               & {s - AD_UNROLL for s in spikes if s >= AD_UNROLL})
+    print(f"anomaly detector: predict over {len(ax)} windows in "
+          f"{wall:.2f}s = {len(ax) / wall:.1f} windows/s; "
+          f"detect_anomalies flagged 64, {hits} of them injected spikes")
+    check(np.isfinite(pred).all() and (~np.isnan(flagged)).sum() == 64,
+          "anomaly detector: bad predictions or flags")
+    out["anomaly_detector"] = dict(runs, predict_windows_per_s=len(ax) / wall,
+                                   spikes_hit=hits)
+    del model
+
+    sx = rng.integers(1, SR_ITEMS + 1, (SR_ROWS, 10)).astype(np.int32)
+    sh = rng.integers(1, SR_ITEMS + 1, (SR_ROWS, 10)).astype(np.int32)
+    sy = (sx[:, -1] - 1).astype(np.int32)
+    runs, model = rnn_fit_in_turns(
+        "session recommender", lambda: SessionRecommender(
+            SR_ITEMS, include_history=True, history_length=10,
+            device="cuda"), [sx, sh], sy, "scce", SR_BATCH, SR_SCAN,
+        SR_EPOCHS)
+    recs = model.recommend_for_session([sx[:64], sh[:64]], max_items=5)
+    check(len(recs) == 64 and all(len(r) == 5 and all(
+        0 <= i < SR_ITEMS and 0 <= p <= 1 for i, p in r) for r in recs),
+        "session recommender: bad recommendations")
+    print(f"session recommender: recommend_for_session of 64 sessions, "
+          f"first {recs[0][:2]}")
+    out["session_recommender"] = runs
+    del model
+
+    ids = rng.integers(2, S2S_VOCAB, (S2S_ROWS, S2S_T))
+    eye = np.eye(S2S_VOCAB, dtype=np.float32)
+    enc, tgt = eye[ids], eye[ids[:, ::-1]]
+    dec = np.concatenate([np.zeros((S2S_ROWS, 1, S2S_VOCAB), np.float32),
+                          tgt[:, :-1]], axis=1)
+    for tag, kw, epochs in (
+            ("lstm_dense", dict(rnn_type="lstm", num_layers=1,
+                                bridge="dense"), S2S_EPOCHS[0]),
+            ("gru2_densenonlinear", dict(rnn_type="gru", num_layers=2,
+                                         bridge="densenonlinear"),
+             S2S_EPOCHS[1])):
+        runs, model = rnn_fit_in_turns(
+            f"seq2seq {tag}", lambda kw=kw: Seq2seq(
+                hidden_size=128, input_dim=S2S_VOCAB,
+                generator_dim=S2S_VOCAB, generator_activation="softmax",
+                device="cuda", **kw),
+            [enc, dec], tgt, "cce", S2S_BATCH, S2S_SCAN, epochs, lr=2e-3)
+        t0 = time.perf_counter()
+        gen = model.infer(enc[:8], np.zeros((8, S2S_VOCAB), np.float32),
+                          max_seq_len=S2S_T, stop_sign=eye[1])
+        wall = time.perf_counter() - t0
+        check(gen.shape[0] == 8 and gen.shape[2] == S2S_VOCAB
+              and np.isfinite(gen).all(), f"seq2seq {tag}: infer {gen.shape}")
+        acc = (float(np.mean(gen.argmax(-1) == ids[:8, ::-1]))
+               if gen.shape[1] == S2S_T else None)
+        print(f"seq2seq {tag}: infer of 8 sequences, {gen.shape[1]} steps "
+              f"in {1e3 * wall:.1f} ms; greedy token accuracy {acc}")
+        out[f"seq2seq_{tag}"] = dict(runs, infer_ms=1e3 * wall,
+                                     infer_steps=gen.shape[1],
+                                     greedy_accuracy=acc)
+        del model
+    return out
+
+
+def conv3d_phase():
+    """One training layer each at full width, a few Adam steps, ms a
+    step: ``ConvLSTM2D(64, 3)`` over Moving-MNIST's (16, 10, 64, 64, 1)
+    with a 1x1 conv head predicting the next frame, and C3D's first layer,
+    ``Convolution3D`` 3 -> 64 3x3x3 over (8, 16, 112, 112, 3), under a
+    pooled Dense head."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        ConvLSTM2D, Convolution2D, Convolution3D, Dense,
+        GlobalAveragePooling3D)
+    rng = np.random.default_rng(3)
+    out = {}
+    b, t, h, w, c = CLSTM_CLIPS
+    cb, ct, ch, cw, cc = C3D_CLIPS
+    cases = {
+        "convlstm2d_moving_mnist": (
+            lambda: [ConvLSTM2D(CLSTM_FILTERS, 3, input_shape=(t, h, w, c)),
+                     Convolution2D(1, 1, 1, activation="sigmoid")],
+            rng.random(CLSTM_CLIPS, np.float32),
+            rng.random((b, h, w, 1), np.float32), "mse", b),
+        "conv3d_c3d_conv1a": (
+            lambda: [Convolution3D(C3D_FILTERS, 3, 3, 3, border_mode="same",
+                                   activation="relu",
+                                   input_shape=(ct, ch, cw, cc)),
+                     GlobalAveragePooling3D(),
+                     Dense(2, activation="softmax")],
+            rng.random(C3D_CLIPS, np.float32),
+            rng.integers(0, 2, cb).astype(np.int32), "scce", cb),
+    }
+    for name, (layers, x, y, loss, batch) in cases.items():
+        init_zoo_context(conf={"zoo.seed": 0})
+        reset_uids()
+        net = Sequential(layers(), device="cuda").init_weights()
+        net.compile(optimizer="adam", loss=loss, lr=1e-3)
+        net.fit(x, y, batch_size=batch, nb_epoch=1, shuffle=False)
+        torch.cuda.synchronize()
+        xs = np.concatenate([x] * CONV3D_STEPS)
+        ys = np.concatenate([y] * CONV3D_STEPS)
+        t0 = time.perf_counter()
+        hist = net.fit(xs, ys, batch_size=batch, nb_epoch=1, shuffle=False)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / CONV3D_STEPS
+        share, kernel_ms = profiled_busy_share(lambda: net.fit(
+            x, y, batch_size=batch, nb_epoch=1, shuffle=False))
+        print(f"conv3d {name}: batch {batch}, {ms:.2f} ms a training step "
+              f"({CONV3D_STEPS} timed), loss {hist['loss']}, device busy "
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f" of a profiled step ({kernel_ms} ms of kernels)")
+        check(all(math.isfinite(v) for v in hist["loss"]),
+              f"conv3d {name}: loss {hist['loss']}")
+        out[name] = {"ms_per_step": ms, "batch": batch,
+                     "loss": hist["loss"], "busy_share": share,
+                     "profiled_kernel_ms": kernel_ms}
+        del net
+        gc.collect()
+    return out
+
+
+def sentinel_phase():
+    """The JAX bench's ``sentinel`` channel (``bench.py:847-914``):
+    recover-mode sentinels against none at the NCF shape (6040 users,
+    3706 items, 5 classes, batch 8192) on captured 16-step dispatches.
+    Each mode's fit captures its graph; then five windows of three
+    replays each (:func:`replay_ms`), the off and recover windows
+    interleaved, timed on the device; ``sentinel_overhead_pct`` from the
+    medians, as the bench computes it. Printed, not gated here: the
+    bench's ceiling is 3.0."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    rng = np.random.default_rng(11)
+    n = SENTINEL_STEPS * NCF_BATCH
+    x = np.stack([rng.integers(1, N_USERS + 1, n),
+                  rng.integers(1, N_ITEMS + 1, n)], axis=1).astype(np.int32)
+    y = rng.integers(0, N_CLASSES, n).astype(np.int32)
+    windows, models = {}, []
+    for mode in ("off", "recover"):
+        init_zoo_context(conf={"zoo.seed": 0, "zoo.compute.dtype": "float32",
+                               "zoo.train.scan_steps": SENTINEL_STEPS,
+                               "zoo.train.sentinel": mode})
+        reset_uids()
+        model = NeuralCF(N_USERS, N_ITEMS, N_CLASSES,
+                         device="cuda").init_weights()
+        model.compile(optimizer="adam", loss="scce", lr=1e-3)
+        model.fit(x, y, batch_size=NCF_BATCH, nb_epoch=1, shuffle=False)
+        models.append(model)
+        windows[mode] = (lambda program=model._loop._program[1]: replay_ms(
+            program, SENTINEL_STEPS) / SENTINEL_STEPS)
+    times = {"off": [], "recover": []}
+    for _ in range(5):
+        for mode in ("off", "recover"):
+            times[mode].append(windows[mode]())
+    off_ms = float(np.median(times["off"]))
+    on_ms = float(np.median(times["recover"]))
+    pct = max(0.0, on_ms / off_ms - 1.0) * 100.0
+    print(f"sentinel: NCF batch {NCF_BATCH}, {SENTINEL_STEPS}-step captured "
+          f"dispatches, device ms a step off {off_ms:.4f} / recover "
+          f"{on_ms:.4f} (windows {times}); sentinel_overhead_pct "
+          f"{pct:.2f} (the JAX bench's ceiling {SENTINEL_CEILING_PCT})")
+    del models
+    gc.collect()
+    return {"sentinel_off_step_ms": off_ms, "sentinel_on_step_ms": on_ms,
+            "sentinel_overhead_pct": pct, "windows_ms": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7746,6 +8202,10 @@ def main() -> int:
     transfer = transfer_phase()
     resnet_serving = resnet_serving_phase()
     resnet_training = resnet_training_phase()
+    text = text_classifier_phase()
+    recurrent = recurrent_models_phase()
+    conv3d = conv3d_phase()
+    sentinel = sentinel_phase()
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     # SA takes the out-of-core cache's gradient too (slice 17)
@@ -7760,17 +8220,22 @@ def main() -> int:
     # slice 19: ResNet-50's weight-only int8 serving lane (batch 32, the
     # skinny route)
     k6_routes["skinny"] += resnet_serving["k6_skinny_launches"]
+    # slice 21: TextClassifier's two Dense layers, weight-only int8 (the
+    # predicts and the served lane) and static int8, batch 32
+    k6_routes["skinny"] += text["launches"]["k6_skinny"]
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
         "bert_serving": int8_serving["launches"],
         "lanes": lanes["launches"]["k6"],
         "resnet50_serving_int8": resnet_serving["k6_launches"]["int8_lane"],
         "resnet50_serving_multimodel":
-            resnet_serving["k6_launches"]["multimodel"]}, k6_routes))
+            resnet_serving["k6_launches"]["multimodel"],
+        "text_classifier_int8": text["launches"]["k6"]}, k6_routes))
     rows.append(static_int8_kernel_row(static_rows, {
         "config_a_static": int8_head["q8_launches"],
         "vgg16_static_b32": image_int8["launches_b32"]["q8"],
-        "vgg16_static_b1": image_int8["launches_b1"]["q8"]}))
+        "vgg16_static_b1": image_int8["launches_b1"]["q8"],
+        "text_classifier_static": text["launches"]["q8"]}))
     rows.append(c8_kernel_row(c8_rows, {
         "vgg16_static_b32": image_int8["launches_b32"]["c8"],
         "vgg16_static_b1": image_int8["launches_b1"]["c8"]}))
@@ -7797,6 +8262,8 @@ def main() -> int:
                       "transfer": transfer,
                       "resnet_serving": resnet_serving,
                       "resnet_training": resnet_training,
+                      "text_classifier": text, "recurrent": recurrent,
+                      "conv3d": conv3d, "sentinel": sentinel,
                       "reliability": reliability, "card": card}))
     idle = [r["name"] for r in rows if not r["launches"]]
     check(not idle, f"kernels never launched on their main path: {idle}")

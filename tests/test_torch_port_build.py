@@ -494,3 +494,125 @@ def test_a_failed_capture_leaves_the_counters_as_they_were():
             flash_attention.KERNEL_BWD_DQ.launches += 3
             raise RuntimeError("not capturable")
     assert flash_attention.KERNEL_BWD_DQ.launches == before
+
+
+# --------------------------------------------------------------------------
+# the CUDA-graph kernel-node reader (ops/graph_kernels.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("raw,want", [
+    ("void (anonymous namespace)::ce_fwd_wgmma<256>(float const*, int)",
+     "ce_fwd_wgmma<256>"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, at::detail::Array<char*, 1> >(int, "
+     "at::native::FillFunctor<float>, at::detail::Array<char*, 1>)",
+     "vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, "
+     "at::detail::Arr"),                  # cut to 80 characters
+    ("segment_sum_sorted", "segment_sum_sorted"),
+    ("void cub::DeviceRadixSortOnesweepKernel<Policy>(int*)",
+     "DeviceRadixSortOnesweepKernel<Policy>"),
+])
+def test_kernel_name_drops_return_type_namespaces_and_arguments(raw, want):
+    from analytics_zoo_tpu_torch.ops.graph_kernels import kernel_name
+    assert kernel_name(raw) == want
+
+
+def test_kernel_events_leave_out_copies_and_fills():
+    from analytics_zoo_tpu_torch.ops.graph_kernels import is_kernel_event
+    assert is_kernel_event("segment_sum_sorted")
+    assert not is_kernel_event("Memcpy HtoD (Pageable -> Device)")
+    assert not is_kernel_event("Memset (Device)")
+
+
+def test_demangle_through_cxxfilt_and_unchanged_without_it(monkeypatch):
+    from analytics_zoo_tpu_torch.ops import graph_kernels
+    names = ["_ZN12_GLOBAL__N_118segment_sum_sortedEPKfi", "plain_name"]
+    if shutil.which("c++filt"):
+        assert graph_kernels.demangle(names) == [
+            "(anonymous namespace)::segment_sum_sorted(float const*, int)",
+            "plain_name"]
+    assert graph_kernels.demangle([]) == []
+    monkeypatch.setattr(graph_kernels.shutil, "which", lambda tool: None)
+    assert graph_kernels.demangle(names) == names
+
+
+class _FakeDriver:
+    """The driver calls :func:`graph_kernel_names` makes, on a graph of
+    handles: ``graphs[g]`` lists ``(node, kind, payload)``: a kernel
+    node's payload is ``("func" | "kern", name)``, a child graph node's
+    the child's handle."""
+
+    def __init__(self, graphs, fail=None):
+        self.graphs, self.fail, self.calls = graphs, fail, []
+        self.nodes = {node: (kind, payload) for entries in graphs.values()
+                      for node, kind, payload in entries}
+        self.names = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append(name)
+            if name == self.fail:
+                return 999
+            getattr(self, "_" + name)(*args)
+            return 0
+        return call
+
+    def _cuGraphGetNodes(self, graph, nodes, count):
+        entries = self.graphs[graph.value]
+        if nodes is not None:
+            for i, (node, _, _) in enumerate(entries):
+                nodes[i] = node
+        count._obj.value = len(entries)
+
+    def _cuGraphNodeGetType(self, node, kind):
+        kind._obj.value = self.nodes[node.value][0]
+
+    def _cuGraphChildGraphNodeGetGraph(self, node, child):
+        child._obj.value = self.nodes[node.value][1]
+
+    def _cuGraphKernelNodeGetParams_v2(self, node, params):
+        how, name = self.nodes[node.value][1]
+        handle = 1000 + node.value
+        self.names[handle] = name.encode()
+        if how == "func":
+            params._obj.func = handle
+        else:
+            params._obj.func, params._obj.kern = 0, handle
+
+    def _cuFuncGetName(self, name, func):
+        name._obj.value = self.names[func.value]
+
+    def _cuKernelGetName(self, name, kern):
+        name._obj.value = self.names[kern.value]
+
+
+def test_graph_kernel_names_walks_child_graphs_in_node_order(monkeypatch):
+    """Kernel nodes in the driver's order, a child graph's kernels in its
+    node's place, other node types (copies, fills, events) left out;
+    names read with ``cuFuncGetName``, or ``cuKernelGetName`` where the
+    node holds a library kernel; a driver error raises."""
+    from analytics_zoo_tpu_torch.ops import graph_kernels as gk
+    graphs = {7: [(1, gk.GRAPH_NODE_KERNEL, ("func", "_Z4sortv")),
+                  (2, 1, None),                       # a memcpy node
+                  (3, gk.GRAPH_NODE_GRAPH, 8),
+                  (4, gk.GRAPH_NODE_KERNEL, ("kern", "segment_sum"))],
+              8: [(5, gk.GRAPH_NODE_KERNEL, ("func", "child_a")),
+                  (6, 2, None),                       # a memset node
+                  (9, gk.GRAPH_NODE_KERNEL, ("kern", "child_b"))]}
+    fake = _FakeDriver(graphs)
+    monkeypatch.setattr(gk.ctypes, "CDLL", lambda path: fake)
+    assert gk.graph_kernel_names(7) == ["_Z4sortv", "child_a", "child_b",
+                                        "segment_sum"]
+    assert "cuKernelGetName" in fake.calls and "cuFuncGetName" in fake.calls
+    monkeypatch.setattr(gk.ctypes, "CDLL", lambda path: _FakeDriver(
+        graphs, fail="cuGraphNodeGetType"))
+    with pytest.raises(RuntimeError, match="cuGraphNodeGetType"):
+        gk.graph_kernel_names(7)
+
+
+def test_chip_smoke_reads_kernels_through_the_port_module():
+    import chip_smoke
+    from analytics_zoo_tpu_torch.ops import graph_kernels
+    for name in ("device_kernels", "graph_kernel_names", "demangle",
+                 "kernel_name", "is_kernel_event"):
+        assert getattr(chip_smoke, name) is getattr(graph_kernels, name)

@@ -807,29 +807,22 @@ def test_dedup_scatter_add_through_the_forward_sort(cuda, dtype, d, case,
 @pytest.mark.cuda
 def test_dedup_scatter_add_with_the_forward_sort_is_one_kernel(cuda):
     """Given the forward's sort, SA launches one device kernel and nothing
-    else (no sort, no search, no cast; ``torch.profiler``); standalone it
-    sorts first."""
-    from torch.profiler import ProfilerActivity, profile
-
+    else (no sort, no search, no cast); standalone it sorts first. The
+    kernels are read from a CUDA graph of one call (``device_kernels``),
+    not from ``torch.profiler``, whose CUPTI records can come back
+    empty."""
+    from analytics_zoo_tpu_torch.ops.graph_kernels import device_kernels
     from analytics_zoo_tpu_torch.ops.pallas.embedding import \
         dedup_scatter_add
     from analytics_zoo_tpu_torch.ops.sharded_embedding import _dedup_sort
     ids, g = _sa_case("ncf", 8192, 20, torch.float32, seed=3)
     _, inv, order, slot = _dedup_sort(ids, 8192, fill=10 ** 6)
     g = g.to(cuda)
-
-    def kernels(fn):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-    one = kernels(lambda: dedup_scatter_add(g, inv, 8192, order=order,
-                                            sorted_slot=slot))
+    one = device_kernels(lambda: dedup_scatter_add(
+        g, inv, 8192, order=order, sorted_slot=slot))
     assert len(one) == 1 and "segment_sum_sorted" in one[0], one
-    assert len(kernels(lambda: dedup_scatter_add(g, inv, 8192))) > 1
+    alone = device_kernels(lambda: dedup_scatter_add(g, inv, 8192))
+    assert len(alone) > 1 and "segment_sum_sorted" in alone[-1], alone
 
 
 @pytest.mark.cuda
@@ -1114,10 +1107,13 @@ def test_int8_matmul_refuses_what_the_kernel_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 64, 8), (32, 4096, 8),
                                    (1, 100, 10), (32, 768, 2),
-                                   (40, 24, 16)])
+                                   (40, 24, 16), (17, 64, 128),
+                                   (33, 100, 4096), (40, 8, 64),
+                                   (1, 120, 256)])
 def test_int8_product_pads_for_int_mm_exactly(cuda, m, k, n):
     """``torch._int_mm`` on the card wants M > 16 and K, N multiples of
-    8; the padded product is the CPU's int32 product bit for bit."""
+    8, and cuBLASLt refuses K under 128 at up to 40 rows once N reaches
+    64; the padded product is the CPU's int32 product bit for bit."""
     from analytics_zoo_tpu_torch.ops.pallas.quantized import int8_product
     gen = torch.Generator().manual_seed(m * k + n)
     xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
@@ -2104,3 +2100,160 @@ def test_static_int8_vgg16_forward_is_the_plain_forwards_bits(
         monkeypatch.setattr(convolution, "static_int8_conv2d", plain)
         want = im._forward([xt])
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# the recurrent slice: RNNs and ConvLSTMs on the card, captured fits,
+# TextClassifier's int8 paths
+# --------------------------------------------------------------------------
+
+RECURRENT_CASES = {
+    "simplernn": (lambda L: L.SimpleRNN(16, return_sequences=True),
+                  (4, 9, 8)),
+    "lstm_bwd": (lambda L: L.LSTM(16, go_backwards=True), (4, 9, 8)),
+    "gru": (lambda L: L.GRU(16, return_sequences=True), (4, 9, 8)),
+    "bidir_lstm": (lambda L: L.Bidirectional(L.LSTM(8, return_sequences=True),
+                                             merge_mode="ave"), (4, 9, 8)),
+    "convlstm2d": (lambda L: L.ConvLSTM2D(4, 3, return_sequences=True),
+                   (2, 3, 8, 8, 2)),
+    "convlstm3d": (lambda L: L.ConvLSTM3D(3, 3), (2, 3, 4, 5, 5, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RECURRENT_CASES))
+def test_recurrent_layer_on_cuda_matches_cpu(cuda, name):
+    """The same layer and input on the card and on the CPU: outputs 1e-5,
+    the input's and every weight's gradient 1e-4 of the largest value
+    (cuBLAS/cuDNN sum in another order; TF32 off)."""
+    import copy
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras import layers as L
+    build, shape = RECURRENT_CASES[name]
+    cpu = build(L)
+    cpu.build((None,) + shape[1:], generator=torch.Generator().manual_seed(1))
+    dev = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for layer, xx in ((cpu, x.clone()), (dev, x.to(cuda))):
+        xx.requires_grad_(True)
+        y = layer(xx)
+        r = torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(y.device)
+        (y * r).sum().backward()
+        outs.append([y.detach().cpu(), xx.grad.cpu()]
+                    + [p.grad.cpu() for p in layer.parameters()])
+    for i, (want, got) in enumerate(zip(*outs)):
+        tol = 1e-5 if i == 0 else 1e-4 * max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol,
+                                   rtol=1e-4)
+
+
+def _recurrent_fit(kind, conf):
+    """A small model of the slice on the card, fitted two epochs of four
+    steps from seeded weights: its step losses and parameters."""
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2seq
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        ConvLSTM2D, Dense, GlobalAveragePooling2D)
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 3, **conf})
+    reset_uids()
+    rng = np.random.default_rng(0)
+    if kind == "text_lstm":          # Dropout(0.2) live in every step
+        m = TextClassifier(4, 16, 24, "lstm", 32, vocab_size=50,
+                           device="cuda")
+        x = rng.integers(1, 50, (64, 24)).astype(np.int32)
+        y = (x[:, 0] % 4).astype(np.int32)
+        loss = "scce"
+    elif kind == "seq2seq_gru":
+        m = Seq2seq("gru", 2, 16, 4, bridge="densenonlinear",
+                    generator_dim=4, device="cuda")
+        enc = rng.normal(size=(64, 6, 4)).astype(np.float32)
+        x, y, loss = [enc, enc], enc, "mse"
+    else:
+        m = Sequential([ConvLSTM2D(4, 3, input_shape=(3, 8, 8, 1)),
+                        GlobalAveragePooling2D(),
+                        Dense(2, activation="softmax")], device="cuda")
+        x = rng.normal(size=(64, 3, 8, 8, 1)).astype(np.float32)
+        y = rng.integers(0, 2, 64).astype(np.int32)
+        loss = "scce"
+    m.init_weights(torch.Generator().manual_seed(0))
+    m.compile(optimizer="adam", loss=loss, lr=1e-2)
+    m.fit(x, y, batch_size=16, nb_epoch=2, shuffle=False)
+    torch.cuda.synchronize()
+    return (np.concatenate(m._loop.step_losses),
+            [p.detach().clone() for p in m.parameters()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["text_lstm", "seq2seq_gru", "convlstm2d"])
+def test_captured_recurrent_fit_is_the_eager_fits_bits(cuda, kind):
+    """The T-step loops inside ``zoo.train.scan_steps`` 4 CUDA graphs:
+    the step losses and the parameters are the eager fit's bits (dropout
+    masks included; cuDNN deterministic for the ConvLSTM)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = _recurrent_fit(kind, {})
+        keyed = _recurrent_fit(kind, {"zoo.train.scan_steps": 4})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert len(eager[0]) == 8
+    np.testing.assert_array_equal(keyed[0], eager[0])
+    assert all(torch.equal(p, q) for p, q in zip(keyed[1], eager[1]))
+
+
+#: TextClassifier's int8 forwards on the card: the weight-only forward
+#: against the same forward on K6's plain version (on the card) and on the
+#: CPU, on probabilities of about 0.01-0.05 (measured on the H100: 1.5e-7
+#: and 3.1e-7 at most)
+TEXT_INT8_PLAIN_TOL, TEXT_INT8_CPU_TOL = 1e-6, 3e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["cnn", "lstm"])
+def test_text_classifier_int8_paths_launch_k6_and_q8(cuda, encoder,
+                                                       monkeypatch):
+    """A batch of 16 through a TextClassifier's weight-only int8 forward
+    launches K6 on both Dense layers; through its static int8 forward, Q8
+    on both. The weight-only forward is within ``TEXT_INT8_PLAIN_TOL`` of
+    the same forward on K6's plain version and ``TEXT_INT8_CPU_TOL`` of the
+    CPU's; the static forward is the bits of the same forward on Q8's
+    plain version and within 1e-4 of the CPU's."""
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_STATIC, int8_matmul_reference,
+        static_int8_dense_reference)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import core
+    init_zoo_context(conf={"zoo.seed": 0})
+    table = np.random.default_rng(1).normal(size=(100, 32)).astype(
+        np.float32)
+    m = TextClassifier(20, 32, 40, encoder, 64, embedding_weights=table,
+                       device="cpu").init_weights()
+    x = np.random.default_rng(2).integers(1, 100, (16, 40)).astype(np.int32)
+    wo = InferenceModel(device="cuda").from_keras(m, quantize="int8")
+    before = KERNEL_INT8_MATMUL.launches
+    got = wo.predict(x)
+    assert KERNEL_INT8_MATMUL.launches == before + 2
+    want = InferenceModel(device="cpu").from_keras(
+        m, quantize="int8").predict(x)
+    np.testing.assert_allclose(got, want, atol=TEXT_INT8_CPU_TOL, rtol=0)
+    st = InferenceModel(device="cuda").from_keras(m, quantize="int8",
+                                                  calibrate=x)
+    before = KERNEL_INT8_STATIC.launches
+    sgot = st.predict(x)
+    assert KERNEL_INT8_STATIC.launches == before + 2
+    want = InferenceModel(device="cpu").from_keras(
+        m, quantize="int8", calibrate=x).predict(x)
+    np.testing.assert_allclose(sgot, want, atol=1e-4, rtol=0)
+    monkeypatch.setattr(core, "int8_matmul", int8_matmul_reference)
+    monkeypatch.setattr(core, "static_int8_dense",
+                        static_int8_dense_reference)
+    np.testing.assert_allclose(got, wo.predict(x), atol=TEXT_INT8_PLAIN_TOL,
+                               rtol=0)
+    np.testing.assert_array_equal(sgot.view(np.int32),
+                                  st.predict(x).view(np.int32))

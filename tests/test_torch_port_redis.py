@@ -96,6 +96,33 @@ def contexts():
     jeng.set_policy()
 
 
+class _CountedFlakyHandler(_FlakyHandler):
+    """The flaky fake's handler, counting the connections it has served
+    to their end (``state.handled``) so a test can wait for a connection
+    that the client dropped to be drained."""
+
+    def handle(self):
+        try:
+            super().handle()
+        finally:
+            st = self.server.state
+            with st.lock:
+                st.handled += 1
+                st.lock.notify_all()
+
+
+def wait_handled(srv, n, deadline_s=5.0):
+    """Block until the server has served ``n`` connections to their end.
+    A command sent on a connection the client then dropped is applied
+    (or refused) by that connection's handler thread, which may run after
+    the client's next command on a fresh connection."""
+    st = srv.state
+    with st.lock:
+        assert st.lock.wait_for(lambda: st.handled >= n, deadline_s), (
+            f"the server handled {st.handled} of {n} connections "
+            f"within {deadline_s} s")
+
+
 @pytest.fixture()
 def servers():
     """``start(flaky=False)`` → a fresh RESP fake on a free port; all are
@@ -105,8 +132,9 @@ def servers():
     def start(flaky=False):
         srv = _MiniRedisServer(("127.0.0.1", 0))
         if flaky:
-            srv.RequestHandlerClass = _FlakyHandler
+            srv.RequestHandlerClass = _CountedFlakyHandler
             srv.state.fault_script = {}
+            srv.state.handled = 0
         threading.Thread(target=srv.serve_forever, daemon=True).start()
         live.append(srv)
         return srv
@@ -374,13 +402,17 @@ def fault_sites(pkg, start):
         c.xadd("s", {"k": "v"})
         out.append(c.xlen("s"))
     out += [plan.fired, reconnects(reg)]
-    c, reg = client(pkg, start(flaky=True))
+    srv = start(flaky=True)
+    c, reg = client(pkg, srv)
     plan = pkg.faults.FaultPlan(seed=14).add("resp.recv", "disconnect",
                                              at=(1,))
     with pkg.faults.activate(plan):
         assert c.ping()
         with pytest.raises((ConnectionError, OSError)):
             c.xadd("once-chaos", {"uri": "a"})
+        # the XADD went out on the connection the fault dropped: wait for
+        # its handler to apply it before reading on a fresh connection
+        wait_handled(srv, 1)
         out.append(c.xlen("once-chaos"))
     out += [plan.fired, reconnects(reg)]
     return out
