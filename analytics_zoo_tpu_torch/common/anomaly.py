@@ -31,7 +31,8 @@ from .context import FALSE_FLAG_SPELLINGS, get_zoo_context
 
 __all__ = ["NAN_LOSS", "NAN_GRAD", "SPIKE", "ANOMALY_MASK", "GRAD_CLIPPED",
            "SentinelConfig", "resolve_config", "init_state", "check",
-           "global_norm", "clip_by_global_norm", "inject_grads",
+           "global_norm", "tensor_norms", "norm_of_norms", "clip_scale",
+           "clip_by_global_norm", "inject_grads",
            "kinds_of", "FAULT_CODES", "EWMA_ALPHA", "WARMUP_STEPS",
            "EWMA_FLOOR", "KIND_BITS"]
 
@@ -138,16 +139,29 @@ def init_state(device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
             torch.zeros((), dtype=torch.float32, device=device))
 
 
+def tensor_norms(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient's L2 norm in f32, whatever the compute dtype: one
+    fused per-tensor norm pass (one-element tensors)."""
+    if not grads:
+        return []
+    return list(torch._foreach_norm([g.float() if g.dtype != torch.float32
+                                     else g for g in grads]))
+
+
+def norm_of_norms(norms: Sequence[torch.Tensor], device="cpu"
+                  ) -> torch.Tensor:
+    """The L2 norm of the per-tensor norms (a device scalar; zero for
+    none)."""
+    if not norms:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.linalg.vector_norm(torch.stack(list(norms)))
+
+
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """Global L2 norm of the gradients, accumulated in f32 whatever the
-    compute dtype: one fused per-tensor norm pass, then the norm of the
-    norms (a device scalar)."""
-    grads = list(grads)
-    if not grads:
-        return torch.zeros((), dtype=torch.float32)
-    norms = torch._foreach_norm([g.float() if g.dtype != torch.float32
-                                 else g for g in grads])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    compute dtype: the per-tensor norms (:func:`tensor_norms`), then the
+    norm of the norms (:func:`norm_of_norms`)."""
+    return norm_of_norms(tensor_norms(list(grads)))
 
 
 def check(loss: torch.Tensor, gnorm: torch.Tensor, state,
@@ -186,18 +200,25 @@ def _scale(grads: Sequence[torch.Tensor], factor: torch.Tensor) -> None:
         g.mul_(cast[g.dtype])
 
 
+def clip_scale(gnorm: torch.Tensor, clip: float):
+    """``(scale, engaged)`` of the global-norm clip at ``clip``: the
+    factor that brings the norm to at most ``clip`` (1 for a non-finite
+    norm) and whether it rescales (a bool device scalar)."""
+    finite = torch.isfinite(gnorm)
+    scale = torch.where(finite,
+                        torch.clamp(clip / torch.clamp(gnorm, min=1e-16),
+                                    max=1.0),
+                        torch.ones_like(gnorm))
+    return scale, finite & (gnorm > clip)
+
+
 def clip_by_global_norm(grads: Sequence[torch.Tensor], gnorm: torch.Tensor,
                         clip: float) -> torch.Tensor:
     """Scale ``grads`` in place so their global norm is at most ``clip``;
     returns ``engaged`` (a bool device scalar). A non-finite norm leaves
     the gradients untouched and ``engaged`` false: the divergence stays
     visible (and flagged) instead of being zeroed by the clipper."""
-    finite = torch.isfinite(gnorm)
-    scale = torch.where(finite,
-                        torch.clamp(clip / torch.clamp(gnorm, min=1e-16),
-                                    max=1.0),
-                        torch.ones_like(gnorm))
-    engaged = finite & (gnorm > clip)
+    scale, engaged = clip_scale(gnorm, clip)
     _scale(grads, scale)
     return engaged
 

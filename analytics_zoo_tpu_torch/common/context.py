@@ -1,10 +1,15 @@
 """Runtime bring-up — port of ``analytics_zoo_tpu/common/context.py``.
 
 Layered configuration (bundled defaults < yaml file < ``ZOO_TPU_*`` env <
-explicit conf < kwargs), the root seed, the tri-state flag parser and the
-dtype-policy ownership rule. The JAX package's mesh and multi-host
-bring-up have no counterpart here yet: the port drives one device, named
-explicitly by every entry point (:func:`resolve_device`).
+explicit conf < kwargs), the root seed, the tri-state flag parser, the
+dtype-policy ownership rule, and the multi-process bring-up: with
+``zoo.distributed.coordinator`` set, :func:`init_zoo_context` joins this
+process to a ``torch.distributed`` process group (rank
+``zoo.distributed.process_id`` of ``zoo.distributed.num_processes``) and
+lays the device mesh over the ranks from ``zoo.mesh.{data,model,seq,
+expert,pipe}`` (``ZooContext.mesh``, ``parallel/mesh.py``). With no
+coordinator and one process nothing changes: one device, named explicitly
+by every entry point (:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -22,7 +27,22 @@ log = logging.getLogger("analytics_zoo_tpu_torch")
 #: values they accept are the JAX package's, so one config file (or one
 #: ``ZOO_TPU_*`` environment) drives both.
 DEFAULT_CONF: Dict[str, Any] = {
+    "zoo.mesh.data": -1,        # -1 = all remaining ranks
+    "zoo.mesh.model": 1,
+    "zoo.mesh.seq": 1,
+    "zoo.mesh.expert": 1,
+    "zoo.mesh.pipe": 1,
     "zoo.seed": 0,
+    # multi-process bring-up: empty coordinator = one process
+    "zoo.distributed.coordinator": "",   # "host:port" (tcp) or "file:///path"
+    "zoo.distributed.num_processes": 1,
+    "zoo.distributed.process_id": 0,
+    "zoo.seq.mode": "ring",              # seq-parallel routing: ring | ulysses | auto
+    "zoo.seq.strict": False,             # fail (not warn) when attention can't ride the seq mesh
+    "zoo.train.zero_sharding": False,    # ZeRO-1: optimizer state sharded over data axis
+    "zoo.train.seq_attention": "off",    # force seq-parallel attention in the step: off | ring | ulysses
+    "zoo.train.pipe_stages": 0,          # >0: cut the homogeneous block run into GPipe stages
+    "zoo.train.pipe_microbatch": 0,      # GPipe microbatches (0 = the pipe axis size)
     "zoo.pallas.attention": "auto",  # auto (CUDA, T >= 2048) | true | false
     "zoo.pallas.cross_entropy": "auto",  # fused-CE kernels: auto (CUDA) | true | false
     "zoo.pallas.embed_gather": "auto",   # dedup'd-embedding expand kernel: auto (CUDA) | true | false
@@ -188,9 +208,21 @@ def dtype_name(dtype: Any) -> str:
 
 @dataclasses.dataclass
 class ZooContext:
-    """Process-wide runtime handle: the merged configuration."""
+    """Process-wide runtime handle: the merged configuration and, in a
+    process group, the device mesh over its ranks."""
 
     conf: Dict[str, Any]
+    mesh: Any = None    # parallel.mesh.Mesh once a process group is up
+
+    @property
+    def process_index(self) -> int:
+        import torch.distributed as dist
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    @property
+    def process_count(self) -> int:
+        import torch.distributed as dist
+        return dist.get_world_size() if dist.is_initialized() else 1
 
     @property
     def seed(self) -> int:
@@ -205,6 +237,66 @@ class ZooContext:
 
 
 _context: Optional[ZooContext] = None
+
+
+def _backend(cards: int, local: Optional[int]):
+    """``(backend, reason)`` for a rank on a host with ``cards`` cards,
+    ``local`` ranks on that host (None when unknown): NCCL when each rank
+    has its own card, gloo on the CPU and where this host's ranks
+    outnumber its cards. Without the local count each rank is taken to
+    have its own card (a job over several hosts)."""
+    if cards == 0:
+        return "gloo", "no CUDA device"
+    if local is not None and local > cards:
+        return "gloo", (f"{local} ranks on this host share its {cards} "
+                        f"card(s)")
+    return "nccl", "a card a rank"
+
+
+def _maybe_init_distributed(conf: Mapping[str, Any]) -> None:
+    """Joins the process group ``zoo.distributed.*`` names (JAX
+    ``_maybe_init_distributed``): ``init_process_group`` at the
+    coordinator (``host:port`` → ``tcp://host:port``, or a ``file://``
+    store), with the world size and rank given. The backend
+    (:func:`_backend`): NCCL when each rank has its own card, gloo on the
+    CPU and where the ranks on this host (``LOCAL_WORLD_SIZE``, as
+    ``torchrun`` sets it) outnumber its cards. On CUDA a rank's card is
+    its local rank (``LOCAL_RANK``, else the rank) modulo the card count.
+    A process group already up, or no coordinator, leaves things as
+    they are."""
+    import torch.distributed as dist
+    coordinator = str(conf.get("zoo.distributed.coordinator") or "").strip()
+    if not coordinator or dist.is_initialized():
+        return
+    world = int(conf.get("zoo.distributed.num_processes", 1))
+    rank = int(conf.get("zoo.distributed.process_id", 0))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    backend, why = _backend(cards, int(local) if local else None)
+    if cards:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
+                              % cards)
+        if backend == "gloo":
+            log.warning("process group on gloo although CUDA is present: "
+                        "%s", why)
+    url = (coordinator if "://" in coordinator
+           else f"tcp://{coordinator}")
+    log.info("joining the process group at %s: rank %d of %d (%s: %s)",
+             url, rank, world, backend, why)
+    dist.init_process_group(backend, init_method=url, world_size=world,
+                            rank=rank)
+
+
+def _make_mesh(conf: Mapping[str, Any]):
+    """The mesh ``zoo.mesh.*`` lays over the world's ranks, set as the
+    global mesh (JAX ``init_zoo_context``'s ``create_mesh``)."""
+    from ..parallel import mesh as mesh_lib
+    mesh = mesh_lib.create_mesh(
+        data=int(conf["zoo.mesh.data"]), model=int(conf["zoo.mesh.model"]),
+        seq=int(conf["zoo.mesh.seq"]), expert=int(conf["zoo.mesh.expert"]),
+        pipe=int(conf["zoo.mesh.pipe"]))
+    mesh_lib.set_global_mesh(mesh)
+    return mesh
 
 
 def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
@@ -239,7 +331,10 @@ def init_zoo_context(conf: Optional[Mapping[str, Any]] = None,
     from ..pipeline.api.keras import engine as _engine
     if "zoo.compute.dtype" in explicit or _engine.policy_owner() == "context":
         _engine._set_policy_from_context(merged["zoo.compute.dtype"])
-    _context = ZooContext(conf=merged)
+    _maybe_init_distributed(merged)
+    import torch.distributed as dist
+    mesh = _make_mesh(merged) if dist.is_initialized() else None
+    _context = ZooContext(conf=merged, mesh=mesh)
     return _context
 
 
@@ -302,11 +397,14 @@ def tri_state_conf(key: str, default: str = "auto"):
 
 
 def reset_zoo_context() -> None:
-    """Tear down the global context and the policy it owns (tests)."""
+    """Tear down the global context, the policy it owns and the global
+    mesh (tests); a process group stays up."""
     global _context
     _context = None
+    from ..parallel import mesh as _mesh
     from ..pipeline.api.keras import engine as _engine
     _engine._reset_policy()
+    _mesh.reset_global_mesh()
 
 
 def resolve_device(device: Any = None) -> torch.device:

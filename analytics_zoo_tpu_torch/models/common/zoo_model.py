@@ -145,10 +145,13 @@ class ZooModel(KerasNet):
 
 
 def _host(pairs: List[Tuple[str, torch.Tensor]]) -> List[np.ndarray]:
-    """Host copies of the tensors of ``pairs`` (bf16 widened to f32)."""
+    """Host copies of the whole tensors of ``pairs`` (bf16 widened to
+    f32)."""
+    from ...parallel.mesh import full_tensor
     out = []
     for _, t in pairs:
-        t = t.detach().cpu()
+        # a parameter placed on a device mesh: the whole array (collective)
+        t = full_tensor(t).detach().cpu()
         out.append((t.float() if t.dtype == torch.bfloat16 else t).numpy())
     return out
 

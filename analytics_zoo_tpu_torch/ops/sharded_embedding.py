@@ -23,8 +23,11 @@ thread, and :func:`oocore_gather` reads the virtual ``[hot; cold]`` table
 distinct id is taken by SA in position order, from the plan's sort, so
 it has the same bits on every run.
 
-The port drives one device: a mesh with a ``model`` axis larger than 1
-(the row-partitioned lookup) is not ported yet.
+On a mesh whose ``model`` axis is larger than 1 the lookup is
+row-partitioned (:func:`sharded_embedding_lookup`): each rank gathers the
+distinct ids' rows it owns, one all-reduce over ``model`` completes the
+block, K1 expands it on every rank, and the backward's SA runs on the
+rank's ids and scatters onto its own rows.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..common.context import get_zoo_context
+from ..parallel.collectives import all_reduce
 from .pallas.embedding import (dedup_scatter_add, embed_expand,
                                embed_expand_reference,
                                pallas_embed_gather_enabled)
@@ -51,11 +55,15 @@ def round_up(x: int, mult: int) -> int:
     return (x + mult - 1) // mult * mult
 
 
-def model_row_shard_count(mesh: Optional[Mapping[str, int]] = None) -> int:
-    """Size of the ``model`` axis of ``mesh`` (a mapping of axis sizes):
-    the row shard count of the lookup. The port has no device mesh, so
-    with none given it is 1."""
-    return 1 if mesh is None else int(mesh.get("model", 1))
+def model_row_shard_count(mesh=None) -> int:
+    """Size of the ``model`` axis of ``mesh`` (a mesh, or a mapping of
+    axis sizes; default the global mesh): the row shard count of the
+    lookup."""
+    if mesh is None:
+        from ..parallel.mesh import global_mesh
+        mesh = global_mesh()
+    sizes = getattr(mesh, "shape", mesh)
+    return int(sizes.get("model", 1))
 
 
 def dedup_capacity(n_ids: int, vocab: int) -> int:
@@ -150,28 +158,113 @@ def dedup_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     return out.reshape(*orig, d)
 
 
+class _RowShardedTake(torch.autograd.Function):
+    """The row-sharded lookup's rank-local half (JAX
+    ``_sharded_fwd_local``/``_sharded_bwd_local``): ``table`` is the rank's
+    ``(V/n, D)`` row block, ``ids (N,)`` the clamped ids (alike on every
+    rank of the ``model`` axis). Forward: the fixed-capacity unique, the
+    owned unique rows gathered (the others exact zeros, in f32), one sum
+    over ``model`` (each distinct row crosses once: the JAX ``psum``),
+    then K1 expands the block to the id stream. Backward: SA sums the row
+    cotangents per distinct id in position order, and the owned slots
+    scatter onto the rank's rows (the others onto a dump row)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, capacity: int, use_kernel: bool, ax):
+        vs = table.shape[0]
+        uniq, inv, order, slot = _dedup_sort(ids, capacity,
+                                             fill=vs * ax.size)
+        loc = uniq.long() - ax.index * vs
+        own = (loc >= 0) & (loc < vs)
+        rows_local = torch.where(
+            own[:, None],
+            table.index_select(0, loc.clamp(0, vs - 1)).float(),
+            torch.zeros((), dtype=torch.float32, device=table.device))
+        rows = all_reduce(rows_local, ax).to(table.dtype)
+        expand = embed_expand if use_kernel else embed_expand_reference
+        ctx.save_for_backward(loc, own, inv, order, slot)
+        ctx.capacity, ctx.vs, ctx.dtype = capacity, vs, table.dtype
+        return expand(rows, inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        loc, own, inv, order, slot = ctx.saved_tensors
+        vs = ctx.vs
+        d_rows = dedup_scatter_add(g.contiguous(), inv, ctx.capacity,
+                                   order=order, sorted_slot=slot)
+        safe = torch.where(own, loc.clamp(0, vs - 1),
+                           torch.full_like(loc, vs))
+        dw = torch.zeros(vs + 1, g.shape[1], dtype=torch.float32,
+                         device=g.device)
+        dw.index_add_(0, safe, d_rows)
+        return dw[:vs].to(ctx.dtype), None, None, None, None
+
+
+def _model_group(table: torch.Tensor, mesh):
+    """The ``model`` axis the lookup shards over: ``mesh``'s (a mesh, or a
+    mapping of axis sizes, which names no process group), else the mesh
+    the table was placed on (``parallel.mesh.place_params``), else the
+    global mesh's."""
+    from ..parallel.mesh import MODEL_AXIS, Mesh, global_mesh
+    if mesh is None:
+        mesh = getattr(table, "_zoo_mesh", None) or global_mesh()
+    if isinstance(mesh, Mesh):
+        return mesh.group(MODEL_AXIS)
+    if int(mesh.get(MODEL_AXIS, 1)) > 1:
+        raise ValueError(
+            f"the row-sharded lookup (model={mesh[MODEL_AXIS]}) needs a "
+            f"parallel.mesh.Mesh, whose model axis has its process group; "
+            f"axis sizes alone name no ranks")
+    return None
+
+
 def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
-                             mesh: Optional[Mapping[str, int]] = None, *,
+                             mesh=None, *,
                              capacity: Optional[int] = None,
                              dedup: Optional[bool] = None,
                              use_kernel: Optional[bool] = None
                              ) -> torch.Tensor:
     """The lookup of ``ShardedEmbedding``: ``table[ids]`` with ids clamped
-    into ``[0, V)``. With ``model == 1`` (always, without a mesh) this is
-    the unsharded dedup'd lookup; ``dedup=False`` (``zoo.embed.dedup``)
-    keeps the path but sizes the capacity at the id count rounded up to
-    8. A row-sharded mesh raises: that form is not ported yet."""
-    n_model = model_row_shard_count(mesh)
-    if n_model > 1:
-        raise NotImplementedError(
-            f"the row-sharded embedding lookup (model={n_model}) is not "
-            f"ported yet")
+    into ``[0, V)``. ``mesh`` defaults to the one the table was placed on,
+    else the global mesh. On a ``model`` axis of one rank (always, in one
+    process) this is the unsharded dedup'd lookup. On a larger one the
+    table's rows split over it (JAX ``sharded_embedding_lookup``): a table
+    placed row-sharded is this rank's block already; a whole table (its
+    rows do not divide the axis) is padded and this rank's block taken
+    here, its gradient gathered whole again. ``dedup=False``
+    (``zoo.embed.dedup``) keeps the path but sizes the capacity at the id
+    count rounded up to 8."""
+    from ..parallel.collectives import split_to
+    from ..parallel.mesh import MODEL_AXIS, sharded_over
+    ax = _model_group(table, mesh)
     n = ids.numel()
     if dedup is None:
         dedup = bool(get_zoo_context().get("zoo.embed.dedup", True))
-    cap = capacity or (dedup_capacity(n, table.shape[0]) if dedup
-                       else round_up(n, 8))
-    return dedup_embedding_lookup(table, ids, cap, use_kernel)
+    if ax is None or ax.size == 1:
+        cap = capacity or (dedup_capacity(n, table.shape[0]) if dedup
+                           else round_up(n, 8))
+        return dedup_embedding_lookup(table, ids, cap, use_kernel)
+    if sharded_over(table, MODEL_AXIS) is not None:
+        local, v = table, table.shape[0] * ax.size
+    else:
+        v = table.shape[0]
+        vp = round_up(v, ax.size)
+        padded = (table if vp == v else torch.cat(
+            [table, table.new_zeros(vp - v, table.shape[1])]))
+        local = split_to(padded, ax, 0)
+    d = local.shape[1]
+    orig = ids.shape
+    flat = ids.reshape(-1).to(torch.int32).clamp(0, v - 1)
+    cap = capacity or (dedup_capacity(n, v) if dedup else round_up(n, 8))
+    if cap < min(n, v):
+        raise ValueError(
+            f"dedup capacity {cap} cannot hold the worst-case {min(n, v)} "
+            f"unique ids per shard — the unique would silently truncate; "
+            f"raise capacity or leave it unset")
+    if use_kernel is None:
+        use_kernel = pallas_embed_gather_enabled(table.device)
+    out = _RowShardedTake.apply(local, flat, int(cap), bool(use_kernel), ax)
+    return out.reshape(*orig, d)
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ import torch
 from ....common import anomaly
 from ....common.noise import step_seed, twins
 from ....observability.compile import CompileTracker
+from ....ops.guard import commit_table, guard_commit
 from ....ops.launch_count import Launches, record_launches
 from .optimizers import n_scalars
 
@@ -198,6 +199,8 @@ class Guard:
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.base = torch.zeros((), dtype=torch.int64, device=device)
         self.prev: Optional[List[torch.Tensor]] = None
+        # G1's device tables (keep, commit), made once a set of tensors
+        self.tables: List = [None, None]
 
     def tensors(self) -> List[torch.Tensor]:
         return [self.ewma, self.obs, self.count, self.base]
@@ -212,19 +215,30 @@ class Guard:
         self.count.fill_(count)
         self.base.fill_(count)
 
-    def keep(self, state: List[torch.Tensor]) -> None:
-        """Copies ``state`` (the step's parameters and optimizer state)
-        before the update."""
-        if self.prev is None or len(self.prev) != len(state):
+    def keep(self, state: List[torch.Tensor]):
+        """The pre-step copies of ``state`` (the step's parameters,
+        optimizer state and written model state). On the CPU they are
+        copied now (one multi-tensor copy); on the card G2 copies them,
+        for a bad step only, from the table returned here (made once a set
+        of tensors)."""
+        if (self.prev is None or len(self.prev) != len(state)
+                or any(p.shape != t.shape or p.dtype != t.dtype
+                       or p.stride() != t.stride()
+                       for p, t in zip(self.prev, state))):
             with torch.no_grad():
                 self.prev = [torch.empty_like(t) for t in state]
-        torch._foreach_copy_(self.prev, state)
+            self.tables = [None, None]
+        if not state or not state[0].is_cuda:
+            torch._foreach_copy_(self.prev, state)
+            return None
+        self.tables[0] = commit_table(self.prev, state, self.tables[0])
+        return self.tables[0]
 
     def commit(self, state: List[torch.Tensor], bad: torch.Tensor) -> None:
         """Where ``bad``, the pre-step values back; else the update's, bit
-        for bit (a select, no arithmetic)."""
-        for t, p in zip(state, self.prev):
-            torch.where(bad, p, t, out=t)
+        for bit (a select, no arithmetic): G1, one launch for every tensor
+        on the card."""
+        self.tables[1] = guard_commit(state, self.prev, bad, self.tables[1])
 
 
 class StepProgram:
@@ -322,11 +336,11 @@ class StepProgram:
                     x, y, self.noise[j], self.params, self.opt_state,
                     None if self.scalars is None else self.scalars[j])
             else:
-                loss, flags = self.loop.guarded_step(
+                loss, _ = self.loop.guarded_step(
                     x, y, self.noise[j], self.params, self.opt_state,
                     self.scalars, self.base,
-                    None if self.fault is None else self.fault[j])
-                self.flags[j].copy_(flags)
+                    None if self.fault is None else self.fault[j],
+                    flags_out=self.flags[j])
             self.losses[j].copy_(loss)
 
     def _graph(self, k: int):

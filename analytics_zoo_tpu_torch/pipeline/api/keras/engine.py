@@ -316,6 +316,31 @@ def emit_state(layer: "Layer", key: str, value: torch.Tensor) -> None:
         sink[id(buf)] = (buf, value.detach())
 
 
+_AUX_SINK = contextvars.ContextVar("zoo_aux_sink", default=None)
+
+
+@contextlib.contextmanager
+def collect_aux_losses():
+    """Scope over a training step's forward: every :func:`emit_aux_loss`
+    inside it lands in the yielded list, which the step adds to the loss
+    it differentiates (JAX ``training.py`` ``_aux_loss_sum``: the
+    ``aux_loss`` state leaves)."""
+    sink: list = []
+    token = _AUX_SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _AUX_SINK.reset(token)
+
+
+def emit_aux_loss(value: torch.Tensor) -> None:
+    """A layer's auxiliary loss (``SparseMoE``'s load balance), added to
+    the training step's loss; dropped outside a training step."""
+    sink = _AUX_SINK.get()
+    if sink is not None:
+        sink.append(value)
+
+
 def commit_state(sink: Optional[Dict[int, tuple]]) -> None:
     """Write each collected value into its buffer, in place (a captured
     step keeps reading the same buffers)."""
@@ -687,6 +712,7 @@ class KerasNet(Layer):
         self._loop = TrainingLoop(
             self, opt, objectives.get_loss(loss),
             [metrics_lib.get_metric(m) for m in (metrics or [])])
+        self._loop.global_clip = clip_norm is not None
         return self
 
     def _compiled_loop(self, what: str):
@@ -994,6 +1020,12 @@ def _load_tree(want: Dict[str, torch.Tensor], tree: Dict[str, Any],
                        f"extra {extra}")
     src = {key: torch.tensor(np.asarray(got[key])) for key in want}
     for key, t in want.items():
+        spec = getattr(t, "_zoo_spec", None)
+        if spec is not None:
+            # a parameter placed on a device mesh keeps this rank's slice
+            from ....parallel.mesh import local_slice
+            src[key] = local_slice(src[key], spec, t._zoo_mesh)
+    for key, t in want.items():
         if tuple(src[key].shape) != tuple(t.shape):
             raise ValueError(f"{key}: shape {tuple(src[key].shape)} does "
                              f"not match the port's {tuple(t.shape)}")
@@ -1007,7 +1039,9 @@ def load_param_tree(module: nn.Module, tree: Dict[str, Any],
     """Fill ``module``'s parameters from a nested dict of arrays keyed as
     the JAX param tree, and, when ``state`` is given, its model state
     from the JAX ``net_state`` tree. Every key must match a tensor of the
-    same shape; a missing or an extra key raises."""
+    same shape (a parameter placed on a device mesh takes its rank's slice
+    of the whole array, ``parallel.mesh.place_params``); a missing or an
+    extra key raises."""
     _load_tree(dict(module.named_parameters()), tree, "param")
     if state is not None:
         _load_tree(named_state(module), state, "state")

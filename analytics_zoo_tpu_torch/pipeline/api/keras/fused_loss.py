@@ -25,8 +25,13 @@ node is a Dense, or through a ``fused_head() -> (dense, param_path)`` hook
 (``BERTClassifier``'s network has one, and the ``ZooModel`` facade sees
 through to the inner network). The full-logits objective stays the
 oracle: ``evaluate``/
-``predict`` and every non-matching model keep it. The port drives one
-device, so the vocab-sharded form never engages.
+``predict`` and every non-matching model keep it. On a mesh whose
+``model`` axis splits the head's columns (its width divides the axis;
+``parallel.mesh.param_shardings`` then commits the split) the loss takes
+the vocab-sharded form (``ops.fused_cross_entropy.
+sharded_fused_sparse_cross_entropy``): each rank streams its ``(chunk,
+V/n)`` weight slice and ``dW`` stays on the rank's columns. The spec's
+``sharded`` says which form is live.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ....ops.fused_cross_entropy import (AUTO_MIN_VOCAB,
-                                         fused_sparse_cross_entropy)
+                                         fused_sparse_cross_entropy,
+                                         sharded_fused_sparse_cross_entropy,
+                                         vocab_shard_count)
 
 
 def find_head(model) -> Optional[Tuple[object, Tuple[str, ...]]]:
@@ -66,10 +73,11 @@ class FusedHeadSpec:
     """A resolved head: applies the trunk (head intercepted to identity)
     and the fused blockwise loss over the head's own parameters."""
 
-    def __init__(self, head, param_path: Tuple[str, ...]):
+    def __init__(self, head, param_path: Tuple[str, ...],
+                 sharded: bool = False):
         self.head = head
         self.param_path = tuple(param_path)
-        self.sharded = False
+        self.sharded = bool(sharded)
 
     def apply_and_loss(self, model, x, y, *, generator=None) -> torch.Tensor:
         """The training loss with the head fused into it."""
@@ -87,13 +95,15 @@ class FusedHeadSpec:
         # row. Replicate both: wrap the in-range negatives and send the
         # rest to V, which the op poisons. (Ignore-label masking is the
         # op-level fused_sparse_cross_entropy API.)
-        v = w.shape[1]
+        v = head.output_dim
         labels = torch.as_tensor(y, device=h.device).reshape(-1).to(
             torch.int32)
         labels = torch.where(labels < -v, torch.full_like(labels, v),
                              torch.where(labels < 0, labels + v, labels))
-        return fused_sparse_cross_entropy(labels, h, w,
-                                          head.b if head.bias else None)
+        b = head.b if head.bias else None
+        if self.sharded:
+            return sharded_fused_sparse_cross_entropy(labels, h, w, b)
+        return fused_sparse_cross_entropy(labels, h, w, b)
 
 
 def _mode() -> str:
@@ -134,4 +144,13 @@ def resolve_fused_loss(model, loss_fn: Callable) -> Optional[FusedHeadSpec]:
         return None
     if mode == "auto" and head.output_dim < AUTO_MIN_VOCAB:
         return None
-    return FusedHeadSpec(head, path)
+    return FusedHeadSpec(head, path, sharded=_head_sharded(head))
+
+
+def _head_sharded(head) -> bool:
+    """Whether the head's kernel is model-sharded under the current mesh:
+    the divisibility ``mesh.param_shardings`` checks before it commits
+    the Dense column split (an indivisible head keeps the replicated
+    kernel and the unsharded loss together), JAX ``_head_sharded``."""
+    n_model = vocab_shard_count()
+    return n_model > 1 and head.output_dim % n_model == 0

@@ -30,6 +30,8 @@ from .elementwise import (AddConstant, CAdd, CMul, Exp, Expand,
                           GaussianSampler, Log, Max, Mul, MulConstant,
                           Negative, Power, ResizeBilinear, Scale, Sqrt,
                           Square)
+from .gpipe import GPipe, Pipeline
+from .moe import SparseMoE
 from .normalization import BatchNormalization, L2Normalize, LayerNorm
 from .pooling import (AveragePooling1D, AveragePooling2D, AveragePooling3D,
                       GlobalAveragePooling1D, GlobalAveragePooling2D,
@@ -49,12 +51,12 @@ __all__ = ["Activation", "AddConstant", "AtrousConvolution1D",
            "Convolution3D", "Cropping1D", "Cropping2D",
            "Cropping3D", "Deconvolution2D", "Dense",
            "DepthwiseConvolution2D", "Dropout", "ELU", "Embedding",
-           "Exp", "Expand", "ExpandDim", "Flatten",
+           "Exp", "Expand", "ExpandDim", "Flatten", "GPipe",
            "GaussianDropout", "GaussianNoise", "GaussianSampler",
            "get_activation", "GlobalAveragePooling1D",
            "GlobalAveragePooling2D", "GlobalAveragePooling3D",
            "GlobalMaxPooling1D", "GlobalMaxPooling2D",
-           "GlobalMaxPooling3D", "GRU", "HardShrink", "HardTanh",
+           "GlobalMaxPooling3D", "GRU", "Pipeline", "SparseMoE", "HardShrink", "HardTanh",
            "Highway", "Input", "InputLayer", "KMaxPooling",
            "L2Normalize", "Lambda", "LayerNorm", "LeakyReLU",
            "LocallyConnected1D", "LocallyConnected2D", "Log",

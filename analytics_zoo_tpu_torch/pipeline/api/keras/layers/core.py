@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from .....common.noise import noise_generator
+from .....parallel.collectives import copy_to, gather_from
+from .....parallel.mesh import MODEL_AXIS, sharded_over
 from .....ops.pallas.quantized import (STATIC_MAX_M, int8_matmul,
                                        static_int8_dense,
                                        static_int8_dense_reference)
@@ -134,7 +136,24 @@ class Dense(Layer):
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)
 
+    def param_sharding(self, mesh=None):
+        """Column-parallel TP (JAX ``Dense.param_sharding``): the kernel's
+        output dimension over ``model``; the forward computes the rank's
+        columns and gathers them (:meth:`call`)."""
+        spec = {"W": (None, MODEL_AXIS)}
+        if self.bias:
+            spec["b"] = (MODEL_AXIS,)
+        return spec
+
     def call(self, x, *, training=False, generator=None):
+        ax = sharded_over(self.W, MODEL_AXIS)
+        if ax is not None:
+            # the rank's output columns, gathered; the input's gradient
+            # summed over the column shards
+            y = gather_from(dense(copy_to(x, ax), self.W,
+                                  self.b if self.bias else None,
+                                  compute_dtype()), ax, -1)
+            return y if self.activation is None else self.activation(y)
         # an int8 W hands its ReLU to K6 with the bias (the fused epilogue)
         fused = (self.activation is ACTIVATIONS["relu"]
                  and self.W.dtype == torch.int8)

@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .....parallel.collectives import gather_from
+from .....parallel.mesh import MODEL_AXIS, sharded_over
 from ..engine import Layer, get_initializer, param_dtype
 
 
@@ -58,7 +60,31 @@ class Embedding(Layer):
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
 
+    #: the lookup runs on the row-sharded dedup'd engine
+    #: (``ShardedEmbedding``, or a plain ``Embedding`` the
+    #: ``zoo.embed.sharded`` resolution engaged, ``keras/sharded_embed.py``)
+    _lookup_sharded = False
+    #: and the table's rows split over ``model`` (an engaged table whose
+    #: rows do not divide the axis stays whole; the lookup splits it)
+    _row_shard = False
+
+    def param_sharding(self, mesh=None):
+        """The embedding (column) dimension over ``model``, each rank
+        gathering its columns of the rows (JAX ``Embedding.
+        param_sharding``); rows instead on the row-sharded engine."""
+        if self._row_shard:
+            return {"embeddings": (MODEL_AXIS, None)}
+        if self._lookup_sharded:
+            return {}
+        return {"embeddings": (None, MODEL_AXIS)}
+
     def call(self, x, *, training=False, generator=None):
+        if self._lookup_sharded:
+            from .....ops.sharded_embedding import sharded_embedding_lookup
+            return sharded_embedding_lookup(self.embeddings, x)
+        ax = sharded_over(self.embeddings, MODEL_AXIS)
+        if ax is not None:
+            return gather_from(take_rows(self.embeddings, x), ax, -1)
         return take_rows(self.embeddings, x)
 
 
@@ -68,12 +94,11 @@ class ShardedEmbedding(Embedding):
     the distinct ids' rows once and expands them to the id stream (K1 on
     the card), and the backward sums the row cotangents per distinct id
     in a fixed order (the SA kernel) before one scatter onto the table.
-    Ids clamp into ``[0, V)``. The port drives one device, so the table is
-    never row-partitioned."""
+    Ids clamp into ``[0, V)``. On a mesh with a ``model`` axis the table's
+    rows split over it and each rank looks up its own rows (the
+    row-sharded engine)."""
 
-    def call(self, x, *, training=False, generator=None):
-        from .....ops.sharded_embedding import sharded_embedding_lookup
-        return sharded_embedding_lookup(self.embeddings, x)
+    _lookup_sharded = _row_shard = True
 
 
 class SparseEmbedding(Layer):

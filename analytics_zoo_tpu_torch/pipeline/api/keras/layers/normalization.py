@@ -25,7 +25,13 @@ class BatchNormalization(Layer):
     ``(x - mean) * rsqrt(var + eps) * gamma + beta`` with each factor cast
     to ``x``'s dtype first, as the JAX layer computes it.
     ``nn.BatchNorm2d`` would update with the unbiased variance, and in
-    place during the forward."""
+    place during the forward.
+
+    On a mesh whose ``data`` axis splits the batch, the training
+    statistics are the global batch's, as the JAX step's are: each rank's
+    sums (then its squared deviations from the global mean) are summed
+    over ``data``, forward and backward, so every rank normalises alike
+    and its gradients take the other ranks' rows into account."""
 
     def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
                  axis: int = -1, scale: bool = True, center: bool = True,
@@ -56,8 +62,16 @@ class BatchNormalization(Layer):
                        for i in range(x.dim()))
         if training:
             xf = x.float()
-            mean = xf.mean(dim=reduce)
-            var = xf.var(dim=reduce, unbiased=False)
+            dp = self._data_axis()
+            if dp is None:
+                mean = xf.mean(dim=reduce)
+                var = xf.var(dim=reduce, unbiased=False)
+            else:
+                n = xf.numel() // xf.shape[axis] * dp.size
+                mean = _global_sum(xf.sum(dim=reduce), dp) / n
+                var = _global_sum(
+                    (xf - mean.reshape(bshape)).square().sum(dim=reduce),
+                    dp) / n
             m = self.momentum
             emit_state(self, "moving_mean",
                        m * self.moving_mean + (1 - m) * mean)
@@ -73,6 +87,24 @@ class BatchNormalization(Layer):
         if self.center:
             y = y + self.beta.to(x.dtype).reshape(bshape)
         return y
+
+    def _data_axis(self):
+        """The ``data`` axis group when the mesh splits the batch over more
+        than one rank, else None."""
+        from .....parallel import mesh as mesh_lib
+        mesh = next((getattr(p, "_zoo_mesh", None)
+                     for p in self.parameters(recurse=False)), None)
+        mesh = mesh or mesh_lib.global_mesh()
+        if mesh.shape[mesh_lib.DATA_AXIS] <= 1:
+            return None
+        return mesh.group(mesh_lib.DATA_AXIS)
+
+
+def _global_sum(t: torch.Tensor, ax) -> torch.Tensor:
+    """``t`` summed over ``ax``, its gradient summed over ``ax`` too (every
+    rank's loss reads the sum)."""
+    from .....parallel.collectives import copy_to, reduce_from
+    return reduce_from(copy_to(t, ax), ax)
 
 
 class LayerNorm(Layer):

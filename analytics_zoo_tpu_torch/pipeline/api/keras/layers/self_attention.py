@@ -1,8 +1,19 @@
 """Transformer layers — port of ``analytics_zoo_tpu/pipeline/api/keras/
 layers/self_attention.py``: ``MultiHeadSelfAttention`` (fused QKV, routed
 to the flash kernel or the oracle), the post-LN ``TransformerBlock``, the
-GPT-style ``TransformerLayer`` and the ``BERT`` encoder. Sequence-parallel (ring/ulysses) routing is not
-ported; the port drives one device.
+GPT-style ``TransformerLayer`` and the ``BERT`` encoder.
+
+On a device mesh (``parallel/mesh.py``) the layers run the JAX package's
+shardings as explicit collectives. Tensor parallelism over ``model`` is
+Megatron's: the fused QKV projection column-parallel (each rank's block
+holds whole heads of q, k and v), attention on the rank's heads, the
+output projection row-parallel with one all-reduce after it; the MLP's
+``fc`` column-parallel and ``out`` row-parallel with one all-reduce; the
+embedding tables split over their hidden dimension and gathered after the
+lookup. Sequence parallelism over ``seq`` routes attention through the
+ring or Ulysses (``parallel/ring_attention.py``; ``zoo.seq.mode``, or the
+training loop's ``zoo.train.seq_attention``), the activations whole on
+every rank outside it.
 """
 
 from __future__ import annotations
@@ -14,6 +25,8 @@ import torch.nn.functional as F
 
 from .....common.noise import split_generators
 from .....ops.attention import dot_product_attention, merge_heads, split_heads
+from .....parallel.collectives import copy_to, gather_from, reduce_from
+from .....parallel.mesh import MODEL_AXIS, sharded_over
 from ..engine import Layer, compute_dtype, get_initializer, param_dtype
 from .core import dense, dropout
 from .embeddings import take_rows
@@ -106,16 +119,118 @@ class MultiHeadSelfAttention(Layer):
             return device.type == "cuda" and seq_len >= self.FLASH_AUTO_MIN_SEQ
         return flag
 
+    def param_sharding(self, mesh=None):
+        """Megatron attention TP: the fused QKV column-parallel, its
+        ``[q|k|v]`` dimension split block by block so each rank keeps
+        whole heads of all three (the JAX spec splits the fused dimension
+        as one; the arithmetic is the same), the output projection
+        row-parallel. Replicated where the heads do not divide the
+        ``model`` axis."""
+        n = 1 if mesh is None else mesh.shape[MODEL_AXIS]
+        if self.n_head % n:
+            return {}
+        return {"qkv.W": (None, (MODEL_AXIS, 3)),
+                "qkv.b": ((MODEL_AXIS, 3),), "proj.W": (MODEL_AXIS, None)}
+
+    def _seq_fallback(self, reason: str):
+        """A seq mesh exists but this call cannot ride it: warn once, or
+        raise under ``zoo.seq.strict`` or a loop-forced mode (JAX
+        ``_seq_fallback``)."""
+        from .....common.context import get_zoo_context
+        from ..seq_pipe import forced_seq_mode
+        strict = bool(get_zoo_context().get("zoo.seq.strict", False))
+        if strict or forced_seq_mode() in ("ring", "ulysses"):
+            raise RuntimeError(
+                f"{self.name}: zoo.seq.strict is set and {reason} — "
+                f"attention cannot ride the seq mesh (it would silently "
+                f"fall back to full attention)")
+        if not getattr(self, "_warned_no_ring", False):
+            import logging
+            logging.getLogger("analytics_zoo_tpu_torch.attention").warning(
+                "%s: seq-axis mesh active but %s — full O(T^2) attention "
+                "for this layer (no sequence parallelism)", self.name,
+                reason)
+            self._warned_no_ring = True
+        return None
+
+    def _ring_mesh(self, mask, drop, seq_len, generator):
+        """The mesh whose ``seq`` axis this call's attention splits over
+        (JAX ``_ring_mesh``), or None: no seq axis, a pipeline stage's
+        scope, or a call that cannot ride it (a per-query mask, dropout
+        without a generator, a sequence the axis does not divide)."""
+        from .....parallel import mesh as mesh_lib
+        from ..seq_pipe import forced_seq_mode
+        if forced_seq_mode() == "off":
+            return None
+        mesh = mesh_lib.global_mesh()
+        n_seq = mesh.shape[mesh_lib.SEQ_AXIS]
+        if n_seq <= 1:
+            return None
+        if drop > 0.0 and generator is None:
+            return self._seq_fallback(
+                f"attn_drop={drop} with no generator (training without "
+                f"one cannot draw in-ring dropout masks)")
+        if mask is not None and self._kv_mask(mask) is None:
+            return self._seq_fallback(
+                "the mask is per-query (not reducible to (B, Tk) "
+                "key-padding form)")
+        if seq_len % n_seq == 0:
+            return mesh
+        return self._seq_fallback(
+            f"shapes can't split (T={seq_len} over seq={n_seq})")
+
+    def _seq_routing(self, n_seq: int, n_head: int) -> str:
+        """``zoo.seq.mode``: ``ring`` (default), ``ulysses``, or ``auto``
+        (ulysses when the heads divide the seq axis); a loop-forced mode
+        (``zoo.train.seq_attention``) wins (JAX ``_seq_routing``)."""
+        from .....common.context import get_zoo_context
+        from ..seq_pipe import forced_seq_mode
+        forced = forced_seq_mode()
+        mode = (forced if forced in ("ring", "ulysses") else
+                str(get_zoo_context().get("zoo.seq.mode", "ring")).lower())
+        if mode not in ("ring", "ulysses", "auto"):
+            raise ValueError(f"zoo.seq.mode must be ring|ulysses|auto, "
+                             f"got {mode!r}")
+        if mode == "ulysses" and n_head % n_seq != 0:
+            raise ValueError(
+                f"zoo.seq.mode=ulysses needs n_head ({n_head}) divisible "
+                f"by the seq axis ({n_seq})")
+        if mode == "auto":
+            mode = "ulysses" if n_head % n_seq == 0 else "ring"
+        return mode
+
     def call(self, x, *, training=False, generator=None):
         mask = None
         if isinstance(x, (list, tuple)):
             x, mask = x
-        qkv = self.qkv(x)
+        ax = sharded_over(self.qkv.W, MODEL_AXIS)
+        n_head = self.n_head if ax is None else self.n_head // ax.size
+        qkv = self.qkv(copy_to(x, ax))
         q, k, v = torch.chunk(qkv, 3, dim=-1)
         g1, g2 = _split_generator(generator, 2)
-        qh, kh, vh = (split_heads(a, self.n_head) for a in (q, k, v))
+        qh, kh, vh = (split_heads(a, n_head) for a in (q, k, v))
         drop = self.attn_drop if training else 0.0
-        if self._use_flash(mask, drop, qh.shape[2], qh.device):
+        seq_mesh = self._ring_mesh(mask, drop, qh.shape[2], g1)
+        if seq_mesh is not None:
+            from .....parallel import mesh as mesh_lib
+            from .....parallel.ring_attention import (ring_self_attention,
+                                                      ulysses_self_attention)
+            kv_mask = self._kv_mask(mask)
+            n_seq = seq_mesh.shape[mesh_lib.SEQ_AXIS]
+            if self._seq_routing(n_seq, n_head) == "ulysses":
+                out = ulysses_self_attention(
+                    qh, kh, vh, mesh=seq_mesh, causal=self.causal,
+                    mask=kv_mask, dropout_rate=drop,
+                    generator=g1 if drop > 0.0 else None,
+                    flash=self._use_flash(mask, drop, qh.shape[2],
+                                          qh.device))
+            else:
+                out = ring_self_attention(
+                    qh, kh, vh, mesh=seq_mesh, causal=self.causal,
+                    mask=None if kv_mask is None else kv_mask.bool(),
+                    dropout_rate=drop,
+                    generator=g1 if drop > 0.0 else None)
+        elif self._use_flash(mask, drop, qh.shape[2], qh.device):
             # under autograd this is the kernels' autograd Function: K2
             # with the lse forward, K3a + K3b backward
             from .....ops.pallas import flash_attention
@@ -126,7 +241,14 @@ class MultiHeadSelfAttention(Layer):
             out = dot_product_attention(qh, kh, vh, mask=mask,
                                         causal=self.causal,
                                         dropout_rate=drop, generator=g1)
-        out = self.proj(merge_heads(out))
+        if ax is None:
+            out = self.proj(merge_heads(out))
+        else:
+            # row-parallel: the rank's heads' share of the product, summed
+            cd = compute_dtype()
+            out = (reduce_from(torch.matmul(merge_heads(out).to(cd),
+                                            self.proj.W.to(cd)), ax)
+                   + self.proj.b.to(cd))
         return dropout(out, self.out_drop, g2, training)
 
 
@@ -172,10 +294,24 @@ class TransformerBlock(Layer):
         a = self.attn([x, mask] if mask is not None else x,
                       training=training, generator=g1)
         x = self.ln1(x + a)
-        h = F.gelu(self.fc(x),
+        ax = sharded_over(self.fc.W, MODEL_AXIS)
+        h = F.gelu(self.fc(copy_to(x, ax)),
                    approximate="tanh" if self.gelu_approximate else "none")
-        h = dropout(self.out(h), self.hidden_drop, g2, training)
+        if ax is None:
+            h = self.out(h)
+        else:
+            # row-parallel: the rank's share of the product, summed
+            cd = compute_dtype()
+            h = (reduce_from(torch.matmul(h.to(cd), self.out.W.to(cd)), ax)
+                 + self.out.b.to(cd))
+        h = dropout(h, self.hidden_drop, g2, training)
         return self.ln2(x + h)
+
+    def param_sharding(self, mesh=None):
+        """Megatron MLP TP: ``fc`` column-parallel, ``out`` row-parallel
+        (the attention declares its own); LayerNorms replicated."""
+        return {"fc.W": (None, MODEL_AXIS), "fc.b": (MODEL_AXIS,),
+                "out.W": (MODEL_AXIS, None)}
 
 
 class TransformerLayer(Layer):
@@ -206,6 +342,11 @@ class TransformerLayer(Layer):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.n_block)]
 
+    def param_sharding(self, mesh=None):
+        """The token and position tables over their hidden dimension (the
+        blocks declare their own; JAX ``_stack_param_sharding``)."""
+        return {"wte": (None, MODEL_AXIS), "wpe": (None, MODEL_AXIS)}
+
     def compute_output_shape(self, input_shape):
         return (input_shape[0], input_shape[1], self.hidden_size)
 
@@ -227,6 +368,7 @@ class TransformerLayer(Layer):
         # casts the sum to the compute dtype afterwards
         h = (take_rows(self.wte, x) + self.wpe[None, :t, :]).to(
             compute_dtype())
+        h = gather_from(h, sharded_over(self.wte, MODEL_AXIS), -1)
         gens = _split_generator(generator, self.n_block + 1)
         h = dropout(h, self.embedding_drop, gens[0], training)
         for blk, g in zip(self.blocks(), gens[1:]):
@@ -265,6 +407,12 @@ class BERT(Layer):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.n_block)]
 
+    def param_sharding(self, mesh=None):
+        """The three embedding tables over their hidden dimension (the
+        blocks declare their own; JAX ``_stack_param_sharding``)."""
+        return {name: (None, MODEL_AXIS)
+                for name in ("word", "position", "token_type")}
+
     def build(self, input_shape=None, *, generator):
         std = self.initializer_range
 
@@ -291,6 +439,7 @@ class BERT(Layer):
         h = (take_rows(self.word.to(cd), ids)
              + take_rows(self.position.to(cd), pos)
              + take_rows(self.token_type.to(cd), token_type))
+        h = gather_from(h, sharded_over(self.word, MODEL_AXIS), -1)
         h = self.emb_ln(h).to(cd)
         gens = _split_generator(generator, self.n_block + 1)
         h = dropout(h, self.hidden_drop, gens[0], training)

@@ -1,18 +1,21 @@
 """Sharded-embedding resolution — port of ``analytics_zoo_tpu/pipeline/api/
 keras/sharded_embed.py``.
 
-In the JAX package ``resolve_sharded_embeddings(model)`` upgrades a
-model's plain ``Embedding`` layers to the row-partitioned dedup'd lookup
-at step-build time when the mesh has a ``model`` axis larger than 1
-(``zoo.embed.sharded``: auto | true | false), and declines otherwise. The
-training loop resolves it once per loop. The port drives one device, so it
-always declines there too; a user who wants the dedup'd engine on one
+``resolve_sharded_embeddings(model)`` upgrades a model's plain
+``Embedding`` layers to the row-partitioned dedup'd lookup when the global
+mesh has a ``model`` axis larger than 1 (``zoo.embed.sharded``: auto |
+true | false), and declines otherwise. The training loop resolves it once
+per loop, before it places the parameters on the mesh, so an engaged
+table is placed row-sharded. A user who wants the dedup'd engine on one
 device builds the graph with ``ShardedEmbedding``, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List
+import logging
+from typing import List, Optional
+
+log = logging.getLogger("analytics_zoo_tpu_torch.training")
 
 
 def find_embeddings(model) -> List[object]:
@@ -39,13 +42,37 @@ def find_embeddings(model) -> List[object]:
     return out
 
 
-def resolve_sharded_embeddings(model) -> None:
-    """The layer-call hook that routes ``model``'s plain embeddings through
-    the row-sharded lookup, or None. The JAX package engages it only on a
-    mesh whose ``model`` axis is larger than 1; the port drives one device
-    (``ops.sharded_embedding.model_row_shard_count()`` is 1), so it
-    declines for every model and every ``zoo.embed.sharded`` value, which
-    is still checked for its spelling."""
+def resolve_sharded_embeddings(model) -> Optional[List[object]]:
+    """Routes ``model``'s plain embeddings through the row-sharded lookup
+    when the global mesh's ``model`` axis is larger than 1, as the JAX
+    package's resolution does (``zoo.embed.sharded``): ``auto`` engages
+    the tables whose rows divide the axis, ``true`` every table (one whose
+    rows do not divide stays whole and the lookup splits it), ``false``
+    none. Engaged layers look up on the engine (``_lookup_sharded``) and,
+    where their rows divide, keep only their row block
+    (``_row_shard``). Returns the engaged layers (their count is the
+    ``zoo_embed_sharded_tables`` gauge), or None where it declines, as
+    the JAX resolution returns its hook or None."""
     from ....common.context import tri_state_conf
-    tri_state_conf("zoo.embed.sharded")
-    return None
+    from ....ops.sharded_embedding import model_row_shard_count
+    flag = tri_state_conf("zoo.embed.sharded")
+    if flag is False:
+        return None
+    candidates = find_embeddings(model)
+    n_model = model_row_shard_count()
+    if not candidates or n_model <= 1:
+        return None
+    engaged = [layer for layer in candidates
+               if flag is True or layer.input_dim % n_model == 0]
+    for layer in engaged:
+        layer._lookup_sharded = True
+        layer._row_shard = layer.input_dim % n_model == 0
+    if engaged:
+        log.info("sharded embedding engine engaged for %d table(s) over "
+                 "model=%d", len(engaged), n_model)
+        from ....observability import default_registry
+        default_registry().gauge(
+            "zoo_embed_sharded_tables",
+            "embedding tables routed through the row-partitioned sharded "
+            "lookup in the live training loop").set(len(engaged))
+    return engaged or None

@@ -81,8 +81,9 @@ and the ``zoo_train_fused_ce`` gauge says so; everything else runs the
 plain forward and objective, which ``evaluate`` and ``predict`` always
 use (the full-logits oracle). The sharded-embedding resolution
 (``keras/sharded_embed.py``, ``zoo.embed.sharded``) runs there once per
-loop too; on the port's one device it declines. Integer inputs (ids)
-stay integer from the ``FeatureSet`` to the model.
+loop too; it engages only on a mesh whose ``model`` axis is larger than
+1. Integer inputs (ids) stay integer from the ``FeatureSet`` to the
+model.
 
 ``zoo.train.remat`` (opt-in, resolved once per loop like the fused loss
 and the sentinel) wraps the step's forward and loss in
@@ -95,9 +96,14 @@ is the forward's again (``common/noise.py``). It sits in
 :meth:`TrainingLoop._grads`, so the eager, guarded and captured steps all
 run it.
 
-Not ported yet: the TensorBoard sink and the elastic re-mesh restore (the
-port drives one device and writes the JAX package's one-device mesh
-block).
+On a device mesh (``parallel/mesh.py``; more than one rank of
+``torch.distributed``) the loop runs the JAX loop's data, tensor, expert,
+pipeline and sequence parallelism and ZeRO-1 as explicit collectives
+(``mesh_step.py``); snapshots record the live ``mesh_metadata``, and a
+snapshot of another mesh restores re-placed under the live one (the
+elastic re-mesh restore, reported as ``ckpt.elastic_restore``).
+
+Not ported yet: the TensorBoard sink.
 """
 
 from __future__ import annotations
@@ -113,6 +119,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ....common import anomaly, faults, noise
 from ....common.context import (FALSE_FLAG_SPELLINGS, TRUE_FLAG_SPELLINGS,
@@ -124,12 +131,16 @@ from ....common.triggers import (EveryEpoch, MaxEpoch, SeveralIteration,
 from ....feature.feature_set import (FeatureSet, _ThreadedIterator, chunked,
                                      prefetch_to_device)
 from ....observability import default_registry, span
-from ....utils.checkpoint import (MESH_ONE_DEVICE,
-                                  CheckpointArchitectureError,
+from ....ops.guard import guard_check
+from ....parallel.collectives import all_gather, all_reduce
+from ....parallel.mesh import format_mesh, global_mesh, mesh_metadata
+from ....utils.checkpoint import (CheckpointArchitectureError,
                                   CheckpointManager)
 from . import dispatch, objectives
-from .engine import (collect_state, commit_state, discard_state,
-                     load_param_tree, named_state, written_state)
+from .engine import (collect_aux_losses, collect_state, commit_state,
+                     discard_state, load_param_tree, named_state,
+                     written_state)
+from .mesh_step import MeshStep, _full_shape
 from .metrics import Metric
 from .optimizers import (GradientTransformation, apply_updates,
                          load_optax_leaves, optax_leaves, scalar_rows)
@@ -365,6 +376,18 @@ def _shape_of(t: torch.Tensor) -> np.ndarray:
     return np.broadcast_to(np.zeros((), np.float32), tuple(t.shape))
 
 
+def _map_leaves(tree, fn):
+    """``tree`` (dicts and lists of tensors) with ``fn`` applied to every
+    tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return tree
+
+
 def _clone_tree(tree):
     """Device copies of every tensor of a state (dicts and lists)."""
     if isinstance(tree, torch.Tensor):
@@ -557,6 +580,11 @@ class TrainingLoop:
         self._noise_gen: Optional[torch.Generator] = None
         self._data = None      # (key, fs, dispatch.DeviceData): the latest set
         self._program = None   # (key, dispatch.StepProgram)
+        #: the loop's mesh (``mesh_step.MeshStep``) when the global mesh
+        #: has more than one rank
+        self._mesh: Optional[MeshStep] = None
+        #: compile(clip_norm=...): a global-norm clip inside the optimizer
+        self.global_clip = False
         # durable checkpointing: the manager of the fit attempt in flight
         # (its async writer is joined by _close_active_ckpt_mgr), the
         # published state a retry falls back to, and the SIGTERM latch
@@ -619,6 +647,22 @@ class TrainingLoop:
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def _mesh_step(self) -> Optional[MeshStep]:
+        """The loop's :class:`MeshStep` on the global mesh when that has
+        more than one rank (placing the parameters on it at first use, and
+        again when the global mesh changes), else None."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        mesh = global_mesh()
+        if mesh.size == 1:
+            return None
+        if self._mesh is None or self._mesh.mesh is not mesh:
+            self._ensure_weights()
+            self._mesh = MeshStep(self, mesh)
+            self._program = self._data = None
+            self.model.opt_state = None
+        return self._mesh
+
     def _params(self) -> Dict[str, torch.Tensor]:
         """The trained parameters under their JAX param-tree paths
         (dotted), so a name's first component is its layer's tree key, as
@@ -638,8 +682,10 @@ class TrainingLoop:
         if (model.opt_state is None
                 or getattr(model, "_opt_state_owner", None)
                 is not self.optimizer):
+            views = (params if self._mesh is None
+                     else self._mesh.zero_views(params))
             model.opt_state = {"count": 0,
-                               "state": self.optimizer.init(params)}
+                               "state": self.optimizer.init(views)}
             model._opt_state_owner = self.optimizer
         return model.opt_state
 
@@ -661,10 +707,11 @@ class TrainingLoop:
         if self._apply_loss is not None:
             return self._apply_loss
         from .fused_loss import resolve_fused_loss
+        from .seq_pipe import (pipe_intercept, resolve_pipe_spec,
+                               resolve_seq_attention, seq_attention_scope)
         from .sharded_embed import resolve_sharded_embeddings
         model, loss_fn = self.model, self.loss
-        # declines on one device (it raises where the JAX package would
-        # row-shard the plain embeddings)
+        # plain embeddings onto the row-sharded lookup on a model axis
         resolve_sharded_embeddings(model)
         spec = resolve_fused_loss(model, loss_fn)
         prev = TrainingLoop._last_fused_labels
@@ -679,7 +726,9 @@ class TrainingLoop:
         else:
             log.info("fused LM-head cross-entropy engaged: head=%s vocab=%d "
                      "(zoo.train.fused_ce; the (N, V) logits tensor is never "
-                     "formed)", spec.head.name, spec.head.output_dim)
+                     "formed)%s", spec.head.name, spec.head.output_dim,
+                     "; VOCAB-SHARDED over the model axis" if spec.sharded
+                     else "")
             labels = {"head": spec.head.name,
                       "vocab": str(spec.head.output_dim),
                       "sharded": "1" if spec.sharded else "0"}
@@ -690,6 +739,16 @@ class TrainingLoop:
 
             def apply_loss(x, y, generator):
                 return spec.apply_and_loss(model, x, y, generator=generator)
+        # sequence and pipeline parallelism (``seq_pipe.py``), resolved
+        # once per loop as the fused loss is
+        seq_mode, pipe = resolve_seq_attention(), resolve_pipe_spec(model)
+        if seq_mode is not None or pipe is not None:
+            plain = apply_loss
+
+            def apply_loss(x, y, generator):
+                with seq_attention_scope(seq_mode), \
+                        pipe_intercept(pipe, True):
+                    return plain(x, y, generator)
         self._apply_loss = apply_loss
         return apply_loss
 
@@ -744,14 +803,31 @@ class TrainingLoop:
         apply_loss, mode = self._loss_application(), self._resolve_remat()
         if mode is not None:
             apply_loss = remat(apply_loss, mode)
-        with collect_state() as new_state:
+        with collect_state() as new_state, collect_aux_losses() as aux:
             loss = apply_loss(x, y, generator)
+        for a in aux:
+            # layers' auxiliary losses (SparseMoE's load balance) are part
+            # of the differentiated loss, as the JAX step adds them
+            loss = loss + a
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        return loss.detach(), grads, new_state
+        loss = loss.detach()
+        if self._mesh is not None:
+            # the global batch's loss and gradients (averaged over data)
+            loss = self._mesh.sync(loss, grads)
+        return loss, grads, new_state
+
+    def _update(self, grads, opt_state, params, row) -> None:
+        """The optimizer update and its application (ZeRO-1's sliced form
+        on a mesh that splits the moments)."""
+        if self._mesh is not None:
+            self._mesh.update(self.optimizer, grads, opt_state, params, row)
+            return
+        updates, _ = self.optimizer.update(grads, opt_state, params, row)
+        apply_updates(params, updates)
 
     def train_step(self, x, y, generator: Optional[torch.Generator],
                    params: Dict[str, torch.Tensor], opt_state,
@@ -764,16 +840,15 @@ class TrainingLoop:
         scalar; nothing syncs."""
         loss, grads, new_state = self._step_grads(x, y, generator,
                                                    params)
-        updates, _ = self.optimizer.update(grads, opt_state, params,
-                                           scalars)
-        apply_updates(params, updates)
+        self._update(grads, opt_state, params, scalars)
         commit_state(new_state)
         return loss
 
     def guarded_step(self, x, y, generator: Optional[torch.Generator],
                      params: Dict[str, torch.Tensor], opt_state,
                      table: Optional[torch.Tensor], base: torch.Tensor,
-                     fault: Optional[torch.Tensor] = None):
+                     fault: Optional[torch.Tensor] = None,
+                     flags_out: Optional[torch.Tensor] = None):
         """The JAX guarded step: :meth:`train_step` with, on the device,
         the ``train.grads`` poison (``fault``, ``[code, scale]``, when the
         loop's sentinel takes faults), the global gradient norm, the
@@ -781,8 +856,12 @@ class TrainingLoop:
         ``recover`` mode the discard of an anomalous step's update and of
         its new model state (the JAX step keeps the pre-step ``net_state``).
         The step's per-step values are row ``count - base`` of ``table``
-        (the guard's device count). Returns ``(loss, flags)``, device
-        scalars; nothing syncs."""
+        (the guard's device count). On the card the flag word, EWMA, clip
+        scale, row, count and pre-step copies (for a bad step only) are one
+        kernel (G2, ``ops/guard.py``) and the discard another (G1). On a
+        mesh the norm is the global gradient's (``MeshStep.global_norm``).
+        Returns ``(loss, flags)``, device scalars (``flags`` written into
+        ``flags_out`` when given); nothing syncs."""
         guard = self._guard
         cfg = guard.cfg
         loss, grads, new_state = self._step_grads(x, y, generator,
@@ -790,36 +869,31 @@ class TrainingLoop:
         gl = list(grads.values())
         if cfg.faults:
             loss = anomaly.inject_grads(loss, gl, fault[0], fault[1])
-        gnorm = anomaly.global_norm(gl)
-        if cfg.sentinel:
-            flags, (ewma, obs) = anomaly.check(
-                loss, gnorm, (guard.ewma, guard.obs), cfg.spike_factor)
-            guard.ewma.copy_(ewma)
-            guard.obs.copy_(obs)
+        # off a mesh G2 takes the norm of the per-tensor norms itself
+        gnorm = norms = None
+        if self._mesh is None:
+            norms = anomaly.tensor_norms(gl)
         else:
-            flags = torch.zeros((), dtype=torch.int32, device=loss.device)
-        if cfg.grad_clip > 0:
-            engaged = anomaly.clip_by_global_norm(gl, gnorm, cfg.grad_clip)
-            flags = flags | engaged.to(torch.int32) * anomaly.GRAD_CLIPPED
-        row = (None if table is None or table.shape[-1] == 0
-               else table.index_select(0, (guard.count - base).view(1))[0])
+            gnorm = self._mesh.global_norm(grads)
         recover = cfg.mode == "recover"
+        state = keep = None
+        if recover:
+            state = (list(params.values()) + dispatch._leaves(opt_state)
+                     + self._written_state())
+            with torch.no_grad():
+                keep = guard.keep(state)
+        flags, bad, row, scale = guard_check(
+            loss, gnorm, guard.ewma, guard.obs, guard.count, base, table,
+            sentinel=cfg.sentinel, spike_factor=cfg.spike_factor,
+            grad_clip=cfg.grad_clip, recover=recover, flags_out=flags_out,
+            keep=keep, norms=norms)
+        if scale is not None:
+            anomaly._scale(gl, scale)
         with torch.no_grad():
-            if recover:
-                state = (list(params.values())
-                         + dispatch._leaves(opt_state)
-                         + self._written_state())
-                guard.keep(state)
-            updates, _ = self.optimizer.update(grads, opt_state, params,
-                                               row)
-            apply_updates(params, updates)
+            self._update(grads, opt_state, params, row)
             commit_state(new_state)
             if recover:
-                bad = (flags & anomaly.ANOMALY_MASK) > 0
                 guard.commit(state, bad)
-                guard.count.add_((~bad).to(torch.int64))
-            else:
-                guard.count.add_(1)
         return loss, flags
 
     def _guard_state(self, device: torch.device) -> dispatch.Guard:
@@ -863,6 +937,9 @@ class TrainingLoop:
                                  registry=self._registry,
                                  ledger=self._goodput)
 
+    def _checkpointing(self) -> bool:
+        return getattr(self.model, "_checkpoint", None) is not None
+
     def _ckpt_trigger(self) -> Trigger:
         spec = getattr(self.model, "_checkpoint", None) or {}
         return spec.get("trigger") or EveryEpoch()
@@ -902,15 +979,31 @@ class TrainingLoop:
         batched device-to-host copy and the serialization/commit rides the
         manager's writer thread; ``sync=True`` (the SIGTERM path) blocks
         until committed."""
+        named, opt_state = self._tree_params(), opt["state"]
+        plan = self._mesh
+        if plan is not None:
+            # whole arrays on every rank (collectives); rank 0 writes
+            ids = plan.leaf_params(self.optimizer, opt_state,
+                                   list(self._params()))
+            named = {n: plan.full(t) for n, t in named.items()}
+            opt_state = _map_leaves(opt_state, lambda t: plan.full(
+                t, ids[id(t)], moment=True) if id(t) in ids else t)
         trees, extra = self._checkpoint_trees(
-            self._tree_params(), opt["state"], self._count_now(opt),
-            self._tree_state())
+            named, opt_state, self._count_now(opt), self._tree_state())
+        if plan is not None and not plan.rank0:
+            return
         mgr.save(loop_state.iteration, trees,
                  meta={"epoch": loop_state.epoch,
                        "iteration": loop_state.iteration,
                        "epoch_finished": loop_state.epoch_finished,
                        **extra},
-                 sync=sync, mesh=MESH_ONE_DEVICE)
+                 sync=sync, mesh=self._mesh_meta())
+
+    def _mesh_meta(self) -> dict:
+        """The live mesh's ``mesh_metadata`` (a one-device block without
+        a mesh), which a snapshot's manifest records."""
+        return mesh_metadata(self._mesh.mesh if self._mesh is not None
+                             else global_mesh())
 
     def _close_active_ckpt_mgr(self, surface: bool) -> None:
         """Join the active manager's in-flight save. ``surface=True``
@@ -932,12 +1025,22 @@ class TrainingLoop:
         in the same order."""
         named = self._tree_params()
         count = int(opt["count"])
+        plan = self._mesh
+        ids = ({} if plan is None else plan.leaf_params(
+            self.optimizer, opt["state"], list(params)))
+
+        def whole(t):
+            # a template of the whole array (a split leaf's too)
+            name = ids.get(id(t))
+            return np.broadcast_to(np.zeros((), np.float32), _full_shape(
+                t if name is None else params[name]))
         templates, extra = self._checkpoint_trees(
-            {n: _shape_of(p) for n, p in named.items()}, opt["state"],
+            {n: whole(p) for n, p in named.items()}, opt["state"],
             count, {n: _shape_of(t) for n, t in self._tree_state().items()})
+        live_leaves = templates["opt_state"]
         templates["opt_state"] = [
-            t if not isinstance(t, torch.Tensor) else _shape_of(t)
-            for t in templates["opt_state"]]
+            t if not isinstance(t, torch.Tensor) else whole(t)
+            for t in live_leaves]
         out = mgr.restore_latest(
             templates,
             min_step=None if allow_regress
@@ -955,10 +1058,29 @@ class TrainingLoop:
                 f" — a snapshot of an optimizer without an optax layout "
                 f"restores only in the package that wrote it, under the "
                 f"same optimizer")
+        saved_mesh, live_mesh = meta.get("mesh"), self._mesh_meta()
+        if saved_mesh is not None and saved_mesh != live_mesh:
+            # elastic restore: whole host leaves, re-placed under the live
+            # mesh (each rank keeps its slices; ZeRO moments re-split)
+            log.warning(
+                "elastic restore: ckpt-%d was saved under mesh %s (%s "
+                "device(s)) and is restoring under mesh %s (%d device(s)) "
+                "— host leaves re-placed under the current shardings, "
+                "optimizer state re-sharded", step, format_mesh(saved_mesh),
+                saved_mesh.get("devices", "?"), format_mesh(live_mesh),
+                live_mesh["devices"])
+            self._registry.emit("ckpt.elastic_restore", step=step,
+                                saved=format_mesh(saved_mesh),
+                                restored=format_mesh(live_mesh))
+        leaves = trees["opt_state"]
+        if plan is not None:
+            leaves = [plan.local_moment(a, ids[id(t)])
+                      if id(t) in ids else a
+                      for a, t in zip(leaves, live_leaves)]
+        # whole host leaves; a placed parameter takes its rank's slice
         load_param_tree(tree_module(self.model), trees["params"],
                         trees["net_state"])
         with torch.no_grad():
-            leaves = trees["opt_state"]
             if extra:
                 restored = int(np.asarray(leaves[0]))
                 for t, a in zip(dispatch._leaves(opt["state"]), leaves[1:]):
@@ -1098,7 +1220,7 @@ class TrainingLoop:
             mgr.save(iteration, trees,
                      meta={"epoch": epoch, "iteration": iteration,
                            "epoch_finished": epoch_finished, **extra},
-                     sync=True, mesh=MESH_ONE_DEVICE)
+                     sync=True, mesh=self._mesh_meta())
         except Exception:
             log.exception("grace-budget preemption checkpoint failed")
         live = self._tree_params()
@@ -1231,6 +1353,9 @@ class TrainingLoop:
                 # background save failure surfaces HERE (and is re-cut
                 # through the retry path below)
                 self._close_active_ckpt_mgr(surface=True)
+                if self._mesh is not None and self._checkpointing():
+                    # rank 0's snapshot committed before any rank goes on
+                    dist.barrier()
                 return history
             except KeyboardInterrupt:
                 self._close_active_ckpt_mgr(surface=False)
@@ -1309,6 +1434,9 @@ class TrainingLoop:
         model = self.model
         self._ensure_weights()
         device = self._device()
+        plan = self._mesh_step()
+        if plan is not None and (scan_steps > 1 or device_cache):
+            plan.check_capturable(device)
         params = self._params()
         opt = self._opt_state(params)
         guard = self._guard_state(device) if sen.active else None
@@ -1586,9 +1714,12 @@ class TrainingLoop:
         on its stream), as the JAX loop streams them."""
         device = self._device()
         faults_on = guard is not None and guard.cfg.faults
-        stream = prefetch_to_device(
-            fs.iter_batches(batch_size, epoch=seed + epoch, drop_last=True),
-            device, ledger=self._goodput)
+        batches = fs.iter_batches(batch_size, epoch=seed + epoch,
+                                  drop_last=True)
+        if self._mesh is not None:
+            # each data rank streams its rows of every batch
+            batches = self._mesh.host_batches(batches)
+        stream = prefetch_to_device(batches, device, ledger=self._goodput)
         for i, (x, y) in enumerate(stream):
             def run(i=i, x=x, y=y):
                 gen = self._noise(seed, it0 + i, device)
@@ -1612,9 +1743,13 @@ class TrainingLoop:
         # only the host assembly runs ahead, on a thread: the copy into the
         # captured program's static buffers (fill) stays on the compute
         # stream after the previous replay, which reads them
-        src = _ThreadedIterator(chunked(fs.iter_batches(
-            batch_size, epoch=seed + epoch, drop_last=True), k_max),
-            buffer_size=2)
+        batches = fs.iter_batches(batch_size, epoch=seed + epoch,
+                                  drop_last=True)
+        local_bs = batch_size
+        if self._mesh is not None:
+            batches = self._mesh.host_batches(batches)
+            local_bs = self._mesh.local_batch(batch_size)
+        src = _ThreadedIterator(chunked(batches, k_max), buffer_size=2)
         try:
             done = 0
             for chunk in src:
@@ -1631,7 +1766,7 @@ class TrainingLoop:
                          tuple((a.dtype.str, a.shape[1:]) for a in step_xs),
                          (step_y.dtype.str, step_y.shape[1:])),
                         lambda: dispatch.HostChunks(step_xs, step_y, k_max,
-                                                    batch_size, device),
+                                                    local_bs, device),
                         params, opt, k_max, guard, "train.scan_chunk")
                     program.inputs.fill(chunk)
                     if guard is None:
@@ -1660,8 +1795,10 @@ class TrainingLoop:
             # relayouts device arrays on the device); else one upload
             xs, y = (fs.xs, fs.y) if on_device else fs._host_view()
             # holding ``fs`` keeps its id from naming another set
+            local_bs = (batch_size if self._mesh is None
+                        else self._mesh.local_batch(batch_size))
             self._data = (key, fs, dispatch.DeviceData(
-                xs, y, k_max, batch_size, device))
+                xs, y, k_max, local_bs, device))
         return self._data[2]
 
     def _cached_dispatches(self, fs, epoch, seed, it0, batch_size, params,
@@ -1680,6 +1817,8 @@ class TrainingLoop:
                                                  device)
                      if fs.shuffle else torch.arange(n, device=device))
             order = order[:n_steps * batch_size].reshape(n_steps, batch_size)
+            if self._mesh is not None:
+                order = self._mesh.take(order, 1).contiguous()
             program = self._step_program(("cached", self._data[0]),
                                          lambda: data, params, opt, k_max,
                                          None, "train.epoch")
@@ -1716,11 +1855,21 @@ class TrainingLoop:
         self._m_examples.inc(n_examples)
 
     # -- evaluate / predict -------------------------------------------------
+    def _local_rows(self, batch_size: int):
+        """Under data parallelism, this rank's rows of each padded batch
+        (``evaluate``/``predict`` split a batch over ``data`` and combine
+        their results), else None."""
+        plan = self._mesh_step()
+        if plan is None or plan.dp == 1 or batch_size % plan.dp:
+            return None
+        return plan
+
     def evaluate(self, x, y=None, *, batch_size: int = 32
                  ) -> Dict[str, float]:
         x, y = _host_arrays(x, y)
         self._ensure_weights()
         device = self._device()
+        plan = self._local_rows(batch_size)
         pe_loss = objectives.per_example_loss(self.loss)
         totals: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         with torch.no_grad():
@@ -1728,6 +1877,9 @@ class TrainingLoop:
             # running totals stay on the device
             for bx_d, by_d, mask_d, _ in prefetch_to_device(
                     _padded_batches(x, y, batch_size), device):
+                if plan is not None:
+                    bx_d, by_d, mask_d = (plan.take(a)
+                                          for a in (bx_d, by_d, mask_d))
                 y_pred = self.model(bx_d, training=False)
                 stats = {m.name: m.update(by_d, y_pred, mask_d)
                          for m in self.metrics}
@@ -1746,6 +1898,10 @@ class TrainingLoop:
                     for k, d in stats.items()}
         if totals is None:
             return {}
+        if plan is not None:
+            # every rank's sums, on every rank
+            totals = {k: {s: all_reduce(v, plan.data) for s, v in d.items()}
+                      for k, d in totals.items()}
         host = {k: {s: (v.item() if v.dim() == 0 else v.cpu())
                     for s, v in d.items()}
                 for k, d in totals.items()}
@@ -1757,11 +1913,17 @@ class TrainingLoop:
         x, _ = _host_arrays(x, None)
         self._ensure_weights()
         device = self._device()
+        plan = self._local_rows(batch_size)
         outs = []
         with torch.no_grad():
             for bx_d, _, _, real in prefetch_to_device(
                     _padded_batches(x, None, batch_size), device):
-                y_pred = self.model(bx_d, training=False)
+                if plan is None:
+                    y_pred = self.model(bx_d, training=False)
+                else:
+                    # each rank's rows, gathered in order
+                    y_pred = all_gather(self.model(
+                        plan.take(bx_d), training=False), plan.data, 0)
                 outs.append(y_pred[:real])
         if not outs:
             return None

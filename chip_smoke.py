@@ -389,7 +389,26 @@
    3 -> 64, (8, 16, 112, 112, 3)): ms a training step. (d) The JAX
    bench's ``sentinel`` channel: ``sentinel_overhead_pct`` at the NCF
    shape on captured 16-step dispatches, off and recover windows
-   interleaved, median of 5 (printed, not gated).
+   interleaved, median of 5, against the bench's ceiling of 3.0 (slice
+   22: fault r, printed as open with the guarded step's extra kernel
+   nodes by family while over it); G1 and G2 (``csrc/guard.cu``) held to
+   their plain versions bit for bit on the recover loop's own state, on
+   good and bad steps, and timed beside them.
+19. Mesh phase (slice 22): the mesh cases (BERT-base DP 2 with ZeRO-1
+   and TP 2; the ``long_context_sharded`` width with ring attention, the
+   vocab-sharded head, both at once, and Ulysses at T = 2048; NCF's
+   row-sharded tables; ``SparseMoE`` over ``expert``; GPipe over
+   ``pipe``) run as ``spawn``ed ranks — gloo ranks sharing one card
+   (world 2 and 4), or one card a rank under NCCL where there are as
+   many — each held to the same model's one-rank run on the card (step
+   losses and gathered parameters, 1e-5), with K1/SA, K4/K5a/K5b and
+   K2/K3a/K3b launching on every rank of their cases (gated); the CE
+   and embedding kernels at their per-shard shapes against their plain
+   versions; a 2-rank snapshot restored on one rank bit for bit; with
+   two or more cards, a captured DP fit (NCCL), else the skip printed.
+
+``python3 chip_smoke.py --only sentinel,mesh`` runs those phases alone
+after the build (their JSON, no final line).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -407,7 +426,9 @@ predicts, C8's and its
 quantize pass's from VGG-16's, its weight repack's from VGG-16's static
 install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
-32k shapes' fields; the attention kernels also checked against their plain versions,
+32k shapes' fields; K1-K5b also on each rank of each mesh case; G1 and
+G2 from the sentinel fit; the attention kernels also checked against
+their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
 shape beside SDPA's causal forward and backward there, K1 and SA also at
 the DLRM width), and last
@@ -8049,6 +8070,201 @@ def conv3d_phase():
     return out
 
 
+def guard_nodes(program):
+    """The kernel names of one captured step of a training loop's program
+    (:func:`device_kernels` of ``program._steps(1)``), shortened."""
+    return [kernel_name(n) for n in device_kernels(
+        lambda: program._steps(1), program.noise[:1])]
+
+
+def node_family(name):
+    """The family of a kernel node for fault r's extra-node list."""
+    for family, keys in (("G2 guard_check", ("guard_check",)),
+                         ("G1 guard_commit", ("guard_commit",)),
+                         ("foreach (multi-tensor)", ("multi_tensor",
+                                                     "foreach", "lpnorm")),
+                         ("where / select", ("where",)),
+                         ("reduce (norm)", ("reduce", "norm")),
+                         ("copy / fill", ("copy", "fill", "cat"))):
+        if any(k in name for k in keys):
+            return family
+    return "elementwise / other"
+
+
+def guard_kernel_rows(model, launches):
+    """G1 and G2 at the sentinel fit's shapes: G1 over the recover loop's
+    own step state (every parameter, both Adam moments), G2 on its guard
+    scalars and per-step table. Each is held to its plain version bit for
+    bit on a good step and on a bad one, and timed on the device (a CUDA
+    graph of 20 calls) beside its plain version; G1's library figure is
+    the per-tensor ``torch.where`` loop it replaced."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    from analytics_zoo_tpu_torch.pipeline.api.keras import dispatch
+    loop = model._loop
+    params = loop._params()
+    state = [t.detach() for t in list(params.values())
+             + dispatch._leaves(model.opt_state["state"])
+             + loop._written_state()]
+    nbytes = sum(t.numel() * t.element_size() for t in state)
+    prev = [t.clone() for t in state]
+    for p in prev:
+        if p.is_floating_point():
+            p.add_(1)
+    flags = {}
+    for bad in (False, True):
+        flag = torch.tensor(bad, device="cuda")
+        got, want = [t.clone() for t in state], [t.clone() for t in state]
+        gk.guard_commit(got, prev, flag)
+        gk.guard_commit_reference(want, prev, flag)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(-1).view(torch.uint8),
+                               b.view(-1).view(torch.uint8))
+                   for a, b in zip(got, want))
+        check(same, f"G1 guard_commit differs from its plain version "
+                    f"(bad={bad})")
+        flags[bad] = flag
+    work = [t.clone() for t in state]
+    table = gk.commit_table(work, prev)
+    g1 = {}
+    for bad in (False, True):
+        g1[bad] = {
+            "ms": graph_ms(lambda: gk.guard_commit(work, prev, flags[bad],
+                                                   table)),
+            "plain_ms": graph_ms(lambda: gk.guard_commit_reference(
+                work, prev, flags[bad]))}
+    # G2 on the guard's scalars: a good step, each kind of bad one, and a
+    # clipping step; each case's outputs against the torch chain
+    guard = loop._guard
+    rows_tab = torch.arange(16 * 4, dtype=torch.float32,
+                            device="cuda").reshape(16, 4) / 9.0
+    cases = [(0.7, 1.3, 1.1, 7.0), (float("nan"), 1.3, 1.1, 7.0),
+             (0.7, float("inf"), 1.1, 7.0), (0.7, 50.0, 1.1, 7.0),
+             (0.7, 3.0, 2.9, 7.0)]
+    for clip in (0.0, 2.0):
+        for loss_v, gnorm_v, ewma_v, obs_v in cases:
+            outs = []
+            for run in (gk.guard_check_reference, gk.guard_check):
+                st = [torch.tensor(v, dtype=dt, device="cuda") for v, dt in
+                      ((ewma_v, torch.float32), (obs_v, torch.float32),
+                       (3, torch.int64))]
+                res = run(torch.tensor(loss_v, device="cuda"),
+                          torch.tensor(gnorm_v, device="cuda"), *st,
+                          torch.tensor(0, device="cuda"), rows_tab,
+                          sentinel=True, spike_factor=10.0, grad_clip=clip,
+                          recover=True)
+                outs.append([t for t in list(res) + st if t is not None])
+            same = all(torch.equal(a.view(-1).view(torch.uint8),
+                                   b.view(-1).view(torch.uint8))
+                       for a, b in zip(*outs))
+            check(same, f"G2 guard_check differs from its plain version "
+                        f"({loss_v}, {gnorm_v}, clip {clip})")
+    # G2 given the per-tensor norms, as the step launches it: the norm it
+    # takes (read back as a first step's new EWMA value, the norm itself)
+    # is anomaly.global_norm's bits, for tensors of the fit's parameter
+    # shapes and for every count of tensors up to NORMS_MAX and past it,
+    # on _foreach_norm's outputs and on copies of them
+    from analytics_zoo_tpu_torch.common import anomaly
+    pgen = torch.Generator(device="cuda").manual_seed(5)
+    sets = [[torch.randn(t.shape, generator=pgen, device="cuda")
+             for t in params.values()]]
+    for n_t in range(1, gk.NORMS_MAX + 4):
+        for scale in (1e-3, 1.0, 300.0):
+            sets.append([torch.randn(1 + (i * 7) % 13, generator=pgen,
+                                     device="cuda") * scale * (1 + i % 3)
+                         for i in range(n_t)])
+    zero = torch.tensor(0, device="cuda")
+    wrong = []
+    for ts in sets:
+        norms = anomaly.tensor_norms(ts)
+        want = anomaly.global_norm(ts)
+        for given in (norms, [t.clone() for t in norms]):
+            st = [torch.zeros((), device="cuda"),
+                  torch.zeros((), device="cuda"),
+                  torch.tensor(0, device="cuda")]
+            gk.guard_check(torch.tensor(0.7, device="cuda"), None, *st,
+                           zero, None, sentinel=True, spike_factor=10.0,
+                           grad_clip=0.0, recover=True, norms=given)
+            if not torch.equal(st[0].view(torch.int32),
+                               want.view(torch.int32)):
+                wrong.append((len(ts), st[0].item(), want.item()))
+    check(not wrong, f"G2's norm of the per-tensor norms differs from "
+                     f"vector_norm's: {wrong[:5]}")
+    print(f"G2's norm of the norms: vector_norm's bits for "
+          f"{2 * len(sets)} sets (1..{gk.NORMS_MAX + 3} tensors, and the "
+          f"sentinel fit's {len(sets[0])} parameter shapes)")
+    loss = torch.tensor(0.7, device="cuda")
+    gnorm = torch.tensor(1.3, device="cuda")
+    step_norms = anomaly.tensor_norms(sets[0])
+    # G2's keep (recover mode): the state into the copies for a bad step
+    # (a NaN loss), bit for bit; nothing for a good one
+    copies = [torch.zeros_like(t) for t in state]
+    keep = gk.commit_table(copies, state)
+    for bad_loss in (0.7, float("nan")):
+        gk.guard_check(torch.tensor(bad_loss, device="cuda"), gnorm,
+                       torch.tensor(1.1, device="cuda"),
+                       torch.tensor(7.0, device="cuda"),
+                       torch.tensor(0, device="cuda"), guard.base, None,
+                       sentinel=True, spike_factor=10.0, grad_clip=0.0,
+                       recover=True, keep=keep)
+        torch.cuda.synchronize()
+        want = state if bad_loss != bad_loss else [torch.zeros_like(t)
+                                                    for t in state]
+        check(all(torch.equal(a.view(-1).view(torch.uint8),
+                              b.view(-1).view(torch.uint8))
+                  for a, b in zip(copies, want)),
+              f"G2's keep wrong for loss {bad_loss}")
+
+    def g2(run, **kw):
+        # the count restarts each call: 20 calls in a window run past the
+        # table's 16 rows (G2 answers a NaN row there, the plain
+        # index_select a device fault); the fill's own time is taken off
+        guard.count.fill_(0)
+        run(loss, None, guard.ewma, guard.obs, guard.count, guard.base,
+            rows_tab, sentinel=True, spike_factor=10.0, grad_clip=0.0,
+            recover=True, norms=step_norms, **kw)
+    # G2 as the recover step launches it (the per-tensor norms in, its
+    # grid taking the keep's table); its plain version is the chain with
+    # the norm of the norms and the multi-tensor keep
+    g2_ms = graph_ms(lambda: g2(gk.guard_check, keep=keep))
+    g2_plain = graph_ms(lambda: (torch._foreach_copy_(copies, state),
+                                 g2(gk.guard_check_reference)))
+    fill_ms = graph_ms(lambda: guard.count.fill_(0))
+    src = "analytics_zoo_tpu_torch/csrc/guard.cu"
+    g1_row = {"name": "guard_commit", "route": "cuda", "source": src,
+              "replaces": "none: the jnp.where discard XLA fuses into the "
+                          "JAX guarded step (analytics_zoo_tpu/pipeline/api/"
+                          "keras/training.py, common/anomaly.py)",
+              "launches": launches["guard_commit"], "max_abs_err": 0.0,
+              "ms": g1[False]["ms"], "plain_ms": g1[False]["plain_ms"],
+              "bound_ms": bytes_bound_ms(1), "bound_by": "bytes",
+              "library_ms": g1[False]["plain_ms"],
+              "library_by": "per-tensor torch.where loop",
+              "bad_step_ms": g1[True]["ms"],
+              "bad_step_plain_ms": g1[True]["plain_ms"],
+              "bad_step_bound_ms": bytes_bound_ms(2 * nbytes + 1),
+              "tensors": len(state), "state_bytes": nbytes}
+    g2_row = {"name": "guard_check", "route": "cuda", "source": src,
+              "replaces": "none: the scalar chain XLA fuses in "
+                          "analytics_zoo_tpu/common/anomaly.py check / "
+                          "clip_by_global_norm",
+              "launches": launches["guard_check"], "max_abs_err": 0.0,
+              "ms": g2_ms - fill_ms, "plain_ms": g2_plain - fill_ms,
+              "bound_ms": bytes_bound_ms(4 * len(step_norms) + 4 * 4
+                                         + 8 * 3 + 4 * 4 + 4 + 1 + 4),
+              "norms": len(step_norms),
+              "bound_by": "bytes", "library_ms": None}
+    print(f"G1 guard_commit over {len(state)} tensors ({nbytes} bytes): "
+          f"good step {g1[False]['ms']:.4f} ms (the per-tensor where loop "
+          f"{g1[False]['plain_ms']:.4f}), bad step {g1[True]['ms']:.4f} "
+          f"(loop {g1[True]['plain_ms']:.4f}, bound "
+          f"{g1_row['bad_step_bound_ms']:.4f}); G2 guard_check "
+          f"{g2_row['ms']:.4f} ms (the torch chain {g2_row['plain_ms']:.4f});"
+          f" both bit for bit on good and bad steps")
+    return [g1_row, g2_row]
+
+
 def sentinel_phase():
     """The JAX bench's ``sentinel`` channel (``bench.py:847-914``):
     recover-mode sentinels against none at the NCF shape (6040 users,
@@ -8056,19 +8272,28 @@ def sentinel_phase():
     Each mode's fit captures its graph; then five windows of three
     replays each (:func:`replay_ms`), the off and recover windows
     interleaved, timed on the device; ``sentinel_overhead_pct`` from the
-    medians, as the bench computes it. Printed, not gated here: the
-    bench's ceiling is 3.0."""
+    medians, as the bench computes it, against the bench's ceiling of
+    3.0 (fault r: above it, printed as open with the extra nodes by
+    family). The kernel nodes of one captured step of each mode,
+    and the guarded step's extra nodes by family, are printed; then G1
+    and G2 are held to their plain versions on the recover loop's state
+    (:func:`guard_kernel_rows`)."""
+    import collections
+
     import numpy as np
 
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.ops import guard as gk
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
     rng = np.random.default_rng(11)
     n = SENTINEL_STEPS * NCF_BATCH
     x = np.stack([rng.integers(1, N_USERS + 1, n),
                   rng.integers(1, N_ITEMS + 1, n)], axis=1).astype(np.int32)
     y = rng.integers(0, N_CLASSES, n).astype(np.int32)
-    windows, models = {}, []
+    windows, models = {}, {}
+    for counter in (gk.KERNEL_CHECK, gk.KERNEL_COMMIT):
+        counter.reset()
     for mode in ("off", "recover"):
         init_zoo_context(conf={"zoo.seed": 0, "zoo.compute.dtype": "float32",
                                "zoo.train.scan_steps": SENTINEL_STEPS,
@@ -8078,33 +8303,529 @@ def sentinel_phase():
                          device="cuda").init_weights()
         model.compile(optimizer="adam", loss="scce", lr=1e-3)
         model.fit(x, y, batch_size=NCF_BATCH, nb_epoch=1, shuffle=False)
-        models.append(model)
+        models[mode] = model
         windows[mode] = (lambda program=model._loop._program[1]: replay_ms(
             program, SENTINEL_STEPS) / SENTINEL_STEPS)
     times = {"off": [], "recover": []}
     for _ in range(5):
         for mode in ("off", "recover"):
             times[mode].append(windows[mode]())
+    launches = {"guard_check": gk.KERNEL_CHECK.launches,
+                "guard_commit": gk.KERNEL_COMMIT.launches}
+    check(all(launches.values()),
+          f"sentinel: G1/G2 not launched by the guarded fit: {launches}")
     off_ms = float(np.median(times["off"]))
     on_ms = float(np.median(times["recover"]))
     pct = max(0.0, on_ms / off_ms - 1.0) * 100.0
+    nodes = {mode: guard_nodes(models[mode]._loop._program[1])
+             for mode in ("off", "recover")}
+    extra = collections.Counter(nodes["recover"])
+    extra.subtract(collections.Counter(nodes["off"]))
+    by_family = collections.Counter()
+    for name, k in extra.items():
+        if k > 0:
+            by_family[node_family(name)] += k
     print(f"sentinel: NCF batch {NCF_BATCH}, {SENTINEL_STEPS}-step captured "
           f"dispatches, device ms a step off {off_ms:.4f} / recover "
           f"{on_ms:.4f} (windows {times}); sentinel_overhead_pct "
-          f"{pct:.2f} (the JAX bench's ceiling {SENTINEL_CEILING_PCT})")
+          f"{pct:.2f} (the JAX bench's ceiling {SENTINEL_CEILING_PCT}); "
+          f"kernel nodes a step off {len(nodes['off'])} / recover "
+          f"{len(nodes['recover'])}, the guarded step's extra nodes by "
+          f"family {dict(by_family)}: "
+          f"{sorted(n for n, k in extra.items() if k > 0)}")
+    rows = guard_kernel_rows(models["recover"], launches)
+    if pct > SENTINEL_CEILING_PCT:
+        # fault r stays open (ROADMAP.md queue 3): printed with its nodes
+        print(f"fault r open: sentinel_overhead_pct {pct:.2f} over the JAX "
+              f"bench's ceiling {SENTINEL_CEILING_PCT}; the guarded step's "
+              f"remaining extra nodes by family {dict(by_family)}")
     del models
     gc.collect()
     return {"sentinel_off_step_ms": off_ms, "sentinel_on_step_ms": on_ms,
-            "sentinel_overhead_pct": pct, "windows_ms": times}
+            "sentinel_overhead_pct": pct, "windows_ms": times,
+            "kernel_nodes": {m: len(v) for m, v in nodes.items()},
+            "extra_nodes_by_family": dict(by_family),
+            "launches": launches}, rows
 
 
-def main() -> int:
+#: the mesh phase (slice 22): the JAX bench's ``long_context_sharded``
+#: width (``bench.py:474-530``: vocab 8192, hidden 512, 8 heads, 4
+#: blocks), at a sequence the ranks sharing one card hold; Ulysses at
+#: 2048, where K2/K3 take attention; f32, TF32 off
+MESH_LM = dict(vocab=8192, n_block=4, hidden_size=512, n_head=8,
+               hidden_drop=0.0, attn_drop=0.0, embedding_drop=0.0,
+               bidirectional=False)
+MESH_LM_SEQ, MESH_ULYSSES_SEQ, MESH_LM_BATCH = 1024, 2048, 2
+MESH_BERT_SEQ, MESH_BERT_BATCH = 128, 8
+#: the CPU tests' tolerances (f32: the same arithmetic, collectives in
+#: another order than one rank's sums)
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+#: the kernels whose launches the mesh phase reads by rank
+MESH_KERNELS = ("embed_expand", "dedup_scatter_add") + LM_KERNELS
+#: (case, model, mesh axes): each run on its ranks and held to the same
+#: model's run on one rank of the card
+MESH_CASES = (
+    ("bert_dp_zero", "bert", {"data": 2}, {"zoo.train.zero_sharding": True}),
+    ("bert_tp", "bert", {"model": 2}, {}),
+    ("lm_ring", "lm", {"seq": 2}, {"zoo.train.seq_attention": "ring"}),
+    ("lm_vocab", "lm", {"model": 2}, {}),
+    ("lm_seq_model", "lm", {"seq": 2, "model": 2},
+     {"zoo.train.seq_attention": "ring"}),
+    ("lm_ulysses", "lm_ulysses", {"seq": 2},
+     {"zoo.train.seq_attention": "ulysses"}),
+    ("ncf_rows", "ncf", {"model": 2}, {}),
+    ("moe", "moe", {"expert": 2}, {}),
+    ("gpipe", "gpipe", {"pipe": 2}, {}),
+    ("bn_dp", "bn", {"data": 2}, {}),
+)
+#: the GPipe noise check: batch, width and microbatches of a pipe-2
+#: schedule whose stages draw a keep mask from one device generator
+GPIPE_NOISE = dict(batch=512, width=1024, n_micro=4)
+
+
+def mesh_counters():
+    from analytics_zoo_tpu_torch.ops.pallas.embedding import (
+        KERNEL_EMBED_EXPAND, KERNEL_SCATTER_ADD)
+    kernels, _ = lm_counters()
+    return {"embed_expand": KERNEL_EMBED_EXPAND,
+            "dedup_scatter_add": KERNEL_SCATTER_ADD, **kernels}
+
+
+def mesh_model(kind, device):
+    """A mesh case's model (seeded weights) and its two batches."""
+    import numpy as np
     import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import (
+        Sequential, reset_uids)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import (
+        Activation, BatchNormalization, Dense, GPipe, SparseMoE,
+        TransformerLayer)
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import (
+        BERTClassifier, make_bert_inputs)
+    reset_uids()
+    rng = np.random.default_rng(22)
+    gen = torch.Generator().manual_seed(22)
+    if kind == "bert":
+        m = BERTClassifier(**dict(TRAIN_CFG, hidden_drop=0.0),
+                           device=device).init_weights(gen)
+        ids = rng.integers(1, TRAIN_CFG["vocab"],
+                           (2 * MESH_BERT_BATCH, MESH_BERT_SEQ)).astype(
+            np.int32)
+        lens = rng.integers(MESH_BERT_SEQ // 4, MESH_BERT_SEQ + 1, len(ids))
+        ids[np.arange(MESH_BERT_SEQ)[None, :] >= lens[:, None]] = 0
+        return (m, make_bert_inputs(ids, attention_mask=(ids != 0)),
+                rng.integers(0, 2, len(ids)).astype(np.int32),
+                MESH_BERT_BATCH, "scce")
+    if kind in ("lm", "lm_ulysses"):
+        t = MESH_ULYSSES_SEQ if kind == "lm_ulysses" else MESH_LM_SEQ
+        b = 1 if kind == "lm_ulysses" else MESH_LM_BATCH
+        m = Sequential([TransformerLayer(**MESH_LM, seq_len=t,
+                                         input_shape=(t,)),
+                        Dense(MESH_LM["vocab"])], device=device)
+        x = rng.integers(0, MESH_LM["vocab"], (2 * b, t)).astype(np.int32)
+        return (m.init_weights(gen), x,
+                ((7 * x + 13) % MESH_LM["vocab"]).astype(np.int32), b,
+                "scce_with_logits")
+    if kind == "ncf":
+        m = sharded_ncf(N_USERS, N_ITEMS, N_CLASSES, device=device)
+        x = np.stack([rng.integers(1, N_USERS + 1, 2 * NCF_BATCH),
+                      rng.integers(1, N_ITEMS + 1, 2 * NCF_BATCH)],
+                     axis=1).astype(np.int32)
+        return (m.init_weights(gen), x,
+                rng.integers(0, N_CLASSES, len(x)).astype(np.int32),
+                NCF_BATCH, "scce")
+    if kind == "moe":
+        m = Sequential([Dense(512, activation="relu", input_shape=(256,)),
+                        SparseMoE(8, 2048, top_k=2, capacity_factor=2.0),
+                        Dense(16, activation="softmax")], device=device)
+    elif kind == "bn":
+        # global-batch statistics under data parallelism: the 2-rank run
+        # is the one-rank run of the whole batch
+        m = Sequential([Dense(1024, bias=False, input_shape=(256,)),
+                        BatchNormalization(), Activation("relu"),
+                        Dense(16, activation="softmax")], device=device)
+    else:
+        m = Sequential([Dense(1024, activation="relu", input_shape=(256,)),
+                        GPipe(lambda: Dense(1024, activation="tanh"), 4),
+                        Dense(16, activation="softmax")], device=device)
+    x = rng.normal(size=(2 * 1024, 256)).astype(np.float32)
+    return (m.init_weights(gen), x,
+            rng.integers(0, 16, len(x)).astype(np.int32), 1024, "scce")
+
+
+def mesh_fit(kind, conf, device):
+    """Two eager SGD steps of a mesh case's model: ``(model, step
+    losses)``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 0, "zoo.compute.dtype": "float32",
+                           **conf})
+    model, x, y, batch, loss = mesh_model(kind, device)
+    model.compile(optimizer="sgd", loss=loss, lr=0.01)
+    model.fit(x, y, batch_size=batch, nb_epoch=1, shuffle=False)
+    return model, np.concatenate(model._loop.step_losses)
+
+
+def mesh_full_params(model):
+    from analytics_zoo_tpu_torch.parallel.mesh import full_tensor
+    from analytics_zoo_tpu_torch.pipeline.api.keras.training import \
+        tree_module
+    return {n: full_tensor(p).detach().float().cpu().numpy()
+            for n, p in tree_module(model).named_parameters()}
+
+
+def mesh_rank(rank, world, ref_dir, cases, device="cuda"):
+    """One rank of the mesh phase: each case's fit on its mesh, its step
+    losses and gathered parameters held to the one-rank run's (saved in
+    ``ref_dir``), and its kernels' launches on this rank."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, kind, axes, conf in cases:
+        counters = mesh_counters()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        model, losses = mesh_fit(kind, {**conf, **{
+            f"zoo.mesh.{k}": v for k, v in axes.items()}}, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ref = np.load(os.path.join(ref_dir, f"{kind}.npz"))
+        full = mesh_full_params(model)
+        err = max(float(np.max(np.abs(a - ref[n]) / (np.abs(ref[n])
+                                                     + MESH_ATOL / MESH_RTOL)))
+                  for n, a in full.items())
+        loss_err = float(np.max(np.abs(losses - ref["__losses__"])
+                                / (np.abs(ref["__losses__"]) + 1e-12)))
+        out[name] = {"losses": losses.tolist(), "loss_rel_err": loss_err,
+                     "param_rel_err": err, "seconds": seconds,
+                     "launches": {k: c.launches
+                                  for k, c in counters.items()}}
+        del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(device="cuda"):
+    """Multi-GPU (slice 22): every mesh case of :data:`MESH_CASES` on its
+    ranks — one rank a card under NCCL where the machine has as many
+    cards, else processes sharing one card over gloo (world 2, and 4 for
+    the two-axis case) — held to the same model's one-rank run on the
+    card (step losses and gathered parameters at the CPU tests'
+    tolerances), with each rank's launches of K1/SA (row-sharded NCF),
+    K4/K5a/K5b (the vocab-sharded head) and K2/K3a/K3b (Ulysses at T =
+    2048). Then the kernels at their per-shard shapes (K4/K5 on a V/2
+    slice, K1/SA on V/2 rows) against their plain versions, an elastic
+    restore of a 2-rank snapshot on one rank (bit for bit), and, with two
+    or more cards, a captured data-parallel fit; the 128k channel
+    (``bench.py:495-498``) is skipped with its reason on one card.
+    ``device="cpu"`` runs the same cases on the CPU over gloo (no kernels
+    launch there), a rehearsal at small sizes."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.parallel.launch import run_ranks
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    out = {"device_count": cards, "cases": {}}
+    ref_dir = os.path.join(REPO, "build", "mesh_ref")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    os.makedirs(ref_dir)
+    for kind in sorted({k for _, k, _, _ in MESH_CASES}):
+        model, losses = mesh_fit(kind, {}, device)
+        np.savez(os.path.join(ref_dir, f"{kind}.npz"),
+                 __losses__=losses, **mesh_full_params(model))
+        del model
+        gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for world in (2, 4):
+        backend = "nccl" if cards >= world else "gloo"
+        cases = [c for c in MESH_CASES
+                 if int(np.prod(list(c[2].values()))) == world]
+        print(f"mesh: backend {backend}, world size {world}, device count "
+              f"{cards}; cases {[c[0] for c in cases]}; LM sequence "
+              f"{MESH_LM_SEQ} (Ulysses {MESH_ULYSSES_SEQ}), batch "
+              f"{MESH_LM_BATCH}")
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, world,
+                          os.path.join(ref_dir, f"store{world}"),
+                          args=(ref_dir, cases, device), backend=backend,
+                          device=device, timeout=900)
+        print(f"mesh: world {world} ran in "
+              f"{time.perf_counter() - t0:.1f}s")
+        for name, kind, axes, _ in cases:
+            per_rank = [r[name] for r in ranks]
+            worst = max(max(r["loss_rel_err"], r["param_rel_err"])
+                        for r in per_rank)
+            by_rank = [{k: v for k, v in r["launches"].items() if v}
+                       for r in per_rank]
+            print(f"mesh {name} {axes} ({backend}, world {world}): step "
+                  f"losses {per_rank[0]['losses']}, worst relative error "
+                  f"to one rank {worst:.3g} (losses and gathered params); "
+                  f"launches by rank {by_rank}")
+            check(worst <= MESH_RTOL,
+                  f"mesh {name}: {worst} from the one-rank run")
+            out["cases"][name] = {"axes": axes, "backend": backend,
+                                  "world": world, "ranks": per_rank}
+    launches = {name: [r["launches"] for r in c["ranks"]]
+                for name, c in out["cases"].items()}
+    for name, kernels in (("lm_vocab", ("fused_ce_fwd", "fused_ce_bwd_dh",
+                                        "fused_ce_bwd_dw")),
+                          ("ncf_rows", ("embed_expand",
+                                        "dedup_scatter_add")),
+                          ("lm_ulysses", ("flash_attention_fwd",
+                                          "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv"))):
+        idle = [(rank, k) for rank, got in enumerate(launches[name])
+                for k in kernels if not got[k]]
+        check(not idle or device != "cuda",
+              f"mesh {name}: kernels not launched on a rank: {idle}")
+    if device == "cuda":
+        out["shard_shapes"] = mesh_shard_kernels()
+    noise = run_ranks(mesh_gpipe_noise, 2,
+                      os.path.join(ref_dir, "store_noise"), args=(device,),
+                      backend="nccl" if cards >= 2 else "gloo",
+                      device=device, timeout=300)
+    out["gpipe_noise"] = mesh_gpipe_noise_check(noise, device)
+    ckpt = os.path.join(ref_dir, "elastic")
+    saved = run_ranks(mesh_elastic_save_ckpt, 2,
+                      os.path.join(ref_dir, "store_elastic"),
+                      args=(ckpt, device),
+                      backend="nccl" if cards >= 2 else "gloo",
+                      device=device, timeout=600)[0]
+    out["elastic"] = mesh_elastic_restore(ckpt, saved, device)
+    if cards >= 2:
+        out["captured_dp"] = run_ranks(
+            mesh_captured_dp, 2, os.path.join(ref_dir, "store_captured"),
+            backend="nccl", device="cuda", timeout=600)[0]
+        print(f"mesh: captured DP fit over 2 cards (nccl): "
+              f"{out['captured_dp']}")
+        print("mesh: the 128k channel (long_context_sharded) needs a "
+              "machine of its own measurement; not run here")
+    else:
+        print("mesh: the 128k long_context_sharded channel and the "
+              "captured DP fit need two or more cards (bench.py:495-498): "
+              "skipped on this one-card machine")
+    out["mesh_launches"] = launches
+    return out
+
+
+def mesh_gpipe_noise_inputs(device):
+    import torch
+    g = torch.Generator().manual_seed(9)
+    b, w = GPIPE_NOISE["batch"], GPIPE_NOISE["width"]
+    return (torch.randn(b, w, generator=g).to(device),
+            (torch.randn(2, w, w, generator=g) / w ** 0.5).to(device),
+            torch.randn(b, w, generator=g).to(device))
+
+
+def mesh_gpipe_noise(rank, world, device="cuda"):
+    """A pipe-2 GPipe schedule whose stages draw a keep mask from one
+    device generator (as a Dropout stage on the card does), each rank one
+    stage: the output, the input's and this rank's weight's gradients, and
+    the masks its forward drew."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.pipeline import gpipe_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.mesh.pipe": 2})
+    mesh = mesh_lib.global_mesh()
+    r = mesh.group(mesh_lib.PIPE_AXIS).index
+    x, w, c = mesh_gpipe_noise_inputs(device)
+    x.requires_grad_()
+    local = {"W": w[r:r + 1].clone().requires_grad_()}
+    gen = (torch.Generator(device=device) if device != "cpu"
+           else torch.Generator()).manual_seed(3)
+    drawn = []
+
+    def stage(p, h, g):
+        keep = (torch.rand(h.shape, generator=g, device=h.device)
+                < 0.5).to(h.dtype)
+        drawn.append(keep)
+        return torch.tanh(h @ p["W"]) * keep * 2.0
+    y = gpipe_apply(stage, local, x, mesh=mesh,
+                    n_micro=GPIPE_NOISE["n_micro"], generator=gen)
+    (y * c).sum().backward()
+    # numpy: tensors would cross to the parent through shared memory
+    return {"y": y.detach().cpu().numpy(), "gx": x.grad.cpu().numpy(),
+            "gw": local["W"].grad[0].cpu().numpy(),
+            "masks": torch.stack(drawn).cpu().bool().numpy()}
+
+
+def mesh_gpipe_noise_check(ranks, device="cuda"):
+    """The GPipe noise run against the stages one after another on one
+    rank with the masks each rank's forward drew (rank ``s``'s mask for
+    microbatch ``i`` at tick ``i + s``): the output and gradients agree,
+    so the backward used the forward's masks."""
+    import torch
+    x, w, c = mesh_gpipe_noise_inputs(device)
+    x.requires_grad_()
+    w.requires_grad_()
+    n_micro = GPIPE_NOISE["n_micro"]
+    mb = x.shape[0] // n_micro
+    ys = []
+    for i in range(n_micro):
+        h = x[i * mb:(i + 1) * mb]
+        for s_ in range(2):
+            keep = torch.from_numpy(ranks[s_]["masks"][i + s_]).to(
+                device).to(h.dtype)
+            h = torch.tanh(h @ w[s_]) * keep * 2.0
+        ys.append(h)
+    y = torch.cat(ys)
+    (y * c).sum().backward()
+
+    def rel(a, b):
+        a, b = torch.from_numpy(a), b.detach().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    err = max(max(rel(r["y"], y), rel(r["gx"], x.grad),
+                  rel(r["gw"], w.grad[k])) for k, r in enumerate(ranks))
+    print(f"mesh: GPipe at pipe 2 with stages drawing noise from one "
+          f"device generator: output and gradients vs the stages in turn "
+          f"on the forward's masks, worst relative error {err:.3g}")
+    check(err <= 1e-4, f"mesh: GPipe noise gradients differ ({err})")
+    return {"rel_err": err}
+
+
+def mesh_elastic_save_ckpt(rank, world, ckpt, device="cuda"):
+    """Two ranks of data parallelism fit the NCF one epoch with a
+    snapshot; the whole parameters after."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 0, "zoo.mesh.data": 2})
+    model, x, y, batch, loss = mesh_model("ncf", device)
+    model.compile(optimizer="adam", loss=loss, lr=1e-3)
+    model.set_checkpoint(ckpt)
+    model.fit(x, y, batch_size=batch, nb_epoch=1, shuffle=False)
+    return {"params": mesh_full_params(model)}
+
+
+def mesh_elastic_restore(ckpt, saved, device="cuda"):
+    """The 2-rank snapshot restored on one rank of the card: the
+    parameters bit for bit, the elastic restore reported."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.common.context import (init_zoo_context,
+                                                        reset_zoo_context)
+    from analytics_zoo_tpu_torch.observability import default_registry
+    reset_zoo_context()
+    init_zoo_context(conf={"zoo.seed": 0})
+    model, _, _, _, loss = mesh_model("ncf", device)
+    model.compile(optimizer="adam", loss=loss, lr=1e-3)
+    model.set_checkpoint(ckpt)
+    loop = model._loop
+    events = []
+
+    class Sink:
+        def write(self, event):
+            events.append(event)
+    params = loop._params()
+    opt = loop._opt_state(params)
+    default_registry().add_event_sink(Sink())
+    meta = loop._try_resume(loop._ckpt_manager(), params, opt)
+    got = mesh_full_params(model)
+    same = all(np.array_equal(got[n], a) for n, a in saved["params"].items())
+    elastic = [e for e in events if e["kind"] == "ckpt.elastic_restore"]
+    print(f"mesh: elastic restore of a {meta['mesh']['axes']} snapshot on "
+          f"one rank: parameters bit for bit {same}; events {elastic}")
+    check(same and elastic, "mesh: elastic restore from 2 ranks to 1")
+    return {"bits": same, "event": elastic[0]}
+
+
+def mesh_shard_kernels():
+    """K4/K5a/K5b on a V/2 = 4096-column slice of the mesh LM's head and
+    K1/SA on the NCF user table's V/2 rows, against their plain
+    versions: the per-shard shapes the mesh cases give them."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas import cross_entropy as ce
+    from analytics_zoo_tpu_torch.ops.pallas import embedding as emb
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, h, v = MESH_LM_SEQ * MESH_LM_BATCH, MESH_LM["hidden_size"], 4096
+    hid = torch.randn(n, h, device="cuda", generator=g)
+    w = torch.randn(h, v, device="cuda", generator=g) * 0.05
+    b = torch.randn(v, device="cuda", generator=g) * 0.1
+    labels = torch.randint(-1, 2 * v, (n,), device="cuda",
+                           generator=g).to(torch.int32)
+    labels = torch.where(labels >= v, torch.full_like(labels, -1), labels)
+    lse, ll = ce.fused_ce_forward(hid, w, b, labels)
+    lse_r, ll_r = ce.fused_ce_forward_reference(hid, w, b, labels)
+    scale = torch.where(labels >= 0, torch.ones_like(lse),
+                        torch.zeros_like(lse))
+    dh, dw, db = ce.fused_ce_backward(hid, w, b, labels, lse, scale,
+                                      torch.float32)
+    dh_r, dw_r, db_r = ce.fused_ce_backward_reference(hid, w, b, labels,
+                                                      lse, scale,
+                                                      torch.float32)
+    ce_err = max(float((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                 for a, r in ((lse, lse_r), (dh, dh_r), (dw, dw_r),
+                              (db, db_r)))
+    rows = (N_USERS + 1 + 1) // 2
+    table = torch.randn(rows, 20, device="cuda", generator=g)
+    inv = torch.randint(0, rows, (NCF_BATCH,), device="cuda", generator=g)
+    k1 = emb.embed_expand(table, inv)
+    gg = torch.randn(NCF_BATCH, 20, device="cuda", generator=g)
+    sa = emb.dedup_scatter_add(gg, inv, rows)
+    sa_ref = emb.dedup_scatter_add_reference(gg.cpu(), inv.cpu(), rows)
+    emb_same = bool(torch.equal(k1, table[inv])
+                    and torch.equal(sa.cpu(), sa_ref))
+    print(f"mesh: per-shard shapes — K4/K5a/K5b at (N {n}, H {h}, V/2 {v}) "
+          f"relative error {ce_err:.3g} (f32, 1e-4); K1/SA on {rows} rows "
+          f"(V/2 of the user table), bits {emb_same}")
+    check(ce_err <= 1e-4 and emb_same,
+          "mesh: a kernel at its per-shard shape")
+    return {"ce_rel_err": ce_err, "embed_bits": emb_same}
+
+
+def mesh_captured_dp(rank, world):
+    """Two cards under NCCL: a captured (scan_steps 4) data-parallel NCF
+    fit, its step losses those of the eager fit."""
+    import numpy as np
+    eager = mesh_fit("ncf", {"zoo.mesh.data": 2}, "cuda")[1]
+    captured = mesh_fit("ncf", {"zoo.mesh.data": 2,
+                                "zoo.train.scan_steps": 2}, "cuda")[1]
+    return {"eager": eager.tolist(), "captured": captured.tolist(),
+            "max_rel": float(np.max(np.abs(captured - eager)
+                                    / np.abs(eager)))}
+
+
+#: phases ``--only`` runs alone (after the build), for a short call that
+#: checks one of them; the contract's run takes no arguments and runs all
+ONLY_PHASES = ("sentinel", "mesh")
+
+
+def main(argv=()) -> int:
+    import torch
+    only = []
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not set(
+                argv[1].split(",")) <= set(ONLY_PHASES):
+            print(f"usage: chip_smoke.py [--only "
+                  f"{'|'.join(ONLY_PHASES)}[,...]]", file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from analytics_zoo_tpu_torch.ops.cuda_build import build_all
+    from analytics_zoo_tpu_torch.ops.guard import LIBRARY as LIBRARY_GUARD
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
         LIBRARY as LIBRARY_CE
     from analytics_zoo_tpu_torch.ops.pallas.embedding import \
@@ -8125,11 +8846,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB, LIBRARY_Q,
-               LIBRARY_CONV])
+               LIBRARY_CONV, LIBRARY_GUARD])
     print(f"build: flash_attention_fwd, flash_attention_bwd, "
-          f"fused_cross_entropy, embedding, quantized, conv_int8 in "
+          f"fused_cross_entropy, embedding, quantized, conv_int8, guard in "
           f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
 
+    if only:
+        for name in only:
+            result = globals()[f"{name}_phase"]()
+            print(json.dumps({name: result}, default=str))
+        return 0
     import numpy as np
     t0 = time.perf_counter()
     ncf_x, ncf_y = make_movielens_like(np.random.default_rng(0))
@@ -8205,7 +8931,8 @@ def main() -> int:
     text = text_classifier_phase()
     recurrent = recurrent_models_phase()
     conv3d = conv3d_phase()
-    sentinel = sentinel_phase()
+    sentinel, guard_rows = sentinel_phase()
+    mesh = mesh_phase()
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     # SA takes the out-of-core cache's gradient too (slice 17)
@@ -8245,6 +8972,17 @@ def main() -> int:
         "vgg16_static_b32": image_int8["c8_routes_b32"]["c8_quantize"],
         "vgg16_static_b1": image_int8["c8_routes_b1"]["c8_quantize"]}, {
         "vgg16_static_install": image_int8["repack_launches_install"]})
+    # slice 22: G1 and G2, the guarded step's kernels; the kernels'
+    # launches on each rank of each mesh case
+    rows += guard_rows
+    for row in rows:
+        for case, by_rank in mesh["mesh_launches"].items():
+            for rank, counts in enumerate(by_rank):
+                n = counts.get(row["name"], 0)
+                if n:
+                    row.setdefault("launches_by_path", {})[
+                        f"mesh_{case}_rank{rank}"] = n
+                    row["launches"] += n
     print(json.dumps({"kernel_cases": kernel_rows, "bwd_cases": bwd_rows,
                       "ce_cases": ce_rows, "ce_hidden_cases": ce_hidden_rows,
                       "embed_cases": embed_rows, "int8_cases": int8_rows,
@@ -8264,6 +9002,7 @@ def main() -> int:
                       "resnet_training": resnet_training,
                       "text_classifier": text, "recurrent": recurrent,
                       "conv3d": conv3d, "sentinel": sentinel,
+                      "mesh": mesh,
                       "reliability": reliability, "card": card}))
     idle = [r["name"] for r in rows if not r["launches"]]
     check(not idle, f"kernels never launched on their main path: {idle}")
@@ -8275,4 +9014,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2257,3 +2257,139 @@ def test_text_classifier_int8_paths_launch_k6_and_q8(cuda, encoder,
                                rtol=0)
     np.testing.assert_array_equal(sgot.view(np.int32),
                                   st.predict(x).view(np.int32))
+
+
+_GUARD_CASES = [(0.7, 1.3, 1.1, 7.0), (0.7, 1.3, 0.0, 0.0),
+                (float("nan"), 1.3, 1.1, 7.0), (0.7, float("inf"), 1.1, 7.0),
+                (0.7, 50.0, 1.1, 7.0), (0.7, 50.0, 1.1, 3.0),
+                (0.7, 3.0, 2.9, 7.0), (1e-3, 1e-20, 1e-7, 9.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,grad_clip", [("recover", 0.0),
+                                            ("recover", 2.0), ("warn", 0.5),
+                                            ("off", 2.0)])
+@pytest.mark.parametrize("loss_dtype", [torch.float32, torch.bfloat16])
+def test_guard_check_kernel_is_its_plain_version_bit_for_bit(
+        cuda, mode, grad_clip, loss_dtype):
+    """G2 against the torch chain it replaces, on the card, for each kind
+    of step: flags, bad, the row, the clip scale and the updated EWMA
+    state and count."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    table = (torch.arange(12, dtype=torch.float32, device="cuda")
+             .reshape(4, 3) / 7.0)
+    for loss_v, gnorm_v, ewma_v, obs_v in _GUARD_CASES:
+        outs = []
+        before = gk.KERNEL_CHECK.launches
+        for run in (gk.guard_check_reference, gk.guard_check):
+            state = [torch.tensor(v, dtype=dt, device="cuda") for v, dt in
+                     ((ewma_v, torch.float32), (obs_v, torch.float32),
+                      (6, torch.int64))]
+            res = run(torch.tensor(loss_v, device="cuda").to(loss_dtype),
+                      torch.tensor(gnorm_v, device="cuda"), *state,
+                      torch.tensor(5, device="cuda"), table,
+                      sentinel=mode != "off", spike_factor=10.0,
+                      grad_clip=grad_clip, recover=mode == "recover")
+            outs.append([t for t in list(res) + state if t is not None])
+        # the reference launches nothing, the wrapper its kernel once
+        assert gk.KERNEL_CHECK.launches == before + 1
+        for want, got in zip(*outs):
+            assert want.dtype == got.dtype
+            assert torch.equal(want.view(-1).view(torch.uint8),
+                               got.view(-1).view(torch.uint8)), (
+                loss_v, gnorm_v, want, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_guard_check_takes_the_norm_of_the_norms_bit_for_bit(cuda, scale):
+    """G2 given the per-tensor norms instead of the global norm, for every
+    count of tensors up to ``NORMS_MAX`` and past it: the global norm it
+    takes (read back as the new EWMA value of a first step, which is the
+    norm itself) is ``anomaly.global_norm``'s bits — from
+    ``_foreach_norm``'s own buffer and from separate tensors (stacked)."""
+    from analytics_zoo_tpu_torch.common import anomaly
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(int(scale * 1000))
+    base = torch.tensor(0, device="cuda")
+    wrong = []
+    for n in range(1, gk.NORMS_MAX + 4):
+        grads = [torch.randn(1 + (i * 7) % 13, generator=g, device="cuda")
+                 * scale * (1 + i % 3) for i in range(n)]
+        norms = anomaly.tensor_norms(grads)
+        want = anomaly.global_norm(grads)
+        for given in (norms, [t.clone() for t in norms]):
+            ewma = torch.zeros((), device="cuda")
+            obs = torch.zeros((), device="cuda")
+            count = torch.tensor(0, device="cuda")
+            before = gk.KERNEL_CHECK.launches
+            gk.guard_check(torch.tensor(0.7, device="cuda"), None, ewma, obs,
+                           count, base, None, sentinel=True,
+                           spike_factor=10.0, grad_clip=0.0, recover=True,
+                           norms=given)
+            assert gk.KERNEL_CHECK.launches == before + 1
+            if not torch.equal(ewma.view(torch.int32),
+                               want.view(torch.int32)):
+                wrong.append((n, ewma.item(), want.item()))
+    assert not wrong, wrong
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [False, True])
+def test_guard_commit_kernel_is_the_per_tensor_select(cuda, bad):
+    """G1 against ``torch.where(bad, prev, t, out=t)`` a tensor, over
+    tensors of several dtypes, odd sizes (a byte tail), one larger than a
+    chunk and two dense in another dimension order, in one launch; the
+    table is made once."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ((7, 3), (100_003,), (2, 2), (), (5,))
+    dtypes = (torch.float32, torch.bfloat16, torch.int64, torch.float32,
+              torch.bool)
+    state = [torch.randn(s, generator=g, device="cuda").to(dt)
+             for s, dt in zip(shapes, dtypes)]
+    # a channels_last conv weight and a transposed matrix: dense spans in
+    # another dimension order, as a conv model's parameters lie
+    state += [torch.randn(8, 3, 5, 5, generator=g, device="cuda").to(
+                  memory_format=torch.channels_last),
+              torch.randn(6, 9, generator=g, device="cuda").t()]
+    prev = [t.clone() for t in state]
+    for t in state:
+        if t.dtype != torch.bool:
+            t.add_(1)
+    want = [t.clone() for t in state]
+    gk.guard_commit_reference(want, prev, torch.tensor(bad, device="cuda"))
+    before = gk.KERNEL_COMMIT.launches
+    table = gk.guard_commit(state, prev, torch.tensor(bad, device="cuda"))
+    assert gk.KERNEL_COMMIT.launches == before + 1
+    assert gk.guard_commit(state, prev, torch.tensor(False, device="cuda"),
+                           table) is table
+    torch.cuda.synchronize()
+    for got, w in zip(state, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_guard_check_keep_copies_the_state_for_a_bad_step_only(cuda):
+    """G2's keep (recover mode): a bad step copies every state tensor into
+    its pre-step copy bit for bit; a good step writes none of them."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(1)
+    state = [torch.randn(s, generator=g, device="cuda").to(dt) for s, dt in
+             (((70_001,), torch.float32), ((3, 5), torch.bfloat16),
+              ((9,), torch.int64))]
+    for loss_v, bad in ((0.5, False), (float("nan"), True)):
+        copies = [torch.zeros_like(t) for t in state]
+        keep = gk.commit_table(copies, state)
+        scalars = [torch.tensor(v, dtype=dt, device="cuda") for v, dt in
+                   ((1.0, torch.float32), (7.0, torch.float32),
+                    (0, torch.int64))]
+        _, flag, _, _ = gk.guard_check(
+            torch.tensor(loss_v, device="cuda"),
+            torch.tensor(1.0, device="cuda"), *scalars,
+            torch.tensor(0, device="cuda"), None, sentinel=True,
+            spike_factor=10.0, grad_clip=0.0, recover=True, keep=keep)
+        torch.cuda.synchronize()
+        assert bool(flag) == bad
+        for c, t in zip(copies, state):
+            assert torch.equal(c, t if bad else torch.zeros_like(t))

@@ -302,15 +302,16 @@ def test_dedup_lookup_clamps_out_of_range_ids_as_jax():
 
 
 def test_sharded_lookup_dedup_off_and_a_model_axis():
-    """zoo.embed.dedup=false keeps the result; a model axis above 1 (the
-    row-sharded form) is refused."""
+    """zoo.embed.dedup=false keeps the result; a model axis above 1 given
+    as axis sizes alone is refused (the row-sharded form runs on a
+    ``parallel.mesh.Mesh``, ``tests/test_torch_port_row_sharded.py``)."""
     table, ids = _table_ids()
     pctx.init_zoo_context(conf={"zoo.embed.dedup": False})
     got = pse.sharded_embedding_lookup(torch.from_numpy(table),
                                        torch.from_numpy(ids))
     np.testing.assert_array_equal(got.numpy(), table[ids])
     assert pse.model_row_shard_count() == 1
-    with pytest.raises(NotImplementedError, match="row-sharded"):
+    with pytest.raises(ValueError, match="row-sharded"):
         pse.sharded_embedding_lookup(torch.from_numpy(table),
                                      torch.from_numpy(ids),
                                      mesh={"data": 1, "model": 2})
