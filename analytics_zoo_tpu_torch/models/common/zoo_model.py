@@ -180,6 +180,7 @@ def _populate_registry() -> None:
                 "analytics_zoo_tpu_torch.models.textmatching",
                 "analytics_zoo_tpu_torch.models.seq2seq",
                 "analytics_zoo_tpu_torch.models.image",
+                "analytics_zoo_tpu_torch.models.image.objectdetection",
                 "analytics_zoo_tpu_torch.tfpark.bert_classifier",
                 "analytics_zoo_tpu_torch.tfpark.bert_ner"):
         try:

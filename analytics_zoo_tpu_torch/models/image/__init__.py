@@ -1,5 +1,5 @@
 """Vision model zoo — port of ``analytics_zoo_tpu/models/image`` (image
-classification; object detection is not ported yet)."""
+classification; object detection lives in ``objectdetection``)."""
 
 from .common.image_model import ImageModel
 from .imageclassification.image_classifier import ImageClassifier, inception_v1

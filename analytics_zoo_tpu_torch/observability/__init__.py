@@ -7,17 +7,16 @@ ring-buffer time series, the alert engine, the fleet collector with its
 memory from ``torch.cuda``, goodput accounting, the profiler trigger
 on ``torch.profiler``, and compile accounting (``compile.py``: CUDA-graph
 captures and kernel library builds under the ``zoo_jit_*`` names; the
-port has no jit, so ``instrument_jit`` itself has no counterpart).
-
-Not ported: the TensorBoard sink.
+port has no jit, so ``instrument_jit`` itself has no counterpart), and the
+TensorBoard sink over ``utils/tensorboard.py``.
 """
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       QuantileDigest, Summary, default_registry,
                       reset_default_registry)
 from .tracing import current_span, new_trace_id, span
-from .export import (JsonEventSink, ScrapeServer, dump, parse_prometheus,
-                     read_events, render_prometheus)
+from .export import (JsonEventSink, ScrapeServer, TensorBoardSink, dump,
+                     parse_prometheus, read_events, render_prometheus)
 from .timeseries import (RegistrySampler, RingBuffer, SummarySample,
                          TimeSeriesStore, rehydrate_digest)
 from .device import (DeviceMemorySampler, device_memory_stats,
@@ -38,7 +37,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "QuantileDigest", "Summary",
     "MetricsRegistry", "default_registry", "reset_default_registry",
     "span", "current_span", "new_trace_id",
-    "JsonEventSink", "ScrapeServer",
+    "JsonEventSink", "ScrapeServer", "TensorBoardSink",
     "dump", "parse_prometheus", "read_events", "render_prometheus",
     "RingBuffer", "SummarySample", "TimeSeriesStore", "RegistrySampler",
     "rehydrate_digest",

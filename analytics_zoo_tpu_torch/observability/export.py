@@ -1,7 +1,7 @@
 """Export sinks for the metrics registry — the port of
 ``analytics_zoo_tpu/observability/export.py``.
 
-Two ways out of the process, matching how their audiences read:
+Three ways out of the process, matching how their audiences read:
 
 * :func:`render_prometheus` / :class:`ScrapeServer` — text exposition for
   a scraper (or a human with ``curl``); the serving backend mounts this
@@ -10,12 +10,14 @@ Two ways out of the process, matching how their audiences read:
   per-batch serving events, per-request phase events, error records);
   schema-stable under concurrent writers because each event is one
   ``json.dumps`` appended under a lock.
+* :class:`TensorBoardSink` — adapter over ``utils.tensorboard.
+  EventFileWriter`` so registry snapshots land in the same event files
+  the training and serving scalars use.
 
 The exposition text, the event lines and the endpoints' JSON keys are
 the JAX package's, letter for letter; ``/statusz``'s ``device`` block
 reads torch (``{"platform": "gpu", "device_count": ...}`` plus the
-allocator's ``memory`` rows) where the JAX one reads jax. The JAX
-package's ``TensorBoardSink`` waits for the port's TensorBoard writer.
+allocator's ``memory`` rows) where the JAX one reads jax.
 
 :func:`parse_prometheus` is the deliberately minimal reader used by the
 round-trip tests — names, types, labels, values, enough to reconcile a
@@ -36,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional
 from .metrics import Histogram, MetricsRegistry, Summary, default_registry
 
 __all__ = ["render_prometheus", "parse_prometheus", "dump",
-           "JsonEventSink", "read_events", "ScrapeServer"]
+           "JsonEventSink", "read_events", "ScrapeServer", "TensorBoardSink"]
 
 
 # ---------------------------------------------------------------------------
@@ -444,3 +446,47 @@ class ScrapeServer:
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=5.0)
+
+
+# ---------------------------------------------------------------------------
+# TensorBoard sink (reuses the event-file writer)
+# ---------------------------------------------------------------------------
+
+class TensorBoardSink:
+    """Export registry snapshots into TensorBoard event files through the
+    in-repo ``EventFileWriter`` — counters/gauges as scalars, histograms
+    as ``_count``/``_sum``/``_mean`` scalars (bucket shapes live in the
+    Prometheus/JSON channels; TB scalars are for trend lines)."""
+
+    def __init__(self, log_dir: str):
+        from ..utils.tensorboard import EventFileWriter
+        self.writer = EventFileWriter(log_dir)
+
+    def export(self, registry: Optional[MetricsRegistry] = None,
+               step: int = 0) -> None:
+        reg = registry if registry is not None else default_registry()
+        for m in reg.metrics():
+            tag = m.name
+            if m.labels:
+                tag += "/" + "/".join(v for _, v in m.labels)
+            if isinstance(m, Histogram):
+                _, count, total = m.stats()   # one locked snapshot
+                self.writer.add_scalar(tag + "_count", float(count), step)
+                self.writer.add_scalar(tag + "_sum", float(total), step)
+                if count:
+                    self.writer.add_scalar(tag + "_mean",
+                                           float(total / count), step)
+            elif isinstance(m, Summary):
+                qs, count, total = m.stats()
+                self.writer.add_scalar(tag + "_count", float(count), step)
+                self.writer.add_scalar(tag + "_sum", float(total), step)
+                for q, v in qs:
+                    if v == v:     # empty digests yield NaN — skip those
+                        self.writer.add_scalar(
+                            tag + f"_p{int(round(q * 100))}", float(v), step)
+            else:
+                self.writer.add_scalar(tag, float(m.value), step)
+        self.writer.flush()
+
+    def close(self) -> None:
+        self.writer.close()

@@ -30,8 +30,8 @@ __all__ = ["run_ranks", "init_rank"]
 def init_rank(rank: int, world: int, init_file: str, backend: str = "gloo",
               device: str = "cpu") -> None:
     """This process as rank ``rank`` of ``world`` (the store at
-    ``init_file``); on ``device="cuda"`` its card is ``rank %
-    device_count``."""
+    ``init_file``), returning once every rank has joined; on
+    ``device="cuda"`` its card is ``rank % device_count``."""
     if device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     kwargs = {}
@@ -39,6 +39,11 @@ def init_rank(rank: int, world: int, init_file: str, backend: str = "gloo",
         kwargs["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank, **kwargs)
+    # a rank's init can return before its peers have finished connecting
+    # to it; one that then left the group at once (as the context's
+    # bring-up does) would close a pair a peer is still connecting, and
+    # that peer's init fails. Nobody goes on until every pair is up.
+    dist.barrier()
 
 
 def _worker(rank, world, init_file, backend, device, fn, args, queue):

@@ -659,6 +659,12 @@ class KerasNet(Layer):
     _loop = None
     #: ``set_checkpoint``'s ``{"path", "trigger", "keep"}``
     _checkpoint = None
+    #: ``set_tensorboard``'s summaries, ``set_profile``'s directory and the
+    #: compiled learning rate (a value or a schedule) the summaries read
+    _train_summary = None
+    _val_summary = None
+    _profile_dir = None
+    _lr = None
 
     def apply(self, x, *, training: bool = False,
               generator: Optional[torch.Generator] = None):
@@ -713,6 +719,9 @@ class KerasNet(Layer):
             self, opt, objectives.get_loss(loss),
             [metrics_lib.get_metric(m) for m in (metrics or [])])
         self._loop.global_clip = clip_norm is not None
+        # the effective lr (constant or schedule) for the LearningRate
+        # summary
+        self._lr = optimizers.resolve_lr(optimizer, **opt_kwargs)
         return self
 
     def _compiled_loop(self, what: str):
@@ -730,6 +739,49 @@ class KerasNet(Layer):
         verifies."""
         self._checkpoint = {"path": path, "trigger": trigger, "keep": keep}
         return self
+
+    def set_tensorboard(self, log_dir: str, app_name: str,
+                        parameters_every_epochs: Optional[int] = None
+                        ) -> "KerasNet":
+        """``setTensorBoard(logDir, appName)`` (``Topology.scala:204-216``):
+        ``fit`` writes the train scalars (Loss a step, Throughput and
+        LearningRate an epoch) to ``<log_dir>/<app_name>/train`` and the
+        validation metrics to ``.../validation`` as TensorBoard event
+        files; ``parameters_every_epochs=N`` adds per-layer weight
+        histograms every N epochs (under fused-epoch dispatch, at each
+        block's last epoch)."""
+        from ....utils.tensorboard import TrainSummary, ValidationSummary
+        for attr in ("_train_summary", "_val_summary"):
+            old = getattr(self, attr, None)
+            if old is not None:   # redirecting: release the previous file
+                old.close()
+        self._train_summary = TrainSummary(log_dir, app_name)
+        if parameters_every_epochs is not None:
+            self._train_summary.set_summary_trigger("Parameters",
+                                                    parameters_every_epochs)
+        self._val_summary = ValidationSummary(log_dir, app_name)
+        return self
+
+    def set_profile(self, log_dir: str) -> "KerasNet":
+        """Trace the NEXT ``fit`` call (one-shot) with ``torch.profiler``
+        into ``log_dir``, for TensorBoard's profile plugin."""
+        self._profile_dir = log_dir
+        return self
+
+    def get_train_summary(self, tag: str = "Loss"):
+        """``getTrainSummary(tag)`` (``Topology.scala:222-229``): ``(n, 3)``
+        rows of ``[iteration, value, wall_time]``."""
+        if self._train_summary is None:
+            raise RuntimeError("call set_tensorboard() before reading "
+                               "summaries")
+        return self._train_summary.read_scalar(tag)
+
+    def get_validation_summary(self, tag: str):
+        """``getValidationSummary(tag)`` (``Topology.scala:231-236``)."""
+        if self._val_summary is None:
+            raise RuntimeError("call set_tensorboard() before reading "
+                               "summaries")
+        return self._val_summary.read_scalar(tag)
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
             validation_data=None, shuffle: bool = True, callbacks=(),

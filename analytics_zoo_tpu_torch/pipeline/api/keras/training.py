@@ -138,8 +138,8 @@ from ....utils.checkpoint import (CheckpointArchitectureError,
                                   CheckpointManager)
 from . import dispatch, objectives
 from .engine import (collect_aux_losses, collect_state, commit_state,
-                     discard_state, load_param_tree, named_state,
-                     written_state)
+                     compute_dtype, discard_state, load_param_tree,
+                     named_state, written_state)
 from .mesh_step import MeshStep, _full_shape
 from .metrics import Metric
 from .optimizers import (GradientTransformation, apply_updates,
@@ -346,6 +346,51 @@ def _fired_within(trigger: Optional[Trigger], state: TrainLoopState,
         return (state.iteration // trigger.interval
                 > prev_iter // trigger.interval)
     return trigger(state)
+
+
+def _write_param_histograms(tb, params, epochs, iteration,
+                            n_steps: int = 0) -> None:
+    """Per-layer weight histograms when the TrainSummary's "Parameters"
+    trigger fires for any epoch in ``epochs`` (JAX
+    ``_write_param_histograms``; reference: ``TrainSummary.
+    setSummaryTrigger("Parameters", ...)``). ``params`` is the param tree
+    (nested dicts of tensors or arrays, the JAX tree's paths). Under
+    fused-epoch dispatch it is called at the block's end for all of the
+    block's epochs: ``n_steps`` (steps per epoch) gives each covered
+    epoch its own boundary iteration, ending at ``iteration``, and an
+    iteration trigger is checked over that epoch's whole ``(boundary -
+    n_steps, boundary]`` window (:func:`_fired_within`)."""
+    epochs = list(epochs)
+    trig = getattr(tb, "parameters_trigger", None)
+    if trig is not None:
+        last = len(epochs) - 1
+        window = max(n_steps, 1)
+        if not any(_fired_within(
+                trig,
+                TrainLoopState(iteration=iteration - (last - k) * n_steps,
+                               epoch=e, epoch_finished=True),
+                prev_iter=iteration - (last - k) * n_steps - window)
+                   for k, e in enumerate(epochs)):
+            return
+    else:
+        freq = getattr(tb, "parameters_every_epochs", None)
+        if not freq or not any(e % freq == 0 for e in epochs):
+            return
+
+    from ....parallel.mesh import full_tensor
+
+    def walk(tree, prefix):
+        for key in sorted(tree):
+            leaf = tree[key]
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(leaf, dict):
+                walk(leaf, path)
+                continue
+            if isinstance(leaf, torch.Tensor):
+                leaf = full_tensor(leaf).detach().float().cpu().numpy()
+            tb.add_histogram(f"Parameters/{path}", np.asarray(leaf),
+                             iteration)
+    walk(params, "")
 
 
 def _param_tree(named: Dict[str, Any]) -> Dict[str, Any]:
@@ -575,6 +620,13 @@ class TrainingLoop:
             "zoo_train_steps_total", "optimizer steps run")
         self._m_examples = self._registry.counter(
             "zoo_train_examples_total", "training examples consumed")
+        self._m_mfu = self._registry.gauge(
+            "zoo_train_mfu",
+            "achieved model-FLOPs utilization, last epoch "
+            "(zoo.metrics.flops + a known card peak)")
+        #: FLOPs an example of one step (``zoo.metrics.flops``): None until
+        #: counted, 0.0 once counted and unavailable
+        self._flops_per_example: Optional[float] = None
         #: the step losses of the latest fit, one array an epoch
         self.step_losses: List[np.ndarray] = []
         self._noise_gen: Optional[torch.Generator] = None
@@ -1317,8 +1369,14 @@ class TrainingLoop:
                          if goodput_enabled() else None)
         if self._goodput is not None:
             self._goodput.open()
+        # one-shot profiler capture (KerasNet.set_profile): this fit call,
+        # retries included
+        profile_dir = getattr(self.model, "_profile_dir", None)
+        self.model._profile_dir = None
+        from ....utils import profiling
         try:
-            with span("train.fit", registry=self._registry):
+            with profiling.trace(profile_dir), \
+                    span("train.fit", registry=self._registry):
                 return self._fit_with_retry(
                     fs, batch_size=batch_size, nb_epoch=nb_epoch,
                     target_holder=target_holder,
@@ -1520,6 +1578,8 @@ class TrainingLoop:
             self._device_data(fs, scan_steps, batch_size, device)
         history: Dict[str, List[float]] = {"loss": []}
         self.step_losses = []
+        # outside every epoch's timed window
+        self._maybe_compute_flops(fs, batch_size, params)
         # fused blocks: only when nothing needs the host between epochs
         if (cached and fuse > 1 and mgr is None
                 and validation_data is None and end_trigger is None):
@@ -1632,11 +1692,15 @@ class TrainingLoop:
             record = {"epoch": epoch, "loss": epoch_loss,
                       "iteration": loop_state.iteration,
                       "throughput": n_seen / dt if dt > 0 else 0.0}
+            val = None
             if validation_data is not None:
                 val = self._validate(validation_data, batch_size)
                 for key, v in val.items():
                     history.setdefault("val_" + key, []).append(v)
                 record.update({"val_" + key: v for key, v in val.items()})
+            self._write_summaries(lv, loop_state.iteration,
+                                  record["throughput"], val,
+                                  (epoch,) if completed else ())
             log.info("Epoch %d%s: loss=%.6f (%.1f ex/s)", epoch,
                      "" if completed else " (stopped mid-epoch)",
                      epoch_loss, record["throughput"])
@@ -1647,6 +1711,40 @@ class TrainingLoop:
             if stop or (end_trigger is not None and end_trigger(loop_state)):
                 break
         return history
+
+    def _write_summaries(self, losses, iteration: int, throughput: float,
+                         val, histogram_epochs, n_steps: int = 0) -> None:
+        """An epoch's TensorBoard records (``KerasNet.set_tensorboard``),
+        the JAX layout: a ``Loss`` point a step, ``Throughput`` and
+        ``LearningRate`` (the compiled schedule) at the epoch's iteration,
+        the parameter histograms where ``histogram_epochs`` fire the
+        "Parameters" trigger (none for an epoch stopped midway, which the
+        next fit retrains), and the validation metrics."""
+        model = self.model
+        tb = getattr(model, "_train_summary", None)
+        if tb is not None:
+            first = iteration - len(losses)
+            for j, lv in enumerate(losses):
+                tb.add_scalar("Loss", float(lv), first + j + 1)
+            tb.add_scalar("Throughput", throughput, iteration)
+            lr = getattr(model, "_lr", None)
+            if callable(lr):
+                tb.add_scalar("LearningRate", float(lr(iteration)),
+                              iteration)
+            elif isinstance(lr, (int, float)):
+                tb.add_scalar("LearningRate", float(lr), iteration)
+            if len(histogram_epochs):
+                _write_param_histograms(
+                    tb, _param_tree(dict(tree_module(model)
+                                         .named_parameters())),
+                    histogram_epochs, iteration,
+                    n_steps=n_steps or len(losses))
+            tb.writer.flush()
+        vtb = getattr(model, "_val_summary", None)
+        if vtb is not None and val is not None:
+            for key, v in val.items():
+                vtb.add_scalar(key, float(v), iteration)
+            vtb.writer.flush()
 
     def _validate(self, validation_data, batch_size: int):
         if isinstance(validation_data, FeatureSet):
@@ -1696,6 +1794,12 @@ class TrainingLoop:
                                         + (j + 1) * n_steps),
                           "throughput": (n_steps * batch_size / dt
                                          if dt > 0 else 0.0)}
+                # the block's parameters are the last epoch's: its
+                # histograms cover every epoch of the block
+                self._write_summaries(
+                    step_l, record["iteration"], record["throughput"], None,
+                    range(epoch + 1, e + 1) if j == g - 1 else (),
+                    n_steps=n_steps)
                 log.info("Epoch %d: loss=%.6f (%.1f ex/s)", e, epoch_loss,
                          record["throughput"])
                 for cb in callbacks:
@@ -1853,6 +1957,32 @@ class TrainingLoop:
         self._m_throughput.set(n_examples / dt)
         self._m_steps.inc(steps)
         self._m_examples.inc(n_examples)
+        if self._flops_per_example:
+            from ....utils import profiling
+            m = profiling.mfu(self._flops_per_example * n_examples / dt,
+                              n_devices=1, dtype=compute_dtype())
+            if m is not None:
+                self._m_mfu.set(m)
+
+    def _maybe_compute_flops(self, fs, batch_size: int, params) -> None:
+        """One step's FLOPs an example for the MFU gauge, counted once
+        (``zoo.metrics.flops``, opt-in) by ``FlopCounterMode`` over the
+        forward and backward of the set's first batch, before the fit's
+        timed window (JAX ``_maybe_compute_flops``); the flag is read every
+        fit, so turning it on before a later fit still counts."""
+        if (self._flops_per_example is not None
+                or not get_zoo_context().get("zoo.metrics.flops", False)):
+            return
+        from ....utils import profiling
+        first = next(iter(fs.iter_batches(batch_size, epoch=0,
+                                          drop_last=True)), None)
+        flops = None
+        if first is not None:
+            device = self._device()
+            x, y = (_to_device(a, device) for a in first)
+            flops = profiling.compiled_flops(
+                self._grads, x, y, self._noise(0, 0, device), params)
+        self._flops_per_example = flops / batch_size if flops else 0.0
 
     # -- evaluate / predict -------------------------------------------------
     def _local_rows(self, batch_size: int):

@@ -470,6 +470,8 @@ class ClusterServing:
             "(quantile digest)")
         self._last_flush_wall = None   # epoch s of the newest publish
         self._events = None            # JsonEventSink (set_json_events)
+        self._summary = None           # InferenceSummary role (TB scalars)
+        self._t_last_flush: Optional[float] = None
         self._scrape = None            # ScrapeServer (serve_metrics)
         self._profiler = None          # ProfilerTrigger (serve_metrics)
         # -- reliability --------------------------------------------------
@@ -755,6 +757,23 @@ class ClusterServing:
         return name if name in self._lanes else None
 
     # -- observability surface ----------------------------------------------
+    def set_tensorboard(self, log_dir: str,
+                        app_name: str = "serving") -> "ClusterServing":
+        """Write per-batch "Serving Throughput" / "Serving Records" scalars
+        to ``<log_dir>/<app_name>`` (``ClusterServing.scala:291-317`` +
+        ``InferenceSummary.scala``). Call before ``start()``: swapping the
+        writer under a running publisher would race its bookkeeping on
+        the closed file."""
+        from ..utils.tensorboard import EventFileWriter
+        if self._thread is not None:    # start()'s double-start guard
+            raise RuntimeError(
+                "serving already started; call set_tensorboard() before "
+                "start() (or after stop())")
+        if self._summary is not None:   # redirecting: release the old file
+            self._summary.close()
+        self._summary = EventFileWriter(os.path.join(log_dir, app_name))
+        return self
+
     def set_json_events(self, path: str) -> "ClusterServing":
         """Log one structured JSON event per published batch / error record
         and, for every traced record, its phase events to ``path`` (JSON
@@ -1157,6 +1176,9 @@ class ClusterServing:
         self._pub_queue = None
 
     def _close_sinks(self) -> None:
+        if self._summary is not None:
+            self._summary.close()
+            self._summary = None
         if self._scrape is not None:
             self._scrape.close()
             self._scrape = None
@@ -2264,3 +2286,16 @@ class ClusterServing:
         self.metrics.emit("serving.flush", records=len(recs),
                           batch=self._batches, latency_s=latency,
                           model=lane.name)
+        if self._summary is not None:
+            t_prev = self._t_last_flush
+            self._t_last_flush = now
+            # from the later of the previous flush and this batch's
+            # dispatch: the inter-flush interval under load, this batch's
+            # own dispatch-to-publish after an idle gap
+            start = t0 if t_prev is None else max(t_prev, t0)
+            dt = max(now - start, 1e-9)
+            self._summary.add_scalar("Serving Throughput", len(recs) / dt,
+                                     self._batches)
+            self._summary.add_scalar("Serving Records", self.served,
+                                     self._batches)
+            self._summary.flush()

@@ -1,6 +1,9 @@
 """Shared host-side helpers — port of ``analytics_zoo_tpu/utils``: the
 prediction decode rule (``prediction.py``), durable checkpoints
-(``checkpoint.py``) and their operator CLI (``ckpt_cli.py``)."""
+(``checkpoint.py``) and their operator CLI (``ckpt_cli.py``), the
+TensorBoard event files (``tensorboard.py``), the protobuf wire codec
+(``proto.py``), TF tensor bundles (``tensor_bundle.py``) and profiling
+(``profiling.py``). Nothing imported here at the top pulls in torch."""
 
 
 def human_bytes(n: float) -> str:

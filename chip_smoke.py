@@ -407,8 +407,21 @@
    versions; a 2-rank snapshot restored on one rank bit for bit; with
    two or more cards, a captured DP fit (NCCL), else the skip printed.
 
-``python3 chip_smoke.py --only sentinel,mesh`` runs those phases alone
-after the build (their JSON, no final line).
+20. Object detection phase (slice 23): SSD300-VGG16 (21 classes, 300 x
+   300, 8732 priors, seeded weights): ``ObjectDetector.detect`` in fp32
+   at batch 1 and 32 (records/s, device ms of the forward and of the
+   decode); static int8 through ``InferenceModel.from_keras(quantize=
+   "int8", calibrate=...)`` (35 C8 launches a forward by route, each conv
+   held to C8's plain version bit for bit on a real forward's inputs);
+   N1 (``csrc/nms.cu``) on the real decode's 32 x 21 rows of 400 boxes,
+   bit for bit its plain loop and timed beside it; a ``ClusterServing``
+   stream of 64 frames decoded by the client; four training steps of
+   batch 8 eager and captured with the same bits, then VOC mAP. C8's
+   kernel cases (17a) hold SSD300's fc6 and its F = 126 head too.
+
+``python3 chip_smoke.py --only sentinel,mesh`` (or ``object_detection``,
+``c8_kernel``) runs those phases alone after the build (their JSON, no
+final line).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -427,7 +440,8 @@ quantize pass's from VGG-16's, its weight repack's from VGG-16's static
 install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
 32k shapes' fields; K1-K5b also on each rank of each mesh case; G1 and
-G2 from the sentinel fit; the attention kernels also checked against
+G2 from the sentinel fit; N1's and C8's also from SSD300's detection
+paths; the attention kernels also checked against
 their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
 shape beside SDPA's causal forward and backward there, K1 and SA also at
@@ -6789,7 +6803,8 @@ RESNET_TRAIN_STEPS = 8
 #: relu). Every distinct conv of VGG-16's two static paths (bias and
 #: ReLU, batch 32 and 1 at 112 pixels), ResNet-50's stem (no bias, its
 #: BatchNorm after), Inception-v1's stem (bias and ReLU), both 7x7/2 with
-#: XLA's (2, 3) pads, and a dilated AtrousConvolution2D
+#: XLA's (2, 3) pads, a dilated AtrousConvolution2D, and SSD300's fc6 and
+#: its F = 126 head
 VGG_CONVS = [(3, 64, 112), (64, 64, 112), (64, 128, 56), (128, 128, 56),
              (128, 256, 28), (256, 256, 28), (256, 512, 14),
              (512, 512, 14), (512, 512, 7)]
@@ -6800,7 +6815,13 @@ C8_CASES = ([(f"vgg_b{b}_{c}x{f}_{hw}", b, hw, hw, c, f, 3, 1, 1, True,
                ("inception_v1_stem_b32", 32, 112, 112, 3, 64, 7, 2, 1, True,
                 True),
                ("atrous_d2_b32_64x64_56", 32, 56, 56, 64, 64, 3, 1, 2, True,
-                True)])
+                True),
+               # SSD300's fc6 (atrous, dilation 6) and its widest head
+               # (F = 126: a 504-byte output row)
+               ("ssd_fc6_b32_512x1024_19", 32, 19, 19, 512, 1024, 3, 1, 6,
+                True, True),
+               ("ssd_mbox1_conf_b32_1024x126_19", 32, 19, 19, 1024, 126, 3,
+                1, 1, True, False)])
 
 
 def c8_bound(m, k, n, x_elems, bias):
@@ -8805,9 +8826,471 @@ def mesh_captured_dp(rank, world):
                                     / np.abs(eager)))}
 
 
+# ---------------------------------------------------------------------------
+# slice 23: object detection (SSD300-VGG16) and N1
+# ---------------------------------------------------------------------------
+
+#: SSD300-VGG16, the PASCAL VOC configuration of the reference's SSD.scala
+#: (21 classes, 300 x 300 x 3 frames, 8732 priors), seeded weights; the
+#: detect batches, the training batch and steps, the served frames
+SSD_CLASSES, SSD_RES, SSD_PRIORS = 21, 300, 8732
+SSD_BATCHES = (1, 32)
+SSD_TRAIN_BATCH, SSD_TRAIN_STEPS = 8, 4
+SSD_FRAMES, SSD_SERVE_BATCH = 64, 32
+#: timed detect calls a batch size (after two untimed ones)
+SSD_REPS = 5
+#: the convs of SSD300 static int8 (23 in the trunk and extras, 12 heads)
+SSD_CONVS = 35
+#: f32 operations N1 does a box pair of a row's upper triangle: the IoU's
+#: 2 min, 2 max, 3 subtractions, 2 clamps, 1 product, 1 addition, 1
+#: division (the areas once a box), and the threshold compare
+NMS_OPS_PER_PAIR = 13
+#: served raw scores against the direct forward of the same frames (fp32,
+#: TF32 off: the same convs at another batch size, cuDNN free to pick
+#: another algorithm), relative to the largest score
+SSD_SERVE_REL_TOL = 1e-4
+
+
+def ssd_frames(rng, n):
+    """``n`` seeded 300 x 300 frames with one to three bright squares each
+    and their padded ``(n, 3, 5)`` ground truth (labels 1..20)."""
+    import numpy as np
+    x = rng.normal(0, 0.1, size=(n, SSD_RES, SSD_RES, 3)).astype(np.float32)
+    gt = np.full((n, 3, 5), -1.0, np.float32)
+    for i in range(n):
+        for j in range(int(rng.integers(1, 4))):
+            size = int(rng.integers(30, 150))
+            x0 = int(rng.integers(0, SSD_RES - size))
+            y0 = int(rng.integers(0, SSD_RES - size))
+            x[i, y0:y0 + size, x0:x0 + size, j] = 1.0
+            gt[i, j] = [int(rng.integers(1, SSD_CLASSES)), x0 / SSD_RES,
+                        y0 / SSD_RES, (x0 + size) / SSD_RES,
+                        (y0 + size) / SSD_RES]
+    return x, gt
+
+
+def nms_bound(rows, k):
+    """N1's least time: the boxes read and the keep-mask written once,
+    against the upper triangle's pairs at the f32 rate."""
+    t_bytes = rows * k * (16 + 1) / PEAK_BYTES_PER_S
+    t_ops = rows * k * (k - 1) / 2 * NMS_OPS_PER_PAIR / PEAK_FLOPS["float32"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nms_case(det, raw):
+    """N1 on the real decode's candidates of ``raw`` (every image's and
+    class's 400 best boxes): its keep-mask bit for bit its plain version's
+    on the card, timed beside it (the wrapper, its CUDA-graph device time,
+    the plain loop) with its bound; launches here are not the path's."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.image.objectdetection.bbox import \
+        detection_candidates
+    from analytics_zoo_tpu_torch.ops.nms import (KERNEL_NMS, nms_keep_mask,
+                                                 nms_keep_mask_reference)
+    p = det.post_param
+    probs = torch.softmax(raw[..., 4:].float(), dim=-1)
+    _, boxes = detection_candidates(
+        raw[..., :4], probs, det.priors, num_classes=SSD_CLASSES,
+        conf_thresh=p.conf_thresh, nms_topk=p.nms_topk)
+    boxes = boxes.contiguous()
+    before = KERNEL_NMS.launches
+    got = nms_keep_mask(boxes, p.nms_thresh)
+    want = nms_keep_mask_reference(boxes, p.nms_thresh)
+    same = bool(torch.equal(got, want))
+    rows, k = boxes.shape[0] * boxes.shape[1], boxes.shape[2]
+    bound_ms, bound_by = nms_bound(rows, k)
+    out = {"rows": rows, "k": k, "bit_equal": same,
+           "kept": int(got.sum()), "launches": KERNEL_NMS.launches - before,
+           "ms": time_ms(lambda: nms_keep_mask(boxes, p.nms_thresh)),
+           "device_ms": graph_ms(lambda: nms_keep_mask(boxes,
+                                                       p.nms_thresh)),
+           "plain_ms": time_ms(lambda: nms_keep_mask_reference(
+               boxes, p.nms_thresh), iters=3, warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    check(same and out["launches"] == 1,
+          f"N1 at {rows} rows of {k}: not its plain version's bits or "
+          f"{out['launches']} launches")
+    return out
+
+
+def conv_inputs(im8, x):
+    """One static forward of ``x``, each conv's input recorded (a copy) as
+    its ``quantized_call`` receives it: ``{layer name: (layer, input)}``
+    in call order."""
+    import torch
+
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers import \
+        Convolution2D
+    seen = {}
+    convs = [m for m in im8._model.modules() if isinstance(m, Convolution2D)]
+    for layer in convs:
+        def record(t, layer=layer, call=layer.quantized_call):
+            seen[layer.name] = (layer, t.clone())
+            return call(t)
+        layer.quantized_call = record
+    try:
+        im8._forward([torch.from_numpy(x).cuda()])
+        torch.cuda.synchronize()
+    finally:
+        for layer in convs:
+            del layer.quantized_call
+    return seen
+
+
+def ssd_c8_shapes(im8, x, tag):
+    """C8 at each of SSD300's 35 convs on the inputs of a real static
+    forward of ``x``: the same bits on a second call, its route and device
+    ms, and bit for bit its plain version (the exact float64 conv) at
+    batch 1 on every conv and at batch 32 on the shapes no earlier phase
+    ran (dilation 6, 1 x 1, stride 2, valid, the heads), whose plain
+    version is also timed. Launches here are not the path's."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        LAST_CONV_LAUNCH, static_int8_conv2d,
+        static_int8_conv2d_reference)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.layers.convolution \
+        import ACTIVATIONS
+    rows = {}
+    for name, (layer, xin) in conv_inputs(im8, x).items():
+        relu = layer.activation is ACTIVATIONS["relu"]
+        args = (xin, layer.x_scale, layer.W, layer.w_scale, layer.b, relu,
+                layer.subsample, layer.dilation, layer._pads(xin))
+        kw = {"w_kmajor": getattr(layer, "W_kmajor", None)}
+        out = static_int8_conv2d(*args, **kw)
+        route, splits = LAST_CONV_LAUNCH.route, LAST_CONV_LAUNCH.splits
+        again = static_int8_conv2d(*args, **kw)
+        kh, kw_, c, f = layer.W.shape
+        # the shapes VGG-16's phases never ran; at batch 1 every conv
+        new = (layer.dilation != (1, 1) or kh == 1
+               or layer.subsample != (1, 1) or out.shape[1] < 5
+               or name.startswith("mbox"))
+        same = bool(torch.equal(out.view(torch.int32),
+                                again.view(torch.int32)))
+        if new or x.shape[0] == 1:
+            ref = static_int8_conv2d_reference(*args)
+            same = same and bool(torch.equal(out.view(torch.int32),
+                                             ref.view(torch.int32)))
+            del ref
+        row = {"in": list(xin.shape), "out": list(out.shape), "f": f,
+               "k": kh, "stride": layer.subsample[0],
+               "dilation": layer.dilation[0], "route": route,
+               "splits": splits, "bit_equal": same,
+               "plain_checked": bool(new or x.shape[0] == 1),
+               "device_ms": graph_ms(lambda: static_int8_conv2d(*args, **kw),
+                                     iters=10)}
+        if new:
+            row["plain_ms"] = time_ms(lambda: static_int8_conv2d_reference(
+                *args), iters=1, warmup=1)
+        rows[name] = row
+        check(same, f"C8 at SSD300 {tag} {name} {row}: not its plain "
+              f"version's bits")
+        del xin, out, again
+    check(len(rows) == SSD_CONVS, f"SSD300 {tag}: {len(rows)} convs")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_fit(x, gt, conf):
+    """SSD300 from seeded weights trained for ``SSD_TRAIN_STEPS`` steps of
+    batch ``SSD_TRAIN_BATCH`` (SGD 1e-3, MultiBoxLoss, fp32): the step
+    losses, the parameters (host copies) and the fit's seconds."""
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0,
+                           **conf})
+    reset_uids()
+    det = ObjectDetector("ssd-vgg16-300", num_classes=SSD_CLASSES)
+    det.init_weights(torch.Generator().manual_seed(0))
+    det.compile(optimizer="sgd", loss=det.multibox_loss(), lr=1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.fit(x, gt, batch_size=SSD_TRAIN_BATCH, nb_epoch=1, shuffle=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [v for a in det._loop.step_losses for v in a.tolist()]
+    params = {k: v.detach().cpu().clone()
+              for k, v in det.model.named_parameters()}
+    return det, losses, params, seconds
+
+
+def object_detection_phase():
+    """SSD300-VGG16 (21 classes, 300 x 300, seeded weights) on the port:
+
+    * ``ObjectDetector.detect`` in fp32 at batch 1 and 32: records/s (the
+      best of ``SSD_REPS`` timed calls, host clock to the detections on
+      the host) and the device ms of the forward and of the decode
+      (softmax, box decode, the per-class stable top-400, N1 and the
+      keep-top-200), by CUDA events;
+    * static int8 (``InferenceModel.from_keras(quantize="int8",
+      calibrate=batch)``): 35 convs calibrated, C8 launching 35 times a
+      forward (by route; the quantize pass on the 34 past the 3-channel
+      stem), each conv held to C8's plain version bit for bit on the
+      inputs of a real forward at batch 1 and 32, and the int8 detect's
+      records/s and device ms beside fp32's;
+    * N1 on the real decode's 32 x 21 rows of 400 boxes, bit for bit its
+      plain version (the torch loop), timed beside it;
+    * ``ClusterServing(batch_size=32)`` streaming ``SSD_FRAMES`` frames
+      from a producer thread, the client decoding each answer (the
+      ``examples/streaming_object_detection.py`` flow): records/s, every
+      answer's raw scores against the direct forward;
+    * training: ``compile(loss=det.multibox_loss())`` and ``fit`` for
+      ``SSD_TRAIN_STEPS`` steps of batch 8, eager and captured
+      (``zoo.train.scan_steps``): the same step losses and parameters,
+      bit for bit (``cudnn.deterministic``); then ``MeanAveragePrecision``
+      over the trained detector's detections.
+
+    N1's and C8's launches are counted on each path (reset just before,
+    read just after) and gated."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        MeanAveragePrecision, ObjectDetector)
+    from analytics_zoo_tpu_torch.ops.nms import KERNEL_NMS
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_CONV, KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
+        KERNEL_INT8_CONV_ROUTES)
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_tpu_torch.serving import (ClusterServing, InputQueue,
+                                                 LocalBackend, OutputQueue)
+    out = {"launches": {}, "c8_routes": {}}
+    counters = {"n1": KERNEL_NMS, "c8": KERNEL_INT8_CONV,
+                "c8_quantize": KERNEL_INT8_CONV_QUANTIZE,
+                "c8_repack": KERNEL_INT8_CONV_REPACK,
+                **KERNEL_INT8_CONV_ROUTES}
+
+    def reset():
+        for cnt in counters.values():
+            cnt.reset()
+
+    def read(path):
+        torch.cuda.synchronize()
+        got = {key: cnt.launches for key, cnt in counters.items()}
+        out["launches"][path] = {"n1": got["n1"], "c8": got["c8"]}
+        out["c8_routes"][path] = got
+        return got
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
+    reset_uids()
+    rng = np.random.default_rng(23)
+    x, gt = ssd_frames(rng, max(SSD_BATCHES))
+    det = ObjectDetector("ssd-vgg16-300", num_classes=SSD_CLASSES)
+    det.init_weights(torch.Generator().manual_seed(0))
+    check(det.priors.shape == (SSD_PRIORS, 4), f"priors {det.priors.shape}")
+    out["params"] = sum(p.numel() for p in det.parameters())
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return r, start.elapsed_time(end)
+
+    # fp32 detect
+    tables = {}
+    for b in SSD_BATCHES:
+        xb = x[:b]
+        for _ in range(2):
+            det.detect(xb)
+        reset()
+        best = float("inf")
+        for _ in range(SSD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = det.detect(xb)
+            best = min(best, time.perf_counter() - t0)
+        got = read(f"ssd300_fp32_b{b}")
+        check(got["n1"] == SSD_REPS and got["c8"] == 0,
+              f"fp32 detect b{b}: launches {got}")
+        check(table.shape == (b, det.post_param.keep_topk, 6)
+              and np.isfinite(table).all()
+              and ((table[..., 0] >= -1) & (table[..., 0] < SSD_CLASSES))
+              .all(), f"fp32 detect b{b}: table {table.shape}")
+        tables[b] = table
+        xd = torch.from_numpy(xb).cuda()
+        with torch.no_grad():
+            raw, fwd_ms = events_ms(lambda: det(xd))
+            _, dec_ms = events_ms(lambda: det.decode_on_device(raw))
+        out[f"fp32_b{b}"] = {"records_per_s": b / best,
+                             "detect_ms": best * 1e3,
+                             "forward_device_ms": fwd_ms,
+                             "decode_device_ms": dec_ms,
+                             "detections": int((table[..., 0] >= 0).sum())}
+    # image 0 at batch 1 and in the batch of 32 (cuDNN may pick another
+    # algorithm, and near-equal scores may then swap; printed, not gated)
+    out["b1_b32_label_agreement_pct"] = float(
+        (tables[1][0, :, 0] == tables[32][0, :, 0]).mean() * 100)
+    with torch.no_grad():
+        raw32 = det(torch.from_numpy(x).cuda())
+    out["n1"] = nms_case(det, raw32)
+
+    # static int8
+    reset()
+    im8 = InferenceModel().from_keras(det.model, quantize="int8",
+                                      calibrate=x[:8])
+    got = read("ssd300_static_install")
+    out["repack_launches_install"] = got["c8_repack"]
+    check(len(im8._act_scales) == SSD_CONVS and got["c8_repack"] == 34,
+          f"static SSD300: {len(im8._act_scales)} calibrated, repacks "
+          f"{got['c8_repack']}")
+    for b in SSD_BATCHES:
+        xb = x[:b]
+        xd = torch.from_numpy(xb).cuda()
+
+        def detect8():
+            return det.decode_on_device(im8._forward([xd]))
+        for _ in range(2):
+            detect8()
+        reset()
+        best = float("inf")
+        for _ in range(SSD_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table8 = detect8().cpu().numpy()
+            best = min(best, time.perf_counter() - t0)
+        got = read(f"ssd300_static_b{b}")
+        check(got["c8"] == SSD_CONVS * SSD_REPS
+              and got["c8_small_c"] == SSD_REPS
+              and got["c8_quantize"] == (SSD_CONVS - 1) * SSD_REPS
+              and got["n1"] == SSD_REPS and got["c8_repack"] == 0,
+              f"static SSD300 b{b}: launches {got}")
+        with torch.no_grad():
+            raw8, fwd_ms = events_ms(lambda: im8._forward([xd]))
+            _, dec_ms = events_ms(lambda: det.decode_on_device(raw8))
+            raw_f = det(xd)
+        rel = float((raw8 - raw_f).abs().max() / raw_f.abs().max())
+        check(np.isfinite(table8).all() and np.isfinite(rel),
+              f"static detect b{b}")
+        out[f"int8_b{b}"] = {"records_per_s": b / best,
+                             "detect_ms": best * 1e3,
+                             "forward_device_ms": fwd_ms,
+                             "decode_device_ms": dec_ms,
+                             "raw_rel_err_vs_fp32": rel,
+                             "label_agreement_pct": float(
+                                 (table8[..., 0] == tables[b][..., 0])
+                                 .mean() * 100)}
+        out[f"c8_shapes_b{b}"] = ssd_c8_shapes(im8, xb, f"b{b}")
+    del im8, raw8
+    torch.cuda.empty_cache()
+
+    # streamed serving, decoded by the client
+    im = InferenceModel(concurrent_num=2).from_keras(det.model)
+    frames, _ = ssd_frames(np.random.default_rng(5), SSD_FRAMES)
+    with torch.no_grad():
+        direct = torch.cat([det(torch.from_numpy(frames[i:i + 32]).cuda())
+                            for i in range(0, SSD_FRAMES, 32)]).cpu()
+    backend = LocalBackend()
+    reset()
+    server = ClusterServing(im, backend=backend,
+                            batch_size=SSD_SERVE_BATCH).start()
+    inq, outq = InputQueue(backend), OutputQueue(backend)
+    answers, worst = {}, 0.0
+    t0 = time.perf_counter()
+    try:
+        def camera():
+            for i in range(SSD_FRAMES):
+                inq.enqueue(f"frame-{i:03d}", frames[i])
+        producer = threading.Thread(target=camera)
+        producer.start()
+        deadline = time.time() + 300
+        while len(answers) < SSD_FRAMES and time.time() < deadline:
+            for uri, scores in outq.dequeue().items():
+                i = int(uri.split("-")[1])
+                scores = np.asarray(scores, np.float32)
+                ref = direct[i].numpy()
+                worst = max(worst, float(np.abs(scores - ref).max()
+                                         / np.abs(ref).max()))
+                answers[uri] = det.decode(scores)
+            time.sleep(0.005)
+        producer.join()
+    finally:
+        server.stop()
+    seconds = time.perf_counter() - t0
+    got = read("ssd300_serving")
+    check(len(answers) == SSD_FRAMES and worst <= SSD_SERVE_REL_TOL
+          and all(a.shape == (1, det.post_param.keep_topk, 6)
+                  for a in answers.values())
+          and got["n1"] == SSD_FRAMES,
+          f"SSD300 serving: {len(answers)} of {SSD_FRAMES} answers, raw "
+          f"scores {worst} from the direct forward, launches {got}")
+    out["serving"] = {"records_per_s": SSD_FRAMES / seconds,
+                      "raw_rel_err": worst, "frames": SSD_FRAMES}
+    del im, det, raw32, direct
+    torch.cuda.empty_cache()
+
+    # training, eager and captured, then mAP
+    torch.backends.cudnn.deterministic = True
+    try:
+        n = SSD_TRAIN_STEPS * SSD_TRAIN_BATCH
+        tx, tgt = ssd_frames(np.random.default_rng(8), n)
+        reset()
+        eager, e_loss, e_params, e_s = ssd_fit(tx, tgt, {})
+        got = read("ssd300_train_eager")
+        del eager
+        captured, k_loss, k_params, k_s = ssd_fit(
+            tx, tgt, {"zoo.train.scan_steps": SSD_TRAIN_STEPS})
+        same = e_loss == k_loss and all(
+            torch.equal(e_params[k], k_params[k]) for k in e_params)
+        check(same and np.isfinite(e_loss).all(),
+              f"SSD300 training: the captured fit is not the eager fit's "
+              f"bits (losses {e_loss} / {k_loss})")
+        out["train"] = {"losses": e_loss, "bits_equal": same,
+                        "eager_samples_per_s": n / e_s,
+                        "captured_samples_per_s": n / k_s}
+        reset()
+        m = MeanAveragePrecision(num_classes=SSD_CLASSES)
+        m.update(captured.detect(tx, batch_size=SSD_TRAIN_BATCH), tgt)
+        mean_ap, _ = m.result()
+        got = read("ssd300_evaluate")
+        check(0.0 <= mean_ap <= 1.0 and got["n1"] == n // SSD_TRAIN_BATCH,
+              f"SSD300 mAP {mean_ap}, launches {got}")
+        out["train"]["map"] = mean_ap
+        del captured
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    print(f"object detection {json.dumps(out)}")
+    return out
+
+
+def nms_kernel_row(det_out):
+    """N1's row of the kernels line: at SSD300's batch-32 decode (32 x 21
+    rows of 400 boxes), its launches on every detection path."""
+    n1 = det_out["n1"]
+    launches = {path: got["n1"] for path, got in det_out["launches"].items()
+                if got["n1"]}
+    return {"name": "nms_keep_mask", "route": "cuda",
+            "source": "analytics_zoo_tpu_torch/csrc/nms.cu",
+            "replaces": "analytics_zoo_tpu/models/image/objectdetection/"
+                        "bbox.py:70 (nms_mask: an XLA fori_loop under two "
+                        "vmaps, no Pallas kernel)",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": 0 if n1["bit_equal"] else None,
+            "ms": n1["ms"], "device_ms": n1["device_ms"],
+            "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
+            "bound_by": n1["bound_by"], "library_ms": None,
+            "library_by": "none: PyTorch has no NMS call (torchvision's "
+                          "batched_nms is another package)",
+            "rows": n1["rows"], "k": n1["k"]}
+
+
 #: phases ``--only`` runs alone (after the build), for a short call that
 #: checks one of them; the contract's run takes no arguments and runs all
-ONLY_PHASES = ("sentinel", "mesh")
+ONLY_PHASES = ("sentinel", "mesh", "object_detection", "c8_kernel")
 
 
 def main(argv=()) -> int:
@@ -8826,6 +9309,7 @@ def main(argv=()) -> int:
     sys.path.insert(0, REPO)
     from analytics_zoo_tpu_torch.ops.cuda_build import build_all
     from analytics_zoo_tpu_torch.ops.guard import LIBRARY as LIBRARY_GUARD
+    from analytics_zoo_tpu_torch.ops.nms import LIBRARY as LIBRARY_NMS
     from analytics_zoo_tpu_torch.ops.pallas.cross_entropy import \
         LIBRARY as LIBRARY_CE
     from analytics_zoo_tpu_torch.ops.pallas.embedding import \
@@ -8846,9 +9330,10 @@ def main(argv=()) -> int:
 
     t0 = time.perf_counter()
     build_all([LIBRARY, LIBRARY_BWD, LIBRARY_CE, LIBRARY_EMB, LIBRARY_Q,
-               LIBRARY_CONV, LIBRARY_GUARD])
+               LIBRARY_CONV, LIBRARY_GUARD, LIBRARY_NMS])
     print(f"build: flash_attention_fwd, flash_attention_bwd, "
-          f"fused_cross_entropy, embedding, quantized, conv_int8, guard in "
+          f"fused_cross_entropy, embedding, quantized, conv_int8, guard, "
+          f"nms in "
           f"{time.perf_counter() - t0:.1f}s (nvcc sm_90a, in parallel)")
 
     if only:
@@ -8931,6 +9416,7 @@ def main(argv=()) -> int:
     text = text_classifier_phase()
     recurrent = recurrent_models_phase()
     conv3d = conv3d_phase()
+    detection = object_detection_phase()
     sentinel, guard_rows = sentinel_phase()
     mesh = mesh_phase()
     rows = embed_kernel_rows(
@@ -8963,15 +9449,23 @@ def main(argv=()) -> int:
         "vgg16_static_b32": image_int8["launches_b32"]["q8"],
         "vgg16_static_b1": image_int8["launches_b1"]["q8"],
         "text_classifier_static": text["launches"]["q8"]}))
+    # slice 23: SSD300's static detects (35 convs a forward)
+    ssd_paths = [p for p in detection["c8_routes"]
+                 if p.startswith("ssd300_static_b")]
     rows.append(c8_kernel_row(c8_rows, {
         "vgg16_static_b32": image_int8["launches_b32"]["c8"],
-        "vgg16_static_b1": image_int8["launches_b1"]["c8"]}))
+        "vgg16_static_b1": image_int8["launches_b1"]["c8"],
+        **{p: detection["c8_routes"][p]["c8"] for p in ssd_paths}}))
     # slice 20: C8's quantize pass (in the predicts) and weight repack (at
     # the static install)
     rows += c8_pass_rows(c8_rows, {
         "vgg16_static_b32": image_int8["c8_routes_b32"]["c8_quantize"],
-        "vgg16_static_b1": image_int8["c8_routes_b1"]["c8_quantize"]}, {
-        "vgg16_static_install": image_int8["repack_launches_install"]})
+        "vgg16_static_b1": image_int8["c8_routes_b1"]["c8_quantize"],
+        **{p: detection["c8_routes"][p]["c8_quantize"]
+           for p in ssd_paths}}, {
+        "vgg16_static_install": image_int8["repack_launches_install"],
+        "ssd300_static_install": detection["repack_launches_install"]})
+    rows.append(nms_kernel_row(detection))
     # slice 22: G1 and G2, the guarded step's kernels; the kernels'
     # launches on each rank of each mesh case
     rows += guard_rows
@@ -9001,7 +9495,8 @@ def main(argv=()) -> int:
                       "resnet_serving": resnet_serving,
                       "resnet_training": resnet_training,
                       "text_classifier": text, "recurrent": recurrent,
-                      "conv3d": conv3d, "sentinel": sentinel,
+                      "conv3d": conv3d, "object_detection": detection,
+                      "sentinel": sentinel,
                       "mesh": mesh,
                       "reliability": reliability, "card": card}))
     idle = [r["name"] for r in rows if not r["launches"]]

@@ -2393,3 +2393,107 @@ def test_guard_check_keep_copies_the_state_for_a_bad_step_only(cuda):
         assert bool(flag) == bad
         for c, t in zip(copies, state):
             assert torch.equal(c, t if bad else torch.zeros_like(t))
+
+
+# ---------------------------------------------------------------------------
+# N1, the batched NMS keep-mask, and SSD's detection path
+# ---------------------------------------------------------------------------
+
+def _nms_rows(rows, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(rows, k, 2, generator=g) * 0.7
+    wh = torch.rand(rows, k, 2, generator=g) * 0.3 + 0.01
+    boxes = torch.cat([xy, xy + wh], -1)
+    if k >= 5:
+        # an IoU of 0.5 exactly (kept at 0.5), and a duplicate (dropped)
+        boxes[0, :5] = torch.tensor([[0.0, 0.0, 0.5, 1.0],
+                                     [0.0, 0.0, 1.0, 1.0],
+                                     [0.9, 0.0, 1.0, 0.05],
+                                     [0.25, 0.25, 0.75, 0.75],
+                                     [0.25, 0.25, 0.75, 0.75]])
+    return boxes.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,threshold", [
+    (672, 400, 0.45), (21, 400, 0.5), (3, 37, 0.3), (5, 1, 0.45),
+    (2, 1024, 0.5), (7, 700, 0.45)])
+def test_n1_is_its_plain_version_bit_for_bit(cuda, rows, k, threshold):
+    """N1 against the torch loop on the card, one launch for every row;
+    at K = 700 and 1024 its shared memory is above the default 48 KB."""
+    from analytics_zoo_tpu_torch.ops.nms import (KERNEL_NMS, nms_keep_mask,
+                                                 nms_keep_mask_reference)
+    boxes = _nms_rows(rows, k, seed=rows + k)
+    before = KERNEL_NMS.launches
+    got = nms_keep_mask(boxes, threshold)
+    torch.cuda.synchronize()
+    assert KERNEL_NMS.launches == before + 1
+    assert torch.equal(got, nms_keep_mask_reference(boxes, threshold))
+    if k >= 5 and threshold == 0.5:
+        assert got[0, 1] and got[0, 3] and not got[0, 4]
+    # batched leading dimensions are rows too
+    assert torch.equal(nms_keep_mask(boxes.view(1, rows, k, 4), threshold),
+                       got.view(1, rows, k))
+
+
+@pytest.mark.cuda
+def test_n1_refuses_what_it_does_not_take(cuda):
+    from analytics_zoo_tpu_torch.ops.nms import NMS_MAX_K, nms_keep_mask
+    with pytest.raises(ValueError):
+        nms_keep_mask(torch.zeros(2, NMS_MAX_K + 1, 4, device="cuda"))
+    assert nms_keep_mask(torch.zeros(0, 3, 4, device="cuda")).shape == (0, 3)
+
+
+@pytest.mark.cuda
+def test_ssd_lite_detect_runs_n1_and_matches_the_cpu(cuda):
+    """``ssd-lite``'s detect on the card (one N1 launch a batch) against
+    the same detector on the CPU (N1's plain version): the same labels
+    wherever the scores are apart, boxes within 1e-4."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    from analytics_zoo_tpu_torch.ops.nms import KERNEL_NMS
+    init_zoo_context()
+    cpu = ObjectDetector("ssd-lite", num_classes=3, resolution=64,
+                         device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    gpu = ObjectDetector("ssd-lite", num_classes=3, resolution=64,
+                         device="cuda")
+    gpu.init_weights(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(0).normal(size=(4, 64, 64, 3)).astype(
+        np.float32)
+    before = KERNEL_NMS.launches
+    got = gpu.detect(x, batch_size=2, conf_thresh=0.2)
+    assert KERNEL_NMS.launches == before + 2
+    want = cpu.detect(x, batch_size=2, conf_thresh=0.2)
+    assert got.shape == want.shape == (4, 200, 6)
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_multibox_loss_captures_in_a_cuda_graph(cuda):
+    """MultiBoxLoss reads nothing back to the host: a fit of ``ssd-lite``
+    captured in CUDA graphs (``zoo.train.scan_steps``) gives the eager
+    fit's step losses bit for bit."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import \
+        ObjectDetector
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.default_rng(1)
+        x = rng.normal(size=(32, 64, 64, 3)).astype(np.float32)
+        gt = np.full((32, 2, 5), -1.0, np.float32)
+        gt[:, 0] = [1, 0.2, 0.2, 0.6, 0.7]
+        losses = []
+        for conf in ({}, {"zoo.train.scan_steps": 4}):
+            reset_zoo_context()
+            init_zoo_context(conf=conf)
+            det = ObjectDetector("ssd-lite", num_classes=2, resolution=64,
+                                 device="cuda")
+            det.init_weights(torch.Generator().manual_seed(0))
+            det.compile(optimizer="adam", loss=det.multibox_loss(), lr=1e-3)
+            det.fit(x, gt, batch_size=8, nb_epoch=2, shuffle=False)
+            losses.append(np.concatenate(det._loop.step_losses))
+        np.testing.assert_array_equal(losses[0], losses[1])
+    finally:
+        torch.backends.cudnn.deterministic = False
