@@ -549,6 +549,37 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// D(64 x N) += A B in exact int32 for the narrow N of Q8's rows (8, 16,
+// 32): A (64 x 32) int8 from registers (per warp the m16n8k32 layout: a[0]
+// row g, k 4t .. 4t + 3; a[1] row g + 8; a[2], a[3] the same rows at k +
+// 16), B (N x 32) int8 in shared memory, K-major (desc_s8); N / 2
+// accumulators a thread
+#define HOPPER_WGMMA_S8_RS(N, REGS, LIST, A, B, P, ...)                    \
+  __device__ __forceinline__ void wgmma_s8_rs(                            \
+      int (&d)[REGS], const uint32_t (&a)[4], uint64_t b) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                 "k32.s32.s8.s8 {" LIST "}, {" A "}, " B ", p;\n}\n"       \
+                 : __VA_ARGS__                                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                   "r"(1));                                              \
+  }
+HOPPER_WGMMA_S8_RS(8, 4, "%0, %1, %2, %3", "%4, %5, %6, %7", "%8", "%9",
+                   "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]))
+HOPPER_WGMMA_S8_RS(16, 8, "%0, %1, %2, %3, %4, %5, %6, %7",
+                   "%8, %9, %10, %11", "%12", "%13", "+r"(d[0]), "+r"(d[1]),
+                   "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+                   "+r"(d[6]), "+r"(d[7]))
+HOPPER_WGMMA_S8_RS(32, 16,
+                   "%0, %1, %2, %3, %4, %5, %6, %7, "
+                   "%8, %9, %10, %11, %12, %13, %14, %15",
+                   "%16, %17, %18, %19", "%20", "%21", "+r"(d[0]),
+                   "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+                   "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]),
+                   "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+                   "+r"(d[13]), "+r"(d[14]), "+r"(d[15]))
+#undef HOPPER_WGMMA_S8_RS
+
 // the lower column lands in the low half, as the fragments expect
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

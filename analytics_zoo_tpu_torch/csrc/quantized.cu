@@ -102,20 +102,26 @@
 //    K at a time through shared memory, each thread 4 x 4 outputs, plain
 //    FMAs on the CUDA cores (TF32 would round x to 10 mantissa bits, which
 //    the f32 contract does not allow).
-// Beside K6, Q8 (int8_static_skinny + int8_static_reduce): the static int8
-// dense layer for M <= 32, replacing no TPU kernel (the JAX package's
-// Dense.quantized_call leaves its int8 x int8 product to XLA's
-// dot_general; the port's had padded M to 17 for torch._int_mm and run
-// the quantize and the rescale, bias and ReLU as about ten torch ops a
-// layer). It fuses all of them: x is quantized by each block into shared
-// memory, the products run as __dp4a on the CUDA cores with the int8
-// weights transposed 4 x 4 bytes at a time by byte permutes on their way
-// out of the skinny route's ring, and the exact int32 sums are finished
-// as the static path finishes them. The bytes bound it (config A's M = 1,
-// K = N = 4096: 16.8 MB of int8, 0.0050 ms at 3.35 TB/s): at M <= 32 a
-// weight word feeds at most 128 dp4a, which the CUDA cores issue faster
-// than the ring delivers it, so the tensor cores' s8 mma (whose fragments
-// want the same transpose plus a shuffle between lanes) would buy nothing.
+// Beside K6, Q8: the static int8 dense layer for M <= 32, replacing no TPU
+// kernel (the JAX package's Dense.quantized_call leaves its int8 x int8
+// product to XLA's dot_general; the port's had padded M to 17 for
+// torch._int_mm and run the quantize and the rescale, bias and ReLU as
+// about ten torch ops a layer). It fuses all of them, on two routes that
+// the wrapper's static_plan picks by the work:
+//  * q8_dp4a (M < 5, or K % 16 != 0): int8_static_skinny quantizes x into
+//    shared memory in each block, runs the products as __dp4a on the CUDA
+//    cores with the int8 weights transposed 4 x 4 bytes at a time by byte
+//    permutes on their way out of the skinny route's ring, and
+//    int8_static_reduce adds the K slices. At one row the weight bytes
+//    bound it (config A's K = N = 4096: 16.8 MB, 0.0050 ms at 3.35 TB/s;
+//    it takes 0.0093 on the H100). Past a few rows the CUDA cores are the
+//    limit: a weight word feeds 4 M dp4a, and at M = 32 a thread's 128
+//    sums leave one block an SM (0.0377 ms, 7x the bound).
+//  * q8_wgmma_xq (below): the tensor cores' s8 products, from 5 rows
+//    (scripts/q8_routes.py on the H100 at K = N = 4096: dp4a 0.0098 ms at
+//    4 rows against 0.0109, 0.0118 at 5 against 0.0109, 0.0382 at 32
+//    against 0.0130).
+// Both finish the exact int32 sums as the static path finishes them.
 // No float atomics anywhere: every output (and every skinny partial sum)
 // is written once by one thread, its sum taken in a fixed order, so the
 // result is the same bits from run to run. Any M, K and N: edges are masked
@@ -791,16 +797,17 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// Q8: static int8, M <= 32 (Dense.quantized_call). out = act(float(sum_k
-// xq[m][k] w[k][n]) * (x_scale * w_scale[n]) + bias[n]) with xq =
-// clamp(rint(x / x_scale), -127, 127), f32 x and out. The skinny route's
-// grid, ring and split-K reduce: block (p, s) owns the 128 columns of panel
-// p and the rows of K slice s; it quantizes its slice of x into shared
-// memory (int8, [MT][ks + Q8_LDQ_PAD]) while the first weight stages are in
-// flight, then each warp takes 4-row groups of each stage: a lane loads its
-// 4 columns of 4 rows as four 32-bit words, transposes the 4 x 4 bytes so
-// that each word holds one column's 4 k values (q8_transpose4x4), and adds
-// them times x's 4 k values of each row with __dp4a (s8 x s8 -> s32). The
+// Q8's q8_dp4a route: static int8, M <= 32 (Dense.quantized_call). out =
+// act(float(sum_k xq[m][k] w[k][n]) * (x_scale * w_scale[n]) + bias[n])
+// with xq = clamp(rint(x / x_scale), -127, 127), f32 x and out. The skinny
+// route's grid, ring and split-K reduce: block (p, s) owns the 128 columns
+// of panel p and the rows of K slice s; it quantizes its slice of x into
+// shared memory (int8, [MT][ks + Q8_LDQ_PAD]) while the first weight
+// stages are in flight, then each warp takes 4-row groups of each stage: a
+// lane loads its 4 columns of 4 rows as four 32-bit words, transposes the
+// 4 x 4 bytes so that each word holds one column's 4 k values
+// (q8_transpose4x4), and adds them times x's 4 k values of each row with
+// __dp4a (s8 x s8 -> s32). The
 // warps' int32 sums meet in shared memory (integer atomics: exact, so any
 // order gives the same bits), then one K slice finishes the output itself
 // and more slices write int32 partials that int8_static_reduce, a PDL
@@ -983,6 +990,346 @@ __global__ void __launch_bounds__(256)
     for (int j = 0; j < 16; ++j) acc += v[j];
   }
   out[i] = q8_finish(acc, n, *x_scale, w_scale, bias, relu);
+}
+
+// ---------------------------------------------------------------------------
+// Q8's tensor-core route, q8_wgmma_xq (the wrapper's static_plan takes it
+// from STATIC_WGMMA_MIN_M rows, K % 16 == 0): the
+// product taken transposed, out^T = W^T xq^T, on wgmma.m64nMTk32.s32.s8.s8
+// with W^T the 64-row A operand in registers and x's quantized rows,
+// zero-padded to MT (8, 16 or 32), the B operand in shared memory.
+//  * A from registers. wgmma reads an s8 operand from shared memory only
+//    K-major, and W lies (K, N), N-major; a K-major copy would double the
+//    int8 weight bytes the card holds (config A's static model is held to
+//    0.3x its fp32 bytes). So each thread builds its A fragments from W's
+//    tile: one ldmatrix.x4.trans and four byte permutes a 32-deep k step
+//    (q8w_frag). Its two fragment rows are two adjacent columns, and its k
+//    positions take the k rows in the order the transpose hands them, the
+//    order x's bytes are written in too. (From 2-byte loads, 8 a k step,
+//    the fragments cost the GEMM half again its time at 32 x 4096 x 4096.)
+//  * The ring. A block owns 128 columns (two warpgroups of 64) and `per`
+//    K tiles of 128. Each of its Q8W_STAGES stages holds a tile's W, 128 k
+//    x 128 n in the 128-byte swizzle (chunk j of row k at j ^ (k % 8), so
+//    that ldmatrix's 8 rows fall on distinct banks): one TMA copy onto an
+//    mbarrier where N % 16 == 0, else 8- or 4-byte cp.async or, for a
+//    ragged N, byte loads into the same layout. Beside it, x's MT x 128
+//    bytes in the swizzle wgmma's descriptor names, by cp.async from the
+//    quantize pass's int8 xq: x divided once a call, the pass the GEMM's
+//    programmatic dependency. (Quantizing x in each block instead, one
+//    launch a call, was slower at every shape scripts/q8_routes.py timed
+//    on the H100, 0.0057 against 0.0050 ms at TextClassifier's 32 x 256
+//    x 128 and 0.0222 against 0.0130 at 32 x 4096 x 4096, and tied at
+//    32 x 128 x 20.)
+//  * The K split. One split writes the finished outputs. With more (at
+//    most 8; about one block an SM measured best), a column panel's splits
+//    are one thread-block cluster: each block leaves its int32 partial
+//    sums in its shared memory, and each adds its share of the panel's
+//    outputs from all of them (exact, so in any order) and finishes it. No
+//    workspace and no reduce kernel, against the 3.1 us int8_static_reduce
+//    took after the GEMM at 32 x 4096 x 4096.
+// ---------------------------------------------------------------------------
+
+constexpr int Q8W_BN = 128, Q8W_BK = 128, Q8W_STAGES = 4, Q8W_THREADS = 256;
+
+// 4 stages: 81 KB of shared memory at MT = 32 (two blocks an SM)
+template <int MT>
+struct Q8WTile {
+  static constexpr int W_BYTES = Q8W_BK * Q8W_BN;
+  static constexpr int X_BYTES = MT * Q8W_BK;
+  static constexpr int STAGE_BYTES = W_BYTES + X_BYTES;
+  static constexpr size_t SMEM =
+      1024 + (size_t)Q8W_STAGES * STAGE_BYTES + 8 * Q8W_STAGES;
+};
+
+// 16 quantized x values, k 0 .. 15 in the bytes of u[0..3], reordered for
+// the fragments' k positions: word t holds k 2t, 2t + 1, 8 + 2t, 9 + 2t
+__device__ __forceinline__ uint4 q8w_permute16(const uint32_t (&u)[4]) {
+  return make_uint4(__byte_perm(u[0], u[2], 0x5410),
+                    __byte_perm(u[0], u[2], 0x7632),
+                    __byte_perm(u[1], u[3], 0x5410),
+                    __byte_perm(u[1], u[3], 0x7632));
+}
+
+// the K split's partial sums in shared memory: rows of 128 columns padded
+// by 4 ints (the fragment pairs of a warp's 4 rows on other banks)
+constexpr int Q8W_RED_LD = Q8W_BN + 4;
+// the most K splits a panel takes: one portable cluster
+constexpr int Q8W_MAX_SPLITS = 8;
+
+// all threads of the cluster's blocks meet (shared-memory writes before,
+// reads across the cluster after)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the int at this block's shared address `local` in the cluster's block
+// `rank`
+__device__ __forceinline__ int ld_cluster(uint32_t local, int rank) {
+  uint32_t remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// the quantize pass: xq (M, K) int8 <- x (M, K) f32, 16 values a thread,
+// each 16 in the fragments' k order (q8w_permute16), K % 16 == 0; the
+// GEMM, its programmatic dependent, may launch at once
+__global__ void __launch_bounds__(256)
+    int8_static_quantize(const float* __restrict__ x,
+                         const float* __restrict__ x_scale,
+                         int8_t* __restrict__ xq, long long chunks, int xvec) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const float xs = *x_scale;
+  for (long long c = (long long)blockIdx.x * 256 + threadIdx.x; c < chunks;
+       c += (long long)gridDim.x * 256) {
+    const float* p = x + 16 * c;
+    uint32_t u[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 v = xvec ? __ldcs(reinterpret_cast<const float4*>(p) + e)
+                            : make_float4(p[4 * e], p[4 * e + 1],
+                                          p[4 * e + 2], p[4 * e + 3]);
+      u[e] = q8_quantize(v.x, xs) | q8_quantize(v.y, xs) << 8 |
+             q8_quantize(v.z, xs) << 16 | q8_quantize(v.w, xs) << 24;
+    }
+    reinterpret_cast<uint4*>(xq)[c] = q8w_permute16(u);
+  }
+}
+
+// B bytes (4 or 8) from global to shared memory, asynchronously through
+// L1; zeros where src_bytes is 0
+template <int B>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(B), "r"(src_bytes)
+               : "memory");
+}
+
+// rows k0 .. k0 + 127 of W's columns n0 .. n0 + 127 into a stage (zeros
+// past K and N) where TMA cannot copy them (N % 16 != 0), a 16-byte chunk
+// at a time: cp.async of `vec` bytes (8 or 4: what N's multiples and w's
+// alignment allow), plain byte loads for a ragged N
+__device__ __forceinline__ void q8w_load_w(unsigned char* stage,
+                                           const int8_t* __restrict__ w,
+                                           int k0, int K, int n0, int N,
+                                           int vec, int tid) {
+#pragma unroll
+  for (int i = 0; i < Q8W_BK * Q8W_BN / 16 / Q8W_THREADS; ++i) {
+    const int chunk = tid + i * Q8W_THREADS;
+    const int r = chunk >> 3, j = chunk & 7;
+    const int k = k0 + r, n = n0 + 16 * j;
+    unsigned char* dst = stage + r * 128 + ((j ^ (r & 7)) << 4);
+    const int8_t* src = w + (size_t)k * N + n;
+    if (vec == 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool ok = k < K && n + 8 * h < N;
+        cp_async_ca<8>(smem_u32(dst + 8 * h), ok ? src + 8 * h : w,
+                       ok ? 8 : 0);
+      }
+    } else if (vec == 4) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const bool ok = k < K && n + 4 * h < N;
+        cp_async_ca<4>(smem_u32(dst + 4 * h), ok ? src + 4 * h : w,
+                       ok ? 4 : 0);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(dst) = k < K ? load16(w, k, n, N, 0) : uint4{};
+    }
+  }
+}
+
+// the quantize pass's xq rows 0 .. MT - 1 (zeros from M) at k0 .. k0 + 127
+// (zeros from K) into a stage's x tile by cp.async, row r's 16-byte chunk
+// j at chunk j ^ (r % 8) (the 128-byte swizzle)
+template <int MT>
+__device__ __forceinline__ void q8w_load_x(unsigned char* dst,
+                                           const int8_t* __restrict__ xq,
+                                           int M, int K, int k0, int tid) {
+  for (int idx = tid; idx < MT * 8; idx += Q8W_THREADS) {
+    const int r = idx >> 3, j = idx & 7, k = k0 + 16 * j;
+    unsigned char* d = dst + r * 128 + ((j ^ (r & 7)) << 4);
+    const bool ok = r < M && k < K;  // K % 16 == 0: the chunk is inside
+    cp_async16(smem_u32(d), ok ? xq + (size_t)r * K + k : xq, ok ? 16 : 0);
+  }
+}
+
+// the A fragments of a 32-deep k step from a stage's W tile by one
+// ldmatrix.x4.trans: matrix i is rows (k) 8 i .. 8 i + 7 of the warp's 16
+// columns as 8 x 8 pairs of bytes (a 16-byte chunk a row, at chunk ^ (k %
+// 8): the 8 rows of a matrix fall on distinct banks); transposed, thread
+// (g, t) receives columns c and c + 1 (c = 2g) at k rows 8 i + 2t and 8 i
+// + 2t + 1. So this thread's fragment row g is column c and row g + 8 is
+// column c + 1, and its fragment k positions 4t .. 4t + 3 hold the k rows
+// 2t, 2t + 1, 8 + 2t, 9 + 2t (and 16 on for the second half): x's bytes
+// are laid out in that order too (q8w_permute16), so each product pairs
+// the same k.
+__device__ __forceinline__ void q8w_frag(uint32_t (&a)[4],
+                                         const unsigned char* wt, int chunk,
+                                         int kk, int lane) {
+  const int k = 32 * kk + lane;  // this lane's row address: matrix lane / 8
+  const uint32_t addr =
+      smem_u32(wt + k * 128 + ((chunk ^ (k & 7)) << 4));
+  uint32_t r[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+  a[0] = __byte_perm(r[0], r[1], 0x6420);  // column c, k positions 4t ..
+  a[1] = __byte_perm(r[0], r[1], 0x7531);  // column c + 1
+  a[2] = __byte_perm(r[2], r[3], 0x6420);  // the same at 16 + 4t ..
+  a[3] = __byte_perm(r[2], r[3], 0x7531);
+}
+
+// Block (x, y): columns 128 x .., K tiles per y .. per (y + 1) - 1.
+// Warpgroup wg multiplies columns 64 wg .. 64 wg + 63 of the tile.
+template <int MT>
+__global__ void __launch_bounds__(Q8W_THREADS)
+    int8_static_wgmma(const __grid_constant__ CUtensorMap tm_w,
+                      const int8_t* __restrict__ xq,
+                      const float* __restrict__ x_scale,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ w_scale,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      int M, int K, int N, int per, int vec, int relu) {
+  typedef Q8WTile<MT> T;
+  constexpr int S = Q8W_STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  auto w_tile = [&](int i) { return base + (i % S) * T::STAGE_BYTES; };
+  // a stage's W landed (one TMA copy a stage, 16 KB, where vec == 16)
+  const uint32_t full = smem_u32(base + S * T::STAGE_BYTES);
+  const bool w_tma = vec == 16;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  const int n0 = blockIdx.x * Q8W_BN, kt0 = blockIdx.y * per;
+  const int nk = min((K + Q8W_BK - 1) / Q8W_BK, kt0 + per) - kt0;
+  const float xs = *x_scale;
+  // this thread's fragment columns col, col + 1 (in its warp's chunk)
+  const int col = 64 * wg + 16 * (warp & 3) + 2 * g;
+  const int chunk = col >> 4;
+  if (w_tma && tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) mbar_init(full + 8 * s);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  auto load_w = [&](int i) {
+    if (w_tma) {  // the swizzle TMA writes is q8w_load_w's layout
+      const uint32_t bar = full + 8 * (i % S);
+      mbar_expect_if(tid == 0, bar, T::W_BYTES);
+      tma_2d_if(tid == 0, smem_u32(w_tile(i)), &tm_w, bar, n0,
+                (kt0 + i) * Q8W_BK);
+    } else {
+      q8w_load_w(w_tile(i), w, (kt0 + i) * Q8W_BK, K, n0, N, vec, tid);
+    }
+  };
+  auto load_x = [&](int i) {
+    q8w_load_x<MT>(w_tile(i) + T::W_BYTES, xq, M, K, (kt0 + i) * Q8W_BK, tid);
+  };
+
+  // W's first tiles need nothing from an earlier kernel (the first copy
+  // group takes them all); xq is the quantize pass's, written once that
+  // grid is done
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i)
+    if (i < nk) load_w(i);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nk) load_x(i);
+    cp_async_commit();
+  }
+  int acc[MT / 2];
+#pragma unroll
+  for (int i = 0; i < MT / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<S - 2>();  // this thread's copies of K tile i landed
+    fence_proxy_async();     // ... its x seen by wgmma
+    __syncthreads();         // everyone's; and K tile i - 1 multiplied
+    if (i + S - 1 < nk) {  // into K tile i - 1's stage
+      load_w(i + S - 1);
+      load_x(i + S - 1);
+    }
+    cp_async_commit();
+    if (w_tma) mbar_wait(full + 8 * (i % S), (i / S) & 1);
+    const unsigned char* wt = w_tile(i);
+    const uint32_t xt = smem_u32(wt + T::W_BYTES);
+    uint32_t a[Q8W_BK / 32][4];
+#pragma unroll
+    for (int kk = 0; kk < Q8W_BK / 32; ++kk)
+      q8w_frag(a[kk], wt, chunk, kk, lane);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Q8W_BK / 32; ++kk)
+      wgmma_s8_rs(acc, a[kk], desc_s8(xt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // register 4 j + e: column n0 + col + (e >> 1), row 8 j + 2 t + (e & 1)
+  // (the accumulator layout in hopper.cuh, rows g and g + 8 being columns
+  // col and col + 1)
+  if (gridDim.y == 1) {
+#pragma unroll
+    for (int j = 0; j < MT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + col + (e >> 1), m = 8 * j + 2 * t + (e & 1);
+        if (m < M && n < N)
+          out[(size_t)m * N + n] =
+              q8_finish(acc[4 * j + e], n, xs, w_scale, bias, relu);
+      }
+    return;
+  }
+  // K split: a column panel's splits are one cluster (1, splits, 1). Each
+  // block leaves its partial sums in its shared memory (the ring is done
+  // with), then block r of the cluster adds every block's sums of its r-th
+  // share of the tile's outputs, reading them across the cluster, and
+  // finishes them: no workspace, no second kernel
+  __syncthreads();
+  int* red = reinterpret_cast<int*>(base);  // [MT][Q8W_RED_LD]
+#pragma unroll
+  for (int j = 0; j < MT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(8 * j + 2 * t + (e & 1)) * Q8W_RED_LD + col + (e >> 1)] =
+          acc[4 * j + e];
+  cluster_sync();
+  const int splits = gridDim.y, rank = (int)cluster_rank();
+  const int share = (MT * Q8W_BN + splits - 1) / splits;
+  const int end = min(MT * Q8W_BN, (rank + 1) * share);
+  for (int idx = rank * share + tid; idx < end; idx += Q8W_THREADS) {
+    const int m = idx / Q8W_BN, nl = idx - m * Q8W_BN, n = n0 + nl;
+    if (m >= M || n >= N) continue;
+    const uint32_t local = smem_u32(red + m * Q8W_RED_LD + nl);
+    int v[Q8W_MAX_SPLITS];  // every block's sum in flight at once
+#pragma unroll
+    for (int r = 0; r < Q8W_MAX_SPLITS; ++r)
+      v[r] = r < splits ? ld_cluster(local, r) : 0;
+    int sum = 0;
+#pragma unroll
+    for (int r = 0; r < Q8W_MAX_SPLITS; ++r) sum += v[r];
+    out[(size_t)m * N + n] = q8_finish(sum, n, xs, w_scale, bias, relu);
+  }
+  cluster_sync();  // no block leaves while the others read its sums
 }
 
 // ---------------------------------------------------------------------------
@@ -1567,18 +1914,6 @@ cudaError_t launch_skinny(const T* x, const int8_t* w, const float* s,
                             (int)PRE, relu);
 }
 
-// Q8's K slicing, as skinny_k_slice's: one wave of the blocks `sms` SMs
-// hold at once (q8_min_blocks of the instance M takes)
-int q8_k_slice(int M, int K, int N, int sms) {
-  const int per_sm = M <= 8    ? q8_min_blocks<8>()
-                     : M <= 16 ? q8_min_blocks<16>()
-                               : q8_min_blocks<32>();
-  const int slices =
-      std::max({per_sm * sms / cdiv(N, S_BN), cdiv(K, S_KS_MAX), 1});
-  return std::min(std::max(cdiv(cdiv(K, slices), S_BK) * S_BK, S_BK),
-                  S_KS_MAX);
-}
-
 // the ring and the quantized K slice of x (the warps' sums reuse the ring:
 // MT x S_BN int32 fit it); at most 44,544 bytes, under the 48 KB default
 template <int MT>
@@ -1598,35 +1933,11 @@ cudaError_t launch_q8_mt(const float* x, const float* xs, const int8_t* w,
   return cudaGetLastError();
 }
 
-// Q8 for M <= 32 on the current device: q8_k_slice's rows of K a block,
-// cdiv(K, ks) slices (into *splits); with more than one, `ws` (ws_ints
-// long, at least skinny_workspace's) takes [slices][M][panels x S_BN]
-// int32 partial sums and int8_static_reduce adds them
-cudaError_t launch_q8(const float* x, const float* xs, const int8_t* w,
-                      const float* s, const float* bias, int relu, float* out,
-                      int* ws, long long ws_ints, int M, int K, int N,
-                      cudaStream_t stream, int* splits) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = sm_count(dev, &sms);
-  if (err != cudaSuccess) return err;
-  const int ks = q8_k_slice(M, K, N, sms);
-  const int slices = skinny_slices(K, ks);
-  if (slices > 1 &&
-      (ws == nullptr || ws_ints < skinny_workspace(M, K, N, ks)))
-    return cudaErrorInvalidValue;
-  *splits = slices;
-  const dim3 grid(cdiv(N, S_BN), slices);
-  const int vec = N % 16 == 0 && aligned(w, 16);
-  const int xvec = K % 4 == 0 && aligned(x, 16);
-#define Q8(MT)                                                           \
-  launch_q8_mt<MT>(x, xs, w, s, bias, relu, out, ws, M, K, N, ks, vec, xvec, \
-                   grid, stream)
-  // rows padded to MT: 1, 4, 8, 16, 32
-  if (M <= 4) err = M == 1 ? Q8(1) : Q8(4);
-  else err = M <= 8 ? Q8(8) : M <= 16 ? Q8(16) : Q8(32);
-#undef Q8
-  if (err != cudaSuccess || slices == 1) return err;
+// int8_static_reduce over `slices` int32 partial sums [slices][M][np], as
+// the programmatic dependent of the kernel just launched
+cudaError_t launch_q8_reduce(const int* ws, const float* xs, const float* s,
+                             const float* bias, int relu, float* out, int M,
+                             int N, int np, int slices, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cdiv(M * N, 256));
   cfg.blockDim = dim3(256);
@@ -1636,9 +1947,126 @@ cudaError_t launch_q8(const float* x, const float* xs, const int8_t* w,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int8_static_reduce, (const int*)ws, xs, s,
-                            bias, out, M, N, (int)grid.x * S_BN, slices,
-                            relu);
+  return cudaLaunchKernelEx(&cfg, int8_static_reduce, ws, xs, s, bias, out,
+                            M, N, np, slices, relu);
+}
+
+// q8_dp4a: ks rows of K a block (a multiple of S_BK, at most S_KS_MAX),
+// cdiv(K, ks) slices; with more than one, `ws` (ws_ints long, at least
+// skinny_workspace's) takes [slices][M][panels x S_BN] int32 partial sums
+// and int8_static_reduce adds them
+cudaError_t launch_q8_dp4a(const float* x, const float* xs, const int8_t* w,
+                           const float* s, const float* bias, int relu,
+                           float* out, int* ws, long long ws_ints, int M,
+                           int K, int N, int ks, int splits,
+                           cudaStream_t stream) {
+  if (ks < S_BK || ks > S_KS_MAX || ks % S_BK != 0 ||
+      splits != skinny_slices(K, ks) ||
+      (splits > 1 &&
+       (ws == nullptr || ws_ints < skinny_workspace(M, K, N, ks))))
+    return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(N, S_BN), splits);
+  const int vec = N % 16 == 0 && aligned(w, 16);
+  const int xvec = K % 4 == 0 && aligned(x, 16);
+  cudaError_t err;
+#define Q8(MT)                                                           \
+  launch_q8_mt<MT>(x, xs, w, s, bias, relu, out, ws, M, K, N, ks, vec, xvec, \
+                   grid, stream)
+  // rows padded to MT: 1, 4, 8, 16, 32
+  if (M <= 4) err = M == 1 ? Q8(1) : Q8(4);
+  else err = M <= 8 ? Q8(8) : M <= 16 ? Q8(16) : Q8(32);
+#undef Q8
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_q8_reduce(ws, xs, s, bias, relu, out, M, N,
+                          (int)grid.x * S_BN, splits, stream);
+}
+
+template <int MT>
+cudaError_t launch_q8_wgmma_mt(const CUtensorMap& tm_w, const int8_t* xq,
+                               const float* xs, const int8_t* w,
+                               const float* s, const float* bias, int relu,
+                               float* out, int M, int K, int N, int per,
+                               int vec, dim3 grid, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  const size_t bytes = Q8WTile<MT>::SMEM;
+  cudaError_t err = allow_smem_once(int8_static_wgmma<MT>, bytes, done);
+  if (err != cudaSuccess) return err;
+  static_assert(32 * Q8W_RED_LD * 4 <= Q8WTile<8>::STAGE_BYTES * Q8W_STAGES,
+                "Q8's split sums outgrow the ring");
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(Q8W_THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  // a panel's K splits one cluster; behind the quantize pass, as its
+  // programmatic dependent
+  cudaLaunchAttribute attr[2];
+  int n_attr = 0;
+  if (grid.y > 1) {
+    attr[n_attr].id = cudaLaunchAttributeClusterDimension;
+    attr[n_attr].val.clusterDim.x = 1;
+    attr[n_attr].val.clusterDim.y = grid.y;
+    attr[n_attr].val.clusterDim.z = 1;
+    ++n_attr;
+  }
+  attr[n_attr].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[n_attr].val.programmaticStreamSerializationAllowed = 1;
+  ++n_attr;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_attr;
+  return cudaLaunchKernelEx(&cfg, int8_static_wgmma<MT>, tm_w, xq, xs, w, s,
+                            bias, out, M, K, N, per, vec, relu);
+}
+
+// host: W (K, N) int8 read as boxes of 128 columns x 128 k in the 128-byte
+// swizzle (zeros past K and N); needs N % 16 == 0 and 16-byte alignment
+bool encode_q8_w(CUtensorMap* map, const void* w, int K, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {(cuuint32_t)Q8W_BN, (cuuint32_t)Q8W_BK};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+// q8_wgmma_xq: the quantize pass, then `per` K tiles of 128 a block,
+// `splits` (at most Q8W_MAX_SPLITS) of them, reduced within a cluster; the
+// workspace holds the pass's xq (M, K) int8
+cudaError_t launch_q8_wgmma(const float* x, const float* xs, const int8_t* w,
+                            const float* s, const float* bias, int relu,
+                            float* out, int* ws, long long ws_ints, int M,
+                            int K, int N, int per, int splits,
+                            cudaStream_t stream) {
+  const int steps = cdiv(K, Q8W_BK);
+  if (K <= 0 || K % 16 != 0 || per < 1 || splits < 1 ||
+      splits > Q8W_MAX_SPLITS || (long long)(splits - 1) * per >= steps ||
+      (long long)splits * per < steps || ws == nullptr ||
+      ws_ints < (long long)M * K / 4)
+    return cudaErrorInvalidValue;
+  int8_t* xq = reinterpret_cast<int8_t*>(ws);
+  const int mt = M <= 8 ? 8 : M <= 16 ? 16 : 32;
+  // W's copies: TMA (N % 16 == 0), else cp.async of 8 or 4 bytes, else
+  // byte loads
+  const int vec = N % 16 == 0 && aligned(w, 16) ? 16
+                  : N % 8 == 0 && aligned(w, 8) ? 8
+                  : N % 4 == 0 && aligned(w, 4) ? 4 : 1;
+  const int xvec = aligned(x, 16);
+  CUtensorMap tm_w = {};  // read only where vec == 16
+  if (vec == 16 && !encode_q8_w(&tm_w, w, K, N))
+    return cudaErrorInvalidValue;
+  const long long chunks = (long long)M * K / 16;
+  int8_static_quantize<<<(unsigned)std::min<long long>(
+                             cdiv((int)chunks, 256), 1024),
+                         256, 0, stream>>>(x, xs, xq, chunks, xvec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(N, Q8W_BN), splits);
+#define Q8W(MT)                                                          \
+  launch_q8_wgmma_mt<MT>(tm_w, xq, xs, w, s, bias, relu, out, M, K, N, per, \
+                         vec, grid, stream)
+  err = mt == 8 ? Q8W(8) : mt == 16 ? Q8W(16) : Q8W(32);
+#undef Q8W
+  return err;
 }
 
 // the kernel each shape takes (reported to the caller)
@@ -1747,42 +2175,41 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* scales,
                                    out, M, K, N, dtype, s, info));
 }
 
-// Q8's plan for x (M, K) f32 times w (K, N) int8 on CUDA device `device`:
-// *workspace_ints receives the int32 workspace int8_static_matmul then
-// needs (0 for one K slice). Returns 0, or -1 when M is not in 1..32 or
-// the device cannot be read.
-extern "C" int int8_static_plan(int M, int K, int N, int device,
-                                long long* workspace_ints) {
-  *workspace_ints = 0;
-  if (M < 1 || M > SKINNY_MAX_M) return -1;
-  int sms = 0;
-  if (sm_count(device, &sms) != cudaSuccess) return -1;
-  *workspace_ints = skinny_workspace(M, K, N, q8_k_slice(M, K, N, sms));
-  return 0;
-}
-
 // Q8, the static int8 dense layer for 1 <= M <= 32: x (M, K) f32,
 // x_scale one f32 on the device (read there, so a captured graph replays
 // whatever the buffer holds), w (K, N) int8, w_scale (N,) f32, bias (N,)
 // f32 or null, relu 0 or 1, out (M, N) f32; all contiguous. out =
 // relu(float(sum_k clamp(rint(x / x_scale), -127, 127) w) * (x_scale *
-// w_scale) + bias), the static path's arithmetic bit for bit. With more
-// than one K slice it needs `workspace`, workspace_ints int32 long
-// (int8_static_plan's size). *splits receives the K slices it ran.
-// Returns the launch's cudaError_t; the kernels run on `stream` and the
+// w_scale) + bias), the static path's arithmetic bit for bit. `route` and
+// its K split come from the wrapper's plan: 0 q8_dp4a, `per` rows of K a
+// block (a multiple of 64, at most 512) and splits = cdiv(K, per); 1
+// q8_wgmma_xq (K % 16 == 0), `per` K tiles of 128 a block in `splits`
+// splits. `workspace`, workspace_ints int32 long, takes route 0's splits'
+// partial sums and route 1's quantized x (the wrapper sizes it).
+// Returns the launches' cudaError_t; the kernels run on `stream` and the
 // call does not synchronise.
 extern "C" int int8_static_matmul(const void* x, const void* x_scale,
                                   const void* w, const void* w_scale,
-                                  const void* bias, int relu, void* workspace,
-                                  long long workspace_ints, void* out, int M,
-                                  int K, int N, int* splits, void* stream) {
-  *splits = 0;
-  if (M < 1 || M > SKINNY_MAX_M || N <= 0 || K < 0)
+                                  const void* bias, int relu,
+                                  void* workspace, long long workspace_ints,
+                                  void* out, int M, int K, int N, int route,
+                                  int splits, int per, void* stream) {
+  if (M < 1 || M > SKINNY_MAX_M || N <= 0 || K < 0 ||
+      (long long)M * N >= (1LL << 31) || (long long)M * K >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_q8(
-      static_cast<const float*>(x), static_cast<const float*>(x_scale),
-      static_cast<const int8_t*>(w), static_cast<const float*>(w_scale),
-      static_cast<const float*>(bias), relu, static_cast<float*>(out),
-      static_cast<int*>(workspace), workspace_ints, M, K, N,
-      static_cast<cudaStream_t>(stream), splits);
+  const float* xf = static_cast<const float*>(x);
+  const float* xs = static_cast<const float*>(x_scale);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  const float* s = static_cast<const float*>(w_scale);
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  int* ws = static_cast<int*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 0)
+    return (int)launch_q8_dp4a(xf, xs, wq, s, b, relu, o, ws, workspace_ints,
+                               M, K, N, per, splits, st);
+  if (route == 1)
+    return (int)launch_q8_wgmma(xf, xs, wq, s, b, relu, o, ws,
+                                workspace_ints, M, K, N, per, splits, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,12 +4,16 @@ It has no Pallas counterpart: the JAX package's ``nms_mask``
 (``models/image/objectdetection/bbox.py``) is an XLA ``fori_loop`` over
 the IoU matrix, run under a ``vmap`` over the images and one over the
 classes. As torch ops that loop is some five launches a step, K steps a
-call; N1 takes every (image, class) row in one launch, a block a row.
+call; N1 takes every (image, class) row in one launch, a block a row: the
+upper triangle's ``iou > threshold`` bits as 32 x 32 tiles, decided by
+the sign of two FMAs wherever that is exact (the division only within an
+ulp of the threshold), then a greedy scan a word of 32 boxes at a time.
 
 :func:`nms_keep_mask` launches N1 on a CUDA tensor (or raises) and runs
 its plain version, :func:`nms_keep_mask_reference` (the loop in torch
 ops, the JAX order), on a CPU tensor. The kernel gives the plain
-version's bits: its IoU rounds each operation as the torch ops do.
+version's bits for finite boxes: its IoU rounds each operation as the
+torch ops do, and its division-free test gives the division's answer.
 """
 
 from __future__ import annotations

@@ -43,18 +43,23 @@ tiling and the Pallas interpreter; they are not carried over (the CUDA
 kernels pick their own tiles and take any M, K and N).
 
 Beside K6, :func:`static_int8_dense` (kernel Q8) is the static int8 dense
-layer at most 32 rows deep, ``Dense.quantized_call``'s whole arithmetic in
-one kernel and its split-K reduce: ``x`` quantized to the calibrated
-``x_scale`` (an IEEE division, round half to even, clipped to +-127), the
-int8 x int8 product exact in int32, one f32 rescale by ``x_scale *
-w_scale``, the f32 bias and the ReLU. It replaces no TPU kernel: the JAX
-package leaves that product to XLA's ``dot_general``.
+layer at most 32 rows deep, ``Dense.quantized_call``'s whole arithmetic:
+``x`` quantized to the calibrated ``x_scale`` (an IEEE division, round
+half to even, clipped to +-127), the int8 x int8 product exact in int32,
+one f32 rescale by ``x_scale * w_scale``, the f32 bias and the ReLU. It
+replaces no TPU kernel: the JAX package leaves that product to XLA's
+``dot_general``. :func:`static_plan` picks its route by the work:
+``q8_dp4a`` (``__dp4a`` on the CUDA cores, x quantized in each block,
+split-K reduce) below :data:`STATIC_WGMMA_MIN_M` rows, where the weight
+bytes bound the layer; from there ``q8_wgmma_xq``, a quantize pass (x
+divided once a call) and the ``wgmma`` s8 product on the tensor cores.
+Both routes read ``w_q`` as it lies, (K, N).
 :func:`static_int8_dense_reference` is its plain version, the static
 path's torch ops, with the int8 product on :func:`int8_product` (the
 padded ``torch._int_mm``), which ``quantized_call`` keeps for more than 32
 rows. ``x_scale`` stays on the device: the kernel reads it there, so a
 captured graph bakes no host value. :data:`KERNEL_INT8_STATIC` counts Q8's
-launches.
+calls, :data:`KERNEL_INT8_STATIC_ROUTES` each route's.
 
 :func:`static_int8_conv2d` (kernel C8, ``csrc/conv_int8.cu``, its own
 library :data:`LIBRARY_CONV`) is the conv counterpart of Q8: the static
@@ -94,7 +99,8 @@ __all__ = ["conv_plan", "int8_matmul", "int8_matmul_reference",
            "int8_product", "repack_conv_weight",
            "repack_conv_weight_reference", "static_int8_conv2d",
            "static_int8_conv2d_reference", "static_int8_dense",
-           "static_int8_dense_reference", "static_int8_quantize"]
+           "static_int8_dense_reference", "static_int8_quantize",
+           "static_plan", "static_takes_wgmma", "static_workspace"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,10 +113,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.int8_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ll)]
     lib.int8_matmul_plan.restype = ctypes.c_int
     lib.int8_static_matmul.argtypes = [p, p, p, p, p, i, p, ll, p, i, i, i,
-                                       ctypes.POINTER(i), p]
+                                       i, i, i, p]
     lib.int8_static_matmul.restype = ctypes.c_int
-    lib.int8_static_plan.argtypes = [i, i, i, i, ctypes.POINTER(ll)]
-    lib.int8_static_plan.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("quantized", ["quantized.cu"], _bind)
@@ -119,9 +123,12 @@ KERNEL_INT8_MATMUL = _LaunchCount()   # K6, every route
 #: the kernel the C entry point took, by the code it reports
 ROUTES = ("wgmma", "mma", "skinny", "fma")
 KERNEL_INT8_ROUTES = {name: _LaunchCount() for name in ROUTES}
-KERNEL_INT8_STATIC = _LaunchCount()   # Q8
+KERNEL_INT8_STATIC = _LaunchCount()   # Q8, every route
 #: the most rows Q8 takes (K6's skinny bound)
 STATIC_MAX_M = 32
+#: Q8's routes: the name the wrapper records, the code the C side takes
+STATIC_ROUTES = {"q8_dp4a": 0, "q8_wgmma_xq": 1}
+KERNEL_INT8_STATIC_ROUTES = {name: _LaunchCount() for name in STATIC_ROUTES}
 
 
 class _Launched:
@@ -317,20 +324,83 @@ def _check_static(x, x_scale, w_q, w_scale, bias) -> None:
                          "devices")
 
 
+#: the fewest rows the tensor-core routes take: below, the weight bytes
+#: bound the product and ``__dp4a`` streams them as fast
+STATIC_WGMMA_MIN_M = 5
+#: q8_dp4a: 128 columns a block, K slices of 64-row steps, at most 512
+#: rows; 4, 2 or 1 blocks an SM by the rows' padding (8, 16, 32)
+DP4A_TILE_N, DP4A_STEP, DP4A_MAX_SLICE = 128, 64, 512
+#: q8_wgmma_xq: 128 columns a block, 128 k a step; K split for about one
+#: block an SM (on the H100 better at 32 x 4096 x 4096, fc6 and fc8 than
+#: half or twice as many), at least 2 steps a split
+STATIC_WGMMA_TILE_N, STATIC_WGMMA_K_STEP = 128, 128
+STATIC_WGMMA_BLOCKS_PER_SM, STATIC_WGMMA_MIN_SPLIT_STEPS = 1, 2
+#: the most K splits a column panel takes: one portable thread-block
+#: cluster, whose blocks add their partial sums through shared memory
+STATIC_WGMMA_MAX_SPLITS = 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def static_takes_wgmma(k: int) -> bool:
+    """Whether Q8's tensor-core routes take a reduction of ``k``: x's
+    quantized rows go to the tensor cores in whole 16-byte chunks."""
+    return k > 0 and k % 16 == 0
+
+
+def _plan_dp4a(m: int, k: int, n: int, sms: int):
+    """``q8_dp4a``'s ``(route, splits, per)``: ``per`` rows of K a block,
+    enough slices for a wave of 4, 2 or 1 blocks an SM (by the rows'
+    padding), at most 512 rows a slice."""
+    per_sm = 4 if m <= 8 else 2 if m <= 16 else 1
+    slices = max(per_sm * sms // _cdiv(n, DP4A_TILE_N),
+                 _cdiv(k, DP4A_MAX_SLICE), 1)
+    ks = min(max(_cdiv(_cdiv(k, slices), DP4A_STEP) * DP4A_STEP, DP4A_STEP),
+             DP4A_MAX_SLICE)
+    return "q8_dp4a", max(_cdiv(k, ks), 1), ks
+
+
+def _plan_wgmma(m: int, k: int, n: int, sms: int):
+    """``q8_wgmma_xq``'s ``(route, splits, per)``: ``per`` K steps of 128
+    a block, split for at most one block an SM, with at least 2 steps a
+    split and at most :data:`STATIC_WGMMA_MAX_SPLITS` splits (a
+    cluster)."""
+    steps = _cdiv(k, STATIC_WGMMA_K_STEP)
+    splits = max(1, min(sms * STATIC_WGMMA_BLOCKS_PER_SM
+                        // _cdiv(n, STATIC_WGMMA_TILE_N),
+                        steps // STATIC_WGMMA_MIN_SPLIT_STEPS,
+                        STATIC_WGMMA_MAX_SPLITS))
+    per = _cdiv(steps, splits)
+    return "q8_wgmma_xq", _cdiv(steps, per), per
+
+
 @functools.lru_cache(maxsize=4096)
-def _static_plan(m: int, k: int, n: int, index: int) -> int:
-    """The int32 workspace Q8's split-K partial sums need for ``(m, k) @
-    (k, n)`` on CUDA device ``index``, from the C side (which owns the
-    K slicing)."""
-    ints = ctypes.c_longlong(0)
-    if LIBRARY.entry("int8_static_plan")(m, k, n, index,
-                                         ctypes.byref(ints)) < 0:
-        raise RuntimeError(f"static_int8_dense: no plan for M={m} on CUDA "
-                           f"device {index}")
-    return ints.value
+def static_plan(m: int, k: int, n: int, sms: int):
+    """Q8's launch for ``(m, k) @ (k, n)`` on a card of ``sms`` SMs:
+    ``(route, splits, per)``. ``q8_dp4a`` below
+    :data:`STATIC_WGMMA_MIN_M` rows or where ``static_takes_wgmma``
+    refuses ``k`` (one launch, two with more than one K slice: the
+    reduce); else ``q8_wgmma_xq`` (two launches whatever the splits: the
+    quantize pass, then the product)."""
+    if m < STATIC_WGMMA_MIN_M or not static_takes_wgmma(k):
+        return _plan_dp4a(m, k, n, sms)
+    return _plan_wgmma(m, k, n, sms)
 
 
-LAST_STATIC_LAUNCH = _Launched()   # Q8's latest launch (route "q8")
+def static_workspace(m: int, k: int, n: int, route: str, splits: int,
+                     per: int) -> int:
+    """The int32 workspace a Q8 launch takes: ``q8_dp4a``'s K splits'
+    partial sums ([splits][m][panels x 128]), ``q8_wgmma_xq``'s quantized
+    x (m, k) int8 (its splits add up within a cluster)."""
+    if route == "q8_dp4a":
+        return (splits * m * _cdiv(n, DP4A_TILE_N) * DP4A_TILE_N
+                if splits > 1 else 0)
+    return m * k // 4
+
+
+LAST_STATIC_LAUNCH = _Launched()   # Q8's latest launch: route, K splits
 
 
 def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
@@ -341,8 +411,14 @@ def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
     + bias)`` for ``x (..., K)`` with at most :data:`STATIC_MAX_M` rows,
     ``x_scale`` one f32, ``w_q (K, N)`` int8, ``w_scale (N,)`` and ``bias
     (N,)`` f32 → ``(..., N)`` f32, bit for bit
-    :func:`static_int8_dense_reference`. CUDA tensors launch the kernel
-    (or raise, also above 32 rows); CPU tensors run the plain version."""
+    :func:`static_int8_dense_reference`. The route follows the work
+    (:func:`static_plan`): ``q8_dp4a`` at few rows, ``q8_wgmma_xq`` from
+    :data:`STATIC_WGMMA_MIN_M`, both on ``w_q`` as it lies.
+    :data:`KERNEL_INT8_STATIC` counts the calls' launches,
+    :data:`KERNEL_INT8_STATIC_ROUTES` each route's and
+    :data:`LAST_STATIC_LAUNCH` holds the latest route and K splits. CUDA
+    tensors launch the kernels (or raise, also above 32 rows); CPU tensors
+    run the plain version."""
     _check_static(x, x_scale, w_q, w_scale, bias)
     if not x.is_cuda:
         return static_int8_dense_reference(x, x_scale, w_q, w_scale, bias,
@@ -356,22 +432,23 @@ def static_int8_dense(x: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out.reshape(*lead, n)
+    route, splits, per = static_plan(m, k, n, _sm_count(x.get_device()))
     xs = x_scale.reshape(1).float().contiguous()
     w_q = w_q.contiguous()
     s = w_scale.float().contiguous()
     b = None if bias is None else bias.float().contiguous()
-    ints = _static_plan(m, k, n, x.get_device())
+    ints = static_workspace(m, k, n, route, splits, per)
     ws = (torch.empty(ints, dtype=torch.int32, device=x.device)
           if ints else None)
-    splits = ctypes.c_int(0)
     err = launch(LIBRARY.entry("int8_static_matmul"), x2, x2.data_ptr(),
                  xs.data_ptr(), w_q.data_ptr(), s.data_ptr(),
                  None if b is None else b.data_ptr(), int(relu),
                  None if ws is None else ws.data_ptr(), ints,
-                 out.data_ptr(), m, k, n, ctypes.byref(splits))
+                 out.data_ptr(), m, k, n, STATIC_ROUTES[route], splits, per)
     _raise_on(err, "static_int8_dense")
     KERNEL_INT8_STATIC.launches += 1
-    LAST_STATIC_LAUNCH.route, LAST_STATIC_LAUNCH.splits = "q8", splits.value
+    KERNEL_INT8_STATIC_ROUTES[route].launches += 1
+    LAST_STATIC_LAUNCH.route, LAST_STATIC_LAUNCH.splits = route, splits
     return out.reshape(*lead, n)
 
 

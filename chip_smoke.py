@@ -419,9 +419,19 @@
    batch 8 eager and captured with the same bits, then VOC mAP. C8's
    kernel cases (17a) hold SSD300's fc6 and its F = 126 head too.
 
+21. Slice 24 (N1 and Q8 redesigned): N1's case times its phases on the
+   real decode's rows (``scripts/nms_phases.py``'s builds) beside its
+   re-derived bound; Q8's cases add the Dense(4096) at 9 and 16 rows and
+   VGG-16's fc6 and fc8 at batch 1 and 32, each with the route it ran;
+   Q8's launches are counted by route on every static path; config A's
+   static batch-32 forward is timed beside fp32's; one
+   ``slice24_paths`` line gathers SSD300's batch-32 decode ms, config
+   A's static records/s at batch 32, VGG-16's images/s at batch 32 and
+   TextClassifier's static records/s.
+
 ``python3 chip_smoke.py --only sentinel,mesh`` (or ``object_detection``,
-``c8_kernel``) runs those phases alone after the build (their JSON, no
-final line).
+``c8_kernel``, ``static_int8_kernel``, ``int8_head``, ``fleet``) runs
+those phases alone after the build (their JSON, no final line).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -602,11 +612,15 @@ INT8_CASES = [(1, 4096, 4096, False), (8, 4096, 4096, False),
               (32, 128, 20, False)]
 #: Q8's cases (M, K, N): the head's three Dense(4096) layers at batch 1,
 #: 7 and 32, its Dense(8) layer at 1 and 32, a K that is not a multiple
-#: of 32, and TextClassifier's Dense(128) and Dense(20) at batch 32; each
-#: without and with the bias and the fused ReLU
+#: of 32, and TextClassifier's Dense(128) and Dense(20) at batch 32; the
+#: Dense(4096) at 9 and 16 rows (past the tensor-core crossover) and
+#: VGG-16's fc6 (25088 -> 4096) and fc8 (4096 -> 1000) at batch 1 and 32;
+#: each without and with the bias and the fused ReLU
 STATIC_CASES = [(1, 4096, 4096), (7, 4096, 4096), (32, 4096, 4096),
                 (1, 4096, 8), (32, 4096, 8), (5, 1000, 4096),
-                (32, 256, 128), (32, 128, 20)]
+                (32, 256, 128), (32, 128, 20), (9, 4096, 4096),
+                (16, 4096, 4096), (1, 25088, 4096), (32, 25088, 4096),
+                (1, 4096, 1000), (32, 4096, 1000)]
 #: the JAX bench's floor on fp32 / static int8 batch-1 ms of config A
 #: (int8_stream_b1_speedup, bench.py:1524)
 STATIC_B1_FLOOR = 1.5
@@ -630,9 +644,16 @@ N_OVERLOAD = 1024
 POISON = 12345.0
 BUCKET_WAVES = (1, 3, 2, 3, 1)
 #: the fleet phase: records of (a)'s one replica and of the two-replica,
-#: kill and backpressure runs; the kill test's claim idle and heartbeat
+#: kill and backpressure runs; the kill test's claim idle and heartbeat.
+#: A reclaim takes any entry idle past ``claim_idle_ms``, a live
+#: replica's too, and re-answers it, so (c)'s "every result written once"
+#: holds only while a survivor reads, dispatches and acks a batch within
+#: it. Two survivors share the card there with the held victim, each with
+#: two batches in flight; their dispatch-to-publish p99 is 0.22-0.34 s on
+#: an H100, and at 500 ms a slow stretch once had a survivor's live
+#: entries reclaimed and answered twice, so the idle is 2 s
 N_FLEET_ONE, N_FLEET = 256, 512
-FLEET_CLAIM_IDLE_MS, FLEET_HEARTBEAT_S = 500, 0.1
+FLEET_CLAIM_IDLE_MS, FLEET_HEARTBEAT_S = 2000, 0.1
 #: backpressure: the replica's watermark; the preload, at the shed point
 #: (batch + watermark), so the first read sheds nothing; the records a
 #: blind producer adds (enough to push the backlog past the shed point
@@ -1759,12 +1780,13 @@ def q8_bound(m, k, n, bias=False):
 def static_int8_kernel_phase():
     """Q8 (the static int8 dense layer, ``csrc/quantized.cu``) against its
     plain version, the static path's torch ops (the padded ``_int_mm``),
-    on the card and on the CPU, bit for bit, at the head's shapes and a
-    ragged K, without and with the bias and the fused ReLU; the same bits
-    twice. Each timed: the wrapper, CUDA-graph device time, the plain
-    version, the padded ``_int_mm`` alone and with its padding and
-    quantize (the library), and the bound; weights above 8 MB rotate over
-    enough copies to exceed the L2."""
+    on the card and on the CPU, bit for bit, at the head's shapes, a
+    ragged K, TextClassifier's and VGG-16's fc6 and fc8, without and with
+    the bias and the fused ReLU; the same bits twice; the route and K
+    splits each case ran (printed). Each timed: the wrapper, CUDA-graph
+    device time, the plain version, the padded ``_int_mm`` alone and with
+    its padding and quantize (the library), and the bound; weights above
+    8 MB rotate over enough copies to exceed the L2."""
     import torch
 
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
@@ -1812,6 +1834,7 @@ def static_int8_kernel_phase():
                    "bit_equal": same, "max_abs_err": err,
                    "weight_copies": copies,
                    "ms": time_ms(cycling(q8, copies)),
+                   "route": LAST_STATIC_LAUNCH.route,
                    "splits": LAST_STATIC_LAUNCH.splits,
                    "device_ms": graph_ms(cycling(q8, copies)),
                    "plain_ms": time_ms(cycling(
@@ -1837,9 +1860,15 @@ def static_int8_kernel_phase():
 
 def static_int8_kernel_row(static_rows, launches):
     """Q8's row of the kernels line: at config A's batch-1 Dense(4096)
-    layer, the main path's shape, with M = 32 and the Dense(8) layer
-    beside; ``launches`` by path."""
+    layer, the main path's shape, with M = 32, the Dense(8) layer,
+    TextClassifier's layers and VGG-16's fc6 and fc8 beside; ``launches``
+    by path and route ({path: {route: launches}})."""
     main = static_rows["1x4096x4096_bias_relu"]
+    launches_by_route = {}
+    for by in launches.values():
+        for route, n in by.items():
+            launches_by_route[route] = launches_by_route.get(route, 0) + n
+    launches = {path: sum(by.values()) for path, by in launches.items()}
     row = {"name": "static_int8_dense", "route": "cuda",
            "source": "analytics_zoo_tpu_torch/csrc/quantized.cu",
            "replaces": "analytics_zoo_tpu/pipeline/api/keras/layers/"
@@ -1847,6 +1876,8 @@ def static_int8_kernel_row(static_rows, launches):
                        "dot_general, no Pallas kernel)",
            "launches": sum(launches.values()),
            "launches_by_path": launches,
+           "launches_by_route": launches_by_route,
+           "kernel_route": main["route"],
            "max_abs_err": max(r["max_abs_err"] for r in static_rows.values()),
            "ms": main["ms"], "plain_ms": main["plain_ms"],
            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1861,9 +1892,13 @@ def static_int8_kernel_row(static_rows, launches):
     for tag, case in (("b32", "32x4096x4096_bias_relu"),
                       ("dense8_b1", "1x4096x8_bias_relu"),
                       ("text_fc1", "32x256x128_bias_relu"),
-                      ("text_fc2", "32x128x20_bias_relu")):
+                      ("text_fc2", "32x128x20_bias_relu"),
+                      ("fc6_b1", "1x25088x4096_bias_relu"),
+                      ("fc6_b32", "32x25088x4096_bias_relu"),
+                      ("fc8_b1", "1x4096x1000_bias_relu"),
+                      ("fc8_b32", "32x4096x1000_bias_relu")):
         for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                    "library_device_ms", "bound_ms", "splits"):
+                    "library_device_ms", "bound_ms", "route", "splits"):
             row[f"{key}_{tag}"] = static_rows[case][key]
     return row
 
@@ -1952,7 +1987,8 @@ def int8_head_phase():
     from analytics_zoo_tpu_torch.feature.feature_set import FeatureSet
     from analytics_zoo_tpu_torch.observability import MetricsRegistry
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC)
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC,
+        KERNEL_INT8_STATIC_ROUTES)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import Sequential
     from analytics_zoo_tpu_torch.pipeline.api.keras.layers import Dense
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
@@ -2000,10 +2036,12 @@ def int8_head_phase():
         host, quantize="int8", calibrate=xf[:8])
     # the static path's main run: 256 rows (one chunk, the padded
     # _int_mm), then 1, 8 and 32 rows (Q8 on all four layers)
-    KERNEL_INT8_STATIC.reset()
+    for cnt in (KERNEL_INT8_STATIC, *KERNEL_INT8_STATIC_ROUTES.values()):
+        cnt.reset()
     p_fp, p_w8, p_st = fp.predict(xf), w8.predict(xf), st.predict(xf)
     st_small = {m: st.predict(xf[:m]) for m in (1, 8, T_BATCH)}
     q8_launches = KERNEL_INT8_STATIC.launches
+    q8_routes = {r: c.launches for r, c in KERNEL_INT8_STATIC_ROUTES.items()}
     w8_rel = rel_err(p_w8, deq.predict(xf))
     st_rel = max(rel_err(p, cpu_static.predict(xf[:m]))
                  for m, p in st_small.items())
@@ -2012,12 +2050,15 @@ def int8_head_phase():
           f"{w8_rel:.3e}, static vs its plain CPU route (1, 8, 32 rows on "
           f"Q8, 8 of 256 on the padded _int_mm) {st_rel:.3e} (relative, "
           f"limit {INT8_REL_TOL}); Q8 launches {q8_launches} for three "
-          f"predicts of at most {T_BATCH} rows")
+          f"predicts of at most {T_BATCH} rows, by route "
+          f"{json.dumps(q8_routes)}")
     check(w8_rel <= INT8_REL_TOL, f"weight-only int8 vs dequantized fp32 "
           f"{w8_rel}")
     check(st_rel <= INT8_REL_TOL, f"static int8 vs its CPU route {st_rel}")
-    check(q8_launches == 4 * len(st_small), f"{q8_launches} Q8 launches "
-          f"for {len(st_small)} static predicts of 4 layers")
+    check(q8_launches == 4 * len(st_small)
+          and sum(q8_routes.values()) == q8_launches, f"{q8_launches} Q8 "
+          f"launches ({q8_routes}) for {len(st_small)} static predicts of "
+          f"4 layers")
     top1 = {mode: float((p.argmax(1) == p_fp.argmax(1)).mean() * 100.0)
             for mode, p in (("int8_weight_only", p_w8),
                             ("int8_static", p_st))}
@@ -2026,6 +2067,14 @@ def int8_head_phase():
     b1 = {mode: graph_ms(lambda im=im: im._forward([x1]))
           for mode, im in (("fp32", fp), ("int8_weight_only", w8),
                            ("int8_static", st))}
+    # a batch of 32 on the static path (Q8's tensor-core route on every
+    # layer) beside fp32's: device ms of one forward, and records/s
+    x32 = torch.from_numpy(xf[:T_BATCH]).cuda()
+    b32 = {mode: graph_ms(lambda im=im: im._forward([x32]))
+           for mode, im in (("fp32", fp), ("int8_static", st))}
+    print(f"int8 head: batch-{T_BATCH} device ms {json.dumps(b32)}: "
+          f"static int8 {T_BATCH / (b32['int8_static'] / 1e3):.1f} "
+          f"records/s, fp32 {T_BATCH / (b32['fp32'] / 1e3):.1f}")
     launches_b1 = {"int8_weight_only": device_kernels(
         lambda: w8._forward([x1]))}
     with unfused_epilogue():
@@ -2105,7 +2154,9 @@ def int8_head_phase():
         "top1_agreement_pct": top1, "b1_device_ms": b1,
         "b1_speedup": speedup, "b1_device_kernels": {
             mode: len(names) for mode, names in launches_b1.items()},
-        "q8_launches": q8_launches,
+        "q8_launches": q8_launches, "q8_launches_by_route": q8_routes,
+        "static_b32_device_ms": b32, "static_b32_records_per_s": {
+            mode: T_BATCH / (ms / 1e3) for mode, ms in b32.items()},
         "int8_stream_b1_speedup": speedup["int8_static"],
         "records_per_s": HEAD_ROWS / wall,
         "wall_s": wall, "dispatches": batches, "launches": launches,
@@ -3140,15 +3191,23 @@ def fleet_phase():
         launches = KERNEL.launches
         dispatches = [a.dispatches for a in adapters] + [
             victim_model.dispatches]
+        # the survivors' dispatch-to-publish p99, against the claim idle
+        p99_ms = max(r.snapshot()["zoo_serving_dispatch_quantiles_seconds"][
+            "quantiles"].get("0.99", 0.0) for r in snaps) * 1e3
         err = vs_oracle("(c)", got)
         print(f"fleet (c): kill window {window}; answered {answered:.0f} + "
               f"shed {shed:.0f} + dead-lettered {dead:.0f} of {N_FLEET}, "
               f"victim answered {victim.served}; reclaimed {reclaimed}; "
               f"acks {acks:.0f}, PEL {pel}; dispatches {dispatches}, "
-              f"{launches} K2 launches; kill to last reclaimed answer "
+              f"{launches} K2 launches; survivors' dispatch p99 "
+              f"{p99_ms:.1f} ms; kill to last reclaimed answer "
               f"{reclaim_s:.3f}s (claim_idle_ms {FLEET_CLAIM_IDLE_MS}); vs "
               f"oracle {err:.3e}")
         check(window == {"victim": T_BATCH}, f"fleet (c): window {window}")
+        check(set(reclaimed) == {'zoo_serving_reclaimed_total{from="victim"}'},
+              f"fleet (c): a live survivor's entries went idle past "
+              f"claim_idle_ms {FLEET_CLAIM_IDLE_MS} and were reclaimed: "
+              f"{reclaimed}")
         check(sorted(writes) == sorted(f"c-{i}" for i in range(N_FLEET))
               and set(writes.values()) == {1},
               f"fleet (c): result writes not once each "
@@ -3165,6 +3224,8 @@ def fleet_phase():
             "window": window, "answered": answered, "shed": shed,
             "dead": dead, "reclaimed": reclaimed, "acks": acks,
             "kill_to_reclaimed_s": reclaim_s, "dispatches": dispatches,
+            "dispatch_p99_ms": p99_ms,
+            "claim_idle_ms": FLEET_CLAIM_IDLE_MS,
             "launches": launches, "vs_oracle": err}
         fleet_launches += launches
     finally:
@@ -7120,7 +7181,8 @@ def image_int8_phase():
         ImageClassifier
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
         KERNEL_INT8_CONV, KERNEL_INT8_CONV_QUANTIZE, KERNEL_INT8_CONV_REPACK,
-        KERNEL_INT8_CONV_ROUTES, KERNEL_INT8_STATIC)
+        KERNEL_INT8_CONV_ROUTES, KERNEL_INT8_STATIC,
+        KERNEL_INT8_STATIC_ROUTES)
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
 
     init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
@@ -7186,7 +7248,7 @@ def image_int8_phase():
     c8_counters = {"c8": KERNEL_INT8_CONV, "q8": KERNEL_INT8_STATIC,
                    "c8_quantize": KERNEL_INT8_CONV_QUANTIZE,
                    "c8_repack": KERNEL_INT8_CONV_REPACK,
-                   **KERNEL_INT8_CONV_ROUTES}
+                   **KERNEL_INT8_CONV_ROUTES, **KERNEL_INT8_STATIC_ROUTES}
     for tag, xb in (("b32", xeval), ("b1", xeval[:1])):
         for cnt in c8_counters.values():
             cnt.reset()
@@ -7794,7 +7856,8 @@ def text_classifier_serving(name, model, xs):
 
     from analytics_zoo_tpu_torch.observability import MetricsRegistry
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC)
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES, KERNEL_INT8_STATIC,
+        KERNEL_INT8_STATIC_ROUTES)
     from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
     from analytics_zoo_tpu_torch.serving import ClusterServing
 
@@ -7805,7 +7868,8 @@ def text_classifier_serving(name, model, xs):
            "int8_static": runtime().from_keras(model, quantize="int8",
                                                calibrate=xs[:T_BATCH])}
     counters = [KERNEL_INT8_MATMUL, KERNEL_INT8_STATIC,
-                *KERNEL_INT8_ROUTES.values()]
+                *KERNEL_INT8_ROUTES.values(),
+                *KERNEL_INT8_STATIC_ROUTES.values()]
     chunk = torch.from_numpy(xs[:T_BATCH]).cuda()
     plain_err = {}
     for mode, im in ims.items():
@@ -7819,7 +7883,8 @@ def text_classifier_serving(name, model, xs):
     torch.cuda.synchronize()
     dispatches = -(-len(xs) // T_BATCH)
     out = {mode: {"records_per_s_windows": [], "k6": 0, "k6_skinny": 0,
-                  "q8": 0} for mode in ims}
+                  "q8": 0, "q8_routes": dict.fromkeys(
+                      KERNEL_INT8_STATIC_ROUTES, 0)} for mode in ims}
     for _ in range(TC_SERVE_WINDOWS):
         probs = {}
         for mode, im in ims.items():
@@ -7842,6 +7907,8 @@ def text_classifier_serving(name, model, xs):
             r["k6"] += launched[0]
             r["k6_skinny"] += launched[1]
             r["q8"] += launched[2]
+            for route, cnt in KERNEL_INT8_STATIC_ROUTES.items():
+                r["q8_routes"][route] += cnt.launches
             r["top1_agreement_pct"] = 100.0 * float(np.mean(
                 probs[mode].argmax(1) == probs["fp32"].argmax(1)))
         check(all(np.isfinite(p).all() and np.allclose(p.sum(1), 1,
@@ -7910,7 +7977,7 @@ def text_classifier_phase():
     serve_x = rng.integers(1, TC_VOCAB, (max(TC_SERVE_ROWS.values()),
                                          TC_SEQ)).astype(np.int32)
     out = {"fits": {}, "serving": {}}
-    launches = {"k6": 0, "k6_skinny": 0, "q8": 0}
+    launches = {"k6": 0, "k6_skinny": 0, "q8": 0, "q8_routes": {}}
     for encoder in ("cnn", "lstm", "gru"):
         def build(encoder=encoder):
             return TextClassifier(TC_CLASSES, TC_DIM, TC_SEQ, encoder,
@@ -7929,6 +7996,9 @@ def text_classifier_phase():
             launches["k6_skinny"] += (served["int8_weight_only"]["k6_skinny"]
                                       + served["served_int8"]["k6_skinny"])
             launches["q8"] += served["int8_static"]["q8"]
+            for route, n in served["int8_static"]["q8_routes"].items():
+                launches["q8_routes"][route] = (
+                    launches["q8_routes"].get(route, 0) + n)
         del model
     out["launches"] = launches
     return out
@@ -8845,6 +8915,13 @@ SSD_CONVS = 35
 #: 2 min, 2 max, 3 subtractions, 2 clamps, 1 product, 1 addition, 1
 #: division (the areas once a box), and the threshold compare
 NMS_OPS_PER_PAIR = 13
+#: the rate the CUDA cores issue f32 operations that are not FMAs: half of
+#: PEAK_FLOPS["float32"], which counts an FMA as two (N1's are none)
+F32_ISSUE_RATE = PEAK_FLOPS["float32"] / 2
+NMS_BOUND_BASIS = ("operations: 13 f32 operations a pair of the upper "
+                   "triangle (the division counted as one) at the f32 "
+                   "issue rate, 33.5 T/s (half the FMA-counted 67 TFLOP/s); "
+                   "the boxes read and the mask written at 3.35 TB/s")
 #: served raw scores against the direct forward of the same frames (fp32,
 #: TF32 off: the same convs at another batch size, cuDNN free to pick
 #: another algorithm), relative to the largest score
@@ -8869,13 +8946,37 @@ def ssd_frames(rng, n):
     return x, gt
 
 
-def nms_bound(rows, k):
+def nms_bound(rows, k, rate=F32_ISSUE_RATE):
     """N1's least time: the boxes read and the keep-mask written once,
-    against the upper triangle's pairs at the f32 rate."""
+    against the upper triangle's pairs' operations at ``rate`` (the f32
+    issue rate; the earlier bound counted them at the FMA-counted
+    peak)."""
     t_bytes = rows * k * (16 + 1) / PEAK_BYTES_PER_S
-    t_ops = rows * k * (k - 1) / 2 * NMS_OPS_PER_PAIR / PEAK_FLOPS["float32"]
+    t_ops = rows * k * (k - 1) / 2 * NMS_OPS_PER_PAIR / rate
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def nms_phase_ms(boxes, threshold):
+    """N1's phases on ``boxes`` (``scripts/nms_phases.py``'s builds of
+    ``csrc/nms.cu`` with the IoU phase or the scan left out, timed in
+    turns): the device ms of each build and the phases' shares."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "nms_phases", os.path.join(REPO, "scripts", "nms_phases.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = os.path.join(REPO, "analytics_zoo_tpu_torch", "csrc", "nms.cu")
+    libs = {ph: probe.variant("chip_smoke", src, code)
+            for ph, code in probe.PHASES.items()}
+    from analytics_zoo_tpu_torch.ops.cuda_build import build_all
+    build_all(list(libs.values()))
+    ms = {ph: sum(t) / len(t) for ph, t in
+          probe.phase_ms(libs, boxes, graph_ms, threshold).items()}
+    return {"device_ms": ms,
+            "load_and_output_ms": ms["load_only"],
+            "iou_phase_ms": ms["no_scan"] - ms["load_only"],
+            "scan_ms": ms["all"] - ms["no_scan"]}
 
 
 def nms_case(det, raw):
@@ -8908,10 +9009,17 @@ def nms_case(det, raw):
                                                        p.nms_thresh)),
            "plain_ms": time_ms(lambda: nms_keep_mask_reference(
                boxes, p.nms_thresh), iters=3, warmup=1),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_basis": NMS_BOUND_BASIS,
+           "bound_ms_fma_counted": nms_bound(rows, k,
+                                             PEAK_FLOPS["float32"])[0]}
     check(same and out["launches"] == 1,
           f"N1 at {rows} rows of {k}: not its plain version's bits or "
           f"{out['launches']} launches")
+    out["phases"] = nms_phase_ms(boxes, p.nms_thresh)
+    print(f"N1 at {rows} rows of {k}: {out['device_ms']:.4f} device ms "
+          f"(bound {bound_ms:.4f}, {bound_by}); phases "
+          f"{json.dumps(out['phases'])}")
     return out
 
 
@@ -9282,7 +9390,9 @@ def nms_kernel_row(det_out):
             "max_abs_err": 0 if n1["bit_equal"] else None,
             "ms": n1["ms"], "device_ms": n1["device_ms"],
             "plain_ms": n1["plain_ms"], "bound_ms": n1["bound_ms"],
-            "bound_by": n1["bound_by"], "library_ms": None,
+            "bound_by": n1["bound_by"], "bound_basis": n1["bound_basis"],
+            "bound_ms_fma_counted": n1["bound_ms_fma_counted"],
+            "phases": n1["phases"], "library_ms": None,
             "library_by": "none: PyTorch has no NMS call (torchvision's "
                           "batched_nms is another package)",
             "rows": n1["rows"], "k": n1["k"]}
@@ -9290,7 +9400,8 @@ def nms_kernel_row(det_out):
 
 #: phases ``--only`` runs alone (after the build), for a short call that
 #: checks one of them; the contract's run takes no arguments and runs all
-ONLY_PHASES = ("sentinel", "mesh", "object_detection", "c8_kernel")
+ONLY_PHASES = ("sentinel", "mesh", "object_detection", "c8_kernel",
+               "static_int8_kernel", "int8_head", "fleet")
 
 
 def main(argv=()) -> int:
@@ -9444,11 +9555,16 @@ def main(argv=()) -> int:
         "resnet50_serving_multimodel":
             resnet_serving["k6_launches"]["multimodel"],
         "text_classifier_int8": text["launches"]["k6"]}, k6_routes))
+    # Q8's launches by path and route (slice 24: the tensor-core routes)
+    q8_names = [r for r in image_int8["c8_routes_b32"]
+                if r.startswith("q8_")]
     rows.append(static_int8_kernel_row(static_rows, {
-        "config_a_static": int8_head["q8_launches"],
-        "vgg16_static_b32": image_int8["launches_b32"]["q8"],
-        "vgg16_static_b1": image_int8["launches_b1"]["q8"],
-        "text_classifier_static": text["launches"]["q8"]}))
+        "config_a_static": int8_head["q8_launches_by_route"],
+        "vgg16_static_b32": {r: image_int8["c8_routes_b32"][r]
+                             for r in q8_names},
+        "vgg16_static_b1": {r: image_int8["c8_routes_b1"][r]
+                            for r in q8_names},
+        "text_classifier_static": text["launches"]["q8_routes"]}))
     # slice 23: SSD300's static detects (35 convs a forward)
     ssd_paths = [p for p in detection["c8_routes"]
                  if p.startswith("ssd300_static_b")]
@@ -9499,6 +9615,23 @@ def main(argv=()) -> int:
                       "sentinel": sentinel,
                       "mesh": mesh,
                       "reliability": reliability, "card": card}))
+    # slice 24's end-to-end readings beside the kernels
+    print(json.dumps({"slice24_paths": {
+        "ssd300_b32_decode_device_ms": {
+            mode: detection[f"{mode}_b32"]["decode_device_ms"]
+            for mode in ("fp32", "int8")},
+        "n1_device_ms": detection["n1"]["device_ms"],
+        "config_a_static_b32_records_per_s":
+            int8_head["static_b32_records_per_s"],
+        "vgg16_b32_images_per_s": {
+            mode: image_int8[f"image_infer_{mode}_fps"]
+            for mode in ("fp32", "int8")},
+        "text_classifier_static_records_per_s": {
+            enc: served["int8_static"]["records_per_s"]
+            for enc, served in text["serving"].items()},
+        "q8_launches_by_route": next(
+            r for r in rows
+            if r["name"] == "static_int8_dense")["launches_by_route"]}}))
     idle = [r["name"] for r in rows if not r["launches"]]
     check(not idle, f"kernels never launched on their main path: {idle}")
     print(json.dumps({"kernels": rows}))

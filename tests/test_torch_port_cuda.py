@@ -1621,14 +1621,20 @@ def test_load_checkpoint_onto_cuda(cuda, tmp_path):
                                    (32, 4096, 4096), (1, 4096, 8),
                                    (32, 4096, 8), (4, 1000, 130),
                                    (16, 333, 17), (3, 64, 70),
-                                   (2, 4100, 256)])
+                                   (2, 4100, 256), (8, 4096, 4096),
+                                   (9, 4096, 4096), (16, 4096, 4096),
+                                   (17, 4096, 4096), (24, 4096, 4096),
+                                   (31, 4096, 4096), (31, 256, 130)])
 def test_q8_is_its_plain_version_bit_for_bit(cuda, m, k, n, bias, relu):
     """Q8 against the static path's torch ops on the CPU (and on the card
-    at the head's shapes): the same bits (the int32 sum is exact, the finish rounds as they do),
-    and the same bits twice; one launch a call. Ragged K and N pad with
-    zeros; x / x_scale lands on .5 for a few entries."""
+    at the head's shapes): the same bits (the int32 sum is exact, the
+    finish rounds as they do), and the same bits twice; one launch a call,
+    on the route its plan names (``q8_dp4a`` at few rows or a K the
+    tensor-core route refuses, ``q8_wgmma_xq`` past the crossover). Ragged K and N pad with zeros; x / x_scale lands on .5
+    for a few entries."""
     from analytics_zoo_tpu_torch.ops.pallas.quantized import (
-        KERNEL_INT8_STATIC, static_int8_dense, static_int8_dense_reference)
+        KERNEL_INT8_STATIC, LAST_STATIC_LAUNCH, static_int8_dense,
+        static_int8_dense_reference, static_plan)
     g = torch.Generator().manual_seed(m * 7 + k + n)
     x = torch.randn(m, k, generator=g) * 3.0
     x[0, :3] = torch.tensor([0.125, -0.375, 6.4])
@@ -1642,6 +1648,8 @@ def test_q8_is_its_plain_version_bit_for_bit(cuda, m, k, n, bias, relu):
     again = static_int8_dense(*dev, relu=relu)
     torch.cuda.synchronize()
     assert KERNEL_INT8_STATIC.launches == before + 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert LAST_STATIC_LAUNCH.route == static_plan(m, k, n, sms)[0]
     cpu = static_int8_dense_reference(x, xs, w, s, b, relu=relu)
     wants = [cpu, again.cpu()]
     if n in (8, 4096):
@@ -1651,6 +1659,42 @@ def test_q8_is_its_plain_version_bit_for_bit(cuda, m, k, n, bias, relu):
     for want in wants:
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 25088, 4096), (32, 25088, 4096),
+                                   (1, 4096, 1000), (32, 4096, 1000)])
+def test_q8_vgg16_fc6_and_fc8_on_every_route(cuda, m, k, n, monkeypatch):
+    """VGG-16's fc6 and fc8 at 1 and 32 rows, with the bias and ReLU, on
+    every route (the plan forced to each in turn) and on the plan's: the
+    plain version's bits on the card and on the CPU, the same bits twice,
+    the route each call reports."""
+    from analytics_zoo_tpu_torch.ops.pallas import quantized as pq
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        LAST_STATIC_LAUNCH, static_int8_dense, static_int8_dense_reference,
+        static_plan)
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g) * 3.0
+    xs = torch.tensor(0.05)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 0.02 + 0.001
+    b = torch.randn(n, generator=g) * 2.0
+    dev = [t.to(cuda) for t in (x, xs, w, s, b)]
+    want = static_int8_dense_reference(*dev, relu=True).cpu()
+    assert torch.equal(want.view(torch.int32),
+                       static_int8_dense_reference(x, xs, w, s, b, relu=True)
+                       .view(torch.int32))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for plan in (static_plan(m, k, n, sms), pq._plan_dp4a(m, k, n, sms),
+                 pq._plan_wgmma(m, k, n, sms)):
+        with monkeypatch.context() as mp:
+            mp.setattr(pq, "static_plan", lambda *a, plan=plan: plan)
+            outs = [static_int8_dense(*dev, relu=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert LAST_STATIC_LAUNCH.route == plan[0]
+        for out in outs:
+            assert torch.equal(out.cpu().view(torch.int32),
+                               want.view(torch.int32)), plan
 
 
 @pytest.mark.cuda
@@ -2417,7 +2461,8 @@ def _nms_rows(rows, k, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,k,threshold", [
     (672, 400, 0.45), (21, 400, 0.5), (3, 37, 0.3), (5, 1, 0.45),
-    (2, 1024, 0.5), (7, 700, 0.45)])
+    (2, 1024, 0.5), (7, 700, 0.45), (4, 1, 0.0), (6, 31, 0.45),
+    (6, 32, 0.7), (6, 33, 0.3), (3, 1024, 0.45), (9, 64, 0.0)])
 def test_n1_is_its_plain_version_bit_for_bit(cuda, rows, k, threshold):
     """N1 against the torch loop on the card, one launch for every row;
     at K = 700 and 1024 its shared memory is above the default 48 KB."""
@@ -2434,6 +2479,46 @@ def test_n1_is_its_plain_version_bit_for_bit(cuda, rows, k, threshold):
     # batched leading dimensions are rows too
     assert torch.equal(nms_keep_mask(boxes.view(1, rows, k, 4), threshold),
                        got.view(1, rows, k))
+
+
+def _boxes_at_the_threshold(t, k):
+    """One row of ``k`` boxes whose IoUs with the first sit at and a few
+    ulps around ``t``: box 0 is the unit square, box j a strip [0, 0, w_j,
+    1] whose IoU with it is about w_j, for w_j on t's neighbours; the
+    strips' IoUs with each other land on many other values."""
+    t = np.float32(t)
+    ws = [t]
+    for d in (np.inf, -np.inf):
+        v = t
+        for _ in range(3):
+            v = np.nextafter(v, np.float32(d))
+            ws.append(v)
+    rng = np.random.default_rng(int(t * 1000))
+    ws += list(rng.uniform(0.2, 0.9, k).astype(np.float32))
+    boxes = np.zeros((1, k, 4), np.float32)
+    boxes[0, 0] = [0.0, 0.0, 1.0, 1.0]
+    for j in range(1, k):
+        wj = np.clip(ws[(j - 1) % len(ws)], 0, 1)
+        boxes[0, j] = [0.0, 0.0, wj, 1.0]
+    return boxes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 0.3, 0.45, 0.5, 0.7])
+@pytest.mark.parametrize("k", [8, 33, 400])
+def test_n1_decides_iou_at_the_threshold_as_the_division(cuda, threshold,
+                                                          k):
+    """Rows whose IoUs sit on the threshold and an ulp or a few either
+    side of it, also under the later rows' own overlaps: N1's keep-mask
+    is its plain version's bit for bit (the division-free test hands the
+    pairs at the cut to the division)."""
+    from analytics_zoo_tpu_torch.ops.nms import (nms_keep_mask,
+                                                 nms_keep_mask_reference)
+    boxes = torch.from_numpy(_boxes_at_the_threshold(threshold, k)).cuda()
+    rows = torch.cat([boxes, boxes.flip(1)], 0)
+    got = nms_keep_mask(rows, threshold)
+    torch.cuda.synchronize()
+    assert torch.equal(got, nms_keep_mask_reference(rows, threshold))
 
 
 @pytest.mark.cuda

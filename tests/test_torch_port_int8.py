@@ -794,3 +794,134 @@ def test_static_int8_dense_refuses_what_q8_does_not_take():
         pq.static_int8_dense(w, xs, torch.ones(4, 4, dtype=torch.int8),
                              torch.ones(4), None)
     assert pq.KERNEL_INT8_STATIC.launches == 0   # CPU: no launch counted
+
+
+# ---------------------------------------------------------------------------
+# Q8's launch plan and its K-major weight
+# ---------------------------------------------------------------------------
+
+#: ``chip_smoke.py``'s Q8 cases (``STATIC_CASES``) and VGG-16's fc6 and fc8
+#: at 1 and 32 rows: the plan on the H100's 132 SMs, (route, K splits, per)
+Q8_PLANS = {
+    (1, 4096, 4096): ("q8_dp4a", 16, 256),
+    (7, 4096, 4096): ("q8_wgmma_xq", 4, 8),
+    (32, 4096, 4096): ("q8_wgmma_xq", 4, 8),
+    (1, 4096, 8): ("q8_dp4a", 64, 64),
+    (32, 4096, 8): ("q8_wgmma_xq", 8, 4),
+    (5, 1000, 4096): ("q8_dp4a", 16, 64),
+    (32, 256, 128): ("q8_wgmma_xq", 1, 2),
+    (32, 128, 20): ("q8_wgmma_xq", 1, 1),
+    (1, 25088, 4096): ("q8_dp4a", 49, 512),
+    (32, 25088, 4096): ("q8_wgmma_xq", 4, 49),
+    (1, 4096, 1000): ("q8_dp4a", 64, 64),
+    (32, 4096, 1000): ("q8_wgmma_xq", 8, 4),
+}
+
+
+@pytest.mark.parametrize("shape", list(Q8_PLANS), ids=str)
+def test_q8_plan_routes_by_work(shape):
+    """The route and K splits Q8's host plan picks for each case, and what
+    holds for any plan: the splits cover K and none is empty, the dp4a
+    slices are whole 64-row steps of at most 512, the tensor-core route
+    takes K % 16 == 0 from ``STATIC_WGMMA_MIN_M`` rows in at most
+    ``STATIC_WGMMA_MAX_SPLITS`` splits (one cluster), and only dp4a's
+    splits and the quantize pass take a workspace."""
+    m, k, n = shape
+    route, splits, per = pq.static_plan(m, k, n, 132)
+    assert (route, splits, per) == Q8_PLANS[shape]
+    if route == "q8_dp4a":
+        assert per % 64 == 0 and 64 <= per <= 512
+        assert splits == -(-k // per)
+    else:
+        steps = -(-k // 128)
+        assert (splits - 1) * per < steps <= splits * per
+        assert splits <= pq.STATIC_WGMMA_MAX_SPLITS
+        assert m >= pq.STATIC_WGMMA_MIN_M and pq.static_takes_wgmma(k)
+    ints = pq.static_workspace(m, k, n, route, splits, per)
+    want = {"q8_dp4a": splits * m * -(-n // 128) * 128 if splits > 1 else 0,
+            "q8_wgmma_xq": m * k // 4}[route]
+    assert ints == want
+
+
+def test_q8_plan_crosses_to_the_tensor_cores_at_its_row_and_k_limits():
+    """The plan's two edges: ``q8_dp4a`` up to one row under
+    ``STATIC_WGMMA_MIN_M``, ``q8_wgmma_xq`` from it, and a K that x's
+    quantized rows cannot fill in whole 16-byte chunks stays on dp4a at
+    any row count; each route's own plan is the one the rule returns."""
+    edge = pq.STATIC_WGMMA_MIN_M
+    assert pq.static_plan(edge - 1, 4096, 4096, 132)[0] == "q8_dp4a"
+    assert pq.static_plan(edge, 4096, 4096, 132)[0] == "q8_wgmma_xq"
+    assert pq._plan_dp4a(32, 4096, 4096, 132) == ("q8_dp4a", 8, 512)
+    assert pq._plan_wgmma(4, 4096, 4096, 132) == ("q8_wgmma_xq", 4, 8)
+    assert pq.static_plan(32, 1000, 4096, 132)[0] == "q8_dp4a"
+    assert pq.static_plan(32, 4104, 4096, 132)[0] == "q8_dp4a"
+    assert pq.static_plan(32, 4112, 4096, 132)[0] == "q8_wgmma_xq"
+    assert not pq.static_takes_wgmma(0) and pq.static_takes_wgmma(16)
+
+
+def test_q8_on_the_cpu_is_its_plain_version_on_any_route(monkeypatch):
+    """On CPU tensors the wrapper is its plain version whatever route the
+    plan names (the plan forced to each in turn), and launches nothing."""
+    x, xs, w, ws, b = _torch_static(*_static_case(9, 32, 24, 3))
+    want = pq.static_int8_dense_reference(x, xs, w, ws, b, relu=True)
+    plans = [None, pq._plan_dp4a(9, 32, 24, 132),
+             pq._plan_wgmma(9, 32, 24, 132)]
+    assert {p[0] for p in plans[1:]} == set(pq.STATIC_ROUTES)
+    for plan in plans:
+        with monkeypatch.context() as mp:
+            if plan is not None:
+                mp.setattr(pq, "static_plan", lambda *a, plan=plan: plan)
+            got = pq.static_int8_dense(x, xs, w, ws, b, True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert pq.KERNEL_INT8_STATIC.launches == 0
+    assert all(c.launches == 0 for c in pq.KERNEL_INT8_STATIC_ROUTES.values())
+
+
+def _static_text_classifier():
+    from analytics_zoo_tpu_torch.models.textclassification import \
+        TextClassifier
+    pctx.init_zoo_context(conf={"zoo.seed": 0})
+    m = TextClassifier(5, 16, sequence_length=12, encoder="cnn",
+                       encoder_output_dim=32, vocab_size=40, device="cpu")
+    m.init_weights(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(1).integers(1, 40, (16, 12)).astype(np.int32)
+    return m, x
+
+
+def test_static_int8_sequential_npz_is_the_same_before_and_after_install(
+        tmp_path):
+    """A static int8 ``Sequential`` (TextClassifier's: Dense(128) on 32
+    inputs, Dense(5) on 128): the model's ``.npz`` holds the same arrays
+    before and after the install; the served copy holds each Dense's int8
+    ``W`` as (K, N) and no second copy of it (Q8's tensor-core routes read
+    that layout), and its predict runs Q8 (the plain version here) on
+    both layers and leaves the weights as they were."""
+    m, x = _static_text_classifier()
+    first = m.save(str(tmp_path / "a.npz"))
+    im = InferenceModel(device="cpu").from_keras(m, quantize="int8",
+                                                 calibrate=x[:8])
+    second = m.save(str(tmp_path / "b.npz"))
+    with np.load(first) as a, np.load(second) as b:
+        assert a.files == b.files
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key])
+    dense = [layer for layer in im._model.model.layers
+             if type(layer) is Dense]
+    assert [tuple(d.W.shape) for d in dense] == [(32, 128), (128, 5)]
+    int8 = [n for n, t in im._model.named_buffers() if t.dtype == torch.int8]
+    assert len(int8) == 2 and all(n.endswith(".W") for n in int8)
+    kept = [d.W.clone() for d in dense]
+    calls = []
+    real = pcore.static_int8_dense
+
+    def counted(*args, **kwargs):
+        calls.append(tuple(args[2].shape))
+        return real(*args, **kwargs)
+    pcore.static_int8_dense = counted
+    try:
+        y = im.predict(x)
+    finally:
+        pcore.static_int8_dense = real
+    assert y.shape == (16, 5) and calls == [(32, 128), (128, 5)]
+    for d, w in zip(dense, kept):
+        assert torch.equal(d.W, w)

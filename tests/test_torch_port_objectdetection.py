@@ -17,6 +17,7 @@ those differences forward).
 import os
 import subprocess
 import sys
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -362,6 +363,105 @@ def test_nms_plain_version_is_jax_bit_for_bit(threshold):
     np.testing.assert_allclose(
         bbox_iou(boxes[0], boxes[0]).numpy(),
         np.asarray(jbbox.bbox_iou(boxes[0], boxes[0])), rtol=0, atol=1e-6)
+
+
+def _fl32_sign(x):
+    """The sign of ``x`` (a ``Fraction``) rounded once to f32, nearest
+    even: 0 within 2^-150 of zero, where the rounding gives a zero."""
+    tiny = Fraction(1, 2 ** 150)
+    return 1 if x > tiny else -1 if x < -tiny else 0
+
+
+def _n1_over_model(inter, uni, t):
+    """N1's ``iou > t`` (``csrc/nms.cu`` ``test_pair``, then
+    ``over_exact`` for the open pairs), its FMAs modelled exactly: each
+    rounds the exact ``inter - c * uni`` once, so only its sign after that
+    rounding is read."""
+    t = np.float32(t)
+    tp = np.nextafter(t, np.float32(np.inf))
+    i, u = Fraction(float(inter)), Fraction(float(uni))
+    if _fl32_sign(i - Fraction(float(tp)) * u) > 0:
+        return True
+    if _fl32_sign(i - Fraction(float(t)) * u) < 0:
+        return False
+    q = np.float32(inter) / np.float32(uni) if uni > 0 else np.float32(0)
+    return bool(q > t)
+
+
+def _plain_over(inter, uni, t):
+    """The plain version's test: ``where(union > 0, inter / union, 0) >
+    t`` in f32."""
+    q = np.float32(inter) / np.float32(uni) if uni > 0 else np.float32(0)
+    return bool(q > np.float32(t))
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.3, 0.45, 0.5, 0.7])
+def test_n1_division_free_test_is_the_division(threshold):
+    """N1 decides ``iou > t`` without the division wherever the sign of an
+    FMA settles it; a model of that predicate gives the division's answer
+    on random pairs of real boxes, on quotients one to three ulps either
+    side of every rounding cut near ``t`` and exactly on ``t``, on a zero
+    union and on pairs that do not intersect. It is claimed where boxes
+    take it, union >= inter >= 0 (what finite boxes give, held below on
+    degenerate, inverted and touching boxes too): a negative union never
+    reaches it."""
+    t = np.float32(threshold)
+    rng = np.random.default_rng(int(threshold * 100))
+    pairs = []
+    # random boxes, through the plain version's own f32 operations
+    a, b = _rand_boxes(rng, 300), _rand_boxes(rng, 300)
+    zero = np.float32(0)
+    iw = np.maximum(np.minimum(a[:, 2], b[:, 2])
+                    - np.maximum(a[:, 0], b[:, 0]), zero)
+    ih = np.maximum(np.minimum(a[:, 3], b[:, 3])
+                    - np.maximum(a[:, 1], b[:, 1]), zero)
+    inter = iw * ih
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    pairs += list(zip(inter, (area_a + area_b) - inter))
+    assert (inter == 0).sum() > 10          # pairs that do not intersect
+    # quotients at the cut: inter near t * uni, a few ulps each way
+    for uni in rng.uniform(0.01, 2.0, 40).astype(np.float32).tolist() + [
+            0.5, 1.0, 0.25]:
+        u = np.float32(uni)
+        c = np.float32(t * u)
+        for steps in range(-3, 4):
+            v = c
+            for _ in range(abs(steps)):
+                v = np.nextafter(v, np.float32(np.inf if steps > 0
+                                               else -np.inf))
+            if v >= 0:
+                pairs.append((v, u))
+    # exactly on t (a power-of-two union), a zero union
+    pairs += [(np.float32(t * np.float32(0.5)), np.float32(0.5)),
+              (np.float32(0), np.float32(0)), (np.float32(0), np.float32(0.3))]
+    cases = [(np.float32(i), np.float32(u)) for i, u in pairs]
+    got = [_n1_over_model(i, u, t) for i, u in cases]
+    want = [_plain_over(i, u, t) for i, u in cases]
+    assert got == want
+    # the cut is crossed: both answers occur near it
+    assert any(got) and not all(got)
+    # the domain: the plain version's f32 operations on any finite boxes,
+    # degenerate (zero width), inverted (x2 < x1) and touching ones too
+    # (which the clamps make zero width), give union >= inter >= 0
+    box = rng.uniform(-1, 2, (4000, 2, 4)).astype(np.float32)
+    box[:500, :, 2] = box[:500, :, 0]            # both zero width
+    box[500:1000, 1, 0] = box[500:1000, 0, 2]    # b starts where a ends
+    a, b = box[:, 0], box[:, 1]
+    iw = np.maximum(np.minimum(a[:, 2], b[:, 2])
+                    - np.maximum(a[:, 0], b[:, 0]), zero)
+    ih = np.maximum(np.minimum(a[:, 3], b[:, 3])
+                    - np.maximum(a[:, 1], b[:, 1]), zero)
+    inter = iw * ih
+    area_a = (np.maximum(a[:, 2] - a[:, 0], zero)
+              * np.maximum(a[:, 3] - a[:, 1], zero))
+    area_b = (np.maximum(b[:, 2] - b[:, 0], zero)
+              * np.maximum(b[:, 3] - b[:, 1], zero))
+    uni = (area_a + area_b) - inter
+    assert (inter >= 0).all() and (uni >= inter).all()
+    assert (inter == 0).any() and (uni == 0).any()
+    assert not _n1_over_model(np.float32(t * np.float32(0.5)),
+                              np.float32(0.5), t)   # on t: not above it
 
 
 def test_nms_wrapper_refuses_what_the_kernel_does_not_take():
