@@ -1,28 +1,30 @@
 """The guarded training step's kernels, G1 and G2 (``csrc/guard.cu``).
 
 Neither has a Pallas counterpart: in the JAX package XLA fuses the
-guarded step's scalar chain and its discard select into the step. On the
-card, as torch ops, they were some 80 small kernels a step; these are the
-two launches that take their place (``pipeline/api/keras/training.py``
-``TrainingLoop.guarded_step``, ``dispatch.Guard``).
+guarded step's gradient norm, scalar chain and discard select into the
+step. On the card, as torch ops, they were some 80 small kernels a step;
+these are the two launches that take their place
+(``pipeline/api/keras/training.py`` ``TrainingLoop.guarded_step``,
+``dispatch.Guard``).
 
-:func:`guard_check` (G2): from the step's loss and global gradient norm
-(or the per-tensor norms, whose norm it then takes with
-``torch.linalg.vector_norm``'s bits, up to :data:`NORMS_MAX` of them,
-their addresses passed as kernel arguments),
-the sentinel's flag word and EWMA update (``common/anomaly.check``), the
-global-norm clip's scale and engaged bit
-(``anomaly.clip_by_global_norm``), ``bad`` (recover mode: any anomaly
-bit), the step's row of per-step optimizer values (the row of the device
-count, before it moves), the count's advance and, in recover mode, the
-pre-step copies of a bad step's state — one launch.
+:func:`guard_check` (G2): from the step's gradients (any number, f32 or
+bf16) — or, on a mesh, the global gradient norm — the global norm with
+the bits of ``anomaly.tensor_norms`` (``torch._foreach_norm``) and
+``anomaly.norm_of_norms`` (``torch.linalg.vector_norm``), the sentinel's
+flag word and EWMA update (``common/anomaly.check``), the global-norm
+clip's scale and engaged bit (``anomaly.clip_by_global_norm``), ``bad``
+(recover mode: any anomaly bit), the step's row of per-step optimizer
+values (the row of the device count, before it moves) and the count's
+advance — one launch. The gradients' descriptors go to the kernel by
+value, up to :func:`param_cap` of them; past it, in a device table.
 
-:func:`guard_commit` (G1): where ``bad``, the pre-step copies back over
-the step's state; else nothing — one launch for every tensor, over a
-device table of the tensors that :func:`commit_table` makes once per set
-of tensors. The pre-step copies themselves (the keep) are G2's, which
-decides ``bad`` before the update: on the card they are made only for a
-bad step, and a good step moves no state bytes at all.
+:func:`guard_commit` (G1): where ``bad``, one set of tensors copied over
+another; else nothing — one launch for every tensor, over a device table
+of the tensors that :func:`commit_table` makes once per set of tensors.
+The recover-mode step runs it twice (``dispatch.Guard``): after G2 has
+decided ``bad`` and before the update, the state into its pre-step
+copies (the keep), and after the update, the copies back over the state
+(the discard). On the card a good step moves no state bytes at all.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (:func:`guard_check_reference`,
@@ -33,7 +35,7 @@ bits the kernels give.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,15 +45,11 @@ from .launch_count import LaunchCount
 
 __all__ = ["guard_check", "guard_check_reference", "guard_commit",
            "guard_commit_reference", "commit_table",
-           "CommitTable", "NORMS_MAX",
-           "LIBRARY", "KERNEL_CHECK", "KERNEL_COMMIT"]
+           "CommitTable", "LIBRARY", "KERNEL_CHECK", "KERNEL_COMMIT"]
 
-#: the most per-tensor norms G2 takes the norm of itself (``MAX_NORMS``
-#: in ``guard.cu``: the lengths whose ``vector_norm`` reduction order it
-#: mirrors, ``scripts/vector_norm_order.py``; at 128 ``vector_norm``
-#: loads four floats a thread); above, ``vector_norm`` takes it and G2 is
-#: given the result
-NORMS_MAX = 127
+#: elements of one chunk of ``torch._foreach_norm`` (``NORM_CHUNK`` in
+#: ``guard.cu``); G2 runs 16 warps a chunk
+NORM_CHUNK = 65536
 #: bytes a block of G1 copies at a time (``CHUNK`` in ``guard.cu``)
 CHUNK = 32768
 #: G1's grid: two blocks an SM of the H100, which a good step's launch
@@ -62,11 +60,11 @@ _COMMIT_BLOCKS = 264
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.c_longlong
-    lib.guard_check.argtypes = [p, i, p, i, p, p, p, p, p, p, i, i, p, p,
-                                p, p, i, f, f, i, p, i, ll, i, p]
+    lib.guard_check.argtypes = [p, i, p, i, p, p, p, i, p, p, p, p, p, p,
+                                i, i, p, p, p, p, i, f, f, i, p]
+    lib.guard_param_cap.argtypes = []
     lib.guard_commit.argtypes = [p, i, ctypes.c_longlong, p, i, p]
-    for fn in (lib.guard_check, lib.guard_commit):
+    for fn in (lib.guard_check, lib.guard_commit, lib.guard_param_cap):
         fn.restype = ctypes.c_int
 
 
@@ -87,16 +85,17 @@ def _raise_on(err: int, name: str) -> None:
 
 def guard_check_reference(loss, gnorm, ewma, obs, count, base, table, *,
                           sentinel: bool, spike_factor: float,
-                          grad_clip: float, recover: bool, norms=None):
+                          grad_clip: float, recover: bool, grads=None):
     """Plain version of G2: the torch ops of ``anomaly.check``,
     ``anomaly.clip_by_global_norm``'s scale and the guarded step's row and
-    count, in their order (with ``norms``, the per-tensor norms, and
-    ``gnorm`` None: ``anomaly.global_norm``'s norm of them first). Updates
-    ``ewma``, ``obs`` and ``count`` in place; returns ``(flags, bad, row,
-    scale)`` (``row`` None without a table, ``scale`` None without
-    clipping)."""
+    count, in their order (with ``grads``, the step's gradients, and
+    ``gnorm`` None: ``anomaly.tensor_norms`` and ``norm_of_norms`` first).
+    Updates ``ewma``, ``obs`` and ``count`` in place; returns ``(flags,
+    bad, row, scale)`` (``row`` None without a table, ``scale`` None
+    without clipping)."""
     if gnorm is None:
-        gnorm = anomaly.norm_of_norms(norms, loss.device)
+        gnorm = anomaly.norm_of_norms(anomaly.tensor_norms(list(grads)),
+                                      loss.device)
     if sentinel:
         flags, (new_ewma, new_obs) = anomaly.check(
             loss, gnorm, (ewma, obs), spike_factor)
@@ -128,20 +127,21 @@ def _scalar(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 def guard_check(loss, gnorm, ewma, obs, count, base, table, *,
                 sentinel: bool, spike_factor: float, grad_clip: float,
                 recover: bool, flags_out: Optional[torch.Tensor] = None,
-                keep: Optional["CommitTable"] = None,
-                norms: Optional[Sequence[torch.Tensor]] = None):
+                grads: Optional[Sequence[torch.Tensor]] = None,
+                tickets: Optional[torch.Tensor] = None):
     """G2: the guarded step's flag word, EWMA update, clip scale, ``bad``,
     per-step row and count advance from the step's ``loss`` and ``gnorm``
-    (f32 scalar) — or, with ``gnorm`` None, ``norms``, the per-tensor f32
-    norms (``anomaly.tensor_norms``), whose norm the kernel takes (up to
-    :data:`NORMS_MAX` of them; ``vector_norm`` above). ``ewma``/``obs``
-    (f32), ``count``/``base`` (int64) are the guard's device scalars
-    (``ewma``, ``obs`` and ``count`` updated in place); ``table`` the
-    block's ``(K, n)`` f32 per-step values or None.
+    (f32 scalar) — or, with ``gnorm`` None, ``grads``, the step's
+    gradients, whose global norm the kernel takes (written into a new
+    ``gnorm``). ``ewma``/``obs`` (f32), ``count``/``base`` (int64) are the
+    guard's device scalars (``ewma``, ``obs`` and ``count`` updated in
+    place); ``table`` the block's ``(K, n)`` f32 per-step values or None.
     ``flags_out``, an int32 scalar, receives the flag word when given.
-    ``keep`` (recover mode, on the card): the :class:`CommitTable` of the
-    pre-step copies (destination the copies, source the state), which the
-    kernel fills for a bad step (:meth:`dispatch.Guard.keep`).
+    ``tickets`` (on the card, with ``grads``): an int32 tensor of at
+    least ``len(grads) + 1`` zeros on the loss's device, which the launch
+    counts in and leaves at zero — the training loop's own
+    (:meth:`dispatch.Guard.tickets`), so that no two loops' launches
+    share one; without it a zeroed one is made for the call.
     Returns ``(flags, bad, row, scale)`` as :func:`guard_check_reference`
     does. CUDA tensors launch the kernel (or raise); CPU tensors run the
     plain version."""
@@ -149,7 +149,7 @@ def guard_check(loss, gnorm, ewma, obs, count, base, table, *,
         out = guard_check_reference(
             loss, gnorm, ewma, obs, count, base, table, sentinel=sentinel,
             spike_factor=spike_factor, grad_clip=grad_clip, recover=recover,
-            norms=norms)
+            grads=grads)
         if flags_out is not None:
             flags_out.copy_(out[0])
         return out
@@ -157,13 +157,25 @@ def guard_check(loss, gnorm, ewma, obs, count, base, table, *,
         loss = loss.float()
     if loss.numel() != 1:
         raise ValueError("guard_check: the loss must be a scalar")
-    addresses, n_norms = None, 0
+    rows_c = grad_table = None
+    n_grads, units, scratch = -1, 0, None
     if gnorm is None:
-        if not norms or len(norms) > NORMS_MAX:
-            gnorm = anomaly.norm_of_norms(norms, loss.device)
-        else:
-            addresses, n_norms = _norm_addresses(norms, loss), len(norms)
-            gnorm = torch.empty((), dtype=torch.float32, device=loss.device)
+        grads, rows_c, units = _grad_rows(list(grads), loss.get_device())
+        n_grads = len(grads)
+        gnorm = torch.empty((), dtype=torch.float32, device=loss.device)
+        scratch = torch.empty(units + n_grads, dtype=torch.float32,
+                              device=loss.device)
+        if n_grads > param_cap():
+            grad_table = _grad_table(rows_c, loss.device)
+        if tickets is None:
+            tickets = torch.zeros(n_grads + 1, dtype=torch.int32,
+                                  device=loss.device)
+        elif (tickets.dtype != torch.int32 or not tickets.is_contiguous()
+              or tickets.numel() < n_grads + 1 or not tickets.is_cuda
+              or tickets.get_device() != loss.get_device()):
+            raise ValueError("guard_check: tickets must be a contiguous "
+                             f"int32 tensor of at least {n_grads + 1} "
+                             "elements on the loss's device")
     for t, dtype, what in ((gnorm, torch.float32, "gnorm"),
                            (ewma, torch.float32, "ewma"),
                            (obs, torch.float32, "obs"),
@@ -190,35 +202,83 @@ def guard_check(loss, gnorm, ewma, obs, count, base, table, *,
     scale = (torch.empty((), dtype=torch.float32, device=loss.device)
              if grad_clip > 0 else None)
     err = launch(
-        LIBRARY.entry("guard_check"), loss, loss.data_ptr(),
-        int(loss.dtype == torch.bfloat16),
-        None if addresses is None else ctypes.cast(addresses,
-                                                   ctypes.c_void_p),
-        n_norms, gnorm.data_ptr(), ewma.data_ptr(), obs.data_ptr(),
+        LIBRARY.entry("guard_check"), loss,
+        None if rows_c is None else ctypes.cast(rows_c, ctypes.c_void_p),
+        n_grads, None if grad_table is None else grad_table.data_ptr(),
+        units, None if scratch is None else tickets.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        loss.data_ptr(), int(loss.dtype == torch.bfloat16),
+        gnorm.data_ptr(), ewma.data_ptr(), obs.data_ptr(),
         count.data_ptr(), base.data_ptr(),
         None if row is None else table.data_ptr(), rows, n,
         None if row is None else row.data_ptr(), flags.data_ptr(),
         bad.data_ptr(), None if scale is None else scale.data_ptr(),
-        int(sentinel), float(spike_factor), float(grad_clip), int(recover),
-        None if keep is None else keep.entries.data_ptr(),
-        0 if keep is None or not recover else keep.n,
-        0 if keep is None else keep.chunks,
-        1 if keep is None else keep.blocks)
+        int(sentinel), float(spike_factor), float(grad_clip), int(recover))
     _raise_on(err, "guard_check")
     KERNEL_CHECK.launches += 1
     return flags, bad, row, scale
 
 
-def _norm_addresses(norms: Sequence[torch.Tensor], loss: torch.Tensor):
-    """The per-tensor norms' addresses as a C array (the kernel takes them
-    by value, so they may lie anywhere: ``_foreach_norm`` allocates each
-    output on its own)."""
-    for t in norms:
-        if (t.dtype != torch.float32 or t.numel() != 1 or not t.is_cuda
-                or t.get_device() != loss.get_device()):
-            raise ValueError("guard_check: the norms must be one-element "
-                             "float32 tensors on the loss's device")
-    return (ctypes.c_void_p * len(norms))(*[t.data_ptr() for t in norms])
+#: ``Grad`` flags in ``guard.cu``
+_BF16, _ALIGNED, _VEC8 = 1, 2, 4
+_PARAM_CAP: List[int] = []
+
+
+def param_cap() -> int:
+    """The most gradients whose descriptors G2 takes by value
+    (``PARAM_CAP`` in ``guard.cu``: 1024)."""
+    if not _PARAM_CAP:
+        _PARAM_CAP.append(int(LIBRARY.entry("guard_param_cap")()))
+    return _PARAM_CAP[0]
+
+
+def _grad_flags(g: torch.Tensor) -> int:
+    """``g``'s ``Grad`` flags: its dtype, and ``_foreach_norm``'s choice of
+    path — vectorised for a 16-byte aligned f32 address and a length that
+    is a multiple of 4 (a bf16 gradient's f32 copy is a fresh, aligned
+    allocation, so only its length decides)."""
+    n, ptr = g.numel(), g.data_ptr()
+    if g.dtype == torch.bfloat16:
+        return (_BF16 | (_VEC8 if ptr % 8 == 0 else 0)
+                | (_ALIGNED if n % 4 == 0 else 0))
+    return _ALIGNED if n % 4 == 0 and ptr % 16 == 0 else 0
+
+
+def _grad_rows(grads: List[torch.Tensor], device: int):
+    """The gradients as G2 reads them (bf16 and f32 as they are, any other
+    dtype cast to f32 as ``anomaly.tensor_norms`` casts it), their
+    descriptors as a C array of ``(address, elements, first chunk | flags
+    << 32)`` int64 triples, and the kernel's warp units (16 a chunk; an
+    empty gradient takes one chunk, whose warps sum nothing)."""
+    out, flat, first = [], [], 0
+    for g in grads:
+        if g.get_device() != device:
+            raise ValueError("guard_check: the gradients must lie on the "
+                             "loss's device")
+        if g.dtype not in (torch.float32, torch.bfloat16):
+            g = g.float()
+        if not _dense(g):
+            raise ValueError("guard_check: every gradient must be dense")
+        out.append(g)
+        flat += [g.data_ptr(), g.numel(), first | _grad_flags(g) << 32]
+        first += max(1, -(-g.numel() // NORM_CHUNK))
+    return out, (ctypes.c_longlong * max(len(flat), 1))(*flat), 16 * first
+
+
+_GRAD_TABLES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _grad_table(rows_c, device: torch.device) -> torch.Tensor:
+    """The descriptors' device copy past :func:`param_cap` gradients: made
+    anew for an eager call; kept, with its pinned source, for a call being
+    captured (the graph replays the copy from that source)."""
+    host = torch.tensor(list(rows_c), dtype=torch.int64).pin_memory()
+    if not torch.cuda.is_current_stream_capturing():
+        return host.to(device, non_blocking=True)
+    key = (device.index, tuple(rows_c))
+    if key not in _GRAD_TABLES:
+        _GRAD_TABLES[key] = (host, host.to(device, non_blocking=True))
+    return _GRAD_TABLES[key][1]
 
 
 # ---------------------------------------------------------------------------

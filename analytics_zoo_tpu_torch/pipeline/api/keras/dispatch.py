@@ -62,7 +62,7 @@ import torch
 from ....common import anomaly
 from ....common.noise import step_seed, twins
 from ....observability.compile import CompileTracker
-from ....ops.guard import commit_table, guard_commit
+from ....ops.guard import guard_commit
 from ....ops.launch_count import Launches, record_launches
 from .optimizers import n_scalars
 
@@ -201,6 +201,7 @@ class Guard:
         self.prev: Optional[List[torch.Tensor]] = None
         # G1's device tables (keep, commit), made once a set of tensors
         self.tables: List = [None, None]
+        self._tickets: Optional[torch.Tensor] = None
 
     def tensors(self) -> List[torch.Tensor]:
         return [self.ewma, self.obs, self.count, self.base]
@@ -215,12 +216,24 @@ class Guard:
         self.count.fill_(count)
         self.base.fill_(count)
 
-    def keep(self, state: List[torch.Tensor]):
+    def tickets(self, n: int) -> Optional[torch.Tensor]:
+        """G2's tickets for ``n`` gradients on the card (None on the
+        CPU): ``n + 1`` int32 zeros, made once a loop, which each launch
+        leaves at zero."""
+        if self.device.type != "cuda":
+            return None
+        if self._tickets is None or self._tickets.numel() < n + 1:
+            self._tickets = torch.zeros(n + 1, dtype=torch.int32,
+                                        device=self.device)
+        return self._tickets
+
+    def keep(self, state: List[torch.Tensor], bad: torch.Tensor) -> None:
         """The pre-step copies of ``state`` (the step's parameters,
-        optimizer state and written model state). On the CPU they are
-        copied now (one multi-tensor copy); on the card G2 copies them,
-        for a bad step only, from the table returned here (made once a set
-        of tensors)."""
+        optimizer state and written model state), taken after the check
+        and before the update. On the CPU they are copied now (one
+        multi-tensor copy); on the card G1 copies them where ``bad``, so
+        a good step copies nothing (its table made once a set of
+        tensors)."""
         if (self.prev is None or len(self.prev) != len(state)
                 or any(p.shape != t.shape or p.dtype != t.dtype
                        or p.stride() != t.stride()
@@ -230,9 +243,8 @@ class Guard:
             self.tables = [None, None]
         if not state or not state[0].is_cuda:
             torch._foreach_copy_(self.prev, state)
-            return None
-        self.tables[0] = commit_table(self.prev, state, self.tables[0])
-        return self.tables[0]
+            return
+        self.tables[0] = guard_commit(self.prev, state, bad, self.tables[0])
 
     def commit(self, state: List[torch.Tensor], bad: torch.Tensor) -> None:
         """Where ``bad``, the pre-step values back; else the update's, bit

@@ -909,9 +909,11 @@ class TrainingLoop:
         its new model state (the JAX step keeps the pre-step ``net_state``).
         The step's per-step values are row ``count - base`` of ``table``
         (the guard's device count). On the card the flag word, EWMA, clip
-        scale, row, count and pre-step copies (for a bad step only) are one
-        kernel (G2, ``ops/guard.py``) and the discard another (G1). On a
-        mesh the norm is the global gradient's (``MeshStep.global_norm``).
+        scale, row and count are one kernel (G2, ``ops/guard.py``), which
+        reads the gradients for their global norm; the pre-step copies
+        (for a bad step only) and the discard are another (G1), launched
+        before and after the update. On a mesh the norm is the global
+        gradient's (``MeshStep.global_norm``).
         Returns ``(loss, flags)``, device scalars (``flags`` written into
         ``flags_out`` when given); nothing syncs."""
         guard = self._guard
@@ -921,24 +923,21 @@ class TrainingLoop:
         gl = list(grads.values())
         if cfg.faults:
             loss = anomaly.inject_grads(loss, gl, fault[0], fault[1])
-        # off a mesh G2 takes the norm of the per-tensor norms itself
-        gnorm = norms = None
-        if self._mesh is None:
-            norms = anomaly.tensor_norms(gl)
-        else:
-            gnorm = self._mesh.global_norm(grads)
+        # off a mesh G2 reads the gradients and takes their global norm
+        gnorm = None if self._mesh is None else self._mesh.global_norm(grads)
         recover = cfg.mode == "recover"
-        state = keep = None
-        if recover:
-            state = (list(params.values()) + dispatch._leaves(opt_state)
-                     + self._written_state())
-            with torch.no_grad():
-                keep = guard.keep(state)
         flags, bad, row, scale = guard_check(
             loss, gnorm, guard.ewma, guard.obs, guard.count, base, table,
             sentinel=cfg.sentinel, spike_factor=cfg.spike_factor,
             grad_clip=cfg.grad_clip, recover=recover, flags_out=flags_out,
-            keep=keep, norms=norms)
+            grads=gl if gnorm is None else None,
+            tickets=guard.tickets(len(gl)))
+        state = None
+        if recover:
+            state = (list(params.values()) + dispatch._leaves(opt_state)
+                     + self._written_state())
+            with torch.no_grad():
+                guard.keep(state, bad)
         if scale is not None:
             anomaly._scale(gl, scale)
         with torch.no_grad():

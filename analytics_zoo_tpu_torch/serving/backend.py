@@ -62,6 +62,17 @@ _DEFAULT: Optional["LocalBackend"] = None
 _DEFAULT_LOCK = threading.Lock()
 
 
+def _invalidate_pending(backend: "RedisBackend", stream: str,
+                        group: str) -> None:
+    """Drop ``backend``'s cached PEL count of ``(stream, group)`` and count
+    the invalidation, so a probe already on the wire does not cache its
+    stale count (``RedisBackend.pending_len``)."""
+    key = (stream, group)
+    with backend._pending_lock:
+        backend._pending_cache.pop(key, None)
+        backend._pending_gen[key] = backend._pending_gen.get(key, 0) + 1
+
+
 def default_backend() -> "LocalBackend":
     """The process-wide LocalBackend that default-constructed InputQueue /
     OutputQueue / ClusterServing share — so the no-args client API actually
@@ -370,6 +381,12 @@ class RedisBackend:
         #: replicas' settlements surface within the window
         self._pending_cache: Dict[Tuple[str, str], Tuple[float, int]] = {}
         self.pending_cache_s = 0.25
+        #: (stream, group) -> invalidations so far: a probe caches its
+        #: count only if none came while its XPENDING was on the wire
+        #: (an ack racing a heartbeat's probe would otherwise leave the
+        #: pre-ack count cached for the whole window)
+        self._pending_gen: Dict[Tuple[str, str], int] = {}
+        self._pending_lock = threading.Lock()
 
     def _call(self, fn, *args, **kwargs):
         """One driver call with driver-specific transport exceptions
@@ -439,7 +456,7 @@ class RedisBackend:
                 out.append((eid.decode() if isinstance(eid, bytes) else eid,
                             self._decode_fields(fields)))
         if out:
-            self._pending_cache.pop((stream, group), None)
+            _invalidate_pending(self, stream, group)
         return out
 
     def xack(self, stream: str, group: str, *entry_ids: str) -> int:
@@ -459,7 +476,7 @@ class RedisBackend:
             return 0
         self._call(self._r.xdel, stream, *entry_ids)
         n = int(self._call(self._r.xack, stream, group, *entry_ids))
-        self._pending_cache.pop((stream, group), None)
+        _invalidate_pending(self, stream, group)
         return n
 
     def xautoclaim(self, stream: str, group: str, consumer: str,
@@ -486,7 +503,7 @@ class RedisBackend:
                   for eid, owner, times in pend}
         claimed = self._call(self._r.xclaim, stream, group, consumer,
                              min_idle, list(owners))
-        self._pending_cache.pop((stream, group), None)
+        _invalidate_pending(self, stream, group)
         out = []
         tombstones = []
         for eid, fields in claimed or []:
@@ -528,11 +545,15 @@ class RedisBackend:
         records, and both converge within the window."""
         key = (stream, group)
         now = time.monotonic()
-        hit = self._pending_cache.get(key)
+        with self._pending_lock:
+            hit = self._pending_cache.get(key)
+            gen = self._pending_gen.get(key, 0)
         if hit is not None and now - hit[0] < self.pending_cache_s:
             return hit[1]
         n = sum(self.xpending(stream, group).values())
-        self._pending_cache[key] = (now, n)
+        with self._pending_lock:
+            if self._pending_gen.get(key, 0) == gen:
+                self._pending_cache[key] = (now, n)
         return n
 
     def backlog_len(self, stream: str, group: Optional[str] = None) -> int:

@@ -391,9 +391,12 @@
    shape on captured 16-step dispatches, off and recover windows
    interleaved, median of 5, against the bench's ceiling of 3.0 (slice
    22: fault r, printed as open with the guarded step's extra kernel
-   nodes by family while over it); G1 and G2 (``csrc/guard.cu``) held to
-   their plain versions bit for bit on the recover loop's own state, on
-   good and bad steps, and timed beside them.
+   nodes by family while over it, and the guarded step's extra device
+   us); no ``_foreach_norm`` or ``vector_norm`` kernel left in the
+   guarded step (slice 25: G2 reads the gradients); G1 and G2
+   (``csrc/guard.cu``) held to their plain versions bit for bit on the
+   recover loop's own state, on good and bad steps, G2 also on the
+   gradients of the sentinel fit and of BERT-base, and timed beside them.
 19. Mesh phase (slice 22): the mesh cases (BERT-base DP 2 with ZeRO-1
    and TP 2; the ``long_context_sharded`` width with ring attention, the
    vocab-sharded head, both at once, and Ulysses at T = 2048; NCF's
@@ -429,9 +432,10 @@
    A's static records/s at batch 32, VGG-16's images/s at batch 32 and
    TextClassifier's static records/s.
 
-``python3 chip_smoke.py --only sentinel,mesh`` (or ``object_detection``,
-``c8_kernel``, ``static_int8_kernel``, ``int8_head``, ``fleet``) runs
-those phases alone after the build (their JSON, no final line).
+``python3 chip_smoke.py --only sentinel,mesh`` (or ``reliability``,
+``object_detection``, ``c8_kernel``, ``static_int8_kernel``,
+``int8_head``, ``fleet``) runs those phases alone after the build (their
+JSON, no final line).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -441,7 +445,9 @@ and fills are nodes of other types and left out.
 The eager training loops (BERT's, NCF's and Wide & Deep's when their
 keys are off) stream every batch through ``prefetch_to_device``.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+Prints the card's name and power limit, each phase's wall seconds on a
+line of its own as it ends (``phase NAME: S s``) and all of them in one
+``{"phase_seconds": {...}}`` line, one ``{"kernels": [...]}`` JSON
 line (each kernel at its main path's shape, with its launches on that
 path; K6's also from TextClassifier's weight-only int8 predicts and
 served lane, Q8's from config A's, VGG-16's and TextClassifier's static
@@ -450,7 +456,8 @@ quantize pass's from VGG-16's, its weight repack's from VGG-16's static
 install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
 32k shapes' fields; K1-K5b also on each rank of each mesh case; G1 and
-G2 from the sentinel fit; N1's and C8's also from SSD300's detection
+G2 from the sentinel fit, G2's also from the reliability phase's
+guarded BERT-base fits; N1's and C8's also from SSD300's detection
 paths; the attention kernels also checked against
 their plain versions,
 checked for the same gradient bits over two runs and timed at the LM
@@ -6337,7 +6344,8 @@ def reliability_phase():
     (c) ``zoo.train.sentinel=recover`` under a ``train.grads`` plan
         (``REL_FAULTS``): one anomaly of each kind, 3 skipped steps, the
         events at iterations 3, 10, 17, finite params, no rollback, 12
-        launches a step of K2, K3a and K3b; with an empty plan
+        launches a step of K2, K3a and K3b, G2 once a step and no
+        ``_foreach_norm`` or ``vector_norm`` call; with an empty plan
         ``recover`` gives sentinel-off's bits; samples/s in turns (off,
         recover, recover, off);
     (d) rollback: ``max_skips_per_epoch=1`` and two ``nan_grad`` in epoch
@@ -6361,6 +6369,7 @@ def reliability_phase():
     (g) goodput: on (c)'s and (d)'s fits goodput plus badput is the
         ledger's wall within 1%.
     Returns the summary and the K2/K3a/K3b launches of the phase."""
+    import collections
     import shutil
     import signal
     import tempfile
@@ -6372,6 +6381,7 @@ def reliability_phase():
     from analytics_zoo_tpu_torch.common.context import init_zoo_context
     from analytics_zoo_tpu_torch.observability import (MetricsRegistry,
                                                        default_registry)
+    from analytics_zoo_tpu_torch.ops import guard as gk
     from analytics_zoo_tpu_torch.ops.pallas.flash_attention import (
         KERNEL, KERNEL_BWD_DKV, KERNEL_BWD_DQ)
     from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
@@ -6385,7 +6395,7 @@ def reliability_phase():
     from analytics_zoo_tpu_torch.utils.checkpoint import CheckpointManager
 
     counters = (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV)
-    for c in counters:
+    for c in counters + (gk.KERNEL_CHECK,):
         c.reset()
     root = tempfile.mkdtemp(prefix="zoo-reliability-")
     base_conf = {"zoo.pallas.attention": True,
@@ -6569,14 +6579,36 @@ def reliability_phase():
                    "zoo.faults.enabled": True}
         c0, e0 = counts(), len(events.of("train.anomaly"))
         launches0 = [c.launches for c in counters]
-        _, _, _, loop_c = run(conf=recover, plan=plan)
+        g2_0 = gk.KERNEL_CHECK.launches
+        # G2 reads the gradients: the guarded steps call neither
+        # _foreach_norm nor vector_norm
+        norm_calls = collections.Counter()
+        real_norms = (torch._foreach_norm, torch.linalg.vector_norm)
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                norm_calls[name] += 1
+                return fn(*args, **kwargs)
+            return call
+        torch._foreach_norm = counted("_foreach_norm", real_norms[0])
+        torch.linalg.vector_norm = counted("vector_norm", real_norms[1])
+        try:
+            _, _, _, loop_c = run(conf=recover, plan=plan)
+        finally:
+            torch._foreach_norm, torch.linalg.vector_norm = real_norms
         launches_c = [c.launches - l for c, l in zip(counters, launches0)]
+        g2_c = gk.KERNEL_CHECK.launches - g2_0
         delta = {k: v - c0[k] for k, v in counts().items()}
         anomalies = events.of("train.anomaly")[e0:]
         print(f"reliability (c): counters {json.dumps(delta)}; events at "
               f"iterations {[e['iteration'] for e in anomalies]} "
               f"({[e['kinds'] for e in anomalies]}); K2/K3a/K3b "
-              f"{launches_c}")
+              f"{launches_c}; G2 {g2_c} launches, norm-op calls "
+              f"{dict(norm_calls)}")
+        steps = REL_EPOCHS * (N_RECORDS // T_BATCH)
+        check(REL_DEVICE != "cuda" or (g2_c == steps and not norm_calls),
+              f"(c) G2 launches {g2_c} for {steps} guarded steps, norm-op "
+              f"calls {dict(norm_calls)}")
         check([delta[k] for k in anomaly_keys] == [1, 1, 1, 3, 0],
               f"(c) counters {delta}")
         check([e["iteration"] for e in anomalies] == [3, 10, 17],
@@ -6610,6 +6642,7 @@ def reliability_phase():
               f"gives sentinel-off's bits")
         out["sentinel"] = {"counters": delta, "events": [
             e["iteration"] for e in anomalies], "launches": launches_c,
+            "g2_launches": g2_c, "norm_op_calls": dict(norm_calls),
             "samples_per_s_turns": [s for _, s, _ in turns],
             "cost_fraction": float(cost)}
         del turns
@@ -6743,7 +6776,9 @@ def reliability_phase():
     out["launches"] = dict(zip(("flash_attention_fwd",
                                 "flash_attention_bwd_dq",
                                 "flash_attention_bwd_dkv"), launches))
-    print(f"reliability: K2/K3a/K3b launches over the phase {launches}")
+    out["g2_launches"] = gk.KERNEL_CHECK.launches
+    print(f"reliability: K2/K3a/K3b launches over the phase {launches}, "
+          f"G2 {out['g2_launches']}")
     check(REL_DEVICE != "cuda" or all(n > 0 for n in launches),
           f"reliability launches {launches}")
     return out
@@ -8161,11 +8196,9 @@ def conv3d_phase():
     return out
 
 
-def guard_nodes(program):
-    """The kernel names of one captured step of a training loop's program
-    (:func:`device_kernels` of ``program._steps(1)``), shortened."""
-    return [kernel_name(n) for n in device_kernels(
-        lambda: program._steps(1), program.noise[:1])]
+#: the kernels of the norm chain G2 replaced (``_foreach_norm``'s
+#: multi-tensor LpNorm and its cleanup, ``vector_norm``'s reduction)
+NORM_KERNEL_KEYS = ("LpNorm", "lpnorm", "NormTwoOps")
 
 
 def node_family(name):
@@ -8185,10 +8218,15 @@ def node_family(name):
 def guard_kernel_rows(model, launches):
     """G1 and G2 at the sentinel fit's shapes: G1 over the recover loop's
     own step state (every parameter, both Adam moments), G2 on its guard
-    scalars and per-step table. Each is held to its plain version bit for
-    bit on a good step and on a bad one, and timed on the device (a CUDA
-    graph of 20 calls) beside its plain version; G1's library figure is
-    the per-tensor ``torch.where`` loop it replaced."""
+    scalars and per-step table, and on gradients: the sentinel fit's
+    shapes (f32, bf16), BERT-base's (``REL_CFG``) and 0..260 small
+    tensors. Each is held to its plain version bit for bit on a good step
+    and on a bad one, and timed on the device (a CUDA graph of 20 calls)
+    beside its plain version; G1's library figure is the per-tensor
+    ``torch.where`` loop it replaced, G2's ``_foreach_norm`` alone, beside
+    the norm chain it replaced (``_foreach_norm``, stack,
+    ``vector_norm``), at the sentinel fit's and at BERT-base's
+    gradients."""
     import torch
 
     from analytics_zoo_tpu_torch.ops import guard as gk
@@ -8251,77 +8289,114 @@ def guard_kernel_rows(model, launches):
                        for a, b in zip(*outs))
             check(same, f"G2 guard_check differs from its plain version "
                         f"({loss_v}, {gnorm_v}, clip {clip})")
-    # G2 given the per-tensor norms, as the step launches it: the norm it
-    # takes (read back as a first step's new EWMA value, the norm itself)
-    # is anomaly.global_norm's bits, for tensors of the fit's parameter
-    # shapes and for every count of tensors up to NORMS_MAX and past it,
-    # on _foreach_norm's outputs and on copies of them
+    # G2 given the gradients, as the step launches it: everything it gives
+    # (flags, bad, the clip scale, the new EWMA state, which for a first
+    # step is the global norm itself, and the count) against the torch
+    # chain tensor_norms -> norm_of_norms -> the scalar chain, bit for bit:
+    # on the sentinel fit's gradients (its parameters' shapes, f32 and
+    # bf16), on BERT-base's, and for every count of small tensors from 0
+    # to 260 (both sides of 128, where vector_norm loads four floats a
+    # thread)
     from analytics_zoo_tpu_torch.common import anomaly
     pgen = torch.Generator(device="cuda").manual_seed(5)
-    sets = [[torch.randn(t.shape, generator=pgen, device="cuda")
-             for t in params.values()]]
-    for n_t in range(1, gk.NORMS_MAX + 4):
+    step_grads = [torch.randn(t.shape, generator=pgen, device="cuda")
+                  for t in params.values()]
+    bert_shapes = g2_bert_shapes()
+    bert_grads = [torch.randn(s, generator=pgen, device="cuda") * 1e-2
+                  for s in bert_shapes]
+    sets = {"sentinel_fit": step_grads,
+            "sentinel_fit_bf16": [t.bfloat16() for t in step_grads],
+            "bert_base": bert_grads}
+    for n_t in range(0, 261):
         for scale in (1e-3, 1.0, 300.0):
-            sets.append([torch.randn(1 + (i * 7) % 13, generator=pgen,
-                                     device="cuda") * scale * (1 + i % 3)
-                         for i in range(n_t)])
+            sets[f"{n_t}x{scale:g}"] = [
+                torch.randn(1 + (i * 7) % 13, generator=pgen, device="cuda")
+                * scale * (1 + i % 3) for i in range(n_t)]
     zero = torch.tensor(0, device="cuda")
     wrong = []
-    for ts in sets:
-        norms = anomaly.tensor_norms(ts)
-        want = anomaly.global_norm(ts)
-        for given in (norms, [t.clone() for t in norms]):
+    for name, ts in sets.items():
+        outs = []
+        for run in (gk.guard_check_reference, gk.guard_check):
             st = [torch.zeros((), device="cuda"),
                   torch.zeros((), device="cuda"),
                   torch.tensor(0, device="cuda")]
-            gk.guard_check(torch.tensor(0.7, device="cuda"), None, *st,
-                           zero, None, sentinel=True, spike_factor=10.0,
-                           grad_clip=0.0, recover=True, norms=given)
-            if not torch.equal(st[0].view(torch.int32),
-                               want.view(torch.int32)):
-                wrong.append((len(ts), st[0].item(), want.item()))
-    check(not wrong, f"G2's norm of the per-tensor norms differs from "
-                     f"vector_norm's: {wrong[:5]}")
-    print(f"G2's norm of the norms: vector_norm's bits for "
-          f"{2 * len(sets)} sets (1..{gk.NORMS_MAX + 3} tensors, and the "
-          f"sentinel fit's {len(sets[0])} parameter shapes)")
+            res = run(torch.tensor(0.7, device="cuda"), None, *st, zero,
+                      None, sentinel=True, spike_factor=10.0,
+                      grad_clip=1.0, recover=True, grads=ts)
+            outs.append([t for t in list(res) + st if t is not None])
+        if not all(a.dtype == b.dtype and torch.equal(
+                a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+                for a, b in zip(*outs)):
+            wrong.append((name, outs[0][3].item(), outs[1][3].item()))
+    check(not wrong, f"G2 on the gradients differs from the torch chain: "
+                     f"{wrong[:5]}")
+    print(f"G2 on the gradients: the torch chain's bits for {len(sets)} "
+          f"sets (the sentinel fit's {len(step_grads)} gradients in f32 "
+          f"and bf16, BERT-base's {len(bert_grads)}, and 0..260 small "
+          f"tensors at three scales)")
     loss = torch.tensor(0.7, device="cuda")
-    gnorm = torch.tensor(1.3, device="cuda")
-    step_norms = anomaly.tensor_norms(sets[0])
-    # G2's keep (recover mode): the state into the copies for a bad step
-    # (a NaN loss), bit for bit; nothing for a good one
+    # the recover step's keep, G1 launched on G2's `bad`: the state into
+    # the copies for a bad step (a NaN loss), bit for bit; nothing for a
+    # good one
     copies = [torch.zeros_like(t) for t in state]
     keep = gk.commit_table(copies, state)
     for bad_loss in (0.7, float("nan")):
-        gk.guard_check(torch.tensor(bad_loss, device="cuda"), gnorm,
-                       torch.tensor(1.1, device="cuda"),
-                       torch.tensor(7.0, device="cuda"),
-                       torch.tensor(0, device="cuda"), guard.base, None,
-                       sentinel=True, spike_factor=10.0, grad_clip=0.0,
-                       recover=True, keep=keep)
+        _, bad, _, _ = gk.guard_check(
+            torch.tensor(bad_loss, device="cuda"), None,
+            torch.zeros((), device="cuda"), torch.zeros((), device="cuda"),
+            torch.tensor(0, device="cuda"), guard.base, None, sentinel=True,
+            spike_factor=10.0, grad_clip=0.0, recover=True,
+            grads=step_grads)
+        gk.guard_commit(copies, state, bad, keep)
         torch.cuda.synchronize()
         want = state if bad_loss != bad_loss else [torch.zeros_like(t)
                                                     for t in state]
         check(all(torch.equal(a.view(-1).view(torch.uint8),
                               b.view(-1).view(torch.uint8))
                   for a, b in zip(copies, want)),
-              f"G2's keep wrong for loss {bad_loss}")
+              f"the keep after G2 wrong for loss {bad_loss}")
 
-    def g2(run, **kw):
+    def g2(run, grads, ewma, obs):
         # the count restarts each call: 20 calls in a window run past the
         # table's 16 rows (G2 answers a NaN row there, the plain
-        # index_select a device fault); the fill's own time is taken off
+        # index_select a device fault); the fill's own time is taken off.
+        # The EWMA state is the set's own, seeded by its first call: the
+        # same gradients each call are never a spike, so every timed call
+        # is a good step
         guard.count.fill_(0)
-        run(loss, None, guard.ewma, guard.obs, guard.count, guard.base,
-            rows_tab, sentinel=True, spike_factor=10.0, grad_clip=0.0,
-            recover=True, norms=step_norms, **kw)
-    # G2 as the recover step launches it (the per-tensor norms in, its
-    # grid taking the keep's table); its plain version is the chain with
-    # the norm of the norms and the multi-tensor keep
-    g2_ms = graph_ms(lambda: g2(gk.guard_check, keep=keep))
-    g2_plain = graph_ms(lambda: (torch._foreach_copy_(copies, state),
-                                 g2(gk.guard_check_reference)))
+        kw = {"tickets": tickets} if run is gk.guard_check else {}
+        return run(loss, None, ewma, obs, guard.count, guard.base,
+                   rows_tab, sentinel=True, spike_factor=10.0,
+                   grad_clip=0.0, recover=True, grads=grads, **kw)
+    # the tickets a loop keeps (dispatch.Guard.tickets), made once
+    tickets = torch.zeros(len(bert_grads) + 1, dtype=torch.int32,
+                          device="cuda")
     fill_ms = graph_ms(lambda: guard.count.fill_(0))
+    # G2 given the gradients, alone and followed by the recover step's
+    # keep (G1 on its `bad`, a good step); its plain version is the torch
+    # chain; the library figures are _foreach_norm alone and the norm
+    # chain it replaced (_foreach_norm, stack, vector_norm)
+    g2_times = {}
+    for name, grads in (("sentinel_fit", step_grads),
+                        ("bert_base", bert_grads)):
+        nbytes_g = sum(t.numel() * t.element_size() for t in grads)
+        ewma, obs = torch.zeros((), device="cuda"), torch.zeros(
+            (), device="cuda")
+        g2_times[name] = {
+            "ms": graph_ms(lambda: g2(gk.guard_check, grads, ewma,
+                                      obs)) - fill_ms,
+            "with_keep_ms": graph_ms(lambda: gk.guard_commit(
+                copies, state, g2(gk.guard_check, grads, ewma, obs)[1],
+                keep)) - fill_ms,
+            "plain_ms": graph_ms(lambda: g2(
+                gk.guard_check_reference, grads, ewma, obs)) - fill_ms,
+            "foreach_norm_ms": graph_ms(
+                lambda: torch._foreach_norm(grads)),
+            "norm_chain_ms": graph_ms(lambda: anomaly.norm_of_norms(
+                anomaly.tensor_norms(grads))),
+            "tensors": len(grads), "gradient_bytes": nbytes_g,
+            "bound_ms": bytes_bound_ms(nbytes_g + 4 * 4 + 8 * 3 + 4 * 4
+                                       + 4 + 1)}
     src = "analytics_zoo_tpu_torch/csrc/guard.cu"
     g1_row = {"name": "guard_commit", "route": "cuda", "source": src,
               "replaces": "none: the jnp.where discard XLA fuses into the "
@@ -8336,24 +8411,47 @@ def guard_kernel_rows(model, launches):
               "bad_step_plain_ms": g1[True]["plain_ms"],
               "bad_step_bound_ms": bytes_bound_ms(2 * nbytes + 1),
               "tensors": len(state), "state_bytes": nbytes}
+    ncf = g2_times["sentinel_fit"]
     g2_row = {"name": "guard_check", "route": "cuda", "source": src,
-              "replaces": "none: the scalar chain XLA fuses in "
-                          "analytics_zoo_tpu/common/anomaly.py check / "
-                          "clip_by_global_norm",
+              "replaces": "none: the global norm and the scalar chain XLA "
+                          "fuses in analytics_zoo_tpu/common/anomaly.py "
+                          "global_norm / check / clip_by_global_norm",
               "launches": launches["guard_check"], "max_abs_err": 0.0,
-              "ms": g2_ms - fill_ms, "plain_ms": g2_plain - fill_ms,
-              "bound_ms": bytes_bound_ms(4 * len(step_norms) + 4 * 4
-                                         + 8 * 3 + 4 * 4 + 4 + 1 + 4),
-              "norms": len(step_norms),
-              "bound_by": "bytes", "library_ms": None}
+              "ms": ncf["ms"], "plain_ms": ncf["plain_ms"],
+              "bound_ms": ncf["bound_ms"], "bound_by": "bytes",
+              "library_ms": ncf["foreach_norm_ms"],
+              "library_by": "torch._foreach_norm alone",
+              "norm_chain_ms": ncf["norm_chain_ms"],
+              "tensors": ncf["tensors"],
+              "gradient_bytes": ncf["gradient_bytes"],
+              "with_keep_ms": ncf["with_keep_ms"],
+              "bert_base": g2_times["bert_base"]}
     print(f"G1 guard_commit over {len(state)} tensors ({nbytes} bytes): "
           f"good step {g1[False]['ms']:.4f} ms (the per-tensor where loop "
           f"{g1[False]['plain_ms']:.4f}), bad step {g1[True]['ms']:.4f} "
           f"(loop {g1[True]['plain_ms']:.4f}, bound "
-          f"{g1_row['bad_step_bound_ms']:.4f}); G2 guard_check "
-          f"{g2_row['ms']:.4f} ms (the torch chain {g2_row['plain_ms']:.4f});"
-          f" both bit for bit on good and bad steps")
+          f"{g1_row['bad_step_bound_ms']:.4f}); both bit for bit on good "
+          f"and bad steps")
+    for name, t in g2_times.items():
+        print(f"G2 guard_check on {name}'s {t['tensors']} gradients "
+              f"({t['gradient_bytes']} bytes): {t['ms']:.4f} ms, "
+              f"{t['with_keep_ms']:.4f} with the keep's G1 after it (bound "
+              f"{t['bound_ms']:.4f} in bytes); the torch chain "
+              f"{t['plain_ms']:.4f}; _foreach_norm alone "
+              f"{t['foreach_norm_ms']:.4f}, _foreach_norm + stack + "
+              f"vector_norm {t['norm_chain_ms']:.4f}")
     return [g1_row, g2_row]
+
+
+def g2_bert_shapes():
+    """The parameter shapes of BERT-base (``REL_CFG``), the reliability
+    phase's guarded fit, without its weights (a meta-device build)."""
+    from analytics_zoo_tpu_torch.pipeline.api.keras.engine import reset_uids
+    from analytics_zoo_tpu_torch.tfpark.bert_classifier import \
+        BERTClassifier
+    reset_uids()
+    net = BERTClassifier(**REL_CFG, device="meta").init_weights()
+    return [tuple(p.shape) for p in net.parameters()]
 
 
 def sentinel_phase():
@@ -8408,22 +8506,36 @@ def sentinel_phase():
     off_ms = float(np.median(times["off"]))
     on_ms = float(np.median(times["recover"]))
     pct = max(0.0, on_ms / off_ms - 1.0) * 100.0
-    nodes = {mode: guard_nodes(models[mode]._loop._program[1])
-             for mode in ("off", "recover")}
+    raw = {mode: device_kernels(
+        lambda program=models[mode]._loop._program[1]: program._steps(1),
+        models[mode]._loop._program[1].noise[:1])
+        for mode in ("off", "recover")}
+    nodes = {mode: [kernel_name(n) for n in names]
+             for mode, names in raw.items()}
+    norm_nodes = [kernel_name(n) for n in raw["recover"]
+                  if any(k in n for k in NORM_KERNEL_KEYS)]
     extra = collections.Counter(nodes["recover"])
     extra.subtract(collections.Counter(nodes["off"]))
     by_family = collections.Counter()
     for name, k in extra.items():
         if k > 0:
             by_family[node_family(name)] += k
+    extra_us = (on_ms - off_ms) * 1e3
     print(f"sentinel: NCF batch {NCF_BATCH}, {SENTINEL_STEPS}-step captured "
           f"dispatches, device ms a step off {off_ms:.4f} / recover "
-          f"{on_ms:.4f} (windows {times}); sentinel_overhead_pct "
+          f"{on_ms:.4f} (windows {times}); the guarded step's extra "
+          f"{extra_us:.2f} us a step, sentinel_overhead_pct "
           f"{pct:.2f} (the JAX bench's ceiling {SENTINEL_CEILING_PCT}); "
           f"kernel nodes a step off {len(nodes['off'])} / recover "
           f"{len(nodes['recover'])}, the guarded step's extra nodes by "
           f"family {dict(by_family)}: "
           f"{sorted(n for n, k in extra.items() if k > 0)}")
+    # G2 reads the gradients: no _foreach_norm or vector_norm kernel is
+    # left in the guarded step
+    check(not norm_nodes and not {"foreach (multi-tensor)",
+                                  "reduce (norm)"} & set(by_family),
+          f"sentinel: norm kernels left in the guarded step: {norm_nodes}, "
+          f"extra families {dict(by_family)}")
     rows = guard_kernel_rows(models["recover"], launches)
     if pct > SENTINEL_CEILING_PCT:
         # fault r stays open (ROADMAP.md queue 3): printed with its nodes
@@ -8433,7 +8545,8 @@ def sentinel_phase():
     del models
     gc.collect()
     return {"sentinel_off_step_ms": off_ms, "sentinel_on_step_ms": on_ms,
-            "sentinel_overhead_pct": pct, "windows_ms": times,
+            "sentinel_overhead_pct": pct, "extra_device_us": extra_us,
+            "windows_ms": times,
             "kernel_nodes": {m: len(v) for m, v in nodes.items()},
             "extra_nodes_by_family": dict(by_family),
             "launches": launches}, rows
@@ -9400,8 +9513,22 @@ def nms_kernel_row(det_out):
 
 #: phases ``--only`` runs alone (after the build), for a short call that
 #: checks one of them; the contract's run takes no arguments and runs all
-ONLY_PHASES = ("sentinel", "mesh", "object_detection", "c8_kernel",
-               "static_int8_kernel", "int8_head", "fleet")
+ONLY_PHASES = ("sentinel", "reliability", "mesh", "object_detection",
+               "c8_kernel", "static_int8_kernel", "int8_head", "fleet")
+
+
+#: each phase's wall seconds in this run (:func:`timed`)
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall seconds printed on a line of their own and
+    kept in :data:`PHASE_SECONDS`."""
+    t = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t, 1)
+    print(f"phase {name}: {PHASE_SECONDS[name]} s")
+    return out
 
 
 def main(argv=()) -> int:
@@ -9456,29 +9583,33 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     ncf_x, ncf_y = make_movielens_like(np.random.default_rng(0))
     print(f"ncf: {N_EXAMPLES} ratings made in {time.perf_counter() - t0:.1f}s")
-    kernel_rows = kernel_phase()
-    bwd_rows = bwd_kernel_phase()
-    ce_rows = ce_kernel_phase()
-    ce_hidden_rows = ce_hidden_phase()
-    embed_rows = embed_kernel_phase(ncf_x)
-    int8_rows = int8_kernel_phase()
-    static_rows = static_int8_kernel_phase()
-    serving = serving_phase()
-    int8_serving = int8_serving_phase(serving["records_per_s"])
-    lanes = lanes_phase()
-    fleet = fleet_phase()
-    int8_head = int8_head_phase()
-    training, main_ids = training_phase()
-    rows = main_path_kernel_rows(main_ids, training["launches"])
-    reliability = reliability_phase()
-    lm, lm_labels = lm_phase()
-    ce_kernel_rows, flash_lm = lm_kernel_rows(lm_labels, lm["launches"],
-                                              lm["ce_routes"])
-    lm["fused_ce_speedup"] = fused_ce_speedup()
-    long_context, attention_32k, ce_32k, lc_launches = \
-        long_context_32k_phase()
-    bert_ner = bert_ner_phase()
-    knrm = knrm_phase()
+    kernel_rows = timed("kernel_phase", kernel_phase)
+    bwd_rows = timed("bwd_kernel_phase", bwd_kernel_phase)
+    ce_rows = timed("ce_kernel_phase", ce_kernel_phase)
+    ce_hidden_rows = timed("ce_hidden_phase", ce_hidden_phase)
+    embed_rows = timed("embed_kernel_phase", embed_kernel_phase, ncf_x)
+    int8_rows = timed("int8_kernel_phase", int8_kernel_phase)
+    static_rows = timed("static_int8_kernel_phase",
+                        static_int8_kernel_phase)
+    serving = timed("serving_phase", serving_phase)
+    int8_serving = timed("int8_serving_phase", int8_serving_phase,
+                         serving["records_per_s"])
+    lanes = timed("lanes_phase", lanes_phase)
+    fleet = timed("fleet_phase", fleet_phase)
+    int8_head = timed("int8_head_phase", int8_head_phase)
+    training, main_ids = timed("training_phase", training_phase)
+    rows = timed("main_path_kernel_rows", main_path_kernel_rows, main_ids,
+                 training["launches"])
+    reliability = timed("reliability_phase", reliability_phase)
+    lm, lm_labels = timed("lm_phase", lm_phase)
+    ce_kernel_rows, flash_lm = timed("lm_kernel_rows", lm_kernel_rows,
+                                     lm_labels, lm["launches"],
+                                     lm["ce_routes"])
+    lm["fused_ce_speedup"] = timed("fused_ce_speedup", fused_ce_speedup)
+    long_context, attention_32k, ce_32k, lc_launches = timed(
+        "long_context_32k_phase", long_context_32k_phase)
+    bert_ner = timed("bert_ner_phase", bert_ner_phase)
+    knrm = timed("knrm_phase", knrm_phase)
     for row in rows:
         row.update(flash_lm[row["name"]])
     # K2 serves too: its launches on the lanes and fleet paths beside the
@@ -9513,23 +9644,28 @@ def main(argv=()) -> int:
         row.setdefault("launches_by_path", {"lm_4k": row["launches"]})
         row["launches_by_path"].update(new)
         row["launches"] += sum(new.values())
-    fault_l = fault_l_phase()
-    ncf = ncf_phase(ncf_x, ncf_y)
-    disk_fit = disk_fit_phase(ncf_x, ncf_y)
-    wide_deep = wide_deep_phase()
-    oocore = oocore_phase()
-    captured_bert = captured_bert_phase()
-    c8_rows = c8_kernel_phase()
-    image_int8 = image_int8_phase()
-    transfer = transfer_phase()
-    resnet_serving = resnet_serving_phase()
-    resnet_training = resnet_training_phase()
-    text = text_classifier_phase()
-    recurrent = recurrent_models_phase()
-    conv3d = conv3d_phase()
-    detection = object_detection_phase()
-    sentinel, guard_rows = sentinel_phase()
-    mesh = mesh_phase()
+    fault_l = timed("fault_l_phase", fault_l_phase)
+    ncf = timed("ncf_phase", ncf_phase, ncf_x, ncf_y)
+    disk_fit = timed("disk_fit_phase", disk_fit_phase, ncf_x, ncf_y)
+    wide_deep = timed("wide_deep_phase", wide_deep_phase)
+    oocore = timed("oocore_phase", oocore_phase)
+    captured_bert = timed("captured_bert_phase",
+                          captured_bert_phase)
+    c8_rows = timed("c8_kernel_phase", c8_kernel_phase)
+    image_int8 = timed("image_int8_phase", image_int8_phase)
+    transfer = timed("transfer_phase", transfer_phase)
+    resnet_serving = timed("resnet_serving_phase",
+                           resnet_serving_phase)
+    resnet_training = timed("resnet_training_phase",
+                            resnet_training_phase)
+    text = timed("text_classifier_phase", text_classifier_phase)
+    recurrent = timed("recurrent_models_phase",
+                      recurrent_models_phase)
+    conv3d = timed("conv3d_phase", conv3d_phase)
+    detection = timed("object_detection_phase",
+                      object_detection_phase)
+    sentinel, guard_rows = timed("sentinel_phase", sentinel_phase)
+    mesh = timed("mesh_phase", mesh_phase)
     rows = embed_kernel_rows(
         embed_rows, ncf["sharded_runs"]["keyed"][0]["launches"]) + rows
     # SA takes the out-of-core cache's gradient too (slice 17)
@@ -9584,6 +9720,11 @@ def main(argv=()) -> int:
     rows.append(nms_kernel_row(detection))
     # slice 22: G1 and G2, the guarded step's kernels; the kernels'
     # launches on each rank of each mesh case
+    g2_row = next(r for r in guard_rows if r["name"] == "guard_check")
+    g2_row["launches_by_path"] = {
+        "sentinel_ncf": g2_row["launches"],
+        "reliability_bert_base": reliability["g2_launches"]}
+    g2_row["launches"] += reliability["g2_launches"]
     rows += guard_rows
     for row in rows:
         for case, by_rank in mesh["mesh_launches"].items():
@@ -9632,6 +9773,7 @@ def main(argv=()) -> int:
         "q8_launches_by_route": next(
             r for r in rows
             if r["name"] == "static_int8_dense")["launches_by_route"]}}))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     idle = [r["name"] for r in rows if not r["launches"]]
     check(not idle, f"kernels never launched on their main path: {idle}")
     print(json.dumps({"kernels": rows}))

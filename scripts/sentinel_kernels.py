@@ -6,8 +6,10 @@ Fits the NCF once with ``zoo.train.sentinel`` off and once in recover
 mode (as ``chip_smoke.py``'s ``sentinel_phase`` does), then replays each
 captured 16-step block under ``torch.profiler`` and prints, per kernel
 name, the device microseconds a step in each mode and their difference,
-largest first, with both modes' replay time by CUDA events. Modes are
-replayed in turns, ``--rounds`` times.
+largest first, with both modes' replay time by CUDA events; then the
+kernels of one step of each mode matched by name in order, where the
+guarded one runs slower. Modes are replayed in turns, ``--rounds``
+times.
 
 Run on a machine with a CUDA device:
 ``python3 scripts/sentinel_kernels.py [--rounds 3] [--out FILE.json]``.
@@ -69,10 +71,36 @@ def profile(program, reps=3):
             program.replay(STEPS, seeds)
         torch.cuda.synchronize()
     per = collections.Counter()
+    kernels = []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             per[ev.name[:240]] += ev.device_time_total
-    return ms, {k: v / reps / STEPS for k, v in per.items()}
+            kernels.append((ev.time_range.start, ev.name[:240],
+                            ev.device_time_total))
+    kernels.sort()
+    # the kernels of one step in order (the last step of the last replay)
+    step = kernels[-(len(kernels) // (reps * STEPS)):]
+    return ms, {k: v / reps / STEPS for k, v in per.items()}, [
+        (name, us) for _, name, us in step]
+
+
+def matched_slower(off, rec, min_us=0.2):
+    """The kernels of the off step and the guarded step matched by name in
+    order (``difflib``), with their device us, where the guarded one is
+    slower by ``min_us`` or more: ``(position in the guarded step, name,
+    off us, guarded us)``."""
+    import difflib
+    sm = difflib.SequenceMatcher(a=[n for n, _ in off],
+                                 b=[n for n, _ in rec], autojunk=False)
+    out = []
+    for tag, i0, i1, j0, _ in sm.get_opcodes():
+        if tag != "equal":
+            continue
+        for k in range(i1 - i0):
+            (name, a), (_, b) = off[i0 + k], rec[j0 + k]
+            if b - a >= min_us:
+                out.append((j0 + k, name, a, b))
+    return out
 
 
 def main(argv=None) -> int:
@@ -90,6 +118,7 @@ def main(argv=None) -> int:
         for mode, model in models.items():
             runs[mode].append(profile(model._loop._program[1]))
     out = {}
+    slower = matched_slower(runs["off"][-1][2], runs["recover"][-1][2])
     for mode, rs in runs.items():
         names = set().union(*(r[1] for r in rs))
         out[mode] = {"ms": [r[0] for r in rs],
@@ -105,9 +134,17 @@ def main(argv=None) -> int:
     for k, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:12]:
         print(f"  {d:+8.3f} us  (off {out['off']['us'].get(k, 0.0):7.3f}, "
               f"recover {out['recover']['us'].get(k, 0.0):7.3f})  {k}")
+    print(f"kernels a step: off {len(runs['off'][-1][2])}, recover "
+          f"{len(runs['recover'][-1][2])}; matched kernels slower guarded "
+          f"(position, us off -> recover):")
+    for pos, name, a, b in slower:
+        print(f"  #{pos} {a:7.3f} -> {b:7.3f}  {name[:160]}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"modes": out, "diff_us": diff}, f, indent=1)
+            json.dump({"modes": out, "diff_us": diff,
+                       "matched_slower": slower,
+                       "steps": {m: rs[-1][2] for m, rs in runs.items()}},
+                      f, indent=1)
     return 0
 
 

@@ -2344,38 +2344,258 @@ def test_guard_check_kernel_is_its_plain_version_bit_for_bit(
                 loss_v, gnorm_v, want, got)
 
 
+def _g2_both(grads, loss_v=0.7, mode="recover", clip=1.5, keep=None):
+    """G2 given ``grads`` and its plain version on the same gradients, each
+    from a first step's state (the new EWMA value is the global norm
+    itself): their outputs and states, and G2's launches. With ``keep``,
+    ``(copies, state)``, the kernel's run is followed by the recover
+    step's keep: G1 copying ``state`` into ``copies`` on G2's ``bad``."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    outs = []
+    before = gk.KERNEL_CHECK.launches
+    for run in (gk.guard_check_reference, gk.guard_check):
+        state = [torch.zeros((), device="cuda"),
+                 torch.zeros((), device="cuda"),
+                 torch.tensor(0, device="cuda")]
+        res = run(torch.tensor(loss_v, device="cuda"), None, *state,
+                  torch.tensor(0, device="cuda"), None,
+                  sentinel=mode != "off", spike_factor=10.0,
+                  grad_clip=clip, recover=mode == "recover", grads=grads)
+        if keep is not None and run is gk.guard_check:
+            gk.guard_commit(keep[0], keep[1], res[1])
+        outs.append([t for t in list(res) + state if t is not None])
+    torch.cuda.synchronize()
+    return outs, gk.KERNEL_CHECK.launches - before
+
+
+def _same_outputs(outs):
+    return all(a.dtype == b.dtype and torch.equal(
+        a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+        for a, b in zip(*outs))
+
+
+def _ncf_grads(g, dtype=torch.float32):
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    net = NeuralCF(6040, 3706, 5, device="cpu").init_weights()
+    return [torch.randn(p.shape, generator=g, device="cuda").to(dtype)
+            for p in net.parameters()]
+
+
+def _g2_case(name, g):
+    """The gradient lists G2 is held to its plain version on: NCF's 12
+    parameters, 200 tensors, several chunks, lengths off a multiple of 4,
+    a misaligned view (``_foreach_norm``'s unaligned path), bf16, empty
+    tensors, and 1100 tensors (their descriptors in a device table)."""
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    if name == "ncf":
+        return _ncf_grads(g)
+    if name == "ncf_bf16":
+        return _ncf_grads(g, torch.bfloat16)
+    if name == "200_tensors":
+        return [r(1 + (i * 37) % 3001) * (1 + i % 5) for i in range(200)]
+    if name == "several_chunks":
+        return [r(5 * 65536 + 12), r(65536), r(3 * 65536 + 1)]
+    if name == "lengths_off_4":
+        return [r(n) for n in (1, 2, 3, 5, 6, 7, 4099, 65537, 131071)]
+    if name == "misaligned_view":
+        base = r(3 * 65536 + 9)
+        return [base[1:], base[2:130], base[4:4 + 4096], r(8)]
+    if name == "bf16_mixed":
+        return [r(n).to(torch.bfloat16) for n in (8, 7, 65536 + 4, 3001)] + [
+            r(3 * 65536 + 8)[1:].to(torch.bfloat16), r(12)]
+    if name == "empty_tensors":
+        return [r(0), r(5), r(0), r(65536 + 3), r(0)]
+    if name == "1100_tensors":
+        # past the descriptors G2 takes by value: the device table
+        return [r(1 + i % 7) * (1 + i % 3) for i in range(1100)]
+    raise KeyError(name)
+
+
+_G2_CASES = ["ncf", "ncf_bf16", "200_tensors", "several_chunks",
+             "lengths_off_4", "misaligned_view", "bf16_mixed",
+             "empty_tensors", "1100_tensors"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
 def test_guard_check_takes_the_norm_of_the_norms_bit_for_bit(cuda, scale):
-    """G2 given the per-tensor norms instead of the global norm, for every
-    count of tensors up to ``NORMS_MAX`` and past it: the global norm it
-    takes (read back as the new EWMA value of a first step, which is the
-    norm itself) is ``anomaly.global_norm``'s bits — from
-    ``_foreach_norm``'s own buffer and from separate tensors (stacked)."""
-    from analytics_zoo_tpu_torch.common import anomaly
-    from analytics_zoo_tpu_torch.ops import guard as gk
+    """G2 given the step's gradients for every count of tensors from 0 to
+    260: the global norm it takes (read back as the new EWMA value of a
+    first step, which is the norm itself) is ``_foreach_norm`` then
+    ``vector_norm``'s bits, on both sides of 128 norms (where
+    ``vector_norm`` loads four floats a thread), one launch each."""
     g = torch.Generator(device="cuda").manual_seed(int(scale * 1000))
-    base = torch.tensor(0, device="cuda")
     wrong = []
-    for n in range(1, gk.NORMS_MAX + 4):
+    for n in range(0, 261):
         grads = [torch.randn(1 + (i * 7) % 13, generator=g, device="cuda")
                  * scale * (1 + i % 3) for i in range(n)]
-        norms = anomaly.tensor_norms(grads)
-        want = anomaly.global_norm(grads)
-        for given in (norms, [t.clone() for t in norms]):
-            ewma = torch.zeros((), device="cuda")
-            obs = torch.zeros((), device="cuda")
-            count = torch.tensor(0, device="cuda")
-            before = gk.KERNEL_CHECK.launches
-            gk.guard_check(torch.tensor(0.7, device="cuda"), None, ewma, obs,
-                           count, base, None, sentinel=True,
-                           spike_factor=10.0, grad_clip=0.0, recover=True,
-                           norms=given)
-            assert gk.KERNEL_CHECK.launches == before + 1
-            if not torch.equal(ewma.view(torch.int32),
-                               want.view(torch.int32)):
-                wrong.append((n, ewma.item(), want.item()))
+        outs, launches = _g2_both(grads, clip=0.0)
+        assert launches == 1
+        if not _same_outputs(outs):
+            wrong.append((n, outs[0][3].item(), outs[1][3].item()))
     assert not wrong, wrong
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _G2_CASES)
+@pytest.mark.parametrize("mode,clip", [("recover", 1.5), ("warn", 0.0),
+                                       ("off", 2.0)])
+def test_g2_reads_the_gradients_with_the_chains_bits(cuda, case, mode, clip):
+    """G2 on the gradients against ``tensor_norms`` -> ``norm_of_norms``
+    -> ``guard_check_reference``, bit for bit: flags, bad, the clip scale
+    and the new EWMA state and count, in one launch."""
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    grads = _g2_case(case, g)
+    outs, launches = _g2_both(grads, mode=mode, clip=clip)
+    assert launches == 1
+    assert _same_outputs(outs), (case, outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", ["nan", "inf"])
+@pytest.mark.parametrize("mode", ["recover", "warn"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_g2_flags_a_nan_or_inf_gradient_as_its_plain_version(
+        cuda, special, mode, aligned):
+    """A NaN or an inf in one gradient (on ``_foreach_norm``'s vectorised
+    path and on its unaligned one): NAN_GRAD, ``bad`` in recover mode,
+    the EWMA state kept — the plain version's bits."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    grads = _ncf_grads(g)
+    if not aligned:
+        grads[0] = torch.randn(70_001, generator=g, device="cuda")[1:]
+    grads[0].view(-1)[1234] = float(special)
+    outs, _ = _g2_both(grads, mode=mode)
+    assert _same_outputs(outs)
+    assert int(outs[1][0]) & 2 and bool(outs[1][1]) == (mode == "recover")
+
+
+@pytest.mark.cuda
+def test_g2_given_gradients_keeps_the_state_on_a_bad_step(cuda):
+    """G2 reading the gradients in recover mode, then the keep (G1 on its
+    ``bad``): a bad step (a NaN gradient) copies every state tensor into
+    its pre-step copy; a good one writes none of them, over six steps in
+    a row, good and bad in turn."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(3)
+    state = [torch.randn(s, generator=g, device="cuda").to(dt) for s, dt in
+             (((300_001,), torch.float32), ((3, 5), torch.bfloat16),
+              ((9,), torch.int64))]
+    for bad in (False, True, True, False, False, True):
+        grads = _ncf_grads(g)
+        if bad:
+            grads[0].view(-1)[5] = float("nan")
+        copies = [torch.zeros_like(t) for t in state]
+        g1 = gk.KERNEL_COMMIT.launches
+        outs, launches = _g2_both(grads, keep=(copies, state))
+        assert gk.KERNEL_COMMIT.launches == g1 + 1
+        assert launches == 1 and _same_outputs(outs)
+        assert bool(outs[1][1]) == bad
+        for c, t in zip(copies, state):
+            assert torch.equal(c, t if bad else torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_g2_captured_step_replays_with_the_plain_bits(cuda, with_keep):
+    """G2 captured in a CUDA graph with the loop's own tickets (reset by
+    the kernel itself, so the graph holds no memset) and replayed twice
+    on new gradient values: each replay gives the plain version's bits
+    on the values it read, with the keep's G1 after it and without (a
+    good step: the copies stay unwritten)."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(11)
+    grads = _ncf_grads(g) + [torch.randn(1001, generator=g, device="cuda")]
+    state = [torch.zeros((), device="cuda"), torch.zeros((), device="cuda"),
+             torch.tensor(0, device="cuda")]
+    loss = torch.tensor(0.7, device="cuda")
+    base = torch.tensor(0, device="cuda")
+    kept = [torch.randn(70_001, generator=g, device="cuda")]
+    copies = [torch.zeros_like(t) for t in kept]
+    keep = gk.commit_table(copies, kept) if with_keep else None
+    tickets = torch.zeros(len(grads) + 1, dtype=torch.int32, device="cuda")
+
+    def step():
+        out = gk.guard_check(loss, None, *state, base, None, sentinel=True,
+                             spike_factor=10.0, grad_clip=1.5,
+                             recover=True, grads=grads, tickets=tickets)
+        if keep is not None:
+            gk.guard_commit(copies, kept, out[1], keep)
+        return out
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        flags, bad, _, scale = step()
+    for replay in range(2):
+        for t in grads:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                    * (replay + 1))
+        for t in state:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [flags.clone(), bad.clone(), scale.clone()] + [
+            t.clone() for t in state]
+        want_state = [torch.zeros((), device="cuda"),
+                      torch.zeros((), device="cuda"),
+                      torch.tensor(0, device="cuda")]
+        want = gk.guard_check_reference(
+            loss, None, *want_state, base, None, sentinel=True,
+            spike_factor=10.0, grad_clip=1.5, recover=True, grads=grads)
+        want = [want[0], want[1], want[3]] + want_state
+        assert _same_outputs([want, got]), (replay, want, got)
+        assert not torch.any(tickets) and not torch.any(copies[0])
+
+
+@pytest.mark.cuda
+def test_g2_launches_of_two_loops_at_once_keep_their_own_tickets(cuda):
+    """Two loops' G2 launches on two streams, each with its own tickets,
+    overlapping over many rounds (one set of many tensors, one of few):
+    every launch gives its plain version's bits, and both ticket sets
+    end at zero."""
+    from analytics_zoo_tpu_torch.ops import guard as gk
+    g = torch.Generator(device="cuda").manual_seed(21)
+    sets = [_ncf_grads(g),
+            [torch.randn(1 + 37 * i, generator=g, device="cuda")
+             for i in range(150)]]
+    tickets = [torch.zeros(len(s) + 1, dtype=torch.int32, device="cuda")
+               for s in sets]
+    zero = torch.tensor(0, device="cuda")
+    loss = torch.tensor(0.7, device="cuda")
+
+    def scalars():
+        return [torch.zeros((), device="cuda"),
+                torch.zeros((), device="cuda"),
+                torch.tensor(0, device="cuda")]
+    want = []
+    for grads in sets:
+        st = scalars()
+        res = gk.guard_check_reference(
+            loss, None, *st, zero, None, sentinel=True, spike_factor=10.0,
+            grad_clip=1.5, recover=True, grads=grads)
+        want.append([t for t in list(res) + st if t is not None])
+    streams = [torch.cuda.Stream() for _ in sets]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[] for _ in sets]
+    for _ in range(50):
+        for k, (grads, s) in enumerate(zip(sets, streams)):
+            with torch.cuda.stream(s):
+                st = scalars()
+                res = gk.guard_check(
+                    loss, None, *st, zero, None, sentinel=True,
+                    spike_factor=10.0, grad_clip=1.5, recover=True,
+                    grads=grads, tickets=tickets[k])
+                got[k].append([t for t in list(res) + st if t is not None])
+    torch.cuda.synchronize()
+    for k in range(len(sets)):
+        for out in got[k]:
+            assert _same_outputs([want[k], out]), k
+        assert not torch.any(tickets[k])
 
 
 @pytest.mark.cuda
@@ -2415,8 +2635,9 @@ def test_guard_commit_kernel_is_the_per_tensor_select(cuda, bad):
 
 @pytest.mark.cuda
 def test_guard_check_keep_copies_the_state_for_a_bad_step_only(cuda):
-    """G2's keep (recover mode): a bad step copies every state tensor into
-    its pre-step copy bit for bit; a good step writes none of them."""
+    """The recover step's keep, G1 on G2's ``bad`` (the norm given, as on
+    a mesh): a bad step copies every state tensor into its pre-step copy
+    bit for bit; a good step writes none of them."""
     from analytics_zoo_tpu_torch.ops import guard as gk
     g = torch.Generator(device="cuda").manual_seed(1)
     state = [torch.randn(s, generator=g, device="cuda").to(dt) for s, dt in
@@ -2432,7 +2653,8 @@ def test_guard_check_keep_copies_the_state_for_a_bad_step_only(cuda):
             torch.tensor(loss_v, device="cuda"),
             torch.tensor(1.0, device="cuda"), *scalars,
             torch.tensor(0, device="cuda"), None, sentinel=True,
-            spike_factor=10.0, grad_clip=0.0, recover=True, keep=keep)
+            spike_factor=10.0, grad_clip=0.0, recover=True)
+        gk.guard_commit(copies, state, flag, keep)
         torch.cuda.synchronize()
         assert bool(flag) == bad
         for c, t in zip(copies, state):

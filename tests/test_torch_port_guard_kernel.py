@@ -105,28 +105,81 @@ def test_g2_plain_version_is_the_torch_chain_bit_for_bit(case, mode,
         assert scale is None
 
 
-@pytest.mark.parametrize("n", [1, 2, 12, 33, 128, 129])
-def test_g2_given_the_per_tensor_norms_is_the_global_norm_chain(n):
-    """``guard_check`` given the per-tensor norms (``gnorm`` None) gives
-    what it gives with ``anomaly.global_norm``'s norm of them, bit for bit:
-    the flags, the clip scale and the new EWMA state (a first step's EWMA
-    value is the norm itself)."""
-    rng = np.random.default_rng(n)
-    grads = [torch.from_numpy(rng.standard_normal(1 + i % 5).astype(
-        np.float32) * (1 + i % 3)) for i in range(n)]
+def _grads(n, dtype, special, seed):
+    """``n`` gradients of assorted lengths (some multiples of 4, some not,
+    one of several 65,536-element chunks past 12 tensors) in ``dtype``;
+    ``special`` puts a NaN or an inf into one of them."""
+    rng = np.random.default_rng(seed)
+    sizes = [1 + (i * 7) % 13 for i in range(n)]
+    if n >= 12:
+        sizes[11] = 2 * 65536 + 3
+    grads = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                              * (1 + i % 3)).to(dtype)
+             for i, s in enumerate(sizes)]
+    if special and n:
+        grads[n // 2][0] = float(special)
+    return grads
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 12, 33, 127, 128, 129, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("special", [None, "nan", "inf"])
+def test_g2_given_the_per_tensor_norms_is_the_global_norm_chain(n, dtype,
+                                                               special):
+    """``guard_check`` given the step's gradients (``gnorm`` None) gives
+    what it gives with the global norm of ``anomaly.tensor_norms`` and
+    ``anomaly.norm_of_norms`` given, bit for bit: the flags, the clip
+    scale and the new EWMA state (a first step's EWMA value is the norm
+    itself), across counts of tensors on both sides of 128 (where
+    ``vector_norm`` loads four floats a thread), f32 and bf16, and a NaN
+    or an inf in a gradient."""
+    grads = _grads(n, dtype, special, seed=n)
+    want_norm = anomaly.norm_of_norms(anomaly.tensor_norms(grads))
     outs = []
-    for gnorm, norms in ((anomaly.global_norm(grads), None),
-                         (None, anomaly.tensor_norms(grads))):
+    for gnorm, given in ((want_norm, None), (None, grads)):
         state = _state(0.0, 0.0, 0)
         flags, bad, _, scale = gk.guard_check(
             torch.tensor(0.7), gnorm, *state, torch.tensor(0), None,
             sentinel=True, spike_factor=10.0, grad_clip=1.5, recover=True,
-            norms=norms)
+            grads=given)
         outs.append((int(flags), bool(bad), scale, *state))
     assert outs[0][:2] == outs[1][:2]
+    if special and n:
+        assert outs[1][:2] == (2, True)
     for want, got in zip(outs[0][2:], outs[1][2:]):
-        assert torch.equal(want, got), (want, got)
-    assert torch.equal(outs[1][3], anomaly.global_norm(grads))
+        assert torch.equal(want.view(-1).view(torch.uint8),
+                           got.view(-1).view(torch.uint8)), (want, got)
+    if not special:
+        assert torch.equal(outs[1][3], anomaly.global_norm(grads))
+
+
+def test_g2_descriptors_follow_foreach_norms_paths():
+    """The descriptors G2 reads: a gradient's chunks (65,536 elements, at
+    least one) count from the first tensor on, 16 warp units a chunk; a
+    f32 gradient takes ``_foreach_norm``'s vectorised path only at a
+    16-byte aligned address with a length that is a multiple of 4, a bf16
+    one whenever its length is (its f32 copy is aligned), and a f64 one is
+    read as its f32 cast."""
+    base = torch.zeros(2 * 65536 + 8)
+    f32 = [base[:8], base[1:9], base[:7], base]
+    bf16 = torch.zeros(12, dtype=torch.bfloat16)
+    grads = f32 + [bf16[:8], bf16[1:8], torch.zeros(5, dtype=torch.float64),
+                   torch.zeros(0)]
+    out, rows, units = gk._grad_rows(grads, -1)
+    rows = list(rows)
+    first = [r & 0xffffffff for r in rows[2::3]]
+    flags = [r >> 32 for r in rows[2::3]]
+    assert first == [0, 1, 2, 3, 6, 7, 8, 9]
+    assert units == 16 * 10     # the empty gradient takes a chunk too
+    assert rows[1::3] == [8, 8, 7, 2 * 65536 + 8, 8, 7, 5, 0]
+    A, B, V = gk._ALIGNED, gk._BF16, gk._VEC8
+    assert flags[:4] == [A, 0, 0, A]
+    assert flags[4] == B | V | A and flags[5] & (B | A) == B
+    assert out[6].dtype == torch.float32 and flags[6] & B == 0
+    with pytest.raises(ValueError, match="dense"):
+        gk._grad_rows([torch.zeros(6, 9)[:, ::2]], -1)
+    with pytest.raises(ValueError, match="device"):
+        gk._grad_rows([torch.zeros(3)], 0)
 
 
 def test_g2_flags_by_case():
