@@ -12,3 +12,17 @@ compiled with ``nvcc`` into ``build/`` at their first launch.
 """
 
 __version__ = "0.1.0"
+
+#: the JAX package's top-level re-exports, resolved on first use (PEP 562)
+#: so that importing the package alone, as the host-only CLIs do, loads
+#: no torch
+_LAZY = {"init_zoo_context": "common.context",
+         "get_zoo_context": "common.context"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

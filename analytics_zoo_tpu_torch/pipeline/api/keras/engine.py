@@ -41,7 +41,8 @@ import copy
 import contextvars
 import math
 import operator
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+import types
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -387,15 +388,22 @@ class Layer(nn.Module):
     def compute_output_shape(self, input_shape):
         """The output shape for ``input_shape`` (leading ``None`` batch
         dim). The JAX package infers it with ``jax.eval_shape``; a real
-        forward at full width is too dear here, so each layer a
-        ``Sequential`` stacks states its rule."""
+        forward at full width is too dear here, so each layer that a
+        ``Sequential`` or a graph ``Model`` holds states its rule."""
         raise NotImplementedError(
             f"{type(self).__name__} has no output-shape rule, so it cannot "
-            f"be stacked in a Sequential yet")
+            f"be stacked in a Sequential or a graph Model yet; a layer "
+            f"whose shape only a forward can tell can return "
+            f"probe_output_shape(self.call, input_shape)")
 
     def add_weight(self, key: str, value: torch.Tensor) -> None:
         """Register ``value`` as parameter ``key`` (the JAX tree key)."""
         self.register_parameter(key, nn.Parameter(value))
+
+    #: ``{attribute: key}`` for the parameters registered under a stand-in
+    #: name, because their JAX tree key is no attribute name (a TF node
+    #: name may hold a ``.``); :func:`tree_key` reads it
+    _tree_keys: Mapping[str, str] = types.MappingProxyType({})
 
     #: the buffers that are model state (:meth:`add_state`), and those of
     #: them that the training step writes
@@ -670,14 +678,22 @@ class KerasNet(Layer):
               generator: Optional[torch.Generator] = None):
         return self(x, training=training, generator=generator)
 
-    def init_weights(self, generator: Optional[torch.Generator] = None
-                     ) -> "KerasNet":
+    def init_weights(self, generator: Optional[torch.Generator] = None,
+                     input_shape=None, sample_input=None) -> "KerasNet":
         """Create every parameter from ``generator`` (default: seeded from
-        ``zoo.seed``) on the CPU, then move it to ``self.device``."""
+        ``zoo.seed``) on the CPU, then move it to ``self.device``. The
+        input shape comes from (in order) ``input_shape``, a
+        ``sample_input`` batch, or the declared layer shapes, as in the
+        JAX package."""
         from ....common.context import get_zoo_context
         if generator is None:
             generator = get_zoo_context().generator()
-        self.build(generator=generator)
+        shape = input_shape
+        if shape is None and sample_input is not None:
+            shapes = [(None,) + tuple(np.shape(a)[1:])
+                      for a in as_list(sample_input)]
+            shape = shapes if len(shapes) > 1 else shapes[0]
+        self.build(shape, generator=generator)
         self.to(self.device)
         self.built = True
         return self
@@ -1054,6 +1070,20 @@ def named_state(module: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
+def tree_key(module: Optional[nn.Module], name: str) -> tuple:
+    """The JAX tree's key path of ``module``'s parameter or state ``name``
+    (a dotted path): its components, with the owning layer's stand-in
+    attribute name (``Layer._tree_keys``) given back as its JAX key.
+    Without ``module``, the components of ``name``."""
+    *path, leaf = name.split(".")
+    if module is not None:
+        owner = module
+        for part in path:    # by ``_modules``: a child may be "forward"
+            owner = owner._modules[part]
+        leaf = getattr(owner, "_tree_keys", {}).get(leaf, leaf)
+    return (*path, leaf)
+
+
 def tree_order(named: Dict[str, Any]) -> list:
     """``named``'s ``(path, value)`` pairs in the JAX ``tree_flatten``
     order of the matching nested dict: sorted keys, depth first — the
@@ -1061,9 +1091,9 @@ def tree_order(named: Dict[str, Any]) -> list:
     return sorted(named.items(), key=lambda kv: kv[0].split("."))
 
 
-def _load_tree(want: Dict[str, torch.Tensor], tree: Dict[str, Any],
-               what: str) -> None:
-    want = {name.replace(".", "/"): t for name, t in want.items()}
+def _load_tree(module: nn.Module, want: Dict[str, torch.Tensor],
+               tree: Dict[str, Any], what: str) -> None:
+    want = {"/".join(tree_key(module, name)): t for name, t in want.items()}
     got = flatten_tree(tree)
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
@@ -1094,9 +1124,55 @@ def load_param_tree(module: nn.Module, tree: Dict[str, Any],
     same shape (a parameter placed on a device mesh takes its rank's slice
     of the whole array, ``parallel.mesh.place_params``); a missing or an
     extra key raises."""
-    _load_tree(dict(module.named_parameters()), tree, "param")
+    _load_tree(module, dict(module.named_parameters()), tree, "param")
     if state is not None:
-        _load_tree(named_state(module), state, "state")
+        _load_tree(module, named_state(module), state, "state")
+
+
+def _copy_in(dst: Dict[str, torch.Tensor], src: Dict[str, Any]) -> None:
+    with torch.no_grad():
+        for k, v in src.items():
+            dst[k].copy_(torch.as_tensor(np.asarray(v)).to(dst[k].dtype))
+
+
+def install_imported_weights(model: "KerasNet", weights: Dict[str, Any],
+                             states: Optional[Dict[str, Any]] = None,
+                             source: str = "imported") -> "KerasNet":
+    """The model importers' shared installer (JAX ``engine.py:649-670``):
+    init the graph, then overwrite named layers' parameters (shape-checked)
+    and model state. ``weights``/``states`` map a layer name to a dict of
+    arrays under the JAX tree's keys, in the JAX layouts (a Dense ``W``
+    ``(in, out)``, a conv ``W`` HWIO); state goes into the layer's
+    :meth:`Layer.add_state` buffers."""
+    model.init_weights()
+    layers = dict(model.named_children())
+
+    def leaves(layer, named):
+        return {"/".join(tree_key(layer, n)): t for n, t in named.items()}
+
+    for lname, w in weights.items():
+        if lname not in layers:
+            raise ValueError(f"{source} weights for unknown layer {lname!r}")
+        tmpl = leaves(layers[lname], dict(layers[lname].named_parameters()))
+        for k, v in w.items():
+            if k not in tmpl:
+                raise ValueError(f"{lname}: {source} provides param {k!r}; "
+                                 f"layer has {sorted(tmpl)}")
+            if tuple(tmpl[k].shape) != np.shape(v):
+                raise ValueError(f"{lname}.{k}: {source} weight shape "
+                                 f"{np.shape(v)} vs graph "
+                                 f"{tuple(tmpl[k].shape)}")
+        _copy_in(tmpl, w)
+    for lname, st in (states or {}).items():
+        if lname not in layers:
+            raise ValueError(f"{source} state for unknown layer {lname!r}")
+        tmpl = leaves(layers[lname], named_state(layers[lname]))
+        missing = sorted(set(st) - set(tmpl))
+        if missing:
+            raise ValueError(f"{lname}: {source} provides state {missing}; "
+                             f"layer has {sorted(tmpl)}")
+        _copy_in(tmpl, st)
+    return model
 
 
 def as_list(x) -> Sequence:

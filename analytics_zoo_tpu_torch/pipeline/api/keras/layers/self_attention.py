@@ -91,6 +91,11 @@ class MultiHeadSelfAttention(Layer):
         self.qkv.build(generator=generator)
         self.proj.build(generator=generator)
 
+    def compute_output_shape(self, input_shape):
+        shape = (input_shape[0] if isinstance(input_shape, list)
+                 else input_shape)
+        return tuple(shape[:-1]) + (self.hidden_size,)
+
     @staticmethod
     def _kv_mask(mask):
         """The ``(B, Tk)`` key-padding form of a broadcastable mask, or
@@ -284,7 +289,7 @@ class TransformerBlock(Layer):
         self.ln2.build(shape, generator=generator)
 
     def compute_output_shape(self, input_shape):
-        return input_shape
+        return input_shape[0] if isinstance(input_shape, list) else input_shape
 
     def call(self, x, *, training=False, generator=None):
         mask = None

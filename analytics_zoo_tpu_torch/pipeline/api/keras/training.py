@@ -139,7 +139,7 @@ from ....utils.checkpoint import (CheckpointArchitectureError,
 from . import dispatch, objectives
 from .engine import (collect_aux_losses, collect_state, commit_state,
                      compute_dtype, discard_state, load_param_tree,
-                     named_state, written_state)
+                     named_state, tree_key, written_state)
 from .mesh_step import MeshStep, _full_shape
 from .metrics import Metric
 from .optimizers import (GradientTransformation, apply_updates,
@@ -194,6 +194,24 @@ def _as_list(x):
 
 def _num_examples(x) -> int:
     return _as_list(x)[0].shape[0]
+
+
+def iter_batches(x, y, batch_size: int, *, shuffle: bool, seed: int,
+                 drop_last: bool):
+    """Host-side minibatches of numpy arrays (JAX ``training.py:127-139``):
+    ``(x_batch, y_batch)`` in order, or in the order
+    ``np.random.default_rng(seed)`` shuffles; the short tail kept unless
+    ``drop_last``."""
+    n = _num_examples(x)
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    end = n - (n % batch_size) if drop_last else n
+    for i in range(0, end, batch_size):
+        idx = order[i:i + batch_size]
+        xs = [np.asarray(a)[idx] for a in _as_list(x)]
+        yield (xs if len(xs) > 1 else xs[0],
+               None if y is None else np.asarray(y)[idx])
 
 
 def _to_device(x, device: torch.device):
@@ -393,13 +411,16 @@ def _write_param_histograms(tb, params, epochs, iteration,
     walk(params, "")
 
 
-def _param_tree(named: Dict[str, Any]) -> Dict[str, Any]:
+def _param_tree(named: Dict[str, Any],
+                module: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
     """``{"a.b": x}`` → ``{"a": {"b": x}}``: the JAX param tree's
-    nesting, whose sorted flatten order a snapshot's leaves follow."""
+    nesting, whose sorted flatten order a snapshot's leaves follow. With
+    ``module`` (the owner of ``named``'s paths), a stand-in attribute name
+    is given back as its JAX key (:func:`engine.tree_key`)."""
     tree: Dict[str, Any] = {}
     for name, value in named.items():
         node = tree
-        *path, leaf = name.split(".")
+        *path, leaf = tree_key(module, name)
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = value
@@ -692,9 +713,16 @@ class TrainingLoop:
             self._goodput.note(category)
 
     # -- model plumbing -----------------------------------------------------
-    def _ensure_weights(self) -> None:
+    def _ensure_weights(self, sample=None) -> None:
+        """Build the model's weights if it has none, its input shape taken
+        from ``sample(1)`` (a one-row batch; read only then) where the
+        layers declare none."""
         if not getattr(self.model, "built", True):
-            self.model.init_weights()
+            if (getattr(self.model, "input_shape", None) is None
+                    and sample is not None):
+                self.model.init_weights(sample_input=sample(1))
+            else:
+                self.model.init_weights()
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
@@ -1017,8 +1045,10 @@ class TrainingLoop:
             opt_leaves = ([np.int64(count)]
                           + dispatch._leaves(opt_state))
             meta[OPT_STATE_ORDER[0]] = OPT_STATE_ORDER[1]
-        return ({"params": _param_tree(named), "opt_state": opt_leaves,
-                 "net_state": _param_tree(state)}, meta)
+        module = tree_module(self.model)
+        return ({"params": _param_tree(named, module),
+                 "opt_state": opt_leaves,
+                 "net_state": _param_tree(state, module)}, meta)
 
     def _tree_state(self) -> Dict[str, torch.Tensor]:
         """The model state (constant and written) under its JAX net-state path."""
@@ -1489,7 +1519,7 @@ class TrainingLoop:
         sen = self._sentinel_config()
         monitor = _SentinelMonitor(self, sen) if sen.active else None
         model = self.model
-        self._ensure_weights()
+        self._ensure_weights(fs.sample)
         device = self._device()
         plan = self._mesh_step()
         if plan is not None and (scan_steps > 1 or device_cache):
@@ -1735,7 +1765,8 @@ class TrainingLoop:
             if len(histogram_epochs):
                 _write_param_histograms(
                     tb, _param_tree(dict(tree_module(model)
-                                         .named_parameters())),
+                                         .named_parameters()),
+                                    tree_module(model)),
                     histogram_epochs, iteration,
                     n_steps=n_steps or len(losses))
             tb.writer.flush()

@@ -244,9 +244,10 @@ class InferenceModel:
         mgr = CheckpointManager(ckpt_dir, registry=self.metrics)
         out = mgr.restore_latest(
             {"params": _param_tree({n: _shape_of(p)
-                                    for n, p in net.named_parameters()}),
+                                    for n, p in net.named_parameters()},
+                                   net),
              "net_state": _param_tree({n: _shape_of(t) for n, t
-                                       in named_state(net).items()})},
+                                       in named_state(net).items()}, net)},
             quarantine=False)
         if out is None:
             raise FileNotFoundError(f"no valid snapshot in {ckpt_dir}")

@@ -432,10 +432,21 @@
    A's static records/s at batch 32, VGG-16's images/s at batch 32 and
    TextClassifier's static records/s.
 
+22. Net import phase (slice 26): VGG-16 (configuration D, 224 x 224,
+   1000 classes, seeded weights) imported with ``Net.load_torch`` from its
+   ``torch.nn`` module and from a TorchScript file of it (the same bits),
+   served by ``InferenceModel`` at batch 32 and 1 and held to the module's
+   NCHW forward; weight-only int8 (K6 on fc6-fc8, 3 launches a forward,
+   held to K6's plain version); the same weights as a frozen NHWC
+   GraphDef written here and decoded by ``Net.load_tf``; VGG-16's
+   classifier head as a SavedModel written here (one-shard tensor bundle,
+   CRC-32C checked by TensorFlow in the CPU tests) loaded by
+   ``Net.load_tf(dir)``, served and fine-tuned 3 steps.
+
 ``python3 chip_smoke.py --only sentinel,mesh`` (or ``reliability``,
 ``object_detection``, ``c8_kernel``, ``static_int8_kernel``,
-``int8_head``, ``fleet``) runs those phases alone after the build (their
-JSON, no final line).
+``int8_head``, ``fleet``, ``net_import``) runs those phases alone after
+the build (their JSON, no final line).
 
 Device kernel lists (``device_kernels``, ``step_kernels``) are read
 from a CUDA graph of the call: its kernel nodes through the driver API,
@@ -453,7 +464,8 @@ path; K6's also from TextClassifier's weight-only int8 predicts and
 served lane, Q8's from config A's, VGG-16's and TextClassifier's static
 predicts, C8's and its
 quantize pass's from VGG-16's, its weight repack's from VGG-16's static
-install, K6's also from ResNet-50's int8 serving lane, SA's also from the oocore
+install, K6's also from ResNet-50's int8 serving lane and the imported
+VGG-16's weight-only predicts, SA's also from the oocore
 gradient; K2-K5b also on the 32k, remat and BERT NER paths, with their
 32k shapes' fields; K1-K5b also on each rank of each mesh case; G1 and
 G2 from the sentinel fit, G2's also from the reliability phase's
@@ -9511,10 +9523,628 @@ def nms_kernel_row(det_out):
             "rows": n1["rows"], "k": n1["k"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 26: model import (TorchNet, TorchScript, TFNet, SavedModel)
+# ---------------------------------------------------------------------------
+
+#: VGG-16, configuration D of Simonyan & Zisserman: 13 3x3 convs (channel
+#: counts) and 5 max pools ("M"), then 25088 -> 4096 -> 4096 -> 1000
+VGG16_D = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+           512, 512, 512, "M", 512, 512, 512, "M")
+NET_HW, NET_CLASSES, NET_FC = 224, 1000, 4096
+NET_BATCH = 32
+#: the import gates: |got - want| <= atol * max|want| + rtol * |want|
+NET_RTOL = NET_ATOL = 1e-4
+#: images a timed pass of the fp32 import serves (batch 32)
+NET_TIMED_IMAGES = 256
+#: SavedModel fine-tune: 3 steps of batch 32
+NET_FT_ROWS = 96
+
+
+def vgg16_module(seed=0, widths=VGG16_D, hw=NET_HW, fc=NET_FC,
+                 classes=NET_CLASSES):
+    """VGG-16 (configuration D, torchvision's layer order with its
+    classifier's dropout) as a ``torch.nn.Sequential`` in eval mode, its
+    weights drawn from ``torch.Generator().manual_seed(seed)``: He-normal
+    kernels, small uniform biases. ``widths``/``hw``/``fc``/``classes``
+    shrink it for a CPU rehearsal."""
+    import torch
+    from torch import nn
+    g = torch.Generator().manual_seed(seed)
+
+    def init(layer, fan_in):
+        with torch.no_grad():
+            layer.weight.copy_(torch.randn(layer.weight.shape, generator=g)
+                               * math.sqrt(2.0 / fan_in))
+            layer.bias.copy_((torch.rand(layer.bias.shape, generator=g)
+                              - 0.5) * 0.02)
+        return layer
+
+    layers, c, side = [], 3, hw
+    for v in widths:
+        if v == "M":
+            layers.append(nn.MaxPool2d(2, 2))
+            side //= 2
+        else:
+            layers += [init(nn.Conv2d(c, v, 3, padding=1), 9 * c),
+                       nn.ReLU(inplace=True)]
+            c = v
+    flat = c * side * side
+    layers += [nn.Flatten(), init(nn.Linear(flat, fc), flat),
+               nn.ReLU(inplace=True), nn.Dropout(0.5),
+               init(nn.Linear(fc, fc), fc), nn.ReLU(inplace=True),
+               nn.Dropout(0.5), init(nn.Linear(fc, classes), fc)]
+    return nn.Sequential(*layers).eval()
+
+
+def tf_node(name, op, inputs=(), *attrs):
+    """One GraphDef ``node`` entry (``tests/test_tfnet.py``'s encoder)."""
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes
+    buf = field_bytes(1, name.encode()) + field_bytes(2, op.encode())
+    for i in inputs:
+        buf += field_bytes(3, i.encode())
+    return field_bytes(1, buf + b"".join(attrs))
+
+
+def tf_attr(key, payload):
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes
+    return field_bytes(5, field_bytes(1, key.encode())
+                       + field_bytes(2, payload))
+
+
+def tf_attr_s(key, s):
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes
+    return tf_attr(key, field_bytes(2, s.encode()))
+
+
+def tf_attr_ints(key, vs):
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes, varint
+    return tf_attr(key, field_bytes(1, field_bytes(
+        3, b"".join(varint(v) for v in vs))))
+
+
+def tf_attr_dtype(key, code=1):
+    from analytics_zoo_tpu_torch.utils.proto import field_varint
+    return tf_attr(key, field_varint(6, code))
+
+
+def tf_op(name, op, inputs, *attrs):
+    """A float32 op node: ``tf_node`` with its ``T`` attribute."""
+    return tf_node(name, op, inputs, tf_attr_dtype("T"), *attrs)
+
+
+def tf_shape(shape):
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes, field_varint
+    return b"".join(field_bytes(2, field_varint(1, d)) for d in shape)
+
+
+#: numpy dtype → TF DataType enum (the subset the writers emit)
+TF_DTYPES = {"float32": 1, "int32": 3, "int64": 9}
+
+
+def tf_const(name, arr):
+    """A ``Const`` node holding ``arr`` as ``tensor_content``."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes, field_varint
+    arr = np.asarray(arr, order="C")
+    tensor = (field_varint(1, TF_DTYPES[arr.dtype.name])
+              + field_bytes(2, tf_shape(arr.shape))
+              + field_bytes(4, arr.tobytes()))
+    return tf_node(name, "Const", (), tf_attr("value", field_bytes(8, tensor)),
+                   tf_attr_dtype("dtype", TF_DTYPES[arr.dtype.name]))
+
+
+def tf_string_const(name, strings):
+    """A ``Const`` node of DT_STRING (a scalar for one string)."""
+    from analytics_zoo_tpu_torch.utils.proto import field_bytes, field_varint
+    shape = () if isinstance(strings, str) else (len(strings),)
+    vals = [strings] if isinstance(strings, str) else strings
+    tensor = (field_varint(1, 7) + field_bytes(2, tf_shape(shape))
+              + b"".join(field_bytes(8, v.encode()) for v in vals))
+    return tf_node(name, "Const", (), tf_attr("value", field_bytes(8, tensor)),
+                   tf_attr_dtype("dtype", 7))
+
+
+def vgg16_graphdef(module):
+    """The frozen NHWC GraphDef of ``vgg16_module``'s weights: each conv
+    a ``Conv2D`` (SAME) + ``BiasAdd`` + ``Relu`` on its HWIO kernel, each
+    pool a 2x2 ``MaxPool``, then ``Reshape`` to (-1, H*W*C) and three
+    ``MatMul`` + ``BiasAdd`` (fc6's rows permuted from torch's C*H*W
+    flatten order to NHWC's H*W*C), ``Relu`` between. Output ``logits``."""
+    import numpy as np
+    from torch import nn
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    nodes, x, i, c, side = [tf_node("input", "Placeholder", (),
+                                    tf_attr_dtype("dtype"))], "input", 0, 3, 0
+    for m in module:
+        if isinstance(m, nn.Conv2d):
+            i += 1
+            k, b = f"conv{i}/kernel", f"conv{i}/bias"
+            nodes += [tf_const(k, host(m.weight).transpose(2, 3, 1, 0)),
+                      tf_const(b, host(m.bias)),
+                      tf_op(f"conv{i}/Conv2D", "Conv2D", (x, k),
+                              tf_attr_ints("strides", [1, 1, 1, 1]),
+                              tf_attr_s("padding", "SAME")),
+                      tf_op(f"conv{i}/BiasAdd", "BiasAdd",
+                              (f"conv{i}/Conv2D", b)),
+                      tf_op(f"conv{i}/Relu", "Relu", (f"conv{i}/BiasAdd",))]
+            x, c = f"conv{i}/Relu", m.out_channels
+        elif isinstance(m, nn.MaxPool2d):
+            nodes.append(tf_op(f"pool{i}", "MaxPool", (x,),
+                                 tf_attr_ints("ksize", [1, 2, 2, 1]),
+                                 tf_attr_ints("strides", [1, 2, 2, 1]),
+                                 tf_attr_s("padding", "VALID")))
+            x = f"pool{i}"
+    fcs = [m for m in module if isinstance(m, nn.Linear)]
+    side = int(round(math.sqrt(fcs[0].in_features // c)))
+    nodes += [tf_const("flatten/shape",
+                       np.asarray([-1, side * side * c], np.int32)),
+              tf_op("flatten", "Reshape", (x, "flatten/shape"),
+                    tf_attr_dtype("Tshape", 3))]
+    x = "flatten"
+    for j, fc in enumerate(fcs):
+        w = host(fc.weight)
+        if j == 0:            # torch's C*H*W rows → NHWC's H*W*C
+            w = w.reshape(-1, c, side, side).transpose(0, 2, 3, 1) \
+                .reshape(w.shape[0], -1)
+        name = f"fc{6 + j}"
+        nodes += [tf_const(f"{name}/kernel", np.ascontiguousarray(w.T)),
+                  tf_const(f"{name}/bias", host(fc.bias)),
+                  tf_op(f"{name}/MatMul", "MatMul", (x, f"{name}/kernel")),
+                  tf_op(name if j == len(fcs) - 1 else f"{name}/BiasAdd",
+                          "BiasAdd", (f"{name}/MatMul", f"{name}/bias"))]
+        x = name if j == len(fcs) - 1 else f"{name}/BiasAdd"
+        if j < len(fcs) - 1:
+            nodes.append(tf_op(f"{name}/Relu", "Relu", (x,)))
+            x = f"{name}/Relu"
+    return b"".join(nodes)
+
+
+def _slicing_tables():
+    """The port's CRC-32C table (``utils/tensorboard.py``) and the three
+    more of slicing by 4."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils.tensorboard import _CRC_TABLE
+    tables = [np.asarray(_CRC_TABLE, np.uint32)]
+    for _ in range(3):
+        prev = tables[-1]
+        tables.append(tables[0][prev & 0xFF] ^ (prev >> np.uint32(8)))
+    return tables
+
+
+def _gf2_apply(cols, v):
+    """The GF(2) 32x32 matrix of columns ``cols`` applied to each word of
+    ``v``."""
+    import numpy as np
+    out = np.zeros_like(v)
+    for j in range(32):
+        out ^= ((v >> np.uint32(j)) & np.uint32(1)) * cols[j]
+    return out
+
+
+def _zeros_shift(t0, n):
+    """The matrix that advances a CRC register over ``n`` zero bytes."""
+    import numpy as np
+    unit = (np.uint32(1) << np.arange(32, dtype=np.uint32)).astype(np.uint32)
+    base = (t0[unit & 0xFF] ^ (unit >> np.uint32(8))).astype(np.uint32)
+    result = unit
+    while n:
+        if n & 1:
+            result = _gf2_apply(base, result)
+        base = _gf2_apply(base, base)
+        n >>= 1
+    return result
+
+
+def bundle_crc(a, chunk: int = 4096) -> int:
+    """The masked CRC-32C of array ``a``'s bytes, as a bundle entry
+    stores it. The port's byte-wise CRC (``utils/tensorboard.py``) would
+    take minutes over fc6's 0.41 GB, so whole chunks of ``chunk`` bytes
+    run side by side in numpy (slicing by 4), their registers folded
+    pairwise by the zero-byte shift over GF(2); the tail's CRC, from the
+    byte-wise one, joins theirs as zlib's ``crc32_combine`` does."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils.tensorboard import _crc32c, _masked_crc
+    buf = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    k = len(buf) // chunk
+    if not k:
+        return _masked_crc(buf.tobytes())
+    t0, t1, t2, t3 = _slicing_tables()
+    words = buf[:k * chunk].view("<u4").reshape(k, chunk // 4).T.copy()
+    regs = np.zeros(k, np.uint32)
+    for w in words:
+        regs ^= w
+        regs = (t3[regs & 0xFF] ^ t2[(regs >> 8) & 0xFF]
+                ^ t1[(regs >> 16) & 0xFF] ^ t0[regs >> 24])
+    # leading zero chunks leave the fold unchanged: pad to a power of 2
+    regs = np.concatenate([np.zeros((1 << (k - 1).bit_length()) - k,
+                                    np.uint32), regs])
+    shift = _zeros_shift(t0, chunk)
+    while len(regs) > 1:
+        regs = _gf2_apply(shift, regs[0::2]) ^ regs[1::2]
+        shift = _gf2_apply(shift, shift)
+    ones = np.asarray([0xFFFFFFFF], np.uint32)
+    head = _gf2_apply(_zeros_shift(t0, k * chunk), ones) ^ regs[0] ^ ones
+    tail = buf[k * chunk:].tobytes()
+    crc = int(_gf2_apply(_zeros_shift(t0, len(tail)), head)[0]) \
+        ^ _crc32c(tail)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _block(entries):
+    """One leveldb table block of ``(key, value)`` pairs (keys sorted),
+    no prefix sharing, one restart point; with its 5-byte trailer (type 0
+    = uncompressed, then the masked CRC-32C of block and type)."""
+    import struct
+
+    from analytics_zoo_tpu_torch.utils.proto import varint
+    from analytics_zoo_tpu_torch.utils.tensorboard import _masked_crc
+    body = b"".join(varint(0) + varint(len(k)) + varint(len(v)) + k + v
+                    for k, v in entries)
+    body += struct.pack("<II", 0, 1)
+    return body, b"\x00" + struct.pack("<I", _masked_crc(body + b"\x00"))
+
+
+def write_tensor_bundle(prefix, arrays):
+    """A TensorFlow tensor bundle of ``arrays`` (name → float32/int32/
+    int64 array) at ``prefix``: ``prefix.data-00000-of-00001`` (the
+    tensors' bytes back to back) and ``prefix.index``, a leveldb table of
+    one uncompressed data block (the ``BundleHeaderProto`` under the empty
+    key, then one ``BundleEntryProto`` a tensor, keys sorted), its index
+    block, an empty metaindex block and the 48-byte footer."""
+    import struct
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils.proto import (field_bytes,
+                                                     field_varint, varint)
+    entries, offset = [], 0
+    with open(f"{prefix}.data-00000-of-00001", "wb") as f:
+        for name in sorted(arrays):
+            a = np.asarray(arrays[name], order="C")
+            f.write(a.tobytes())
+            entries.append((name.encode(), field_varint(
+                1, TF_DTYPES[a.dtype.name]) + field_bytes(
+                2, tf_shape(a.shape)) + field_varint(3, 0) + field_varint(
+                4, offset) + field_varint(5, a.nbytes)
+                + varint((6 << 3) | 5) + struct.pack("<I", bundle_crc(a))))
+            offset += a.nbytes
+    # BundleHeaderProto: num_shards 1, endianness LITTLE (0), version 1
+    header = field_varint(1, 1) + field_bytes(3, field_varint(1, 1))
+    data, data_trailer = _block([(b"", header)] + entries)
+    meta, meta_trailer = _block([])
+    handle = varint(0) + varint(len(data))
+    index, index_trailer = _block([(entries[-1][0] if entries else b"",
+                                    handle)])
+    out = data + data_trailer
+    meta_handle = varint(len(out)) + varint(len(meta))
+    out += meta + meta_trailer
+    index_handle = varint(len(out)) + varint(len(index))
+    out += index + index_trailer
+    footer = meta_handle + index_handle
+    footer += b"\x00" * (40 - len(footer)) + struct.pack(
+        "<Q", 0xDB4775248B80FB57)
+    with open(f"{prefix}.index", "wb") as f:
+        f.write(out + footer)
+
+
+def write_saved_model(path, weights):
+    """A TF1-style SavedModel of VGG-16's classifier head at ``path``:
+    ``saved_model.pb`` (one MetaGraph tagged ``serve``: a ``features``
+    Placeholder, fc6-fc8 as ``VariableV2`` nodes read through ``Identity``
+    into ``MatMul`` + ``BiasAdd`` (+ ``Relu``), ``Softmax`` to ``probs``;
+    the Saver's ``RestoreV2``/``Assign`` machinery and its ``SaverDef``; a
+    ``serving_default`` signature) and ``variables/`` holding ``weights``
+    (``{"fc6/kernel": (in, out), "fc6/bias": ...}``) in one tensor
+    bundle."""
+    from analytics_zoo_tpu_torch.utils.proto import (field_bytes,
+                                                     field_varint, varint)
+    os.makedirs(os.path.join(path, "variables"), exist_ok=True)
+    write_tensor_bundle(os.path.join(path, "variables", "variables"),
+                        weights)
+    names = sorted(weights)
+
+    def var(name, shape):
+        return [tf_node(name, "VariableV2", (), tf_attr_dtype("dtype"),
+                        tf_attr("shape", field_bytes(7, tf_shape(shape))),
+                        tf_attr_s("container", ""),
+                        tf_attr_s("shared_name", "")),
+                tf_op(f"{name}/read", "Identity", (name,))]
+
+    nodes = [tf_node("features", "Placeholder", (), tf_attr_dtype("dtype"))]
+    x, layers = "features", sorted({k.split("/")[0] for k in weights})
+    for j, name in enumerate(layers):
+        nodes += var(f"{name}/kernel", weights[f"{name}/kernel"].shape)
+        nodes += var(f"{name}/bias", weights[f"{name}/bias"].shape)
+        nodes += [tf_op(f"{name}/MatMul", "MatMul",
+                        (x, f"{name}/kernel/read")),
+                  tf_op(f"{name}/BiasAdd", "BiasAdd",
+                        (f"{name}/MatMul", f"{name}/bias/read"))]
+        x = f"{name}/BiasAdd"
+        if j < len(layers) - 1:
+            nodes.append(tf_op(f"{name}/Relu", "Relu", (x,)))
+            x = f"{name}/Relu"
+    nodes.append(tf_op("probs", "Softmax", (x,)))
+    # the Saver's machinery: SaveV2 of every variable, and the restore
+    # path (filename → RestoreV2 → one Assign a variable, grouped under
+    # save/restore_all)
+    dtypes = tf_attr("dtypes", field_bytes(1, field_bytes(
+        6, varint(1) * len(names))))
+    nodes += [tf_string_const("save/filename/input", "model"),
+              tf_node("save/Const", "PlaceholderWithDefault",
+                      ("save/filename/input",), tf_attr_dtype("dtype", 7),
+                      tf_attr("shape", field_bytes(7, b""))),
+              tf_string_const("save/RestoreV2/tensor_names", names),
+              tf_string_const("save/RestoreV2/shape_and_slices",
+                              [""] * len(names)),
+              tf_node("save/SaveV2", "SaveV2",
+                      ["save/Const", "save/RestoreV2/tensor_names",
+                       "save/RestoreV2/shape_and_slices"] + names, dtypes),
+              tf_node("save/control_dependency", "Identity",
+                      ("save/Const", "^save/SaveV2"),
+                      tf_attr_dtype("T", 7)),
+              tf_node("save/RestoreV2", "RestoreV2",
+                      ("save/Const", "save/RestoreV2/tensor_names",
+                       "save/RestoreV2/shape_and_slices"), dtypes)]
+    for i, name in enumerate(names):
+        nodes.append(tf_op(f"save/Assign_{i}", "Assign",
+                           (name, f"save/RestoreV2:{i}" if i
+                            else "save/RestoreV2")))
+    nodes.append(tf_node("save/restore_all", "NoOp",
+                         [f"^save/Assign_{i}" for i in range(len(names))]))
+
+    def tensor_info(name):
+        return field_bytes(1, f"{name}:0".encode()) + field_varint(2, 1)
+
+    signature = (field_bytes(1, field_bytes(1, b"features") + field_bytes(
+        2, tensor_info("features")))
+        + field_bytes(2, field_bytes(1, b"probs") + field_bytes(
+            2, tensor_info("probs")))
+        + field_bytes(3, b"tensorflow/serving/predict"))
+    # SaverDef: filename tensor, save tensor, restore op, version V2
+    saver = (field_bytes(1, b"save/Const:0")
+             + field_bytes(2, b"save/control_dependency:0")
+             + field_bytes(3, b"save/restore_all") + field_varint(7, 2))
+    meta_graph = (field_bytes(1, field_bytes(4, b"serve"))
+                  + field_bytes(2, b"".join(nodes))
+                  + field_bytes(3, saver)
+                  + field_bytes(5, field_bytes(1, b"serving_default")
+                                + field_bytes(2, signature)))
+    with open(os.path.join(path, "saved_model.pb"), "wb") as f:
+        f.write(field_varint(1, 1) + field_bytes(2, meta_graph))
+
+
+def close_to(got, want):
+    """``(ok, max |got - want| / max|want|)`` under the import gates."""
+    import numpy as np
+    scale = float(np.max(np.abs(want)))
+    err = np.abs(got - want)
+    ok = bool(np.all(err <= NET_ATOL * scale + NET_RTOL * np.abs(want)))
+    return ok, float(err.max()) / scale
+
+
+def net_import_phase():
+    """Slice 26's model import at full width. (a) VGG-16 (configuration
+    D, 224 x 224, 1000 classes, seeded weights) imported from its
+    ``torch.nn`` module with ``Net.load_torch(module, (3, 224, 224))`` and
+    served by ``InferenceModel`` at batch 32 and 1 in fp32, held to the
+    module's own NCHW forward on the card; images/s at batch 32; the same
+    import weight-only int8 (K6 on fc6-fc8: 3 launches a forward, gated,
+    the output held to K6's plain version at K6's tolerance, 1e-4 of the
+    largest logit; top-1 agreement with fp32 printed, ungated: the weights
+    are random); the module scripted, saved and loaded from the file: the
+    same bits. (b) The same weights as a frozen NHWC GraphDef written here
+    (about 0.55 GB), decoded by ``Net.load_tf`` (seconds printed) and
+    called on a numpy batch (weights on the card from load, a CPU tensor
+    refused) and served in a ``Sequential`` at batch 32, both held to
+    (a)'s reference. (c)
+    VGG-16's classifier head (fc6-fc8) as a SavedModel written here
+    (``VariableV2`` nodes, a one-shard tensor bundle), loaded by
+    ``Net.load_tf(dir)``, served at batch 32 against the same math in
+    torch, then fine-tuned 3 steps (adam, ``scce``): finite losses and a
+    moved weight gated. TF32 stays off. Every number beside the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.common.context import init_zoo_context
+    from analytics_zoo_tpu_torch.ops.pallas.quantized import (
+        KERNEL_INT8_MATMUL, KERNEL_INT8_ROUTES)
+    from analytics_zoo_tpu_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_tpu_torch.pipeline.api.net import Net
+    from analytics_zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    init_zoo_context(conf={"zoo.compute.dtype": "float32", "zoo.seed": 0})
+    out = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]}
+    t0 = time.perf_counter()
+    module = vgg16_module()
+    out["module_build_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(26)
+    x = rng.normal(size=(NET_BATCH, NET_HW, NET_HW, 3)).astype(np.float32)
+    module_cuda = module.cuda()
+    with torch.no_grad():
+        ref = module_cuda(torch.from_numpy(x).cuda().permute(0, 3, 1, 2)
+                          .contiguous()).cpu().numpy()
+    check(np.all(np.isfinite(ref)) and np.abs(ref).max() > 0,
+          "VGG-16 module logits")
+
+    # (a) TorchNet
+    t0 = time.perf_counter()
+    model = Net.load_torch(module_cuda, (3, NET_HW, NET_HW))
+    torch.cuda.synchronize()
+    out["torchnet_import_s"] = time.perf_counter() - t0
+    im = InferenceModel().from_keras(model)
+    errs = {}
+    for tag, rows in (("b32", NET_BATCH), ("b1", 1)):
+        got = im.predict(x[:rows])
+        ok, errs[tag] = close_to(got, ref[:rows])
+        check(got.shape == (rows, NET_CLASSES) and ok,
+              f"TorchNet VGG-16 {tag} logits off the module's by "
+              f"{errs[tag]} of the largest")
+    out["torchnet_rel_err"] = errs
+    im.predict(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NET_TIMED_IMAGES // NET_BATCH):
+        logits32 = im.predict(x)
+    out["torchnet_fp32_b32_images_per_s"] = (
+        NET_TIMED_IMAGES / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for i in range(8):
+        im.predict(x[i:i + 1])
+    out["torchnet_fp32_b1_ms"] = (time.perf_counter() - t0) / 8 * 1e3
+
+    im8 = InferenceModel().from_keras(model, quantize="int8")
+    k6_start = KERNEL_INT8_MATMUL.launches
+    k6_routes = {r: c.launches for r, c in KERNEL_INT8_ROUTES.items()}
+    im8.predict(x)                                   # warm-up
+    torch.cuda.synchronize()
+    before = KERNEL_INT8_MATMUL.launches
+    routes = {r: c.launches for r, c in KERNEL_INT8_ROUTES.items()}
+    got8 = im8.predict(x)
+    torch.cuda.synchronize()
+    out["k6_launches_b32"] = KERNEL_INT8_MATMUL.launches - before
+    out["k6_routes_b32"] = {r: c.launches - routes[r]
+                            for r, c in KERNEL_INT8_ROUTES.items()}
+    check(out["k6_launches_b32"] == 3,
+          f"weight-only VGG-16 launched K6 {out['k6_launches_b32']} times "
+          f"a forward, not 3")
+    with plain_int8_dense():
+        plain8 = im8.predict(x)
+    k6_err = float(np.abs(got8 - plain8).max())
+    out["int8_vs_plain_max_abs_err"] = k6_err
+    check(k6_err <= 1e-4 * float(np.abs(plain8).max()),
+          f"weight-only VGG-16 off K6's plain version by {k6_err}")
+    out["int8_top1_agreement_pct"] = float(
+        (got8.argmax(-1) == logits32.argmax(-1)).mean() * 100.0)
+    t0 = time.perf_counter()
+    for _ in range(NET_TIMED_IMAGES // NET_BATCH):
+        im8.predict(x)
+    out["torchnet_int8_b32_images_per_s"] = (
+        NET_TIMED_IMAGES / (time.perf_counter() - t0))
+    # K6's launches on this path (the plain-version forward counts none)
+    out["k6_launches"] = KERNEL_INT8_MATMUL.launches - k6_start
+    out["k6_routes"] = {r: c.launches - k6_routes[r]
+                        for r, c in KERNEL_INT8_ROUTES.items()}
+    del im8
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vgg16.pt")
+        t0 = time.perf_counter()
+        torch.jit.save(torch.jit.script(module), path)
+        scripted = Net.load_torch(path, (3, NET_HW, NET_HW))
+        torch.cuda.synchronize()
+        out["torchscript_save_load_s"] = time.perf_counter() - t0
+    same_weights = all(torch.equal(a, b) for a, b in zip(
+        model.parameters(), scripted.parameters()))
+    got_s = InferenceModel().from_keras(scripted).predict(x)
+    check(same_weights and np.array_equal(got_s, logits32),
+          "the TorchScript import's weights or logits differ from the "
+          "module import's")
+    del scripted, im, model
+    torch.cuda.empty_cache()
+
+    # (b) TFNet from a frozen GraphDef
+    with tempfile.TemporaryDirectory() as tmp:
+        pb = os.path.join(tmp, "vgg16.pb")
+        with open(pb, "wb") as f:
+            f.write(vgg16_graphdef(module))
+        out["graphdef_bytes"] = os.path.getsize(pb)
+        t0 = time.perf_counter()
+        net = Net.load_tf(pb)
+        out["graphdef_decode_s"] = time.perf_counter() - t0
+    # the layer itself: weights on the card from load, a numpy batch made
+    # there, a CPU tensor refused rather than the weights copied to it
+    check(all(p.is_cuda for p in net.parameters()),
+          "Net.load_tf left weights off the card")
+    with torch.no_grad():
+        direct = net(x)
+    ok, out["tfnet_direct_rel_err"] = close_to(direct.cpu().numpy(), ref)
+    check(direct.is_cuda and ok,
+          f"TFNet called on a numpy batch: on {direct.device}, off the "
+          f"module's by {out['tfnet_direct_rel_err']} of the largest")
+    del direct
+    try:
+        net(torch.from_numpy(x[:1]))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "TFNet ran a CPU tensor with its weights on the card")
+    seq = Sequential([net])
+    seq.init_weights(input_shape=(None, NET_HW, NET_HW, 3))
+    got_tf = InferenceModel().from_keras(seq).predict(x)
+    ok, out["tfnet_rel_err"] = close_to(got_tf, ref)
+    check(got_tf.shape == ref.shape and ok,
+          f"TFNet VGG-16 logits off the module's by {out['tfnet_rel_err']} "
+          f"of the largest")
+    del net, seq
+    torch.cuda.empty_cache()
+
+    # (c) SavedModel: VGG-16's classifier head
+    fcs = [m for m in module if isinstance(m, torch.nn.Linear)]
+    weights = {}
+    for j, fc in enumerate(fcs):
+        weights[f"fc{6 + j}/kernel"] = np.ascontiguousarray(
+            fc.weight.detach().cpu().numpy().T)
+        weights[f"fc{6 + j}/bias"] = fc.bias.detach().cpu().numpy()
+    feats = np.maximum(rng.normal(size=(NET_FT_ROWS, fcs[0].in_features)),
+                       0).astype(np.float32)
+    with torch.no_grad():
+        h = torch.from_numpy(feats[:NET_BATCH]).cuda()
+        for j, fc in enumerate(fcs):
+            h = fc(h)
+            h = torch.relu(h) if j < len(fcs) - 1 else torch.softmax(h, -1)
+        want = h.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_saved_model(tmp, weights)
+        out["saved_model_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        head = Net.load_tf(tmp)
+        out["saved_model_load_s"] = time.perf_counter() - t0
+    check(head.feed_names == ["features"] and head.output_names == ["probs"]
+          and len(list(head.parameters())) == 6,
+          f"SavedModel head: feeds {head.feed_names}, outputs "
+          f"{head.output_names}")
+    seq = Sequential([head])
+    seq.init_weights(input_shape=(None, fcs[0].in_features))
+    got_sm = seq.predict(feats[:NET_BATCH], batch_size=NET_BATCH)
+    ok, out["saved_model_rel_err"] = close_to(got_sm, want)
+    check(ok, f"SavedModel head off the torch math by "
+          f"{out['saved_model_rel_err']} of the largest")
+    fc8 = head.param("fc8/kernel").detach().clone()
+    labels = rng.integers(0, NET_CLASSES, NET_FT_ROWS).astype(np.int32)
+    seq.compile(optimizer="adam", loss="scce", lr=1e-4)
+    hist = seq.fit(feats, labels, batch_size=NET_BATCH, nb_epoch=1)
+    moved = float((head.param("fc8/kernel").detach() - fc8).abs().max())
+    out["saved_model_finetune"] = {"loss": hist["loss"],
+                                   "iterations": seq.finished_iterations,
+                                   "fc8_max_move": moved}
+    check(seq.finished_iterations == 3
+          and bool(np.all(np.isfinite(hist["loss"]))) and moved > 0,
+          f"SavedModel fine-tune: {out['saved_model_finetune']}")
+    del head, seq, module, module_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"net import {json.dumps(out)}")
+    return out
+
+
 #: phases ``--only`` runs alone (after the build), for a short call that
 #: checks one of them; the contract's run takes no arguments and runs all
 ONLY_PHASES = ("sentinel", "reliability", "mesh", "object_detection",
-               "c8_kernel", "static_int8_kernel", "int8_head", "fleet")
+               "c8_kernel", "static_int8_kernel", "int8_head", "fleet",
+               "net_import")
 
 
 #: each phase's wall seconds in this run (:func:`timed`)
@@ -9664,6 +10294,7 @@ def main(argv=()) -> int:
     conv3d = timed("conv3d_phase", conv3d_phase)
     detection = timed("object_detection_phase",
                       object_detection_phase)
+    net_import = timed("net_import_phase", net_import_phase)
     sentinel, guard_rows = timed("sentinel_phase", sentinel_phase)
     mesh = timed("mesh_phase", mesh_phase)
     rows = embed_kernel_rows(
@@ -9683,6 +10314,9 @@ def main(argv=()) -> int:
     # slice 21: TextClassifier's two Dense layers, weight-only int8 (the
     # predicts and the served lane) and static int8, batch 32
     k6_routes["skinny"] += text["launches"]["k6_skinny"]
+    # slice 26: VGG-16 imported from torch.nn, weight-only int8 (fc6-fc8)
+    for name, n in net_import["k6_routes"].items():
+        k6_routes[name] += n
     rows.append(int8_kernel_row(int8_rows, {
         "head_serving": int8_head["launches"],
         "bert_serving": int8_serving["launches"],
@@ -9690,7 +10324,8 @@ def main(argv=()) -> int:
         "resnet50_serving_int8": resnet_serving["k6_launches"]["int8_lane"],
         "resnet50_serving_multimodel":
             resnet_serving["k6_launches"]["multimodel"],
-        "text_classifier_int8": text["launches"]["k6"]}, k6_routes))
+        "text_classifier_int8": text["launches"]["k6"],
+        "net_import_vgg16_int8": net_import["k6_launches"]}, k6_routes))
     # Q8's launches by path and route (slice 24: the tensor-core routes)
     q8_names = [r for r in image_int8["c8_routes_b32"]
                 if r.startswith("q8_")]
@@ -9753,6 +10388,7 @@ def main(argv=()) -> int:
                       "resnet_training": resnet_training,
                       "text_classifier": text, "recurrent": recurrent,
                       "conv3d": conv3d, "object_detection": detection,
+                      "net_import": net_import,
                       "sentinel": sentinel,
                       "mesh": mesh,
                       "reliability": reliability, "card": card}))
